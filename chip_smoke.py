@@ -1,0 +1,460 @@
+"""Chip smoke for the PyTorch/CUDA port (paddle_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass:
+
+1. kernel vs plain: the hand-written paged-attention kernel, built from
+   paddle_tpu_torch/csrc/, against its plain PyTorch version on the card,
+   at a small shape (GQA, idle lane, NaN-poisoned NULL block) and at the
+   serving shapes (decode C=1, prefill C=chunk, and the fused step's
+   steady decode: C=chunk with one valid column per lane), f32 and bf16,
+   a bf16 output also held row by row against the plain version in f32
+   on the same bf16 inputs;
+2. serve at full width: GPTConfig() (12 x 768, vocab 32000, bf16, random
+   weights from a seed) through GenerationServer with continuous batching,
+   greedy and sampled requests and one mid-stream cancel; the kernel's
+   launch count over the run must equal iterations x layers;
+3. end-to-end agreement: the greedy requests in f32, once through the
+   kernel and once with the plain attention put in through the model's
+   ``attention`` hook, must give identical first 16 ids;
+4. times of the kernel, its plain version and a library yardstick
+   (scaled_dot_product_attention over K/V gathered dense beforehand), cold
+   L2 before every launch, beside the bound: the bytes the function must
+   move over the card's memory rate, or its operations over the bf16/f32
+   peak, whichever is larger;
+5. where a full-width step's time goes: torch.profiler over 20 steady
+   steps, the device's busy share and the kernel's part of it.
+
+The line before the last is a JSON object with the kernel table; the last
+line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+result, when CUDA is unavailable or any phase fails.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SEED = 0
+CHUNK = 16
+N_REQUESTS = 32
+NEW_TOKENS = 64
+AGREE_TOKENS = 16
+SHAPES = ("decode", "prefill", "step")
+
+
+def _fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _card_line():
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if res.returncode != 0:
+        _fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 1: kernel vs plain
+# ---------------------------------------------------------------------------
+
+def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
+              idle_lane=False, max_len=None, step=False, device="cuda"):
+    """Random paged-attention operands: pools (1 + b*m, hp, bs, d), each
+    lane's live blocks drawn from a shuffled free list, the NULL block
+    NaN-poisoned on request, lane 0 idle on request. `step` lays the
+    positions out as the fused step feeds a decoding lane: the position
+    in column 0 and 0 in the masked columns."""
+    rng = np.random.default_rng(seed)
+    n = 1 + b * m
+    k_pool = rng.standard_normal((n, hp, bs, d)).astype(np.float32)
+    v_pool = rng.standard_normal((n, hp, bs, d)).astype(np.float32)
+    k_pool[0] = np.nan if poison else 0.0
+    v_pool[0] = np.nan if poison else 0.0
+    q = rng.standard_normal((b, h, c, d)).astype(np.float32)
+    tables = np.zeros((b, m), np.int32)
+    q_pos = np.zeros((b, c), np.int32)
+    free = list(range(1, n))
+    rng.shuffle(free)
+    hi = max_len or m * bs - c
+    for i in range(b):
+        if idle_lane and i == 0:
+            continue
+        length = int(rng.integers(1, hi))
+        for j in range(-(-(length + c) // bs)):
+            tables[i, j] = free.pop()
+        if step:
+            q_pos[i, 0] = length
+        else:
+            q_pos[i] = np.arange(length, length + c)
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    return (t(q).to(dtype), t(k_pool).to(dtype), t(v_pool).to(dtype),
+            t(tables), t(q_pos))
+
+
+def _clean_null(args):
+    q, k_pool, v_pool, tables, pos = args
+    k_pool, v_pool = k_pool.clone(), v_pool.clone()
+    k_pool[0] = 0
+    v_pool[0] = 0
+    return q, k_pool, v_pool, tables, pos
+
+
+def serving_case(dtype, name):
+    """The serving shapes: 16 lanes, H=12, D=64, bs=16, M=64 (context
+    1024), lane 0 idle, NULL block NaN-poisoned."""
+    c = 1 if name == "decode" else CHUNK
+    return make_case(dtype, b=16, h=12, hp=12, c=c, d=64, bs=16, m=64,
+                     seed=2, poison=True, idle_lane=True,
+                     max_len=1024 - c, step=name == "step")
+
+
+def kernel_cases():
+    """(name, operands) at the small shape and the serving shapes."""
+    small = dict(b=3, h=4, hp=2, d=32, bs=8, m=6, poison=True,
+                 idle_lane=True)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for c in (4, 1):
+            cases.append((f"small_c{c}_{tag}",
+                          make_case(dt, c=c, seed=1, **small)))
+        for name in SHAPES:
+            cases.append((f"{name}_{tag}", serving_case(dt, name)))
+    return cases
+
+
+def _row_rel_err(out, ref):
+    """Max over output rows (lane, head, column) of the row's max-abs
+    error over the row's max |ref|."""
+    err = (out.float() - ref).abs().amax(dim=-1)
+    scale = ref.abs().amax(dim=-1).clamp_min(1e-30)
+    return (err / scale).max().item()
+
+
+def check_kernel(paged):
+    """Every case: kernel (poisoned NULL block) vs plain version (clean
+    copy: it gathers the NULL block, and 0 * NaN = NaN), finite output,
+    idle lane exactly 0. A bf16 case is also held row by row against the
+    plain version computed in f32 from the same bf16 inputs. Returns
+    {case: max_abs_err}."""
+    errs = {}
+    for name, args in kernel_cases():
+        out = paged.paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        clean = _clean_null(args)
+        ref = paged.paged_attention_reference(*clean)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            _fail(f"kernel output non-finite at {name}")
+        if out[0].abs().max().item() != 0.0:
+            _fail(f"idle lane not exactly 0 at {name}")
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = paged.TOLERANCE[args[0].dtype]
+        line = f"kernel {name}: max_abs_err {err:.3e} (tolerance {tol})"
+        rel = None
+        if args[0].dtype == torch.bfloat16:
+            q, k_pool, v_pool, tables, pos = clean
+            ref32 = paged.paged_attention_reference(
+                q.float(), k_pool.float(), v_pool.float(), tables, pos)
+            torch.cuda.synchronize()
+            rel = _row_rel_err(out, ref32)
+            line += (f", vs f32 plain: row max_rel_err {rel:.3e} "
+                     f"(tolerance {paged.BF16_ROW_REL_TOLERANCE})")
+        print(line)
+        if not err <= tol:
+            _fail(f"kernel disagrees with its plain version at {name}: "
+                  f"{err} > {tol}")
+        if rel is not None and not rel <= paged.BF16_ROW_REL_TOLERANCE:
+            _fail(f"bf16 kernel disagrees with the f32 plain version at "
+                  f"{name}: row error {rel} > "
+                  f"{paged.BF16_ROW_REL_TOLERANCE} of the row's scale")
+        errs[name] = err
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phases 2 and 3: serving
+# ---------------------------------------------------------------------------
+
+def make_requests(vocab):
+    """N_REQUESTS seeded prompts of 16..512 tokens; every third request
+    samples (alternating top-k and nucleus filters)."""
+    from paddle_tpu_torch.serving import SamplingParams
+    rng = np.random.default_rng(SEED + 1)
+    reqs = []
+    for i in range(N_REQUESTS):
+        prompt = rng.integers(0, vocab, int(rng.integers(16, 513)))
+        sampling = None
+        if i % 3 == 2:
+            sampling = (SamplingParams(temperature=0.8, top_k=50, seed=i)
+                        if i % 2 else
+                        SamplingParams(temperature=1.0, top_p=0.9, seed=i))
+        reqs.append((prompt.astype(np.int32), sampling))
+    return reqs
+
+
+def serve(model, requests, new_tokens, cancel=None):
+    """Submit every request to a fresh GenerationServer and pump steps
+    until idle; `cancel` = (request index, after how many steps). Returns
+    (server, futures, wall seconds, per-step host ms)."""
+    from paddle_tpu_torch.serving import GenerationServer
+    srv = GenerationServer(model, num_slots=16, block_size=16,
+                           max_context=1024, chunk=CHUNK, start=False)
+    futs = [srv.submit(p, max_new_tokens=new_tokens, sampling=s)
+            for p, s in requests]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_ms = []
+    while True:
+        # a step ends in the device-to-host copy of the chosen ids
+        ts = time.perf_counter()
+        if not srv.step():
+            break
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        if cancel is not None and len(step_ms) == cancel[1]:
+            if not futs[cancel[0]].cancel():
+                _fail("mid-stream cancel refused")
+    torch.cuda.synchronize()
+    return srv, futs, time.perf_counter() - t0, step_ms
+
+
+def phase_serve(paged, cfg, tree):
+    from paddle_tpu_torch.models.gpt import params_from_numpy
+    from paddle_tpu_torch.serving import GPTServingModel
+    model = GPTServingModel(params_from_numpy(tree, "cuda"), cfg,
+                            dtype=torch.bfloat16)
+    requests = make_requests(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    paged.LAUNCHES = 0
+    srv, futs, wall, step_ms = serve(model, requests, NEW_TOKENS,
+                                     cancel=(5, 40))
+    launches = paged.LAUNCHES
+    st = srv.get_stats()
+    if not futs[5].cancelled():
+        _fail("the cancelled request was not cancelled")
+    generated = 0
+    for i, f in enumerate(futs):
+        if i == 5:
+            continue
+        res = f.result(timeout=0)
+        ids = np.asarray(res.token_ids)
+        if len(ids) != NEW_TOKENS or ids.min() < 0 \
+                or ids.max() >= cfg.vocab_size \
+                or not np.isfinite(res.score):
+            _fail(f"request {i}: {len(ids)} ids, score {res.score}")
+        generated += len(ids)
+    if st["cancelled"] != 1 or st["retired"] != N_REQUESTS - 1 \
+            or st["blocks_free"] != st["blocks_total"]:
+        _fail(f"scheduler end state: {st}")
+    if launches <= 0 or launches != st["iterations"] * cfg.num_layers:
+        _fail(f"kernel launches {launches} != iterations "
+              f"{st['iterations']} x {cfg.num_layers} layers")
+    out = {"iterations": st["iterations"], "launches": launches,
+           "generated_tokens": generated,
+           "prefill_tokens": st["prefill_tokens"],
+           "wall_s": wall, "tokens_per_s": generated / wall,
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print("serve " + json.dumps(out))
+    return launches, requests, out
+
+
+def phase_agree(paged, cfg, tree, requests):
+    from paddle_tpu_torch.models.gpt import params_from_numpy
+    from paddle_tpu_torch.serving import GPTServingModel
+    greedy = [(p, None) for p, s in requests if s is None]
+    params = params_from_numpy(tree, "cuda")
+    ids = []
+    for attention in (None, paged.paged_attention_reference):
+        model = GPTServingModel(params, cfg, attention=attention)
+        futs = serve(model, greedy, AGREE_TOKENS)[1]
+        ids.append([list(f.result(timeout=0).token_ids) for f in futs])
+    same = sum(a == b for a, b in zip(*ids))
+    print(f"agree f32: {same}/{len(greedy)} greedy requests identical in "
+          f"their first {AGREE_TOKENS} ids (kernel vs plain attention)")
+    if same != len(greedy):
+        _fail("f32 kernel and plain attention served different ids")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: times
+# ---------------------------------------------------------------------------
+
+def _time_ms(fn, reps=50, warmup=5):
+    """Mean device ms of fn(), with the 50 MB L2 flushed before each
+    launch (the fused step reads each layer's pools cold). A sleep kernel
+    holds the device first, so the host queues every launch ahead and the
+    events time the device work only, not the host's Python between
+    them."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)      # ~50 ms at H100 clocks
+    for i in range(reps):
+        flush.zero_()
+        starts[i].record()
+        fn()
+        ends[i].record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
+
+
+def bound_ms(args):
+    """The larger of (bytes the function must move / memory rate) and
+    (its operations / peak rate): q, table and positions read once, the
+    output written once, and the live K/V blocks (non-NULL, below each
+    lane's early stop) read once; QK^T and PV over the live keys."""
+    q, k_pool, _, tables, pos = args
+    b, h, c, d = q.shape
+    _, hp, bs, _ = k_pool.shape
+    tb = tables.cpu().numpy()
+    n_live = np.minimum(pos.cpu().numpy().max(axis=1) // bs + 1,
+                        tb.shape[1])
+    live_blocks = np.array([np.count_nonzero(tb[i, :n_live[i]])
+                            for i in range(b)])
+    kv = 2 * int(live_blocks.sum()) * hp * bs * d * k_pool.element_size()
+    moved = (kv + 2 * q.numel() * q.element_size()
+             + tables.numel() * 4 + pos.numel() * 4)
+    flops = 4 * int(live_blocks.sum()) * bs * (h // hp) * hp * c * d
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def library_call(args):
+    """scaled_dot_product_attention over K/V gathered dense beforehand,
+    with the position mask: the yardstick, timed only."""
+    from paddle_tpu_torch.ops.cuda.paged import gather_block_kv_pair
+    import torch.nn.functional as F
+    q, k_pool, v_pool, tables, pos = _clean_null(args)
+    gk, gv = gather_block_kv_pair(k_pool, v_pool, tables)
+    key_pos = torch.arange(gk.shape[2], device=q.device)
+    mask = key_pos[None, None, None, :] <= pos[:, None, :, None]
+    return lambda: F.scaled_dot_product_attention(q, gk, gv,
+                                                  attn_mask=mask)
+
+
+def phase_times(paged):
+    rows = {}
+    for name in SHAPES:
+        args = serving_case(torch.bfloat16, name)
+        clean = _clean_null(args)
+        b_ms, b_by = bound_ms(args)
+        rows[name] = {
+            "shape": list(args[0].shape),
+            "ms": _time_ms(lambda: paged.paged_attention_cuda(*args)),
+            "plain_ms": _time_ms(
+                lambda: paged.paged_attention_reference(*clean)),
+            "library_ms": _time_ms(library_call(args)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"times {name} bf16 " + json.dumps(rows[name]))
+    return rows
+
+
+def phase_profile(cfg, tree, warm_steps=60, steps=20):
+    """Where a full-width step's time goes: serve the request mix, skip
+    `warm_steps`, then trace `steps` steps with torch.profiler. Prints the
+    host wall per step, the device's kernel time per step (its busy
+    share; one stream, so kernels do not overlap), the paged-attention
+    kernel's share, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from paddle_tpu_torch.models.gpt import params_from_numpy
+    from paddle_tpu_torch.serving import GenerationServer, GPTServingModel
+    model = GPTServingModel(params_from_numpy(tree, "cuda"), cfg,
+                            dtype=torch.bfloat16)
+    srv = GenerationServer(model, num_slots=16, block_size=16,
+                           max_context=1024, chunk=CHUNK, start=False)
+    for p, s in make_requests(cfg.vocab_size):
+        srv.submit(p, max_new_tokens=NEW_TOKENS, sampling=s)
+    for _ in range(warm_steps):
+        srv.step()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            if not srv.step():
+                _fail("the request mix drained before the profile")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    dev_us = {e.key: e.self_device_time_total for e in kernels}
+    busy = sum(dev_us.values()) / steps / 1e3
+    attn = sum(v for k, v in dev_us.items()
+               if "paged_attention" in k) / steps / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    out = {"steps": steps, "after_steps": warm_steps,
+           "wall_ms_per_step": wall / steps * 1e3,
+           "device_ms_per_step": busy,
+           "device_busy_share": busy / (wall / steps * 1e3),
+           "paged_attention_ms_per_step": attn,
+           "top_kernels_ms_per_step": [[k[:80], v / steps / 1e3]
+                                       for k, v in top]}
+    if busy <= 0:
+        _fail("the profiler saw no device time")
+    print("profile " + json.dumps(out))
+
+
+def main():
+    if not torch.cuda.is_available():
+        _fail("CUDA is not available")
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_params
+    from paddle_tpu_torch.ops.cuda import paged
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_build = time.perf_counter()
+    paged.build()
+    print(f"build {time.perf_counter() - t_build:.1f} s")
+    cfg = GPTConfig()
+    tree = init_params(cfg, seed=SEED)
+    errs = check_kernel(paged)
+    launches, requests, _ = phase_serve(paged, cfg, tree)
+    phase_agree(paged, cfg, tree, requests)
+    times = phase_times(paged)
+    phase_profile(cfg, tree)
+    card = _card_line()
+    step = times["step"]
+    kernel = {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged.py:134 (_paged_kernel), "
+                    "paddle_tpu/ops/pallas/paged.py:333 (_paged_kernel_v2)",
+        "launches": launches,
+        "max_abs_err": max(errs[f"{n}_bf16"] for n in SHAPES),
+        "ms": step["ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+        "library_ms": step["library_ms"],
+        "at": "fused-step decode: 16 lanes x H 12 x C 16 (one valid "
+              "column) x D 64, bs 16, M 64, bf16",
+        "shapes": times,
+    }
+    print(card)
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,176 @@
+"""Paged KV cache: block pools with per-request block tables.
+
+Counterpart of ``paddle_tpu/serving/kv_cache.py``. Per layer the pools
+are ``k_pool, v_pool : (num_blocks, H_kv, block_size, D)``; a request's
+block table (max_blocks,) int32 says that logical position p lives in
+pool block ``table[p // block_size]`` at row ``p % block_size``. Length is
+data (positions and tables), never shape. Block 0 is the reserved NULL
+block: table padding and masked-token writes land there, and attention
+never reads it.
+
+``paged_attention`` routes CUDA tensors to the hand-written kernel and
+CPU tensors to the plain version (``ops/cuda/paged.py``), and nothing
+else chooses between them. ``write_block_kv`` writes the pools in place.
+
+This slice ports the functional ops and the allocator half of
+``PagedKVCache``; the host tier, sibling caches, copy-on-write, fleet
+transfer, int8 pools and meshes wait.
+"""
+
+import numpy as np
+import torch
+
+from ..ops.cuda.paged import (NEG_INF, NULL_BLOCK, gather_block_kv,
+                              gather_block_kv_pair, paged_attention_cuda,
+                              paged_attention_reference)
+
+__all__ = ["PagedKVCache", "paged_attention", "paged_attention_reference",
+           "gather_block_kv", "gather_block_kv_pair", "write_block_kv",
+           "NULL_BLOCK", "NEG_INF"]
+
+
+def paged_attention(q, k_pool, v_pool, block_table, q_positions):
+    """Paged attention dispatcher: CUDA tensors launch the hand-written
+    kernel (which raises on operands it does not take), CPU tensors take
+    the plain version. Nothing else chooses between them.
+
+    q (B, H, C, D); k/v_pool (N, H_kv, bs, D); table (B, M) int32;
+    positions (B, C) int32 -> (B, H, C, D) in the pool dtype."""
+    if q.is_cuda:
+        return paged_attention_cuda(q, k_pool, v_pool, block_table,
+                                    q_positions)
+    return paged_attention_reference(q, k_pool, v_pool, block_table,
+                                     q_positions)
+
+
+def write_block_kv(pool, vals, block_idx, offset):
+    """Scatter vals (S, C, H, D) into pool (N, H, bs, D) at
+    (block_idx (S, C), :, offset (S, C), :), IN PLACE, and return the
+    pool. The two index tensors are separated by a slice, so the indexed
+    view is (S, C, H, D), as in JAX. Masked tokens should be routed to
+    (NULL_BLOCK, 0) by the caller; the pool dtype wins."""
+    pool[block_idx.long(), :, offset.long(), :] = vals.to(pool.dtype)
+    return pool
+
+
+class PagedKVCache:
+    """Device block pools (one k/v pair per layer) + a host free list.
+
+    Allocation is host-side bookkeeping (ints in a list); the pools keep
+    their shapes for the cache's lifetime. Every allocated block carries
+    a refcount: `free` is the single-owner release and refuses double
+    frees and frees of shared blocks; `unref` returns a block to the
+    free list when its last reference drops."""
+
+    def __init__(self, num_layers, num_heads, head_dim, num_blocks,
+                 block_size=16, dtype=torch.float32, device="cpu",
+                 num_kv_heads=None):
+        if num_blocks < 2:
+            raise ValueError("need >= 2 blocks (block 0 is reserved NULL)")
+        self.num_layers = int(num_layers)
+        self.num_heads = int(num_heads)
+        self.head_dim = int(head_dim)
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self.num_kv_heads = (int(num_kv_heads) if num_kv_heads
+                             else self.num_heads)
+        if self.num_kv_heads < 1 or self.num_heads % self.num_kv_heads:
+            raise ValueError(
+                f"num_kv_heads={self.num_kv_heads} must divide "
+                f"num_heads={self.num_heads}")
+        self.dtype = dtype
+        self.device = torch.device(device)
+        shape = (self.num_blocks, self.num_kv_heads, self.block_size,
+                 self.head_dim)
+        self.pools = [{"k": torch.zeros(shape, dtype=dtype,
+                                        device=self.device),
+                       "v": torch.zeros(shape, dtype=dtype,
+                                        device=self.device)}
+                      for _ in range(self.num_layers)]
+        # LIFO free list; block 0 (NULL) is never handed out
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+        self._ref = {}      # block -> live references (absent = free)
+
+    @property
+    def usable_blocks(self):
+        return self.num_blocks - 1
+
+    def pool_bytes(self):
+        """Bytes of every block pool (k+v across layers)."""
+        per = (self.num_blocks * self.num_kv_heads * self.block_size
+               * self.head_dim * torch.finfo(self.dtype).bits // 8)
+        return 2 * self.num_layers * per
+
+    @property
+    def num_free(self):
+        return len(self._free)
+
+    @property
+    def num_used(self):
+        return self.usable_blocks - len(self._free)
+
+    def utilization(self):
+        return self.num_used / self.usable_blocks
+
+    def blocks_for_tokens(self, n_tokens):
+        return -(-int(n_tokens) // self.block_size)
+
+    def allocate(self, n):
+        """n blocks or None (caller backs off; nothing partial)."""
+        if n > len(self._free):
+            return None
+        taken = [self._free.pop() for _ in range(n)]
+        for b in taken:
+            self._ref[b] = 1
+        return taken
+
+    def free(self, blocks):
+        """Single-owner release; shared blocks go through unref()."""
+        for b in blocks:
+            b = int(b)
+            if b == NULL_BLOCK:
+                raise ValueError("freeing the reserved NULL block")
+            c = self._ref.get(b, 0)
+            if c == 0:
+                raise ValueError(
+                    f"double free of block {b}: it is already on the "
+                    f"free list")
+            if c > 1:
+                raise ValueError(
+                    f"freeing block {b} while {c - 1} other "
+                    f"reference(s) are live; shared blocks are released "
+                    f"with unref()")
+            del self._ref[b]
+            self._free.append(b)
+
+    def ref(self, block):
+        """One more reference to an allocated block."""
+        block = int(block)
+        if block == NULL_BLOCK:
+            raise ValueError("ref of the reserved NULL block")
+        if block not in self._ref:
+            raise ValueError(f"ref of free block {block}")
+        self._ref[block] += 1
+
+    def unref(self, block):
+        """Drop one reference; True when that freed the block."""
+        block = int(block)
+        c = self._ref.get(block, 0)
+        if c == 0:
+            raise ValueError(f"unref of free block {block}")
+        if c == 1:
+            del self._ref[block]
+            self._free.append(block)
+            return True
+        self._ref[block] = c - 1
+        return False
+
+    def refcount(self, block):
+        return self._ref.get(int(block), 0)
+
+    def make_table(self, blocks, max_blocks):
+        """Host block list -> fixed-width numpy int32 row, NULL-padded
+        (the scheduler builds each step's tables on the host)."""
+        t = np.full((max_blocks,), NULL_BLOCK, np.int32)
+        t[:len(blocks)] = blocks
+        return t
