@@ -6,29 +6,39 @@ Phases, each of which must pass:
 
 1. kernel vs plain: the hand-written paged-attention kernel, built from
    paddle_tpu_torch/csrc/, against its plain PyTorch version on the card,
-   at a small shape (GQA, idle lane, NaN-poisoned NULL block) and at the
+   dense pools (q in the pool dtype) and int8 pools (codes with f32 row
+   scales, q f32 or bf16), at a small shape (GQA, idle lane, NaN-poisoned
+   NULL block; for int8 its codes 127 and its scales NaN) and at the
    serving shapes (decode C=1, prefill C=chunk, and the fused step's
-   steady decode: C=chunk with one valid column per lane), f32 and bf16,
-   a bf16 output also held row by row against the plain version in f32
-   on the same bf16 inputs;
+   steady decode: C=chunk with one valid column per lane; H 12 for dense,
+   H 12 over H_kv 4 for int8), f32 and bf16 q, a bf16 output also held row
+   by row against the plain version with q in f32 on the same pools;
 2. serve at full width: GPTConfig() (12 x 768, vocab 32000, bf16, random
    weights from a seed) through GenerationServer with continuous batching,
    greedy and sampled requests and one mid-stream cancel; the kernel's
    launch count over the run must equal iterations x layers;
+2b. serve the int8 path at full width: GPTConfig(kv_heads=4) (12 query
+   heads over 4 KV heads), bf16 activations, int8 weights and int8 KV
+   pools, the same request mix; launches = iterations x layers, 72 int8
+   weights, pool bytes <= 0.56x the same blocks dense in bf16, printed
+   beside bf16 MHA pools of the same block count;
 3. end-to-end agreement: the greedy requests in f32, once through the
    kernel and once with the plain attention put in through the model's
    ``attention`` hook, must give identical first 16 ids;
+3b. the same for phase 2b's configuration in f32 (int8 KV, int8 weights);
 4. times of the kernel, its plain version and a library yardstick
-   (scaled_dot_product_attention over K/V gathered dense beforehand), cold
-   L2 before every launch, beside the bound: the bytes the function must
-   move over the card's memory rate, or its operations over the bf16/f32
-   peak, whichever is larger;
+   (scaled_dot_product_attention over K/V gathered, for int8 also
+   dequantized, dense beforehand), cold L2 before every launch, beside the
+   bound: the bytes the function must move over the card's memory rate,
+   or its operations over the bf16/f32 peak, whichever is larger;
 5. where a full-width step's time goes: torch.profiler over 20 steady
-   steps, the device's busy share and the kernel's part of it.
+   steps of phase 2's and of phase 2b's server, the device's busy share
+   and the kernel's part of it.
 
-The line before the last is a JSON object with the kernel table; the last
-line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
-result, when CUDA is unavailable or any phase fails.
+Each phase prints its seconds. The line before the last is a JSON object
+with the kernel table (the dense and the int8 variant of the kernel);
+the last line is ``{"ok": true, "device": {...}}``. Exits non-zero,
+printing no result, when CUDA is unavailable or any phase fails.
 """
 
 import json
@@ -47,6 +57,7 @@ N_REQUESTS = 32
 NEW_TOKENS = 64
 AGREE_TOKENS = 16
 SHAPES = ("decode", "prefill", "step")
+KV_HEADS = 4                        # phase 2b's GQA: 12 query heads over 4
 
 
 def _fail(msg):
@@ -69,12 +80,16 @@ def _card_line():
 # ---------------------------------------------------------------------------
 
 def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
-              idle_lane=False, max_len=None, step=False, device="cuda"):
-    """Random paged-attention operands: pools (1 + b*m, hp, bs, d), each
-    lane's live blocks drawn from a shuffled free list, the NULL block
-    NaN-poisoned on request, lane 0 idle on request. `step` lays the
-    positions out as the fused step feeds a decoding lane: the position
-    in column 0 and 0 in the masked columns."""
+              idle_lane=False, max_len=None, step=False, int8=False,
+              device="cuda"):
+    """Random paged-attention operands ((q, k_pool, v_pool, table,
+    positions), scales): pools (1 + b*m, hp, bs, d), each lane's live
+    blocks drawn from a shuffled free list, the NULL block NaN-poisoned on
+    request, lane 0 idle on request. `step` lays the positions out as the
+    fused step feeds a decoding lane: the position in column 0 and 0 in
+    the masked columns. `int8` quantizes the pools with the port's
+    quantize_kv_rows (scales {"k_scale", "v_scale"}, else {}); q stays in
+    `dtype`, and a poisoned NULL block holds codes 127 and NaN scales."""
     rng = np.random.default_rng(seed)
     n = 1 + b * m
     k_pool = rng.standard_normal((n, hp, bs, d)).astype(np.float32)
@@ -101,39 +116,59 @@ def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
     def t(x):
         return torch.from_numpy(x).to(device)
 
-    return (t(q).to(dtype), t(k_pool).to(dtype), t(v_pool).to(dtype),
-            t(tables), t(q_pos))
+    q, tables, q_pos = t(q).to(dtype), t(tables), t(q_pos)
+    if not int8:
+        return (q, t(k_pool).to(dtype), t(v_pool).to(dtype), tables,
+                q_pos), {}
+    from paddle_tpu_torch.serving.kv_cache import quantize_kv_rows
+    kq, ks = quantize_kv_rows(t(k_pool))
+    vq, vs = quantize_kv_rows(t(v_pool))
+    if poison:
+        kq[0] = vq[0] = 127
+        ks[0] = vs[0] = float("nan")
+    return (q, kq, vq, tables, q_pos), {"k_scale": ks, "v_scale": vs}
 
 
-def _clean_null(args):
-    q, k_pool, v_pool, tables, pos = args
+def _clean_null(case):
+    """A copy of the pools whose NULL block holds what a fresh cache
+    does (zeros; for int8, zero codes and scale 1.0): the plain version
+    gathers the NULL block, and 0 * NaN = NaN."""
+    (q, k_pool, v_pool, tables, pos), scales = case
     k_pool, v_pool = k_pool.clone(), v_pool.clone()
     k_pool[0] = 0
     v_pool[0] = 0
-    return q, k_pool, v_pool, tables, pos
+    scales = {k: v.clone() for k, v in scales.items()}
+    for v in scales.values():
+        v[0] = 1.0
+    return (q, k_pool, v_pool, tables, pos), scales
 
 
-def serving_case(dtype, name):
-    """The serving shapes: 16 lanes, H=12, D=64, bs=16, M=64 (context
-    1024), lane 0 idle, NULL block NaN-poisoned."""
+def serving_case(dtype, name, int8=False):
+    """The serving shapes: 16 lanes, H=12 (over H_kv=4 for int8), D=64,
+    bs=16, M=64 (context 1024), lane 0 idle, NULL block NaN-poisoned."""
     c = 1 if name == "decode" else CHUNK
-    return make_case(dtype, b=16, h=12, hp=12, c=c, d=64, bs=16, m=64,
-                     seed=2, poison=True, idle_lane=True,
-                     max_len=1024 - c, step=name == "step")
+    return make_case(dtype, b=16, h=12, hp=KV_HEADS if int8 else 12, c=c,
+                     d=64, bs=16, m=64, seed=2, poison=True, idle_lane=True,
+                     max_len=1024 - c, step=name == "step", int8=int8)
 
 
 def kernel_cases():
-    """(name, operands) at the small shape and the serving shapes."""
+    """(name, case) at the small shape and the serving shapes, dense and
+    int8 pools, f32 and bf16 q."""
     small = dict(b=3, h=4, hp=2, d=32, bs=8, m=6, poison=True,
                  idle_lane=True)
     cases = []
-    for dt in (torch.float32, torch.bfloat16):
-        tag = "f32" if dt == torch.float32 else "bf16"
-        for c in (4, 1):
-            cases.append((f"small_c{c}_{tag}",
-                          make_case(dt, c=c, seed=1, **small)))
-        for name in SHAPES:
-            cases.append((f"{name}_{tag}", serving_case(dt, name)))
+    for int8 in (False, True):
+        pre = "int8_" if int8 else ""
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            for c in (4, 1):
+                cases.append((f"{pre}small_c{c}_{tag}",
+                              make_case(dt, c=c, seed=1, int8=int8,
+                                        **small)))
+            for name in SHAPES:
+                cases.append((f"{pre}{name}_{tag}",
+                              serving_case(dt, name, int8)))
     return cases
 
 
@@ -149,14 +184,15 @@ def check_kernel(paged):
     """Every case: kernel (poisoned NULL block) vs plain version (clean
     copy: it gathers the NULL block, and 0 * NaN = NaN), finite output,
     idle lane exactly 0. A bf16 case is also held row by row against the
-    plain version computed in f32 from the same bf16 inputs. Returns
-    {case: max_abs_err}."""
+    plain version computed with q in f32 (and, for dense pools, the pools
+    in f32) from the same bf16 inputs. Returns {case: max_abs_err}."""
     errs = {}
-    for name, args in kernel_cases():
-        out = paged.paged_attention_cuda(*args)
+    for name, case in kernel_cases():
+        args, scales = case
+        out = paged.paged_attention_cuda(*args, **scales)
         torch.cuda.synchronize()
-        clean = _clean_null(args)
-        ref = paged.paged_attention_reference(*clean)
+        clean, cscales = _clean_null(case)
+        ref = paged.paged_attention_reference(*clean, **cscales)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
             _fail(f"kernel output non-finite at {name}")
@@ -168,8 +204,10 @@ def check_kernel(paged):
         rel = None
         if args[0].dtype == torch.bfloat16:
             q, k_pool, v_pool, tables, pos = clean
+            if not cscales:
+                k_pool, v_pool = k_pool.float(), v_pool.float()
             ref32 = paged.paged_attention_reference(
-                q.float(), k_pool.float(), v_pool.float(), tables, pos)
+                q.float(), k_pool, v_pool, tables, pos, **cscales)
             torch.cuda.synchronize()
             rel = _row_rel_err(out, ref32)
             line += (f", vs f32 plain: row max_rel_err {rel:.3e} "
@@ -207,13 +245,27 @@ def make_requests(vocab):
     return reqs
 
 
-def serve(model, requests, new_tokens, cancel=None):
+def make_server(model, kv_dtype=None):
+    from paddle_tpu_torch.serving import GenerationServer
+    return GenerationServer(model, num_slots=16, block_size=16,
+                            max_context=1024, chunk=CHUNK, start=False,
+                            kv_dtype=kv_dtype)
+
+
+def make_model(cfg, tree, dtype=None, int8=False, attention=None):
+    """The serving model on the card; `int8` quantizes its weights."""
+    from paddle_tpu_torch.models.gpt import params_from_numpy
+    from paddle_tpu_torch.serving import GPTServingModel
+    model = GPTServingModel(params_from_numpy(tree, "cuda"), cfg,
+                            dtype=dtype, attention=attention)
+    return model.quantize_int8() if int8 else model
+
+
+def serve(model, requests, new_tokens, cancel=None, kv_dtype=None):
     """Submit every request to a fresh GenerationServer and pump steps
     until idle; `cancel` = (request index, after how many steps). Returns
     (server, futures, wall seconds, per-step host ms)."""
-    from paddle_tpu_torch.serving import GenerationServer
-    srv = GenerationServer(model, num_slots=16, block_size=16,
-                           max_context=1024, chunk=CHUNK, start=False)
+    srv = make_server(model, kv_dtype)
     futs = [srv.submit(p, max_new_tokens=new_tokens, sampling=s)
             for p, s in requests]
     torch.cuda.synchronize()
@@ -232,16 +284,18 @@ def serve(model, requests, new_tokens, cancel=None):
     return srv, futs, time.perf_counter() - t0, step_ms
 
 
-def phase_serve(paged, cfg, tree):
-    from paddle_tpu_torch.models.gpt import params_from_numpy
-    from paddle_tpu_torch.serving import GPTServingModel
-    model = GPTServingModel(params_from_numpy(tree, "cuda"), cfg,
-                            dtype=torch.bfloat16)
+def phase_serve(paged, cfg, tree, int8=False):
+    """Serve the request mix at full width in bf16: dense (phase 2) or
+    int8 weights and int8 KV pools (phase 2b). Returns (launches,
+    requests, numbers)."""
+    kv_dtype = "int8" if int8 else None
+    model = make_model(cfg, tree, torch.bfloat16, int8)
     requests = make_requests(cfg.vocab_size)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     paged.LAUNCHES = 0
     srv, futs, wall, step_ms = serve(model, requests, NEW_TOKENS,
-                                     cancel=(5, 40))
+                                     cancel=(5, 40), kv_dtype=kv_dtype)
     launches = paged.LAUNCHES
     st = srv.get_stats()
     if not futs[5].cancelled():
@@ -270,25 +324,50 @@ def phase_serve(paged, cfg, tree):
            "step_ms_p50": float(np.percentile(step_ms, 50)),
            "step_ms_p99": float(np.percentile(step_ms, 99)),
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    print("serve " + json.dumps(out))
+    if int8:
+        out.update(int8_pools(cfg, srv, st))
+    print(("serve int8 " if int8 else "serve ") + json.dumps(out))
     return launches, requests, out
 
 
-def phase_agree(paged, cfg, tree, requests):
-    from paddle_tpu_torch.models.gpt import params_from_numpy
-    from paddle_tpu_torch.serving import GPTServingModel
+def int8_pools(cfg, srv, st):
+    """Phase 2b's pool checks: 6 int8 weights a layer, pool bytes (codes
+    and scales) <= 0.56x the same blocks dense in bf16, and beside them
+    bf16 MHA pools of the same block count (68/128 x 4/12 = 0.18 at
+    D 64), counted on the meta device."""
+    from paddle_tpu_torch.serving import PagedKVCache
+    kq = st["kv_quant"]
+    if kq is None or kq["int8_weights"] != 6 * cfg.num_layers:
+        _fail(f"int8 serve: kv_quant {kq}")
+    if not kq["bytes_ratio_vs_dense"] <= 0.56:
+        _fail(f"int8 pools at {kq['bytes_ratio_vs_dense']} of dense bf16 "
+              f"(want <= 0.56)")
+    c = srv.cache
+    mha = PagedKVCache(c.num_layers, c.num_heads, c.head_dim, c.num_blocks,
+                       block_size=c.block_size, dtype=torch.bfloat16,
+                       device="meta").pool_bytes()
+    return {"kv_quant": kq, "num_blocks": c.num_blocks,
+            "bf16_mha_pool_bytes": mha,
+            "ratio_vs_bf16_mha": kq["pool_bytes"] / mha}
+
+
+def phase_agree(paged, cfg, tree, requests, int8=False):
+    """The greedy requests in f32 through the kernel and through the
+    plain attention: identical first AGREE_TOKENS ids. `int8` serves
+    int8 weights from int8 KV pools (phase 3b)."""
     greedy = [(p, None) for p, s in requests if s is None]
-    params = params_from_numpy(tree, "cuda")
     ids = []
     for attention in (None, paged.paged_attention_reference):
-        model = GPTServingModel(params, cfg, attention=attention)
-        futs = serve(model, greedy, AGREE_TOKENS)[1]
+        model = make_model(cfg, tree, int8=int8, attention=attention)
+        futs = serve(model, greedy, AGREE_TOKENS,
+                     kv_dtype="int8" if int8 else None)[1]
         ids.append([list(f.result(timeout=0).token_ids) for f in futs])
     same = sum(a == b for a, b in zip(*ids))
-    print(f"agree f32: {same}/{len(greedy)} greedy requests identical in "
-          f"their first {AGREE_TOKENS} ids (kernel vs plain attention)")
+    tag = "int8 " if int8 else ""
+    print(f"agree {tag}f32: {same}/{len(greedy)} greedy requests identical "
+          f"in their first {AGREE_TOKENS} ids (kernel vs plain attention)")
     if same != len(greedy):
-        _fail("f32 kernel and plain attention served different ids")
+        _fail(f"{tag}f32 kernel and plain attention served different ids")
 
 
 # ---------------------------------------------------------------------------
@@ -317,12 +396,14 @@ def _time_ms(fn, reps=50, warmup=5):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
 
 
-def bound_ms(args):
+def bound_ms(case):
     """The larger of (bytes the function must move / memory rate) and
     (its operations / peak rate): q, table and positions read once, the
-    output written once, and the live K/V blocks (non-NULL, below each
-    lane's early stop) read once; QK^T and PV over the live keys."""
-    q, k_pool, _, tables, pos = args
+    output (q's dtype) written once, and the live K/V blocks (non-NULL,
+    below each lane's early stop) read once at the pool's element size,
+    with their f32 row scales for int8 pools; QK^T and PV over the live
+    keys, at q's dtype's peak."""
+    (q, k_pool, _, tables, pos), scales = case
     b, h, c, d = q.shape
     _, hp, bs, _ = k_pool.shape
     tb = tables.cpu().numpy()
@@ -331,6 +412,8 @@ def bound_ms(args):
     live_blocks = np.array([np.count_nonzero(tb[i, :n_live[i]])
                             for i in range(b)])
     kv = 2 * int(live_blocks.sum()) * hp * bs * d * k_pool.element_size()
+    if scales:
+        kv += 2 * int(live_blocks.sum()) * hp * bs * 4
     moved = (kv + 2 * q.numel() * q.element_size()
              + tables.numel() * 4 + pos.numel() * 4)
     flops = 4 * int(live_blocks.sum()) * bs * (h // hp) * hp * c * d
@@ -340,49 +423,61 @@ def bound_ms(args):
                                  else "operations")
 
 
-def library_call(args):
-    """scaled_dot_product_attention over K/V gathered dense beforehand,
-    with the position mask: the yardstick, timed only."""
-    from paddle_tpu_torch.ops.cuda.paged import gather_block_kv_pair
+def library_call(case):
+    """scaled_dot_product_attention over K/V gathered dense beforehand
+    (int8 pools: gathered and dequantized into q's dtype beforehand, so
+    it reads bf16, not int8), with the position mask and the GQA group
+    mapping: the yardstick, timed only."""
+    from paddle_tpu_torch.ops.cuda.paged import (gather_block_kv_pair,
+                                                 gather_block_scales)
     import torch.nn.functional as F
-    q, k_pool, v_pool, tables, pos = _clean_null(args)
+    (q, k_pool, v_pool, tables, pos), scales = _clean_null(case)
     gk, gv = gather_block_kv_pair(k_pool, v_pool, tables)
+    if scales:
+        gk = (gk.float() * gather_block_scales(scales["k_scale"], tables)
+              [..., None]).to(q.dtype)
+        gv = (gv.float() * gather_block_scales(scales["v_scale"], tables)
+              [..., None]).to(q.dtype)
     key_pos = torch.arange(gk.shape[2], device=q.device)
     mask = key_pos[None, None, None, :] <= pos[:, None, :, None]
+    gqa = gk.shape[1] != q.shape[1]
     return lambda: F.scaled_dot_product_attention(q, gk, gv,
-                                                  attn_mask=mask)
+                                                  attn_mask=mask,
+                                                  enable_gqa=gqa)
 
 
-def phase_times(paged):
+def phase_times(paged, int8=False):
+    """Kernel, plain and library ms and the bound at the three serving
+    shapes with bf16 q (dense pools, or int8 pools over H_kv 4)."""
     rows = {}
     for name in SHAPES:
-        args = serving_case(torch.bfloat16, name)
-        clean = _clean_null(args)
-        b_ms, b_by = bound_ms(args)
+        case = serving_case(torch.bfloat16, name, int8)
+        args, scales = case
+        clean, cscales = _clean_null(case)
+        b_ms, b_by = bound_ms(case)
         rows[name] = {
-            "shape": list(args[0].shape),
-            "ms": _time_ms(lambda: paged.paged_attention_cuda(*args)),
+            "shape": list(args[0].shape), "kv_heads": args[1].shape[1],
+            "ms": _time_ms(lambda: paged.paged_attention_cuda(*args,
+                                                              **scales)),
             "plain_ms": _time_ms(
-                lambda: paged.paged_attention_reference(*clean)),
-            "library_ms": _time_ms(library_call(args)),
+                lambda: paged.paged_attention_reference(*clean, **cscales)),
+            "library_ms": _time_ms(library_call(case)),
             "bound_ms": b_ms, "bound_by": b_by}
-        print(f"times {name} bf16 " + json.dumps(rows[name]))
+        tag = "int8 pools, bf16 q" if int8 else "bf16"
+        print(f"times {name} {tag} " + json.dumps(rows[name]))
     return rows
 
 
-def phase_profile(cfg, tree, warm_steps=60, steps=20):
-    """Where a full-width step's time goes: serve the request mix, skip
-    `warm_steps`, then trace `steps` steps with torch.profiler. Prints the
-    host wall per step, the device's kernel time per step (its busy
-    share; one stream, so kernels do not overlap), the paged-attention
-    kernel's share, and the top kernels by device time."""
+def phase_profile(cfg, tree, int8=False, warm_steps=60, steps=20):
+    """Where a full-width step's time goes: serve the request mix (phase
+    2's server, or with `int8` phase 2b's), skip `warm_steps`, then trace
+    `steps` steps with torch.profiler. Prints the host wall per step, the
+    device's kernel time per step (its busy share; one stream, so kernels
+    do not overlap), the device operations (kernels, copies) per step, the
+    paged-attention kernel's share, and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    from paddle_tpu_torch.models.gpt import params_from_numpy
-    from paddle_tpu_torch.serving import GenerationServer, GPTServingModel
-    model = GPTServingModel(params_from_numpy(tree, "cuda"), cfg,
-                            dtype=torch.bfloat16)
-    srv = GenerationServer(model, num_slots=16, block_size=16,
-                           max_context=1024, chunk=CHUNK, start=False)
+    model = make_model(cfg, tree, torch.bfloat16, int8)
+    srv = make_server(model, "int8" if int8 else None)
     for p, s in make_requests(cfg.vocab_size):
         srv.submit(p, max_new_tokens=NEW_TOKENS, sampling=s)
     for _ in range(warm_steps):
@@ -399,6 +494,7 @@ def phase_profile(cfg, tree, warm_steps=60, steps=20):
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
     dev_us = {e.key: e.self_device_time_total for e in kernels}
+    launches = sum(e.count for e in kernels) / steps
     busy = sum(dev_us.values()) / steps / 1e3
     attn = sum(v for k, v in dev_us.items()
                if "paged_attention" in k) / steps / 1e3
@@ -407,12 +503,32 @@ def phase_profile(cfg, tree, warm_steps=60, steps=20):
            "wall_ms_per_step": wall / steps * 1e3,
            "device_ms_per_step": busy,
            "device_busy_share": busy / (wall / steps * 1e3),
+           "device_launches_per_step": launches,
            "paged_attention_ms_per_step": attn,
            "top_kernels_ms_per_step": [[k[:80], v / steps / 1e3]
                                        for k, v in top]}
     if busy <= 0:
         _fail("the profiler saw no device time")
-    print("profile " + json.dumps(out))
+    print(("profile int8 " if int8 else "profile ") + json.dumps(out))
+
+
+def _phase(name, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def kernel_entry(name, replaces, launches, errs, times, at):
+    step = times["step"]
+    return {
+        "name": name, "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": step["ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+        "library_ms": step["library_ms"], "at": at, "shapes": times}
 
 
 def main():
@@ -422,35 +538,44 @@ def main():
     from paddle_tpu_torch.ops.cuda import paged
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_build = time.perf_counter()
-    paged.build()
-    print(f"build {time.perf_counter() - t_build:.1f} s")
+    t_all = time.perf_counter()
+    _phase("build", paged.build)
     cfg = GPTConfig()
     tree = init_params(cfg, seed=SEED)
-    errs = check_kernel(paged)
-    launches, requests, _ = phase_serve(paged, cfg, tree)
-    phase_agree(paged, cfg, tree, requests)
-    times = phase_times(paged)
-    phase_profile(cfg, tree)
+    gcfg = GPTConfig(kv_heads=KV_HEADS)
+    gtree = init_params(gcfg, seed=SEED)
+    errs = _phase("1 kernel vs plain", check_kernel, paged)
+    launches, requests, _ = _phase("2 serve", phase_serve, paged, cfg, tree)
+    launches8, requests8, _ = _phase("2b serve int8", phase_serve, paged,
+                                     gcfg, gtree, int8=True)
+    _phase("3 agree", phase_agree, paged, cfg, tree, requests)
+    _phase("3b agree int8", phase_agree, paged, gcfg, gtree, requests8,
+           int8=True)
+    times = _phase("4 times", phase_times, paged)
+    times8 = _phase("4 times int8", phase_times, paged, int8=True)
+    _phase("5 profile", phase_profile, cfg, tree)
+    _phase("5 profile int8", phase_profile, gcfg, gtree, int8=True)
+    print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
-    step = times["step"]
-    kernel = {
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/paged.py:134 (_paged_kernel), "
-                    "paddle_tpu/ops/pallas/paged.py:333 (_paged_kernel_v2)",
-        "launches": launches,
-        "max_abs_err": max(errs[f"{n}_bf16"] for n in SHAPES),
-        "ms": step["ms"], "plain_ms": step["plain_ms"],
-        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-        "library_ms": step["library_ms"],
-        "at": "fused-step decode: 16 lanes x H 12 x C 16 (one valid "
-              "column) x D 64, bs 16, M 64, bf16",
-        "shapes": times,
-    }
+    kernels = [
+        kernel_entry(
+            "paged_attention",
+            "paddle_tpu/ops/pallas/paged.py:134 (_paged_kernel), "
+            "paddle_tpu/ops/pallas/paged.py:333 (_paged_kernel_v2)",
+            launches, [errs[f"{n}_bf16"] for n in SHAPES], times,
+            "fused-step decode: 16 lanes x H 12 x C 16 (one valid column) "
+            "x D 64, bs 16, M 64, bf16"),
+        kernel_entry(
+            "paged_attention_int8",
+            "paddle_tpu/ops/pallas/paged.py:151-219 (_paged_kernel int8 "
+            "branch, launch :282), paddle_tpu/ops/pallas/paged.py:435-437 "
+            "(_paged_kernel_v2 int8 dequant, launch :505)",
+            launches8, [errs[f"int8_{n}_bf16"] for n in SHAPES], times8,
+            "fused-step decode: 16 lanes x H 12 over H_kv 4 x C 16 (one "
+            "valid column) x D 64, bs 16, M 64, int8 pools, bf16 q"),
+    ]
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,9 @@ its layout module for module, imports ``torch`` and never ``jax`` or
 caller passes ``device="cpu"``.
 
 Ported so far: continuous-batching GPT serving (``serving/``,
-``models/gpt.py``) with the paged-attention kernel (``ops/cuda/paged.py``).
+``models/gpt.py``), dense or int8 KV pools, MHA or grouped-query heads,
+optionally int8 weights, with the paged-attention kernel
+(``ops/cuda/paged.py``; dense and int8 variants).
 """
 
 from .device import resolve_device

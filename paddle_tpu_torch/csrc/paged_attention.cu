@@ -2,17 +2,21 @@
 //
 // Replaces the Pallas kernels `_paged_kernel` (ragged_paged_attention) and
 // `_paged_kernel_v2` (ragged_paged_attention_v2) of
-// paddle_tpu/ops/pallas/paged.py, dense f32/bf16 pools. One kernel serves
-// both: it computes the function of paged_attention_reference in the v2
-// style, streaming the lane's live blocks through an online softmax whose
-// running max, sum and accumulator are f32.
+// paddle_tpu/ops/pallas/paged.py, both their dense f32/bf16 branches and
+// their int8 (`quantized=True`) branches. One kernel, templated on the q/out
+// type and the pool element type, serves all four: it computes the function
+// of paged_attention_reference in the v2 style, streaming the lane's live
+// blocks through an online softmax whose running max, sum and accumulator
+// are f32.
 //
 // Contract (the same as the Pallas launchers):
-//   q          (B, H, C, D)        pool dtype, D = 32 or 64
-//   k/v_pool   (N, H_kv, bs, D)    f32 or bf16, H % H_kv == 0
+//   q          (B, H, C, D)        f32 or bf16, D = 32 or 64
+//   k/v_pool   (N, H_kv, bs, D)    f32 or bf16 (q's type), or int8 codes;
+//                                  H % H_kv == 0
+//   k/v_scale  (N, H_kv, bs)  f32  per-row scales, int8 pools only
 //   table      (B, M)  int32       NULL_BLOCK (0) padded
 //   positions  (B, C)  int32       logical position of each query column
-//   out        (B, H, C, D)        pool dtype
+//   out        (B, H, C, D)        q's type
 //
 // Design. One thread block per (lane, KV head); the block reads its own
 // table and positions rows (a GPU has no scalar prefetch) and walks
@@ -32,9 +36,25 @@
 // position lies below the tile are skipped (the fused step's decode lanes
 // feed one valid column and C-1 masked ones at position 0).
 //
+// int8 pools. A 16-byte vector holds 16 codes of one key row (D is a
+// multiple of 16), so each vector's row scale is loaded beside it, one tile
+// ahead like the codes: the block's bs K and V scales at (blk, kh, :). The
+// tile is dequantized where it lands in f32 shared memory, code * scale in
+// f32, exactly the reference's product; nothing after the store changes.
+// The tiles in shared memory stay f32, so the shared memory a block takes
+// does not depend on the pool type. The NULL block's codes and scales are
+// never read (a chaos NaN-poison of a block lands in its scales).
+//
 // What bounds it: the bytes of the live K/V blocks read from device
 // memory. Each live tile is read once per (lane, KV head) and reused by
-// every row of the head group.
+// every row of the head group. Per live key row and KV head that is 2 * D
+// * 4 bytes for f32 pools, 2 * D * 2 for bf16 and 2 * (D + 4) for int8
+// codes and scales: 0.53x of bf16 at D = 64.
+//
+// Numerics. Against the plain version, f32 q differs only in summation
+// order. For bf16 q the plain version rounds the dequantized V and the
+// probabilities to bf16 before PV (as the JAX reference does), while the
+// kernel keeps both in f32 and rounds only its output.
 //
 // Traps carried over from paged.py:
 //   * NEG_INF is finite (-1e9): on an all-masked prefix exp(s - m) == 1,
@@ -42,11 +62,13 @@
 //     bare exp; a merge weight exp(m_w - M) of a warp that saw nothing is
 //     exp(-1e9) == 0 unless every warp saw nothing (then l == 0).
 //   * An idle lane ends with l == 0 and writes an exact 0, not NaN.
-//   * The NULL block may hold NaN and is never read.
+//   * The NULL block may hold NaN (codes or scales) and is never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -56,10 +78,19 @@ constexpr int kMaxWarps = 8;
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
+// dtype codes of the C entry point
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+constexpr int kInt8 = 2;
+
+template <typename TP>
+constexpr bool kQuant = std::is_same<TP, int8_t>::value;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -100,73 +131,105 @@ inline int pick_warps(int R, int C, int D, int bs) {
 }
 
 // A warp's K and V tiles in flight: up to kRegVec 16-byte vectors of each
-// per lane (a 4 KB tile: bs 16 x D 64 in f32); a larger tile's remainder
-// is loaded when the tile is stored.
+// per lane (a 4 KB tile: bs 16 x D 64 in f32), and for int8 pools the row
+// scale of each vector; a larger tile's remainder is loaded when the tile
+// is stored.
 constexpr int kRegVec = 8;
 
 struct TileRegs {
   uint4 k[kRegVec];
   uint4 v[kRegVec];
+  float ks[kRegVec];  // int8 pools only
+  float vs[kRegVec];
 };
 
-// Start the 16-byte loads of the tile at pool offset `off`.
-template <typename T>
-__device__ __forceinline__ void fetch_tile(TileRegs& regs,
-                                           const T* __restrict__ k_pool,
-                                           const T* __restrict__ v_pool,
-                                           int64_t off, int n, int lane) {
-  const uint4* k4 = reinterpret_cast<const uint4*>(k_pool + off);
-  const uint4* v4 = reinterpret_cast<const uint4*>(v_pool + off);
-#pragma unroll
-  for (int u = 0; u < kRegVec; ++u) {
-    const int i = lane + 32 * u;
-    if (i < n) {
-      regs.k[u] = __ldg(k4 + i);
-      regs.v[u] = __ldg(v4 + i);
-    }
+// One layer's pools: values (or int8 codes) and, for int8, the row scales.
+template <typename TP>
+struct Pools {
+  const TP* k;
+  const TP* v;
+  const float* k_scale;
+  const float* v_scale;
+};
+
+// Load 16-byte vector i of the tile whose first key row is pool row `row0`
+// (block * H_kv + KV head, times bs) and, for int8 pools, its row's scales.
+template <typename TP, int kD>
+__device__ __forceinline__ void load_vec(const Pools<TP>& p, int64_t row0,
+                                         int i, uint4& k, uint4& v,
+                                         float& ks, float& vs) {
+  constexpr int kVec = 16 / sizeof(TP);
+  static_assert(kD % kVec == 0, "a 16-byte vector lies in one key row");
+  const int64_t off = row0 * kD;
+  k = __ldg(reinterpret_cast<const uint4*>(p.k + off) + i);
+  v = __ldg(reinterpret_cast<const uint4*>(p.v + off) + i);
+  if constexpr (kQuant<TP>) {
+    const int64_t r = row0 + i * kVec / kD;
+    ks = __ldg(p.k_scale + r);
+    vs = __ldg(p.v_scale + r);
   }
 }
 
-template <typename T, int kD>
-__device__ __forceinline__ void put_vec(const uint4& raw, float* dst, int i,
-                                        int stride) {
-  constexpr int kVec = 16 / sizeof(T);
-  const T* v = reinterpret_cast<const T*>(&raw);
+// Start the loads of the tile whose first key row is pool row `row0`.
+template <typename TP, int kD>
+__device__ __forceinline__ void fetch_tile(TileRegs& regs, const Pools<TP>& p,
+                                           int64_t row0, int n, int lane) {
+#pragma unroll
+  for (int u = 0; u < kRegVec; ++u) {
+    const int i = lane + 32 * u;
+    if (i < n)
+      load_vec<TP, kD>(p, row0, i, regs.k[u], regs.v[u], regs.ks[u],
+                       regs.vs[u]);
+  }
+}
+
+// Land vector i in f32 shared memory; int8 codes are dequantized on the
+// way, code * row scale in f32 (the reference's product).
+template <typename TP, int kD>
+__device__ __forceinline__ void put_vec(const uint4& raw, float scale,
+                                        float* dst, int i, int stride) {
+  constexpr int kVec = 16 / sizeof(TP);
+  const TP* v = reinterpret_cast<const TP*>(&raw);
   const int e = i * kVec;
   float* row = dst + (e / kD) * stride + (e % kD);
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) row[k] = to_f32(v[k]);
+  for (int k = 0; k < kVec; ++k) {
+    if constexpr (kQuant<TP>)
+      row[k] = to_f32(v[k]) * scale;
+    else
+      row[k] = to_f32(v[k]);
+  }
 }
 
 // Land the fetched tile in f32 shared memory (K rows padded to D + 1).
-template <typename T, int kD>
+template <typename TP, int kD>
 __device__ __forceinline__ void store_tile(const TileRegs& regs,
-                                           const T* __restrict__ k_pool,
-                                           const T* __restrict__ v_pool,
-                                           int64_t off, int n, float* k_w,
-                                           float* v_w, int lane) {
+                                           const Pools<TP>& p, int64_t row0,
+                                           int n, float* k_w, float* v_w,
+                                           int lane) {
 #pragma unroll
   for (int u = 0; u < kRegVec; ++u) {
     const int i = lane + 32 * u;
     if (i < n) {
-      put_vec<T, kD>(regs.k[u], k_w, i, kD + 1);
-      put_vec<T, kD>(regs.v[u], v_w, i, kD);
+      put_vec<TP, kD>(regs.k[u], regs.ks[u], k_w, i, kD + 1);
+      put_vec<TP, kD>(regs.v[u], regs.vs[u], v_w, i, kD);
     }
   }
-  const uint4* k4 = reinterpret_cast<const uint4*>(k_pool + off);
-  const uint4* v4 = reinterpret_cast<const uint4*>(v_pool + off);
   for (int i = lane + 32 * kRegVec; i < n; i += 32) {
-    put_vec<T, kD>(__ldg(k4 + i), k_w, i, kD + 1);
-    put_vec<T, kD>(__ldg(v4 + i), v_w, i, kD);
+    uint4 k, v;
+    float ks = 1.f, vs = 1.f;
+    load_vec<TP, kD>(p, row0, i, k, v, ks, vs);
+    put_vec<TP, kD>(k, ks, k_w, i, kD + 1);
+    put_vec<TP, kD>(v, vs, v_w, i, kD);
   }
 }
 
-template <typename T, int kD>
+// TQ: q and out (float or bf16); TP: pool elements (TQ, or int8_t codes).
+template <typename TQ, typename TP, int kD>
 __global__ void paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ table,
-    const int* __restrict__ positions, T* __restrict__ out, int H, int Hkv,
-    int C, int bs, int M) {
+    const TQ* __restrict__ q, const Pools<TP> pools,
+    const int* __restrict__ table, const int* __restrict__ positions,
+    TQ* __restrict__ out, int H, int Hkv, int C, int bs, int M) {
   extern __shared__ float smem[];
   constexpr int kDk = kD + 1;
   const int nw = blockDim.x / 32;
@@ -204,7 +267,7 @@ __global__ void paged_attention_kernel(
   const int n_live = min(mp / bs + 1, M);  // per-lane early stop
   const float scale = sqrtf((float)kD);
   const int* trow = table + (int64_t)b * M;
-  const int n_vec = bs * kD * (int)sizeof(T) / 16;  // 16-byte vectors a tile
+  const int n_vec = bs * kD * (int)sizeof(TP) / 16;  // 16-byte vectors
   // key layout of the score pass: `parts` lanes share a key and split D
   // when bs divides 32; otherwise each lane walks keys lane, lane + 32, ...
   const int parts = (bs <= 32 && 32 % bs == 0) ? 32 / bs : 1;
@@ -219,21 +282,20 @@ __global__ void paged_attention_kernel(
     while (j < n_live && trow[j] == kNullBlock) j += nw;
     return j;
   };
-  auto tile_off = [&](int j) {
-    return ((int64_t)trow[j] * Hkv + kh) * bs * kD;
+  auto tile_row = [&](int j) {  // the pool row of the tile's first key
+    return ((int64_t)trow[j] * Hkv + kh) * bs;
   };
-  TileRegs regs;
+  TileRegs regs = {};
   int j = next_live(warp);
-  if (j < n_live) fetch_tile(regs, k_pool, v_pool, tile_off(j), n_vec, lane);
+  if (j < n_live) fetch_tile<TP, kD>(regs, pools, tile_row(j), n_vec, lane);
 
   while (j < n_live) {
-    store_tile<T, kD>(regs, k_pool, v_pool, tile_off(j), n_vec, k_w, v_w,
-                      lane);
+    store_tile<TP, kD>(regs, pools, tile_row(j), n_vec, k_w, v_w, lane);
     __syncwarp();
     // the next tile's loads fly while this one is computed
     const int jn = next_live(j + nw);
     if (jn < n_live)
-      fetch_tile(regs, k_pool, v_pool, tile_off(jn), n_vec, lane);
+      fetch_tile<TP, kD>(regs, pools, tile_row(jn), n_vec, lane);
     const int k0 = j * bs;  // logical position of the tile's first key
     for (int r = 0; r < R; ++r) {
       const int qp = pos_s[r % C];
@@ -299,36 +361,40 @@ __global__ void paged_attention_kernel(
   }
 }
 
-template <typename T, int kD>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* table, const int* positions, void* out, int B, int H,
-           int Hkv, int C, int bs, int M, cudaStream_t stream) {
+template <typename TQ, typename TP, int kD>
+int launch(const void* q, const Pools<TP>& pools, const int* table,
+           const int* positions, void* out, int B, int H, int Hkv, int C,
+           int bs, int M, cudaStream_t stream) {
   const int R = (H / Hkv) * C;
   const int nw = pick_warps(R, C, kD, bs);
   if (nw == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(nw, R, C, kD, bs);
-  auto kernel = paged_attention_kernel<T, kD>;
+  auto kernel = paged_attention_kernel<TQ, TP, kD>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<B * Hkv, nw * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, positions, static_cast<T*>(out),
-      H, Hkv, C, bs, M);
+      static_cast<const TQ*>(q), pools, table, positions,
+      static_cast<TQ*>(out), H, Hkv, C, bs, M);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TP>
 int launch_d(int D, const void* q, const void* k_pool, const void* v_pool,
-             const int* table, const int* positions, void* out, int B,
-             int H, int Hkv, int C, int bs, int M, cudaStream_t stream) {
+             const void* k_scale, const void* v_scale, const int* table,
+             const int* positions, void* out, int B, int H, int Hkv, int C,
+             int bs, int M, cudaStream_t stream) {
+  const Pools<TP> pools{static_cast<const TP*>(k_pool),
+                        static_cast<const TP*>(v_pool),
+                        static_cast<const float*>(k_scale),
+                        static_cast<const float*>(v_scale)};
   if (D == 32)
-    return launch<T, 32>(q, k_pool, v_pool, table, positions, out, B, H,
-                         Hkv, C, bs, M, stream);
-  return launch<T, 64>(q, k_pool, v_pool, table, positions, out, B, H, Hkv,
-                       C, bs, M, stream);
+    return launch<TQ, TP, 32>(q, pools, table, positions, out, B, H, Hkv, C,
+                              bs, M, stream);
+  return launch<TQ, TP, 64>(q, pools, table, positions, out, B, H, Hkv, C,
+                            bs, M, stream);
 }
 
 }  // namespace
@@ -336,31 +402,49 @@ int launch_d(int D, const void* q, const void* k_pool, const void* v_pool,
 extern "C" {
 
 // Shared-memory bytes one block takes at these shapes (with the most
-// warps that fit); 0 when even one warp's state exceeds 227 KB.
+// warps that fit); 0 when even one warp's state exceeds 227 KB. Tiles land
+// in f32 shared memory whatever the pool type, so the pool type does not
+// enter.
 size_t paged_attention_smem_bytes(int H, int Hkv, int C, int D, int bs) {
   const int R = (H / Hkv) * C;
   const int nw = pick_warps(R, C, D, bs);
   return nw ? smem_bytes(nw, R, C, D, bs) : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success); the wrapper raises on anything else.
+// q_dtype: 0 = float32, 1 = bfloat16; pool_dtype: the same codes, or
+// 2 = int8 codes with f32 k/v_scale (null for dense pools). Dense pools
+// take q in their own type; int8 pools take f32 or bf16 q. Returns
+// cudaGetLastError() after the launch (0 on success); the wrapper raises
+// on anything else.
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
+                        const void* k_scale, const void* v_scale,
                         const void* table, const void* positions, void* out,
                         int B, int H, int Hkv, int C, int D, int bs, int M,
-                        int dtype, void* stream) {
+                        int q_dtype, int pool_dtype, void* stream) {
   if (B < 1 || Hkv < 1 || H % Hkv != 0 || C < 1 || bs < 1 || M < 1 ||
       (D != 32 && D != 64))
+    return (int)cudaErrorInvalidValue;
+  const bool scaled = k_scale != nullptr && v_scale != nullptr;
+  if ((pool_dtype == kInt8) != scaled ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int* tbl = static_cast<const int*>(table);
   const int* pos = static_cast<const int*>(positions);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k_pool, v_pool, tbl, pos, out, B, H, Hkv,
-                           C, bs, M, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k_pool, v_pool, tbl, pos, out, B,
-                                   H, Hkv, C, bs, M, s);
+  if (pool_dtype == kF32 && q_dtype == kF32)
+    return launch_d<float, float>(D, q, k_pool, v_pool, k_scale, v_scale,
+                                  tbl, pos, out, B, H, Hkv, C, bs, M, s);
+  if (pool_dtype == kBF16 && q_dtype == kBF16)
+    return launch_d<__nv_bfloat16, __nv_bfloat16>(
+        D, q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out, B, H, Hkv, C,
+        bs, M, s);
+  if (pool_dtype == kInt8 && q_dtype == kF32)
+    return launch_d<float, int8_t>(D, q, k_pool, v_pool, k_scale, v_scale,
+                                   tbl, pos, out, B, H, Hkv, C, bs, M, s);
+  if (pool_dtype == kInt8 && q_dtype == kBF16)
+    return launch_d<__nv_bfloat16, int8_t>(D, q, k_pool, v_pool, k_scale,
+                                           v_scale, tbl, pos, out, B, H, Hkv,
+                                           C, bs, M, s);
   return (int)cudaErrorInvalidValue;
 }
 

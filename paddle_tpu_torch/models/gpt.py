@@ -12,7 +12,8 @@ one dict per layer ``l{i}`` holding ``ln1_s ln1_b ln2_s ln2_b`` (hidden,),
 import numpy as np
 import torch
 
-__all__ = ["GPTConfig", "gpt_tiny", "init_params", "params_from_numpy"]
+__all__ = ["GPTConfig", "gpt_tiny", "init_params", "params_from_numpy",
+           "gqa_slice_kv_params", "gqa_repeat_kv_params"]
 
 
 class GPTConfig:
@@ -90,6 +91,69 @@ def params_from_numpy(tree, device, dtype=None):
     out = {k: (params_from_numpy(v, device) if isinstance(v, dict)
                else leaf(v)) for k, v in tree.items()}
     return _cast_params(out, dtype)
+
+
+def _gqa_group(cfg, kv_heads):
+    h = cfg.num_heads
+    if kv_heads < 1 or h % kv_heads:
+        raise ValueError(
+            f"kv_heads={kv_heads} must divide num_heads={h}")
+    return h // kv_heads, cfg.hidden_size // h
+
+
+def _with_kv(params, cfg, fw, fb):
+    """A shallow copy of params with every layer's wk/wv mapped by fw and
+    bk/bv by fb; the other leaves are shared, not copied."""
+    out = dict(params)
+    for i in range(cfg.num_layers):
+        lp = dict(out[f"l{i}"])
+        lp["wk"], lp["wv"] = fw(lp["wk"]), fw(lp["wv"])
+        lp["bk"], lp["bv"] = fb(lp["bk"]), fb(lp["bv"])
+        out[f"l{i}"] = lp
+    return out
+
+
+def gqa_slice_kv_params(params, cfg, kv_heads):
+    """A grouped-query-attention params tree from an MHA one (the numpy
+    tree or the dict of tensors): keep each query-head group's first
+    head's wk/wv columns (and bk/bv rows), shrinking both projections to
+    kv_heads * head_dim outputs. Serve it with ``GPTConfig(kv_heads=...)``.
+    With `gqa_repeat_kv_params` it is an exact round trip, which makes a
+    repeat-KV MHA server the reference for a GQA server."""
+    g, d = _gqa_group(cfg, kv_heads)
+
+    def slc_w(w):
+        return w.reshape(-1, kv_heads, g, d)[:, :, 0, :].reshape(
+            w.shape[0], kv_heads * d)
+
+    def slc_b(bvec):
+        return bvec.reshape(kv_heads, g, d)[:, 0, :].reshape(kv_heads * d)
+
+    return _with_kv(params, cfg, slc_w, slc_b)
+
+
+def _repeat(x, g, axis):
+    if isinstance(x, torch.Tensor):
+        return x.repeat_interleave(g, dim=axis)
+    return np.repeat(x, g, axis=axis)
+
+
+def gqa_repeat_kv_params(params, cfg, kv_heads):
+    """Inverse of `gqa_slice_kv_params`: expand a GQA tree (wk/wv with
+    kv_heads * head_dim outputs) back to full MHA width by repeating each
+    KV head's columns across its query-head group, so every query head
+    projects its group's shared K/V bit for bit."""
+    g, d = _gqa_group(cfg, kv_heads)
+    h = cfg.num_heads
+
+    def rep_w(w):
+        return _repeat(w.reshape(-1, kv_heads, d), g, 1).reshape(
+            w.shape[0], h * d)
+
+    def rep_b(bvec):
+        return _repeat(bvec.reshape(kv_heads, d), g, 0).reshape(h * d)
+
+    return _with_kv(params, cfg, rep_w, rep_b)
 
 
 def _ln(x, s, b, eps=1e-5):

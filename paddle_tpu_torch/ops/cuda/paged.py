@@ -3,11 +3,14 @@ its plain PyTorch version.
 
 Replaces the Pallas kernels of ``paddle_tpu/ops/pallas/paged.py``:
 ``_paged_kernel`` (launcher ``ragged_paged_attention``) and
-``_paged_kernel_v2`` (launcher ``ragged_paged_attention_v2``), dense
-f32/bf16 pools. One kernel, ``csrc/paged_attention.cu``, serves both:
-the function of ``paged_attention_reference`` computed in the v2 style,
-one streaming pass with an online softmax whose running max, sum and
-accumulator are f32. The int8 variants wait for a later slice.
+``_paged_kernel_v2`` (launcher ``ragged_paged_attention_v2``), each with
+its dense f32/bf16 branch and its int8 branch (``quantized=True``: int8
+codes with per-row f32 scales, dequantized on the gather). One kernel,
+``csrc/paged_attention.cu``, templated on the q/out type and the pool
+element type, serves all four: the function of
+``paged_attention_reference`` computed in the v2 style, one streaming
+pass with an online softmax whose running max, sum and accumulator are
+f32.
 
 What bounds it: the bytes of the live K/V blocks read from device
 memory (decode reads every live block of every lane once per layer and
@@ -15,19 +18,25 @@ does ~2 flops per byte). The design reads each live (bs, D) tile once
 per (lane, KV head) into shared memory and reuses it for every query
 row of the head group (H/H_kv heads x C columns), stops at each lane's
 highest live block, and never touches a NULL block, so the bytes moved
-are those of the live blocks and nothing else. Within a block the warps
-split the lane's blocks between them (each with its own online-softmax
-state, merged at the end), load one tile ahead, and skip the rows that a
-tile masks entirely. The kernel is still far from its bound; PERF.md has
-its times.
+are those of the live blocks and nothing else. Per live key row and KV
+head that is 2 * D * 2 bytes for bf16 pools and 2 * (D + 4) for int8
+codes and their scales (0.53x at D = 64). Within a block the warps split
+the lane's blocks between them (each with its own online-softmax state,
+merged at the end), load one tile ahead, and skip the rows that a tile
+masks entirely. int8 codes are dequantized (code * row scale, in f32)
+where the tile lands in f32 shared memory. The kernel is still far from
+its bound; PERF.md has its times.
 
-Numerics: the kernel, like v2, accumulates PV in f32. The plain version,
-like the JAX reference, casts the probabilities to the value dtype
-before PV (``kv_cache.py:261``), and computes bf16 scores in bf16. So the
-two agree to ``TOLERANCE[torch.float32]`` in f32 and to
-``TOLERANCE[torch.bfloat16]`` absolute in bf16; a bf16 kernel output is
-also held, row by row, to ``BF16_ROW_REL_TOLERANCE`` of the plain version
-computed in f32 from the same bf16 inputs.
+Numerics, keyed by q's dtype in ``TOLERANCE``: the kernel, like v2,
+accumulates PV in f32. The plain version, like the JAX reference, casts
+the probabilities to the value dtype before PV (``kv_cache.py:261``):
+dense bf16 pools also score in bf16, and int8 pools with bf16 q round
+the dequantized values to bf16. So the two agree to
+``TOLERANCE[torch.float32]`` for f32 q (only the summation order
+differs) and to ``TOLERANCE[torch.bfloat16]`` absolute for bf16 q; a
+bf16 kernel output is also held, row by row, to
+``BF16_ROW_REL_TOLERANCE`` of the plain version computed with q in f32
+from the same pools.
 
 The shared library is built at first use, from the repository's source,
 into ``paddle_tpu_torch/csrc/build/`` with ``nvcc`` for ``sm_90a`` and
@@ -48,12 +57,13 @@ import torch
 NULL_BLOCK = 0          # mirrors serving.kv_cache.NULL_BLOCK
 NEG_INF = -1e9          # mirrors serving.kv_cache.NEG_INF
 
-# max-abs tolerance of kernel vs plain version, per pool dtype: f32 differ
-# only in summation order; bf16 differ by the plain version's bf16 scores
-# and its bf16 probabilities before PV
+# max-abs tolerance of kernel vs plain version, per q dtype (for dense
+# pools also the pool dtype): f32 differ only in summation order; bf16
+# differ by the plain version's bf16 scores (dense), its bf16 dequantized
+# values (int8) and its bf16 probabilities before PV
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
-# bf16 kernel vs the plain version run in f32 on the same bf16 inputs,
+# bf16 kernel vs the plain version run with q in f32 on the same pools,
 # per output row (lane, head, column): max-abs error over the row's
 # max |ref|. The kernel computes in f32 and rounds only its output to
 # bf16 (at most 2**-8 of a value), so a one-key mask error at a context
@@ -72,7 +82,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _SOURCE = os.path.join(_CSRC, "paged_attention.cu")
 _BUILD_DIR = os.path.join(_CSRC, "build")
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entry point: q (and out) take the first two, pools
+# all three
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -104,27 +116,60 @@ def gather_block_kv_pair(k_pool, v_pool, block_table):
     return _take(k_pool), _take(v_pool)
 
 
+def gather_block_scales(scale_pool, block_table):
+    """scale pool (N, H, bs) gathered by table (B, M) -> dense
+    (B, H, M*bs) view aligned with gather_block_kv's rows."""
+    b, m = block_table.shape
+    _, h, bs = scale_pool.shape
+    g = scale_pool[block_table.reshape(-1).long()].reshape(b, m, h, bs)
+    return g.movedim(2, 1).reshape(b, h, m * bs)
+
+
 def paged_attention_reference(q, k_pool, v_pool, block_table,
-                              q_positions):
+                              q_positions, k_scale=None, v_scale=None):
     """Plain paged attention: gather blocks by table, mask keys beyond
     each query's position, softmax in f32, weighted sum.
 
     q (B, H, C, D); k/v_pool (N, H_kv, bs, D) with H % H_kv == 0; table
-    (B, M) int; positions (B, C) int -> (B, H, C, D) in v_pool's dtype.
-    Scores are computed in q's dtype, the softmax in f32, and the
-    probabilities are cast back to the value dtype before PV, as in the
-    JAX reference. GQA repeats the gathered KV rows across each group of
-    H/H_kv query heads."""
+    (B, M) int; positions (B, C) int; k/v_scale (N, H_kv, bs) f32 per-row
+    scales, required for int8 pools and refused otherwise -> (B, H, C, D)
+    in v_pool's dtype (int8 pools: in q's dtype, the model's activation
+    dtype).
+
+    Dense pools: scores in q's dtype, the softmax in f32, probabilities
+    cast back to the value dtype before PV, as in the JAX reference. int8
+    pools: the gathered codes are dequantized (code * row scale in f32);
+    keys go straight into f32 scores against q in f32, values are cast to
+    q's dtype, and so are the probabilities before PV. GQA repeats the
+    gathered (and dequantized) KV rows across each group of H/H_kv query
+    heads."""
     d = q.shape[-1]
     h, hp = q.shape[1], k_pool.shape[1]
     if hp > h or h % hp:
         raise ValueError(
             f"pool heads {hp} do not match q heads {h} (GQA needs q "
             f"heads a multiple of pool heads)")
+    rep = h // hp
+    if k_pool.dtype != torch.int8 and (k_scale is not None
+                                       or v_scale is not None):
+        raise ValueError(
+            f"scale pools passed with non-int8 pools ({k_pool.dtype}) "
+            f"— scales only mean something for quantized KV")
     gk, gv = gather_block_kv_pair(k_pool, v_pool, block_table)
-    if hp < h:
-        gk = gk.repeat_interleave(h // hp, dim=1)
-        gv = gv.repeat_interleave(h // hp, dim=1)
+    if k_pool.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError(
+                "int8 pools need k_scale/v_scale (the per-row f32 "
+                "scale pools stored beside the blocks)")
+        # keys dequantize straight into f32 scores against q in f32;
+        # values (and so the probabilities and the output) take q's dtype
+        gk = gk.float() * gather_block_scales(k_scale, block_table)[..., None]
+        gv = (gv.float() * gather_block_scales(v_scale, block_table)
+              [..., None]).to(q.dtype)
+        q = q.float()
+    if rep > 1:
+        gk = gk.repeat_interleave(rep, dim=1)
+        gv = gv.repeat_interleave(rep, dim=1)
     # the JAX reference divides by a numpy float64 scalar, which promotes
     # bf16 scores to f32 before the scale: do the same
     s = torch.einsum("bhcd,bhtd->bhct", q, gk).float() / math.sqrt(d)
@@ -175,8 +220,10 @@ def build():
                     f"nvcc failed ({res.returncode}):\n{res.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
+        # q, k/v pools, k/v scales, table, positions, out; B, H, H_kv, C,
+        # D, bs, M, q dtype, pool dtype; stream
         lib.paged_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.paged_attention_fwd.restype = ctypes.c_int
         lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
@@ -184,8 +231,18 @@ def build():
         return lib
 
 
-def _check(q, k_pool, v_pool, block_table, q_positions):
-    tensors = (q, k_pool, v_pool, block_table, q_positions)
+def _check(q, k_pool, v_pool, block_table, q_positions, k_scale, v_scale):
+    tensors = [q, k_pool, v_pool, block_table, q_positions]
+    quantized = k_pool.dtype == torch.int8
+    if quantized:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 pools need k_scale/v_scale (N, H_kv, bs) "
+                             "f32 scale pools")
+        tensors += [k_scale, v_scale]
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(f"scale pools passed with non-int8 pools "
+                         f"({k_pool.dtype}): scales only mean something "
+                         f"for quantized KV")
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged attention kernel: every operand must be a "
                          "CUDA tensor")
@@ -195,17 +252,26 @@ def _check(q, k_pool, v_pool, block_table, q_positions):
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"q {tuple(q.shape)} / pools {tuple(k_pool.shape)}"
                          f" {tuple(v_pool.shape)}: want 4-D, equal pools")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype) \
-            or q.dtype not in _DTYPE_CODE:
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or v_pool.dtype != k_pool.dtype \
+            or not (quantized or k_pool.dtype == q.dtype):
         raise ValueError(f"dtypes q {q.dtype}, pools {k_pool.dtype}/"
-                         f"{v_pool.dtype}: want one of f32, bf16 for all")
+                         f"{v_pool.dtype}: want q f32 or bf16 with pools "
+                         f"of q's dtype or int8")
     b, h, c, d = q.shape
-    _, hp, bs, dp = k_pool.shape
+    n, hp, bs, dp = k_pool.shape
     if dp != d or d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} (pool {dp}): the kernel takes "
                          f"{HEAD_DIMS}")
     if hp > h or h % hp:
         raise ValueError(f"pool heads {hp} do not divide q heads {h}")
+    if quantized and not (tuple(k_scale.shape) == tuple(v_scale.shape)
+                          == (n, hp, bs)
+                          and k_scale.dtype == v_scale.dtype
+                          == torch.float32):
+        raise ValueError(f"scale pools {tuple(k_scale.shape)} "
+                         f"{k_scale.dtype} / {tuple(v_scale.shape)} "
+                         f"{v_scale.dtype}: want f32 {(n, hp, bs)}")
     if block_table.dim() != 2 or block_table.shape[0] != b \
             or tuple(q_positions.shape) != (b, c):
         raise ValueError(f"table {tuple(block_table.shape)} / positions "
@@ -222,12 +288,14 @@ def _check(q, k_pool, v_pool, block_table, q_positions):
                          "vectors)")
 
 
-def paged_attention_cuda(q, k_pool, v_pool, block_table, q_positions):
-    """Launch the kernel on the current stream; (B, H, C, D) out in the
-    pool dtype. Raises on operands it does not take and on a refused
-    launch; never falls back."""
+def paged_attention_cuda(q, k_pool, v_pool, block_table, q_positions,
+                         k_scale=None, v_scale=None):
+    """Launch the kernel on the current stream; (B, H, C, D) out in q's
+    dtype (the pool dtype for dense pools). int8 pools need their f32
+    k/v_scale pools, dense pools refuse them. Raises on operands it does
+    not take and on a refused launch; never falls back."""
     global LAUNCHES
-    _check(q, k_pool, v_pool, block_table, q_positions)
+    _check(q, k_pool, v_pool, block_table, q_positions, k_scale, v_scale)
     lib = build()
     b, h, c, d = q.shape
     _, hp, bs, _ = k_pool.shape
@@ -238,11 +306,14 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, q_positions):
                          f"{MAX_SMEM_BYTES} bytes of shared memory")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None
+              else (None, None))
     with torch.cuda.device(q.device):
         rc = lib.paged_attention_fwd(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
             block_table.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-            b, h, hp, c, d, bs, m, _DTYPE_CODE[q.dtype], stream)
+            b, h, hp, c, d, bs, m, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k_pool.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {rc}")

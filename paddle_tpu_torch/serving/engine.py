@@ -16,9 +16,12 @@ so it can later be captured in one CUDA graph.
 
 ``GPTServingModel`` adapts the GPT params (models/gpt.py layout) with
 the math of ``gpt.build_kv_step`` over (S, C) ragged lanes; KV goes
-through ``kv_cache.write_block_kv`` and ``kv_cache.paged_attention``,
-which launches the hand-written CUDA kernel for CUDA tensors. The q/k/v/o
-projections, FFN and LM head are plain products left to ``torch.matmul``.
+through ``kv_cache.write_block_kv`` (or ``write_block_kv_quant`` for int8
+pools) and ``kv_cache.paged_attention``, which launches the hand-written
+CUDA kernel for CUDA tensors. The q/k/v/o projections, FFN and LM head
+are plain products left to ``torch.matmul``; int8 weights
+(``GPTServingModel.quantize_int8``) are dequantized inline before them,
+as the JAX package leaves that dequant to XLA.
 """
 
 import math
@@ -35,7 +38,7 @@ from ..models.gpt import _cast_params, _ln
 from ..ops.cuda import paged as _paged
 from .decode_strategies import SamplingParams, gumbel_noise
 from .kv_cache import (NEG_INF, NULL_BLOCK, PagedKVCache, paged_attention,
-                       write_block_kv)
+                       write_block_kv, write_block_kv_quant)
 from .scheduler import ContinuousBatchingScheduler, RequestCancelled, _Request
 
 __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
@@ -91,8 +94,24 @@ def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
     pools in place, then projects each lane's LAST valid column through
     the tied LM head. Greedy lanes take the argmax; lanes with
     `do_sample` take `_sample_rows`' draw. Returns (next_ids (S,) int32,
-    chosen logps (S,) f32, logp rows (S, V) f32)."""
+    chosen logps (S,) f32, logp rows (S, V) f32).
+
+    A layer dict carrying "k_scale"/"v_scale" pools takes the
+    quantize-at-write path and hands the scales to `attention`; a layer
+    params dict carrying "<w>@q8"/"<w>@scale" entries
+    (GPTServingModel.quantize_int8) gets that weight dequantized inline:
+    int8 codes times the per-output-channel f32 scale, cast to the
+    activation dtype."""
     s, c = tokens.shape
+    wdt = params["word_emb"].dtype      # activation/compute dtype
+
+    def w(container, name):
+        # int8 weight entry -> inline dequant; plain entry -> as-is
+        q8 = container.get(name + "@q8")
+        if q8 is None:
+            return container[name]
+        return (q8.float() * container[name + "@scale"]).to(wdt)
+
     pos = torch.where(valid, positions, torch.zeros_like(positions))
     x = params["word_emb"][tokens.long()] + params["pos_emb"][pos.long()]
     # write targets: masked lanes route to the NULL block
@@ -102,18 +121,24 @@ def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
     for i in range(cfg.num_layers):
         lp = params[f"l{i}"]
         kp, vp = pools[i]["k"], pools[i]["v"]
+        ks, vs = pools[i].get("k_scale"), pools[i].get("v_scale")
         hn = _ln(x, lp["ln1_s"], lp["ln1_b"])
-        q = (hn @ lp["wq"] + lp["bq"]).reshape(s, c, h_count, d)
-        k = (hn @ lp["wk"] + lp["bk"]).reshape(s, c, kv_count, d)
-        v = (hn @ lp["wv"] + lp["bv"]).reshape(s, c, kv_count, d)
-        write_block_kv(kp, k, bidx, off)
-        write_block_kv(vp, v, bidx, off)
-        o = attention(q.transpose(1, 2).contiguous(), kp, vp, tables, pos)
+        q = (hn @ w(lp, "wq") + lp["bq"]).reshape(s, c, h_count, d)
+        k = (hn @ w(lp, "wk") + lp["bk"]).reshape(s, c, kv_count, d)
+        v = (hn @ w(lp, "wv") + lp["bv"]).reshape(s, c, kv_count, d)
+        if ks is not None:
+            write_block_kv_quant(kp, ks, k, bidx, off)
+            write_block_kv_quant(vp, vs, v, bidx, off)
+        else:
+            write_block_kv(kp, k, bidx, off)
+            write_block_kv(vp, v, bidx, off)
+        o = attention(q.transpose(1, 2).contiguous(), kp, vp, tables, pos,
+                      k_scale=ks, v_scale=vs)
         o = o.transpose(1, 2).reshape(s, c, h_count * d)
-        x = x + (o @ lp["wo"] + lp["bo"]).to(x.dtype)
+        x = x + (o @ w(lp, "wo") + lp["bo"]).to(x.dtype)
         hn = _ln(x, lp["ln2_s"], lp["ln2_b"])
-        f = F.gelu(hn @ lp["f0w"] + lp["f0b"])       # exact (erf) gelu
-        x = x + (f @ lp["f1w"] + lp["f1b"]).to(x.dtype)
+        f = F.gelu(hn @ w(lp, "f0w") + lp["f0b"])    # exact (erf) gelu
+        x = x + (f @ w(lp, "f1w") + lp["f1b"]).to(x.dtype)
     x = _ln(x, params["lnf_s"], params["lnf_b"])
     # next token comes from each lane's LAST valid column only
     last = (valid.sum(1) - 1).clamp(0, c - 1)
@@ -133,7 +158,8 @@ class GPTServingModel:
     cast to `dtype` and moved to `device`; None means the card.
     `attention` is the attention op of the fused step: None is
     kv_cache.paged_attention (the kernel on the card); a test may pass
-    the plain version to hold the kernel against it end to end."""
+    the plain version to hold the kernel against it end to end. Its
+    signature is paged_attention's, k_scale/v_scale included."""
 
     def __init__(self, params, cfg, device=None, dtype=None,
                  attention=None):
@@ -151,6 +177,42 @@ class GPTServingModel:
         self.max_position = cfg.max_position
         self.kv_dtype = self.params["word_emb"].dtype
         self.attention = attention or paged_attention
+        self._int8_weights = 0
+
+    # the matmul weights a quantize_int8'd layer dict carries as int8
+    # codes + scales in place of each (the fused step dequantizes inline)
+    INT8_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "f0w", "f1w")
+
+    def quantize_int8(self):
+        """Per-output-channel absmax int8 quantization of every layer's
+        matmul weights: each (in, out) weight w becomes "w@q8" int8 codes
+        and a "w@scale" (1, out) f32 scale, the absmax over the input
+        axis / 127. Embeddings (the word embedding is the LM head too),
+        biases and layer norms stay float. Idempotent; never mutates the
+        caller's dicts. Returns self."""
+        if self._int8_weights:
+            return self
+        self.params = dict(self.params)
+        n = 0
+        for i in range(self.num_layers):
+            lp = dict(self.params[f"l{i}"])
+            for name in self.INT8_WEIGHT_NAMES:
+                wf = lp.pop(name).float()
+                absmax = wf.abs().amax(dim=0, keepdim=True)
+                scale = torch.where(absmax > 0, absmax / 127.0,
+                                    torch.ones_like(absmax))
+                lp[name + "@q8"] = torch.clamp(
+                    torch.round(wf / scale), -127, 127).to(torch.int8)
+                lp[name + "@scale"] = scale
+                n += 1
+            self.params[f"l{i}"] = lp
+        self._int8_weights = n
+        return self
+
+    @property
+    def int8_weights(self):
+        """Quantized weight-tensor count (0 = dense weights)."""
+        return self._int8_weights
 
     def fused_step(self, block_size, pools, tokens, positions, valid,
                    tables, rng, temperature, do_sample, top_k, top_p):
@@ -199,15 +261,25 @@ class GenerationServer:
 
     `device` None means the card and raises without CUDA; it must match
     the model's device. `start=False` skips the worker thread; tests then
-    pump `step()` manually."""
+    pump `step()` manually. `kv_dtype` selects the KV pool storage
+    (PagedKVCache): None stores the model dtype, "int8" stores int8 codes
+    with per-row f32 scales and reads them back in the model dtype, and
+    "bf16" (bf16 pools) needs a bf16 model, since the attention takes q in
+    a dense pool's dtype."""
 
     def __init__(self, model, *, num_slots=4, block_size=16,
                  num_blocks=None, max_context=None, chunk=4, clock=None,
-                 watermark_blocks=0, start=True, device=None):
+                 watermark_blocks=0, start=True, device=None,
+                 kv_dtype=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
                              f"{self.device}")
+        if kv_dtype == "bf16" and model.kv_dtype != torch.bfloat16:
+            raise ValueError(
+                f"kv_dtype='bf16' with a {model.kv_dtype} model: the "
+                f"attention takes q in a dense pool's dtype, so serve a "
+                f"bf16 model (GPTServingModel(..., dtype=torch.bfloat16))")
         self.model = model
         self.block_size = int(block_size)
         max_context = int(max_context or model.max_position)
@@ -222,7 +294,8 @@ class GenerationServer:
                                   model.head_dim, num_blocks,
                                   block_size=self.block_size,
                                   dtype=model.kv_dtype, device=self.device,
-                                  num_kv_heads=model.num_kv_heads)
+                                  num_kv_heads=model.num_kv_heads,
+                                  kv_dtype=kv_dtype)
         self._sched = ContinuousBatchingScheduler(
             self.cache, num_slots=num_slots, chunk=chunk,
             max_context=max_context, clock=clock,
@@ -408,7 +481,9 @@ class GenerationServer:
         """Scheduler + engine stats: `iterations` counts fused steps run,
         `kernel.launches` is the paged-attention wrapper's process-wide
         launch count since its last reset (one per layer per step on the
-        card, 0 on the CPU)."""
+        card, 0 on the CPU). `kv_quant` (None for dense pools) gives the
+        int8 pools' true bytes, scales included, beside what the same
+        blocks would cost dense in the compute dtype."""
         st = self._sched.stats()
         st["iterations"] = self._iterations
         st["chunk"] = self._sched.chunk
@@ -417,5 +492,18 @@ class GenerationServer:
         st["device"] = str(self.device)
         st["kernel"] = {"launches": _paged.LAUNCHES}
         st["pool_bytes"] = self.cache.pool_bytes()
+        st["kv_quant"] = None
+        if self.cache.quantized:
+            pb, db = self.cache.pool_bytes(), self.cache.dense_pool_bytes()
+            st["kv_quant"] = {
+                "kv_dtype": self.cache.kv_dtype,
+                "compute_dtype": str(self.cache.compute_dtype).removeprefix(
+                    "torch."),
+                "pool_bytes": pb,
+                "scale_bytes": self.cache.scale_bytes(),
+                "dense_equiv_bytes": db,
+                "bytes_ratio_vs_dense": round(pb / db, 4),
+                "int8_weights": self.model.int8_weights,
+            }
         st["engine_fault"] = repr(self._fault) if self._fault else None
         return st

@@ -10,37 +10,62 @@ never reads it.
 
 ``paged_attention`` routes CUDA tensors to the hand-written kernel and
 CPU tensors to the plain version (``ops/cuda/paged.py``), and nothing
-else chooses between them. ``write_block_kv`` writes the pools in place.
+else chooses between them. ``write_block_kv`` writes the pools in place,
+and so does ``write_block_kv_quant`` for int8 pools: it quantizes each
+written row (absmax over D, one f32 scale per row) into the codes pool
+and its (N, H_kv, bs) scale pool.
 
 This slice ports the functional ops and the allocator half of
-``PagedKVCache``; the host tier, sibling caches, copy-on-write, fleet
-transfer, int8 pools and meshes wait.
+``PagedKVCache`` with its dense and int8 pools; the host tier, sibling
+caches, copy-on-write, fleet transfer and meshes wait.
 """
 
 import numpy as np
 import torch
 
 from ..ops.cuda.paged import (NEG_INF, NULL_BLOCK, gather_block_kv,
-                              gather_block_kv_pair, paged_attention_cuda,
+                              gather_block_kv_pair, gather_block_scales,
+                              paged_attention_cuda,
                               paged_attention_reference)
 
 __all__ = ["PagedKVCache", "paged_attention", "paged_attention_reference",
-           "gather_block_kv", "gather_block_kv_pair", "write_block_kv",
-           "NULL_BLOCK", "NEG_INF"]
+           "gather_block_kv", "gather_block_kv_pair", "gather_block_scales",
+           "write_block_kv", "write_block_kv_quant", "quantize_kv_rows",
+           "NULL_BLOCK", "NEG_INF", "KV_QMAX"]
+
+KV_QMAX = 127.0         # symmetric int8 range; -128 is never produced,
+                        # so negation stays exact under quantization
 
 
-def paged_attention(q, k_pool, v_pool, block_table, q_positions):
+def paged_attention(q, k_pool, v_pool, block_table, q_positions,
+                    k_scale=None, v_scale=None):
     """Paged attention dispatcher: CUDA tensors launch the hand-written
     kernel (which raises on operands it does not take), CPU tensors take
     the plain version. Nothing else chooses between them.
 
     q (B, H, C, D); k/v_pool (N, H_kv, bs, D); table (B, M) int32;
-    positions (B, C) int32 -> (B, H, C, D) in the pool dtype."""
+    positions (B, C) int32; k/v_scale (N, H_kv, bs) f32 for int8 pools
+    -> (B, H, C, D) in the pool dtype (int8 pools: in q's dtype)."""
     if q.is_cuda:
         return paged_attention_cuda(q, k_pool, v_pool, block_table,
-                                    q_positions)
+                                    q_positions, k_scale, v_scale)
     return paged_attention_reference(q, k_pool, v_pool, block_table,
-                                     q_positions)
+                                     q_positions, k_scale, v_scale)
+
+
+def quantize_kv_rows(vals):
+    """Symmetric absmax int8 quantization over the LAST axis: one f32
+    scale per leading-index row. vals (..., D) float -> (int8 (..., D),
+    f32 scales (...)). An all-zero row gets scale 1.0 (not 0: dequant
+    must not produce NaN through 0 * inf or 0/0) and quantizes to exact
+    zeros either way. torch.round rounds half to even, as jnp.round does,
+    so the codes are the JAX package's bit for bit."""
+    v = vals.float()
+    absmax = v.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / KV_QMAX,
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(v / scale[..., None]), -KV_QMAX, KV_QMAX)
+    return q.to(torch.int8), scale
 
 
 def write_block_kv(pool, vals, block_idx, offset):
@@ -53,6 +78,21 @@ def write_block_kv(pool, vals, block_idx, offset):
     return pool
 
 
+def write_block_kv_quant(pool, scale_pool, vals, block_idx, offset):
+    """write_block_kv for int8 pools, IN PLACE: vals (S, C, H, D) float
+    are absmax-quantized per (lane, column, head) row; the int8 codes land
+    in pool (N, H, bs, D) and the f32 scales in scale_pool (N, H, bs) at
+    the same (block, row) address, so a block id names both halves of its
+    data. Returns (pool, scale_pool). Masked tokens route to
+    (NULL_BLOCK, 0) like the dense write; the NULL block's codes and
+    scales are garbage by design and never read."""
+    q, s = quantize_kv_rows(vals)
+    bidx, off = block_idx.long(), offset.long()
+    pool[bidx, :, off, :] = q
+    scale_pool[bidx, :, off] = s
+    return pool, scale_pool
+
+
 class PagedKVCache:
     """Device block pools (one k/v pair per layer) + a host free list.
 
@@ -60,13 +100,29 @@ class PagedKVCache:
     their shapes for the cache's lifetime. Every allocated block carries
     a refcount: `free` is the single-owner release and refuses double
     frees and frees of shared blocks; `unref` returns a block to the
-    free list when its last reference drops."""
+    free list when its last reference drops.
+
+    `num_kv_heads` (GQA) gives the pools H_kv <= H heads; `num_heads`
+    stays the query head count. `kv_dtype` selects the pool storage on
+    top of `dtype` (the compute dtype the dense path uses):
+
+    - None: dense pools in `dtype`;
+    - "bf16": dense bf16 pools, whatever `dtype` says;
+    - "int8": int8 pools plus per-row f32 scale pools ("k_scale" and
+      "v_scale" beside "k" and "v" in every layer dict, shape
+      (num_blocks, H_kv, block_size)). Reads dequantize to `dtype`.
+
+    Every byte count (pool_bytes, scale_bytes, dense_pool_bytes) is at
+    the cache's own H_kv geometry, scales included."""
 
     def __init__(self, num_layers, num_heads, head_dim, num_blocks,
                  block_size=16, dtype=torch.float32, device="cpu",
-                 num_kv_heads=None):
+                 num_kv_heads=None, kv_dtype=None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved NULL)")
+        if kv_dtype not in (None, "bf16", "int8"):
+            raise ValueError(
+                f"kv_dtype {kv_dtype!r}: expected None, 'bf16' or 'int8'")
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -78,15 +134,32 @@ class PagedKVCache:
             raise ValueError(
                 f"num_kv_heads={self.num_kv_heads} must divide "
                 f"num_heads={self.num_heads}")
-        self.dtype = dtype
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype == "int8"
+        # what a dequantized read yields (and what dense pools store)
+        self.compute_dtype = (torch.bfloat16 if kv_dtype == "bf16"
+                              else dtype)
+        self.dtype = torch.int8 if self.quantized else self.compute_dtype
         self.device = torch.device(device)
         shape = (self.num_blocks, self.num_kv_heads, self.block_size,
                  self.head_dim)
-        self.pools = [{"k": torch.zeros(shape, dtype=dtype,
-                                        device=self.device),
-                       "v": torch.zeros(shape, dtype=dtype,
-                                        device=self.device)}
-                      for _ in range(self.num_layers)]
+
+        def make_layer():
+            layer = {"k": torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device),
+                     "v": torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device)}
+            if self.quantized:
+                # scale 1.0, not 0: an unwritten row dequantizes to exact
+                # zeros either way, but a zero scale would turn a NaN
+                # poisoning of the codes into 0 * NaN = NaN in rows the
+                # mask is supposed to neutralize
+                for name in ("k_scale", "v_scale"):
+                    layer[name] = torch.ones(shape[:3], dtype=torch.float32,
+                                             device=self.device)
+            return layer
+
+        self.pools = [make_layer() for _ in range(self.num_layers)]
         # LIFO free list; block 0 (NULL) is never handed out
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._ref = {}      # block -> live references (absent = free)
@@ -96,10 +169,26 @@ class PagedKVCache:
         return self.num_blocks - 1
 
     def pool_bytes(self):
-        """Bytes of every block pool (k+v across layers)."""
-        per = (self.num_blocks * self.num_kv_heads * self.block_size
-               * self.head_dim * torch.finfo(self.dtype).bits // 8)
-        return 2 * self.num_layers * per
+        """Bytes of every block pool (k+v across layers), the f32 scale
+        pools of int8 pools included."""
+        return self.dense_pool_bytes(self.dtype) + self.scale_bytes()
+
+    def scale_bytes(self):
+        """Bytes of the (N, H_kv, bs) f32 scale pools across k+v and
+        every layer; 0 for dense pools."""
+        if not self.quantized:
+            return 0
+        return (2 * self.num_layers * self.num_blocks * self.num_kv_heads
+                * self.block_size * 4)
+
+    def dense_pool_bytes(self, dtype=None):
+        """What the same block count would cost dense in `dtype` (default:
+        the compute dtype) at this cache's own H_kv geometry: the
+        denominator of the quantization ratio. The GQA saving is a
+        separate factor, num_heads / num_kv_heads."""
+        dt = dtype if dtype is not None else self.compute_dtype
+        return (2 * self.num_layers * self.num_blocks * self.num_kv_heads
+                * self.block_size * self.head_dim * dt.itemsize)
 
     @property
     def num_free(self):
