@@ -2,17 +2,29 @@
 
     python3 chip_smoke.py
 
-Phases, each of which must pass:
+Phases, each of which must pass (the two kernels, paged attention and
+the flash-attention forward, are built from paddle_tpu_torch/csrc/ first,
+one nvcc each, side by side):
 
-1. kernel vs plain: the hand-written paged-attention kernel, built from
-   paddle_tpu_torch/csrc/, against its plain PyTorch version on the card,
-   dense pools (q in the pool dtype) and int8 pools (codes with f32 row
-   scales, q f32 or bf16), at a small shape (GQA, idle lane, NaN-poisoned
-   NULL block; for int8 its codes 127 and its scales NaN) and at the
-   serving shapes (decode C=1, prefill C=chunk, and the fused step's
-   steady decode: C=chunk with one valid column per lane; H 12 for dense,
-   H 12 over H_kv 4 for int8), f32 and bf16 q, a bf16 output also held row
-   by row against the plain version with q in f32 on the same pools;
+1. kernel vs plain: the hand-written paged-attention kernel against its
+   plain PyTorch version on the card, dense pools (q in the pool dtype, and
+   f32 q over bf16 pools) and int8 pools (codes with f32 row scales, q f32
+   or bf16), at a small shape (GQA, idle lane, NaN-poisoned NULL block; for
+   int8 its codes 127 and its scales NaN) and at the serving shapes (decode
+   C=1, prefill C=chunk, and the fused step's steady decode: C=chunk with
+   one valid column per lane; H 12 for dense, H 12 over H_kv 4 for int8),
+   a bf16 output also held row by row against the plain version with q and
+   dense pools in f32;
+1f. flash kernel vs plain: the flash-attention forward against its plain
+   version, out and lse, f32 and bf16, D 32/64/128, on every feature of
+   the TPU kernels it replaces (causal and not, Tq != Tk, lengths off the
+   tile grid, key-only / per-query / per-head bias, bias under causal,
+   segment ids self and cross and with a bias, tiles skipped whole, causal
+   rows with no visible key exactly 0), then at the prefill shape (B 8,
+   H 12, T 512, D 64, causal, bf16, q/k/v as the prefill's transposed
+   views) and the long shape (B 1, H 12, T 16384, causal, bf16; the plain
+   version head by head); bf16 also row by row against the plain version
+   in f32;
 2. serve at full width: GPTConfig() (12 x 768, vocab 32000, bf16, random
    weights from a seed) through GenerationServer with continuous batching,
    greedy and sampled requests and one mid-stream cancel; the kernel's
@@ -33,18 +45,36 @@ Phases, each of which must pass:
    or its operations over the bf16/f32 peak, whichever is larger;
 5. where a full-width step's time goes: torch.profiler over 20 steady
    steps of phase 2's and of phase 2b's server, the device's busy share
-   and the kernel's part of it.
+   and the kernel's part of it;
+6. prompt-conditioned decoding at full width: GPTConfig() in bf16 through
+   make_prompt_decoder on 8 seeded 512-token prompts, 64 new tokens each
+   (greedy), beam K 4 on 2 of them, and make_sampler(prompt_len=512,
+   top_k=50); every call's prefill must launch the flash kernel exactly
+   12 times (once per layer); prints the prefill ms, prompt tokens/s and
+   decode tokens/s;
+6b. where the greedy prompt decode's time goes: torch.profiler over one
+   call, the device's busy share, the flash kernel's part and the device
+   operations per decode step;
+7. end-to-end agreement of the prefill: the greedy prompt decoder in f32,
+   once through the flash kernel and once with its plain version put in
+   through ``attention``, must give identical first 16 ids;
+8. flash times: kernel, plain and scaled_dot_product_attention (the
+   yardstick, never on the path) at the prefill and the long shape, cold
+   L2, beside the bound.
 
 Each phase prints its seconds. The line before the last is a JSON object
-with the kernel table (the dense and the int8 variant of the kernel);
-the last line is ``{"ok": true, "device": {...}}``. Exits non-zero,
-printing no result, when CUDA is unavailable or any phase fails.
+with the kernel table (the paged kernel's dense and int8 variants, and
+the flash-attention forward); the line before it the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``. Exits
+non-zero, printing no result, when CUDA is unavailable or any phase
+fails.
 """
 
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -58,6 +88,11 @@ NEW_TOKENS = 64
 AGREE_TOKENS = 16
 SHAPES = ("decode", "prefill", "step")
 KV_HEADS = 4                        # phase 2b's GQA: 12 query heads over 4
+PROMPTS = 8                         # phase 6: prompts of PROMPT_LEN tokens
+PROMPT_LEN = 512
+BEAM = 4
+PREFILL_SHAPE = (8, 12, 512, 64)    # the prefill's attention at full width
+LONG_SHAPE = (1, 12, 16384, 64)
 
 
 def _fail(msg):
@@ -81,13 +116,14 @@ def _card_line():
 
 def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
               idle_lane=False, max_len=None, step=False, int8=False,
-              device="cuda"):
+              device="cuda", pool_dtype=None):
     """Random paged-attention operands ((q, k_pool, v_pool, table,
     positions), scales): pools (1 + b*m, hp, bs, d), each lane's live
     blocks drawn from a shuffled free list, the NULL block NaN-poisoned on
     request, lane 0 idle on request. `step` lays the positions out as the
     fused step feeds a decoding lane: the position in column 0 and 0 in
-    the masked columns. `int8` quantizes the pools with the port's
+    the masked columns. `pool_dtype` gives dense pools another dtype
+    than q's (bf16 under f32 q). `int8` quantizes the pools with the port's
     quantize_kv_rows (scales {"k_scale", "v_scale"}, else {}); q stays in
     `dtype`, and a poisoned NULL block holds codes 127 and NaN scales."""
     rng = np.random.default_rng(seed)
@@ -118,7 +154,8 @@ def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
 
     q, tables, q_pos = t(q).to(dtype), t(tables), t(q_pos)
     if not int8:
-        return (q, t(k_pool).to(dtype), t(v_pool).to(dtype), tables,
+        pdt = pool_dtype or dtype
+        return (q, t(k_pool).to(pdt), t(v_pool).to(pdt), tables,
                 q_pos), {}
     from paddle_tpu_torch.serving.kv_cache import quantize_kv_rows
     kq, ks = quantize_kv_rows(t(k_pool))
@@ -143,18 +180,20 @@ def _clean_null(case):
     return (q, k_pool, v_pool, tables, pos), scales
 
 
-def serving_case(dtype, name, int8=False):
+def serving_case(dtype, name, int8=False, pool_dtype=None):
     """The serving shapes: 16 lanes, H=12 (over H_kv=4 for int8), D=64,
     bs=16, M=64 (context 1024), lane 0 idle, NULL block NaN-poisoned."""
     c = 1 if name == "decode" else CHUNK
     return make_case(dtype, b=16, h=12, hp=KV_HEADS if int8 else 12, c=c,
                      d=64, bs=16, m=64, seed=2, poison=True, idle_lane=True,
-                     max_len=1024 - c, step=name == "step", int8=int8)
+                     max_len=1024 - c, step=name == "step", int8=int8,
+                     pool_dtype=pool_dtype)
 
 
 def kernel_cases():
     """(name, case) at the small shape and the serving shapes, dense and
-    int8 pools, f32 and bf16 q."""
+    int8 pools, f32 and bf16 q, and f32 q over bf16 pools (an f32 model
+    serving bf16 KV)."""
     small = dict(b=3, h=4, hp=2, d=32, bs=8, m=6, poison=True,
                  idle_lane=True)
     cases = []
@@ -169,6 +208,11 @@ def kernel_cases():
             for name in SHAPES:
                 cases.append((f"{pre}{name}_{tag}",
                               serving_case(dt, name, int8)))
+    mixed = dict(pool_dtype=torch.bfloat16)
+    cases.append(("small_c4_f32q_bf16pool",
+                  make_case(torch.float32, c=4, seed=1, **small, **mixed)))
+    cases.append(("step_f32q_bf16pool",
+                  serving_case(torch.float32, "step", **mixed)))
     return cases
 
 
@@ -183,9 +227,10 @@ def _row_rel_err(out, ref):
 def check_kernel(paged):
     """Every case: kernel (poisoned NULL block) vs plain version (clean
     copy: it gathers the NULL block, and 0 * NaN = NaN), finite output,
-    idle lane exactly 0. A bf16 case is also held row by row against the
-    plain version computed with q in f32 (and, for dense pools, the pools
-    in f32) from the same bf16 inputs. Returns {case: max_abs_err}."""
+    idle lane exactly 0, tolerance keyed by the output dtype. A bf16 output
+    is also held row by row against the plain version computed with q in
+    f32 (and, for dense pools, the pools in f32) from the same inputs.
+    Returns {case: max_abs_err}."""
     errs = {}
     for name, case in kernel_cases():
         args, scales = case
@@ -198,11 +243,13 @@ def check_kernel(paged):
             _fail(f"kernel output non-finite at {name}")
         if out[0].abs().max().item() != 0.0:
             _fail(f"idle lane not exactly 0 at {name}")
+        if out.dtype != ref.dtype:
+            _fail(f"kernel output {out.dtype}, plain {ref.dtype} at {name}")
         err = (out.float() - ref.float()).abs().max().item()
-        tol = paged.TOLERANCE[args[0].dtype]
+        tol = paged.TOLERANCE[out.dtype]
         line = f"kernel {name}: max_abs_err {err:.3e} (tolerance {tol})"
         rel = None
-        if args[0].dtype == torch.bfloat16:
+        if out.dtype == torch.bfloat16:
             q, k_pool, v_pool, tables, pos = clean
             if not cscales:
                 k_pool, v_pool = k_pool.float(), v_pool.float()
@@ -512,6 +559,375 @@ def phase_profile(cfg, tree, int8=False, warm_steps=60, steps=20):
     print(("profile int8 " if int8 else "profile ") + json.dumps(out))
 
 
+# ---------------------------------------------------------------------------
+# phase 1f: flash kernel vs plain
+# ---------------------------------------------------------------------------
+
+def _rand(shape, gen, dtype=torch.float32):
+    return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+
+def flash_case(name, dtype, d, gen):
+    """(q, k, v, bias, segq, segk, causal) of one feature case at a small
+    shape: the features of the TPU kernels the flash kernel replaces."""
+    b, h, tq, tk, causal = 2, 3, 64, 64, False
+    if name in ("causal", "segment_causal", "bias_causal"):
+        causal = True
+    if name == "cross_len":
+        tq, tk, causal = 48, 80, True
+    if name == "ragged":                  # off every tile grid
+        tq, tk, causal = 100, 53, False
+    if name == "ragged_causal":
+        tq, tk, causal = 37, 133, True
+    if name == "no_visible_keys":         # rows i < Tq - Tk see nothing
+        tq, tk, causal = 80, 16, True
+    if name == "long_key":                # many key tiles
+        b, h, tq, tk = 1, 2, 70, 700
+    q = _rand((b, h, tq, d), gen, dtype)
+    k = _rand((b, h, tk, d), gen, dtype)
+    v = _rand((b, h, tk, d), gen, dtype)
+    bias = segq = segk = None
+    if name == "bias_key":                # a padding mask, batch row 0
+        bias = torch.zeros(b, 1, 1, tk, device="cuda")
+        bias[0, ..., tk // 2:] = -1e9
+        bias = bias.expand(b, h, tq, tk)
+    if name in ("bias_query", "bias_causal"):
+        bias = _rand((b, 1, tq, tk), gen).expand(b, h, tq, tk)
+    if name == "bias_full":
+        bias = _rand((b, h, tq, tk), gen) * 2
+    if name.startswith("segment"):
+        segq = torch.sort(torch.randint(0, 3, (b, tq), device="cuda",
+                                        generator=gen), dim=1).values
+        segk = segq
+        if name == "segment_bias":
+            bias = _rand((1, h, tq, tk), gen).expand(b, h, tq, tk)
+    if name == "segment_cross":
+        tq, tk = 32, 48
+        q = q[:, :, :tq]
+        k, v = _rand((b, h, tk, d), gen, dtype), _rand((b, h, tk, d), gen,
+                                                       dtype)
+        segq = torch.tensor([[1] * 16 + [2] * 16] * b, device="cuda")
+        segk = torch.tensor([[1] * 16 + [2] * 32] * b, device="cuda")
+    if name == "segment_skip":            # tile-aligned disjoint segments
+        tq = tk = 128
+        q = _rand((b, h, tq, d), gen, dtype)
+        k, v = _rand((b, h, tk, d), gen, dtype), _rand((b, h, tk, d), gen,
+                                                       dtype)
+        segq = segk = torch.tensor([[1] * 64 + [2] * 64] * b, device="cuda")
+    if segq is not None:
+        segq = segq.to(torch.int32).contiguous()
+        segk = segk.to(torch.int32).contiguous()
+    return q, k, v, bias, segq, segk, causal
+
+
+FLASH_FEATURES = ("plain", "causal", "cross_len", "ragged", "ragged_causal",
+                  "no_visible_keys", "long_key", "bias_key", "bias_query",
+                  "bias_full", "bias_causal", "segment", "segment_causal",
+                  "segment_bias", "segment_cross", "segment_skip")
+
+
+def prefill_views(dtype, gen, shape=PREFILL_SHAPE):
+    """q, k, v as the prefill passes them: each (B, T, H, D) projection
+    viewed as (B, H, T, D)."""
+    b, h, t, d = shape
+    return tuple(_rand((b, t, h, d), gen, dtype).transpose(1, 2)
+                 for _ in range(3))
+
+
+def _flash_err(out, ref):
+    """max over elements of |out - ref| / max(1, |ref|)."""
+    return ((out.float() - ref.float()).abs()
+            / ref.float().abs().clamp_min(1.0)).max().item()
+
+
+def _flash_plain_by_head(flash, q, k, v, causal):
+    """The plain version one head at a time (the long shape's score matrix
+    of all heads at once would not fit)."""
+    outs, lses = [], []
+    for i in range(q.shape[1]):
+        o, l = flash.flash_attention_reference(
+            q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1], None, None, None,
+            None, causal)
+        outs.append(o)
+        lses.append(l)
+    return torch.cat(outs, 1), torch.cat(lses, 1)
+
+
+def check_one_flash(flash, name, case, by_head=False):
+    q, k, v, bias, segq, segk, causal = case
+    out, lse = flash.flash_attention_cuda(q, k, v, bias, segq, segk, None,
+                                          causal)
+    torch.cuda.synchronize()
+    if by_head:
+        ref, rlse = _flash_plain_by_head(flash, q, k, v, causal)
+    else:
+        ref, rlse = flash.flash_attention_reference(q, k, v, bias, segq,
+                                                    segk, None, causal)
+    torch.cuda.synchronize()
+    if out.dtype != q.dtype or tuple(lse.shape) != tuple(q.shape[:3]):
+        _fail(f"flash {name}: out {out.dtype}, lse {tuple(lse.shape)}")
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        _fail(f"flash kernel output non-finite at {name}")
+    err, lerr = _flash_err(out, ref), _flash_err(lse, rlse)
+    abs_err = (out.float() - ref.float()).abs().max().item()
+    tol, ltol = flash.TOLERANCE[q.dtype], flash.TOLERANCE[torch.float32]
+    line = (f"flash {name}: err {err:.3e} (tolerance {tol}), lse err "
+            f"{lerr:.3e} (tolerance {ltol}), max_abs_err {abs_err:.3e}")
+    rel = None
+    if q.dtype == torch.bfloat16:
+        if by_head:
+            ref32, _ = _flash_plain_by_head(flash, q.float(), k.float(),
+                                            v.float(), causal)
+        else:
+            ref32, _ = flash.flash_attention_reference(
+                q.float(), k.float(), v.float(), bias, segq, segk, None,
+                causal)
+        rel = _row_rel_err(out, ref32)
+        line += (f", vs f32 plain: row max_rel_err {rel:.3e} (tolerance "
+                 f"{flash.BF16_ROW_REL_TOLERANCE})")
+    if name.startswith("no_visible_keys"):
+        dead = q.shape[2] - k.shape[2]
+        if out[:, :, :dead].abs().max().item() != 0.0 or not bool(
+                (lse[:, :, :dead] == flash.NEG_INF).all()):
+            _fail(f"flash {name}: rows with no visible key not exactly 0")
+        line += f", {dead} rows with no visible key exactly 0"
+    print(line)
+    if not (err <= tol and lerr <= ltol):
+        _fail(f"flash kernel disagrees with its plain version at {name}: "
+              f"{err} / lse {lerr}")
+    if rel is not None and not rel <= flash.BF16_ROW_REL_TOLERANCE:
+        _fail(f"bf16 flash kernel disagrees with the f32 plain version at "
+              f"{name}: row error {rel}")
+    return abs_err
+
+
+def check_flash(flash):
+    """Every feature case, f32 and bf16, D 32/64/128, then the prefill
+    and the long shape in bf16. Returns {case: max_abs_err}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    errs = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for d in flash.HEAD_DIMS:
+            for name in FLASH_FEATURES:
+                key = f"{name}_d{d}_{tag}"
+                errs[key] = check_one_flash(
+                    flash, key, flash_case(name, dtype, d, gen))
+    q, k, v = prefill_views(torch.bfloat16, gen)
+    errs["prefill_bf16"] = check_one_flash(
+        flash, "prefill_bf16", (q, k, v, None, None, None, True))
+    q, k, v = (_rand(LONG_SHAPE, gen, torch.bfloat16) for _ in range(3))
+    errs["long_bf16"] = check_one_flash(
+        flash, "long_bf16", (q, k, v, None, None, None, True), by_head=True)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: prompt-conditioned decoding
+# ---------------------------------------------------------------------------
+
+def make_prompts(vocab, n=PROMPTS):
+    rng = np.random.default_rng(SEED + 2)
+    return rng.integers(0, vocab, (n, PROMPT_LEN)).astype(np.int32)
+
+
+def _launched_once(flash, cfg, what, fn, *args):
+    """fn(*args) with the flash count set to 0 just before; its prefill
+    must launch the kernel once per layer. Returns (result, seconds,
+    launches)."""
+    torch.cuda.synchronize()
+    flash.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = flash.LAUNCHES
+    if launches != cfg.num_layers:
+        _fail(f"{what}: flash launches {launches} != {cfg.num_layers} "
+              f"layers")
+    return out, sec, launches
+
+
+def phase_prompt_decode(flash, cfg, tree):
+    """Greedy, beam and sampled prompt decoding in bf16 at full width.
+    Returns the flash launches of the three calls."""
+    from paddle_tpu_torch.models import gpt
+    params = gpt.params_from_numpy(tree, "cuda")
+    prompts = make_prompts(cfg.vocab_size)
+    max_len = PROMPT_LEN + NEW_TOKENS
+    bf16 = torch.bfloat16
+    # the prefill alone, timed
+    prefill = gpt.build_prefill(gpt._cast_params(params, bf16), cfg, max_len)
+    ids = torch.from_numpy(prompts).to("cuda")
+    with torch.inference_mode():
+        prefill(ids)                      # warm
+        (cache, logits), pre_s, _ = _launched_once(
+            flash, cfg, "prefill", prefill, ids)
+    if logits.shape != (PROMPTS, PROMPT_LEN, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        _fail(f"prefill logits {tuple(logits.shape)} non-finite or "
+              f"misshapen")
+    del cache, logits
+    decode = gpt.make_prompt_decoder(params, cfg, PROMPT_LEN, max_len,
+                                     dtype=bf16)
+    (gids, gscores), dec_s, n_greedy = _launched_once(
+        flash, cfg, "greedy", decode, prompts)
+    beam = gpt.make_prompt_decoder(params, cfg, PROMPT_LEN, max_len,
+                                   dtype=bf16, beam_size=BEAM)
+    (bids, bscores), beam_s, n_beam = _launched_once(
+        flash, cfg, "beam", beam, prompts[:2])
+    sample = gpt.make_sampler(params, cfg, max_len, top_k=50,
+                              prompt_len=PROMPT_LEN, dtype=bf16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    (sids, sscores), samp_s, n_samp = _launched_once(
+        flash, cfg, "sampler", sample, prompts, gen)
+    for name, x, shape in (("greedy", gids, (PROMPTS, NEW_TOKENS)),
+                           ("beam", bids, (2, BEAM, NEW_TOKENS)),
+                           ("sampled", sids, (PROMPTS, NEW_TOKENS))):
+        if tuple(x.shape) != shape or x.min() < 0 \
+                or x.max() >= cfg.vocab_size:
+            _fail(f"{name} ids {tuple(x.shape)} out of shape or range")
+    for name, x in (("greedy", gscores), ("beam", bscores),
+                    ("sampled", sscores)):
+        if not torch.isfinite(x).all():
+            _fail(f"{name} scores non-finite")
+    if not bool((bscores[:, :-1] >= bscores[:, 1:]).all()):
+        _fail("beams are not sorted best-first")
+    gen_tokens = PROMPTS * NEW_TOKENS
+    out = {"prefill_ms": pre_s * 1e3,
+           "prompt_tokens_per_s": PROMPTS * PROMPT_LEN / pre_s,
+           "greedy_s": dec_s,
+           "decode_tokens_per_s": gen_tokens / (dec_s - pre_s),
+           "beam_s": beam_s, "sampled_s": samp_s,
+           "sampled_tokens_per_s": gen_tokens / samp_s,
+           "flash_launches": [n_greedy, n_beam, n_samp],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print("prompt decode " + json.dumps(out))
+    return n_greedy + n_beam + n_samp
+
+
+def phase_profile_prompt(cfg, tree):
+    """Where a full-width greedy prompt decode's time goes: one warm call
+    of phase 6's decoder under torch.profiler. Prints the host wall, the
+    device's kernel time and busy share, the flash kernel's part, and the
+    device operations per decode step (after the prefill's)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from paddle_tpu_torch.models import gpt
+    decode = gpt.make_prompt_decoder(gpt.params_from_numpy(tree, "cuda"),
+                                     cfg, PROMPT_LEN,
+                                     PROMPT_LEN + NEW_TOKENS,
+                                     dtype=torch.bfloat16)
+    prompts = make_prompts(cfg.vocab_size)
+    decode(prompts)                       # warm
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    fl = sum(e.self_device_time_total for e in kernels
+             if "flash_fwd" in e.key) / 1e3
+    ops = sum(e.count for e in kernels)
+    top = sorted(((e.key[:80], e.self_device_time_total / 1e3)
+                  for e in kernels), key=lambda kv: -kv[1])[:8]
+    out = {"wall_ms": wall * 1e3, "device_ms": busy,
+           "device_busy_share": busy / (wall * 1e3),
+           "flash_ms": fl, "device_ops": ops,
+           "device_ops_per_decode_step": ops / NEW_TOKENS,
+           "top_kernels_ms": top}
+    if busy <= 0 or fl <= 0:
+        _fail("the profiler saw no device time or no flash kernel")
+    print("profile prompt decode " + json.dumps(out))
+
+
+def phase_agree_prefill(flash, cfg, tree):
+    """The greedy prompt decoder in f32 through the flash kernel and
+    through its plain version: identical first AGREE_TOKENS ids."""
+    from paddle_tpu_torch.models import gpt
+    params = gpt.params_from_numpy(tree, "cuda")
+    prompts = make_prompts(cfg.vocab_size)
+    max_len = PROMPT_LEN + AGREE_TOKENS
+
+    def plain(q, k, v, causal, scale):
+        return flash.flash_attention_reference(q, k, v, None, None, None,
+                                               scale, causal)[0]
+
+    ids = []
+    for attention in (None, plain):
+        decode = gpt.make_prompt_decoder(params, cfg, PROMPT_LEN, max_len,
+                                         attention=attention)
+        flash.LAUNCHES = 0
+        ids.append(decode(prompts)[0].cpu().numpy())
+        want = cfg.num_layers if attention is None else 0
+        if flash.LAUNCHES != want:
+            _fail(f"agree prefill: {flash.LAUNCHES} flash launches, want "
+                  f"{want}")
+    same = int((ids[0] == ids[1]).all(axis=1).sum())
+    print(f"agree prefill f32: {same}/{PROMPTS} prompts identical in their "
+          f"first {AGREE_TOKENS} ids (flash kernel vs plain attention)")
+    if same != PROMPTS:
+        _fail("f32 flash kernel and plain attention gave different ids")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: flash times
+# ---------------------------------------------------------------------------
+
+def flash_bound_ms(q, k, causal):
+    """The larger of (bytes / memory rate) and (operations / peak): q, k,
+    v read once, out and lse written once; QK^T and PV over the visible
+    (query, key) pairs only (causal halves them), at q's dtype's peak."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    el = q.element_size()
+    moved = (2 * b * h * tq * d + 2 * b * h * tk * d) * el + b * h * tq * 4
+    rows = np.arange(tq)
+    pairs = (np.clip(rows + (tk - tq) + 1, 0, tk).sum() if causal
+             else tq * tk)
+    flops = 4 * int(pairs) * d * b * h
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_flash_times(flash):
+    """Kernel, plain (head by head at the long shape) and SDPA ms at the
+    prefill shape (the prefill's views) and the long shape, bf16, causal,
+    beside the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = {}
+    for name, reps in (("prefill", 50), ("long", 5)):
+        if name == "prefill":
+            q, k, v = prefill_views(torch.bfloat16, gen)
+        else:
+            q, k, v = (_rand(LONG_SHAPE, gen, torch.bfloat16)
+                       for _ in range(3))
+
+        def plain():
+            if name == "long":
+                return _flash_plain_by_head(flash, q, k, v, True)
+            return flash.flash_attention_reference(q, k, v, None, None,
+                                                   None, None, True)
+
+        b_ms, b_by = flash_bound_ms(q, k, True)
+        rows[name] = {
+            "shape": list(q.shape), "dtype": "bf16", "causal": True,
+            "ms": _time_ms(lambda: flash.flash_attention_cuda(
+                q, k, v, None, None, None, None, True), reps=reps),
+            "plain_ms": _time_ms(plain, reps=max(2, reps // 10),
+                                 warmup=1),
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), reps=reps),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"times flash {name} " + json.dumps(rows[name]))
+    return rows
+
+
 def _phase(name, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -519,32 +935,41 @@ def _phase(name, fn, *args, **kw):
     return out
 
 
-def kernel_entry(name, replaces, launches, errs, times, at):
-    step = times["step"]
+def kernel_entry(name, replaces, launches, errs, times, at, main="step",
+                 source="paddle_tpu_torch/csrc/paged_attention.cu"):
+    row = times[main]
     return {
-        "name": name, "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(errs),
-        "ms": step["ms"], "plain_ms": step["plain_ms"],
-        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-        "library_ms": step["library_ms"], "at": at, "shapes": times}
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "at": at, "shapes": times}
+
+
+def build_all():
+    """Both kernels' libraries, one nvcc each, side by side."""
+    from paddle_tpu_torch.ops.cuda import flash, paged
+    with ThreadPoolExecutor(2) as pool:
+        for lib in [pool.submit(paged.build), pool.submit(flash.build)]:
+            lib.result()
 
 
 def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
     from paddle_tpu_torch.models.gpt import GPTConfig, init_params
-    from paddle_tpu_torch.ops.cuda import paged
+    from paddle_tpu_torch.ops.cuda import flash, paged
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
-    _phase("build", paged.build)
+    _phase("build", build_all)
     cfg = GPTConfig()
     tree = init_params(cfg, seed=SEED)
     gcfg = GPTConfig(kv_heads=KV_HEADS)
     gtree = init_params(gcfg, seed=SEED)
     errs = _phase("1 kernel vs plain", check_kernel, paged)
+    ferrs = _phase("1f flash kernel vs plain", check_flash, flash)
     launches, requests, _ = _phase("2 serve", phase_serve, paged, cfg, tree)
     launches8, requests8, _ = _phase("2b serve int8", phase_serve, paged,
                                      gcfg, gtree, int8=True)
@@ -555,6 +980,11 @@ def main():
     times8 = _phase("4 times int8", phase_times, paged, int8=True)
     _phase("5 profile", phase_profile, cfg, tree)
     _phase("5 profile int8", phase_profile, gcfg, gtree, int8=True)
+    flaunches = _phase("6 prompt decode", phase_prompt_decode, flash, cfg,
+                       tree)
+    _phase("6b profile prompt decode", phase_profile_prompt, cfg, tree)
+    _phase("7 agree prefill", phase_agree_prefill, flash, cfg, tree)
+    ftimes = _phase("8 flash times", phase_flash_times, flash)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
     kernels = [
@@ -573,6 +1003,16 @@ def main():
             launches8, [errs[f"int8_{n}_bf16"] for n in SHAPES], times8,
             "fused-step decode: 16 lanes x H 12 over H_kv 4 x C 16 (one "
             "valid column) x D 64, bs 16, M 64, int8 pools, bf16 q"),
+        kernel_entry(
+            "flash_attention_fwd",
+            "paddle_tpu/ops/pallas/flash.py:168 (_fwd_kernel, launch :294), "
+            "paddle_tpu/ops/pallas/flash.py:318 (_fwd_kernel_kgrid, launch "
+            ":423)",
+            flaunches, [ferrs["prefill_bf16"], ferrs["long_bf16"]], ftimes,
+            "prefill attention: B 8 x H 12 x T 512 x D 64, causal, bf16, "
+            "q/k/v as the prefill's transposed views",
+            main="prefill",
+            source="paddle_tpu_torch/csrc/flash_attention.cu"),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

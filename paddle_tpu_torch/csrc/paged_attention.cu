@@ -3,20 +3,22 @@
 // Replaces the Pallas kernels `_paged_kernel` (ragged_paged_attention) and
 // `_paged_kernel_v2` (ragged_paged_attention_v2) of
 // paddle_tpu/ops/pallas/paged.py, both their dense f32/bf16 branches and
-// their int8 (`quantized=True`) branches. One kernel, templated on the q/out
-// type and the pool element type, serves all four: it computes the function
-// of paged_attention_reference in the v2 style, streaming the lane's live
+// their int8 (`quantized=True`) branches. One kernel, templated on the q
+// type and the pool element type, serves all four, and f32 q over bf16 pools
+// (an f32 model serving bf16 KV): it computes the function of
+// paged_attention_reference in the v2 style, streaming the lane's live
 // blocks through an online softmax whose running max, sum and accumulator
 // are f32.
 //
 // Contract (the same as the Pallas launchers):
 //   q          (B, H, C, D)        f32 or bf16, D = 32 or 64
-//   k/v_pool   (N, H_kv, bs, D)    f32 or bf16 (q's type), or int8 codes;
-//                                  H % H_kv == 0
+//   k/v_pool   (N, H_kv, bs, D)    q's type, bf16 under f32 q, or int8
+//                                  codes; H % H_kv == 0
 //   k/v_scale  (N, H_kv, bs)  f32  per-row scales, int8 pools only
 //   table      (B, M)  int32       NULL_BLOCK (0) padded
 //   positions  (B, C)  int32       logical position of each query column
-//   out        (B, H, C, D)        q's type
+//   out        (B, H, C, D)        the pool's type for dense pools, q's
+//                                  for int8 pools (JAX's out_dtype)
 //
 // Design. One thread block per (lane, KV head); the block reads its own
 // table and positions rows (a GPU has no scalar prefetch) and walks
@@ -51,10 +53,11 @@
 // * 4 bytes for f32 pools, 2 * D * 2 for bf16 and 2 * (D + 4) for int8
 // codes and scales: 0.53x of bf16 at D = 64.
 //
-// Numerics. Against the plain version, f32 q differs only in summation
-// order. For bf16 q the plain version rounds the dequantized V and the
-// probabilities to bf16 before PV (as the JAX reference does), while the
-// kernel keeps both in f32 and rounds only its output.
+// Numerics. Against the plain version, an f32 output differs only in
+// summation order. For a bf16 output the plain version rounds the
+// dequantized V (int8) and the probabilities to bf16 before PV (as the JAX
+// reference does), while the kernel keeps both in f32 and rounds only its
+// output.
 //
 // Traps carried over from paged.py:
 //   * NEG_INF is finite (-1e9): on an all-masked prefix exp(s - m) == 1,
@@ -85,6 +88,10 @@ constexpr int kInt8 = 2;
 
 template <typename TP>
 constexpr bool kQuant = std::is_same<TP, int8_t>::value;
+
+// the output type: the pool's for dense pools, q's for int8 codes
+template <typename TQ, typename TP>
+using OutT = typename std::conditional<kQuant<TP>, TQ, TP>::type;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -224,12 +231,13 @@ __device__ __forceinline__ void store_tile(const TileRegs& regs,
   }
 }
 
-// TQ: q and out (float or bf16); TP: pool elements (TQ, or int8_t codes).
+// TQ: q (float or bf16); TP: pool elements (TQ, bf16 under float q, or
+// int8_t codes); the output is OutT<TQ, TP>.
 template <typename TQ, typename TP, int kD>
 __global__ void paged_attention_kernel(
     const TQ* __restrict__ q, const Pools<TP> pools,
     const int* __restrict__ table, const int* __restrict__ positions,
-    TQ* __restrict__ out, int H, int Hkv, int C, int bs, int M) {
+    OutT<TQ, TP>* __restrict__ out, int H, int Hkv, int C, int bs, int M) {
   extern __shared__ float smem[];
   constexpr int kDk = kD + 1;
   const int nw = blockDim.x / 32;
@@ -377,7 +385,7 @@ int launch(const void* q, const Pools<TP>& pools, const int* table,
   }
   kernel<<<B * Hkv, nw * 32, smem, stream>>>(
       static_cast<const TQ*>(q), pools, table, positions,
-      static_cast<TQ*>(out), H, Hkv, C, bs, M);
+      static_cast<OutT<TQ, TP>*>(out), H, Hkv, C, bs, M);
   return (int)cudaGetLastError();
 }
 
@@ -413,7 +421,8 @@ size_t paged_attention_smem_bytes(int H, int Hkv, int C, int D, int bs) {
 
 // q_dtype: 0 = float32, 1 = bfloat16; pool_dtype: the same codes, or
 // 2 = int8 codes with f32 k/v_scale (null for dense pools). Dense pools
-// take q in their own type; int8 pools take f32 or bf16 q. Returns
+// take q in their own type, and bf16 pools also f32 q (the output is then
+// bf16); int8 pools take f32 or bf16 q. Returns
 // cudaGetLastError() after the launch (0 on success); the wrapper raises
 // on anything else.
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
@@ -438,6 +447,10 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
     return launch_d<__nv_bfloat16, __nv_bfloat16>(
         D, q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out, B, H, Hkv, C,
         bs, M, s);
+  if (pool_dtype == kBF16 && q_dtype == kF32)
+    return launch_d<float, __nv_bfloat16>(D, q, k_pool, v_pool, k_scale,
+                                          v_scale, tbl, pos, out, B, H, Hkv,
+                                          C, bs, M, s);
   if (pool_dtype == kInt8 && q_dtype == kF32)
     return launch_d<float, int8_t>(D, q, k_pool, v_pool, k_scale, v_scale,
                                    tbl, pos, out, B, H, Hkv, C, bs, M, s);

@@ -6,8 +6,9 @@ Replaces the Pallas kernels of ``paddle_tpu/ops/pallas/paged.py``:
 ``_paged_kernel_v2`` (launcher ``ragged_paged_attention_v2``), each with
 its dense f32/bf16 branch and its int8 branch (``quantized=True``: int8
 codes with per-row f32 scales, dequantized on the gather). One kernel,
-``csrc/paged_attention.cu``, templated on the q/out type and the pool
-element type, serves all four: the function of
+``csrc/paged_attention.cu``, templated on the q type and the pool
+element type, serves all four, and f32 q over bf16 pools (an f32 model
+serving bf16 KV): the function of
 ``paged_attention_reference`` computed in the v2 style, one streaming
 pass with an online softmax whose running max, sum and accumulator are
 f32.
@@ -27,16 +28,20 @@ masks entirely. int8 codes are dequantized (code * row scale, in f32)
 where the tile lands in f32 shared memory. The kernel is still far from
 its bound; PERF.md has its times.
 
-Numerics, keyed by q's dtype in ``TOLERANCE``: the kernel, like v2,
-accumulates PV in f32. The plain version, like the JAX reference, casts
-the probabilities to the value dtype before PV (``kv_cache.py:261``):
-dense bf16 pools also score in bf16, and int8 pools with bf16 q round
+The output takes the pool dtype for dense pools and q's dtype for int8
+pools, as JAX's ``out_dtype`` does (``paged.py:488``).
+
+Numerics, keyed by the output dtype in ``TOLERANCE``: the kernel, like
+v2, accumulates PV in f32. The plain version, like the JAX reference,
+casts the probabilities to the value dtype before PV
+(``kv_cache.py:261``): dense bf16 pools under bf16 q also score in bf16,
+f32 q over bf16 pools scores in f32, and int8 pools with bf16 q round
 the dequantized values to bf16. So the two agree to
-``TOLERANCE[torch.float32]`` for f32 q (only the summation order
-differs) and to ``TOLERANCE[torch.bfloat16]`` absolute for bf16 q; a
+``TOLERANCE[torch.float32]`` for an f32 output (only the summation order
+differs) and to ``TOLERANCE[torch.bfloat16]`` absolute for a bf16 one; a
 bf16 kernel output is also held, row by row, to
-``BF16_ROW_REL_TOLERANCE`` of the plain version computed with q in f32
-from the same pools.
+``BF16_ROW_REL_TOLERANCE`` of the plain version computed with q and the
+dense pools in f32.
 
 The shared library is built at first use, from the repository's source,
 into ``paddle_tpu_torch/csrc/build/`` with ``nvcc`` for ``sm_90a`` and
@@ -45,22 +50,21 @@ time, so the module imports on a machine without CUDA.
 """
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
+from ._build import build_library
+
 NULL_BLOCK = 0          # mirrors serving.kv_cache.NULL_BLOCK
 NEG_INF = -1e9          # mirrors serving.kv_cache.NEG_INF
 
-# max-abs tolerance of kernel vs plain version, per q dtype (for dense
-# pools also the pool dtype): f32 differ only in summation order; bf16
-# differ by the plain version's bf16 scores (dense), its bf16 dequantized
-# values (int8) and its bf16 probabilities before PV
+# max-abs tolerance of kernel vs plain version, per output dtype (the
+# pool dtype for dense pools, q's for int8): f32 differ only in summation
+# order; bf16 differ by the plain version's bf16 scores (dense under bf16
+# q), its bf16 dequantized values (int8) and its bf16 probabilities before
+# PV
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 # bf16 kernel vs the plain version run with q in f32 on the same pools,
@@ -78,13 +82,13 @@ MAX_SMEM_BYTES = 227 * 1024     # dynamic shared memory one block may use
 LAUNCHES = 0
 _launches_lock = threading.Lock()
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc")
-_SOURCE = os.path.join(_CSRC, "paged_attention.cu")
-_BUILD_DIR = os.path.join(_CSRC, "build")
-# dtype codes of the C entry point: q (and out) take the first two, pools
-# all three
+# dtype codes of the C entry point: q takes the first two, pools all
+# three
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# (q, pool) dtype pairs the kernel is instantiated for
+_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.float32, torch.bfloat16), (torch.float32, torch.int8),
+          (torch.bfloat16, torch.int8)}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -136,7 +140,8 @@ def paged_attention_reference(q, k_pool, v_pool, block_table,
     in v_pool's dtype (int8 pools: in q's dtype, the model's activation
     dtype).
 
-    Dense pools: scores in q's dtype, the softmax in f32, probabilities
+    Dense pools: scores in q's dtype (in f32 when q and the pools differ,
+    as JAX promotes f32 q x bf16 keys), the softmax in f32, probabilities
     cast back to the value dtype before PV, as in the JAX reference. int8
     pools: the gathered codes are dequantized (code * row scale in f32);
     keys go straight into f32 scores against q in f32, values are cast to
@@ -167,6 +172,8 @@ def paged_attention_reference(q, k_pool, v_pool, block_table,
         gv = (gv.float() * gather_block_scales(v_scale, block_table)
               [..., None]).to(q.dtype)
         q = q.float()
+    elif q.dtype != gk.dtype:
+        q, gk = q.float(), gk.float()
     if rep > 1:
         gk = gk.repeat_interleave(rep, dim=1)
         gv = gv.repeat_interleave(rep, dim=1)
@@ -184,19 +191,6 @@ def paged_attention_reference(q, k_pool, v_pool, block_table,
 # the kernel
 # ---------------------------------------------------------------------------
 
-def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the paged "
-            "attention kernel is built from source at first use")
-    return found
-
-
 def build():
     """Compile csrc/paged_attention.cu for sm_90a into csrc/build/ (once
     per source content) and load it; the library is kept for the
@@ -205,21 +199,7 @@ def build():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:12]
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        so = os.path.join(_BUILD_DIR, f"libpaged_attention_{digest}.so")
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-o", tmp, _SOURCE]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = build_library("paged_attention.cu")
         # q, k/v pools, k/v scales, table, positions, out; B, H, H_kv, C,
         # D, bs, M, q dtype, pool dtype; stream
         lib.paged_attention_fwd.argtypes = (
@@ -243,21 +223,13 @@ def _check(q, k_pool, v_pool, block_table, q_positions, k_scale, v_scale):
         raise ValueError(f"scale pools passed with non-int8 pools "
                          f"({k_pool.dtype}): scales only mean something "
                          f"for quantized KV")
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("paged attention kernel: every operand must be a "
-                         "CUDA tensor")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("paged attention kernel: operands on different "
-                         "devices")
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"q {tuple(q.shape)} / pools {tuple(k_pool.shape)}"
                          f" {tuple(v_pool.shape)}: want 4-D, equal pools")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or v_pool.dtype != k_pool.dtype \
-            or not (quantized or k_pool.dtype == q.dtype):
+    if (q.dtype, k_pool.dtype) not in _PAIRS or v_pool.dtype != k_pool.dtype:
         raise ValueError(f"dtypes q {q.dtype}, pools {k_pool.dtype}/"
                          f"{v_pool.dtype}: want q f32 or bf16 with pools "
-                         f"of q's dtype or int8")
+                         f"of q's dtype or int8, or q f32 over bf16 pools")
     b, h, c, d = q.shape
     n, hp, bs, dp = k_pool.shape
     if dp != d or d not in HEAD_DIMS:
@@ -286,14 +258,21 @@ def _check(q, k_pool, v_pool, block_table, q_positions, k_scale, v_scale):
         raise ValueError("paged attention kernel: pools must be 16-byte "
                          "aligned (the kernel reads them in 16-byte "
                          "vectors)")
+    # last, so that operands the kernel takes fail here alone off the card
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("paged attention kernel: every operand must be a "
+                         "CUDA tensor")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("paged attention kernel: operands on different "
+                         "devices")
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, q_positions,
                          k_scale=None, v_scale=None):
-    """Launch the kernel on the current stream; (B, H, C, D) out in q's
-    dtype (the pool dtype for dense pools). int8 pools need their f32
-    k/v_scale pools, dense pools refuse them. Raises on operands it does
-    not take and on a refused launch; never falls back."""
+    """Launch the kernel on the current stream; (B, H, C, D) out in the
+    pool dtype for dense pools, in q's for int8 pools. int8 pools need
+    their f32 k/v_scale pools, dense pools refuse them. Raises on operands
+    it does not take and on a refused launch; never falls back."""
     global LAUNCHES
     _check(q, k_pool, v_pool, block_table, q_positions, k_scale, v_scale)
     lib = build()
@@ -304,7 +283,8 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, q_positions,
         raise ValueError(f"H/H_kv={h // hp}, C={c}, D={d}, bs={bs}: one "
                          f"warp's state exceeds the card's "
                          f"{MAX_SMEM_BYTES} bytes of shared memory")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=(q.dtype if k_pool.dtype == torch.int8
+                                      else k_pool.dtype), device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None
               else (None, None))

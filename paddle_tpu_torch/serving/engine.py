@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..models.gpt import _cast_params, _ln
+from ..models.gpt import _cast_params, _ln, _to_device
 from ..ops.cuda import paged as _paged
 from .decode_strategies import SamplingParams, gumbel_noise
 from .kv_cache import (NEG_INF, NULL_BLOCK, PagedKVCache, paged_attention,
@@ -134,7 +134,8 @@ def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
             write_block_kv(vp, v, bidx, off)
         o = attention(q.transpose(1, 2).contiguous(), kp, vp, tables, pos,
                       k_scale=ks, v_scale=vs)
-        o = o.transpose(1, 2).reshape(s, c, h_count * d)
+        # bf16 pools under an f32 model return bf16: promote, as JAX does
+        o = o.transpose(1, 2).reshape(s, c, h_count * d).to(wdt)
         x = x + (o @ w(lp, "wo") + lp["bo"]).to(x.dtype)
         hn = _ln(x, lp["ln2_s"], lp["ln2_b"])
         f = F.gelu(hn @ w(lp, "f0w") + lp["f0b"])    # exact (erf) gelu
@@ -224,11 +225,6 @@ class GPTServingModel:
                 self.attention)
 
 
-def _to_device(params, device):
-    return {k: (_to_device(v, device) if isinstance(v, dict)
-                else v.to(device)) for k, v in params.items()}
-
-
 class GenerationFuture(Future):
     """A Future whose cancel() also tells the scheduler to reclaim the
     request's slot and blocks (generation requests are cancellable
@@ -264,8 +260,9 @@ class GenerationServer:
     pump `step()` manually. `kv_dtype` selects the KV pool storage
     (PagedKVCache): None stores the model dtype, "int8" stores int8 codes
     with per-row f32 scales and reads them back in the model dtype, and
-    "bf16" (bf16 pools) needs a bf16 model, since the attention takes q in
-    a dense pool's dtype."""
+    "bf16" stores bf16 pools under any model: an f32 model's attention
+    scores f32 q against the bf16 keys and returns bf16, which the output
+    projection promotes back to f32, as in the JAX package."""
 
     def __init__(self, model, *, num_slots=4, block_size=16,
                  num_blocks=None, max_context=None, chunk=4, clock=None,
@@ -275,11 +272,6 @@ class GenerationServer:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
                              f"{self.device}")
-        if kv_dtype == "bf16" and model.kv_dtype != torch.bfloat16:
-            raise ValueError(
-                f"kv_dtype='bf16' with a {model.kv_dtype} model: the "
-                f"attention takes q in a dense pool's dtype, so serve a "
-                f"bf16 model (GPTServingModel(..., dtype=torch.bfloat16))")
         self.model = model
         self.block_size = int(block_size)
         max_context = int(max_context or model.max_position)

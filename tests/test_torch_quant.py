@@ -467,13 +467,15 @@ def test_gqa_stream_ids_match_jax_and_repeat_kv(trained, jax_engine,
 
 
 def test_bf16_pools_need_a_bf16_model(trained):
+    """bf16 pools serve under a bf16 model and, as in the JAX package,
+    under an f32 one too (f32 q scored against the bf16 keys)."""
     cfg, _params, tree = trained
-    with pytest.raises(ValueError, match="bf16"):
-        _port_server(tree, cfg, kv_dtype="bf16")
-    model = GPTServingModel(tgpt.params_from_numpy(tree, "cpu"), cfg,
-                            device="cpu", dtype=torch.bfloat16)
-    srv = GenerationServer(model, device="cpu", kv_dtype="bf16", **SERVER_KW)
-    assert srv.cache.dtype == torch.bfloat16 and not srv.cache.quantized
-    fut = srv.submit([5, 9, 11], max_new_tokens=4)
-    srv.run_until_idle()
-    assert len(fut.result(timeout=5).token_ids) == 4
+    for dtype in (torch.bfloat16, None):
+        model = GPTServingModel(tgpt.params_from_numpy(tree, "cpu"), cfg,
+                                device="cpu", dtype=dtype)
+        srv = GenerationServer(model, device="cpu", kv_dtype="bf16",
+                               **SERVER_KW)
+        assert srv.cache.dtype == torch.bfloat16 and not srv.cache.quantized
+        fut = srv.submit([5, 9, 11], max_new_tokens=4)
+        srv.run_until_idle()
+        assert len(fut.result(timeout=5).token_ids) == 4

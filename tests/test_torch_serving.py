@@ -371,6 +371,10 @@ def test_port_imports_neither_jax_nor_reference_package():
         "import paddle_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')]\n"
+        "need = ['paddle_tpu_torch.ops.flash',\n"
+        "        'paddle_tpu_torch.ops.cuda.flash',\n"
+        "        'paddle_tpu_torch.inference.decoding']\n"
+        "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
