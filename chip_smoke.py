@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Phases, each of which must pass (the two kernels, paged attention and
-the flash-attention forward, are built from paddle_tpu_torch/csrc/ first,
-one nvcc each, side by side):
+Phases, each of which must pass (the three kernel sources, paged
+attention, the flash-attention forward and its backward, are built from
+paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
 
 1. kernel vs plain: the hand-written paged-attention kernel against its
    plain PyTorch version on the card, dense pools (q in the pool dtype, and
@@ -60,14 +60,38 @@ one nvcc each, side by side):
    through ``attention``, must give identical first 16 ids;
 8. flash times: kernel, plain and scaled_dot_product_attention (the
    yardstick, never on the path) at the prefill and the long shape, cold
-   L2, beside the bound.
+   L2, beside the bound;
+1g. flash backward kernels vs plain: dq, dk and dv of the dQ and dK/dV
+   kernels against their plain version on phase 1f's feature cases, f32
+   and bf16, D 32/64/128, with and without an lse cotangent, dbias through
+   the torch op where the case has a bias, rows with no visible key
+   exactly 0; then the training shape (B 8, H 12, T 512, D 64, causal,
+   f32 and bf16, q/k/v/do as transposed views) and T 16384 (B 1, H 12,
+   f32; the plain version head by head);
+9. full-width training through the Fluid entry points:
+   ``gpt.build_lm_net(GPTConfig(max_position=1024, dropout=0.0),
+   seq_len=512)`` + ``AdamOptimizer(1e-4).minimize(loss)``, the startup on
+   the card, 3 warm-up and 20 timed steps on one seeded batch of 8; the
+   loss must be finite and fall, and every step must launch the flash
+   forward and each backward kernel 12 times; prints step ms p50/p99,
+   tokens/s, the peak memory and the first and last loss;
+9b. f32 agreement: one full-width step through the kernels and one with
+   the plain dense attention put in at ``attention_ops`` (a seam of this
+   script only), from the same scope: the loss and every @GRAD agree;
+9c. where the training step's time goes: torch.profiler over 3 steps, the
+   device's busy share, device operations per step, top kernels and the
+   flash kernels' share;
+10. flash backward times: kernels, plain and the backward of
+   scaled_dot_product_attention(is_causal=True) on the same views (the
+   yardstick, never on the path) at the training shape and at T 16384,
+   cold L2, beside the bound.
 
 Each phase prints its seconds. The line before the last is a JSON object
-with the kernel table (the paged kernel's dense and int8 variants, and
-the flash-attention forward); the line before it the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``. Exits
-non-zero, printing no result, when CUDA is unavailable or any phase
-fails.
+with the kernel table (the paged kernel's dense and int8 variants, the
+flash-attention forward and the flash-attention backward); the line before
+it the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``. Exits non-zero, printing no result, when CUDA is
+unavailable or any phase fails.
 """
 
 import json
@@ -93,6 +117,24 @@ PROMPT_LEN = 512
 BEAM = 4
 PREFILL_SHAPE = (8, 12, 512, 64)    # the prefill's attention at full width
 LONG_SHAPE = (1, 12, 16384, 64)
+TRAIN_SEQ = 512                     # phase 9: bench.py's GPT training cell
+TRAIN_BATCH = 8
+TRAIN_WARM = 3
+TRAIN_STEPS = 20
+TRAIN_SHAPE = (TRAIN_BATCH, 12, TRAIN_SEQ, 64)  # its attention
+# phase 9b: |kernel - plain| of the loss over |plain|, and of each @GRAD
+# over (its max |plain| + 1e-3 of the largest gradient's): the same f32
+# step summed in other orders (the flash kernels' tiles against dense
+# matmuls), carried through 12 layers; the floor covers gradients that are
+# 0 in exact arithmetic (the key projection's bias), where both sides hold
+# rounding noise
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
+# the profile phases trace the device only: every number they print is a
+# device time or count, or a host wall around the traced loop, and the
+# host-side op events made the profiler's own processing the largest part
+# of the script's time
+PROFILE_ACTIVITIES = [torch.profiler.ProfilerActivity.CUDA]
 
 
 def _fail(msg):
@@ -522,7 +564,7 @@ def phase_profile(cfg, tree, int8=False, warm_steps=60, steps=20):
     device's kernel time per step (its busy share; one stream, so kernels
     do not overlap), the device operations (kernels, copies) per step, the
     paged-attention kernel's share, and the top kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import profile as tprofile
     model = make_model(cfg, tree, torch.bfloat16, int8)
     srv = make_server(model, "int8" if int8 else None)
     for p, s in make_requests(cfg.vocab_size):
@@ -530,8 +572,7 @@ def phase_profile(cfg, tree, int8=False, warm_steps=60, steps=20):
     for _ in range(warm_steps):
         srv.step()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=PROFILE_ACTIVITIES) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             if not srv.step():
@@ -810,7 +851,7 @@ def phase_profile_prompt(cfg, tree):
     of phase 6's decoder under torch.profiler. Prints the host wall, the
     device's kernel time and busy share, the flash kernel's part, and the
     device operations per decode step (after the prefill's)."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import profile as tprofile
     from paddle_tpu_torch.models import gpt
     decode = gpt.make_prompt_decoder(gpt.params_from_numpy(tree, "cuda"),
                                      cfg, PROMPT_LEN,
@@ -819,8 +860,7 @@ def phase_profile_prompt(cfg, tree):
     prompts = make_prompts(cfg.vocab_size)
     decode(prompts)                       # warm
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=PROFILE_ACTIVITIES) as prof:
         t0 = time.perf_counter()
         decode(prompts)
         torch.cuda.synchronize()
@@ -928,6 +968,375 @@ def phase_flash_times(flash):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 1g: flash backward kernels vs plain
+# ---------------------------------------------------------------------------
+
+def _bwd_operands(flash, case, gen, with_dlse):
+    """The forward kernel's out and lse on a case, a cotangent do in q's
+    dtype laid out as (B, T, H, D) viewed as (B, H, T, D) (as the training
+    step's autograd hands it over), and an f32 lse cotangent or None."""
+    q, k, v, bias, segq, segk, causal = case
+    out, lse = flash.flash_attention_cuda(q, k, v, bias, segq, segk, None,
+                                          causal)
+    b, h, tq, d = q.shape
+    do = _rand((b, tq, h, d), gen, q.dtype).transpose(1, 2)
+    dlse = _rand((b, h, tq), gen) if with_dlse else None
+    return out, lse, do, dlse
+
+
+def _flash_bwd_plain_by_head(flash, q, k, v, out, lse, do, dlse, causal):
+    """The plain backward one head at a time (the long shape's score
+    matrices of all heads at once would not fit)."""
+    parts = []
+    for i in range(q.shape[1]):
+        hs = slice(i, i + 1)
+        parts.append(flash.flash_attention_bwd_reference(
+            q[:, hs], k[:, hs], v[:, hs], None, None, None, out[:, hs],
+            lse[:, hs], do[:, hs], None if dlse is None else dlse[:, hs],
+            None, causal))
+    return tuple(torch.cat([p[j] for p in parts], 1) for j in range(4))
+
+
+def check_one_flash_bwd(flash, name, case, gen, with_dlse, by_head=False):
+    """dq, dk, dv of the backward kernels against the plain version on the
+    same operands (element error |x - ref| / max(1, |ref|) within
+    BWD_TOLERANCE; bf16 also row by row against the plain version in f32);
+    dbias through the torch op with each side's delta; rows with no
+    visible key exactly 0. Returns the max-abs error over dq, dk, dv."""
+    q, k, v, bias, segq, segk, causal = case
+    out, lse, do, dlse = _bwd_operands(flash, case, gen, with_dlse)
+    got = flash.flash_attention_bwd_cuda(q, k, v, bias, segq, segk, out,
+                                         lse, do, dlse, None, causal)
+    torch.cuda.synchronize()
+    if by_head:
+        ref = _flash_bwd_plain_by_head(flash, q, k, v, out, lse, do, dlse,
+                                       causal)
+    else:
+        ref = flash.flash_attention_bwd_reference(
+            q, k, v, bias, segq, segk, out, lse, do, dlse, None, causal)
+    torch.cuda.synchronize()
+    tol = flash.BWD_TOLERANCE[q.dtype]
+    line = [f"flash bwd {name}:"]
+    errs, abs_errs, rels = [], [], []
+    for tag, x, r in zip(("dq", "dk", "dv"), got[:3], ref[:3]):
+        if x.dtype != q.dtype or x.shape != r.shape:
+            _fail(f"flash bwd {name}: {tag} {x.dtype} {tuple(x.shape)}")
+        if not torch.isfinite(x).all():
+            _fail(f"flash bwd kernel output non-finite at {name} ({tag})")
+        errs.append(_flash_err(x, r))
+        abs_errs.append((x.float() - r.float()).abs().max().item())
+    line.append(f"err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+                f"(tolerance {tol}), max_abs_err {max(abs_errs):.3e}")
+    if q.dtype == torch.bfloat16:
+        f32 = [t.float() for t in (q, k, v, out, do)]
+        if by_head:
+            ref32 = _flash_bwd_plain_by_head(flash, *f32[:3], f32[3], lse,
+                                             f32[4], dlse, causal)
+        else:
+            ref32 = flash.flash_attention_bwd_reference(
+                *f32[:3], bias, segq, segk, f32[3], lse, f32[4], dlse, None,
+                causal)
+        rels = [_row_rel_err(x, r) for x, r in zip(got[:3], ref32[:3])]
+        line.append(f"vs f32 plain: row max_rel_err {max(rels):.3e} "
+                    f"(tolerance {flash.BF16_ROW_REL_TOLERANCE})")
+    if bias is not None:
+        dbs = [flash.flash_dbias(q, k, v, bias, lse, do, delta, None,
+                                 causal, segq, segk)
+               for delta in (got[3], ref[3])]
+        db_err = _flash_err(dbs[0], dbs[1])
+        line.append(f"dbias err {db_err:.3e}")
+        errs.append(db_err)
+    if name.startswith("no_visible_keys"):
+        dead = q.shape[2] - k.shape[2]
+        if got[0][:, :, :dead].abs().max().item() != 0.0:
+            _fail(f"flash bwd {name}: dq of rows with no visible key not "
+                  f"exactly 0")
+        line.append(f"{dead} rows with no visible key: dq exactly 0")
+    print(", ".join(line))
+    if not max(errs) <= tol:
+        _fail(f"flash backward kernels disagree with their plain version at "
+              f"{name}: {errs}")
+    if rels and not max(rels) <= flash.BF16_ROW_REL_TOLERANCE:
+        _fail(f"bf16 flash backward disagrees with the f32 plain version at "
+              f"{name}: row error {max(rels)}")
+    return max(abs_errs)
+
+
+def check_flash_bwd(flash):
+    """Every feature case, f32 and bf16, D 32/64/128, with an lse
+    cotangent on every other case, then the training shape (f32, bf16)
+    and T 16384 (f32). Returns {case: max_abs_err}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    errs = {}
+    i = 0
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for d in flash.HEAD_DIMS:
+            for name in FLASH_FEATURES:
+                with_dlse = i % 2 == 1
+                i += 1
+                key = f"{name}_d{d}_{tag}" + ("_dlse" if with_dlse else "")
+                errs[key] = check_one_flash_bwd(
+                    flash, key, flash_case(name, dtype, d, gen), gen,
+                    with_dlse)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v = prefill_views(dtype, gen, TRAIN_SHAPE)
+        errs[f"train_{tag}"] = check_one_flash_bwd(
+            flash, f"train_{tag}", (q, k, v, None, None, None, True), gen,
+            False)
+    q, k, v = (_rand(LONG_SHAPE, gen) for _ in range(3))
+    errs["long_f32"] = check_one_flash_bwd(
+        flash, "long_f32", (q, k, v, None, None, None, True), gen, True,
+        by_head=True)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phases 9, 9b, 9c: full-width training through the Fluid entry points
+# ---------------------------------------------------------------------------
+
+def build_train():
+    """bench.py's GPT training cell on the port: (cfg, main, startup,
+    loss, the seeded batch of token ids)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(max_position=max(TRAIN_SEQ, 1024), dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 7
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _tokens, loss, _logits = gpt.build_lm_net(cfg, seq_len=TRAIN_SEQ)
+        fluid.optimizer.AdamOptimizer(1e-4).minimize(loss)
+    rng = np.random.default_rng(SEED + 8)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    return cfg, main, startup, loss, toks.astype(np.int64)
+
+
+def _bwd_counts(flash):
+    return flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES
+
+
+def _zero_counts(flash):
+    flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
+
+
+def phase_train(flash):
+    """Train the full-width GPT for TRAIN_WARM + TRAIN_STEPS steps on one
+    batch. Returns the backward launches of the run (dQ + dK/dV)."""
+    import paddle_tpu_torch as fluid
+    cfg, main, startup, loss, toks = build_train()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fluid.scope_guard(scope):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        n_params = len(main.all_parameters())
+        _zero_counts(flash)
+        losses, step_ms, per_step = [], [], set()
+        for i in range(TRAIN_WARM + TRAIN_STEPS):
+            before = _bwd_counts(flash)
+            ts = time.perf_counter()
+            # the fetch's copy to the host ends the step
+            out, = exe.run(main, feed={"tokens": toks}, fetch_list=[loss])
+            if i >= TRAIN_WARM:
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+            losses.append(float(out))
+            per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
+                                                     before)))
+        counts = _bwd_counts(flash)
+    n = cfg.num_layers
+    if per_step != {(n, n, n)}:
+        _fail(f"train: flash launches fwd/dq/dkv per step {per_step}, want "
+              f"{n} each")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        _fail(f"train: loss not finite and falling: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    out = {"config": "GPTConfig(max_position=1024, dropout=0.0)",
+           "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH, "params": n_params,
+           "startup_s": startup_s, "steps_timed": TRAIN_STEPS,
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "flash_launches_fwd_dq_dkv": list(counts)}
+    print("train " + json.dumps(out))
+    return counts[1] + counts[2]
+
+
+def _train_step_grads(fluid, exe, main, loss, toks, scope, names):
+    with fluid.scope_guard(scope):
+        out = exe.run(main, feed={"tokens": toks},
+                      fetch_list=[loss] + [n + "@GRAD" for n in names],
+                      return_numpy=False)
+    return out[0].double().item(), out[1:]
+
+
+def phase_train_agree(flash):
+    """One f32 step through the flash kernels and one with the plain dense
+    attention put in at attention_ops (restored after), from copies of one
+    startup scope: the loss within TRAIN_LOSS_TOL and every @GRAD within
+    TRAIN_GRAD_TOL (see their comment)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_ops
+    cfg, main, startup, loss, toks = build_train()
+    exe = fluid.Executor()
+    base = fluid.Scope()
+    with fluid.scope_guard(base):
+        exe.run(startup)
+    names = [p.name for p in main.all_parameters()]
+
+    def copy():
+        s = fluid.Scope()
+        for n in base.names():
+            s.set(n, base.get(n).clone())
+        return s
+
+    def plain(q, k, v, bias=None, scale=None, causal=False,
+              segment_ids=None):
+        return attention_ops._xla_attention(q, k, v, bias=bias, scale=scale,
+                                            causal=causal)
+
+    _zero_counts(flash)
+    kl, kg = _train_step_grads(fluid, exe, main, loss, toks, copy(), names)
+    kernel_counts = _bwd_counts(flash)
+    real = attention_ops.dot_product_attention
+    attention_ops.dot_product_attention = plain
+    try:
+        _zero_counts(flash)
+        pl, pg = _train_step_grads(fluid, exe, main, loss, toks, copy(),
+                                   names)
+        plain_counts = _bwd_counts(flash)
+    finally:
+        attention_ops.dot_product_attention = real
+    n = cfg.num_layers
+    if kernel_counts != (n, n, n) or plain_counts != (0, 0, 0):
+        _fail(f"train agree: launches {kernel_counts} through the kernels, "
+              f"{plain_counts} through the plain attention")
+    loss_err = abs(kl - pl) / abs(pl)
+    floor = 1e-3 * max(g.abs().max().item() for g in pg)
+    worst = max(((a - b).abs().max().item() / (b.abs().max().item() + floor),
+                 nm) for nm, a, b in zip(names, kg, pg))
+    print(f"train agree f32: loss {kl:.7f} vs {pl:.7f} (rel err "
+          f"{loss_err:.3e}, tolerance {TRAIN_LOSS_TOL}); {len(names)} "
+          f"@GRADs, worst {worst[0]:.3e} at {worst[1]} (tolerance "
+          f"{TRAIN_GRAD_TOL})")
+    if not (loss_err <= TRAIN_LOSS_TOL and worst[0] <= TRAIN_GRAD_TOL):
+        _fail("f32 training step through the kernels disagrees with the "
+              "plain attention")
+
+
+def phase_profile_train(flash):
+    """Where a full-width training step's time goes: torch.profiler over 3
+    warm steps. Prints the host wall and device time per step, the busy
+    share, device operations per step, the flash forward's and backward's
+    device time and the top kernels."""
+    from torch.profiler import profile as tprofile
+    import paddle_tpu_torch as fluid
+    _cfg, main, startup, loss, toks = build_train()
+    exe = fluid.Executor()
+    steps = 3
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        exe.run(main, feed={"tokens": toks}, fetch_list=[loss])   # warm
+        torch.cuda.synchronize()
+        with tprofile(activities=PROFILE_ACTIVITIES) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                exe.run(main, feed={"tokens": toks}, fetch_list=[loss])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    dev = {e.key: e.self_device_time_total / steps / 1e3 for e in kernels}
+    busy = sum(dev.values())
+    fwd = sum(v for k, v in dev.items() if "flash_fwd" in k)
+    bwd = sum(v for k, v in dev.items() if "flash_bwd" in k)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    out = {"steps": steps, "wall_ms_per_step": wall,
+           "device_ms_per_step": busy, "device_busy_share": busy / wall,
+           "device_ops_per_step": sum(e.count for e in kernels) / steps,
+           "flash_fwd_ms_per_step": fwd, "flash_bwd_ms_per_step": bwd,
+           "flash_bwd_share_of_device": bwd / busy if busy else None,
+           "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]}
+    if busy <= 0 or bwd <= 0:
+        _fail("the profiler saw no device time or no flash backward kernel")
+    print("profile train " + json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: flash backward times
+# ---------------------------------------------------------------------------
+
+def flash_bwd_bound_ms(q, k, causal):
+    """The larger of (bytes / memory rate) and (operations / peak): q, k,
+    v, out, do read once, lse read once, dq, dk, dv written once; five
+    products of 2 D flops over each visible (query, key) pair (S and dP
+    recomputed once, dQ, dK, dV), at q's dtype's peak."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    el = q.element_size()
+    moved = (4 * b * h * tq * d + 4 * b * h * tk * d) * el + b * h * tq * 4
+    rows = np.arange(tq)
+    pairs = (np.clip(rows + (tk - tq) + 1, 0, tk).sum() if causal
+             else tq * tk)
+    flops = 5 * 2 * d * int(pairs) * b * h
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_flash_bwd_times(flash):
+    """Kernels (dQ + dK/dV, with the delta reduction), plain (head by
+    head at the long shape) and the backward of SDPA(is_causal=True) on
+    the same views, f32, causal, at the training shape and T 16384,
+    beside the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = {}
+    for name, reps in (("train", 20), ("long", 3)):
+        if name == "train":
+            q, k, v = prefill_views(torch.float32, gen, TRAIN_SHAPE)
+        else:
+            q, k, v = (_rand(LONG_SHAPE, gen) for _ in range(3))
+        case = (q, k, v, None, None, None, True)
+        out, lse, do, _ = _bwd_operands(flash, case, gen, False)
+
+        def kernel():
+            return flash.flash_attention_bwd_cuda(
+                q, k, v, None, None, None, out, lse, do, None, None, True)
+
+        def plain():
+            if name == "long":
+                return _flash_bwd_plain_by_head(flash, q, k, v, out, lse, do,
+                                                None, True)
+            return flash.flash_attention_bwd_reference(
+                q, k, v, None, None, None, out, lse, do, None, None, True)
+
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+
+        def library():
+            return torch.autograd.grad(lo, (lq, lk, lv), do,
+                                       retain_graph=True)
+
+        b_ms, b_by = flash_bwd_bound_ms(q, k, True)
+        rows[name] = {
+            "shape": list(q.shape), "dtype": "f32", "causal": True,
+            "ms": _time_ms(kernel, reps=reps, warmup=2),
+            "plain_ms": _time_ms(plain, reps=2, warmup=1),
+            "library_ms": _time_ms(library, reps=reps, warmup=2),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del lo
+        print(f"times flash bwd {name} " + json.dumps(rows[name]))
+    return rows
+
+
 def _phase(name, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -948,10 +1357,11 @@ def kernel_entry(name, replaces, launches, errs, times, at, main="step",
 
 
 def build_all():
-    """Both kernels' libraries, one nvcc each, side by side."""
+    """The kernels' libraries, one nvcc for each source, side by side."""
     from paddle_tpu_torch.ops.cuda import flash, paged
-    with ThreadPoolExecutor(2) as pool:
-        for lib in [pool.submit(paged.build), pool.submit(flash.build)]:
+    builds = (paged.build, flash.build, flash.build_bwd)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for lib in [pool.submit(b) for b in builds]:
             lib.result()
 
 
@@ -970,6 +1380,8 @@ def main():
     gtree = init_params(gcfg, seed=SEED)
     errs = _phase("1 kernel vs plain", check_kernel, paged)
     ferrs = _phase("1f flash kernel vs plain", check_flash, flash)
+    berrs = _phase("1g flash backward kernels vs plain", check_flash_bwd,
+                   flash)
     launches, requests, _ = _phase("2 serve", phase_serve, paged, cfg, tree)
     launches8, requests8, _ = _phase("2b serve int8", phase_serve, paged,
                                      gcfg, gtree, int8=True)
@@ -985,6 +1397,10 @@ def main():
     _phase("6b profile prompt decode", phase_profile_prompt, cfg, tree)
     _phase("7 agree prefill", phase_agree_prefill, flash, cfg, tree)
     ftimes = _phase("8 flash times", phase_flash_times, flash)
+    blaunches = _phase("9 train", phase_train, flash)
+    _phase("9b train agree", phase_train_agree, flash)
+    _phase("9c profile train", phase_profile_train, flash)
+    btimes = _phase("10 flash backward times", phase_flash_bwd_times, flash)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
     kernels = [
@@ -1013,6 +1429,18 @@ def main():
             "q/k/v as the prefill's transposed views",
             main="prefill",
             source="paddle_tpu_torch/csrc/flash_attention.cu"),
+        kernel_entry(
+            "flash_attention_bwd",
+            "paddle_tpu/ops/pallas/flash.py:465 (_dq_kernel), :519 "
+            "(_dkv_kernel), launches :854/:895 (_flash_bwd); "
+            "paddle_tpu/ops/pallas/flash.py:579 (_dq_kernel_kgrid), :629 "
+            "(_dkv_kernel_kgrid), launches :741/:783 (_flash_bwd_kgrid)",
+            blaunches, [berrs["train_f32"], berrs["long_f32"]], btimes,
+            "training attention backward (dQ + dK/dV kernels, delta "
+            "included): B 8 x H 12 x T 512 x D 64, causal, f32, q/k/v/do "
+            "as transposed views; launches = dQ + dK/dV over phase 9",
+            main="train",
+            source="paddle_tpu_torch/csrc/flash_attention_bwd.cu"),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,14 +4,41 @@ The JAX package (``paddle_tpu``) stays the reference; this package mirrors
 its layout module for module, imports ``torch`` and never ``jax`` or
 ``paddle_tpu``, and runs its kernels as hand-written CUDA for Hopper
 (``csrc/``), built at first use. Entry points run on the card unless the
-caller passes ``device="cpu"``.
+caller asks for the CPU (``device="cpu"``, ``Executor(CPUPlace())``).
 
 Ported so far: continuous-batching GPT serving (``serving/``,
 ``models/gpt.py``), dense or int8 KV pools, MHA or grouped-query heads,
 optionally int8 weights, with the paged-attention kernel
-(``ops/cuda/paged.py``; dense and int8 variants).
+(``ops/cuda/paged.py``); prompt-conditioned decoding with the
+flash-attention forward (``ops/flash.py``); and static-graph GPT training
+through the Fluid entry points (``core/``, ``layers/``, ``optimizer/``,
+``ops/``), whose attention backward runs the flash-attention backward
+kernels. The top level is the ``fluid`` namespace of that recipe::
+
+    import paddle_tpu_torch as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        tokens, loss, logits = gpt.build_lm_net(cfg, seq_len=512)
+        fluid.optimizer.AdamOptimizer(1e-4).minimize(loss)
+    exe = fluid.Executor()            # the card; CPUPlace() for the CPU
+    exe.run(startup)
+    exe.run(main, feed={"tokens": ids}, fetch_list=[loss])
 """
 
+from . import initializer, layers, optimizer
+from .core import unique_name
+from .core.backward import append_backward, gradients
+from .core.executor import (Executor, Scope, global_scope, scope_from_numpy,
+                            scope_guard)
+from .core.framework import (Program, Variable, Parameter, program_guard,
+                             default_main_program, default_startup_program)
+from .core.param_attr import ParamAttr
+from .core.place import CPUPlace, CUDAPlace
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["Executor", "Scope", "global_scope", "scope_guard",
+           "scope_from_numpy", "Program", "Variable", "Parameter",
+           "program_guard", "default_main_program", "default_startup_program",
+           "ParamAttr", "CPUPlace", "CUDAPlace", "append_backward",
+           "gradients", "layers", "optimizer", "initializer", "unique_name",
+           "resolve_device"]

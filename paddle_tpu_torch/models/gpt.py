@@ -1,5 +1,5 @@
-"""GPT decoder-only language model: config, parameters, and the
-prompt-conditioned decoders.
+"""GPT decoder-only language model: config, parameters, the training
+graph, and the prompt-conditioned decoders.
 
 Counterpart of ``paddle_tpu/models/gpt.py``. The port keeps the JAX
 package's parameter layout (``load_params``): a dict with ``word_emb``
@@ -16,9 +16,14 @@ cache, and ``make_prompt_decoder`` / ``generate_with_prompt`` /
 ``make_greedy_decoder`` / ``make_sampler`` wire them to the loops of
 ``inference/decoding.py``. JAX's ``jit`` has no counterpart: the
 factories return plain callables that run under ``torch.inference_mode``
-on the device the caller names (None means the card). The training graph
-and ``generate(scope, ...)`` need the framework's Program and Scope, and
-wait for that slice.
+on the device the caller names (None means the card).
+
+Training: ``build_lm_net`` builds the causal-LM Program through the
+framework's layers (``gpt_logits``, one ``_block`` per layer, whose
+``multi_head_attention`` op runs the flash kernels forward and backward on
+the card); the Executor trains it, and ``load_params`` / ``generate`` read
+the trained parameters back out of its Scope by their ``gpt*`` names.
+``build_packed_lm_net`` (packed documents) is not ported yet.
 """
 
 import math
@@ -27,10 +32,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import layers
+from ..core import framework
+from ..core.param_attr import ParamAttr
 from ..device import resolve_device
 
 __all__ = ["GPTConfig", "gpt_tiny", "init_params", "params_from_numpy",
-           "gqa_slice_kv_params", "gqa_repeat_kv_params", "build_kv_step",
+           "gqa_slice_kv_params", "gqa_repeat_kv_params", "gpt_logits",
+           "build_lm_net", "load_params", "generate", "build_kv_step",
            "build_prefill", "make_prompt_decoder", "generate_with_prompt",
            "make_greedy_decoder", "make_sampler"]
 
@@ -194,6 +203,101 @@ def _cast_params(params, dtype):
 def _to_device(params, device):
     return {k: (_to_device(v, device) if isinstance(v, dict)
                 else v.to(device)) for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# training: the static graph, and the parameters out of a trained scope
+# ---------------------------------------------------------------------------
+
+def _block(x, cfg, idx):
+    """Pre-norm GPT-2 block: x + attn(ln(x)); x + ffn(ln(x))."""
+    h = layers.layer_norm(x, begin_norm_axis=2,
+                          param_attr=ParamAttr(name=f"gpt{idx}_ln1_s"),
+                          bias_attr=ParamAttr(name=f"gpt{idx}_ln1_b"))
+    a = layers.multi_head_attention(
+        h, num_heads=cfg.num_heads, d_model=cfg.hidden_size, causal=True,
+        dropout_rate=cfg.dropout,
+        param_attr=ParamAttr(name=f"gpt{idx}_attn"),
+        bias_attr=ParamAttr(name=f"gpt{idx}_attn"))
+    x = layers.elementwise_add(x, a)
+    h = layers.layer_norm(x, begin_norm_axis=2,
+                          param_attr=ParamAttr(name=f"gpt{idx}_ln2_s"),
+                          bias_attr=ParamAttr(name=f"gpt{idx}_ln2_b"))
+    f = layers.fc(h, size=cfg.inner_size, num_flatten_dims=2, act="gelu",
+                  param_attr=ParamAttr(name=f"gpt{idx}_ffn0_w"),
+                  bias_attr=ParamAttr(name=f"gpt{idx}_ffn0_b"))
+    f = layers.fc(f, size=cfg.hidden_size, num_flatten_dims=2,
+                  param_attr=ParamAttr(name=f"gpt{idx}_ffn1_w"),
+                  bias_attr=ParamAttr(name=f"gpt{idx}_ffn1_b"))
+    if cfg.dropout:
+        f = layers.dropout(f, cfg.dropout)
+    return layers.elementwise_add(x, f)
+
+
+def gpt_logits(tokens, cfg, seq_len):
+    """(B, T) int tokens -> (B, T, V) next-token logits (tied head), the
+    word embedding plus the first seq_len rows of the position table."""
+    emb = layers.embedding(tokens, size=[cfg.vocab_size, cfg.hidden_size],
+                           param_attr=ParamAttr(name="gpt_word_emb"))
+    pos_table = layers.create_parameter(
+        [cfg.max_position, cfg.hidden_size], "float32",
+        attr=ParamAttr(name="gpt_pos_emb"))
+    pos = layers.slice(pos_table, axes=[0], starts=[0], ends=[seq_len])
+    x = layers.elementwise_add(emb, pos)
+    if cfg.dropout:
+        x = layers.dropout(x, cfg.dropout)
+    for i in range(cfg.num_layers):
+        x = _block(x, cfg, i)
+    x = layers.layer_norm(x, begin_norm_axis=2,
+                          param_attr=ParamAttr(name="gpt_lnf_s"),
+                          bias_attr=ParamAttr(name="gpt_lnf_b"))
+    word_emb = framework.default_main_program().global_block().var(
+        "gpt_word_emb")
+    return layers.matmul(x, word_emb, transpose_y=True)
+
+
+def build_lm_net(cfg=None, seq_len=64):
+    """Causal LM training graph. Feeds: tokens (B, T) int64.
+    Returns (tokens_var, mean_loss, logits)."""
+    cfg = cfg or GPTConfig()
+    tokens = layers.data("tokens", shape=[seq_len], dtype="int64")
+    logits = gpt_logits(tokens, cfg, seq_len)
+    # next-token prediction: positions 0..T-2 predict tokens 1..T-1
+    pred = layers.slice(logits, axes=[1], starts=[0], ends=[seq_len - 1])
+    tgt = layers.slice(tokens, axes=[1], starts=[1], ends=[seq_len])
+    pred2d = layers.reshape(pred, shape=[-1, cfg.vocab_size])
+    tgt2d = layers.reshape(tgt, shape=[-1, 1])
+    loss = layers.mean(layers.softmax_with_cross_entropy(pred2d, tgt2d))
+    return tokens, loss, logits
+
+
+def load_params(scope, cfg):
+    """The named parameters of a trained scope in the params-dict layout
+    (detached tensors on the scope's device, shared with it)."""
+
+    def get(name):
+        v = scope.get(name)
+        if v is None:
+            raise KeyError(
+                f"gpt.load_params: parameter {name!r} not in scope — run "
+                f"the startup program (and train/load) with the same "
+                f"gpt_* ParamAttr names before generating")
+        return v.detach()
+
+    p = {"word_emb": get("gpt_word_emb"), "pos_emb": get("gpt_pos_emb"),
+         "lnf_s": get("gpt_lnf_s"), "lnf_b": get("gpt_lnf_b")}
+    for i in range(cfg.num_layers):
+        p[f"l{i}"] = {
+            "ln1_s": get(f"gpt{i}_ln1_s"), "ln1_b": get(f"gpt{i}_ln1_b"),
+            "ln2_s": get(f"gpt{i}_ln2_s"), "ln2_b": get(f"gpt{i}_ln2_b"),
+            "wq": get(f"gpt{i}_attn_q"), "wk": get(f"gpt{i}_attn_k"),
+            "wv": get(f"gpt{i}_attn_v"), "wo": get(f"gpt{i}_attn_o"),
+            "bq": get(f"gpt{i}_attn_q_b"), "bk": get(f"gpt{i}_attn_k_b"),
+            "bv": get(f"gpt{i}_attn_v_b"), "bo": get(f"gpt{i}_attn_o_b"),
+            "f0w": get(f"gpt{i}_ffn0_w"), "f0b": get(f"gpt{i}_ffn0_b"),
+            "f1w": get(f"gpt{i}_ffn1_w"), "f1b": get(f"gpt{i}_ffn1_b"),
+        }
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -503,3 +607,40 @@ def make_sampler(params, cfg, max_len, temperature=1.0, top_k=None,
                                          eos_id)
 
     return sample
+
+
+def generate(scope, cfg, bos_ids=None, max_len=None, eos_id=None,
+             beam_size=None, length_penalty=0.6, prompt_ids=None):
+    """KV-cache generation from trained scope params: greedy by default,
+    beam search (dense lanes, GNMT length penalty) with beam_size.
+    `prompt_ids` (B, P) conditions on a whole prompt via the parallel
+    prefill (greedy or beam); `bos_ids` (B,) starts from single tokens.
+    It runs on the device the scope's parameters live on, where the
+    Executor that trained them put them."""
+    from ..inference import decoding as dec
+    if bos_ids is None and prompt_ids is None:
+        raise ValueError("generate() needs bos_ids (B,) or "
+                         "prompt_ids (B, P)")
+    if max_len is None:
+        raise ValueError("generate() needs max_len (total sequence "
+                         "positions, prompt included)")
+    params = load_params(scope, cfg)
+    device = params["word_emb"].device
+    if prompt_ids is not None:
+        return generate_with_prompt(params, cfg, prompt_ids, max_len,
+                                    eos_id=eos_id, beam_size=beam_size,
+                                    length_penalty=length_penalty,
+                                    device=device)
+    if beam_size is None:
+        decode = make_greedy_decoder(params, cfg, max_len, eos_id=eos_id,
+                                     device=device)
+        return decode(bos_ids)
+    bos = _ids_on(bos_ids, device, 1)
+    d = cfg.hidden_size // cfg.num_heads
+    step = build_kv_step(params, cfg, max_len)
+    with torch.inference_mode():
+        cache = dec.init_kv_cache(bos.shape[0] * beam_size, cfg.num_layers,
+                                  cfg.num_heads, max_len, d, device=device)
+        return dec.beam_decode(step, cache, bos, max_len, beam_size,
+                               eos_id if eos_id is not None else -1,
+                               length_penalty=length_penalty)

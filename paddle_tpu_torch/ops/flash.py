@@ -1,23 +1,32 @@
 """Flash attention: the port of ``paddle_tpu/ops/pallas/flash.py``'s
-public forward.
+public functions, differentiable.
 
 ``flash_attention`` and ``flash_attention_with_lse`` canonicalize the
-bias and segment ids as the JAX functions do, then send CUDA tensors to
-the hand-written kernel (``ops/cuda/flash.py``, which raises on operands
-it does not take) and CPU tensors to its plain version. Nothing else
-chooses between them.
+bias and segment ids as the JAX functions do, then go through one
+``torch.autograd.Function`` (the counterpart of JAX's ``custom_vjp``
+``_flash``, ``flash.py:971-1005``). Its forward sends CUDA tensors to the
+hand-written forward kernel (``ops/cuda/flash.py``, which raises on
+operands it does not take) and CPU tensors to its plain version; it saves
+q, k, v, the bias, the segment ids, out and lse. Its backward takes the
+cotangents of both out and lse, as ``_flash_vjp_bwd`` does (the lse's
+folds into delta), and sends CUDA tensors to the backward kernels (dQ,
+then dK/dV) and CPU tensors to their plain version. The bias gets a
+gradient only when it requires one (``flash_dbias``, plain torch); the
+segment ids get none. Nothing else chooses between kernel and plain
+version.
 
-The TPU's tiling knobs are not ported: the kernel picks its own tiles,
+The TPU's tiling knobs are not ported: the kernels pick their own tiles,
 so there is no ``block_q``/``block_k`` argument, no ``default_blocks``,
 no ``PADDLE_TPU_FLASH_BLOCK_Q/K``, no tuned-blocks file and no
-``PT_FLASH_KGRID`` (one kernel streams K/V at every length). The
-backward (training) waits for the training slice.
+``PT_FLASH_KGRID`` (one kernel pair streams K/V or Q/dO at every
+length).
 """
 
 import torch
 
-from .cuda.flash import (NEG_INF, flash_attention_cuda,
-                         flash_attention_reference)
+from .cuda.flash import (NEG_INF, flash_attention_bwd_cuda,
+                         flash_attention_bwd_reference, flash_attention_cuda,
+                         flash_attention_reference, flash_dbias)
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "segment_mask_bias", "NEG_INF"]
@@ -80,10 +89,42 @@ def flash_attention(q, k, v, bias=None, scale=None, causal=False,
                                     segment_ids=segment_ids)[0]
 
 
+class _Flash(torch.autograd.Function):
+    """Differentiable (out, lse) of the flash kernels or their plain
+    versions, chosen by the tensors' device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, segq, segk, scale, causal):
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_reference
+        out, lse = fwd(q, k, v, bias, segq, segk, scale, causal)
+        ctx.save_for_backward(q, k, v, bias, segq, segk, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        # an unused output's cotangent arrives as None, not as zeros
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, bias, segq, segk, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        bwd = (flash_attention_bwd_cuda if q.is_cuda
+               else flash_attention_bwd_reference)
+        dq, dk, dv, delta = bwd(q, k, v, bias, segq, segk, out, lse, do,
+                                dlse, ctx.scale, ctx.causal)
+        db = None
+        if bias is not None and ctx.needs_input_grad[3]:
+            db = flash_dbias(q, k, v, bias, lse, do, delta, ctx.scale,
+                             ctx.causal, segq, segk)
+        return dq, dk, dv, db, None, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, bias=None, scale=None, causal=False,
                              segment_ids=None):
-    """flash_attention returning (out, logsumexp (B, H, Tq) f32). CUDA
-    tensors launch the kernel, CPU tensors take the plain version."""
+    """flash_attention returning (out, logsumexp (B, H, Tq) f32), both
+    differentiable (the lse's cotangent enters the backward through
+    delta). CUDA tensors launch the kernels, CPU tensors take the plain
+    versions."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / (d ** 0.5)
     b, h, tq = q.shape[:3]
@@ -92,8 +133,4 @@ def flash_attention_with_lse(q, k, v, bias=None, scale=None, causal=False,
     if bias is not None:
         bias = _canonical_bias(torch.as_tensor(bias, device=q.device), b, h,
                                tq, tk)
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, bias, segq, segk, scale,
-                                    bool(causal))
-    return flash_attention_reference(q, k, v, bias, segq, segk, scale,
-                                     bool(causal))
+    return _Flash.apply(q, k, v, bias, segq, segk, scale, bool(causal))

@@ -373,7 +373,17 @@ def test_port_imports_neither_jax_nor_reference_package():
         "    paddle_tpu_torch.__path__, 'paddle_tpu_torch.')]\n"
         "need = ['paddle_tpu_torch.ops.flash',\n"
         "        'paddle_tpu_torch.ops.cuda.flash',\n"
-        "        'paddle_tpu_torch.inference.decoding']\n"
+        "        'paddle_tpu_torch.inference.decoding',\n"
+        "        'paddle_tpu_torch.core.framework',\n"
+        "        'paddle_tpu_torch.core.executor',\n"
+        "        'paddle_tpu_torch.core.backward',\n"
+        "        'paddle_tpu_torch.core.layer_helper',\n"
+        "        'paddle_tpu_torch.initializer',\n"
+        "        'paddle_tpu_torch.ops.attention_ops',\n"
+        "        'paddle_tpu_torch.ops.optimizer_ops',\n"
+        "        'paddle_tpu_torch.layers.nn',\n"
+        "        'paddle_tpu_torch.layers.attention',\n"
+        "        'paddle_tpu_torch.optimizer.optimizers']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
