@@ -15,14 +15,19 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
    one valid column per lane; H 12 for dense, H 12 over H_kv 4 for int8),
    a bf16 output also held row by row against the plain version with q and
    dense pools in f32;
-1f. flash kernel vs plain: the flash-attention forward against its plain
-   version, out and lse, f32 and bf16, D 32/64/128, on every feature of
-   the TPU kernels it replaces (causal and not, Tq != Tk, lengths off the
-   tile grid, key-only / per-query / per-head bias, bias under causal,
-   segment ids self and cross and with a bias, tiles skipped whole, causal
-   rows with no visible key exactly 0), then at the prefill shape (B 8,
-   H 12, T 512, D 64, causal, bf16, q/k/v as the prefill's transposed
-   views) and the long shape (B 1, H 12, T 16384, causal, bf16; the plain
+1f. flash kernels vs plain: the flash-attention forward against its plain
+   version, out and lse, f32 (the SIMT kernel) and bf16 (the tensor-core
+   kernel: every bf16 case must add one to its count), D 32/64/128, on
+   every feature of the TPU kernels it replaces (causal and not, Tq != Tk,
+   lengths off the tile grid, key-only / per-query / per-head bias, bias
+   under causal, segment ids self and cross and with a bias, tiles skipped
+   whole, causal rows with no visible key exactly 0) and three more (a
+   long key run off the 128-key grid over two q tiles, Tk one past a key
+   tile, views at an odd offset that the wrapper must copy for TMA, a
+   bias strided along keys that it must copy for the kernel), then
+   at the prefill shape (B 8, H 12, T 512, D 64, causal, bf16, q/k/v as
+   the prefill's transposed views, which meet TMA's rule and are not
+   copied) and the long shape (B 1, H 12, T 16384, causal, bf16; the plain
    version head by head); bf16 also row by row against the plain version
    in f32;
 2. serve at full width: GPTConfig() (12 x 768, vocab 32000, bf16, random
@@ -49,9 +54,10 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
 6. prompt-conditioned decoding at full width: GPTConfig() in bf16 through
    make_prompt_decoder on 8 seeded 512-token prompts, 64 new tokens each
    (greedy), beam K 4 on 2 of them, and make_sampler(prompt_len=512,
-   top_k=50); every call's prefill must launch the flash kernel exactly
-   12 times (once per layer); prints the prefill ms, prompt tokens/s and
-   decode tokens/s;
+   top_k=50); every call's prefill must launch the flash forward's
+   tensor-core kernel exactly 12 times (once per layer); prints the
+   prefill ms (the median of 5 timed prefills, each one listed), prompt
+   tokens/s and decode tokens/s;
 6b. where the greedy prompt decode's time goes: torch.profiler over one
    call, the device's busy share, the flash kernel's part and the device
    operations per decode step;
@@ -59,8 +65,9 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
    once through the flash kernel and once with its plain version put in
    through ``attention``, must give identical first 16 ids;
 8. flash times: kernel, plain and scaled_dot_product_attention (the
-   yardstick, never on the path) at the prefill and the long shape, cold
-   L2, beside the bound;
+   yardstick, never on the path) at the prefill and the long shape (bf16,
+   the tensor-core kernel) and at the training shape (f32, the SIMT
+   kernel that phase 9 launches), cold L2, beside the bound;
 1g. flash backward kernels vs plain: dq, dk and dv of the dQ and dK/dV
    kernels against their plain version on phase 1f's feature cases, f32
    and bf16, D 32/64/128, with and without an lse cotangent, dbias through
@@ -88,7 +95,8 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
 
 Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
-flash-attention forward and the flash-attention backward); the line before
+flash-attention forward's tensor-core (bf16) and SIMT (f32) kernels and
+the flash-attention backward); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.
@@ -114,6 +122,7 @@ SHAPES = ("decode", "prefill", "step")
 KV_HEADS = 4                        # phase 2b's GQA: 12 query heads over 4
 PROMPTS = 8                         # phase 6: prompts of PROMPT_LEN tokens
 PROMPT_LEN = 512
+PREFILL_RUNS = 5                    # phase 6: timed prefills, median kept
 BEAM = 4
 PREFILL_SHAPE = (8, 12, 512, 64)    # the prefill's attention at full width
 LONG_SHAPE = (1, 12, 16384, 64)
@@ -624,6 +633,10 @@ def flash_case(name, dtype, d, gen):
         tq, tk, causal = 80, 16, True
     if name == "long_key":                # many key tiles
         b, h, tq, tk = 1, 2, 70, 700
+    if name == "long_ragged":             # two q tiles, Tk off the grid
+        b, h, tq, tk = 1, 2, 130, 1037
+    if name == "key_tile_plus_one":       # Tk one past a 128-key tile
+        tq, tk, causal = 100, 129, True
     q = _rand((b, h, tq, d), gen, dtype)
     k = _rand((b, h, tk, d), gen, dtype)
     v = _rand((b, h, tk, d), gen, dtype)
@@ -655,16 +668,32 @@ def flash_case(name, dtype, d, gen):
         k, v = _rand((b, h, tk, d), gen, dtype), _rand((b, h, tk, d), gen,
                                                        dtype)
         segq = segk = torch.tensor([[1] * 64 + [2] * 64] * b, device="cuda")
+    if name == "misaligned":              # views at an odd offset
+        q, k, v = (_offset_view(t) for t in (q, k, v))
+    if name == "bias_strided":            # a bias strided along keys
+        bias = _rand((b, h, tk, tq), gen).transpose(-1, -2)
     if segq is not None:
         segq = segq.to(torch.int32).contiguous()
         segk = segk.to(torch.int32).contiguous()
     return q, k, v, bias, segq, segk, causal
 
 
+def _offset_view(t):
+    """t's values in a view one element into a fresh buffer: a base that
+    is not 16-byte aligned, which the TMA rule refuses."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 FLASH_FEATURES = ("plain", "causal", "cross_len", "ragged", "ragged_causal",
                   "no_visible_keys", "long_key", "bias_key", "bias_query",
                   "bias_full", "bias_causal", "segment", "segment_causal",
                   "segment_bias", "segment_cross", "segment_skip")
+# phase 1f only: the tensor-core kernel's tile edges and its TMA copy
+FLASH_FWD_EXTRA = ("long_ragged", "key_tile_plus_one", "misaligned",
+                   "bias_strided")
 
 
 def prefill_views(dtype, gen, shape=PREFILL_SHAPE):
@@ -695,10 +724,18 @@ def _flash_plain_by_head(flash, q, k, v, causal):
 
 
 def check_one_flash(flash, name, case, by_head=False):
+    """One case through the kernel its dtype takes (bf16: the tensor-core
+    kernel, whose count must go up by one; f32: the SIMT kernel) against
+    the plain version. Returns the max-abs error of out."""
     q, k, v, bias, segq, segk, causal = case
+    tc = flash.TC_LAUNCHES
     out, lse = flash.flash_attention_cuda(q, k, v, bias, segq, segk, None,
                                           causal)
     torch.cuda.synchronize()
+    want_tc = tc + (q.dtype == torch.bfloat16)
+    if flash.TC_LAUNCHES != want_tc:
+        _fail(f"flash {name}: tensor-core launches {flash.TC_LAUNCHES - tc}"
+              f", want {want_tc - tc}")
     if by_head:
         ref, rlse = _flash_plain_by_head(flash, q, k, v, causal)
     else:
@@ -725,7 +762,7 @@ def check_one_flash(flash, name, case, by_head=False):
                 causal)
         rel = _row_rel_err(out, ref32)
         line += (f", vs f32 plain: row max_rel_err {rel:.3e} (tolerance "
-                 f"{flash.BF16_ROW_REL_TOLERANCE})")
+                 f"{flash.BF16_FWD_ROW_REL_TOLERANCE})")
     if name.startswith("no_visible_keys"):
         dead = q.shape[2] - k.shape[2]
         if out[:, :, :dead].abs().max().item() != 0.0 or not bool(
@@ -736,7 +773,7 @@ def check_one_flash(flash, name, case, by_head=False):
     if not (err <= tol and lerr <= ltol):
         _fail(f"flash kernel disagrees with its plain version at {name}: "
               f"{err} / lse {lerr}")
-    if rel is not None and not rel <= flash.BF16_ROW_REL_TOLERANCE:
+    if rel is not None and not rel <= flash.BF16_FWD_ROW_REL_TOLERANCE:
         _fail(f"bf16 flash kernel disagrees with the f32 plain version at "
               f"{name}: row error {rel}")
     return abs_err
@@ -744,21 +781,31 @@ def check_one_flash(flash, name, case, by_head=False):
 
 def check_flash(flash):
     """Every feature case, f32 and bf16, D 32/64/128, then the prefill
-    and the long shape in bf16. Returns {case: max_abs_err}."""
+    (whose views the wrapper must take as they are) and the long shape in
+    bf16. Returns {case: max_abs_err}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     errs = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for d in flash.HEAD_DIMS:
-            for name in FLASH_FEATURES:
+            for name in FLASH_FEATURES + FLASH_FWD_EXTRA:
                 key = f"{name}_d{d}_{tag}"
-                errs[key] = check_one_flash(
-                    flash, key, flash_case(name, dtype, d, gen))
+                case = flash_case(name, dtype, d, gen)
+                if name == "misaligned" and any(
+                        flash.tma_aligned(t) for t in case[:3]):
+                    _fail(f"flash {key}: the views meet TMA's rule")
+                errs[key] = check_one_flash(flash, key, case)
     q, k, v = prefill_views(torch.bfloat16, gen)
+    if not all(flash.tma_aligned(t) for t in (q, k, v)):
+        _fail("the prefill's views do not meet TMA's rule: the wrapper "
+              "would copy them")
     errs["prefill_bf16"] = check_one_flash(
         flash, "prefill_bf16", (q, k, v, None, None, None, True))
     q, k, v = (_rand(LONG_SHAPE, gen, torch.bfloat16) for _ in range(3))
     errs["long_bf16"] = check_one_flash(
         flash, "long_bf16", (q, k, v, None, None, None, True), by_head=True)
+    q, k, v = prefill_views(torch.float32, gen, TRAIN_SHAPE)
+    errs["train_f32"] = check_one_flash(
+        flash, "train_f32", (q, k, v, None, None, None, True))
     return errs
 
 
@@ -772,20 +819,20 @@ def make_prompts(vocab, n=PROMPTS):
 
 
 def _launched_once(flash, cfg, what, fn, *args):
-    """fn(*args) with the flash count set to 0 just before; its prefill
-    must launch the kernel once per layer. Returns (result, seconds,
-    launches)."""
+    """fn(*args) with the flash counts set to 0 just before; its bf16
+    prefill must launch the tensor-core kernel once per layer, and nothing
+    else. Returns (result, seconds, launches)."""
     torch.cuda.synchronize()
-    flash.LAUNCHES = 0
+    flash.LAUNCHES = flash.TC_LAUNCHES = 0
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = flash.LAUNCHES
-    if launches != cfg.num_layers:
-        _fail(f"{what}: flash launches {launches} != {cfg.num_layers} "
-              f"layers")
-    return out, sec, launches
+    launches, tc = flash.LAUNCHES, flash.TC_LAUNCHES
+    if launches != cfg.num_layers or tc != cfg.num_layers:
+        _fail(f"{what}: flash launches {launches}, tensor-core {tc}; want "
+              f"{cfg.num_layers} layers each")
+    return out, sec, tc
 
 
 def phase_prompt_decode(flash, cfg, tree):
@@ -796,13 +843,18 @@ def phase_prompt_decode(flash, cfg, tree):
     prompts = make_prompts(cfg.vocab_size)
     max_len = PROMPT_LEN + NEW_TOKENS
     bf16 = torch.bfloat16
-    # the prefill alone, timed
+    # the prefill alone, timed PREFILL_RUNS times (its wall is mostly the
+    # host's launches, which vary from call to call): the median counts
     prefill = gpt.build_prefill(gpt._cast_params(params, bf16), cfg, max_len)
     ids = torch.from_numpy(prompts).to("cuda")
+    pre_runs = []
     with torch.inference_mode():
         prefill(ids)                      # warm
-        (cache, logits), pre_s, _ = _launched_once(
-            flash, cfg, "prefill", prefill, ids)
+        for _ in range(PREFILL_RUNS):
+            (cache, logits), sec, _ = _launched_once(
+                flash, cfg, "prefill", prefill, ids)
+            pre_runs.append(sec)
+    pre_s = float(np.median(pre_runs))
     if logits.shape != (PROMPTS, PROMPT_LEN, cfg.vocab_size) \
             or not torch.isfinite(logits).all():
         _fail(f"prefill logits {tuple(logits.shape)} non-finite or "
@@ -835,6 +887,7 @@ def phase_prompt_decode(flash, cfg, tree):
         _fail("beams are not sorted best-first")
     gen_tokens = PROMPTS * NEW_TOKENS
     out = {"prefill_ms": pre_s * 1e3,
+           "prefill_ms_runs": [t * 1e3 for t in pre_runs],
            "prompt_tokens_per_s": PROMPTS * PROMPT_LEN / pre_s,
            "greedy_s": dec_s,
            "decode_tokens_per_s": gen_tokens / (dec_s - pre_s),
@@ -899,12 +952,13 @@ def phase_agree_prefill(flash, cfg, tree):
     for attention in (None, plain):
         decode = gpt.make_prompt_decoder(params, cfg, PROMPT_LEN, max_len,
                                          attention=attention)
-        flash.LAUNCHES = 0
+        flash.LAUNCHES = flash.TC_LAUNCHES = 0
         ids.append(decode(prompts)[0].cpu().numpy())
         want = cfg.num_layers if attention is None else 0
-        if flash.LAUNCHES != want:
-            _fail(f"agree prefill: {flash.LAUNCHES} flash launches, want "
-                  f"{want}")
+        if flash.LAUNCHES != want or flash.TC_LAUNCHES != 0:
+            _fail(f"agree prefill: {flash.LAUNCHES} flash launches "
+                  f"({flash.TC_LAUNCHES} tensor-core), want {want} (0) "
+                  f"in f32")
     same = int((ids[0] == ids[1]).all(axis=1).sum())
     print(f"agree prefill f32: {same}/{PROMPTS} prompts identical in their "
           f"first {AGREE_TOKENS} ids (flash kernel vs plain attention)")
@@ -935,18 +989,21 @@ def flash_bound_ms(q, k, causal):
 
 
 def phase_flash_times(flash):
-    """Kernel, plain (head by head at the long shape) and SDPA ms at the
-    prefill shape (the prefill's views) and the long shape, bf16, causal,
-    beside the bound."""
+    """Kernel, plain (head by head at the long shape) and SDPA ms, causal,
+    beside the bound: the tensor-core kernel at the prefill shape (the
+    prefill's views) and the long shape in bf16, the SIMT kernel at the
+    training shape in f32 (the training step's views)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = {}
-    for name, reps in (("prefill", 50), ("long", 5)):
+    for name, reps in (("prefill", 50), ("long", 5), ("train_f32", 20)):
+        dtype = torch.float32 if name == "train_f32" else torch.bfloat16
         if name == "prefill":
-            q, k, v = prefill_views(torch.bfloat16, gen)
+            q, k, v = prefill_views(dtype, gen)
+        elif name == "train_f32":
+            q, k, v = prefill_views(dtype, gen, TRAIN_SHAPE)
         else:
-            q, k, v = (_rand(LONG_SHAPE, gen, torch.bfloat16)
-                       for _ in range(3))
+            q, k, v = (_rand(LONG_SHAPE, gen, dtype) for _ in range(3))
 
         def plain():
             if name == "long":
@@ -956,7 +1013,9 @@ def phase_flash_times(flash):
 
         b_ms, b_by = flash_bound_ms(q, k, True)
         rows[name] = {
-            "shape": list(q.shape), "dtype": "bf16", "causal": True,
+            "shape": list(q.shape),
+            "dtype": "f32" if dtype == torch.float32 else "bf16",
+            "causal": True,
             "ms": _time_ms(lambda: flash.flash_attention_cuda(
                 q, k, v, None, None, None, None, True), reps=reps),
             "plain_ms": _time_ms(plain, reps=max(2, reps // 10),
@@ -1117,11 +1176,13 @@ def _bwd_counts(flash):
 
 def _zero_counts(flash):
     flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
+    flash.TC_LAUNCHES = 0
 
 
 def phase_train(flash):
     """Train the full-width GPT for TRAIN_WARM + TRAIN_STEPS steps on one
-    batch. Returns the backward launches of the run (dQ + dK/dV)."""
+    batch. Returns the launches of the run: the backward's (dQ + dK/dV)
+    and the forward's (the f32 SIMT kernel)."""
     import paddle_tpu_torch as fluid
     cfg, main, startup, loss, toks = build_train()
     scope = fluid.Scope()
@@ -1148,9 +1209,9 @@ def phase_train(flash):
                                                      before)))
         counts = _bwd_counts(flash)
     n = cfg.num_layers
-    if per_step != {(n, n, n)}:
+    if per_step != {(n, n, n)} or flash.TC_LAUNCHES != 0:
         _fail(f"train: flash launches fwd/dq/dkv per step {per_step}, want "
-              f"{n} each")
+              f"{n} each; {flash.TC_LAUNCHES} tensor-core, want 0 in f32")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         _fail(f"train: loss not finite and falling: {losses}")
     mean_ms = float(np.mean(step_ms))
@@ -1165,7 +1226,7 @@ def phase_train(flash):
            "loss_first": losses[0], "loss_last": losses[-1],
            "flash_launches_fwd_dq_dkv": list(counts)}
     print("train " + json.dumps(out))
-    return counts[1] + counts[2]
+    return counts[1] + counts[2], counts[0]
 
 
 def _train_step_grads(fluid, exe, main, loss, toks, scope, names):
@@ -1356,6 +1417,11 @@ def kernel_entry(name, replaces, launches, errs, times, at, main="step",
         "library_ms": row["library_ms"], "at": at, "shapes": times}
 
 
+FLASH_FWD_REPLACES = (
+    "paddle_tpu/ops/pallas/flash.py:168 (_fwd_kernel, launch :294), "
+    "paddle_tpu/ops/pallas/flash.py:318 (_fwd_kernel_kgrid, launch :423)")
+
+
 def build_all():
     """The kernels' libraries, one nvcc for each source, side by side."""
     from paddle_tpu_torch.ops.cuda import flash, paged
@@ -1397,7 +1463,7 @@ def main():
     _phase("6b profile prompt decode", phase_profile_prompt, cfg, tree)
     _phase("7 agree prefill", phase_agree_prefill, flash, cfg, tree)
     ftimes = _phase("8 flash times", phase_flash_times, flash)
-    blaunches = _phase("9 train", phase_train, flash)
+    blaunches, f32_launches = _phase("9 train", phase_train, flash)
     _phase("9b train agree", phase_train_agree, flash)
     _phase("9c profile train", phase_profile_train, flash)
     btimes = _phase("10 flash backward times", phase_flash_bwd_times, flash)
@@ -1420,14 +1486,23 @@ def main():
             "fused-step decode: 16 lanes x H 12 over H_kv 4 x C 16 (one "
             "valid column) x D 64, bs 16, M 64, int8 pools, bf16 q"),
         kernel_entry(
-            "flash_attention_fwd",
-            "paddle_tpu/ops/pallas/flash.py:168 (_fwd_kernel, launch :294), "
-            "paddle_tpu/ops/pallas/flash.py:318 (_fwd_kernel_kgrid, launch "
-            ":423)",
-            flaunches, [ferrs["prefill_bf16"], ferrs["long_bf16"]], ftimes,
+            "flash_attention_fwd: flash_fwd_tc_kernel (bf16, wgmma + TMA)",
+            FLASH_FWD_REPLACES, flaunches,
+            [ferrs["prefill_bf16"], ferrs["long_bf16"]],
+            {k: ftimes[k] for k in ("prefill", "long")},
             "prefill attention: B 8 x H 12 x T 512 x D 64, causal, bf16, "
-            "q/k/v as the prefill's transposed views",
+            "q/k/v as the prefill's transposed views; launches over phase "
+            "6's three calls",
             main="prefill",
+            source="paddle_tpu_torch/csrc/flash_attention.cu"),
+        kernel_entry(
+            "flash_attention_fwd: flash_fwd_kernel (f32, SIMT)",
+            FLASH_FWD_REPLACES, f32_launches, [ferrs["train_f32"]],
+            {"train_f32": ftimes["train_f32"]},
+            "training attention: B 8 x H 12 x T 512 x D 64, causal, f32, "
+            "q/k/v as the training step's transposed views; launches over "
+            "phase 9",
+            main="train_f32",
             source="paddle_tpu_torch/csrc/flash_attention.cu"),
         kernel_entry(
             "flash_attention_bwd",

@@ -5,10 +5,15 @@ The forward replaces the Pallas forward kernels of
 ``paddle_tpu/ops/pallas/flash.py``: ``_fwd_kernel`` (``:168``, launcher
 ``_flash_fwd``; K/V resident in VMEM) and ``_fwd_kernel_kgrid`` (``:318``,
 launcher ``_flash_fwd_kgrid``; K/V streamed by the grid for long
-contexts). Both compute one function, and one kernel,
-``csrc/flash_attention.cu``, serves both: a thread block owns one (batch x
-head, 64-row query tile) and streams 64-key K/V tiles through shared memory
-with an f32 online softmax, so any key length fits.
+contexts). Both compute one function, and one entry point of
+``csrc/flash_attention.cu`` serves both, streaming K/V through shared
+memory with an f32 online softmax so that any key length fits. It holds two
+kernels, chosen by dtype: bf16 takes the tensor-core kernel (a block owns
+128 query rows of one batch x head; a producer warp feeds 128-key K/V
+tiles through a three-stage TMA ring, two consumer warpgroups compute
+both products with ``wgmma`` and take turns at the tensor cores), f32 the
+SIMT kernel (a block per 64-row query tile, scalar f32 products from
+shared memory).
 
 The backward replaces ``_dq_kernel`` / ``_dkv_kernel`` (``:465`` / ``:519``,
 launcher ``_flash_bwd``) and ``_dq_kernel_kgrid`` / ``_dkv_kernel_kgrid``
@@ -50,20 +55,24 @@ What bounds the kernels on this card: the forward at the prefill shape
 (B 8, H 12, T 512, D 64, causal, bf16) the bytes (q, k, v read once, out
 and lse written once: 25.4 MB, 7.6 us at 3.35 TB/s) against 3.2 GFLOP of
 products (3.3 us at the bf16 peak); at long causal shapes (T 16384) the
-operations. The backward at the training shape (the same, f32) moves
-~101 MB (30 us) and needs 8.1e9 flops (0.12 ms at the f32 CUDA-core
-peak). These first kernels compute their products with scalar f32 FMAs
-from shared memory and are far from either bound; PERF.md has their times.
+operations. The f32 forward at the training shape is bound by its 3.2e9
+flops at the 67 TFLOP/s f32 CUDA-core peak (0.048 ms). The backward at
+the training shape (the same, f32) moves ~101 MB (30 us) and needs 8.1e9
+flops (0.12 ms at the f32 CUDA-core peak). The f32 kernels compute their
+products with scalar f32 FMAs from shared memory; PERF.md has every
+kernel's times.
 
 Numerics, keyed by q's dtype in ``TOLERANCE`` (forward) and
 ``BWD_TOLERANCE`` (dq, dk, dv): both sides compute in f32 from the same
 inputs and differ only in summation order (f32; the backward's sums run
 over up to Tq or Tk terms, hence its looser f32 bound) and, for bf16, in
 the rounding of values that straddle a bf16 step once the outputs are
-cast. The error is measured element-wise as ``|out - ref| / max(1,
+cast; the bf16 kernel also rounds the probabilities to bf16 before the
+P V product. The error is measured element-wise as ``|out - ref| / max(1,
 |ref|)``; lse is f32 on both sides and held to the f32 tolerance. A bf16
-output is also held, row by row, to ``BF16_ROW_REL_TOLERANCE`` of the
-plain version computed in f32.
+output is also held, row by row, to ``BF16_FWD_ROW_REL_TOLERANCE``
+(forward) or ``BF16_ROW_REL_TOLERANCE`` (backward) of the plain version
+computed in f32.
 
 The shared libraries are built at first use, from the repository's
 sources, into ``paddle_tpu_torch/csrc/build/`` with ``nvcc`` for
@@ -95,15 +104,25 @@ TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # bf16 kernel vs the plain version run in f32 on the same inputs, per
-# output row: max-abs error over the row's max |ref|. The kernel rounds
-# only its output to bf16 (at most 2**-9 of a value)
+# output row: max-abs error over the row's max |ref|. The backward kernels
+# round only their outputs to bf16
 BF16_ROW_REL_TOLERANCE = 5e-3
+
+# the same measure for the bf16 forward (the tensor-core kernel), which
+# rounds twice: each probability to bf16 before the P V product (half a
+# bf16 step, up to 2**-8 relative, errors of both signs weighted over the
+# row's keys) and then the output (up to 2**-8 of a value). Each can
+# reach ~2**-8 of the row's scale, hence 2 x 2**-8 = 7.8e-3 and this
+# bound; tests/test_torch_flash.py measures the two roundings on the CPU
+# (up to 5.5e-3), an H100 up to 6.7e-3 at T 16384
+BF16_FWD_ROW_REL_TOLERANCE = 1e-2
 
 HEAD_DIMS = (32, 64, 128)
 
 # kernel launches in this process since the last reset: each wrapper adds
 # one per launch of its kernel, and these are the only counts of them
-LAUNCHES = 0            # the forward
+LAUNCHES = 0            # the forward, both kernels
+TC_LAUNCHES = 0         # the forward's tensor-core (bf16) kernel
 DQ_LAUNCHES = 0         # the backward's dQ kernel
 DKV_LAUNCHES = 0        # the backward's dK/dV kernel
 _launches_lock = threading.Lock()
@@ -312,6 +331,15 @@ def _check(q, k, v, bias, segq, segk, *more):
     return bias
 
 
+def tma_aligned(t):
+    """Whether a (B, H, T, D) view meets the tensor-core kernel's TMA rule:
+    a 16-byte-aligned base and batch, head and time strides that are
+    positive multiples of 16 bytes (the unit stride along D aside)."""
+    nbytes = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s > 0 and s * nbytes % 16 == 0 for s in t.stride()[:3])
+
+
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -327,13 +355,24 @@ def _strides(tensors, bias):
 def flash_attention_cuda(q, k, v, bias=None, segq=None, segk=None,
                          scale=None, causal=False):
     """Launch the forward kernel on the current stream; the contract of
-    flash_attention_reference. q/k/v may be strided views (a unit stride
-    along D), such as the prefill's head-transposed projections; out is
-    (B, H, Tq, D) contiguous in q's dtype, lse (B, H, Tq) f32. Raises on
-    operands it does not take and on a refused launch; never falls
-    back."""
-    global LAUNCHES
+    flash_attention_reference. bf16 launches the tensor-core kernel, f32
+    the SIMT kernel. q/k/v may be strided views (a unit stride along D),
+    such as the prefill's head-transposed projections; a bf16 view that
+    does not meet TMA's rule (``tma_aligned``) is first copied into a
+    contiguous tensor (the prefill's views meet it and are never copied),
+    and so is a bias without a unit stride along keys.
+    out is (B, H, Tq, D) contiguous in q's dtype, lse (B, H, Tq) f32.
+    Raises on operands it does not take and on a refused launch; never
+    falls back."""
+    global LAUNCHES, TC_LAUNCHES
     bias = _check(q, k, v, bias, segq, segk)
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        q, k, v = (t if tma_aligned(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+        if bias is not None and bias.stride(3) != 1:
+            bias = bias.contiguous()    # the kernel reads bias rows whole
     lib = build()
     b, h, tq, d = q.shape
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
@@ -347,10 +386,13 @@ def flash_attention_cuda(q, k, v, bias=None, segq=None, segk=None,
             _scale(q, scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
             stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash attention kernel launch failed: error "
+                           f"{rc} (a cudaError_t; 9000: no "
+                           f"cuTensorMapEncodeTiled, 10000 + n: CUresult "
+                           f"n making a tensor map)")
     with _launches_lock:
         LAUNCHES += 1
+        TC_LAUNCHES += tc
     return out, lse
 
 

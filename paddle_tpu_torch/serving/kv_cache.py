@@ -23,6 +23,7 @@ caches, copy-on-write, fleet transfer and meshes wait.
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.cuda.paged import (NEG_INF, NULL_BLOCK, gather_block_kv,
                               gather_block_kv_pair, gather_block_scales,
                               paged_attention_cuda,
@@ -113,10 +114,13 @@ class PagedKVCache:
       (num_blocks, H_kv, block_size)). Reads dequantize to `dtype`.
 
     Every byte count (pool_bytes, scale_bytes, dense_pool_bytes) is at
-    the cache's own H_kv geometry, scales included."""
+    the cache's own H_kv geometry, scales included.
+
+    `device` None means the card, and raises without CUDA (as every entry
+    point of the port does); pass "cpu" for CPU pools."""
 
     def __init__(self, num_layers, num_heads, head_dim, num_blocks,
-                 block_size=16, dtype=torch.float32, device="cpu",
+                 block_size=16, dtype=torch.float32, device=None,
                  num_kv_heads=None, kv_dtype=None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved NULL)")
@@ -140,7 +144,7 @@ class PagedKVCache:
         self.compute_dtype = (torch.bfloat16 if kv_dtype == "bf16"
                               else dtype)
         self.dtype = torch.int8 if self.quantized else self.compute_dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (self.num_blocks, self.num_kv_heads, self.block_size,
                  self.head_dim)
 

@@ -237,3 +237,92 @@ def test_segment_mask_bias_matches_jax():
         got = tflash.segment_mask_bias(*[torch.from_numpy(a) for a in args])
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# what the bf16 tensor-core kernel adds, held on the CPU
+# ---------------------------------------------------------------------------
+
+def _rounded_p_attention(q, k, v, bias, segq, segk, scale, causal):
+    """The bf16 tensor-core kernel's arithmetic in f32: the plain
+    attention with P rounded to bf16 before the P V product, l summed from
+    the unrounded probabilities, the output rounded to bf16."""
+    s, vis = cflash._scores(q, k, bias, segq, segk, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - m), torch.zeros(()))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(cflash.L_FLOOR)
+    return (torch.matmul(p.bfloat16().float(), v) / l).bfloat16()
+
+
+def _row_rel_err(out, ref):
+    """Max over rows of the row's max-abs error over its max |ref|."""
+    err = (out.float() - ref).abs().amax(dim=-1)
+    return (err / ref.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("name", CASES + ["long_key"])
+def test_bf16_probability_rounding_within_row_tolerance(name, d):
+    """The two roundings of the bf16 forward kernel (P to bf16 before
+    P V, then the output) against the plain version in f32, row by row,
+    on bf16-valued inputs of the feature cases and a 70 x 700 long-key
+    case: within BF16_FWD_ROW_REL_TOLERANCE, the bound the kernel is held
+    to on the card. Dead rows stay exactly 0."""
+    if name == "long_key":
+        q, k, v = _qkv(1, 2, 70, 700, d, 30)
+        kw = {}
+    else:
+        q, k, v, _, kw = _case(name)
+        q, k, v = _qkv(*q.shape[:3], k.shape[2], d, d + 5)
+    q, k, v = (torch.from_numpy(x).bfloat16().float() for x in (q, k, v))
+    bias = kw.get("bias")
+    bias = None if bias is None else torch.from_numpy(bias)
+    segq = segk = None
+    if kw.get("segment_ids") is not None:
+        seg = kw["segment_ids"]
+        segq, segk = (torch.from_numpy(s)
+                      for s in (seg if isinstance(seg, tuple) else (seg, seg)))
+    causal = kw.get("causal", False)
+    scale = 1.0 / math.sqrt(d)
+    ref, _ = cflash.flash_attention_reference(q, k, v, bias, segq, segk,
+                                              scale, causal)
+    out = _rounded_p_attention(q, k, v, bias, segq, segk, scale, causal)
+    rel = _row_rel_err(out, ref)
+    assert 0 < rel <= cflash.BF16_FWD_ROW_REL_TOLERANCE
+    # the output rounding alone stays inside the backward's tighter bound
+    assert _row_rel_err(ref.bfloat16(), ref) <= cflash.BF16_ROW_REL_TOLERANCE
+
+
+def test_tma_alignment_rule():
+    """The tensor-core kernel's TMA rule, as the wrapper checks it: the
+    prefill's transposed views pass; an odd storage offset or a stride
+    that is not a multiple of 16 bytes does not, nor a broadcast (stride
+    0) view."""
+    b, t, h = 2, 24, 3
+    for d in cflash.HEAD_DIMS:
+        x = torch.zeros(b, t, h, d, dtype=torch.bfloat16)
+        assert cflash.tma_aligned(x.transpose(1, 2))
+        assert cflash.tma_aligned(x.permute(0, 2, 1, 3).contiguous())
+        flat = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16)
+        odd = flat[1:].view(b, t, h, d).transpose(1, 2)
+        assert odd.storage_offset() == 1 and not cflash.tma_aligned(odd)
+        padded = torch.zeros(b, h, t, d + 4, dtype=torch.bfloat16)[..., :d]
+        assert not cflash.tma_aligned(padded)     # time stride (d + 4) x 2
+        assert not cflash.tma_aligned(
+            torch.zeros(1, h, t, d, dtype=torch.bfloat16).expand(b, h, t, d))
+    # the same byte rule in f32: 16 bytes are 4 elements
+    assert cflash.tma_aligned(torch.zeros(b, h, t, 36)[..., :32])
+
+
+def test_kernel_wrapper_refuses_cpu_operands():
+    """flash_attention_cuda still raises ValueError for CPU operands, in
+    both dtypes and with views that would need the TMA copy, before it
+    copies or builds anything."""
+    q = torch.zeros(2, 3, 16, 64, dtype=torch.bfloat16)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    odd = flat[1:].view(q.shape)
+    before = cflash.LAUNCHES, cflash.TC_LAUNCHES
+    for args in [(q, q, q), (q.float(),) * 3, (odd, odd, odd)]:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            cflash.flash_attention_cuda(*args, causal=True)
+    assert (cflash.LAUNCHES, cflash.TC_LAUNCHES) == before

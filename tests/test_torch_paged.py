@@ -149,9 +149,30 @@ def test_write_block_kv_matches_jax(dt):
     np.testing.assert_array_equal(out[1:].float().numpy(), ref[1:])
 
 
+def test_pool_device_defaults_to_the_card(monkeypatch):
+    """PagedKVCache(device=None) means the card, as every entry point of
+    the port: without CUDA it raises; device="cpu" builds the pools the
+    CPU default used to, equal to the JAX cache's zeros."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tkvc.PagedKVCache(num_layers=2, num_heads=2, head_dim=4,
+                          num_blocks=9, block_size=4)
+    pool = tkvc.PagedKVCache(num_layers=2, num_heads=2, head_dim=4,
+                             num_blocks=9, block_size=4, device="cpu")
+    jpool = jkvc.PagedKVCache(num_layers=2, num_heads=2, head_dim=4,
+                              num_blocks=9, block_size=4)
+    assert pool.device == torch.device("cpu")
+    for layer, jlayer in zip(pool.pools, jpool.pools):
+        for name in ("k", "v"):
+            assert layer[name].device.type == "cpu"
+            assert layer[name].dtype == torch.float32
+            np.testing.assert_array_equal(layer[name].numpy(),
+                                          np.asarray(jlayer[name]))
+
+
 def test_pool_allocate_free_accounting():
     pool = tkvc.PagedKVCache(num_layers=2, num_heads=2, head_dim=4,
-                             num_blocks=9, block_size=4)
+                             num_blocks=9, block_size=4, device="cpu")
     assert pool.usable_blocks == 8 and pool.num_free == 8
     a = pool.allocate(3)
     b = pool.allocate(5)

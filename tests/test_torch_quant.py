@@ -369,8 +369,9 @@ def test_pool_bytes_int8_gqa_and_dtype_guard():
     test_gqa_pool_bytes_divide_by_group_factor on the port's cache, each
     count equal to the JAX cache's at the same geometry."""
     q = PagedKVCache(4, 2, 64, 32, block_size=16, dtype=torch.bfloat16,
-                     kv_dtype="int8")
-    d = PagedKVCache(4, 2, 64, 32, block_size=16, dtype=torch.bfloat16)
+                     kv_dtype="int8", device="cpu")
+    d = PagedKVCache(4, 2, 64, 32, block_size=16, dtype=torch.bfloat16,
+                     device="cpu")
     assert q.scale_bytes() > 0
     assert q.pool_bytes() == q.dense_pool_bytes(torch.int8) + \
         q.scale_bytes()
@@ -387,22 +388,25 @@ def test_pool_bytes_int8_gqa_and_dtype_guard():
     assert layer["k_scale"].shape == (32, 2, 16)
     assert bool((layer["k_scale"] == 1.0).all())         # 1.0, never 0
     assert bool((layer["v_scale"] == 1.0).all())
-    mha = PagedKVCache(4, 4, 32, 9, block_size=8)
-    gqa = PagedKVCache(4, 4, 32, 9, block_size=8, num_kv_heads=2)
-    mqa = PagedKVCache(4, 4, 32, 9, block_size=8, num_kv_heads=1)
+    mha = PagedKVCache(4, 4, 32, 9, block_size=8, device="cpu")
+    gqa = PagedKVCache(4, 4, 32, 9, block_size=8, num_kv_heads=2,
+                       device="cpu")
+    mqa = PagedKVCache(4, 4, 32, 9, block_size=8, num_kv_heads=1,
+                       device="cpu")
     assert mha.pool_bytes() == 2 * gqa.pool_bytes() == 4 * mqa.pool_bytes()
-    q_mha = PagedKVCache(4, 4, 32, 9, block_size=8, kv_dtype="int8")
+    q_mha = PagedKVCache(4, 4, 32, 9, block_size=8, kv_dtype="int8",
+                         device="cpu")
     q_gqa = PagedKVCache(4, 4, 32, 9, block_size=8, kv_dtype="int8",
-                         num_kv_heads=2)
+                         num_kv_heads=2, device="cpu")
     assert q_mha.pool_bytes() == 2 * q_gqa.pool_bytes()
     assert q_mha.scale_bytes() == 2 * q_gqa.scale_bytes()
     assert q_mha.dense_pool_bytes() == 2 * q_gqa.dense_pool_bytes()
     assert q_gqa.pools[0]["k_scale"].shape == (9, 2, 8)
-    b16 = PagedKVCache(1, 2, 8, 4, kv_dtype="bf16")
+    b16 = PagedKVCache(1, 2, 8, 4, kv_dtype="bf16", device="cpu")
     assert b16.dtype == torch.bfloat16 and not b16.quantized
     assert b16.scale_bytes() == 0 and "k_scale" not in b16.pools[0]
     with pytest.raises(ValueError, match="kv_dtype"):
-        PagedKVCache(1, 2, 8, 4, kv_dtype="fp8")
+        PagedKVCache(1, 2, 8, 4, kv_dtype="fp8", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -460,9 +464,9 @@ def test_gqa_stream_ids_match_jax_and_repeat_kv(trained, jax_engine,
     assert rep.cache.num_kv_heads == cfg.num_heads
     assert ids == _ids(_staggered_stream(rep))
     mha = PagedKVCache(cfg.num_layers, cfg.num_heads, 32, 9,
-                       kv_dtype=kv_dtype)
+                       kv_dtype=kv_dtype, device="cpu")
     gqa = PagedKVCache(cfg.num_layers, cfg.num_heads, 32, 9,
-                       kv_dtype=kv_dtype, num_kv_heads=kv)
+                       kv_dtype=kv_dtype, num_kv_heads=kv, device="cpu")
     assert mha.pool_bytes() == 2 * gqa.pool_bytes()
 
 

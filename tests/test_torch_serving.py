@@ -167,7 +167,7 @@ def test_fused_step_matches_jax(tiny, jax_engine):
     jcache = jkvc.PagedKVCache(cfg.num_layers, cfg.num_heads, d, 20,
                                block_size=bs)
     tcache = PagedKVCache(cfg.num_layers, cfg.num_heads, d, 20,
-                          block_size=bs)
+                          block_size=bs, device="cpu")
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (s, c)).astype(np.int32)
     positions = np.zeros((s, c), np.int32)
