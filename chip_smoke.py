@@ -13,8 +13,13 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
    int8 its codes 127 and its scales NaN) and at the serving shapes (decode
    C=1, prefill C=chunk, and the fused step's steady decode: C=chunk with
    one valid column per lane; H 12 for dense, H 12 over H_kv 4 for int8),
-   a bf16 output also held row by row against the plain version with q and
-   dense pools in f32;
+   the same at head_dim 128 (H 8, over H_kv 4 for int8), and the table
+   walk's and the split-K merge's edges (one live block a lane, fewer
+   live blocks than splits, a full context, NULL entries inside the live
+   range (held to the plain function with those keys masked, as the
+   kernel and v2 skip them), bs 32 and 24, a two-entry table (one split),
+   256 rows (two row groups)), a bf16 output also held row by row against
+   the plain version with q and dense pools in f32;
 1f. flash kernels vs plain: the flash-attention forward against its plain
    version, out and lse, f32 (the SIMT kernel) and bf16 (the tensor-core
    kernel: every bf16 case must add one to its count), D 32/64/128, on
@@ -43,9 +48,15 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
    kernel and once with the plain attention put in through the model's
    ``attention`` hook, must give identical first 16 ids;
 3b. the same for phase 2b's configuration in f32 (int8 KV, int8 weights);
-4. times of the kernel, its plain version and a library yardstick
+2c. head_dim 128: GPTConfig(hidden_size=1024, num_heads=8) at 12 layers
+   in bf16 serves 6 greedy requests of 64 new tokens (launches =
+   iterations x layers), then in f32 kernel and plain attention give
+   identical first 16 ids;
+4. times of the kernel (and its wrapper's host microseconds a call),
+   its plain version and a library yardstick
    (scaled_dot_product_attention over K/V gathered, for int8 also
-   dequantized, dense beforehand), cold L2 before every launch, beside the
+   dequantized, dense beforehand) at the three serving shapes and the
+   fused step at head_dim 128, cold L2 before every launch, beside the
    bound: the bytes the function must move over the card's memory rate,
    or its operations over the bf16/f32 peak, whichever is larger;
 5. where a full-width step's time goes: torch.profiler over 20 steady
@@ -120,6 +131,8 @@ NEW_TOKENS = 64
 AGREE_TOKENS = 16
 SHAPES = ("decode", "prefill", "step")
 KV_HEADS = 4                        # phase 2b's GQA: 12 query heads over 4
+D128_CFG = dict(hidden_size=1024, num_heads=8)  # phase 2c: head_dim 128
+D128_REQUESTS = 6
 PROMPTS = 8                         # phase 6: prompts of PROMPT_LEN tokens
 PROMPT_LEN = 512
 PREFILL_RUNS = 5                    # phase 6: timed prefills, median kept
@@ -167,7 +180,7 @@ def _card_line():
 
 def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
               idle_lane=False, max_len=None, step=False, int8=False,
-              device="cuda", pool_dtype=None):
+              device="cuda", pool_dtype=None, lengths=None, holes=False):
     """Random paged-attention operands ((q, k_pool, v_pool, table,
     positions), scales): pools (1 + b*m, hp, bs, d), each lane's live
     blocks drawn from a shuffled free list, the NULL block NaN-poisoned on
@@ -176,7 +189,10 @@ def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
     the masked columns. `pool_dtype` gives dense pools another dtype
     than q's (bf16 under f32 q). `int8` quantizes the pools with the port's
     quantize_kv_rows (scales {"k_scale", "v_scale"}, else {}); q stays in
-    `dtype`, and a poisoned NULL block holds codes 127 and NaN scales."""
+    `dtype`, and a poisoned NULL block holds codes 127 and NaN scales.
+    `lengths` gives each lane's length (None: idle) instead of drawing
+    it; `holes` sets every third table entry inside a lane's live range
+    (never its last) to the NULL block."""
     rng = np.random.default_rng(seed)
     n = 1 + b * m
     k_pool = rng.standard_normal((n, hp, bs, d)).astype(np.float32)
@@ -190,11 +206,13 @@ def make_case(dtype, b, h, hp, c, d, bs, m, seed, poison=False,
     rng.shuffle(free)
     hi = max_len or m * bs - c
     for i in range(b):
-        if idle_lane and i == 0:
+        if (idle_lane and i == 0) or (lengths and lengths[i] is None):
             continue
-        length = int(rng.integers(1, hi))
-        for j in range(-(-(length + c) // bs)):
-            tables[i, j] = free.pop()
+        length = lengths[i] if lengths else int(rng.integers(1, hi))
+        n_blocks = -(-(length + c) // bs)
+        for j in range(n_blocks):
+            if not (holes and j % 3 == 1 and j < n_blocks - 1):
+                tables[i, j] = free.pop()
         if step:
             q_pos[i, 0] = length
         else:
@@ -231,14 +249,45 @@ def _clean_null(case):
     return (q, k_pool, v_pool, tables, pos), scales
 
 
-def serving_case(dtype, name, int8=False, pool_dtype=None):
+def serving_case(dtype, name, int8=False, pool_dtype=None, d=64):
     """The serving shapes: 16 lanes, H=12 (over H_kv=4 for int8), D=64,
-    bs=16, M=64 (context 1024), lane 0 idle, NULL block NaN-poisoned."""
+    bs=16, M=64 (context 1024), lane 0 idle, NULL block NaN-poisoned. At
+    D 128 the heads are GPTConfig(hidden_size=1024, num_heads=8)'s: H 8
+    (over H_kv 4 for int8)."""
     c = 1 if name == "decode" else CHUNK
-    return make_case(dtype, b=16, h=12, hp=KV_HEADS if int8 else 12, c=c,
-                     d=64, bs=16, m=64, seed=2, poison=True, idle_lane=True,
+    h = 12 if d == 64 else 1024 // d
+    return make_case(dtype, b=16, h=h, hp=KV_HEADS if int8 else h, c=c,
+                     d=d, bs=16, m=64, seed=2, poison=True, idle_lane=True,
                      max_len=1024 - c, step=name == "step", int8=int8,
                      pool_dtype=pool_dtype)
+
+
+# phase 1's edge cases of the table walk and the split-K merge (H 12 over
+# H_kv 4, D 64, bs 16, M 64 unless named; NULL block NaN-poisoned): each
+# lane's length, None for an idle lane
+EDGE_CASES = {
+    # every lane in its first block: one live block, the other splits idle
+    "one_live_block": dict(c=1, lengths=[None, 0, 5, 15]),
+    # 2-3 live blocks a lane, fewer than the split count
+    "fewer_than_splits": dict(c=1, lengths=[None, 20, 40, 47]),
+    # positions up to M * bs - 1: every table entry live
+    "full_context": dict(c=CHUNK, lengths=[None, 1024 - CHUNK, 700, 1]),
+    # NULL entries inside the live range (skipped by the kernel, as v2)
+    "null_holes": dict(c=CHUNK, lengths=[None, 1000, 600, 97], holes=True),
+    # 2 key tiles a block, and a block of 24 keys (one tile half padded)
+    "bs32": dict(c=CHUNK, bs=32, m=32, lengths=[None, 1000, 31, 500]),
+    "bs24": dict(c=4, bs=24, m=16, lengths=[None, 370, 23, 200]),
+    # a table of two entries: one split, the output written directly
+    "m2": dict(c=CHUNK, m=2, lengths=[None, 16, 3, 0]),
+    # 256 rows (16 heads over 1 x 16 columns): two row groups
+    "rows256": dict(c=CHUNK, h=16, hp=1, m=16, lengths=[None, 240, 99, 7]),
+}
+
+
+def edge_case(dtype, name, int8=False):
+    kw = dict(b=4, h=12, hp=KV_HEADS, d=64, bs=16, m=64)
+    kw.update(EDGE_CASES[name])
+    return make_case(dtype, seed=3, poison=True, int8=int8, **kw)
 
 
 def kernel_cases():
@@ -264,7 +313,56 @@ def kernel_cases():
                   make_case(torch.float32, c=4, seed=1, **small, **mixed)))
     cases.append(("step_f32q_bf16pool",
                   serving_case(torch.float32, "step", **mixed)))
+    # head dim 128: the small case and the serving shapes (H 8)
+    for int8 in (False, True):
+        pre = "int8_" if int8 else ""
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            cases.append((f"{pre}small_c4_d128_{tag}",
+                          make_case(dt, c=4, seed=1, int8=int8,
+                                    **dict(small, d=128))))
+            for name in SHAPES:
+                cases.append((f"{pre}{name}_d128_{tag}",
+                              serving_case(dt, name, int8, d=128)))
+    cases.append(("step_d128_f32q_bf16pool",
+                  serving_case(torch.float32, "step", d=128, **mixed)))
+    for name in EDGE_CASES:
+        for int8 in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                tag = "f32" if dt == torch.float32 else "bf16"
+                cases.append((f"{'int8_' if int8 else ''}{name}_{tag}",
+                              edge_case(dt, name, int8)))
     return cases
+
+
+def plain_skip_null(q, k_pool, v_pool, tables, pos, k_scale=None,
+                    v_scale=None):
+    """The plain function with the keys of NULL table entries masked, in
+    f32, cast to the kernel's output dtype: the v2 semantics, which the
+    kernel implements. paged_attention_reference gathers a NULL entry
+    below the early stop as keys (v1's semantics); the two agree on every
+    table without NULL entries inside the live range."""
+    from paddle_tpu_torch.ops.cuda.paged import (NEG_INF, NULL_BLOCK,
+                                                 gather_block_kv_pair,
+                                                 gather_block_scales)
+    gk, gv = gather_block_kv_pair(k_pool, v_pool, tables)
+    gk, gv = gk.float(), gv.float()
+    if k_scale is not None:
+        gk = gk * gather_block_scales(k_scale, tables)[..., None]
+        gv = gv * gather_block_scales(v_scale, tables)[..., None]
+    rep = q.shape[1] // k_pool.shape[1]
+    gk = gk.repeat_interleave(rep, dim=1)
+    gv = gv.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhcd,bhtd->bhct", q.float(), gk) / q.shape[-1] ** 0.5
+    live = (tables != NULL_BLOCK).repeat_interleave(k_pool.shape[2], dim=1)
+    key_pos = torch.arange(gk.shape[2], device=q.device)
+    mask = ((key_pos[None, None, None, :] <= pos[:, None, :, None])
+            & live[:, None, None, :])
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhct,bhtd->bhcd", p, gv) / torch.where(l > 0, l, 1.0)
+    return out.to(q.dtype if k_pool.dtype == torch.int8 else k_pool.dtype)
 
 
 def _row_rel_err(out, ref):
@@ -288,7 +386,9 @@ def check_kernel(paged):
         out = paged.paged_attention_cuda(*args, **scales)
         torch.cuda.synchronize()
         clean, cscales = _clean_null(case)
-        ref = paged.paged_attention_reference(*clean, **cscales)
+        plain = (plain_skip_null if "null_holes" in name
+                 else paged.paged_attention_reference)
+        ref = plain(*clean, **cscales)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
             _fail(f"kernel output non-finite at {name}")
@@ -304,8 +404,8 @@ def check_kernel(paged):
             q, k_pool, v_pool, tables, pos = clean
             if not cscales:
                 k_pool, v_pool = k_pool.float(), v_pool.float()
-            ref32 = paged.paged_attention_reference(
-                q.float(), k_pool, v_pool, tables, pos, **cscales)
+            ref32 = plain(q.float(), k_pool, v_pool, tables, pos,
+                          **cscales)
             torch.cuda.synchronize()
             rel = _row_rel_err(out, ref32)
             line += (f", vs f32 plain: row max_rel_err {rel:.3e} "
@@ -468,6 +568,53 @@ def phase_agree(paged, cfg, tree, requests, int8=False):
         _fail(f"{tag}f32 kernel and plain attention served different ids")
 
 
+def phase_serve_d128(paged, cfg, tree):
+    """Phase 2c: head_dim 128 (GPTConfig(hidden_size=1024, num_heads=8))
+    served at full width and depth in bf16, D128_REQUESTS greedy requests
+    of NEW_TOKENS new tokens; launches = iterations x layers. Then the same
+    requests in f32 through the kernel and through the plain attention:
+    identical first AGREE_TOKENS ids."""
+    rng = np.random.default_rng(SEED + 2)
+    requests = [(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                 None) for n in rng.integers(16, 257, D128_REQUESTS)]
+    model = make_model(cfg, tree, torch.bfloat16)
+    paged.LAUNCHES = 0
+    srv, futs, wall, step_ms = serve(model, requests, NEW_TOKENS)
+    launches = paged.LAUNCHES
+    st = srv.get_stats()
+    generated = 0
+    for i, f in enumerate(futs):
+        res = f.result(timeout=0)
+        ids = np.asarray(res.token_ids)
+        if len(ids) != NEW_TOKENS or ids.min() < 0 \
+                or ids.max() >= cfg.vocab_size \
+                or not np.isfinite(res.score):
+            _fail(f"d128 request {i}: {len(ids)} ids, score {res.score}")
+        generated += len(ids)
+    if launches <= 0 or launches != st["iterations"] * cfg.num_layers:
+        _fail(f"d128 kernel launches {launches} != iterations "
+              f"{st['iterations']} x {cfg.num_layers} layers")
+    out = {"head_dim": cfg.hidden_size // cfg.num_heads,
+           "iterations": st["iterations"], "launches": launches,
+           "generated_tokens": generated, "wall_s": wall,
+           "tokens_per_s": generated / wall,
+           "step_ms_p50": float(np.percentile(step_ms, 50))}
+    print("serve d128 " + json.dumps(out))
+    ids = []
+    for attention in (None, paged.paged_attention_reference):
+        model = make_model(cfg, tree, attention=attention)
+        futs = serve(model, requests, AGREE_TOKENS)[1]
+        ids.append([list(f.result(timeout=0).token_ids) for f in futs])
+        del model
+    same = sum(a == b for a, b in zip(*ids))
+    print(f"agree d128 f32: {same}/{len(requests)} greedy requests "
+          f"identical in their first {AGREE_TOKENS} ids (kernel vs plain "
+          f"attention)")
+    if same != len(requests):
+        _fail("d128 f32 kernel and plain attention served different ids")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
@@ -492,6 +639,19 @@ def _time_ms(fn, reps=50, warmup=5):
         ends[i].record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
+
+
+def _host_us(fn, reps=200):
+    """Mean host microseconds of one call of fn(), which only enqueues
+    device work: what the host-bound serving step pays for it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def bound_ms(case):
@@ -546,10 +706,13 @@ def library_call(case):
 
 def phase_times(paged, int8=False):
     """Kernel, plain and library ms and the bound at the three serving
-    shapes with bf16 q (dense pools, or int8 pools over H_kv 4)."""
+    shapes with bf16 q (dense pools, or int8 pools over H_kv 4), and at
+    the fused step with head_dim 128 (H 8, phase 2c's model)."""
     rows = {}
-    for name in SHAPES:
-        case = serving_case(torch.bfloat16, name, int8)
+    for name in SHAPES + ("step_d128",):
+        d128 = name == "step_d128"
+        case = serving_case(torch.bfloat16, "step" if d128 else name, int8,
+                            d=128 if d128 else 64)
         args, scales = case
         clean, cscales = _clean_null(case)
         b_ms, b_by = bound_ms(case)
@@ -557,6 +720,8 @@ def phase_times(paged, int8=False):
             "shape": list(args[0].shape), "kv_heads": args[1].shape[1],
             "ms": _time_ms(lambda: paged.paged_attention_cuda(*args,
                                                               **scales)),
+            "host_us": _host_us(lambda: paged.paged_attention_cuda(
+                *args, **scales)),
             "plain_ms": _time_ms(
                 lambda: paged.paged_attention_reference(*clean, **cscales)),
             "library_ms": _time_ms(library_call(case)),
@@ -1454,6 +1619,9 @@ def main():
     _phase("3 agree", phase_agree, paged, cfg, tree, requests)
     _phase("3b agree int8", phase_agree, paged, gcfg, gtree, requests8,
            int8=True)
+    dcfg = GPTConfig(**D128_CFG)
+    _phase("2c serve head_dim 128", phase_serve_d128, paged, dcfg,
+           init_params(dcfg, seed=SEED))
     times = _phase("4 times", phase_times, paged)
     times8 = _phase("4 times int8", phase_times, paged, int8=True)
     _phase("5 profile", phase_profile, cfg, tree)
@@ -1474,7 +1642,8 @@ def main():
             "paged_attention",
             "paddle_tpu/ops/pallas/paged.py:134 (_paged_kernel), "
             "paddle_tpu/ops/pallas/paged.py:333 (_paged_kernel_v2)",
-            launches, [errs[f"{n}_bf16"] for n in SHAPES], times,
+            launches, [errs[f"{n}{d}_bf16"] for n in SHAPES
+                       for d in ("", "_d128")], times,
             "fused-step decode: 16 lanes x H 12 x C 16 (one valid column) "
             "x D 64, bs 16, M 64, bf16"),
         kernel_entry(
@@ -1482,7 +1651,8 @@ def main():
             "paddle_tpu/ops/pallas/paged.py:151-219 (_paged_kernel int8 "
             "branch, launch :282), paddle_tpu/ops/pallas/paged.py:435-437 "
             "(_paged_kernel_v2 int8 dequant, launch :505)",
-            launches8, [errs[f"int8_{n}_bf16"] for n in SHAPES], times8,
+            launches8, [errs[f"int8_{n}{d}_bf16"] for n in SHAPES
+                        for d in ("", "_d128")], times8,
             "fused-step decode: 16 lanes x H 12 over H_kv 4 x C 16 (one "
             "valid column) x D 64, bs 16, M 64, int8 pools, bf16 q"),
         kernel_entry(

@@ -1,71 +1,89 @@
 // Ragged paged attention for Hopper (sm_90a): the serving hot-loop kernel.
 //
-// Replaces the Pallas kernels `_paged_kernel` (ragged_paged_attention) and
-// `_paged_kernel_v2` (ragged_paged_attention_v2) of
-// paddle_tpu/ops/pallas/paged.py, both their dense f32/bf16 branches and
-// their int8 (`quantized=True`) branches. One kernel, templated on the q
-// type and the pool element type, serves all four, and f32 q over bf16 pools
-// (an f32 model serving bf16 KV): it computes the function of
+// Replaces the Pallas kernels of paddle_tpu/ops/pallas/paged.py:
+// `_paged_kernel` (:134, launcher ragged_paged_attention :306) with its
+// int8 branch (:151-219, launch :282), and `_paged_kernel_v2` (:333,
+// launcher ragged_paged_attention_v2 :505) with its int8 dequant
+// (:435-437). One kernel, templated on the q type, the pool element type
+// and the head dim, serves all four, and f32 q over bf16 pools (an f32
+// model serving bf16 KV): it computes the function of
 // paged_attention_reference in the v2 style, streaming the lane's live
 // blocks through an online softmax whose running max, sum and accumulator
-// are f32.
+// are f32 (NULL blocks inside the live range are skipped, as v2 does).
 //
 // Contract (the same as the Pallas launchers):
-//   q          (B, H, C, D)        f32 or bf16, D = 32 or 64
+//   q          (B, H, C, D)        f32 or bf16, D = 32, 64 or 128
 //   k/v_pool   (N, H_kv, bs, D)    q's type, bf16 under f32 q, or int8
-//                                  codes; H % H_kv == 0
+//                                  codes; H % H_kv == 0; any bs >= 1
 //   k/v_scale  (N, H_kv, bs)  f32  per-row scales, int8 pools only
 //   table      (B, M)  int32       NULL_BLOCK (0) padded
 //   positions  (B, C)  int32       logical position of each query column
 //   out        (B, H, C, D)        the pool's type for dense pools, q's
 //                                  for int8 pools (JAX's out_dtype)
+//   scratch    f32, counters int32 split-K partials and tickets (below)
 //
-// Design. One thread block per (lane, KV head); the block reads its own
-// table and positions rows (a GPU has no scalar prefetch) and walks
-// j < min(max_pos / bs + 1, M). Rows are the H/H_kv query heads of the
-// group times the C columns (query head h reads KV head h / (H/H_kv));
-// they are contiguous in q and out, so the GQA repeat is never
-// materialized. Each warp of the block takes every NW-th live block and
-// keeps its own online-softmax state (m, l, acc) in shared memory, so the
-// loop needs warp barriers only; one block barrier at the end merges the
-// NW partial states (split-K inside the block). A warp loads a block's
-// (bs, D) K and V tiles with 16-byte loads into registers one tile ahead,
-// so they fly while the current tile is computed, and never loads a NULL
-// block. It then folds the tile into each row with a live key in it, all
-// 32 lanes on one row at a time: lanes split the keys (and, when bs divides 32,
-// the D dimension, summed with shuffles), the max and the sum are warp
-// reductions, and the PV update spreads D over the lanes. Rows whose
-// position lies below the tile are skipped (the fused step's decode lanes
-// feed one valid column and C-1 masked ones at position 0).
+// What bounds it: the bytes of the live K/V blocks, read once. Decode and
+// the fused step do ~2 flops a byte (the rows of a KV head share each
+// tile), far below the ~295 a byte where the tensor cores would bind. The
+// design's job is to keep enough of those bytes in flight on all 132 SMs
+// and to take the per-row work and the serial chains out of the loop:
 //
-// int8 pools. A 16-byte vector holds 16 codes of one key row (D is a
-// multiple of 16), so each vector's row scale is loaded beside it, one tile
-// ahead like the codes: the block's bs K and V scales at (blk, kh, :). The
-// tile is dequantized where it lands in f32 shared memory, code * scale in
-// f32, exactly the reference's product; nothing after the store changes.
-// The tiles in shared memory stay f32, so the shared memory a block takes
-// does not depend on the pool type. The NULL block's codes and scales are
-// never read (a chaos NaN-poison of a block lands in its scales).
-//
-// What bounds it: the bytes of the live K/V blocks read from device
-// memory. Each live tile is read once per (lane, KV head) and reused by
-// every row of the head group. Per live key row and KV head that is 2 * D
-// * 4 bytes for f32 pools, 2 * D * 2 for bf16 and 2 * (D + 4) for int8
-// codes and scales: 0.53x of bf16 at D = 64.
-//
-// Numerics. Against the plain version, an f32 output differs only in
-// summation order. For a bf16 output the plain version rounds the
-// dequantized V (int8) and the probabilities to bf16 before PV (as the JAX
-// reference does), while the kernel keeps both in f32 and rounds only its
-// output.
+// * Rows. A (lane, KV head) has R = (H/H_kv) * C query rows (the group's
+//   heads times the columns, contiguous in q and out, so the GQA repeat is
+//   never made). Each warp owns one 16-row m-tile of them; a block holds
+//   up to 8 m-tiles and a longer row set takes more blocks along grid z.
+//   Decode (R 1, or 3 under GQA) pads its tile with masked rows: the
+//   kernel is bytes-bound, so the padded products cost nothing that
+//   matters. wgmma would be the wrong size: its 64-row tile is 3/4 padding
+//   at R 16 and 15/16 at decode.
+// * Key groups. A block has kw warps per m-tile (about 4 warps in all):
+//   each ring stage holds kw tiles, and key group k folds tile k of every
+//   stage into its own online-softmax state. After the walk the groups'
+//   states merge in shared memory. One warp per block walking every tile
+//   alone was a serial chain of dependent products and reductions.
+// * bf16 q: products on the tensor cores, mma.sync m16n8k16 bf16 -> f32.
+//   S = Q K^T per 16-key tile (K fragments by ldmatrix), the mask by each
+//   row's position, the online softmax on the accumulator fragments (quad
+//   shuffles), then O += P V (V fragments by ldmatrix.trans). P is split
+//   into bf16 hi + lo parts and goes through two products, so P V is exact
+//   to ~2^-17 of P and the only bf16 rounding is the output's.
+// * int8 pools. Codes in [-127, 127] are exact in bf16 and the scale is
+//   per key row, so it factors out of both products: s_t = k_scale_t *
+//   (q . code_t) is applied to S's columns after Q K^T, and v_scale_t is
+//   folded into P before P V. The ring holds the codes as int8 (a quarter
+//   of an f32 tile). Each stage's codes become exact bf16 once, by all the
+//   block's threads (integer tricks, no conversion instructions), in one
+//   bf16 tile per key group that the m-tiles share (three under GQA), and
+//   the products read it by ldmatrix like a bf16 pool.
+// * f32 q (over f32, bf16 or int8 pools) stays exact on the CUDA cores:
+//   rounding q to bf16 would break the 1e-5 agreement the f32 serving
+//   path and its checks hold. It shares the grid, the ring, the fragment
+//   layout and the softmax; only its products are scalar FMAs.
+// * Loads: the block reads its split's table slice once (beside the
+//   positions and q, so their latencies overlap), compacts the live
+//   (non-NULL) entries in shared memory, and gathers each live block's
+//   16-key K and V tiles (with their f32 scales for int8) by 16-byte
+//   cp.async into a 3-stage ring, two stages in flight while one is
+//   computed. No copy is ever issued for a NULL block.
+// * Split-K over the lane's blocks, so decode fills the SMs: the grid is
+//   (lane * KV head, split, row group). Each split walks a contiguous
+//   range of the table, stopping at max(q_pos) / bs. The split count is a
+//   function of the shapes only (paged_attention_plan), never of positions
+//   or table contents. Splits write partial (m, l, acc) to f32 scratch; a
+//   split with nothing live writes m = NEG_INF, l = 0 only. The last split
+//   of a (lane, KV head, row group) to finish (an atomic ticket after a
+//   __threadfence) merges them in the same launch with exp(m_s - M)
+//   weights, all its threads at once, and resets its ticket to 0. One
+//   split writes the output directly.
 //
 // Traps carried over from paged.py:
 //   * NEG_INF is finite (-1e9): on an all-masked prefix exp(s - m) == 1,
 //     so probabilities come from where(mask, exp(s - m), 0), never the
-//     bare exp; a merge weight exp(m_w - M) of a warp that saw nothing is
-//     exp(-1e9) == 0 unless every warp saw nothing (then l == 0).
+//     bare exp, and the merge skips any split whose l is 0.
 //   * An idle lane ends with l == 0 and writes an exact 0, not NaN.
-//   * The NULL block may hold NaN (codes or scales) and is never read.
+//   * The NULL block may hold NaN (codes or scales) and is never read;
+//     tile rows past bs are masked, and their shared memory holds zeros or
+//     an earlier live tile's finite values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,17 +95,25 @@ namespace {
 
 constexpr int kNullBlock = 0;
 constexpr float kNegInf = -1e9f;
+constexpr int kTileKeys = 16;       // keys of one tile (one k-step)
+constexpr int kStages = 3;          // ring stages, each a tile per key group
+constexpr int kMaxMTiles = 8;       // 16-row m-tiles of one block
+constexpr int kBlockWarps = 4;      // warps a block aims at (key groups)
 constexpr int kMaxWarps = 8;
+constexpr int kMaxSplits = 8;
+constexpr int kWarpsPerSM = 16;     // the split count aims at this many
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
-// dtype codes of the C entry point
+// dtype codes of the C entry points
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kInt8 = 2;
 
 template <typename TP>
 constexpr bool kQuant = std::is_same<TP, int8_t>::value;
+template <typename TQ>
+constexpr bool kTensorCores = std::is_same<TQ, __nv_bfloat16>::value;
 
 // the output type: the pool's for dense pools, q's for int8 codes
 template <typename TQ, typename TP>
@@ -103,53 +129,153 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
+// ---------------------------------------------------------------------------
+// host and device: the launch plan
+// ---------------------------------------------------------------------------
 
-// Per-warp shared memory in floats: accumulator, running max / sum,
-// scores, and the K (rows padded to D + 1 against bank conflicts) and V
-// tiles.
-__host__ __device__ inline size_t warp_floats(int R, int D, int bs) {
-  return (size_t)R * D + 2 * (size_t)R + (size_t)bs +
-         (size_t)bs * (D + 1) + (size_t)bs * D;
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// bytes of one tile row in shared memory: D elements and 16 bytes of pad,
+// which puts consecutive rows 4 banks apart (conflict-free fragments)
+__host__ __device__ inline int row_bytes(int D, int elem) {
+  return D * elem + 16;
+}
+__host__ __device__ inline int stage_bytes(int D, int elem, bool quant) {
+  return 2 * kTileKeys * row_bytes(D, elem) +
+         (quant ? 2 * kTileKeys * (int)sizeof(float) : 0);
 }
 
-__host__ __device__ inline size_t smem_bytes(int nw, int R, int C, int D,
-                                             int bs) {
-  return ((size_t)R * D + (size_t)nw * warp_floats(R, D, bs)) *
-             sizeof(float) +
-         (size_t)C * sizeof(int);
-}
-
-// Most warps (<= kMaxWarps) whose shared memory fits; 0 if none does.
-inline int pick_warps(int R, int C, int D, int bs) {
-  for (int nw = kMaxWarps; nw >= 1; nw /= 2)
-    if (smem_bytes(nw, R, C, D, bs) <= kMaxSmem) return nw;
-  return 0;
-}
-
-// A warp's K and V tiles in flight: up to kRegVec 16-byte vectors of each
-// per lane (a 4 KB tile: bs 16 x D 64 in f32), and for int8 pools the row
-// scale of each vector; a larger tile's remainder is loaded when the tile
-// is stored.
-constexpr int kRegVec = 8;
-
-struct TileRegs {
-  uint4 k[kRegVec];
-  uint4 v[kRegVec];
-  float ks[kRegVec];  // int8 pools only
-  float vs[kRegVec];
+struct Plan {
+  int mt;       // m-tiles of a block
+  int kw;       // key groups of a block: warps = mt * kw
+  int groups;   // row groups along grid z
+  int splits;   // splits of the table along grid y
+  int per;      // table entries a split walks
+  size_t smem;  // dynamic shared memory of a block
 };
 
+// bytes of the shared ring (kStages stages of kw tiles), or of the key
+// groups' partial states that reuse it after the loop, whichever is more
+__host__ __device__ inline size_t ring_bytes(int mt, int kw, int D, int elem,
+                                              bool quant) {
+  const size_t ring = (size_t)kStages * kw * stage_bytes(D, elem, quant);
+  const size_t states = kw > 1 ? (size_t)kw * mt * 16 * (D + 2) * 4 : 0;
+  return ring > states ? ring : states;
+}
+
+inline size_t smem_bytes(const Plan& p, int C, int D, bool f32_q,
+                         int elem, bool quant) {
+  size_t smem = ring_bytes(p.mt, p.kw, D, elem, quant);
+  if (quant && !f32_q)  // the stage's codes as bf16, for ldmatrix
+    smem += (size_t)p.kw * 2 * kTileKeys * row_bytes(D, 2);
+  if (f32_q)  // q rows in f32 and each warp's probability tile
+    smem += (size_t)p.mt * 16 * D * 4 + (size_t)p.mt * p.kw * 16 * 16 * 4;
+  smem += (size_t)kMaxSplits * p.mt * 16 * 4;  // merge weights
+  smem += (size_t)p.mt * 16 * 4;                // merge sums
+  // positions, the table slice, the live list
+  smem += (size_t)C * 4 + 3 * (size_t)p.per * 4;
+  return smem;
+}
+
+// A block holds mt 16-row m-tiles (one warp each) times kw key groups
+// that take turns at the ring's tiles, at least kBlockWarps warps in all
+// (at most kMaxWarps: kw is 1 from 4 m-tiles on).
+// The split count is a function of the shapes alone: enough blocks for
+// kWarpsPerSM warps on every SM, at most kMaxSplits, and no split shorter
+// than the table blocks whose K/V bytes outweigh its partial twice (the
+// partial is R x D f32, written and read back once).
+inline Plan make_plan(int B, int H, int Hkv, int C, int D, int bs, int M,
+                      bool f32_q, int pool_elem, bool quant, int sms) {
+  Plan p;
+  const int R = (H / Hkv) * C;
+  const int tiles = cdiv(R, 16);
+  p.mt = tiles < kMaxMTiles ? tiles : kMaxMTiles;
+  p.kw = cdiv(kBlockWarps, p.mt);  // 3 m-tiles (GQA C 16): 2 groups
+  p.groups = cdiv(tiles, kMaxMTiles);
+  const int blocks = B * Hkv * p.groups;
+  const long long kv_block =
+      2LL * bs * D * pool_elem + (quant ? 2LL * bs * 4 : 0);
+  const long long partial =
+      (long long)(R < p.mt * 16 ? R : p.mt * 16) * D * 4;
+  long long min_blocks = (2 * partial + kv_block - 1) / kv_block;
+  if (min_blocks < 2) min_blocks = 2;
+  int cap = (int)(M / min_blocks);
+  if (cap > kMaxSplits) cap = kMaxSplits;
+  if (cap < 1) cap = 1;
+  for (;;) {
+    const int want = cdiv(kWarpsPerSM * sms, blocks * p.mt * p.kw);
+    p.splits = want < 1 ? 1 : (want > cap ? cap : want);
+    p.per = cdiv(M, p.splits);
+    p.smem = smem_bytes(p, C, D, f32_q, pool_elem, quant);
+    if (p.smem <= kMaxSmem || p.kw == 1) break;
+    p.kw /= 2;
+  }
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// device helpers: copies, fragments, products
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// the residual of x after its bf16 rounding
+__device__ __forceinline__ float bf16_rest(float x) {
+  return x - __bfloat162float(__float2bfloat16_rn(x));
+}
 // One layer's pools: values (or int8 codes) and, for int8, the row scales.
 template <typename TP>
 struct Pools {
@@ -159,306 +285,725 @@ struct Pools {
   const float* v_scale;
 };
 
-// Load 16-byte vector i of the tile whose first key row is pool row `row0`
-// (block * H_kv + KV head, times bs) and, for int8 pools, its row's scales.
-template <typename TP, int kD>
-__device__ __forceinline__ void load_vec(const Pools<TP>& p, int64_t row0,
-                                         int i, uint4& k, uint4& v,
-                                         float& ks, float& vs) {
-  constexpr int kVec = 16 / sizeof(TP);
-  static_assert(kD % kVec == 0, "a 16-byte vector lies in one key row");
-  const int64_t off = row0 * kD;
-  k = __ldg(reinterpret_cast<const uint4*>(p.k + off) + i);
-  v = __ldg(reinterpret_cast<const uint4*>(p.v + off) + i);
-  if constexpr (kQuant<TP>) {
-    const int64_t r = row0 + i * kVec / kD;
-    ks = __ldg(p.k_scale + r);
-    vs = __ldg(p.v_scale + r);
-  }
-}
+template <typename TQ, typename TP>
+struct Args {
+  const TQ* q;
+  Pools<TP> pools;
+  const int* table;
+  const int* positions;
+  OutT<TQ, TP>* out;
+  float* part_acc;   // (B * H_kv, splits, R, D) unnormalized accumulators
+  float* part_ml;    // (B * H_kv, splits, R, 2) running max and sum
+  int* counters;     // (B * H_kv * groups) tickets, 0 between launches
+  int H, Hkv, C, bs, M, splits, per, kw;
+};
 
-// Start the loads of the tile whose first key row is pool row `row0`.
-template <typename TP, int kD>
-__device__ __forceinline__ void fetch_tile(TileRegs& regs, const Pools<TP>& p,
-                                           int64_t row0, int n, int lane) {
-#pragma unroll
-  for (int u = 0; u < kRegVec; ++u) {
-    const int i = lane + 32 * u;
-    if (i < n)
-      load_vec<TP, kD>(p, row0, i, regs.k[u], regs.v[u], regs.ks[u],
-                       regs.vs[u]);
-  }
-}
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
 
-// Land vector i in f32 shared memory; int8 codes are dequantized on the
-// way, code * row scale in f32 (the reference's product).
-template <typename TP, int kD>
-__device__ __forceinline__ void put_vec(const uint4& raw, float scale,
-                                        float* dst, int i, int stride) {
-  constexpr int kVec = 16 / sizeof(TP);
-  const TP* v = reinterpret_cast<const TP*>(&raw);
-  const int e = i * kVec;
-  float* row = dst + (e / kD) * stride + (e % kD);
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    if constexpr (kQuant<TP>)
-      row[k] = to_f32(v[k]) * scale;
-    else
-      row[k] = to_f32(v[k]);
-  }
-}
-
-// Land the fetched tile in f32 shared memory (K rows padded to D + 1).
-template <typename TP, int kD>
-__device__ __forceinline__ void store_tile(const TileRegs& regs,
-                                           const Pools<TP>& p, int64_t row0,
-                                           int n, float* k_w, float* v_w,
-                                           int lane) {
-#pragma unroll
-  for (int u = 0; u < kRegVec; ++u) {
-    const int i = lane + 32 * u;
-    if (i < n) {
-      put_vec<TP, kD>(regs.k[u], regs.ks[u], k_w, i, kD + 1);
-      put_vec<TP, kD>(regs.v[u], regs.vs[u], v_w, i, kD);
-    }
-  }
-  for (int i = lane + 32 * kRegVec; i < n; i += 32) {
-    uint4 k, v;
-    float ks = 1.f, vs = 1.f;
-    load_vec<TP, kD>(p, row0, i, k, v, ks, vs);
-    put_vec<TP, kD>(k, ks, k_w, i, kD + 1);
-    put_vec<TP, kD>(v, vs, v_w, i, kD);
-  }
+// four int8 codes (one 32-bit word) as two exact bf16 pairs: c + 128 is
+// the code's byte xor 0x80; the float with that as its low mantissa byte
+// over 2^23 is 2^23 + c + 128, and minus (2^23 + 128) it is c, exactly.
+// An integer below 2^8 has zero low 16 bits in f32, so its bf16 is the
+// float's high half.
+__device__ __forceinline__ uint2 codes4_bf16(uint32_t w) {
+  const uint32_t x = w ^ 0x80808080u;
+  const float bias = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540)) - bias;
+  const float f1 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541)) - bias;
+  const float f2 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7542)) - bias;
+  const float f3 = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - bias;
+  return make_uint2(
+      __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632),
+      __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632));
 }
 
 // TQ: q (float or bf16); TP: pool elements (TQ, bf16 under float q, or
-// int8_t codes); the output is OutT<TQ, TP>.
+// int8_t codes); the output is OutT<TQ, TP>. Block: mt m-tiles x kw key
+// groups, one warp each (warp = key group * mt + m-tile); grid (B * H_kv,
+// splits, row groups).
 template <typename TQ, typename TP, int kD>
-__global__ void paged_attention_kernel(
-    const TQ* __restrict__ q, const Pools<TP> pools,
-    const int* __restrict__ table, const int* __restrict__ positions,
-    OutT<TQ, TP>* __restrict__ out, int H, int Hkv, int C, int bs, int M) {
-  extern __shared__ float smem[];
-  constexpr int kDk = kD + 1;
-  const int nw = blockDim.x / 32;
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    paged_attention_kernel(const Args<TQ, TP> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int sh_live;
+  __shared__ int sh_last;
+  constexpr int kElem = sizeof(TP);
+  constexpr int kRow = kD * kElem + 16;
+  constexpr int kTile = 2 * kTileKeys * kRow +
+                        (kQuant<TP> ? 2 * kTileKeys * (int)sizeof(float) : 0);
+  constexpr int kChunks = kD * kElem / 16;  // 16-byte copies a key row
+  constexpr int kN = kD / 8;                // 8-wide output column tiles
+  constexpr bool kTC = kTensorCores<TQ>;
+  constexpr bool kStaged = kTC && kQuant<TP>;  // codes -> bf16 tile
+  constexpr int kRowB = kD + 8;             // bf16 tile row, in elements
+
+  const int Hkv = a.Hkv, C = a.C, bs = a.bs, M = a.M, kw = a.kw;
+  const int pair = blockIdx.x;
+  const int b = pair / Hkv;
+  const int kh = pair - b * Hkv;
+  const int split = blockIdx.y;
+  const int group = blockIdx.z;
+  const int nthreads = blockDim.x;
+  const int mt = nthreads / (32 * kw);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int b = blockIdx.x / Hkv;
-  const int kh = blockIdx.x - b * Hkv;
-  const int g = H / Hkv;
-  const int R = g * C;  // rows: the group's query heads x columns
-  const size_t wf = warp_floats(R, kD, bs);
-  float* q_s = smem;
-  float* base = q_s + R * kD;  // the warps' states, wf floats each
-  int* pos_s = reinterpret_cast<int*>(base + nw * wf);
-  float* acc_w = base + warp * wf;
-  float* m_w = acc_w + R * kD;
-  float* l_w = m_w + R;
-  float* p_w = l_w + R;  // one row's scores, then probabilities
-  float* k_w = p_w + bs;
-  float* v_w = k_w + bs * kDk;
+  const int mi = warp % mt;  // this warp's m-tile
+  const int kg = warp / mt;  // and key group
+  const int g = a.H / Hkv;
+  const int R = g * C;
+  const int row0 = group * kMaxMTiles * 16;  // this block's first row
+  const int rows = min(R - row0, mt * 16);
+  const int stage_bytes_all = kw * kTile;
 
-  // rows r = gi * C + c of query head kh * g + gi are contiguous in q/out
-  const int64_t qoff = ((int64_t)b * H + (int64_t)kh * g) * C * kD;
-  for (int i = threadIdx.x; i < R * kD; i += blockDim.x)
-    q_s[i] = to_f32(q[qoff + i]);
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    pos_s[c] = positions[(int64_t)b * C + c];
-  for (int i = lane; i < R * kD; i += 32) acc_w[i] = 0.f;
-  for (int r = lane; r < R; r += 32) {
-    m_w[r] = kNegInf;
-    l_w[r] = 0.f;
+  // shared memory: ring (after the loop: the key groups' states),
+  // [bf16 codes tile], [q rows f32, probabilities], merge weights and
+  // sums, positions, table slice, live list (table index, block id)
+  unsigned char* ring = smem;
+  const size_t ring_size =
+      ring_bytes(mt, kw, kD, kElem, kQuant<TP>);
+  unsigned char* rest = smem + ring_size;
+  __nv_bfloat16* codes_s = reinterpret_cast<__nv_bfloat16*>(rest);
+  if constexpr (kStaged) rest += kw * 2 * kTileKeys * kRowB * 2;
+  float* q_s = reinterpret_cast<float*>(rest);
+  float* p_s = q_s;
+  if constexpr (!kTC) {
+    p_s = q_s + mt * 16 * kD;
+    rest = reinterpret_cast<unsigned char*>(p_s + mt * kw * 16 * 16);
   }
+  float* w_s = reinterpret_cast<float*>(rest);
+  float* lsum_s = w_s + kMaxSplits * mt * 16;
+  int* pos_s = reinterpret_cast<int*>(lsum_s + mt * 16);
+  int* live_j = pos_s + C;
+  int* live_b = live_j + a.per;
+  int* raw_s = live_b + a.per;  // the split's table slice as read
+
+  // positions, the split's table slice and q are independent: load them
+  // all before the first barrier, so their latencies overlap
+  const int j0 = split * a.per;
+  const int jn = max(0, min(j0 + a.per, M) - j0);
+  for (int c = threadIdx.x; c < C; c += nthreads)
+    pos_s[c] = a.positions[(int64_t)b * C + c];
+  for (int i = threadIdx.x; i < jn; i += nthreads)
+    raw_s[i] = a.table[(int64_t)b * M + j0 + i];
+
+  // this thread's two rows of its warp's m-tile (fragment rows lane / 4
+  // and lane / 4 + 8)
+  const int fr = lane / 4;
+  const int fc = (lane % 4) * 2;
+  const int ra = row0 + mi * 16 + fr, rb = ra + 8;
+  const bool va = ra < row0 + rows, vb = rb < row0 + rows;
+  const int64_t qoff = ((int64_t)b * a.H + (int64_t)kh * g) * C * kD;
+
+  uint32_t qa[kTC ? kD / 16 : 1][4];
+  if constexpr (kTC) {
+    // element by element: q need only be 2-byte aligned
+    const unsigned short* q16 =
+        reinterpret_cast<const unsigned short*>(a.q + qoff);
+    auto pair16 = [&](int r, int d) {
+      const unsigned short* p = q16 + (int64_t)r * kD + d;
+      return (uint32_t)p[0] | ((uint32_t)p[1] << 16);
+    };
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks) {
+      const int d = ks * 16 + fc;
+      qa[ks][0] = va ? pair16(ra, d) : 0u;
+      qa[ks][1] = vb ? pair16(rb, d) : 0u;
+      qa[ks][2] = va ? pair16(ra, d + 8) : 0u;
+      qa[ks][3] = vb ? pair16(rb, d + 8) : 0u;
+    }
+  } else {
+    for (int i = threadIdx.x; i < mt * 16 * kD; i += nthreads) {
+      const int r = row0 + i / kD;
+      q_s[i] = r < row0 + rows ? to_f32(a.q[qoff + (int64_t)r * kD + i % kD])
+                               : 0.f;
+    }
+  }
+  // tile rows past bs are read (masked) from stage memory: give them
+  // finite values before the first copy lands
+  if (bs % kTileKeys != 0)
+    for (int i = threadIdx.x; i < kStages * stage_bytes_all / 16;
+         i += nthreads)
+      reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   int mp = pos_s[0];
   for (int c = 1; c < C; ++c) mp = max(mp, pos_s[c]);
   const int n_live = min(mp / bs + 1, M);  // per-lane early stop
-  const float scale = sqrtf((float)kD);
-  const int* trow = table + (int64_t)b * M;
-  const int n_vec = bs * kD * (int)sizeof(TP) / 16;  // 16-byte vectors
-  // key layout of the score pass: `parts` lanes share a key and split D
-  // when bs divides 32; otherwise each lane walks keys lane, lane + 32, ...
-  const int parts = (bs <= 32 && 32 % bs == 0) ? 32 / bs : 1;
-  const int kstep = parts > 1 ? bs : 32;
-  const int dpart = kD / parts;
-  const int t_lane = parts > 1 ? lane % bs : lane;
-  const int d0 = parts > 1 ? (lane / bs) * dpart : 0;
+  const int j1 = min(min(j0 + a.per, M), n_live);
+  // the rows' positions (-1: a padded row, all masked)
+  const int pa = va ? pos_s[ra % C] : -1;
+  const int pb = vb ? pos_s[rb % C] : -1;
 
-  // this warp's next live block at or after j (NULL blocks are never read:
-  // they contribute nothing)
-  auto next_live = [&](int j) {
-    while (j < n_live && trow[j] == kNullBlock) j += nw;
-    return j;
-  };
-  auto tile_row = [&](int j) {  // the pool row of the tile's first key
-    return ((int64_t)trow[j] * Hkv + kh) * bs;
-  };
-  TileRegs regs = {};
-  int j = next_live(warp);
-  if (j < n_live) fetch_tile<TP, kD>(regs, pools, tile_row(j), n_vec, lane);
-
-  while (j < n_live) {
-    store_tile<TP, kD>(regs, pools, tile_row(j), n_vec, k_w, v_w, lane);
-    __syncwarp();
-    // the next tile's loads fly while this one is computed
-    const int jn = next_live(j + nw);
-    if (jn < n_live)
-      fetch_tile<TP, kD>(regs, pools, tile_row(jn), n_vec, lane);
-    const int k0 = j * bs;  // logical position of the tile's first key
-    for (int r = 0; r < R; ++r) {
-      const int qp = pos_s[r % C];
-      if (k0 > qp) continue;  // every key of this tile is masked for r
-      const float* qr = q_s + r * kD + d0;
-      // scores, masked with the finite NEG_INF exactly like the reference
-      float mx = kNegInf;
-      for (int t0 = 0; t0 < bs; t0 += kstep) {
-        const int t = t0 + t_lane;
-        float s = 0.f;
-        if (t < bs) {
-          const float* kt = k_w + t * kDk + d0;
-          for (int dd = 0; dd < dpart; ++dd) s = fmaf(qr[dd], kt[dd], s);
-        }
-        for (int off = bs; off < 32 && parts > 1; off <<= 1)
-          s += __shfl_xor_sync(kFull, s, off);
-        s = (t < bs && k0 + t <= qp) ? s / scale : kNegInf;
-        if (t < bs && lane < kstep) p_w[t] = s;
-        mx = fmaxf(mx, s);
+  // the live (non-NULL) entries of this split's table slice, in order
+  if (warp == 0) {
+    int count = 0;
+    for (int base = j0; base < j1; base += 32) {
+      const int j = base + lane;
+      const int blk = j < j1 ? raw_s[j - j0] : kNullBlock;
+      const unsigned live = __ballot_sync(kFull, blk != kNullBlock);
+      if (blk != kNullBlock) {
+        const int at = count + __popc(live & ((1u << lane) - 1u));
+        live_j[at] = j;
+        live_b[at] = blk;
       }
-      mx = warp_max(mx);
-      const float m_old = m_w[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float corr = expf(m_old - m_new);
-      __syncwarp();
-      float sum = 0.f;
-      for (int t = lane; t < bs; t += 32) {
-        const float p = (k0 + t <= qp) ? expf(p_w[t] - m_new) : 0.f;
-        p_w[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      __syncwarp();
-      // rescale the f32 accumulator and add this tile's PV partial
-      float* ar = acc_w + r * kD;
-      for (int d = lane; d < kD; d += 32) {
-        float pv = 0.f;
-        for (int t = 0; t < bs; ++t) pv = fmaf(p_w[t], v_w[t * kD + d], pv);
-        ar[d] = ar[d] * corr + pv;
-      }
-      if (lane == 0) {
-        l_w[r] = l_w[r] * corr + sum;
-        m_w[r] = m_new;
-      }
-      __syncwarp();  // the next row overwrites the scores
+      count += __popc(live);
     }
-    j = jn;
+    if (lane == 0) sh_live = count;
   }
   __syncthreads();
-  // merge the warps' partial states; an idle lane (l == 0) writes 0
-  for (int e = threadIdx.x; e < R * kD; e += blockDim.x) {
-    const int r = e / kD;
-    float m = kNegInf;
-    for (int w = 0; w < nw; ++w) m = fmaxf(m, base[w * wf + R * kD + r]);
-    float l = 0.f, a = 0.f;
-    for (int w = 0; w < nw; ++w) {
-      const float* pw = base + w * wf;
-      const float f = expf(pw[R * kD + r] - m);
-      l += pw[R * kD + R + r] * f;
-      a += pw[e] * f;
+  const int nt_per_block = cdiv(bs, kTileKeys);
+  const int n_tiles = sh_live * nt_per_block;
+  const int n_steps = cdiv(n_tiles, kw);  // ring stages to walk
+
+  // gather tile t (live entry t / nt, keys (t % nt) * 16 + [0, 16)) into
+  // slot `slot` of stage s: K rows, V rows and, for int8, their scales
+  auto load_tile = [&](int t, int s, int slot) {
+    const int li = t / nt_per_block;
+    const int sub = t - li * nt_per_block;
+    const int nk = min(kTileKeys, bs - sub * kTileKeys);
+    const int64_t row =
+        ((int64_t)live_b[li] * Hkv + kh) * bs + sub * kTileKeys;
+    const unsigned char* ks =
+        reinterpret_cast<const unsigned char*>(a.pools.k + row * kD);
+    const unsigned char* vs =
+        reinterpret_cast<const unsigned char*>(a.pools.v + row * kD);
+    unsigned char* st = ring + s * stage_bytes_all + slot * kTile;
+    for (int c = threadIdx.x; c < nk * kChunks; c += nthreads) {
+      const int r = c / kChunks;
+      const int cc = c - r * kChunks;
+      cp_async16(st + r * kRow + cc * 16, ks + (r * kChunks + cc) * 16);
+      cp_async16(st + (kTileKeys + r) * kRow + cc * 16,
+                 vs + (r * kChunks + cc) * 16);
     }
-    store_out(out + qoff + e, a / (l > 0.f ? l : 1.f));
+    if constexpr (kQuant<TP>) {
+      float* sc = reinterpret_cast<float*>(st + 2 * kTileKeys * kRow);
+      for (int c = threadIdx.x; c < nk; c += nthreads) {
+        cp_async4(sc + c, a.pools.k_scale + row + c);
+        cp_async4(sc + kTileKeys + c, a.pools.v_scale + row + c);
+      }
+    }
+  };
+  auto load_stage = [&](int step, int s) {
+    for (int slot = 0; slot < kw; ++slot) {
+      const int t = step * kw + slot;
+      if (t < n_tiles) load_tile(t, s, slot);
+    }
+  };
+
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};  // this thread's columns; quad-summed last
+  float acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float inv_scale = 1.f / sqrtf((float)kD);
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load_stage(s, s);
+    cp_async_commit();
   }
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    {
+      const int nx = step + kStages - 1;  // into the stage step - 1 left
+      if (nx < n_steps) load_stage(nx, nx % kStages);
+      cp_async_commit();
+    }
+    const unsigned char* stage = ring + (step % kStages) * stage_bytes_all;
+    if constexpr (kStaged) {
+      // every code of the stage becomes bf16 once, for all the block's
+      // warps (the m-tiles of a key group share each tile)
+      constexpr int kWords = kD / 4;  // 32-bit words of codes a key row
+      for (int i = threadIdx.x; i < kw * 2 * kTileKeys * kWords;
+           i += nthreads) {
+        const int r = i / kWords;  // slot * 32 + (K: 0-15, V: 16-31)
+        const int wd = i - r * kWords;
+        const int slot = r / (2 * kTileKeys);
+        const int rr = r - slot * 2 * kTileKeys;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            stage + slot * kTile + rr * kRow + wd * 4);
+        *reinterpret_cast<uint2*>(codes_s + (size_t)r * kRowB + wd * 4) =
+            codes4_bf16(w);
+      }
+      __syncthreads();
+    }
+    const int t = step * kw + kg;  // this key group's tile
+    if (t >= n_tiles) continue;
+    const int li = t / nt_per_block;
+    const int sub = t - li * nt_per_block;
+    const int k0 = live_j[li] * bs + sub * kTileKeys;
+    const int nk = min(kTileKeys, bs - sub * kTileKeys);
+    if (k0 > mp) continue;  // every key of the tile is masked for every row
+    const unsigned char* st = stage + kg * kTile;
+    const TP* k_t = reinterpret_cast<const TP*>(st);
+    const TP* v_t = reinterpret_cast<const TP*>(st + kTileKeys * kRow);
+    const float* ksc =
+        reinterpret_cast<const float*>(st + 2 * kTileKeys * kRow);
+    const float* vsc = ksc + kTileKeys;
+    constexpr int kRowE = kRow / kElem;  // row stride in elements
+
+    // S (16 rows x 16 keys) as two 16x8 fragments: s[n][e] is row
+    // (e < 2 ? ra : rb), key n * 8 + fc + (e & 1)
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    // bf16 tiles for the products: the pool's, or the codes made bf16
+    const __nv_bfloat16* kb16 =
+        kStaged ? codes_s + (size_t)kg * 2 * kTileKeys * kRowB
+                : reinterpret_cast<const __nv_bfloat16*>(k_t);
+    const __nv_bfloat16* vb16 =
+        kStaged ? kb16 + kTileKeys * kRowB
+                : reinterpret_cast<const __nv_bfloat16*>(v_t);
+    if constexpr (kTC) {
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks) {
+        uint32_t kb[4];
+        // matrices: keys 0-7 / 8-15 x d ks*16 + 0-7 / 8-15
+        const int key = (lane / 16) * 8 + lane % 8;
+        const int d = ks * 16 + ((lane / 8) % 2) * 8;
+        ldmatrix_x4(kb, kb16 + key * kRowB + d);
+        mma_bf16(s[0], qa[ks], kb[0], kb[1]);
+        mma_bf16(s[1], qa[ks], kb[2], kb[3]);
+      }
+    } else {
+      const float* qra = q_s + (mi * 16 + fr) * kD;
+      const float* qrb = qra + 8 * kD;
+      const TP* kr[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        kr[c] = k_t + ((c / 2) * 8 + fc + (c & 1)) * kRowE;
+      for (int d = 0; d < kD; ++d) {
+        const float x = qra[d], y = qrb[d];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float kv = to_f32(kr[c][d]);
+          s[c / 2][c & 1] = fmaf(x, kv, s[c / 2][c & 1]);
+          s[c / 2][2 + (c & 1)] = fmaf(y, kv, s[c / 2][2 + (c & 1)]);
+        }
+      }
+    }
+
+    // scale, mask and fold into the online softmax, row by row
+    bool vis[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = n * 8 + fc + (e & 1);
+        float v = s[n][e];
+        if constexpr (kQuant<TP>) v *= ksc[kk];
+        vis[n][e] = kk < nk && k0 + kk <= (e < 2 ? pa : pb);
+        s[n][e] = vis[n][e] ? v * inv_scale : kNegInf;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
+                       fmaxf(s[1][2 * h], s[1][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m_run[h], mx);
+      const float corr = expf(m_run[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p = vis[n][e] ? expf(s[n][e] - m_new) : 0.f;
+          s[n][e] = p;
+          sum += p;
+        }
+      l_run[h] = l_run[h] * corr + sum;
+      m_run[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        acc[n][2 * h] *= corr;
+        acc[n][2 * h + 1] *= corr;
+      }
+    }
+    // int8: the value scale rides on P (after l took the bare P)
+    if constexpr (kQuant<TP>) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= vsc[n * 8 + fc + (e & 1)];
+    }
+
+    // O += P V
+    if constexpr (kTC) {
+      // P as the A operand: hi and lo bf16 parts
+      const uint32_t ph[4] = {pack_bf16(s[0][0], s[0][1]),
+                              pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]),
+                              pack_bf16(s[1][2], s[1][3])};
+      const uint32_t pl[4] = {
+          pack_bf16(bf16_rest(s[0][0]), bf16_rest(s[0][1])),
+          pack_bf16(bf16_rest(s[0][2]), bf16_rest(s[0][3])),
+          pack_bf16(bf16_rest(s[1][0]), bf16_rest(s[1][1])),
+          pack_bf16(bf16_rest(s[1][2]), bf16_rest(s[1][3]))};
+#pragma unroll
+      for (int dp = 0; dp < kD / 16; ++dp) {
+        uint32_t vb[4];
+        // matrices: keys 0-7 / 8-15 x d dp*16 + 0-7, then + 8-15
+        const int key = ((lane / 8) % 2) * 8 + lane % 8;
+        const int d = dp * 16 + (lane / 16) * 8;
+        ldmatrix_x4_trans(vb, vb16 + key * kRowB + d);
+        mma_bf16(acc[2 * dp], ph, vb[0], vb[1]);
+        mma_bf16(acc[2 * dp], pl, vb[0], vb[1]);
+        mma_bf16(acc[2 * dp + 1], ph, vb[2], vb[3]);
+        mma_bf16(acc[2 * dp + 1], pl, vb[2], vb[3]);
+      }
+    } else {
+      float* pw = p_s + warp * 256;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pw[(fr + (e < 2 ? 0 : 8)) * 16 + n * 8 + fc + (e & 1)] = s[n][e];
+      __syncwarp();
+      const float* pra = pw + fr * 16;
+      const float* prb = pra + 8 * 16;
+      for (int kk = 0; kk < kTileKeys; ++kk) {
+        const float xa = pra[kk], xb = prb[kk];
+        const TP* vr = v_t + kk * kRowE + fc;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          const float v0 = to_f32(vr[n * 8]), v1 = to_f32(vr[n * 8 + 1]);
+          acc[n][0] = fmaf(xa, v0, acc[n][0]);
+          acc[n][1] = fmaf(xa, v1, acc[n][1]);
+          acc[n][2] = fmaf(xb, v0, acc[n][2]);
+          acc[n][3] = fmaf(xb, v1, acc[n][3]);
+        }
+      }
+      __syncwarp();
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(kFull, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(kFull, l_run[h], 2);
+  }
+
+  // the key groups' states merge into key group 0 through shared memory
+  // (the ring is free now): weights exp(m_g - M) over the groups that
+  // saw a visible key of the row
+  if (kw > 1) {
+    __syncthreads();
+    float* st_acc = reinterpret_cast<float*>(ring);  // [kw][mt][16][kD]
+    float* st_ml = st_acc + kw * mt * 16 * kD;       // [kw][mt][16][2]
+    const int base = (kg * mt + mi) * 16;
+    if (kg > 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = base + fr + 8 * h;
+        if (lane % 4 == 0) {
+          st_ml[r * 2] = m_run[h];
+          st_ml[r * 2 + 1] = l_run[h];
+        }
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+          *reinterpret_cast<float2*>(st_acc + r * kD + n * 8 + fc) =
+              make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+    __syncthreads();
+    if (kg == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = l_run[h] > 0.f ? m_run[h] : kNegInf;
+        for (int o = 1; o < kw; ++o) {
+          const int r = (o * mt + mi) * 16 + fr + 8 * h;
+          if (st_ml[r * 2 + 1] > 0.f) m = fmaxf(m, st_ml[r * 2]);
+        }
+        const float w0 = l_run[h] > 0.f ? expf(m_run[h] - m) : 0.f;
+        float l = l_run[h] * w0;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          acc[n][2 * h] *= w0;
+          acc[n][2 * h + 1] *= w0;
+        }
+        for (int o = 1; o < kw; ++o) {
+          const int r = (o * mt + mi) * 16 + fr + 8 * h;
+          const float lo = st_ml[r * 2 + 1];
+          if (!(lo > 0.f)) continue;
+          const float w = expf(st_ml[r * 2] - m);
+          l += lo * w;
+#pragma unroll
+          for (int n = 0; n < kN; ++n) {
+            const float2 x =
+                *reinterpret_cast<const float2*>(st_acc + r * kD + n * 8 + fc);
+            acc[n][2 * h] = fmaf(w, x.x, acc[n][2 * h]);
+            acc[n][2 * h + 1] = fmaf(w, x.y, acc[n][2 * h + 1]);
+          }
+        }
+        m_run[h] = m;
+        l_run[h] = l;
+      }
+    }
+  }
+  const int64_t obase = qoff;  // rows of this (lane, KV head) in out
+
+  if (a.splits == 1) {  // the whole table: normalize and write
+    if (kg != 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? rb : ra;
+      if ((h ? pb : pa) < 0) continue;
+      const float inv = 1.f / (l_run[h] > 0.f ? l_run[h] : 1.f);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        OutT<TQ, TP>* o = a.out + obase + (int64_t)r * kD + n * 8 + fc;
+        store_out(o, acc[n][2 * h] * inv);
+        store_out(o + 1, acc[n][2 * h + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // a split's partial state; an idle split writes m and l only
+  const int64_t pbase = ((int64_t)pair * a.splits + split) * R;
+  if (kg == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? rb : ra;
+      if ((h ? pb : pa) < 0) continue;
+      if (lane % 4 == 0)
+        *reinterpret_cast<float2*>(a.part_ml + (pbase + r) * 2) =
+            make_float2(m_run[h], l_run[h]);
+      if (n_tiles > 0) {
+#pragma unroll
+        for (int n = 0; n < kN; ++n)
+          *reinterpret_cast<float2*>(a.part_acc + (pbase + r) * kD +
+                                     n * 8 + fc) =
+              make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  int* ticket = a.counters + (int64_t)pair * gridDim.z + group;
+  if (threadIdx.x == 0)
+    sh_last = atomicAdd(ticket, 1) == a.splits - 1;
+  __syncthreads();
+  if (!sh_last) return;
+  __threadfence();
+
+  // the last split merges, with every thread of the block: per row the
+  // weights exp(m_s - M) of the splits that saw a visible key (l_s > 0)
+  // and 1 / sum, then the weighted accumulators (each split's loads of
+  // a row or an element issued together)
+  const int64_t pair0 = (int64_t)pair * a.splits * R;
+  for (int r = threadIdx.x; r < rows; r += nthreads) {
+    const int row = row0 + r;
+    float2 ml[kMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      ml[sp] = sp < a.splits
+                   ? __ldcg(reinterpret_cast<const float2*>(
+                         a.part_ml + (pair0 + (int64_t)sp * R + row) * 2))
+                   : make_float2(kNegInf, 0.f);
+    float m = kNegInf;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (ml[sp].y > 0.f) m = fmaxf(m, ml[sp].x);
+    float l = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      const float w = ml[sp].y > 0.f ? expf(ml[sp].x - m) : 0.f;
+      w_s[sp * mt * 16 + r] = w;
+      l += ml[sp].y * w;
+    }
+    lsum_s[r] = 1.f / (l > 0.f ? l : 1.f);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * kD / 4; e += nthreads) {
+    const int r = e / (kD / 4);
+    const int d = (e - r * (kD / 4)) * 4;
+    const int row = row0 + r;
+    // a split with no visible key (or a weight that underflows) is not
+    // read: its accumulator may never have been written
+    float4 x[kMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      x[sp] = sp < a.splits && w_s[sp * mt * 16 + r] != 0.f
+                  ? __ldcg(reinterpret_cast<const float4*>(
+                        a.part_acc + (pair0 + (int64_t)sp * R + row) * kD +
+                        d))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      const float w = w_s[sp * mt * 16 + r];
+      o.x = fmaf(w, x[sp].x, o.x);
+      o.y = fmaf(w, x[sp].y, o.y);
+      o.z = fmaf(w, x[sp].z, o.z);
+      o.w = fmaf(w, x[sp].w, o.w);
+    }
+    const float inv = lsum_s[r];
+    OutT<TQ, TP>* out = a.out + obase + (int64_t)row * kD + d;
+    store_out(out, o.x * inv);
+    store_out(out + 1, o.y * inv);
+    store_out(out + 2, o.z * inv);
+    store_out(out + 3, o.w * inv);
+  }
+  if (threadIdx.x == 0) *ticket = 0;  // ready for the next launch
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 132;
+  return n;
+}
+
+int elem_size(int dtype) { return dtype == kF32 ? 4 : dtype == kBF16 ? 2 : 1; }
+
+bool valid_pair(int q_dtype, int pool_dtype) {
+  return (q_dtype == kF32 && pool_dtype == kF32) ||
+         (q_dtype == kBF16 && pool_dtype == kBF16) ||
+         (q_dtype == kF32 && pool_dtype == kBF16) ||
+         (q_dtype == kF32 && pool_dtype == kInt8) ||
+         (q_dtype == kBF16 && pool_dtype == kInt8);
+}
+
+bool valid_shape(int B, int H, int Hkv, int C, int D, int bs, int M) {
+  return B >= 1 && Hkv >= 1 && H >= Hkv && H % Hkv == 0 && C >= 1 &&
+         bs >= 1 && M >= 1 && (D == 32 || D == 64 || D == 128);
 }
 
 template <typename TQ, typename TP, int kD>
-int launch(const void* q, const Pools<TP>& pools, const int* table,
-           const int* positions, void* out, int B, int H, int Hkv, int C,
-           int bs, int M, cudaStream_t stream) {
-  const int R = (H / Hkv) * C;
-  const int nw = pick_warps(R, C, kD, bs);
-  if (nw == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(nw, R, C, kD, bs);
+int launch(const Args<TQ, TP>& args, const Plan& plan, int B, int Hkv,
+           cudaStream_t stream) {
   auto kernel = paged_attention_kernel<TQ, TP, kD>;
-  if (smem > 48 * 1024) {
+  if (plan.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<B * Hkv, nw * 32, smem, stream>>>(
-      static_cast<const TQ*>(q), pools, table, positions,
-      static_cast<OutT<TQ, TP>*>(out), H, Hkv, C, bs, M);
+  const dim3 grid(B * Hkv, plan.splits, plan.groups);
+  kernel<<<grid, plan.mt * plan.kw * 32, plan.smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TP>
 int launch_d(int D, const void* q, const void* k_pool, const void* v_pool,
              const void* k_scale, const void* v_scale, const int* table,
-             const int* positions, void* out, int B, int H, int Hkv, int C,
-             int bs, int M, cudaStream_t stream) {
-  const Pools<TP> pools{static_cast<const TP*>(k_pool),
-                        static_cast<const TP*>(v_pool),
-                        static_cast<const float*>(k_scale),
-                        static_cast<const float*>(v_scale)};
-  if (D == 32)
-    return launch<TQ, TP, 32>(q, pools, table, positions, out, B, H, Hkv, C,
-                              bs, M, stream);
-  return launch<TQ, TP, 64>(q, pools, table, positions, out, B, H, Hkv, C,
-                            bs, M, stream);
+             const int* positions, void* out, float* scratch, int* counters,
+             int B, int H, int Hkv, int C, int bs, int M, const Plan& plan,
+             cudaStream_t stream) {
+  Args<TQ, TP> args;
+  args.q = static_cast<const TQ*>(q);
+  args.pools = Pools<TP>{static_cast<const TP*>(k_pool),
+                         static_cast<const TP*>(v_pool),
+                         static_cast<const float*>(k_scale),
+                         static_cast<const float*>(v_scale)};
+  args.table = table;
+  args.positions = positions;
+  args.out = static_cast<OutT<TQ, TP>*>(out);
+  const int64_t R = (int64_t)(H / Hkv) * C;
+  args.part_acc = scratch;
+  args.part_ml =
+      scratch ? scratch + (int64_t)B * Hkv * plan.splits * R * D : nullptr;
+  args.counters = counters;
+  args.H = H;
+  args.Hkv = Hkv;
+  args.C = C;
+  args.bs = bs;
+  args.M = M;
+  args.splits = plan.splits;
+  args.per = plan.per;
+  args.kw = plan.kw;
+  if (D == 32) return launch<TQ, TP, 32>(args, plan, B, Hkv, stream);
+  if (D == 64) return launch<TQ, TP, 64>(args, plan, B, Hkv, stream);
+  return launch<TQ, TP, 128>(args, plan, B, Hkv, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block takes at these shapes (with the most
-// warps that fit); 0 when even one warp's state exceeds 227 KB. Tiles land
-// in f32 shared memory whatever the pool type, so the pool type does not
-// enter.
-size_t paged_attention_smem_bytes(int H, int Hkv, int C, int D, int bs) {
-  const int R = (H / Hkv) * C;
-  const int nw = pick_warps(R, C, D, bs);
-  return nw ? smem_bytes(nw, R, C, D, bs) : 0;
+// The launch plan at these shapes on the current device: plan[0] the
+// split count, plan[1] the f32 scratch floats (0 for one split), plan[2]
+// the int32 tickets (0 for one split; they must be 0 before the first
+// launch and are left at 0), plan[3] the dynamic shared memory of a
+// block. Returns 0, or cudaErrorInvalidValue for shapes or dtypes the
+// kernel does not take (shared memory over 227 KB included).
+int paged_attention_plan(int B, int H, int Hkv, int C, int D, int bs, int M,
+                         int q_dtype, int pool_dtype, long long* plan) {
+  if (!valid_shape(B, H, Hkv, C, D, bs, M) || !valid_pair(q_dtype, pool_dtype))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(B, H, Hkv, C, D, bs, M, q_dtype == kF32,
+                           elem_size(pool_dtype), pool_dtype == kInt8,
+                           sm_count());
+  if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const long long R = (long long)(H / Hkv) * C;
+  const bool split = p.splits > 1;
+  plan[0] = p.splits;
+  plan[1] = split ? (long long)B * Hkv * p.splits * R * (D + 2) : 0;
+  plan[2] = split ? (long long)B * Hkv * p.groups : 0;
+  plan[3] = (long long)p.smem;
+  return 0;
 }
 
 // q_dtype: 0 = float32, 1 = bfloat16; pool_dtype: the same codes, or
 // 2 = int8 codes with f32 k/v_scale (null for dense pools). Dense pools
 // take q in their own type, and bf16 pools also f32 q (the output is then
-// bf16); int8 pools take f32 or bf16 q. Returns
+// bf16); int8 pools take f32 or bf16 q. scratch and counters are sized by
+// paged_attention_plan (null when it gives one split). Returns
 // cudaGetLastError() after the launch (0 on success); the wrapper raises
 // on anything else.
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                         const void* k_scale, const void* v_scale,
                         const void* table, const void* positions, void* out,
-                        int B, int H, int Hkv, int C, int D, int bs, int M,
-                        int q_dtype, int pool_dtype, void* stream) {
-  if (B < 1 || Hkv < 1 || H % Hkv != 0 || C < 1 || bs < 1 || M < 1 ||
-      (D != 32 && D != 64))
+                        void* scratch, void* counters, int B, int H, int Hkv,
+                        int C, int D, int bs, int M, int q_dtype,
+                        int pool_dtype, void* stream) {
+  if (!valid_shape(B, H, Hkv, C, D, bs, M) || !valid_pair(q_dtype, pool_dtype))
     return (int)cudaErrorInvalidValue;
   const bool scaled = k_scale != nullptr && v_scale != nullptr;
   if ((pool_dtype == kInt8) != scaled ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
+  const Plan plan = make_plan(B, H, Hkv, C, D, bs, M, q_dtype == kF32,
+                              elem_size(pool_dtype), pool_dtype == kInt8,
+                              sm_count());
+  if (plan.smem > kMaxSmem ||
+      (plan.splits > 1 && (scratch == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const int* tbl = static_cast<const int*>(table);
   const int* pos = static_cast<const int*>(positions);
+  float* scr = static_cast<float*>(scratch);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pool_dtype == kF32 && q_dtype == kF32)
+  if (pool_dtype == kF32)
     return launch_d<float, float>(D, q, k_pool, v_pool, k_scale, v_scale,
-                                  tbl, pos, out, B, H, Hkv, C, bs, M, s);
+                                  tbl, pos, out, scr, cnt, B, H, Hkv, C, bs,
+                                  M, plan, s);
   if (pool_dtype == kBF16 && q_dtype == kBF16)
     return launch_d<__nv_bfloat16, __nv_bfloat16>(
-        D, q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out, B, H, Hkv, C,
-        bs, M, s);
-  if (pool_dtype == kBF16 && q_dtype == kF32)
+        D, q, k_pool, v_pool, k_scale, v_scale, tbl, pos, out, scr, cnt, B,
+        H, Hkv, C, bs, M, plan, s);
+  if (pool_dtype == kBF16)
     return launch_d<float, __nv_bfloat16>(D, q, k_pool, v_pool, k_scale,
-                                          v_scale, tbl, pos, out, B, H, Hkv,
-                                          C, bs, M, s);
-  if (pool_dtype == kInt8 && q_dtype == kF32)
+                                          v_scale, tbl, pos, out, scr, cnt,
+                                          B, H, Hkv, C, bs, M, plan, s);
+  if (q_dtype == kF32)
     return launch_d<float, int8_t>(D, q, k_pool, v_pool, k_scale, v_scale,
-                                   tbl, pos, out, B, H, Hkv, C, bs, M, s);
-  if (pool_dtype == kInt8 && q_dtype == kBF16)
-    return launch_d<__nv_bfloat16, int8_t>(D, q, k_pool, v_pool, k_scale,
-                                           v_scale, tbl, pos, out, B, H, Hkv,
-                                           C, bs, M, s);
-  return (int)cudaErrorInvalidValue;
+                                   tbl, pos, out, scr, cnt, B, H, Hkv, C, bs,
+                                   M, plan, s);
+  return launch_d<__nv_bfloat16, int8_t>(D, q, k_pool, v_pool, k_scale,
+                                         v_scale, tbl, pos, out, scr, cnt, B,
+                                         H, Hkv, C, bs, M, plan, s);
 }
 
 }  // extern "C"

@@ -2,31 +2,50 @@
 its plain PyTorch version.
 
 Replaces the Pallas kernels of ``paddle_tpu/ops/pallas/paged.py``:
-``_paged_kernel`` (launcher ``ragged_paged_attention``) and
-``_paged_kernel_v2`` (launcher ``ragged_paged_attention_v2``), each with
-its dense f32/bf16 branch and its int8 branch (``quantized=True``: int8
-codes with per-row f32 scales, dequantized on the gather). One kernel,
-``csrc/paged_attention.cu``, templated on the q type and the pool
-element type, serves all four, and f32 q over bf16 pools (an f32 model
-serving bf16 KV): the function of
-``paged_attention_reference`` computed in the v2 style, one streaming
-pass with an online softmax whose running max, sum and accumulator are
-f32.
+``_paged_kernel`` (``:134``, launcher ``ragged_paged_attention`` ``:306``)
+with its int8 branch (``:151-219``, launch ``:282``), and
+``_paged_kernel_v2`` (``:333``, launcher ``ragged_paged_attention_v2``
+``:505``) with its int8 dequant (``:435-437``). One kernel,
+``csrc/paged_attention.cu``, templated on the q type, the pool element
+type and the head dim, serves all four, and f32 q over bf16 pools (an
+f32 model serving bf16 KV): the function of ``paged_attention_reference``
+computed in the v2 style, one streaming pass with an online softmax
+whose running max, sum and accumulator are f32. It takes head dims
+``HEAD_DIMS`` (32, 64, 128) and the (q, pool) dtype pairs ``_PAIRS``;
+any other head dim raises ``ValueError``.
 
 What bounds it: the bytes of the live K/V blocks read from device
 memory (decode reads every live block of every lane once per layer and
-does ~2 flops per byte). The design reads each live (bs, D) tile once
-per (lane, KV head) into shared memory and reuses it for every query
-row of the head group (H/H_kv heads x C columns), stops at each lane's
-highest live block, and never touches a NULL block, so the bytes moved
-are those of the live blocks and nothing else. Per live key row and KV
-head that is 2 * D * 2 bytes for bf16 pools and 2 * (D + 4) for int8
-codes and their scales (0.53x at D = 64). Within a block the warps split
-the lane's blocks between them (each with its own online-softmax state,
-merged at the end), load one tile ahead, and skip the rows that a tile
-masks entirely. int8 codes are dequantized (code * row scale, in f32)
-where the tile lands in f32 shared memory. The kernel is still far from
-its bound; PERF.md has its times.
+does ~2 flops per byte). The design keeps those bytes in flight on every
+SM and takes the per-row work off the loop:
+
+- bf16 q: each warp owns a 16-row group of the (lane, KV head)'s rows
+  (H/H_kv heads x C columns; decode pads its 1 or 3 rows with masked
+  ones) and computes S = Q K^T and O += P V with tensor-core
+  ``mma.sync`` m16n8k16 products, the online softmax on the fragments,
+  and P split into bf16 hi + lo parts so that P V keeps f32 accuracy.
+  About four warps share a block: the m-tiles times key groups that
+  take turns at the ring's tiles and merge in shared memory at the end.
+- int8 pools: the per-row scales factor out of both products (k_scale
+  scales S's columns, v_scale rides on P), so the ring holds the codes
+  as int8; each stage's codes become exact bf16 once per block, shared
+  by the m-tiles of a key group (three under GQA).
+- f32 q (over f32, bf16 or int8 pools) keeps f32 arithmetic on the CUDA
+  cores, with the same grid, loads and softmax: rounding q to bf16
+  would break the 1e-5 agreement of ``TOLERANCE[torch.float32]``.
+- loads: each block compacts its table slice's live (non-NULL) entries
+  once and gathers 16-key K/V tiles by 16-byte ``cp.async`` into a
+  3-stage ring; no copy is issued for a NULL block.
+- split-K: the grid is (lane x KV head, split, row group); each split
+  walks a contiguous range of the table up to the lane's early stop. The
+  split count comes from the shapes alone (``paged_attention_plan``),
+  never from a device tensor, so the wrapper does not sync. Partials go
+  to f32 scratch and the last split of each (lane, KV head) to finish
+  merges them in the same launch, by an atomic ticket that it resets;
+  the scratch and the zeroed int32 tickets are one workspace kept per
+  device (allocated once, ``torch.empty`` / ``torch.zeros``), so
+  launches on one device must not overlap on two streams. One launch
+  per call, one count in ``LAUNCHES``.
 
 The output takes the pool dtype for dense pools and q's dtype for int8
 pools, as JAX's ``out_dtype`` does (``paged.py:488``).
@@ -42,6 +61,11 @@ differs) and to ``TOLERANCE[torch.bfloat16]`` absolute for a bf16 one; a
 bf16 kernel output is also held, row by row, to
 ``BF16_ROW_REL_TOLERANCE`` of the plain version computed with q and the
 dense pools in f32.
+
+The plain version gathers every table entry below the early stop, the
+NULL block included (as v1 does); the kernel skips NULL entries (as v2
+does). The two agree wherever a lane's table has no NULL entry inside
+its live range, which is how the cache fills it.
 
 The shared library is built at first use, from the repository's source,
 into ``paddle_tpu_torch/csrc/build/`` with ``nvcc`` for ``sm_90a`` and
@@ -74,8 +98,7 @@ TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # of hundreds (~1e-2 of a row's scale) fails where 2e-2 absolute would not
 BF16_ROW_REL_TOLERANCE = 5e-3
 
-HEAD_DIMS = (32, 64)
-MAX_SMEM_BYTES = 227 * 1024     # dynamic shared memory one block may use
+HEAD_DIMS = (32, 64, 128)
 
 # kernel launches in this process since the last reset: the wrapper adds
 # one per launch, and it is the only count of them
@@ -92,6 +115,11 @@ _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 
 _lib = None
 _lib_lock = threading.Lock()
+# per (device, shapes, dtypes): (splits, scratch floats, tickets)
+_plans = {}
+# per device: the split-K workspace, (f32 partials, int32 tickets); every
+# launch writes the partials it reads and leaves the tickets at 0
+_workspaces = {}
 
 
 # ---------------------------------------------------------------------------
@@ -200,13 +228,15 @@ def build():
         if _lib is not None:
             return _lib
         lib = build_library("paged_attention.cu")
-        # q, k/v pools, k/v scales, table, positions, out; B, H, H_kv, C,
-        # D, bs, M, q dtype, pool dtype; stream
+        # q, k/v pools, k/v scales, table, positions, out, scratch,
+        # tickets; B, H, H_kv, C, D, bs, M, q dtype, pool dtype; stream
         lib.paged_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.paged_attention_fwd.restype = ctypes.c_int
-        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
-        lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+        # B, H, H_kv, C, D, bs, M, q dtype, pool dtype; plan out (4 x i64)
+        lib.paged_attention_plan.argtypes = (
+            [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)])
+        lib.paged_attention_plan.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -267,33 +297,69 @@ def _check(q, k_pool, v_pool, block_table, q_positions, k_scale, v_scale):
                          "devices")
 
 
+def _plan(lib, key):
+    """(splits, scratch floats, tickets) at these shapes on the current
+    device, from the library's plan (shapes only; kept per key)."""
+    plan = _plans.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 4)()
+        if lib.paged_attention_plan(*key[1:], out) != 0:
+            _, h, hp, c, d, bs, _, _, _ = key[1:]
+            raise ValueError(f"H/H_kv={h // hp}, C={c}, D={d}, bs={bs}: a "
+                             f"block's shared memory exceeds the card's "
+                             f"227 KB")
+        plan = _plans[key] = (out[0], out[1], out[2])
+    return plan
+
+
+def _workspace(device, n_scratch, n_tickets):
+    """At least n_scratch f32 partials and n_tickets int32 tickets (all
+    0) on `device`: kept per device (static addresses, no allocation per
+    call), grown, never shrunk. Launches on one stream run in order, so
+    they may share it."""
+    ws = _workspaces.get(device)
+    if ws is None or ws[0].numel() < n_scratch or ws[1].numel() < n_tickets:
+        ws = _workspaces[device] = (
+            torch.empty(max(n_scratch, 1 << 16), dtype=torch.float32,
+                        device=device),
+            torch.zeros(max(n_tickets, 1024), dtype=torch.int32,
+                        device=device))
+    return ws
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_table, q_positions,
                          k_scale=None, v_scale=None):
     """Launch the kernel on the current stream; (B, H, C, D) out in the
-    pool dtype for dense pools, in q's for int8 pools. int8 pools need
-    their f32 k/v_scale pools, dense pools refuse them. Raises on operands
-    it does not take and on a refused launch; never falls back."""
+    pool dtype for dense pools, in q's for int8 pools. Head dims 32, 64
+    and 128 (``HEAD_DIMS``); the (q, pool) dtype pairs of ``_PAIRS``.
+    int8 pools need their f32 k/v_scale pools, dense pools refuse them.
+    One launch per call, split-K partials merged inside it; the split
+    count depends on the shapes alone, so nothing is read back from the
+    card. Raises on operands it does not take and on a refused launch;
+    never falls back."""
     global LAUNCHES
     _check(q, k_pool, v_pool, block_table, q_positions, k_scale, v_scale)
     lib = build()
     b, h, c, d = q.shape
     _, hp, bs, _ = k_pool.shape
     m = block_table.shape[1]
-    if lib.paged_attention_smem_bytes(h, hp, c, d, bs) == 0:
-        raise ValueError(f"H/H_kv={h // hp}, C={c}, D={d}, bs={bs}: one "
-                         f"warp's state exceeds the card's "
-                         f"{MAX_SMEM_BYTES} bytes of shared memory")
-    out = torch.empty(q.shape, dtype=(q.dtype if k_pool.dtype == torch.int8
-                                      else k_pool.dtype), device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None
-              else (None, None))
-    with torch.cuda.device(q.device):
+    qd, pd = _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype]
+    dev = q.device
+    with torch.cuda.device(dev):
+        splits, n_scratch, n_tickets = _plan(
+            lib, (dev.index, b, h, hp, c, d, bs, m, qd, pd))
+        out = torch.empty(q.shape, dtype=(q.dtype if pd == 2
+                                          else k_pool.dtype), device=dev)
+        ws = (tuple(t.data_ptr() for t in _workspace(dev, n_scratch,
+                                                     n_tickets))
+              if splits > 1 else (None, None))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scales = ((k_scale.data_ptr(), v_scale.data_ptr())
+                  if k_scale is not None else (None, None))
         rc = lib.paged_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
             block_table.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-            b, h, hp, c, d, bs, m, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pool.dtype], stream)
+            *ws, b, h, hp, c, d, bs, m, qd, pd, stream)
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -84,13 +84,23 @@ def _max_err(port, ref):
     return float(np.max(np.abs(port.float().numpy() - ref)))
 
 
-CASES = [(dt, hp, c) for dt in ("f32", "bf16") for hp in (4, 2)
-         for c in (1, 4)]
+# (dtype, pool heads, columns, head dim): head dim 8 at every other axis,
+# and head dim 128 (the card's largest, GPTConfig(hidden_size=1024,
+# num_heads=8)'s) for MHA prefill and GQA decode
+CASES = ([(dt, hp, c, 8) for dt in ("f32", "bf16") for hp in (4, 2)
+          for c in (1, 4)]
+         + [(dt, hp, c, 128) for dt in ("f32", "bf16")
+            for hp, c in ((4, 4), (2, 1))])
 
 
-@pytest.mark.parametrize("dt,hp,c", CASES)
-def test_plain_matches_jax_reference(dt, hp, c):
-    case = make_case(hp=hp, c=c, seed=3)
+def _case_id(case):
+    dt, hp, c, d = case
+    return f"{dt}-{hp}-{c}" + ("" if d == 8 else f"-d{d}")
+
+
+@pytest.mark.parametrize("dt,hp,c,d", CASES, ids=map(_case_id, CASES))
+def test_plain_matches_jax_reference(dt, hp, c, d):
+    case = make_case(hp=hp, c=c, d=d, seed=3)
     ref = _np(jkvc.paged_attention_reference(*_jax_args(case, dt)))
     out = tkvc.paged_attention(*_torch_args(case, dt))
     assert out.dtype == TDT[dt] and out.shape == case[0].shape
@@ -98,18 +108,129 @@ def test_plain_matches_jax_reference(dt, hp, c):
     assert float(out[0].abs().max()) == 0.0       # the idle lane
 
 
-@pytest.mark.parametrize("dt,hp,c", CASES)
-def test_plain_matches_pallas_kernels_interpret(dt, hp, c):
+@pytest.mark.parametrize("dt,hp,c,d", CASES, ids=map(_case_id, CASES))
+def test_plain_matches_pallas_kernels_interpret(dt, hp, c, d):
     """The Pallas kernels v1/v2 run in interpret mode on a NaN-poisoned
     NULL block; the plain version reads a clean copy of the same pools."""
-    clean = make_case(hp=hp, c=c, seed=5)
-    poisoned = make_case(hp=hp, c=c, seed=5, poison=True)
+    clean = make_case(hp=hp, c=c, d=d, seed=5)
+    poisoned = make_case(hp=hp, c=c, d=d, seed=5, poison=True)
     out = tkvc.paged_attention(*_torch_args(clean, dt))
     for fn in (jpaged.ragged_paged_attention,
                jpaged.ragged_paged_attention_v2):
         ref = _np(fn(*_jax_args(poisoned, dt), interpret=True))
         assert np.isfinite(ref).all()
         assert _max_err(out, ref) <= TOL[dt], fn.__name__
+
+
+@pytest.mark.parametrize("d", tpaged.HEAD_DIMS)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_kernel_checks_take_head_dims_off_the_card(dt, d):
+    """paged_attention_cuda's checks take every head dim of HEAD_DIMS (the
+    dense and the int8 pools): on CPU tensors they fail only at the last
+    check, that every operand lie on the card."""
+    case = make_case(hp=2, c=4, d=d, seed=6)
+    with pytest.raises(ValueError, match="every operand must be a CUDA"):
+        tpaged.paged_attention_cuda(*_torch_args(case, dt))
+    q, k, v, t, p = _torch_args(case, dt)
+    kq, ks = tkvc.quantize_kv_rows(k.float())
+    vq, vs = tkvc.quantize_kv_rows(v.float())
+    with pytest.raises(ValueError, match="every operand must be a CUDA"):
+        tpaged.paged_attention_cuda(q, kq, vq, t, p, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("d", [16, 48, 256])
+def test_kernel_checks_refuse_other_head_dims(d):
+    case = make_case(hp=2, c=4, d=d, seed=6)
+    with pytest.raises(ValueError, match=r"head_dim .* the kernel takes "
+                                         r"\(32, 64, 128\)"):
+        tpaged.paged_attention_cuda(*_torch_args(case, "f32"))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split-K walk and merge, modelled in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def split_merge_model(q, k_pool, v_pool, table, pos, splits, k_scale=None,
+                      v_scale=None, seen=None):
+    """The kernel's algorithm in f32, block by block: each of `splits`
+    splits walks a contiguous range of ceil(M / splits) table entries up
+    to the lane's early stop max(pos) // bs + 1, skips NULL entries (never
+    reading them), and folds each block into an online softmax (m, l,
+    acc); int8 scales factor out (k_scale on the scores, v_scale on the
+    probabilities). The partials merge with weights exp(m_s - M) over the
+    splits with l_s > 0; an idle lane gives exactly 0. `seen` collects
+    the (lane, split) pairs and the table entries read."""
+    b, h, c, d = q.shape
+    _, hp, bs, _ = k_pool.shape
+    m = table.shape[1]
+    g = h // hp
+    per = -(-m // splits)
+    q = q.float()
+    out = torch.zeros(b, h, c, d)
+    for lane in range(b):
+        n_live = min(int(pos[lane].max()) // bs + 1, m)
+        parts = []
+        for sp in range(splits):
+            mm = torch.full((h, c), tpaged.NEG_INF)
+            l = torch.zeros(h, c)
+            acc = torch.zeros(h, c, d)
+            for j in range(sp * per, min(sp * per + per, m, n_live)):
+                blk = int(table[lane, j])
+                if blk == tpaged.NULL_BLOCK:
+                    continue
+                if seen is not None:
+                    seen["blocks"].add(blk)
+                kt = k_pool[blk].float().repeat_interleave(g, 0)
+                vt = v_pool[blk].float().repeat_interleave(g, 0)
+                s = torch.einsum("hcd,htd->hct", q[lane], kt)
+                if k_scale is not None:
+                    s = s * k_scale[blk].repeat_interleave(g, 0)[:, None, :]
+                s = s / d ** 0.5
+                key_pos = j * bs + torch.arange(bs)
+                mask = key_pos[None, None, :] <= pos[lane][None, :, None]
+                s = torch.where(mask, s, torch.tensor(tpaged.NEG_INF))
+                m_new = torch.maximum(mm, s.amax(-1))
+                corr = torch.exp(mm - m_new)
+                p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+                l = l * corr + p.sum(-1)
+                if v_scale is not None:
+                    p = p * v_scale[blk].repeat_interleave(g, 0)[:, None, :]
+                acc = acc * corr[..., None] + torch.einsum("hct,htd->hcd",
+                                                           p, vt)
+                mm = m_new
+            if seen is not None and not bool((l > 0).any()):
+                seen["empty"].add((lane, sp))
+            parts.append((mm, l, acc))
+        ms = torch.stack([p[0] for p in parts])
+        ls = torch.stack([p[1] for p in parts])
+        top = torch.where(ls > 0, ms,
+                          torch.tensor(tpaged.NEG_INF)).amax(0)
+        w = torch.where(ls > 0, torch.exp(ms - top), 0.0)
+        total = (ls * w).sum(0)
+        accs = torch.stack([p[2] for p in parts])
+        merged = (w[..., None] * accs).sum(0)
+        out[lane] = merged / torch.where(total > 0, total, 1.0)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("hp", [4, 2])
+def test_split_merge_model_matches_reference(splits, hp):
+    """Split counts 1-8 over a 12-entry table, the NULL block NaN-poisoned
+    (no split reads it), lane 0 idle (exactly 0), and at least one split
+    that sees no live block; f32 within 1e-5 of the plain version on the
+    clean pools."""
+    clean = make_case(b=4, hp=hp, c=4, m=12, seed=11)
+    poisoned = make_case(b=4, hp=hp, c=4, m=12, seed=11, poison=True)
+    seen = {"blocks": set(), "empty": set()}
+    out = split_merge_model(*_torch_args(poisoned, "f32"), splits=splits,
+                            seen=seen)
+    ref = tkvc.paged_attention_reference(*_torch_args(clean, "f32"))
+    assert tpaged.NULL_BLOCK not in seen["blocks"]
+    assert any(lane > 0 for lane, _ in seen["empty"]) or splits == 1
+    assert torch.isfinite(out).all()
+    assert float(out[0].abs().max()) == 0.0
+    assert float((out - ref).abs().max()) <= TOL["f32"]
 
 
 def test_gather_block_kv_matches_jax():

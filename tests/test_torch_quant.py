@@ -285,14 +285,25 @@ def _max_err(port, ref):
                                - np.asarray(jnp.asarray(ref, jnp.float32)))))
 
 
-INT8_CASES = [(dt, hp, c) for dt in ("f32", "bf16") for hp in (4, 2)
-              for c in (1, 4)]
+# (dtype, pool heads, columns, head dim): head dim 16 at every other axis,
+# and head dim 128 (GPTConfig(hidden_size=1024, num_heads=8)'s) for MHA
+# prefill and GQA decode
+INT8_CASES = ([(dt, hp, c, 16) for dt in ("f32", "bf16") for hp in (4, 2)
+               for c in (1, 4)]
+              + [(dt, hp, c, 128) for dt in ("f32", "bf16")
+                 for hp, c in ((4, 4), (2, 1))])
 
 
-@pytest.mark.parametrize("dt,hp,c", INT8_CASES)
-def test_int8_plain_matches_jax_reference_and_kernels(dt, hp, c):
-    clean = make_int8_case(hp=hp, c=c, seed=7)
-    poisoned = make_int8_case(hp=hp, c=c, seed=7, poison=True)
+def _int8_case_id(case):
+    dt, hp, c, d = case
+    return f"{dt}-{hp}-{c}" + ("" if d == 16 else f"-d{d}")
+
+
+@pytest.mark.parametrize("dt,hp,c,d", INT8_CASES,
+                         ids=map(_int8_case_id, INT8_CASES))
+def test_int8_plain_matches_jax_reference_and_kernels(dt, hp, c, d):
+    clean = make_int8_case(hp=hp, c=c, d=d, seed=7)
+    poisoned = make_int8_case(hp=hp, c=c, d=d, seed=7, poison=True)
     args, scales = _torch_int8(clean, dt)
     out = tkvc.paged_attention(*args, **scales)
     assert out.dtype == TDT[dt] and out.shape == clean[0].shape
@@ -306,6 +317,48 @@ def test_int8_plain_matches_jax_reference_and_kernels(dt, hp, c):
         kern = fn(*pargs, **pscales, interpret=True)
         assert np.isfinite(np.asarray(jnp.asarray(kern, jnp.float32))).all()
         assert _max_err(out, kern) <= TOL[dt], fn.__name__
+
+
+@pytest.mark.parametrize("hp", [4, 2])
+@pytest.mark.parametrize("d", [16, 128])
+def test_int8_scale_factoring_matches_reference(hp, d):
+    """The kernel's int8 arithmetic: codes stay codes in both products,
+    the key scale multiplies the scores (s = k_scale * (q . code)) and the
+    value scale rides on the probabilities (sum_t p_t v_scale_t code_t),
+    in f32; within 1e-5 of the plain version, which dequantizes first.
+    The NULL block (codes 127, NaN scales) is never read."""
+    clean = make_int8_case(hp=hp, c=4, d=d, seed=12)
+    poisoned = make_int8_case(hp=hp, c=4, d=d, seed=12, poison=True)
+    q, kq, vq, t, p, ks, vs = (torch.from_numpy(x) for x in poisoned)
+    b, h, c, _ = q.shape
+    bs, m = kq.shape[2], t.shape[1]
+    g = h // hp
+    out = torch.zeros(b, h, c, d)
+    for lane in range(b):
+        live = [int(x) for x in t[lane] if int(x) != tkvc.NULL_BLOCK]
+        if not live:
+            continue            # the idle lane: exactly 0
+        n = len(live)
+        codes_k = kq[live].float().repeat_interleave(g, 1)  # (n, h, bs, d)
+        codes_v = vq[live].float().repeat_interleave(g, 1)
+        sk = ks[live].repeat_interleave(g, 1)               # (n, h, bs)
+        sv = vs[live].repeat_interleave(g, 1)
+        s = torch.einsum("hcd,nhtd->hcnt", q[lane], codes_k)
+        s = s * sk.permute(1, 0, 2)[:, None] / d ** 0.5
+        key_pos = (torch.arange(m)[t[lane] != tkvc.NULL_BLOCK][:, None] * bs
+                   + torch.arange(bs)).reshape(n * bs)
+        s = s.reshape(h, c, n * bs)
+        mask = key_pos[None, None, :] <= p[lane][None, :, None]
+        s = torch.where(mask, s, torch.tensor(tkvc.NEG_INF))
+        pr = torch.softmax(s, -1).reshape(h, c, n, bs)
+        pr = pr * sv.permute(1, 0, 2)[:, None]
+        out[lane] = torch.einsum("hcnt,nhtd->hcd", pr, codes_v)
+    cq, ckq, cvq, ct, cp, cks, cvs = (torch.from_numpy(x) for x in clean)
+    ref = tkvc.paged_attention_reference(cq, ckq, cvq, ct, cp,
+                                         k_scale=cks, v_scale=cvs)
+    assert torch.isfinite(out).all()
+    assert float(out[0].abs().max()) == 0.0
+    assert float((out - ref).abs().max()) <= TOL["f32"]
 
 
 def test_gather_block_scales_matches_jax():
