@@ -4,7 +4,8 @@
 
 Phases, each of which must pass (the three kernel sources, paged
 attention, the flash-attention forward and its backward, are built from
-paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
+paddle_tpu_torch/csrc/ first, one nvcc each, side by side; ptxas's
+registers, shared memory and spills of the backward kernels are printed):
 
 1. kernel vs plain: the hand-written paged-attention kernel against its
    plain PyTorch version on the card, dense pools (q in the pool dtype, and
@@ -80,12 +81,16 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
    the tensor-core kernel) and at the training shape (f32, the SIMT
    kernel that phase 9 launches), cold L2, beside the bound;
 1g. flash backward kernels vs plain: dq, dk and dv of the dQ and dK/dV
-   kernels against their plain version on phase 1f's feature cases, f32
-   and bf16, D 32/64/128, with and without an lse cotangent, dbias through
-   the torch op where the case has a bias, rows with no visible key
-   exactly 0; then the training shape (B 8, H 12, T 512, D 64, causal,
-   f32 and bf16, q/k/v/do as transposed views) and T 16384 (B 1, H 12,
-   f32; the plain version head by head);
+   kernels against their plain version on phase 1f's feature cases and
+   the backward's own (Tq and Tk one past and one under its tiles, a
+   per-query bias under causal over several tiles, views that break its
+   copies' 16-byte rule), f32 and bf16, D 32/64/128, with and without an
+   lse cotangent, dbias through the torch op where the case has a bias,
+   bf16 also row by row against the plain version in float64, rows with
+   no visible key exactly 0; then the training shape (B 8, H 12,
+   T 512, D 64, causal, f32 and bf16, q/k/v/do as transposed views; the
+   pair run twice must give bitwise-equal dq, dk, dv) and T 16384 (B 1,
+   H 12, f32; the plain version head by head);
 9. full-width training through the Fluid entry points:
    ``gpt.build_lm_net(GPTConfig(max_position=1024, dropout=0.0),
    seq_len=512)`` + ``AdamOptimizer(1e-4).minimize(loss)``, the startup on
@@ -101,8 +106,15 @@ paddle_tpu_torch/csrc/ first, one nvcc each, side by side):
    flash kernels' share;
 10. flash backward times: kernels, plain and the backward of
    scaled_dot_product_attention(is_causal=True) on the same views (the
-   yardstick, never on the path) at the training shape and at T 16384,
-   cold L2, beside the bound.
+   yardstick, never on the path) at the training shape (f32 and bf16) and
+   at T 16384 (f32), cold L2, beside the bound.
+
+    python3 chip_smoke.py --bwd-times-of <checkout>
+
+runs phase 10 alone on the backward kernels of the package in another
+checkout (such as the parent commit unpacked by ``git archive`` into a
+directory that .gitignore lists), so that two versions are timed in one
+call, on one card.
 
 Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
@@ -123,7 +135,12 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the least time for a dtype's operations: bf16 at the tensor cores'
+# dense rate; f32 at the dense TF32 rate over three passes, since an
+# f32-accurate product runs on the tensor cores as three TF32 products
+# (big.big' + big.small' + small.big', as the flash backward does), which
+# beats the 67 TFLOP/s of the CUDA cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 SEED = 0
 CHUNK = 16
 N_REQUESTS = 32
@@ -802,6 +819,14 @@ def flash_case(name, dtype, d, gen):
         b, h, tq, tk = 1, 2, 130, 1037
     if name == "key_tile_plus_one":       # Tk one past a 128-key tile
         tq, tk, causal = 100, 129, True
+    if name == "tile_plus_one":           # one past a 64-row tile
+        tq, tk, causal = 65, 65, True
+    if name == "tile_minus_one":          # one under
+        tq, tk, causal = 63, 63, True
+    if name == "tiles_cross":             # one past three 32-row streamed
+        tq, tk, causal = 97, 159, True    # tiles, one under 2.5 64-key ones
+    if name == "bias_causal_long":        # a per-query bias under causal
+        tq, tk, causal = 200, 200, True   # over several tiles
     q = _rand((b, h, tq, d), gen, dtype)
     k = _rand((b, h, tk, d), gen, dtype)
     v = _rand((b, h, tk, d), gen, dtype)
@@ -810,7 +835,7 @@ def flash_case(name, dtype, d, gen):
         bias = torch.zeros(b, 1, 1, tk, device="cuda")
         bias[0, ..., tk // 2:] = -1e9
         bias = bias.expand(b, h, tq, tk)
-    if name in ("bias_query", "bias_causal"):
+    if name in ("bias_query", "bias_causal", "bias_causal_long"):
         bias = _rand((b, 1, tq, tk), gen).expand(b, h, tq, tk)
     if name == "bias_full":
         bias = _rand((b, h, tq, tk), gen) * 2
@@ -859,6 +884,11 @@ FLASH_FEATURES = ("plain", "causal", "cross_len", "ragged", "ragged_causal",
 # phase 1f only: the tensor-core kernel's tile edges and its TMA copy
 FLASH_FWD_EXTRA = ("long_ragged", "key_tile_plus_one", "misaligned",
                    "bias_strided")
+# phase 1g only: the backward's tile edges (64 own rows, 64 streamed, 32
+# at D 128), a per-query bias under causal over several tiles, and views
+# that break its copies' 16-byte rule (copied by the wrapper)
+FLASH_BWD_EXTRA = ("tile_plus_one", "tile_minus_one", "tiles_cross",
+                   "bias_causal_long", "misaligned")
 
 
 def prefill_views(dtype, gen, shape=PREFILL_SHAPE):
@@ -1225,7 +1255,7 @@ def _flash_bwd_plain_by_head(flash, q, k, v, out, lse, do, dlse, causal):
 def check_one_flash_bwd(flash, name, case, gen, with_dlse, by_head=False):
     """dq, dk, dv of the backward kernels against the plain version on the
     same operands (element error |x - ref| / max(1, |ref|) within
-    BWD_TOLERANCE; bf16 also row by row against the plain version in f32);
+    BWD_TOLERANCE; bf16 also row by row against the plain version in f64);
     dbias through the torch op with each side's delta; rows with no
     visible key exactly 0. Returns the max-abs error over dq, dk, dv."""
     q, k, v, bias, segq, segk, causal = case
@@ -1253,16 +1283,21 @@ def check_one_flash_bwd(flash, name, case, gen, with_dlse, by_head=False):
     line.append(f"err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
                 f"(tolerance {tol}), max_abs_err {max(abs_errs):.3e}")
     if q.dtype == torch.bfloat16:
-        f32 = [t.float() for t in (q, k, v, out, do)]
+        # the row oracle in f64: where a row's exact gradient is 0 (a query
+        # whose only visible key is the one its output copied) the plain
+        # version in f32 holds the rounding difference of two summation
+        # orders (dO.v by matmul, delta by sum), which no other summation
+        # reproduces; in f64 both sums are exact and the row is 0
+        f64 = [t.double() for t in (q, k, v, out, do)]
         if by_head:
-            ref32 = _flash_bwd_plain_by_head(flash, *f32[:3], f32[3], lse,
-                                             f32[4], dlse, causal)
+            ref64 = _flash_bwd_plain_by_head(flash, *f64[:3], f64[3], lse,
+                                             f64[4], dlse, causal)
         else:
-            ref32 = flash.flash_attention_bwd_reference(
-                *f32[:3], bias, segq, segk, f32[3], lse, f32[4], dlse, None,
+            ref64 = flash.flash_attention_bwd_reference(
+                *f64[:3], bias, segq, segk, f64[3], lse, f64[4], dlse, None,
                 causal)
-        rels = [_row_rel_err(x, r) for x, r in zip(got[:3], ref32[:3])]
-        line.append(f"vs f32 plain: row max_rel_err {max(rels):.3e} "
+        rels = [_row_rel_err(x, r) for x, r in zip(got[:3], ref64[:3])]
+        line.append(f"vs f64 plain: row max_rel_err {max(rels):.3e} "
                     f"(tolerance {flash.BF16_ROW_REL_TOLERANCE})")
     if bias is not None:
         dbs = [flash.flash_dbias(q, k, v, bias, lse, do, delta, None,
@@ -1282,21 +1317,37 @@ def check_one_flash_bwd(flash, name, case, gen, with_dlse, by_head=False):
         _fail(f"flash backward kernels disagree with their plain version at "
               f"{name}: {errs}")
     if rels and not max(rels) <= flash.BF16_ROW_REL_TOLERANCE:
-        _fail(f"bf16 flash backward disagrees with the f32 plain version at "
+        _fail(f"bf16 flash backward disagrees with the f64 plain version at "
               f"{name}: row error {max(rels)}")
     return max(abs_errs)
 
 
+def check_bwd_deterministic(flash, tag, qkv, gen):
+    """The kernel pair run twice on the same operands gives bitwise-equal
+    dq, dk and dv (each output tile is written by one block, no atomics)."""
+    q, k, v = qkv
+    out, lse, do, _ = _bwd_operands(flash, (q, k, v, None, None, None, True),
+                                    gen, False)
+    runs = [flash.flash_attention_bwd_cuda(q, k, v, None, None, None, out,
+                                           lse, do, None, None, True)[:3]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        _fail(f"flash bwd train_{tag}: two runs of the kernels differ")
+    print(f"flash bwd train_{tag}: two runs bitwise equal (dq, dk, dv)")
+
+
 def check_flash_bwd(flash):
-    """Every feature case, f32 and bf16, D 32/64/128, with an lse
-    cotangent on every other case, then the training shape (f32, bf16)
+    """Every feature case and the backward's own edge cases, f32 and
+    bf16, D 32/64/128, with an lse cotangent on every other case, then the
+    training shape (f32, bf16; each also run twice for bitwise equality)
     and T 16384 (f32). Returns {case: max_abs_err}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     errs = {}
     i = 0
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for d in flash.HEAD_DIMS:
-            for name in FLASH_FEATURES:
+            for name in FLASH_FEATURES + FLASH_BWD_EXTRA:
                 with_dlse = i % 2 == 1
                 i += 1
                 key = f"{name}_d{d}_{tag}" + ("_dlse" if with_dlse else "")
@@ -1308,6 +1359,7 @@ def check_flash_bwd(flash):
         errs[f"train_{tag}"] = check_one_flash_bwd(
             flash, f"train_{tag}", (q, k, v, None, None, None, True), gen,
             False)
+        check_bwd_deterministic(flash, tag, (q, k, v), gen)
     q, k, v = (_rand(LONG_SHAPE, gen) for _ in range(3))
     errs["long_f32"] = check_one_flash_bwd(
         flash, "long_f32", (q, k, v, None, None, None, True), gen, True,
@@ -1460,7 +1512,7 @@ def phase_profile_train(flash):
     """Where a full-width training step's time goes: torch.profiler over 3
     warm steps. Prints the host wall and device time per step, the busy
     share, device operations per step, the flash forward's and backward's
-    device time and the top kernels."""
+    device time (the backward's also by kernel) and the top kernels."""
     from torch.profiler import profile as tprofile
     import paddle_tpu_torch as fluid
     _cfg, main, startup, loss, toks = build_train()
@@ -1481,12 +1533,15 @@ def phase_profile_train(flash):
     dev = {e.key: e.self_device_time_total / steps / 1e3 for e in kernels}
     busy = sum(dev.values())
     fwd = sum(v for k, v in dev.items() if "flash_fwd" in k)
-    bwd = sum(v for k, v in dev.items() if "flash_bwd" in k)
+    dq = sum(v for k, v in dev.items() if "flash_bwd_dq" in k)
+    dkv = sum(v for k, v in dev.items() if "flash_bwd_dkv" in k)
+    bwd = dq + dkv
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
     out = {"steps": steps, "wall_ms_per_step": wall,
            "device_ms_per_step": busy, "device_busy_share": busy / wall,
            "device_ops_per_step": sum(e.count for e in kernels) / steps,
            "flash_fwd_ms_per_step": fwd, "flash_bwd_ms_per_step": bwd,
+           "flash_bwd_dq_dkv_ms_per_step": [dq, dkv],
            "flash_bwd_share_of_device": bwd / busy if busy else None,
            "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]}
     if busy <= 0 or bwd <= 0:
@@ -1517,19 +1572,23 @@ def flash_bwd_bound_ms(q, k, causal):
                                  else "operations")
 
 
+BWD_TIME_POINTS = (("train", torch.float32, 20), ("long", torch.float32, 3),
+                   ("train_bf16", torch.bfloat16, 20))
+
+
 def phase_flash_bwd_times(flash):
-    """Kernels (dQ + dK/dV, with the delta reduction), plain (head by
+    """Kernels (dQ, which also computes delta, + dK/dV), plain (head by
     head at the long shape) and the backward of SDPA(is_causal=True) on
-    the same views, f32, causal, at the training shape and T 16384,
-    beside the bound."""
+    the same views, causal, at the training shape (f32 and bf16) and at
+    T 16384 (f32), beside the bound (bf16's at the bf16 peak)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     rows = {}
-    for name, reps in (("train", 20), ("long", 3)):
-        if name == "train":
-            q, k, v = prefill_views(torch.float32, gen, TRAIN_SHAPE)
-        else:
+    for name, dtype, reps in BWD_TIME_POINTS:
+        if name == "long":
             q, k, v = (_rand(LONG_SHAPE, gen) for _ in range(3))
+        else:
+            q, k, v = prefill_views(dtype, gen, TRAIN_SHAPE)
         case = (q, k, v, None, None, None, True)
         out, lse, do, _ = _bwd_operands(flash, case, gen, False)
 
@@ -1553,7 +1612,9 @@ def phase_flash_bwd_times(flash):
 
         b_ms, b_by = flash_bwd_bound_ms(q, k, True)
         rows[name] = {
-            "shape": list(q.shape), "dtype": "f32", "causal": True,
+            "shape": list(q.shape),
+            "dtype": "f32" if dtype == torch.float32 else "bf16",
+            "causal": True,
             "ms": _time_ms(kernel, reps=reps, warmup=2),
             "plain_ms": _time_ms(plain, reps=2, warmup=1),
             "library_ms": _time_ms(library, reps=reps, warmup=2),
@@ -1561,6 +1622,22 @@ def phase_flash_bwd_times(flash):
         del lo
         print(f"times flash bwd {name} " + json.dumps(rows[name]))
     return rows
+
+
+def bwd_times_of(root):
+    """Phase 10 alone on the backward kernels of the package under `root`
+    (a checkout of another commit, for a comparison inside one call):
+    builds its flash library and prints its rows, then the card line."""
+    import os
+    sys.path.insert(0, os.path.abspath(root))
+    from paddle_tpu_torch.ops.cuda import flash
+    if not flash.__file__.startswith(os.path.abspath(root)):
+        _fail(f"{flash.__file__} is not under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _phase("build", lambda: (flash.build(), flash.build_bwd()))
+    rows = _phase("10 flash backward times", phase_flash_bwd_times, flash)
+    print(_card_line())
+    print(json.dumps({"bwd_times_of": root, "rows": rows}))
 
 
 def _phase(name, fn, *args, **kw):
@@ -1596,15 +1673,42 @@ def build_all():
             lib.result()
 
 
+def ptxas_report(source, match):
+    """ptxas's lines (entry, registers, shared memory, spills) for the
+    kernels of csrc/<source> whose names hold `match`."""
+    from paddle_tpu_torch.ops.cuda._build import library_path
+    try:
+        with open(library_path(source)[1] + ".log") as f:
+            lines = f.read().splitlines()
+    except FileNotFoundError:
+        return ["no ptxas report beside the library (built elsewhere)"]
+    keep, on = [], False
+    for line in lines:
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            on = match in line
+        if on:
+            keep.append(line.replace("ptxas info    : ", "").strip())
+    return keep
+
+
 def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
+    if len(sys.argv) == 3 and sys.argv[1] == "--bwd-times-of":
+        bwd_times_of(sys.argv[2])
+        return
+    if len(sys.argv) > 1:
+        _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of "
+              f"<checkout>")
     from paddle_tpu_torch.models.gpt import GPTConfig, init_params
     from paddle_tpu_torch.ops.cuda import flash, paged
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     _phase("build", build_all)
+    for line in ptxas_report("flash_attention_bwd.cu", "flash_bwd"):
+        print(f"ptxas flash_attention_bwd.cu: {line}")
     cfg = GPTConfig()
     tree = init_params(cfg, seed=SEED)
     gcfg = GPTConfig(kv_heads=KV_HEADS)
@@ -1635,6 +1739,7 @@ def main():
     _phase("9b train agree", phase_train_agree, flash)
     _phase("9c profile train", phase_profile_train, flash)
     btimes = _phase("10 flash backward times", phase_flash_bwd_times, flash)
+    btimes["train_bf16"]["max_abs_err"] = berrs["train_bf16"]
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
     kernels = [
@@ -1683,7 +1788,8 @@ def main():
             blaunches, [berrs["train_f32"], berrs["long_f32"]], btimes,
             "training attention backward (dQ + dK/dV kernels, delta "
             "included): B 8 x H 12 x T 512 x D 64, causal, f32, q/k/v/do "
-            "as transposed views; launches = dQ + dK/dV over phase 9",
+            "as transposed views; launches = dQ + dK/dV over phase 9; "
+            "shapes also T 16384 (f32) and the training shape in bf16",
             main="train",
             source="paddle_tpu_torch/csrc/flash_attention_bwd.cu"),
     ]

@@ -19,9 +19,14 @@ The backward replaces ``_dq_kernel`` / ``_dkv_kernel`` (``:465`` / ``:519``,
 launcher ``_flash_bwd``) and ``_dq_kernel_kgrid`` / ``_dkv_kernel_kgrid``
 (``:579`` / ``:629``, launcher ``_flash_bwd_kgrid``) the same way: one pair
 of kernels, ``csrc/flash_attention_bwd.cu``, a dQ kernel over q tiles and a
-dK/dV kernel over key tiles, each streaming the other side through shared
-memory and recomputing the probabilities from the saved lse. ``delta``
-stays a torch reduction, as in JAX, where it is computed outside Pallas.
+dK/dV kernel over key tiles, each streaming the other side through a
+``cp.async`` ring in shared memory and recomputing the probabilities from
+the saved lse, every product on the tensor cores (``mma.sync``: f32 as
+three TF32 passes, bf16 with P and dS as bf16 hi + lo). JAX computes
+``delta`` outside Pallas; here the dQ kernel computes it, by the same
+tensor-core products as dP, so that a query whose only visible key is the
+one its output copied gets a gradient of exactly 0, as the exact function
+has, not the rounding difference of two summation orders.
 
 The function (``flash_attention_reference``), with the semantics of the
 JAX kernels:
@@ -55,12 +60,13 @@ What bounds the kernels on this card: the forward at the prefill shape
 (B 8, H 12, T 512, D 64, causal, bf16) the bytes (q, k, v read once, out
 and lse written once: 25.4 MB, 7.6 us at 3.35 TB/s) against 3.2 GFLOP of
 products (3.3 us at the bf16 peak); at long causal shapes (T 16384) the
-operations. The f32 forward at the training shape is bound by its 3.2e9
-flops at the 67 TFLOP/s f32 CUDA-core peak (0.048 ms). The backward at
-the training shape (the same, f32) moves ~101 MB (30 us) and needs 8.1e9
-flops (0.12 ms at the f32 CUDA-core peak). The f32 kernels compute their
-products with scalar f32 FMAs from shared memory; PERF.md has every
-kernel's times.
+operations. In f32 the operations bound both at the training shape (the
+same, f32): an f32-accurate product can run on the tensor cores as three
+TF32 passes (494.7 / 3 = 164.9 TFLOP/s, the rate the bounds use), so the
+forward's 3.2e9 flops take at least 0.0196 ms and the backward's 8.1e9
+(its ~101 MB take 30 us) 0.049 ms. The f32 forward still computes its
+products with scalar f32 FMAs from shared memory, the f32 backward as
+three TF32 passes on the tensor cores; PERF.md has every kernel's times.
 
 Numerics, keyed by q's dtype in ``TOLERANCE`` (forward) and
 ``BWD_TOLERANCE`` (dq, dk, dv): both sides compute in f32 from the same
@@ -103,8 +109,10 @@ TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # than the forward's out; bf16 as the forward
 BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-# bf16 kernel vs the plain version run in f32 on the same inputs, per
-# output row: max-abs error over the row's max |ref|. The backward kernels
+# bf16 kernel vs the plain version run in f32 (the backward's: in f64,
+# where rows whose exact gradient is 0 are exactly 0) on the same inputs,
+# per output row: max-abs error over the row's max |ref|. The backward
+# kernels carry P and dS into their second products as bf16 hi + lo and
 # round only their outputs to bf16
 BF16_ROW_REL_TOLERANCE = 5e-3
 
@@ -276,11 +284,11 @@ def build():
 
 def build_bwd():
     """The same for csrc/flash_attention_bwd.cu (both backward kernels)."""
-    # which; q, k, v, do, bias, segq, segk, lse, delta, dq, dk, dv;
-    # strides (16 int64); B, H, Tq, Tk, D; scale; causal, dtype; stream
+    # which; q, k, v, do, out, bias, segq, segk, lse, dlse, delta, dq, dk,
+    # dv; strides (19 int64); B, H, Tq, Tk, D; scale; causal, dtype; stream
     return _build_lib(
         "flash_attention_bwd.cu", "flash_attention_bwd",
-        [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+        [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
         + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
@@ -332,12 +340,19 @@ def _check(q, k, v, bias, segq, segk, *more):
 
 
 def tma_aligned(t):
-    """Whether a (B, H, T, D) view meets the tensor-core kernel's TMA rule:
-    a 16-byte-aligned base and batch, head and time strides that are
+    """Whether a (B, H, T, D) view meets the 16-byte rule of the kernels'
+    bulk copies (the bf16 forward's TMA, the backward's ``cp.async``): a
+    16-byte-aligned base and batch, head and time strides that are
     positive multiples of 16 bytes (the unit stride along D aside)."""
     nbytes = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         s > 0 and s * nbytes % 16 == 0 for s in t.stride()[:3])
+
+
+def _aligned(t):
+    """t, or a contiguous copy of it where it breaks ``tma_aligned``."""
+    return t if tma_aligned(t) else t.clone(
+        memory_format=torch.contiguous_format)
 
 
 def _ptr(t):
@@ -368,9 +383,7 @@ def flash_attention_cuda(q, k, v, bias=None, segq=None, segk=None,
     bias = _check(q, k, v, bias, segq, segk)
     tc = q.dtype == torch.bfloat16
     if tc:
-        q, k, v = (t if tma_aligned(t)
-                   else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v))
+        q, k, v = (_aligned(t) for t in (q, k, v))
         if bias is not None and bias.stride(3) != 1:
             bias = bias.contiguous()    # the kernel reads bias rows whole
     lib = build()
@@ -399,10 +412,16 @@ def flash_attention_cuda(q, k, v, bias=None, segq=None, segk=None,
 def flash_attention_bwd_cuda(q, k, v, bias, segq, segk, out, lse, do,
                              dlse=None, scale=None, causal=False):
     """Launch the dQ kernel, then the dK/dV kernel, on the current
-    stream; the contract of flash_attention_bwd_reference. q/k/v/do may be
-    strided views with a unit stride along D; dq, dk, dv come back
-    contiguous in q's dtype, delta (B, H, Tq) f32. Raises on operands the
-    kernels do not take and on a refused launch; never falls back."""
+    stream; the contract of flash_attention_bwd_reference. q/k/v/do/out
+    may be strided views with a unit stride along D; one that breaks the
+    16-byte rule of the kernels' copies (``tma_aligned``) is first copied
+    into a contiguous tensor (the training step's views meet it and are
+    never copied). dq, dk, dv come back contiguous in q's dtype, delta
+    (B, H, Tq) f32. delta = sum(do * out, -1) - dlse is computed by the dQ
+    kernel, with the tensor-core products that give dP (so that a row whose
+    only visible key is the one its output copied gets dS = 0 exactly), and
+    read by the dK/dV kernel. Raises on operands the kernels do not take
+    and on a refused launch; never falls back."""
     global DQ_LAUNCHES, DKV_LAUNCHES
     b, h, tq, d = q.shape
     tk = k.shape[2]
@@ -410,31 +429,35 @@ def flash_attention_bwd_cuda(q, k, v, bias, segq, segk, out, lse, do,
                            ("lse", lse, (b, h, tq))):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} {tuple(t.shape)}: want {tuple(shape)}")
-    if do.dtype != q.dtype or do.stride(-1) != 1:
-        raise ValueError(f"do {do.dtype} with stride {do.stride(-1)} along "
-                         f"D: want q's dtype and a unit stride")
+    for name, t in (("do", do), ("out", out)):
+        if t.dtype != q.dtype or t.stride(-1) != 1:
+            raise ValueError(f"{name} {t.dtype} with stride {t.stride(-1)} "
+                             f"along D: want q's dtype and a unit stride")
     if lse.dtype != torch.float32 or (
             dlse is not None and tuple(dlse.shape) != (b, h, tq)):
         raise ValueError("lse must be f32 and dlse (B, H, Tq)")
     more = [out, do, lse] + ([dlse] if dlse is not None else [])
     bias = _check(q, k, v, bias, segq, segk, *more)
     lib = build_bwd()
-    delta = _delta(out, do, dlse).contiguous()
+    q, k, v, do, out = (_aligned(t) for t in (q, k, v, do, out))
     lse = lse.contiguous()
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, h, tk, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, h, tk, d), dtype=q.dtype, device=q.device)
-    strides = _strides((q, k, v, do), bias)
+    strides = _strides((q, k, v, do, out), bias)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     for which, name in ((0, "dq"), (1, "dkv")):
         with torch.cuda.device(q.device):
             rc = lib.flash_attention_bwd(
                 which, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(), _ptr(bias), _ptr(segq), _ptr(segk),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), strides, b, h, tq, tk, d,
-                _scale(q, scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
-                stream)
+                do.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(segq),
+                _ptr(segk), lse.data_ptr(), _ptr(dlse), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, b, h,
+                tq, tk, d, _scale(q, scale), int(bool(causal)),
+                _DTYPE_CODE[q.dtype], stream)
         if rc != 0:
             raise RuntimeError(f"flash attention backward kernel ({name}) "
                                f"launch failed: CUDA error {rc}")

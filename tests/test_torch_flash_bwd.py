@@ -246,3 +246,176 @@ def test_function_backward_equals_plain_backward():
     for got, ref in zip((q.grad, k.grad, v.grad), want[:3]):
         assert torch.equal(got, ref)
     assert bias.grad is None
+
+
+# ---------------------------------------------------------------------------
+# the numerical design of the backward kernels, emulated on the CPU
+# ---------------------------------------------------------------------------
+#
+# On the card the f32 kernels compute every product on the tensor cores as
+# three TF32 passes, big.big' + big.small' + small.big', with big the
+# operand rounded to TF32 (round to nearest, ties away: cvt.rna.tf32.f32)
+# and small the remainder rounded the same way; the bf16 kernels carry P
+# and dS into their second products as bf16 hi + lo. These tests push the
+# plain backward's products through the same roundings (each partial of
+# two TF32 values is exact in f32, so an f32 matmul on the CPU computes it
+# as the tensor cores do, up to summation order) and hold the results to
+# the unchanged tolerances. Nothing on the path uses this emulation.
+
+
+def tf32_round(x):
+    """x (f32) rounded to TF32's 10-bit mantissa, to nearest with ties away
+    from zero, by integer operations on its bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm3(a, b, passes=3):
+    """a @ b as the kernels' tensor-core products: three TF32 passes (or
+    one, big.big', for comparison)."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return torch.matmul(ab, bb)
+    a_s, b_s = tf32_round(a - ab), tf32_round(b - bb)
+    return (torch.matmul(a_s, bb) + torch.matmul(ab, b_s)) \
+        + torch.matmul(ab, bb)
+
+
+def _emulated_bwd(q, k, v, bias, out, lse, do, causal, passes=3):
+    """The plain backward with its five products as the f32 kernels compute
+    them (S and dP as the dQ and dK/dV kernels both do)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = cflash._delta(out, do, None)
+    s = mm3(q, k.transpose(-1, -2), passes) * scale
+    if bias is not None:
+        s = s + bias
+    vis = cflash._visible_mask(q.shape[2], k.shape[2], causal)
+    s = torch.where(vis, s, torch.tensor(cflash.NEG_INF))
+    p = cflash._probs(s, vis, lse)
+    ds = p * (mm3(do, v.transpose(-1, -2), passes) - delta[..., None])
+    dq = mm3(ds, k, passes) * scale
+    dk = mm3(ds.transpose(-1, -2), q, passes) * scale
+    dv = mm3(p.transpose(-1, -2), do, passes)
+    return dq, dk, dv
+
+
+def _bwd_inputs(b, h, tq, tk, d, seed, bias=False, causal=True):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, h, tq, tk, d, seed))
+    bt = torch.from_numpy(_rand((b, 1, tq, tk), seed + 3)) if bias else None
+    out, lse = cflash.flash_attention_reference(q, k, v, bt, None, None,
+                                                None, causal)
+    do = torch.from_numpy(_rand((b, h, tq, d), seed + 4))
+    return q, k, v, bt, out, lse, do
+
+
+def _kernel_err(got, ref):
+    """The card's measure: max |x - ref| / max(1, |ref|)."""
+    return max(((x - r).abs() / r.abs().clamp_min(1.0)).max().item()
+               for x, r in zip(got, ref))
+
+
+TF32_CASES = {"causal": (1, 2, 128, 128, 64, False),
+              "bias_query_causal": (1, 2, 96, 160, 64, True),
+              "d128_t1024": (1, 1, 1024, 1024, 128, False)}
+
+
+def test_tf32_round_is_nearest_ties_away():
+    x = torch.from_numpy(_rand((4096,), 40)) * 100
+    r = tf32_round(x)
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    assert ((x - r).abs() <= x.abs() * 2.0 ** -11).all()
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    assert tf32_round(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10),
+                                        1.0]
+
+
+@pytest.mark.parametrize("name", sorted(TF32_CASES))
+def test_three_tf32_passes_hold_the_f32_tolerance(name):
+    """dq, dk, dv through the three-pass products stay within the kernels'
+    f32 tolerance of the plain backward."""
+    b, h, tq, tk, d, bias = TF32_CASES[name]
+    q, k, v, bt, out, lse, do = _bwd_inputs(b, h, tq, tk, d, 50, bias)
+    got = _emulated_bwd(q, k, v, bt, out, lse, do, True)
+    ref = cflash.flash_attention_bwd_reference(q, k, v, bt, None, None, out,
+                                               lse, do, None, None, True)
+    assert _kernel_err(got, ref[:3]) <= cflash.BWD_TOLERANCE[torch.float32]
+
+
+def test_one_tf32_pass_misses_the_f32_tolerance():
+    """Why three passes: one TF32 pass (big.big') of the same products
+    is far outside the f32 tolerance."""
+    q, k, v, bt, out, lse, do = _bwd_inputs(1, 2, 128, 128, 64, 50)
+    got = _emulated_bwd(q, k, v, bt, out, lse, do, True, passes=1)
+    ref = cflash.flash_attention_bwd_reference(q, k, v, bt, None, None, out,
+                                               lse, do, None, None, True)
+    assert _kernel_err(got, ref[:3]) > 10 * cflash.BWD_TOLERANCE[
+        torch.float32]
+
+
+def _row_rel(x, ref):
+    err = (x.float() - ref).abs().amax(dim=-1)
+    return (err / ref.abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def test_bf16_hi_lo_probabilities_hold_the_row_bound():
+    """The bf16 kernels' second products (dV = P^T dO, dK = dS^T Q,
+    dQ = dS K) over bf16 inputs: with P and dS as bf16 hi + lo the outputs
+    stay within BF16_ROW_REL_TOLERANCE of the plain version in f32 (only
+    their own bf16 rounding is left); P and dS rounded once to bf16 add
+    their error on top of it."""
+    bf = torch.bfloat16
+    q, k, v, _, _, _, do = (t if t is None else t.to(bf).float()
+                            for t in _bwd_inputs(1, 4, 512, 512, 64, 60))
+    out, lse = cflash.flash_attention_reference(q, k, v, None, None, None,
+                                                None, True)
+    out = out.to(bf).float()
+    ref = cflash.flash_attention_bwd_reference(q, k, v, None, None, None,
+                                               out, lse, do, None, None,
+                                               True)[:3]
+    scale = 1.0 / math.sqrt(64)
+    s, vis = cflash._scores(q, k, None, None, None, scale, True)
+    p = cflash._probs(s, vis, lse)
+    ds = p * (do @ v.transpose(-1, -2) - cflash._delta(out, do, None)[
+        ..., None])
+
+    def second(p_, ds_):
+        return tuple(x.to(bf) for x in (
+            ds_ @ k * scale, ds_.transpose(-1, -2) @ q * scale,
+            p_.transpose(-1, -2) @ do))
+
+    def hi_lo(x):
+        hi = x.to(bf).float()
+        return hi + (x - hi).to(bf).float()
+
+    two = max(_row_rel(x, r) for x, r in zip(second(hi_lo(p), hi_lo(ds)),
+                                             ref))
+    one = max(_row_rel(x, r) for x, r in zip(
+        second(p.to(bf).float(), ds.to(bf).float()), ref))
+    assert two <= cflash.BF16_ROW_REL_TOLERANCE
+    assert one > two
+
+
+def test_bwd_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper takes CUDA tensors only: CPU operands raise
+    before anything is built (the Function sends them to the plain
+    version instead)."""
+    q, k, v, _, out, lse, do = _bwd_inputs(1, 2, 16, 16, 32, 70)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cflash.flash_attention_bwd_cuda(q, k, v, None, None, None, out, lse,
+                                        do, None, None, True)
+
+
+def test_aligned_copies_only_views_that_break_the_16_byte_rule():
+    """The training step's transposed views keep their storage; a view at
+    an odd element offset is copied into a contiguous tensor of the same
+    values, so the kernels' 16-byte copies may read it."""
+    x = torch.from_numpy(_rand((2, 24, 3, 64), 71))
+    view = x.transpose(1, 2)
+    assert cflash.tma_aligned(view) and cflash._aligned(view) is view
+    flat = torch.empty(x.numel() + 1)
+    odd = flat[1:].view(2, 3, 24, 64)
+    odd.copy_(view)
+    assert not cflash.tma_aligned(odd)
+    got = cflash._aligned(odd)
+    assert got.is_contiguous() and cflash.tma_aligned(got)
+    assert torch.equal(got, view)
