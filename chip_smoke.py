@@ -5,7 +5,8 @@
 Phases, each of which must pass (the three kernel sources, paged
 attention, the flash-attention forward and its backward, are built from
 paddle_tpu_torch/csrc/ first, one nvcc each, side by side; ptxas's
-registers, shared memory and spills of the backward kernels are printed):
+registers, shared memory and spills of the f32 forward kernel and of the
+backward kernels are printed):
 
 1. kernel vs plain: the hand-written paged-attention kernel against its
    plain PyTorch version on the card, dense pools (q in the pool dtype, and
@@ -22,8 +23,9 @@ registers, shared memory and spills of the backward kernels are printed):
    256 rows (two row groups)), a bf16 output also held row by row against
    the plain version with q and dense pools in f32;
 1f. flash kernels vs plain: the flash-attention forward against its plain
-   version, out and lse, f32 (the SIMT kernel) and bf16 (the tensor-core
-   kernel: every bf16 case must add one to its count), D 32/64/128, on
+   version, out and lse, f32 (flash_fwd_kernel, mma.sync) and bf16
+   (flash_fwd_tc_kernel, wgmma: every bf16 case must add one to its
+   count), D 32/64/128, on
    every feature of the TPU kernels it replaces (causal and not, Tq != Tk,
    lengths off the tile grid, key-only / per-query / per-head bias, bias
    under causal, segment ids self and cross and with a bias, tiles skipped
@@ -33,9 +35,10 @@ registers, shared memory and spills of the backward kernels are printed):
    bias strided along keys that it must copy for the kernel), then
    at the prefill shape (B 8, H 12, T 512, D 64, causal, bf16, q/k/v as
    the prefill's transposed views, which meet TMA's rule and are not
-   copied) and the long shape (B 1, H 12, T 16384, causal, bf16; the plain
-   version head by head); bf16 also row by row against the plain version
-   in f32;
+   copied) and the long shape (B 1, H 12, T 16384, causal, bf16 and f32;
+   the plain version head by head), and the f32 training shape (the
+   training step's views, which meet the 16-byte rule and are not
+   copied); bf16 also row by row against the plain version in f32;
 2. serve at full width: GPTConfig() (12 x 768, vocab 32000, bf16, random
    weights from a seed) through GenerationServer with continuous batching,
    greedy and sampled requests and one mid-stream cancel; the kernel's
@@ -78,8 +81,9 @@ registers, shared memory and spills of the backward kernels are printed):
    through ``attention``, must give identical first 16 ids;
 8. flash times: kernel, plain and scaled_dot_product_attention (the
    yardstick, never on the path) at the prefill and the long shape (bf16,
-   the tensor-core kernel) and at the training shape (f32, the SIMT
-   kernel that phase 9 launches), cold L2, beside the bound;
+   flash_fwd_tc_kernel) and at the training shape and the long shape
+   (f32, flash_fwd_kernel, which phase 9 launches), cold L2, beside the
+   bound;
 1g. flash backward kernels vs plain: dq, dk and dv of the dQ and dK/dV
    kernels against their plain version on phase 1f's feature cases and
    the backward's own (Tq and Tk one past and one under its tiles, a
@@ -116,9 +120,13 @@ checkout (such as the parent commit unpacked by ``git archive`` into a
 directory that .gitignore lists), so that two versions are timed in one
 call, on one card.
 
+    python3 chip_smoke.py --fwd-times-of <checkout>
+
+does the same with phase 8 and the forward kernels.
+
 Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
-flash-attention forward's tensor-core (bf16) and SIMT (f32) kernels and
+flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
 the flash-attention backward); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
@@ -919,9 +927,10 @@ def _flash_plain_by_head(flash, q, k, v, causal):
 
 
 def check_one_flash(flash, name, case, by_head=False):
-    """One case through the kernel its dtype takes (bf16: the tensor-core
-    kernel, whose count must go up by one; f32: the SIMT kernel) against
-    the plain version. Returns the max-abs error of out."""
+    """One case through the kernel its dtype takes (bf16:
+    flash_fwd_tc_kernel, whose count must go up by one; f32:
+    flash_fwd_kernel) against the plain version. Returns the max-abs error
+    of out."""
     q, k, v, bias, segq, segk, causal = case
     tc = flash.TC_LAUNCHES
     out, lse = flash.flash_attention_cuda(q, k, v, bias, segq, segk, None,
@@ -976,8 +985,9 @@ def check_one_flash(flash, name, case, by_head=False):
 
 def check_flash(flash):
     """Every feature case, f32 and bf16, D 32/64/128, then the prefill
-    (whose views the wrapper must take as they are) and the long shape in
-    bf16. Returns {case: max_abs_err}."""
+    (whose views the wrapper must take as they are), the long shape in
+    bf16 and f32, and the f32 training shape (its views taken as they
+    are too). Returns {case: max_abs_err}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     errs = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -998,7 +1008,13 @@ def check_flash(flash):
     q, k, v = (_rand(LONG_SHAPE, gen, torch.bfloat16) for _ in range(3))
     errs["long_bf16"] = check_one_flash(
         flash, "long_bf16", (q, k, v, None, None, None, True), by_head=True)
+    q, k, v = (_rand(LONG_SHAPE, gen) for _ in range(3))
+    errs["long_f32"] = check_one_flash(
+        flash, "long_f32", (q, k, v, None, None, None, True), by_head=True)
     q, k, v = prefill_views(torch.float32, gen, TRAIN_SHAPE)
+    if not all(flash.tma_aligned(t) for t in (q, k, v)):
+        _fail("the training step's views do not meet the 16-byte rule: the "
+              "wrapper would copy them")
     errs["train_f32"] = check_one_flash(
         flash, "train_f32", (q, k, v, None, None, None, True))
     return errs
@@ -1183,16 +1199,22 @@ def flash_bound_ms(q, k, causal):
                                  else "operations")
 
 
+FWD_TIME_POINTS = (("prefill", 50), ("long", 5), ("train_f32", 20),
+                   ("long_f32", 3))
+
+
 def phase_flash_times(flash):
     """Kernel, plain (head by head at the long shape) and SDPA ms, causal,
-    beside the bound: the tensor-core kernel at the prefill shape (the
-    prefill's views) and the long shape in bf16, the SIMT kernel at the
-    training shape in f32 (the training step's views)."""
+    beside the bound: flash_fwd_tc_kernel at the prefill shape (the
+    prefill's views) and the long shape in bf16, flash_fwd_kernel at the
+    training shape (the training step's views) and the long shape in
+    f32."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = {}
-    for name, reps in (("prefill", 50), ("long", 5), ("train_f32", 20)):
-        dtype = torch.float32 if name == "train_f32" else torch.bfloat16
+    for name, reps in FWD_TIME_POINTS:
+        by_head = name.startswith("long")
+        dtype = torch.float32 if name.endswith("_f32") else torch.bfloat16
         if name == "prefill":
             q, k, v = prefill_views(dtype, gen)
         elif name == "train_f32":
@@ -1201,7 +1223,7 @@ def phase_flash_times(flash):
             q, k, v = (_rand(LONG_SHAPE, gen, dtype) for _ in range(3))
 
         def plain():
-            if name == "long":
+            if by_head:
                 return _flash_plain_by_head(flash, q, k, v, True)
             return flash.flash_attention_reference(q, k, v, None, None,
                                                    None, None, True)
@@ -1399,7 +1421,7 @@ def _zero_counts(flash):
 def phase_train(flash):
     """Train the full-width GPT for TRAIN_WARM + TRAIN_STEPS steps on one
     batch. Returns the launches of the run: the backward's (dQ + dK/dV)
-    and the forward's (the f32 SIMT kernel)."""
+    and the forward's (flash_fwd_kernel, f32)."""
     import paddle_tpu_torch as fluid
     cfg, main, startup, loss, toks = build_train()
     scope = fluid.Scope()
@@ -1624,10 +1646,11 @@ def phase_flash_bwd_times(flash):
     return rows
 
 
-def bwd_times_of(root):
-    """Phase 10 alone on the backward kernels of the package under `root`
-    (a checkout of another commit, for a comparison inside one call):
-    builds its flash library and prints its rows, then the card line."""
+def times_of(flag, root):
+    """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
+    the flash kernels of the package under `root` (a checkout of another
+    commit, for a comparison inside one call): builds its flash libraries
+    and prints the phase's rows, then the card line."""
     import os
     sys.path.insert(0, os.path.abspath(root))
     from paddle_tpu_torch.ops.cuda import flash
@@ -1635,9 +1658,12 @@ def bwd_times_of(root):
         _fail(f"{flash.__file__} is not under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _phase("build", lambda: (flash.build(), flash.build_bwd()))
-    rows = _phase("10 flash backward times", phase_flash_bwd_times, flash)
+    if flag == "--bwd-times-of":
+        rows = _phase("10 flash backward times", phase_flash_bwd_times, flash)
+    else:
+        rows = _phase("8 flash times", phase_flash_times, flash)
     print(_card_line())
-    print(json.dumps({"bwd_times_of": root, "rows": rows}))
+    print(json.dumps({flag[2:].replace("-", "_"): root, "rows": rows}))
 
 
 def _phase(name, fn, *args, **kw):
@@ -1695,20 +1721,23 @@ def ptxas_report(source, match):
 def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
-    if len(sys.argv) == 3 and sys.argv[1] == "--bwd-times-of":
-        bwd_times_of(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in ("--bwd-times-of",
+                                               "--fwd-times-of"):
+        times_of(sys.argv[1], sys.argv[2])
         return
     if len(sys.argv) > 1:
-        _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of "
-              f"<checkout>")
+        _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of or "
+              f"--fwd-times-of <checkout>")
     from paddle_tpu_torch.models.gpt import GPTConfig, init_params
     from paddle_tpu_torch.ops.cuda import flash, paged
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     _phase("build", build_all)
-    for line in ptxas_report("flash_attention_bwd.cu", "flash_bwd"):
-        print(f"ptxas flash_attention_bwd.cu: {line}")
+    for source, match in (("flash_attention.cu", "flash_fwd_kernel"),
+                          ("flash_attention_bwd.cu", "flash_bwd")):
+        for line in ptxas_report(source, match):
+            print(f"ptxas {source}: {line}")
     cfg = GPTConfig()
     tree = init_params(cfg, seed=SEED)
     gcfg = GPTConfig(kv_heads=KV_HEADS)
@@ -1771,12 +1800,14 @@ def main():
             main="prefill",
             source="paddle_tpu_torch/csrc/flash_attention.cu"),
         kernel_entry(
-            "flash_attention_fwd: flash_fwd_kernel (f32, SIMT)",
-            FLASH_FWD_REPLACES, f32_launches, [ferrs["train_f32"]],
-            {"train_f32": ftimes["train_f32"]},
+            "flash_attention_fwd: flash_fwd_kernel (f32, mma.sync 3xTF32 "
+            "+ cp.async ring)",
+            FLASH_FWD_REPLACES, f32_launches,
+            [ferrs["train_f32"], ferrs["long_f32"]],
+            {k: ftimes[k] for k in ("train_f32", "long_f32")},
             "training attention: B 8 x H 12 x T 512 x D 64, causal, f32, "
             "q/k/v as the training step's transposed views; launches over "
-            "phase 9",
+            "phase 9; shapes also T 16384 (B 1, H 12, f32)",
             main="train_f32",
             source="paddle_tpu_torch/csrc/flash_attention.cu"),
         kernel_entry(

@@ -10,12 +10,13 @@
 // key length fits, with nothing carried between thread blocks.
 //
 // Contract:
-//   q          (B, H, Tq, D)    f32 or bf16, any strides with unit stride
-//                               along D (the prefill passes transposed
-//                               views of its (B, T, H, D) projections);
-//                               bf16 also needs a 16-byte-aligned base and
-//                               strides that are multiples of 8 elements
-//                               (TMA's rule; the wrapper copies otherwise)
+//   q          (B, H, Tq, D)    f32 or bf16, strides with a unit stride
+//                               along D (the prefill and the training step
+//                               pass transposed views of their (B, T, H,
+//                               D) projections), a 16-byte-aligned base
+//                               and batch, head and time strides that are
+//                               multiples of 16 bytes (the rule of TMA and
+//                               cp.async; the wrapper copies otherwise)
 //   k, v       (B, H, Tk, D)    q's type, the same stride rules
 //   bias       f32 or null      element (b, h, i, j) at the four strides
 //                               given (0 along a broadcast dimension):
@@ -67,20 +68,50 @@
 // over its 128 threads (`_seg_overlap`), before the tile's wgmma is
 // issued. Blocks are launched heaviest (last rows) first over all heads.
 //
-// f32: the SIMT kernel (flash_fwd_kernel), kept for the f32 paths (the
-// training step, the f32 agreement checks): no tensor-core format keeps f32
-// products. One thread block of 256 threads per (b * H + h, 64-row q tile);
-// tiles of the same head are launched heaviest (last rows) first. The block
-// scales its q tile in f32 into shared memory once, then walks 64-key
-// tiles: K and V land in f32 shared memory (rows beyond Tk as 0), the
-// 64 x 64 score tile is computed with each thread owning 4 rows x 4 keys
-// (rows ty + 16 i, keys tx + 16 j: the K rows are padded to D + 1 floats so
-// the 16 keys of a half-warp fall in 16 banks), the bias is added in f32
-// and the mask applied; each row's max and sum are reduced over the 16
-// threads that share it with shuffles, and the running max m, sum l and the
-// 4 x D/16 accumulator elements each thread owns stay in registers. The
-// probabilities go through shared memory to the P V product. It is bound
-// by its scalar f32 FMAs (the 67 TFLOP/s f32 peak at best).
+// f32: the tensor-core kernel (flash_fwd_kernel), for the f32 paths (the
+// training step, the f32 agreement checks). What bounds it: at the
+// training shape (B 8, H 12, T 512, D 64, causal) the operations, 3.2 GFLOP
+// over the visible pairs, where an f32-accurate product runs on the tensor
+// cores as three TF32 passes (494.7 / 3 = 164.9 TFLOP/s): 0.0196 ms,
+// against 0.015 ms for its bytes (q, k, v read once, out and lse written
+// once: 50.5 MB at 3.35 TB/s); at T 16384 (H 12) 4.1e11 FLOP, 2.5 ms. The
+// CUDA cores' f32 rate (67 TFLOP/s) would bound it at 2.5 times that.
+// wgmma takes TF32 operands K-major only, and V in P V is not, so the
+// products are mma.sync. Design: a block of 4 warps owns 64 query rows of
+// one (b * H + h), each warp 16 of them, and walks the key tiles (64 keys,
+// 32 at D 128). K and V arrive with their keys' segment ids by cp.async
+// (16 bytes, 4 for the ids) through a two-stage ring, rows past Tk
+// zero-filled by the copy, so that the next tile's copy runs under this
+// tile's products. Both products are m16n8k8 TF32 -> f32 in three passes,
+// big.big' + big.small' + small.big', split in registers by integer
+// rounding (flash_common.cuh): S = Q K^T, with Q's big and small fragments
+// split once and held in registers through the key loop at D 32 and 64 (at
+// D 128 they would take 128 registers a thread, so they are read and split
+// from shared memory at every tile), and O += P V with P split too (one
+// TF32 pass would cost ~2^-11 of a term, 70 times the f32 tolerance). The
+// softmax runs on the accumulator fragments: a row lives in a quad of 4
+// threads, so its max is two shuffles (lanes xor 1 and 2); the scale and
+// log2 e are one multiply and exp2 gives the probabilities; m and the
+// thread's part of l stay f32 in registers. P's accumulator fragment is
+// the A fragment of P V as it stands (the permuted k slots), so P never
+// goes through shared memory; V is read along its time axis through the
+// row swizzle, without bank conflicts (32-bit operands have no ldmatrix
+// .trans). The tensor cores truncate as they accumulate: each tile's P V
+// is summed in fresh fragments and folded in as O = O alpha + tile by one
+// round-to-nearest fma, so that no truncating chain runs longer than a
+// tile (T 16384 has 256 of them). Masks cost only where they can bite: a
+// warp whose 16 x N slice is visible whole (inside Tk, under the diagonal,
+// no bias, no segment ids) takes no per-element mask, and a warp skips the
+// tiles past its rows' last visible key; the block stops after its last
+// visible tile (`_last_visible_kb`), and with segment ids it skips a tile
+// in which none of its (query, key) pairs shares an id by a vote over its
+// threads (`_seg_overlap`). Blocks are launched heaviest (last rows) first
+// over all heads. Shared memory: q 16 KB + 2 x (K 16 KB + V 16 KB) at
+// D 64, 96 KB at D 128, 40 KB at D 32; registers (ptxas -v, sm_90a;
+// chip_smoke.py prints them) 165 / 211 / 237 at D 32 / 64 / 128, no
+// spills, so the training shape runs two blocks (8 warps) an SM. Blocks of
+// 8 warps (128 rows) and a third ring stage measured no faster at the
+// training shape (tools/flash_fwd_variants.py).
 //
 // Traps carried over from flash.py, kept by both kernels:
 //   * NEG_INF is finite (-1e30): where no key of a row is visible yet,
@@ -99,16 +130,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLFloor = 1e-30f;
-constexpr int kBQ = 64;  // query rows of a tile
-constexpr int kBK = 64;  // keys of a tile
-constexpr int kThreads = 256;
-constexpr int kRows = kBQ / 16;  // query rows a thread owns
-constexpr int kKeys = kBK / 16;  // keys of a score tile a thread owns
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // dtype codes of the C entry point
 constexpr int kF32 = 0;
@@ -130,206 +160,313 @@ struct Params {
   int causal;
 };
 
-
-// max / sum over the 16 threads (tx = 0..15) that share a row: lanes
-// 0-15 and 16-31 of a warp are two rows' groups
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
+// the 16-byte rule of both kernels' copies (TMA, cp.async) for a (B, H, T,
+// D) view of `elem`-byte values: a 16-byte-aligned base and batch, head
+// and time strides (elements) that are positive multiples of 16 bytes
+bool aligned16(const void* ptr, const int64_t* st, int elem) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (st[i] <= 0 || st[i] * elem % 16 != 0) return false;
+  return true;
 }
 
-// shared memory: q tile (rows padded to D + 1), K tile (padded), V tile,
-// probabilities (rows padded to kBK + 1), then the tile's segment ids
-__host__ __device__ constexpr size_t smem_floats(int D) {
-  return (size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D +
-         (size_t)kBQ * (kBK + 1);
-}
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  return smem_floats(D) * sizeof(float) + (size_t)(kBQ + kBK) * sizeof(int);
+// ---------------------------------------------------------------------------
+// f32: the tensor-core kernel (mma.sync, three TF32 passes)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdWarps = 4;                 // 16 q rows a warp
+constexpr int kFwdRows = 16 * kFwdWarps;     // q rows of a block
+constexpr int kFwdThreads = 32 * kFwdWarps;
+// keys of a K/V tile: 32 at D 128, where O and a tile's P V sum take 96
+// registers a thread
+template <int kD>
+constexpr int kFwdN = kD == 128 ? 32 : 64;
+constexpr int kFwdStages = 2;  // ring stages of K/V
+// Q's TF32 fragments stay in registers through the key loop (64 a thread
+// at D 64); at D 128 they are read from shared memory at every tile
+template <int kD>
+constexpr bool kQInRegs = kD <= 64;
+
+// the q tile, the ring (stage s: K tile, then V tile), the q rows' segment
+// ids, then each stage's key segment ids
+template <int kD>
+constexpr size_t kFwdSmem =
+    (size_t)(kFwdRows + 2 * kFwdStages * kFwdN<kD>) * kD * sizeof(float) +
+    (size_t)(kFwdRows + kFwdStages * kFwdN<kD>) * sizeof(int);
+
+// one tile of the online softmax on a warp's score fragments (base 2):
+// the rows' max m and this thread's part of their sums l are updated, the
+// scores become probabilities, alpha[hh] = exp2(m_old - m_new) rescales
+// row r0 + g + 8 hh. With kMasked, bit 4 j + e of vis says whether element
+// (j, e) is visible: where(visible, exp2(x - m), 0), since m may still be
+// the finite NEG_INF, where exp2 of a masked score would be 1
+template <int kNT, bool kMasked>
+__device__ __forceinline__ void online_softmax(float (&sc)[kNT][4],
+                                               uint32_t vis, float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = m[hh];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      mx = fmaxf(mx, fmaxf(sc[j][2 * hh], sc[j][2 * hh + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    alpha[hh] = exp2f(m[hh] - mx);
+    m[hh] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+        float& x = sc[j][e];
+        if constexpr (kMasked)
+          x = (vis >> (4 * j + e)) & 1u ? exp2f(x - mx) : 0.f;
+        else
+          x = exp2f(x - mx);
+        sum += x;
+      }
+    l[hh] = l[hh] * alpha[hh] + sum;
+  }
 }
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads)
     flash_fwd_kernel(const Params p) {
-  extern __shared__ float smem[];
-  constexpr int kDp = kD + 1;
-  constexpr int kPp = kBK + 1;
-  constexpr int kCols = kD / 16;  // output columns a thread owns
-  float* q_sm = smem;
-  float* k_sm = q_sm + kBQ * kDp;
-  float* v_sm = k_sm + kBK * kDp;
-  float* p_sm = v_sm + kBK * kD;
-  int* sq_sm = reinterpret_cast<int*>(p_sm + kBQ * kPp);
-  int* sk_sm = sq_sm + kBQ;
+  constexpr int kN = kFwdN<kD>;
+  constexpr int kNT = kN / 8;  // n fragments of a score tile
+  constexpr int kS = kFwdStages;
+  constexpr int kTile = kN * kD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_sm = reinterpret_cast<float*>(smem);
+  float* ring = q_sm + kFwdRows * kD;  // stage s: K at ring + 2 s kTile,
+                                       // V after it
+  int* sq_sm = reinterpret_cast<int*>(ring + 2 * kS * kTile);
+  int* sk_ring = sq_sm + kFwdRows;  // stage s: the key ids at s kN
 
-  const int nqb = (p.Tq + kBQ - 1) / kBQ;
-  const int bh = blockIdx.x / nqb;
-  const int qb = nqb - 1 - (blockIdx.x - bh * nqb);
+  const int bhs = p.B * p.H;
+  const int nqb = (p.Tq + kFwdRows - 1) / kFwdRows;
+  // the heaviest q tiles (the last rows, under causal) first
+  const int qb = nqb - 1 - static_cast<int>(blockIdx.x) / bhs;
+  const int bh = static_cast<int>(blockIdx.x) % bhs;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = qb * kBQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  const int q0 = qb * kFwdRows;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
   const bool has_seg = p.segq != nullptr;
-  const bool has_bias = p.bias != nullptr;
   const int shift = p.Tk - p.Tq;  // causal: key j visible iff j <= i + shift
 
   const float* qg = static_cast<const float*>(p.q) + b * p.qs[0] + h * p.qs[1];
   const float* kg = static_cast<const float*>(p.k) + b * p.ks[0] + h * p.ks[1];
   const float* vg = static_cast<const float*>(p.v) + b * p.vs[0] + h * p.vs[1];
   const float* bg =
-      has_bias ? p.bias + b * p.bs[0] + h * p.bs[1] : nullptr;
+      p.bias != nullptr ? p.bias + b * p.bs[0] + h * p.bs[1] : nullptr;
 
-  for (int i = tid; i < kBQ * kD; i += kThreads) {
-    const int r = i / kD;
-    const int d = i - r * kD;
-    const int t = q0 + r;
-    q_sm[r * kDp + d] =
-        t < p.Tq ? qg[t * p.qs[2] + d] * p.scale : 0.f;
-  }
-  if (has_seg)
-    for (int r = tid; r < kBQ; r += kThreads)
-      sq_sm[r] = q0 + r < p.Tq ? p.segq[(int64_t)b * p.Tq + q0 + r] : 0;
-
-  int nkb = (p.Tk + kBK - 1) / kBK;
+  int nkb = (p.Tk + kN - 1) / kN;
   if (p.causal) {
     // the last key any row of this tile sees (_last_visible_kb)
-    const int last = min(q0 + kBQ, p.Tq) - 1 + shift;
-    nkb = last < 0 ? 0 : min(nkb, last / kBK + 1);
+    const int last = min(q0 + kFwdRows, p.Tq) - 1 + shift;
+    nkb = last < 0 ? 0 : min(nkb, last / kN + 1);
   }
+  // the last key any of this warp's rows sees (-1: none of them is < Tq)
+  const int wq = q0 + r0;
+  const int w_last = wq >= p.Tq ? -1
+                     : p.causal ? min(p.Tk - 1, min(wq + 15, p.Tq - 1) + shift)
+                                : p.Tk - 1;
 
-  float m[kRows], l[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous tile is consumed; q is stored
-    for (int i = tid; i < kBK * kD; i += kThreads) {
-      const int c = i / kD;
-      const int d = i - c * kD;
-      const int t = k0 + c;
-      const bool in = t < p.Tk;
-      k_sm[c * kDp + d] = in ? kg[t * p.ks[2] + d] : 0.f;
-      v_sm[c * kD + d] = in ? vg[t * p.vs[2] + d] : 0.f;
-    }
+  auto issue = [&](int i) {
+    const int s = i % kS;
+    const int k0 = i * kN;
+    float* ks = ring + 2 * s * kTile;
+    copy_tile<float, kD, kN, kFwdThreads>(ks, kg, p.ks[2], k0, p.Tk);
+    copy_tile<float, kD, kN, kFwdThreads>(ks + kTile, vg, p.vs[2], k0, p.Tk);
     if (has_seg)
-      for (int c = tid; c < kBK; c += kThreads)
-        sk_sm[c] = k0 + c < p.Tk ? p.segk[(int64_t)b * p.Tk + k0 + c] : 0;
-    __syncthreads();
-    if (has_seg) {
-      // skip a tile in which no (query, key) pair shares a segment
-      int overlap = 0;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) {
-          const int r = ty + 16 * i;
-          const int c = tx + 16 * j;
-          overlap |= q0 + r < p.Tq && k0 + c < p.Tk && sq_sm[r] == sk_sm[c];
-        }
-      if (!__syncthreads_or(overlap)) continue;
-    }
+      copy_vec<kFwdThreads>(sk_ring + s * kN, p.segk + (int64_t)b * p.Tk, k0,
+                            kN, p.Tk);
+  };
 
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kD; ++d) {
-      float qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = q_sm[(ty + 16 * i) * kDp + d];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) kv[j] = k_sm[(tx + 16 * j) * kDp + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+  // the q tile (its own group), then the first kS - 1 K/V tiles
+  copy_tile<float, kD, kFwdRows, kFwdThreads>(q_sm, qg, p.qs[2], q0, p.Tq);
+  if (has_seg)
+    copy_vec<kFwdThreads>(sq_sm, p.segq + (int64_t)b * p.Tq, q0, kFwdRows,
+                          p.Tq);
+  cp_async_commit();
+  for (int i = 0; i < kS - 1; ++i) {
+    if (i < nkb) issue(i);
+    cp_async_commit();
+  }
+  cp_async_wait<kS - 1>();
+  __syncthreads();  // q landed
 
+  // Q's big and small fragments, k-step kk: slot t holds d = 8 kk + 2t,
+  // slot t + 4 d = 8 kk + 2t + 1 (rows r0 + g, r0 + g + 8)
+  uint32_t qbig[kQInRegs<kD> ? kD / 8 : 1][4];
+  uint32_t qsml[kQInRegs<kD> ? kD / 8 : 1][4];
+  if constexpr (kQInRegs<kD>) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + 16 * i;
-      const int tq = q0 + r;
-      bool vis[kKeys];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int c = tx + 16 * j;
-        const int tk = k0 + c;
-        bool ok = tq < p.Tq && tk < p.Tk;
-        if (p.causal) ok = ok && tk <= tq + shift;
-        if (has_seg) ok = ok && sq_sm[r] == sk_sm[c];
-        float x = s[i][j];
-        if (ok && has_bias) x += bg[tq * p.bs[2] + tk * p.bs[3]];
-        x = ok ? x : kNegInf;
-        s[i][j] = x;
-        vis[j] = ok;
-        mx = fmaxf(mx, x);
-      }
-      mx = group_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float pr = vis[j] ? expf(s[i][j] - m_new) : 0.f;
-        p_sm[r * kPp + tx + 16 * j] = pr;
-        sum += pr;
-      }
-      sum = group_sum(sum);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // every row's probabilities are stored
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = p_sm[(ty + 16 * i) * kPp + c];
-#pragma unroll
-      for (int cc = 0; cc < kCols; ++cc) {
-        const float vv = v_sm[c * kD + tx + 16 * cc];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
-      }
+    for (int kk = 0; kk < kD / 8; ++kk) {
+      const int c = 8 * kk + 2 * t;
+      const float2 u = ld2(q_sm + at<float, kD>(r0 + g, c));
+      const float2 w = ld2(q_sm + at<float, kD>(r0 + g + 8, c));
+      split(u.x, qbig[kk][0], qsml[kk][0]);
+      split(w.x, qbig[kk][1], qsml[kk][1]);
+      split(u.y, qbig[kk][2], qsml[kk][2]);
+      split(w.y, qbig[kk][3], qsml[kk][3]);
     }
   }
+
+  const float c1 = p.scale * kLog2e;
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // rows r0 + g and r0 + g + 8: the running max (base 2) and this
+  // thread's part of the row sum
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < nkb; ++i) {
+    __syncthreads();  // the stage issue(i + kS - 1) refills was read at i - 1
+    if (i + kS - 1 < nkb) issue(i + kS - 1);
+    cp_async_commit();
+    cp_async_wait<kS - 1>();
+    __syncthreads();  // tile i landed for every thread
+    const int s = i % kS;
+    const int k0 = i * kN;
+    const float* ks = ring + 2 * s * kTile;
+    const float* vs = ks + kTile;
+    const int* sk = sk_ring + s * kN;
+    if (has_seg &&
+        !seg_overlap<kFwdThreads>(sq_sm, q0, kFwdRows, sk, k0, kN, p))
+      continue;
+    if (k0 > w_last) continue;  // nothing of the tile is visible here
+
+    // S = Q K^T over the warp's 16 rows x kN keys
+    float sc[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk) {
+      const int c = 8 * kk + 2 * t;
+      uint32_t ab[4], as[4];
+      if constexpr (kQInRegs<kD>) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ab[e] = qbig[kk][e];
+          as[e] = qsml[kk][e];
+        }
+      } else {
+        const float2 u = ld2(q_sm + at<float, kD>(r0 + g, c));
+        const float2 w = ld2(q_sm + at<float, kD>(r0 + g + 8, c));
+        split(u.x, ab[0], as[0]);
+        split(w.x, ab[1], as[1]);
+        split(u.y, ab[2], as[2]);
+        split(w.y, ab[3], as[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float2 x = ld2(ks + at<float, kD>(8 * j + g, c));
+        mma3(sc[j], ab, as, x.x, x.y);
+      }
+    }
+
+    // scores in the base-2 domain, s * scale * log2 e (+ bias * log2 e);
+    // element (j, e) is row r0 + g + 8 (e >> 1), key k0 + 8 j + 2t + (e & 1)
+    float alpha[2];
+    const int k_hi = k0 + kN - 1;
+    if (bg == nullptr && !has_seg && k_hi < p.Tk &&
+        (!p.causal || k_hi <= wq + shift)) {
+      // every pair of the warp's slice is visible: no per-element mask
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= c1;
+      online_softmax<kNT, false>(sc, 0u, m, l, alpha);
+    } else {
+      // bit 4 j + e: element (j, e) is visible
+      uint32_t vis = 0u;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = r0 + g + ((e & 2) << 2);
+          const int cl = 8 * j + 2 * t + (e & 1);
+          const int tq = q0 + rl;
+          const int tk = k0 + cl;
+          bool ok = tq < p.Tq && tk < p.Tk;
+          if (p.causal) ok = ok && tk <= tq + shift;
+          if (has_seg) ok = ok && sq_sm[rl] == sk[cl];
+          float x = sc[j][e] * c1;
+          if (ok && bg != nullptr)
+            x = fmaf(bg[tq * p.bs[2] + tk * p.bs[3]], kLog2e, x);
+          sc[j][e] = ok ? x : kNegInf;
+          vis |= static_cast<uint32_t>(ok) << (4 * j + e);
+        }
+      online_softmax<kNT, true>(sc, vis, m, l, alpha);
+    }
+
+    // O = O alpha + P V: the tile's sum in fresh fragments, kChunk d
+    // fragments a pass, folded in with one round-to-nearest fma
+    constexpr int kChunk = kD < 64 ? kD / 8 : 8;
+#pragma unroll
+    for (int n0 = 0; n0 < kD / 8; n0 += kChunk) {
+      float part[kChunk][4];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        // accumulator (g, 2t), (g, 2t + 1), (g + 8, ..) as A slots t, t + 4
+        uint32_t ab[4], as[4];
+        split(sc[kk][0], ab[0], as[0]);
+        split(sc[kk][2], ab[1], as[1]);
+        split(sc[kk][1], ab[2], as[2]);
+        split(sc[kk][3], ab[3], as[3]);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          const int col = 8 * (n0 + j) + g;
+          mma3(part[j], ab, as, vs[at<float, kD>(8 * kk + 2 * t, col)],
+               vs[at<float, kD>(8 * kk + 2 * t + 1, col)]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n0 + j][e] = fmaf(o[n0 + j][e], alpha[e >> 1], part[j][e]);
+    }
+  }
+  cp_async_wait<0>();
 
   float* og = static_cast<float*>(p.out) + (int64_t)bh * p.Tq * kD;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int tq = q0 + ty + 16 * i;
+  for (int hh = 0; hh < 2; ++hh) {
+    float li = l[hh];
+    li += __shfl_xor_sync(kFull, li, 1);
+    li += __shfl_xor_sync(kFull, li, 2);
+    const int tq = wq + g + 8 * hh;
     if (tq >= p.Tq) continue;
-    const float lf = fmaxf(l[i], kLFloor);
+    const float lf = fmaxf(li, kLFloor);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      og[(int64_t)tq * kD + tx + 16 * c] = acc[i][c] / lf;
-    if (tx == 0) p.lse[(int64_t)bh * p.Tq + tq] = m[i] + logf(lf);
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<float2*>(og + (int64_t)tq * kD + 8 * j + 2 * t) =
+          make_float2(o[j][2 * hh] / lf, o[j][2 * hh + 1] / lf);
+    if (t == 0)
+      p.lse[(int64_t)bh * p.Tq + tq] =
+          (m[hh] == kNegInf ? kNegInf : m[hh] * kLn2) + logf(lf);
   }
 }
 
 template <int kD>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(kD);
+  constexpr size_t smem = kFwdSmem<kD>;
   auto kernel = flash_fwd_kernel<kD>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -337,13 +474,16 @@ int launch(const Params& p, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
   }
   const int64_t blocks =
-      (int64_t)p.B * p.H * ((p.Tq + kBQ - 1) / kBQ);
+      (int64_t)p.B * p.H * ((p.Tq + kFwdRows - 1) / kFwdRows);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
+  kernel<<<(unsigned)blocks, kFwdThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 int launch_d(int D, const Params& p, cudaStream_t stream) {
+  if (!aligned16(p.q, p.qs, 4) || !aligned16(p.k, p.ks, 4) ||
+      !aligned16(p.v, p.vs, 4))
+    return (int)cudaErrorInvalidValue;
   if (D == 32) return launch<32>(p, stream);
   if (D == 64) return launch<64>(p, stream);
   return launch<128>(p, stream);
@@ -359,8 +499,6 @@ constexpr int kTcKeys = 128;     // keys of a K/V tile
 constexpr int kStages = 3;       // depth of the K/V ring
 constexpr int kTcThreads = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int kConsumers = 2 * 128;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of the tensor-core kernel at head dim kD, in bytes from a
 // 1024-byte-aligned base: the q tile, kStages K tiles, kStages V tiles, then
@@ -1037,15 +1175,6 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// TMA's rule for a bf16 (B, H, T, D) view: a 16-byte-aligned base and
-// batch, head and time strides (elements) that are positive multiples of 8
-bool tma_ok(const void* ptr, const int64_t* st) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  for (int i = 0; i < 3; ++i)
-    if (st[i] <= 0 || st[i] % 8 != 0) return false;
-  return true;
-}
-
 // a 4-D map over the (D, T, H, B) view with strides st (batch, head, time
 // elements), boxes of kBox x kTcRows, swizzled, rows past T read as zeros
 template <int kD>
@@ -1074,8 +1203,8 @@ constexpr int kErrEncode = 10000;
 template <int kD, bool kBias, bool kSeg>
 int launch_tc(const Params& p, cudaStream_t stream) {
   using L = TcLayout<kD>;
-  if (!tma_ok(p.q, p.qs) || !tma_ok(p.k, p.ks) || !tma_ok(p.v, p.vs) ||
-      (p.bias != nullptr && p.bs[3] != 1))
+  if (!aligned16(p.q, p.qs, 2) || !aligned16(p.k, p.ks, 2) ||
+      !aligned16(p.v, p.vs, 2) || (p.bias != nullptr && p.bs[3] != 1))
     return (int)cudaErrorInvalidValue;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kErrNoEncode;
@@ -1120,9 +1249,10 @@ int launch_tc_any(int D, const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // strides: q, k, v (batch, head, time each) then bias (batch, head, query,
-// key), in elements. dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16
-// (the tensor-core kernel). Returns cudaGetLastError() after the launch (0
-// on success), kErrNoEncode or kErrEncode + the CUresult when the tensor
+// key), in elements. dtype: 0 = float32 (flash_fwd_kernel, mma.sync), 1 =
+// bfloat16 (flash_fwd_tc_kernel, wgmma). Returns cudaGetLastError() after
+// the launch (0 on success), cudaErrorInvalidValue for operands off the
+// 16-byte rule, kErrNoEncode or kErrEncode + the CUresult when the tensor
 // maps cannot be made; the wrapper raises on anything but 0.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, const void* segq, const void* segk,

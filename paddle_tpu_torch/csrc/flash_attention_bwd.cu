@@ -128,13 +128,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kM = 64;                  // rows of a block's own tile
-constexpr int kWarps = kM / 16;         // 16 rows a warp
-constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // dtype codes of the C entry point
@@ -163,9 +160,6 @@ struct Params {
   int causal;
 };
 
-template <typename T>
-constexpr bool kIsF32 = std::is_same<T, float>::value;
-
 // rows of a streamed tile: 32 at D 128, where dK and dV alone hold 128 f32
 // registers a thread
 template <int kD>
@@ -183,109 +177,6 @@ template <typename T, int kD>
 constexpr size_t kSmem =
     (size_t)(2 * kM + 2 * kStages * kN<kD>) * kRow<T, kD> * sizeof(T) +
     (size_t)(3 * kM + 3 * kStages * kN<kD>) * 4;
-
-// f32 tiles: the word of column c in row r is c ^ swz(r). swz takes the
-// values 0, 8, 16, 24 once on each of rows {0..3}, {4..7}, {0, 2, 4, 6}
-// and {1, 3, 5, 7} (mod 8), so a fragment read by rows g or by rows 2t
-// (2t + 1) hits 32 banks; it keeps 4-float chunks whole for cp.async
-__device__ __forceinline__ int swz(int r) {
-  return ((r & 2) << 3) | (((r ^ (r >> 2)) & 1) << 3);
-}
-template <typename T, int kD>
-__device__ __forceinline__ int at(int r, int c) {
-  if constexpr (kIsF32<T>)
-    return r * kD + (c ^ swz(r));
-  else
-    return r * (kD + 8) + c;
-}
-
-// ---------------------------------------------------------------------------
-// copies, fragments, products
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 bytes, or 16 zero bytes when !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [t0, t0 + kRows) of a (T, D) operand at time stride st into a
-// shared tile; rows past len are zeros
-template <typename T, int kD, int kRows>
-__device__ __forceinline__ void copy_tile(T* sm, const T* g, int64_t st,
-                                          int t0, int len) {
-  constexpr int kPer = 16 / sizeof(T);
-  constexpr int kChunks = kD / kPer;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * kPer;
-    const bool in = t0 + r < len;
-    cp_async16(sm + at<T, kD>(r, c), in ? g + (t0 + r) * st + c : g, in);
-  }
-}
-
-// n 4-byte values of a row vector from t0; zeros past len
-__device__ __forceinline__ void copy_vec(void* sm, const void* g, int t0,
-                                         int n, int len) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const bool in = t0 + i < len;
-    cp_async4(static_cast<uint32_t*>(sm) + i,
-              in ? static_cast<const uint32_t*>(g) + t0 + i : g, in);
-  }
-}
-
-// x rounded to TF32's 10-bit mantissa, to nearest with ties away from
-// zero (what cvt.rna.tf32.f32 gives), by two integer operations: a
-// conversion instruction issues at a fraction of their rate
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-// x = big + small (+ ~2^-22 x), both TF32
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32_bits(x);
-  small = tf32_bits(x - __uint_as_float(big));
-}
-
-// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// the three passes of an f32-accurate product, small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], float b0,
-                                     float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split(b0, bb0, bs0);
-  split(b1, bb1, bs1);
-  mma_tf32(c, as, bb0, bb1);
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
-}
 
 // c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -317,10 +208,6 @@ __device__ __forceinline__ void hi_lo(float x0, float x1, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - r.x, x1 - r.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
 }
 
 // acc[j] += A B_j^T over D: A the warp's rows r0 .. r0 + 15 of tile a,
@@ -482,20 +369,6 @@ __device__ __forceinline__ void probs(float (&s)[kNT][4], float (&dp)[kNT][4],
       s[j][e] = pr;
       dp[j][e] = pr * (dp[j][e] - dlt[qr]);
     }
-}
-
-// whether any (query, key) pair of the tile pair shares a segment id; a
-// barrier for the whole block
-__device__ __forceinline__ bool seg_overlap(const int* sq, int q0, int nq,
-                                            const int* sk, int k0, int nk,
-                                            const Params& p) {
-  int overlap = 0;
-  for (int e = threadIdx.x; e < nq * nk; e += kThreads) {
-    const int r = e / nk;
-    const int c = e - r * nk;
-    overlap |= q0 + r < p.Tq && k0 + c < p.Tk && sq[r] == sk[c];
-  }
-  return __syncthreads_or(overlap);
 }
 
 __device__ __forceinline__ void store2(float* p, float x0, float x1) {

@@ -2,9 +2,9 @@
 
 Each kernel module compiles its own source with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface under
-``paddle_tpu_torch/csrc/build/`` (named by the source's content hash, so
-an edited source rebuilds and an unchanged one loads as it is) and loads
-it with ctypes. ``ptxas``'s report of each kernel (registers, shared
+``paddle_tpu_torch/csrc/build/`` (named by the hash of the source and the
+headers beside it, so an edited source or header rebuilds and an unchanged
+one loads as it is) and loads it with ctypes. ``ptxas``'s report of each kernel (registers, shared
 memory, spills) is kept beside the library as ``<library>.log``. Builds
 of different sources may run at the same time: each writes a temporary
 file of its own and renames it into place.
@@ -35,10 +35,16 @@ def _nvcc():
 
 
 def library_path(source):
-    """Where ``csrc/<source>``'s library lives, by its content."""
+    """Where ``csrc/<source>``'s library lives, by its content and that of
+    every header (``*.cuh``) beside it, so that an edited header rebuilds
+    the sources that include it."""
     path = os.path.join(CSRC, source)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    h = hashlib.sha256()
+    for name in [source] + sorted(f for f in os.listdir(CSRC)
+                                  if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     stem = os.path.splitext(source)[0]
     return path, os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

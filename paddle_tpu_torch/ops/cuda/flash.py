@@ -8,12 +8,15 @@ launcher ``_flash_fwd_kgrid``; K/V streamed by the grid for long
 contexts). Both compute one function, and one entry point of
 ``csrc/flash_attention.cu`` serves both, streaming K/V through shared
 memory with an f32 online softmax so that any key length fits. It holds two
-kernels, chosen by dtype: bf16 takes the tensor-core kernel (a block owns
-128 query rows of one batch x head; a producer warp feeds 128-key K/V
-tiles through a three-stage TMA ring, two consumer warpgroups compute
-both products with ``wgmma`` and take turns at the tensor cores), f32 the
-SIMT kernel (a block per 64-row query tile, scalar f32 products from
-shared memory).
+kernels, chosen by dtype, both on the tensor cores: bf16 takes
+``flash_fwd_tc_kernel`` (a block owns 128 query rows of one batch x head;
+a producer warp feeds 128-key K/V tiles through a three-stage TMA ring,
+two consumer warpgroups compute both products with ``wgmma`` and take
+turns at the tensor cores), f32 ``flash_fwd_kernel`` (a block of 4 warps
+per 64-row query tile; K/V tiles through a ``cp.async`` ring; both
+products by ``mma.sync`` as three TF32 passes, the backward's f32
+products, with Q's fragments held in registers and P fed from the
+accumulator fragments).
 
 The backward replaces ``_dq_kernel`` / ``_dkv_kernel`` (``:465`` / ``:519``,
 launcher ``_flash_bwd``) and ``_dq_kernel_kgrid`` / ``_dkv_kernel_kgrid``
@@ -64,9 +67,8 @@ operations. In f32 the operations bound both at the training shape (the
 same, f32): an f32-accurate product can run on the tensor cores as three
 TF32 passes (494.7 / 3 = 164.9 TFLOP/s, the rate the bounds use), so the
 forward's 3.2e9 flops take at least 0.0196 ms and the backward's 8.1e9
-(its ~101 MB take 30 us) 0.049 ms. The f32 forward still computes its
-products with scalar f32 FMAs from shared memory, the f32 backward as
-three TF32 passes on the tensor cores; PERF.md has every kernel's times.
+(its ~101 MB take 30 us) 0.049 ms. Both compute their f32 products so;
+PERF.md has every kernel's times.
 
 Numerics, keyed by q's dtype in ``TOLERANCE`` (forward) and
 ``BWD_TOLERANCE`` (dq, dk, dv): both sides compute in f32 from the same
@@ -130,7 +132,7 @@ HEAD_DIMS = (32, 64, 128)
 # kernel launches in this process since the last reset: each wrapper adds
 # one per launch of its kernel, and these are the only counts of them
 LAUNCHES = 0            # the forward, both kernels
-TC_LAUNCHES = 0         # the forward's tensor-core (bf16) kernel
+TC_LAUNCHES = 0         # the forward's bf16 kernel (flash_fwd_tc_kernel)
 DQ_LAUNCHES = 0         # the backward's dQ kernel
 DKV_LAUNCHES = 0        # the backward's dK/dV kernel
 _launches_lock = threading.Lock()
@@ -341,7 +343,8 @@ def _check(q, k, v, bias, segq, segk, *more):
 
 def tma_aligned(t):
     """Whether a (B, H, T, D) view meets the 16-byte rule of the kernels'
-    bulk copies (the bf16 forward's TMA, the backward's ``cp.async``): a
+    bulk copies (the bf16 forward's TMA, the f32 forward's and the
+    backward's ``cp.async``): a
     16-byte-aligned base and batch, head and time strides that are
     positive multiples of 16 bytes (the unit stride along D aside)."""
     nbytes = t.element_size()
@@ -367,25 +370,35 @@ def _strides(tensors, bias):
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
+def _fwd_operands(q, k, v, bias):
+    """q, k, v and the bias as the forward kernels take them: a view that
+    breaks the 16-byte rule of their copies (``tma_aligned``: the bf16
+    kernel's TMA, the f32 kernel's ``cp.async``) is copied into a
+    contiguous tensor (the prefill's and the training step's views meet it
+    and are never copied), and so is a bf16 call's bias without a unit
+    stride along keys (the bf16 kernel reads bias rows whole)."""
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and bias is not None \
+            and bias.stride(3) != 1:
+        bias = bias.contiguous()
+    return q, k, v, bias
+
+
 def flash_attention_cuda(q, k, v, bias=None, segq=None, segk=None,
                          scale=None, causal=False):
     """Launch the forward kernel on the current stream; the contract of
-    flash_attention_reference. bf16 launches the tensor-core kernel, f32
-    the SIMT kernel. q/k/v may be strided views (a unit stride along D),
-    such as the prefill's head-transposed projections; a bf16 view that
-    does not meet TMA's rule (``tma_aligned``) is first copied into a
-    contiguous tensor (the prefill's views meet it and are never copied),
-    and so is a bias without a unit stride along keys.
+    flash_attention_reference. bf16 launches ``flash_fwd_tc_kernel``
+    (wgmma), f32 ``flash_fwd_kernel`` (mma.sync, three TF32 passes). q/k/v
+    may be strided views (a unit stride along D), such as the prefill's
+    and the training step's head-transposed projections; operands are
+    made what the kernels take by ``_fwd_operands``.
     out is (B, H, Tq, D) contiguous in q's dtype, lse (B, H, Tq) f32.
     Raises on operands it does not take and on a refused launch; never
     falls back."""
     global LAUNCHES, TC_LAUNCHES
     bias = _check(q, k, v, bias, segq, segk)
     tc = q.dtype == torch.bfloat16
-    if tc:
-        q, k, v = (_aligned(t) for t in (q, k, v))
-        if bias is not None and bias.stride(3) != 1:
-            bias = bias.contiguous()    # the kernel reads bias rows whole
+    q, k, v, bias = _fwd_operands(q, k, v, bias)
     lib = build()
     b, h, tq, d = q.shape
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 from paddle_tpu.ops.pallas import flash as jflash
 from paddle_tpu_torch.ops import flash as tflash
 from paddle_tpu_torch.ops.cuda import flash as cflash
+from test_torch_flash_bwd import mm3
 
 ATOL = RTOL = 2e-5
 
@@ -326,3 +327,107 @@ def test_kernel_wrapper_refuses_cpu_operands():
         with pytest.raises(ValueError, match="CUDA tensor"):
             cflash.flash_attention_cuda(*args, causal=True)
     assert (cflash.LAUNCHES, cflash.TC_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# the numerical design of the f32 forward kernel, emulated on the CPU
+# ---------------------------------------------------------------------------
+#
+# On the card flash_fwd_kernel computes S = Q K^T and each key tile's P V
+# on the tensor cores as three TF32 passes, big.big' + big.small' +
+# small.big' (``mm3`` of tests/test_torch_flash_bwd.py, with P split too),
+# under an online softmax over the key tiles (64 keys, 32 at D 128): each
+# tile's P V is summed on its own and folded into the output as
+# acc alpha + tile. These tests push the plain forward through the same
+# roundings and tiling and hold it to the unchanged f32 tolerance, the
+# measure the card uses. Nothing on the path uses this emulation.
+
+def _emulated_fwd(q, k, v, bias, causal, passes=3):
+    """(out, lse) of the f32 kernel's arithmetic in f32."""
+    d = q.shape[-1]
+    tile = 32 if d == 128 else 64
+    s = mm3(q, k.transpose(-1, -2), passes) * (1.0 / math.sqrt(d))
+    if bias is not None:
+        s = s + bias
+    vis = cflash._visible_mask(q.shape[2], k.shape[2], causal)
+    s = torch.where(vis, s, torch.tensor(cflash.NEG_INF))
+    m = torch.full(q.shape[:3], cflash.NEG_INF)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[2], tile):
+        st, vt = s[..., k0:k0 + tile], vis[..., k0:k0 + tile]
+        mx = torch.maximum(m, st.amax(dim=-1))
+        alpha = torch.exp(m - mx)
+        p = torch.where(vt, torch.exp(st - mx[..., None]), torch.zeros(()))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + mm3(p, v[..., k0:k0 + tile, :],
+                                           passes)
+        m = mx
+    lf = l.clamp_min(cflash.L_FLOOR)
+    return acc / lf[..., None], m + torch.log(lf)
+
+
+# (B, H, Tq, Tk, causal, bias): a causal square, a cross length under
+# causal, a per-query bias, and a long key run (64 and 128 tiles)
+FWD_TF32_CASES = {"causal": (1, 2, 256, 256, True, False),
+                  "cross_len": (1, 2, 96, 160, True, False),
+                  "bias_query": (2, 2, 128, 128, False, True),
+                  "long_key": (1, 1, 256, 4096, False, False)}
+
+
+def _fwd_case(name, d, seed=80):
+    b, h, tq, tk, causal, bias = FWD_TF32_CASES[name]
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, h, tq, tk, d, seed))
+    bt = torch.from_numpy(_rand((b, 1, tq, tk), seed + 3)) if bias else None
+    return q, k, v, bt, causal
+
+
+def _fwd_err(got, ref):
+    """The card's measure on out and lse: max |x - ref| / max(1, |ref|)."""
+    return [((x - r).abs() / r.abs().clamp_min(1.0)).max().item()
+            for x, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("name", sorted(FWD_TF32_CASES))
+def test_forward_three_tf32_passes_hold_the_f32_tolerance(name, d):
+    """out and lse through the three-pass products, tile by tile, stay
+    within the f32 forward's tolerance of the plain version."""
+    q, k, v, bt, causal = _fwd_case(name, d)
+    got = _emulated_fwd(q, k, v, bt, causal)
+    ref = cflash.flash_attention_reference(q, k, v, bt, None, None, None,
+                                           causal)
+    err, lerr = _fwd_err(got, ref)
+    assert err <= cflash.TOLERANCE[torch.float32]
+    assert lerr <= cflash.TOLERANCE[torch.float32]
+
+
+def test_forward_one_tf32_pass_misses_the_f32_tolerance():
+    """Why three passes: one TF32 pass (big.big') of both products is far
+    outside the f32 tolerance on out."""
+    q, k, v, bt, causal = _fwd_case("causal", 64)
+    got = _emulated_fwd(q, k, v, bt, causal, passes=1)
+    ref = cflash.flash_attention_reference(q, k, v, bt, None, None, None,
+                                           causal)
+    err, _ = _fwd_err(got, ref)
+    assert err > 10 * cflash.TOLERANCE[torch.float32]
+
+
+def test_f32_forward_operands_copy_only_views_that_break_the_16_byte_rule():
+    """The f32 kernel's cp.async copies take the training step's
+    transposed views as they are; a view at an odd element offset is
+    copied into a contiguous tensor of the same values. The f32 kernel
+    reads a bias at its strides, so a key-strided one is kept."""
+    x = torch.from_numpy(_rand((2, 24, 3, 64), 81))
+    view = x.transpose(1, 2)
+    bias = torch.from_numpy(_rand((2, 3, 24, 24), 82)).transpose(-1, -2)
+    assert cflash.tma_aligned(view)
+    got = cflash._fwd_operands(view, view, view, bias)
+    assert all(t is view for t in got[:3]) and got[3] is bias
+    flat = torch.empty(x.numel() + 1)
+    odd = flat[1:].view(2, 3, 24, 64)
+    odd.copy_(view)
+    assert not cflash.tma_aligned(odd)
+    for t in cflash._fwd_operands(odd, odd, odd, None)[:3]:
+        assert t.is_contiguous() and cflash.tma_aligned(t)
+        assert torch.equal(t, view)
