@@ -111,7 +111,39 @@ backward kernels are printed):
 10. flash backward times: kernels, plain and the backward of
    scaled_dot_product_attention(is_causal=True) on the same views (the
    yardstick, never on the path) at the training shape (f32 and bf16) and
-   at T 16384 (f32), cold L2, beside the bound.
+   at T 16384 (f32), cold L2, beside the bound;
+11. the prefix cache at full width (GPTConfig(), 16 slots, block 16,
+   chunk 16, context 1024): bench.py's prefix traffic (48 requests, 80 %
+   one of three tenant system prompts of 384, 256 and 512 tokens plus a
+   1-64 token suffix, the rest random prompts of 64-512 tokens, 32 new
+   tokens each) through a no-share server and a prefix server's cold and
+   warm passes; in f32 the prefix passes give the no-share ids, allocate
+   fewer blocks a request (the ratio is printed), hit the index and copy
+   at least one block on write; tokens/s of both servers in bf16;
+12. speculative decoding on GPTConfig(), k 3: the target as its own
+   draft (f32: the plain server's ids, accept rate 1.0, fewer
+   iterations) and a small draft at head dim 32 (hidden 256, 8 heads, 2
+   layers; f32: the plain server's ids; rejection mode: the same ids on
+   two runs with one seed); bf16 tokens/s of the plain server and of the
+   small draft's; the draft's launches = iterations x k x its layers;
+13. decode strategies at full width: four n = 4 sampled fork groups
+   (one prefill a group, a peak block footprint below the same 16 lanes
+   as separate requests), beam K 4 with an eos id in f32, plain and
+   under greedy speculation (every hypothesis's ids equal the dense
+   inference.decoding beam's over the same prompts), a regex and a JSON constraint over a seeded
+   32000-entry string vocabulary (every output conforms, one of them an
+   n = 2 group), and a cancelled group and a group past its deadline
+   (every block comes back); wall and device ms a step of the group and
+   beam runs.
+
+Phases 11-13 serve through the paged kernel (launches = iterations x
+layers in every run, and a draft's iterations x k x its layers) and hold
+it against its plain version on one attention call each path made, its
+inputs copied as the kernel read them: lanes that share prefix blocks, a
+verify step with several decode columns a lane, a draft rollout at C 1
+and D 32, beam lanes over shared prompt blocks, and a beam verify step
+whose columns land in the tail block the lanes' first decode write
+copied.
 
     python3 chip_smoke.py --bwd-times-of <checkout>
 
@@ -127,7 +159,8 @@ does the same with phase 8 and the forward kernels.
 Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
 flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
-the flash-attention backward); the line before
+the flash-attention backward; the paged entry also counts the launches
+of phases 11-13 in ``launches_by_path``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.
@@ -158,6 +191,22 @@ SHAPES = ("decode", "prefill", "step")
 KV_HEADS = 4                        # phase 2b's GQA: 12 query heads over 4
 D128_CFG = dict(hidden_size=1024, num_heads=8)  # phase 2c: head_dim 128
 D128_REQUESTS = 6
+PREFIX_REQUESTS = 48                # phase 11: bench.py's prefix traffic
+PREFIX_NEW = 32
+TENANT_LENS = (384, 256, 512)       # its three tenant system prompts
+SPEC_K = 3                          # phase 12
+SPEC_REQUESTS = 16
+SPEC_NEW = 32
+# phase 12's small draft: head dim 256 / 8 = 32, a head dim the paged
+# kernel takes
+SPEC_DRAFT_CFG = dict(hidden_size=256, num_heads=8, num_layers=2,
+                      inner_size=1024)
+GROUPS = 4                          # phase 13: n = 4 fork groups
+GROUP_NEW = 48
+BEAM_PROMPT = 72                    # ends inside a block of 16
+BEAM_NEW = 16
+GUIDED_REGEX = r"[a-z]+@[a-z]+\.(com|org)"
+GUIDED_NEW = 24
 PROMPTS = 8                         # phase 6: prompts of PROMPT_LEN tokens
 PROMPT_LEN = 512
 PREFILL_RUNS = 5                    # phase 6: timed prefills, median kept
@@ -1646,6 +1695,637 @@ def phase_flash_bwd_times(flash):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: the prefix cache, speculative decoding, decode strategies
+# ---------------------------------------------------------------------------
+
+class CaptureAttention:
+    """A model's attention hook for phases 11-13: the dispatcher itself
+    (so every launch counts as on the plain path), plus, once `armed`,
+    a copy of one call's inputs (after `skip` more calls), taken after
+    the step's KV write: what the kernel read at a shape and over tables
+    that the path gave it."""
+
+    def __init__(self):
+        self.armed = False
+        self.skip = 0
+        self.args = None
+
+    def arm(self, skip=0):
+        self.armed, self.skip = True, skip
+
+    def __call__(self, q, k_pool, v_pool, tables, pos, k_scale=None,
+                 v_scale=None):
+        from paddle_tpu_torch.serving import paged_attention
+        if self.armed:
+            if self.skip:
+                self.skip -= 1
+            else:
+                self.armed = False
+                scales = {} if k_scale is None else {
+                    "k_scale": k_scale.clone(), "v_scale": v_scale.clone()}
+                self.args = ([t.clone() for t in (q, k_pool, v_pool,
+                                                  tables, pos)], scales)
+        return paged_attention(q, k_pool, v_pool, tables, pos,
+                               k_scale=k_scale, v_scale=v_scale)
+
+
+def check_captured(paged, name, cap):
+    """The kernel against its plain version on a captured call, over the
+    lanes with work (an idle lane's table is all NULL: the plain version
+    gathers the NULL block there, the kernel reads nothing). Returns the
+    max abs error."""
+    if cap.args is None:
+        _fail(f"{name}: no attention call was captured")
+    args, scales = cap.args
+    out = paged.paged_attention_cuda(*args, **scales)
+    ref = paged.paged_attention_reference(*args, **scales)
+    torch.cuda.synchronize()
+    live = args[3][:, 0] != paged.NULL_BLOCK
+    err = (out[live].float() - ref[live].float()).abs().max().item()
+    tol = paged.TOLERANCE[out.dtype]
+    q, tables = args[0], args[3]
+    shared = int((torch.bincount(tables[live].flatten().long())[1:] > 1)
+                 .sum().item())
+    print(f"kernel {name}: q {tuple(q.shape)} {str(q.dtype)[6:]}, D "
+          f"{q.shape[-1]}, {int(live.sum())} lanes, {shared} blocks in "
+          f"two or more lanes' tables: max_abs_err {err:.3e} (tolerance "
+          f"{tol})")
+    if not torch.isfinite(out[live]).all() or not err <= tol:
+        _fail(f"kernel disagrees with its plain version at {name}: {err}")
+    cap.args = None
+    return err
+
+
+def _serving_model(cfg, tree, dtype=None):
+    """A serving model on the card whose attention is a CaptureAttention
+    (returned beside it)."""
+    cap = CaptureAttention()
+    return make_model(cfg, tree, dtype, attention=cap), cap
+
+
+def _pump(paged, srv, arm=None, cap=None, skip=0):
+    """Step `srv` until idle with the paged launch count set to 0 just
+    before; arm `cap` before the first step at which arm(srv) holds.
+    Returns (wall s, iterations, launches, per-step host ms)."""
+    it0 = srv.get_stats()["iterations"]
+    torch.cuda.synchronize()
+    paged.LAUNCHES = 0
+    t0 = time.perf_counter()
+    step_ms = []
+    while True:
+        if cap is not None and arm is not None and cap.args is None \
+                and not cap.armed and arm(srv):
+            cap.arm(skip)
+        ts = time.perf_counter()
+        if not srv.step():
+            break
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, srv.get_stats()["iterations"] - it0,
+            paged.LAUNCHES, step_ms)
+
+
+def _count_allocations(srv):
+    """Wrap the server's block allocator to count the blocks it hands
+    out (bench.py's blocks-per-request measure)."""
+    counter = {"blocks": 0}
+    real = srv.cache.allocate
+
+    def counting_allocate(n):
+        got = real(n)
+        if got is not None:
+            counter["blocks"] += len(got)
+        return got
+
+    srv.cache.allocate = counting_allocate
+    return counter
+
+
+def _lanes_sharing(srv):
+    """True when two of the server's active lanes hold one block."""
+    seen = set()
+    for slot in srv._sched._slots:
+        if slot is None or slot.hold:
+            continue
+        mine = {int(b) for b in slot.table if b}
+        if seen & mine:
+            return True
+        seen |= mine
+    return False
+
+
+def prefix_requests(vocab):
+    """bench.py's prefix-cache traffic at this width: PREFIX_REQUESTS
+    requests, 80 % a tenant system prompt (384, 256 or 512 tokens) plus a
+    random 1-64 token suffix, the rest random prompts of 64-512 tokens."""
+    rng = np.random.default_rng(SEED + 11)
+    tenants = [rng.integers(3, vocab, n).astype(np.int32)
+               for n in TENANT_LENS]
+    reqs = []
+    for _ in range(PREFIX_REQUESTS):
+        if rng.random() < 0.8:
+            t = tenants[int(rng.integers(len(tenants)))]
+            sfx = rng.integers(3, vocab, int(rng.integers(1, 65)))
+            reqs.append(np.concatenate([t, sfx]).astype(np.int32))
+        else:
+            reqs.append(rng.integers(3, vocab, int(rng.integers(64, 513)))
+                        .astype(np.int32))
+    return reqs
+
+
+def _serve_pass(paged, srv, prompts, new_tokens, counter=None, arm=None,
+                cap=None, **submit):
+    """Submit every prompt and pump until idle; the launch gate: one
+    launch a layer a step. Returns (ids, wall s, iterations, blocks)."""
+    if counter is not None:
+        counter["blocks"] = 0
+    futs = [srv.submit(p, max_new_tokens=new_tokens, **submit)
+            for p in prompts]
+    wall, iters, launches, _ = _pump(paged, srv, arm, cap)
+    want = iters * srv.model.num_layers
+    if launches != want:
+        _fail(f"paged launches {launches} != iterations {iters} x "
+              f"{srv.model.num_layers} layers")
+    ids = [list(f.result(timeout=0).token_ids) for f in futs]
+    return ids, wall, iters, counter["blocks"] if counter else None
+
+
+def phase_prefix(paged, cfg, tree):
+    """Phase 11: bench.py's prefix traffic through a prefix-cache server
+    and a no-share server at full width. f32: the prefix server's cold
+    and warm passes give the no-share ids; fewer blocks allocated per
+    request; hit rate > 0; at least one copy-on-write; launches =
+    iterations x layers; the kernel against its plain version on a step
+    whose lanes share blocks. bf16: tokens/s of the warm prefix pass and
+    the no-share pass. Returns the launches of the f32 warm pass."""
+    from paddle_tpu_torch.serving import GenerationServer
+    prompts = prefix_requests(cfg.vocab_size)
+    out, errs = {}, {}
+
+    def server(model, prefix):
+        return GenerationServer(model, num_slots=16, block_size=16,
+                                max_context=1024, chunk=CHUNK, start=False,
+                                prefix_cache=prefix)
+
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        model, cap = _serving_model(cfg, tree, dtype)
+        plain = server(model, False)
+        plain_ctr = _count_allocations(plain)
+        ids0, wall0, it0, blocks0 = _serve_pass(paged, plain, prompts,
+                                                PREFIX_NEW, plain_ctr)
+        del plain
+        share = server(model, True)
+        ctr = _count_allocations(share)
+        ids1, wall1, it1, blocks1 = _serve_pass(paged, share, prompts,
+                                                PREFIX_NEW, ctr)
+        ids2, wall2, it2, blocks2 = _serve_pass(
+            paged, share, prompts, PREFIX_NEW, ctr, _lanes_sharing, cap)
+        errs[f"prefix_warm_{tag}"] = check_captured(
+            paged, f"prefix warm pass {tag}", cap)
+        st = share.get_stats()
+        pf = st["prefix"]
+        gen = PREFIX_REQUESTS * PREFIX_NEW
+        row = {"noshare_tokens_per_s": gen / wall0,
+               "prefix_cold_tokens_per_s": gen / wall1,
+               "prefix_warm_tokens_per_s": gen / wall2,
+               "iterations": {"noshare": it0, "prefix_cold": it1,
+                              "prefix_warm": it2},
+               "launches_warm": it2 * cfg.num_layers,
+               "blocks_per_request": {"noshare": blocks0 / PREFIX_REQUESTS,
+                                      "prefix_cold":
+                                      blocks1 / PREFIX_REQUESTS,
+                                      "prefix_warm":
+                                      blocks2 / PREFIX_REQUESTS},
+               "blocks_per_request_ratio_noshare_over_warm":
+                   blocks0 / max(blocks2, 1),
+               "hit_rate": pf["hits"] / max(pf["hits"] + pf["misses"], 1),
+               "prefix": pf, "cow_copies": share.cache.cow_copies,
+               "ids_equal_noshare": ids1 == ids0 and ids2 == ids0}
+        out[tag] = row
+        print(f"prefix {tag} " + json.dumps(row))
+        if st["blocks_free"] + pf["entries"] != st["blocks_total"]:
+            _fail(f"prefix {tag}: blocks not reclaimed: {st}")
+        if tag == "f32":
+            if not row["ids_equal_noshare"]:
+                same = sum(a == b for a, b in zip(ids0, ids2))
+                _fail(f"prefix f32: ids differ from the no-share server "
+                      f"({same}/{PREFIX_REQUESTS} warm requests equal)")
+            if not blocks2 < blocks0:
+                _fail(f"prefix f32: {blocks2} blocks allocated warm, "
+                      f"{blocks0} without sharing")
+            if not pf["hits"] > 0 or not share.cache.cow_copies >= 1:
+                _fail(f"prefix f32: hits {pf['hits']}, copies "
+                      f"{share.cache.cow_copies}")
+        del share, model
+        torch.cuda.empty_cache()
+    return out, errs
+
+
+def spec_requests(vocab):
+    rng = np.random.default_rng(SEED + 12)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32)
+            for n in rng.integers(16, 257, SPEC_REQUESTS)]
+
+
+def phase_spec(paged, cfg, tree):
+    """Phase 12: speculative decoding on GPTConfig(), k = SPEC_K, chunk
+    16, in f32: (a) the target as its own draft: ids of the plain
+    server, accept rate 1.0, fewer iterations; (b) a small draft at head
+    dim 32 (SPEC_DRAFT_CFG): ids of the plain server; rejection mode
+    gives the same ids on two runs with one seed. Launches: the target
+    iterations x its layers, the draft iterations x k x its layers. The
+    kernel against its plain version on a verify step (decode lanes with
+    several columns) and on a draft rollout (C = 1, D 32). Then bf16
+    tokens/s of the plain server and of (b). Returns the launches of the
+    target and of the draft in (b)'s f32 run."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_params
+    from paddle_tpu_torch.serving import GenerationServer, SpecDecodeConfig
+    dcfg = GPTConfig(vocab_size=cfg.vocab_size,
+                     max_position=cfg.max_position, **SPEC_DRAFT_CFG)
+    dtree = init_params(dcfg, seed=SEED + 1)
+    prompts = spec_requests(cfg.vocab_size)
+    errs, out = {}, {}
+
+    def verifying(srv):
+        return any(s is not None and not s.prefilling
+                   and s.req.max_new_tokens - len(s.req.generated) > SPEC_K
+                   for s in srv._sched._slots)
+
+    def run(dtype, draft, mode="greedy", arm=False):
+        model, cap = _serving_model(cfg, tree, dtype)
+        spec = None
+        dcap = None
+        if draft is not None:
+            dm_cfg, dm_tree = draft
+            dmodel, dcap = _serving_model(dm_cfg, dm_tree, dtype)
+            spec = SpecDecodeConfig(dmodel, k=SPEC_K, mode=mode,
+                                    seed=SEED)
+        srv = GenerationServer(model, num_slots=16, block_size=16,
+                               max_context=1024, chunk=CHUNK, start=False,
+                               spec=spec)
+        futs = [srv.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+        caps = [c for c in (cap, dcap) if c is not None]
+
+        def arm_all(s):
+            if arm and verifying(s):
+                if dcap is not None:
+                    # the draft's sync pass calls each layer once, then
+                    # the first rollout (C = 1) calls layer 0
+                    dcap.arm(skip=dm_cfg.num_layers)
+                return True
+            return False
+
+        wall, iters, launches, _ = _pump(paged, srv, arm_all, cap)
+        st = srv.get_stats()
+        ids = [list(f.result(timeout=0).token_ids) for f in futs]
+        draft_launches = st["spec"]["draft_launches"] if spec else 0
+        target = launches - draft_launches
+        if target != iters * cfg.num_layers:
+            _fail(f"spec: target launches {target} != iterations {iters} "
+                  f"x {cfg.num_layers}")
+        if spec and draft_launches != iters * SPEC_K * dm_cfg.num_layers:
+            _fail(f"spec: draft launches {draft_launches} != iterations "
+                  f"{iters} x k {SPEC_K} x {dm_cfg.num_layers} layers")
+        if st["blocks_free"] != st["blocks_total"]:
+            _fail(f"spec: blocks not reclaimed: {st}")
+        row = {"iterations": iters, "wall_s": wall,
+               "tokens_per_s": SPEC_REQUESTS * SPEC_NEW / wall,
+               "target_launches": target, "draft_launches": draft_launches,
+               "spec": st["spec"]}
+        return ids, row, caps
+
+    plain_ids, row, _ = run(None, None)
+    out["plain_f32"] = row
+    self_ids, row, caps = run(None, (cfg, tree), arm=True)
+    out["self_draft_f32"] = row
+    errs["spec_verify_f32"] = check_captured(paged, "spec verify step f32",
+                                             caps[0])
+    if row["spec"]["accept_rate"] != 1.0 or self_ids != plain_ids \
+            or not row["iterations"] < out["plain_f32"]["iterations"]:
+        _fail(f"spec (a): accept rate {row['spec']['accept_rate']}, ids "
+              f"equal {self_ids == plain_ids}, iterations "
+              f"{row['iterations']} vs {out['plain_f32']['iterations']}")
+    small_ids, row, caps = run(None, (dcfg, dtree), arm=True)
+    out["small_draft_f32"] = row
+    errs["spec_verify_small_f32"] = check_captured(
+        paged, "spec verify step, small draft, f32", caps[0])
+    errs["spec_draft_d32_f32"] = check_captured(
+        paged, "spec draft rollout D 32 f32", caps[1])
+    if small_ids != plain_ids:
+        same = sum(a == b for a, b in zip(small_ids, plain_ids))
+        _fail(f"spec (b): {same}/{SPEC_REQUESTS} requests equal the plain "
+              f"server's ids")
+    rej = [run(None, (dcfg, dtree), mode="rejection")[0:2]
+           for _ in range(2)]
+    out["rejection_f32"] = rej[0][1]
+    if rej[0][0] != rej[1][0]:
+        _fail("spec rejection mode: two runs with one seed differ")
+    _, out["plain_bf16"], _ = run(torch.bfloat16, None)
+    _, out["small_draft_bf16"], _ = run(torch.bfloat16, (dcfg, dtree))
+    for k, v in out.items():
+        print(f"spec {k} " + json.dumps(v))
+    return out, errs
+
+
+def synthetic_vocab(n):
+    """A seeded n-entry string vocabulary of 1-3 characters over digits,
+    letters and JSON punctuation; id 1 is the eos id."""
+    rng = np.random.default_rng(SEED + 13)
+    alphabet = np.array(list('0123456789abcdefghijklmnopqrstuvwxyz'
+                             '{}[]":,.-@ '))
+    return ["".join(rng.choice(alphabet, int(rng.integers(1, 4))))
+            for _ in range(n)]
+
+
+def _conforms(constraint, ids, eos):
+    state = constraint.initial_state()
+    for t in ids:
+        if int(t) == eos:
+            return (constraint.accepting(state)
+                    or not constraint.allowed_tokens(state).any())
+        state = constraint.advance(state, int(t))
+        if state is None:
+            return False
+    return True
+
+
+def _dense_beam(cfg, tree, prompt, n_new, eos):
+    """The dense reference beam (inference.decoding.beam_decode over
+    build_kv_step, prompt teacher-forced into a K-tiled cache) in f32 on
+    the card."""
+    from paddle_tpu_torch.inference import decoding as dec
+    from paddle_tpu_torch.models import gpt
+    params = gpt.params_from_numpy(tree, "cuda")
+    max_len = len(prompt) + n_new
+    d = cfg.hidden_size // cfg.num_heads
+    step = gpt.build_kv_step(params, cfg, max_len)
+    cache = dec.init_kv_cache(BEAM, cfg.num_layers, cfg.num_heads, max_len,
+                              d, device="cuda")
+    with torch.inference_mode():
+        for t, tok in enumerate(prompt[:-1]):
+            _, cache = step(torch.full((BEAM,), int(tok), device="cuda"),
+                            cache, t)
+        ids, norm = dec.beam_decode(
+            step, cache, torch.tensor([int(prompt[-1])], device="cuda"),
+            n_new, BEAM, eos, start_t=len(prompt) - 1)
+    return ids[0].cpu().numpy(), norm[0].cpu().numpy()
+
+
+def _profile_steps(srv, steps):
+    """torch.profiler over `steps` steps of srv: host wall and device
+    kernel time per step."""
+    from torch.profiler import profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=PROFILE_ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        n = 0
+        while n < steps and srv.step():
+            n += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type.name == "CUDA") / 1e3
+    if n == 0 or dev <= 0:
+        _fail("the profiler saw no steps or no device time")
+    return {"steps": n, "wall_ms_per_step": wall / n * 1e3,
+            "device_ms_per_step": dev / n,
+            "device_busy_share": dev / (wall * 1e3)}
+
+
+def phase_strategies(paged, cfg, tree):
+    """Phase 13 at full width: n = 4 sampled fork groups (bf16): one
+    prefill a group and a peak block footprint below the same lanes as
+    separate requests; beam K 4 with an eos id (f32): ids of the dense
+    beam; regex and JSON constraints over a seeded 32000-entry string
+    vocabulary (bf16), one of them an n = 2 group: every output
+    conforms; cancel and deadline on groups: every block comes back. The
+    beam again under greedy speculation (the target as its own draft, k
+    SPEC_K): the same ids. Launches = iterations x layers in each run
+    (and the draft's iterations x k x layers); the kernel against its
+    plain version on the first step after the forks of each beam run
+    (lanes sharing the prompt's blocks; under speculation, verify columns
+    written into the block the first decode write copied);
+    wall and device ms a step of the group and beam runs (the (S, V)
+    logp rows cross to the host at a group's fork and at every beam
+    step). Returns {run: launches}."""
+    from paddle_tpu_torch.serving import (BeamParams, DeadlineExceeded,
+                                          GenerationServer, JsonConstraint,
+                                          RegexConstraint, RequestCancelled,
+                                          SamplingParams, SpecDecodeConfig)
+    rng = np.random.default_rng(SEED + 14)
+    out, errs, launches = {}, {}, {}
+
+    def server(model, **kw):
+        kw.setdefault("max_context", 1024)
+        return GenerationServer(model, num_slots=16, block_size=16,
+                                chunk=CHUNK, start=False, **kw)
+
+    # -- fork groups --------------------------------------------------------
+    model, cap = _serving_model(cfg, tree, torch.bfloat16)
+    prompts = [rng.integers(3, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(256, 513, GROUPS)]
+    peaks = {}
+    for tag in ("group", "separate"):
+        srv = server(model)
+        if tag == "group":
+            futs = [srv.submit(p, max_new_tokens=GROUP_NEW, n=4,
+                               sampling=SamplingParams(
+                                   n=4, temperature=0.8, top_k=50,
+                                   seed=SEED + i))
+                    for i, p in enumerate(prompts)]
+        else:
+            futs = [srv.submit(p, max_new_tokens=GROUP_NEW,
+                               sampling=SamplingParams(
+                                   temperature=0.8, top_k=50, seed=SEED + i))
+                    for i, p in enumerate(prompts) for _ in range(4)]
+        paged.LAUNCHES = 0
+        it0 = srv.get_stats()["iterations"]
+        peak = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while srv.step():
+            peak = max(peak, srv.cache.num_used)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = srv.get_stats()
+        iters = st["iterations"] - it0
+        if paged.LAUNCHES != iters * cfg.num_layers:
+            _fail(f"groups {tag}: launches {paged.LAUNCHES} != "
+                  f"{iters} x {cfg.num_layers}")
+        launches[f"13 fork groups {tag}"] = paged.LAUNCHES
+        if st["blocks_free"] != st["blocks_total"]:
+            _fail(f"groups {tag}: blocks not reclaimed")
+        peaks[tag] = peak
+        res = [f.result(timeout=0) for f in futs]
+        if tag == "group":
+            lanes = [len(r.lanes) for r in res]
+            if lanes != [4] * GROUPS or st["group.forks"] != 3 * GROUPS \
+                    or st["prefill_tokens"] != sum(map(len, prompts)):
+                _fail(f"groups: lanes {lanes}, stats {st}")
+            out["groups"] = {"groups": GROUPS, "lanes": 4 * GROUPS,
+                             "iterations": iters, "wall_s": wall,
+                             "tokens_per_s": 4 * GROUPS * GROUP_NEW / wall,
+                             "prefill_tokens": st["prefill_tokens"],
+                             "cow_copies": st["group.cow_copies"]}
+        else:
+            out["separate"] = {"requests": 4 * GROUPS, "iterations": iters,
+                               "wall_s": wall,
+                               "tokens_per_s": 4 * GROUPS * GROUP_NEW / wall,
+                               "prefill_tokens": st["prefill_tokens"]}
+    out["peak_blocks"] = peaks
+    if not peaks["group"] < peaks["separate"]:
+        _fail(f"fork groups peak at {peaks['group']} blocks, separate "
+              f"requests at {peaks['separate']}")
+    # the groups again, traced over 8 steps once every lane decodes
+    srv = server(model)
+    for i, p in enumerate(prompts):
+        srv.submit(p, max_new_tokens=GROUP_NEW, n=4,
+                   sampling=SamplingParams(n=4, temperature=0.8, top_k=50,
+                                           seed=SEED + i))
+    while True:
+        busy = [s for s in srv._sched._slots if s is not None]
+        if busy and all(not s.prefilling and not s.hold for s in busy):
+            break
+        srv.step()
+    out["groups"]["decode_steps"] = _profile_steps(srv, 8)
+    srv.close(drain=False)
+    del model
+
+    # -- beam, plain and under greedy speculation ----------------------------
+    # the prompts end inside a block, which the K lanes share after the
+    # fork: the first decode write copies it (and a verify step then
+    # writes several columns into the copy)
+    bprompts = [rng.integers(3, cfg.vocab_size, BEAM_PROMPT)
+                .astype(np.int32) for _ in range(2)]
+    eos = []
+    dense = []
+    for p in bprompts:
+        probe, _ = _dense_beam(cfg, tree, p, BEAM_NEW, eos=0)
+        e = int(probe[0, 2])
+        eos.append(e)
+        dense.append(_dense_beam(cfg, tree, p, BEAM_NEW, e))
+    for tag in ("beam", "beam_spec"):
+        model, cap = _serving_model(cfg, tree)
+        spec = None
+        if tag == "beam_spec":
+            spec = SpecDecodeConfig(make_model(cfg, tree), k=SPEC_K)
+        srv = server(model, max_context=BEAM_PROMPT + BEAM_NEW, spec=spec)
+        futs = [srv.submit(p, max_new_tokens=BEAM_NEW, eos_id=e,
+                           beam=BeamParams(BEAM))
+                for p, e in zip(bprompts, eos)]
+        paged.LAUNCHES = 0
+        it0 = srv.get_stats()["iterations"]
+        prof = None
+        while True:
+            if cap.args is None and not cap.armed and _lanes_sharing(srv) \
+                    and all(s is None or not s.prefilling
+                            for s in srv._sched._slots):
+                # the first step after the forks
+                cap.arm()
+                if not srv.step():
+                    break
+                if spec is None:
+                    prof = _profile_steps(srv, 4)
+                continue
+            if not srv.step():
+                break
+        st = srv.get_stats()
+        iters = st["iterations"] - it0
+        draft = st["spec"]["draft_launches"] if spec else 0
+        if paged.LAUNCHES - draft != iters * cfg.num_layers or \
+                draft != iters * (SPEC_K if spec else 0) * cfg.num_layers:
+            _fail(f"{tag}: launches {paged.LAUNCHES} ({draft} draft) for "
+                  f"{iters} iterations x {cfg.num_layers} layers")
+        launches[f"13 {tag}"] = paged.LAUNCHES
+        errs[f"{tag}_f32"] = check_captured(paged, f"{tag} step f32", cap)
+        score_err = 0.0
+        for f, (ids, norm) in zip(futs, dense):
+            hyps = f.result(timeout=0).hypotheses
+            got = np.stack([np.asarray(h.token_ids, np.int64)
+                            for h in hyps])
+            if not np.array_equal(got, ids):
+                _fail(f"{tag} ids {got.tolist()} != dense {ids.tolist()}")
+            score_err = max(score_err, float(np.abs(
+                np.array([h.norm_score for h in hyps]) - norm).max()))
+        if st["blocks_free"] != st["blocks_total"]:
+            _fail(f"{tag}: blocks not reclaimed")
+        out[tag] = {"groups": 2, "beam": BEAM, "new_tokens": BEAM_NEW,
+                    "prompt": BEAM_PROMPT, "eos": eos, "iterations": iters,
+                    "reorders": st["beam.reorders"],
+                    "group_cow_copies": st["group.cow_copies"],
+                    "norm_score_max_abs_diff_vs_dense": score_err,
+                    "spec": st["spec"], "steps": prof}
+        del model, srv
+
+    # -- guided -------------------------------------------------------------
+    vocab = synthetic_vocab(cfg.vocab_size)
+    geos = 1
+    model, cap = _serving_model(cfg, tree, torch.bfloat16)
+    srv = server(model)
+    t0 = time.perf_counter()
+    regex = RegexConstraint(GUIDED_REGEX, vocab)
+    json_c = JsonConstraint(vocab)
+    gp = [rng.integers(3, cfg.vocab_size, 64).astype(np.int32)
+          for _ in range(3)]
+    fr = srv.submit(gp[0], max_new_tokens=GUIDED_NEW, eos_id=geos,
+                    guided=regex)
+    fj = srv.submit(gp[1], max_new_tokens=GUIDED_NEW, eos_id=geos,
+                    guided=json_c)
+    fg = srv.submit(gp[2], max_new_tokens=GUIDED_NEW, eos_id=geos, n=2,
+                    sampling=SamplingParams(n=2, temperature=1.0,
+                                            seed=SEED),
+                    guided=json_c)
+    wall, iters, n_launch, _ = _pump(paged, srv)
+    if n_launch != iters * cfg.num_layers:
+        _fail(f"guided: launches {n_launch} != {iters} x {cfg.num_layers}")
+    launches["13 guided"] = n_launch
+    outs = {"regex": [list(fr.result(timeout=0).token_ids)],
+            "json": [list(fj.result(timeout=0).token_ids)],
+            "json_n2": [list(r.token_ids)
+                        for r in fg.result(timeout=0).lanes]}
+    for name, ids_list in outs.items():
+        c = regex if name == "regex" else json_c
+        for ids in ids_list:
+            if not ids or not _conforms(c, ids, geos):
+                _fail(f"guided {name}: {ids} does not conform")
+    st = srv.get_stats()
+    if st["guided.violations"] != 0 or \
+            st["blocks_free"] != st["blocks_total"]:
+        _fail(f"guided: {st}")
+    out["guided"] = {"regex": GUIDED_REGEX,
+                     "texts": {k: ["".join(vocab[t] for t in ids
+                                           if t != geos) for ids in v]
+                               for k, v in outs.items()},
+                     "masked_steps": st["guided.masked_steps"],
+                     "iterations": iters, "wall_s": time.perf_counter() - t0}
+
+    # -- cancel and deadline ------------------------------------------------
+    now = [0.0]
+    srv = server(model, clock=lambda: now[0])
+    fc = srv.submit(prompts[0], max_new_tokens=GROUP_NEW, n=4)
+    fd = srv.submit(prompts[1], max_new_tokens=GROUP_NEW, eos_id=geos,
+                    beam=BeamParams(BEAM), deadline_ms=2000)
+    for i in range(200):
+        now[0] += 0.1
+        if i == 3 and not fc.cancel():
+            _fail("group cancel refused")
+        if not srv.step():
+            break
+    st = srv.get_stats()
+    if not isinstance(fc.exception(timeout=0), RequestCancelled) \
+            or not isinstance(fd.exception(timeout=0), DeadlineExceeded):
+        _fail(f"cancel/deadline: {fc}, {fd}")
+    if st["blocks_free"] != st["blocks_total"] or st["active_slots"]:
+        _fail(f"cancel/deadline: blocks not reclaimed: {st}")
+    out["cancel_deadline"] = {"cancelled": st["cancelled"],
+                              "deadline_cancels": st["deadline_cancels"],
+                              "blocks_free": st["blocks_free"]}
+    for k, v in out.items():
+        print(f"strategies {k} " + json.dumps(v))
+    return out, errs, launches
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -1769,6 +2449,20 @@ def main():
     _phase("9c profile train", phase_profile_train, flash)
     btimes = _phase("10 flash backward times", phase_flash_bwd_times, flash)
     btimes["train_bf16"]["max_abs_err"] = berrs["train_bf16"]
+    prefix, perrs = _phase("11 prefix cache", phase_prefix, paged, cfg, tree)
+    spec, serrs = _phase("12 speculative decoding", phase_spec, paged, cfg,
+                         tree)
+    _, derrs, dlaunches = _phase("13 decode strategies", phase_strategies,
+                                 paged, cfg, tree)
+    path_errs = {**perrs, **serrs, **derrs}
+    by_path = {
+        "2 serve": launches,
+        "11 prefix f32 warm pass": prefix["f32"]["launches_warm"],
+        "12 spec verify (target, small draft, f32)":
+            spec["small_draft_f32"]["target_launches"],
+        "12 spec draft D 32 (f32)":
+            spec["small_draft_f32"]["draft_launches"],
+        **dlaunches}
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
     kernels = [
@@ -1777,9 +2471,12 @@ def main():
             "paddle_tpu/ops/pallas/paged.py:134 (_paged_kernel), "
             "paddle_tpu/ops/pallas/paged.py:333 (_paged_kernel_v2)",
             launches, [errs[f"{n}{d}_bf16"] for n in SHAPES
-                       for d in ("", "_d128")], times,
+                       for d in ("", "_d128")]
+            + list(path_errs.values()), times,
             "fused-step decode: 16 lanes x H 12 x C 16 (one valid column) "
-            "x D 64, bs 16, M 64, bf16"),
+            "x D 64, bs 16, M 64, bf16; launches_by_path counts phases 2 "
+            "and 11-13, max_abs_err includes their captured calls "
+            "(path_errs)"),
         kernel_entry(
             "paged_attention_int8",
             "paddle_tpu/ops/pallas/paged.py:151-219 (_paged_kernel int8 "
@@ -1824,6 +2521,8 @@ def main():
             main="train",
             source="paddle_tpu_torch/csrc/flash_attention_bwd.cu"),
     ]
+    kernels[0]["launches_by_path"] = by_path
+    kernels[0]["path_errs"] = path_errs
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

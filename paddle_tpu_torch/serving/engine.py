@@ -4,15 +4,25 @@ Counterpart of ``paddle_tpu/serving/engine.py``. The whole serve loop is
 ONE fused prefill/decode step
 
     fused(pools, tokens (S, C), positions (S, C), valid (S, C),
-          tables (S, M), rng, temperature, do_sample, top_k, top_p)
+          tables (S, M), rng, temperature, do_sample, top_k, top_p[, mask])
         -> (next_ids (S,), next_logps (S,), logp rows (S, V))
 
 over S decode slots x C chunk columns whose shapes are fixed for the
 server's lifetime: a prefilling lane feeds up to C prompt tokens per
-iteration, a decoding lane its one in-flight token, an idle lane is
-masked. Requests of any length mix in one step, because length is data
-(positions and tables). The step is a function of fixed-shape tensors,
-so it can later be captured in one CUDA graph.
+iteration, a decoding lane its one in-flight token (or, in speculative
+mode, its token plus up to k draft proposals to verify in the same call,
+when every output is per column), an idle lane is masked. Requests of
+any length mix in one step, because length is data (positions and
+tables). The step is a function of fixed-shape tensors, so it can later
+be captured in one CUDA graph.
+
+On the same step: the prefix cache (`prefix_cache=True`, shared prompt
+blocks by content hash), speculative decoding (`spec=SpecDecodeConfig`,
+a draft model whose pools share the target's tables), fork groups
+(`submit(n=K)`: K lanes over one prefill's blocks), paged beam search
+(`submit(beam=BeamParams(K))`) and guided decoding
+(`submit(guided=<Constraint>)`, an additive mask on the logits). Every
+one of them reads KV through the same paged-attention dispatcher.
 
 ``GPTServingModel`` adapts the GPT params (models/gpt.py layout) with
 the math of ``gpt.build_kv_step`` over (S, C) ragged lanes; KV goes
@@ -36,10 +46,13 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..models.gpt import _cast_params, _ln, _to_device
 from ..ops.cuda import paged as _paged
-from .decode_strategies import SamplingParams, gumbel_noise
+from .decode_strategies import (GroupFuture, RequestGroup, SamplingParams,
+                                gumbel_noise)
 from .kv_cache import (NEG_INF, NULL_BLOCK, PagedKVCache, paged_attention,
                        write_block_kv, write_block_kv_quant)
+from .prefix_cache import PrefixCacheIndex
 from .scheduler import ContinuousBatchingScheduler, RequestCancelled, _Request
+from .spec_decode import build_draft_step
 
 __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
            "NonFiniteError"]
@@ -87,14 +100,27 @@ def _sample_rows(base, rng, temperature, do_top_k, top_p):
 
 
 def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
-                     tokens, positions, valid, tables, rng, temperature,
-                     do_sample, top_k, top_p, attention):
+                     tokens, positions, valid, tables, attention,
+                     sample_ctl=None, per_column=False, mask=None):
     """The one fused prefill/decode step (build_kv_step's math over
     (S, C) ragged lanes with paged KV). Writes this step's K/V into the
-    pools in place, then projects each lane's LAST valid column through
-    the tied LM head. Greedy lanes take the argmax; lanes with
-    `do_sample` take `_sample_rows`' draw. Returns (next_ids (S,) int32,
-    chosen logps (S,) f32, logp rows (S, V) f32).
+    pools in place, then projects through the tied LM head:
+
+    - `per_column=False` (plain serving): each lane's LAST valid column
+      only, one (S, H) @ (H, V) product. Returns (next_ids (S,) int32,
+      chosen logps (S,), logp rows (S, V), None).
+    - `per_column=True` (speculative verify): every column, one
+      (S*C, H) @ (H, V) product. Returns (next_ids (S, C), chosen logps
+      (S, C), logp rows (S, C, V), fed (S, C)): `fed[s, i]` is the target
+      logp of the token fed at column i+1 (the draft under verification;
+      the last column's value wraps and means nothing).
+
+    `mask` (None, or (S, V) / (S, C, V) f32) is the guided-decoding
+    additive mask, 0 / NEG_INF, added to the logits before the
+    log-softmax. `sample_ctl` = (rng keys (S, 2), temperature, do_sample,
+    top_k, top_p) turns on in-step sampling: lanes with `do_sample` take
+    `_sample_rows`' draw (per-column: at column 0, since sampled lanes
+    plan no drafts); None is greedy everywhere.
 
     A layer dict carrying "k_scale"/"v_scale" pools takes the
     quantize-at-write path and hands the scales to `attention`; a layer
@@ -141,16 +167,41 @@ def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
         f = F.gelu(hn @ w(lp, "f0w") + lp["f0b"])    # exact (erf) gelu
         x = x + (f @ w(lp, "f1w") + lp["f1b"]).to(x.dtype)
     x = _ln(x, params["lnf_s"], params["lnf_b"])
-    # next token comes from each lane's LAST valid column only
-    last = (valid.sum(1) - 1).clamp(0, c - 1)
-    xl = x[torch.arange(s, device=x.device), last]
-    logp = torch.log_softmax((xl @ params["word_emb"].T).float(), dim=-1)
+    if per_column:
+        # each row of the wide product holds one column's dot products,
+        # what the narrow product computes for a last column (the GEMM
+        # may sum in another order at another shape)
+        vocab = params["word_emb"].shape[0]
+        logits = (x.reshape(s * c, -1) @ params["word_emb"].T).reshape(
+            s, c, vocab)
+    else:
+        # next token comes from each lane's LAST valid column only
+        last = (valid.sum(1) - 1).clamp(0, c - 1)
+        xl = x[torch.arange(s, device=x.device), last]
+        logits = xl @ params["word_emb"].T
+    logitsf = logits.float()
+    if mask is not None:
+        logitsf = logitsf + mask
+    logp = torch.log_softmax(logitsf, dim=-1)
     nxt = torch.argmax(logp, dim=-1)
-    chosen = torch.gather(logp, 1, nxt[:, None])[:, 0]
-    samp, samp_lp = _sample_rows(logp, rng, temperature, top_k, top_p)
-    nxt = torch.where(do_sample, samp, nxt.to(torch.int32))
-    chosen = torch.where(do_sample, samp_lp, chosen)
-    return nxt, chosen, logp
+    chosen = torch.gather(logp, -1, nxt[..., None])[..., 0]
+    nxt = nxt.to(torch.int32)
+    fed = None
+    if per_column:
+        # the target logp of the NEXT fed column's token
+        nt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        fed = torch.gather(logp, -1, nt.long()[..., None])[..., 0]
+    if sample_ctl is not None:
+        rng, temperature, do_sample, top_k, top_p = sample_ctl
+        base = logp[:, 0] if per_column else logp
+        samp, samp_lp = _sample_rows(base, rng, temperature, top_k, top_p)
+        if per_column:
+            nxt[:, 0] = torch.where(do_sample, samp, nxt[:, 0])
+            chosen[:, 0] = torch.where(do_sample, samp_lp, chosen[:, 0])
+        else:
+            nxt = torch.where(do_sample, samp, nxt)
+            chosen = torch.where(do_sample, samp_lp, chosen)
+    return nxt, chosen, logp, fed
 
 
 class GPTServingModel:
@@ -216,13 +267,19 @@ class GPTServingModel:
         return self._int8_weights
 
     def fused_step(self, block_size, pools, tokens, positions, valid,
-                   tables, rng, temperature, do_sample, top_k, top_p):
+                   tables, rng, temperature, do_sample, top_k, top_p,
+                   per_column=False, mask=None):
+        """The fused step (`_fused_step_body`) with in-step sampling:
+        (next_ids, chosen logps, logp rows), plus the fed-token logps
+        when `per_column`."""
         with torch.inference_mode():
-            return _fused_step_body(
+            out = _fused_step_body(
                 self.params, self.cfg, block_size, self.num_heads,
                 self.num_kv_heads, self.head_dim, pools, tokens, positions,
-                valid, tables, rng, temperature, do_sample, top_k, top_p,
-                self.attention)
+                valid, tables, self.attention,
+                sample_ctl=(rng, temperature, do_sample, top_k, top_p),
+                per_column=per_column, mask=mask)
+        return out if per_column else out[:3]
 
 
 class GenerationFuture(Future):
@@ -262,12 +319,19 @@ class GenerationServer:
     with per-row f32 scales and reads them back in the model dtype, and
     "bf16" stores bf16 pools under any model: an f32 model's attention
     scores f32 q against the bf16 keys and returns bf16, which the output
-    projection promotes back to f32, as in the JAX package."""
+    projection promotes back to f32, as in the JAX package.
+
+    `prefix_cache=True` builds a PrefixCacheIndex over the pool (a built
+    one may be passed): prompts that share full chunks share their
+    blocks. `spec=SpecDecodeConfig(draft_model, k)` turns on speculative
+    decoding; the draft's pools are a PagedKVCache of their own (the
+    draft's head geometry, the target's kv_dtype and block ids) that
+    shares the target's tables."""
 
     def __init__(self, model, *, num_slots=4, block_size=16,
                  num_blocks=None, max_context=None, chunk=4, clock=None,
                  watermark_blocks=0, start=True, device=None,
-                 kv_dtype=None):
+                 kv_dtype=None, prefix_cache=False, spec=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
@@ -279,6 +343,16 @@ class GenerationServer:
             raise ValueError(
                 f"max_context {max_context} exceeds the model's "
                 f"max_position {model.max_position}")
+        if spec is not None:
+            dm = spec.draft_model
+            if dm.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"draft model vocab {dm.cfg.vocab_size} != target "
+                    f"vocab {model.cfg.vocab_size}: proposals are fed "
+                    f"straight into the target's verify step")
+            if dm.device != self.device:
+                raise ValueError(f"draft model lives on {dm.device}, "
+                                 f"server on {self.device}")
         blocks_per_seq = -(-max_context // self.block_size)
         if num_blocks is None:
             num_blocks = num_slots * blocks_per_seq + 1   # +1: NULL block
@@ -288,10 +362,35 @@ class GenerationServer:
                                   dtype=model.kv_dtype, device=self.device,
                                   num_kv_heads=model.num_kv_heads,
                                   kv_dtype=kv_dtype)
+        self._prefix = None
+        if prefix_cache:
+            self._prefix = (prefix_cache
+                            if isinstance(prefix_cache, PrefixCacheIndex)
+                            else PrefixCacheIndex(self.cache))
         self._sched = ContinuousBatchingScheduler(
             self.cache, num_slots=num_slots, chunk=chunk,
             max_context=max_context, clock=clock,
-            watermark_blocks=watermark_blocks)
+            watermark_blocks=watermark_blocks, prefix_cache=self._prefix,
+            spec_k=spec.k if spec is not None else 0,
+            spec_mode=spec.mode if spec is not None else "greedy",
+            spec_seed=spec.seed if spec is not None else 0)
+        self._spec = spec
+        self._draft = None
+        self._draft_cache = None
+        self._draft_launches = 0
+        if spec is not None:
+            # the draft pools mirror the target's block ids (same
+            # num_blocks and block_size, the draft's head geometry): one
+            # host allocation drives both, and cow_copy copies both
+            dm = spec.draft_model
+            self._draft_cache = PagedKVCache(
+                dm.num_layers, dm.num_heads, dm.head_dim,
+                self.cache.num_blocks, block_size=self.block_size,
+                dtype=dm.kv_dtype, device=self.device,
+                num_kv_heads=dm.num_kv_heads, kv_dtype=kv_dtype)
+            self.cache.attach_sibling(self._draft_cache)
+            self._draft = build_draft_step(dm, self.block_size, spec.k)
+        self._vocab = model.cfg.vocab_size
         self.max_context = max_context
         self._fault = None
         self._next_rid = 0
@@ -308,13 +407,26 @@ class GenerationServer:
 
     # -- client surface ----------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=32, eos_id=None,
-               priority=0, deadline_ms=None, stream=None, sampling=None):
+               priority=0, deadline_ms=None, stream=None, n=1,
+               sampling=None, beam=None, guided=None):
         """prompt_ids: 1-D int token ids. Returns a GenerationFuture
         resolving to a GenerationResult (or raising DeadlineExceeded /
         RequestCancelled). `stream(request_id, token)` fires on the
         serve thread for every generated token. Lower `priority` values
-        run first (FIFO within a priority). `sampling=SamplingParams(...)`
-        turns on stochastic decode (n=1 only in this slice)."""
+        run first (FIFO within a priority).
+
+        - `sampling=SamplingParams(...)`: stochastic decode (temperature,
+          top-k, nucleus; counter-keyed, so replays resample alike).
+        - `n=K` (or SamplingParams(n=K)) forks the request into K lanes
+          sharing the prompt's KV: one prefill, K streams. Returns a
+          GroupFuture resolving to a GroupResult (lane rank r's stream
+          callbacks fire with GroupFuture.lane_rids[r]).
+        - `beam=BeamParams(beam_size=K)`: paged beam search (requires
+          eos_id; excludes sampling, n and stream; its ids are the dense
+          inference.decoding.beam_decode's).
+        - `guided=<Constraint>` (serving.guided) masks every emission to
+          the constraint's allowed set (requires eos_id; composes with
+          sampling and fork groups)."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -334,31 +446,117 @@ class GenerationServer:
         if sampling is not None and not isinstance(sampling,
                                                    SamplingParams):
             raise TypeError("sampling must be a SamplingParams")
-        if sampling is not None and sampling.n != 1:
-            raise NotImplementedError(
-                "fork groups (n > 1) are not ported yet")
-        with self._rid_lock:
-            if self._closed:
-                raise RuntimeError("GenerationServer is closed")
-            rid = self._next_rid
-            self._next_rid += 1
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        if beam is not None:
+            if sampling is not None or n != 1:
+                raise ValueError(
+                    "beam search excludes sampling/n: beams are ranked "
+                    "deterministically by cumulative logprob")
+            if stream is not None:
+                raise ValueError(
+                    "beam search cannot stream: a beam reorder rewrites "
+                    "lane streams retroactively")
+            if eos_id is None:
+                raise ValueError(
+                    "beam search requires eos_id (finished-hypothesis "
+                    "masking is defined by it)")
+            if self._spec is not None and self._spec.mode == "rejection":
+                raise NotImplementedError(
+                    "beam search composes with greedy speculative "
+                    "verification only")
+        if n > 1:
+            if sampling is None:
+                sampling = SamplingParams(n=n)
+            elif sampling.n not in (1, n):
+                raise ValueError(
+                    f"n={n} conflicts with SamplingParams(n="
+                    f"{sampling.n})")
+        k = beam.beam_size if beam is not None else \
+            max(n, sampling.n if sampling is not None else 1)
+        if guided is not None and eos_id is None:
+            raise ValueError(
+                "guided decoding requires eos_id (constraint completion "
+                "is signalled by unmasking eos)")
+        if k > 1:
+            if k > self._sched.num_slots:
+                raise ValueError(
+                    f"fork group of {k} lanes exceeds num_slots="
+                    f"{self._sched.num_slots}: the group admits "
+                    f"atomically and could never fit")
+            m_prompt = self.cache.blocks_for_tokens(int(prompt.size))
+            worst = need + (k - 1) * (need - m_prompt) + k
+            if worst > self.cache.usable_blocks:
+                raise ValueError(
+                    f"fork group needs up to {worst} blocks but the "
+                    f"pool only has {self.cache.usable_blocks}")
+            return self._submit_group(
+                prompt, int(max_new_tokens), eos_id, priority,
+                deadline_ms, stream, k,
+                sampling if beam is None else None, beam, guided)
+        rid = self._take_rids(1)[0]
         fut = GenerationFuture(self, rid)
         now = self._sched.now()
         deadline = None if deadline_ms is None else now + deadline_ms / 1e3
-        self._sched.enqueue(_Request(rid, prompt, int(max_new_tokens),
-                                     eos_id, priority, deadline, stream,
-                                     fut, now, sampling=sampling))
+        req = _Request(rid, prompt, int(max_new_tokens), eos_id, priority,
+                       deadline, stream, fut, now, sampling=sampling,
+                       guided=guided)
+        if guided is not None:
+            req.guided_state = guided.initial_state()
+        self._enqueue(req)
+        return fut
+
+    def _take_rids(self, k):
+        with self._rid_lock:
+            if self._closed:
+                raise RuntimeError("GenerationServer is closed")
+            rids = list(range(self._next_rid, self._next_rid + k))
+            self._next_rid += k
+        return rids
+
+    def _enqueue(self, req):
+        self._sched.enqueue(req)
         with self._rid_lock:
             raced_closed = self._closed
         if raced_closed:
             # lost the race with close(): its queue sweep may have run
             # before this enqueue landed
             self._sched.drop_queued_request(
-                rid, self._fault or
+                req.rid, self._fault or
                 RequestCancelled("GenerationServer is closed"))
             raise RuntimeError("GenerationServer is closed")
         with self._cv:
             self._cv.notify()
+
+    def _submit_group(self, prompt, max_new_tokens, eos_id, priority,
+                      deadline_ms, stream, k, sampling, beam, guided):
+        """Build and enqueue one RequestGroup: K lane requests (rank 0,
+        the leader, is the only one queued; the scheduler admits the
+        whole group off it) and one GroupFuture. Beam lanes carry eos on
+        the group, never on the lane (finished hypotheses pad with forced
+        eos instead of retiring, as the dense reference does), and never
+        stream."""
+        kind = "beam" if beam is not None else "sample"
+        rids = self._take_rids(k)
+        group = RequestGroup(rids[0], kind, k, eos_id, max_new_tokens,
+                             sampling=sampling, beam=beam)
+        fut = GroupFuture(rids[0], rids,
+                          cancel_fn=lambda: [self._request_cancel(r)
+                                             for r in rids])
+        group.future = fut
+        now = self._sched.now()
+        deadline = None if deadline_ms is None else now + deadline_ms / 1e3
+        for rank, rid in enumerate(rids):
+            req = _Request(rid, prompt, max_new_tokens,
+                           None if kind == "beam" else eos_id, priority,
+                           deadline, None if kind == "beam" else stream,
+                           Future(), now, group=group, lane=rank,
+                           sampling=sampling, guided=guided)
+            if guided is not None:
+                req.guided_state = guided.initial_state()
+            group.lanes.append(req)
+        self._enqueue(group.lanes[0])
         return fut
 
     def _request_cancel(self, rid):
@@ -379,28 +577,122 @@ class GenerationServer:
             if plan is None:
                 return False
             it = self._sched.iteration
+            # speculative mode: the draft step runs every iteration (its
+            # KV tracks prefill chunks too) and its proposals land in
+            # plan.tokens columns 1..q-1 before the target verifies them
+            draft_logps = None
+            if self._draft is not None:
+                draft_logps = self._run_draft(plan)
+            per_column = self._spec is not None
             do_sample, temperature, top_k, top_p, keys = plan.sample_ctl
-            nxt, chosen, _ = self.model.fused_step(
+            out = self.model.fused_step(
                 self.block_size, self.cache.pools,
                 self._tensor(plan.tokens), self._tensor(plan.positions),
                 self._tensor(plan.valid), self._tensor(plan.tables),
                 self._tensor(keys.astype(np.int64)),
                 self._tensor(temperature), self._tensor(do_sample),
-                self._tensor(top_k), self._tensor(top_p))
-            # commit() reads per-column arrays; a broadcast view puts the
-            # last-valid-column value at every column
-            s, c = plan.tokens.shape
-            nxt = np.broadcast_to(nxt.cpu().numpy()[:, None], (s, c))
-            logps = np.broadcast_to(chosen.cpu().numpy()[:, None], (s, c))
+                self._tensor(top_k), self._tensor(top_p),
+                per_column=per_column, mask=self._guided_mask(plan))
+            nxt, logps = out[0].cpu().numpy(), out[1].cpu().numpy()
+            if not per_column:
+                # commit() reads per-column arrays; a broadcast view puts
+                # the last-valid-column value at every column
+                s, c = plan.tokens.shape
+                nxt = np.broadcast_to(nxt[:, None], (s, c))
+                logps = np.broadcast_to(logps[:, None], (s, c))
+            # the fed-token logps matter to rejection acceptance only,
+            # and the full logp rows to a group's fork or a beam step:
+            # each is copied to the host only when asked for
+            fed = (out[3].cpu().numpy() if per_column
+                   and self._spec.mode == "rejection" else None)
+            rows = out[2].cpu().numpy() if plan.needs_rows else None
             # non-finite logits guard: one reduce on the hot path; the
             # per-slot triage only runs on a trip, BEFORE commit() streams
             # garbage tokens to clients
-            if not math.isfinite(float(logps[:, 0].sum())):
+            if not math.isfinite(float(logps.sum())):
                 if not np.all(np.isfinite(logps[plan.slot_ids])):
                     self._on_engine_fault(plan, it, logps)
-            self._sched.commit(plan, nxt, logps)
+            self._sched.commit(plan, nxt, logps, fed_logps=fed,
+                               draft_logps=draft_logps, rows=rows)
             self._iterations += 1
             return True
+
+    def _run_draft(self, plan):
+        """One draft-step call: sync the draft KV with this iteration's
+        feed, roll out k proposals a decode lane, and write them into
+        plan.tokens columns 1..q-1 for the verify step. Returns the
+        draft's proposal logps (S, k) for rejection acceptance.
+
+        The sync pass feeds prefill chunks as planned, and for a decode
+        lane fed at pos the tokens at pos - 1 and pos. The JAX package
+        feeds the committed token alone; but the rollouts write the KV of
+        proposals d_1..d_{k-1} only, so after a burst whose k proposals
+        were all accepted, position pos - 1 (d_k) holds no draft KV, and
+        the draft's next proposals attend a stale row. Re-feeding it
+        rewrites what the rollouts wrote otherwise (the same token at the
+        same position)."""
+        tokens_d = plan.tokens.copy()
+        positions_d = plan.positions.copy()
+        valid_d = plan.valid.copy()
+        for sid in plan.slot_ids:
+            if int(plan.decode_cols[sid]) >= 1:
+                pos = int(plan.positions[sid, 0])
+                tokens_d[sid, :2] = (plan.prev_tokens[sid],
+                                     plan.tokens[sid, 0])
+                positions_d[sid, :2] = (pos - 1, pos)
+                valid_d[sid, :2] = True
+                valid_d[sid, 2:] = False
+        l0 = _paged.LAUNCHES
+        props, dlps = self._draft(
+            self._draft_cache.pools, self._tensor(tokens_d),
+            self._tensor(positions_d), self._tensor(valid_d),
+            self._tensor(plan.tables), self._tensor(plan.decode_cols >= 1),
+            self._tensor(plan.limits))
+        props = props.cpu().numpy()
+        self._draft_launches += _paged.LAUNCHES - l0
+        for sid in plan.slot_ids:
+            q = int(plan.decode_cols[sid])
+            if q > 1:
+                plan.tokens[sid, 1:q] = props[sid, :q - 1]
+        return dlps.cpu().numpy()
+
+    def _guided_mask(self, plan):
+        """The guided-decoding additive mask of one iteration, (S, V) or
+        per column (S, C, V), 0 / NEG_INF rows for constrained lanes and
+        zeros elsewhere; None when no lane of the plan is constrained
+        (adding zeros changes no logit). In per-column mode a guided
+        lane's verify columns are masked under a scratch automaton state
+        advanced through the fed drafts (the real state advances only on
+        commit)."""
+        if not plan.guided_lanes:
+            return None
+        s, c = plan.tokens.shape
+        per_col = self._spec is not None
+        mask = np.zeros((s, c, self._vocab) if per_col
+                        else (s, self._vocab), np.float32)
+        for sid, req in plan.guided_lanes:
+            state = req.guided_state
+            if state is None:
+                continue        # dead automaton: unconstrained
+            eos = req.eos_id if req.group is None else req.group.eos_id
+            row = req.guided.mask_row(state, eos)
+            if not per_col:
+                mask[sid] = row
+                continue
+            q = int(plan.decode_cols[sid])
+            if q == 0:
+                # prefill lane: only its last valid column is read
+                mask[sid, :] = row
+                continue
+            mask[sid, 0] = row
+            st = state
+            for j in range(1, q):
+                if st is not None:
+                    st = req.guided.advance(st, int(plan.tokens[sid, j]))
+                if st is not None:
+                    row = req.guided.mask_row(st, eos)
+                mask[sid, j] = row      # dead: repeat the last mask
+        return self._tensor(mask)
 
     def _on_engine_fault(self, plan, iteration, logps):
         """Fail every outstanding request, close, and raise: a poisoned
@@ -475,8 +767,25 @@ class GenerationServer:
         launch count since its last reset (one per layer per step on the
         card, 0 on the CPU). `kv_quant` (None for dense pools) gives the
         int8 pools' true bytes, scales included, beside what the same
-        blocks would cost dense in the compute dtype."""
+        blocks would cost dense in the compute dtype. `prefix` (None
+        without a prefix cache) holds the index's hits, misses,
+        shared_blocks, evictions and cow_copies; `spec` (None without
+        speculation) k, mode, proposed, accepted, accept_rate and the
+        draft's kernel launches; the "group.*", "beam.*" and "guided.*"
+        keys count fork groups, beam reorders and masked steps."""
         st = self._sched.stats()
+        proposed = st.pop("spec.proposed")
+        accepted = st.pop("spec.accepted")
+        st["spec"] = None
+        if self._spec is not None:
+            st["spec"] = {
+                "k": self._spec.k,
+                "mode": self._spec.mode,
+                "proposed": proposed,
+                "accepted": accepted,
+                "accept_rate": round(accepted / max(proposed, 1), 4),
+                "draft_launches": self._draft_launches,
+            }
         st["iterations"] = self._iterations
         st["chunk"] = self._sched.chunk
         st["block_size"] = self.block_size

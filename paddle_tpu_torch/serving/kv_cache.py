@@ -15,9 +15,12 @@ and so does ``write_block_kv_quant`` for int8 pools: it quantizes each
 written row (absmax over D, one f32 scale per row) into the codes pool
 and its (N, H_kv, bs) scale pool.
 
-This slice ports the functional ops and the allocator half of
-``PagedKVCache`` with its dense and int8 pools; the host tier, sibling
-caches, copy-on-write, fleet transfer and meshes wait.
+Blocks are refcounted, so tables may share them: the prefix cache and
+fork groups alias blocks across requests (``fork_table``,
+``unref_blocks``), and a write into a shared block goes through
+``cow_copy`` first, which copies the block's rows in place across every
+layer of this cache and of its siblings (the draft model's pools, which
+share its block ids). The host tier, fleet transfer and meshes wait.
 """
 
 import numpy as np
@@ -167,6 +170,11 @@ class PagedKVCache:
         # LIFO free list; block 0 (NULL) is never handed out
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._ref = {}      # block -> live references (absent = free)
+        # caches whose pools share this cache's block ids (the draft
+        # model's pools under speculative decoding): cow_copy copies
+        # their rows too
+        self._siblings = []
+        self.cow_copies = 0
 
     @property
     def usable_blocks(self):
@@ -260,6 +268,57 @@ class PagedKVCache:
 
     def refcount(self, block):
         return self._ref.get(int(block), 0)
+
+    def fork_table(self, blocks):
+        """One more reference on every listed block: a forked lane's
+        table adopting another lane's live blocks (the prompt at a group
+        fork, a parent beam's table at a beam reorder). No pool bytes
+        move. Returns the blocks as a fresh list for the new holder's
+        release set."""
+        out = [int(b) for b in blocks]
+        for b in out:
+            self.ref(b)
+        return out
+
+    def unref_blocks(self, blocks):
+        """unref() each block (releasing a forked lane, whose table mixes
+        private blocks with blocks others still hold). Returns how many
+        were freed."""
+        freed = 0
+        for b in blocks:
+            if self.unref(b):
+                freed += 1
+        return freed
+
+    def is_shared(self, block):
+        """True when more than one reference is live: a write must copy
+        the block first."""
+        return self._ref.get(int(block), 0) >= 2
+
+    def attach_sibling(self, sibling):
+        """Register a cache whose pools share this cache's block ids (the
+        draft pools of speculative decoding): cow_copy keeps its rows
+        consistent with every repointed table."""
+        if sibling.num_blocks != self.num_blocks \
+                or sibling.block_size != self.block_size:
+            raise ValueError("a sibling cache needs the same num_blocks "
+                             "and block_size")
+        self._siblings.append(sibling)
+
+    def cow_copy(self, src, dst):
+        """Copy block `src`'s rows into block `dst`, in place, in every
+        layer of this cache's pools and of every sibling's: k and v, and
+        for int8 pools the k_scale/v_scale rows with them, so a
+        repointed block keeps its dequantization state. The NULL block
+        is never a source or a destination."""
+        src, dst = int(src), int(dst)
+        if NULL_BLOCK in (src, dst):
+            raise ValueError("copy-on-write of the reserved NULL block")
+        for holder in [self] + self._siblings:
+            for layer in holder.pools:
+                for arr in layer.values():
+                    arr[dst].copy_(arr[src])
+        self.cow_copies += 1
 
     def make_table(self, blocks, max_blocks):
         """Host block list -> fixed-width numpy int32 row, NULL-padded

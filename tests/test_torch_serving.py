@@ -383,7 +383,12 @@ def test_port_imports_neither_jax_nor_reference_package():
         "        'paddle_tpu_torch.ops.optimizer_ops',\n"
         "        'paddle_tpu_torch.layers.nn',\n"
         "        'paddle_tpu_torch.layers.attention',\n"
-        "        'paddle_tpu_torch.optimizer.optimizers']\n"
+        "        'paddle_tpu_torch.optimizer.optimizers',\n"
+        "        'paddle_tpu_torch.serving.prefix_cache',\n"
+        "        'paddle_tpu_torch.serving.spec_decode',\n"
+        "        'paddle_tpu_torch.serving.guided',\n"
+        "        'paddle_tpu_torch.serving.decode_strategies',\n"
+        "        'paddle_tpu_torch.serving.scheduler']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
