@@ -22,6 +22,14 @@ backward kernels are printed):
    kernel and v2 skip them), bs 32 and 24, a two-entry table (one split),
    256 rows (two row groups)), a bf16 output also held row by row against
    the plain version with q and dense pools in f32;
+1n. the paged kernel on NaN keys: one NaN key block a poisoned lane (NaN
+   k rows, for int8 pools NaN k_scale rows, as serving's chaos poison
+   writes them) at its first, its second (key group 1's first tile), a
+   middle and its last live table entry, through decode C 1 over M 64
+   (8 splits, 4 key groups), the 16-lane fused step (split-K) and a
+   two-entry table (one split), dense bf16, f32, f32 q over bf16 pools
+   and int8 under bf16 and f32 q: the kernel's non-finite output rows
+   must be exactly the plain version's, its finite rows within TOLERANCE;
 1f. flash kernels vs plain: the flash-attention forward against its plain
    version, out and lse, f32 (flash_fwd_kernel, mma.sync) and bf16
    (flash_fwd_tc_kernel, wgmma: every bf16 case must add one to its
@@ -134,7 +142,31 @@ backward kernels are printed):
    32000-entry string vocabulary (every output conforms, one of them an
    n = 2 group), and a cancelled group and a group past its deadline
    (every block comes back); wall and device ms a step of the group and
-   beam runs.
+   beam runs;
+14. the host KV tier at full width: GPTConfig(), 16 slots over 257
+   device blocks (a quarter of phase 2's) and 640 host blocks, phase 2's
+   prompts greedy with 128 new tokens. f32 on the first 16 requests: the
+   tiered server's ids equal the untiered server's at 257 blocks and
+   phase 2's full pool's, it preempts at least once and resumes every
+   preempted request, every device and host block comes back; a chaos
+   preemption of a named decode lane gives the same ids; a prefix
+   server whose chains chaos spilled serves the next hit from the host
+   tier (swap-ins) with the same ids; the kernel agrees with its plain
+   version on a step whose tables hold a resumed lane's swapped-in
+   blocks. bf16: the 32 requests with and without the tier (peak and
+   mean lanes, steps, tokens/s, preemptions, spills, swap-ins), and the
+   µs and GB/s of a block spilled and swapped in beside the host link's
+   64 GB/s;
+15. telemetry, chaos and the HBM ledger: a chaos NaN poison through
+   phase 2's bf16 server and phase 2b's int8/GQA server must raise
+   NonFiniteError through the kernel at the iteration and for the
+   request ids of the same server on the plain attention, with the
+   flight dump's aborted entry last; telemetry on and off give the same
+   f32 ids (the host ms a bf16 step it adds is printed); the kv_pool and
+   model_params ledger rows beside torch.cuda.memory_allocated()'s growth
+   over a build, the kv_pool_host row equal to the pinned host pools;
+   serve_metrics on 127.0.0.1 serves the serving.* and serving.kv.tier.*
+   series.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -154,18 +186,24 @@ call, on one card.
 
     python3 chip_smoke.py --fwd-times-of <checkout>
 
-does the same with phase 8 and the forward kernels.
+does the same with phase 8 and the forward kernels, and
+
+    python3 chip_smoke.py --paged-of <checkout>
+
+with phase 1n's NaN cases (reported, not failed) and phase 4 on the
+paged kernel.
 
 Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
 flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
 the flash-attention backward; the paged entry also counts the launches
-of phases 11-13 in ``launches_by_path``); the line before
+of phases 11-15 in ``launches_by_path``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -207,6 +245,16 @@ BEAM_PROMPT = 72                    # ends inside a block of 16
 BEAM_NEW = 16
 GUIDED_REGEX = r"[a-z]+@[a-z]+\.(com|org)"
 GUIDED_NEW = 24
+TIER_BLOCKS = 257                   # phase 14: a quarter of phase 2's pool
+TIER_HOST_BLOCKS = 640              # ~16 lanes' worst case of 40 blocks
+TIER_NEW = 128
+TIER_GATE = 16                      # phase 14's f32 gate: the first 16
+POISON_AT = 6                       # phase 15: the chaos poison's iteration
+TELEMETRY_PAIRS = 3                 # phase 15: off/on server pairs timed
+TIER_TURNS = 2                      # phase 14: bf16 no-tier/tier pairs
+# the host link of an H100 SXM: PCIe Gen5 x16, 64 GB/s a direction
+# (nominal), the yardstick of the tier's spill and swap-in rates
+HOST_LINK_BYTES_PER_S = 64e9
 PROMPTS = 8                         # phase 6: prompts of PROMPT_LEN tokens
 PROMPT_LEN = 512
 PREFILL_RUNS = 5                    # phase 6: timed prefills, median kept
@@ -494,6 +542,111 @@ def check_kernel(paged):
                   f"{paged.BF16_ROW_REL_TOLERANCE} of the row's scale")
         errs[name] = err
     return errs
+
+
+# phase 1's NaN cases: one NaN key block a poisoned lane (NaN k rows for
+# dense pools, NaN k_scale rows for int8 pools, as serving's chaos poison
+# writes it), at the lane's first live table entry, at entry 1 (key
+# group 1's first tile when a split has several key groups), at a middle
+# entry and at its last live entry; the NULL block clean. Shapes: decode
+# C 1 over M 64 with 4 lanes (split-K: 8 splits of 8 entries, 4 key
+# groups), the 16-lane fused step (C 16, one valid column: 3 splits for
+# dense pools, 5 for int8 under GQA) and a two-entry table (C 16: one
+# split, the output written directly)
+NAN_SHAPES = {
+    "decode_splitk": dict(b=4, c=1, lengths=[1000, 700, 333, 90]),
+    "step16": dict(b=16, c=CHUNK, step=True,
+                   lengths=[None] + [int(x) for x in
+                                     np.linspace(60, 1000, 15)]),
+    "one_split": dict(b=4, c=CHUNK, m=2, lengths=[16, 10, 12, 14]),
+}
+NAN_AT = ("first", "entry1", "middle", "last")
+# (q dtype, pool dtype or "int8")
+NAN_VARIANTS = {"bf16": (torch.bfloat16, None),
+                "f32": (torch.float32, None),
+                "f32q_bf16pool": (torch.float32, torch.bfloat16),
+                "int8_bf16q": (torch.bfloat16, "int8"),
+                "int8_f32q": (torch.float32, "int8")}
+
+
+def nan_case(shape, variant):
+    """(case, {lane: (where, table entry)}): NAN_SHAPES[shape] at H 12
+    (over H_kv 4 for int8), D 64, bs 16, M 64 unless named, each of the
+    first four live lanes poisoned at one NAN_AT entry."""
+    qdt, pool = NAN_VARIANTS[variant]
+    int8 = pool == "int8"
+    kw = {"m": 64, **NAN_SHAPES[shape]}
+    case = make_case(qdt, h=12, hp=KV_HEADS if int8 else 12, d=64, bs=16,
+                     seed=5, int8=int8, pool_dtype=None if int8 else pool,
+                     **kw)
+    (q, k_pool, v_pool, tables, pos), scales = case
+    c = kw["c"]
+    live = [i for i, n in enumerate(kw["lengths"]) if n is not None][:4]
+    where = {}
+    for i, at in zip(live, NAN_AT):
+        n_live = (kw["lengths"][i] + (0 if kw.get("step") else c - 1)) \
+            // 16 + 1
+        j = {"first": 0, "entry1": 1, "middle": n_live // 2,
+             "last": n_live - 1}[at]
+        blk = int(tables[i, j])
+        if int8:
+            scales["k_scale"][blk] = float("nan")
+        else:
+            k_pool[blk] = float("nan")
+        where[i] = (at, j)
+    return case, where
+
+
+def check_kernel_nan(paged, report_only=False):
+    """Phase 1's NaN cases: the kernel's non-finite output rows (lane,
+    head, column) must be exactly the plain version's, and its finite
+    rows agree within TOLERANCE. `report_only` prints what the kernel
+    gave (the rows it lost) without failing: the record of a kernel that
+    drops NaN partials. Returns {case: max_abs_err over finite rows}."""
+    errs, report = {}, {}
+    for shape in NAN_SHAPES:
+        for variant in NAN_VARIANTS:
+            name = f"nan_{shape}_{variant}"
+            case, where = nan_case(shape, variant)
+            args, scales = case
+            q, k_pool = args[0], args[1]
+            splits = paged._plan(paged.build(), (
+                q.device.index, *q.shape[:2], k_pool.shape[1], q.shape[2],
+                q.shape[3], k_pool.shape[2], args[3].shape[1],
+                paged._DTYPE_CODE[q.dtype],
+                paged._DTYPE_CODE[k_pool.dtype]))[0]
+            out = paged.paged_attention_cuda(*args, **scales)
+            ref = paged.paged_attention_reference(*args, **scales)
+            torch.cuda.synchronize()
+            bad_k = ~torch.isfinite(out.float()).all(dim=-1)
+            bad_p = ~torch.isfinite(ref.float()).all(dim=-1)
+            lost = (bad_p & ~bad_k).sum().item()
+            extra = (bad_k & ~bad_p).sum().item()
+            fin = ~(bad_k | bad_p)
+            err = ((out.float() - ref.float()).abs().amax(dim=-1)[fin]
+                   .max().item() if fin.any() else 0.0)
+            tol = paged.TOLERANCE[out.dtype]
+            per_lane = {}
+            for lane, (at, j) in where.items():
+                per_lane[f"lane{lane}_{at}_entry{j}"] = {
+                    "plain_nan_rows": int(bad_p[lane].sum().item()),
+                    "kernel_nan_rows": int(bad_k[lane].sum().item())}
+            report[name] = {"splits": int(splits), "lost_nan_rows": lost,
+                            "extra_nan_rows": extra,
+                            "finite_max_abs_err": err, "lanes": per_lane}
+            print(f"kernel {name}: " + json.dumps(report[name]))
+            if report_only:
+                continue
+            if not all(v["plain_nan_rows"] for v in per_lane.values()):
+                _fail(f"{name}: a poisoned lane has no NaN row in the "
+                      f"plain version")
+            if lost or extra:
+                _fail(f"{name}: the kernel's non-finite rows differ from "
+                      f"the plain version's ({lost} lost, {extra} extra)")
+            if not err <= tol:
+                _fail(f"{name}: finite rows disagree, {err} > {tol}")
+            errs[name] = err
+    return report if report_only else errs
 
 
 # ---------------------------------------------------------------------------
@@ -2326,6 +2479,443 @@ def phase_strategies(paged, cfg, tree):
     return out, errs, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: the host KV tier; telemetry, chaos and the HBM ledger
+# ---------------------------------------------------------------------------
+
+def tier_server(model, num_blocks, host_blocks=0, **kw):
+    """Phase 14's server: phase 2's geometry (16 slots, block 16, chunk
+    16, context 1024) over `num_blocks` device blocks, with a host tier
+    of `host_blocks` when given."""
+    from paddle_tpu_torch.serving import GenerationServer
+    return GenerationServer(model, num_slots=16, block_size=16,
+                            max_context=1024, chunk=CHUNK, start=False,
+                            num_blocks=num_blocks,
+                            host_kv_blocks=host_blocks, **kw)
+
+
+def _tier_pass(paged, srv, prompts, new_tokens, cap=None, on_step=None):
+    """Submit `prompts` greedy and pump until idle with the paged launch
+    count set to 0 just before (the gate: launches = iterations x
+    layers); arm `cap` at the first step with a resumed (swapped-in)
+    lane. Returns the ids and the run's numbers."""
+    futs = [srv.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    it0 = srv.get_stats()["iterations"]
+    torch.cuda.synchronize()
+    paged.LAUNCHES = 0
+    active, step_ms = [], []
+    t0 = time.perf_counter()
+    while True:
+        sched = srv._sched
+        if cap is not None and cap.args is None and not cap.armed and any(
+                s is not None and s.tier == "host" and not s.prefilling
+                for s in sched._slots):
+            cap.arm()
+        if on_step is not None:
+            on_step(srv)
+        ts = time.perf_counter()
+        if not srv.step():
+            break
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        active.append(sched.active_count)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = srv.get_stats()
+    iters = st["iterations"] - it0
+    if paged.LAUNCHES != iters * srv.model.num_layers:
+        _fail(f"tier pass: paged launches {paged.LAUNCHES} != iterations "
+              f"{iters} x {srv.model.num_layers}")
+    ids = [list(f.result(timeout=0).token_ids) for f in futs]
+    if any(len(i) != new_tokens for i in ids):
+        _fail("tier pass: a request ended early")
+    cached = st["prefix"]["evictable"] if st["prefix"] else 0
+    if st["blocks_free"] + cached != st["blocks_total"]:
+        _fail(f"tier pass: blocks not returned: {st['blocks_free']} free "
+              f"+ {cached} idle cached of {st['blocks_total']}")
+    kt = st["kv_tier"]
+    out = {"iterations": iters, "launches": paged.LAUNCHES,
+           "wall_s": wall, "tokens_per_s": len(prompts) * new_tokens / wall,
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "peak_lanes": max(active), "mean_lanes": float(np.mean(active)),
+           "preempts": st["preempts"], "resumes": st["resumes"],
+           "spills": kt["spills"] if kt else 0,
+           "swap_ins": kt["swap_ins"] if kt else 0,
+           "host_blocks_used": kt["host_blocks_used"] if kt else None}
+    return ids, out
+
+
+def _check_round_trips(srv):
+    """Wrap the server's spill and swap-in so that every block spilled
+    is copied on the device first and held, after its swap-in, against
+    the rows that arrived (torch.equal: bitwise). Returns a dict the
+    wrappers fill: blocks checked, mismatches."""
+    cache = srv.cache
+    spill, swap = cache.spill_block, cache.swap_in_block
+    out = {"checked": 0, "mismatched": 0}
+    kept = {}
+
+    def rows(block):
+        return [t[block] for h in cache._holders() for layer in h.pools
+                for t in layer.values()]
+
+    def checking_spill(block):
+        before = [r.clone() for r in rows(block)]
+        hb = spill(block)
+        if hb is not None:
+            kept[hb] = before
+        return hb
+
+    def checking_swap(hb, dst):
+        swap(hb, dst)
+        torch.cuda.synchronize()
+        want = kept.pop(int(hb))
+        out["checked"] += 1
+        if not all(torch.equal(a, b) for a, b in zip(rows(dst), want)):
+            out["mismatched"] += 1
+
+    cache.spill_block, cache.swap_in_block = checking_spill, checking_swap
+    return out
+
+
+def _tier_copy_times(srv, n=64):
+    """µs per block spilled (device to pinned host, the call returns
+    with the rows landed) and per block swapped in (host to device on
+    the stream; timed to the device's completion), over `n` blocks of
+    the server's cache, each call bracketed by synchronizes. A block is
+    every layer's k and v rows: 2 x layers small copies."""
+    cache = srv.cache
+    blocks = cache.allocate(min(n, cache.num_free, cache.host.num_free))
+    torch.cuda.synchronize()
+    spill_s, hbs = [], []
+    for b in blocks:
+        t0 = time.perf_counter()
+        hbs.append(cache.spill_block(b))
+        spill_s.append(time.perf_counter() - t0)
+    swap_s = []
+    for hb, b in zip(hbs, blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache.swap_in_block(hb, b)
+        torch.cuda.synchronize()
+        swap_s.append(time.perf_counter() - t0)
+    cache.host.free(hbs)
+    cache.free(blocks)
+    nbytes = cache.pool_bytes() // cache.num_blocks
+    spill_us = float(np.median(spill_s)) * 1e6
+    swap_us = float(np.median(swap_s)) * 1e6
+    return {"block_bytes": nbytes, "copies_per_block":
+            sum(len(layer) for layer in cache.pools),
+            "spill_us_per_block": spill_us,
+            "swap_in_us_per_block": swap_us,
+            "spill_gb_per_s": nbytes / spill_us / 1e3,
+            "swap_in_gb_per_s": nbytes / swap_us / 1e3,
+            "host_link_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9}
+
+
+def phase_tier(paged, cfg, tree):
+    """Phase 14: the host KV tier at full width, GPTConfig() with 16
+    slots over TIER_BLOCKS device blocks (a quarter of phase 2's 1025)
+    and TIER_HOST_BLOCKS host blocks; phase 2's prompts, greedy,
+    TIER_NEW new tokens. f32 gate on the first TIER_GATE requests: the
+    tiered server gives the ids of the same server without a tier and of
+    phase 2's full pool, preempts at least once and resumes every
+    preempted request, returns every device and host block; a chaos
+    preemption of a named request gives the same ids; a prefix server
+    whose chain chaos spilled serves the next hit from the host tier
+    (swap-ins) with the same ids; the kernel agrees with its plain
+    version on a step whose tables hold swapped-in blocks. bf16: the 32
+    requests with and without the tier at TIER_BLOCKS (lanes, steps,
+    tokens/s, tier traffic) and the copy times of spill and swap-in.
+    Returns (numbers, {path: launches}, {path: max_abs_err})."""
+    from paddle_tpu_torch.robustness import ChaosInjector
+    prompts = [p for p, _s in make_requests(cfg.vocab_size)]
+    gate = prompts[:TIER_GATE]
+    out, launches, errs = {}, {}, {}
+    model32, cap = _serving_model(cfg, tree)
+    full_ids, out["f32_full_pool"] = _tier_pass(
+        paged, tier_server(model32, 1025), gate, TIER_NEW)
+    plain_ids, out["f32_no_tier"] = _tier_pass(
+        paged, tier_server(model32, TIER_BLOCKS), gate, TIER_NEW)
+    tiered = tier_server(model32, TIER_BLOCKS, TIER_HOST_BLOCKS)
+    trips = _check_round_trips(tiered)
+    tier_ids, out["f32_tier"] = _tier_pass(paged, tiered, gate, TIER_NEW,
+                                           cap=cap)
+    launches["14 tier f32"] = out["f32_tier"]["launches"]
+    t = out["f32_tier"]
+    t["round_trips"] = trips
+    if trips["mismatched"] or trips["checked"] != t["swap_ins"]:
+        _fail(f"phase 14: spill/swap-in round trips {trips} over "
+              f"{t['swap_ins']} swap-ins")
+    if tier_ids != plain_ids or tier_ids != full_ids:
+        _fail("phase 14: the tiered server's f32 ids differ from the "
+              "untiered and the full-pool server's")
+    if t["preempts"] < 1 or t["resumes"] != t["preempts"] \
+            or t["host_blocks_used"] != 0:
+        _fail(f"phase 14: tier traffic {t}")
+    errs["tier_swapped_in_f32"] = check_captured(
+        paged, "tier f32, a resumed lane's swapped-in blocks", cap)
+    # a chaos preemption of a named decode lane
+    chaos = ChaosInjector()
+    srv = tier_server(model32, TIER_BLOCKS, TIER_HOST_BLOCKS, chaos=chaos)
+    planned = []
+
+    def plan_preempt(srv):
+        if planned:
+            return
+        for slot in srv._sched._slots:
+            if slot is not None and not slot.prefilling \
+                    and len(slot.req.generated) >= 8:
+                chaos.preempt_request_at(srv._sched.iteration + 1,
+                                         slot.req.rid)
+                planned.append(slot.req.rid)
+                return
+
+    chaos_ids, out["f32_chaos_preempt"] = _tier_pass(
+        paged, srv, gate, TIER_NEW, on_step=plan_preempt)
+    if chaos.fired["preempt"] != 1 or chaos_ids != full_ids:
+        _fail(f"phase 14: chaos preemption of request {planned}: fired "
+              f"{chaos.fired['preempt']}, ids equal "
+              f"{chaos_ids == full_ids}")
+    out["f32_chaos_preempt"]["request"] = planned[0]
+    # a prefix chain spilled by chaos, then hit from the host tier
+    chaos = ChaosInjector()
+    srv = tier_server(model32, TIER_BLOCKS, TIER_HOST_BLOCKS, chaos=chaos,
+                      prefix_cache=True)
+    hot = gate[:4]
+    first, _ = _tier_pass(paged, srv, hot, 16)
+    entries = srv.get_stats()["prefix"]["entries"]
+    chaos.spill_chain_at(srv._sched.iteration + 1, entries)
+    second, o = _tier_pass(paged, srv, hot, 16)
+    pst = srv.get_stats()
+    if first != second or chaos.fired["spill"] < 1 \
+            or pst["kv_tier"]["swap_ins"] < 1 \
+            or pst["prefix"]["reprefills_avoided"] < 1:
+        _fail(f"phase 14: spilled prefix hit: ids equal {first == second},"
+              f" fired {chaos.fired['spill']}, tier {pst['kv_tier']}")
+    out["f32_prefix_spill"] = {
+        "entries": entries, "spills_fired": chaos.fired["spill"],
+        "swap_ins": pst["kv_tier"]["swap_ins"],
+        "reprefills_avoided": pst["prefix"]["reprefills_avoided"]}
+    del model32, srv, tiered
+    # bf16: the 32 requests without and with the tier, in turns (the
+    # host-bound step's wall moves between runs)
+    model16 = make_model(cfg, tree, torch.bfloat16)
+    for turn in range(TIER_TURNS):
+        _, out[f"bf16_no_tier_{turn}"] = _tier_pass(
+            paged, tier_server(model16, TIER_BLOCKS), prompts, TIER_NEW)
+        srv16 = tier_server(model16, TIER_BLOCKS, TIER_HOST_BLOCKS)
+        _, out[f"bf16_tier_{turn}"] = _tier_pass(paged, srv16, prompts,
+                                                 TIER_NEW)
+        if out[f"bf16_tier_{turn}"]["preempts"] < 1:
+            _fail(f"phase 14: bf16 tier run never preempted: "
+                  f"{out[f'bf16_tier_{turn}']}")
+    launches["14 tier bf16"] = out["bf16_tier_0"]["launches"]
+    out["bf16_tokens_per_s_ratio"] = [
+        out[f"bf16_tier_{t}"]["tokens_per_s"]
+        / out[f"bf16_no_tier_{t}"]["tokens_per_s"]
+        for t in range(TIER_TURNS)]
+    out["bf16_copy_times"] = _tier_copy_times(srv16)
+    out["host_pool_bytes"] = srv16.cache.host_pool_bytes()
+    for k, v in out.items():
+        print(f"tier {k} " + json.dumps(v))
+    return out, launches, errs, srv16
+
+
+def _time_hooks(tel):
+    """Time every call the engine and scheduler make into the telemetry
+    `tel` (its instance methods rebound to timing wrappers). Returns a
+    list [seconds, calls] the wrappers fill."""
+    acc = [0.0, 0]
+    for name in ("on_submit", "on_admit", "on_prefill_chunk",
+                 "on_first_token", "on_token", "on_deadline_cancel",
+                 "on_finish", "begin_iteration", "end_iteration"):
+        real = getattr(tel, name)
+
+        def timed(*a, _real=real, **k):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **k)
+            finally:
+                acc[0] += time.perf_counter() - t0
+                acc[1] += 1
+
+        setattr(tel, name, timed)
+    return acc
+
+
+def _poison_run(cfg, tree, int8, attention, flight_dir):
+    """Phase 15's poison: the first TIER_GATE greedy requests through
+    phase 2's bf16 server (or phase 2b's int8/GQA one) with a chaos NaN
+    in the oldest lane's first KV block at iteration POISON_AT. Returns
+    (the NonFiniteError, the flight dump, the launches)."""
+    from paddle_tpu_torch.robustness import ChaosInjector, NonFiniteError
+    from paddle_tpu_torch.serving import GenerationServer
+    model = make_model(cfg, tree, torch.bfloat16, int8, attention)
+    chaos = ChaosInjector().poison_serving_at(POISON_AT)
+    srv = GenerationServer(model, num_slots=16, block_size=16,
+                           max_context=1024, chunk=CHUNK, start=False,
+                           kv_dtype="int8" if int8 else None, chaos=chaos,
+                           flight_dir=flight_dir)
+    prompts = [p for p, _s in make_requests(cfg.vocab_size)][:TIER_GATE]
+    futs = [srv.submit(p, max_new_tokens=32) for p in prompts]
+    from paddle_tpu_torch.ops.cuda import paged
+    paged.LAUNCHES = 0
+    try:
+        srv.run_until_idle()
+    except NonFiniteError as e:
+        err = e
+    else:
+        _fail(f"phase 15: the poison at iteration {POISON_AT} did not trip "
+              f"the guard ({'plain' if attention else 'kernel'} attention,"
+              f" {'int8' if int8 else 'bf16'})")
+    if chaos.fired["serving_poison"] != 1:
+        _fail("phase 15: the poison did not fire")
+    if not all(isinstance(f.exception(timeout=0), NonFiniteError)
+               for f in futs):
+        _fail("phase 15: a request did not fail with the fault")
+    dump = json.load(open(err.flight_dump))
+    last = dump["entries"][-1]
+    if not (last.get("aborted") and last["step"] == err.step
+            and last["fault"]["kind"] == "non_finite_logits"):
+        _fail(f"phase 15: the flight dump's last entry is not the aborted "
+              f"iteration: {last.get('step')}")
+    srv.close()
+    return err, dump, paged.LAUNCHES
+
+
+def phase_telemetry(paged, cfg, tree, gcfg, gtree, tier_srv):
+    """Phase 15: telemetry, chaos and the HBM ledger at full width.
+    Poison: phase 2's bf16 server and phase 2b's int8/GQA server, through
+    the kernel and through the plain attention, raise NonFiniteError at
+    the same iteration for the same request ids, each with its flight
+    dump's aborted entry last. Telemetry on and off: the same f32 ids,
+    and the host ms a bf16 step that telemetry adds. Ledger: the kv_pool
+    and model_params rows against torch.cuda.memory_allocated() growth
+    across a server's build; the kv_pool_host row against the pinned
+    host pools. Endpoint: serve_metrics on 127.0.0.1 serves the
+    serving.* and serving.kv.tier.* series. Returns (numbers, {path:
+    launches})."""
+    import tempfile
+    import urllib.request
+    from paddle_tpu_torch.observability.compile_insight import hbm_ledger
+    from paddle_tpu_torch.serving import GenerationServer
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, c, t, int8 in (("bf16", cfg, tree, False),
+                                ("int8", gcfg, gtree, True)):
+            runs = []
+            for attention in (None, paged.paged_attention_reference):
+                runs.append(_poison_run(c, t, int8, attention, tmp))
+            (ek, dk, lk), (ep, _dp, _lp) = runs
+            if (ek.step, ek.bad_rids) != (ep.step, ep.bad_rids) \
+                    or not ek.bad_rids:
+                _fail(f"phase 15 {tag}: kernel tripped at {ek.step} on "
+                      f"{ek.bad_rids}, plain at {ep.step} on "
+                      f"{ep.bad_rids}")
+            launches[f"15 poison {tag}"] = lk
+            out[f"poison_{tag}"] = {
+                "step": ek.step, "bad_rids": ek.bad_rids,
+                "plain_step": ep.step, "plain_bad_rids": ep.bad_rids,
+                "dump_entries": len(dk["entries"]), "launches": lk}
+    # telemetry on and off
+    greedy = [p for p, _s in make_requests(cfg.vocab_size)][:8]
+    model32 = make_model(cfg, tree)
+    ids = {}
+    for on in (True, False):
+        srv = GenerationServer(model32, num_slots=16, block_size=16,
+                               max_context=1024, chunk=CHUNK, start=False,
+                               telemetry=on)
+        futs = [srv.submit(p, max_new_tokens=AGREE_TOKENS) for p in greedy]
+        srv.run_until_idle()
+        ids[on] = [list(f.result(timeout=0).token_ids) for f in futs]
+    if ids[True] != ids[False]:
+        _fail("phase 15: f32 ids differ with telemetry on and off")
+    del model32
+    model16 = make_model(cfg, tree, torch.bfloat16)
+    step_ms = {True: [], False: []}
+    hook_s = []
+    for on in (False, True) * TELEMETRY_PAIRS:
+        srv = GenerationServer(model16, num_slots=16, block_size=16,
+                               max_context=1024, chunk=CHUNK, start=False,
+                               telemetry=on)
+        if on:
+            hook_s.append(_time_hooks(srv.telemetry))
+        for p in greedy * 2:
+            srv.submit(p, max_new_tokens=NEW_TOKENS)
+        while True:
+            ts = time.perf_counter()
+            if not srv.step():
+                break
+            step_ms[on].append((time.perf_counter() - ts) * 1e3)
+        srv.close()
+        del srv
+    steps_on = len(step_ms[True])
+    out["telemetry"] = {
+        "f32_ids_equal": True, "requests": len(greedy),
+        "pairs": TELEMETRY_PAIRS,
+        "bf16_step_ms_mean_on": float(np.mean(step_ms[True])),
+        "bf16_step_ms_mean_off": float(np.mean(step_ms[False])),
+        "bf16_step_ms_p50_on": float(np.median(step_ms[True])),
+        "bf16_step_ms_p50_off": float(np.median(step_ms[False])),
+        "host_ms_added_per_step": float(np.mean(step_ms[True])
+                                        - np.mean(step_ms[False])),
+        "hook_ms_per_step": sum(h[0] for h in hook_s) * 1e3 / steps_on,
+        "hook_calls_per_step": sum(h[1] for h in hook_s) / steps_on}
+    # the ledger against the allocator: nothing else is freed or made
+    # while the server is built
+    del model16
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = make_model(cfg, tree, torch.bfloat16)
+    torch.cuda.synchronize()
+    params_grown = torch.cuda.memory_allocated() - before
+    srv = tier_server(model, TIER_BLOCKS, 64)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    rows = {e["name"]: e for e in hbm_ledger().snapshot()["entries"]
+            if e["component"] == srv._ledger_id}
+    ledger = rows["kv_pool"]["bytes"] + rows["model_params"]["bytes"]
+    pinned = sum(t.numel() * t.element_size()
+                 for layer in srv.cache.host.pools for t in layer.values())
+    if not all(t.is_pinned() for layer in srv.cache.host.pools
+               for t in layer.values()):
+        _fail("phase 15: the host tier's pools are not pinned")
+    if rows["kv_pool_host"]["bytes"] != pinned \
+            or rows["kv_pool_host"]["kind"] != "host_ram":
+        _fail(f"phase 15: kv_pool_host row {rows['kv_pool_host']} != "
+              f"{pinned} pinned bytes")
+    out["ledger"] = {"kv_pool": rows["kv_pool"]["bytes"],
+                     "model_params": rows["model_params"]["bytes"],
+                     "rows_sum": ledger, "allocated_growth": grown,
+                     "difference": grown - ledger,
+                     "params_growth": params_grown,
+                     "server_growth": grown - params_grown,
+                     "kv_pool_host": rows["kv_pool_host"]["bytes"],
+                     "pinned_bytes": pinned}
+    srv.close()
+    del srv, model
+    # the endpoint, on phase 14's tier server
+    exp = tier_srv.serve_metrics(port=0)
+    try:
+        with urllib.request.urlopen(f"{exp.url}/metrics", timeout=30) as r:
+            body = r.read().decode()
+    finally:
+        exp.close()
+    series = sorted({line.split("{")[0].split(" ")[0]
+                     for line in body.splitlines()
+                     if line.startswith("serving_")})
+    tier_series = [n for n in series if n.startswith("serving_kv_tier_")]
+    if not tier_series or "serving_requests" not in series:
+        _fail(f"phase 15: /metrics lacks the serving series: {series}")
+    out["endpoint"] = {"url_host": exp.host, "serving_series": len(series),
+                       "tier_series": tier_series}
+    for k, v in out.items():
+        print(f"telemetry {k} " + json.dumps(v))
+    return out, launches
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -2344,6 +2934,26 @@ def times_of(flag, root):
         rows = _phase("8 flash times", phase_flash_times, flash)
     print(_card_line())
     print(json.dumps({flag[2:].replace("-", "_"): root, "rows": rows}))
+
+
+def paged_of(root):
+    """`--paged-of <checkout>`: phase 1's NaN cases (reported, not
+    failed) and phase 4's times on the paged kernel of the package under
+    `root` (a checkout of another commit, for a comparison inside one
+    call), then the card line."""
+    import os
+    sys.path.insert(0, os.path.abspath(root))
+    from paddle_tpu_torch.ops.cuda import paged
+    if not paged.__file__.startswith(os.path.abspath(root)):
+        _fail(f"{paged.__file__} is not under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _phase("build", paged.build)
+    nan = _phase("1 NaN cases (report)", check_kernel_nan, paged, True)
+    times = _phase("4 times", phase_times, paged)
+    times8 = _phase("4 times int8", phase_times, paged, int8=True)
+    print(_card_line())
+    print(json.dumps({"paged_of": root, "nan": nan, "times": times,
+                      "times_int8": times8}))
 
 
 def _phase(name, fn, *args, **kw):
@@ -2405,9 +3015,12 @@ def main():
                                                "--fwd-times-of"):
         times_of(sys.argv[1], sys.argv[2])
         return
+    if len(sys.argv) == 3 and sys.argv[1] == "--paged-of":
+        paged_of(sys.argv[2])
+        return
     if len(sys.argv) > 1:
-        _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of or "
-              f"--fwd-times-of <checkout>")
+        _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of, "
+              f"--fwd-times-of or --paged-of <checkout>")
     from paddle_tpu_torch.models.gpt import GPTConfig, init_params
     from paddle_tpu_torch.ops.cuda import flash, paged
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2423,6 +3036,7 @@ def main():
     gcfg = GPTConfig(kv_heads=KV_HEADS)
     gtree = init_params(gcfg, seed=SEED)
     errs = _phase("1 kernel vs plain", check_kernel, paged)
+    nan_errs = _phase("1n kernel NaN cases", check_kernel_nan, paged)
     ferrs = _phase("1f flash kernel vs plain", check_flash, flash)
     berrs = _phase("1g flash backward kernels vs plain", check_flash_bwd,
                    flash)
@@ -2454,7 +3068,12 @@ def main():
                          tree)
     _, derrs, dlaunches = _phase("13 decode strategies", phase_strategies,
                                  paged, cfg, tree)
-    path_errs = {**perrs, **serrs, **derrs}
+    _, tlaunches, terrs, tier_srv = _phase("14 host KV tier", phase_tier,
+                                           paged, cfg, tree)
+    _, plaunches = _phase("15 telemetry, chaos, ledger", phase_telemetry,
+                          paged, cfg, tree, gcfg, gtree, tier_srv)
+    del tier_srv
+    path_errs = {**perrs, **serrs, **derrs, **terrs}
     by_path = {
         "2 serve": launches,
         "11 prefix f32 warm pass": prefix["f32"]["launches_warm"],
@@ -2462,7 +3081,7 @@ def main():
             spec["small_draft_f32"]["target_launches"],
         "12 spec draft D 32 (f32)":
             spec["small_draft_f32"]["draft_launches"],
-        **dlaunches}
+        **dlaunches, **tlaunches, **plaunches}
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
     kernels = [
@@ -2472,10 +3091,11 @@ def main():
             "paddle_tpu/ops/pallas/paged.py:333 (_paged_kernel_v2)",
             launches, [errs[f"{n}{d}_bf16"] for n in SHAPES
                        for d in ("", "_d128")]
+            + [nan_errs[f"nan_{n}_bf16"] for n in NAN_SHAPES]
             + list(path_errs.values()), times,
             "fused-step decode: 16 lanes x H 12 x C 16 (one valid column) "
             "x D 64, bs 16, M 64, bf16; launches_by_path counts phases 2 "
-            "and 11-13, max_abs_err includes their captured calls "
+            "and 11-15, max_abs_err includes their captured calls "
             "(path_errs)"),
         kernel_entry(
             "paged_attention_int8",
@@ -2483,7 +3103,8 @@ def main():
             "branch, launch :282), paddle_tpu/ops/pallas/paged.py:435-437 "
             "(_paged_kernel_v2 int8 dequant, launch :505)",
             launches8, [errs[f"int8_{n}{d}_bf16"] for n in SHAPES
-                        for d in ("", "_d128")], times8,
+                        for d in ("", "_d128")]
+            + [nan_errs[f"nan_{n}_int8_bf16q"] for n in NAN_SHAPES], times8,
             "fused-step decode: 16 lanes x H 12 over H_kv 4 x C 16 (one "
             "valid column) x D 64, bs 16, M 64, int8 pools, bf16 q"),
         kernel_entry(

@@ -80,6 +80,12 @@
 //   * NEG_INF is finite (-1e9): on an all-masked prefix exp(s - m) == 1,
 //     so probabilities come from where(mask, exp(s - m), 0), never the
 //     bare exp, and the merge skips any split whose l is 0.
+//   * A NaN key (a NaN k row, or a NaN k_scale in an int8 pool) makes
+//     the l of every partial that sees it NaN. The merges gate on
+//     l != 0, never l > 0, so such a partial is merged and the NaN
+//     reaches the row's output, as in the plain version: serving's
+//     non-finite guard depends on it. Only a partial with no visible
+//     key (l exactly 0) is left out.
 //   * An idle lane ends with l == 0 and writes an exact 0, not NaN.
 //   * The NULL block may hold NaN (codes or scales) and is never read;
 //     tile rows past bs are masked, and their shared memory holds zeros or
@@ -694,7 +700,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
   // the key groups' states merge into key group 0 through shared memory
   // (the ring is free now): weights exp(m_g - M) over the groups that
-  // saw a visible key of the row
+  // saw a visible key of the row (l_g != 0: a NaN l is merged)
   if (kw > 1) {
     __syncthreads();
     float* st_acc = reinterpret_cast<float*>(ring);  // [kw][mt][16][kD]
@@ -718,12 +724,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (kg == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float m = l_run[h] > 0.f ? m_run[h] : kNegInf;
+        float m = l_run[h] != 0.f ? m_run[h] : kNegInf;
         for (int o = 1; o < kw; ++o) {
           const int r = (o * mt + mi) * 16 + fr + 8 * h;
-          if (st_ml[r * 2 + 1] > 0.f) m = fmaxf(m, st_ml[r * 2]);
+          if (st_ml[r * 2 + 1] != 0.f) m = fmaxf(m, st_ml[r * 2]);
         }
-        const float w0 = l_run[h] > 0.f ? expf(m_run[h] - m) : 0.f;
+        const float w0 = l_run[h] != 0.f ? expf(m_run[h] - m) : 0.f;
         float l = l_run[h] * w0;
 #pragma unroll
         for (int n = 0; n < kN; ++n) {
@@ -733,7 +739,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         for (int o = 1; o < kw; ++o) {
           const int r = (o * mt + mi) * 16 + fr + 8 * h;
           const float lo = st_ml[r * 2 + 1];
-          if (!(lo > 0.f)) continue;
+          if (lo == 0.f) continue;
           const float w = expf(st_ml[r * 2] - m);
           l += lo * w;
 #pragma unroll
@@ -797,7 +803,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   __threadfence();
 
   // the last split merges, with every thread of the block: per row the
-  // weights exp(m_s - M) of the splits that saw a visible key (l_s > 0)
+  // weights exp(m_s - M) of the splits that saw a visible key (l_s != 0,
+  // so a NaN l_s is merged and makes the row NaN through l)
   // and 1 / sum, then the weighted accumulators (each split's loads of
   // a row or an element issued together)
   const int64_t pair0 = (int64_t)pair * a.splits * R;
@@ -813,15 +820,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float m = kNegInf;
 #pragma unroll
     for (int sp = 0; sp < kMaxSplits; ++sp)
-      if (ml[sp].y > 0.f) m = fmaxf(m, ml[sp].x);
+      if (ml[sp].y != 0.f) m = fmaxf(m, ml[sp].x);
     float l = 0.f;
 #pragma unroll
     for (int sp = 0; sp < kMaxSplits; ++sp) {
-      const float w = ml[sp].y > 0.f ? expf(ml[sp].x - m) : 0.f;
+      const float w = ml[sp].y != 0.f ? expf(ml[sp].x - m) : 0.f;
       w_s[sp * mt * 16 + r] = w;
       l += ml[sp].y * w;
     }
-    lsum_s[r] = 1.f / (l > 0.f ? l : 1.f);
+    lsum_s[r] = 1.f / (l != 0.f ? l : 1.f);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < rows * kD / 4; e += nthreads) {

@@ -24,6 +24,15 @@ a draft model whose pools share the target's tables), fork groups
 (`submit(guided=<Constraint>)`, an additive mask on the logits). Every
 one of them reads KV through the same paged-attention dispatcher.
 
+Around the step: the host KV tier (`host_kv_blocks=N`: lazy admission,
+preemption to host memory and resume, prefix spills), request telemetry
+(`telemetry=`: span trees, SLO digests, the flight recorder dumped on a
+fault), chaos hooks (`chaos=ChaosInjector`), the HBM ledger's rows for
+this server (`get_stats()["memory"]`, `/memory`), the ``serving.*``
+metrics and a stdlib HTTP endpoint (`serve_metrics`). A non-finite logit
+on a live lane fails every request with a ``NonFiniteError`` and closes
+the server.
+
 ``GPTServingModel`` adapts the GPT params (models/gpt.py layout) with
 the math of ``gpt.build_kv_step`` over (S, C) ragged lanes; KV goes
 through ``kv_cache.write_block_kv`` (or ``write_block_kv_quant`` for int8
@@ -34,6 +43,7 @@ are plain products left to ``torch.matmul``; int8 weights
 as the JAX package leaves that dequant to XLA.
 """
 
+import itertools
 import math
 import threading
 import time
@@ -45,7 +55,12 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models.gpt import _cast_params, _ln, _to_device
+from ..observability import _help
+from ..observability.compile_insight import array_nbytes, hbm_ledger
+from ..observability.metrics import global_registry
+from ..observability.tracing import get_recorder
 from ..ops.cuda import paged as _paged
+from ..robustness.guard import NonFiniteError
 from .decode_strategies import (GroupFuture, RequestGroup, SamplingParams,
                                 gumbel_noise)
 from .kv_cache import (NEG_INF, NULL_BLOCK, PagedKVCache, paged_attention,
@@ -57,15 +72,17 @@ from .spec_decode import build_draft_step
 __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
            "NonFiniteError"]
 
+# HBM-ledger component ids ("serving0", ...): monotonic, never recycled
+_SERVER_SEQ = itertools.count()
 
-class NonFiniteError(FloatingPointError):
-    """A fused step produced non-finite logits on a live lane; the server
-    failed every outstanding request and closed."""
 
-    def __init__(self, msg, iteration, bad_slots):
-        super().__init__(msg)
-        self.iteration = iteration
-        self.bad_slots = bad_slots
+def _tensor_leaves(tree):
+    """Every tensor of a nested dict of params."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    else:
+        yield tree
 
 
 def _sample_rows(base, rng, temperature, do_top_k, top_p):
@@ -204,6 +221,16 @@ def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
     return nxt, chosen, logp, fed
 
 
+def _narrow(row):
+    """A guided mask row narrowed to its lowest allowed token (the chaos
+    mask starve)."""
+    allowed = np.flatnonzero(row > NEG_INF / 2)
+    out = np.full_like(row, np.float32(NEG_INF))
+    if allowed.size:
+        out[allowed[0]] = 0.0
+    return out
+
+
 class GPTServingModel:
     """models/gpt.py parameters behind the engine's model interface. The
     params (the port's dict of tensors, see gpt.params_from_numpy) are
@@ -326,12 +353,26 @@ class GenerationServer:
     blocks. `spec=SpecDecodeConfig(draft_model, k)` turns on speculative
     decoding; the draft's pools are a PagedKVCache of their own (the
     draft's head geometry, the target's kv_dtype and block ids) that
-    shares the target's tables."""
+    shares the target's tables.
+
+    `host_kv_blocks=N` attaches a host tier of N blocks (pinned host
+    memory on the card), after the draft's pools so that it mirrors onto
+    them: admission turns lazy, a decode lane may be preempted to the
+    host and resumed, and prefix eviction spills instead of destroying.
+    `telemetry` True (the default) builds a ServingTelemetry from
+    `slo_window_s`, `flight_dir`, `flight_capacity` and `deadline_storm`
+    (deadline cancels in one iteration that dump the flight recorder);
+    False serves without it; an instance is used as given. `chaos=` a
+    ChaosInjector whose plan the scheduler and step() consume; when it
+    drives the clock and `clock` is None, its clock is the server's."""
 
     def __init__(self, model, *, num_slots=4, block_size=16,
                  num_blocks=None, max_context=None, chunk=4, clock=None,
-                 watermark_blocks=0, start=True, device=None,
-                 kv_dtype=None, prefix_cache=False, spec=None):
+                 watermark_blocks=0, chaos=None, start=True,
+                 telemetry=True, slo_window_s=60.0, flight_dir=None,
+                 flight_capacity=256, deadline_storm=3, device=None,
+                 kv_dtype=None, prefix_cache=False, spec=None,
+                 host_kv_blocks=0):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
@@ -362,15 +403,34 @@ class GenerationServer:
                                   dtype=model.kv_dtype, device=self.device,
                                   num_kv_heads=model.num_kv_heads,
                                   kv_dtype=kv_dtype)
+        if chaos is not None and clock is None and chaos.drives_clock():
+            clock = chaos.serving_clock
+        # the HBM-ledger component id; the prefix index labels its gauge
+        # series with it too
+        self._ledger_id = f"serving{next(_SERVER_SEQ)}"
         self._prefix = None
         if prefix_cache:
             self._prefix = (prefix_cache
                             if isinstance(prefix_cache, PrefixCacheIndex)
-                            else PrefixCacheIndex(self.cache))
+                            else PrefixCacheIndex(self.cache, chaos=chaos,
+                                                  label=self._ledger_id))
+        if telemetry is True:
+            from ..observability.serving_telemetry import ServingTelemetry
+            telemetry = ServingTelemetry(
+                clock=clock, window_s=slo_window_s, flight_dir=flight_dir,
+                flight_capacity=flight_capacity,
+                deadline_storm=deadline_storm)
+        elif telemetry is False:
+            telemetry = None
+        self._tel = telemetry
+        self._chaos = chaos
+        self._prompt_poison_fired = set()   # chaos prompt plans applied
+        self._exporter = None
         self._sched = ContinuousBatchingScheduler(
             self.cache, num_slots=num_slots, chunk=chunk,
             max_context=max_context, clock=clock,
-            watermark_blocks=watermark_blocks, prefix_cache=self._prefix,
+            watermark_blocks=watermark_blocks, chaos=chaos,
+            telemetry=telemetry, prefix_cache=self._prefix,
             spec_k=spec.k if spec is not None else 0,
             spec_mode=spec.mode if spec is not None else "greedy",
             spec_seed=spec.seed if spec is not None else 0)
@@ -390,8 +450,13 @@ class GenerationServer:
                 num_kv_heads=dm.num_kv_heads, kv_dtype=kv_dtype)
             self.cache.attach_sibling(self._draft_cache)
             self._draft = build_draft_step(dm, self.block_size, spec.k)
+        # the host tier, after the draft attaches: it mirrors onto the
+        # draft pools (a parked speculative request keeps its draft KV)
+        if host_kv_blocks:
+            self.cache.enable_host_tier(int(host_kv_blocks))
         self._vocab = model.cfg.vocab_size
         self.max_context = max_context
+        self._register_ledger(num_slots, chunk, kv_dtype)
         self._fault = None
         self._next_rid = 0
         self._rid_lock = threading.Lock()
@@ -399,21 +464,125 @@ class GenerationServer:
         self._step_lock = threading.Lock()
         self._cv = threading.Condition()
         self._iterations = 0
+        reg = global_registry()
+        self._m = {name: getattr(reg, kind)(f"serving.{name}",
+                                            _help(f"serving.{name}"))
+                   for name, kind in (("requests", "counter"),
+                                      ("iterations", "counter"),
+                                      ("step_ms", "histogram"),
+                                      ("queue_depth", "gauge"),
+                                      ("active_slots", "gauge"),
+                                      ("blocks_in_use", "gauge"))}
         self._worker = None
         if start:
             self._worker = threading.Thread(target=self._serve,
                                             daemon=True)
             self._worker.start()
 
+    def _register_ledger(self, num_slots, chunk, kv_dtype):
+        """This server's HBM-ledger rows: the block pools ("kv_pool",
+        kind kv_cache), the host tier ("kv_pool_host", kind host_ram:
+        host memory, never summed into the resident total), the model's
+        parameters, the draft's pools and parameters under speculation,
+        and a static peak estimate of the fused step (pools + params +
+        S x C x hidden activations per layer). Also the int8 pools'
+        serving.kv.quant.* gauges and the tier's serving.kv.tier.*
+        gauges, server-labeled. close() retires all of them."""
+        model, cache = self.model, self.cache
+        kv_bytes = cache.pool_bytes()
+        param_bytes = sum(array_nbytes(t)
+                          for t in _tensor_leaves(model.params))
+        hidden = model.num_heads * model.head_dim
+        act_est = num_slots * chunk * hidden * 4 * (2 * model.num_layers
+                                                    + 4)
+        led = hbm_ledger()
+        # "heads" is the pools' physical head count (H_kv under GQA);
+        # "q_heads" the model's
+        kv_detail = {"layers": model.num_layers,
+                     "num_blocks": cache.num_blocks,
+                     "block_size": self.block_size,
+                     "heads": cache.num_kv_heads,
+                     "q_heads": model.num_heads,
+                     "head_dim": model.head_dim,
+                     "dtype": str(cache.dtype).removeprefix("torch."),
+                     "kv_dtype": kv_dtype,
+                     "tier": "device"}
+        if cache.quantized:
+            kv_detail["scale_bytes"] = cache.scale_bytes()
+            kv_detail["dense_equiv_bytes"] = cache.dense_pool_bytes()
+        led.register(self._ledger_id, "kv_pool", "kv_cache", kv_bytes,
+                     detail=kv_detail)
+        if cache.host is not None:
+            led.register(self._ledger_id, "kv_pool_host", "host_ram",
+                         cache.host_pool_bytes(),
+                         detail=dict(kv_detail, tier="host",
+                                     num_blocks=cache.host.num_blocks))
+        led.register(self._ledger_id, "model_params", "params",
+                     param_bytes, detail={"source": "serving model",
+                                          "per_device_bytes": param_bytes})
+        draft_bytes = 0
+        if self._spec is not None:
+            dm = self._spec.draft_model
+            draft_pool_bytes = self._draft_cache.pool_bytes()
+            draft_param_bytes = sum(array_nbytes(t)
+                                    for t in _tensor_leaves(dm.params))
+            led.register(self._ledger_id, "draft_kv_pool", "kv_cache",
+                         draft_pool_bytes,
+                         detail={"layers": dm.num_layers,
+                                 "num_blocks": cache.num_blocks,
+                                 "block_size": self.block_size,
+                                 "heads": self._draft_cache.num_kv_heads,
+                                 "q_heads": dm.num_heads,
+                                 "head_dim": dm.head_dim,
+                                 "spec_k": self._spec.k})
+            led.register(self._ledger_id, "draft_params", "params",
+                         draft_param_bytes,
+                         detail={"source": "spec draft model"})
+            draft_bytes = draft_pool_bytes + draft_param_bytes
+        led.register(self._ledger_id, "fused_step", "peak_hbm",
+                     param_bytes + kv_bytes + act_est + draft_bytes,
+                     detail={"source": "static",
+                             "activation_bytes_est": act_est,
+                             "per_device": True})
+        reg = global_registry()
+        self._quant_gauges = None
+        if cache.quantized:
+            self._quant_gauges = {
+                "serving.kv.quant.pool_bytes": kv_bytes,
+                "serving.kv.quant.bytes_saved":
+                    cache.dense_pool_bytes() - kv_bytes}
+            for name, val in self._quant_gauges.items():
+                reg.gauge(name, _help(name)).labels(
+                    server=self._ledger_id).set(val)
+        self._tier_gauges = None
+        if cache.host is not None:
+            self._tier_gauges = {
+                name: reg.gauge(name, _help(name)).labels(
+                    server=self._ledger_id)
+                for name in ("serving.kv.tier.host_blocks",
+                             "serving.kv.tier.spills",
+                             "serving.kv.tier.swap_ins",
+                             "serving.kv.tier.preempts",
+                             "serving.kv.tier.resumes",
+                             "serving.kv.tier.reprefills_avoided")}
+            self._tier_gauges["serving.kv.tier.host_blocks"].set(
+                cache.host.num_blocks)
+            self._publish_tier_gauges()
+
     # -- client surface ----------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=32, eos_id=None,
-               priority=0, deadline_ms=None, stream=None, n=1,
-               sampling=None, beam=None, guided=None):
+               priority=0, deadline_ms=None, stream=None, trace_ctx=None,
+               tenant=None, n=1, sampling=None, beam=None, guided=None):
         """prompt_ids: 1-D int token ids. Returns a GenerationFuture
         resolving to a GenerationResult (or raising DeadlineExceeded /
         RequestCancelled). `stream(request_id, token)` fires on the
         serve thread for every generated token. Lower `priority` values
-        run first (FIFO within a priority).
+        run first (FIFO within a priority). `trace_ctx` (an object with
+        `trace_id`, `hop` and `sampled`) puts a caller's trace id on the
+        request's span tree, and its sampling verdict wins over this
+        server's. `tenant` is an opaque cost-attribution identity
+        (get_stats()["tenants"], /tenants); it never affects scheduling
+        or ids.
 
         - `sampling=SamplingParams(...)`: stochastic decode (temperature,
           top-k, nucleus; counter-keyed, so replays resample alike).
@@ -493,15 +662,19 @@ class GenerationServer:
                     f"pool only has {self.cache.usable_blocks}")
             return self._submit_group(
                 prompt, int(max_new_tokens), eos_id, priority,
-                deadline_ms, stream, k,
+                deadline_ms, stream, trace_ctx, tenant, k,
                 sampling if beam is None else None, beam, guided)
         rid = self._take_rids(1)[0]
+        if self._tel is not None:
+            # before the enqueue: the worker may admit the request at
+            # once, and on_admit needs the submit stamp
+            self._tel.on_submit(rid, ctx=trace_ctx, tenant=tenant)
         fut = GenerationFuture(self, rid)
         now = self._sched.now()
         deadline = None if deadline_ms is None else now + deadline_ms / 1e3
         req = _Request(rid, prompt, int(max_new_tokens), eos_id, priority,
-                       deadline, stream, fut, now, sampling=sampling,
-                       guided=guided)
+                       deadline, stream, fut, now, tenant=tenant,
+                       sampling=sampling, guided=guided)
         if guided is not None:
             req.guided_state = guided.initial_state()
         self._enqueue(req)
@@ -526,11 +699,13 @@ class GenerationServer:
                 req.rid, self._fault or
                 RequestCancelled("GenerationServer is closed"))
             raise RuntimeError("GenerationServer is closed")
+        self._m["requests"].inc()
         with self._cv:
             self._cv.notify()
 
     def _submit_group(self, prompt, max_new_tokens, eos_id, priority,
-                      deadline_ms, stream, k, sampling, beam, guided):
+                      deadline_ms, stream, trace_ctx, tenant, k, sampling,
+                      beam, guided):
         """Build and enqueue one RequestGroup: K lane requests (rank 0,
         the leader, is the only one queued; the scheduler admits the
         whole group off it) and one GroupFuture. Beam lanes carry eos on
@@ -539,6 +714,11 @@ class GenerationServer:
         stream."""
         kind = "beam" if beam is not None else "sample"
         rids = self._take_rids(k)
+        if self._tel is not None:
+            for rid in rids:
+                # one on_submit a lane: tenant billing counts every
+                # lane's tokens
+                self._tel.on_submit(rid, ctx=trace_ctx, tenant=tenant)
         group = RequestGroup(rids[0], kind, k, eos_id, max_new_tokens,
                              sampling=sampling, beam=beam)
         fut = GroupFuture(rids[0], rids,
@@ -551,8 +731,8 @@ class GenerationServer:
             req = _Request(rid, prompt, max_new_tokens,
                            None if kind == "beam" else eos_id, priority,
                            deadline, None if kind == "beam" else stream,
-                           Future(), now, group=group, lane=rank,
-                           sampling=sampling, guided=guided)
+                           Future(), now, tenant=tenant, group=group,
+                           lane=rank, sampling=sampling, guided=guided)
             if guided is not None:
                 req.guided_state = guided.initial_state()
             group.lanes.append(req)
@@ -564,6 +744,9 @@ class GenerationServer:
         with self._cv:
             self._cv.notify()
 
+    def pending(self):
+        return self._sched.queue_depth + self._sched.active_count
+
     # -- serve loop --------------------------------------------------------
     def _tensor(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -573,49 +756,138 @@ class GenerationServer:
         """Run one scheduler iteration + fused device step. Returns True
         if any lane did work."""
         with self._step_lock:
+            tel = self._tel
+            if tel is not None:
+                # before plan(): the iteration's deadline cancels fire
+                # inside it and belong to this iteration's flight entry
+                tel.begin_iteration(self._sched.iteration + 1)
+            admitted0 = self._sched.counts["admitted"]
+            it0 = self._sched.iteration
             plan = self._sched.plan()
+            self._publish_gauges()
             if plan is None:
+                it = self._sched.iteration
+                if it > it0:
+                    self._idle_iteration(it, admitted0)
                 return False
             it = self._sched.iteration
-            # speculative mode: the draft step runs every iteration (its
-            # KV tracks prefill chunks too) and its proposals land in
-            # plan.tokens columns 1..q-1 before the target verifies them
-            draft_logps = None
-            if self._draft is not None:
-                draft_logps = self._run_draft(plan)
-            per_column = self._spec is not None
-            do_sample, temperature, top_k, top_p, keys = plan.sample_ctl
-            out = self.model.fused_step(
-                self.block_size, self.cache.pools,
-                self._tensor(plan.tokens), self._tensor(plan.positions),
-                self._tensor(plan.valid), self._tensor(plan.tables),
-                self._tensor(keys.astype(np.int64)),
-                self._tensor(temperature), self._tensor(do_sample),
-                self._tensor(top_k), self._tensor(top_p),
-                per_column=per_column, mask=self._guided_mask(plan))
-            nxt, logps = out[0].cpu().numpy(), out[1].cpu().numpy()
-            if not per_column:
-                # commit() reads per-column arrays; a broadcast view puts
-                # the last-valid-column value at every column
-                s, c = plan.tokens.shape
-                nxt = np.broadcast_to(nxt[:, None], (s, c))
-                logps = np.broadcast_to(logps[:, None], (s, c))
-            # the fed-token logps matter to rejection acceptance only,
-            # and the full logp rows to a group's fork or a beam step:
-            # each is copied to the host only when asked for
-            fed = (out[3].cpu().numpy() if per_column
-                   and self._spec.mode == "rejection" else None)
-            rows = out[2].cpu().numpy() if plan.needs_rows else None
+            lanes = plan.lanes_detail
+            t0 = time.perf_counter()
+            with get_recorder().span(
+                    "serving.iteration", cat="serving",
+                    args={"iteration": it, "lanes": len(plan.slot_ids),
+                          "prefill_tokens": plan.prefill_tokens}):
+                if self._chaos is not None:
+                    self._chaos_poison(it, lanes)
+                # speculative mode: the draft step runs every iteration
+                # (its KV tracks prefill chunks too) and its proposals
+                # land in plan.tokens columns 1..q-1 before the target
+                # verifies them
+                draft_logps = None
+                if self._draft is not None:
+                    draft_logps = self._run_draft(plan)
+                per_column = self._spec is not None
+                do_sample, temperature, top_k, top_p, keys = \
+                    plan.sample_ctl
+                out = self.model.fused_step(
+                    self.block_size, self.cache.pools,
+                    self._tensor(plan.tokens), self._tensor(plan.positions),
+                    self._tensor(plan.valid), self._tensor(plan.tables),
+                    self._tensor(keys.astype(np.int64)),
+                    self._tensor(temperature), self._tensor(do_sample),
+                    self._tensor(top_k), self._tensor(top_p),
+                    per_column=per_column,
+                    mask=self._guided_mask(plan))
+                nxt, logps = out[0].cpu().numpy(), out[1].cpu().numpy()
+                if not per_column:
+                    # commit() reads per-column arrays; a broadcast view
+                    # puts the last-valid-column value at every column
+                    s, c = plan.tokens.shape
+                    nxt = np.broadcast_to(nxt[:, None], (s, c))
+                    logps = np.broadcast_to(logps[:, None], (s, c))
+                # the fed-token logps matter to rejection acceptance
+                # only, and the full logp rows to a group's fork or a
+                # beam step: each is copied to the host only when asked
+                fed = (out[3].cpu().numpy() if per_column
+                       and self._spec.mode == "rejection" else None)
+                rows = out[2].cpu().numpy() if plan.needs_rows else None
             # non-finite logits guard: one reduce on the hot path; the
-            # per-slot triage only runs on a trip, BEFORE commit() streams
-            # garbage tokens to clients
+            # per-slot triage runs only on a trip, before commit()
+            # streams garbage tokens to clients. It runs with telemetry
+            # off too (only the flight dump needs telemetry)
             if not math.isfinite(float(logps.sum())):
                 if not np.all(np.isfinite(logps[plan.slot_ids])):
-                    self._on_engine_fault(plan, it, logps)
-            self._sched.commit(plan, nxt, logps, fed_logps=fed,
-                               draft_logps=draft_logps, rows=rows)
+                    self._on_engine_fault(plan, it, logps, lanes)
+            retired = self._sched.commit(plan, nxt, logps, fed_logps=fed,
+                                         draft_logps=draft_logps,
+                                         rows=rows)
             self._iterations += 1
+            self._m["iterations"].inc()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            self._m["step_ms"].observe(step_ms)
+            self._publish_gauges()
+            if tel is not None:
+                st = self._sched
+                # one ITER_FIELDS-order tuple an iteration (a tuple of
+                # scalars adds no GC work)
+                tel.end_iteration(it, (
+                    round(step_ms, 3),              # step_ms
+                    tuple(plan.slot_ids),           # lanes
+                    tuple(plan.emitting),           # emitting
+                    plan.prefill_tokens,
+                    st.counts["admitted"] - admitted0,
+                    tuple(r.request_id for r in retired),
+                    plan.queue_depth,
+                    len(plan.slot_ids),             # active_slots
+                    self.cache.num_free,            # blocks_free
+                    self.cache.num_used,            # blocks_in_use
+                    st.watermark_blocks,
+                    lanes,                          # lanes_detail
+                    _paged.LAUNCHES))               # kernel launches
             return True
+
+    def _idle_iteration(self, it, admitted0):
+        """An iteration the scheduler counted but in which no lane ran
+        (cancels or deadlines only): a chaos poison keyed to it moves to
+        the next iteration, and the flight ring and the deadline-storm
+        detector still see it."""
+        if self._chaos is not None:
+            layer = self._chaos.serving_poison_at(it)
+            if layer is not None:
+                self._chaos.poison_serving_at(it + 1, layer)
+        if self._tel is not None:
+            self._tel.end_iteration(
+                it, step_ms=0.0, lanes=[], emitting=[], prefill_tokens=0,
+                admitted=self._sched.counts["admitted"] - admitted0,
+                retired=[], queue_depth=self._sched.queue_depth,
+                active_slots=self._sched.active_count,
+                blocks_free=self.cache.num_free,
+                blocks_in_use=self.cache.num_used,
+                watermark_blocks=self._sched.watermark_blocks,
+                lanes_detail=[], kernel=_paged.LAUNCHES)
+
+    def _chaos_poison(self, it, lanes):
+        """The chaos poisons of this iteration, before the fused step: a
+        standing poison keyed to a prompt's bytes (applied at most once
+        per plan entry and server: the fault closes the server) and the
+        iteration's poison of the oldest lane past position 0, deferred
+        to the next iteration while no lane qualifies (a position-0
+        lane's block is overwritten by its own prefill write)."""
+        chaos = self._chaos
+        for pi, (pp, pl) in enumerate(chaos.prompt_poison_plan()):
+            if pi in self._prompt_poison_fired:
+                continue
+            blk = self._sched.lane_block_for_prompt(pp)
+            if blk is not None:
+                self._nan_block(pl, blk)
+                self._prompt_poison_fired.add(pi)
+                chaos.prompt_poison_applied()
+        layer = chaos.serving_poison_at(it)
+        if layer is not None:
+            if self._poison_kv(layer, lanes):
+                chaos.serving_poison_applied()
+            else:
+                chaos.poison_serving_at(it + 1, layer)
 
     def _run_draft(self, plan):
         """One draft-step call: sync the draft KV with this iteration's
@@ -663,19 +935,26 @@ class GenerationServer:
         (adding zeros changes no logit). In per-column mode a guided
         lane's verify columns are masked under a scratch automaton state
         advanced through the fed drafts (the real state advances only on
-        commit)."""
+        commit). A chaos mask starve narrows every guided row to its
+        lowest allowed token: conformance holds, the loop must go on."""
         if not plan.guided_lanes:
             return None
         s, c = plan.tokens.shape
         per_col = self._spec is not None
         mask = np.zeros((s, c, self._vocab) if per_col
                         else (s, self._vocab), np.float32)
+        starve = (self._chaos is not None
+                  and self._chaos.mask_starves_at(self._sched.iteration))
+        starved_any = False
         for sid, req in plan.guided_lanes:
             state = req.guided_state
             if state is None:
                 continue        # dead automaton: unconstrained
             eos = req.eos_id if req.group is None else req.group.eos_id
             row = req.guided.mask_row(state, eos)
+            if starve:
+                row = _narrow(row)
+                starved_any = True
             if not per_col:
                 mask[sid] = row
                 continue
@@ -692,16 +971,62 @@ class GenerationServer:
                 if st is not None:
                     row = req.guided.mask_row(st, eos)
                 mask[sid, j] = row      # dead: repeat the last mask
+        if starved_any:
+            self._chaos.mask_starve_applied()
         return self._tensor(mask)
 
-    def _on_engine_fault(self, plan, iteration, logps):
-        """Fail every outstanding request, close, and raise: a poisoned
-        pool is unrecoverable, and fail-stop beats serving garbage."""
+    def _nan_block(self, layer, block):
+        """Chaos primitive: make `block`'s keys read as NaN in `layer`,
+        in place. Dense pools take the NaN in the k rows; int8 pools in
+        the k_scale rows (an int8 code cannot hold NaN, and NaN times
+        any code dequantizes to NaN), so the poison goes through the
+        same attention arithmetic on both layouts."""
+        pool = self.cache.pools[layer]
+        pool["k_scale" if "k_scale" in pool else "k"][block] = float("nan")
+
+    def _poison_kv(self, layer, lanes):
+        """Chaos hook: NaN the first KV block of the oldest active lane
+        past position 0 (every later position attends it, so the NaN
+        reaches that lane's logits this iteration). False when no lane
+        qualifies; the caller defers."""
+        lanes = lanes if lanes is not None else self._sched.lane_snapshot()
+        # LANE_FIELDS order: (slot, rid, pos, prefilling, admit_seq,
+        # generated, first_block, ...)
+        victims = sorted((ln for ln in lanes if ln[2] >= 1),
+                         key=lambda ln: ln[4])
+        if not victims:
+            return False
+        self._nan_block(layer, victims[0][6])
+        return True
+
+    def _on_engine_fault(self, plan, iteration, logps, lanes):
+        """A fused step gave non-finite logits on a live lane: dump the
+        flight recorder (its last entry is this iteration, marked with
+        the fault), fail every outstanding request, close, and raise a
+        NonFiniteError carrying `bad_rids` (the requests whose lanes went
+        non-finite) and `flight_dump`. A poisoned pool is unrecoverable,
+        and fail-stop beats serving garbage."""
         bad = [int(s) for s in plan.slot_ids
                if not np.all(np.isfinite(logps[s]))]
-        err = NonFiniteError(
-            f"non-finite logits on slots {bad} at iteration {iteration}",
-            iteration, bad)
+        if lanes is None:       # telemetry off: the plan has no lanes
+            lanes = self._sched.lane_snapshot()
+        by_slot = {ln[0]: ln for ln in lanes}
+        bad_rids = [by_slot[s][1] for s in bad if s in by_slot]
+        dump = None
+        if self._tel is not None:
+            self._tel.flight.record(
+                iteration, kind="iteration", aborted=True,
+                lanes=list(plan.slot_ids), emitting=sorted(plan.emitting),
+                prefill_tokens=plan.prefill_tokens, lanes_detail=lanes,
+                blocks_free=self.cache.num_free,
+                blocks_in_use=self.cache.num_used, kernel=_paged.LAUNCHES)
+            dump = self._tel.fault(iteration, "non_finite_logits",
+                                   {"bad_slots": bad, "bad_rids": bad_rids,
+                                    "iteration": iteration})
+        err = NonFiniteError(f"serving.logits[slot {bad[0]}]", iteration,
+                             [f"serving.logits[slot {s}]" for s in bad])
+        err.flight_dump = dump
+        err.bad_rids = bad_rids
         self._fault = err
         with self._rid_lock:
             self._closed = True
@@ -735,31 +1060,74 @@ class GenerationServer:
                     # must still fire while the pool idles
                     self._cv.wait(timeout=0.05)
 
+    def _publish_gauges(self):
+        st = self._sched
+        self._m["queue_depth"].set(st.queue_depth)
+        self._m["active_slots"].set(st.active_count)
+        self._m["blocks_in_use"].set(self.cache.num_used)
+        self._publish_tier_gauges()
+
+    def _publish_tier_gauges(self):
+        if self._tier_gauges is None:
+            return
+        g = self._tier_gauges
+        g["serving.kv.tier.spills"].set(self.cache.host_spills)
+        g["serving.kv.tier.swap_ins"].set(self.cache.host_swap_ins)
+        g["serving.kv.tier.preempts"].set(self._sched.preempts)
+        g["serving.kv.tier.resumes"].set(self._sched.resumes)
+        g["serving.kv.tier.reprefills_avoided"].set(
+            self._prefix.counts["reprefills_avoided"]
+            if self._prefix is not None else 0)
+
     # -- lifecycle ---------------------------------------------------------
     def close(self, drain=True, timeout=60):
         """Stop accepting submits; by default finish every in-flight and
         queued request first (graceful drain), then stop the worker.
-        drain=False fails outstanding requests instead."""
+        drain=False fails outstanding requests instead. Either way, and
+        also after a fault stopped the server, the endpoint closes and
+        this server's ledger rows and gauge series are retired."""
         with self._rid_lock:
-            if self._closed:
-                return
-            if not drain:
-                self._sched.cancel_all(RequestCancelled(
-                    "GenerationServer closed without drain"))
-            self._closed = True
-        if self._worker is not None:
-            deadline = time.monotonic() + timeout
-            while drain and self._sched.has_work() and \
-                    time.monotonic() < deadline:
+            already = self._closed
+            if not already:
+                if not drain:
+                    self._sched.cancel_all(RequestCancelled(
+                        "GenerationServer closed without drain"))
+                self._closed = True
+        if not already:
+            if self._worker is not None:
+                deadline = time.monotonic() + timeout
+                while drain and self._sched.has_work() and \
+                        time.monotonic() < deadline:
+                    with self._cv:
+                        self._cv.notify()
+                    time.sleep(0.01)
                 with self._cv:
                     self._cv.notify()
-                time.sleep(0.01)
-            with self._cv:
-                self._cv.notify()
-            self._worker.join(timeout=max(0.0,
-                                          deadline - time.monotonic()))
-        elif drain:
-            self.run_until_idle()
+                self._worker.join(timeout=max(0.0,
+                                              deadline - time.monotonic()))
+            elif drain:
+                self.run_until_idle()
+            self._publish_gauges()
+        self._retire()
+
+    def _retire(self):
+        """Close the endpoint and retire this server's SLO gauges, ledger
+        rows, serving.kv.quant.* / serving.kv.tier.* gauges and prefix
+        gauge (idempotent): a closed or faulted server must not keep
+        reporting live bytes or window quantiles."""
+        if self._exporter is not None:
+            self._exporter.close()
+            self._exporter = None
+        if self._tel is not None:
+            self._tel.close()
+        hbm_ledger().retire(self._ledger_id)
+        reg = global_registry()
+        for gauges in (self._quant_gauges, self._tier_gauges):
+            for name in gauges or ():
+                reg.gauge(name).remove(server=self._ledger_id)
+        self._quant_gauges = self._tier_gauges = None
+        if self._prefix is not None:
+            self._prefix.drop_gauges()
 
     def get_stats(self):
         """Scheduler + engine stats: `iterations` counts fused steps run,
@@ -769,10 +1137,15 @@ class GenerationServer:
         int8 pools' true bytes, scales included, beside what the same
         blocks would cost dense in the compute dtype. `prefix` (None
         without a prefix cache) holds the index's hits, misses,
-        shared_blocks, evictions and cow_copies; `spec` (None without
-        speculation) k, mode, proposed, accepted, accept_rate and the
-        draft's kernel launches; the "group.*", "beam.*" and "guided.*"
-        keys count fork groups, beam reorders and masked steps."""
+        shared_blocks, evictions, cow_copies, spills and swap-ins; `spec`
+        (None without speculation) k, mode, proposed, accepted,
+        accept_rate and the draft's kernel launches; the "group.*",
+        "beam.*" and "guided.*" keys count fork groups, beam reorders and
+        masked steps. `kv_tier` (None without a host tier) the tier's
+        blocks, bytes and traffic; `preempts`, `resumes` and
+        `preempted_depth` the scheduler's. `memory` is this server's
+        HBM-ledger rows by kind (empty once closed); `slo` and `tenants`
+        the telemetry's snapshots (None with telemetry off)."""
         st = self._sched.stats()
         proposed = st.pop("spec.proposed")
         accepted = st.pop("spec.accepted")
@@ -806,5 +1179,75 @@ class GenerationServer:
                 "bytes_ratio_vs_dense": round(pb / db, 4),
                 "int8_weights": self.model.int8_weights,
             }
+        st["kv_tier"] = None
+        if self.cache.host is not None:
+            st["kv_tier"] = {
+                "host_blocks": self.cache.host.num_blocks,
+                "host_blocks_used": self.cache.host.num_used,
+                "host_pool_bytes": self.cache.host_pool_bytes(),
+                "device_pool_bytes": self.cache.pool_bytes(),
+                "spills": self.cache.host_spills,
+                "swap_ins": self.cache.host_swap_ins,
+                "preempts": self._sched.preempts,
+                "resumes": self._sched.resumes,
+                "preempted_depth": st["preempted_depth"],
+                "reprefills_avoided":
+                    self._prefix.counts["reprefills_avoided"]
+                    if self._prefix is not None else 0,
+            }
+        st["telemetry_enabled"] = self._tel is not None
+        st["slo"] = self._tel.stats() if self._tel is not None else None
+        st["tenants"] = (self._tel.tenants.snapshot()
+                         if self._tel is not None else None)
         st["engine_fault"] = repr(self._fault) if self._fault else None
+        st["memory"] = hbm_ledger().component_bytes(self._ledger_id)
         return st
+
+    def check_slo(self, targets):
+        """Burn-rate check over the cumulative SLO digests, e.g.
+        ``check_slo({"ttft_ms": {"p99": 250.0}})`` -> {"ok": bool,
+        "checks": [...]} (SLOTracker.check_slo)."""
+        if self._tel is None:
+            raise RuntimeError(
+                "check_slo needs telemetry; this server was built with "
+                "telemetry=False")
+        return self._tel.check_slo(targets)
+
+    @property
+    def telemetry(self):
+        """The ServingTelemetry (SLO digests + flight recorder), or None
+        when disabled."""
+        return self._tel
+
+    def health(self):
+        """The /healthz payload as a plain dict: status "fault" once an
+        engine fault latched, "closed" after close(), "ok" otherwise."""
+        status = ("fault" if self._fault
+                  else "closed" if self._closed else "ok")
+        return {"status": status,
+                "engine_fault": repr(self._fault) if self._fault else None,
+                "pending": self.pending(),
+                "iteration": self._sched.iteration}
+
+    def serve_metrics(self, port=0, host=None):
+        """Mount the stdlib telemetry endpoint (/metrics Prometheus
+        exposition, /healthz, /slo, /memory, /series, /tenants) for this
+        server, on loopback by default; returns the running
+        TelemetryServer (.port, .url, .close()), closed with the server.
+        Idempotent while a mount is live, but a different explicit port
+        or host than the live mount's raises."""
+        from ..observability.exporter import (check_remount,
+                                              serve_metrics as _serve)
+        if self._exporter is not None and not self._exporter.closed:
+            check_remount(self._exporter, port, host)
+            return self._exporter
+        tel = self._tel
+        self._exporter = _serve(
+            port=port, host=host or "127.0.0.1",
+            slo_fn=lambda: tel.stats() if tel is not None else {},
+            health_fn=self.health,
+            series_fn=lambda: (tel.series.payload() if tel is not None
+                               and tel.series is not None else None),
+            tenants_fn=lambda: (tel.tenants.snapshot()
+                                if tel is not None else {}))
+        return self._exporter

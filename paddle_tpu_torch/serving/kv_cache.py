@@ -20,7 +20,15 @@ fork groups alias blocks across requests (``fork_table``,
 ``unref_blocks``), and a write into a shared block goes through
 ``cow_copy`` first, which copies the block's rows in place across every
 layer of this cache and of its siblings (the draft model's pools, which
-share its block ids). The host tier, fleet transfer and meshes wait.
+share its block ids).
+
+The host tier (``enable_host_tier``, a ``HostKVTier``) is a pool of
+blocks in host memory with the device pools' geometry: prefix eviction
+spills an idle chain's block there instead of destroying it, and
+preemption parks a paused request's blocks there. ``spill_block`` and
+``swap_in_block`` copy one block's rows, every layer of every holder,
+between the tiers in place: no allocation per call. Fleet transfer and
+meshes wait.
 """
 
 import numpy as np
@@ -32,7 +40,8 @@ from ..ops.cuda.paged import (NEG_INF, NULL_BLOCK, gather_block_kv,
                               paged_attention_cuda,
                               paged_attention_reference)
 
-__all__ = ["PagedKVCache", "paged_attention", "paged_attention_reference",
+__all__ = ["PagedKVCache", "HostKVTier", "paged_attention",
+           "paged_attention_reference",
            "gather_block_kv", "gather_block_kv_pair", "gather_block_scales",
            "write_block_kv", "write_block_kv_quant", "quantize_kv_rows",
            "NULL_BLOCK", "NEG_INF", "KV_QMAX"]
@@ -95,6 +104,89 @@ def write_block_kv_quant(pool, scale_pool, vals, block_idx, offset):
     pool[bidx, :, off, :] = q
     scale_pool[bidx, :, off] = s
     return pool, scale_pool
+
+
+class HostKVTier:
+    """Host-memory block pool mirroring one PagedKVCache's geometry.
+
+    The same per-layer dict keys as the device pools ("k"/"v", plus
+    "k_scale"/"v_scale" for int8) and the same (N, H_kv, bs, D) block
+    shape, as host tensors of the device pools' dtype (bf16 stays bf16):
+    pinned when the cache lives on the card, so the copies are DMA
+    transfers, and plain on the CPU. Eviction under memory pressure
+    becomes a device-to-host copy (``PagedKVCache.spill_block``) that
+    keeps a prefix chain's KV alive, and a later hit swaps the block
+    back in (``swap_in_block``) instead of re-prefilling. Preemption
+    parks a paused request's blocks here too: its host blocks are its
+    reservation.
+
+    Host block ids are a private namespace: they never enter a block
+    table and are never attended, so there is no NULL block and every
+    id (0 included) is usable. Single-owner accounting (a host block has
+    one owner: a spilled prefix entry or a preempted request), a LIFO
+    free list, and a double free raises.
+
+    `_reads` keeps, per host block, the CUDA event recorded after the
+    last host-to-device copy that read it: a spill into that block waits
+    for it on the launching stream first, so a block freed right after
+    its swap-in is never overwritten before the copy has read it."""
+
+    def __init__(self, cache, num_blocks):
+        if int(num_blocks) < 1:
+            raise ValueError("host tier needs >= 1 block")
+        self.num_blocks = int(num_blocks)
+        self.block_size = cache.block_size
+        shape = (self.num_blocks, cache.num_kv_heads, cache.block_size,
+                 cache.head_dim)
+        pin = cache.device.type == "cuda"
+        self.pools = []
+        for _ in range(cache.num_layers):
+            layer = {name: torch.zeros(shape, dtype=cache.dtype,
+                                       pin_memory=pin)
+                     for name in ("k", "v")}
+            if cache.quantized:
+                # scale 1.0 like the device pools: an unwritten row
+                # dequantizes to exact zeros without a 0 * NaN hazard
+                for name in ("k_scale", "v_scale"):
+                    layer[name] = torch.ones(shape[:3],
+                                             dtype=torch.float32,
+                                             pin_memory=pin)
+            self.pools.append(layer)
+        self._free = list(range(self.num_blocks - 1, -1, -1))
+        self._used = set()
+        self._reads = {}
+
+    @property
+    def num_free(self):
+        return len(self._free)
+
+    @property
+    def num_used(self):
+        return len(self._used)
+
+    def allocate(self, n):
+        """n host blocks or None (nothing partial)."""
+        if n > len(self._free):
+            return None
+        taken = [self._free.pop() for _ in range(n)]
+        self._used.update(taken)
+        return taken
+
+    def free(self, blocks):
+        for b in blocks:
+            b = int(b)
+            if b not in self._used:
+                raise ValueError(
+                    f"double free of host block {b}: it is already on "
+                    f"the free list")
+            self._used.discard(b)
+            self._free.append(b)
+
+    def pool_bytes(self):
+        """Host bytes of every block pool (k+v across layers, the f32
+        scale pools included for int8)."""
+        return sum(t.numel() * t.element_size()
+                   for layer in self.pools for t in layer.values())
 
 
 class PagedKVCache:
@@ -175,6 +267,10 @@ class PagedKVCache:
         # their rows too
         self._siblings = []
         self.cow_copies = 0
+        # the host tier (enable_host_tier): None until enabled
+        self.host = None
+        self.host_spills = 0
+        self.host_swap_ins = 0
 
     @property
     def usable_blocks(self):
@@ -304,6 +400,10 @@ class PagedKVCache:
             raise ValueError("a sibling cache needs the same num_blocks "
                              "and block_size")
         self._siblings.append(sibling)
+        if self.host is not None:
+            # a tier already on: the sibling gets host pools at the same
+            # ids, so a spill carries its draft KV along
+            sibling.host = HostKVTier(sibling, self.host.num_blocks)
 
     def cow_copy(self, src, dst):
         """Copy block `src`'s rows into block `dst`, in place, in every
@@ -319,6 +419,83 @@ class PagedKVCache:
                 for arr in layer.values():
                     arr[dst].copy_(arr[src])
         self.cow_copies += 1
+
+    # -- host tier ---------------------------------------------------------
+    def enable_host_tier(self, num_blocks):
+        """Attach a HostKVTier of `num_blocks` host blocks to this cache,
+        and one at the same ids to every sibling (a spilled block carries
+        its draft KV with it). Host block ids are allocated from this
+        cache's tier only; the siblings' tiers are storage at mirrored
+        ids. One tier per cache lifetime, like the pools."""
+        if self.host is not None:
+            raise ValueError(
+                "host tier already enabled: it is sized once for the "
+                "cache lifetime, like the device pools")
+        self.host = HostKVTier(self, num_blocks)
+        for sib in self._siblings:
+            sib.host = HostKVTier(sib, num_blocks)
+        return self.host
+
+    def _holders(self):
+        return [h for h in [self] + self._siblings if h.host is not None]
+
+    def spill_block(self, block):
+        """Device-to-host copy of block `block`'s rows (every layer of
+        every holder, scales beside codes for int8) into a fresh host
+        block, in place. Returns the host block id, or None when the
+        host tier is full (the caller sheds instead). The device block's
+        refcount is not touched: the caller decides whether it dies
+        (prefix eviction) or the request parks (preemption). The copies
+        run on the current stream (behind any swap-in that still reads
+        the host block) and have landed when this returns, so the host
+        rows can be read at once."""
+        if self.host is None:
+            raise ValueError("spill_block without enable_host_tier")
+        hb = self.host.allocate(1)
+        if hb is None:
+            return None
+        hb = hb[0]
+        block = int(block)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            read = self.host._reads.pop(hb, None)
+            if read is not None:
+                torch.cuda.current_stream(self.device).wait_event(read)
+        for h in self._holders():
+            for dev_layer, host_layer in zip(h.pools, h.host.pools):
+                for name, arr in dev_layer.items():
+                    host_layer[name][hb].copy_(arr[block],
+                                               non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.host_spills += 1
+        return hb
+
+    def swap_in_block(self, host_block, dst_block):
+        """Host-to-device copy of host block `host_block`'s rows into
+        device block `dst_block` (every layer of every holder), in
+        place, on the current stream. Does not free the host block: its
+        owner (a prefix entry or a preemption record) does; the event
+        recorded here makes the next spill into it wait for this read."""
+        if self.host is None:
+            raise ValueError("swap_in_block without enable_host_tier")
+        host_block, dst_block = int(host_block), int(dst_block)
+        cuda = self.device.type == "cuda"
+        for h in self._holders():
+            for dev_layer, host_layer in zip(h.pools, h.host.pools):
+                for name, arr in dev_layer.items():
+                    arr[dst_block].copy_(host_layer[name][host_block],
+                                         non_blocking=cuda)
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self.host._reads[host_block] = ev
+        self.host_swap_ins += 1
+
+    def host_pool_bytes(self):
+        """Host bytes of the attached tiers (this cache's and every
+        sibling's); 0 with no tier."""
+        return sum(h.host.pool_bytes() for h in self._holders())
 
     def make_table(self, blocks, max_blocks):
         """Host block list -> fixed-width numpy int32 row, NULL-padded

@@ -6,14 +6,14 @@ slots (S) x a FIXED chunk width (C): prefilling slots feed up to C prompt
 tokens, decoding slots feed their one in-flight token, idle lanes are
 masked. Shapes never change, so requests of any length mix in one step.
 
-Host-side state machine only (Python and numpy, apart from the device
-block copy that copy-on-write asks the cache for): admission from a
-FIFO-within-priority queue gated by block-pool watermark backpressure
-(admission reserves blocks for the whole prompt + output up front, so a
-running request never runs out of blocks mid-flight), retirement of
-EOS/length-finished lanes, per-request deadlines and client cancels that
-reclaim blocks. Time comes from an injectable `clock` (seconds,
-monotonic). On top of that core:
+Host-side state machine only (Python and numpy, apart from the block
+copies that copy-on-write and the host tier ask the cache for):
+admission from a FIFO-within-priority queue gated by block-pool
+watermark backpressure (admission reserves blocks for the whole prompt +
+output up front, so a running request never runs out of blocks
+mid-flight), retirement of EOS/length-finished lanes, per-request
+deadlines and client cancels that reclaim blocks. Time comes from an
+injectable `clock` (seconds, monotonic). On top of that core:
 
 - Prefix caching (`prefix_cache=PrefixCacheIndex(...)`): admission
   matches the prompt's full chunks in the hash-chain index, reserves only
@@ -32,9 +32,23 @@ monotonic). On top of that core:
   tables alias the prompt's blocks; beam reorders are table remaps.
 - Guided decoding: each emission of a constrained lane is masked by its
   automaton, which advances on committed tokens.
-
-Preemption, the host tier, chaos hooks and telemetry wait for later
-slices.
+- The host KV tier (``cache.enable_host_tier``): admission turns lazy. A
+  request reserves blocks for its prompt + the first decode write and
+  pledges its whole worst case against the host pool; its table grows
+  block by block as it decodes (`_ensure_blocks`). When the device pool
+  runs dry, the decode lane with the longest tail left is preempted: its
+  written blocks spill to the host, its slot frees, and it resumes (swap
+  in, same position, same stream) before any new admission once blocks
+  free up. A request whose worst case exceeds the host tier, or that
+  finds the pledges spent, falls back to full reservation. Fork-group
+  lanes are never preempted.
+- Chaos hooks (`chaos=ChaosInjector`): cancels, clock advances, forced
+  evictions and spills, preemption of a named request and copy-on-write
+  storms at exact iterations.
+- Telemetry (`telemetry=ServingTelemetry`): admission, prefill chunk,
+  token and finish hooks, and the per-lane tuples of the flight
+  recorder (`_lane_tuple`, `lane_snapshot`). The ``serving.*`` counters
+  and the TTFT/ITL histograms are recorded either way.
 """
 
 import heapq
@@ -44,6 +58,8 @@ from concurrent.futures import InvalidStateError
 
 import numpy as np
 
+from ..observability import _help
+from ..observability.metrics import global_registry
 from .decode_strategies import (BeamHypothesis, GroupResult, beam_step,
                                 finalize_beam, fold_key, host_sample)
 from .kv_cache import NEG_INF
@@ -84,13 +100,14 @@ class GenerationResult:
 
 class _Request:
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_id", "priority",
-                 "deadline", "stream", "future", "submitted_at",
-                 "generated", "score", "first_token_at", "chain_keys",
-                 "group", "lane", "sampling", "guided", "guided_state")
+                 "deadline", "stream", "future", "submitted_at", "tenant",
+                 "generated", "score", "first_token_at", "last_token_at",
+                 "chain_keys", "group", "lane", "sampling", "guided",
+                 "guided_state")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_id, priority,
-                 deadline, stream, future, submitted_at, group=None,
-                 lane=0, sampling=None, guided=None):
+                 deadline, stream, future, submitted_at, tenant=None,
+                 group=None, lane=0, sampling=None, guided=None):
         self.rid = rid
         self.prompt = prompt                # np.int32 (P,)
         self.max_new_tokens = max_new_tokens
@@ -100,9 +117,11 @@ class _Request:
         self.stream = stream                # callable(rid, token) or None
         self.future = future
         self.submitted_at = submitted_at
+        self.tenant = tenant                # cost-attribution identity
         self.generated = []
         self.score = 0.0
         self.first_token_at = None
+        self.last_token_at = None
         self.chain_keys = None      # prefix chunk hashes, computed once
         self.group = group          # RequestGroup when forked (n>1/beam)
         self.lane = lane            # rank within the group (0 = leader)
@@ -113,10 +132,11 @@ class _Request:
 
 class _Slot:
     __slots__ = ("req", "blocks", "table", "pos", "admit_seq", "shared",
-                 "keys", "registered", "cow_spares", "cow_copies", "hold")
+                 "keys", "registered", "cow_spares", "cow_copies", "tier",
+                 "hold")
 
     def __init__(self, req, blocks, table, admit_seq, shared=(), keys=(),
-                 registered=0, cow_spares=()):
+                 registered=0, cow_spares=(), tier="device"):
         self.req = req
         self.blocks = blocks                # every block to release
         self.table = table                  # np.int32 (max_blocks,)
@@ -127,6 +147,10 @@ class _Slot:
         self.registered = registered        # prompt chunks in the index
         self.cow_spares = list(cow_spares)  # reserved copy-on-write blocks
         self.cow_copies = 0
+        # "host" when this lane's KV crossed the host tier (admitted over
+        # swapped-in spilled chains, or resumed from a preemption): the
+        # flight recorder's tier tag
+        self.tier = tier
         # a held slot is a fork-group follower waiting for its leader's
         # prefill: it owns its suffix blocks but plans no work until
         # commit's _fork_group clears the hold
@@ -135,6 +159,39 @@ class _Slot:
     @property
     def prefilling(self):
         return self.pos < len(self.req.prompt)
+
+
+class _Preempted:
+    """A preempted request parked off the device: its KV in host-tier
+    blocks (its reservation), its position and stream state on the
+    _Request untouched, so the resumed slot continues where it stopped.
+    `not_before` is the earliest iteration it may resume at."""
+
+    __slots__ = ("req", "pos", "host_blocks", "keys", "registered",
+                 "not_before")
+
+    def __init__(self, req, pos, host_blocks, keys, registered,
+                 not_before):
+        self.req = req
+        self.pos = pos
+        self.host_blocks = host_blocks
+        self.keys = keys
+        self.registered = registered
+        self.not_before = not_before
+
+
+def _lane_tuple(sid, slot):
+    """One lane's flight-recorder tuple, in exactly
+    serving_telemetry.LANE_FIELDS order (the flight dump zips them
+    against that schema): plan()'s slot loop and lane_snapshot() both
+    build them here."""
+    group = slot.req.group
+    return (sid, slot.req.rid, int(slot.pos), bool(slot.prefilling),
+            int(slot.admit_seq), len(slot.req.generated),
+            int(slot.blocks[0]) if slot.blocks else None,
+            len(slot.shared), int(slot.cow_copies), slot.tier,
+            group.gid if group is not None else None,
+            int(slot.req.lane) if group is not None else None)
 
 
 class IterationPlan:
@@ -153,16 +210,20 @@ class IterationPlan:
     2.0=off, keys (S, 2) u32). `guided_lanes`
     lists the (slot, request) pairs whose emission needs a constraint
     mask; `needs_rows` says commit() reads the full logp rows (a beam
-    step or a group's fork)."""
+    step or a group's fork). With telemetry on, `lanes_detail` holds the
+    pre-step lane tuples (LANE_FIELDS order) and `queue_depth` the queue
+    after admission, both taken inside plan()'s slot loop; None
+    otherwise."""
 
     __slots__ = ("tokens", "positions", "valid", "tables", "slot_ids",
                  "emitting", "prefill_tokens", "decode_cols", "limits",
-                 "prev_tokens", "sample_ctl", "guided_lanes", "needs_rows")
+                 "prev_tokens", "sample_ctl", "guided_lanes", "needs_rows",
+                 "lanes_detail", "queue_depth")
 
     def __init__(self, tokens, positions, valid, tables, slot_ids,
                  emitting, prefill_tokens, decode_cols, limits=None,
                  prev_tokens=None, sample_ctl=None, guided_lanes=(),
-                 needs_rows=False):
+                 needs_rows=False, lanes_detail=None, queue_depth=None):
         self.tokens = tokens                # (S, C) int32
         self.positions = positions          # (S, C) int32
         self.valid = valid                  # (S, C) bool
@@ -176,6 +237,8 @@ class IterationPlan:
         self.sample_ctl = sample_ctl
         self.guided_lanes = guided_lanes
         self.needs_rows = needs_rows
+        self.lanes_detail = lanes_detail
+        self.queue_depth = queue_depth
 
 
 class ContinuousBatchingScheduler:
@@ -184,9 +247,13 @@ class ContinuousBatchingScheduler:
     commit() are called by the single engine loop."""
 
     def __init__(self, cache, num_slots=4, chunk=4, max_context=None,
-                 clock=None, watermark_blocks=0, prefix_cache=None,
-                 spec_k=0, spec_mode="greedy", spec_seed=0):
+                 clock=None, watermark_blocks=0, chaos=None, telemetry=None,
+                 prefix_cache=None, spec_k=0, spec_mode="greedy",
+                 spec_seed=0):
         self._cache = cache
+        self._tel = telemetry       # ServingTelemetry or None (its hooks
+        #                             are host bookkeeping, called under
+        #                             self._lock)
         self.num_slots = int(num_slots)
         self.chunk = int(chunk)
         self._prefix = prefix_cache     # PrefixCacheIndex or None
@@ -208,6 +275,7 @@ class ContinuousBatchingScheduler:
         self.max_blocks = cache.blocks_for_tokens(self.max_context)
         self._clock = clock or time.monotonic
         self.watermark_blocks = int(watermark_blocks)
+        self._chaos = chaos
         self._lock = threading.RLock()
         self._queue = []                # heap of (priority, seq, req)
         self._seq = 0
@@ -215,6 +283,16 @@ class ContinuousBatchingScheduler:
         self._cancel_rids = set()
         self._admit_seq = 0
         self.iteration = 0
+        # preemption and resume (host KV tier): a FIFO of _Preempted
+        # records and the host-block pledges of lazily admitted requests
+        # (each pledges its whole worst-case block count, so it can
+        # always park). Plain attributes, not counts: those publish as
+        # serving.<key> counters, these as the serving.kv.tier.* gauges
+        self._preempted = []
+        self._host_pledged = 0
+        self._pledges = {}          # rid -> pledged block count
+        self.preempts = 0
+        self.resumes = 0
         self.counts = {"admitted": 0, "retired": 0, "cancelled": 0,
                        "deadline_cancels": 0, "generated_tokens": 0,
                        "prefill_tokens": 0, "spec.proposed": 0,
@@ -222,9 +300,18 @@ class ContinuousBatchingScheduler:
                        "group.lanes": 0, "group.forks": 0,
                        "group.cow_copies": 0, "beam.reorders": 0,
                        "guided.masked_steps": 0, "guided.violations": 0}
+        reg = global_registry()
+        self._mc = {k: reg.counter(f"serving.{k}", _help(f"serving.{k}"))
+                    for k in self.counts}
+        self._ttft = reg.histogram("serving.ttft_ms",
+                                   _help("serving.ttft_ms"))
+        self._itl = reg.histogram("serving.itl_ms", _help("serving.itl_ms"))
+        self._g_accept = reg.gauge("serving.spec.accept_rate",
+                                   _help("serving.spec.accept_rate"))
 
     def _count(self, key, n=1):
         self.counts[key] += n
+        self._mc[key].inc(n)
 
     # -- client side -------------------------------------------------------
     def now(self):
@@ -251,11 +338,26 @@ class ContinuousBatchingScheduler:
 
     def has_work(self):
         with self._lock:
-            return bool(self._queue) or any(
+            return bool(self._queue) or bool(self._preempted) or any(
                 s is not None for s in self._slots)
 
+    def load_snapshot(self):
+        """(queue depth, active slots, free blocks) under one lock hold.
+        Preempted requests count as queued: admitted work waiting for
+        blocks."""
+        with self._lock:
+            return (len(self._queue) + len(self._preempted),
+                    sum(s is not None for s in self._slots),
+                    self._cache.num_free)
+
     # -- retirement --------------------------------------------------------
+    def _unpledge(self, req):
+        m = self._pledges.pop(req.rid, None)
+        if m:
+            self._host_pledged -= m
+
     def _finish(self, req, reason):
+        self._unpledge(req)
         ttft = None
         if req.first_token_at is not None:
             ttft = (req.first_token_at - req.submitted_at) * 1e3
@@ -268,17 +370,34 @@ class ContinuousBatchingScheduler:
         except InvalidStateError:
             pass        # client cancelled between the check and the set
         self._count("retired")
+        if ttft is not None:
+            self._ttft.observe(ttft)
+        if self._tel is not None:
+            self._tel.on_finish(
+                req.rid, self.iteration, "retire", reason=reason,
+                e2e_ms=(self.now() - req.submitted_at) * 1e3,
+                prompt_len=len(req.prompt), generated=len(req.generated))
         if req.group is not None:
             self._on_group_finish(req, res)
         return res
 
     def _fail(self, req, exc, count_key):
+        self._unpledge(req)
         try:
             if not req.future.cancelled():
                 req.future.set_exception(exc)
         except InvalidStateError:
             pass        # client cancelled between the check and the set
         self._count(count_key)
+        if self._tel is not None:
+            outcome = ("deadline" if count_key == "deadline_cancels"
+                       else "cancel")
+            if outcome == "deadline":
+                self._tel.on_deadline_cancel(req.rid, self.iteration)
+            self._tel.on_finish(req.rid, self.iteration, outcome,
+                                reason=type(exc).__name__,
+                                prompt_len=len(req.prompt),
+                                generated=len(req.generated))
         if req.group is not None:
             self._on_group_fail(req, exc, count_key)
 
@@ -378,6 +497,19 @@ class ContinuousBatchingScheduler:
             self._queue = kept
             heapq.heapify(self._queue)
 
+    def _drop_preempted(self, pred, exc_fn, count_key):
+        """_drop_queued for parked requests: a cancel or deadline reaches
+        a preempted request too, and its host blocks (its reservation)
+        go back to the host pool."""
+        kept = []
+        for rec in self._preempted:
+            if pred(rec.req):
+                self._cache.host.free(rec.host_blocks)
+                self._fail(rec.req, exc_fn(rec.req), count_key)
+            else:
+                kept.append(rec)
+        self._preempted = kept
+
     def drop_queued_request(self, rid, exc):
         """Remove ONE queued request and fail its future (submit()'s
         lost-the-race-with-close sweep); if it was already admitted,
@@ -397,6 +529,8 @@ class ContinuousBatchingScheduler:
         with self._lock:
             exc = exc or RequestCancelled("server closed")
             self._drop_queued(lambda r: True, lambda r: exc, "cancelled")
+            self._drop_preempted(lambda r: True, lambda r: exc,
+                                 "cancelled")
             for sid, slot in enumerate(self._slots):
                 if slot is not None:
                     self._fail(slot.req, exc, "cancelled")
@@ -404,6 +538,15 @@ class ContinuousBatchingScheduler:
 
     # -- one iteration -----------------------------------------------------
     def _apply_cancels_and_deadlines(self, now):
+        # chaos cancels name the n-th oldest active request (admission
+        # order, not slot order: freed slots are reused)
+        if self._chaos is not None:
+            for idx in self._chaos.serving_cancels_at(self.iteration):
+                active = [s.req.rid for s in sorted(
+                    (s for s in self._slots if s is not None),
+                    key=lambda s: s.admit_seq)]
+                if idx < len(active):
+                    self._cancel_rids.add(active[idx])
         if self._cancel_rids:
             rids = self._cancel_rids
             self._cancel_rids = set()
@@ -411,6 +554,10 @@ class ContinuousBatchingScheduler:
                               lambda r: RequestCancelled(
                                   f"request {r.rid} cancelled"),
                               "cancelled")
+            self._drop_preempted(lambda r: r.rid in rids,
+                                 lambda r: RequestCancelled(
+                                     f"request {r.rid} cancelled"),
+                                 "cancelled")
             for sid, slot in enumerate(self._slots):
                 if slot is not None and slot.req.rid in rids:
                     self._fail(slot.req, RequestCancelled(
@@ -420,6 +567,11 @@ class ContinuousBatchingScheduler:
             lambda r: r.deadline is not None and now > r.deadline,
             lambda r: DeadlineExceeded(
                 f"request {r.rid} deadline passed while queued"),
+            "deadline_cancels")
+        self._drop_preempted(
+            lambda r: r.deadline is not None and now > r.deadline,
+            lambda r: DeadlineExceeded(
+                f"request {r.rid} deadline passed while preempted"),
             "deadline_cancels")
         for sid, slot in enumerate(self._slots):
             if slot is None:
@@ -436,7 +588,8 @@ class ContinuousBatchingScheduler:
         """(shared blocks, chain keys, protected keys) of a pure prefix
         match: no refs, recency or counters move, since a backpressured
         admission retries every iteration. The chain is hashed once per
-        request."""
+        request. A spilled (host-tier) entry matches as None: claim()
+        swaps it into a fresh device block."""
         if self._prefix is None:
             return [], (), frozenset()
         if req.chain_keys is None:
@@ -448,22 +601,27 @@ class ContinuousBatchingScheduler:
     def _reserve(self, need, shared, protect):
         """Allocate `need` fresh blocks under watermark backpressure, or
         None. Evictable cached blocks count as supply (eviction runs
-        before backpressure), except the entries this match protects."""
+        before backpressure), except the entries this match protects.
+        Each spilled entry of the match (a None) needs one more free
+        block for claim() to swap it into."""
+        need_free = need + sum(1 for b in shared if b is None)
         floor = self.watermark_blocks if self.active_count else 0
         avail = self._cache.num_free
         if self._prefix is not None:
-            protected_idle = sum(1 for b in shared
-                                 if self._cache.refcount(b) == 1)
+            protected_idle = sum(1 for b in shared if b is not None
+                                 and self._cache.refcount(b) == 1)
             avail += self._prefix.evictable_total() - protected_idle
-        if avail - need < floor:
+        if avail - need_free < floor:
             return None
-        if self._prefix is not None and self._cache.num_free < need:
-            self._prefix.evict_for(need, protect)
-        if self._cache.num_free < need:
+        if self._prefix is not None and self._cache.num_free < need_free:
+            self._prefix.evict_for(need_free, protect)
+        if self._cache.num_free < need_free:
             return None
         return self._cache.allocate(need)
 
     def _admit(self):
+        now = self.now()
+        self._try_resume(now)
         while self._queue:
             free_sid = next((i for i, s in enumerate(self._slots)
                              if s is None), None)
@@ -471,13 +629,30 @@ class ContinuousBatchingScheduler:
                 return
             req = self._queue[0][2]
             if req.group is not None:
-                if not self._admit_group(req):
+                if not self._admit_group(req, now):
                     return
                 continue
             p_len = len(req.prompt)
             n_full = p_len // self._cache.block_size
             m_total = self._cache.blocks_for_tokens(
                 p_len + req.max_new_tokens)
+            # lazy admission (host tier on): blocks for the prompt and
+            # the first decode write only, and a pledge of the whole
+            # worst case against the host pool, where the request parks
+            # if it must give its blocks back. The pledge keeps a lazy
+            # lane preemptible, so a mid-flight allocation can always be
+            # met by preempting someone. A worst case beyond the whole
+            # host tier, or a spent pledge pool, takes full reservation
+            # (such a lane never grows mid-flight)
+            host = self._cache.host
+            lazy = host is not None and m_total <= host.num_blocks
+            if lazy:
+                host_avail = host.num_free - self._host_pledged
+                if self._prefix is not None:
+                    host_avail += self._prefix.host_entry_count()
+                lazy = host_avail >= m_total
+            m_admit = (self._cache.blocks_for_tokens(p_len + 1) if lazy
+                       else m_total)
             # only the unshared suffix is newly reserved. When the WHOLE
             # prompt matched, prefill restarts at the last prompt token
             # (its logits seed generation): that write lands in the last
@@ -486,11 +661,14 @@ class ContinuousBatchingScheduler:
             shared, keys, protect = self._prefix_probe(req, n_full)
             shared_tokens = len(shared) * self._cache.block_size
             full_cover = shared_tokens == p_len and shared_tokens > 0
-            need = m_total - len(shared) + (1 if full_cover else 0)
+            n_spilled = sum(1 for b in shared if b is None)
+            need = m_admit - len(shared) + (1 if full_cover else 0)
             blocks = self._reserve(need, shared, protect)
             if blocks is None:
                 return
             if self._prefix is not None:
+                # the match commits: refs, recency and counters move once
+                # per admission, and spilled entries swap in here
                 shared = self._prefix.claim(keys, shared, n_full)
             heapq.heappop(self._queue)
             cow_spares = [blocks.pop()] if full_cover else []
@@ -498,15 +676,23 @@ class ContinuousBatchingScheduler:
                                            self.max_blocks)
             slot = _Slot(req, shared + blocks + cow_spares, table,
                          self._admit_seq, shared=shared, keys=keys,
-                         registered=len(shared), cow_spares=cow_spares)
+                         registered=len(shared), cow_spares=cow_spares,
+                         tier="host" if n_spilled else "device")
+            if lazy:
+                self._host_pledged += m_total
+                self._pledges[req.rid] = m_total
             # shared positions skip prefill: their KV is already in the
             # pool, what this request would have written
             slot.pos = p_len - 1 if full_cover else shared_tokens
             self._slots[free_sid] = slot
             self._admit_seq += 1
             self._count("admitted")
+            if self._tel is not None:
+                self._tel.on_admit(req.rid, free_sid, self.iteration,
+                                   (now - req.submitted_at) * 1e3,
+                                   blocks=len(slot.blocks))
 
-    def _admit_group(self, leader):
+    def _admit_group(self, leader, now):
         """Group-atomic admission: the leader's queue entry stands for
         all K lanes, and either every lane gets its slot and its whole
         reservation, or nothing moves. The reservation covers the worst
@@ -518,6 +704,9 @@ class ContinuousBatchingScheduler:
                                                lane; lanes never write
                                                below the prompt's last
                                                block)
+
+        The reservation is always full (no lazy pledge: forked lanes are
+        never preempted, see _preempt_victim).
 
         Followers are admitted held: they own their suffix blocks but
         plan no work until the leader's prefill completes and commit's
@@ -539,6 +728,7 @@ class ContinuousBatchingScheduler:
         shared, keys, protect = self._prefix_probe(leader, n_full)
         shared_tokens = len(shared) * bs
         full_cover = shared_tokens == p_len and shared_tokens > 0
+        n_spilled = sum(1 for b in shared if b is None)
         need = (m_total - len(shared)) + (k - 1) * extra + k
         blocks = self._reserve(need, shared, protect)
         if blocks is None:
@@ -552,7 +742,8 @@ class ContinuousBatchingScheduler:
         # the remaining blocks are the leader's unshared prompt + suffix
         table = self._cache.make_table(shared + blocks, self.max_blocks)
         slot = _Slot(leader, shared + blocks, table, self._admit_seq,
-                     shared=shared, keys=keys, registered=len(shared))
+                     shared=shared, keys=keys, registered=len(shared),
+                     tier="host" if n_spilled else "device")
         slot.pos = p_len - 1 if full_cover else shared_tokens
         self._slots[free_sids[0]] = slot
         group.lane_sids[0] = free_sids[0]
@@ -564,7 +755,8 @@ class ContinuousBatchingScheduler:
             # registered = n_full: the leader registers the shared prompt
             # chunks once for the whole group
             fslot = _Slot(group.lanes[r], list(ext), ftable,
-                          self._admit_seq, registered=n_full)
+                          self._admit_seq, registered=n_full,
+                          tier=slot.tier)
             fslot.hold = True
             self._slots[free_sids[r]] = fslot
             group.lane_sids[r] = free_sids[r]
@@ -572,6 +764,134 @@ class ContinuousBatchingScheduler:
         self._count("admitted", k)
         self._count("group.requests")
         self._count("group.lanes", k)
+        if self._tel is not None:
+            for r in range(k):
+                self._tel.on_admit(
+                    group.lanes[r].rid, free_sids[r], self.iteration,
+                    (now - group.lanes[r].submitted_at) * 1e3,
+                    blocks=len(self._slots[free_sids[r]].blocks))
+        return True
+
+    # -- preemption and resume (host KV tier) -----------------------------
+    def _try_resume(self, now):
+        """Swap parked requests back in, oldest first, before any new
+        admission: a preempted request has already paid its queueing and
+        prefill. Stops at the first one that cannot resume (FIFO: a
+        small request must not starve a big one)."""
+        while self._preempted:
+            rec = self._preempted[0]
+            if rec.not_before > self.iteration:
+                return
+            free_sid = next((i for i, s in enumerate(self._slots)
+                             if s is None), None)
+            if free_sid is None:
+                return
+            need = len(rec.host_blocks)
+            floor = self.watermark_blocks if self.active_count else 0
+            avail = self._cache.num_free
+            if self._prefix is not None:
+                avail += self._prefix.evictable_total()
+            if avail - need < floor:
+                return
+            if self._prefix is not None and self._cache.num_free < need:
+                self._prefix.evict_for(need)
+            blocks = self._cache.allocate(need)
+            if blocks is None:
+                return
+            self._preempted.pop(0)
+            for hb, db in zip(rec.host_blocks, blocks):
+                self._cache.swap_in_block(hb, db)
+            self._cache.host.free(rec.host_blocks)
+            table = self._cache.make_table(blocks, self.max_blocks)
+            slot = _Slot(rec.req, list(blocks), table, self._admit_seq,
+                         keys=rec.keys, registered=rec.registered,
+                         tier="host")
+            slot.pos = rec.pos
+            self._slots[free_sid] = slot
+            self._admit_seq += 1
+            self.resumes += 1
+            if self._tel is not None:
+                self._tel.on_admit(rec.req.rid, free_sid, self.iteration,
+                                   (now - rec.req.submitted_at) * 1e3,
+                                   blocks=len(blocks))
+
+    def _preempt_victim(self, exclude=None):
+        """The slot to preempt under block pressure: the decode lane
+        with the most tokens left to generate (it would hold its blocks
+        longest). Prefilling lanes are never victims, and neither are
+        fork-group lanes: a group was admitted with its full reservation,
+        parking one lane would strand its siblings' shared blocks, and
+        the beam commit steps every lane together."""
+        best, best_rem = None, -1
+        for sid, slot in enumerate(self._slots):
+            if slot is None or sid == exclude or slot.prefilling:
+                continue
+            if slot.req.group is not None:
+                continue
+            rem = slot.req.max_new_tokens - len(slot.req.generated)
+            if rem > best_rem:
+                best_rem, best = rem, sid
+        return best
+
+    def _preempt_slot(self, sid):
+        """Park slot `sid`'s request in the host tier: spill every
+        written block, release the slot (shared prefix blocks keep the
+        index's device copy; the spill wrote a private host copy, so a
+        resume never depends on the index) and queue a _Preempted record.
+        Generated tokens, score and stream state ride the _Request, so
+        the resumed stream is the uninterrupted one. `not_before` keeps
+        the request parked across at least one step. Returns False, with
+        nothing changed, when the host pool cannot hold the blocks."""
+        slot = self._slots[sid]
+        used = self._cache.blocks_for_tokens(slot.pos)
+        host_blocks = []
+        for i in range(used):
+            b = int(slot.table[i])
+            hb = self._cache.spill_block(b)
+            while hb is None and self._prefix is not None \
+                    and self._prefix._drop_host_lru() is not None:
+                hb = self._cache.spill_block(b)
+            if hb is None:
+                if host_blocks:
+                    self._cache.host.free(host_blocks)
+                return False
+            host_blocks.append(hb)
+        rec = _Preempted(slot.req, slot.pos, host_blocks, slot.keys,
+                         len(slot.req.prompt) // self._cache.block_size,
+                         self.iteration + 1)
+        self._release_slot(sid)
+        self._preempted.append(rec)
+        self.preempts += 1
+        return True
+
+    def _ensure_blocks(self, sid, slot, n):
+        """Lazy-mode growth: make the table cover this iteration's writes
+        [pos, pos + n) before the plan captures it. Under pressure: the
+        free list, then prefix eviction, then preempting the longest-tail
+        other decode lane, then parking this lane itself. Returns False
+        when the lane sits this iteration out (or was itself
+        preempted)."""
+        bs = self._cache.block_size
+        for bi in range((slot.pos + n - 1) // bs + 1):
+            if int(slot.table[bi]) != 0:        # NULL-padded tail
+                continue
+            got = self._cache.allocate(1)
+            if got is None and self._prefix is not None:
+                self._prefix.evict_for(1)
+                got = self._cache.allocate(1)
+            while got is None:
+                victim = self._preempt_victim(exclude=sid)
+                if victim is None or not self._preempt_slot(victim):
+                    break
+                got = self._cache.allocate(1)
+            if got is None:
+                # last resort: park this lane (its pledge guarantees the
+                # host space; parked beats wedged)
+                if not slot.prefilling:
+                    self._preempt_slot(sid)
+                return False
+            slot.table[bi] = got[0]
+            slot.blocks.append(got[0])
         return True
 
     # -- copy-on-write -----------------------------------------------------
@@ -665,12 +985,36 @@ class ContinuousBatchingScheduler:
         arrays describe live lanes only. A truly idle call does not
         count an iteration."""
         with self._lock:
-            if not (self._queue or self._cancel_rids
+            if not (self._queue or self._cancel_rids or self._preempted
                     or any(s is not None for s in self._slots)):
                 return None
             self.iteration += 1
+            if self._chaos is not None:
+                self._chaos_before_admission()
             self._apply_cancels_and_deadlines(self.now())
             self._admit()
+            if self._preempted and not any(s is not None
+                                           for s in self._slots):
+                # a parked request is the only live work (a chaos preempt
+                # can park the sole decode): an empty plan would read as
+                # idle, so advance one iteration (past not_before) and
+                # resume now
+                self.iteration += 1
+                self._admit()
+            if self._chaos is not None:
+                self._chaos_fork_storm()
+            # lazy-mode growth first: every lane's blocks are settled
+            # before any table row is captured below (a preemption in
+            # the row loop would leave earlier rows naming spilled and
+            # freed blocks)
+            starved = set()
+            if self._cache.host is not None:
+                for sid, slot in enumerate(self._slots):
+                    if slot is None or slot.hold:
+                        continue
+                    if not self._ensure_blocks(sid, slot,
+                                               self._plan_cols(slot)):
+                        starved.add(sid)
             s, c = self.num_slots, self.chunk
             tokens = np.zeros((s, c), np.int32)
             positions = np.zeros((s, c), np.int32)
@@ -687,18 +1031,24 @@ class ContinuousBatchingScheduler:
             slot_ids, emitting, guided_lanes = [], set(), []
             prefill_tokens = 0
             needs_rows = False
+            lanes = [] if self._tel is not None else None
             for sid, slot in enumerate(self._slots):
                 # held slots are fork-group followers parked until the
                 # leader's prefill completes
-                if slot is None or slot.hold:
+                if slot is None or sid in starved or slot.hold:
                     continue
                 slot_ids.append(sid)
                 req = slot.req
                 limits[sid] = len(req.prompt) + req.max_new_tokens
+                if lanes is not None:
+                    lanes.append(_lane_tuple(sid, slot))
                 n = self._plan_cols(slot)
                 if slot.prefilling:
                     tokens[sid, :n] = req.prompt[slot.pos:slot.pos + n]
                     prefill_tokens += n
+                    if self._tel is not None:
+                        self._tel.on_prefill_chunk(req.rid, self.iteration,
+                                                   n)
                     if slot.pos + n == len(req.prompt):
                         emitting.add(sid)
                 else:
@@ -742,9 +1092,58 @@ class ContinuousBatchingScheduler:
             return IterationPlan(
                 tokens, positions, valid, tables, slot_ids, emitting,
                 prefill_tokens, decode_cols, limits=limits,
-                prev_tokens=prev_tokens, sample_ctl=(do_sample, temperature, top_k, top_p,
+                prev_tokens=prev_tokens,
+                sample_ctl=(do_sample, temperature, top_k, top_p,
                             rng_keys),
-                guided_lanes=tuple(guided_lanes), needs_rows=needs_rows)
+                guided_lanes=tuple(guided_lanes), needs_rows=needs_rows,
+                lanes_detail=tuple(lanes) if lanes is not None else None,
+                queue_depth=len(self._queue) if lanes is not None
+                else None)
+
+    def _chaos_before_admission(self):
+        """The chaos plan of this iteration that runs before admission:
+        the clock advance, forced prefix evictions and spills (each
+        counted only when it happened: a spill only when the eviction
+        took the host path), and the preemption of named decode lanes
+        (resumed by _try_resume, from the next iteration on)."""
+        chaos = self._chaos
+        chaos.on_serving_iteration(self.iteration)
+        if self._prefix is not None:
+            for _ in range(chaos.serving_evictions_at(self.iteration)):
+                if self._prefix.evict_lru() is not None:
+                    chaos.serving_eviction_applied()
+            for _ in range(chaos.serving_spills_at(self.iteration)):
+                before = self._prefix.counts["spills"]
+                if (self._prefix.evict_lru() is not None
+                        and self._prefix.counts["spills"] > before):
+                    chaos.serving_spill_applied()
+        if self._cache.host is not None:
+            for rid in chaos.serving_preempts_at(self.iteration):
+                for sid, slot in enumerate(self._slots):
+                    if (slot is not None and slot.req.rid == rid
+                            and slot.req.group is None
+                            and not slot.prefilling):
+                        if self._preempt_slot(sid):
+                            chaos.serving_preempt_applied()
+                        break
+
+    def _chaos_fork_storm(self):
+        """Chaos fork storm: force copy-on-write of the next written
+        block on up to k live forked lanes at this iteration."""
+        k_storm = self._chaos.fork_storms_at(self.iteration)
+        if not k_storm:
+            return
+        forced = 0
+        for slot in self._slots:
+            if forced >= k_storm:
+                break
+            if slot is None or slot.hold or slot.req.group is None \
+                    or slot.prefilling:
+                continue
+            if self._force_cow(slot):
+                forced += 1
+        if forced:
+            self._chaos.fork_storm_applied(forced)
 
     def _accept(self, plan, sid, ids, logps, fed_logps, draft_logps):
         """One decode lane's committed (token, logp) list + position
@@ -785,6 +1184,8 @@ class ContinuousBatchingScheduler:
             commits.append((int(ids[sid, j]), float(logps[sid, j])))
         self._count("spec.proposed", q - 1)
         self._count("spec.accepted", j)
+        self._g_accept.set(self.counts["spec.accepted"]
+                           / max(self.counts["spec.proposed"], 1))
         return commits, j + 1
 
     def commit(self, plan, next_ids, next_logps, fed_logps=None,
@@ -860,6 +1261,15 @@ class ContinuousBatchingScheduler:
         self._count("generated_tokens")
         if req.first_token_at is None:
             req.first_token_at = now
+            if self._tel is not None:
+                self._tel.on_first_token(req.rid, self.iteration,
+                                         (now - req.submitted_at) * 1e3)
+        else:
+            itl = (now - req.last_token_at) * 1e3
+            self._itl.observe(itl)
+            if self._tel is not None:
+                self._tel.on_token(req.rid, self.iteration, itl)
+        req.last_token_at = now
         if req.stream is not None:
             try:
                 req.stream(req.rid, tok)
@@ -1085,6 +1495,16 @@ class ContinuousBatchingScheduler:
         return None
 
     # -- introspection -----------------------------------------------------
+    def lane_snapshot(self):
+        """One tuple per active slot in serving_telemetry.LANE_FIELDS
+        order. Cold path: the engine's per-iteration flight entry takes
+        plan.lanes_detail; this serves callers without a plan (the
+        chaos poison with telemetry off, fault triage)."""
+        with self._lock:
+            return tuple(_lane_tuple(sid, slot)
+                         for sid, slot in enumerate(self._slots)
+                         if slot is not None)
+
     def stats(self):
         with self._lock:
             return {
@@ -1098,6 +1518,11 @@ class ContinuousBatchingScheduler:
                 "watermark_blocks": self.watermark_blocks,
                 "prefix": self._prefix.stats()
                 if self._prefix is not None else None,
+                "preempts": self.preempts,
+                "resumes": self.resumes,
+                "preempted_depth": len(self._preempted),
+                "host_blocks_free": self._cache.host.num_free
+                if self._cache.host is not None else None,
                 "spec_k": self.spec_k,
                 "spec_mode": self.spec_mode if self.spec_k else None,
                 **dict(self.counts),

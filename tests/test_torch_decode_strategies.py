@@ -458,7 +458,7 @@ def test_group_streams_fire_per_lane(tiny):
     assert [seen[rid] for rid in fut.lane_rids] == lanes
 
 
-def test_group_cancel_and_deadline_reclaim_all_lanes(tiny):
+def test_group_cancel_and_deadline_reclaim_all_lanes(tiny, tmp_path):
     cfg, _params, tree = tiny
     prompt = np.arange(5, 29, dtype=np.int32)       # 24 toks = 3 blocks
     srv = _port(tree, cfg)
@@ -476,9 +476,11 @@ def test_group_cancel_and_deadline_reclaim_all_lanes(tiny):
     srv.run_until_idle()
     assert len(f2.result(timeout=5).lanes) == 4
 
-    # the reference's chaos clock advances 100 ms at each iteration
+    # the reference's chaos clock advances 100 ms at each iteration; the
+    # four lanes' deadline cancels are a deadline storm, whose flight
+    # dump goes to tmp_path
     now = [0.0]
-    srv2 = _port(tree, cfg, clock=lambda: now[0])
+    srv2 = _port(tree, cfg, clock=lambda: now[0], flight_dir=str(tmp_path))
     f3 = srv2.submit(prompt, max_new_tokens=20, n=4, deadline_ms=450)
     while True:
         now[0] += 0.1
@@ -664,3 +666,69 @@ def test_starved_mask_keeps_conformance(tiny):
     assert int(res.token_ids[1]) == starved[0]
     _assert_conforms(c, res.token_ids, eos)
     assert srv.get_stats()["guided.violations"] == 0
+
+
+# ---------------------------------------------------------------------------
+# chaos hooks
+# ---------------------------------------------------------------------------
+
+def test_chaos_fork_storm_forces_cow_burst(tiny, jax_engine):
+    """ChaosInjector.fork_storm_at(2, 2) copies two live forked lanes'
+    current blocks out of the group's spares: it fires for exactly the
+    lanes it copied, every block comes back, and the lanes' results are
+    the unstormed server's. The JAX server fires the same storm with the
+    same counts."""
+    from paddle_tpu.robustness import ChaosInjector as JChaos
+    from paddle_tpu_torch.robustness import ChaosInjector
+    cfg, params, tree = tiny
+    prompt = np.array([5, 9, 11, 2], np.int32)
+    sp = SamplingParams(n=3, temperature=1.0, seed=3)
+    ref_srv = _port(tree, cfg)
+    rf = ref_srv.submit(prompt, max_new_tokens=6, sampling=sp)
+    ref_srv.run_until_idle()
+    ref = _lanes(rf)
+    counts = []
+    for make, chaos_cls, p, sampling in (
+            (_port, ChaosInjector, tree, sp),
+            (_jax, JChaos, params, JSampling(n=3, temperature=1.0,
+                                             seed=3))):
+        chaos = chaos_cls().fork_storm_at(2, 2)
+        srv = make(p, cfg, chaos=chaos)
+        fut = srv.submit(prompt, max_new_tokens=6, sampling=sampling)
+        srv.run_until_idle()
+        assert chaos.fired["fork_storm"] == 2
+        st = srv.get_stats()
+        assert st["group.cow_copies"] >= 2
+        assert st["blocks_free"] == st["blocks_total"]
+        if make is _port:
+            assert _lanes(fut) == ref
+        counts.append((st["group.cow_copies"], st["iteration"]))
+    assert counts[0] == counts[1]
+
+
+def test_chaos_mask_starve_keeps_conformance(tiny, jax_engine):
+    """ChaosInjector.mask_starve_at(2) narrows a guided lane's mask to
+    its lowest allowed token for one iteration: the output conforms, the
+    loop never raises, and the ids are the JAX server's under the same
+    starve."""
+    from paddle_tpu.robustness import ChaosInjector as JChaos
+    from paddle_tpu_torch.robustness import ChaosInjector
+    cfg, params, tree = tiny
+    vocab = _char_vocab(cfg.vocab_size)
+    eos = 1
+    prompt = np.array([5, 9, 11, 2], np.int32)
+    ids = []
+    for make, chaos_cls, p, cls in ((_port, ChaosInjector, tree,
+                                     RegexConstraint),
+                                    (_jax, JChaos, params, JRegex)):
+        c = cls("[0-9]+", vocab)
+        chaos = chaos_cls().mask_starve_at(2)
+        srv = make(p, cfg, chaos=chaos)
+        fut = srv.submit(prompt, max_new_tokens=6, eos_id=eos, guided=c)
+        srv.run_until_idle()
+        res = fut.result(timeout=5)
+        assert chaos.fired["mask_starve"] == 1
+        _assert_conforms(c, res.token_ids, eos)
+        assert srv.get_stats()["guided.violations"] == 0
+        ids.append(list(res.token_ids))
+    assert ids[0] == ids[1]

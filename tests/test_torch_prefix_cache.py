@@ -467,3 +467,130 @@ def test_int8_prefix_cow_carries_scales(tiny, jax_engine):
             assert torch.equal(src_rows, dst_rows)
     _same_prefix_stats(ts, js)
     assert ts.get_stats()["prefix"]["cow_copies"] == 1
+
+
+# ---------------------------------------------------------------------------
+# chaos hooks, the HBM ledger and the lane tuples
+# ---------------------------------------------------------------------------
+
+def test_chaos_evict_block_lru_leaf_first(tiny, jax_engine):
+    """ChaosInjector.evict_block_at drains the index leaf-first in LRU
+    order, at the same iterations and in the same block order as the
+    JAX server's (test_prefix_cache.py's chaos eviction test)."""
+    from paddle_tpu.robustness import ChaosInjector as JChaos
+    from paddle_tpu_torch.robustness import ChaosInjector
+    cfg, params, tree = tiny
+    p_old = np.arange(3, 19, dtype=np.int32)
+    p_new = np.arange(100, 116, dtype=np.int32)
+    outs = []
+    for make, chaos_cls, p in ((_port, ChaosInjector, tree),
+                               (_jax, JChaos, params)):
+        chaos = chaos_cls()
+        srv = make(p, cfg, prefix_cache=True, chaos=chaos)
+        _run(srv, p_old, 2)
+        _run(srv, p_new, 2)
+        _run(srv, p_new, 2)
+        idx = srv._prefix
+        blk = {("A" if e.tokens[0] < 100 else "B",
+                "parent" if e.parent is None else "child"): e.block
+               for e in idx._entries.values()}
+        it0 = srv.get_stats()["iteration"]
+        for k in range(1, 5):
+            chaos.evict_block_at(it0 + k)
+        order = []
+        real_evict = idx.evict_lru
+        idx.evict_lru = lambda real=real_evict, order=order: \
+            order.append(real()) or order[-1]
+        try:
+            fut = srv.submit([7, 8], max_new_tokens=8)
+            srv.run_until_idle()
+            fut.result(timeout=5)
+        finally:
+            idx.evict_lru = real_evict
+        assert chaos.fired["evict"] == 4
+        st = srv.get_stats()["prefix"]
+        assert st["entries"] == 0 and st["evictions"] == 4
+        assert order == [blk[("A", "child")], blk[("A", "parent")],
+                         blk[("B", "child")], blk[("B", "parent")]]
+        outs.append(order)
+    assert outs[0] == outs[1]
+
+
+def test_chaos_hash_collision_degrades_to_miss(tiny, jax_engine):
+    """ChaosInjector.hash_collision_at puts two different first chunks
+    on one key: the token check turns the probe into a miss, with the
+    JAX server's counts and the unshared server's ids."""
+    from paddle_tpu.robustness import ChaosInjector as JChaos
+    from paddle_tpu_torch.robustness import ChaosInjector
+    cfg, params, tree = tiny
+    p1 = np.arange(3, 19, dtype=np.int32)
+    p2 = np.arange(60, 76, dtype=np.int32)
+    ref2 = _run(_port(tree, cfg), p2, 4)
+    stats = []
+    for make, chaos_cls, p in ((_port, ChaosInjector, tree),
+                               (_jax, JChaos, params)):
+        chaos = chaos_cls().hash_collision_at(1).hash_collision_at(3)
+        srv = make(p, cfg, prefix_cache=True, chaos=chaos)
+        _run(srv, p1, 4)
+        assert _run(srv, p2, 4) == ref2
+        st = srv.get_stats()["prefix"]
+        assert chaos.fired["hash_collision"] == 2
+        assert st["collisions"] == 2
+        assert st["hits"] == 0 and st["misses"] == 2
+        stats.append({k: st[k] for k in PREFIX_KEYS + ("collisions",)})
+    assert stats[0] == stats[1]
+
+
+def test_ledger_never_double_counts_shared_blocks(tiny):
+    """The kv_cache ledger row is the preallocated pool's bytes: sharing,
+    copy-on-write and chaos evictions move refs, never bytes, and
+    close() retires the rows."""
+    from paddle_tpu_torch.observability.compile_insight import hbm_ledger
+    from paddle_tpu_torch.robustness import ChaosInjector
+    cfg, _params, tree = tiny
+    chaos = ChaosInjector().evict_block_at(20, n=2)
+    srv = _port(tree, cfg, prefix_cache=True, chaos=chaos)
+    prompt = np.arange(3, 19, dtype=np.int32)
+    expect = srv.cache.pool_bytes()
+
+    def kv_bytes():
+        return hbm_ledger().component_bytes(
+            srv._ledger_id).get("kv_cache", 0)
+
+    _run(srv, prompt, 2)
+    assert kv_bytes() == expect
+    _run(srv, prompt, 2)
+    assert kv_bytes() == expect
+    fut = srv.submit([7, 8], max_new_tokens=25)
+    srv.run_until_idle()
+    fut.result(timeout=5)
+    assert chaos.fired["evict"] == 2
+    assert kv_bytes() == expect
+    srv.close()
+    assert hbm_ledger().component_bytes(srv._ledger_id) == {}
+
+
+def test_lane_tuple_matches_lane_fields_schema(tiny, jax_engine):
+    """Lane tuples zip against LANE_FIELDS (the JAX package's schema);
+    a full-cover admission's lane shows its copy-on-write, as the JAX
+    server's does."""
+    from paddle_tpu.observability.serving_telemetry import \
+        LANE_FIELDS as J_FIELDS
+    from paddle_tpu_torch.observability.serving_telemetry import \
+        LANE_FIELDS
+    assert LANE_FIELDS == J_FIELDS
+    cfg, params, tree = tiny
+    prompt = np.arange(3, 19, dtype=np.int32)
+    lanes_of = []
+    for srv in (_port(tree, cfg, prefix_cache=True),
+                _jax(params, cfg, prefix_cache=True)):
+        _run(srv, prompt, 2)
+        fut = srv.submit(prompt, max_new_tokens=2)
+        srv.step()
+        lanes = srv._sched.lane_snapshot()
+        assert lanes and all(len(t) == len(LANE_FIELDS) for t in lanes)
+        assert dict(zip(LANE_FIELDS, lanes[0]))["cow_copies"] == 1
+        srv.run_until_idle()
+        fut.result(timeout=5)
+        lanes_of.append(lanes)
+    assert lanes_of[0] == lanes_of[1]

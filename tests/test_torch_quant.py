@@ -536,3 +536,41 @@ def test_bf16_pools_need_a_bf16_model(trained):
         fut = srv.submit([5, 9, 11], max_new_tokens=4)
         srv.run_until_idle()
         assert len(fut.result(timeout=5).token_ids) == 4
+
+
+def test_gqa_ledger_and_stats_report_kv_truth(trained):
+    """Twin of test_gqa_serving.py's ledger test, pinned against the
+    bytes computed from the geometry, not against that test (which
+    fails on the CPU: it also asserts that the Pallas kernel engaged).
+    An int8 GQA server's kv_pool row carries the pools' physical head
+    count (H_kv) beside the model's, and its bytes are the codes plus
+    the f32 scales of 2 x layers x blocks x H_kv x bs rows; get_stats'
+    kv_quant reports the same bytes."""
+    from paddle_tpu_torch.observability.compile_insight import hbm_ledger
+    cfg, params, tree = trained
+    kv = 2
+    gcfg = _gqa_cfg(cfg, kv)
+    srv = _port_server(tgpt.gqa_slice_kv_params(tree, cfg, kv), gcfg,
+                       kv_dtype="int8")
+    try:
+        n, bs = srv.cache.num_blocks, srv.block_size
+        d = cfg.hidden_size // cfg.num_heads
+        rows = 2 * cfg.num_layers * n * kv * bs
+        want = rows * d + rows * 4          # int8 codes + f32 scales
+        dense = rows * d * 4                # the same blocks dense in f32
+        ledger = {r["name"]: r for r in hbm_ledger().snapshot()["entries"]
+                  if r["component"] == srv._ledger_id}
+        det = ledger["kv_pool"]["detail"]
+        assert det["heads"] == kv and det["q_heads"] == cfg.num_heads
+        assert ledger["kv_pool"]["bytes"] == want == srv.cache.pool_bytes()
+        assert det["dense_equiv_bytes"] == dense
+        assert det["scale_bytes"] == rows * 4
+        fut = srv.submit([5, 9, 11], max_new_tokens=4)
+        srv.run_until_idle()
+        assert len(fut.result(timeout=5).token_ids) == 4
+        q = srv.get_stats()["kv_quant"]
+        assert q["pool_bytes"] == want and q["dense_equiv_bytes"] == dense
+        assert q["pool_bytes"] < q["dense_equiv_bytes"]
+        assert srv.get_stats()["memory"]["kv_cache"] == want
+    finally:
+        srv.close()

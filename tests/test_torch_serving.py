@@ -388,7 +388,16 @@ def test_port_imports_neither_jax_nor_reference_package():
         "        'paddle_tpu_torch.serving.spec_decode',\n"
         "        'paddle_tpu_torch.serving.guided',\n"
         "        'paddle_tpu_torch.serving.decode_strategies',\n"
-        "        'paddle_tpu_torch.serving.scheduler']\n"
+        "        'paddle_tpu_torch.serving.scheduler',\n"
+        "        'paddle_tpu_torch.observability.metrics',\n"
+        "        'paddle_tpu_torch.observability.sketch',\n"
+        "        'paddle_tpu_torch.observability.tracing',\n"
+        "        'paddle_tpu_torch.observability.timeseries',\n"
+        "        'paddle_tpu_torch.observability.serving_telemetry',\n"
+        "        'paddle_tpu_torch.observability.exporter',\n"
+        "        'paddle_tpu_torch.observability.compile_insight',\n"
+        "        'paddle_tpu_torch.robustness.chaos',\n"
+        "        'paddle_tpu_torch.robustness.guard']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
