@@ -164,9 +164,40 @@ backward kernels are printed):
    flight dump's aborted entry last; telemetry on and off give the same
    f32 ids (the host ms a bf16 step it adds is printed); the kv_pool and
    model_params ledger rows beside torch.cuda.memory_allocated()'s growth
-   over a build, the kv_pool_host row equal to the pinned host pools;
-   serve_metrics on 127.0.0.1 serves the serving.* and serving.kv.tier.*
-   series.
+   over a build and the model build's requested bytes (without the
+   allocator's block rounding), the kv_pool_host row equal to the pinned
+   host pools; serve_metrics on 127.0.0.1 serves the serving.* and
+   serving.kv.tier.* series;
+16. BERT-base pretraining through the Fluid entry points:
+   ``bert.build_pretrain_net(BertConfig(max_position_embeddings=512),
+   seq_len=512)`` (vocab 30522, hidden 768, 12 layers, 12 heads, FFN
+   3072, dropout 0.1) + ``AdamOptimizer(1e-4)``, f32 with TF32 off, on
+   ``ernie.make_pretrain_feed(cfg, 512, 8, dtype=np.int32)`` (bench.py's
+   ERNIE cell, synthetic): 30 steps on one batch; every step must launch
+   the f32 flash forward, dQ and dK/dV kernels 12 times each, the first
+   step's padding bias must reach the kernels as a (B, H, T, T) view with
+   stride 0 over heads and queries, and the last loss must be below
+   BERT_LOSS_MARGIN x the first; prints step ms p50/p99, tokens/s, the
+   peak memory, then a profile of 3 more steps (device ms a step, busy
+   share, the flash kernels' share of device time);
+16b. f32 agreement at full width and 2 layers, dropout 0, the same feed
+   with two rows padded at the tail (a non-zero key-side bias): 3 Adam
+   steps through the kernels and with the plain dense attention put in
+   at ``attention_ops``, from one startup scope: every loss and the first
+   step's @GRADs within 9b's tolerances;
+16c. packed pretraining: ``build_packed_pretrain_net`` at full width, seq
+   512, over 16 documents of 64-512 tokens packed by ``pack_sequences``
+   (segment ids through the kernels): 10 steps (the loss falls, 12 + 12 +
+   12 launches a step), packing efficiency and real (non-pad) tokens/s;
+   then one step kernel vs plain at 2 layers, as 16b;
+17. ring attention on a local sp 4 mesh on the card (``make_mesh(sp=4)``:
+   the four ranks in this process), q/k/v (1, 12, 8192, 64) f32, causal
+   and non-causal with a key-side bias over the last 1000 keys:
+   ``ring_attention_sharded``'s output and d q/k/v of a seeded cotangent
+   against the plain full attention at the JAX tests' tolerances (3e-5,
+   2e-4), flash launches a call 10 + 10 + 10 causal, 16 + 16 + 16 not;
+   the ring call's ms beside one flash call over the whole T (for
+   information).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -197,7 +228,8 @@ Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
 flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
 the flash-attention backward; the paged entry also counts the launches
-of phases 11-15 in ``launches_by_path``); the line before
+of phases 11-15 in ``launches_by_path``, the flash entries those of
+phases 16-17, with 16b/16c/17's errors in ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.
@@ -274,6 +306,32 @@ TRAIN_SHAPE = (TRAIN_BATCH, 12, TRAIN_SEQ, 64)  # its attention
 # rounding noise
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
+# phases 16-16c: bench.py's ERNIE cell (BERT-base, seq 512, batch 8, Adam
+# 1e-4, int32 feeds) with synthetic feeds
+BERT_CFG = dict(max_position_embeddings=512)
+BERT_SEQ = 512
+BERT_BATCH = 8
+BERT_WARM = 3
+BERT_STEPS = 27
+BERT_PROFILE_STEPS = 3
+# phase 16's gate: the last of the 30 steps' losses below this share of
+# the first (one fixed batch, dropout 0.1)
+BERT_LOSS_MARGIN = 0.95
+BERT_AGREE_LAYERS = 2               # phases 16b, 16c: kernel vs plain
+BERT_AGREE_STEPS = 3
+BERT_PAD = 100                      # 16b: padded keys at one row's tail
+PACKED_DOCS = 16                    # phase 16c: documents of 64-512
+PACKED_DOC_LENS = (64, 512)         # tokens packed into rows of 512
+PACKED_WARM = 2
+PACKED_STEPS = 8
+RING_SP = 4                         # phase 17: a local sp mesh on the card
+RING_SHAPE = (1, 12, 8192, 64)
+RING_MASKED = 1000                  # padded keys at the row's tail
+# the JAX tests' tolerances at depth (np.allclose, rtol = atol): the
+# output's of test_ring_sp8_8k_tokens, the gradients' of
+# test_ring_sp8_long_sequence_grads
+RING_OUT_TOL = 3e-5
+RING_GRAD_TOL = 2e-4
 # the profile phases trace the device only: every number they print is a
 # device time or count, or a host wall around the traced loop, and the
 # host-side op events made the profiler's own processing the largest part
@@ -1620,6 +1678,25 @@ def _zero_counts(flash):
     flash.TC_LAUNCHES = 0
 
 
+def _train_run(flash, exe, main, feed, loss, steps, warm):
+    """`steps` steps of main on one feed: (losses, timed step ms after
+    `warm`, the set of per-step (fwd, dQ, dK/dV) launch deltas, tensor-
+    core forward launches)."""
+    losses, step_ms, per_step = [], [], set()
+    tc0 = flash.TC_LAUNCHES
+    for i in range(steps):
+        before = _bwd_counts(flash)
+        ts = time.perf_counter()
+        # the fetch's copy to the host ends the step
+        out, = exe.run(main, feed=feed, fetch_list=[loss])
+        if i >= warm:
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+        per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
+                                                 before)))
+    return losses, step_ms, per_step, flash.TC_LAUNCHES - tc0
+
+
 def phase_train(flash):
     """Train the full-width GPT for TRAIN_WARM + TRAIN_STEPS steps on one
     batch. Returns the launches of the run: the backward's (dQ + dK/dV)
@@ -1637,22 +1714,14 @@ def phase_train(flash):
         startup_s = time.perf_counter() - t0
         n_params = len(main.all_parameters())
         _zero_counts(flash)
-        losses, step_ms, per_step = [], [], set()
-        for i in range(TRAIN_WARM + TRAIN_STEPS):
-            before = _bwd_counts(flash)
-            ts = time.perf_counter()
-            # the fetch's copy to the host ends the step
-            out, = exe.run(main, feed={"tokens": toks}, fetch_list=[loss])
-            if i >= TRAIN_WARM:
-                step_ms.append((time.perf_counter() - ts) * 1e3)
-            losses.append(float(out))
-            per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
-                                                     before)))
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, main, {"tokens": toks}, loss,
+            TRAIN_WARM + TRAIN_STEPS, TRAIN_WARM)
         counts = _bwd_counts(flash)
     n = cfg.num_layers
-    if per_step != {(n, n, n)} or flash.TC_LAUNCHES != 0:
+    if per_step != {(n, n, n)} or tc != 0:
         _fail(f"train: flash launches fwd/dq/dkv per step {per_step}, want "
-              f"{n} each; {flash.TC_LAUNCHES} tensor-core, want 0 in f32")
+              f"{n} each; {tc} tensor-core, want 0 in f32")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         _fail(f"train: loss not finite and falling: {losses}")
     mean_ms = float(np.mean(step_ms))
@@ -1670,88 +1739,105 @@ def phase_train(flash):
     return counts[1] + counts[2], counts[0]
 
 
-def _train_step_grads(fluid, exe, main, loss, toks, scope, names):
-    with fluid.scope_guard(scope):
-        out = exe.run(main, feed={"tokens": toks},
-                      fetch_list=[loss] + [n + "@GRAD" for n in names],
-                      return_numpy=False)
-    return out[0].double().item(), out[1:]
+def _plain_attention(q, k, v, bias=None, scale=None, causal=False,
+                     segment_ids=None):
+    """The dense attention of attention_ops with the segment ids as an
+    additive mask bias (its CPU path), put in for the agreement runs."""
+    from paddle_tpu_torch.ops import attention_ops
+    from paddle_tpu_torch.ops.flash import segment_mask_bias
+    if segment_ids is not None:
+        seg_b = segment_mask_bias(segment_ids)
+        bias = seg_b if bias is None else bias + seg_b
+    return attention_ops._xla_attention(q, k, v, bias=bias, scale=scale,
+                                        causal=causal)
 
 
-def phase_train_agree(flash):
-    """One f32 step through the flash kernels and one with the plain dense
-    attention put in at attention_ops (restored after), from copies of one
-    startup scope: the loss within TRAIN_LOSS_TOL and every @GRAD within
-    TRAIN_GRAD_TOL (see their comment)."""
+def train_agree(flash, tag, program, feed, layers, steps):
+    """`steps` f32 Adam steps of `program` (main, startup, loss) through
+    the flash kernels and with the plain dense attention put in at
+    attention_ops (a seam of this script only, restored after), from
+    copies of one startup scope: each step's loss within TRAIN_LOSS_TOL
+    and the first step's @GRADs within TRAIN_GRAD_TOL (see their
+    comment). Returns ((fwd, dQ, dK/dV, bf16 fwd) launches of the kernel
+    run, the errors)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import attention_ops
-    cfg, main, startup, loss, toks = build_train()
+    main, startup, loss = program
     exe = fluid.Executor()
     base = fluid.Scope()
     with fluid.scope_guard(base):
         exe.run(startup)
     names = [p.name for p in main.all_parameters()]
 
-    def copy():
-        s = fluid.Scope()
-        for n in base.names():
-            s.set(n, base.get(n).clone())
-        return s
-
-    def plain(q, k, v, bias=None, scale=None, causal=False,
-              segment_ids=None):
-        return attention_ops._xla_attention(q, k, v, bias=bias, scale=scale,
-                                            causal=causal)
+    def run():
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).clone())
+        losses = []
+        with fluid.scope_guard(scope):
+            for i in range(steps):
+                out = exe.run(main, feed=feed, fetch_list=[loss] + (
+                    [nm + "@GRAD" for nm in names] if i == 0 else []),
+                    return_numpy=False)
+                losses.append(out[0].double().item())
+                if i == 0:
+                    grads = out[1:]
+        return losses, grads
 
     _zero_counts(flash)
-    kl, kg = _train_step_grads(fluid, exe, main, loss, toks, copy(), names)
+    kl, kg = run()
     kernel_counts = _bwd_counts(flash)
+    tc = flash.TC_LAUNCHES
     real = attention_ops.dot_product_attention
-    attention_ops.dot_product_attention = plain
+    attention_ops.dot_product_attention = _plain_attention
     try:
         _zero_counts(flash)
-        pl, pg = _train_step_grads(fluid, exe, main, loss, toks, copy(),
-                                   names)
+        pl, pg = run()
         plain_counts = _bwd_counts(flash)
     finally:
         attention_ops.dot_product_attention = real
-    n = cfg.num_layers
-    if kernel_counts != (n, n, n) or plain_counts != (0, 0, 0):
-        _fail(f"train agree: launches {kernel_counts} through the kernels, "
-              f"{plain_counts} through the plain attention")
-    loss_err = abs(kl - pl) / abs(pl)
+    n = layers * steps
+    if kernel_counts != (n, n, n) or plain_counts != (0, 0, 0) or tc:
+        _fail(f"{tag}: launches {kernel_counts} ({tc} tensor-core) "
+              f"through the kernels, {plain_counts} through the plain "
+              f"attention")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
     floor = 1e-3 * max(g.abs().max().item() for g in pg)
     worst = max(((a - b).abs().max().item() / (b.abs().max().item() + floor),
                  nm) for nm, a, b in zip(names, kg, pg))
-    print(f"train agree f32: loss {kl:.7f} vs {pl:.7f} (rel err "
-          f"{loss_err:.3e}, tolerance {TRAIN_LOSS_TOL}); {len(names)} "
-          f"@GRADs, worst {worst[0]:.3e} at {worst[1]} (tolerance "
-          f"{TRAIN_GRAD_TOL})")
+    print(f"{tag} f32: losses {kl} vs {pl} (worst rel err {loss_err:.3e}, "
+          f"tolerance {TRAIN_LOSS_TOL}); {len(names)} @GRADs, worst "
+          f"{worst[0]:.3e} at {worst[1]} (tolerance {TRAIN_GRAD_TOL}); "
+          f"launches {kernel_counts}")
     if not (loss_err <= TRAIN_LOSS_TOL and worst[0] <= TRAIN_GRAD_TOL):
-        _fail("f32 training step through the kernels disagrees with the "
-              "plain attention")
+        _fail(f"{tag}: f32 steps through the kernels disagree with the "
+              f"plain attention")
+    return kernel_counts + (tc,), {"loss_rel_err": loss_err,
+                                   "grad_rel_err": worst[0]}
 
 
-def phase_profile_train(flash):
-    """Where a full-width training step's time goes: torch.profiler over 3
-    warm steps. Prints the host wall and device time per step, the busy
-    share, device operations per step, the flash forward's and backward's
-    device time (the backward's also by kernel) and the top kernels."""
+def phase_train_agree(flash):
+    """Phase 9b: one f32 step of the full-width GPT through the flash
+    kernels and through the plain dense attention (train_agree)."""
+    cfg, main, startup, loss, toks = build_train()
+    train_agree(flash, "train agree", (main, startup, loss),
+                {"tokens": toks}, cfg.num_layers, 1)
+
+
+def _profile_train(step, steps):
+    """Where a training step's time goes: torch.profiler (the device
+    only) over `steps` calls of step(). The host wall and device time a
+    step, the busy share, device operations a step, the flash forward's
+    and backward's device time (the backward's also by kernel), their
+    shares and the top kernels."""
     from torch.profiler import profile as tprofile
-    import paddle_tpu_torch as fluid
-    _cfg, main, startup, loss, toks = build_train()
-    exe = fluid.Executor()
-    steps = 3
-    with fluid.scope_guard(fluid.Scope()):
-        exe.run(startup)
-        exe.run(main, feed={"tokens": toks}, fetch_list=[loss])   # warm
+    torch.cuda.synchronize()
+    with tprofile(activities=PROFILE_ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
-        with tprofile(activities=PROFILE_ACTIVITIES) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                exe.run(main, feed={"tokens": toks}, fetch_list=[loss])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / steps * 1e3
+        wall = (time.perf_counter() - t0) / steps * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
     dev = {e.key: e.self_device_time_total / steps / 1e3 for e in kernels}
@@ -1760,16 +1846,33 @@ def phase_profile_train(flash):
     dq = sum(v for k, v in dev.items() if "flash_bwd_dq" in k)
     dkv = sum(v for k, v in dev.items() if "flash_bwd_dkv" in k)
     bwd = dq + dkv
+    if busy <= 0 or fwd <= 0 or bwd <= 0:
+        _fail("the profiler saw no device time or no flash kernel")
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
-    out = {"steps": steps, "wall_ms_per_step": wall,
-           "device_ms_per_step": busy, "device_busy_share": busy / wall,
-           "device_ops_per_step": sum(e.count for e in kernels) / steps,
-           "flash_fwd_ms_per_step": fwd, "flash_bwd_ms_per_step": bwd,
-           "flash_bwd_dq_dkv_ms_per_step": [dq, dkv],
-           "flash_bwd_share_of_device": bwd / busy if busy else None,
-           "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]}
-    if busy <= 0 or bwd <= 0:
-        _fail("the profiler saw no device time or no flash backward kernel")
+    return {"steps": steps, "wall_ms_per_step": wall,
+            "device_ms_per_step": busy, "device_busy_share": busy / wall,
+            "device_ops_per_step": sum(e.count for e in kernels) / steps,
+            "flash_fwd_ms_per_step": fwd, "flash_bwd_ms_per_step": bwd,
+            "flash_bwd_dq_dkv_ms_per_step": [dq, dkv],
+            "flash_bwd_share_of_device": bwd / busy,
+            "flash_share_of_device": (fwd + bwd) / busy,
+            "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]}
+
+
+def phase_profile_train(flash):
+    """Phase 9c: 3 warm training steps under the profiler
+    (_profile_train)."""
+    import paddle_tpu_torch as fluid
+    _cfg, main, startup, loss, toks = build_train()
+    exe = fluid.Executor()
+
+    def step():
+        exe.run(main, feed={"tokens": toks}, fetch_list=[loss])
+
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        step()                                              # warm
+        out = _profile_train(step, 3)
     print("profile train " + json.dumps(out))
 
 
@@ -2868,9 +2971,14 @@ def phase_telemetry(paged, cfg, tree, gcfg, gtree, tier_srv):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
     model = make_model(cfg, tree, torch.bfloat16)
     torch.cuda.synchronize()
     params_grown = torch.cuda.memory_allocated() - before
+    # the bytes the build asked for, without the allocator's block
+    # rounding: against the model_params row (ROADMAP C5)
+    params_requested = torch.cuda.memory_stats()[
+        "requested_bytes.all.current"] - requested
     srv = tier_server(model, TIER_BLOCKS, 64)
     torch.cuda.synchronize()
     grown = torch.cuda.memory_allocated() - before
@@ -2891,6 +2999,9 @@ def phase_telemetry(paged, cfg, tree, gcfg, gtree, tier_srv):
                      "rows_sum": ledger, "allocated_growth": grown,
                      "difference": grown - ledger,
                      "params_growth": params_grown,
+                     "params_requested_growth": params_requested,
+                     "params_requested_minus_row":
+                         params_requested - rows["model_params"]["bytes"],
                      "server_growth": grown - params_grown,
                      "kv_pool_host": rows["kv_pool_host"]["bytes"],
                      "pinned_bytes": pinned}
@@ -2914,6 +3025,286 @@ def phase_telemetry(paged, cfg, tree, gcfg, gtree, tier_srv):
     for k, v in out.items():
         print(f"telemetry {k} " + json.dumps(v))
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 16, 16b, 16c: BERT-base / ERNIE-1.0 pretraining through the Fluid
+# entry points; phase 17: ring attention over a local sp mesh
+# ---------------------------------------------------------------------------
+
+def bert_config(**kw):
+    """BERT-base (= ERNIE-1.0): vocab 30522, hidden 768, 12 layers, 12
+    heads, FFN 3072, 512 positions, dropout 0.1 unless `kw` says
+    otherwise."""
+    from paddle_tpu_torch.models import bert
+    return bert.BertConfig(**{**BERT_CFG, **kw})
+
+
+def build_bert(cfg, packed_width=None):
+    """(main, startup, loss): the MLM+NSP pretraining net at seq BERT_SEQ,
+    or the packed MLM net with `packed_width` predictions a row, with
+    AdamOptimizer(1e-4)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 16
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if packed_width is None:
+            _f, loss, _mlm, _acc = bert.build_pretrain_net(cfg,
+                                                           seq_len=BERT_SEQ)
+        else:
+            _f, loss = bert.build_packed_pretrain_net(
+                cfg, seq_len=BERT_SEQ, max_predictions=packed_width)
+        fluid.optimizer.AdamOptimizer(1e-4).minimize(loss)
+    return main, startup, loss
+
+
+def bert_feed():
+    """bench.py's ERNIE cell feed (int32, synthetic, from the seed)."""
+    from paddle_tpu_torch.models import ernie
+    return ernie.make_pretrain_feed(bert_config(), BERT_SEQ, BERT_BATCH,
+                                    seed=SEED, dtype=np.int32)
+
+
+def packed_feed(cfg):
+    """Documents of PACKED_DOC_LENS tokens packed by pack_sequences into
+    rows of BERT_SEQ: (feed, rows, packing efficiency)."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.reader import packing_efficiency
+    lo, hi = PACKED_DOC_LENS
+    feed, rows = bert.make_packed_pretrain_feed(cfg, BERT_SEQ, PACKED_DOCS,
+                                                seed=SEED, min_len=lo,
+                                                max_len=hi)
+    return feed, rows, packing_efficiency(feed)
+
+
+def _bias_views(flash, run):
+    """The (shape, strides) of every bias the flash kernels' checks hand
+    the kernels during run()."""
+    seen = []
+    real = flash._check
+
+    def spy(*args):
+        bias = real(*args)
+        seen.append(None if bias is None else
+                    (tuple(bias.shape), tuple(bias.stride())))
+        return bias
+
+    flash._check = spy
+    try:
+        run()
+    finally:
+        flash._check = real
+    return seen
+
+
+def phase_bert(flash):
+    """BERT-base pretraining at seq BERT_SEQ x batch BERT_BATCH, Adam
+    1e-4, f32, dropout 0.1, on bench.py's ERNIE feed: BERT_WARM +
+    BERT_STEPS steps on one batch (12 + 12 + 12 flash launches a step,
+    the loss below BERT_LOSS_MARGIN x the first), then a profile of
+    BERT_PROFILE_STEPS more. The first step also records the padding
+    bias the kernels get: a (B, H, T, T) view with stride 0 over heads and
+    queries, never a copy. Returns the run's (fwd, dQ, dK/dV) launches."""
+    import paddle_tpu_torch as fluid
+    cfg = bert_config()
+    main, startup, loss = build_bert(cfg)
+    feed = bert_feed()
+    exe = fluid.Executor()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = cfg.num_hidden_layers
+    with fluid.scope_guard(fluid.Scope()):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        _zero_counts(flash)
+        first = []
+        views = _bias_views(flash, lambda: first.append(_train_run(
+            flash, exe, main, feed, loss, 1, 1)))
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, main, feed, loss, BERT_WARM + BERT_STEPS - 1,
+            BERT_WARM - 1)
+        counts = _bwd_counts(flash)
+        losses = first[0][0] + losses
+        per_step |= first[0][2]
+        tc += first[0][3]
+        peak = torch.cuda.max_memory_allocated()
+        prof = _profile_train(lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss]),
+                              BERT_PROFILE_STEPS)
+    b, h, t = BERT_BATCH, cfg.num_attention_heads, BERT_SEQ
+    want_view = ((b, h, t, t), (t, 0, 0, 1))
+    if len(views) != 2 * n or set(views) != {want_view}:
+        _fail(f"bert: the kernels got padding biases {set(views)} in "
+              f"{len(views)} calls, want {2 * n} x {want_view}")
+    if per_step != {(n, n, n)} or tc != 0 or counts != (
+            (BERT_WARM + BERT_STEPS) * n,) * 3:
+        _fail(f"bert: flash launches fwd/dq/dkv per step {per_step} "
+              f"(run {counts}), want {n} each; {tc} tensor-core, want 0")
+    first, last = losses[0], losses[-1]
+    if not np.isfinite(losses).all() or not last < BERT_LOSS_MARGIN * first:
+        _fail(f"bert: loss not finite or not below {BERT_LOSS_MARGIN} x "
+              f"the first: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    out = {"config": "BertConfig(max_position_embeddings=512)",
+           "seq_len": t, "batch": b, "params": len(main.all_parameters()),
+           "feed": "ernie.make_pretrain_feed(cfg, 512, 8, int32)",
+           "startup_s": startup_s, "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "tokens_per_s": b * t / (mean_ms / 1e3),
+           "max_memory_allocated": peak,
+           "loss_first": first, "loss_last": last,
+           "loss_ratio": last / first, "loss_margin": BERT_LOSS_MARGIN,
+           "bias_view": [list(want_view[0]), list(want_view[1])],
+           "flash_launches_fwd_dq_dkv": list(counts)}
+    print("bert " + json.dumps(out))
+    print("profile bert " + json.dumps(prof))
+    return counts + (tc,)
+
+
+def phase_bert_agree(flash):
+    """Phase 16b: train_agree at full width, BERT_AGREE_LAYERS layers,
+    dropout 0, BERT_AGREE_STEPS Adam steps on the ERNIE feed with padding
+    (input_mask 0 on two rows' tails, so the kernels get a non-zero
+    key-side bias)."""
+    cfg = bert_config(num_hidden_layers=BERT_AGREE_LAYERS,
+                      hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    feed = bert_feed()
+    feed["input_mask"][1, BERT_SEQ - BERT_PAD:] = 0.0
+    feed["input_mask"][5, BERT_SEQ // 2:] = 0.0
+    return train_agree(flash, "bert agree", build_bert(cfg), feed,
+                       BERT_AGREE_LAYERS, BERT_AGREE_STEPS)
+
+
+def phase_packed(flash):
+    """Phase 16c: the packed MLM net at full width, seq BERT_SEQ, over
+    PACKED_DOCS documents packed by pack_sequences (segment ids through
+    the flash kernels): PACKED_WARM + PACKED_STEPS steps (the loss falls;
+    12 + 12 + 12 launches a step), real (non-pad) tokens/s and the
+    packing efficiency; then kernel vs plain at BERT_AGREE_LAYERS layers.
+    Returns (the training run's launches, the agreement's launches, its
+    errors)."""
+    import paddle_tpu_torch as fluid
+    cfg = bert_config()
+    feed, rows, eff = packed_feed(cfg)
+    width = feed["mask_pos"].shape[1]
+    main, startup, loss = build_bert(cfg, width)
+    exe = fluid.Executor()
+    n = cfg.num_hidden_layers
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        _zero_counts(flash)
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, main, feed, loss, PACKED_WARM + PACKED_STEPS,
+            PACKED_WARM)
+        counts = _bwd_counts(flash)
+    if per_step != {(n, n, n)} or tc != 0:
+        _fail(f"packed: flash launches per step {per_step}, want {n} "
+              f"each; {tc} tensor-core, want 0")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        _fail(f"packed: loss not finite and falling: {losses}")
+    real = int((feed["segment_ids"] > 0).sum())
+    mean_ms = float(np.mean(step_ms))
+    out = {"docs": PACKED_DOCS, "doc_lens": list(PACKED_DOC_LENS),
+           "rows": rows, "seq_len": BERT_SEQ, "predictions_a_row": width,
+           "packing_efficiency": eff, "real_tokens": real,
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_mean": mean_ms,
+           "real_tokens_per_s": real / (mean_ms / 1e3),
+           "slot_tokens_per_s": rows * BERT_SEQ / (mean_ms / 1e3),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "flash_launches_fwd_dq_dkv": list(counts)}
+    print("packed " + json.dumps(out))
+    acfg = bert_config(num_hidden_layers=BERT_AGREE_LAYERS,
+                       hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    agree_counts, errs = train_agree(flash, "packed agree",
+                                     build_bert(acfg, width), feed,
+                                     BERT_AGREE_LAYERS, 1)
+    return counts + (tc,), agree_counts, errs
+
+
+def _allclose_ratio(got, want, tol):
+    """max |got - want| / (tol + tol |want|): at most 1 where the two are
+    close as np.allclose(rtol=tol, atol=tol) holds them; and the max
+    absolute error."""
+    diff = (got.double() - want.double()).abs()
+    return ((diff / (tol + tol * want.double().abs())).max().item(),
+            diff.max().item())
+
+
+def phase_ring(flash):
+    """Phase 17: ring attention on a local sp RING_SP mesh on the card,
+    q/k/v RING_SHAPE f32: causal, and non-causal with a key-side padding
+    bias over the last RING_MASKED keys. ring_attention_sharded's output
+    and the gradients of <out, do> (d q/k/v, a seeded cotangent) against
+    the plain full attention (attention_ops._xla_attention) at the JAX
+    tests' tolerances (RING_OUT_TOL, RING_GRAD_TOL, as np.allclose);
+    flash launches a call: sp(sp+1)/2 forward, dQ and dK/dV causal, sp**2
+    each non-causal. Prints the ring call's ms beside one flash call over
+    the whole T (information only). Returns ({case: launches}, errors)."""
+    import importlib
+    from paddle_tpu_torch.ops import attention_ops
+    from paddle_tpu_torch.parallel import make_mesh
+    ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    from paddle_tpu_torch.ops.flash import flash_attention
+    mesh = make_mesh(sp=RING_SP)
+    if mesh.world or mesh.shape["sp"] != RING_SP:
+        _fail(f"ring: {mesh} is not a local sp {RING_SP} mesh")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    q, k, v, do = (_rand(RING_SHAPE, gen) for _ in range(4))
+    t = RING_SHAPE[2]
+    bias = torch.zeros((RING_SHAPE[0], 1, 1, t), device="cuda")
+    bias[..., t - RING_MASKED:] = -1e9
+    sp = RING_SP
+    launches, errs, out = {}, {}, {}
+    for case, causal, b in (("causal", True, None),
+                            ("padding_bias", False, bias)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        _zero_counts(flash)
+        ring_out = ra.ring_attention_sharded(*leaves, mesh, causal=causal,
+                                             bias=b)
+        ring_grads = torch.autograd.grad(ring_out, leaves, do)
+        torch.cuda.synchronize()
+        counts = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+        want = sp * (sp + 1) // 2 if causal else sp * sp
+        if counts != (want,) * 3 + (0,):
+            _fail(f"ring {case}: flash launches fwd/dq/dkv/tensor-core "
+                  f"{counts}, want {want} each and 0 tensor-core")
+        plain_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ref = attention_ops._xla_attention(*plain_leaves, bias=b,
+                                           causal=causal)
+        ref_grads = torch.autograd.grad(ref, plain_leaves, do)
+        ratio, err = _allclose_ratio(ring_out.detach(), ref.detach(),
+                                     RING_OUT_TOL)
+        g = [_allclose_ratio(a, r, RING_GRAD_TOL)
+             for a, r in zip(ring_grads, ref_grads)]
+        del ref, ref_grads, plain_leaves
+        torch.cuda.empty_cache()
+        row = {"launches_fwd_dq_dkv_tc": list(counts),
+               "out_max_abs_err": err, "out_ratio": ratio,
+               "grad_max_abs_err": {n: e for n, (_, e) in zip("qkv", g)},
+               "grad_ratio": {n: r for n, (r, _) in zip("qkv", g)},
+               "tolerances": [RING_OUT_TOL, RING_GRAD_TOL]}
+        with torch.no_grad():
+            row["ring_fwd_ms"] = _time_ms(lambda: ra.ring_attention_sharded(
+                q, k, v, mesh, causal=causal, bias=b), reps=5, warmup=1)
+            row["flash_fwd_ms_whole_t"] = _time_ms(lambda: flash_attention(
+                q, k, v, bias=b, causal=causal), reps=5, warmup=1)
+        out[case] = row
+        print(f"ring {case} " + json.dumps(row))
+        if ratio > 1 or max(r for r, _ in g) > 1:
+            _fail(f"ring {case}: the ring disagrees with full attention")
+        launches[case] = counts
+        errs[case] = (err, max(e for _, e in g))
+    print("ring " + json.dumps({"mesh": repr(mesh), "shape": list(RING_SHAPE),
+                                "masked_keys": RING_MASKED}))
+    return launches, errs
 
 
 def times_of(flag, root):
@@ -3073,6 +3464,13 @@ def main():
     _, plaunches = _phase("15 telemetry, chaos, ledger", phase_telemetry,
                           paged, cfg, tree, gcfg, gtree, tier_srv)
     del tier_srv
+    bert_launches = _phase("16 BERT-base pretrain", phase_bert, flash)
+    bagree_launches, bagree_errs = _phase("16b BERT agree",
+                                          phase_bert_agree, flash)
+    packed_launches, pagree_launches, pagree_errs = _phase(
+        "16c packed pretrain", phase_packed, flash)
+    ring_launches, ring_errs = _phase("17 ring attention", phase_ring,
+                                      flash)
     path_errs = {**perrs, **serrs, **derrs, **terrs}
     by_path = {
         "2 serve": launches,
@@ -3144,6 +3542,31 @@ def main():
     ]
     kernels[0]["launches_by_path"] = by_path
     kernels[0]["path_errs"] = path_errs
+    # the flash kernels' paths: (fwd, dQ, dK/dV, bf16 fwd) launches of
+    # each run, counted from 0 just before it
+    flash_paths = {
+        "16 BERT-base pretrain (30 steps)": bert_launches,
+        "16b BERT agree (kernel run, 2 layers x 3 steps)": bagree_launches,
+        "16c packed pretrain (10 steps)": packed_launches,
+        "16c packed agree (kernel run, 2 layers x 1 step)": pagree_launches,
+        **{f"17 ring sp {RING_SP} {case} (one call)": c
+           for case, c in ring_launches.items()}}
+    kernels[2]["launches_by_path"] = {
+        "6 prompt decode": flaunches,
+        **{name: c[3] for name, c in flash_paths.items()}}
+    kernels[3]["launches_by_path"] = {"9 train": f32_launches, **{
+        name: c[0] for name, c in flash_paths.items()}}
+    kernels[4]["launches_by_path"] = {"9 train": blaunches, **{
+        name: c[1] + c[2] for name, c in flash_paths.items()}}
+    kernels[3]["max_abs_err"] = max(
+        [kernels[3]["max_abs_err"]] + [e[0] for e in ring_errs.values()])
+    kernels[4]["max_abs_err"] = max(
+        [kernels[4]["max_abs_err"]] + [e[1] for e in ring_errs.values()])
+    agree = {"16b BERT agree": bagree_errs,
+             "16c packed agree": pagree_errs,
+             **{f"17 ring {case} (out, grads: max abs)": list(e)
+                for case, e in ring_errs.items()}}
+    kernels[3]["path_errs"] = kernels[4]["path_errs"] = agree
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ optionally int8 weights, with the paged-attention kernel
 flash-attention forward (``ops/flash.py``); and static-graph GPT training
 through the Fluid entry points (``core/``, ``layers/``, ``optimizer/``,
 ``ops/``), whose attention backward runs the flash-attention backward
-kernels. The top level is the ``fluid`` namespace of that recipe::
+kernels; BERT/ERNIE-1.0 pretraining, padded or packed, through the same
+entry points (``models/bert.py``, ``models/ernie.py``,
+``reader/packing.py``); and ring attention over a sequence-parallel mesh
+(``parallel/``). The top level is the ``fluid`` namespace of that
+recipe::
 
     import paddle_tpu_torch as fluid
     main, startup = fluid.Program(), fluid.Program()

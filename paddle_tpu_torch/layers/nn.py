@@ -132,12 +132,65 @@ def mean(x, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
-    shape = x.shape if len(x.shape) >= len(y.shape) else y.shape
-    out = helper.create_variable_for_type_inference(x.dtype, shape)
-    helper.append_op("elementwise_add", {"X": x, "Y": y}, {"Out": out},
-                     {"axis": axis})
+# ---- reductions ------------------------------------------------------------
+
+def _reduce_shape(shape, dim, keep_dim):
+    if dim is None:
+        return () if not keep_dim else tuple(1 for _ in shape)
+    dims = [d % len(shape) for d in (dim if isinstance(dim, (list, tuple))
+                                     else [dim])]
+    if keep_dim:
+        return tuple(1 if i in dims else s for i, s in enumerate(shape))
+    return tuple(s for i, s in enumerate(shape) if i not in dims)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, _reduce_shape(input.shape, dim, keep_dim))
+    attrs = {"keep_dim": keep_dim}
+    if dim is None:
+        attrs["reduce_all"] = True
+        attrs["dim"] = [0]
+    else:
+        attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
+    helper.append_op("reduce_sum", {"X": input}, {"Out": out}, attrs)
+    return out
+
+
+# ---- elementwise -----------------------------------------------------------
+
+def _make_elementwise(op_type):
+    def fn(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        shape = x.shape if len(x.shape) >= len(y.shape) else y.shape
+        out = helper.create_variable_for_type_inference(x.dtype, shape)
+        helper.append_op(op_type, {"X": x, "Y": y}, {"Out": out},
+                         {"axis": axis})
+        return helper.append_activation(out)
+    fn.__name__ = op_type
+    return fn
+
+
+elementwise_add = _make_elementwise("elementwise_add")
+elementwise_mul = _make_elementwise("elementwise_mul")
+elementwise_div = _make_elementwise("elementwise_div")
+
+
+def logical_and(x, y, out=None, name=None):
+    helper = LayerHelper("logical_and", name=name)
+    out = out or helper.create_variable_for_type_inference("bool", x.shape)
+    helper.append_op("logical_and", {"X": x, "Y": y}, {"Out": out})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("scale", {"X": x}, {"Out": out},
+                     {"scale": float(scale), "bias": float(bias),
+                      "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
 
 
@@ -178,4 +231,36 @@ def slice(input, axes, starts, ends):
     helper.append_op("slice", {"Input": input}, {"Out": out},
                      {"axes": list(axes), "starts": list(starts),
                       "ends": list(ends)})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    shape = (index.shape[0] if index.shape else -1,) + tuple(input.shape[1:])
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op("gather", {"X": input, "Index": index}, {"Out": out})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = tuple(input.shape[:-1]) + (k,)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    idx = helper.create_variable_for_type_inference("int64", shape)
+    helper.append_op("top_k", {"X": input}, {"Out": out, "Indices": idx},
+                     {"k": k})
+    return out, idx
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype, x.shape)
+    helper.append_op("cast", {"X": x}, {"Out": out}, {"out_dtype": dtype})
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("softmax", {"X": input}, {"Out": out}, {"axis": axis})
     return out

@@ -23,7 +23,9 @@ framework's layers (``gpt_logits``, one ``_block`` per layer, whose
 ``multi_head_attention`` op runs the flash kernels forward and backward on
 the card); the Executor trains it, and ``load_params`` / ``generate`` read
 the trained parameters back out of its Scope by their ``gpt*`` names.
-``build_packed_lm_net`` (packed documents) is not ported yet.
+``build_packed_lm_net`` packs several documents into each row: its
+attention is causal and confined per document by segment ids, which the
+flash kernels compare blockwise.
 """
 
 import math
@@ -39,9 +41,9 @@ from ..device import resolve_device
 
 __all__ = ["GPTConfig", "gpt_tiny", "init_params", "params_from_numpy",
            "gqa_slice_kv_params", "gqa_repeat_kv_params", "gpt_logits",
-           "build_lm_net", "load_params", "generate", "build_kv_step",
-           "build_prefill", "make_prompt_decoder", "generate_with_prompt",
-           "make_greedy_decoder", "make_sampler"]
+           "build_lm_net", "build_packed_lm_net", "load_params", "generate",
+           "build_kv_step", "build_prefill", "make_prompt_decoder",
+           "generate_with_prompt", "make_greedy_decoder", "make_sampler"]
 
 
 class GPTConfig:
@@ -209,14 +211,14 @@ def _to_device(params, device):
 # training: the static graph, and the parameters out of a trained scope
 # ---------------------------------------------------------------------------
 
-def _block(x, cfg, idx):
+def _block(x, cfg, idx, segment_ids=None):
     """Pre-norm GPT-2 block: x + attn(ln(x)); x + ffn(ln(x))."""
     h = layers.layer_norm(x, begin_norm_axis=2,
                           param_attr=ParamAttr(name=f"gpt{idx}_ln1_s"),
                           bias_attr=ParamAttr(name=f"gpt{idx}_ln1_b"))
     a = layers.multi_head_attention(
         h, num_heads=cfg.num_heads, d_model=cfg.hidden_size, causal=True,
-        dropout_rate=cfg.dropout,
+        segment_ids=segment_ids, dropout_rate=cfg.dropout,
         param_attr=ParamAttr(name=f"gpt{idx}_attn"),
         bias_attr=ParamAttr(name=f"gpt{idx}_attn"))
     x = layers.elementwise_add(x, a)
@@ -234,20 +236,28 @@ def _block(x, cfg, idx):
     return layers.elementwise_add(x, f)
 
 
-def gpt_logits(tokens, cfg, seq_len):
+def gpt_logits(tokens, cfg, seq_len, segment_ids=None, positions=None):
     """(B, T) int tokens -> (B, T, V) next-token logits (tied head), the
-    word embedding plus the first seq_len rows of the position table."""
+    word embedding plus the first seq_len rows of the position table.
+    Packed mode (segment_ids + positions): causal attention additionally
+    confined per document by the segment ids, and the position embeddings
+    gathered by the per-document `positions` feed."""
     emb = layers.embedding(tokens, size=[cfg.vocab_size, cfg.hidden_size],
                            param_attr=ParamAttr(name="gpt_word_emb"))
-    pos_table = layers.create_parameter(
-        [cfg.max_position, cfg.hidden_size], "float32",
-        attr=ParamAttr(name="gpt_pos_emb"))
-    pos = layers.slice(pos_table, axes=[0], starts=[0], ends=[seq_len])
+    if positions is not None:
+        pos = layers.embedding(
+            positions, size=[cfg.max_position, cfg.hidden_size],
+            param_attr=ParamAttr(name="gpt_pos_emb"))
+    else:
+        pos_table = layers.create_parameter(
+            [cfg.max_position, cfg.hidden_size], "float32",
+            attr=ParamAttr(name="gpt_pos_emb"))
+        pos = layers.slice(pos_table, axes=[0], starts=[0], ends=[seq_len])
     x = layers.elementwise_add(emb, pos)
     if cfg.dropout:
         x = layers.dropout(x, cfg.dropout)
     for i in range(cfg.num_layers):
-        x = _block(x, cfg, i)
+        x = _block(x, cfg, i, segment_ids=segment_ids)
     x = layers.layer_norm(x, begin_norm_axis=2,
                           param_attr=ParamAttr(name="gpt_lnf_s"),
                           bias_attr=ParamAttr(name="gpt_lnf_b"))
@@ -269,6 +279,43 @@ def build_lm_net(cfg=None, seq_len=64):
     tgt2d = layers.reshape(tgt, shape=[-1, 1])
     loss = layers.mean(layers.softmax_with_cross_entropy(pred2d, tgt2d))
     return tokens, loss, logits
+
+
+def build_packed_lm_net(cfg=None, seq_len=64):
+    """Packed causal LM: several documents share each row
+    (reader.pack_sequences), attention is causal AND per-document, and
+    the next-token loss only counts pairs inside one document — the
+    cross-document boundary token and pad slots carry zero weight.
+    Feeds: tokens, segment_ids, positions (B, T) int64.
+    Returns (feeds dict, mean_loss). Loss normalization is by the real
+    pair count, so the value is comparable to the unpacked net's."""
+    cfg = cfg or GPTConfig()
+    tokens = layers.data("tokens", shape=[seq_len], dtype="int64")
+    segment_ids = layers.data("segment_ids", shape=[seq_len],
+                              dtype="int64")
+    positions = layers.data("positions", shape=[seq_len], dtype="int64")
+    logits = gpt_logits(tokens, cfg, seq_len, segment_ids=segment_ids,
+                        positions=positions)
+    pred = layers.slice(logits, axes=[1], starts=[0], ends=[seq_len - 1])
+    tgt = layers.slice(tokens, axes=[1], starts=[1], ends=[seq_len])
+    seg_a = layers.slice(segment_ids, axes=[1], starts=[0],
+                         ends=[seq_len - 1])
+    seg_b = layers.slice(segment_ids, axes=[1], starts=[1], ends=[seq_len])
+    # pair (t, t+1) counts iff both tokens are real and same-document
+    w = layers.cast(layers.logical_and(
+        layers.equal(seg_a, seg_b),
+        layers.greater_than(seg_a, layers.zeros_like(seg_a))), "float32")
+    pred2d = layers.reshape(pred, shape=[-1, cfg.vocab_size])
+    tgt2d = layers.reshape(tgt, shape=[-1, 1])
+    ce = layers.softmax_with_cross_entropy(pred2d, tgt2d)
+    w2d = layers.reshape(w, shape=[-1, 1])
+    loss = layers.elementwise_div(
+        layers.reduce_sum(layers.elementwise_mul(ce, w2d)),
+        layers.elementwise_add(
+            layers.reduce_sum(w2d),
+            layers.fill_constant([1], "float32", 1e-6)))
+    return {"tokens": tokens, "segment_ids": segment_ids,
+            "positions": positions}, loss
 
 
 def load_params(scope, cfg):

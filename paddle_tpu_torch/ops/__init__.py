@@ -143,3 +143,4 @@ from . import loss_ops        # noqa: E402,F401
 from . import random_ops      # noqa: E402,F401
 from . import optimizer_ops   # noqa: E402,F401
 from . import attention_ops   # noqa: E402,F401
+from . import metric_ops      # noqa: E402,F401

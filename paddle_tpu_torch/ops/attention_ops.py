@@ -3,17 +3,22 @@
 Parity: the reference composes attention from matmul/softmax primitives;
 the counterpart of ``paddle_tpu/ops/attention_ops.py``, where attention is
 a first-class op so the executor can route it to a fused kernel.
-``dot_product_attention`` sends CUDA tensors to the flash kernels
+``dot_product_attention`` sends the call to ring attention over the
+``sp`` axis when a sequence-parallel mesh is active (``with mesh:``,
+``_active_sp_mesh``); otherwise CUDA tensors to the flash kernels
 (``ops/flash.py``: the hand-written forward and backward, whose wrappers
 launch or raise) and CPU tensors to ``_xla_attention``, the plain dense
-path that the JAX package takes off the TPU. Nothing else chooses.
+path that the JAX package takes off the TPU. The ring's steps run the
+same flash kernels, or on CPU tensors their plain versions. Nothing else
+chooses.
 
 Not ported: the JAX dispatcher's switches ``PADDLE_TPU_FORCE_FLASH``,
-``PADDLE_TPU_DISABLE_FLASH`` and ``PADDLE_TPU_STRICT_FLASH``, and its
-warn-and-fall-back ``try`` around the flash call; the sequence-parallel
-ring branch (``_active_sp_mesh``) waits for the long-context slice, and
-without a mesh it never applies.
+``PADDLE_TPU_DISABLE_FLASH``, ``PADDLE_TPU_STRICT_FLASH`` and
+``PADDLE_TPU_DISABLE_RING``, and its warn-and-fall-back ``try`` around
+the flash call.
 """
+
+import warnings
 
 import torch
 
@@ -40,12 +45,56 @@ def _xla_attention(q, k, v, bias=None, scale=None, causal=False):
     return torch.matmul(probs, v)
 
 
+_ring_seg_warned = False
+
+
+def _active_sp_mesh(q, k, bias):
+    """The active mesh (``with mesh:``), when sequence parallelism
+    applies: its 'sp' axis > 1, BOTH time axes divide it (cross-attention
+    has Tq != Tk), the bias (if any) is a 4-D key-side bias, and dp/tp
+    divide the batch and head dims: the shapes ring attention can
+    decompose. Anything else returns None, never raises."""
+    from ..parallel.mesh import active_mesh
+    mesh = active_mesh()
+    if mesh is None or mesh.empty:
+        return None
+    sp = mesh.shape["sp"]
+    if sp <= 1 or q.shape[2] % sp != 0 or k.shape[2] % sp != 0:
+        return None
+    if bias is not None and (bias.ndim != 4 or bias.shape[2] != 1
+                             or bias.shape[3] != k.shape[2]):
+        return None                      # per-query / odd-rank bias
+    for name, dim in (("dp", q.shape[0]), ("tp", q.shape[1])):
+        if dim % mesh.shape[name] != 0:
+            return None
+    return mesh
+
+
 def dot_product_attention(q, k, v, bias=None, scale=None, causal=False,
                           segment_ids=None):
-    """q (B, H, Tq, D), k/v (B, H, Tk, D) -> (B, H, Tq, D). CUDA tensors:
-    the flash kernels (segment ids compared blockwise inside them). CPU
-    tensors: ``_xla_attention``, with the segment ids as an additive mask
-    bias."""
+    """q (B, H, Tq, D), k/v (B, H, Tk, D) -> (B, H, Tq, D). Under an
+    active sequence-parallel mesh: ring attention over 'sp' (K/V and the
+    key-side bias rotate; O(T/sp) a rank). Else CUDA tensors: the flash
+    kernels (segment ids compared blockwise inside them); CPU tensors:
+    ``_xla_attention``, with the segment ids as an additive mask bias.
+    The ring cannot rotate a per-query mask: packed inputs take the dense
+    paths, with a one-time warning."""
+    global _ring_seg_warned
+    sp_mesh = _active_sp_mesh(q, k, bias)
+    if segment_ids is not None and sp_mesh is not None:
+        if not _ring_seg_warned:
+            warnings.warn(
+                "packed (segment_ids) attention cannot ride the 'sp' ring "
+                "path — the per-query segment mask does not rotate; taking "
+                "the dense flash path, so K/V are full-length per rank. "
+                "Unpack or drop the sp axis for long-context training.",
+                RuntimeWarning, stacklevel=2)
+            _ring_seg_warned = True
+        sp_mesh = None
+    if sp_mesh is not None:
+        from ..parallel.ring_attention import ring_attention_sharded
+        return ring_attention_sharded(q, k, v, sp_mesh, causal=causal,
+                                      scale=scale, bias=bias)
     if q.is_cuda:
         return flash_attention(q, k, v, bias=bias, scale=scale,
                                causal=causal, segment_ids=segment_ids)

@@ -1,8 +1,11 @@
 """Elementwise / matmul / reduction ops.
 
 Parity: paddle/fluid/operators/elementwise/*, matmul_op.cc, mul_op.cc,
-mean_op.cc; the counterpart of ``paddle_tpu/ops/math_ops.py`` with the ops
-the ported slice runs: ``elementwise_add``, ``mul``, ``matmul``, ``mean``.
+mean_op.cc, reduce_ops/*, scale_op.cc, compare_op.cc; the counterpart of
+``paddle_tpu/ops/math_ops.py`` with the ops the ported slices run:
+``elementwise_add``/``mul``/``div``, ``scale``, ``mul``, ``matmul``,
+``reduce_sum``, ``mean``, and the comparisons ``equal``, ``greater_than``
+and ``logical_and`` (the packed GPT net's pair weights).
 """
 
 import torch
@@ -29,6 +32,18 @@ def _ew(fn):
 
 
 register("elementwise_add")(_ew(torch.add))
+register("elementwise_mul")(_ew(torch.mul))
+register("elementwise_div")(_ew(torch.div))
+
+
+@register("scale")
+def scale(ctx):
+    x = ctx.in_("X")
+    s = ctx.attr("scale", 1.0)
+    b = ctx.attr("bias", 0.0)
+    if ctx.attr("bias_after_scale", True):
+        return {"Out": x * s + b}
+    return {"Out": (x + b) * s}
 
 
 def _prod(t):
@@ -68,3 +83,29 @@ def matmul(ctx):
 @register("mean")
 def mean(ctx):
     return {"Out": ctx.in_("X").mean()}
+
+
+@register("reduce_sum")
+def reduce_sum(ctx):
+    x = ctx.in_("X")
+    dims = ctx.attr("dim", [0])
+    keep = ctx.attr("keep_dim", False)
+    if ctx.attr("reduce_all", False) or dims is None:
+        out = x.sum()
+        return {"Out": out.reshape([1] * x.dim()) if keep else out}
+    dims = dims if isinstance(dims, (list, tuple)) else [dims]
+    return {"Out": x.sum(dim=tuple(d % x.dim() for d in dims),
+                         keepdim=keep)}
+
+
+def _cmp(fn):
+    def impl(ctx):
+        x, y = ctx.in_("X"), ctx.in_("Y")
+        y = _bcast_y(x, y, ctx.attr("axis", -1))
+        return {"Out": fn(x, y)}
+    return impl
+
+
+register("equal")(_cmp(torch.eq))
+register("greater_than")(_cmp(torch.gt))
+register("logical_and")(_cmp(torch.logical_and))

@@ -1,15 +1,27 @@
 """Tensor manipulation ops.
 
-Parity: paddle/fluid/operators/{fill_constant,reshape,transpose,slice,
-lookup_table}_op.cc; the counterpart of ``paddle_tpu/ops/tensor_ops.py``
-with the ops the ported slice runs. ``transpose2`` is here because the
-``scaled_dot_product_attention`` layer splits heads with it.
+Parity: paddle/fluid/operators/{cast,fill_constant,reshape,transpose,slice,
+lookup_table,gather,top_k}_op.cc; the counterpart of
+``paddle_tpu/ops/tensor_ops.py`` with the ops the ported slices run.
+``transpose2`` is here because the ``scaled_dot_product_attention`` layer
+splits heads with it; ``gather`` picks BERT's masked rows (its gradient
+is torch's scatter-add, ``index_add``), ``top_k`` feeds ``accuracy``.
 """
 
 import torch
 import torch.nn.functional as F
 
 from . import register, torch_dtype
+
+
+@register("cast")
+def cast(ctx):
+    return {"Out": ctx.in_("X").to(torch_dtype(ctx.attr("out_dtype")))}
+
+
+@register("zeros_like", "fill_zeros_like", "fill_zeros_like2")
+def zeros_like(ctx):
+    return {"Out": torch.zeros_like(ctx.in_("X"))}
 
 
 @register("fill_constant")
@@ -60,3 +72,15 @@ def lookup_table(ctx):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)
     return {"Out": out}
+
+
+@register("gather")
+def gather(ctx):
+    x, idx = ctx.in_("X"), ctx.in_("Index")
+    return {"Out": torch.index_select(x, 0, idx.reshape(-1).long())}
+
+
+@register("top_k")
+def top_k(ctx):
+    vals, idx = torch.topk(ctx.in_("X"), ctx.attr("k", 1), dim=-1)
+    return {"Out": vals, "Indices": idx}

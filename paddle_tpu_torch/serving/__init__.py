@@ -12,16 +12,19 @@ from .engine import (GenerationFuture, GenerationServer, GPTServingModel,
 from .guided import (CharConstraint, ChoiceConstraint, Constraint,
                      JsonConstraint, RegexConstraint, TokenChoiceConstraint)
 from .kv_cache import (KV_QMAX, NULL_BLOCK, HostKVTier, PagedKVCache,
-                       paged_attention)
+                       gather_block_kv, paged_attention,
+                       paged_attention_reference)
 from .prefix_cache import PrefixCacheIndex, chain_hash, prompt_chain_keys
-from .scheduler import DeadlineExceeded, GenerationResult, RequestCancelled
+from .scheduler import (ContinuousBatchingScheduler, DeadlineExceeded,
+                        GenerationResult, RequestCancelled)
 from .spec_decode import SpecDecodeConfig
 
 __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
            "NonFiniteError", "SamplingParams", "BeamParams",
            "BeamHypothesis", "GroupFuture", "GroupResult", "PagedKVCache",
-           "HostKVTier",
-           "paged_attention", "NULL_BLOCK", "KV_QMAX", "DeadlineExceeded",
+           "HostKVTier", "paged_attention", "paged_attention_reference",
+           "gather_block_kv", "NULL_BLOCK", "KV_QMAX",
+           "ContinuousBatchingScheduler", "DeadlineExceeded",
            "GenerationResult", "RequestCancelled", "PrefixCacheIndex",
            "chain_hash", "prompt_chain_keys", "SpecDecodeConfig",
            "Constraint", "CharConstraint", "TokenChoiceConstraint",

@@ -44,6 +44,19 @@ BOUND = 2.0 / COMPRESSION
 QS = (0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 0.999)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs
+    several pytest workers at once, and torch's default of one thread a
+    core in each worker oversubscribes the CPU, where the small eager ops
+    of these tests then wait on each other's threads (six concurrent
+    80-step tiny-BERT runs took 1448 s each at 8 threads, 4 s at one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rank_interval_error(sorted_data, est, q):
     """Distance from q to [frac strictly below est, frac <= est]."""
     lo = np.searchsorted(sorted_data, est, side="left") / len(sorted_data)

@@ -38,6 +38,19 @@ JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs
+    several pytest workers at once, and torch's default of one thread a
+    core in each worker oversubscribes the CPU, where the small eager ops
+    of these tests then wait on each other's threads (six concurrent
+    80-step tiny-BERT runs took 1448 s each at 8 threads, 4 s at one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def make_case(b=3, h=4, hp=4, c=4, d=8, bs=8, m=6, seed=0, poison=False,
               idle_lane=True):
     """numpy operands: pools (1 + b*m, hp, bs, d) f32, shuffled live

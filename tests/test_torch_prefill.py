@@ -54,6 +54,19 @@ P = 8                   # prompt length of the decoding twins
 MAX_LEN = 18
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs
+    several pytest workers at once, and torch's default of one thread a
+    core in each worker oversubscribes the CPU, where the small eager ops
+    of these tests then wait on each other's threads (six concurrent
+    80-step tiny-BERT runs took 1448 s each at 8 threads, 4 s at one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _highest_precision():
     with jax.default_matmul_precision("highest"):

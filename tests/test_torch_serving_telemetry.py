@@ -27,6 +27,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 from paddle_tpu.core import framework
@@ -50,6 +51,19 @@ from paddle_tpu_torch.observability.tracing import (TraceRecorder,
 from paddle_tpu_torch.robustness import ChaosInjector, NonFiniteError
 from paddle_tpu_torch.serving import GenerationServer, GPTServingModel
 from paddle_tpu_torch.serving import NonFiniteError as ServingNonFinite
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs
+    several pytest workers at once, and torch's default of one thread a
+    core in each worker oversubscribes the CPU, where the small eager ops
+    of these tests then wait on each other's threads (six concurrent
+    80-step tiny-BERT runs took 1448 s each at 8 threads, 4 s at one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,19 @@ from paddle_tpu_torch.serving.spec_decode import build_draft_step
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs
+    several pytest workers at once, and torch's default of one thread a
+    core in each worker oversubscribes the CPU, where the small eager ops
+    of these tests then wait on each other's threads (six concurrent
+    80-step tiny-BERT runs took 1448 s each at 8 threads, 4 s at one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _numpy_tree(params):
     return {k: ({kk: np.asarray(vv) for kk, vv in v.items()}
                 if isinstance(v, dict) else np.asarray(v))

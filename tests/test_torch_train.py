@@ -45,6 +45,19 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 CPU = fluid.CPUPlace()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module: the suite runs
+    several pytest workers at once, and torch's default of one thread a
+    core in each worker oversubscribes the CPU, where the small eager ops
+    of these tests then wait on each other's threads (six concurrent
+    80-step tiny-BERT runs took 1448 s each at 8 threads, 4 s at one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _gpt_net(pkg, gpt, cfg, seq_len, lr):
     tokens, loss, logits = gpt.build_lm_net(cfg, seq_len=seq_len)
     pkg.optimizer.AdamOptimizer(lr).minimize(loss)
