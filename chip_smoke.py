@@ -198,6 +198,44 @@ backward kernels are printed):
    2e-4), flash launches a call 10 + 10 + 10 causal, 16 + 16 + 16 not;
    the ring call's ms beside one flash call over the whole T (for
    information).
+18. the in-process fleet: bench.py's fleet traffic at full-width lengths
+   (18 tenant system prompts of 128 tokens, 85 % of 96 requests one of
+   them plus a 1-64 token suffix, the rest private prompts of 32-256
+   tokens, one arriving a router step, 32 new tokens, greedy) through 3
+   GenerationServer replicas behind a FleetRouter (affinity routing),
+   bf16: tokens/s against one server on the same arrivals, in turns,
+   and the fleet's prefix hit rate and blocks a request against a seeded
+   random scatter over the same replicas, with the engine's default
+   pools (every replica can cache every tenant) and with pools of 113
+   blocks (16 lanes of a mean lane's own blocks and two tenants' chains,
+   as bench.py sizes its replicas; the scatter must evict); f32: chaos
+   kills replica 0
+   mid-stream (kill_replica_at) and every request's ids equal one
+   server's;
+18b. disaggregated prefill/decode: one prefill and two decode replicas,
+   dense bf16 and the int8/GQA geometry (int8 weights and KV, blocks
+   moved with their scale rows): blocks handed off and µs a block of the
+   in-process transfer; in f32 the disaggregated fleet's ids equal the
+   colocated fleet's, dense and int8;
+18c. self-healing: a supervised f32 fleet spawned by make_checkpoint_spawn
+   from a full-width checkpoint the port's CheckpointManager wrote (the
+   startup of gpt.build_lm_net(GPTConfig()) on the card); chaos kills
+   one replica, hangs another (the watchdog must declare it hung) and
+   sends a poison prompt (PoisonRequestError through the kernel);
+   every dead slot is resurrected with its prefix re-warmed, the other
+   requests' ids equal one server's, and the time to resurrection is
+   printed;
+18d. the out-of-process fleet: worker processes spawned by
+   make_subprocess_spawn from that checkpoint, each on the card. f32: a
+   SIGKILL of worker 0 mid-stream (kill_process_at) fails over with
+   ids equal to one in-process server's and the slot comes back as a
+   new process; bf16: the fleet traffic through two workers against one
+   in-process server, in turns, and a 512-token prompt's chain handed
+   over the RPC from one worker to the other (µs a block each way; the
+   receiver's blocks are bitwise the donor's bf16 bytes); each worker's
+   paged-kernel launches are read over the RPC just before and just
+   after every run it serves, and each run's must be > 0 and equal its
+   iterations x layers.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -228,7 +266,8 @@ Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
 flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
 the flash-attention backward; the paged entry also counts the launches
-of phases 11-15 in ``launches_by_path``, the flash entries those of
+of phases 11-15 and 18-18d (the workers' own counts among them) in
+``launches_by_path``, the int8 entry those of phases 2b and 18b, the flash entries those of
 phases 16-17, with 16b/16c/17's errors in ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
@@ -237,6 +276,7 @@ unavailable or any phase fails.
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -327,6 +367,28 @@ PACKED_STEPS = 8
 RING_SP = 4                         # phase 17: a local sp mesh on the card
 RING_SHAPE = (1, 12, 8192, 64)
 RING_MASKED = 1000                  # padded keys at the row's tail
+# phases 18-18d: bench.py's fleet traffic (its tenant long tail) at
+# full-width lengths, 16 slots, block 16, chunk 16, context 1024
+FLEET_TENANTS = 18
+FLEET_TENANT_LEN = 128
+FLEET_SHARED = 0.85                 # share of requests behind a tenant
+FLEET_REQUESTS = 96
+FLEET_NEW = 32
+FLEET_REPLICAS = 3
+FLEET_GATE = 24                     # the f32 gates' first requests
+FLEET_GATE_NEW = 16
+FLEET_KILL_AT = 6                   # router iteration of 18's and 18d's kill
+SELF_HEAL_REQUESTS = 12             # 18c's requests beside the poison
+FLEET_CKPT_SEQ = 64                 # the checkpointed Program's seq_len
+FLEET_PROGRAM_SEED = 13
+WIRE_PROMPT = 512                   # 18d: the chain handed over the RPC
+# 18's pressured pools: 16 lanes of a mean lane's own blocks (6: a
+# tenant request's 1-64 token suffix and 32 new tokens, a private
+# prompt's whole chain, 85:15) beside two tenants' 8-block chains and
+# the NULL block, as bench.py sizes its replicas (num_blocks=25) so that
+# one replica cannot cache every tenant
+FLEET_PRESSURE_BLOCKS = 1 + 16 * 6 + 2 * 8
+WORKER_SPAWN_S = 180.0
 # the JAX tests' tolerances at depth (np.allclose, rtol = atol): the
 # output's of test_ring_sp8_8k_tokens, the gradients' of
 # test_ring_sp8_long_sequence_grads
@@ -3307,12 +3369,700 @@ def phase_ring(flash):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phases 18-18d: the serving fleet
+# ---------------------------------------------------------------------------
+
+def fleet_requests(vocab, n=None):
+    """bench.py's fleet traffic at full-width lengths: FLEET_TENANTS
+    tenant system prompts of FLEET_TENANT_LEN tokens; 85 % of requests
+    are one of them plus a 1-64 token suffix, the rest private prompts
+    of 32-256 tokens."""
+    rng = np.random.default_rng(SEED + 18)
+    tenants = [rng.integers(3, vocab, FLEET_TENANT_LEN).astype(np.int32)
+               for _ in range(FLEET_TENANTS)]
+    reqs = []
+    for _ in range(FLEET_REQUESTS if n is None else n):
+        if rng.random() < FLEET_SHARED:
+            t = tenants[int(rng.integers(len(tenants)))]
+            sfx = rng.integers(3, vocab, int(rng.integers(1, 65)))
+            reqs.append(np.concatenate([t, sfx]).astype(np.int32))
+        else:
+            reqs.append(rng.integers(3, vocab, int(rng.integers(32, 257)))
+                        .astype(np.int32))
+    return reqs
+
+
+def fleet_server(model, **kw):
+    """A fleet replica: phase 2's geometry with the prefix cache."""
+    from paddle_tpu_torch.serving import GenerationServer
+    return GenerationServer(model, num_slots=16, block_size=16,
+                            max_context=1024, chunk=CHUNK, start=False,
+                            prefix_cache=True, **kw)
+
+
+def _arrivals(submit, pump, prompts, new_tokens):
+    """The fleet's arrival process (bench.py's): one request submitted,
+    one step of everything; then pump until idle. Returns (futures,
+    wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = []
+    for p in prompts:
+        futs.append(submit(p, new_tokens))
+        pump()
+    while pump():
+        pass
+    torch.cuda.synchronize()
+    return futs, time.perf_counter() - t0
+
+
+def _ids(futs):
+    return [list(f.result(timeout=0).token_ids) for f in futs]
+
+
+def _single_pass(paged, model, prompts, new_tokens):
+    """One server over the fleet traffic: (ids, wall s, launches)."""
+    srv = fleet_server(model)
+    paged.LAUNCHES = 0
+    futs, wall = _arrivals(
+        lambda p, n: srv.submit(p, max_new_tokens=n), srv.step, prompts,
+        new_tokens)
+    launches = paged.LAUNCHES
+    srv.close()
+    return _ids(futs), wall, launches
+
+
+def _fleet_prefix(servers, ctrs, n):
+    """A fleet's prefix hit rate, blocks a request (bench.py's measure)
+    and prefix-cache evictions, over n requests."""
+    h = m = ev = 0
+    for s in servers:
+        if s._prefix is not None:
+            st = s._prefix.stats()
+            h, m, ev = h + st["hits"], m + st["misses"], ev + st["evictions"]
+    return {"hit_rate": h / max(h + m, 1),
+            "blocks_per_request": sum(c["blocks"] for c in ctrs) / n,
+            "evictions": ev}
+
+
+def _router_pass(paged, router, prompts, new_tokens, gate_launches=True):
+    """The router over the fleet traffic: (ids, wall s, launches). Every
+    live replica's step launches the kernel once a layer."""
+    paged.LAUNCHES = 0
+    futs, wall = _arrivals(
+        lambda p, n: router.submit(p, max_new_tokens=n), router.step,
+        prompts, new_tokens)
+    launches = paged.LAUNCHES
+    if gate_launches and not launches > 0:
+        _fail("fleet pass launched no paged kernel")
+    return _ids(futs), wall, launches
+
+
+def _kill_when_busy(router, plan):
+    """A pump for _arrivals that plans replica 0's kill (`plan(at)` arms
+    the chaos hook for router iteration `at`) for the step after the
+    first one, from FLEET_KILL_AT on, at which replica 0 has lanes in
+    flight: the kill must catch requests mid-stream."""
+    state = {"at": None}
+
+    def pump():
+        if state["at"] is None and router.iteration >= FLEET_KILL_AT \
+                and router.replicas()[0].server._sched \
+                .load_snapshot()[1] > 0:
+            state["at"] = router.iteration + 1
+            plan(state["at"])
+        return router.step()
+
+    return pump, state
+
+
+def _counted_fleet(model, n, **kw):
+    servers = [fleet_server(model, **kw) for _ in range(n)]
+    return servers, [_count_allocations(s) for s in servers]
+
+
+def _affinity_pass(paged, model, prompts, **kw):
+    """FLEET_REPLICAS replicas behind a FleetRouter (affinity routing)
+    over the fleet traffic: (prefix measures, wall s, launches)."""
+    from paddle_tpu_torch.serving import FleetRouter
+    servers, ctrs = _counted_fleet(model, FLEET_REPLICAS, **kw)
+    router = FleetRouter(servers, start=False)
+    _ids2, wall, launches = _router_pass(paged, router, prompts, FLEET_NEW)
+    res = _fleet_prefix(servers, ctrs, len(prompts))
+    res.update(admitted=[s._sched.counts["admitted"] for s in servers],
+               iterations=router.iteration)
+    router.close()
+    return res, wall, launches
+
+
+def _random_pass(paged, model, prompts, **kw):
+    """bench.py's baseline, no router: the same replicas, each request
+    sent to one of them by a seeded scatter, every replica stepped once
+    an arrival: (prefix measures and tokens/s, launches)."""
+    servers, ctrs = _counted_fleet(model, FLEET_REPLICAS, **kw)
+    rng = np.random.default_rng(SEED + 180)
+
+    def scatter(p, n):
+        return servers[int(rng.integers(len(servers)))].submit(
+            p, max_new_tokens=n)
+
+    def pump_all():
+        return any([s.step() for s in servers])
+
+    paged.LAUNCHES = 0
+    futs, wall = _arrivals(scatter, pump_all, prompts, FLEET_NEW)
+    launches = paged.LAUNCHES
+    _ids(futs)
+    res = _fleet_prefix(servers, ctrs, len(prompts))
+    res["tokens_per_s"] = len(prompts) * FLEET_NEW / wall
+    for s in servers:
+        s.close()
+    if not launches > 0:
+        _fail("random scatter launched no paged kernel")
+    return res, launches
+
+
+def phase_fleet(paged, cfg, tree):
+    """Phase 18: FLEET_REPLICAS in-process replicas under affinity
+    routing over the fleet traffic (FLEET_REQUESTS requests, one
+    arriving a router step, FLEET_NEW greedy tokens), bf16: tokens/s
+    against one server on the same arrivals, in turns (server, fleet,
+    fleet, server), and the fleet's prefix hit rate and blocks a request
+    against a seeded random scatter over the same replicas (bench.py's
+    baseline: no router), with the engine's default pools (every
+    replica can cache every tenant) and again with FLEET_PRESSURE_BLOCKS
+    blocks a replica (it cannot: the scatter must evict). f32 gate: the first FLEET_GATE requests
+    through a fleet whose replica 0 chaos kills mid-stream (at the first
+    router iteration from FLEET_KILL_AT on at which it has lanes in
+    flight) give one f32 server's ids, with a failover."""
+    from paddle_tpu_torch.robustness import ChaosInjector
+    from paddle_tpu_torch.serving import FleetRouter
+    prompts = fleet_requests(cfg.vocab_size)
+    gen = len(prompts) * FLEET_NEW
+    out = {"launches": {}}
+    model = make_model(cfg, tree, torch.bfloat16)
+    turns = {"single": [], "fleet": []}
+    for turn in ("single", "fleet", "fleet", "single"):
+        if turn == "single":
+            _ids1, wall, launches = _single_pass(paged, model, prompts,
+                                                 FLEET_NEW)
+            turns["single"].append(gen / wall)
+            continue
+        out["affinity"], wall, launches = _affinity_pass(paged, model,
+                                                         prompts)
+        turns["fleet"].append(gen / wall)
+        out["launches"]["18 fleet bf16 affinity (3 replicas)"] = launches
+    out["random"], launches = _random_pass(paged, model, prompts)
+    out["launches"]["18 random scatter bf16 (3 replicas)"] = launches
+    # the same two under pools that cannot cache every tenant
+    press = {"num_blocks": FLEET_PRESSURE_BLOCKS}
+    aff, _wall, launches = _affinity_pass(paged, model, prompts, **press)
+    out["launches"]["18 fleet bf16 affinity, pressured pools"] = launches
+    rnd, launches = _random_pass(paged, model, prompts, **press)
+    out["launches"]["18 random scatter bf16, pressured pools"] = launches
+    out["pressured"] = {"num_blocks": FLEET_PRESSURE_BLOCKS,
+                        "affinity": aff, "random": rnd}
+    if not rnd["evictions"] > 0:
+        _fail(f"18: the pressured pools evicted nothing: {rnd}")
+    out["tokens_per_s"] = turns
+    out["fleet_over_single"] = (sum(turns["fleet"])
+                                / sum(turns["single"]))
+    del model
+    # f32: a replica killed mid-flight
+    model = make_model(cfg, tree)
+    gate = prompts[:FLEET_GATE]
+    want, _w, _l = _single_pass(paged, model, gate, FLEET_GATE_NEW)
+    chaos = ChaosInjector()
+    router = FleetRouter([fleet_server(model) for _ in
+                          range(FLEET_REPLICAS)], start=False, chaos=chaos)
+    pump, when = _kill_when_busy(
+        router, lambda at: chaos.kill_replica_at(at, 0))
+    paged.LAUNCHES = 0
+    futs, _w = _arrivals(
+        lambda p, n: router.submit(p, max_new_tokens=n), pump, gate,
+        FLEET_GATE_NEW)
+    got, launches = _ids(futs), paged.LAUNCHES
+    out["launches"]["18 fleet f32 replica kill"] = launches
+    out["kill"] = {"at_iteration": when["at"],
+                   "fired": chaos.fired["replica_kill"],
+                   "failovers": router.counts["failovers"],
+                   "ids_equal_single": got == want}
+    router.close()
+    print("fleet " + json.dumps(out))
+    if chaos.fired["replica_kill"] != 1 or \
+            not router.counts["failovers"] >= 1:
+        _fail(f"fleet kill: {out['kill']}")
+    if got != want:
+        same = sum(a == b for a, b in zip(got, want))
+        _fail(f"fleet f32 ids after the kill differ from one server's "
+              f"({same}/{len(want)} equal)")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_local_handoffs(router):
+    """Wrap the router's in-process chain transfer to time each call
+    (synchronized): -> the list of (seconds, blocks moved) it fills."""
+    rec = []
+    real = router._transfer_chain_local
+
+    def timed(src, dst, rr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = real(src, dst, rr)
+        torch.cuda.synchronize()
+        rec.append((time.perf_counter() - t0, moved))
+        return moved
+
+    router._transfer_chain_local = timed
+    return rec
+
+
+def phase_disaggregated(paged, cfg, tree, gcfg, gtree):
+    """Phase 18b: one prefill replica and two decode replicas,
+    RouterPolicy("disaggregated"), dense bf16 and int8/GQA (int8 weights
+    and KV: blocks carry their scale rows). The first FLEET_GATE requests
+    of the fleet traffic, FLEET_GATE_NEW new tokens: every request with
+    a full chunk hands its chain off (blocks handed off, µs a block of
+    the in-process transfer); in f32, dense and int8, the disaggregated
+    fleet's ids equal the colocated fleet's."""
+    from paddle_tpu_torch.serving import FleetRouter, RouterPolicy
+    prompts = fleet_requests(cfg.vocab_size)[:FLEET_GATE]
+    policy = RouterPolicy("disaggregated", prefill=(0,), decode=(1, 2))
+    out = {"launches": {}, "launches_int8": {}}
+    for tag, c, t, int8 in (("dense", cfg, tree, False),
+                            ("int8_gqa", gcfg, gtree, True)):
+        kw = {"kv_dtype": "int8"} if int8 else {}
+        row = {}
+        for dtype in (torch.bfloat16, None):
+            model = make_model(c, t, dtype, int8=int8)
+            router = FleetRouter([fleet_server(model, **kw)
+                                  for _ in range(3)], start=False,
+                                 policy=policy)
+            rec = _timed_local_handoffs(router)
+            ids, wall, launches = _router_pass(paged, router, prompts,
+                                               FLEET_GATE_NEW)
+            blocks = sum(m for _s, m in rec)
+            secs = sum(s for s, _m in rec)
+            name = "bf16" if dtype is not None else "f32"
+            row[name] = {"handoffs": router.counts["handoffs"],
+                         "handoff_blocks": router.counts["handoff_blocks"],
+                         "us_per_block": secs / max(blocks, 1) * 1e6,
+                         "tokens_per_s": len(prompts) * FLEET_GATE_NEW
+                         / wall}
+            key = "launches_int8" if int8 else "launches"
+            out[key][f"18b disaggregated {tag} {name}"] = launches
+            router.close()
+            if not router.counts["handoff_blocks"] > 0 or blocks != \
+                    router.counts["handoff_blocks"]:
+                _fail(f"18b {tag} {name}: {row[name]}, timed {blocks}")
+            if dtype is None:
+                colo = FleetRouter([fleet_server(model, **kw)
+                                    for _ in range(3)], start=False)
+                want, _w, _l = _router_pass(paged, colo, prompts,
+                                            FLEET_GATE_NEW)
+                colo.close()
+                row["f32_ids_equal_colocated"] = ids == want
+                if ids != want:
+                    same = sum(a == b for a, b in zip(ids, want))
+                    _fail(f"18b {tag}: f32 disaggregated ids differ from "
+                          f"the colocated fleet's ({same}/{len(want)})")
+            del model
+            torch.cuda.empty_cache()
+        out[tag] = row
+        print(f"disaggregated {tag} " + json.dumps(row))
+    return out
+
+
+def fleet_checkpoint(root):
+    """GPTConfig()'s Program (gpt.build_lm_net at FLEET_CKPT_SEQ), its
+    startup run on the card, committed by the port's CheckpointManager
+    under `root`: the artifact phases 18c and 18d spawn replicas from.
+    Returns (cfg, seconds to save)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import framework
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.robustness import CheckpointManager
+    cfg = gpt.GPTConfig(dropout=0.0)
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = FLEET_PROGRAM_SEED
+    with framework.program_guard(main, startup):
+        gpt.build_lm_net(cfg, seq_len=FLEET_CKPT_SEQ)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    t0 = time.perf_counter()
+    CheckpointManager(root, program=main).save(exe, 0, scope=scope)
+    return cfg, main, time.perf_counter() - t0
+
+
+def phase_self_healing(paged, root, flight, cfg, main):
+    """Phase 18c: a supervised f32 fleet of FLEET_REPLICAS replicas built
+    by make_checkpoint_spawn from the port's full-width checkpoint; chaos kills
+    replica 0 at router iteration 3, hangs replica 1 at 7, and a poison
+    prompt arrives mid-stream. The watchdog declares the hang, the
+    supervisor resurrects every dead slot from the checkpoint with its
+    prefix re-warmed, the poison ends in PoisonRequestError (its NaN
+    through the kernel), the fleet ends at full strength, and every
+    other request's ids equal one server's from the same checkpoint.
+    Prints the time to resurrection: each spawn's restore and build,
+    and the wall from the kill to replica 0 serving again. Flight dumps
+    go under `flight`."""
+    from paddle_tpu_torch.robustness import (ChaosInjector,
+                                             CheckpointManager,
+                                             PoisonRequestError,
+                                             SupervisorConfig,
+                                             make_checkpoint_spawn)
+    from paddle_tpu_torch.serving import FleetRouter
+    kw = dict(num_slots=16, block_size=16, max_context=1024, chunk=CHUNK,
+              start=False, prefix_cache=True)
+    manager = CheckpointManager(root, program=main)
+    prompts = fleet_requests(cfg.vocab_size)[:SELF_HEAL_REQUESTS]
+    rng = np.random.default_rng(SEED + 183)
+    poison = rng.integers(3, cfg.vocab_size, 40).astype(np.int32)
+    ref = make_checkpoint_spawn(manager, cfg, **kw)(0)
+    futs = [ref.submit(p, max_new_tokens=FLEET_GATE_NEW) for p in prompts]
+    ref.run_until_idle()
+    want = _ids(futs)
+    ref.close()
+    del ref
+    chaos = (ChaosInjector().kill_replica_at(3, 0).hang_replica_at(7, 1)
+             .poison_prompt(poison))
+    build = make_checkpoint_spawn(manager, cfg, chaos=chaos,
+                                  flight_dir=flight, **kw)
+    spawns = []
+
+    def spawn(index):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = build(index)
+        torch.cuda.synchronize()
+        spawns.append(time.perf_counter() - t0)
+        return srv
+
+    router = FleetRouter([spawn(i) for i in range(FLEET_REPLICAS)],
+                         start=False, chaos=chaos, spawn_fn=spawn,
+                         flight_dir=flight,
+                         supervisor=SupervisorConfig(
+                             hang_heartbeats=3, backoff_heartbeats=2,
+                             warm_chains=3))
+    boot = list(spawns)
+    spawns.clear()
+    paged.LAUNCHES = 0
+    futs, t_kill, t_back = [], None, None
+    for i, p in enumerate(prompts):
+        futs.append(router.submit(p, max_new_tokens=FLEET_GATE_NEW))
+        if i == 4:
+            pfut = router.submit(poison, max_new_tokens=FLEET_GATE_NEW)
+        router.step()
+        if t_kill is None and chaos.fired["replica_kill"]:
+            t_kill = time.perf_counter()
+        r0 = router.replicas()[0]
+        if t_kill is not None and t_back is None and r0.generation >= 1 \
+                and r0.accepting():
+            t_back = time.perf_counter()
+    while router.step():
+        r0 = router.replicas()[0]
+        if t_kill is not None and t_back is None and r0.generation >= 1 \
+                and r0.accepting():
+            t_back = time.perf_counter()
+    launches = paged.LAUNCHES
+    st = router.get_stats()
+    got = _ids(futs)
+    try:
+        pfut.result(timeout=0)
+        poisoned = None
+    except PoisonRequestError as e:
+        poisoned = e
+    out = {"boot_spawn_s": boot, "resurrection_spawn_s": list(spawns),
+           "kill_to_serving_s": (None if t_back is None
+                                 else t_back - t_kill),
+           "fired": {k: chaos.fired[k] for k in
+                     ("replica_kill", "replica_hang", "prompt_poison")},
+           "hangs": st["hangs"], "resurrections": st["resurrections"],
+           "quarantines": st["quarantines"],
+           "live_replicas": st["live_replicas"],
+           "warm_prompts": st["supervisor"]["warm_prompts"],
+           "poison_deaths": None if poisoned is None else poisoned.deaths,
+           "launches": launches, "ids_equal_single": got == want}
+    router.close()
+    print("self-healing " + json.dumps(out))
+    if poisoned is None:
+        _fail("18c: the poison prompt was not quarantined")
+    if not (out["fired"]["replica_kill"] == 1 and st["hangs"] == 1
+            and st["quarantines"] == 1
+            and st["live_replicas"] == FLEET_REPLICAS
+            and st["resurrections"] >= 2 and out["warm_prompts"] >= 1
+            and t_back is not None and launches > 0):
+        _fail(f"18c: {out}")
+    if got != want:
+        same = sum(a == b for a, b in zip(got, want))
+        _fail(f"18c f32 ids differ from one server's ({same}/{len(want)})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spawn_workers(spawn, n):
+    """n workers booted side by side: -> (proxies, seconds)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(n) as pool:
+        ws = list(pool.map(spawn, range(n)))
+    return ws, time.perf_counter() - t0
+
+
+def _worker_counts(w):
+    """A worker's paged-kernel launches and engine iterations so far:
+    process totals read over the RPC, so a run's own are the difference
+    of two reads around it."""
+    st = w.get_stats()
+    return st["kernel"]["launches"], st["iterations"]
+
+
+def _worker_run(before, after, layers):
+    """One worker's own run between two _worker_counts reads: its
+    launches and iterations, and whether every iteration launched the
+    kernel once a layer."""
+    launches, iters = after[0] - before[0], after[1] - before[1]
+    return {"launches": launches, "iterations": iters,
+            "ok": launches > 0 and launches == iters * layers}
+
+
+def phase_workers(paged, root, flight, cfg, main):
+    """Phase 18d: two worker processes a fleet (make_subprocess_spawn,
+    each on the card, restoring phase 18c's checkpoint). f32: a SIGKILL
+    of worker 0 mid-stream (kill_process_at, planned as in phase 18)
+    fails its requests over; the first FLEET_GATE requests' ids equal
+    one in-process f32 server's from the same checkpoint, and the slot
+    comes back as a new process. bf16: the fleet traffic through the two
+    workers against one in-process server, in turns (tokens/s); a
+    512-token prompt's chain handed from worker 0 to worker 1 over the
+    RPC (export_chain / import_chain: µs a block over the wire), and
+    the blocks the receiver holds, exported again, are bitwise the
+    donor's bf16 bytes. Each worker's paged launches are read over the
+    RPC just before and just after each run it serves (f32 worker 0 up
+    to its SIGKILL, its successor from its spawn, worker 1; each bf16
+    turn; the wire prefill): every run's must be > 0 and equal its
+    iterations x layers. Flight dumps go under `flight`."""
+    from paddle_tpu_torch.robustness import (ChaosInjector,
+                                             CheckpointManager,
+                                             SupervisorConfig,
+                                             make_checkpoint_spawn)
+    from paddle_tpu_torch.serving import FleetRouter, prompt_chain_keys
+    from paddle_tpu_torch.serving.remote import make_subprocess_spawn
+    kw = dict(num_slots=16, block_size=16, max_context=1024, chunk=CHUNK,
+              start=False, prefix_cache=True)
+    manager = CheckpointManager(root, program=main)
+    prompts = fleet_requests(cfg.vocab_size)
+    gate = prompts[:FLEET_GATE]
+    out = {"launches": {}}
+    runs = {}
+    layers = cfg.num_layers
+    common = dict(seq_len=FLEET_CKPT_SEQ, program_seed=FLEET_PROGRAM_SEED,
+                  flight_dir=flight, spawn_timeout_s=WORKER_SPAWN_S,
+                  **kw)
+    chaos = ChaosInjector()
+    spawn32 = make_subprocess_spawn(root, cfg, chaos=chaos, **common)
+    spawn16 = make_subprocess_spawn(root, cfg, dtype="bfloat16", **common)
+    ws, boot_s = _spawn_workers(
+        lambda i: (spawn32 if i < 2 else spawn16)(i), 4)
+    w32, w16 = ws[:2], ws[2:]
+    out["boot_4_workers_s"] = boot_s
+    out["worker_devices"] = [w.get_stats()["device"] for w in ws]
+    # f32: SIGKILL of worker 0 mid-flight
+    ref = make_checkpoint_spawn(manager, cfg, **kw)(0)
+    futs = [ref.submit(p, max_new_tokens=FLEET_GATE_NEW) for p in gate]
+    ref.run_until_idle()
+    want = _ids(futs)
+    ref.close()
+    del ref
+    respawns = []
+
+    born = {}
+
+    def respawn(index):
+        t0 = time.perf_counter()
+        w = spawn32(index)
+        respawns.append(time.perf_counter() - t0)
+        born[w.pid] = _worker_counts(w)
+        return w
+
+    pid0 = w32[0].pid
+    before = [_worker_counts(w) for w in w32]
+    router = FleetRouter(w32, start=False, chaos=chaos, spawn_fn=respawn,
+                         flight_dir=flight,
+                         supervisor=SupervisorConfig(backoff_heartbeats=1,
+                                                     warm_chains=1))
+
+    def plan(at):
+        runs["18d worker f32 w0, up to its SIGKILL"] = _worker_run(
+            before[0], _worker_counts(w32[0]), layers)
+        chaos.kill_process_at(at, 0)
+
+    pump, when = _kill_when_busy(router, plan)
+    futs, _w = _arrivals(
+        lambda p, n: router.submit(p, max_new_tokens=n), pump, gate,
+        FLEET_GATE_NEW)
+    got = _ids(futs)
+    reps = router.replicas()
+    out["kill"] = {"at_iteration": when["at"],
+                   "fired": chaos.fired["process_kill"],
+                   "failovers": router.counts["failovers"],
+                   "resurrections": router.counts["resurrections"],
+                   "new_pid": reps[0].pid != pid0,
+                   "respawn_s": respawns,
+                   "ids_equal_single": got == want}
+    w0 = reps[0].server
+    runs["18d worker f32 w0 resurrected, re-warm and serving"] = \
+        _worker_run(born.get(w0.pid, (0, 0)), _worker_counts(w0), layers)
+    runs["18d worker f32 w1"] = _worker_run(
+        before[1], _worker_counts(reps[1].server), layers)
+    router.close()
+    if not (chaos.fired["process_kill"] == 1 and
+            router.counts["failovers"] >= 1 and out["kill"]["new_pid"]):
+        _fail(f"18d SIGKILL: {out['kill']}")
+    if got != want:
+        same = sum(a == b for a, b in zip(got, want))
+        _fail(f"18d f32 ids after the SIGKILL differ from one server's "
+              f"({same}/{len(want)} equal)")
+    # bf16: two workers against one in-process server, in turns
+    model = _checkpoint_model(manager, cfg, torch.bfloat16)
+    gen = len(prompts) * FLEET_NEW
+    turns = {"single": [], "workers": []}
+    router = FleetRouter(w16, start=False)
+    for turn in ("single", "workers", "workers", "single"):
+        if turn == "single":
+            _ids1, wall, _l = _single_pass(paged, model, prompts, FLEET_NEW)
+            turns["single"].append(gen / wall)
+        else:
+            before = [_worker_counts(w) for w in w16]
+            _ids2, wall, _l = _router_pass(paged, router, prompts,
+                                           FLEET_NEW, gate_launches=False)
+            turns["workers"].append(gen / wall)
+            for i, w in enumerate(w16):
+                runs[f"18d worker bf16 w{i}, turn {len(turns['workers'])}"] \
+                    = _worker_run(before[i], _worker_counts(w), layers)
+    out["tokens_per_s"] = turns
+    out["workers_over_single"] = (sum(turns["workers"])
+                                  / sum(turns["single"]))
+    # a chain over the wire: worker 0 prefills, worker 1 adopts
+    long = np.random.default_rng(SEED + 184).integers(
+        3, cfg.vocab_size, WIRE_PROMPT).astype(np.int32)
+    before = _worker_counts(w16[0])
+    f = w16[0].submit(long, max_new_tokens=1)
+    w16[0].run_until_idle()
+    f.result(timeout=60)
+    runs["18d worker bf16 w0, wire prefill"] = _worker_run(
+        before, _worker_counts(w16[0]), layers)
+    keys = prompt_chain_keys(long, 16)
+    t0 = time.perf_counter()
+    chunks, arrays = w16[0].export_chain(long, keys)
+    t1 = time.perf_counter()
+    moved = w16[1].import_chain(chunks, arrays)
+    t2 = time.perf_counter()
+    back, arrays2 = w16[1].export_chain(long, keys)
+    same = (len(back) == len(chunks) == moved == len(keys)
+            and len(arrays2) == len(arrays)
+            and all(a.dtype == torch.bfloat16 for a in arrays)
+            and all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                    for a, b in zip(arrays, arrays2)))
+    out["wire"] = {"blocks": moved, "bytes": sum(
+        a.numel() * a.element_size() for a in arrays),
+        "export_us_per_block": (t1 - t0) / max(moved, 1) * 1e6,
+        "import_us_per_block": (t2 - t1) / max(moved, 1) * 1e6,
+        "bf16_bytes_equal_donor": same,
+        "in_process_us_per_block": _wire_breakdown(model, long, keys)}
+    router.close()
+    out["worker_runs"] = runs
+    out["launches"] = {k: r["launches"] for k, r in runs.items()}
+    print("workers " + json.dumps(out))
+    if not same:
+        _fail(f"18d: the wire handoff's blocks differ from the donor's: "
+              f"{out['wire']}")
+    bad = {k: r for k, r in runs.items() if not r["ok"]}
+    if bad:
+        _fail(f"18d: worker runs whose paged launches are not > 0 and "
+              f"iterations x {layers} layers: {bad}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wire_breakdown(model, prompt, keys):
+    """Where a wire handoff's time goes, in this process: the same chain
+    exported from a server on the card (its device-to-host copies),
+    framed, read back and written into another server's pools, each µs a
+    block."""
+    import io
+    from paddle_tpu_torch.serving.transport import pack_frame, read_frame
+    from paddle_tpu_torch.serving.worker import export_chain, import_chain
+    src, dst = fleet_server(model), fleet_server(model)
+    f = src.submit(prompt, max_new_tokens=1)
+    src.run_until_idle()
+    f.result(timeout=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks, arrays = export_chain(src, prompt, keys)
+    t1 = time.perf_counter()
+    frame = pack_frame({"chunks": chunks}, arrays)
+    t2 = time.perf_counter()
+    header, blobs = read_frame(io.BytesIO(frame))
+    t3 = time.perf_counter()
+    moved = import_chain(dst, header["chunks"], blobs)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    n = max(moved, 1)
+    src.close()
+    dst.close()
+    return {"export_chain": (t1 - t0) / n * 1e6,
+            "pack_frame": (t2 - t1) / n * 1e6,
+            "read_frame": (t3 - t2) / n * 1e6,
+            "import_chain": (t4 - t3) / n * 1e6, "blocks": moved}
+
+
+def _checkpoint_model(manager, cfg, dtype):
+    """A serving model on the card from the checkpoint's parameters."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import GPTServingModel
+    scope = fluid.Scope()
+    manager.restore(fluid.Executor(fluid.CUDAPlace(0)), scope=scope,
+                    restore_step_counter=False)
+    return GPTServingModel(gpt.load_params(scope, cfg), cfg, dtype=dtype)
+
+
+def phase_fleet_all(paged, cfg, tree, gcfg, gtree):
+    """Phases 18-18d in order, the checkpoint of 18c/18d written once
+    and their flight dumps, all in a temporary directory removed at the
+    end."""
+    import shutil
+    import tempfile
+    res = {"18": _phase("18 in-process fleet", phase_fleet, paged, cfg,
+                        tree)}
+    res["18b"] = _phase("18b disaggregated prefill/decode",
+                        phase_disaggregated, paged, cfg, tree, gcfg, gtree)
+    base = tempfile.mkdtemp(prefix="fleet_")
+    root, flight = os.path.join(base, "ckpt"), os.path.join(base, "flight")
+    try:
+        os.makedirs(root)
+        os.makedirs(flight)
+        ccfg, main, save_s = fleet_checkpoint(root)
+        print(f"fleet checkpoint: GPTConfig() f32 saved in {save_s:.2f} s")
+        res["18c"] = _phase("18c self-healing", phase_self_healing, paged,
+                            root, flight, ccfg, main)
+        res["18d"] = _phase("18d out-of-process fleet", phase_workers,
+                            paged, root, flight, ccfg, main)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return res
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
     commit, for a comparison inside one call): builds its flash libraries
     and prints the phase's rows, then the card line."""
-    import os
     sys.path.insert(0, os.path.abspath(root))
     from paddle_tpu_torch.ops.cuda import flash
     if not flash.__file__.startswith(os.path.abspath(root)):
@@ -3332,7 +4082,6 @@ def paged_of(root):
     failed) and phase 4's times on the paged kernel of the package under
     `root` (a checkout of another commit, for a comparison inside one
     call), then the card line."""
-    import os
     sys.path.insert(0, os.path.abspath(root))
     from paddle_tpu_torch.ops.cuda import paged
     if not paged.__file__.startswith(os.path.abspath(root)):
@@ -3471,6 +4220,7 @@ def main():
         "16c packed pretrain", phase_packed, flash)
     ring_launches, ring_errs = _phase("17 ring attention", phase_ring,
                                       flash)
+    fleet = phase_fleet_all(paged, cfg, tree, gcfg, gtree)
     path_errs = {**perrs, **serrs, **derrs, **terrs}
     by_path = {
         "2 serve": launches,
@@ -3479,7 +4229,11 @@ def main():
             spec["small_draft_f32"]["target_launches"],
         "12 spec draft D 32 (f32)":
             spec["small_draft_f32"]["draft_launches"],
-        **dlaunches, **tlaunches, **plaunches}
+        **dlaunches, **tlaunches, **plaunches,
+        **fleet["18"]["launches"], **fleet["18b"]["launches"],
+        "18c self-healing f32 (3 replicas + resurrections)":
+            fleet["18c"]["launches"],
+        **fleet["18d"]["launches"]}
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
     kernels = [
@@ -3541,6 +4295,8 @@ def main():
             source="paddle_tpu_torch/csrc/flash_attention_bwd.cu"),
     ]
     kernels[0]["launches_by_path"] = by_path
+    kernels[1]["launches_by_path"] = {"2b serve int8": launches8,
+                                      **fleet["18b"]["launches_int8"]}
     kernels[0]["path_errs"] = path_errs
     # the flash kernels' paths: (fwd, dQ, dK/dV, bf16 fwd) launches of
     # each run, counted from 0 just before it

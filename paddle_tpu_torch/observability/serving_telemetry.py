@@ -2,8 +2,8 @@
 per-tenant ledger and the fault flight recorder.
 
 Counterpart of ``paddle_tpu/observability/serving_telemetry.py``, kept
-as the port's own copy (the fleet's tenant aggregation waits for the
-fleet). The serving engine's unit of work is a request that lives
+as the port's own copy (with the fleet's tenant aggregation,
+``aggregate_tenant_snapshots``). The serving engine's unit of work is a request that lives
 across many fused-step iterations; this is the layer the engine and
 scheduler call into:
 
@@ -352,6 +352,8 @@ class SLOTracker:
         self._win_tokens = 0
         self._cum_tokens = 0
         self._last_window = None
+        self._last_win_sketches = None      # the previous window's raw
+        #                                     digests (window_digest())
         self._recent = collections.deque(
             maxlen=max(1, int(recent_windows if recent_windows
                               is not None else self.RECENT_WINDOWS)))
@@ -397,6 +399,44 @@ class SLOTracker:
         with self._lock:
             return QuantileSketch.from_dict(self._cum[metric].to_dict())
 
+    def window_digest(self, metric):
+        """A COPY of the last-completed-window sketch merged with the
+        live window for `metric` — the rolling ~2-window view the
+        fleet's burn-rate SERIES is computed from. Unlike the
+        cumulative digest (which never forgets a storm), this one
+        decays within two window lengths of recovery, so an alert on
+        it can actually resolve."""
+        with self._lock:
+            d = QuantileSketch.from_dict(self._win[metric].to_dict())
+            last = self._last_win_sketches
+            if last is not None and last[metric].count:
+                d.merge(QuantileSketch.from_dict(
+                    last[metric].to_dict()))
+            return d
+
+    def window_frac_over(self, metric, target):
+        """(fraction of rolling-window samples ABOVE target, sample
+        count) over the same ~2-window view as window_digest, but
+        with NO sketch copies or merges — rank() reads the sketches
+        in place. This is the router's per-heartbeat burn-rate feed,
+        where a copy and merge a heartbeat would be a per-step tax.
+        Returns (None, 0) when the window
+        holds no samples. Cross-sketch combination is exact: rank is
+        a fraction of mass, so the union's rank is the count-weighted
+        mean of member ranks."""
+        with self._lock:
+            live = self._win[metric]
+            last = (self._last_win_sketches[metric]
+                    if self._last_win_sketches is not None else None)
+            n = live.count + (last.count if last is not None else 0)
+            if not n:
+                return None, 0
+            over = 0.0
+            for sk in (live, last):
+                if sk is not None and sk.count:
+                    over += (1.0 - sk.rank(float(target))) * sk.count
+            return over / n, n
+
     def maybe_roll(self):
         """Close the window if window_s elapsed; publish its quantile
         gauges. Returns True when a window completed."""
@@ -428,6 +468,11 @@ class SLOTracker:
             self._g_tps.labels(**self.labels).set(round(tps, 3))
             self._last_window = summary
             self._recent.append(summary)
+            # keep the closed window's raw sketches (not just the
+            # summary): window_digest() merges them with the live
+            # window so windowed burn rates never go blind at a
+            # window boundary
+            self._last_win_sketches = self._win
             self._win = {m: QuantileSketch(self._compression)
                          for m in SLO_METRICS}
             self._win_tokens = 0
@@ -524,9 +569,8 @@ class TenantLedger:
     costs they incur are attributed, using data that already exists on
     the request path: prefill/decode tokens, KV block-residency in
     block·iterations (blocks held x engine iterations held) and queue
-    wait. The handoff_bytes, sheds and failovers fields keep the JAX
-    ledger's schema; the fleet router that counts them waits for the
-    fleet. ``get_stats()["tenants"]`` and the ``/tenants`` endpoint
+    wait; the fleet router adds handoff_bytes, sheds and failovers
+    (``count``). ``get_stats()["tenants"]`` and the ``/tenants`` endpoint
     serve the snapshot.
 
     Cardinality is bounded the exporter's way: beyond ``max_tenants``
@@ -561,6 +605,8 @@ class TenantLedger:
         self._m_blocks = reg.counter(
             "serving.tenant.block_iterations",
             _help("serving.tenant.block_iterations"))
+        self._m_sheds = reg.counter(
+            "serving.tenant.sheds", _help("serving.tenant.sheds"))
 
     def _key_locked(self, tenant):
         key = self.ANON if tenant is None else str(tenant)
@@ -604,6 +650,26 @@ class TenantLedger:
             key = self._key_locked(tenant)
             self._slo[key][metric].add(float(value_ms))
 
+    def count(self, tenant, kind, n=1):
+        """Router-side cost events: sheds / failovers /
+        handoff_bytes."""
+        with self._lock:
+            key = self._key_locked(tenant)
+            self._t[key][kind] += n
+        if kind == "sheds":
+            self._m_sheds.labels(tenant=key).inc(n)
+            self._m_sheds.inc(n)
+
+    # -- read side ----------------------------------------------------------
+    def digest(self, tenant, metric):
+        """Mergeable COPY of one tenant digest (fleet aggregation)."""
+        with self._lock:
+            key = self.ANON if tenant is None else str(tenant)
+            sk = self._slo.get(key)
+            if sk is None:
+                return QuantileSketch(self._compression)
+            return QuantileSketch.from_dict(sk[metric].to_dict())
+
     def snapshot(self):
         with self._lock:
             tenants = {}
@@ -618,6 +684,47 @@ class TenantLedger:
             return {"max_tenants": self._max,
                     "collapsed": self.collapsed,
                     "tenants": tenants}
+
+
+def aggregate_tenant_snapshots(snapshots):
+    """Sum N TenantLedger.snapshot() payloads into one fleet view:
+    scalar costs add; per-tenant SLO summary fields merge
+    conservatively (count sums, min takes min, max/avg/quantiles take
+    the worst replica — the honest cross-replica read without the raw
+    sketches). The router's /tenants endpoint layers its own
+    router-side costs (sheds/failovers/handoff_bytes) on top."""
+    out = {"max_tenants": 0, "collapsed": 0, "tenants": {}}
+    for snap in snapshots:
+        if not snap:
+            continue
+        out["max_tenants"] = max(out["max_tenants"],
+                                 snap.get("max_tenants", 0))
+        out["collapsed"] += snap.get("collapsed", 0)
+        for key, entry in snap.get("tenants", {}).items():
+            agg = out["tenants"].setdefault(
+                key, {"requests": 0, "prefill_tokens": 0,
+                      "decode_tokens": 0, "block_iterations": 0,
+                      "queue_wait_ms": 0.0, "handoff_bytes": 0,
+                      "sheds": 0, "failovers": 0, "slo": {}})
+            for k, v in entry.items():
+                if k != "slo":
+                    agg[k] = round(agg.get(k, 0) + v, 3)
+                    continue
+                for m, s in v.items():
+                    cur = agg["slo"].setdefault(m, {})
+                    for f, fv in s.items():
+                        if fv is None:
+                            continue
+                        old = cur.get(f)
+                        if old is None:
+                            cur[f] = fv
+                        elif f == "count":
+                            cur[f] = round(old + fv, 6)
+                        elif f == "min":
+                            cur[f] = min(old, fv)
+                        else:
+                            cur[f] = max(old, fv)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -691,6 +798,13 @@ class ServingTelemetry:
                                      _help("serving.requests_traced"))
         self._m_faults = reg.counter("serving.faults",
                                      _help("serving.faults"))
+
+    def set_recorder(self, recorder):
+        """Re-point span-tree emission at a dedicated recorder (the
+        fleet router gives every replica its own, so the merged
+        Perfetto dump renders per-replica process groups,
+        observability/fleet_trace.py)."""
+        self._rec = recorder
 
     # -- sampling ----------------------------------------------------------
     def sampled(self, rid):

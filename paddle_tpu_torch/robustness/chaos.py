@@ -9,9 +9,11 @@ before the fused step (the non-finite guard must trip on real attention
 arithmetic), forced prefix-cache evictions and host-tier spills, a named
 request parked in the host tier, forced copy-on-write bursts on fork
 groups, starved guided masks, forced content-hash collisions, and a
-standing poison keyed to a prompt's bytes. The fleet's replica,
-process and connection faults and the trainer's and checkpoint writer's
-faults have no counterpart here yet.
+standing poison keyed to a prompt's bytes. The fleet's hooks fire at an
+exact router iteration (a replica killed, hung or slowed; a worker
+process SIGKILLed) or RPC ordinal (a dropped or timed-out connection).
+The trainer's and checkpoint writer's faults have no counterpart here
+yet.
 """
 
 import numpy as np
@@ -22,7 +24,9 @@ __all__ = ["ChaosInjector"]
 class ChaosInjector:
     """One injector instance = one fault plan, consumed by a
     GenerationServer (`chaos=`): its scheduler's plan() and its engine's
-    step() pop the entries keyed to their iteration. `fired` counts the
+    step() pop the entries keyed to their iteration; a FleetRouter
+    (`chaos=`) pops the fleet entries keyed to its own iteration, and an
+    RpcClient built with it the connection faults keyed to its calls. `fired` counts the
     faults actually applied."""
 
     def __init__(self):
@@ -30,7 +34,9 @@ class ChaosInjector:
                       "serving_poison": 0, "evict": 0,
                       "hash_collision": 0, "prompt_poison": 0,
                       "spill": 0, "preempt": 0, "fork_storm": 0,
-                      "mask_starve": 0}
+                      "mask_starve": 0, "replica_kill": 0,
+                      "replica_hang": 0, "replica_slow": 0,
+                      "process_kill": 0, "conn_drop": 0}
         # serving-engine plan: iteration -> actions (scheduler hooks)
         self._serving_cancels = {}   # iteration -> [active-request index]
         self._serving_poisons = {}   # iteration -> KV layer to NaN
@@ -45,6 +51,14 @@ class ChaosInjector:
         self._collide_hashes = set()  # 1-based content-hash ordinals
         self._hash_count = 0
         self._prompt_poisons = []    # (np.int32 prompt, kv layer)
+        # fleet plan (serving/router.py hooks)
+        self._replica_kills = {}     # router iteration -> [replica idx]
+        self._replica_hangs = {}     # router iteration -> [replica idx]
+        self._replica_slow = {}      # replica idx -> ms per iteration
+        self._slow_counted = set()   # replicas whose slow plan fired
+        # out-of-process fleet plan (serving/router.py + transport.py)
+        self._process_kills = {}     # router iteration -> [replica idx]
+        self._conn_drops = {}        # 1-based rpc ordinal -> fault kind
         # fork-group plan (serving/scheduler.py + engine.py)
         self._fork_storms = {}       # iteration -> lanes to force-COW
         self._mask_starves = set()   # iterations to starve guided masks
@@ -256,6 +270,119 @@ class ChaosInjector:
             self.fired["hash_collision"] += 1
             return True
         return False
+
+    # -- fleet hooks (serving/router.py) -------------------------------
+    def kill_replica_at(self, iteration, replica):
+        """Kill fleet replica index `replica` at the START of router
+        iteration `iteration` (1-based, the FleetRouter's own counter —
+        a router iteration only counts when the fleet has work, so the
+        plan is an exact point in the stream, never a wall-clock
+        race). The kill is the real death path: the engine closes
+        without drain, every in-flight future fails, and the router's
+        failover re-admits them on survivors — mirroring
+        poison_serving_at/evict_block_at, no sleeps anywhere."""
+        self._replica_kills.setdefault(int(iteration), []).append(
+            int(replica))
+        return self
+
+    def replica_kills_at(self, iteration):
+        """-> replica indices to kill at this router iteration.
+        Consumed by FleetRouter.step(); `fired["replica_kill"]` counts
+        via replica_kill_applied only when a LIVE replica was actually
+        torn down (a plan naming an already-dead replica is a no-op)."""
+        return self._replica_kills.pop(int(iteration), [])
+
+    def replica_kill_applied(self):
+        self.fired["replica_kill"] += 1
+
+    def hang_replica_at(self, iteration, replica):
+        """Make fleet replica index `replica` HANG from the start of
+        router iteration `iteration` (1-based): the router stops
+        pumping its engine, so the replica stalls — queue and slots
+        frozen mid-stream — WITHOUT dying. Nothing fails a future, so
+        failover never triggers; only the supervisor's watchdog (stale
+        progress marks across N heartbeats) can catch it. The hang is
+        standing: it ends when the watchdog declares the replica hung
+        and tears it down."""
+        self._replica_hangs.setdefault(int(iteration), []).append(
+            int(replica))
+        return self
+
+    def replica_hangs_at(self, iteration):
+        """-> replica indices that begin hanging at this router
+        iteration. Consumed by FleetRouter.step();
+        `fired["replica_hang"]` counts via replica_hang_applied only
+        when a LIVE replica actually started stalling."""
+        return self._replica_hangs.pop(int(iteration), [])
+
+    def replica_hang_applied(self):
+        self.fired["replica_hang"] += 1
+
+    def kill_process_at(self, iteration, replica):
+        """SIGKILL the subprocess behind fleet replica index `replica`
+        at the START of router iteration `iteration` (1-based, same
+        counter as kill_replica_at). Unlike kill_replica_at — which
+        closes an in-process engine through its own close path — this
+        is a REAL `os.kill(pid, SIGKILL)`: the worker gets no chance
+        to flush, the parent only learns of the death when the next
+        RPC fails, and the whole dead-replica pipeline (failover,
+        supervisor resurrection) must hold against an actual process
+        corpse. `fired["process_kill"]` counts via
+        process_kill_applied only when a live worker pid was
+        actually signalled."""
+        self._process_kills.setdefault(int(iteration), []).append(
+            int(replica))
+        return self
+
+    def process_kills_at(self, iteration):
+        """-> replica indices whose worker process to SIGKILL at this
+        router iteration. Consumed by FleetRouter.step()."""
+        return self._process_kills.pop(int(iteration), [])
+
+    def process_kill_applied(self):
+        self.fired["process_kill"] += 1
+
+    def drop_connection_at(self, nth, kind="reset"):
+        """Inject exactly one transport fault on the `nth` RPC call
+        (1-based, counted per RpcClient) of any client built with this
+        injector. kind="reset" drops the connection before the send —
+        the client's bounded-backoff retry path must recover; kind=
+        "timeout" makes the call time out — the proxy's hung-suspect
+        classification path must engage. Deterministic (keyed to the
+        call ordinal, no sleeps needed to hit the window)."""
+        if kind not in ("reset", "timeout"):
+            raise ValueError(
+                f"drop_connection_at kind must be 'reset' or "
+                f"'timeout', got {kind!r}")
+        self._conn_drops[int(nth)] = kind
+        return self
+
+    def conn_drop_for(self, ncall):
+        """-> the fault kind planned for this rpc ordinal, or None.
+        Consumed by transport.RpcClient; counts fired["conn_drop"]
+        when a fault is actually injected."""
+        kind = self._conn_drops.pop(int(ncall), None)
+        if kind is not None:
+            self.fired["conn_drop"] += 1
+        return kind
+
+    def slow_replica(self, replica, ms_per_iteration):
+        """Standing plan: every pump of fleet replica index `replica`
+        reports an extra `ms_per_iteration` of step time to the
+        router's per-replica timing (the watchdog's slow-classification
+        input). The replica still advances — progress marks move — so
+        the watchdog must label it `slow`, never hung or dead."""
+        self._replica_slow[int(replica)] = float(ms_per_iteration)
+        return self
+
+    def replica_slow_ms(self, replica):
+        """-> the injected extra ms for this replica's pumps, or None.
+        Counted once on first application (the plan is standing)."""
+        ms = self._replica_slow.get(int(replica))
+        if ms is not None and int(replica) not in self._slow_counted:
+            self._slow_counted.add(int(replica))
+            self.fired["replica_slow"] += 1
+        return ms
 
     def poison_prompt(self, prompt_ids, layer=0):
         """Mark a PROMPT as poison: whenever a lane serving exactly

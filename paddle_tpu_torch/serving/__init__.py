@@ -3,7 +3,11 @@ paddle_tpu/serving/): dense or int8 KV pools, MHA or GQA; the prefix
 cache, speculative decoding, fork groups, paged beam search and guided
 decoding on the shared, refcounted KV cache; a host KV tier with lazy
 admission and preemption; request telemetry, the HBM ledger and chaos
-hooks. NonFiniteError is re-exported from robustness.guard."""
+hooks; and the fleet: replicas behind a router (prefix affinity,
+SLO admission, failover, the disaggregated prefill/decode KV handoff,
+the self-healing supervisor), in-process or as worker processes over
+the socket RPC (transport.py, worker.py, remote.py).
+NonFiniteError is re-exported from robustness.guard."""
 
 from .decode_strategies import (BeamHypothesis, BeamParams, GroupFuture,
                                 GroupResult, SamplingParams)
@@ -18,6 +22,12 @@ from .prefix_cache import PrefixCacheIndex, chain_hash, prompt_chain_keys
 from .scheduler import (ContinuousBatchingScheduler, DeadlineExceeded,
                         GenerationResult, RequestCancelled)
 from .spec_decode import SpecDecodeConfig
+from .replica import Replica
+from .router import (AdmissionPolicy, AdmissionRejected, FleetFuture,
+                     FleetRouter, RouterPolicy)
+from .transport import (FrameError, RemoteError, RpcTimeout,
+                        TransportError, VersionMismatch)
+from .remote import WorkerProxy, make_subprocess_spawn, spawn_worker
 
 __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
            "NonFiniteError", "SamplingParams", "BeamParams",
@@ -28,4 +38,9 @@ __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
            "GenerationResult", "RequestCancelled", "PrefixCacheIndex",
            "chain_hash", "prompt_chain_keys", "SpecDecodeConfig",
            "Constraint", "CharConstraint", "TokenChoiceConstraint",
-           "ChoiceConstraint", "RegexConstraint", "JsonConstraint"]
+           "ChoiceConstraint", "RegexConstraint", "JsonConstraint",
+           "Replica", "FleetRouter", "FleetFuture", "RouterPolicy",
+           "AdmissionPolicy", "AdmissionRejected",
+           "WorkerProxy", "make_subprocess_spawn", "spawn_worker",
+           "TransportError", "FrameError", "VersionMismatch",
+           "RpcTimeout", "RemoteError"]

@@ -27,8 +27,14 @@ blocks in host memory with the device pools' geometry: prefix eviction
 spills an idle chain's block there instead of destroying it, and
 preemption parks a paused request's blocks there. ``spill_block`` and
 ``swap_in_block`` copy one block's rows, every layer of every holder,
-between the tiers in place: no allocation per call. Fleet transfer and
-meshes wait.
+between the tiers in place: no allocation per call.
+
+The fleet moves blocks between caches: ``adopt_block_from`` copies one
+block's rows from another cache in place (the disaggregated handoff
+between in-process replicas), and ``serialize_block`` /
+``deserialize_block`` carry them across processes (the worker
+transport), both geometry-checked, scales beside int8 codes. Meshes
+wait.
 """
 
 import numpy as np
@@ -104,6 +110,19 @@ def write_block_kv_quant(pool, scale_pool, vals, block_idx, offset):
     pool[bidx, :, off, :] = q
     scale_pool[bidx, :, off] = s
     return pool, scale_pool
+
+
+def _dtype_name(dtype):
+    """A torch dtype's numpy-style name ("float32", "bfloat16", "int8")."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _host_tensor(a):
+    """A received blob as a CPU tensor: tensors pass through (the
+    transport reads a bf16 blob as one); numpy arrays are wrapped."""
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 class HostKVTier:
@@ -419,6 +438,129 @@ class PagedKVCache:
                 for arr in layer.values():
                     arr[dst].copy_(arr[src])
         self.cow_copies += 1
+
+    # -- fleet handoff -----------------------------------------------------
+    def _geometry(self):
+        return (self.num_layers, self.num_heads, self.num_kv_heads,
+                self.head_dim, self.block_size)
+
+    def _format(self):
+        return ("int8+scales" if self.quantized
+                else f"dense {_dtype_name(self.dtype)}")
+
+    def adopt_block_from(self, src_cache, src_block, dst_block):
+        """Pool-slice transfer between caches: copy block `src_block`'s
+        rows out of `src_cache`'s pools into this cache's `dst_block`,
+        in place, across every layer: the disaggregated prefill/decode
+        KV handoff (serving/router.py). One indexed copy per (layer,
+        pool entry); k and v, and for int8 pools the k_scale/v_scale
+        rows beside the codes. Geometry (layers, heads, KV heads, head
+        dim, block size) must match; num_blocks may differ. Sibling
+        (draft) pools are not transferred: greedy speculation stays
+        exact with a cold draft cache.
+
+        Quantization must match on both sides: int8 codes are
+        meaningless without their scale rows, and there is no implicit
+        requantize. A dense pair of different float dtypes (a bf16
+        prefill tier feeding an f32 decode tier) is a cast. The copies
+        are queued on the current stream, behind whatever wrote the
+        source rows and ahead of any later write into them, so the
+        caller may unpin the source block as soon as this returns."""
+        src_kv = getattr(src_cache, "num_kv_heads", src_cache.num_heads)
+        if (src_cache.num_layers, src_cache.num_heads, src_kv,
+                src_cache.head_dim, src_cache.block_size) != \
+                self._geometry():
+            raise ValueError(
+                f"adopt_block_from needs matching pool geometry; got "
+                f"src (L={src_cache.num_layers}, H={src_cache.num_heads},"
+                f" H_kv={src_kv}, D={src_cache.head_dim}, "
+                f"bs={src_cache.block_size}) vs "
+                f"dst (L={self.num_layers}, H={self.num_heads}, "
+                f"H_kv={self.num_kv_heads}, D={self.head_dim}, "
+                f"bs={self.block_size})")
+        if getattr(src_cache, "quantized", False) != self.quantized:
+            raise ValueError(
+                f"adopt_block_from cannot transfer between a quantized "
+                f"and a dense pool: src is {src_cache._format()}, dst is "
+                f"{self._format()}: int8 codes are meaningless without "
+                f"their scale rows and there is no implicit requantize "
+                f"path. Build both tiers with the same kv_dtype")
+        s, d = int(src_block), int(dst_block)
+        for sp, dp in zip(src_cache.pools, self.pools):
+            for name, arr in dp.items():
+                arr[d].copy_(sp[name][s])
+
+    def wire_geometry(self):
+        """The block-shape contract a serialized block travels with:
+        receivers validate it before touching their pools (the tuple
+        adopt_block_from checks in-process)."""
+        return {"num_layers": self.num_layers,
+                "num_heads": self.num_heads,
+                "num_kv_heads": self.num_kv_heads,
+                "head_dim": self.head_dim,
+                "block_size": self.block_size,
+                "quantized": bool(self.quantized)}
+
+    def serialize_block(self, block):
+        """-> (meta, arrays) for block `block`: meta carries the
+        wire_geometry and the pool-entry names, arrays is one CPU tensor
+        per (layer, name) in that order (int8 codes next to their f32
+        scale rows when quantized; bf16 rows stay bf16, which the wire
+        format writes under the dtype string "bfloat16"). The byte
+        payload of a cross-process adopt_block_from; deserialize_block
+        is the receiving half."""
+        names = sorted(self.pools[0].keys())
+        block = int(block)
+        arrays = [layer[name][block].to("cpu", copy=True)
+                  for layer in self.pools for name in names]
+        return {"geometry": self.wire_geometry(), "names": names}, arrays
+
+    def deserialize_block(self, dst_block, meta, arrays):
+        """Write a serialize_block payload (tensors, or numpy arrays as
+        the wire format reads them) into local block `dst_block`, in
+        place, geometry-validated first: a mismatched layout or a
+        quantized/dense mix raises adopt_block_from's errors rather than
+        writing garbage KV. A dense payload of another float dtype is
+        cast."""
+        g = meta.get("geometry", {})
+        src_geo = (g.get("num_layers"), g.get("num_heads"),
+                   g.get("num_kv_heads"), g.get("head_dim"),
+                   g.get("block_size"))
+        if src_geo != self._geometry():
+            raise ValueError(
+                f"deserialize_block needs matching pool geometry; got "
+                f"src (L={g.get('num_layers')}, H={g.get('num_heads')}, "
+                f"H_kv={g.get('num_kv_heads')}, D={g.get('head_dim')}, "
+                f"bs={g.get('block_size')}) vs "
+                f"dst (L={self.num_layers}, H={self.num_heads}, "
+                f"H_kv={self.num_kv_heads}, D={self.head_dim}, "
+                f"bs={self.block_size})")
+        if bool(g.get("quantized", False)) != self.quantized:
+            src_fmt = ("int8+scales" if g.get("quantized")
+                       else "dense float")
+            raise ValueError(
+                f"deserialize_block cannot transfer between a "
+                f"quantized and a dense pool: src is {src_fmt}, dst is "
+                f"{self._format()}: int8 codes are meaningless without "
+                f"their scale rows and there is no implicit requantize "
+                f"path. Build both tiers with the same kv_dtype")
+        names = list(meta.get("names", ()))
+        want = sorted(self.pools[0].keys())
+        if names != want:
+            raise ValueError(
+                f"deserialize_block payload names {names} do not match "
+                f"this pool's entries {want}")
+        expect = self.num_layers * len(names)
+        if len(arrays) != expect:
+            raise ValueError(
+                f"deserialize_block expected {expect} arrays "
+                f"({self.num_layers} layers x {len(names)} entries), "
+                f"got {len(arrays)}: truncated handoff payload")
+        d = int(dst_block)
+        for li, layer in enumerate(self.pools):
+            for ni, name in enumerate(names):
+                layer[name][d].copy_(
+                    _host_tensor(arrays[li * len(names) + ni]))
 
     # -- host tier ---------------------------------------------------------
     def enable_host_tier(self, num_blocks):

@@ -418,7 +418,18 @@ def test_port_imports_neither_jax_nor_reference_package():
         "        'paddle_tpu_torch.parallel.ring_attention',\n"
         "        'paddle_tpu_torch.ops.metric_ops',\n"
         "        'paddle_tpu_torch.layers.metric_op',\n"
-        "        'paddle_tpu_torch.layers.control_flow']\n"
+        "        'paddle_tpu_torch.layers.control_flow',\n"
+        "        'paddle_tpu_torch.serving.replica',\n"
+        "        'paddle_tpu_torch.serving.router',\n"
+        "        'paddle_tpu_torch.serving.transport',\n"
+        "        'paddle_tpu_torch.serving.worker',\n"
+        "        'paddle_tpu_torch.serving.remote',\n"
+        "        'paddle_tpu_torch.observability.alerts',\n"
+        "        'paddle_tpu_torch.observability.fleet_trace',\n"
+        "        'paddle_tpu_torch.robustness.supervisor',\n"
+        "        'paddle_tpu_torch.robustness.checkpoint_manager',\n"
+        "        'paddle_tpu_torch.robustness.preemption',\n"
+        "        'paddle_tpu_torch.io.checkpoint']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
@@ -435,13 +446,6 @@ def test_port_imports_neither_jax_nor_reference_package():
 # names of the reference's serving __all__ the port does not export yet,
 # each with the ROADMAP item it waits for
 SERVING_NAMES_LEFT = {
-    # queue A item 8, the fleet
-    "Replica": "A8", "FleetRouter": "A8", "FleetFuture": "A8",
-    "RouterPolicy": "A8", "AdmissionPolicy": "A8",
-    "AdmissionRejected": "A8", "WorkerProxy": "A8",
-    "make_subprocess_spawn": "A8", "spawn_worker": "A8",
-    "TransportError": "A8", "FrameError": "A8", "VersionMismatch": "A8",
-    "RpcTimeout": "A8", "RemoteError": "A8",
     # queue A, left for later (item 9 or 11)
     "PagedDecodeLayer": "A, left for later",
     "build_paged_decode_cache": "A, left for later",
