@@ -235,7 +235,32 @@ backward kernels are printed):
    receiver's blocks are bitwise the donor's bf16 bytes); each worker's
    paged-kernel launches are read over the RPC just before and just
    after every run it serves, and each run's must be > 0 and equal its
-   iterations x layers.
+   iterations x layers;
+19. tensor-parallel serving on a local tp 2 mesh on the card
+   (``make_named_mesh(("tp",), (2,), ["cuda"] * 2)``: both ranks in this
+   process, run in turn): GPTConfig() over phase 2's prompts, every one
+   greedy (a mesh server refuses sampling), 16 slots, block 16, chunk 16,
+   context 1024. f32: 16 prompts' ids at tp 2 equal tp 1's; bf16: tokens/s
+   and step p50/p99 in turns tp 1, tp 2, tp 2, tp 1. Every run's launches
+   = iterations x 12 x tp and its reductions 2 x 12 a step; each rank's
+   pool is a contiguous (N, 6, 16, 64) shard, shard bytes x 2 = pool
+   bytes, the ledger's kv_pool/shard rows sum to it; the kernel against
+   its plain version on a call captured at H 6;
+19b. GPTConfig(kv_heads=4), dense f32 weights over int8 KV pools, at tp
+   1, 2 and 4 (H 6 over 2 and H 3 over 1 KV heads a rank): ids equal tp
+   1's, launches = iterations x 12 x tp, the kernel against its plain
+   version on a call captured at each tp;
+19c. make_tp_prompt_decoder at tp 2 over phase 6's prompts, 64 new,
+   greedy: f32 ids equal make_prompt_decoder's and 24 flash launches (12
+   layers x 2 ranks) a prefill; bf16 24 tensor-core launches, its wall
+   beside tp 1's; the flash kernel against its plain version on each
+   dtype's first prefill call (B 8 x H 6 x T 512 x D 64);
+19d. the world form: two processes on cuda:0 joined by gloo (this script
+   with ``--tp-world-rank``), one rank's params and pool shard each, serve
+   tests/parallel/test_serving_tp.py's f32 staggered stream: both ranks'
+   ids equal a tp 1 server's, 2 x 12 reductions a step, launches =
+   iterations x 12 a rank, equal block tables every step; a rank's
+   failure fails the phase.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -266,9 +291,10 @@ Each phase prints its seconds. The line before the last is a JSON object
 with the kernel table (the paged kernel's dense and int8 variants, the
 flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
 the flash-attention backward; the paged entry also counts the launches
-of phases 11-15 and 18-18d (the workers' own counts among them) in
-``launches_by_path``, the int8 entry those of phases 2b and 18b, the flash entries those of
-phases 16-17, with 16b/16c/17's errors in ``path_errs``); the line before
+of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
+(19d's ranks' own) in ``launches_by_path``, the int8 entry those of
+phases 2b, 18b and 19b, the flash entries those of phases 16-17 and 19c,
+with 16b/16c/17/19b/19c's errors in ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.
@@ -389,6 +415,15 @@ WIRE_PROMPT = 512                   # 18d: the chain handed over the RPC
 # one replica cannot cache every tenant
 FLEET_PRESSURE_BLOCKS = 1 + 16 * 6 + 2 * 8
 WORKER_SPAWN_S = 180.0
+TP = 2                              # phases 19, 19c, 19d: tp 2
+TP_GQA = (2, 4)                     # 19b: H 6 over 2, H 3 over 1 KV heads
+TP_AGREE = 16                       # 19, 19b: the f32 gates' prompts
+# 19b: int8 KV's near-tie bound on a logp, set after the exact ids gate
+# failed on the card (one request of 16 at tp 2), from the int8 code
+# step: a flipped code moves one K/V element by a 127th of its row's
+# absmax, a few 1e-4 of a logit at these widths
+TP_INT8_TIE = 1e-3
+TP_WORLD_TIMEOUT_S = 300.0          # 19d: both ranks, boot included
 # the JAX tests' tolerances at depth (np.allclose, rtol = atol): the
 # output's of test_ring_sp8_8k_tokens, the gradients' of
 # test_ring_sp8_long_sequence_grads
@@ -4058,6 +4093,506 @@ def phase_fleet_all(paged, cfg, tree, gcfg, gtree):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 19-19d: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+def tp_mesh(tp):
+    """A local 1-D tp mesh on the card: every rank in this process, each
+    run in turn (one card cannot hold two NCCL ranks)."""
+    from paddle_tpu_torch.parallel.mesh import make_named_mesh
+    return make_named_mesh(("tp",), (tp,), ["cuda"] * tp)
+
+
+def tp_server(model, tp, kv_dtype=None):
+    """Phase 2's server geometry, sharded over a local tp mesh for tp > 1."""
+    from paddle_tpu_torch.serving import GenerationServer
+    return GenerationServer(model, num_slots=16, block_size=16,
+                            max_context=1024, chunk=CHUNK, start=False,
+                            kv_dtype=kv_dtype,
+                            mesh=tp_mesh(tp) if tp > 1 else None)
+
+
+def tp_prompts(cfg, n=None):
+    """Phase 2's prompts, every one greedy: a mesh server refuses
+    sampling, as the JAX package's does."""
+    prompts = [p for p, _s in make_requests(cfg.vocab_size)]
+    return prompts[:n]
+
+
+def _tp_pass(paged, cfg, srv, prompts, new_tokens, tp, what, cap=None,
+             arm=None, top2=False):
+    """Serve `prompts` on `srv` until idle, the paged count set to 0 just
+    before: its launches must be iterations x layers x tp, its mesh's
+    reductions 2 x layers a step, and every block free after. Returns
+    (ids, numbers); numbers["logps"] holds each request's committed
+    logps and, with `top2`, numbers["top2"] each committed token's two
+    best (logp, token) pairs of its step's logp row."""
+    logps, best, step, last = {}, {}, srv.model.fused_step, {}
+    emit, commit = srv._sched._emit_token, srv._sched.commit
+
+    def ranked(*args, **kw):
+        out = step(*args, **kw)
+        vals, toks = torch.topk(out[2], 2, dim=-1)
+        last["top2"] = (vals.cpu().tolist(), toks.cpu().tolist())
+        return out
+
+    def committed(plan, *args, **kw):
+        last["slot"] = {srv._sched._slots[sid].req.rid: sid
+                        for sid in plan.slot_ids
+                        if srv._sched._slots[sid] is not None}
+        return commit(plan, *args, **kw)
+
+    def logged(req, tok, lp, now):
+        logps.setdefault(req.rid, []).append(float(lp))
+        if top2:
+            sid = last["slot"][req.rid]
+            vals, toks = last["top2"]
+            best.setdefault(req.rid, []).append(
+                list(zip(vals[sid], toks[sid])))
+        return emit(req, tok, lp, now)
+
+    srv._sched._emit_token = logged
+    if top2:
+        srv.model.fused_step, srv._sched.commit = ranked, committed
+    futs = [srv.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    r0 = srv.mesh.reductions if srv.mesh is not None else 0
+    wall, iters, launches, step_ms = _pump(paged, srv, arm=arm, cap=cap)
+    st = srv.get_stats()
+    if launches <= 0 or launches != iters * cfg.num_layers * tp:
+        _fail(f"{what}: paged launches {launches} != iterations {iters} x "
+              f"{cfg.num_layers} layers x tp {tp}")
+    if srv.mesh is not None and \
+            srv.mesh.reductions - r0 != 2 * cfg.num_layers * iters:
+        _fail(f"{what}: {srv.mesh.reductions - r0} reductions over {iters} "
+              f"steps, want 2 x {cfg.num_layers} a step")
+    if st["blocks_free"] != st["blocks_total"]:
+        _fail(f"{what}: blocks left allocated: {st}")
+    if top2:
+        del srv.model.fused_step
+        srv._sched.commit = commit
+    ids = _ids(futs)
+    generated = sum(len(x) for x in ids)
+    nums = {"tp": tp, "iterations": iters, "launches": launches,
+            "wall_s": wall, "tokens_per_s": generated / wall,
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p99": float(np.percentile(step_ms, 99)),
+            "logps": [logps[f.request_id] for f in futs]}
+    if top2:
+        nums["top2"] = [best[f.request_id] for f in futs]
+    return ids, nums
+
+
+def _tp_same(what, a, b):
+    same = sum(x == y for x, y in zip(a, b))
+    print(f"{what}: {same}/{len(a)} greedy requests identical")
+    if same != len(a) or len(a) != len(b):
+        _fail(f"{what}: ids differ")
+
+
+def _tp_near_ties(what, ids, lps, ref_ids, ref_lps, ref_top2):
+    """int8 KV's gate at tp > 1 against tp 1: each request's ids equal, or
+    equal up to a step where, on one history, the tp-1 server itself was
+    at a near-tie: the tp server's token is the tp-1 server's second
+    choice there, within TP_INT8_TIE of its first in the tp-1 server's
+    own logp row (`ref_top2`, _tp_pass's top2). Over the common prefix
+    the logps lie within TP_INT8_TIE. The sum of rank partials rounds
+    otherwise than one product, and an ulp in a K/V row flips its int8
+    code by a whole step when it sits at a rounding boundary, so exact
+    ids are not a property of int8 pools under tp (phase 19's dense
+    gates are exact)."""
+    same, worst, flips = 0, 0.0, []
+    for r, (a, la, b, lb, rank) in enumerate(zip(ids, lps, ref_ids, ref_lps,
+                                                 ref_top2)):
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if n:
+            worst = max(worst, max(abs(x - y) for x, y in
+                                   zip(la[:n], lb[:n])))
+        if a == b:
+            same += 1
+            continue
+        if n >= min(len(a), len(b)):
+            _fail(f"{what}: request {r}: {len(a)} tokens, tp 1 {len(b)}")
+        (first, tok1), (second, tok2) = rank[n]
+        margin = first - second
+        flips.append({"request": r, "step": n, "token": int(a[n]),
+                      "ref_token": int(b[n]), "ref_top2": rank[n],
+                      "ref_margin": margin, "logp": la[n]})
+        if {tok1, tok2} != {int(a[n]), int(b[n])} or \
+                not margin <= TP_INT8_TIE:
+            _fail(f"{what}: request {r} diverges at step {n} (token "
+                  f"{a[n]}, tp 1 {b[n]}) where the tp-1 server's two best "
+                  f"were {rank[n]}: not its near-tie")
+    print(f"{what}: {same}/{len(ids)} greedy requests identical; common "
+          f"prefixes' logps within {worst:.3e}; divergences at near-ties "
+          f"{json.dumps(flips)} (tolerance {TP_INT8_TIE})")
+    if not worst <= TP_INT8_TIE:
+        _fail(f"{what}: logps differ by {worst} on a common history")
+    return {"identical": same, "of": len(ids), "max_logp_diff": worst,
+            "divergences": flips}
+
+
+def _tp_bytes(srv, tp):
+    """The sharded pool's byte facts: one rank's share x tp = the logical
+    pool, one kv_cache ledger row a rank summing to it, each block's share
+    a tp-th of its bytes."""
+    from paddle_tpu_torch.observability.compile_insight import hbm_ledger
+    c = srv.cache
+    rows = [e for e in hbm_ledger().snapshot()["entries"]
+            if e["component"] == srv._ledger_id
+            and e["kind"] == "kv_cache"]
+    if c.shard_pool_bytes() * tp != c.pool_bytes() or len(rows) != tp \
+            or sum(r["bytes"] for r in rows) != c.pool_bytes() \
+            or srv.get_stats()["memory"]["kv_cache"] != c.pool_bytes():
+        _fail(f"tp {tp} pool bytes: shard {c.shard_pool_bytes()}, pool "
+              f"{c.pool_bytes()}, ledger rows {[r['bytes'] for r in rows]}")
+    for pools in c.shards:
+        for t in pools[0].values():
+            if not t.is_contiguous() or t.shape[1] != c.heads_local:
+                _fail(f"tp {tp}: a pool shard {tuple(t.shape)} is not a "
+                      f"contiguous {c.heads_local}-head tensor")
+    return {"pool_bytes": c.pool_bytes(),
+            "shard_pool_bytes": c.shard_pool_bytes(),
+            "block_bytes": c.pool_bytes() // c.num_blocks,
+            "block_shard_bytes": c.shard_pool_bytes() // c.num_blocks,
+            "ledger_rows": {r["name"]: r["bytes"] for r in rows}}
+
+
+def _armed_mid_run(srv):
+    return srv._sched.iteration >= 20
+
+
+def phase_tp(paged, cfg, tree):
+    """Phase 19: GPTConfig() on a local tp 2 mesh on the card. f32: phase
+    2's prompts (greedy) at tp 1 and tp 2, ids equal; bf16: the same at 64
+    new tokens in turns tp 1, tp 2, tp 2, tp 1 (tokens/s, step p50/p99),
+    the kernel against its plain version on a call captured at H 6.
+    Returns (launches by path, errors, numbers)."""
+    prompts = tp_prompts(cfg)
+    launches, errs, out = {}, {}, {}
+    ids = {}
+    for tp in (1, TP):
+        srv = tp_server(make_model(cfg, tree), tp)
+        ids[tp], nums = _tp_pass(paged, cfg, srv, prompts[:TP_AGREE],
+                                 AGREE_TOKENS, tp, f"19 f32 tp {tp}")
+        if tp == TP:
+            launches[f"19 tp {TP} f32 gate"] = nums["launches"]
+            out["f32_bytes"] = _tp_bytes(srv, tp)
+        srv.close()
+        del srv
+    _tp_same(f"19 f32 tp {TP} vs tp 1", ids[TP], ids[1])
+    runs = []
+    for turn, tp in enumerate((1, TP, TP, 1)):
+        model, cap = _serving_model(cfg, tree, torch.bfloat16)
+        srv = tp_server(model, tp)
+        arm = _armed_mid_run if turn == 1 else None
+        _ids_bf16, nums = _tp_pass(paged, cfg, srv, prompts, NEW_TOKENS, tp,
+                                   f"19 bf16 tp {tp}", cap=cap, arm=arm)
+        if arm is not None:
+            h = cfg.num_heads // TP
+            errs[f"19 tp {TP} bf16 (rank 0, H {h})"] = check_captured(
+                paged, f"19 tp {TP} bf16 (rank 0, H {h} over {h})", cap)
+            out["bf16_bytes"] = _tp_bytes(srv, tp)
+        if tp == TP:
+            launches[f"19 tp {TP} bf16 turn {turn}"] = nums["launches"]
+        del nums["logps"]
+        runs.append(nums)
+        srv.close()
+        del srv, model
+    # a bf16 KV block: layers x k, v x heads x 16 x D x 2 B (589,824 B at
+    # GPTConfig()), a tp-th of it on each rank
+    block = 2 * cfg.num_layers * cfg.hidden_size * 16 * 2
+    if out["bf16_bytes"]["block_bytes"] != block or \
+            out["bf16_bytes"]["block_shard_bytes"] * TP != block:
+        _fail(f"19 bf16 block bytes {out['bf16_bytes']}, want {block}")
+    tp1 = (runs[0]["tokens_per_s"] + runs[3]["tokens_per_s"]) / 2
+    tp2 = (runs[1]["tokens_per_s"] + runs[2]["tokens_per_s"]) / 2
+    out.update({"bf16_turns": runs, "tp2_over_tp1_tokens_per_s": tp2 / tp1})
+    print("tp serve " + json.dumps(out))
+    return launches, errs, out
+
+
+def phase_tp_gqa(paged, gcfg, gtree):
+    """Phase 19b: GPTConfig(kv_heads=4) with dense f32 weights at tp 1, 2
+    and 4 (H 6 over 2, H 3 over 1 KV heads a rank), over dense f32 pools
+    (ids equal tp 1's) and over int8 KV pools (the JAX package refuses
+    int8 weights on a mesh): ids equal tp 1's but for near-ties
+    (_tp_near_ties), the kernel against its plain version on an int8 call
+    captured at each tp. Returns (launches by path, errors, numbers)."""
+    prompts = tp_prompts(gcfg, TP_AGREE)
+    launches, errs, out = {}, {}, {}
+    for kv_dtype in (None, "int8"):
+        tag = kv_dtype or "dense"
+        ids, lps, top2 = {}, {}, None
+        for tp in (1,) + TP_GQA:
+            model, cap = _serving_model(gcfg, gtree)
+            srv = tp_server(model, tp, kv_dtype=kv_dtype)
+            arm = _armed_mid_run if tp > 1 and kv_dtype else None
+            ids[tp], nums = _tp_pass(paged, gcfg, srv, prompts, AGREE_TOKENS,
+                                     tp, f"19b {tag}/GQA tp {tp}", cap=cap,
+                                     arm=arm, top2=tp == 1 and bool(kv_dtype))
+            lps[tp] = nums["logps"]
+            if tp == 1:
+                top2 = nums.get("top2")
+            if tp > 1:
+                launches[f"19b tp {tp} {tag}/GQA f32"] = nums["launches"]
+                _tp_bytes(srv, tp)
+                what = f"19b {tag}/GQA f32 tp {tp} vs tp 1"
+                if kv_dtype:
+                    h, hk = gcfg.num_heads // tp, KV_HEADS // tp
+                    name = f"19b tp {tp} int8 f32 (rank 0, H {h} over {hk})"
+                    errs[name] = check_captured(paged, name, cap)
+                    out[f"tp{tp}"] = _tp_near_ties(what, ids[tp], lps[tp],
+                                                   ids[1], lps[1], top2)
+                else:
+                    _tp_same(what, ids[tp], ids[1])
+            srv.close()
+            del srv, model
+    print("tp int8/GQA " + json.dumps(out))
+    return launches, errs, out
+
+
+class FlashCapture:
+    """A prefill's attention hook: ops.flash.flash_attention (so every
+    launch counts), plus a copy of its first call's inputs."""
+
+    def __init__(self):
+        self.case = None
+
+    def __call__(self, q, k, v, causal=False, scale=None):
+        from paddle_tpu_torch.ops.flash import flash_attention
+        if self.case is None:
+            self.case = (q.clone(), k.clone(), v.clone(), None, None, None,
+                         causal)
+        return flash_attention(q, k, v, scale=scale, causal=causal)
+
+
+def phase_tp_prompt(flash, cfg, tree):
+    """Phase 19c: make_tp_prompt_decoder at tp 2 over phase 6's 8 prompts
+    of 512 tokens, 64 new, greedy. f32: ids equal make_prompt_decoder's,
+    24 f32 flash launches (12 layers x 2 ranks) a prefill; bf16: 24
+    tensor-core launches, the decode timed beside tp 1's; the flash kernel
+    against its plain version on each run's first prefill call (B 8, H 6,
+    T 512, D 64)."""
+    from paddle_tpu_torch.models import gpt
+    params = gpt.params_from_numpy(tree, "cuda")
+    prompts = make_prompts(cfg.vocab_size)
+    max_len = PROMPT_LEN + NEW_TOKENS
+    mesh = tp_mesh(TP)
+    want = cfg.num_layers * TP
+    launches, errs, out = {}, {}, {}
+    ref = gpt.make_prompt_decoder(params, cfg, PROMPT_LEN, max_len)(prompts)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        cap = FlashCapture()
+        decode = gpt.make_tp_prompt_decoder(params, cfg, mesh, PROMPT_LEN,
+                                            max_len, dtype=dtype,
+                                            attention=cap)
+        torch.cuda.synchronize()
+        flash.LAUNCHES = flash.TC_LAUNCHES = 0
+        t0 = time.perf_counter()
+        ids, scores = decode(prompts)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n, tc = flash.LAUNCHES, flash.TC_LAUNCHES
+        want_tc = want if dtype == torch.bfloat16 else 0
+        if n != want or tc != want_tc:
+            _fail(f"19c tp {TP} {tag}: flash launches {n} (tensor-core "
+                  f"{tc}), want {want} ({want_tc})")
+        if tuple(ids.shape) != (len(prompts), NEW_TOKENS) or \
+                not torch.isfinite(scores).all():
+            _fail(f"19c tp {TP} {tag}: ids {tuple(ids.shape)} or scores "
+                  f"non-finite")
+        launches[f"19c tp {TP} prompt decode {tag}"] = n
+        shape = " x ".join(f"{a} {n}" for a, n in zip("BHTD",
+                                                      cap.case[0].shape))
+        errs[tag] = check_one_flash(
+            flash, f"19c tp {TP} prefill {tag} (rank 0, {shape})", cap.case)
+        out[f"{tag}_s"] = sec
+        if dtype == torch.float32:
+            same = int((ids == ref[0]).all(dim=1).sum())
+            print(f"19c f32: {same}/{len(prompts)} prompts identical at tp "
+                  f"{TP} and tp 1 (make_prompt_decoder)")
+            if same != len(prompts):
+                _fail("19c f32 tp prompt decoder ids differ from tp 1")
+    one = gpt.make_prompt_decoder(params, cfg, PROMPT_LEN, max_len,
+                                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one(prompts)
+    torch.cuda.synchronize()
+    out["bf16_tp1_s"] = time.perf_counter() - t0
+    new = len(prompts) * NEW_TOKENS
+    out["tokens_per_s"] = {"tp1": new / out["bf16_tp1_s"],
+                           f"tp{TP}": new / out["bf16_s"]}
+    print("tp prompt decode " + json.dumps(out))
+    return launches, errs
+
+
+TP_WORLD_STREAM = (((5, 9, 11, 2, 7), 8), ((7,) * 11, 6), ((3, 4), 10),
+                   ((12, 13, 14, 15, 16, 17, 18), 12))
+
+
+def tp_world_server(model, mesh):
+    """tests/parallel/test_serving_tp.py's server (3 slots, context 64,
+    chunk 4) at the kernel's block size 16."""
+    from paddle_tpu_torch.serving import GenerationServer
+    return GenerationServer(model, num_slots=3, block_size=16,
+                            max_context=64, chunk=4, start=False, mesh=mesh)
+
+
+def _world_stream(paged, srv):
+    """test_serving_tp.py's staggered stream (arrivals after 2 and 3
+    steps, one mid-stream cancel) with the paged count set to 0 just
+    before. Returns {ids, launches, iterations, a step's reductions, ms
+    and block tables}."""
+    rec = {"reductions": [], "step_ms": [], "tables": []}
+
+    def step():
+        r0 = srv.mesh.reductions if srv.mesh is not None else 0
+        t0 = time.perf_counter()
+        did = srv.step()
+        if did:
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["reductions"].append(
+                (srv.mesh.reductions if srv.mesh is not None else 0) - r0)
+            rec["tables"].append([[int(b) for b in s.table]
+                                  if s is not None else None
+                                  for s in srv._sched._slots])
+        return did
+
+    def submit(i):
+        prompt, n = TP_WORLD_STREAM[i]
+        return srv.submit(np.array(prompt, np.int32), max_new_tokens=n)
+
+    torch.cuda.synchronize()
+    paged.LAUNCHES = 0
+    futs = [submit(0), submit(1)]
+    step()
+    step()
+    futs += [submit(2), submit(3)]
+    step()
+    if not futs[3].cancel():
+        _fail("19d: mid-stream cancel refused")
+    while step():
+        pass
+    rec["launches"] = paged.LAUNCHES
+    rec["iterations"] = len(rec["step_ms"])
+    rec["ids"] = [[int(t) for t in x] for x in _ids(futs[:3])]
+    return rec
+
+
+def tp_world_rank(rank, init, out):
+    """One rank of phase 19d's world (`--tp-world-rank`): joins the gloo
+    group, serves the stream on its shard of a tp 2 world mesh on cuda:0,
+    and writes its record to <out>/rank<rank>.json."""
+    import datetime
+    import torch.distributed as dist
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_params
+    from paddle_tpu_torch.ops.cuda import paged
+    from paddle_tpu_torch.parallel.mesh import make_named_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=TP,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        paged.build()
+        cfg = GPTConfig()
+        mesh = make_named_mesh(("tp",), (TP,))
+        srv = tp_world_server(make_model(cfg, init_params(cfg, seed=SEED)),
+                              mesh)
+        rec = _world_stream(paged, srv)
+        rec.update(backend=dist.get_backend(), form=srv.get_stats()[
+            "mesh"]["form"], shard_shape=list(srv.cache.pools[0]["k"].shape))
+        srv.close()
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_world(paged, cfg, tree):
+    """Phase 19d: the world form on the card: two processes on cuda:0
+    joined by gloo (file:// rendezvous in a temporary directory), each
+    holding its rank's params and pool shard, serve test_serving_tp's
+    f32 stream: both ranks' ids equal this process's tp 1 server's, each
+    rank reduces 2 x 12 times a step, launches = iterations x 12 a rank,
+    the block tables are equal across ranks. A rank's failure fails the
+    phase. Returns (launches by path, numbers)."""
+    import shutil
+    import tempfile
+    srv = tp_world_server(make_model(cfg, tree), None)
+    ref = _world_stream(paged, srv)
+    srv.close()
+    del srv
+    base = tempfile.mkdtemp(prefix="tp_world_")
+    init = "file://" + os.path.join(base, "rendezvous")
+    procs = []
+    try:
+        for r in range(TP):
+            log = open(os.path.join(base, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--tp-world-rank", str(r), init, base],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + TP_WORLD_TIMEOUT_S
+        codes = []
+        for p, _log in procs:
+            try:
+                codes.append(p.wait(max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+        if codes != [0] * TP:
+            for r in range(TP):
+                with open(os.path.join(base, f"rank{r}.log")) as f:
+                    print(f"19d rank {r} log tail:\n" + f.read()[-3000:])
+            _fail(f"19d: rank exit codes {codes}")
+        recs = []
+        for r in range(TP):
+            with open(os.path.join(base, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(base, ignore_errors=True)
+    launches, out = {}, {"tp1_step_ms_p50":
+                         float(np.percentile(ref["step_ms"], 50)),
+                         "tp1_iterations": ref["iterations"]}
+    for r, rec in enumerate(recs):
+        if rec["ids"] != ref["ids"]:
+            _fail(f"19d rank {r}: ids {rec['ids']} != tp 1 {ref['ids']}")
+        if set(rec["reductions"]) != {2 * cfg.num_layers}:
+            _fail(f"19d rank {r}: reductions a step "
+                  f"{sorted(set(rec['reductions']))}, want "
+                  f"{2 * cfg.num_layers}")
+        if rec["launches"] <= 0 or \
+                rec["launches"] != rec["iterations"] * cfg.num_layers:
+            _fail(f"19d rank {r}: launches {rec['launches']} != "
+                  f"iterations {rec['iterations']} x {cfg.num_layers}")
+        if rec["tables"] != recs[0]["tables"] or \
+                rec["iterations"] != ref["iterations"]:
+            _fail(f"19d rank {r}: block tables or iterations differ")
+        if rec["shard_shape"][1] != cfg.num_heads // TP or \
+                rec["form"] != "world":
+            _fail(f"19d rank {r}: shard {rec['shard_shape']}, form "
+                  f"{rec['form']}")
+        launches[f"19d world rank {r} f32"] = rec["launches"]
+        out[f"rank{r}"] = {"backend": rec["backend"],
+                           "iterations": rec["iterations"],
+                           "launches": rec["launches"],
+                           "step_ms_p50": float(np.percentile(
+                               rec["step_ms"], 50)),
+                           "step_ms_p99": float(np.percentile(
+                               rec["step_ms"], 99))}
+    print(f"19d: both ranks' ids equal tp 1's ({len(ref['ids'])} "
+          f"requests), {2 * cfg.num_layers} reductions a step")
+    print("tp world " + json.dumps(out))
+    return launches, out
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -4158,6 +4693,9 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--paged-of":
         paged_of(sys.argv[2])
         return
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-world-rank":
+        tp_world_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     if len(sys.argv) > 1:
         _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of, "
               f"--fwd-times-of or --paged-of <checkout>")
@@ -4221,7 +4759,15 @@ def main():
     ring_launches, ring_errs = _phase("17 ring attention", phase_ring,
                                       flash)
     fleet = phase_fleet_all(paged, cfg, tree, gcfg, gtree)
-    path_errs = {**perrs, **serrs, **derrs, **terrs}
+    tp_launches, tp_errs, _ = _phase("19 tp serving, local mesh", phase_tp,
+                                     paged, cfg, tree)
+    tpg_launches, tpg_errs, _ = _phase("19b tp GQA, dense and int8 KV",
+                                       phase_tp_gqa, paged, gcfg, gtree)
+    tpp_launches, tpp_errs = _phase("19c tp prompt decoding",
+                                    phase_tp_prompt, flash, cfg, tree)
+    tpw_launches, _ = _phase("19d tp world, two processes", phase_tp_world,
+                             paged, cfg, tree)
+    path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
         "11 prefix f32 warm pass": prefix["f32"]["launches_warm"],
@@ -4233,7 +4779,8 @@ def main():
         **fleet["18"]["launches"], **fleet["18b"]["launches"],
         "18c self-healing f32 (3 replicas + resurrections)":
             fleet["18c"]["launches"],
-        **fleet["18d"]["launches"]}
+        **fleet["18d"]["launches"], **tp_launches, **tpw_launches,
+        **{k: v for k, v in tpg_launches.items() if "dense" in k}}
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
     card = _card_line()
     kernels = [
@@ -4246,9 +4793,9 @@ def main():
             + [nan_errs[f"nan_{n}_bf16"] for n in NAN_SHAPES]
             + list(path_errs.values()), times,
             "fused-step decode: 16 lanes x H 12 x C 16 (one valid column) "
-            "x D 64, bs 16, M 64, bf16; launches_by_path counts phases 2 "
-            "and 11-15, max_abs_err includes their captured calls "
-            "(path_errs)"),
+            "x D 64, bs 16, M 64, bf16; launches_by_path counts phases 2, "
+            "11-15, 18-18d and 19-19d, max_abs_err includes their captured "
+            "calls (path_errs)"),
         kernel_entry(
             "paged_attention_int8",
             "paddle_tpu/ops/pallas/paged.py:151-219 (_paged_kernel int8 "
@@ -4256,9 +4803,12 @@ def main():
             "(_paged_kernel_v2 int8 dequant, launch :505)",
             launches8, [errs[f"int8_{n}{d}_bf16"] for n in SHAPES
                         for d in ("", "_d128")]
-            + [nan_errs[f"nan_{n}_int8_bf16q"] for n in NAN_SHAPES], times8,
+            + [nan_errs[f"nan_{n}_int8_bf16q"] for n in NAN_SHAPES]
+            + list(tpg_errs.values()), times8,
             "fused-step decode: 16 lanes x H 12 over H_kv 4 x C 16 (one "
-            "valid column) x D 64, bs 16, M 64, int8 pools, bf16 q"),
+            "valid column) x D 64, bs 16, M 64, int8 pools, bf16 q; "
+            "launches_by_path counts phases 2b, 18b and 19b, max_abs_err "
+            "includes 19b's captured calls (path_errs)"),
         kernel_entry(
             "flash_attention_fwd: flash_fwd_tc_kernel (bf16, wgmma + TMA)",
             FLASH_FWD_REPLACES, flaunches,
@@ -4296,7 +4846,10 @@ def main():
     ]
     kernels[0]["launches_by_path"] = by_path
     kernels[1]["launches_by_path"] = {"2b serve int8": launches8,
-                                      **fleet["18b"]["launches_int8"]}
+                                      **fleet["18b"]["launches_int8"],
+                                      **{k: v for k, v in tpg_launches.items()
+                                         if "int8" in k}}
+    kernels[1]["path_errs"] = tpg_errs
     kernels[0]["path_errs"] = path_errs
     # the flash kernels' paths: (fwd, dQ, dK/dV, bf16 fwd) launches of
     # each run, counted from 0 just before it
@@ -4307,15 +4860,21 @@ def main():
         "16c packed agree (kernel run, 2 layers x 1 step)": pagree_launches,
         **{f"17 ring sp {RING_SP} {case} (one call)": c
            for case, c in ring_launches.items()}}
+    tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,
-        **{name: c[3] for name, c in flash_paths.items()}}
+        **{name: c[3] for name, c in flash_paths.items()},
+        tpp_name + " bf16": tpp_launches[tpp_name + " bf16"]}
     kernels[3]["launches_by_path"] = {"9 train": f32_launches, **{
-        name: c[0] for name, c in flash_paths.items()}}
+        name: c[0] for name, c in flash_paths.items()},
+        tpp_name + " f32": tpp_launches[tpp_name + " f32"]}
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+                                    tpp_errs["bf16"])
     kernels[4]["launches_by_path"] = {"9 train": blaunches, **{
         name: c[1] + c[2] for name, c in flash_paths.items()}}
     kernels[3]["max_abs_err"] = max(
-        [kernels[3]["max_abs_err"]] + [e[0] for e in ring_errs.values()])
+        [kernels[3]["max_abs_err"], tpp_errs["f32"]]
+        + [e[0] for e in ring_errs.values()])
     kernels[4]["max_abs_err"] = max(
         [kernels[4]["max_abs_err"]] + [e[1] for e in ring_errs.values()])
     agree = {"16b BERT agree": bagree_errs,
@@ -4323,6 +4882,9 @@ def main():
              **{f"17 ring {case} (out, grads: max abs)": list(e)
                 for case, e in ring_errs.items()}}
     kernels[3]["path_errs"] = kernels[4]["path_errs"] = agree
+    kernels[2]["path_errs"] = {tpp_name + " prefill bf16": tpp_errs["bf16"]}
+    kernels[3]["path_errs"] = dict(agree, **{
+        tpp_name + " prefill f32": tpp_errs["f32"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,11 @@ beam search.
 Counterpart of ``paddle_tpu/inference/decoding.py``. The model plugs in
 as ``step_fn(ids_t, cache, t) -> (logits, cache)``: ``ids_t`` (B,) or
 (B*K,) current token ids, ``cache`` a list of per-layer ``{"k", "v"}``
-tensors (B, H, T_max, D), ``logits`` (B, V). JAX's ``lax.scan`` over time
-is a Python loop here; finished lanes keep stepping (static shapes) but
-emit EOS at score 0.
+tensors (B, H, T_max, D), ``logits`` (B, V). A tensor-parallel step's
+cache is sharded on the head axis: one (B, H/tp, T_max, D) entry per
+held rank and layer, rank-major; the loops treat it as any other list
+of entries. JAX's ``lax.scan`` over time is a Python loop here; finished
+lanes keep stepping (static shapes) but emit EOS at score 0.
 
 Random draws come from a ``torch.Generator`` the caller passes (on the
 decode's device), never from global state. They cannot match JAX's

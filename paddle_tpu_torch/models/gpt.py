@@ -18,6 +18,16 @@ cache, and ``make_prompt_decoder`` / ``generate_with_prompt`` /
 factories return plain callables that run under ``torch.inference_mode``
 on the device the caller names (None means the card).
 
+Tensor parallel (the Megatron serving layout, ``gpt_tp_shardings``):
+``shard_params`` cuts a params tree into tp per-rank trees, and
+``make_tp_decoder`` / ``make_tp_greedy_decoder`` / ``build_tp_prefill`` /
+``make_tp_prompt_decoder`` run the same bodies over the ranks a mesh
+(``parallel/mesh.py``) gives this process: each rank's heads and ffn
+columns, its own (B, H/tp, L, D) cache, and one reduction per
+row-parallel product. JAX's GSPMD partitions one body; torch has none,
+so ``build_kv_step`` and ``_prefill_forward`` take the held ranks'
+trees, their head count and the mesh's ``reduce_fn``.
+
 Training: ``build_lm_net`` builds the causal-LM Program through the
 framework's layers (``gpt_logits``, one ``_block`` per layer, whose
 ``multi_head_attention`` op runs the flash kernels forward and backward on
@@ -43,7 +53,10 @@ __all__ = ["GPTConfig", "gpt_tiny", "init_params", "params_from_numpy",
            "gqa_slice_kv_params", "gqa_repeat_kv_params", "gpt_logits",
            "build_lm_net", "build_packed_lm_net", "load_params", "generate",
            "build_kv_step", "build_prefill", "make_prompt_decoder",
-           "generate_with_prompt", "make_greedy_decoder", "make_sampler"]
+           "generate_with_prompt", "make_greedy_decoder", "make_sampler",
+           "gpt_tp_shardings", "shard_params", "make_tp_decoder",
+           "make_tp_greedy_decoder", "build_tp_prefill",
+           "make_tp_prompt_decoder"]
 
 
 class GPTConfig:
@@ -184,6 +197,89 @@ def gqa_repeat_kv_params(params, cfg, kv_heads):
         return _repeat(bvec.reshape(kv_heads, d), g, 0).reshape(h * d)
 
     return _with_kv(params, cfg, rep_w, rep_b)
+
+
+# the Megatron serving layout of one layer's leaves (gpt_tp_shardings)
+_TP_LAYER_MARKS = {
+    "ln1_s": "rep", "ln1_b": "rep", "ln2_s": "rep", "ln2_b": "rep",
+    # q/k/v: (hidden, n) output columns are head-major -> cut columns
+    "wq": "col", "wk": "col", "wv": "col",
+    "bq": "row", "bk": "row", "bv": "row",
+    # o: (hidden, hidden) input rows are head-major -> cut rows; the
+    # product leaves partial sums the mesh reduces
+    "wo": "row", "bo": "rep",
+    "f0w": "col", "f0b": "row", "f1w": "row", "f1b": "rep",
+}
+
+
+def gpt_tp_shardings(cfg):
+    """The tensor-parallel serving layout of a load_params() tree, as a
+    tree of the same keys whose leaves are marks: "col" cuts a matrix by
+    output columns, "row" cuts a leaf's first axis (a matrix's input
+    rows, a column-parallel bias's entries), "rep" replicates it. Heads
+    (q/k/v columns, o rows) and the ffn's inner dim shard; embeddings,
+    layer norms and the o / ffn-down biases replicate. The counterpart of
+    the JAX package's NamedSharding tree (``P(None, axis)``, ``P(axis)``,
+    ``P()``)."""
+    tree = {"word_emb": "rep", "pos_emb": "rep", "lnf_s": "rep",
+            "lnf_b": "rep"}
+    for i in range(cfg.num_layers):
+        tree[f"l{i}"] = dict(_TP_LAYER_MARKS)
+    return tree
+
+
+def _check_tp(cfg, tp):
+    """ValueError unless tp divides the heads, the ffn's inner size and
+    the KV heads (each rank needs whole heads, whole KV-head groups and
+    an equal slice of the ffn)."""
+    if cfg.num_heads % tp or cfg.inner_size % tp:
+        raise ValueError(
+            f"tp={tp} must divide both num_heads={cfg.num_heads} and "
+            f"inner_size={cfg.inner_size}")
+    kv = getattr(cfg, "kv_heads", None) or cfg.num_heads
+    if kv % tp:
+        raise ValueError(
+            f"tp={tp} must divide kv_heads={kv}: the KV heads (wk/wv "
+            f"columns, the KV pools) shard over tp, so each rank needs a "
+            f"whole number of KV-head groups")
+
+
+def shard_params(params, cfg, tp, ranks=None):
+    """Cut a params tree (the JAX package's as numpy arrays, or the
+    port's tensors) into per-rank trees by gpt_tp_shardings: rank r's
+    "col" leaf holds output columns [r n/tp, (r+1) n/tp) and its "row"
+    leaf the same range of its first axis, each a contiguous copy of its
+    own; a "rep" leaf is the one object in every rank's tree, never
+    copied. Returns the trees of `ranks` (default: all tp), in order.
+
+    Under GQA wk/wv have kv_heads x D columns, so rank r holds query heads
+    [r H/tp, (r+1) H/tp) and KV heads [r H_kv/tp, (r+1) H_kv/tp): the
+    ratio H/H_kv is every rank's, so the kernel's group map j // (H/H_kv)
+    stays right on each. int8 weight entries have no mark and raise."""
+    _check_tp(cfg, tp)
+    marks = gpt_tp_shardings(cfg)
+
+    def cut(a, mark, r):
+        if mark == "rep":
+            return a
+        n = a.shape[1] if mark == "col" else a.shape[0]
+        lo, hi = r * n // tp, (r + 1) * n // tp
+        piece = a[:, lo:hi] if mark == "col" else a[lo:hi]
+        if isinstance(piece, torch.Tensor):
+            return piece.clone(memory_format=torch.contiguous_format)
+        return np.array(piece, order="C", copy=True)
+
+    def tree(r):
+        out = {}
+        for k, v in params.items():
+            if isinstance(v, dict):
+                out[k] = {kk: cut(vv, marks[k][kk], r)
+                          for kk, vv in v.items()}
+            else:
+                out[k] = cut(v, marks[k], r)
+        return out
+
+    return [tree(r) for r in (range(tp) if ranks is None else ranks)]
 
 
 def _ln(x, s, b, eps=1e-5):
@@ -351,39 +447,69 @@ def load_params(scope, cfg):
 # decoding: the dense KV-cache step and the parallel prompt prefill
 # ---------------------------------------------------------------------------
 
-def build_kv_step(params, cfg, max_len):
+def _rank_trees(params):
+    """The held ranks' params trees: a list as given, one tree as [it]."""
+    return params if isinstance(params, list) else [params]
+
+
+def _one_rank(parts):
+    """reduce_fn of one device: its partial is the whole product."""
+    (part,) = parts
+    return part
+
+
+def build_kv_step(params, cfg, max_len, h_count=None, reduce_fn=None):
     """step_fn(ids_t (B,), cache, t) -> (logits (B, V), cache) for the
     loops of inference/decoding.py. cache: per layer {"k", "v"} of
     (B, H, max_len, D), updated in place at t.
+
+    Tensor parallel: `params` is the list of the held ranks' trees
+    (shard_params), `h_count` one rank's heads (H/tp) and `reduce_fn` the
+    mesh's (Mesh.reduce_fn): it finishes the o-proj and ffn-down products
+    from the ranks' partials, and the replicated biases are added after
+    it, once. The cache then holds one (B, H/tp, max_len, D) entry per
+    held rank and layer, rank-major: entry r * num_layers + i is held
+    rank r's layer i.
 
     Scores and the softmax are f32 (JAX's numpy-scalar divide and f32
     bias promote a bf16 product to f32), the probabilities are cast back
     to the cache dtype before PV, and GELU is exact (erf)."""
     from ..inference import decoding as dec
-    h_, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    ranks = _rank_trees(params)
+    rep = ranks[0]
+    h_ = cfg.num_heads if h_count is None else h_count
+    d = cfg.hidden_size // cfg.num_heads
+    reduce_fn = reduce_fn or _one_rank
+    nl = cfg.num_layers
 
     def step(ids_t, cache, t):
         b = ids_t.shape[0]
-        x = params["word_emb"][ids_t.long()] + params["pos_emb"][t]
+        x = rep["word_emb"][ids_t.long()] + rep["pos_emb"][t]
         bias = dec.cache_attention_bias(max_len, t, x.device)[0, 0]
-        for i in range(cfg.num_layers):
-            lp = params[f"l{i}"]
-            hn = _ln(x, lp["ln1_s"], lp["ln1_b"])
-            q = (hn @ lp["wq"] + lp["bq"]).reshape(b, h_, 1, d)
-            k = (hn @ lp["wk"] + lp["bk"]).reshape(b, h_, 1, d)
-            v = (hn @ lp["wv"] + lp["bv"]).reshape(b, h_, 1, d)
-            cache[i] = dec.update_kv_cache(cache[i], k, v, t)
-            s = (torch.einsum("bhd,bhld->bhl", q[:, :, 0],
-                              cache[i]["k"]).float() / math.sqrt(d)) + bias
-            p = torch.softmax(s, dim=-1).to(cache[i]["v"].dtype)
-            o = torch.einsum("bhl,bhld->bhd", p,
-                             cache[i]["v"]).reshape(b, cfg.hidden_size)
-            x = x + (o @ lp["wo"] + lp["bo"]).to(x.dtype)
-            hn = _ln(x, lp["ln2_s"], lp["ln2_b"])
-            f = F.gelu(hn @ lp["f0w"] + lp["f0b"])
-            x = x + (f @ lp["f1w"] + lp["f1b"])
-        x = _ln(x, params["lnf_s"], params["lnf_b"])
-        return x @ params["word_emb"].T, cache
+        for i in range(nl):
+            lp0 = rep[f"l{i}"]
+            hn = _ln(x, lp0["ln1_s"], lp0["ln1_b"])
+            parts = []
+            for j, p in enumerate(ranks):
+                lp = p[f"l{i}"]
+                q = (hn @ lp["wq"] + lp["bq"]).reshape(b, h_, 1, d)
+                k = (hn @ lp["wk"] + lp["bk"]).reshape(b, h_, 1, d)
+                v = (hn @ lp["wv"] + lp["bv"]).reshape(b, h_, 1, d)
+                c = cache[j * nl + i] = dec.update_kv_cache(
+                    cache[j * nl + i], k, v, t)
+                s = (torch.einsum("bhd,bhld->bhl", q[:, :, 0],
+                                  c["k"]).float() / math.sqrt(d)) + bias
+                pr = torch.softmax(s, dim=-1).to(c["v"].dtype)
+                o = torch.einsum("bhl,bhld->bhd", pr,
+                                 c["v"]).reshape(b, h_ * d)
+                parts.append(o @ lp["wo"])
+            x = x + (reduce_fn(parts) + lp0["bo"]).to(x.dtype)
+            hn = _ln(x, lp0["ln2_s"], lp0["ln2_b"])
+            parts = [F.gelu(hn @ p[f"l{i}"]["f0w"] + p[f"l{i}"]["f0b"])
+                     @ p[f"l{i}"]["f1w"] for p in ranks]
+            x = x + (reduce_fn(parts) + lp0["f1b"])
+        x = _ln(x, rep["lnf_s"], rep["lnf_b"])
+        return x @ rep["word_emb"].T, cache
 
     return step
 
@@ -391,44 +517,54 @@ def build_kv_step(params, cfg, max_len):
 def _prefill_forward(lp_all, prompt_ids, cfg, max_len, h_count,
                      reduce_fn, attention=None):
     """The one prefill body (build_kv_step's math over the whole prompt):
-    `h_count` is the head count this caller computes (H, or H/tp on a
-    tensor-parallel shard) and `reduce_fn` finishes the row-parallel
-    o-proj / ffn-down products (identity on one device). `attention` is
-    the causal attention over (B, H, P, D); None is ops.flash's
-    flash_attention, which launches the kernel once per layer for CUDA
-    tensors. Returns (cache, logits (B, P, V)): each layer's K/V at
-    positions 0..P-1 of a max_len cache, zero beyond."""
+    `lp_all` is one params tree, or the held ranks' trees on a tensor-
+    parallel mesh; `h_count` is the head count of one (H, or H/tp) and
+    `reduce_fn` finishes the row-parallel o-proj / ffn-down products from
+    the ranks' partials (None on one device). `attention` is the causal
+    attention over (B, H, P, D); None is ops.flash's flash_attention,
+    which launches the kernel once per layer and rank for CUDA tensors.
+    Returns (cache, logits (B, P, V)): each rank's and layer's K/V
+    (rank-major) at positions 0..P-1 of a max_len cache, zero beyond."""
     from ..ops.flash import flash_attention
 
     attention = attention or flash_attention
+    reduce_fn = reduce_fn or _one_rank
+    ranks = _rank_trees(lp_all)
+    rep = ranks[0]
     d = cfg.hidden_size // cfg.num_heads
     b, p = prompt_ids.shape
     ids = prompt_ids.long()
-    x = lp_all["word_emb"][ids] + lp_all["pos_emb"][:p][None]
-    cache = []
+    x = rep["word_emb"][ids] + rep["pos_emb"][:p][None]
+    cache = [None] * (len(ranks) * cfg.num_layers)
+    pad = (0, 0, 0, max_len - p)
     for i in range(cfg.num_layers):
-        lp = lp_all[f"l{i}"]
-        hn = _ln(x, lp["ln1_s"], lp["ln1_b"])
+        lp0 = rep[f"l{i}"]
+        hn = _ln(x, lp0["ln1_s"], lp0["ln1_b"])
 
         def heads(w, bias):
             # a (B, H, P, D) view of the projection: the kernel takes
             # its strides
             return (hn @ w + bias).reshape(b, p, h_count, d).transpose(1, 2)
 
-        q = heads(lp["wq"], lp["bq"])
-        k = heads(lp["wk"], lp["bk"])
-        v = heads(lp["wv"], lp["bv"])
-        o = attention(q, k, v, causal=True, scale=1.0 / math.sqrt(d))
-        o = o.transpose(1, 2).reshape(b, p, h_count * d)
-        x = x + (reduce_fn(o @ lp["wo"]) + lp["bo"]).to(x.dtype)
-        hn = _ln(x, lp["ln2_s"], lp["ln2_b"])
-        f = F.gelu(hn @ lp["f0w"] + lp["f0b"])
-        x = x + (reduce_fn(f @ lp["f1w"]) + lp["f1b"])
-        # park this layer's K/V at positions 0..P-1 of the cache
-        pad = (0, 0, 0, max_len - p)
-        cache.append({"k": F.pad(k, pad), "v": F.pad(v, pad)})
-    x = _ln(x, lp_all["lnf_s"], lp_all["lnf_b"])
-    return cache, x @ lp_all["word_emb"].T
+        parts = []
+        for j, rp in enumerate(ranks):
+            lp = rp[f"l{i}"]
+            q = heads(lp["wq"], lp["bq"])
+            k = heads(lp["wk"], lp["bk"])
+            v = heads(lp["wv"], lp["bv"])
+            o = attention(q, k, v, causal=True, scale=1.0 / math.sqrt(d))
+            parts.append(o.transpose(1, 2).reshape(b, p, h_count * d)
+                         @ lp["wo"])
+            # park this layer's K/V at positions 0..P-1 of the cache
+            cache[j * cfg.num_layers + i] = {"k": F.pad(k, pad),
+                                             "v": F.pad(v, pad)}
+        x = x + (reduce_fn(parts) + lp0["bo"]).to(x.dtype)
+        hn = _ln(x, lp0["ln2_s"], lp0["ln2_b"])
+        parts = [F.gelu(hn @ rp[f"l{i}"]["f0w"] + rp[f"l{i}"]["f0b"])
+                 @ rp[f"l{i}"]["f1w"] for rp in ranks]
+        x = x + (reduce_fn(parts) + lp0["f1b"])
+    x = _ln(x, rep["lnf_s"], rep["lnf_b"])
+    return cache, x @ rep["word_emb"].T
 
 
 def build_prefill(params, cfg, max_len, attention=None):
@@ -439,7 +575,7 @@ def build_prefill(params, cfg, max_len, attention=None):
 
     def prefill(prompt_ids):
         return _prefill_forward(params, prompt_ids, cfg, max_len,
-                                cfg.num_heads, lambda z: z, attention)
+                                cfg.num_heads, None, attention)
 
     return prefill
 
@@ -654,6 +790,134 @@ def make_sampler(params, cfg, max_len, temperature=1.0, top_k=None,
                                          eos_id)
 
     return sample
+
+
+def _tp_params(params, cfg, mesh, axis, dtype, device):
+    """(the held ranks' trees on the device, the device, tp): the params
+    cast and put on the device first, so the ranks' trees share each
+    replicated leaf there."""
+    tp = int(mesh.shape[axis])
+    params, device = _prepare(params, dtype, device)
+    return shard_params(params, cfg, tp, mesh.held(axis)), device, tp
+
+
+def make_tp_decoder(params, cfg, mesh, max_len, eos_id=None, dtype=None,
+                    axis="tp", beam_size=None, length_penalty=0.6,
+                    dp_axis=None, device=None):
+    """Tensor-parallel KV-cache decoder (greedy, or beam search with
+    `beam_size`): make_greedy_decoder's / beam_decode's contracts over the
+    mesh's `axis`. Each rank holds its heads' and ffn columns' parameters
+    (shard_params) and a (B, H/tp, max_len, D) cache; the step reduces
+    each row-parallel product over the ranks (two reductions a layer).
+    This process computes the ranks the mesh gives it (Mesh.held): every
+    rank of a local mesh in turn, its own in a world.
+
+    With `dp_axis` the batch also splits over that axis: each dp slice
+    decodes on its own, and the outputs come back whole (in a world, by
+    an all_gather over the dp line). tp must divide cfg.num_heads and the
+    ffn inner size; dp must divide the batch.
+
+    decode(bos_ids (B,)) -> greedy: (ids (B, max_len), scores (B,));
+    beam: (ids (B, K, max_len), scores (B, K)) best-first."""
+    import torch.distributed as dist
+    from ..inference import decoding as dec
+
+    trees, device, tp = _tp_params(params, cfg, mesh, axis, dtype, device)
+    h_loc = cfg.num_heads // tp
+    d = cfg.hidden_size // cfg.num_heads
+    step = build_kv_step(trees, cfg, max_len, h_count=h_loc,
+                         reduce_fn=mesh.reduce_fn(axis))
+    dp = int(mesh.shape[dp_axis]) if dp_axis is not None else 1
+
+    def run(bos):
+        rows = bos.shape[0] * (beam_size or 1)
+        cache = dec.init_kv_cache(rows, cfg.num_layers * len(trees), h_loc,
+                                  max_len, d, dtype=dtype or torch.float32,
+                                  device=device)
+        if beam_size is None:
+            return dec.greedy_decode(step, cache, bos, max_len,
+                                     eos_id=eos_id)
+        return dec.beam_decode(step, cache, bos, max_len, beam_size,
+                               eos_id if eos_id is not None else -1,
+                               length_penalty=length_penalty)
+
+    def decode(bos_ids):
+        bos = _ids_on(bos_ids, device, 1)
+        if bos.shape[0] % dp:
+            raise ValueError(
+                f"bos_ids of batch {bos.shape[0]}: its dimension 0 should "
+                f"be divisible by {dp}, the {dp_axis!r} axis it splits "
+                f"over")
+        with torch.inference_mode():
+            if dp == 1:
+                return run(bos)
+            slices = bos.chunk(dp)
+            outs = [run(slices[c]) for c in mesh.held(dp_axis)]
+            if mesh.world:
+                group = mesh.line(dp_axis)[1]
+                gathered = []
+                for x in outs[0]:
+                    parts = [torch.empty_like(x) for _ in range(dp)]
+                    dist.all_gather(parts, x.contiguous(), group=group)
+                    gathered.append(parts)
+                outs = list(zip(*gathered))
+            return tuple(torch.cat(xs) for xs in zip(*outs))
+
+    return decode
+
+
+def make_tp_greedy_decoder(params, cfg, mesh, max_len, eos_id=None,
+                           dtype=None, axis="tp", device=None):
+    """Greedy-only alias of make_tp_decoder."""
+    return make_tp_decoder(params, cfg, mesh, max_len, eos_id=eos_id,
+                           dtype=dtype, axis=axis, device=device)
+
+
+def build_tp_prefill(params, cfg, mesh, max_len, axis="tp",
+                     attention=None):
+    """Tensor-parallel prompt prefill: the held ranks' trees (`params`,
+    from shard_params, on the device) run _prefill_forward with one
+    rank's heads and the mesh's reduce_fn, so the flash kernel runs once a
+    layer on each rank's H/tp heads and each row-parallel product is
+    reduced once. Returns prefill(prompt_ids (B, P)) -> (the head-sharded
+    cache, rank-major, logits (B, P, V))."""
+    h_loc = cfg.num_heads // int(mesh.shape[axis])
+    reduce_fn = mesh.reduce_fn(axis)
+
+    def prefill(prompt_ids):
+        return _prefill_forward(params, prompt_ids, cfg, max_len, h_loc,
+                                reduce_fn, attention)
+
+    return prefill
+
+
+def make_tp_prompt_decoder(params, cfg, mesh, prompt_len, max_len,
+                           eos_id=None, dtype=None, axis="tp",
+                           beam_size=None, length_penalty=0.6, device=None,
+                           attention=None):
+    """Tensor-parallel prompt decoding: build_tp_prefill fills the
+    head-sharded cache in one forward (the flash kernel once a layer and
+    rank), then the tp KV step continues, greedy or beam search, through
+    the same continuation as make_prompt_decoder, whose contracts it
+    keeps. The batch is replicated."""
+    p = int(prompt_len)
+    gen = _gen_len(p, max_len)
+    trees, device, tp = _tp_params(params, cfg, mesh, axis, dtype, device)
+    prefill = build_tp_prefill(trees, cfg, mesh, max_len, axis, attention)
+    step = build_kv_step(trees, cfg, max_len, h_count=cfg.num_heads // tp,
+                         reduce_fn=mesh.reduce_fn(axis))
+    run = _prompt_continuation(prefill, step, p, gen, eos_id, beam_size,
+                               length_penalty)
+
+    def decode(prompt_ids):
+        ids = _ids_on(prompt_ids, device, 2)
+        if ids.shape[1] != p:
+            raise ValueError(f"prompt of length {ids.shape[1]}: this "
+                             f"decoder takes {p}")
+        with torch.inference_mode():
+            return run(ids)
+
+    return decode
 
 
 def generate(scope, cfg, bos_ids=None, max_len=None, eos_id=None,

@@ -58,14 +58,14 @@ def _active_sp_mesh(q, k, bias):
     mesh = active_mesh()
     if mesh is None or mesh.empty:
         return None
-    sp = mesh.shape["sp"]
+    sp = mesh.shape.get("sp", 1)
     if sp <= 1 or q.shape[2] % sp != 0 or k.shape[2] % sp != 0:
         return None
     if bias is not None and (bias.ndim != 4 or bias.shape[2] != 1
                              or bias.shape[3] != k.shape[2]):
         return None                      # per-query / odd-rank bias
     for name, dim in (("dp", q.shape[0]), ("tp", q.shape[1])):
-        if dim % mesh.shape[name] != 0:
+        if dim % mesh.shape.get(name, 1) != 0:
             return None
     return mesh
 

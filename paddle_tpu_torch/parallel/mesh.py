@@ -27,6 +27,16 @@ A mesh has one of two forms:
 ``with mesh:`` sets the physical mesh that ``ops/attention_ops.py`` reads
 (``active_mesh``). The hybrid DCN mesh, ``host_domains``,
 ``multihost_initialize`` and the sharding helpers are not ported.
+
+``make_named_mesh`` builds a mesh over axes of the caller's naming, as
+``jax.sharding.Mesh(devices, axis_names)`` does: tensor-parallel serving
+takes a 1-D ``("tp",)`` mesh. A sharded body runs over the ranks this
+process holds along an axis (``held``: every rank of a local mesh, the
+process's own in a world), and ``reduce_fn(axis)`` finishes a
+row-parallel product from their partials: the sum in rank order on a
+local mesh, one ``all_reduce`` over the axis's sub-group in a world,
+whatever backend ``init_process_group`` chose. ``reductions`` counts the
+reductions made, the port's stand-in for the psums JAX compiles.
 """
 
 import threading
@@ -36,8 +46,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["MeshConfig", "Mesh", "make_mesh", "set_mesh", "get_mesh",
-           "mesh_axes", "active_mesh"]
+__all__ = ["MeshConfig", "Mesh", "make_mesh", "make_named_mesh", "set_mesh",
+           "get_mesh", "mesh_axes", "active_mesh"]
 
 # the layout's order: slower-varying outermost, tp innermost
 ORDER = ("dp", "pp", "ep", "sp", "tp")
@@ -60,20 +70,24 @@ class MeshConfig:
 
 
 class Mesh:
-    """Ranks on the named axes ``ORDER``. ``devices`` is the array of
-    mesh positions: torch devices for a local mesh, process ranks for a
-    world mesh. ``rank`` is this process's rank (None when local)."""
+    """Ranks on named axes (``ORDER`` unless the mesh was built with
+    ``make_named_mesh``). ``devices`` is the array of mesh positions:
+    torch devices for a local mesh, process ranks for a world mesh.
+    ``rank`` is this process's rank (None when local)."""
 
-    axis_names = ORDER
-
-    def __init__(self, sizes, devices, world=False):
-        self.shape = dict(zip(ORDER, sizes))
+    def __init__(self, sizes, devices, world=False, axis_names=ORDER):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, sizes))
         self.devices = np.empty(len(devices), dtype=object)
         self.devices[:] = list(devices)
         self.devices = self.devices.reshape(sizes)
         self.world = bool(world)
         self.rank = dist.get_rank() if self.world else None
-        self._sp_line = self._make_sp_groups() if self.world else None
+        self.reductions = 0
+        # every axis line's process group (new_group is collective over
+        # the world: every process makes every group, in one order)
+        self._lines = ({a: self._make_line(a) for a in self.axis_names}
+                       if self.world else {})
 
     @property
     def size(self):
@@ -88,14 +102,13 @@ class Mesh:
         default)."""
         rank = self.rank if rank is None else rank
         pos = np.argwhere(self.devices == rank)[0]
-        return dict(zip(ORDER, (int(c) for c in pos)))
+        return dict(zip(self.axis_names, (int(c) for c in pos)))
 
-    def _make_sp_groups(self):
-        """Every sp line's process group (new_group is collective over the
-        world: every process makes every group, in one order); returns
-        this process's line."""
-        lines = np.moveaxis(self.devices, ORDER.index("sp"), -1).reshape(
-            -1, self.shape["sp"])
+    def _make_line(self, axis):
+        """Every line along `axis` gets its process group; returns this
+        process's line (its world ranks in axis order, their group)."""
+        lines = np.moveaxis(self.devices, self.axis_names.index(axis),
+                            -1).reshape(-1, self.shape[axis])
         mine = None
         for line in lines:
             ranks = [int(r) for r in line]
@@ -104,10 +117,42 @@ class Mesh:
                 mine = (ranks, group)
         return mine
 
-    def sp_line(self):
-        """(the world ranks of this process's sp ring, in sp order, their
-        process group)."""
-        return self._sp_line
+    def line(self, axis):
+        """(the world ranks of this process's line along `axis`, in axis
+        order, their process group)."""
+        return self._lines[axis]
+
+    def held(self, axis):
+        """The coordinates along `axis` whose part this process computes:
+        all of them on a local mesh, its own in a world."""
+        if self.world:
+            return [self.coords()[axis]]
+        return list(range(self.shape[axis]))
+
+    def reduce_fn(self, axis):
+        """The finishing reduction of a row-parallel product over `axis`:
+        fn(partials) takes the held ranks' partial products (``held``
+        order) and returns their sum over the whole axis. A local mesh
+        adds them in rank order; a world all-reduces its one partial, in
+        place, over the axis's sub-group. Each call counts one in
+        ``reductions``."""
+        if self.world:
+            group = self.line(axis)[1]
+
+            def reduce(parts):
+                (part,) = parts
+                self.reductions += 1
+                if group is not None:
+                    dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+                return part
+        else:
+            def reduce(parts):
+                self.reductions += 1
+                out = parts[0]
+                for part in parts[1:]:
+                    out = out + part
+                return out
+        return reduce
 
     def __enter__(self):
         stack = getattr(_active, "stack", None)
@@ -132,20 +177,45 @@ def active_mesh():
     return stack[-1] if stack else None
 
 
+def _mesh_devices(devices, n_default):
+    """(the mesh positions, world?): the world's ranks when `devices` is
+    None and a ``torch.distributed`` world is initialized, the card
+    `n_default` times when it is None otherwise, else the given torch
+    devices (repeats allowed)."""
+    world = devices is None and dist.is_available() and \
+        dist.is_initialized()
+    if world:
+        return list(range(dist.get_world_size())), True
+    if devices is None:
+        return [resolve_device(None)] * n_default, False
+    return [resolve_device(d) for d in devices], False
+
+
+def make_named_mesh(axis_names, sizes, devices=None):
+    """A mesh over the axes `axis_names` with `sizes` ranks each, laid
+    out as ``jax.sharding.Mesh(np.array(devices).reshape(sizes),
+    axis_names)``: ``make_named_mesh(("tp",), (2,), ["cuda:0"] * 2)`` is
+    a local tp 2 mesh on one card; without `devices` it spans the
+    ``torch.distributed`` world when one is initialized, and is local on
+    the card otherwise."""
+    sizes = tuple(int(n) for n in sizes)
+    if len(sizes) != len(axis_names):
+        raise ValueError(f"{len(axis_names)} axis names, {len(sizes)} "
+                         f"sizes")
+    devices, world = _mesh_devices(devices, int(np.prod(sizes)))
+    if len(devices) != int(np.prod(sizes)):
+        raise ValueError(f"mesh {'x'.join(map(str, sizes))} != "
+                         f"{len(devices)} devices")
+    return Mesh(sizes, devices, world=world, axis_names=axis_names)
+
+
 def make_mesh(dp=None, tp=1, pp=1, sp=1, ep=1, devices=None):
     """Build a Mesh; dp defaults to 'whatever is left'. With `devices`
     (one torch device per rank, repeats allowed) the mesh is local; without
     them it spans the ``torch.distributed`` world when one is initialized,
     and is otherwise local on the card with dp 1 by default."""
     rest = tp * pp * sp * ep
-    world = devices is None and dist.is_available() and \
-        dist.is_initialized()
-    if world:
-        devices = list(range(dist.get_world_size()))
-    elif devices is None:
-        devices = [resolve_device(None)] * ((dp or 1) * rest)
-    else:
-        devices = [resolve_device(d) for d in devices]
+    devices, world = _mesh_devices(devices, (dp or 1) * rest)
     n = len(devices)
     if dp is None:
         if n % rest:

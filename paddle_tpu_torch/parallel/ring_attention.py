@@ -118,7 +118,7 @@ class _Ring:
         self.sp = mesh.shape[axis_name]
         self.world = mesh.world
         if self.world:
-            self.ranks, self.group = mesh.sp_line()
+            self.ranks, self.group = mesh.line(axis_name)
             self.indices = [self.ranks.index(mesh.rank)]
         else:
             self.indices = list(range(self.sp))

@@ -33,6 +33,19 @@ metrics and a stdlib HTTP endpoint (`serve_metrics`). A non-finite logit
 on a live lane fails every request with a ``NonFiniteError`` and closes
 the server.
 
+Tensor parallel (``mesh=``, a 1-D mesh of ``parallel/mesh.py``): the
+model's params take the Megatron serving layout (``gpt.shard_params``),
+the pools shard on the KV head axis, and the one step body runs once for
+each rank this process holds (every rank of a local mesh in turn, its
+own in a world) on that rank's heads, its pool shard and the paged
+kernel; the replicated parts (embeddings, layer norms, LM head, the
+choice of ids) run once, and the mesh's ``reduce_fn`` finishes the
+o-proj and ffn-down products, two reductions a layer. The scheduler,
+the free list and the tables stay replicated host state: in a world,
+every rank runs the same submits and steps in lockstep. A mesh server is
+greedy: sampling, fork groups, beam, guided decoding, speculation and
+int8 weights raise ``NotImplementedError``, as in the JAX package.
+
 ``GPTServingModel`` adapts the GPT params (models/gpt.py layout) with
 the math of ``gpt.build_kv_step`` over (S, C) ragged lanes; KV goes
 through ``kv_cache.write_block_kv`` (or ``write_block_kv_quant`` for int8
@@ -54,7 +67,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..models.gpt import _cast_params, _ln, _to_device
+from ..models.gpt import (_cast_params, _check_tp, _ln, _one_rank,
+                          _to_device, gpt_tp_shardings, shard_params)
 from ..observability import _help
 from ..observability.compile_insight import array_nbytes, hbm_ledger
 from ..observability.metrics import global_registry
@@ -74,15 +88,6 @@ __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
 
 # HBM-ledger component ids ("serving0", ...): monotonic, never recycled
 _SERVER_SEQ = itertools.count()
-
-
-def _tensor_leaves(tree):
-    """Every tensor of a nested dict of params."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensor_leaves(v)
-    else:
-        yield tree
 
 
 def _sample_rows(base, rng, temperature, do_top_k, top_p):
@@ -116,12 +121,21 @@ def _sample_rows(base, rng, temperature, do_top_k, top_p):
     return samp.to(torch.int32), samp_lp
 
 
-def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
-                     tokens, positions, valid, tables, attention,
-                     sample_ctl=None, per_column=False, mask=None):
+def _fused_step_body(params, cfg, block_size, h_count, kv_count, d,
+                     reduce_fn, pools, tokens, positions, valid, tables,
+                     attention, sample_ctl=None, per_column=False,
+                     mask=None):
     """The one fused prefill/decode step (build_kv_step's math over
-    (S, C) ragged lanes with paged KV). Writes this step's K/V into the
-    pools in place, then projects through the tied LM head:
+    (S, C) ragged lanes with paged KV), shared by the single-device and
+    the tensor-parallel step as gpt._prefill_forward is. `params` is one
+    tree and `pools` its per-layer pool list, or on a mesh the held
+    ranks' trees (gpt.shard_params) and their pool shards, one list a
+    rank; `h_count` / `kv_count` are the query / KV heads one of them
+    computes (H and H_kv, or H/tp and H_kv/tp), and `reduce_fn` (None on
+    one device) finishes the row-parallel o-proj and ffn-down products
+    from the ranks' partials, the only state the ranks share; the
+    replicated biases are added after it, once. Writes this step's K/V
+    into the pools in place, then projects through the tied LM head:
 
     - `per_column=False` (plain serving): each lane's LAST valid column
       only, one (S, H) @ (H, V) product. Returns (next_ids (S,) int32,
@@ -146,7 +160,11 @@ def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
     int8 codes times the per-output-channel f32 scale, cast to the
     activation dtype."""
     s, c = tokens.shape
-    wdt = params["word_emb"].dtype      # activation/compute dtype
+    if not isinstance(params, list):
+        params, pools = [params], [pools]
+    reduce_fn = reduce_fn or _one_rank
+    rep = params[0]                     # the replicated leaves
+    wdt = rep["word_emb"].dtype         # activation/compute dtype
 
     def w(container, name):
         # int8 weight entry -> inline dequant; plain entry -> as-is
@@ -156,46 +174,53 @@ def _fused_step_body(params, cfg, block_size, h_count, kv_count, d, pools,
         return (q8.float() * container[name + "@scale"]).to(wdt)
 
     pos = torch.where(valid, positions, torch.zeros_like(positions))
-    x = params["word_emb"][tokens.long()] + params["pos_emb"][pos.long()]
+    x = rep["word_emb"][tokens.long()] + rep["pos_emb"][pos.long()]
     # write targets: masked lanes route to the NULL block
     bidx = torch.gather(tables, 1, (pos // block_size).long())
     bidx = torch.where(valid, bidx, torch.full_like(bidx, NULL_BLOCK))
     off = torch.where(valid, pos % block_size, torch.zeros_like(pos))
     for i in range(cfg.num_layers):
-        lp = params[f"l{i}"]
-        kp, vp = pools[i]["k"], pools[i]["v"]
-        ks, vs = pools[i].get("k_scale"), pools[i].get("v_scale")
-        hn = _ln(x, lp["ln1_s"], lp["ln1_b"])
-        q = (hn @ w(lp, "wq") + lp["bq"]).reshape(s, c, h_count, d)
-        k = (hn @ w(lp, "wk") + lp["bk"]).reshape(s, c, kv_count, d)
-        v = (hn @ w(lp, "wv") + lp["bv"]).reshape(s, c, kv_count, d)
-        if ks is not None:
-            write_block_kv_quant(kp, ks, k, bidx, off)
-            write_block_kv_quant(vp, vs, v, bidx, off)
-        else:
-            write_block_kv(kp, k, bidx, off)
-            write_block_kv(vp, v, bidx, off)
-        o = attention(q.transpose(1, 2).contiguous(), kp, vp, tables, pos,
-                      k_scale=ks, v_scale=vs)
-        # bf16 pools under an f32 model return bf16: promote, as JAX does
-        o = o.transpose(1, 2).reshape(s, c, h_count * d).to(wdt)
-        x = x + (o @ w(lp, "wo") + lp["bo"]).to(x.dtype)
-        hn = _ln(x, lp["ln2_s"], lp["ln2_b"])
-        f = F.gelu(hn @ w(lp, "f0w") + lp["f0b"])    # exact (erf) gelu
-        x = x + (f @ w(lp, "f1w") + lp["f1b"]).to(x.dtype)
-    x = _ln(x, params["lnf_s"], params["lnf_b"])
+        lp0 = rep[f"l{i}"]
+        hn = _ln(x, lp0["ln1_s"], lp0["ln1_b"])
+        parts = []
+        for rp, shard in zip(params, pools):
+            lp, layer = rp[f"l{i}"], shard[i]
+            kp, vp = layer["k"], layer["v"]
+            ks, vs = layer.get("k_scale"), layer.get("v_scale")
+            q = (hn @ w(lp, "wq") + lp["bq"]).reshape(s, c, h_count, d)
+            k = (hn @ w(lp, "wk") + lp["bk"]).reshape(s, c, kv_count, d)
+            v = (hn @ w(lp, "wv") + lp["bv"]).reshape(s, c, kv_count, d)
+            if ks is not None:
+                write_block_kv_quant(kp, ks, k, bidx, off)
+                write_block_kv_quant(vp, vs, v, bidx, off)
+            else:
+                write_block_kv(kp, k, bidx, off)
+                write_block_kv(vp, v, bidx, off)
+            o = attention(q.transpose(1, 2).contiguous(), kp, vp, tables,
+                          pos, k_scale=ks, v_scale=vs)
+            # bf16 pools under an f32 model return bf16: promote, as JAX
+            # does
+            o = o.transpose(1, 2).reshape(s, c, h_count * d).to(wdt)
+            parts.append(o @ w(lp, "wo"))
+        x = x + (reduce_fn(parts) + lp0["bo"]).to(x.dtype)
+        hn = _ln(x, lp0["ln2_s"], lp0["ln2_b"])
+        # exact (erf) gelu
+        parts = [F.gelu(hn @ w(rp[f"l{i}"], "f0w") + rp[f"l{i}"]["f0b"])
+                 @ w(rp[f"l{i}"], "f1w") for rp in params]
+        x = x + (reduce_fn(parts) + lp0["f1b"]).to(x.dtype)
+    x = _ln(x, rep["lnf_s"], rep["lnf_b"])
     if per_column:
         # each row of the wide product holds one column's dot products,
         # what the narrow product computes for a last column (the GEMM
         # may sum in another order at another shape)
-        vocab = params["word_emb"].shape[0]
-        logits = (x.reshape(s * c, -1) @ params["word_emb"].T).reshape(
+        vocab = rep["word_emb"].shape[0]
+        logits = (x.reshape(s * c, -1) @ rep["word_emb"].T).reshape(
             s, c, vocab)
     else:
         # next token comes from each lane's LAST valid column only
         last = (valid.sum(1) - 1).clamp(0, c - 1)
         xl = x[torch.arange(s, device=x.device), last]
-        logits = xl @ params["word_emb"].T
+        logits = xl @ rep["word_emb"].T
     logitsf = logits.float()
     if mask is not None:
         logitsf = logitsf + mask
@@ -238,7 +263,11 @@ class GPTServingModel:
     `attention` is the attention op of the fused step: None is
     kv_cache.paged_attention (the kernel on the card); a test may pass
     the plain version to hold the kernel against it end to end. Its
-    signature is paged_attention's, k_scale/v_scale included."""
+    signature is paged_attention's, k_scale/v_scale included.
+
+    `shard(mesh, axis)` (the server calls it for `mesh=`) moves the model
+    to the tensor-parallel layout: `tp_params` holds the held ranks'
+    trees and `params` becomes None (one model per server layout)."""
 
     def __init__(self, params, cfg, device=None, dtype=None,
                  attention=None):
@@ -257,6 +286,8 @@ class GPTServingModel:
         self.kv_dtype = self.params["word_emb"].dtype
         self.attention = attention or paged_attention
         self._int8_weights = 0
+        self.mesh = self.mesh_axis = self.tp_params = None
+        self.tp = 1
 
     # the matmul weights a quantize_int8'd layer dict carries as int8
     # codes + scales in place of each (the fused step dequantizes inline)
@@ -271,6 +302,10 @@ class GPTServingModel:
         caller's dicts. Returns self."""
         if self._int8_weights:
             return self
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "int8 weights under a mesh are not supported: quantize "
+                "before serving single-device")
         self.params = dict(self.params)
         n = 0
         for i in range(self.num_layers):
@@ -293,18 +328,96 @@ class GPTServingModel:
         """Quantized weight-tensor count (0 = dense weights)."""
         return self._int8_weights
 
+    def shard(self, mesh, axis="tp"):
+        """The mesh branch of the JAX package's build_fused_step: cut the
+        params into the Megatron serving layout (gpt.shard_params) for
+        the ranks this process holds along `axis`, and drop the unsharded
+        tree. int8 weights raise NotImplementedError (the shard rules
+        name the dense weights; int8 KV pools do shard); tp must divide
+        the heads, the ffn inner size and the KV heads (ValueError).
+        Returns self; a second call with the same mesh is a no-op."""
+        if self.mesh is not None:
+            if self.mesh is mesh and self.mesh_axis == axis:
+                return self
+            raise ValueError(
+                "this model is already sharded over another mesh: build "
+                "one GPTServingModel per server layout")
+        if self._int8_weights:
+            raise NotImplementedError(
+                "int8 weights under a mesh are not supported: the tp "
+                "shard rules name the dense weight keys; run int8-weight "
+                "servers single-device (int8 KV pools do shard)")
+        tp = int(mesh.shape[axis])
+        _check_tp(self.cfg, tp)
+        self._leaf_bytes = self._tree_leaf_bytes()
+        self.tp_params = shard_params(self.params, self.cfg, tp,
+                                      mesh.held(axis))
+        self.params = None
+        self.mesh, self.mesh_axis, self.tp = mesh, axis, tp
+        self._reduce = mesh.reduce_fn(axis)
+        return self
+
+    def _tree_leaf_bytes(self):
+        """(bytes, tp mark) of every leaf of the unsharded tree."""
+        marks = gpt_tp_shardings(self.cfg)
+        out = []
+        for k, v in self.params.items():
+            if isinstance(v, dict):
+                out += [(array_nbytes(a), marks[k].get(kk, "rep"))
+                        for kk, a in v.items()]
+            else:
+                out.append((array_nbytes(v), marks[k]))
+        return out
+
+    def param_bytes(self):
+        """Bytes of the whole parameter tree, summed over ranks on a mesh
+        (what the mesh holds in total)."""
+        leaves = (self._leaf_bytes if self.params is None
+                  else self._tree_leaf_bytes())
+        return sum(n for n, _m in leaves)
+
+    def param_bytes_per_device(self, mesh=None, axis="tp"):
+        """Bytes of the parameter tree ONE device holds under the serving
+        layout over `mesh`'s `axis`: sharded leaves split by tp,
+        replicated leaves whole. Without a mesh: the whole tree."""
+        if mesh is None:
+            return self.param_bytes()
+        tp = int(mesh.shape[axis])
+        leaves = (self._leaf_bytes if self.params is None
+                  else self._tree_leaf_bytes())
+        return sum(n if m == "rep" else n // tp for n, m in leaves)
+
     def fused_step(self, block_size, pools, tokens, positions, valid,
-                   tables, rng, temperature, do_sample, top_k, top_p,
-                   per_column=False, mask=None):
-        """The fused step (`_fused_step_body`) with in-step sampling:
-        (next_ids, chosen logps, logp rows), plus the fed-token logps
-        when `per_column`."""
+                   tables, rng=None, temperature=None, do_sample=None,
+                   top_k=None, top_p=None, per_column=False, mask=None):
+        """The fused step (`_fused_step_body`): (next_ids, chosen logps,
+        logp rows), plus the fed-token logps when `per_column`. `rng`
+        (with temperature, do_sample, top_k, top_p) turns on in-step
+        sampling; None is greedy. On a mesh (`shard`) `pools` is the
+        cache's `shards` and the step is greedy and last-column only:
+        sampling, a guided mask and `per_column` raise
+        NotImplementedError, as in the JAX package."""
+        sample_ctl = (None if rng is None
+                      else (rng, temperature, do_sample, top_k, top_p))
+        params, reduce_fn = self.params, None
+        h, kv = self.num_heads, self.num_kv_heads
+        if self.mesh is not None:
+            if sample_ctl is not None or mask is not None:
+                raise NotImplementedError(
+                    "the sampling/guided step under a mesh is not "
+                    "supported: run sampled, fork-group and guided "
+                    "servers single-device")
+            if per_column:
+                raise NotImplementedError(
+                    "per-column outputs (speculative verify) are not "
+                    "supported under a mesh")
+            params, reduce_fn = self.tp_params, self._reduce
+            h, kv = h // self.tp, kv // self.tp
         with torch.inference_mode():
             out = _fused_step_body(
-                self.params, self.cfg, block_size, self.num_heads,
-                self.num_kv_heads, self.head_dim, pools, tokens, positions,
-                valid, tables, self.attention,
-                sample_ctl=(rng, temperature, do_sample, top_k, top_p),
+                params, self.cfg, block_size, h, kv, self.head_dim,
+                reduce_fn, pools, tokens, positions, valid, tables,
+                self.attention, sample_ctl=sample_ctl,
                 per_column=per_column, mask=mask)
         return out if per_column else out[:3]
 
@@ -364,7 +477,15 @@ class GenerationServer:
     (deadline cancels in one iteration that dump the flight recorder);
     False serves without it; an instance is used as given. `chaos=` a
     ChaosInjector whose plan the scheduler and step() consume; when it
-    drives the clock and `clock` is None, its clock is the server's."""
+    drives the clock and `clock` is None, its clock is the server's.
+
+    `mesh` (a 1-D mesh, parallel/mesh.py) and `mesh_axis` serve tensor
+    parallel: the model is sharded (GPTServingModel.shard), the pools
+    shard on the KV head axis, and each step runs every held rank's part
+    (module docstring). The ledger then has one kv_pool/shard{i} row a
+    mesh position, the serving.mesh.* gauges are set, and get_stats()
+    gains "mesh" and the scheduler's free_shard_bytes. A world mesh's
+    servers, one a process, must get the same submits and steps."""
 
     def __init__(self, model, *, num_slots=4, block_size=16,
                  num_blocks=None, max_context=None, chunk=4, clock=None,
@@ -372,12 +493,25 @@ class GenerationServer:
                  telemetry=True, slo_window_s=60.0, flight_dir=None,
                  flight_capacity=256, deadline_storm=3, device=None,
                  kv_dtype=None, prefix_cache=False, spec=None,
-                 host_kv_blocks=0):
+                 host_kv_blocks=0, mesh=None, mesh_axis="tp"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
                              f"{self.device}")
         self.model = model
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis if mesh is not None else None
+        if mesh is not None:
+            # before anything allocates: the pools, the scheduler
+            if mesh_axis not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh_axis {mesh_axis!r} is not a mesh axis (mesh has "
+                    f"{mesh.axis_names}): pass mesh_axis=<the axis name>")
+            _check_tp(model.cfg, int(mesh.shape[mesh_axis]))
+            if spec is not None:
+                raise NotImplementedError(
+                    "speculative decoding on a mesh is not supported: run "
+                    "spec servers single-device")
         self.block_size = int(block_size)
         max_context = int(max_context or model.max_position)
         if max_context > model.max_position:
@@ -402,7 +536,10 @@ class GenerationServer:
                                   block_size=self.block_size,
                                   dtype=model.kv_dtype, device=self.device,
                                   num_kv_heads=model.num_kv_heads,
-                                  kv_dtype=kv_dtype)
+                                  kv_dtype=kv_dtype, mesh=mesh,
+                                  axis=mesh_axis)
+        if mesh is not None:
+            model.shard(mesh, mesh_axis)
         if chaos is not None and clock is None and chaos.drives_clock():
             clock = chaos.serving_clock
         # the HBM-ledger component id; the prefix index labels its gauge
@@ -490,8 +627,10 @@ class GenerationServer:
         gauges, server-labeled. close() retires all of them."""
         model, cache = self.model, self.cache
         kv_bytes = cache.pool_bytes()
-        param_bytes = sum(array_nbytes(t)
-                          for t in _tensor_leaves(model.params))
+        shard_bytes = cache.shard_pool_bytes()
+        param_bytes = model.param_bytes()
+        param_dev_bytes = model.param_bytes_per_device(self.mesh,
+                                                       self.mesh_axis)
         hidden = model.num_heads * model.head_dim
         act_est = num_slots * chunk * hidden * 4 * (2 * model.num_layers
                                                     + 4)
@@ -510,8 +649,18 @@ class GenerationServer:
         if cache.quantized:
             kv_detail["scale_bytes"] = cache.scale_bytes()
             kv_detail["dense_equiv_bytes"] = cache.dense_pool_bytes()
-        led.register(self._ledger_id, "kv_pool", "kv_cache", kv_bytes,
-                     detail=kv_detail)
+        if self.mesh is None:
+            led.register(self._ledger_id, "kv_pool", "kv_cache", kv_bytes,
+                         detail=kv_detail)
+        else:
+            # one row a mesh position, each its shard's bytes: the rows
+            # sum to the pool's logical bytes, never tp x over
+            for i, dev in enumerate(self.mesh.devices.flat):
+                led.register(self._ledger_id, f"kv_pool/shard{i}",
+                             "kv_cache", shard_bytes,
+                             detail=dict(kv_detail, device=str(dev),
+                                         mesh_index=i, axis=self.mesh_axis,
+                                         heads_local=cache.heads_local))
         if cache.host is not None:
             led.register(self._ledger_id, "kv_pool_host", "host_ram",
                          cache.host_pool_bytes(),
@@ -519,13 +668,13 @@ class GenerationServer:
                                      num_blocks=cache.host.num_blocks))
         led.register(self._ledger_id, "model_params", "params",
                      param_bytes, detail={"source": "serving model",
-                                          "per_device_bytes": param_bytes})
+                                          "per_device_bytes":
+                                              param_dev_bytes})
         draft_bytes = 0
         if self._spec is not None:
             dm = self._spec.draft_model
             draft_pool_bytes = self._draft_cache.pool_bytes()
-            draft_param_bytes = sum(array_nbytes(t)
-                                    for t in _tensor_leaves(dm.params))
+            draft_param_bytes = dm.param_bytes()
             led.register(self._ledger_id, "draft_kv_pool", "kv_cache",
                          draft_pool_bytes,
                          detail={"layers": dm.num_layers,
@@ -539,12 +688,25 @@ class GenerationServer:
                          draft_param_bytes,
                          detail={"source": "spec draft model"})
             draft_bytes = draft_pool_bytes + draft_param_bytes
+        # per device: one rank's params and pool shard, the replicated
+        # activations
         led.register(self._ledger_id, "fused_step", "peak_hbm",
-                     param_bytes + kv_bytes + act_est + draft_bytes,
+                     param_dev_bytes + shard_bytes + act_est + draft_bytes,
                      detail={"source": "static",
                              "activation_bytes_est": act_est,
                              "per_device": True})
         reg = global_registry()
+        # the mesh's capacity facts: the tp degree, what one device
+        # commits to the pools, the reductions a step pays
+        self._mesh_gauges = None
+        if self.mesh is not None:
+            self._mesh_gauges = {
+                "serving.mesh.axis_size": cache.tp,
+                "serving.mesh.shard_pool_bytes": shard_bytes,
+                "serving.mesh.psums_per_step": 2 * model.num_layers}
+            for name, val in self._mesh_gauges.items():
+                reg.gauge(name, _help(name)).labels(
+                    server=self._ledger_id).set(val)
         self._quant_gauges = None
         if cache.quantized:
             self._quant_gauges = {
@@ -644,6 +806,13 @@ class GenerationServer:
                     f"{sampling.n})")
         k = beam.beam_size if beam is not None else \
             max(n, sampling.n if sampling is not None else 1)
+        if self.mesh is not None and (
+                beam is not None or guided is not None or k > 1
+                or (sampling is not None and sampling.do_sample)):
+            raise NotImplementedError(
+                "decode strategies (sampling, n > 1, beam, guided) are "
+                "not supported on a mesh: its step is greedy; run them "
+                "on a single-device server")
         if guided is not None and eos_id is None:
             raise ValueError(
                 "guided decoding requires eos_id (constraint completion "
@@ -787,17 +956,22 @@ class GenerationServer:
                 if self._draft is not None:
                     draft_logps = self._run_draft(plan)
                 per_column = self._spec is not None
-                do_sample, temperature, top_k, top_p, keys = \
-                    plan.sample_ctl
-                out = self.model.fused_step(
-                    self.block_size, self.cache.pools,
-                    self._tensor(plan.tokens), self._tensor(plan.positions),
-                    self._tensor(plan.valid), self._tensor(plan.tables),
-                    self._tensor(keys.astype(np.int64)),
-                    self._tensor(temperature), self._tensor(do_sample),
-                    self._tensor(top_k), self._tensor(top_p),
-                    per_column=per_column,
-                    mask=self._guided_mask(plan))
+                feed = [self._tensor(a) for a in (
+                    plan.tokens, plan.positions, plan.valid, plan.tables)]
+                if self.mesh is None:
+                    do_sample, temperature, top_k, top_p, keys = \
+                        plan.sample_ctl
+                    out = self.model.fused_step(
+                        self.block_size, self.cache.pools, *feed,
+                        self._tensor(keys.astype(np.int64)),
+                        self._tensor(temperature), self._tensor(do_sample),
+                        self._tensor(top_k), self._tensor(top_p),
+                        per_column=per_column,
+                        mask=self._guided_mask(plan))
+                else:
+                    # the greedy step over every held rank's pool shard
+                    out = self.model.fused_step(self.block_size,
+                                                self.cache.shards, *feed)
                 nxt, logps = out[0].cpu().numpy(), out[1].cpu().numpy()
                 if not per_column:
                     # commit() reads per-column arrays; a broadcast view
@@ -980,9 +1154,12 @@ class GenerationServer:
         in place. Dense pools take the NaN in the k rows; int8 pools in
         the k_scale rows (an int8 code cannot hold NaN, and NaN times
         any code dequantizes to NaN), so the poison goes through the
-        same attention arithmetic on both layouts."""
-        pool = self.cache.pools[layer]
-        pool["k_scale" if "k_scale" in pool else "k"][block] = float("nan")
+        same attention arithmetic on both layouts. Every held head shard
+        takes it."""
+        for pools in self.cache.shards:
+            pool = pools[layer]
+            pool["k_scale" if "k_scale" in pool else "k"][block] = \
+                float("nan")
 
     def _poison_kv(self, layer, lanes):
         """Chaos hook: NaN the first KV block of the oldest active lane
@@ -1112,8 +1289,8 @@ class GenerationServer:
 
     def _retire(self):
         """Close the endpoint and retire this server's SLO gauges, ledger
-        rows, serving.kv.quant.* / serving.kv.tier.* gauges and prefix
-        gauge (idempotent): a closed or faulted server must not keep
+        rows, serving.mesh.* / serving.kv.quant.* / serving.kv.tier.*
+        gauges and prefix gauge (idempotent): a closed or faulted server must not keep
         reporting live bytes or window quantiles."""
         if self._exporter is not None:
             self._exporter.close()
@@ -1122,10 +1299,11 @@ class GenerationServer:
             self._tel.close()
         hbm_ledger().retire(self._ledger_id)
         reg = global_registry()
-        for gauges in (self._quant_gauges, self._tier_gauges):
+        for gauges in (self._mesh_gauges, self._quant_gauges,
+                       self._tier_gauges):
             for name in gauges or ():
                 reg.gauge(name).remove(server=self._ledger_id)
-        self._quant_gauges = self._tier_gauges = None
+        self._mesh_gauges = self._quant_gauges = self._tier_gauges = None
         if self._prefix is not None:
             self._prefix.drop_gauges()
 
@@ -1141,7 +1319,10 @@ class GenerationServer:
         (None without speculation) k, mode, proposed, accepted,
         accept_rate and the draft's kernel launches; the "group.*",
         "beam.*" and "guided.*" keys count fork groups, beam reorders and
-        masked steps. `kv_tier` (None without a host tier) the tier's
+        masked steps. `mesh` (None single-device) the axis, tp, form,
+        devices, logical and one shard's pool bytes, the reductions a
+        step pays and the mesh's count so far. `kv_tier` (None without a
+        host tier) the tier's
         blocks, bytes and traffic; `preempts`, `resumes` and
         `preempted_depth` the scheduler's. `memory` is this server's
         HBM-ledger rows by kind (empty once closed); `slo` and `tenants`
@@ -1200,6 +1381,18 @@ class GenerationServer:
         st["tenants"] = (self._tel.tenants.snapshot()
                          if self._tel is not None else None)
         st["engine_fault"] = repr(self._fault) if self._fault else None
+        st["mesh"] = None
+        if self.mesh is not None:
+            st["mesh"] = {
+                "axis": self.mesh_axis,
+                "tp": self.cache.tp,
+                "form": "world" if self.mesh.world else "local",
+                "devices": [str(d) for d in self.mesh.devices.flat],
+                "pool_bytes": self.cache.pool_bytes(),
+                "shard_pool_bytes": self.cache.shard_pool_bytes(),
+                "psums_per_step": 2 * self.model.num_layers,
+                "reductions": self.mesh.reductions,
+            }
         st["memory"] = hbm_ledger().component_bytes(self._ledger_id)
         return st
 

@@ -33,8 +33,18 @@ The fleet moves blocks between caches: ``adopt_block_from`` copies one
 block's rows from another cache in place (the disaggregated handoff
 between in-process replicas), and ``serialize_block`` /
 ``deserialize_block`` carry them across processes (the worker
-transport), both geometry-checked, scales beside int8 codes. Meshes
-wait.
+transport), both geometry-checked, scales beside int8 codes.
+
+With ``mesh=`` (a 1-D tensor-parallel mesh, ``parallel/mesh.py``) the
+pools shard on the KV head axis: each rank's shard is a contiguous
+(N, H_kv/tp, bs, D) tensor of its own (the kernel takes no strided
+view), its int8 scale pools (N, H_kv/tp, bs) beside it, held in
+``shards`` for the ranks this process computes (every rank of a local
+mesh, its own in a world). Only the device layout moves: the free list,
+the refcounts and the block tables stay replicated host state, so a
+block id names the same rows on every shard, and every block op above
+covers every held shard. A block crosses the wire in the JAX package's
+head-major (H_kv, bs, D) layout whatever the sender's tp.
 """
 
 import numpy as np
@@ -117,6 +127,15 @@ def _dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
 
+def _one_shard(shards):
+    if len(shards) != 1:
+        raise ValueError(
+            f"this cache holds {len(shards)} head shards (a local "
+            f"tensor-parallel mesh): read `shards`, one per-layer pool "
+            f"list a rank")
+    return shards[0]
+
+
 def _host_tensor(a):
     """A received blob as a CPU tensor: tensors pass through (the
     transport reads a bf16 blob as one); numpy arrays are wrapped."""
@@ -155,11 +174,11 @@ class HostKVTier:
             raise ValueError("host tier needs >= 1 block")
         self.num_blocks = int(num_blocks)
         self.block_size = cache.block_size
-        shape = (self.num_blocks, cache.num_kv_heads, cache.block_size,
-                 cache.head_dim)
+        shape = (self.num_blocks, cache.num_kv_heads // cache.tp,
+                 cache.block_size, cache.head_dim)
         pin = cache.device.type == "cuda"
-        self.pools = []
-        for _ in range(cache.num_layers):
+
+        def make_layer():
             layer = {name: torch.zeros(shape, dtype=cache.dtype,
                                        pin_memory=pin)
                      for name in ("k", "v")}
@@ -170,7 +189,11 @@ class HostKVTier:
                     layer[name] = torch.ones(shape[:3],
                                              dtype=torch.float32,
                                              pin_memory=pin)
-            self.pools.append(layer)
+            return layer
+
+        # one host shard for each device shard the cache holds
+        self.shards = [[make_layer() for _ in range(cache.num_layers)]
+                       for _ in cache.shards]
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._used = set()
         self._reads = {}
@@ -201,11 +224,17 @@ class HostKVTier:
             self._used.discard(b)
             self._free.append(b)
 
+    @property
+    def pools(self):
+        """The per-layer host pools of the one shard held (see
+        PagedKVCache.pools)."""
+        return _one_shard(self.shards)
+
     def pool_bytes(self):
         """Host bytes of every block pool (k+v across layers, the f32
-        scale pools included for int8)."""
-        return sum(t.numel() * t.element_size()
-                   for layer in self.pools for t in layer.values())
+        scale pools included for int8) of the shards held."""
+        return sum(t.numel() * t.element_size() for pools in self.shards
+                   for layer in pools for t in layer.values())
 
 
 class PagedKVCache:
@@ -228,14 +257,21 @@ class PagedKVCache:
       (num_blocks, H_kv, block_size)). Reads dequantize to `dtype`.
 
     Every byte count (pool_bytes, scale_bytes, dense_pool_bytes) is at
-    the cache's own H_kv geometry, scales included.
+    the cache's own H_kv geometry, scales included, and logical: what
+    the whole mesh holds. `shard_pool_bytes` is one rank's share.
+
+    `mesh` (a 1-D mesh) and `axis` shard the pools on the KV head axis:
+    `shards` holds the per-layer pool lists of the ranks this process
+    computes (`ranks`), each tensor a contiguous (N, H_kv/tp, bs, D) (or
+    (N, H_kv/tp, bs) scale) tensor; `pools` is the one shard a cache
+    without a mesh, or a world rank, holds.
 
     `device` None means the card, and raises without CUDA (as every entry
     point of the port does); pass "cpu" for CPU pools."""
 
     def __init__(self, num_layers, num_heads, head_dim, num_blocks,
                  block_size=16, dtype=torch.float32, device=None,
-                 num_kv_heads=None, kv_dtype=None):
+                 num_kv_heads=None, kv_dtype=None, mesh=None, axis="tp"):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved NULL)")
         if kv_dtype not in (None, "bf16", "int8"):
@@ -259,7 +295,30 @@ class PagedKVCache:
                               else dtype)
         self.dtype = torch.int8 if self.quantized else self.compute_dtype
         self.device = resolve_device(device)
-        shape = (self.num_blocks, self.num_kv_heads, self.block_size,
+        self.mesh = mesh
+        self.axis = axis if mesh is not None else None
+        if mesh is not None and len(mesh.axis_names) != 1:
+            # one head axis: the per-device ledger rows and the shard byte
+            # math (pool / tp each) hold on a 1-D mesh only; data
+            # parallelism is separate servers
+            raise ValueError(
+                f"serving mesh must be 1-D (the head axis); got axes "
+                f"{mesh.axis_names}: run data-parallel replicas as "
+                f"separate GenerationServers instead")
+        if mesh is not None and axis not in mesh.axis_names:
+            raise ValueError(
+                f"axis {axis!r} is not a mesh axis (mesh has "
+                f"{mesh.axis_names}): pass axis=<the mesh's axis name>")
+        self.tp = int(mesh.shape[axis]) if mesh is not None else 1
+        if self.num_kv_heads % self.tp:
+            raise ValueError(
+                f"mesh axis {axis!r} size {self.tp} must divide "
+                f"num_kv_heads={self.num_kv_heads} (head-sharded pools "
+                f"shard the KV heads; with GQA that is H_kv, not the "
+                f"{self.num_heads} query heads)")
+        self.ranks = mesh.held(axis) if mesh is not None else [0]
+        self.heads_local = self.num_kv_heads // self.tp
+        shape = (self.num_blocks, self.heads_local, self.block_size,
                  self.head_dim)
 
         def make_layer():
@@ -277,7 +336,8 @@ class PagedKVCache:
                                              device=self.device)
             return layer
 
-        self.pools = [make_layer() for _ in range(self.num_layers)]
+        self.shards = [[make_layer() for _ in range(self.num_layers)]
+                       for _ in self.ranks]
         # LIFO free list; block 0 (NULL) is never handed out
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._ref = {}      # block -> live references (absent = free)
@@ -290,6 +350,14 @@ class PagedKVCache:
         self.host = None
         self.host_spills = 0
         self.host_swap_ins = 0
+
+    @property
+    def pools(self):
+        """The per-layer pool dicts ({"k", "v"[, "k_scale", "v_scale"]})
+        of the one shard this cache holds: every head without a mesh,
+        this rank's in a world. A local mesh holds one shard a rank, and
+        this raises: read `shards`."""
+        return _one_shard(self.shards)
 
     @property
     def usable_blocks(self):
@@ -316,6 +384,12 @@ class PagedKVCache:
         dt = dtype if dtype is not None else self.compute_dtype
         return (2 * self.num_layers * self.num_blocks * self.num_kv_heads
                 * self.block_size * self.head_dim * dt.itemsize)
+
+    def shard_pool_bytes(self):
+        """Bytes ONE rank's device commits to the pools: pool_bytes() / tp
+        (the head axis divides exactly), the whole pool without a mesh:
+        the unit admission watermarks protect."""
+        return self.pool_bytes() // self.tp
 
     @property
     def num_free(self):
@@ -434,9 +508,10 @@ class PagedKVCache:
         if NULL_BLOCK in (src, dst):
             raise ValueError("copy-on-write of the reserved NULL block")
         for holder in [self] + self._siblings:
-            for layer in holder.pools:
-                for arr in layer.values():
-                    arr[dst].copy_(arr[src])
+            for pools in holder.shards:
+                for layer in pools:
+                    for arr in layer.values():
+                        arr[dst].copy_(arr[src])
         self.cow_copies += 1
 
     # -- fleet handoff -----------------------------------------------------
@@ -447,6 +522,34 @@ class PagedKVCache:
     def _format(self):
         return ("int8+scales" if self.quantized
                 else f"dense {_dtype_name(self.dtype)}")
+
+    def _block_rows(self, block):
+        """Block `block`'s rows at full head width: per layer {name:
+        (H_kv, bs, D) or (H_kv, bs) scale tensor}, the shards' head
+        slices concatenated in rank order. Needs every shard."""
+        if len(self.shards) != self.tp:
+            raise NotImplementedError(
+                f"this cache holds {len(self.shards)} of the {self.tp} "
+                f"head shards of its mesh (a world rank): its blocks' "
+                f"full rows live across processes, and gathering them is "
+                f"not supported")
+        if self.tp == 1:
+            # one shard: its rows as they lie, no device copy
+            return [{n: a[block] for n, a in layer.items()}
+                    for layer in self.shards[0]]
+        return [{n: torch.cat([pools[li][n][block] for pools in self.shards])
+                 for n in self.shards[0][li]}
+                for li in range(self.num_layers)]
+
+    def _write_block_rows(self, block, rows):
+        """Copy full-width rows (per layer {name: (H_kv, ...) tensor}, as
+        _block_rows gives them) into block `block` of every held shard:
+        each rank takes its slice of the head axis."""
+        hl = self.heads_local
+        for pools, r in zip(self.shards, self.ranks):
+            for layer, row in zip(pools, rows):
+                for name, arr in layer.items():
+                    arr[block].copy_(row[name][r * hl:(r + 1) * hl])
 
     def adopt_block_from(self, src_cache, src_block, dst_block):
         """Pool-slice transfer between caches: copy block `src_block`'s
@@ -485,10 +588,8 @@ class PagedKVCache:
                 f"{self._format()}: int8 codes are meaningless without "
                 f"their scale rows and there is no implicit requantize "
                 f"path. Build both tiers with the same kv_dtype")
-        s, d = int(src_block), int(dst_block)
-        for sp, dp in zip(src_cache.pools, self.pools):
-            for name, arr in dp.items():
-                arr[d].copy_(sp[name][s])
+        self._write_block_rows(int(dst_block),
+                               src_cache._block_rows(int(src_block)))
 
     def wire_geometry(self):
         """The block-shape contract a serialized block travels with:
@@ -508,11 +609,12 @@ class PagedKVCache:
         scale rows when quantized; bf16 rows stay bf16, which the wire
         format writes under the dtype string "bfloat16"). The byte
         payload of a cross-process adopt_block_from; deserialize_block
-        is the receiving half."""
-        names = sorted(self.pools[0].keys())
-        block = int(block)
-        arrays = [layer[name][block].to("cpu", copy=True)
-                  for layer in self.pools for name in names]
+        is the receiving half. A tp cache sends the full (H_kv, ...)
+        rows, its shards' head slices joined in rank order."""
+        names = sorted(self.shards[0][0].keys())
+        rows = self._block_rows(int(block))
+        arrays = [row[name].to("cpu", copy=True)
+                  for row in rows for name in names]
         return {"geometry": self.wire_geometry(), "names": names}, arrays
 
     def deserialize_block(self, dst_block, meta, arrays):
@@ -545,7 +647,7 @@ class PagedKVCache:
                 f"their scale rows and there is no implicit requantize "
                 f"path. Build both tiers with the same kv_dtype")
         names = list(meta.get("names", ()))
-        want = sorted(self.pools[0].keys())
+        want = sorted(self.shards[0][0].keys())
         if names != want:
             raise ValueError(
                 f"deserialize_block payload names {names} do not match "
@@ -556,11 +658,10 @@ class PagedKVCache:
                 f"deserialize_block expected {expect} arrays "
                 f"({self.num_layers} layers x {len(names)} entries), "
                 f"got {len(arrays)}: truncated handoff payload")
-        d = int(dst_block)
-        for li, layer in enumerate(self.pools):
-            for ni, name in enumerate(names):
-                layer[name][d].copy_(
-                    _host_tensor(arrays[li * len(names) + ni]))
+        rows = [{name: _host_tensor(arrays[li * len(names) + ni])
+                 for ni, name in enumerate(names)}
+                for li in range(self.num_layers)]
+        self._write_block_rows(int(dst_block), rows)
 
     # -- host tier ---------------------------------------------------------
     def enable_host_tier(self, num_blocks):
@@ -580,6 +681,13 @@ class PagedKVCache:
 
     def _holders(self):
         return [h for h in [self] + self._siblings if h.host is not None]
+
+    def _tier_layers(self):
+        """(device layer dict, host layer dict) pairs: every layer of
+        every held shard of every holder with a tier."""
+        for h in self._holders():
+            for dev_pools, host_pools in zip(h.shards, h.host.shards):
+                yield from zip(dev_pools, host_pools)
 
     def spill_block(self, block):
         """Device-to-host copy of block `block`'s rows (every layer of
@@ -603,11 +711,9 @@ class PagedKVCache:
             read = self.host._reads.pop(hb, None)
             if read is not None:
                 torch.cuda.current_stream(self.device).wait_event(read)
-        for h in self._holders():
-            for dev_layer, host_layer in zip(h.pools, h.host.pools):
-                for name, arr in dev_layer.items():
-                    host_layer[name][hb].copy_(arr[block],
-                                               non_blocking=cuda)
+        for dev_layer, host_layer in self._tier_layers():
+            for name, arr in dev_layer.items():
+                host_layer[name][hb].copy_(arr[block], non_blocking=cuda)
         if cuda:
             torch.cuda.current_stream(self.device).synchronize()
         self.host_spills += 1
@@ -623,11 +729,10 @@ class PagedKVCache:
             raise ValueError("swap_in_block without enable_host_tier")
         host_block, dst_block = int(host_block), int(dst_block)
         cuda = self.device.type == "cuda"
-        for h in self._holders():
-            for dev_layer, host_layer in zip(h.pools, h.host.pools):
-                for name, arr in dev_layer.items():
-                    arr[dst_block].copy_(host_layer[name][host_block],
-                                         non_blocking=cuda)
+        for dev_layer, host_layer in self._tier_layers():
+            for name, arr in dev_layer.items():
+                arr[dst_block].copy_(host_layer[name][host_block],
+                                     non_blocking=cuda)
         if cuda:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))

@@ -1507,6 +1507,11 @@ class ContinuousBatchingScheduler:
 
     def stats(self):
         with self._lock:
+            # watermark headroom in the unit it protects: the bytes ONE
+            # device keeps free (a block costs shard_pool_bytes() /
+            # num_blocks there under a head-sharded mesh)
+            shard_block_bytes = (self._cache.shard_pool_bytes()
+                                 // self._cache.num_blocks)
             return {
                 "iteration": self.iteration,
                 "queue_depth": len(self._queue),
@@ -1516,6 +1521,10 @@ class ContinuousBatchingScheduler:
                 "blocks_free": self._cache.num_free,
                 "block_utilization": round(self._cache.utilization(), 4),
                 "watermark_blocks": self.watermark_blocks,
+                "watermark_shard_bytes": self.watermark_blocks
+                * shard_block_bytes,
+                "free_shard_bytes": self._cache.num_free
+                * shard_block_bytes,
                 "prefix": self._prefix.stats()
                 if self._prefix is not None else None,
                 "preempts": self.preempts,

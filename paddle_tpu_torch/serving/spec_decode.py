@@ -67,8 +67,8 @@ def build_draft_step(model, block_size, k):
         # greedy, last valid column: (next ids (S,), their logps (S,))
         return _fused_step_body(
             model.params, model.cfg, block_size, model.num_heads,
-            model.num_kv_heads, model.head_dim, pools, tokens, positions,
-            valid, tables, model.attention)[:2]
+            model.num_kv_heads, model.head_dim, None, pools, tokens,
+            positions, valid, tables, model.attention)[:2]
 
     def draft_step(pools, tokens, positions, valid, tables, spec_go,
                    limits):
