@@ -260,7 +260,42 @@ backward kernels are printed):
    tests/parallel/test_serving_tp.py's f32 staggered stream: both ranks'
    ids equal a tp 1 server's, 2 x 12 reductions a step, launches =
    iterations x 12 a rank, equal block tables every step; a rank's
-   failure fails the phase.
+   failure fails the phase;
+20. the training recipe on phase 16's configuration (BertConfig(), seq
+   512 x batch 8, dropout 0.1, the ERNIE feed), in the shape of
+   PaddlePaddle's LARK BERT recipe: ``amp.decorate(AdamOptimizer(
+   learning_rate=linear_lr_warmup(polynomial_decay(1e-4, 1000, 0.0), 4,
+   0.0, 1e-4), regularization=L2Decay(1e-2)), init_loss_scaling=2**15,
+   use_dynamic_loss_scaling=True)`` under ``set_gradient_clip(
+   GradientClipByGlobalNorm(1.0))``: the products in bf16 (cuBLAS; in
+   phases 20-20d split-K partials are summed in f32, as XLA accumulates
+   a bf16 dot), the attention in f32 through the flash kernels. 30 steps
+   on one batch: every loss finite, the last below 0.95 x the first, the
+   first within 1e-2 of phase 16's f32 first loss (the same weights, feed
+   and dropout masks), 12 + 12 + 12 flash launches a step and none of the
+   tensor-core kernel, the rate fetched each step the schedule's closed
+   form; prints step ms p50/p99, tokens/s, the peak memory, the loss
+   scale and good-step count at the end, and a profile of 3 more steps
+   beside phase 16's (wall and device ms, busy share, device operations
+   a step);
+20b. the recipe under ``RecomputeOptimizer(policy="dots")`` and
+   ``"nothing"`` beside two runs without recompute, from copies of one
+   startup scope, 3 steps each: the first loss equal, the first step's
+   @GRADs within a few f32 roundings (what the two runs without
+   recompute differ by), the later losses within bf16's 1e-3, 24 + 12 +
+   12 flash launches a step under recompute (the checkpoint re-runs the
+   forward kernel), a lower peak memory, and, as the first step's
+   backward starts, "dots" holding at least half its forward's 2-D
+   products' bytes more than "nothing" (the products it saved) and less
+   than the run without recompute; prints each run's peak bytes, bytes
+   held at the backward, step ms and errors against the first run
+   without recompute;
+20c. 3 steps of the recipe, then the loss-scaling var set to 3e38 for one
+   step (the scaled loss overflows): every parameter finite after it, the
+   scale 0.8 x 3e38, the good-step count 0, the next 3 losses finite;
+20d. kernel vs plain attention under the recipe: train_agree at full
+   width, 2 layers, dropout 0, 16b's padded feed, 3 steps, at bf16's
+   tolerances (the same bf16 products on both sides).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -293,8 +328,9 @@ flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
 the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
-phases 2b, 18b and 19b, the flash entries those of phases 16-17 and 19c,
-with 16b/16c/17/19b/19c's errors in ``path_errs``); the line before
+phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c
+and 20-20d, with 16b/16c/17/19b/19c/20d's errors in ``path_errs``); the
+line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.
@@ -429,6 +465,54 @@ TP_WORLD_TIMEOUT_S = 300.0          # 19d: both ranks, boot included
 # test_ring_sp8_long_sequence_grads
 RING_OUT_TOL = 3e-5
 RING_GRAD_TOL = 2e-4
+# phases 20-20d: the training recipe on phase 16's configuration, in the
+# shape of PaddlePaddle's LARK BERT recipe: bf16 products under dynamic
+# loss scaling, linear warmup then linear decay, the global-norm clip,
+# weight decay
+RECIPE_PEAK_LR = 1e-4
+RECIPE_WARMUP = 4
+RECIPE_DECAY_STEPS = 1000
+RECIPE_L2 = 1e-2
+RECIPE_CLIP = 1.0
+RECIPE_SCALE = 2.0 ** 15
+# 20: the rate fetched each step against the schedule's closed form in
+# f64: a handful of f32 scalar ops, each rounding once (2**-24)
+RECIPE_LR_RTOL = 1e-6
+# 20: the first loss (bf16 products, f32 accumulation) against phase
+# 16's (f32 products) on the same weights, feed and dropout masks: every
+# product's inputs rounded to bf16 (2**-9 relative each), the errors of
+# both signs averaged over the hidden width, carried through 12 layers
+# into a mean over 8 x 20 masked tokens and 8 NSP rows
+AMP_FIRST_LOSS_RTOL = 1e-2
+RECOMPUTE_POLICIES = ("dots", "nothing")
+RECOMPUTE_STEPS = 3
+# 20b: recompute re-runs the same kernels on the same inputs, so the
+# first step's loss is expected equal. Its @GRADs are not bitwise even
+# between two identical runs without recompute (on an H100 they differ
+# by ~5e-7 of their scale: some accumulation in the step's backward has
+# no fixed order), so they are held to a few f32 roundings, relative to
+# each gradient's max (the floor as 9b's). Later steps' weights come
+# from updates of those gradients, and a last-bit difference in a
+# weight can flip its bf16 rounding at the next product: their losses
+# are held to 20d's bf16 tolerance
+RECOMPUTE_LOSS_TOL = 1e-6
+RECOMPUTE_GRAD_TOL = 1e-5
+# 20b: "dots" must-saves the outputs of the forward's 2-D products
+# (aten.mm / aten.addmm), "nothing" saves a segment's inputs alone, so as
+# the backward starts "dots" holds about those products' bytes more. A
+# policy whose saving never fired would hold the same; an output that is
+# also a segment's boundary is held under both, hence the half
+RECOMPUTE_DOTS_HELD_SHARE = 0.5
+OVERFLOW_SCALE = 3e38               # 20c: the loss-scaling var, one step
+OVERFLOW_STEPS = 3                  # 20c: steps before and after it
+# 20d: kernel vs plain attention under the recipe, measured as 9b's. The
+# attention is f32 on both sides (1e-5 apart, 9b), but its output is
+# rounded to bf16 at the next product's input, where a difference of an
+# ulp of f32 flips a bf16 rounding (2**-8 relative) now and then: the
+# agreement is bf16's, as tests/test_torch_amp.py's against JAX (loss a
+# quarter of a bf16 step, gradients eight)
+AMP_AGREE_LOSS_TOL = 1e-3
+AMP_AGREE_GRAD_TOL = 2.0 ** -5
 # the profile phases trace the device only: every number they print is a
 # device time or count, or a host wall around the traced loop, and the
 # host-side op events made the profiler's own processing the largest part
@@ -1775,19 +1859,24 @@ def _zero_counts(flash):
     flash.TC_LAUNCHES = 0
 
 
-def _train_run(flash, exe, main, feed, loss, steps, warm):
+def _train_run(flash, exe, main, feed, loss, steps, warm, extra=(),
+               extra_out=None):
     """`steps` steps of main on one feed: (losses, timed step ms after
     `warm`, the set of per-step (fwd, dQ, dK/dV) launch deltas, tensor-
-    core forward launches)."""
+    core forward launches). With `extra`, each step's fetches of those
+    vars go to the list `extra_out`."""
     losses, step_ms, per_step = [], [], set()
     tc0 = flash.TC_LAUNCHES
     for i in range(steps):
         before = _bwd_counts(flash)
         ts = time.perf_counter()
         # the fetch's copy to the host ends the step
-        out, = exe.run(main, feed=feed, fetch_list=[loss])
+        out, *more = exe.run(main, feed=feed,
+                             fetch_list=[loss] + list(extra))
         if i >= warm:
             step_ms.append((time.perf_counter() - ts) * 1e3)
+        if extra:
+            extra_out.append(more)
         losses.append(float(np.asarray(out).reshape(-1)[0]))
         per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
                                                  before)))
@@ -1849,14 +1938,16 @@ def _plain_attention(q, k, v, bias=None, scale=None, causal=False,
                                         causal=causal)
 
 
-def train_agree(flash, tag, program, feed, layers, steps):
-    """`steps` f32 Adam steps of `program` (main, startup, loss) through
+def train_agree(flash, tag, program, feed, layers, steps,
+                loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL):
+    """`steps` Adam steps of `program` (main, startup, loss) through
     the flash kernels and with the plain dense attention put in at
     attention_ops (a seam of this script only, restored after), from
-    copies of one startup scope: each step's loss within TRAIN_LOSS_TOL
-    and the first step's @GRADs within TRAIN_GRAD_TOL (see their
-    comment). Returns ((fwd, dQ, dK/dV, bf16 fwd) launches of the kernel
-    run, the errors)."""
+    copies of one startup scope: each step's loss within `loss_tol`
+    and the first step's @GRADs within `grad_tol` (by default the f32
+    TRAIN_LOSS_TOL and TRAIN_GRAD_TOL, see their comment). Returns
+    ((fwd, dQ, dK/dV, bf16 fwd) launches of the kernel run, the
+    errors)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import attention_ops
     main, startup, loss = program
@@ -1902,12 +1993,12 @@ def train_agree(flash, tag, program, feed, layers, steps):
     floor = 1e-3 * max(g.abs().max().item() for g in pg)
     worst = max(((a - b).abs().max().item() / (b.abs().max().item() + floor),
                  nm) for nm, a, b in zip(names, kg, pg))
-    print(f"{tag} f32: losses {kl} vs {pl} (worst rel err {loss_err:.3e}, "
-          f"tolerance {TRAIN_LOSS_TOL}); {len(names)} @GRADs, worst "
-          f"{worst[0]:.3e} at {worst[1]} (tolerance {TRAIN_GRAD_TOL}); "
+    print(f"{tag}: losses {kl} vs {pl} (worst rel err {loss_err:.3e}, "
+          f"tolerance {loss_tol}); {len(names)} @GRADs, worst "
+          f"{worst[0]:.3e} at {worst[1]} (tolerance {grad_tol}); "
           f"launches {kernel_counts}")
-    if not (loss_err <= TRAIN_LOSS_TOL and worst[0] <= TRAIN_GRAD_TOL):
-        _fail(f"{tag}: f32 steps through the kernels disagree with the "
+    if not (loss_err <= loss_tol and worst[0] <= grad_tol):
+        _fail(f"{tag}: steps through the kernels disagree with the "
               f"plain attention")
     return kernel_counts + (tc,), {"loss_rel_err": loss_err,
                                    "grad_rel_err": worst[0]}
@@ -3247,6 +3338,7 @@ def phase_bert(flash):
     mean_ms = float(np.mean(step_ms))
     out = {"config": "BertConfig(max_position_embeddings=512)",
            "seq_len": t, "batch": b, "params": len(main.all_parameters()),
+           "ops": len(main.global_block().ops),
            "feed": "ernie.make_pretrain_feed(cfg, 512, 8, int32)",
            "startup_s": startup_s, "steps_timed": len(step_ms),
            "step_ms_p50": float(np.percentile(step_ms, 50)),
@@ -3260,7 +3352,7 @@ def phase_bert(flash):
            "flash_launches_fwd_dq_dkv": list(counts)}
     print("bert " + json.dumps(out))
     print("profile bert " + json.dumps(prof))
-    return counts + (tc,)
+    return counts + (tc,), out, prof
 
 
 def phase_bert_agree(flash):
@@ -4593,6 +4685,406 @@ def phase_tp_world(paged, cfg, tree):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phases 20-20d: the training recipe (bf16 products with dynamic loss
+# scaling, warmup then linear decay, the global-norm clip, weight decay;
+# recompute) on phase 16's BERT-base pretraining
+# ---------------------------------------------------------------------------
+
+def build_recipe(cfg, policy=None):
+    """(main, startup, loss, the learning-rate var, the amp optimizer):
+    phase 16's MLM+NSP net at seq BERT_SEQ under
+    amp.decorate(AdamOptimizer(linear_lr_warmup(polynomial_decay(...)),
+    regularization=L2Decay), dynamic loss scaling) with
+    set_gradient_clip(GradientClipByGlobalNorm), optionally inside
+    RecomputeOptimizer(policy=). The program seed is build_bert's, so the
+    startup draws phase 16's weights."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    lay = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 16
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _f, loss, _mlm, _acc = bert.build_pretrain_net(cfg, seq_len=BERT_SEQ)
+        lr = lay.linear_lr_warmup(
+            lay.polynomial_decay(RECIPE_PEAK_LR,
+                                 decay_steps=RECIPE_DECAY_STEPS,
+                                 end_learning_rate=0.0),
+            warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_PEAK_LR)
+        opt = fluid.amp.decorate(
+            fluid.optimizer.AdamOptimizer(
+                learning_rate=lr,
+                regularization=fluid.regularizer.L2Decay(RECIPE_L2)),
+            init_loss_scaling=RECIPE_SCALE, use_dynamic_loss_scaling=True)
+        outer = opt if policy is None else \
+            fluid.optimizer.RecomputeOptimizer(opt, policy=policy)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(RECIPE_CLIP))
+        try:
+            outer.minimize(loss)
+        finally:
+            fluid.clip.set_gradient_clip(None)
+    return main, startup, loss, lr, opt
+
+
+def recipe_lr(step):
+    """The schedule's closed form at 0-based step `step`."""
+    if step < RECIPE_WARMUP:
+        return RECIPE_PEAK_LR * step / RECIPE_WARMUP
+    return RECIPE_PEAK_LR * (1.0 - min(step, RECIPE_DECAY_STEPS)
+                             / RECIPE_DECAY_STEPS)
+
+
+def _scalar(scope, name):
+    return float(scope.get(name).reshape(-1)[0])
+
+
+def phase_recipe(flash, bert16):
+    """Phase 20: the recipe at phase 16's configuration (BertConfig(),
+    seq BERT_SEQ x batch BERT_BATCH, dropout 0.1, the ERNIE feed) for
+    BERT_WARM + BERT_STEPS steps: every loss finite, the last below
+    BERT_LOSS_MARGIN x the first, the first within AMP_FIRST_LOSS_RTOL of
+    phase 16's f32 first loss (`bert16`: its printed record), 12 + 12 + 12
+    f32 flash launches a step and no tensor-core launch (attention stays
+    f32: multihead_attention is not on the white list), the rate fetched
+    each step the schedule's closed form. Then a profile of
+    BERT_PROFILE_STEPS more steps. Returns the run's (fwd, dQ, dK/dV, bf16
+    fwd) launches and its record."""
+    import paddle_tpu_torch as fluid
+    cfg = bert_config()
+    main, startup, loss, lr, opt = build_recipe(cfg)
+    feed = bert_feed()
+    exe = fluid.Executor()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    n = cfg.num_hidden_layers
+    scope = fluid.Scope()
+    rates = []
+    with fluid.scope_guard(scope):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        _zero_counts(flash)
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, main, feed, loss, BERT_WARM + BERT_STEPS, BERT_WARM,
+            extra=[lr], extra_out=rates)
+        counts = _bwd_counts(flash)
+        peak = torch.cuda.max_memory_allocated()
+        scale = _scalar(scope, opt.get_loss_scaling().name)
+        good = _scalar(scope, opt._good_steps.name)
+        prof = _profile_train(lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss]),
+                              BERT_PROFILE_STEPS)
+    if per_step != {(n, n, n)} or tc != 0:
+        _fail(f"recipe: flash launches fwd/dq/dkv per step {per_step}, "
+              f"want {n} each; {tc} tensor-core, want 0")
+    first, last = losses[0], losses[-1]
+    if not np.isfinite(losses).all() or not last < BERT_LOSS_MARGIN * first:
+        _fail(f"recipe: loss not finite or not below {BERT_LOSS_MARGIN} x "
+              f"the first: {losses}")
+    first_err = abs(first - bert16["loss_first"]) / abs(bert16["loss_first"])
+    if not first_err <= AMP_FIRST_LOSS_RTOL:
+        _fail(f"recipe: first loss {first} against phase 16's f32 "
+              f"{bert16['loss_first']}: {first_err:.3e} > "
+              f"{AMP_FIRST_LOSS_RTOL}")
+    got = [float(np.asarray(r[0]).reshape(-1)[0]) for r in rates]
+    want = [recipe_lr(i) for i in range(len(got))]
+    lr_err = max(abs(g - w) / max(abs(w), 1e-30) if w else abs(g)
+                 for g, w in zip(got, want))
+    if not lr_err <= RECIPE_LR_RTOL:
+        _fail(f"recipe: rates {got} against the schedule {want}")
+    mean_ms = float(np.mean(step_ms))
+    b, t = BERT_BATCH, BERT_SEQ
+    out = {"config": "BertConfig(max_position_embeddings=512)",
+           "recipe": f"amp.decorate(Adam(linear_lr_warmup(polynomial_decay("
+                     f"{RECIPE_PEAK_LR}, {RECIPE_DECAY_STEPS}, 0.0), "
+                     f"{RECIPE_WARMUP}, 0.0, {RECIPE_PEAK_LR}), "
+                     f"L2Decay({RECIPE_L2})), {RECIPE_SCALE}, dynamic), "
+                     f"GradientClipByGlobalNorm({RECIPE_CLIP})",
+           "seq_len": t, "batch": b, "ops": len(main.global_block().ops),
+           "ops_phase16": bert16["ops"],
+           "startup_s": startup_s, "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "tokens_per_s": b * t / (mean_ms / 1e3),
+           "max_memory_allocated": peak,
+           "allocated_before": before,
+           "loss_first": first, "loss_last": last,
+           "loss_ratio": last / first,
+           "loss_first_phase16_f32": bert16["loss_first"],
+           "loss_first_rel_err_vs_f32": first_err,
+           "lr_first_last": [got[0], got[-1]], "lr_rel_err": lr_err,
+           "loss_scale_end": scale, "good_steps_end": good,
+           "flash_launches_fwd_dq_dkv": list(counts)}
+    print("recipe " + json.dumps(out))
+    print("profile recipe " + json.dumps(prof))
+    return counts + (tc,), out, prof
+
+
+def _copy_scope(scope):
+    import paddle_tpu_torch as fluid
+    new = fluid.Scope()
+    for name in scope.names():
+        new.set(name, scope.get(name).clone())
+    return new
+
+
+class _BackwardProbe:
+    """Around one Executor step: the bytes of the forward's 2-D products
+    (outputs of aten.mm / aten.addmm, read by a dispatch mode until the
+    backward starts), the memory allocated as the backward starts
+    (torch.autograd.grad entered: what the forward left for it, the
+    checkpoints' saved products included, beside the weights and the
+    optimizer state) and the peak since the last reset as it ends."""
+
+    def __init__(self):
+        self.mm_bytes = self.held = self.peak = None
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        products = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+        probe = self
+        self.mm_bytes = 0
+
+        class Products(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if probe.held is None and func in products:
+                    probe.mm_bytes += out.numel() * out.element_size()
+                return out
+
+        grad = self._grad = torch.autograd.grad
+
+        def backward(*a, **k):
+            torch.cuda.synchronize()
+            probe.held = torch.cuda.memory_allocated()
+            out = grad(*a, **k)
+            torch.cuda.synchronize()
+            probe.peak = torch.cuda.max_memory_allocated()
+            return out
+
+        torch.autograd.grad = backward
+        self._mode = Products()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        torch.autograd.grad = self._grad
+
+
+def phase_recipe_recompute(flash):
+    """Phase 20b: the recipe without recompute (twice: the second run
+    measures what differs between two identical runs) and under
+    RecomputeOptimizer(policy=) for each of RECOMPUTE_POLICIES, from
+    copies of one startup scope, RECOMPUTE_STEPS steps each: the first
+    step's loss and @GRADs equal the run without recompute (within
+    RECOMPUTE_LOSS_TOL / RECOMPUTE_GRAD_TOL, see their comment), the later
+    losses within AMP_AGREE_LOSS_TOL, the flash forward launched 24 times
+    a step under recompute (the checkpoint re-runs it) and dQ, dK/dV 12
+    each, and the peak memory below the run without recompute. The first
+    step of each run is probed (_BackwardProbe): as the backward starts,
+    "dots" holds at least RECOMPUTE_DOTS_HELD_SHARE of the forward's 2-D
+    products' bytes more than "nothing", and less than the run without
+    recompute. Returns (launches by run, record)."""
+    import paddle_tpu_torch as fluid
+    cfg = bert_config()
+    n = cfg.num_hidden_layers
+    feed = bert_feed()
+    base = None
+    runs, launches = {}, {}
+    for tag, policy in (("none", None), ("none again", None)) + tuple(
+            (p, p) for p in RECOMPUTE_POLICIES):
+        main, startup, loss, _lr, _opt = build_recipe(cfg, policy)
+        names = [p.name + "@GRAD" for p in main.all_parameters()]
+        # a new Executor a run: its step counter seeds dropout's masks
+        exe = fluid.Executor()
+        if base is None:
+            base = fluid.Scope()
+            fluid.Executor().run(startup, scope=base)
+        scope = _copy_scope(base)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(flash)
+        losses, grads, step_ms, per_step = [], None, [], set()
+        for i in range(RECOMPUTE_STEPS):
+            before = _bwd_counts(flash)
+            ts = time.perf_counter()
+            if i == 0:
+                with _BackwardProbe() as probe:
+                    out = exe.run(main, feed=feed, scope=scope,
+                                  fetch_list=[loss] + names)
+            else:
+                out = exe.run(main, feed=feed, scope=scope,
+                              fetch_list=[loss])
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            if i == 0:
+                grads = out[1:]
+            per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
+                                                     before)))
+        runs[tag] = {"losses": losses, "grads": grads,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "held_at_backward": probe.held,
+                     "first_backward_peak": probe.peak,
+                     "forward_mm_bytes": probe.mm_bytes,
+                     "step_ms": step_ms, "per_step": sorted(per_step),
+                     "tc": flash.TC_LAUNCHES}
+        launches[tag] = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+        del scope
+    plain = runs["none"]
+    if plain["per_step"] != [(n, n, n)] or plain["tc"]:
+        _fail(f"recompute: launches {plain['per_step']} a step without "
+              f"recompute, want {n} each")
+    record = {"steps": RECOMPUTE_STEPS, "names": len(plain["grads"])}
+    gmax = max(float(np.abs(g).max()) for g in plain["grads"])
+    for tag, run in runs.items():
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(run["losses"], plain["losses"])]
+        grad_err = max(float(np.abs(a - b).max())
+                       / (float(np.abs(b).max()) + 1e-3 * gmax)
+                       for a, b in zip(run["grads"], plain["grads"]))
+        record[tag] = {"peak_bytes": run["peak"],
+                       "held_at_backward_bytes": run["held_at_backward"],
+                       "first_backward_peak_bytes":
+                           run["first_backward_peak"],
+                       "forward_mm_bytes": run["forward_mm_bytes"],
+                       "step_ms": run["step_ms"],
+                       "losses": run["losses"],
+                       "loss_rel_errs": errs, "grad_rel_err": grad_err,
+                       "grads_not_bitwise": [
+                           nm for nm, a, b in zip(names, run["grads"],
+                                                  plain["grads"])
+                           if not np.array_equal(a, b)],
+                       "launches_a_step": run["per_step"]}
+        if tag.startswith("none"):
+            continue
+        if run["per_step"] != [(2 * n, n, n)] or run["tc"]:
+            _fail(f"recompute {tag}: launches {run['per_step']} a step, "
+                  f"want ({2 * n}, {n}, {n}); {run['tc']} tensor-core")
+        if not (errs[0] <= RECOMPUTE_LOSS_TOL
+                and max(errs[1:]) <= AMP_AGREE_LOSS_TOL
+                and grad_err <= RECOMPUTE_GRAD_TOL):
+            _fail(f"recompute {tag}: losses {run['losses']} against "
+                  f"{plain['losses']} ({errs}), gradients {grad_err:.3e}")
+        if not run["peak"] < plain["peak"]:
+            _fail(f"recompute {tag}: peak {run['peak']} B not below "
+                  f"{plain['peak']} B without recompute")
+    dots, nothing = runs["dots"], runs["nothing"]
+    saved = dots["held_at_backward"] - nothing["held_at_backward"]
+    record["dots_minus_nothing_held_bytes"] = saved
+    print("recompute " + json.dumps(record))
+    if not (RECOMPUTE_DOTS_HELD_SHARE * dots["forward_mm_bytes"] <= saved
+            and dots["held_at_backward"] < plain["held_at_backward"]):
+        _fail(f"recompute: as the backward starts \"dots\" holds {saved} B "
+              f"more than \"nothing\", want at least "
+              f"{RECOMPUTE_DOTS_HELD_SHARE} x its forward's "
+              f"{dots['forward_mm_bytes']} B of 2-D products, and less than "
+              f"the {plain['held_at_backward']} B without recompute")
+    return launches, record
+
+
+def phase_overflow(flash):
+    """Phase 20c: OVERFLOW_STEPS steps of the recipe, then the
+    loss-scaling var set to OVERFLOW_SCALE for one step (the scaled loss
+    overflows): every parameter finite after it (the port zeroes the
+    gradients with a select where the JAX package's multiply makes
+    NaN), the scale decayed to 0.8 x OVERFLOW_SCALE (f32, 1e-6), the
+    good-step counter 0, and the next OVERFLOW_STEPS losses finite.
+    Returns the record."""
+    import paddle_tpu_torch as fluid
+    cfg = bert_config()
+    main, startup, loss, _lr, opt = build_recipe(cfg)
+    feed = bert_feed()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    sname, gname = opt.get_loss_scaling().name, opt._good_steps.name
+
+    def step():
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        return float(np.asarray(out).reshape(-1)[0])
+
+    exe.run(startup, scope=scope)
+    before = [step() for _ in range(OVERFLOW_STEPS)]
+    good_before = _scalar(scope, gname)
+    scope.set(sname, torch.full_like(scope.get(sname), OVERFLOW_SCALE))
+    at = step()
+    scale, good = _scalar(scope, sname), _scalar(scope, gname)
+    bad = [p.name for p in main.all_parameters()
+           if not bool(torch.isfinite(scope.get(p.name)).all())]
+    after = [step() for _ in range(OVERFLOW_STEPS)]
+    want = 0.8 * OVERFLOW_SCALE
+    record = {"losses_before": before, "good_steps_before": good_before,
+              "loss_at_overflow": at, "scale_after": scale,
+              "scale_want": want, "good_steps_after": good,
+              "non_finite_params": bad, "losses_after": after,
+              "scale_end": _scalar(scope, sname)}
+    print("overflow " + json.dumps(record))
+    if bad or abs(scale / want - 1.0) > 1e-6 or good != 0.0 or \
+            good_before != OVERFLOW_STEPS or \
+            not np.isfinite(before + [at] + after).all():
+        _fail("overflow: the injected overflow step did not keep the "
+              "parameters finite, decay the scale and reset the counter")
+    return record
+
+
+def phase_recipe_agree(flash):
+    """Phase 20d: train_agree on the recipe's program at full width,
+    BERT_AGREE_LAYERS layers, dropout 0, BERT_AGREE_STEPS steps on 16b's
+    padded feed, at AMP_AGREE_LOSS_TOL / AMP_AGREE_GRAD_TOL (see their
+    comment): the f32 flash kernels against the plain attention with
+    the same bf16 products on both sides."""
+    cfg = bert_config(num_hidden_layers=BERT_AGREE_LAYERS,
+                      hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    feed = bert_feed()
+    feed["input_mask"][1, BERT_SEQ - BERT_PAD:] = 0.0
+    feed["input_mask"][5, BERT_SEQ // 2:] = 0.0
+    main, startup, loss, _lr, _opt = build_recipe(cfg)
+    return train_agree(flash, "recipe agree (bf16 products)",
+                       (main, startup, loss), feed, BERT_AGREE_LAYERS,
+                       BERT_AGREE_STEPS, loss_tol=AMP_AGREE_LOSS_TOL,
+                       grad_tol=AMP_AGREE_GRAD_TOL)
+
+
+def phase_recipe_all(flash, bert16, prof16):
+    """Phases 20-20d, the cuBLAS bf16 GEMMs reducing split-K partials in
+    f32 (as XLA accumulates a bf16 dot), the setting restored after.
+    Returns (flash launches by path, 20d's errors). Garbage the earlier
+    phases left in reference cycles (servers, pools) is collected first,
+    so that it neither counts in 20's peak memory nor pauses its steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        rlaunches, _rec, prof = _phase("20 recipe", phase_recipe, flash,
+                                       bert16)
+        print("profile recipe vs 16 (f32): " + json.dumps({
+            k: [prof[k], prof16[k]] for k in (
+                "wall_ms_per_step", "device_ms_per_step",
+                "device_busy_share", "device_ops_per_step",
+                "flash_share_of_device")}))
+        claunches, _ = _phase("20b recompute", phase_recipe_recompute,
+                              flash)
+        _phase("20c overflow", phase_overflow, flash)
+        alaunches, aerrs = _phase("20d recipe agree", phase_recipe_agree,
+                                  flash)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    paths = {f"20 recipe ({BERT_WARM + BERT_STEPS} steps)": rlaunches,
+             **{f"20b recompute {tag} ({RECOMPUTE_STEPS} steps)": c
+                for tag, c in claunches.items()},
+             f"20d recipe agree (kernel run, {BERT_AGREE_LAYERS} layers x "
+             f"{BERT_AGREE_STEPS} steps)": alaunches}
+    return paths, aerrs
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -4751,7 +5243,8 @@ def main():
     _, plaunches = _phase("15 telemetry, chaos, ledger", phase_telemetry,
                           paged, cfg, tree, gcfg, gtree, tier_srv)
     del tier_srv
-    bert_launches = _phase("16 BERT-base pretrain", phase_bert, flash)
+    bert_launches, bert16, prof16 = _phase("16 BERT-base pretrain",
+                                           phase_bert, flash)
     bagree_launches, bagree_errs = _phase("16b BERT agree",
                                           phase_bert_agree, flash)
     packed_launches, pagree_launches, pagree_errs = _phase(
@@ -4767,6 +5260,7 @@ def main():
                                     phase_tp_prompt, flash, cfg, tree)
     tpw_launches, _ = _phase("19d tp world, two processes", phase_tp_world,
                              paged, cfg, tree)
+    recipe_paths, recipe_errs = phase_recipe_all(flash, bert16, prof16)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -4859,7 +5353,8 @@ def main():
         "16c packed pretrain (10 steps)": packed_launches,
         "16c packed agree (kernel run, 2 layers x 1 step)": pagree_launches,
         **{f"17 ring sp {RING_SP} {case} (one call)": c
-           for case, c in ring_launches.items()}}
+           for case, c in ring_launches.items()},
+        **recipe_paths}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,
@@ -4879,6 +5374,7 @@ def main():
         [kernels[4]["max_abs_err"]] + [e[1] for e in ring_errs.values()])
     agree = {"16b BERT agree": bagree_errs,
              "16c packed agree": pagree_errs,
+             "20d recipe agree (bf16 products)": recipe_errs,
              **{f"17 ring {case} (out, grads: max abs)": list(e)
                 for case, e in ring_errs.items()}}
     kernels[3]["path_errs"] = kernels[4]["path_errs"] = agree

@@ -15,8 +15,12 @@ through the Fluid entry points (``core/``, ``layers/``, ``optimizer/``,
 ``ops/``), whose attention backward runs the flash-attention backward
 kernels; BERT/ERNIE-1.0 pretraining, padded or packed, through the same
 entry points (``models/bert.py``, ``models/ernie.py``,
-``reader/packing.py``); and ring attention over a sequence-parallel mesh
-(``parallel/``). The top level is the ``fluid`` namespace of that
+``reader/packing.py``), with the training recipe: bf16 mixed precision
+and loss scaling (``amp/``), the learning-rate schedules
+(``layers/learning_rate_scheduler.py``), gradient clipping and weight
+decay (``optimizer/clip.py``, ``optimizer/regularizer.py``), the other
+optimizers and recompute (``optimizer/recompute.py``); and ring
+attention over a sequence-parallel mesh (``parallel/``). The top level is the ``fluid`` namespace of that
 recipe::
 
     import paddle_tpu_torch as fluid
@@ -29,7 +33,8 @@ recipe::
     exe.run(main, feed={"tokens": ids}, fetch_list=[loss])
 """
 
-from . import initializer, layers, optimizer
+from . import amp, initializer, layers, optimizer
+from .optimizer import clip, regularizer
 from .core import unique_name
 from .core.backward import append_backward, gradients
 from .core.executor import (Executor, Scope, global_scope, scope_from_numpy,
@@ -45,4 +50,4 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "program_guard", "default_main_program", "default_startup_program",
            "ParamAttr", "CPUPlace", "CUDAPlace", "append_backward",
            "gradients", "layers", "optimizer", "initializer", "unique_name",
-           "resolve_device"]
+           "resolve_device", "amp", "clip", "regularizer"]

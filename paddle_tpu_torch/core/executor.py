@@ -14,7 +14,13 @@ device, and eager autograd takes the place of the traced
 - with one, the ops before the marker run with the marker's parameters as
   leaves that require grad, ``torch.autograd.grad`` of the summed loss
   fills ``name@GRAD``, and the ops after the marker (the optimizer) run
-  under ``torch.no_grad()`` and update the scope's tensors in place.
+  under ``torch.no_grad()`` and update the scope's tensors in place. Of
+  the forward's results only those read later (by the ops after the
+  marker, a fetch or the scope) stay in the env, as the JAX Executor
+  returns only those from its ``value_and_grad``; a program that
+  ``RecomputeOptimizer`` tagged runs its forward through
+  ``optimizer/recompute.py``'s ``run_checkpointed`` with the tag's
+  policy (the JAX Executor's ``jax.checkpoint``).
 
 Every run is synchronous: fetches come back as numpy copies (or tensors
 with ``return_numpy=False``), and the persistables the run wrote land in
@@ -22,7 +28,7 @@ the Scope. One CUDA graph over this fixed-shape step, in place of the
 host's per-op launches, is later performance work, not part of this
 slice. Not ported yet: ``run_async``, ``run_pipelined``, ``FetchHandle``,
 the NaN/Inf guard, ``explain`` and cost analysis, the compile and
-recompile statistics, pipeline and recompute, and ``train_from_dataset``.
+recompile statistics, the pipeline, and ``train_from_dataset``.
 
 Random ops draw from a ``torch.Generator`` per op, seeded from
 (``program.random_seed``, the executor's step counter, the op's
@@ -172,7 +178,7 @@ class Executor:
             live.update(op.input_names)
         is_test = program._is_test
 
-        def run(ops):
+        def run(ops, env=env):
             for op in ops:
                 ops_registry.run_op(op, env, program, is_test, self.device,
                                     live)
@@ -183,9 +189,18 @@ class Executor:
         else:
             marker = gb.ops[marker_idx]
             live.add(marker.attr("loss"))
-            self._backward(marker, env, lambda: run(gb.ops[:marker_idx]))
+            post = gb.ops[marker_idx + 1:]
+            keep = set(fetch_names) | set(persist_names)
+            for op in post:
+                keep.update(op.input_names)
+            policy = (getattr(program, "_recompute", None) or {}).get(
+                "policy")
+            if policy == "everything":  # saves everything: no recompute
+                policy = None
+            self._backward(marker, env, run, gb.ops[:marker_idx], keep,
+                           policy)
             with torch.no_grad():
-                run(gb.ops[marker_idx + 1:])
+                run(post)
 
         for n in persist_names:
             if n in env:
@@ -196,22 +211,34 @@ class Executor:
         return [f.detach() for f in fetches]
 
     @staticmethod
-    def _backward(marker, env, forward):
-        """The forward section under autograd with the marker's parameters
-        as leaves; their gradients land in env as name@GRAD (zeros for a
-        parameter the loss does not reach), and the parameters go back to
-        the scope's tensors for the optimizer's in-place updates."""
+    def _backward(marker, env, run, ops, keep, policy=None):
+        """The forward `ops` under autograd with the marker's parameters
+        as leaves, in a copy of `env`. Of its results, those named in
+        `keep` land in `env`, and the gradients as name@GRAD (zeros for a
+        parameter the loss does not reach); the parameters stay the
+        scope's tensors, for the optimizer's in-place updates. With a
+        recompute `policy` the forward runs through
+        ``run_checkpointed``."""
         names = [n for n in marker.attr("params") if n in env]
-        saved = {n: env[n] for n in names}
-        leaves = [saved[n].detach().requires_grad_(True) for n in names]
-        env.update(zip(names, leaves))
+        loss_name = marker.attr("loss")
+        leaves = [env[n].detach().requires_grad_(True) for n in names]
+        fwd = dict(env)
+        fwd.update(zip(names, leaves))
         with torch.enable_grad():
-            forward()
-            loss = env[marker.attr("loss")].sum()
+            if policy is None:
+                run(ops, fwd)
+            else:
+                from ..optimizer.recompute import run_checkpointed
+                run_checkpointed(ops, fwd, run, keep | {loss_name}, policy)
+            loss = fwd[loss_name].sum()
+            env.update((k, v) for k, v in fwd.items()
+                       if k in keep and k not in names)
+            # what nothing reads goes before the backward, which then
+            # frees the activations as it consumes them
+            del fwd
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         for n, leaf, g in zip(names, leaves, grads):
             env[grad_var_name(n)] = torch.zeros_like(leaf) if g is None else g
-        env.update(saved)
 
     @staticmethod
     def _validate(program, run_ops, feeds, fetch_names):

@@ -9,8 +9,8 @@ in the port so that it imports nothing of the JAX package. The Program is a
 lightweight, JSON-serializable recipe; the port's Executor runs its ops
 eagerly with torch, the forward section under autograd (see
 core/executor.py). Dropped from the copy, for want of the modules that use
-them: ``Variable.astype`` and byte sizes, ``Block.prepend_op``,
-``Program._prune`` and its JSON form, name scopes and the dygraph flag.
+them: ``Variable.astype`` and byte sizes, ``Program._prune`` and its
+JSON form, name scopes and the dygraph flag.
 """
 
 import contextlib
@@ -276,6 +276,12 @@ class Block:
             for v in _as_list(vs):
                 if isinstance(v, Variable):
                     v.op = op
+        self.program._bump_version()
+        return op
+
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
         self.program._bump_version()
         return op
 

@@ -71,6 +71,12 @@ class LayerHelper:
         return self.main_program.global_block().create_var(
             persistable=persistable, **kwargs)
 
+    def create_or_get_global_variable(self, name, **kwargs):
+        gb = self.main_program.global_block()
+        if name in gb.vars:
+            return gb.vars[name]
+        return gb.create_var(name=name, **kwargs)
+
     # -- ops ----------------------------------------------------------------
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         return self.block.append_op(type, inputs, outputs, attrs)

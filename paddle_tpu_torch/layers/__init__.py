@@ -4,11 +4,14 @@ Parity: python/paddle/fluid/layers/__init__.py; the counterpart of
 ``paddle_tpu/layers/`` with, in files of the same names, ``io.data``,
 ``tensor``'s ``create_parameter``, ``fill_constant`` and ``zeros_like``,
 ``nn``'s ``fc``, ``embedding``, ``matmul``, ``layer_norm``, ``dropout``,
-``mean``, ``reduce_sum``, ``elementwise_add``/``mul``/``div``,
-``logical_and``, ``scale``, ``reshape``, ``transpose`` (for the attention
-layer), ``slice``, ``gather``, ``topk``, ``cast`` and ``softmax``,
-``control_flow``'s ``equal`` and ``greater_than``,
-``loss.softmax_with_cross_entropy``, ``metric_op.accuracy``, and
+``mean``, ``reduce_sum``, ``elementwise_add``/``mul``/``div``/``max``/
+``min``/``pow``, ``logical_and``, ``scale``, ``reshape``, ``transpose``
+(for the attention layer), ``slice``, ``gather``, ``topk``, ``cast`` and
+``softmax``, ``ops``' ``exp``, ``ceil``, ``floor`` and ``cos``,
+``control_flow``'s ``equal``, ``greater_than``, ``less_than`` and
+``autoincreased_step_counter``,
+``learning_rate_scheduler``'s eight schedules,
+``loss``'s ``softmax_with_cross_entropy`` and ``square_error_cost``, ``metric_op.accuracy``, and
 ``attention``'s ``multi_head_attention`` and
 ``scaled_dot_product_attention``.
 """
@@ -16,11 +19,19 @@ layer), ``slice``, ``gather``, ``topk``, ``cast`` and ``softmax``,
 from .io import data
 from .nn import (fc, embedding, matmul, layer_norm, dropout, mean,
                  reduce_sum, elementwise_add, elementwise_mul,
-                 elementwise_div, logical_and, scale, reshape, transpose,
+                 elementwise_div, elementwise_max, elementwise_min,
+                 elementwise_pow, logical_and, scale, reshape, transpose,
                  slice, gather, topk, cast, softmax)
 from .tensor import create_parameter, fill_constant, zeros_like
-from .control_flow import equal, greater_than
-from .loss import softmax_with_cross_entropy
+from .ops import exp, ceil, floor, cos
+from .control_flow import (equal, greater_than, less_than,
+                           autoincreased_step_counter)
+from .loss import softmax_with_cross_entropy, square_error_cost
 from .metric_op import accuracy
 from . import attention
 from .attention import scaled_dot_product_attention, multi_head_attention
+from . import learning_rate_scheduler
+from .learning_rate_scheduler import (noam_decay, exponential_decay,
+                                      natural_exp_decay, inverse_time_decay,
+                                      polynomial_decay, piecewise_decay,
+                                      cosine_decay, linear_lr_warmup)

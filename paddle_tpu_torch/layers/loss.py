@@ -2,7 +2,7 @@
 
 Parity: the loss functions of python/paddle/fluid/layers/nn.py; the
 counterpart of ``paddle_tpu/layers/loss.py``'s
-``softmax_with_cross_entropy``.
+``softmax_with_cross_entropy`` and ``square_error_cost``.
 """
 
 from ..core.layer_helper import LayerHelper
@@ -23,3 +23,12 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    sub = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("square_error_cost", {"X": input, "Y": label},
+                     {"Out": out, "sub_result": sub})
+    return out

@@ -175,6 +175,9 @@ def _make_elementwise(op_type):
 elementwise_add = _make_elementwise("elementwise_add")
 elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
+elementwise_max = _make_elementwise("elementwise_max")
+elementwise_min = _make_elementwise("elementwise_min")
+elementwise_pow = _make_elementwise("elementwise_pow")
 
 
 def logical_and(x, y, out=None, name=None):

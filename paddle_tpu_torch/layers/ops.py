@@ -1,0 +1,28 @@
+"""Unary layers.
+
+Parity: python/paddle/fluid/layers/ops.py (layer_function_generator-
+produced wrappers around activation_op.cc kernels); the counterpart of
+``paddle_tpu/layers/ops.py`` with the unary layers the learning-rate
+schedules use: ``exp``, ``ceil``, ``floor`` and ``cos``.
+"""
+
+from ..core.layer_helper import LayerHelper
+
+_UNARY = ["exp", "ceil", "floor", "cos"]
+
+__all__ = list(_UNARY)
+
+
+def _make_unary(op_type):
+    def fn(x, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+        helper.append_op(op_type, {"X": x}, {"Out": out})
+        return out
+    fn.__name__ = op_type
+    fn.__doc__ = f"Parity: fluid.layers.{op_type} (activation_op.cc)."
+    return fn
+
+
+for _name in _UNARY:
+    globals()[_name] = _make_unary(_name)

@@ -76,9 +76,17 @@ def generator_seed(seed, step, op_seed):
 class OpContext:
     """Execution context handed to an op impl while the Executor runs a
     Program: the op, the env of live values, the device the Executor runs
-    on, and `live`, the names something downstream reads (None: all)."""
+    on, and `live`, the names something downstream reads (None: all).
 
-    __slots__ = ("op", "env", "program", "is_test", "device", "live")
+    A white-listed op that ``amp.cast_model_to_bf16`` tagged with
+    ``__amp_dtype__`` gets its f32/f64 tensor inputs cast to that dtype
+    (bf16) as it reads them; its outputs are left alone, so a bf16
+    product meets an f32 bias in the next elementwise op and torch
+    promotes the sum back to f32, as jnp does. Parameters and gradients
+    stay f32 outside the op (master weights)."""
+
+    __slots__ = ("op", "env", "program", "is_test", "device", "live",
+                 "_amp")
 
     def __init__(self, op, env, program, is_test=False, device=None,
                  live=None):
@@ -88,11 +96,22 @@ class OpContext:
         self.is_test = is_test or bool(op.attrs.get("is_test", False))
         self.device = device
         self.live = live
+        amp = op.attrs.get("__amp_dtype__")
+        self._amp = torch_dtype(amp) if amp else None
 
     # -- inputs -------------------------------------------------------------
+    def _maybe_amp(self, v):
+        if self._amp is not None and isinstance(v, torch.Tensor) and \
+                v.dtype in (torch.float32, torch.float64):
+            return v.to(self._amp)
+        return v
+
+    def in_list(self, slot):
+        return [self._maybe_amp(self.env[n]) for n in self.op.input(slot)]
+
     def in_(self, slot, default=None):
         names = self.op.input(slot)
-        return self.env[names[0]] if names else default
+        return self._maybe_amp(self.env[names[0]]) if names else default
 
     def attr(self, name, default=None):
         return self.op.attrs.get(name, default)

@@ -1,8 +1,8 @@
 """Loss ops.
 
-Parity: paddle/fluid/operators/softmax_with_cross_entropy_op.*; the
-counterpart of ``paddle_tpu/ops/loss_ops.py`` with the loss the ported
-slice runs.
+Parity: paddle/fluid/operators/softmax_with_cross_entropy_op.*,
+square_error_cost (the reference's squared_l2_distance); the counterpart
+of ``paddle_tpu/ops/loss_ops.py`` with the losses the ported slices run.
 """
 
 import torch
@@ -37,3 +37,10 @@ def softmax_with_cross_entropy(ctx):
     if ctx.wants("Softmax"):
         out["Softmax"] = torch.exp(logp).to(logits.dtype)
     return out
+
+
+@register("square_error_cost")
+def square_error_cost(ctx):
+    x, y = ctx.in_("X"), ctx.in_("Y")
+    d = x - y
+    return {"Out": d * d, "sub_result": d}

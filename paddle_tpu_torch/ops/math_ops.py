@@ -1,11 +1,18 @@
 """Elementwise / matmul / reduction ops.
 
 Parity: paddle/fluid/operators/elementwise/*, matmul_op.cc, mul_op.cc,
-mean_op.cc, reduce_ops/*, scale_op.cc, compare_op.cc; the counterpart of
+mean_op.cc, reduce_ops/*, scale_op.cc, sum_op.cc, clip_op.cc,
+compare_op.cc, isfinite_op.cc, increment_op.cc; the counterpart of
 ``paddle_tpu/ops/math_ops.py`` with the ops the ported slices run:
-``elementwise_add``/``mul``/``div``, ``scale``, ``mul``, ``matmul``,
-``reduce_sum``, ``mean``, and the comparisons ``equal``, ``greater_than``
-and ``logical_and`` (the packed GPT net's pair weights).
+``elementwise_add``/``mul``/``div``/``max``/``min``/``pow``,
+``scale``, ``mul``, ``matmul``, ``sum``, ``reduce_sum``, ``mean``,
+``clip``, ``clip_by_norm``, ``isfinite``, ``increment``, and the
+comparisons ``equal``, ``greater_than``, ``greater_equal``, ``less_than``
+and ``logical_and``.
+
+``select_finite`` is the port's own: the loss scaler's overflow step
+(amp/decorator.py) zeroes the gradients with it, where the JAX package
+multiplies them by the finite flag (ROADMAP C8).
 """
 
 import torch
@@ -34,6 +41,9 @@ def _ew(fn):
 register("elementwise_add")(_ew(torch.add))
 register("elementwise_mul")(_ew(torch.mul))
 register("elementwise_div")(_ew(torch.div))
+register("elementwise_max")(_ew(torch.maximum))
+register("elementwise_min")(_ew(torch.minimum))
+register("elementwise_pow")(_ew(torch.pow))
 
 
 @register("scale")
@@ -80,6 +90,18 @@ def matmul(ctx):
     return {"Out": out}
 
 
+@register("sum")
+def sum_op(ctx):
+    """Elementwise sum of same-shaped inputs: one stacked reduction in
+    place of JAX's chain of adds (for the loss scaler's 0/1 flags the
+    same exact sum; for the global-norm clip's squared norms another
+    summation order)."""
+    xs = ctx.in_list("X")
+    if len(xs) <= 2:
+        return {"Out": xs[0] if len(xs) == 1 else xs[0] + xs[1]}
+    return {"Out": torch.stack(xs).sum(0)}
+
+
 @register("mean")
 def mean(ctx):
     return {"Out": ctx.in_("X").mean()}
@@ -98,6 +120,44 @@ def reduce_sum(ctx):
                          keepdim=keep)}
 
 
+@register("clip")
+def clip(ctx):
+    return {"Out": torch.clamp(ctx.in_("X"), ctx.attr("min"),
+                               ctx.attr("max"))}
+
+
+@register("clip_by_norm")
+def clip_by_norm(ctx):
+    x = ctx.in_("X")
+    norm = (x * x).sum().sqrt()
+    scale = (ctx.attr("max_norm") / norm.clamp_min(1e-12)).clamp_max(1.0)
+    return {"Out": x * scale}
+
+
+@register("isfinite")
+def isfinite(ctx):
+    """One device bool: every element finite (no host sync)."""
+    return {"Out": torch.isfinite(ctx.in_("X")).all()}
+
+
+@register("select_finite")
+def select_finite(ctx):
+    """X where the flag Finite is non-zero, else zeros: a NaN or inf X
+    becomes 0 on an overflow step, where X * 0 would be NaN."""
+    x, fin = ctx.in_("X"), ctx.in_("Finite")
+    return {"Out": torch.where(fin != 0, x, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))}
+
+
+@register("increment")
+def increment(ctx):
+    """A new tensor x + step in x's dtype (never in place: a recomputed
+    forward replays it from the same input)."""
+    x = ctx.in_("X")
+    step = ctx.attr("step", 1.0)
+    return {"Out": x + (step if x.is_floating_point() else int(step))}
+
+
 def _cmp(fn):
     def impl(ctx):
         x, y = ctx.in_("X"), ctx.in_("Y")
@@ -108,4 +168,6 @@ def _cmp(fn):
 
 register("equal")(_cmp(torch.eq))
 register("greater_than")(_cmp(torch.gt))
+register("greater_equal")(_cmp(torch.ge))
+register("less_than")(_cmp(torch.lt))
 register("logical_and")(_cmp(torch.logical_and))

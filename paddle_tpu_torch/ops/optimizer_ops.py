@@ -1,7 +1,10 @@
 """Optimizer update ops.
 
-Parity: paddle/fluid/operators/optimizers/{sgd,adam}_op.*; the counterpart
-of ``paddle_tpu/ops/optimizer_ops.py`` with ``sgd`` and ``adam``. Each op
+Parity: paddle/fluid/operators/optimizers/*_op.*; the counterpart of
+``paddle_tpu/ops/optimizer_ops.py`` with ``sgd``, ``momentum`` (Nesterov
+too), ``lars_momentum``, ``adam``, ``adamax``, ``adagrad``,
+``decayed_adagrad``, ``adadelta``, ``rmsprop`` (centered too), ``ftrl``
+and ``lamb``. Each op
 consumes Param, Grad (the ``param@GRAD`` env entry the Executor's autograd
 pass produced) and its accumulators, and writes the new values back under
 the *same* names. Where JAX returns new arrays, the port updates the
@@ -11,6 +14,8 @@ updated. The arithmetic follows the JAX ops term by term (f32 moments,
 beta-pow accumulators multiplied once a step), so the two agree to
 rounding.
 """
+
+import torch
 
 from . import register
 
@@ -42,6 +47,166 @@ def adam(ctx):
     v.mul_(b2).add_((1 - b2) * g * g)
     lr_t = _lr(ctx) * (1 - b2p.reshape(())).sqrt() / (1 - b1p.reshape(()))
     p.sub_((lr_t * m / (v.sqrt() + eps)).to(p.dtype))
+    b1p.mul_(b1)
+    b2p.mul_(b2)
+    return {"ParamOut": p, "Moment1Out": m, "Moment2Out": v,
+            "Beta1PowOut": b1p, "Beta2PowOut": b2p}
+
+
+@register("momentum")
+def momentum(ctx):
+    """v = mu v + g; p -= lr v, or lr (g + mu v) with Nesterov."""
+    p, g, v = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Velocity")
+    mu = ctx.attr("mu")
+    lr = _lr(ctx)
+    v.mul_(mu).add_(g)
+    if ctx.attr("use_nesterov", False):
+        p.sub_((lr * (g + mu * v)).to(p.dtype))
+    else:
+        p.sub_((lr * v).to(p.dtype))
+    return {"ParamOut": p, "VelocityOut": v}
+
+
+@register("lars_momentum")
+def lars_momentum(ctx):
+    """Layer-wise rate lr coeff |p| / (|g| + wd |p| + 1e-12);
+    v = mu v + local_lr (g + wd p); p -= v."""
+    p, g, v = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Velocity")
+    mu = ctx.attr("mu")
+    coeff = ctx.attr("lars_coeff", 0.001)
+    wd = ctx.attr("lars_weight_decay", 0.0005)
+    pn = (p * p).sum().sqrt()
+    gn = (g * g).sum().sqrt()
+    local_lr = _lr(ctx) * coeff * pn / (gn + wd * pn + 1e-12)
+    v.mul_(mu).add_(local_lr * (g + wd * p))
+    p.sub_(v.to(p.dtype))
+    return {"ParamOut": p, "VelocityOut": v}
+
+
+@register("adamax")
+def adamax(ctx):
+    """m = b1 m + (1 - b1) g; u = max(b2 u, |g|);
+    p -= lr / (1 - b1^t) m / (u + eps)."""
+    p, g = ctx.in_("Param"), ctx.in_("Grad")
+    m, inf = ctx.in_("Moment"), ctx.in_("InfNorm")
+    b1p = ctx.in_("Beta1Pow")
+    b1 = ctx.attr("beta1", 0.9)
+    b2 = ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-8)
+    m.mul_(b1).add_((1 - b1) * g)
+    torch.maximum(b2 * inf, g.abs(), out=inf)
+    p.sub_(((_lr(ctx) / (1 - b1p.reshape(()))) * (m / (inf + eps)))
+           .to(p.dtype))
+    b1p.mul_(b1)
+    return {"ParamOut": p, "MomentOut": m, "InfNormOut": inf,
+            "Beta1PowOut": b1p}
+
+
+@register("adagrad")
+def adagrad(ctx):
+    p, g, mom = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Moment")
+    eps = ctx.attr("epsilon", 1e-6)
+    mom.add_(g * g)
+    p.sub_((_lr(ctx) * g / (mom.sqrt() + eps)).to(p.dtype))
+    return {"ParamOut": p, "MomentOut": mom}
+
+
+@register("decayed_adagrad")
+def decayed_adagrad(ctx):
+    p, g, mom = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Moment")
+    decay = ctx.attr("decay", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    mom.mul_(decay).add_((1 - decay) * g * g)
+    p.sub_((_lr(ctx) * g / (mom.sqrt() + eps)).to(p.dtype))
+    return {"ParamOut": p, "MomentOut": mom}
+
+
+@register("adadelta")
+def adadelta(ctx):
+    """E[g^2] = rho E[g^2] + (1 - rho) g^2;
+    u = -sqrt((E[u^2] + eps) / (E[g^2] + eps)) g;
+    E[u^2] = rho E[u^2] + (1 - rho) u^2; p += u."""
+    p, g = ctx.in_("Param"), ctx.in_("Grad")
+    asg, asu = ctx.in_("AvgSquaredGrad"), ctx.in_("AvgSquaredUpdate")
+    rho = ctx.attr("rho", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    asg.mul_(rho).add_((1 - rho) * g * g)
+    upd = -((asu + eps) / (asg + eps)).sqrt() * g
+    asu.mul_(rho).add_((1 - rho) * upd * upd)
+    p.add_(upd.to(p.dtype))
+    return {"ParamOut": p, "AvgSquaredGradOut": asg,
+            "AvgSquaredUpdateOut": asu}
+
+
+@register("rmsprop")
+def rmsprop(ctx):
+    """ms = rho ms + (1 - rho) g^2; centered: mg = rho mg + (1 - rho) g,
+    the denominator sqrt(ms - mg^2 + eps), else sqrt(ms + eps);
+    mom = momentum mom + lr g / denominator; p -= mom."""
+    p, g = ctx.in_("Param"), ctx.in_("Grad")
+    ms, mom = ctx.in_("MeanSquare"), ctx.in_("Moment")
+    rho = ctx.attr("decay", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    momentum_ = ctx.attr("momentum", 0.0)
+    lr = _lr(ctx)
+    ms.mul_(rho).add_((1 - rho) * g * g)
+    outs = {"ParamOut": p, "MeanSquareOut": ms, "MomentOut": mom}
+    if ctx.attr("centered", False):
+        mg = ctx.in_("MeanGrad")
+        mg.mul_(rho).add_((1 - rho) * g)
+        denom = (ms - mg * mg + eps).sqrt()
+        outs["MeanGradOut"] = mg
+    else:
+        denom = (ms + eps).sqrt()
+    mom.mul_(momentum_).add_(lr * g / denom)
+    p.sub_(mom.to(p.dtype))
+    return outs
+
+
+@register("ftrl")
+def ftrl(ctx):
+    """FTRL-proximal: n' = n + g^2; sigma = (n'^-lrp - n^-lrp) / lr;
+    z' = z + g - sigma p; p = (clip(z', -l1, l1) - z') /
+    (n'^-lrp / lr + 2 l2)."""
+    p, g = ctx.in_("Param"), ctx.in_("Grad")
+    sq, lin = ctx.in_("SquaredAccumulator"), ctx.in_("LinearAccumulator")
+    l1 = ctx.attr("l1", 0.0)
+    l2 = ctx.attr("l2", 0.0)
+    lr_power = ctx.attr("lr_power", -0.5)
+    lr = _lr(ctx)
+    new_sq = sq + g * g
+    sigma = (new_sq.pow(-lr_power) - sq.pow(-lr_power)) / lr
+    lin.add_(g - sigma * p)
+    pre = lin.clamp(-l1, l1) - lin
+    p.copy_(pre / (new_sq.pow(-lr_power) / lr + 2 * l2))
+    sq.copy_(new_sq)
+    return {"ParamOut": p, "SquaredAccumOut": sq, "LinearAccumOut": lin}
+
+
+@register("lamb")
+def lamb(ctx):
+    """Adam's moments with bias correction, r = m^ / (sqrt(v^) + eps) +
+    wd p, and the trust ratio |p| / |r| (1 where either norm is 0):
+    p -= lr trust r."""
+    p, g = ctx.in_("Param"), ctx.in_("Grad")
+    m, v = ctx.in_("Moment1"), ctx.in_("Moment2")
+    b1p, b2p = ctx.in_("Beta1Pow"), ctx.in_("Beta2Pow")
+    b1 = ctx.attr("beta1", 0.9)
+    b2 = ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-6)
+    wd = ctx.attr("weight_decay", 0.01)
+    g = g.float()
+    pf = p.float()
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    m_hat = m / (1 - b1p.reshape(()))
+    v_hat = v / (1 - b2p.reshape(()))
+    r = m_hat / (v_hat.sqrt() + eps) + wd * pf
+    p_norm = (pf * pf).sum().sqrt()
+    r_norm = (r * r).sum().sqrt()
+    trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                        torch.ones((), dtype=r.dtype, device=r.device))
+    p.sub_((_lr(ctx) * trust * r).to(p.dtype))
     b1p.mul_(b1)
     b2p.mul_(b2)
     return {"ParamOut": p, "Moment1Out": m, "Moment2Out": v,

@@ -1,9 +1,29 @@
 """Optimizers package.
 
-Parity: python/paddle/fluid/optimizer.py; the counterpart of
-``paddle_tpu/optimizer/`` with SGD and Adam. Regularization and gradient
-clipping are not ported yet.
+Parity: python/paddle/fluid/optimizer.py + regularizer.py + clip.py; the
+counterpart of ``paddle_tpu/optimizer/`` with the static-graph
+optimizers, the gradient clips, the weight-decay regularizers and
+RecomputeOptimizer. Not ported yet: ``DGCMomentumOptimizer`` and the
+wrappers (ExponentialMovingAverage, ModelAverage, Lookahead, GradientMerge,
+PipelineOptimizer).
 """
 
-from .optimizers import (Optimizer, SGDOptimizer, AdamOptimizer, SGD,
-                         Adam)
+from .optimizers import (Optimizer, SGDOptimizer, MomentumOptimizer,
+                         LarsMomentumOptimizer, AdagradOptimizer,
+                         DecayedAdagradOptimizer, AdadeltaOptimizer,
+                         AdamOptimizer, AdamaxOptimizer, RMSPropOptimizer,
+                         FtrlOptimizer, LambOptimizer,
+                         SGD, Momentum, Adagrad, Adam, Adamax, RMSProp,
+                         Ftrl, Lamb)
+
+# short aliases the reference's optimizer.py __all__ also exports
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+LarsMomentum = LarsMomentumOptimizer
+from .recompute import RecomputeOptimizer  # noqa: E402
+from .regularizer import (L1Decay, L2Decay, L1DecayRegularizer,  # noqa: E402
+                          L2DecayRegularizer, WeightDecayRegularizer)
+from . import clip  # noqa: E402
+from .clip import (GradientClipByValue, GradientClipByNorm,  # noqa: E402
+                   GradientClipByGlobalNorm, ErrorClipByValue,
+                   set_gradient_clip)

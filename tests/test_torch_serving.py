@@ -432,7 +432,19 @@ def test_port_imports_neither_jax_nor_reference_package():
         "        'paddle_tpu_torch.io.checkpoint',\n"
         "        'paddle_tpu_torch.models.gpt',\n"
         "        'paddle_tpu_torch.serving.kv_cache',\n"
-        "        'paddle_tpu_torch.serving.engine']\n"
+        "        'paddle_tpu_torch.serving.engine',\n"
+        "        'paddle_tpu_torch.amp',\n"
+        "        'paddle_tpu_torch.amp.policy',\n"
+        "        'paddle_tpu_torch.amp.decorator',\n"
+        "        'paddle_tpu_torch.optimizer.clip',\n"
+        "        'paddle_tpu_torch.optimizer.regularizer',\n"
+        "        'paddle_tpu_torch.optimizer.recompute',\n"
+        "        'paddle_tpu_torch.layers.learning_rate_scheduler',\n"
+        "        'paddle_tpu_torch.layers.ops',\n"
+        "        'paddle_tpu_torch.layers.loss',\n"
+        "        'paddle_tpu_torch.ops.math_ops',\n"
+        "        'paddle_tpu_torch.ops.activation_ops',\n"
+        "        'paddle_tpu_torch.ops.loss_ops']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
