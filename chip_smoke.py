@@ -295,7 +295,44 @@ backward kernels are printed):
    scale 0.8 x 3e38, the good-step count 0, the next 3 losses finite;
 20d. kernel vs plain attention under the recipe: train_agree at full
    width, 2 layers, dropout 0, 16b's padded feed, 3 steps, at bf16's
-   tolerances (the same bf16 products on both sides).
+   tolerances (the same bf16 products on both sides);
+21. data parallelism on phase 16's cell: ``CompiledProgram(main).
+   with_data_parallel(places=[CUDAPlace(0)] * 2)``, a local dp 2 mesh
+   whose two ranks run in turn on the card, 30 steps on phase 16's feed
+   (BertConfig(), seq 512 x batch 8, 4 rows a rank, dropout 0.1, Adam
+   1e-4, f32): every feed split into (4, ...) shards (printed), the loss
+   below 0.95 x the first, 2 x 12 flash forward, dQ and dK/dV launches a
+   step (12 a rank) and none of the tensor-core kernel, 5 dp reductions
+   a step (the NSP mean, accuracy, the MLM gather and its two sums);
+   prints step ms p50/p99, tokens/s, the peak memory and a profile of 3
+   more steps beside phase 16's;
+21b. dp 2 (``with_data_parallel(places=[CUDAPlace(0)] * 2)``) against
+   dp 1 (``with_data_parallel(places=[CUDAPlace(0)])``) at full width and 2
+   layers, dropout 0, 16b's padded feed with unequal masked-LM weights
+   per rank (rank 0's rows keep one prediction, rank 1's all): 3 Adam
+   steps from one startup scope, the first loss within 1e-6, the first
+   step's @GRADs within 1e-5 of their scale, the later losses within
+   1e-3 (phase 20b's staged tolerances: the sentence embedding's
+   backward is not bitwise on the card); then dp 2 with the plain dense attention
+   put in at ``attention_ops``: the kernels' losses and @GRADs within
+   9b's tolerances;
+21c. GPT at phase 9's width (GPTConfig(max_position=1024, dropout=0),
+   seq 512 x batch 8, Adam 1e-4) on a local dp 2 x sp 2 mesh (``with_
+   mesh(make_mesh(dp=2, sp=2, devices=["cuda:0"] * 4))``: each dp rank's
+   attention rings over sp 2), 3 steps against dp 1: the first loss
+   within 1e-5, the first step's @GRADs within 1e-4 of their scale, the
+   later losses within 1e-3; 12 layers x 2 ranks x 3 causal ring steps =
+   72 flash forward, dQ and dK/dV launches a step;
+21d. the world form: two processes on cuda:0 joined by gloo (this script
+   with ``--dp-world-rank``), one dp rank each, run 21b's program (depth
+   cut to 2 layers, as 21b) for 3 steps through ``with_data_parallel()``
+   over the world: both ranks' losses equal 21b's dp 2 run's (1e-6 the
+   first, 1e-3 the later) and their first step's @GRADs 21b's (1e-5 of
+   their scale: a gradient counted dp times, or of part of the batch,
+   shows there, where Adam's first update would hide its scale from the
+   losses), 5 op reductions and one fused gradient
+   all-reduce a step, 2 + 2 + 2 flash launches a step a rank; two more
+   steps time the all-reduces (ms a step).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -328,8 +365,9 @@ flash-attention forward's bf16 (wgmma) and f32 (mma.sync) kernels and
 the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
-phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c
-and 20-20d, with 16b/16c/17/19b/19c/20d's errors in ``path_errs``); the
+phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
+20-20d and 21-21d, with 16b/16c/17/19b/19c/20d/21b/21c's errors in
+``path_errs``); the
 line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
@@ -513,6 +551,20 @@ OVERFLOW_STEPS = 3                  # 20c: steps before and after it
 # quarter of a bf16 step, gradients eight)
 AMP_AGREE_LOSS_TOL = 1e-3
 AMP_AGREE_GRAD_TOL = 2.0 ** -5
+DP = 2                              # phases 21-21d: a dp 2 mesh on one card
+# 21b and 21d (dp 2 against dp 1, the world against the local form):
+# phase 20b's staged tolerances; the sentence embedding's backward sums its
+# lookups in no fixed order on the card, which later steps amplify
+DP_FIRST_LOSS_TOL = 1e-6
+DP_GRAD_TOL = 1e-5
+DP_LATER_LOSS_TOL = 1e-3
+# 21c (dp 2 x sp 2 against dp 1): the ring merges two chunks' outputs by
+# their lse, another rounding than one flash call over T
+DP_SP_FIRST_LOSS_TOL = 1e-5
+DP_SP_GRAD_TOL = 1e-4
+DP_REDUCTIONS = 5                   # BERT's dp reductions a step
+DP_WORLD_TIMEOUT_S = 300.0          # 21d: both ranks, boot included
+DP_WORLD_TIMED = 2                  # 21d: steps timing the all-reduces
 # the profile phases trace the device only: every number they print is a
 # device time or count, or a host wall around the traced loop, and the
 # host-side op events made the profiler's own processing the largest part
@@ -5085,6 +5137,440 @@ def phase_recipe_all(flash, bert16, prof16):
     return paths, aerrs
 
 
+# ---------------------------------------------------------------------------
+# phases 21-21d: data parallelism through CompiledProgram on a dp mesh
+# ---------------------------------------------------------------------------
+
+def _shard_shapes(comp, exe, feed):
+    """Each feed's shard shapes as the dp walk splits it over the mesh."""
+    from paddle_tpu_torch.core.compiler import DataParallelWalk
+    from paddle_tpu_torch.ops import Sharded
+    walk = DataParallelWalk(comp.mesh, exe.device)
+    split = walk.split_feeds({k: torch.from_numpy(np.asarray(v))
+                              for k, v in feed.items()})
+    return {k: [list(p.shape) for p in v.parts] if isinstance(v, Sharded)
+            else list(v.shape) for k, v in split.items()}
+
+
+def _dp_program(main, loss, places):
+    """CompiledProgram(main).with_data_parallel over `places` (None: the
+    world)."""
+    import paddle_tpu_torch as fluid
+    return fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=places)
+
+
+def phase_dp(flash, bert16, prof16):
+    """Phase 21: phase 16's cell through with_data_parallel on a local dp
+    DP mesh on the card. Returns ((fwd, dQ, dK/dV, bf16 fwd) launches of
+    the run, its record)."""
+    import paddle_tpu_torch as fluid
+    cfg = bert_config()
+    main, startup, loss = build_bert(cfg)
+    feed = bert_feed()
+    exe = fluid.Executor()
+    comp = _dp_program(main, loss, [fluid.CUDAPlace(0)] * DP)
+    shapes = _shard_shapes(comp, exe, feed)
+    print("dp feed shards " + json.dumps(shapes))
+    rows = BERT_BATCH // DP
+    for k, v in feed.items():
+        if shapes[k] != [[rows] + list(v.shape[1:])] * DP:
+            _fail(f"dp: feed {k} {list(v.shape)} split into {shapes[k]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = cfg.num_hidden_layers
+    steps = BERT_WARM + BERT_STEPS
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        _zero_counts(flash)
+        red0 = comp.mesh.reductions
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, comp, feed, loss, steps, BERT_WARM)
+        counts = _bwd_counts(flash)
+        reductions = comp.mesh.reductions - red0
+        peak = torch.cuda.max_memory_allocated()
+        prof = _profile_train(lambda: exe.run(comp, feed=feed,
+                                              fetch_list=[loss]),
+                              BERT_PROFILE_STEPS)
+    if per_step != {(DP * n,) * 3} or tc or counts != (steps * DP * n,) * 3:
+        _fail(f"dp: flash launches fwd/dq/dkv per step {per_step} (run "
+              f"{counts}), want {DP} x {n} each; {tc} tensor-core")
+    if reductions != steps * DP_REDUCTIONS:
+        _fail(f"dp: {reductions} reductions in {steps} steps, want "
+              f"{DP_REDUCTIONS} a step")
+    first, last = losses[0], losses[-1]
+    if not np.isfinite(losses).all() or not last < BERT_LOSS_MARGIN * first:
+        _fail(f"dp: loss not finite or not below {BERT_LOSS_MARGIN} x the "
+              f"first: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    out = {"config": "BertConfig(max_position_embeddings=512)",
+           "mesh": f"local dp {DP} on cuda:0", "seq_len": BERT_SEQ,
+           "batch": BERT_BATCH, "rows_a_rank": rows,
+           "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "tokens_per_s": BERT_BATCH * BERT_SEQ / (mean_ms / 1e3),
+           "max_memory_allocated": peak, "loss_first": first,
+           "loss_last": last, "loss_ratio": last / first,
+           "reductions_per_step": reductions / steps,
+           "flash_launches_fwd_dq_dkv": list(counts),
+           "flash_launches_per_step": list(next(iter(per_step)))}
+    print("dp " + json.dumps(out))
+    print("profile dp " + json.dumps(prof))
+    keys = ("step_ms_p50", "step_ms_p99", "tokens_per_s",
+            "max_memory_allocated", "loss_first", "loss_last")
+    pkeys = ("wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+             "device_ops_per_step", "flash_share_of_device")
+    print("dp 2 vs 16 (one rank, f32): " + json.dumps(
+        {**{k: [out[k], bert16[k]] for k in keys},
+         **{k: [prof[k], prof16[k]] for k in pkeys}}))
+    return counts + (tc,), out
+
+
+def dp_agree_program():
+    """(main, startup, loss): phase 16's net at full width, 2 layers,
+    dropout 0."""
+    return build_bert(bert_config(num_hidden_layers=BERT_AGREE_LAYERS,
+                                  hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0))
+
+
+def dp_agree_feed():
+    """16b's padded feed with unequal masked-LM weights per rank: rank
+    0's rows keep one prediction each, rank 1's all of theirs."""
+    feed = bert_feed()
+    feed["input_mask"][1, BERT_SEQ - BERT_PAD:] = 0.0
+    feed["input_mask"][5, BERT_SEQ // 2:] = 0.0
+    feed["mask_weight"][:BERT_BATCH // DP, 1:] = 0.0
+    return feed
+
+
+def _dp_steps(flash, step, base, loss, names, steps):
+    """`steps` calls of step(fetch_list) from a copy of `base`: (losses,
+    the first step's @GRADs, (fwd, dQ, dK/dV, bf16 fwd) launches)."""
+    import paddle_tpu_torch as fluid
+    _zero_counts(flash)
+    losses = []
+    with fluid.scope_guard(_copy_scope(base)):
+        for i in range(steps):
+            out = step([loss] + (
+                [nm + "@GRAD" for nm in names] if i == 0 else []))
+            losses.append(out[0].double().item())
+            if i == 0:
+                grads = out[1:]
+    return losses, grads, _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+
+
+def _grad_rel_err(got, want, names):
+    """(the worst @GRAD error over its tensor's scale, plus 1e-3 of the
+    largest gradient, as train_agree; its name)."""
+    floor = 1e-3 * max(g.abs().max().item() for g in want)
+    return max(((a - b).abs().max().item() / (b.abs().max().item() + floor),
+                nm) for nm, a, b in zip(names, got, want))
+
+
+def _staged(tag, got, want, names, first_tol, grad_tol):
+    """The staged comparison of two runs (losses, grads, launches): the
+    first loss within `first_tol`, the first step's @GRADs within
+    `grad_tol` of their scale, later losses within DP_LATER_LOSS_TOL."""
+    first = abs(got[0][0] - want[0][0]) / abs(want[0][0])
+    later = max(abs(a - b) / abs(b) for a, b in zip(got[0][1:], want[0][1:]))
+    grad, worst = _grad_rel_err(got[1], want[1], names)
+    print(f"{tag}: losses {got[0]} vs {want[0]} (first rel err {first:.3e}, "
+          f"tolerance {first_tol}; later {later:.3e}, tolerance "
+          f"{DP_LATER_LOSS_TOL}); {len(names)} @GRADs, worst {grad:.3e} at "
+          f"{worst} (tolerance {grad_tol})")
+    if not (first <= first_tol and later <= DP_LATER_LOSS_TOL
+            and grad <= grad_tol):
+        _fail(f"{tag}: the runs disagree")
+    return {"first_loss_rel_err": first, "later_loss_rel_err": later,
+            "grad_rel_err": grad}
+
+
+def _runner(exe, program, feed):
+    return lambda fetch_list: exe.run(program, feed=feed,
+                                      fetch_list=fetch_list,
+                                      return_numpy=False)
+
+
+def phase_dp_agree(flash):
+    """Phase 21b: dp DP against dp 1 through the kernels, then dp DP with
+    the plain attention. Returns (the dp DP kernel run's launches, the
+    errors, its (losses, first-step @GRADs, parameter names))."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_ops
+    main, startup, loss = dp_agree_program()
+    feed = dp_agree_feed()
+    exe = fluid.Executor()
+    base = fluid.Scope()
+    with fluid.scope_guard(base):
+        exe.run(startup)
+    names = [p.name for p in main.all_parameters()]
+    dp1 = _dp_program(main, loss, [fluid.CUDAPlace(0)])
+    dp2 = _dp_program(main, loss, [fluid.CUDAPlace(0)] * DP)
+    steps, layers = BERT_AGREE_STEPS, BERT_AGREE_LAYERS
+    one = _dp_steps(flash, _runner(exe, dp1, feed), base, loss, names,
+                    steps)
+    red0 = dp2.mesh.reductions
+    two = _dp_steps(flash, _runner(exe, dp2, feed), base, loss, names,
+                    steps)
+    reductions = dp2.mesh.reductions - red0
+    real = attention_ops.dot_product_attention
+    attention_ops.dot_product_attention = _plain_attention
+    try:
+        plain = _dp_steps(flash, _runner(exe, dp2, feed), base, loss,
+                          names, steps)
+    finally:
+        attention_ops.dot_product_attention = real
+    want1, want2 = (layers * steps,) * 3 + (0,), (DP * layers * steps,) * 3 \
+        + (0,)
+    if one[2] != want1 or two[2] != want2 or plain[2] != (0,) * 4:
+        _fail(f"dp agree: launches dp 1 {one[2]} (want {want1}), dp {DP} "
+              f"{two[2]} (want {want2}), plain {plain[2]}")
+    if reductions != steps * DP_REDUCTIONS:
+        _fail(f"dp agree: {reductions} reductions in {steps} steps")
+    errs = {"dp2_vs_dp1": _staged(f"dp agree: dp {DP} vs dp 1", two, one,
+                                  names, DP_FIRST_LOSS_TOL, DP_GRAD_TOL)}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(two[0], plain[0]))
+    grad_err, worst = _grad_rel_err(two[1], plain[1], names)
+    print(f"dp agree: dp {DP} kernels vs plain attention: losses "
+          f"{two[0]} vs {plain[0]} (worst rel err {loss_err:.3e}, "
+          f"tolerance {TRAIN_LOSS_TOL}); @GRADs worst {grad_err:.3e} at "
+          f"{worst} (tolerance {TRAIN_GRAD_TOL})")
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL):
+        _fail("dp agree: the kernels disagree with the plain attention")
+    errs["kernel_vs_plain"] = {"loss_rel_err": loss_err,
+                               "grad_rel_err": grad_err}
+    return two[2], errs, (two[0], two[1], names)
+
+
+def phase_dp_sp(flash):
+    """Phase 21c: phase 9's GPT on a local dp DP x sp 2 mesh against dp 1,
+    BERT_AGREE_STEPS steps. Returns (the mesh run's launches, errors)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    cfg, main, startup, loss, toks = build_train()
+    feed = {"tokens": toks}
+    exe = fluid.Executor()
+    base = fluid.Scope()
+    with fluid.scope_guard(base):
+        exe.run(startup)
+    names = [p.name for p in main.all_parameters()]
+    sp = 2
+    dp1 = _dp_program(main, loss, [fluid.CUDAPlace(0)])
+    mesh = make_mesh(dp=DP, sp=sp, devices=["cuda:0"] * (DP * sp))
+    dpsp = fluid.CompiledProgram(main).with_mesh(mesh)
+    steps, n = BERT_AGREE_STEPS, cfg.num_layers
+    one = _dp_steps(flash, _runner(exe, dp1, feed), base, loss, names,
+                    steps)
+    two = _dp_steps(flash, _runner(exe, dpsp, feed), base, loss, names,
+                    steps)
+    ring = sp * (sp + 1) // 2            # a causal ring's flash steps
+    want1 = (n * steps,) * 3 + (0,)
+    want2 = (n * DP * ring * steps,) * 3 + (0,)
+    if one[2] != want1 or two[2] != want2:
+        _fail(f"dp x sp: launches dp 1 {one[2]} (want {want1}), dp {DP} x "
+              f"sp {sp} {two[2]} (want {want2})")
+    errs = _staged(f"dp x sp: dp {DP} x sp {sp} vs dp 1", two, one, names,
+                   DP_SP_FIRST_LOSS_TOL, DP_SP_GRAD_TOL)
+    return two[2], errs
+
+
+def dp_world_rank(rank, init, out):
+    """One rank of phase 21d's world (`--dp-world-rank`): joins the gloo
+    group, runs 21b's program through with_data_parallel() over the world
+    on cuda:0 and writes its record to <out>/rank<rank>.json, its first
+    step's @GRADs to <out>/rank<rank>_grads.pt."""
+    import datetime
+    import torch.distributed as dist
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.cuda import flash
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=DP,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        flash.build()
+        flash.build_bwd()
+        main, startup, loss = dp_agree_program()
+        feed = dp_agree_feed()
+        exe = fluid.Executor()
+        comp = _dp_program(main, loss, None)
+        mesh = comp.mesh
+        if not mesh.world or mesh.held("dp") != [rank]:
+            raise RuntimeError(f"not a world dp mesh: {mesh}")
+        rec = {"losses": [], "reductions": [], "launches": [],
+               "step_ms": []}
+        gnames = [p.name + "@GRAD" for p in main.all_parameters()]
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            for i in range(BERT_AGREE_STEPS):
+                before, red0 = _bwd_counts(flash), mesh.reductions
+                t0 = time.perf_counter()
+                out_ = exe.run(comp, feed=feed, fetch_list=[loss] + (
+                    gnames if i == 0 else []), return_numpy=False)
+                if i == 0:
+                    torch.save([g.cpu() for g in out_[1:]],
+                               os.path.join(out, f"rank{rank}_grads.pt"))
+                rec["losses"].append(out_[0].double().item())
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["reductions"].append(mesh.reductions - red0)
+                rec["launches"].append([a - b for a, b in zip(
+                    _bwd_counts(flash), before)])
+            spent = {"all_reduce": 0.0, "gradients": 0.0, "bytes": 0}
+            real_ar, real_grads = dist.all_reduce, mesh.all_reduce_grads
+
+            def timed(fn, key):
+                def call(*a, **k):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    r = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    spent[key] += time.perf_counter() - t
+                    return r
+                return call
+
+            def grads(gs, *a, **k):
+                spent["bytes"] = sum(g.numel() * g.element_size()
+                                     for g in gs)
+                return timed(real_grads, "gradients")(gs, *a, **k)
+
+            dist.all_reduce = timed(real_ar, "all_reduce")
+            mesh.all_reduce_grads = grads
+            try:
+                for _ in range(DP_WORLD_TIMED):
+                    exe.run(comp, feed=feed, fetch_list=[loss])
+            finally:
+                dist.all_reduce = real_ar
+                del mesh.all_reduce_grads
+        rec.update(backend=dist.get_backend(),
+                   all_reduce_ms_per_step=spent["all_reduce"]
+                   / DP_WORLD_TIMED * 1e3,
+                   gradient_all_reduce_ms_per_step=spent["gradients"]
+                   / DP_WORLD_TIMED * 1e3,
+                   gradient_bytes=spent["bytes"])
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_world(ref):
+    """Phase 21d: two processes on cuda:0 joined by gloo (file://
+    rendezvous in a temporary directory), one dp rank each, against 21b's
+    dp DP run `ref` (its losses, its first step's @GRADs and their
+    parameters' names). A rank's failure fails the phase. Returns (flash
+    launches by path, numbers)."""
+    import shutil
+    import tempfile
+    base = tempfile.mkdtemp(prefix="dp_world_")
+    init = "file://" + os.path.join(base, "rendezvous")
+    procs = []
+    try:
+        for r in range(DP):
+            log = open(os.path.join(base, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--dp-world-rank", str(r), init, base],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + DP_WORLD_TIMEOUT_S
+        codes = []
+        for p, _log in procs:
+            try:
+                codes.append(p.wait(max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+        if codes != [0] * DP:
+            for r in range(DP):
+                with open(os.path.join(base, f"rank{r}.log")) as f:
+                    print(f"21d rank {r} log tail:\n" + f.read()[-3000:])
+            _fail(f"21d: rank exit codes {codes}")
+        recs = []
+        for r in range(DP):
+            with open(os.path.join(base, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+            recs[-1]["grads"] = torch.load(
+                os.path.join(base, f"rank{r}_grads.pt"),
+                map_location=ref[1][0].device)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(base, ignore_errors=True)
+    layers = BERT_AGREE_LAYERS
+    ref_losses, ref_grads, names = ref
+    launches, out = {}, {"layers": layers, "steps": BERT_AGREE_STEPS}
+    for r, rec in enumerate(recs):
+        grads = rec.pop("grads")
+        if len(grads) != len(ref_grads):
+            _fail(f"21d rank {r}: {len(grads)} @GRADs, 21b has "
+                  f"{len(ref_grads)}")
+        grad, worst = _grad_rel_err(grads, ref_grads, names)
+        print(f"21d rank {r}: first-step @GRADs vs the local dp {DP} "
+              f"run's: worst {grad:.3e} at {worst} (tolerance "
+              f"{DP_GRAD_TOL})")
+        if grad > DP_GRAD_TOL:
+            _fail(f"21d rank {r}: @GRADs disagree with the local dp {DP} "
+                  f"run's")
+        got = rec["losses"]
+        first = abs(got[0] - ref_losses[0]) / abs(ref_losses[0])
+        later = max(abs(a - b) / abs(b) for a, b in zip(got[1:],
+                                                        ref_losses[1:]))
+        if not (first <= DP_FIRST_LOSS_TOL and later <= DP_LATER_LOSS_TOL):
+            _fail(f"21d rank {r}: losses {got} vs the local dp {DP} run's "
+                  f"{ref_losses} (first {first:.3e}, later {later:.3e})")
+        if got != recs[0]["losses"]:
+            _fail(f"21d: rank {r}'s losses {got} != rank 0's")
+        if set(rec["reductions"]) != {DP_REDUCTIONS + 1}:
+            _fail(f"21d rank {r}: reductions a step {rec['reductions']}, "
+                  f"want {DP_REDUCTIONS} + one fused gradient all-reduce")
+        if any(c != [layers] * 3 for c in rec["launches"]):
+            _fail(f"21d rank {r}: flash launches a step {rec['launches']}, "
+                  f"want {layers} each")
+        n = BERT_AGREE_STEPS * layers
+        launches[f"21d dp world rank {r} ({layers} layers x "
+                 f"{BERT_AGREE_STEPS} steps)"] = (n, n, n, 0)
+        out[f"rank{r}"] = {
+            "backend": rec["backend"], "losses": got,
+            "first_loss_rel_err": first, "later_loss_rel_err": later,
+            "grad_rel_err": grad, "step_ms": rec["step_ms"],
+            "all_reduce_ms_per_step": rec["all_reduce_ms_per_step"],
+            "gradient_all_reduce_ms_per_step":
+                rec["gradient_all_reduce_ms_per_step"],
+            "gradient_bytes": rec["gradient_bytes"]}
+    print(f"21d: both ranks' losses and @GRADs equal the local dp {DP} "
+          f"run's, {DP_REDUCTIONS} + 1 reductions a step")
+    print("dp world " + json.dumps(out))
+    return launches, out
+
+
+def phase_dp_all(flash, bert16, prof16):
+    """Phases 21-21d. Returns (flash launches by path, the agreement
+    errors)."""
+    dlaunches, _rec = _phase("21 dp BERT-base pretrain", phase_dp, flash,
+                             bert16, prof16)
+    alaunches, aerrs, dp_ref = _phase("21b dp agree", phase_dp_agree,
+                                      flash)
+    slaunches, serrs = _phase("21c dp x sp GPT", phase_dp_sp, flash)
+    wlaunches, _ = _phase("21d dp world, two processes", phase_dp_world,
+                          dp_ref)
+    steps = BERT_WARM + BERT_STEPS
+    paths = {f"21 dp {DP} BERT-base pretrain ({steps} steps)": dlaunches,
+             f"21b dp {DP} agree (kernel run, {BERT_AGREE_LAYERS} layers x "
+             f"{BERT_AGREE_STEPS} steps)": alaunches,
+             f"21c dp {DP} x sp 2 GPT ({BERT_AGREE_STEPS} steps)": slaunches,
+             **wlaunches}
+    errs = {f"21b dp {DP} vs dp 1": aerrs["dp2_vs_dp1"],
+            f"21b dp {DP} kernel vs plain": aerrs["kernel_vs_plain"],
+            f"21c dp {DP} x sp 2 vs dp 1": serrs}
+    return paths, errs
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -5188,6 +5674,9 @@ def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--tp-world-rank":
         tp_world_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return
+    if len(sys.argv) == 5 and sys.argv[1] == "--dp-world-rank":
+        dp_world_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     if len(sys.argv) > 1:
         _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of, "
               f"--fwd-times-of or --paged-of <checkout>")
@@ -5261,6 +5750,7 @@ def main():
     tpw_launches, _ = _phase("19d tp world, two processes", phase_tp_world,
                              paged, cfg, tree)
     recipe_paths, recipe_errs = phase_recipe_all(flash, bert16, prof16)
+    dp_paths, dp_errs = phase_dp_all(flash, bert16, prof16)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -5354,7 +5844,7 @@ def main():
         "16c packed agree (kernel run, 2 layers x 1 step)": pagree_launches,
         **{f"17 ring sp {RING_SP} {case} (one call)": c
            for case, c in ring_launches.items()},
-        **recipe_paths}
+        **recipe_paths, **dp_paths}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,
@@ -5375,6 +5865,7 @@ def main():
     agree = {"16b BERT agree": bagree_errs,
              "16c packed agree": pagree_errs,
              "20d recipe agree (bf16 products)": recipe_errs,
+             **dp_errs,
              **{f"17 ring {case} (out, grads: max abs)": list(e)
                 for case, e in ring_errs.items()}}
     kernels[3]["path_errs"] = kernels[4]["path_errs"] = agree

@@ -19,9 +19,12 @@ entry points (``models/bert.py``, ``models/ernie.py``,
 and loss scaling (``amp/``), the learning-rate schedules
 (``layers/learning_rate_scheduler.py``), gradient clipping and weight
 decay (``optimizer/clip.py``, ``optimizer/regularizer.py``), the other
-optimizers and recompute (``optimizer/recompute.py``); and ring
-attention over a sequence-parallel mesh (``parallel/``). The top level is the ``fluid`` namespace of that
-recipe::
+optimizers and recompute (``optimizer/recompute.py``); ring attention
+over a sequence-parallel mesh (``parallel/``); and data-parallel
+training through ``CompiledProgram(main).with_data_parallel(...)`` /
+``with_mesh(mesh)`` and ``ParallelExecutor`` (``core/compiler.py``),
+with the global batch's loss and gradients. The top level is the
+``fluid`` namespace of that recipe::
 
     import paddle_tpu_torch as fluid
     main, startup = fluid.Program(), fluid.Program()
@@ -37,6 +40,8 @@ from . import amp, initializer, layers, optimizer
 from .optimizer import clip, regularizer
 from .core import unique_name
 from .core.backward import append_backward, gradients
+from .core.compiler import (BuildStrategy, CompiledProgram,
+                            ExecutionStrategy, ParallelExecutor)
 from .core.executor import (Executor, Scope, global_scope, scope_from_numpy,
                             scope_guard)
 from .core.framework import (Program, Variable, Parameter, program_guard,
@@ -50,4 +55,6 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "program_guard", "default_main_program", "default_startup_program",
            "ParamAttr", "CPUPlace", "CUDAPlace", "append_backward",
            "gradients", "layers", "optimizer", "initializer", "unique_name",
-           "resolve_device", "amp", "clip", "regularizer"]
+           "resolve_device", "amp", "clip", "regularizer",
+           "CompiledProgram", "ParallelExecutor", "BuildStrategy",
+           "ExecutionStrategy"]

@@ -22,6 +22,13 @@ device, and eager autograd takes the place of the traced
   ``optimizer/recompute.py``'s ``run_checkpointed`` with the tag's
   policy (the JAX Executor's ``jax.checkpoint``).
 
+``run`` also takes a ``CompiledProgram`` (``core/compiler.py``): one that
+is not data parallel runs its Program on this path; a data-parallel one
+runs the dp walk there, the same walk with the feeds split over the
+mesh's dp ranks, each op dispatched through its dp rule and, in a
+``torch.distributed`` world, the gradients summed over dp before the
+ops after the marker.
+
 Every run is synchronous: fetches come back as numpy copies (or tensors
 with ``return_numpy=False``), and the persistables the run wrote land in
 the Scope. One CUDA graph over this fixed-shape step, in place of the
@@ -150,9 +157,16 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
-        """Run `program` once: feed -> ops -> fetches. Returns the fetches
-        as numpy copies (tensors with return_numpy=False)."""
+        """Run `program` (a Program or a CompiledProgram) once: feed ->
+        ops -> fetches. Returns the fetches as numpy copies (tensors with
+        return_numpy=False)."""
         program = program if program is not None else default_main_program()
+        walk = None
+        if not isinstance(program, framework.Program):
+            from .compiler import CompiledProgram
+            if isinstance(program, CompiledProgram):
+                walk = program._walk(self.device)
+                program = program.program
         scope = scope if scope is not None else global_scope()
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         gb = program.global_block()
@@ -163,6 +177,9 @@ class Executor:
         feeds = {k: _feed_tensor(v, self.device)
                  for k, v in (feed or {}).items()}
         self._validate(program, run_ops, feeds, fetch_names)
+        if walk is not None:
+            walk.check_state(program)
+            feeds = walk.split_feeds(feeds)
 
         persist_names = sorted(v.name for v in program.list_vars()
                                if v.persistable)
@@ -181,44 +198,56 @@ class Executor:
         def run(ops, env=env):
             for op in ops:
                 ops_registry.run_op(op, env, program, is_test, self.device,
-                                    live)
+                                    live, walk)
 
-        if marker_idx is None:
-            with torch.no_grad():
-                run(run_ops)
-        else:
-            marker = gb.ops[marker_idx]
-            live.add(marker.attr("loss"))
-            post = gb.ops[marker_idx + 1:]
-            keep = set(fetch_names) | set(persist_names)
-            for op in post:
-                keep.update(op.input_names)
-            policy = (getattr(program, "_recompute", None) or {}).get(
-                "policy")
-            if policy == "everything":  # saves everything: no recompute
-                policy = None
-            self._backward(marker, env, run, gb.ops[:marker_idx], keep,
-                           policy)
-            with torch.no_grad():
-                run(post)
+        with (walk.active() if walk is not None
+              else contextlib.nullcontext()):
+            if marker_idx is None:
+                with torch.no_grad():
+                    run(run_ops)
+            else:
+                marker = gb.ops[marker_idx]
+                live.add(marker.attr("loss"))
+                post = gb.ops[marker_idx + 1:]
+                keep = set(fetch_names) | set(persist_names)
+                for op in post:
+                    keep.update(op.input_names)
+                policy = (getattr(program, "_recompute", None) or {}).get(
+                    "policy")
+                if policy == "everything":  # saves everything: no recompute
+                    policy = None
+                if policy is not None and walk is not None:
+                    raise NotImplementedError(
+                        "recompute under data parallelism is not ported")
+                self._backward(marker, env, run, gb.ops[:marker_idx], keep,
+                               policy, walk)
+                with torch.no_grad():
+                    run(post)
 
         for n in persist_names:
             if n in env:
+                if isinstance(env[n], ops_registry.Sharded):
+                    raise NotImplementedError(
+                        f"persistable '{n}' came out dp-sharded: the dp "
+                        f"walk keeps the state replicated")
                 scope.set(n, env[n])
         fetches = [env[f] for f in fetch_names]
+        if walk is not None:
+            fetches = [walk.fetch(f) for f in fetches]
         if return_numpy:
             return [np.array(f.detach().cpu()) for f in fetches]
         return [f.detach() for f in fetches]
 
     @staticmethod
-    def _backward(marker, env, run, ops, keep, policy=None):
+    def _backward(marker, env, run, ops, keep, policy=None, walk=None):
         """The forward `ops` under autograd with the marker's parameters
         as leaves, in a copy of `env`. Of its results, those named in
         `keep` land in `env`, and the gradients as name@GRAD (zeros for a
         parameter the loss does not reach); the parameters stay the
         scope's tensors, for the optimizer's in-place updates. With a
         recompute `policy` the forward runs through
-        ``run_checkpointed``."""
+        ``run_checkpointed``; under the dp walk the loss may be sharded
+        and a world sums the gradients over dp."""
         names = [n for n in marker.attr("params") if n in env]
         loss_name = marker.attr("loss")
         leaves = [env[n].detach().requires_grad_(True) for n in names]
@@ -230,15 +259,20 @@ class Executor:
             else:
                 from ..optimizer.recompute import run_checkpointed
                 run_checkpointed(ops, fwd, run, keep | {loss_name}, policy)
-            loss = fwd[loss_name].sum()
+            loss = (fwd[loss_name].sum() if walk is None
+                    else walk.loss(fwd[loss_name]))
             env.update((k, v) for k, v in fwd.items()
                        if k in keep and k not in names)
             # what nothing reads goes before the backward, which then
             # frees the activations as it consumes them
             del fwd
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for n, leaf, g in zip(names, leaves, grads):
-            env[grad_var_name(n)] = torch.zeros_like(leaf) if g is None else g
+        grads = [torch.zeros_like(leaf) if g is None else g
+                 for leaf, g in zip(leaves, grads)]
+        if walk is not None:
+            grads = walk.reduce_grads(grads)
+        for n, g in zip(names, grads):
+            env[grad_var_name(n)] = g
 
     @staticmethod
     def _validate(program, run_ops, feeds, fetch_names):

@@ -10,6 +10,16 @@ the modules keep the JAX registry's names.
 
 An op impl has signature ``fn(ctx) -> {output_slot: tensor-or-list}``.
 
+Every op also declares its data-parallel rule (``register(..., dp=)``),
+which the dp walk (``core/compiler.py``) consults when an input of the
+op is dp-sharded (a ``Sharded`` value: one tensor a held rank, each the
+rank's rows along dim 0): ``rows`` runs the op once a held rank on its
+rows, ``rows_if(check)`` does so behind a check, ``replicated`` refuses
+a sharded input, and an op's own rule finishes a global reduction with
+the mesh's dp collective into a replicated value. An op without a rule
+refuses a sharded input too: the walk never computes a silently local
+answer.
+
 Kernels live in subpackages by route (``ops/cuda/``); the modules here
 are plain torch around them.
 """
@@ -19,6 +29,7 @@ import torch
 from ..core.framework import convert_dtype
 
 _REGISTRY = {}
+_DP_RULES = {}
 
 # the env key of the step's (program seed, step counter) pair, from which
 # OpContext.rng() seeds each random op's generator
@@ -37,10 +48,14 @@ def torch_dtype(dtype):
     return _TORCH_DTYPES[convert_dtype(dtype)]
 
 
-def register(*names):
+def register(*names, dp):
+    """Register `fn` under `names` with its data-parallel rule `dp`:
+    ``rows``, ``rows_if(check)``, ``replicated``, an op's own rule
+    ``dp(impl, ctxs, walk) -> outputs``, or None (no rule)."""
     def deco(fn):
         for n in names:
             _REGISTRY[n] = fn
+            _DP_RULES[n] = dp
         return fn
     return deco
 
@@ -86,16 +101,19 @@ class OpContext:
     stay f32 outside the op (master weights)."""
 
     __slots__ = ("op", "env", "program", "is_test", "device", "live",
-                 "_amp")
+                 "dp_rank", "_amp")
 
     def __init__(self, op, env, program, is_test=False, device=None,
-                 live=None):
+                 live=None, dp_rank=None):
         self.op = op
         self.env = env
         self.program = program
         self.is_test = is_test or bool(op.attrs.get("is_test", False))
         self.device = device
         self.live = live
+        # the held dp rank whose rows this context reads (None: the op
+        # runs once, on replicated inputs)
+        self.dp_rank = dp_rank
         amp = op.attrs.get("__amp_dtype__")
         self._amp = torch_dtype(amp) if amp else None
 
@@ -116,6 +134,13 @@ class OpContext:
     def attr(self, name, default=None):
         return self.op.attrs.get(name, default)
 
+    def is_sharded(self, slot):
+        """Is this input dp-sharded (the context reads one rank's
+        rows)?"""
+        names = self.op.input(slot)
+        return bool(names) and isinstance(self.env, _RankView) and \
+            isinstance(self.env.env[names[0]], Sharded)
+
     def out_name(self, slot):
         names = self.op.output(slot)
         return names[0] if names else None
@@ -132,18 +157,101 @@ class OpContext:
     def rng(self):
         """A torch.Generator on the op's device, seeded from (program
         seed, step counter, this op's op_seed): deterministic per op and
-        step, as JAX's fold_in keys are."""
+        step, as JAX's fold_in keys are. A dp rank r > 0 folds r into
+        the seed, so ranks draw different masks for their rows (JAX draws
+        one mask over the global shape); rank 0 keeps the single-device
+        stream."""
         seed, step = self.env[RNG_KEY]
+        x = generator_seed(seed, step, self.op.attrs.get("op_seed", 0))
+        if self.dp_rank:
+            x = _mix64(x ^ int(self.dp_rank))
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(generator_seed(seed, step,
-                                       self.op.attrs.get("op_seed", 0)))
+        gen.manual_seed(x)
         return gen
 
 
-def run_op(op, env, program, is_test=False, device=None, live=None):
-    """Execute one op into env."""
+# -- data parallelism ---------------------------------------------------------
+
+class Sharded:
+    """A dp-sharded value of the dp walk: one tensor a held rank, in rank
+    order, each the rank's rows (dim 0) of the global value."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+
+class _RankView:
+    """The env as one held rank's op reads it: a sharded value's part."""
+
+    __slots__ = ("env", "j")
+
+    def __init__(self, env, j):
+        self.env, self.j = env, j
+
+    def __getitem__(self, name):
+        v = self.env[name]
+        return v.parts[self.j] if isinstance(v, Sharded) else v
+
+
+def _sharded_slot(vals):
+    """One output slot's per-rank values -> Sharded (a list of Sharded
+    where the slot holds several names)."""
+    if isinstance(vals[0], (list, tuple)):
+        return [Sharded(col) for col in zip(*vals)]
+    return Sharded(vals)
+
+
+def rows(impl, ctxs, walk):
+    """The op once a held rank, on that rank's rows: its outputs are
+    sharded. Right for ops that treat dim 0 as rows (elementwise with
+    broadcasting, products against a replicated weight, normalizations
+    and softmaxes off dim 0, embeddings, attention, dropout)."""
+    outs = [impl(c) or {} for c in ctxs]
+    return {slot: _sharded_slot([o[slot] for o in outs]) for slot in outs[0]}
+
+
+def rows_if(check):
+    """``rows`` behind `check(ctx, walk)`, which looks at the op on its
+    first held rank and returns why it cannot run row by row (the
+    NotImplementedError names the op and the reason), or None."""
+    def rule(impl, ctxs, walk):
+        why = check(ctxs[0], walk)
+        if why:
+            raise NotImplementedError(
+                f"op '{ctxs[0].op.type}' under data parallelism: {why}")
+        return rows(impl, ctxs, walk)
+    return rule
+
+
+def replicated(impl, ctxs, walk):
+    """The rule of ops that take replicated inputs only (the optimizer,
+    constants, counters, whole-tensor norms)."""
+    raise NotImplementedError(
+        f"op '{ctxs[0].op.type}' runs on replicated inputs only; under "
+        f"data parallelism it got a dp-sharded input")
+
+
+def run_op(op, env, program, is_test=False, device=None, live=None,
+           walk=None):
+    """Execute one op into env. Under the dp walk (`walk`) an op with a
+    dp-sharded input goes through its dp rule, one context a held rank;
+    an op whose inputs are all replicated runs once."""
     impl = get(op.type)
-    outs = impl(OpContext(op, env, program, is_test, device, live))
+    sharded = walk is not None and any(
+        isinstance(env.get(n), Sharded) for n in op.input_names)
+    if sharded:
+        rule = _DP_RULES.get(op.type)
+        if rule is None:
+            raise NotImplementedError(
+                f"op '{op.type}' has no data-parallel rule; it cannot run "
+                f"on a dp-sharded input")
+        outs = rule(impl, [OpContext(op, _RankView(env, j), program,
+                                     is_test, device, live, dp_rank=r)
+                           for j, r in enumerate(walk.ranks)], walk)
+    else:
+        outs = impl(OpContext(op, env, program, is_test, device, live))
     if outs:
         for slot, vals in outs.items():
             names = op.output(slot)

@@ -12,6 +12,11 @@ path that the JAX package takes off the TPU. The ring's steps run the
 same flash kernels, or on CPU tensors their plain versions. Nothing else
 chooses.
 
+Under data parallelism both ops run a rank's rows (the dp walk hands
+them one rank's batch; under a dp x sp mesh the walk activates the sp
+axis alone, so each rank's attention takes the ring over its own
+rows).
+
 Not ported: the JAX dispatcher's switches ``PADDLE_TPU_FORCE_FLASH``,
 ``PADDLE_TPU_DISABLE_FLASH``, ``PADDLE_TPU_STRICT_FLASH`` and
 ``PADDLE_TPU_DISABLE_RING``, and its warn-and-fall-back ``try`` around
@@ -22,7 +27,7 @@ import warnings
 
 import torch
 
-from . import register
+from . import register, rows
 from .flash import flash_attention, segment_mask_bias
 
 
@@ -106,7 +111,7 @@ def dot_product_attention(q, k, v, bias=None, scale=None, causal=False,
     return _xla_attention(q, k, v, bias=bias, scale=scale, causal=causal)
 
 
-@register("scaled_dot_product_attention")
+@register("scaled_dot_product_attention", dp=rows)
 def scaled_dot_product_attention_op(ctx):
     """Q/K/V: (B, H, T, D). Optional Bias broadcastable to (B, H, Tq, Tk);
     optional SegmentIds (B, T) for packed-sequence attention."""
@@ -117,7 +122,7 @@ def scaled_dot_product_attention_op(ctx):
     return {"Out": out}
 
 
-@register("multihead_attention")
+@register("multihead_attention", dp=rows)
 def multihead_attention_op(ctx):
     """Fused projections + attention. Inputs: Query (B, Tq, M),
     Key/Value (B, Tk, M), packed weights WQ/WK/WV (M, M), WO (M, M),

@@ -3,11 +3,12 @@
 Parity: paddle/fluid/operators/softmax_with_cross_entropy_op.*,
 square_error_cost (the reference's squared_l2_distance); the counterpart
 of ``paddle_tpu/ops/loss_ops.py`` with the losses the ported slices run.
+Under data parallelism both give a rank's rows their loss rows.
 """
 
 import torch
 
-from . import register
+from . import register, rows, rows_if
 
 
 def _squeeze_label(label):
@@ -16,7 +17,13 @@ def _squeeze_label(label):
     return label
 
 
-@register("softmax_with_cross_entropy")
+def _class_axis_off_rows(ctx, walk):
+    if ctx.attr("axis", -1) % ctx.in_("Logits").dim() == 0:
+        return "its class axis is dim 0"
+    return None
+
+
+@register("softmax_with_cross_entropy", dp=rows_if(_class_axis_off_rows))
 def softmax_with_cross_entropy(ctx):
     """Log-softmax in f32, then the picked (hard) or weighted (soft)
     label's negative log-probability; labels equal to ignore_index give
@@ -39,7 +46,7 @@ def softmax_with_cross_entropy(ctx):
     return out
 
 
-@register("square_error_cost")
+@register("square_error_cost", dp=rows)
 def square_error_cost(ctx):
     x, y = ctx.in_("X"), ctx.in_("Y")
     d = x - y

@@ -10,6 +10,15 @@ compare_op.cc, isfinite_op.cc, increment_op.cc; the counterpart of
 comparisons ``equal``, ``greater_than``, ``greater_equal``, ``less_than``
 and ``logical_and``.
 
+Under data parallelism (``ops/__init__.py``'s rules) the elementwise
+ops, ``scale``, ``sum``, ``clip``, ``select_finite`` and the comparisons
+run a rank's rows; ``mul`` and ``matmul`` do so against a replicated
+weight (``matmul`` also between two sharded batches of matrices);
+``mean`` and ``reduce_sum`` over dim 0 finish each rank's partial sum
+with the mesh's dp sum (``mean`` divides by the global count);
+``clip_by_norm``, ``isfinite`` and ``increment`` take replicated inputs
+only.
+
 ``select_finite`` is the port's own: the loss scaler's overflow step
 (amp/decorator.py) zeroes the gradients with it, where the JAX package
 multiplies them by the finite flag (ROADMAP C8).
@@ -17,7 +26,7 @@ multiplies them by the finite flag (ROADMAP C8).
 
 import torch
 
-from . import register
+from . import register, replicated, rows, rows_if
 
 
 def _bcast_y(x, y, axis):
@@ -38,15 +47,15 @@ def _ew(fn):
     return impl
 
 
-register("elementwise_add")(_ew(torch.add))
-register("elementwise_mul")(_ew(torch.mul))
-register("elementwise_div")(_ew(torch.div))
-register("elementwise_max")(_ew(torch.maximum))
-register("elementwise_min")(_ew(torch.minimum))
-register("elementwise_pow")(_ew(torch.pow))
+register("elementwise_add", dp=rows)(_ew(torch.add))
+register("elementwise_mul", dp=rows)(_ew(torch.mul))
+register("elementwise_div", dp=rows)(_ew(torch.div))
+register("elementwise_max", dp=rows)(_ew(torch.maximum))
+register("elementwise_min", dp=rows)(_ew(torch.minimum))
+register("elementwise_pow", dp=rows)(_ew(torch.pow))
 
 
-@register("scale")
+@register("scale", dp=rows)
 def scale(ctx):
     x = ctx.in_("X")
     s = ctx.attr("scale", 1.0)
@@ -63,7 +72,13 @@ def _prod(t):
     return r
 
 
-@register("mul")
+def _weight_replicated(ctx, walk):
+    if ctx.is_sharded("Y"):
+        return "the weight Y is dp-sharded"
+    return None
+
+
+@register("mul", dp=rows_if(_weight_replicated))
 def mul(ctx):
     """fluid mul: flatten x to 2-D at x_num_col_dims, matmul."""
     x, y = ctx.in_("X"), ctx.in_("Y")
@@ -76,7 +91,16 @@ def mul(ctx):
     return {"Out": out.reshape(tuple(xs[:xnc]) + tuple(ys[ync:]))}
 
 
-@register("matmul")
+def _matmul_rows(ctx, walk):
+    if not ctx.is_sharded("X"):
+        return "a replicated X times a dp-sharded Y"
+    if ctx.is_sharded("Y") and min(ctx.in_("X").dim(),
+                                   ctx.in_("Y").dim()) < 3:
+        return "two dp-sharded 2-D operands (not a batch of matrices)"
+    return None
+
+
+@register("matmul", dp=rows_if(_matmul_rows))
 def matmul(ctx):
     x, y = ctx.in_("X"), ctx.in_("Y")
     if ctx.attr("transpose_X", False) and x.dim() > 1:
@@ -90,7 +114,7 @@ def matmul(ctx):
     return {"Out": out}
 
 
-@register("sum")
+@register("sum", dp=rows)
 def sum_op(ctx):
     """Elementwise sum of same-shaped inputs: one stacked reduction in
     place of JAX's chain of adds (for the loss scaler's 0/1 flags the
@@ -102,12 +126,36 @@ def sum_op(ctx):
     return {"Out": torch.stack(xs).sum(0)}
 
 
-@register("mean")
+def _dp_mean(impl, ctxs, walk):
+    """The global mean: each rank's sum, the dp sum of those, over the
+    global element count (the shards are equal)."""
+    xs = [c.in_("X") for c in ctxs]
+    return {"Out": walk.sum([x.sum() for x in xs])
+            / (xs[0].numel() * walk.size)}
+
+
+@register("mean", dp=_dp_mean)
 def mean(ctx):
     return {"Out": ctx.in_("X").mean()}
 
 
-@register("reduce_sum")
+def _reduces_rows(ctx):
+    dims = ctx.attr("dim", [0])
+    if ctx.attr("reduce_all", False) or dims is None:
+        return True
+    dims = dims if isinstance(dims, (list, tuple)) else [dims]
+    return 0 in {d % ctx.in_("X").dim() for d in dims}
+
+
+def _dp_reduce_sum(impl, ctxs, walk):
+    """A sum that collapses dim 0 (or everything) is each rank's partial
+    finished by the dp sum; one over other dims runs a rank's rows."""
+    if not _reduces_rows(ctxs[0]):
+        return rows(impl, ctxs, walk)
+    return {"Out": walk.sum([impl(c)["Out"] for c in ctxs])}
+
+
+@register("reduce_sum", dp=_dp_reduce_sum)
 def reduce_sum(ctx):
     x = ctx.in_("X")
     dims = ctx.attr("dim", [0])
@@ -120,13 +168,13 @@ def reduce_sum(ctx):
                          keepdim=keep)}
 
 
-@register("clip")
+@register("clip", dp=rows)
 def clip(ctx):
     return {"Out": torch.clamp(ctx.in_("X"), ctx.attr("min"),
                                ctx.attr("max"))}
 
 
-@register("clip_by_norm")
+@register("clip_by_norm", dp=replicated)
 def clip_by_norm(ctx):
     x = ctx.in_("X")
     norm = (x * x).sum().sqrt()
@@ -134,13 +182,13 @@ def clip_by_norm(ctx):
     return {"Out": x * scale}
 
 
-@register("isfinite")
+@register("isfinite", dp=replicated)
 def isfinite(ctx):
     """One device bool: every element finite (no host sync)."""
     return {"Out": torch.isfinite(ctx.in_("X")).all()}
 
 
-@register("select_finite")
+@register("select_finite", dp=rows)
 def select_finite(ctx):
     """X where the flag Finite is non-zero, else zeros: a NaN or inf X
     becomes 0 on an overflow step, where X * 0 would be NaN."""
@@ -149,7 +197,7 @@ def select_finite(ctx):
                                                         device=x.device))}
 
 
-@register("increment")
+@register("increment", dp=replicated)
 def increment(ctx):
     """A new tensor x + step in x's dtype (never in place: a recomputed
     forward replays it from the same input)."""
@@ -166,8 +214,8 @@ def _cmp(fn):
     return impl
 
 
-register("equal")(_cmp(torch.eq))
-register("greater_than")(_cmp(torch.gt))
-register("greater_equal")(_cmp(torch.ge))
-register("less_than")(_cmp(torch.lt))
-register("logical_and")(_cmp(torch.logical_and))
+register("equal", dp=rows)(_cmp(torch.eq))
+register("greater_than", dp=rows)(_cmp(torch.gt))
+register("greater_equal", dp=rows)(_cmp(torch.ge))
+register("less_than", dp=rows)(_cmp(torch.lt))
+register("logical_and", dp=rows)(_cmp(torch.logical_and))

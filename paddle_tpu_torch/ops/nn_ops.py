@@ -2,15 +2,24 @@
 
 Parity: paddle/fluid/operators/{layer_norm,dropout}_op.*; the counterpart
 of ``paddle_tpu/ops/nn_ops.py`` with the ops the ported slice runs.
+Under data parallelism both run a rank's rows: ``layer_norm`` where it
+normalizes from an axis >= 1, ``dropout`` with the rank folded into its
+generator's seed (``OpContext.rng``).
 """
 
 import torch
 import torch.nn.functional as F
 
-from . import register
+from . import register, rows, rows_if
 
 
-@register("layer_norm")
+def _norms_rows(ctx, walk):
+    if ctx.attr("begin_norm_axis", 1) % ctx.in_("X").dim() == 0:
+        return "it normalizes over dim 0"
+    return None
+
+
+@register("layer_norm", dp=rows_if(_norms_rows))
 def layer_norm(ctx):
     """Normalize over the axes from begin_norm_axis on, in f32 with the
     biased variance; Y in x's dtype, Mean/Variance (f32, x's leading
@@ -34,7 +43,7 @@ def layer_norm(ctx):
     return out
 
 
-@register("dropout")
+@register("dropout", dp=rows)
 def dropout(ctx):
     """Fluid dropout; the default ``downgrade_in_infer`` keeps x in
     training and scales by (1 - p) in test. The mask draws from the op's

@@ -12,26 +12,27 @@ scope's tensors in place, as fluid's device kernels do: the Executor runs
 these ops under ``torch.no_grad()``, and each returns the tensors it
 updated. The arithmetic follows the JAX ops term by term (f32 moments,
 beta-pow accumulators multiplied once a step), so the two agree to
-rounding.
+rounding. Under data parallelism they take replicated inputs only: the
+dp walk reduces the gradients before the ops after the marker run.
 """
 
 import torch
 
-from . import register
+from . import register, replicated
 
 
 def _lr(ctx):
     return ctx.in_("LearningRate").reshape(())
 
 
-@register("sgd")
+@register("sgd", dp=replicated)
 def sgd(ctx):
     p, g = ctx.in_("Param"), ctx.in_("Grad")
     p.sub_((_lr(ctx) * g).to(p.dtype))
     return {"ParamOut": p}
 
 
-@register("adam")
+@register("adam", dp=replicated)
 def adam(ctx):
     """m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2;
     p -= lr sqrt(1 - b2^t) / (1 - b1^t) m / (sqrt(v) + eps), with the
@@ -53,7 +54,7 @@ def adam(ctx):
             "Beta1PowOut": b1p, "Beta2PowOut": b2p}
 
 
-@register("momentum")
+@register("momentum", dp=replicated)
 def momentum(ctx):
     """v = mu v + g; p -= lr v, or lr (g + mu v) with Nesterov."""
     p, g, v = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Velocity")
@@ -67,7 +68,7 @@ def momentum(ctx):
     return {"ParamOut": p, "VelocityOut": v}
 
 
-@register("lars_momentum")
+@register("lars_momentum", dp=replicated)
 def lars_momentum(ctx):
     """Layer-wise rate lr coeff |p| / (|g| + wd |p| + 1e-12);
     v = mu v + local_lr (g + wd p); p -= v."""
@@ -83,7 +84,7 @@ def lars_momentum(ctx):
     return {"ParamOut": p, "VelocityOut": v}
 
 
-@register("adamax")
+@register("adamax", dp=replicated)
 def adamax(ctx):
     """m = b1 m + (1 - b1) g; u = max(b2 u, |g|);
     p -= lr / (1 - b1^t) m / (u + eps)."""
@@ -102,7 +103,7 @@ def adamax(ctx):
             "Beta1PowOut": b1p}
 
 
-@register("adagrad")
+@register("adagrad", dp=replicated)
 def adagrad(ctx):
     p, g, mom = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Moment")
     eps = ctx.attr("epsilon", 1e-6)
@@ -111,7 +112,7 @@ def adagrad(ctx):
     return {"ParamOut": p, "MomentOut": mom}
 
 
-@register("decayed_adagrad")
+@register("decayed_adagrad", dp=replicated)
 def decayed_adagrad(ctx):
     p, g, mom = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Moment")
     decay = ctx.attr("decay", 0.95)
@@ -121,7 +122,7 @@ def decayed_adagrad(ctx):
     return {"ParamOut": p, "MomentOut": mom}
 
 
-@register("adadelta")
+@register("adadelta", dp=replicated)
 def adadelta(ctx):
     """E[g^2] = rho E[g^2] + (1 - rho) g^2;
     u = -sqrt((E[u^2] + eps) / (E[g^2] + eps)) g;
@@ -138,7 +139,7 @@ def adadelta(ctx):
             "AvgSquaredUpdateOut": asu}
 
 
-@register("rmsprop")
+@register("rmsprop", dp=replicated)
 def rmsprop(ctx):
     """ms = rho ms + (1 - rho) g^2; centered: mg = rho mg + (1 - rho) g,
     the denominator sqrt(ms - mg^2 + eps), else sqrt(ms + eps);
@@ -163,7 +164,7 @@ def rmsprop(ctx):
     return outs
 
 
-@register("ftrl")
+@register("ftrl", dp=replicated)
 def ftrl(ctx):
     """FTRL-proximal: n' = n + g^2; sigma = (n'^-lrp - n^-lrp) / lr;
     z' = z + g - sigma p; p = (clip(z', -l1, l1) - z') /
@@ -183,7 +184,7 @@ def ftrl(ctx):
     return {"ParamOut": p, "SquaredAccumOut": sq, "LinearAccumOut": lin}
 
 
-@register("lamb")
+@register("lamb", dp=replicated)
 def lamb(ctx):
     """Adam's moments with bias correction, r = m^ / (sqrt(v^) + eps) +
     wd p, and the trust ratio |p| / |r| (1 where either norm is 0):

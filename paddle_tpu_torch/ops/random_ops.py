@@ -9,10 +9,10 @@ step, op seed) (``OpContext.rng``): reproducible, but not JAX's numbers.
 
 import torch
 
-from . import register, torch_dtype
+from . import register, replicated, torch_dtype
 
 
-@register("gaussian_random")
+@register("gaussian_random", dp=replicated)
 def gaussian_random(ctx):
     shape = tuple(ctx.attr("shape"))
     dtype = torch_dtype(ctx.attr("dtype", "float32"))
@@ -21,7 +21,7 @@ def gaussian_random(ctx):
     return {"Out": ctx.attr("mean", 0.0) + ctx.attr("std", 1.0) * x}
 
 
-@register("uniform_random")
+@register("uniform_random", dp=replicated)
 def uniform_random(ctx):
     shape = tuple(ctx.attr("shape"))
     dtype = torch_dtype(ctx.attr("dtype", "float32"))

@@ -37,11 +37,22 @@ row-parallel product from their partials: the sum in rank order on a
 local mesh, one ``all_reduce`` over the axis's sub-group in a world,
 whatever backend ``init_process_group`` chose. ``reductions`` counts the
 reductions made, the port's stand-in for the psums JAX compiles.
+
+The data-parallel walk (``core/compiler.py``) finishes its global
+reductions with ``all_sum`` (``reduce_fn``'s sum, differentiable),
+gathers a sharded source with ``all_concat`` (rank-order concatenation;
+in a world an ``all_gather`` whose backward is a reduce-scatter) and, in
+a world, sums the gradients over dp with ``all_reduce_grads`` (one
+all-reduce of the flattened gradients, or one a gradient). Each counts
+in ``reductions``. In a world a replicated value's gradient is held as
+every rank's partial (the walk seeds 1/dp of the loss's), so the
+backward of both collectives all-reduces what it is handed.
 """
 
 import threading
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
@@ -131,28 +142,77 @@ class Mesh:
 
     def reduce_fn(self, axis):
         """The finishing reduction of a row-parallel product over `axis`:
-        fn(partials) takes the held ranks' partial products (``held``
-        order) and returns their sum over the whole axis. A local mesh
-        adds them in rank order; a world all-reduces its one partial, in
-        place, over the axis's sub-group. Each call counts one in
-        ``reductions``."""
-        if self.world:
-            group = self.line(axis)[1]
+        fn(partials) is ``all_sum(partials, axis)``."""
+        return lambda parts: self.all_sum(parts, axis)
 
-            def reduce(parts):
-                (part,) = parts
-                self.reductions += 1
-                if group is not None:
-                    dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
-                return part
-        else:
-            def reduce(parts):
-                self.reductions += 1
-                out = parts[0]
-                for part in parts[1:]:
-                    out = out + part
-                return out
-        return reduce
+    def _group(self, axis):
+        return self.line(axis)[1] if self.world else None
+
+    def all_sum(self, parts, axis):
+        """The sum over `axis` of the held ranks' partials (``held``
+        order): a local mesh adds them in rank order; a world
+        all-reduces its one partial over the axis's sub-group, whatever
+        backend ``init_process_group`` chose, and differentiably: the
+        backward all-reduces the gradient partials it is handed, so each
+        rank's partial takes the whole gradient. Counts one in
+        ``reductions``."""
+        self.reductions += 1
+        if not self.world:
+            out = parts[0]
+            for part in parts[1:]:
+                out = out + part
+            return out
+        (part,) = parts
+        group = self._group(axis)
+        return part if group is None else _AllReduce.apply(group, part)
+
+    def all_concat(self, parts, axis):
+        """The held ranks' rows concatenated along dim 0 in rank order
+        over `axis`, differentiable: a local mesh concatenates them; a
+        world all-gathers its one part, and the backward sums every
+        rank's gradient of the whole and keeps this rank's rows (a
+        reduce-scatter). Counts one in ``reductions``."""
+        self.reductions += 1
+        if not self.world:
+            return torch.cat(parts) if len(parts) > 1 else parts[0]
+        (part,) = parts
+        group = self._group(axis)
+        if group is None:
+            return part
+        ranks = self.line(axis)[0]
+        return _AllGather.apply(group, len(ranks), ranks.index(self.rank),
+                                part)
+
+    def gather_rows(self, part, axis):
+        """A world rank's rows -> the whole, concatenated in rank order
+        over `axis`, outside autograd (a fetch). Not counted."""
+        group = self._group(axis)
+        if group is None:
+            return part
+        return _all_gather(group, len(self.line(axis)[0]), part)
+
+    def all_reduce_grads(self, grads, axis, fuse=True):
+        """A world's gradients summed over `axis`, in place: with `fuse`
+        one all-reduce of the flattened gradients (one a dtype), else one
+        a gradient. Counts one in ``reductions`` for each all-reduce."""
+        group = self._group(axis)
+        if group is None or not grads:
+            return grads
+        buckets = [[g] for g in grads]
+        if fuse:
+            by_dtype = {}
+            for g in grads:
+                by_dtype.setdefault(g.dtype, []).append(g)
+            buckets = list(by_dtype.values())
+        for bucket in buckets:
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            self.reductions += 1
+            offset = 0
+            for g in bucket:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+        return grads
 
     def __enter__(self):
         stack = getattr(_active, "stack", None)
@@ -168,6 +228,50 @@ class Mesh:
     def __repr__(self):
         form = "world" if self.world else "local"
         return f"Mesh({form}, {self.shape})"
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of every rank's tensor; backward: the sum of every rank's
+    gradient partial (the whole gradient of the sum, which each rank's
+    summand takes)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return None, g
+
+
+def _all_gather(group, n, x):
+    """The n ranks' `x` concatenated along dim 0 in rank order."""
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's rows concatenated in rank order; backward: every
+    rank's gradient of the whole summed, this rank's rows kept (a
+    reduce-scatter, as an all-reduce: gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, group, n, index, x):
+        ctx.group, ctx.index, ctx.rows = group, index, x.shape[0]
+        return _all_gather(group, n, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        lo = ctx.index * ctx.rows
+        return None, None, None, g[lo:lo + ctx.rows]
 
 
 def active_mesh():

@@ -375,9 +375,10 @@ def test_sp_framework_program_matches_single_device():
     """The BERT Program run under a local sp=2 mesh (``with mesh:``: every
     layer's attention takes the ring, its padding bias rotating with K/V)
     gives the single-device run's losses over two Adam steps. The
-    reference's dp=2 x sp=2 twin needs the data-parallel
-    ``CompiledProgram.with_mesh``, which waits for the data-parallel
-    port."""
+    reference's dp=2 x sp=2 twin, through the data-parallel
+    ``CompiledProgram.with_mesh``, is
+    ``tests/test_torch_data_parallel.py::
+    test_bert_dp2_sp2_program_matches_jax_with_mesh``."""
     seq_len, batch = 32, 4
     cfg = tbert.bert_tiny()
     cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
