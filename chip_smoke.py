@@ -332,7 +332,38 @@ backward kernels are printed):
    shows there, where Adam's first update would hide its scale from the
    losses), 5 op reductions and one fused gradient
    all-reduce a step, 2 + 2 + 2 flash launches a step a rank; two more
-   steps time the all-reduces (ms a step).
+   steps time the all-reduces (ms a step);
+22. the recipe under data parallelism: phase 20's cell (nothing cut)
+   through ``with_data_parallel(places=[CUDAPlace(0)] * 2)``, 30 steps:
+   the loss below 0.95 x the first and finite, 24 + 24 + 24 flash
+   launches a step, 5 dp reductions a step; a profile of 3 more steps;
+   then 3 steps under ``RecomputeOptimizer("dots")`` at dp 2 from the
+   same weights: 48 + 24 + 24 launches a step (the checkpoint re-runs
+   each rank's forward), the first loss within 1e-6 of the run
+   without, a lower peak memory; prints step ms p50/p99, tokens/s,
+   device ms, operations and busy share a step and peak memory beside
+   phases 20's and 21's;
+23. ResNet-50 training (``bench.py:285-313``'s cell at full width and
+   depth: ``resnet.build_train_net(depth=50, class_dim=1000,
+   image_shape=(3, 224, 224))``, f32, ``MomentumOptimizer(0.1, 0.9)``),
+   batch 32 of synthetic images and labels made on the card from the
+   seed, one batch for 30 steps, under torch's default cuDNN setting
+   (TF32 allowed: the port's convolution sets f32 itself): every loss
+   finite and the last below the first; the first batch norm's running
+   mean and variance after step 1 against a plain f64 convolution of the
+   step's images by its filter (1e-5), the op's convolution at that
+   layer against f64 (1e-5; torch's own call under the process flag
+   printed beside it); prints images/s, step ms p50/p99, the
+   convolutions' operations and TFLOP/s, peak memory and a profile of
+   3 more steps (device ms, operations, busy share, top kernels);
+23b. phase 23's net at dp 2 against dp 1 and the plain Executor, 3
+   steps from one startup: the first loss, the running statistics after
+   step 1 and the first step's @GRADs (as one vector) of dp 2 within 4x
+   the plain run's distance from dp 1 or a floor (1e-5, 1e-5, 1e-3);
+23c. LeNet (``mnist.build_train_net("conv")``, Adam 1e-3, batch 64) 3
+   steps on the card against the port on the CPU: losses within 1e-5,
+   @GRADs within 1e-4 of their scale. Phases 23-23c launch none of the
+   attention kernels (their counts stay 0).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -366,7 +397,7 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d and 21-21d, with 16b/16c/17/19b/19c/20d/21b/21c's errors in
+20-20d, 21-21d and 22, with 16b/16c/17/19b/19c/20d/21b/21c's errors in
 ``path_errs``); the
 line before
 it the card's name and power limit; the last line is ``{"ok": true,
@@ -565,6 +596,45 @@ DP_SP_GRAD_TOL = 1e-4
 DP_REDUCTIONS = 5                   # BERT's dp reductions a step
 DP_WORLD_TIMEOUT_S = 300.0          # 21d: both ranks, boot included
 DP_WORLD_TIMED = 2                  # 21d: steps timing the all-reduces
+# phases 23-23c: bench.py's ResNet cell (bench.py:285-313), on the port
+RESNET_DEPTH = 50
+RESNET_CLASSES = 1000
+RESNET_IMAGE = (3, 224, 224)
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_BATCH = 32                   # a card (PaddleCV: 256 over 8 cards)
+RESNET_WARM = 3
+RESNET_STEPS = 27
+RESNET_PROFILE_STEPS = 3
+RESNET_DP_STEPS = 3                 # 23b
+# 23: the first batch norm's running statistics against momentum x
+# their start + (1 - momentum) x the statistics of an f64 convolution:
+# the f32 convolution (147 products a cell) and the f32 batch sums over
+# 32 x 112 x 112 cells each round a few times 2**-24
+RESNET_BN_TOL = 1e-5
+# 23: the op's convolution against f64 at that layer, over the output's
+# largest magnitude: f32 products (TF32's 10-bit mantissa would give
+# about 1e-3)
+CONV_F32_TOL = 1e-5
+# 23b: dp 2 against dp 1 on the same weights: each rank's batch
+# statistics sum in another order, and cuDNN's algorithms at batch 16
+# and 32 do not sum in one fixed order. Each distance is held to
+# RESNET_DP_SPREAD x the plain run's from dp 1 (the same numbers in a
+# third order) or its floor: the first loss 1e-5, the statistics after
+# the first step 1e-5 of their scale, the first step's @GRADs 1e-3 of
+# their norm. The f32 backward through 53 batch norms is ill conditioned
+# at random weights: on the CPU (64 x 64 and 128 x 128, batch 8) the
+# @GRADs of each f32 run lie 1.5-1.7 % (in norm) from an f64 run's, and
+# 0.8-1.7 % from each other
+RESNET_DP_LOSS_TOL = 1e-5
+RESNET_DP_STAT_TOL = 1e-5
+RESNET_DP_GRAD_TOL = 1e-3
+RESNET_DP_SPREAD = 4.0
+# 23c: LeNet on the card against the port on the CPU: f32 on both sides
+# (cuDNN without TF32 against the CPU's convolution), Adam(1e-3), 3 steps
+LENET_BATCH = 64
+LENET_STEPS = 3
+LENET_LOSS_TOL = 1e-5
+LENET_GRAD_TOL = 1e-4
 # the profile phases trace the device only: every number they print is a
 # device time or count, or a host wall around the traced loop, and the
 # host-side op events made the profiler's own processing the largest part
@@ -2064,12 +2134,13 @@ def phase_train_agree(flash):
                 {"tokens": toks}, cfg.num_layers, 1)
 
 
-def _profile_train(step, steps):
+def _profile_train(step, steps, flash=True):
     """Where a training step's time goes: torch.profiler (the device
     only) over `steps` calls of step(). The host wall and device time a
     step, the busy share, device operations a step, the flash forward's
     and backward's device time (the backward's also by kernel), their
-    shares and the top kernels."""
+    shares and the top kernels. A step without attention (`flash`
+    False) must show device time, not flash kernels."""
     from torch.profiler import profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=PROFILE_ACTIVITIES) as prof:
@@ -2086,7 +2157,7 @@ def _profile_train(step, steps):
     dq = sum(v for k, v in dev.items() if "flash_bwd_dq" in k)
     dkv = sum(v for k, v in dev.items() if "flash_bwd_dkv" in k)
     bwd = dq + dkv
-    if busy <= 0 or fwd <= 0 or bwd <= 0:
+    if busy <= 0 or (flash and (fwd <= 0 or bwd <= 0)):
         _fail("the profiler saw no device time or no flash kernel")
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
     return {"steps": steps, "wall_ms_per_step": wall,
@@ -5106,7 +5177,8 @@ def phase_recipe_agree(flash):
 def phase_recipe_all(flash, bert16, prof16):
     """Phases 20-20d, the cuBLAS bf16 GEMMs reducing split-K partials in
     f32 (as XLA accumulates a bf16 dot), the setting restored after.
-    Returns (flash launches by path, 20d's errors). Garbage the earlier
+    Returns (flash launches by path, 20d's errors, 20's (record,
+    profile)). Garbage the earlier
     phases left in reference cycles (servers, pools) is collected first,
     so that it neither counts in 20's peak memory nor pauses its steps."""
     gc.collect()
@@ -5115,8 +5187,8 @@ def phase_recipe_all(flash, bert16, prof16):
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
     try:
-        rlaunches, _rec, prof = _phase("20 recipe", phase_recipe, flash,
-                                       bert16)
+        rlaunches, rec, prof = _phase("20 recipe", phase_recipe, flash,
+                                      bert16)
         print("profile recipe vs 16 (f32): " + json.dumps({
             k: [prof[k], prof16[k]] for k in (
                 "wall_ms_per_step", "device_ms_per_step",
@@ -5134,7 +5206,7 @@ def phase_recipe_all(flash, bert16, prof16):
                 for tag, c in claunches.items()},
              f"20d recipe agree (kernel run, {BERT_AGREE_LAYERS} layers x "
              f"{BERT_AGREE_STEPS} steps)": alaunches}
-    return paths, aerrs
+    return paths, aerrs, (rec, prof)
 
 
 # ---------------------------------------------------------------------------
@@ -5226,7 +5298,7 @@ def phase_dp(flash, bert16, prof16):
     print("dp 2 vs 16 (one rank, f32): " + json.dumps(
         {**{k: [out[k], bert16[k]] for k in keys},
          **{k: [prof[k], prof16[k]] for k in pkeys}}))
-    return counts + (tc,), out
+    return counts + (tc,), out, prof
 
 
 def dp_agree_program():
@@ -5551,9 +5623,9 @@ def phase_dp_world(ref):
 
 def phase_dp_all(flash, bert16, prof16):
     """Phases 21-21d. Returns (flash launches by path, the agreement
-    errors)."""
-    dlaunches, _rec = _phase("21 dp BERT-base pretrain", phase_dp, flash,
-                             bert16, prof16)
+    errors, 21's (record, profile))."""
+    dlaunches, rec, prof = _phase("21 dp BERT-base pretrain", phase_dp,
+                                  flash, bert16, prof16)
     alaunches, aerrs, dp_ref = _phase("21b dp agree", phase_dp_agree,
                                       flash)
     slaunches, serrs = _phase("21c dp x sp GPT", phase_dp_sp, flash)
@@ -5568,7 +5640,475 @@ def phase_dp_all(flash, bert16, prof16):
     errs = {f"21b dp {DP} vs dp 1": aerrs["dp2_vs_dp1"],
             f"21b dp {DP} kernel vs plain": aerrs["kernel_vs_plain"],
             f"21c dp {DP} x sp 2 vs dp 1": serrs}
-    return paths, errs
+    return paths, errs, (rec, prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the recipe under data parallelism, with recompute
+# ---------------------------------------------------------------------------
+
+def phase_recipe_dp(flash, rec20, rec21):
+    """Phase 22 under phase 20's GEMM setting (split-K partials of the
+    bf16 products reduced in f32), restored after."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return _phase_recipe_dp(flash, rec20, rec21)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def _phase_recipe_dp(flash, rec20, rec21):
+    """Phase 22: phase 20's cell (the recipe on BertConfig(), seq
+    BERT_SEQ x batch BERT_BATCH, dropout 0.1, nothing cut) through
+    with_data_parallel(places=[CUDAPlace(0)] * DP) for BERT_WARM +
+    BERT_STEPS steps: every loss finite, the last below BERT_LOSS_MARGIN
+    x the first, DP x 12 flash forward, dQ and dK/dV launches a step and
+    no tensor-core launch, DP_REDUCTIONS dp reductions a step; a profile
+    of BERT_PROFILE_STEPS more steps. Then RECOMPUTE_STEPS steps under
+    RecomputeOptimizer("dots") at dp DP from the same startup weights:
+    the first loss within RECOMPUTE_LOSS_TOL of the run without, the
+    later ones within AMP_AGREE_LOSS_TOL, 2 x DP x 12 forward launches a
+    step (the checkpoint re-runs the forward) and DP x 12 of each
+    backward kernel, a peak memory below the run without. Prints each
+    against phases 20 and 21 (`rec20`, `rec21`: (record, profile)).
+    Returns ((fwd, dQ, dK/dV, bf16 fwd) launches by path, record)."""
+    import paddle_tpu_torch as fluid
+    cfg = bert_config()
+    n = cfg.num_hidden_layers
+    feed = bert_feed()
+    steps = BERT_WARM + BERT_STEPS
+    runs, paths = {}, {}
+    for tag, policy, count in (("none", None, steps),
+                               ("dots", "dots", RECOMPUTE_STEPS)):
+        main, startup, loss, _lr, _opt = build_recipe(cfg, policy)
+        comp = _dp_program(main, loss, [fluid.CUDAPlace(0)] * DP)
+        # a new Executor a run: its step counter seeds dropout's masks
+        exe = fluid.Executor()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts(flash)
+            red0 = comp.mesh.reductions
+            losses, step_ms, per_step, tc = _train_run(
+                flash, exe, comp, feed, loss, count,
+                BERT_WARM if policy is None else 1)
+            run = {"losses": losses, "step_ms": step_ms,
+                   "per_step": sorted(per_step), "tc": tc,
+                   "reductions": comp.mesh.reductions - red0,
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "launches": _bwd_counts(flash) + (tc,)}
+            if policy is None:
+                run["profile"] = _profile_train(
+                    lambda: exe.run(comp, feed=feed, fetch_list=[loss]),
+                    BERT_PROFILE_STEPS)
+        runs[tag] = run
+        paths[f"22 recipe dp {DP}" + ("" if policy is None else
+                                      f" recompute {policy}")
+              + f" ({count} steps)"] = run["launches"]
+    plain, dots = runs["none"], runs["dots"]
+    if plain["per_step"] != [(DP * n,) * 3] or plain["tc"]:
+        _fail(f"recipe dp: flash launches fwd/dq/dkv per step "
+              f"{plain['per_step']}, want {DP} x {n} each; {plain['tc']} "
+              f"tensor-core, want 0")
+    if dots["per_step"] != [(2 * DP * n, DP * n, DP * n)] or dots["tc"]:
+        _fail(f"recipe dp dots: launches {dots['per_step']} a step, want "
+              f"({2 * DP * n}, {DP * n}, {DP * n})")
+    if plain["reductions"] != steps * DP_REDUCTIONS:
+        _fail(f"recipe dp: {plain['reductions']} reductions in {steps} "
+              f"steps, want {DP_REDUCTIONS} a step")
+    losses = plain["losses"]
+    first, last = losses[0], losses[-1]
+    if not np.isfinite(losses).all() or not last < BERT_LOSS_MARGIN * first:
+        _fail(f"recipe dp: loss not finite or not below {BERT_LOSS_MARGIN} "
+              f"x the first: {losses}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(dots["losses"], losses)]
+    if not (errs[0] <= RECOMPUTE_LOSS_TOL
+            and max(errs[1:]) <= AMP_AGREE_LOSS_TOL):
+        _fail(f"recipe dp dots: losses {dots['losses']} against "
+              f"{losses[:RECOMPUTE_STEPS]} ({errs})")
+    if not dots["peak"] < plain["peak"]:
+        _fail(f"recipe dp dots: peak {dots['peak']} B not below "
+              f"{plain['peak']} B without recompute")
+    step_ms = plain["step_ms"]
+    mean_ms = float(np.mean(step_ms))
+    prof = plain["profile"]
+    out = {"config": "BertConfig(max_position_embeddings=512)",
+           "mesh": f"local dp {DP} on cuda:0", "seq_len": BERT_SEQ,
+           "batch": BERT_BATCH, "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "tokens_per_s": BERT_BATCH * BERT_SEQ / (mean_ms / 1e3),
+           "max_memory_allocated": plain["peak"], "loss_first": first,
+           "loss_last": last, "loss_ratio": last / first,
+           "reductions_per_step": plain["reductions"] / steps,
+           "flash_launches_per_step": list(plain["per_step"][0]),
+           "dots": {"losses": dots["losses"], "loss_rel_errs": errs,
+                    "step_ms": dots["step_ms"],
+                    "max_memory_allocated": dots["peak"],
+                    "peak_vs_without": dots["peak"] / plain["peak"],
+                    "reductions": dots["reductions"],
+                    "flash_launches_per_step": list(dots["per_step"][0])}}
+    print("recipe dp " + json.dumps(out))
+    print("profile recipe dp " + json.dumps(prof))
+    keys = ("step_ms_p50", "step_ms_p99", "tokens_per_s",
+            "max_memory_allocated", "loss_first", "loss_last")
+    pkeys = ("wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+             "device_ops_per_step", "flash_share_of_device")
+    print(f"recipe dp {DP} vs 20 (recipe dp 1) vs 21 (f32 dp {DP}): "
+          + json.dumps({**{k: [out[k], rec20[0][k], rec21[0][k]]
+                           for k in keys},
+                        **{k: [prof[k], rec20[1][k], rec21[1][k]]
+                           for k in pkeys}}))
+    return paths, out
+
+
+# ---------------------------------------------------------------------------
+# phases 23-23c: convolutional training (ResNet-50, LeNet)
+# ---------------------------------------------------------------------------
+
+def build_resnet(depth=RESNET_DEPTH, image=RESNET_IMAGE,
+                 classes=RESNET_CLASSES):
+    """(main, startup, loss): bench.py's ResNet cell on the port,
+    resnet.build_train_net under MomentumOptimizer(RESNET_LR,
+    RESNET_MOMENTUM), f32."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 23
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss = resnet.build_train_net(depth=depth, class_dim=classes,
+                                      image_shape=image)[3]
+        fluid.optimizer.MomentumOptimizer(
+            RESNET_LR, RESNET_MOMENTUM).minimize(loss)
+    return main, startup, loss
+
+
+def resnet_feed(batch=RESNET_BATCH, image=RESNET_IMAGE,
+                classes=RESNET_CLASSES, device="cuda"):
+    """Synthetic images (standard normal) and labels from SEED, made on
+    `device`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 23)
+    return {"img": torch.randn((batch,) + tuple(image), generator=gen,
+                               device=device),
+            "label": torch.randint(0, classes, (batch, 1), generator=gen,
+                                   device=device)}
+
+
+def conv_flops(main, batch):
+    """The convolutions' operations a training step: 2 x N x C_out x
+    H_out x W_out x (C_in / groups) x kh x kw each for the forward, the
+    input gradient (not for the first, whose input is the image) and
+    the filter gradient."""
+    gb = main.global_block()
+    total = 0
+    for op in gb.ops:
+        if op.type not in ("conv2d", "depthwise_conv2d"):
+            continue
+        w = gb.var(op.input("Filter")[0]).shape
+        o = gb.var(op.output("Output")[0]).shape
+        fwd = 2 * batch * o[1] * o[2] * o[3] * w[1] * w[2] * w[3]
+        data_input = gb.var(op.input("Input")[0]).is_data
+        total += fwd * (2 if data_input else 3)
+    return total
+
+
+def _first_bn(main):
+    """(the first batch_norm op, the convolution that feeds it)."""
+    ops = main.global_block().ops
+    bn = next(op for op in ops if op.type == "batch_norm")
+    conv = next(op for op in ops
+                if op.output("Output") == bn.input("X"))
+    return bn, conv
+
+
+def _conv_args(conv):
+    return ([int(v) for v in conv.attrs["strides"]],
+            [int(v) for v in conv.attrs["paddings"]])
+
+
+def phase_resnet(flash, paged):
+    """Phase 23: bench.py's ResNet cell at full width and depth
+    (ResNet-50, 1000 classes, 3 x 224 x 224, f32, Momentum(0.1, 0.9)),
+    RESNET_BATCH synthetic images on the card, one batch repeated for
+    RESNET_WARM + RESNET_STEPS steps: every loss finite and the last
+    below the first; the first batch norm's running mean and variance
+    after the first step equal momentum x their start + (1 - momentum) x
+    the batch's statistics of a plain f64 convolution of the step's
+    images by the step's filter (RESNET_BN_TOL of their scale); the
+    op's f32 convolution at that layer against the f64 one within
+    CONV_F32_TOL (torch's own call under the process's TF32 flag, on
+    here, printed beside it); a profile of RESNET_PROFILE_STEPS more
+    steps; no launch of the paged or flash kernels. Returns the
+    record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import nn_ops
+    import torch.nn.functional as F
+    main, startup, loss = build_resnet()
+    feed = resnet_feed()
+    bn, conv = _first_bn(main)
+    strides, pads = _conv_args(conv)
+    exe = fluid.Executor()
+    gc.collect()
+    torch.cuda.empty_cache()
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    w0 = scope.get(conv.input("Filter")[0]).clone()
+    m0 = scope.get(bn.input("Mean")[0]).clone()
+    v0 = scope.get(bn.input("Variance")[0]).clone()
+    _zero_counts(flash)
+    paged.LAUNCHES = 0
+    losses, step_ms = [], []
+    for i in range(RESNET_WARM + RESNET_STEPS):
+        ts = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        if i >= RESNET_WARM:
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+        if i == 0:
+            m1 = scope.get(bn.output("MeanOut")[0]).double()
+            v1 = scope.get(bn.output("VarianceOut")[0]).double()
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_train(lambda: exe.run(main, feed=feed,
+                                          fetch_list=[loss], scope=scope),
+                          RESNET_PROFILE_STEPS, flash=False)
+    kernel_launches = _bwd_counts(flash) + (flash.TC_LAUNCHES,
+                                            paged.LAUNCHES)
+    img = feed["img"]
+    ref = F.conv2d(img.double(), w0.double(), stride=strides, padding=pads)
+    var, mean = torch.var_mean(ref, dim=(0, 2, 3), correction=0)
+    mom = bn.attrs.get("momentum", 0.9)
+    want_m = mom * m0.double() + (1 - mom) * mean
+    want_v = mom * v0.double() + (1 - mom) * var
+    bn_err = max(((m1 - want_m).abs().max() / want_m.abs().max()).item(),
+                 ((v1 - want_v).abs().max() / want_v.abs().max()).item())
+    op_conv = nn_ops._Conv2d.apply(img, w0, tuple(strides), tuple(pads),
+                                   (1, 1), 1)
+    conv_err = ((op_conv.double() - ref).abs().max()
+                / ref.abs().max()).item()
+    torch_conv = F.conv2d(img, w0, stride=strides, padding=pads)
+    torch_err = ((torch_conv.double() - ref).abs().max()
+                 / ref.abs().max()).item()
+    del ref, op_conv, torch_conv
+    mean_ms = float(np.mean(step_ms))
+    flops = conv_flops(main, RESNET_BATCH)
+    out = {"config": f"resnet.build_train_net(depth={RESNET_DEPTH}, "
+                     f"class_dim={RESNET_CLASSES}, image_shape="
+                     f"{RESNET_IMAGE}), Momentum({RESNET_LR}, "
+                     f"{RESNET_MOMENTUM}), f32",
+           "batch": RESNET_BATCH, "ops": len(main.global_block().ops),
+           "parameters": len(main.all_parameters()),
+           "startup_s": startup_s, "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "images_per_s": RESNET_BATCH / (mean_ms / 1e3),
+           "conv_flops_per_step": flops,
+           "conv_tflops_per_s_of_step": flops / (mean_ms / 1e3) / 1e12,
+           "max_memory_allocated": peak, "loss_first": losses[0],
+           "loss_last": losses[-1], "loss_ratio": losses[-1] / losses[0],
+           "losses": losses,
+           "first_bn_stats_rel_err": bn_err,
+           "conv_f32_rel_err": conv_err,
+           "conv_torch_with_process_flag_rel_err": torch_err,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "kernel_launches_fwd_dq_dkv_tc_paged": list(kernel_launches)}
+    print("resnet " + json.dumps(out))
+    print("profile resnet " + json.dumps(prof))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        _fail(f"resnet: loss not finite or not below the first: {losses}")
+    if not bn_err <= RESNET_BN_TOL:
+        _fail(f"resnet: the first batch norm's running statistics "
+              f"{bn_err:.3e} from the plain recomputation (tolerance "
+              f"{RESNET_BN_TOL})")
+    if not conv_err <= CONV_F32_TOL:
+        _fail(f"resnet: the op's convolution {conv_err:.3e} from f64 "
+              f"(tolerance {CONV_F32_TOL}): not a full f32 product")
+    if any(kernel_launches):
+        _fail(f"resnet: launches of the attention kernels "
+              f"{kernel_launches}, want none")
+    return out
+
+
+def _bn_stats(main):
+    return [n for op in main.global_block().ops if op.type == "batch_norm"
+            for n in op.output("MeanOut") + op.output("VarianceOut")]
+
+
+def _stats_rel_err(got, want):
+    return max(((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(got, want))
+
+
+def _global_rel_err(got, want):
+    """The gradients' difference over their size, as one vector: the
+    norm of every tensor's difference over the norm of every `want`."""
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(got, want))
+    return (num / sum(float((b.double() ** 2).sum()) for b in want)) ** 0.5
+
+
+def phase_resnet_dp():
+    """Phase 23b: phase 23's net through with_data_parallel(places=
+    [CUDAPlace(0)] * DP) against places=[CUDAPlace(0)] (dp 1), and the
+    plain Executor beside them, from one startup scope, RESNET_DP_STEPS
+    steps on phase 23's batch. dp 2 normalizes with the global batch's
+    statistics (ops/nn_ops.py's rule), so it computes dp 1's numbers in
+    another summation order, as the plain run does (torch's batch norm
+    in place of the rule's formula): each comparison of dp 2 with dp 1 is
+    gated at RESNET_DP_SPREAD x the plain run's distance from dp 1, or
+    the floor beside it, whichever is larger. The first loss (floor
+    RESNET_DP_LOSS_TOL) and every batch norm's running statistics after
+    the first step (RESNET_DP_STAT_TOL of their scale) come from the same
+    weights; the first step's @GRADs as one vector (RESNET_DP_GRAD_TOL of
+    its norm): the backward through 53 batch norms magnifies f32
+    rounding, so their distance is measured, not assumed. The later
+    losses and the statistics after the last step are printed. Returns
+    the record."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss = build_resnet()
+    feed = resnet_feed()
+    exe = fluid.Executor()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = fluid.Scope()
+    exe.run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    stats = _bn_stats(main)
+    runs = {}
+    for tag, prog in (("dp1", _dp_program(main, loss, [fluid.CUDAPlace(0)])),
+                      (f"dp{DP}", _dp_program(main, loss,
+                                              [fluid.CUDAPlace(0)] * DP)),
+                      ("plain", main)):
+        scope = _copy_scope(base)
+        losses, ms = [], []
+        for i in range(RESNET_DP_STEPS):
+            ts = time.perf_counter()
+            out = exe.run(prog, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + ([nm + "@GRAD" for nm in names]
+                                               if i == 0 else []))
+            losses.append(out[0].double().item())
+            ms.append((time.perf_counter() - ts) * 1e3)
+            if i == 0:
+                grads = out[1:]
+                first_stats = [scope.get(nm).clone() for nm in stats]
+        runs[tag] = {"losses": losses, "grads": grads, "step_ms": ms,
+                     "first_stats": first_stats,
+                     "stats": [scope.get(nm).clone() for nm in stats]}
+        del scope
+
+    def dist(a, b):
+        return {"first_loss": abs(a["losses"][0] - b["losses"][0])
+                / abs(b["losses"][0]),
+                "later_losses": max(abs(x - y) / abs(y) for x, y in
+                                    zip(a["losses"][1:], b["losses"][1:])),
+                "first_stats": _stats_rel_err(a["first_stats"],
+                                              b["first_stats"]),
+                "last_stats": _stats_rel_err(a["stats"], b["stats"]),
+                "grads": _global_rel_err(a["grads"], b["grads"]),
+                "grads_worst_tensor": _grad_rel_err(a["grads"], b["grads"],
+                                                    names)}
+    one, two = runs["dp1"], runs[f"dp{DP}"]
+    got, spread = dist(two, one), dist(runs["plain"], one)
+    floors = {"first_loss": RESNET_DP_LOSS_TOL,
+              "first_stats": RESNET_DP_STAT_TOL,
+              "grads": RESNET_DP_GRAD_TOL}
+    bounds = {k: max(f, RESNET_DP_SPREAD * spread[k])
+              for k, f in floors.items()}
+    out = {"losses_dp1": one["losses"], f"losses_dp{DP}": two["losses"],
+           "losses_plain": runs["plain"]["losses"],
+           f"dp{DP}_vs_dp1": got, "plain_vs_dp1": spread, "bounds": bounds,
+           "first_bn_stats_end": {
+               tag: {"mean_of_running_mean": float(r["stats"][0].mean()),
+                     "mean_of_running_var": float(r["stats"][1].mean())}
+               for tag, r in runs.items()},
+           "step_ms": {tag: r["step_ms"] for tag, r in runs.items()}}
+    print("resnet dp " + json.dumps(out))
+    bad = {k: (got[k], b) for k, b in bounds.items() if not got[k] <= b}
+    if bad:
+        _fail(f"resnet dp: dp {DP} against dp 1 beyond the bounds: {bad}")
+    return out
+
+
+def phase_lenet_agree():
+    """Phase 23c: the MNIST conv net (LeNet: conv-pool-bn-conv-pool-fc,
+    mnist.build_train_net("conv")) under Adam(1e-3), batch LENET_BATCH
+    from SEED, LENET_STEPS steps on the card and in the port on the CPU
+    from one startup scope: losses within LENET_LOSS_TOL, the first
+    step's @GRADs within LENET_GRAD_TOL of their scale. Returns the
+    record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import mnist
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 24
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss = mnist.build_train_net("conv")[3]
+        fluid.optimizer.AdamOptimizer(learning_rate=1e-3).minimize(loss)
+    gen = torch.Generator().manual_seed(SEED + 24)
+    feed = {"img": torch.randn(LENET_BATCH, 1, 28, 28, generator=gen),
+            "label": torch.randint(0, 10, (LENET_BATCH, 1), generator=gen)}
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    runs = {}
+    for tag, place in (("card", fluid.CUDAPlace(0)),
+                       ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).to(exe.device, copy=True))
+        losses = []
+        for i in range(LENET_STEPS):
+            out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + ([nm + "@GRAD" for nm in names]
+                                               if i == 0 else []))
+            losses.append(out[0].double().item())
+            if i == 0:
+                grads = [g.cpu() for g in out[1:]]
+        runs[tag] = (losses, grads)
+    card, cpu = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    grad_err, worst = _grad_rel_err(card[1], cpu[1], names)
+    out = {"losses_card": card[0], "losses_cpu": cpu[0],
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "grad_worst": worst}
+    print("lenet agree " + json.dumps(out))
+    if not (loss_err <= LENET_LOSS_TOL and grad_err <= LENET_GRAD_TOL):
+        _fail(f"lenet agree: the card against the CPU: losses "
+              f"{loss_err:.3e} (tolerance {LENET_LOSS_TOL}), @GRADs "
+              f"{grad_err:.3e} at {worst} ({LENET_GRAD_TOL})")
+    return out
+
+
+def phase_conv_all(flash, paged):
+    """Phases 23-23c under torch's default cuDNN setting (TF32 allowed),
+    restored after: the port's convolution sets its own f32 precision.
+    No phase of these launches the paged or flash kernels (their counts
+    are 0 after them)."""
+    cudnn = torch.backends.cudnn
+    was = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    _zero_counts(flash)
+    paged.LAUNCHES = 0
+    try:
+        _phase("23 ResNet-50 train", phase_resnet, flash, paged)
+        _phase("23b ResNet dp", phase_resnet_dp)
+        _phase("23c LeNet agree", phase_lenet_agree)
+    finally:
+        cudnn.allow_tf32 = was
+    counts = _bwd_counts(flash) + (flash.TC_LAUNCHES, paged.LAUNCHES)
+    if any(counts):
+        _fail(f"phases 23-23c launched attention kernels: {counts}")
 
 
 def times_of(flag, root):
@@ -5749,8 +6289,12 @@ def main():
                                     phase_tp_prompt, flash, cfg, tree)
     tpw_launches, _ = _phase("19d tp world, two processes", phase_tp_world,
                              paged, cfg, tree)
-    recipe_paths, recipe_errs = phase_recipe_all(flash, bert16, prof16)
-    dp_paths, dp_errs = phase_dp_all(flash, bert16, prof16)
+    recipe_paths, recipe_errs, rec20 = phase_recipe_all(flash, bert16,
+                                                        prof16)
+    dp_paths, dp_errs, rec21 = phase_dp_all(flash, bert16, prof16)
+    recipe_dp_paths, _ = _phase("22 recipe dp", phase_recipe_dp, flash,
+                                rec20, rec21)
+    phase_conv_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -5844,7 +6388,7 @@ def main():
         "16c packed agree (kernel run, 2 layers x 1 step)": pagree_launches,
         **{f"17 ring sp {RING_SP} {case} (one call)": c
            for case, c in ring_launches.items()},
-        **recipe_paths, **dp_paths}
+        **recipe_paths, **dp_paths, **recipe_dp_paths}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -39,7 +39,8 @@ over its own rows. Refused with ``NotImplementedError``: a mesh whose
 tp, pp or ep is larger than 1, a persistable whose ``dist_attr`` shards
 over an axis larger than 1 (tensor-parallel Program training, ZeRO-1 and
 FSDP are ROADMAP queue A item 10d), a world mesh with any axis but dp,
-a local mesh over several devices, and recompute under data parallelism.
+and a local mesh over several devices. A ``RecomputeOptimizer`` program
+runs under the walk (``Executor.run``).
 """
 
 import os
@@ -80,8 +81,7 @@ class BuildStrategy:
         self.fuse_all_reduce_ops = True
         self.fuse_elewise_add_act_ops = True
         # reference compiler.py:322 swaps batch_norm -> sync_batch_norm;
-        # the rewrite is recorded in the program (batch_norm is not a
-        # port op yet)
+        # the two share one dp rule (global-batch statistics either way)
         self.sync_batch_norm = False
 
 

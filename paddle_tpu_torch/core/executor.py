@@ -27,7 +27,10 @@ is not data parallel runs its Program on this path; a data-parallel one
 runs the dp walk there, the same walk with the feeds split over the
 mesh's dp ranks, each op dispatched through its dp rule and, in a
 ``torch.distributed`` world, the gradients summed over dp before the
-ops after the marker.
+ops after the marker. A recompute tag applies there too: each
+checkpointed segment runs its ops through the walk, every held rank's,
+and re-runs them (their dp collectives included, in the same order on
+every rank) when the backward reaches it.
 
 Every run is synchronous: fetches come back as numpy copies (or tensors
 with ``return_numpy=False``), and the persistables the run wrote land in
@@ -216,9 +219,6 @@ class Executor:
                     "policy")
                 if policy == "everything":  # saves everything: no recompute
                     policy = None
-                if policy is not None and walk is not None:
-                    raise NotImplementedError(
-                        "recompute under data parallelism is not ported")
                 self._backward(marker, env, run, gb.ops[:marker_idx], keep,
                                policy, walk)
                 with torch.no_grad():

@@ -3,30 +3,35 @@
 Parity: python/paddle/fluid/layers/__init__.py; the counterpart of
 ``paddle_tpu/layers/`` with, in files of the same names, ``io.data``,
 ``tensor``'s ``create_parameter``, ``fill_constant`` and ``zeros_like``,
-``nn``'s ``fc``, ``embedding``, ``matmul``, ``layer_norm``, ``dropout``,
+``nn``'s ``fc``, ``conv2d``, ``pool2d``, ``adaptive_pool2d``,
+``batch_norm``, ``relu``, ``embedding``, ``matmul``, ``layer_norm``,
+``dropout``,
 ``mean``, ``reduce_sum``, ``elementwise_add``/``mul``/``div``/``max``/
 ``min``/``pow``, ``logical_and``, ``scale``, ``reshape``, ``transpose``
 (for the attention layer), ``slice``, ``gather``, ``topk``, ``cast`` and
-``softmax``, ``ops``' ``exp``, ``ceil``, ``floor`` and ``cos``,
+``softmax``, ``ops``' ``sigmoid``, ``exp``, ``ceil``, ``floor`` and ``cos``,
 ``control_flow``'s ``equal``, ``greater_than``, ``less_than`` and
 ``autoincreased_step_counter``,
 ``learning_rate_scheduler``'s eight schedules,
-``loss``'s ``softmax_with_cross_entropy`` and ``square_error_cost``, ``metric_op.accuracy``, and
+``loss``'s ``cross_entropy``, ``softmax_with_cross_entropy`` and
+``square_error_cost``, ``metric_op.accuracy``, and
 ``attention``'s ``multi_head_attention`` and
 ``scaled_dot_product_attention``.
 """
 
 from .io import data
-from .nn import (fc, embedding, matmul, layer_norm, dropout, mean,
+from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
+                 embedding, matmul, layer_norm, dropout, mean,
                  reduce_sum, elementwise_add, elementwise_mul,
                  elementwise_div, elementwise_max, elementwise_min,
                  elementwise_pow, logical_and, scale, reshape, transpose,
                  slice, gather, topk, cast, softmax)
 from .tensor import create_parameter, fill_constant, zeros_like
-from .ops import exp, ceil, floor, cos
+from .ops import sigmoid, exp, ceil, floor, cos
 from .control_flow import (equal, greater_than, less_than,
                            autoincreased_step_counter)
-from .loss import softmax_with_cross_entropy, square_error_cost
+from .loss import (cross_entropy, softmax_with_cross_entropy,
+                   square_error_cost)
 from .metric_op import accuracy
 from . import attention
 from .attention import scaled_dot_product_attention, multi_head_attention

@@ -1,11 +1,21 @@
 """Loss layers.
 
 Parity: the loss functions of python/paddle/fluid/layers/nn.py; the
-counterpart of ``paddle_tpu/layers/loss.py``'s
+counterpart of ``paddle_tpu/layers/loss.py``'s ``cross_entropy``,
 ``softmax_with_cross_entropy`` and ``square_error_cost``.
 """
 
 from ..core.layer_helper import LayerHelper
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    shape = tuple(input.shape[:-1]) + (1,)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op("cross_entropy", {"X": input, "Label": label},
+                     {"Y": out},
+                     {"soft_label": soft_label, "ignore_index": ignore_index})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -1,7 +1,7 @@
 """Neural-network layers (declarative API).
 
 Parity: python/paddle/fluid/layers/nn.py; the counterpart of
-``paddle_tpu/layers/nn.py`` with the layers the ported slice uses. Each
+``paddle_tpu/layers/nn.py`` with the layers the ported slices use. Each
 function appends ops to the default main program; their implementations
 live in paddle_tpu_torch/ops/.
 """
@@ -15,6 +15,13 @@ def _prod(xs):
     for x in xs:
         r *= int(x)
     return r
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        t = [int(x) for x in v]
+        return t * n if len(t) == 1 else t
+    return [int(v)] * n
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -87,6 +94,155 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
                      {"transpose_X": transpose_x, "transpose_Y": transpose_y,
                       "alpha": float(alpha)})
     return out
+
+
+def _conv_out_size(in_size, k, pad, stride, dilation=1):
+    if in_size is None or in_size < 0:
+        return -1
+    return (in_size + 2 * pad - (dilation * (k - 1) + 1)) // stride + 1
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """Parity: fluid.layers.conv2d. The filter draws from N(0, 2 / fan_in)
+    (MSRA); groups == channels (with num_filters a multiple) appends
+    depthwise_conv2d; the bias is an elementwise_add on axis 1.
+    use_cudnn is accepted: the op is torch's convolution either way."""
+    helper = LayerHelper("conv2d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    groups = groups or 1
+    fsize = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    num_channels = input.shape[1]
+    filter_shape = [num_filters, num_channels // groups] + fsize
+    fan_in = (num_channels // groups) * fsize[0] * fsize[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(
+            0.0, (2.0 / fan_in) ** 0.5))
+    h = _conv_out_size(input.shape[2], fsize[0], padding[0], stride[0],
+                       dilation[0])
+    wd = _conv_out_size(input.shape[3], fsize[1], padding[1], stride[1],
+                        dilation[1])
+    out_shape = (input.shape[0], num_filters, h, wd)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype,
+                                                         out_shape)
+    op_type = "depthwise_conv2d" if (
+        groups == num_channels and num_filters % num_channels == 0) \
+        else "conv2d"
+    helper.append_op(op_type, {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": stride, "paddings": padding,
+                      "dilations": dilation, "groups": groups})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr,
+                                    shape=[num_filters], dtype=input.dtype,
+                                    is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(input.dtype,
+                                                            out_shape)
+        helper.append_op("elementwise_add", {"X": pre_bias, "Y": b},
+                         {"Out": pre_act}, {"axis": 1})
+    else:
+        pre_act = pre_bias
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    """Parity: fluid.layers.pool2d (ceil_mode accepted and unused, as in
+    the JAX package)."""
+    helper = LayerHelper("pool2d", name=name)
+    ksize = _pair(pool_size)
+    stride = _pair(pool_stride)
+    padding = _pair(pool_padding)
+    if global_pooling:
+        out_shape = tuple(input.shape[:2]) + (1, 1)
+    else:
+        oh = _conv_out_size(input.shape[2], ksize[0], padding[0], stride[0])
+        ow = _conv_out_size(input.shape[3], ksize[1], padding[1], stride[1])
+        out_shape = tuple(input.shape[:2]) + (oh, ow)
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op("pool2d", {"X": input}, {"Out": out},
+                     {"pooling_type": pool_type, "ksize": ksize,
+                      "strides": stride, "paddings": padding,
+                      "global_pooling": global_pooling,
+                      "exclusive": exclusive})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """Parity: fluid.layers.adaptive_pool2d: floor/ceil windows;
+    require_index also returns the argmax Mask (a flat index into the
+    input plane) and is invalid for avg pooling."""
+    if pool_type not in ("max", "avg"):
+        raise ValueError(
+            "Unknown pool_type: '%s'. It can only be 'max' or 'avg'."
+            % str(pool_type))
+    if pool_type == "avg" and require_index:
+        raise ValueError(
+            "invalid setting 'require_index' true when 'pool_type' is "
+            "'avg'.")
+    psize = _pair(pool_size)
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    shape = tuple(input.shape[:2]) + tuple(psize)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    outs = {"Out": out}
+    if require_index:
+        outs["Mask"] = helper.create_variable_for_type_inference("int32",
+                                                                 shape)
+    helper.append_op("adaptive_pool2d", {"X": input}, outs,
+                     {"pool_size": list(psize), "pooling_type": pool_type,
+                      "require_index": require_index})
+    return (out, outs["Mask"]) if require_index else out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Parity: fluid.layers.batch_norm. The running mean and variance are
+    persistable variables (initialized to 0 and 1, stop_gradient) that
+    the op's MeanOut / VarianceOut overwrite each training step."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = "float32"
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=[c], dtype=dtype,
+        default_initializer=init_mod.ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[c],
+                                   dtype=dtype, is_bias=True)
+    from ..core import unique_name as un
+    mean_name = moving_mean_name or un.generate(helper.name + ".mean")
+    var_name = moving_variance_name or un.generate(helper.name + ".variance")
+    mean = helper.create_or_get_global_variable(
+        mean_name, shape=(c,), dtype=dtype, persistable=True)
+    variance = helper.create_or_get_global_variable(
+        var_name, shape=(c,), dtype=dtype, persistable=True)
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    init_mod.ConstantInitializer(0.0)(mean)
+    init_mod.ConstantInitializer(1.0)(variance)
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    input.shape)
+    helper.append_op(
+        "batch_norm",
+        {"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+         "Variance": variance},
+        {"Y": out, "MeanOut": mean, "VarianceOut": variance,
+         "SavedMean": saved_mean, "SavedVariance": saved_var},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout, "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
@@ -266,4 +422,11 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
     helper = LayerHelper("softmax", name=name)
     out = helper.create_variable_for_type_inference(input.dtype, input.shape)
     helper.append_op("softmax", {"X": input}, {"Out": out}, {"axis": axis})
+    return out
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("relu", {"X": x}, {"Out": out})
     return out

@@ -4,8 +4,9 @@ Parity: paddle/fluid/operators/activation_op.cc; the counterpart of
 ``paddle_tpu/ops/activation_ops.py`` with the activations the ported
 slices run: ``gelu``, in the exact erf form (the reference's gelu op;
 torch's default, as ``jax.nn.gelu(approximate=False)``), ``tanh``,
-``softmax``, ``relu``, and the unary ops of the learning-rate schedules, the
-global-norm clip and L1 decay: ``exp``, ``sqrt``, ``ceil``, ``floor``,
+``softmax``, ``relu``, ``sigmoid`` (SE-ResNeXt's excitation), and the
+unary ops of the learning-rate schedules, the global-norm clip and L1
+decay: ``exp``, ``sqrt``, ``ceil``, ``floor``,
 ``cos``, ``square`` and ``sign``. Under data parallelism each runs a
 rank's rows (``softmax`` where its axis is not dim 0).
 """
@@ -43,7 +44,8 @@ def _unary(fn):
     return impl
 
 
-for _name, _fn in (("relu", torch.relu), ("exp", torch.exp),
+for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
+                   ("exp", torch.exp),
                    ("sqrt", torch.sqrt), ("ceil", torch.ceil),
                    ("floor", torch.floor), ("cos", torch.cos),
                    ("square", torch.square), ("sign", torch.sign)):

@@ -1,9 +1,10 @@
 """Loss ops.
 
-Parity: paddle/fluid/operators/softmax_with_cross_entropy_op.*,
-square_error_cost (the reference's squared_l2_distance); the counterpart
-of ``paddle_tpu/ops/loss_ops.py`` with the losses the ported slices run.
-Under data parallelism both give a rank's rows their loss rows.
+Parity: paddle/fluid/operators/{cross_entropy,
+softmax_with_cross_entropy}_op.*, square_error_cost (the reference's
+squared_l2_distance); the counterpart of ``paddle_tpu/ops/loss_ops.py``
+with the losses the ported slices run. Under data parallelism each gives
+a rank's rows their loss rows.
 """
 
 import torch
@@ -21,6 +22,23 @@ def _class_axis_off_rows(ctx, walk):
     if ctx.attr("axis", -1) % ctx.in_("Logits").dim() == 0:
         return "its class axis is dim 0"
     return None
+
+
+@register("cross_entropy", "cross_entropy2", dp=rows)
+def cross_entropy(ctx):
+    """X holds probabilities: the log of clip(X, 1e-15, 1), then the hard
+    label's negative log-probability (0 where the label is ignore_index)
+    or the soft labels' weighted sum."""
+    x, label = ctx.in_("X"), ctx.in_("Label")
+    logp = torch.log(torch.clamp(x, 1e-15, 1.0))
+    if ctx.attr("soft_label", False):
+        loss = -(label * logp).sum(dim=-1, keepdim=True)
+    else:
+        lbl = _squeeze_label(label).long()
+        mask = (lbl != ctx.attr("ignore_index", -100))[..., None]
+        loss = -torch.gather(logp, -1, (lbl * mask[..., 0])[..., None]) \
+            * mask
+    return {"Y": loss, "Out": loss}
 
 
 @register("softmax_with_cross_entropy", dp=rows_if(_class_axis_off_rows))

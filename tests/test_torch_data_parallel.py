@@ -824,7 +824,7 @@ def test_build_and_execution_strategy_defaults_equal_jax():
 def test_sync_batch_norm_rewrites_ops_as_jax():
     """test_sync_batch_norm.py:79: with BuildStrategy.sync_batch_norm,
     with_data_parallel renames the program's batch_norm ops, as JAX's
-    does (the port records the rewrite; batch_norm is not a port op)."""
+    does (here a bare op; tests/test_torch_resnet.py runs the layer's)."""
     jmain, jstart = jfluid.Program(), jfluid.Program()
     with jfluid.program_guard(jmain, jstart):
         x = jlayers.data("x", shape=[3, 4, 4], dtype="float32")
@@ -912,7 +912,10 @@ def test_sharded_state_and_tp_meshes_are_refused(bert_twin):
     """A tp mesh under CompiledProgram, and a persistable whose dist_attr
     shards over dp 2, raise NotImplementedError naming the ROADMAP item;
     apply_shard_rules' 'tp' annotations under a dp-only mesh (tp 1) lay
-    nothing out and run; recompute under dp raises."""
+    nothing out and run; recompute under dp, no longer refused, runs and
+    gives the plain dp run's losses, accuracy, gathered rows and first
+    step @GRADs bitwise (tests/test_torch_dp_recipe.py holds the recipe
+    and both policies against dp 1 and JAX)."""
     tw = bert_twin
     feed = _unequal_feed(tw.cfg)
     exe = fluid.Executor(CPU)
@@ -935,13 +938,15 @@ def test_sharded_state_and_tp_meshes_are_refused(bert_twin):
     finally:
         for p in tw.tmain.all_parameters():
             p.dist_attr = None
+    plain, _ = tw.port(feed, 2, tw.compiled())
     tw.tmain._recompute = {"policy": "nothing"}
     try:
-        with fluid.scope_guard(fluid.scope_from_numpy(tw.init, "cpu")):
-            with pytest.raises(NotImplementedError, match="recompute"):
-                exe.run(tw.compiled(), feed=feed, fetch_list=[tw.tloss])
+        got, _ = tw.port(feed, 2, tw.compiled())
     finally:
         del tw.tmain._recompute
+    for g, p in zip(got, plain):
+        for a, b in zip(g, p):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_with_data_parallel_without_places_needs_cuda():

@@ -444,7 +444,10 @@ def test_port_imports_neither_jax_nor_reference_package():
         "        'paddle_tpu_torch.layers.loss',\n"
         "        'paddle_tpu_torch.ops.math_ops',\n"
         "        'paddle_tpu_torch.ops.activation_ops',\n"
-        "        'paddle_tpu_torch.ops.loss_ops']\n"
+        "        'paddle_tpu_torch.ops.loss_ops',\n"
+        "        'paddle_tpu_torch.ops.nn_ops',\n"
+        "        'paddle_tpu_torch.models.resnet',\n"
+        "        'paddle_tpu_torch.models.mnist']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
