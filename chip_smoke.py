@@ -363,7 +363,45 @@ backward kernels are printed):
 23c. LeNet (``mnist.build_train_net("conv")``, Adam 1e-3, batch 64) 3
    steps on the card against the port on the CPU: losses within 1e-5,
    @GRADs within 1e-4 of their scale. Phases 23-23c launch none of the
-   attention kernels (their counts stay 0).
+   attention kernels (their counts stay 0);
+24. Transformer-base training (``bench.py:315-355``'s cell at full width
+   and depth: ``transformer.build_train_net(ModelHyperParams with
+   dropout 0, max_len=256)``, vocab 10000 + 10000, d_model 512, FFN
+   2048, 8 heads, 6 + 6 layers, label smoothing 0.1, f32,
+   ``AdamOptimizer(1e-4)``), batch 16 (4096 target tokens a card), the
+   source and target lengths drawn from the seed in 128-256 (the cell
+   feeds full lengths): 30 steps on one batch; every step launches the
+   f32 flash forward, dQ and dK/dV kernels 18 times each (6 encoder
+   self-attentions, 6 causal decoder self-attentions and 6
+   cross-attentions, each under a (B, 1, 1, T) padding bias that
+   reaches the kernels as a view with stride 0 over heads and queries)
+   and never calls ``flash_dbias``; every loss finite and the last below
+   0.95 x the first; prints padded and real (token_num) tokens/s, step
+   ms p50/p99, the peak memory and a profile of 3 more steps; then the
+   first decoder layer's causal self-attention and its cross-attention,
+   their operands as the first step called them, against the plain
+   version (out and lse, dq/dk/dv of a seeded cotangent);
+24b. the tiny Transformer of ``test_model_zoo.py:147`` with one head
+   (head_dim 32), a padded batch, 3 Adam steps on the card and in the
+   port on the CPU: losses within 1e-5, @GRADs within 1e-4 of their
+   scale, 6 + 6 + 6 flash launches a step;
+25. DeepFM training (``bench.py:388-416``'s cell: ``deepfm.
+   build_train_net(num_features=1000000, num_fields=39, embed_dim=10)``,
+   ``AdamOptimizer(1e-3)``, f32), batch 2048 synthetic examples made on
+   the card from the seed, 30 steps on one batch: every loss finite and
+   the last below the first; prints examples/s, step ms p50/p99, the
+   peak memory and a profile of 3 more steps by op (device ms, busy
+   share, operations, the embedding backward's and Adam's share);
+25b. phase 25's net at dp 2 (``with_data_parallel(places=[CUDAPlace(0)]
+   * 2)``) against dp 1 and the plain Executor, 3 steps from one
+   startup: the first loss and the first step's @GRADs (each
+   embedding's, the ranks' dense scatter-adds summed over dp, and all
+   as one vector) within 4x the plain run's distance from dp 1 or a
+   floor (1e-6, 1e-5);
+25c. Wide&Deep and DIN at ``test_ctr_models.py``'s sizes, 3 steps on
+   the card and in the port on the CPU: losses within 1e-5, @GRADs
+   within 1e-4 of their scale. Phases 25-25c launch none of the
+   attention kernels.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -397,8 +435,8 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d and 22, with 16b/16c/17/19b/19c/20d/21b/21c's errors in
-``path_errs``); the
+20-20d, 21-21d, 22 and 24-24b, with 16b/16c/17/19b/19c/20d/21b/21c/24/
+24b's errors in ``path_errs``); the
 line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
@@ -635,6 +673,60 @@ LENET_BATCH = 64
 LENET_STEPS = 3
 LENET_LOSS_TOL = 1e-5
 LENET_GRAD_TOL = 1e-4
+# 24: bench.py:315-355's Transformer-base cell at full width and depth
+# (ModelHyperParams: vocab 10000 + 10000, d_model 512, FFN 2048, 8 heads,
+# 6 + 6 layers, label smoothing 0.1; dropout 0, as the cell sets it),
+# max_len 256, f32, Adam(1e-4), batch 16 a card (16 x 256 = 4096 target
+# tokens, PaddleNLP's per-card token batch); src/tgt lengths drawn from
+# the seed in TF_LENS (the cell feeds full lengths) so that the padding
+# biases and the masked loss do real work
+TF_MAX_LEN = 256
+TF_BATCH = 16
+TF_LENS = (128, 256)
+TF_LR = 1e-4
+TF_WARM = 3
+TF_STEPS = 27
+TF_PROFILE_STEPS = 3
+TF_LOSS_MARGIN = 0.95
+# 24b: test_model_zoo.py:147's tiny Transformer (vocab 64, d_model 32,
+# FFN 64, 2 + 2 layers) with one head (head_dim 32, the kernels'
+# smallest) on the card and in the port on the CPU, 3 Adam(1e-3) steps
+# on a padded batch: f32 on both sides, the flash kernels (three TF32
+# passes a product) against the CPU's plain attention
+TF_AGREE_CFG = dict(src_vocab_size=64, trg_vocab_size=64, d_model=32,
+                    d_inner_hid=64, n_head=1, n_layer=2)
+TF_AGREE_LEN = 12
+TF_AGREE_LENS = ((12, 10), (7, 12), (9, 5), (3, 8))   # (src, tgt) a row
+TF_AGREE_STEPS = 3
+TF_AGREE_LOSS_TOL = 1e-5
+TF_AGREE_GRAD_TOL = 1e-4
+# 25: bench.py:388-416's DeepFM cell (1,000,000 features, 39 fields,
+# embed 10, the (400, 400, 400) tower, Adam(1e-3)), batch 2048 a card
+# (the port's choice: bench.py's 8/16 sweep is a TPU-window size), one
+# synthetic batch from the seed, made on the card
+DEEPFM_FEATURES = 1_000_000
+DEEPFM_FIELDS = 39
+DEEPFM_EMBED = 10
+DEEPFM_LR = 1e-3
+DEEPFM_BATCH = 2048
+DEEPFM_WARM = 3
+DEEPFM_STEPS = 27
+DEEPFM_PROFILE_STEPS = 3
+# 25b: dp 2 against dp 1 on the same weights. torch's CUDA embedding
+# backward sums each row's contributions in no fixed order (ROADMAP C),
+# so each distance is held to DEEPFM_DP_SPREAD x the plain run's from
+# dp 1 or its floor: the first loss 1e-6, the first step's @GRADs
+# (each embedding's, and all as one vector) 1e-5 of their norm
+DEEPFM_DP_STEPS = 3
+DEEPFM_DP_LOSS_TOL = 1e-6
+DEEPFM_DP_GRAD_TOL = 1e-5
+DEEPFM_DP_SPREAD = 4.0
+# 25c: Wide&Deep and DIN at test_ctr_models.py's sizes (batch 32,
+# Adam(1e-2)), 3 steps on the card against the port on the CPU: f32
+# products on both sides
+CTR_AGREE_STEPS = 3
+CTR_LOSS_TOL = 1e-5
+CTR_GRAD_TOL = 1e-4
 # the profile phases trace the device only: every number they print is a
 # device time or count, or a host wall around the traced loop, and the
 # host-side op events made the profiler's own processing the largest part
@@ -6111,6 +6203,538 @@ def phase_conv_all(flash, paged):
         _fail(f"phases 23-23c launched attention kernels: {counts}")
 
 
+# ---------------------------------------------------------------------------
+# phases 24-24b: Transformer-base training
+# ---------------------------------------------------------------------------
+
+def transformer_config(**kw):
+    """ModelHyperParams (Transformer-base) with dropout 0, as bench.py's
+    cell sets it, and `kw` over it."""
+    from paddle_tpu_torch.models import transformer
+    return type("TransformerCell", (transformer.ModelHyperParams,),
+                {"dropout": 0.0, **kw})
+
+
+def build_transformer(cfg, max_len, lr=TF_LR):
+    """(main, startup, loss, token_num): transformer.build_train_net under
+    AdamOptimizer(lr), f32."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 24
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _f, loss, token_num = transformer.build_train_net(cfg=cfg,
+                                                          max_len=max_len)
+        fluid.optimizer.AdamOptimizer(lr).minimize(loss)
+    return main, startup, loss, token_num
+
+
+def transformer_feed(cfg, batch, max_len, lens):
+    """Synthetic ids in [2, vocab) from SEED (int64) and each row's
+    source and target lengths: drawn in the (lo, hi) range `lens`, or
+    given as a (src, tgt) pair a row."""
+    rng = np.random.default_rng(SEED + 24)
+    feed = {n: rng.integers(2, v, (batch, max_len)).astype(np.int64)
+            for n, v in (("src_ids", cfg.src_vocab_size),
+                         ("tgt_ids", cfg.trg_vocab_size),
+                         ("lbl_ids", cfg.trg_vocab_size))}
+    if isinstance(lens[0], tuple):
+        pairs = np.asarray(lens, np.int64)
+        feed["src_len"], feed["tgt_len"] = pairs[:, :1], pairs[:, 1:]
+    else:
+        for n in ("src_len", "tgt_len"):
+            feed[n] = rng.integers(lens[0], lens[1] + 1,
+                                   (batch, 1)).astype(np.int64)
+    return feed
+
+
+def _strided_copy(t):
+    """A copy of t with t's strides (a view of the projections stays a
+    view-shaped copy)."""
+    out = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                              device=t.device)
+    return out.copy_(t.detach())
+
+
+def _captured_flash_calls(run, want):
+    """The operands (q, k, v, bias, segq, segk, causal) of the forward
+    flash calls numbered in `want` (in call order) during run(), copied
+    with their strides."""
+    from paddle_tpu_torch.ops import flash as flash_ops
+    real = flash_ops.flash_attention_cuda
+    seen, count = {}, [0]
+
+    def spy(q, k, v, bias, segq, segk, scale, causal):
+        if count[0] in want:
+            seen[count[0]] = tuple(_strided_copy(t) for t in (q, k, v)) + (
+                None if bias is None else bias.detach().clone(), segq, segk,
+                causal)
+        count[0] += 1
+        return real(q, k, v, bias, segq, segk, scale, causal)
+
+    flash_ops.flash_attention_cuda = spy
+    try:
+        run()
+    finally:
+        flash_ops.flash_attention_cuda = real
+    return seen
+
+
+def phase_transformer(flash):
+    """Phase 24: bench.py's Transformer-base cell at full width and depth
+    (transformer_config(), max_len TF_MAX_LEN, batch TF_BATCH, Adam 1e-4,
+    f32), lengths from the seed in TF_LENS, TF_WARM + TF_STEPS steps on
+    one batch: every step launches the f32 flash forward, dQ and dK/dV
+    kernels 3 x n_layer times each (encoder self, decoder causal self,
+    cross) and never calls flash_dbias (the biases come from lengths);
+    every bias reaches the kernels as a (B, H, Tq, Tk) view with stride 0
+    over heads and queries; every loss finite, the last below
+    TF_LOSS_MARGIN x the first; a profile of TF_PROFILE_STEPS more steps.
+    Then the first decoder layer's causal self-attention and its
+    cross-attention, as the first step called them (their operands
+    copied with their strides), against the plain version: out and lse,
+    and dq, dk, dv of a seeded cotangent. Returns ((fwd, dQ, dK/dV, bf16
+    fwd) launches of the run, {call: (fwd, bwd) max-abs errors}, the
+    record)."""
+    import paddle_tpu_torch as fluid
+    cfg = transformer_config()
+    main, startup, loss, token_num = build_transformer(cfg, TF_MAX_LEN)
+    feed = transformer_feed(cfg, TF_BATCH, TF_MAX_LEN, TF_LENS)
+    exe = fluid.Executor()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = 3 * cfg.n_layer
+    dec0 = cfg.n_layer                  # the first decoder layer's calls
+    with fluid.scope_guard(fluid.Scope()):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        params = sum(fluid.global_scope().get(p.name).numel()
+                     for p in main.all_parameters())
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(flash)
+        dbias0 = flash.DBIAS_CALLS
+        first, tok = [], []
+        views = []
+        calls = _captured_flash_calls(
+            lambda: views.extend(_bias_views(flash, lambda: first.append(
+                _train_run(flash, exe, main, feed, loss, 1, 1,
+                           extra=[token_num], extra_out=tok)))),
+            {dec0, dec0 + 1})
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, main, feed, loss, TF_WARM + TF_STEPS - 1,
+            TF_WARM - 1)
+        counts = _bwd_counts(flash)
+        dbias = flash.DBIAS_CALLS - dbias0
+        losses = first[0][0] + losses
+        per_step |= first[0][2]
+        tc += first[0][3]
+        peak = torch.cuda.max_memory_allocated()
+        prof = _profile_train(lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss]),
+                              TF_PROFILE_STEPS)
+    b, h, t = TF_BATCH, cfg.n_head, TF_MAX_LEN
+    want_view = ((b, h, t, t), (t, 0, 0, 1))
+    if len(views) != 2 * n or set(views) != {want_view}:
+        _fail(f"transformer: the kernels got biases {set(views)} in "
+              f"{len(views)} calls, want {2 * n} x {want_view}")
+    steps = TF_WARM + TF_STEPS
+    if per_step != {(n, n, n)} or tc != 0 or counts != (steps * n,) * 3:
+        _fail(f"transformer: flash launches fwd/dq/dkv per step {per_step} "
+              f"(run {counts}), want {n} each; {tc} tensor-core, want 0")
+    if dbias != 0:
+        _fail(f"transformer: flash_dbias ran {dbias} times, want 0 (the "
+              f"biases come from lengths and need no gradient)")
+    if not calls[dec0][-1] or calls[dec0 + 1][-1]:
+        _fail("transformer: call order is not the decoder's causal self-"
+              "attention, then its cross-attention")
+    first_loss, last = losses[0], losses[-1]
+    if not np.isfinite(losses).all() or not last < TF_LOSS_MARGIN * first_loss:
+        _fail(f"transformer: loss not finite or not below {TF_LOSS_MARGIN} "
+              f"x the first: {losses}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 24)
+    errs = {}
+    for tag, i in (("decoder causal self-attention", dec0),
+                   ("cross-attention", dec0 + 1)):
+        case = calls[i]
+        errs[tag] = (check_one_flash(flash, f"transformer {tag}", case),
+                     check_one_flash_bwd(flash, f"transformer {tag}", case,
+                                         gen, False))
+    mean_ms = float(np.mean(step_ms))
+    real = float(np.asarray(tok[0][0]).reshape(-1)[0])
+    out = {"config": "transformer.ModelHyperParams (dropout 0.0)",
+           "max_len": t, "batch": b, "lengths_drawn_in": list(TF_LENS),
+           "src_len_mean": float(feed["src_len"].mean()),
+           "tgt_len_mean": float(feed["tgt_len"].mean()),
+           "params": int(params), "ops": len(main.global_block().ops),
+           "startup_s": startup_s, "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "tokens_per_s_padded": b * t / (mean_ms / 1e3),
+           "token_num": real, "tokens_per_s_real": real / (mean_ms / 1e3),
+           "max_memory_allocated": peak,
+           "loss_first": first_loss, "loss_last": last,
+           "loss_ratio": last / first_loss, "loss_margin": TF_LOSS_MARGIN,
+           "bias_view": [list(want_view[0]), list(want_view[1])],
+           "flash_launches_fwd_dq_dkv": list(counts),
+           "flash_dbias_calls": dbias,
+           "attention_vs_plain_max_abs_err_fwd_bwd": errs}
+    print("transformer " + json.dumps(out))
+    print("profile transformer " + json.dumps(prof))
+    return counts + (tc,), errs, out
+
+
+def _card_cpu_agree(tag, program, feed, steps, loss_tol, grad_tol,
+                    flash=None):
+    """`steps` steps of `program` (main, startup, loss) on the card and in
+    the port on the CPU from one startup scope (run on the CPU): each
+    loss within `loss_tol`, the first step's @GRADs within `grad_tol` of
+    their scale (_grad_rel_err). Returns (the card run's (fwd, dQ, dK/dV,
+    bf16 fwd) flash launches when `flash` is given, the record)."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss = program
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    runs, counts = {}, None
+    for where, place in (("card", fluid.CUDAPlace(0)),
+                         ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).to(exe.device, copy=True))
+        if flash is not None and where == "card":
+            _zero_counts(flash)
+        losses = []
+        for i in range(steps):
+            out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + ([nm + "@GRAD" for nm in names]
+                                               if i == 0 else []))
+            losses.append(out[0].double().item())
+            if i == 0:
+                grads = [g.cpu() for g in out[1:]]
+        if flash is not None and where == "card":
+            counts = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+        runs[where] = (losses, grads)
+    card, cpu = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    grad_err, worst = _grad_rel_err(card[1], cpu[1], names)
+    out = {"losses_card": card[0], "losses_cpu": cpu[0],
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "grad_worst": worst}
+    print(f"{tag} " + json.dumps(out))
+    if not (loss_err <= loss_tol and grad_err <= grad_tol):
+        _fail(f"{tag}: the card against the CPU: losses {loss_err:.3e} "
+              f"(tolerance {loss_tol}), @GRADs {grad_err:.3e} at {worst} "
+              f"({grad_tol})")
+    return counts, out
+
+
+def phase_transformer_agree(flash):
+    """Phase 24b: the tiny Transformer (TF_AGREE_CFG, max_len
+    TF_AGREE_LEN, lengths TF_AGREE_LENS) under Adam(1e-3),
+    TF_AGREE_STEPS steps on the card (the flash kernels: 3 x 2 launches
+    of each a step) and in the port on the CPU (_card_cpu_agree).
+    Returns (the card run's launches, the record)."""
+    cfg = transformer_config(**TF_AGREE_CFG)
+    main, startup, loss, _tok = build_transformer(cfg, TF_AGREE_LEN, 1e-3)
+    feed = transformer_feed(cfg, len(TF_AGREE_LENS), TF_AGREE_LEN,
+                            TF_AGREE_LENS)
+    counts, out = _card_cpu_agree(
+        "transformer agree", (main, startup, loss), feed, TF_AGREE_STEPS,
+        TF_AGREE_LOSS_TOL, TF_AGREE_GRAD_TOL, flash)
+    n = 3 * cfg.n_layer * TF_AGREE_STEPS
+    if counts != (n, n, n, 0):
+        _fail(f"transformer agree: card launches {counts}, want {n} of "
+              f"each and no tensor-core forward")
+    return counts, out
+
+
+# ---------------------------------------------------------------------------
+# phases 25-25c: DeepFM, Wide&Deep, DIN
+# ---------------------------------------------------------------------------
+
+def build_deepfm(features=DEEPFM_FEATURES, fields=DEEPFM_FIELDS,
+                 embed=DEEPFM_EMBED):
+    """(main, startup, loss): deepfm.build_train_net under
+    AdamOptimizer(DEEPFM_LR), f32."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import deepfm
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 25
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss = deepfm.build_train_net(num_features=features,
+                                      num_fields=fields,
+                                      embed_dim=embed)[3]
+        fluid.optimizer.AdamOptimizer(DEEPFM_LR).minimize(loss)
+    return main, startup, loss
+
+
+def deepfm_feed(batch=DEEPFM_BATCH, features=DEEPFM_FEATURES,
+                fields=DEEPFM_FIELDS, device="cuda"):
+    """Synthetic ids (uniform over the features), values in [0, 1) and
+    0/1 labels from SEED, made on `device`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 25)
+    return {"feat_ids": torch.randint(0, features, (batch, fields),
+                                      generator=gen, device=device),
+            "feat_vals": torch.rand((batch, fields), generator=gen,
+                                    device=device),
+            "label": torch.randint(0, 2, (batch, 1), generator=gen,
+                                   device=device).float()}
+
+
+# the kernels of torch's CUDA embedding backward (by name): the sort of
+# the ids, the segment bookkeeping, the partial sums and the scatter
+EMBEDDING_BWD_KERNELS = ("embedding_backward", "compute_grad_weight",
+                         "sum_and_scatter", "partials_per_segment",
+                         "partial_segment", "segment_offsets",
+                         "compute_num_of_partial_segments")
+
+
+def _device_total(e):
+    return getattr(e, "device_time_total", None) or getattr(
+        e, "cuda_time_total", 0)
+
+
+def _profile_ops(step, steps):
+    """Where a step's time goes, by op: torch.profiler with host and
+    device activity over `steps` calls of step(), each Executor op inside
+    a record_function range named after its type. The wall and device ms
+    a step, busy share, device operations a step, top kernels, the
+    device ms a step of the kernels launched inside each op type's
+    ranges and inside the backward's embedding gradient
+    (aten::embedding_dense_backward)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import record_function
+    from paddle_tpu_torch import ops as ops_registry
+    real = ops_registry.run_op
+
+    def ranged(op, *args, **kw):
+        with record_function("op:" + op.type):
+            return real(op, *args, **kw)
+
+    ops_registry.run_op = ranged
+    try:
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+    finally:
+        ops_registry.run_op = real
+    # kernels by name; the ranges' own device-side annotations (their
+    # span on the device's timeline, gaps included) are left out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and not e.key.startswith("op:")]
+    dev = {e.key: e.self_device_time_total / steps / 1e3 for e in kernels}
+    busy = sum(dev.values())
+    if busy <= 0:
+        _fail("the profiler saw no device time")
+    # an op's device time: the kernels launched inside its host range
+    by_op, emb = {}, 0.0
+    for e in prof.events():
+        if e.device_type.name != "CPU":
+            continue
+        if e.name.startswith("op:"):
+            by_op[e.name[3:]] = by_op.get(e.name[3:], 0.0) + _device_total(e)
+        elif e.name == "aten::embedding_dense_backward":
+            emb += _device_total(e)
+    by_op = {k: v / steps / 1e3 for k, v in by_op.items() if v > 0}
+    emb /= steps * 1e3
+    emb_kernels = sum(v for k, v in dev.items() if any(
+        m in k for m in EMBEDDING_BWD_KERNELS))
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": steps, "wall_ms_per_step": wall,
+            "device_ms_per_step": busy, "device_busy_share": busy / wall,
+            "device_ops_per_step": sum(e.count for e in kernels) / steps,
+            "embedding_backward_kernels_by_name_ms_per_step": emb_kernels,
+            "device_ms_per_step_by_op": dict(sorted(
+                by_op.items(), key=lambda kv: -kv[1])),
+            "adam_ms_per_step": by_op.get("adam", 0.0),
+            "adam_share_of_device": by_op.get("adam", 0.0) / busy,
+            "embedding_backward_ms_per_step": emb,
+            "embedding_backward_share_of_device": emb / busy,
+            "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]}
+
+
+def phase_deepfm():
+    """Phase 25: bench.py's DeepFM cell (1,000,000 features, 39 fields,
+    embed 10, Adam 1e-3, f32), DEEPFM_BATCH synthetic examples on the
+    card, one batch for DEEPFM_WARM + DEEPFM_STEPS steps: every loss
+    finite and the last below the first; examples/s, step ms, peak
+    memory and a profile by op of DEEPFM_PROFILE_STEPS more steps (the
+    embedding backward's and Adam's share of device time). Returns the
+    record."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss = build_deepfm()
+    feed = deepfm_feed()
+    exe = fluid.Executor()
+    gc.collect()
+    torch.cuda.empty_cache()
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    params = sum(scope.get(p.name).numel() for p in main.all_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(DEEPFM_WARM + DEEPFM_STEPS):
+        ts = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        if i >= DEEPFM_WARM:
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(np.asarray(out).reshape(-1)[0]))
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), DEEPFM_PROFILE_STEPS)
+    mean_ms = float(np.mean(step_ms))
+    out = {"config": f"deepfm.build_train_net(num_features="
+                     f"{DEEPFM_FEATURES}, num_fields={DEEPFM_FIELDS}, "
+                     f"embed_dim={DEEPFM_EMBED}), Adam({DEEPFM_LR}), f32",
+           "batch": DEEPFM_BATCH, "params": int(params),
+           "ops": len(main.global_block().ops), "startup_s": startup_s,
+           "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "examples_per_s": DEEPFM_BATCH / (mean_ms / 1e3),
+           "max_memory_allocated": peak, "loss_first": losses[0],
+           "loss_last": losses[-1], "loss_ratio": losses[-1] / losses[0],
+           "losses": losses}
+    print("deepfm " + json.dumps(out))
+    print("profile deepfm " + json.dumps(prof))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        _fail(f"deepfm: loss not finite or not below the first: {losses}")
+    return out
+
+
+def phase_deepfm_dp():
+    """Phase 25b: phase 25's net through with_data_parallel(places=
+    [CUDAPlace(0)] * DP) against places=[CUDAPlace(0)] (dp 1), and the
+    plain Executor beside them, from one startup scope, DEEPFM_DP_STEPS
+    steps on phase 25's batch. The embeddings' @GRADs at dp 2 are each
+    rank's dense scatter-add summed over dp. Each distance of dp 2 from
+    dp 1 is gated at DEEPFM_DP_SPREAD x the plain run's (the embedding
+    backward's order is not fixed) or its floor: the first loss, each
+    embedding's first @GRAD and all first @GRADs as one vector, over
+    their norms. Returns the record."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss = build_deepfm()
+    feed = deepfm_feed()
+    exe = fluid.Executor()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = fluid.Scope()
+    exe.run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    emb = [i for i, p in enumerate(main.all_parameters())
+           if p.shape[0] == DEEPFM_FEATURES]
+    runs = {}
+    for tag, prog in (("dp1", _dp_program(main, loss, [fluid.CUDAPlace(0)])),
+                      (f"dp{DP}", _dp_program(main, loss,
+                                              [fluid.CUDAPlace(0)] * DP)),
+                      ("plain", main)):
+        scope = _copy_scope(base)
+        losses, ms = [], []
+        for i in range(DEEPFM_DP_STEPS):
+            ts = time.perf_counter()
+            out = exe.run(prog, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + ([nm + "@GRAD" for nm in names]
+                                               if i == 0 else []))
+            losses.append(out[0].double().item())
+            ms.append((time.perf_counter() - ts) * 1e3)
+            if i == 0:
+                grads = out[1:]
+        runs[tag] = {"losses": losses, "grads": grads, "step_ms": ms}
+        del scope
+
+    def dist(a, b):
+        d = {"first_loss": abs(a["losses"][0] - b["losses"][0])
+             / abs(b["losses"][0]),
+             "later_losses": max(abs(x - y) / abs(y) for x, y in
+                                 zip(a["losses"][1:], b["losses"][1:])),
+             "grads": _global_rel_err(a["grads"], b["grads"])}
+        for i in emb:
+            d[names[i]] = _global_rel_err([a["grads"][i]], [b["grads"][i]])
+        return d
+    one, two = runs["dp1"], runs[f"dp{DP}"]
+    got, spread = dist(two, one), dist(runs["plain"], one)
+    floors = {"first_loss": DEEPFM_DP_LOSS_TOL,
+              "grads": DEEPFM_DP_GRAD_TOL,
+              **{names[i]: DEEPFM_DP_GRAD_TOL for i in emb}}
+    bounds = {k: max(f, DEEPFM_DP_SPREAD * spread[k])
+              for k, f in floors.items()}
+    out = {"losses_dp1": one["losses"], f"losses_dp{DP}": two["losses"],
+           "losses_plain": runs["plain"]["losses"],
+           f"dp{DP}_vs_dp1": got, "plain_vs_dp1": spread, "bounds": bounds,
+           "embedding_grads": [names[i] for i in emb],
+           "step_ms": {tag: r["step_ms"] for tag, r in runs.items()}}
+    print("deepfm dp " + json.dumps(out))
+    bad = {k: (got[k], b) for k, b in bounds.items() if not got[k] <= b}
+    if len(emb) != 2 or bad:
+        _fail(f"deepfm dp: dp {DP} against dp 1 beyond the bounds: {bad} "
+              f"(embeddings {[names[i] for i in emb]})")
+    return out
+
+
+def phase_ctr_agree():
+    """Phase 25c: Wide&Deep and DIN at test_ctr_models.py's sizes (batch
+    32, Adam(1e-2)), CTR_AGREE_STEPS steps on the card and in the port on
+    the CPU (_card_cpu_agree). Returns the records."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ctr_models
+    rng = np.random.default_rng(SEED + 25)
+    b, fields, t = 32, 8, 16
+    lens = rng.integers(1, t + 1, (b, 1))
+    hist = rng.integers(1, 200, (b, t))
+    hist[np.arange(t)[None, :] >= lens] = 0
+    nets = {
+        "wide_deep": (lambda: ctr_models.build_wide_deep_net(
+            num_features=500, num_wide_fields=fields,
+            num_deep_fields=fields)[3],
+            {"wide_ids": rng.integers(0, 500, (b, fields)),
+             "deep_ids": rng.integers(0, 500, (b, fields))}),
+        "din": (lambda: ctr_models.build_din_net(num_items=200,
+                                                 max_hist=t)[4],
+                {"hist_ids": hist, "cand_id": rng.integers(1, 200, (b, 1)),
+                 "hist_len": lens})}
+    out = {}
+    for tag, (net, ids) in nets.items():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = SEED + 25
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            loss = net()
+            fluid.optimizer.AdamOptimizer(learning_rate=1e-2).minimize(loss)
+        feed = {k: v.astype(np.int64) for k, v in ids.items()}
+        feed["label"] = rng.integers(0, 2, (b, 1)).astype(np.float32)
+        _c, out[tag] = _card_cpu_agree(f"{tag} agree", (main, startup, loss),
+                                       feed, CTR_AGREE_STEPS, CTR_LOSS_TOL,
+                                       CTR_GRAD_TOL)
+    return out
+
+
+def phase_ctr_all(flash, paged):
+    """Phases 25-25c. None of them launches the paged or flash kernels
+    (their counts are 0 after them): the lookups, products and reductions
+    are torch calls, as the JAX package leaves them to XLA."""
+    _zero_counts(flash)
+    paged.LAUNCHES = 0
+    _phase("25 DeepFM train", phase_deepfm)
+    _phase("25b DeepFM dp", phase_deepfm_dp)
+    _phase("25c CTR agree", phase_ctr_agree)
+    counts = _bwd_counts(flash) + (flash.TC_LAUNCHES, paged.LAUNCHES)
+    if any(counts):
+        _fail(f"phases 25-25c launched attention kernels: {counts}")
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -6295,6 +6919,11 @@ def main():
     recipe_dp_paths, _ = _phase("22 recipe dp", phase_recipe_dp, flash,
                                 rec20, rec21)
     phase_conv_all(flash, paged)
+    tf_launches, tf_errs, _ = _phase("24 Transformer-base train",
+                                     phase_transformer, flash)
+    tfa_launches, tfa_errs = _phase("24b Transformer agree",
+                                    phase_transformer_agree, flash)
+    phase_ctr_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -6388,7 +7017,11 @@ def main():
         "16c packed agree (kernel run, 2 layers x 1 step)": pagree_launches,
         **{f"17 ring sp {RING_SP} {case} (one call)": c
            for case, c in ring_launches.items()},
-        **recipe_paths, **dp_paths, **recipe_dp_paths}
+        **recipe_paths, **dp_paths, **recipe_dp_paths,
+        f"24 Transformer-base train ({TF_WARM + TF_STEPS} steps)":
+            tf_launches,
+        "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":
+            tfa_launches}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,
@@ -6403,10 +7036,15 @@ def main():
         name: c[1] + c[2] for name, c in flash_paths.items()}}
     kernels[3]["max_abs_err"] = max(
         [kernels[3]["max_abs_err"], tpp_errs["f32"]]
-        + [e[0] for e in ring_errs.values()])
+        + [e[0] for e in ring_errs.values()]
+        + [e[0] for e in tf_errs.values()])
     kernels[4]["max_abs_err"] = max(
-        [kernels[4]["max_abs_err"]] + [e[1] for e in ring_errs.values()])
+        [kernels[4]["max_abs_err"]] + [e[1] for e in ring_errs.values()]
+        + [e[1] for e in tf_errs.values()])
     agree = {"16b BERT agree": bagree_errs,
+             **{f"24 Transformer-base {call} (out, grads: max abs)": list(e)
+                for call, e in tf_errs.items()},
+             "24b Transformer agree (card vs CPU)": tfa_errs,
              "16c packed agree": pagree_errs,
              "20d recipe agree (bf16 products)": recipe_errs,
              **dp_errs,

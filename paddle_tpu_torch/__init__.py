@@ -23,7 +23,11 @@ optimizers and recompute (``optimizer/recompute.py``); ring attention
 over a sequence-parallel mesh (``parallel/``); and data-parallel
 training through ``CompiledProgram(main).with_data_parallel(...)`` /
 ``with_mesh(mesh)`` and ``ParallelExecutor`` (``core/compiler.py``),
-with the global batch's loss and gradients. The top level is the
+with the global batch's loss and gradients; convolutional nets
+(``models/resnet.py``, ``models/mnist.py``), Transformer-base translation
+(``models/transformer.py``) and the CTR models DeepFM, Wide&Deep and DIN
+(``models/deepfm.py``, ``models/ctr_models.py``) through the same entry
+points. The top level is the
 ``fluid`` namespace of that recipe::
 
     import paddle_tpu_torch as fluid

@@ -3,13 +3,14 @@
 Parity: python/paddle/fluid/layers/nn.py scaled_dot_product_attention and
 the transformer recipes (book machine-translation / models transformer);
 the counterpart of ``paddle_tpu/layers/attention.py``'s two attention
-layers. Attention is a first-class op, routed on the card to the
+layers and ``add_position_encoding``. Attention is a first-class op, routed on the card to the
 hand-written flash-attention kernels (ops/attention_ops.py, ops/flash.py).
 """
 
 from ..core.layer_helper import LayerHelper
 
-__all__ = ["scaled_dot_product_attention", "multi_head_attention"]
+__all__ = ["scaled_dot_product_attention", "multi_head_attention",
+           "add_position_encoding"]
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,
@@ -99,3 +100,13 @@ def multi_head_attention(queries, keys=None, values=None, num_heads=8,
         out = nn_layers.dropout(out, dropout_rate)
     return out
 
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    """Parity: fluid.layers.add_position_encoding (sinusoidal): alpha x +
+    beta enc over (B, T, D)."""
+    helper = LayerHelper("add_position_encoding", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    tuple(input.shape))
+    helper.append_op("add_position_encoding", {"X": input}, {"Out": out},
+                     {"alpha": float(alpha), "beta": float(beta)})
+    return out

@@ -2,7 +2,8 @@
 
 Parity: the loss functions of python/paddle/fluid/layers/nn.py; the
 counterpart of ``paddle_tpu/layers/loss.py``'s ``cross_entropy``,
-``softmax_with_cross_entropy`` and ``square_error_cost``.
+``softmax_with_cross_entropy``, ``square_error_cost`` and
+``sigmoid_cross_entropy_with_logits``.
 """
 
 from ..core.layer_helper import LayerHelper
@@ -41,4 +42,14 @@ def square_error_cost(input, label):
     sub = helper.create_variable_for_type_inference(input.dtype, input.shape)
     helper.append_op("square_error_cost", {"X": input, "Y": label},
                      {"Out": out, "sub_result": sub})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": x, "Label": label}, {"Out": out},
+                     {"ignore_index": ignore_index, "normalize": normalize})
     return out

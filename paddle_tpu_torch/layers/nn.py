@@ -80,6 +80,33 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def one_hot(input, depth, allow_out_of_range=False):
+    """Parity: fluid.layers.one_hot: f32 (..., depth); a trailing 1 in
+    the ids' shape is squeezed away."""
+    helper = LayerHelper("one_hot")
+    shape = tuple(input.shape)
+    if shape and shape[-1] == 1:
+        shape = shape[:-1]
+    out = helper.create_variable_for_type_inference("float32",
+                                                    shape + (depth,))
+    helper.append_op("one_hot", {"X": input}, {"Out": out}, {"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """Parity: fluid.layers.label_smooth: (1 - epsilon) label + epsilon /
+    depth, or + epsilon prior_dist."""
+    helper = LayerHelper("label_smooth", name=name)
+    inputs = {"X": label}
+    if prior_dist is not None:
+        inputs["PriorDist"] = prior_dist
+    out = helper.create_variable_for_type_inference(dtype, label.shape)
+    helper.append_op("label_smooth", inputs, {"Out": out},
+                     {"epsilon": epsilon})
+    return out
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     xs = list(x.shape)
@@ -329,6 +356,7 @@ def _make_elementwise(op_type):
 
 
 elementwise_add = _make_elementwise("elementwise_add")
+elementwise_sub = _make_elementwise("elementwise_sub")
 elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
@@ -374,6 +402,53 @@ def transpose(x, perm, name=None):
     xshape = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("transpose2", {"X": x}, {"Out": out, "XShape": xshape},
                      {"axis": list(perm)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    dims = [a % len(input.shape) for a in axes]
+    shape = tuple(s for i, s in enumerate(input.shape)
+                  if not (i in dims and s == 1))
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    xshape = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("squeeze2", {"X": input}, {"Out": out, "XShape": xshape},
+                     {"axes": list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    shape = list(input.shape)
+    for a in sorted(axes):
+        shape.insert(a, 1)
+    out = helper.create_variable_for_type_inference(input.dtype, tuple(shape))
+    xshape = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("unsqueeze2", {"X": input},
+                     {"Out": out, "XShape": xshape}, {"axes": list(axes)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    xs = input if isinstance(input, (list, tuple)) else [input]
+    shape = list(xs[0].shape)
+    if shape:
+        a = axis % len(shape)
+        shape[a] = sum(x.shape[a] for x in xs)
+    out = helper.create_variable_for_type_inference(xs[0].dtype, tuple(shape))
+    helper.append_op("concat", {"X": xs}, {"Out": out}, {"axis": axis})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    """Parity: fluid.layers.expand: np.tile by expand_times."""
+    helper = LayerHelper("expand", name=name)
+    shape = tuple(s * t if s >= 0 else -1
+                  for s, t in zip(x.shape, expand_times))
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op("expand", {"X": x}, {"Out": out},
+                     {"expand_times": list(expand_times)})
     return out
 
 

@@ -1,8 +1,8 @@
 """Tensor creation layers.
 
 Parity: python/paddle/fluid/layers/tensor.py; the counterpart of
-``paddle_tpu/layers/tensor.py``'s ``create_parameter``, ``fill_constant``
-and ``zeros_like``.
+``paddle_tpu/layers/tensor.py``'s ``create_parameter``, ``fill_constant``,
+``zeros_like``, ``ones_like`` and ``sums``.
 """
 
 from ..core.layer_helper import LayerHelper
@@ -37,4 +37,25 @@ def zeros_like(x, out=None):
     if out is None:
         out = helper.create_variable_for_type_inference(x.dtype, x.shape)
     helper.append_op("zeros_like", {"X": x}, {"Out": out})
+    return out
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("ones_like", {"X": x}, {"Out": out}, {"value": 1.0})
+    return out
+
+
+def sums(input, out=None):
+    """Parity: fluid.layers.sums: the elementwise sum of same-shaped
+    inputs (the ``sum`` op: three or more as one stacked reduction, where
+    the JAX package chains adds)."""
+    helper = LayerHelper("sums")
+    xs = input if isinstance(input, (list, tuple)) else [input]
+    if out is None:
+        out = helper.create_variable_for_type_inference(xs[0].dtype,
+                                                        xs[0].shape)
+    helper.append_op("sum", {"X": xs}, {"Out": out})
     return out

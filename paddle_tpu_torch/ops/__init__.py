@@ -271,3 +271,5 @@ from . import random_ops      # noqa: E402,F401
 from . import optimizer_ops   # noqa: E402,F401
 from . import attention_ops   # noqa: E402,F401
 from . import metric_ops      # noqa: E402,F401
+from . import sequence_ops    # noqa: E402,F401
+from . import beam_search_ops  # noqa: E402,F401

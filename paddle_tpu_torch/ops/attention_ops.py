@@ -12,7 +12,10 @@ path that the JAX package takes off the TPU. The ring's steps run the
 same flash kernels, or on CPU tensors their plain versions. Nothing else
 chooses.
 
-Under data parallelism both ops run a rank's rows (the dp walk hands
+``add_position_encoding`` adds the Transformer's sinusoids to its
+embeddings (plain torch, as XLA computes it in the JAX package).
+
+Under data parallelism the three ops run a rank's rows (the dp walk hands
 them one rank's batch; under a dp x sp mesh the walk activates the sp
 axis alone, so each rank's attention takes the ring over its own
 rows).
@@ -153,3 +156,27 @@ def multihead_attention_op(ctx):
     b_, h, t, d = o.shape
     o = o.transpose(1, 2).reshape(b_, t, h * d)
     return {"Out": proj(o, ctx.in_("WO"), ctx.in_("BO"))}
+
+
+@register("add_position_encoding", dp=rows)
+def add_position_encoding(ctx):
+    """Parity: paddle/fluid/operators/add_position_encoding_op.h: out =
+    alpha x + beta enc over X (B, T, D), enc[t] = [sin(t / 10000^(k /
+    (half - 1))), cos(...)] for k < half = D // 2. The denominator is
+    half - 1, not half (add_position_encoding_op.h:70); half == 1
+    degenerates to enc = t, and an odd D's last column is 0. The
+    sinusoids are computed in f32 on x's device, then cast to x's
+    dtype."""
+    x = ctx.in_("X")
+    alpha = ctx.attr("alpha", 1.0)
+    beta = ctx.attr("beta", 1.0)
+    _b, t, d = x.shape
+    half = d // 2
+    pos = torch.arange(t, dtype=torch.float32, device=x.device)[:, None]
+    div = torch.pow(10000.0, torch.arange(half, dtype=torch.float32,
+                                          device=x.device)
+                    / float(max(half - 1, 1)))
+    enc = torch.cat([torch.sin(pos / div), torch.cos(pos / div)], dim=-1)
+    if enc.shape[-1] < d:
+        enc = torch.nn.functional.pad(enc, (0, d - enc.shape[-1]))
+    return {"Out": alpha * x + beta * enc[None].to(x.dtype)}

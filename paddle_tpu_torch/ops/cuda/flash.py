@@ -135,6 +135,9 @@ LAUNCHES = 0            # the forward, both kernels
 TC_LAUNCHES = 0         # the forward's bf16 kernel (flash_fwd_tc_kernel)
 DQ_LAUNCHES = 0         # the backward's dQ kernel
 DKV_LAUNCHES = 0        # the backward's dK/dV kernel
+# calls of flash_dbias (plain torch, not a kernel; a bias built from
+# lengths or segment ids needs no gradient, so training never calls it)
+DBIAS_CALLS = 0
 _launches_lock = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -244,6 +247,9 @@ def flash_dbias(q, k, v, bias, lse, do, delta, scale=None, causal=False,
     the bias was broadcast along; in the bias's dtype. O(Tq Tk): it runs
     only when the bias requires grad (``_dbias_xla``, ``flash.py:915``),
     as plain torch on the card too."""
+    global DBIAS_CALLS
+    with _launches_lock:
+        DBIAS_CALLS += 1
     scale = _scale(q, scale)
     s, vis = _scores(q, k, bias, segq, segk, scale, causal)
     p = _probs(s, vis, lse)

@@ -1,15 +1,17 @@
 """Loss ops.
 
 Parity: paddle/fluid/operators/{cross_entropy,
-softmax_with_cross_entropy}_op.*, square_error_cost (the reference's
-squared_l2_distance); the counterpart of ``paddle_tpu/ops/loss_ops.py``
-with the losses the ported slices run. Under data parallelism each gives
-a rank's rows their loss rows.
+softmax_with_cross_entropy,sigmoid_cross_entropy_with_logits}_op.*,
+square_error_cost (the reference's squared_l2_distance); the counterpart
+of ``paddle_tpu/ops/loss_ops.py`` with the losses the ported slices run.
+Under data parallelism each gives a rank's rows their loss rows; where
+``sigmoid_cross_entropy_with_logits`` normalizes, it divides by the
+global batch's count of unmasked labels (a dp sum), not each rank's.
 """
 
 import torch
 
-from . import register, rows, rows_if
+from . import Sharded, register, rows, rows_if
 
 
 def _squeeze_label(label):
@@ -69,3 +71,35 @@ def square_error_cost(ctx):
     x, y = ctx.in_("X"), ctx.in_("Y")
     d = x - y
     return {"Out": d * d, "sub_result": d}
+
+
+def _sigmoid_ce(ctx):
+    """The unnormalized loss max(x, 0) - x label + log1p(exp(-|x|)), 0
+    where the label is ignore_index, and the mask of counted labels."""
+    x, label = ctx.in_("X"), ctx.in_("Label")
+    loss = torch.clamp_min(x, 0) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    mask = (label != ctx.attr("ignore_index", -100)).to(loss.dtype)
+    return loss * mask, mask
+
+
+def _dp_sigmoid_ce(impl, ctxs, walk):
+    """A rank's rows; with normalize, every rank's rows over the global
+    count of unmasked labels (the ranks' counts summed over dp)."""
+    if not ctxs[0].attr("normalize", False):
+        return rows(impl, ctxs, walk)
+    parts = [_sigmoid_ce(c) for c in ctxs]
+    count = walk.sum([m.sum() for _l, m in parts])
+    return {"Out": Sharded([loss / torch.clamp_min(count, 1.0)
+                            for loss, _m in parts])}
+
+
+@register("sigmoid_cross_entropy_with_logits", dp=_dp_sigmoid_ce)
+def sigmoid_cross_entropy_with_logits(ctx):
+    """Element-wise binary cross-entropy of logits X against labels in
+    [0, 1]; with normalize, divided by the count of labels that are not
+    ignore_index (at least 1)."""
+    loss, mask = _sigmoid_ce(ctx)
+    if ctx.attr("normalize", False):
+        loss = loss / torch.clamp_min(mask.sum(), 1.0)
+    return {"Out": loss}

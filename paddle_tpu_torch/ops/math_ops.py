@@ -4,7 +4,7 @@ Parity: paddle/fluid/operators/elementwise/*, matmul_op.cc, mul_op.cc,
 mean_op.cc, reduce_ops/*, scale_op.cc, sum_op.cc, clip_op.cc,
 compare_op.cc, isfinite_op.cc, increment_op.cc; the counterpart of
 ``paddle_tpu/ops/math_ops.py`` with the ops the ported slices run:
-``elementwise_add``/``mul``/``div``/``max``/``min``/``pow``,
+``elementwise_add``/``sub``/``mul``/``div``/``max``/``min``/``pow``,
 ``scale``, ``mul``, ``matmul``, ``sum``, ``reduce_sum``, ``mean``,
 ``clip``, ``clip_by_norm``, ``isfinite``, ``increment``, and the
 comparisons ``equal``, ``greater_than``, ``greater_equal``, ``less_than``
@@ -48,6 +48,7 @@ def _ew(fn):
 
 
 register("elementwise_add", dp=rows)(_ew(torch.add))
+register("elementwise_sub", dp=rows)(_ew(torch.sub))
 register("elementwise_mul", dp=rows)(_ew(torch.mul))
 register("elementwise_div", dp=rows)(_ew(torch.div))
 register("elementwise_max", dp=rows)(_ew(torch.maximum))

@@ -5,7 +5,10 @@ lookup_table,gather,top_k}_op.cc; the counterpart of
 ``paddle_tpu/ops/tensor_ops.py`` with the ops the ported slices run.
 ``transpose2`` is here because the ``scaled_dot_product_attention`` layer
 splits heads with it; ``gather`` picks BERT's masked rows (its gradient
-is torch's scatter-add, ``index_add``), ``top_k`` feeds ``accuracy``.
+is torch's scatter-add, ``index_add``), ``top_k`` feeds ``accuracy``;
+``one_hot`` and ``label_smooth`` build the Transformer's soft labels,
+``concat``, ``squeeze``/``unsqueeze``, ``expand`` and ``ones_like`` DIN's
+attention unit.
 
 Under data parallelism ``cast``, ``zeros_like``, ``lookup_table`` (ids
 sharded, the table replicated) and ``top_k`` run a rank's rows;
@@ -16,7 +19,11 @@ from a sharded source with sharded global indices gathers from the
 whole source, the ranks' rows concatenated in rank order (in a world,
 all-gathered): exact for any in-range global index, as BERT's
 ``mask_pos`` indexes the global (B*T) token grid. ``fill_constant``
-takes no sharded input.
+takes no sharded input. ``one_hot``, ``label_smooth`` and ``ones_like``
+run a rank's rows; ``concat``, ``squeeze``, ``unsqueeze`` and ``expand``
+do so where they leave dim 0 the batch: a rank-local ``concat`` on axis
+0 or an ``expand`` that tiles dim 0 would interleave the ranks' rows, so
+those refuse (at dp 2 and more; one rank's rows are the batch).
 """
 
 import torch
@@ -148,3 +155,114 @@ def gather(ctx):
 def top_k(ctx):
     vals, idx = torch.topk(ctx.in_("X"), ctx.attr("k", 1), dim=-1)
     return {"Out": vals, "Indices": idx}
+
+
+def _all_sharded_off_rows(ctx, walk):
+    xs = ctx.in_list("X")
+    if ctx.attr("axis", 0) % xs[0].dim() == 0 and walk.size > 1:
+        return "it concatenates along dim 0 (the ranks' rows would " \
+            "interleave)"
+    env = ctx.env.env
+    if not all(isinstance(env[n], Sharded) for n in ctx.op.input("X")):
+        return "a replicated input beside dp-sharded ones"
+    return None
+
+
+@register("concat", dp=rows_if(_all_sharded_off_rows))
+def concat(ctx):
+    return {"Out": torch.cat(ctx.in_list("X"), dim=ctx.attr("axis", 0))}
+
+
+def _squeeze_axes(x, axes):
+    """The dims squeeze drops: the given axes of size 1 (all size-1 dims
+    when `axes` is empty)."""
+    if not axes:
+        return {i for i, s in enumerate(x.shape) if s == 1}
+    return {a % x.dim() for a in axes if x.shape[a % x.dim()] == 1}
+
+
+def _squeeze_keeps_dim0(ctx, walk):
+    if 0 in _squeeze_axes(ctx.in_("X"), ctx.attr("axes", [])):
+        return "it squeezes dim 0"
+    return None
+
+
+@register("squeeze", "squeeze2", dp=rows_if(_squeeze_keeps_dim0))
+def squeeze(ctx):
+    x = ctx.in_("X")
+    drop = _squeeze_axes(x, ctx.attr("axes", []))
+    return {"Out": x.reshape([s for i, s in enumerate(x.shape)
+                              if i not in drop])}
+
+
+def _unsqueeze(x, axes):
+    for a in sorted(axes):
+        x = x.unsqueeze(a)
+    return x
+
+
+def _unsqueeze_keeps_dim0(ctx, walk):
+    # where the input's dim 0 lands: unsqueeze a tensor whose only
+    # non-trivial dim is dim 0
+    x = ctx.in_("X")
+    probe = torch.zeros((2,) + (1,) * (x.dim() - 1))
+    if _unsqueeze(probe, ctx.attr("axes")).shape[0] != 2:
+        return "it inserts a dim before dim 0"
+    return None
+
+
+@register("unsqueeze", "unsqueeze2", dp=rows_if(_unsqueeze_keeps_dim0))
+def unsqueeze(ctx):
+    return {"Out": _unsqueeze(ctx.in_("X"), ctx.attr("axes"))}
+
+
+def _tile_times(x, times):
+    """np.tile's repetitions: fewer than x's dims are padded with leading
+    1s."""
+    times = list(times)
+    return [1] * (x.dim() - len(times)) + times
+
+
+def _expand_keeps_dim0(ctx, walk):
+    x = ctx.in_("X")
+    times = _tile_times(x, ctx.attr("expand_times"))
+    if walk.size > 1 and (len(times) > x.dim() or times[0] != 1):
+        return f"expand_times {times} tiles dim 0 (the ranks' rows would " \
+            f"interleave)"
+    return None
+
+
+@register("expand", dp=rows_if(_expand_keeps_dim0))
+def expand(ctx):
+    """np.tile: each dim repeated expand_times[i] times."""
+    x = ctx.in_("X")
+    return {"Out": x.repeat(*_tile_times(x, ctx.attr("expand_times")))}
+
+
+@register("ones_like", "fill_any_like", dp=rows)
+def ones_like(ctx):
+    return {"Out": torch.full_like(ctx.in_("X"), ctx.attr("value", 1.0))}
+
+
+@register("one_hot", "one_hot_v2", dp=rows)
+def one_hot(ctx):
+    """f32 (..., depth) rows, 1 at each id; a trailing 1 in the ids'
+    shape is squeezed away, and an id outside [0, depth) gives a row of
+    zeros (jax.nn.one_hot's)."""
+    x = ctx.in_("X")
+    if x.dim() and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    depth = ctx.attr("depth")
+    classes = torch.arange(depth, device=x.device)
+    return {"Out": (x.long()[..., None] == classes).to(torch.float32)}
+
+
+@register("label_smooth", dp=rows)
+def label_smooth(ctx):
+    """(1 - eps) x + eps / depth, or (1 - eps) x + eps PriorDist."""
+    x = ctx.in_("X")
+    eps = ctx.attr("epsilon", 0.1)
+    prior = ctx.in_("PriorDist")
+    if prior is not None:
+        return {"Out": (1 - eps) * x + eps * prior}
+    return {"Out": (1 - eps) * x + eps / x.shape[-1]}

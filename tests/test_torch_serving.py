@@ -447,7 +447,14 @@ def test_port_imports_neither_jax_nor_reference_package():
         "        'paddle_tpu_torch.ops.loss_ops',\n"
         "        'paddle_tpu_torch.ops.nn_ops',\n"
         "        'paddle_tpu_torch.models.resnet',\n"
-        "        'paddle_tpu_torch.models.mnist']\n"
+        "        'paddle_tpu_torch.models.mnist',\n"
+        "        'paddle_tpu_torch.models.transformer',\n"
+        "        'paddle_tpu_torch.models.deepfm',\n"
+        "        'paddle_tpu_torch.models.ctr_models',\n"
+        "        'paddle_tpu_torch.ops.sequence_ops',\n"
+        "        'paddle_tpu_torch.ops.beam_search_ops',\n"
+        "        'paddle_tpu_torch.layers.sequence',\n"
+        "        'paddle_tpu_torch.layers.beam_search']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
