@@ -401,7 +401,38 @@ backward kernels are printed):
 25c. Wide&Deep and DIN at ``test_ctr_models.py``'s sizes, 3 steps on
    the card and in the port on the CPU: losses within 1e-5, @GRADs
    within 1e-4 of their scale. Phases 25-25c launch none of the
-   attention kernels.
+   attention kernels;
+26. ERNIE-base (phase 16's program and cell, Adam 1e-4, dropout 0.1)
+   under guarded asynchronous training, 30 distinct ERNIE feeds: two
+   clean runs from one startup on ``Executor(guard=True,
+   async_window=2)``, one through ``run()``, one through ``run_async()``
+   (their distance is the card's own); the host syncs inside 5 warm
+   dispatches (torch's sync debug mode: 0); an upload probe (step k ends
+   with 50 ms of device sleep: step k+1's pinned feed upload must leave
+   it on the card, a pageable copy must wait for it); run against
+   run_async in alternating blocks; the guard's cost (an unguarded run:
+   p50, device ms and operations); then ``GuardedTrainer``
+   (checkpoint_every 5) with a NaN poisoned into step 12's MLM weights,
+   the 3rd physical checkpoint write failing and a SIGTERM before step
+   20, and a fresh Executor, scope and ``GuardedTrainer.resume()`` to
+   step 30: one rollback, the write retried, every step's loss within
+   4x the clean runs' distance (or 1e-5) of the clean run's; 12 + 12 +
+   12 flash launches a step in every run, flash_dbias 0, the first
+   layer's attention against the plain version; checkpoint bytes, sync
+   and async save and restore ms, peak memory;
+26b. save_params / save_persistables / save_inference_model and the
+   Fluid 1.5 formats (save_fluid_inference_model) from 26's trained
+   scope, each reloaded in a fresh Scope and Executor: the pooled output
+   and the MLM logits bitwise the trained program's clone(for_test=True),
+   12 forward launches a reloaded forward, the persistables bitwise;
+26c. ``run_pipelined`` over 20 ERNIE batches (the last 5 rows, padded to
+   8 by a FeedBucketer) against run() over the same feeds from the same
+   startup: losses in feed order within 26's tolerance; the prefetch
+   depth and each copy's share hidden under earlier steps;
+26d. phase 25's DeepFM through ``train_from_dataset`` over 4 generated
+   MultiSlot files (16,384 examples, 4 native parse threads, 8 batches
+   of 2048): the native parser ran, the losses match run() over the same
+   batches; examples/s of both. No attention kernel.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -435,8 +466,8 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d, 22 and 24-24b, with 16b/16c/17/19b/19c/20d/21b/21c/24/
-24b's errors in ``path_errs``); the
+20-20d, 21-21d, 22, 24-24b and 26-26c, with 16b/16c/17/19b/19c/20d/21b/
+21c/24/24b/26's errors in ``path_errs``); the
 line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
@@ -446,8 +477,10 @@ unavailable or any phase fails.
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -727,6 +760,44 @@ DEEPFM_DP_SPREAD = 4.0
 CTR_AGREE_STEPS = 3
 CTR_LOSS_TOL = 1e-5
 CTR_GRAD_TOL = 1e-4
+# phases 26-26c: ERNIE-base (phase 16's program) under guarded
+# asynchronous training: GUARD_STEPS steps of distinct ERNIE feeds, the
+# async window GUARD_WINDOW, a checkpoint every GUARD_CKPT_EVERY steps, a
+# NaN poisoned into step GUARD_POISON_AT, the GUARD_WRITE_FAULT-th
+# physical checkpoint write failing, a SIGTERM before step
+# GUARD_PREEMPT_AT
+GUARD_STEPS = 30
+GUARD_WINDOW = 2
+GUARD_CKPT_EVERY = 5
+GUARD_POISON_AT = 12
+GUARD_WRITE_FAULT = 3
+GUARD_PREEMPT_AT = 20
+GUARD_COST_STEPS = 10               # the unguarded run's timed steps
+# 26's upload probe: step k ends with this much device sleep, so it is
+# still on the card when step k+1's feeds are uploaded; GUARD_PROBES times
+GUARD_PROBE_SLEEP_MS = 50.0
+GUARD_PROBES = 3
+GUARD_SYNC_STEPS = 5                # warm dispatches with syncs counted
+GUARD_TIMING_BLOCKS = 4             # run / run_async blocks, alternating
+GUARD_TIMING_STEPS = 8
+# 26: a replayed or resumed run on the card matches the clean run within
+# GUARD_SPREAD x the distance between two clean runs (torch's CUDA
+# embedding backward sums in no fixed order, as 21b's and 25b's) or the
+# floor: an f32 loss (a mean over 8 x 20 masked tokens plus NSP's) a few
+# roundings apart, relative
+GUARD_SPREAD = 4.0
+GUARD_LOSS_FLOOR = 1e-5
+PIPE_BATCHES = 20                   # 26c: run_pipelined's ERNIE batches
+PIPE_TAIL = 5                       # 26c: the last batch's rows
+# 26d: phase 25's DeepFM through train_from_dataset over generated
+# MultiSlot files: DATASET_BATCHES batches of DEEPFM_BATCH, split over
+# DATASET_FILES files, parsed by DATASET_THREADS native threads; the
+# losses against run() over the same batches within DEEPFM_DP_SPREAD x
+# two such runs' distance, or this f32 floor (relative)
+DATASET_BATCHES = 8
+DATASET_FILES = 4
+DATASET_THREADS = 4
+DATASET_LOSS_FLOOR = 1e-6
 # the profile phases trace the device only: every number they print is a
 # device time or count, or a host wall around the traced loop, and the
 # host-side op events made the profiler's own processing the largest part
@@ -6735,6 +6806,728 @@ def phase_ctr_all(flash, paged):
         _fail(f"phases 25-25c launched attention kernels: {counts}")
 
 
+# phases 26-26d: guarded asynchronous training, save and load, the input
+# pipeline and the dataset plane
+# ---------------------------------------------------------------------------
+
+def guard_feeds(n, batch=BERT_BATCH, seed=SEED + 100):
+    """`n` ERNIE feeds of phase 16's kind (int32, synthetic), each its own
+    draw from the seed."""
+    from paddle_tpu_torch.models import ernie
+    cfg = bert_config()
+    return [ernie.make_pretrain_feed(cfg, BERT_SEQ, batch, seed=seed + i,
+                                     dtype=np.int32) for i in range(n)]
+
+
+def _fresh_bert(main, startup, guard=True):
+    """(exe, scope): a fresh Executor on the card and a scope holding
+    the startup's weights (the same for every fresh pair: the startup's
+    random ops fold in the program's seed and step 0)."""
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor(guard=guard, async_window=GUARD_WINDOW)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    return exe, scope
+
+
+def _count_syncs(fn):
+    """(fn(), the file:line of each host sync torch's sync debug mode
+    reported in it)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in seen
+                 if "called a synchronizing CUDA operation"
+                 in str(w.message)]
+
+
+def _behind_probe(exe, main, loss, scope, feeds):
+    """Whether a step's feed upload waits for the steps before it. Step
+    k is dispatched with GUARD_PROBE_SLEEP_MS of device sleep queued at
+    its end (before its handle's event), so that it is still on the card
+    when the host turns to step k+1; then step k+1's feeds go through the
+    upload run_async uses (pinned memory, non_blocking) and, as a control,
+    through a pageable copy (what run() did before): step k must still be
+    on the card after the first, and done after the second (a pageable
+    copy waits for everything queued before it). GUARD_PROBES times,
+    from an empty window. Returns {"sleep_ms", "pairs": [(behind at the
+    start, behind after the pinned upload, done after the pageable
+    one)]}."""
+    from paddle_tpu_torch.core import executor as executor_mod
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 ** 8)
+    b.record()
+    b.synchronize()
+    cycles = int(GUARD_PROBE_SLEEP_MS * 10 ** 8 / a.elapsed_time(b))
+    real = exe._dispatch
+
+    def sleepy(*args, **kw):
+        out = real(*args, **kw)
+        torch.cuda._sleep(cycles)
+        return out
+
+    pairs = []
+    for j in range(GUARD_PROBES):
+        exe.drain()
+        exe._dispatch = sleepy
+        hk = exe.run_async(main, feed=feeds[2 * j], fetch_list=[loss],
+                           scope=scope)
+        exe._dispatch = real
+        start = not hk.done()
+        executor_mod._canon_feeds(feeds[2 * j + 1], exe.device,
+                                  pinned=True)
+        pinned = not hk.done()
+        executor_mod._canon_feeds(feeds[2 * j + 1], exe.device,
+                                  pinned=False)
+        pairs.append((start, pinned, hk.done()))
+    exe.drain()
+    return {"sleep_ms": GUARD_PROBE_SLEEP_MS, "pairs": pairs}
+
+
+def _interleaved_timing(exe, main, loss, scope, feeds):
+    """run() against run_async() on one executor, in GUARD_TIMING_BLOCKS
+    alternating blocks of GUARD_TIMING_STEPS steps each (host-bound
+    step times drift within a call; alternating shares the drift): the
+    p50 and p99 of each, a run_async step timed from one dispatch's
+    return to the next's, its window drained between blocks."""
+    times = {"run": [], "run_async": []}
+    for blk in range(GUARD_TIMING_BLOCKS):
+        tag = ("run", "run_async")[blk % 2]
+        t_last = time.perf_counter()
+        for f in feeds[:GUARD_TIMING_STEPS]:
+            if tag == "run":
+                exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+            else:
+                exe.run_async(main, feed=f, fetch_list=[loss], scope=scope)
+            now = time.perf_counter()
+            times[tag].append((now - t_last) * 1e3)
+            t_last = now
+        exe.drain()
+    return {f"{tag}_ms_{q}": float(np.percentile(t, int(q[1:])))
+            for tag, t in times.items() for q in ("p50", "p99")}
+
+
+def _host_profile(step, steps=2):
+    """Where a step's host time goes: cProfile over `steps` calls of
+    step() (it inflates Python against native code, so shares only):
+    each of the top functions by own time with its share of the total
+    and its calls a step."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    total = st.total_tt
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:8]
+    return {"total_s": total, "top_own_time": [
+        [f"{os.path.basename(f)}:{ln}({fn})", tt / total, nc // steps]
+        for (f, ln, fn), (_cc, nc, tt, _ct, _callers) in rows]}
+
+
+def _nan_bias_report(flash):
+    """Reported, not gated (ROADMAP C11): one key's additive bias NaN in
+    a (2, 2, 64, 64) f32 call. Whether the f32 flash forward's rows of
+    that batch and the plain version's are finite, and the kernel's
+    largest distance from the plain version with that key masked."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 27)
+    q, k, v = (torch.randn(2, 2, 64, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    bias = torch.zeros(2, 1, 1, 64, device="cuda")
+    bias[0, 0, 0, 0] = float("nan")
+    b4 = bias.expand(2, 2, 64, 64)
+    out, _lse = flash.flash_attention_cuda(q, k, v, b4, None, None, None,
+                                           False)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / 8.0
+    plain = torch.softmax(s + b4, -1) @ v
+    masked = torch.softmax(s + torch.nan_to_num(b4, nan=float("-inf")),
+                           -1) @ v
+    return {"kernel_rows_finite": bool(torch.isfinite(out[0]).all()),
+            "plain_rows_finite": bool(torch.isfinite(plain[0]).all()),
+            "kernel_max_abs_from_masked": float((out - masked).abs().max())}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _ernie_fetch_vars(main):
+    """The pooled output (the NSP head's input) and the MLM logits (the
+    tied projection plus its bias) of the pretraining Program."""
+    gb = main.global_block()
+    pooled = next(op.input("X")[0] for op in gb.ops
+                  if "nsp_fc_w" in op.input_names)
+    logits = next(op.output_names[0] for op in gb.ops
+                  if op.type == "elementwise_add"
+                  and "mlm_out_b" in op.input_names)
+    return pooled, logits
+
+
+def phase_guarded(flash):
+    """Phase 26: ERNIE-base (phase 16's program, Adam 1e-4, dropout 0.1)
+    under guarded asynchronous training. Two clean GUARD_STEPS-step runs
+    from one startup, one through run(), one through run_async() with
+    window GUARD_WINDOW, both on Executor(guard=True): their distance is
+    the card's own (torch's CUDA embedding backward sums in no fixed
+    order). Then GuardedTrainer over the same feeds, checkpoint_every
+    GUARD_CKPT_EVERY: a NaN poisoned into step GUARD_POISON_AT, the
+    GUARD_WRITE_FAULT-th physical checkpoint write failing, a SIGTERM
+    before step GUARD_PREEMPT_AT; a fresh Executor, scope and
+    GuardedTrainer resume() from the emergency checkpoint and finish.
+    Gates: one rollback and one recovered write fault, preempted at
+    GUARD_PREEMPT_AT, every step's loss within GUARD_SPREAD x the clean
+    runs' distance (or GUARD_LOSS_FLOOR) of the clean run's; 12 + 12 +
+    12 flash launches a step in every run, none of flash_dbias; 0 host
+    syncs in every timed dispatch, and step k still on the card when
+    step k+1's dispatch starts; the first layer's attention call against
+    the plain version. Prints run against run_async step p50/p99, host
+    dispatch ms, the guard's cost (p50, device ms and operations guarded
+    against unguarded), checkpoint bytes and sync/async save and restore
+    ms, and the peak memory. Returns (launches by path, (fwd, bwd) max
+    abs errors, the trained (exe, scope, main), the loss tolerance, the
+    record)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import checkpoint as ckpt
+    from paddle_tpu_torch.robustness import (ChaosInjector,
+                                             CheckpointManager,
+                                             GuardedTrainer)
+    cfg = bert_config()
+    n = cfg.num_hidden_layers
+    main, startup, loss = build_bert(cfg)
+    feeds = guard_feeds(GUARD_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paths, rec = {}, {"config": "BertConfig(max_position_embeddings=512), "
+                                "Adam(1e-4), dropout 0.1, f32",
+                      "seq_len": BERT_SEQ, "batch": BERT_BATCH,
+                      "steps": GUARD_STEPS}
+    dbias0 = flash.DBIAS_CALLS
+
+    # -- clean run 1: run(), guarded; its first step's first attention
+    exe, scope = _fresh_bert(main, startup)
+    _zero_counts(flash)
+    clean, run_ms, per_step = [], [], set()
+    calls = {}
+    for i, f in enumerate(feeds):
+        before = _bwd_counts(flash)
+        ts = time.perf_counter()
+        if i == 0:
+            calls = _captured_flash_calls(lambda: clean.append(exe.run(
+                main, feed=f, fetch_list=[loss], scope=scope)[0]), {0})
+        else:
+            clean.append(exe.run(main, feed=f, fetch_list=[loss],
+                                 scope=scope)[0])
+        run_ms.append((time.perf_counter() - ts) * 1e3)
+        per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
+                                                 before)))
+    clean = [float(np.asarray(x).reshape(-1)[0]) for x in clean]
+    paths[f"26 ERNIE clean run() ({GUARD_STEPS} steps)"] = \
+        _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+    if per_step != {(n, n, n)}:
+        _fail(f"guarded: run() flash launches per step {per_step}, want "
+              f"{n} each")
+    guard_prof = _profile_train(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope), 3)
+    del exe, scope
+
+    # -- clean run 2: run_async(), window GUARD_WINDOW
+    exe, scope = _fresh_bert(main, startup)
+    _zero_counts(flash)
+    handles, not_done, gaps = [], [], []
+    torch.cuda.synchronize()
+    t_last = time.perf_counter()
+    for i, f in enumerate(feeds):
+        if i == BERT_WARM:
+            exe.reset_stats()
+        if handles:
+            not_done.append(not handles[-1].done())
+        handles.append(exe.run_async(main, feed=f, fetch_list=[loss],
+                                     scope=scope))
+        now = time.perf_counter()
+        gaps.append((now - t_last) * 1e3)
+        t_last = now
+    async_losses = [float(h.result()[0].reshape(-1)[0]) for h in handles]
+    stats = exe.get_stats()["async"]
+    counts = _bwd_counts(flash)
+    probe = _behind_probe(exe, main, loss, scope, feeds)
+    # the host syncs inside a dispatch, counted on steps of their own (the
+    # counting slows the host, so the timed run above goes without it)
+    real = exe._dispatch
+    syncs = []
+
+    def counted(*a, **kw):
+        out, where = _count_syncs(lambda: real(*a, **kw))
+        syncs.append(where)
+        return out
+
+    exe._dispatch = counted
+    for f in feeds[:GUARD_SYNC_STEPS]:
+        exe.run_async(main, feed=f, fetch_list=[loss], scope=scope)
+    exe.drain()
+    del exe._dispatch
+    timing = _interleaved_timing(exe, main, loss, scope, feeds)
+    paths[f"26 ERNIE clean run_async() ({GUARD_STEPS} steps)"] = \
+        counts + (flash.TC_LAUNCHES,)
+    if counts != (GUARD_STEPS * n,) * 3:
+        _fail(f"guarded: run_async flash launches {counts}, want "
+              f"{GUARD_STEPS * n} each")
+    if any(syncs):
+        _fail(f"guarded: host syncs during run_async's dispatches: "
+              f"{sorted({w for step in syncs for w in step})}")
+    if not all(start and pinned and waited
+               for start, pinned, waited in probe["pairs"]):
+        _fail(f"guarded: step k+1's pinned feed upload waited for step k, "
+              f"or the pageable control did not: {probe}")
+    clean_dist = _rel(async_losses, clean)
+    tol = max(GUARD_SPREAD * clean_dist, GUARD_LOSS_FLOOR)
+    rec.update({
+        "losses_clean": clean, "clean_runs_max_rel_distance": clean_dist,
+        "loss_tol": tol,
+        "run_step_ms_p50": float(np.percentile(run_ms[BERT_WARM:], 50)),
+        "run_step_ms_p99": float(np.percentile(run_ms[BERT_WARM:], 99)),
+        "run_async_step_ms_p50": float(np.percentile(gaps[BERT_WARM:], 50)),
+        "run_async_step_ms_p99": float(np.percentile(gaps[BERT_WARM:], 99)),
+        "interleaved": timing,
+        "dispatch_ms_avg": stats["dispatch_ms"]["avg"],
+        "behind_probe": probe,
+        "host_sync_wait_ms_avg": stats["host_sync_wait_ms"]["avg"],
+        "syncs_during_dispatch": [len(w) for w in syncs],
+        "step_k_in_flight_at_dispatch_k1": sum(not_done[BERT_WARM:]),
+        "window_waits": stats["window_waits"]})
+    del exe, scope, handles
+
+    # -- the guard's cost: an unguarded run of the same steps
+    exe, scope = _fresh_bert(main, startup, guard=False)
+    plain_ms = []
+    for f in feeds[:BERT_WARM + GUARD_COST_STEPS]:
+        ts = time.perf_counter()
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        plain_ms.append((time.perf_counter() - ts) * 1e3)
+    plain_prof = _profile_train(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope), 3)
+    rec["host_profile_run"] = _host_profile(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope))
+    del exe, scope
+    rec["guard_cost"] = {
+        "guarded_step_ms_p50": rec["run_step_ms_p50"],
+        "unguarded_step_ms_p50": float(np.percentile(plain_ms[BERT_WARM:],
+                                                     50)),
+        "guarded_device_ms": guard_prof["device_ms_per_step"],
+        "unguarded_device_ms": plain_prof["device_ms_per_step"],
+        "guarded_device_ops": guard_prof["device_ops_per_step"],
+        "unguarded_device_ops": plain_prof["device_ops_per_step"]}
+
+    # -- GuardedTrainer: poison, failed write, preemption; then resume
+    root = tempfile.mkdtemp(prefix="guarded-")
+    try:
+        got = {}
+
+        def keep(i, out):
+            got[i] = float(np.asarray(out[0]).reshape(-1)[0])
+
+        exe, scope = _fresh_bert(main, startup)
+        # the NaN goes into the MLM weights, a factor of the loss (a NaN
+        # in input_mask reaches the attention only as its padding bias)
+        chaos = ChaosInjector().poison_grad_at(GUARD_POISON_AT,
+                                                var="mask_weight") \
+            .fail_checkpoint_write(nth=GUARD_WRITE_FAULT) \
+            .sigterm_at(GUARD_PREEMPT_AT)
+        _zero_counts(flash)
+        t0 = time.perf_counter()
+        with chaos:
+            trainer = GuardedTrainer(
+                exe, main, fetch_list=[loss], scope=scope,
+                manager=CheckpointManager(root, keep=2, program=main,
+                                          sleep_fn=lambda s: None),
+                checkpoint_every=GUARD_CKPT_EVERY, chaos=chaos,
+                window=GUARD_WINDOW, result_callback=keep)
+            res = trainer.train(feeds)
+        train_s = time.perf_counter() - t0
+        dispatched = exe.get_stats()["async"]["dispatches"]
+        del exe, scope, trainer
+        if not (res.preempted and res.steps == GUARD_PREEMPT_AT
+                and res.rollbacks == 1 and len(res.faults) == 1
+                and chaos.fired["poison"] == 1
+                and chaos.fired["write_fault"] == 1
+                and chaos.fired["sigterm"] == 1):
+            _fail(f"guarded: GuardedTrainer {res} rollbacks "
+                  f"{res.rollbacks} faults {res.faults} fired "
+                  f"{chaos.fired}")
+        exe, scope = fluid.Executor(guard=True,
+                                    async_window=GUARD_WINDOW), \
+            fluid.Scope()
+        t0 = time.perf_counter()
+        trainer = GuardedTrainer(
+            exe, main, fetch_list=[loss], scope=scope,
+            manager=CheckpointManager(root, keep=2, program=main),
+            checkpoint_every=GUARD_CKPT_EVERY, window=GUARD_WINDOW,
+            result_callback=keep)
+        meta = trainer.resume()
+        res2 = trainer.train(iter(feeds[GUARD_PREEMPT_AT:]))
+        resume_s = time.perf_counter() - t0
+        dispatched += exe.get_stats()["async"]["dispatches"]
+        counts = _bwd_counts(flash)
+        paths[f"26 ERNIE GuardedTrainer ({dispatched} dispatches: "
+              f"rollback, replay, preemption, resume)"] = \
+            counts + (flash.TC_LAUNCHES,)
+        if meta["step"] != GUARD_PREEMPT_AT or res2.steps != GUARD_STEPS \
+                or sorted(got) != list(range(GUARD_STEPS)):
+            _fail(f"guarded: resume from {meta['step']} to {res2.steps}, "
+                  f"losses for steps {sorted(got)}")
+        if counts != (dispatched * n,) * 3:
+            _fail(f"guarded: trainer flash launches {counts}, want "
+                  f"{dispatched * n} each ({dispatched} dispatches)")
+        trained = [got[i] for i in range(GUARD_STEPS)]
+        dist = _rel(trained, clean)
+        if not np.isfinite(trained).all() or dist > tol:
+            _fail(f"guarded: rollback/resume losses {dist:.3g} from the "
+                  f"clean run's, tol {tol:.3g}: {trained} vs {clean}")
+
+        # checkpoint writes of the trained state
+        d = os.path.join(root, "timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(exe, d + "-sync", main, step=GUARD_STEPS,
+                             scope=scope)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        h = ckpt.save_checkpoint_async(exe, d + "-async", main,
+                                       step=GUARD_STEPS, scope=scope)
+        async_return_ms = (time.perf_counter() - t0) * 1e3
+        h.wait()
+        async_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.load_checkpoint(exe, d + "-sync", main, scope=fluid.Scope())
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(os.path.join(d + "-sync", "state.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if flash.DBIAS_CALLS != dbias0:
+        _fail(f"guarded: flash_dbias ran {flash.DBIAS_CALLS - dbias0} "
+              f"times, want 0 (BERT's padding bias needs no gradient)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 26)
+    errs = (check_one_flash(flash, "guarded layer 0", calls[0]),
+            check_one_flash_bwd(flash, "guarded layer 0", calls[0], gen,
+                                False))
+    rec.update({
+        "trainer_losses": trained, "trainer_max_rel_distance": dist,
+        "rollbacks": res.rollbacks, "replayed_steps": dispatched
+        - GUARD_STEPS, "checkpoints_written": res.checkpoints_written
+        + res2.checkpoints_written, "fired": chaos.fired,
+        "preempted_at": res.steps, "train_s": train_s,
+        "resume_s": resume_s, "checkpoint_bytes": nbytes,
+        "save_sync_ms": sync_ms, "save_async_return_ms": async_return_ms,
+        "save_async_total_ms": async_ms, "restore_ms": restore_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "flash_launches_by_path": {k: list(v) for k, v in paths.items()},
+        "attention_vs_plain_max_abs_err_fwd_bwd": list(errs),
+        "nan_bias_report": _nan_bias_report(flash)})
+    print("guarded " + json.dumps(rec))
+    print("profile guarded " + json.dumps(guard_prof))
+    print("profile unguarded " + json.dumps(plain_prof))
+    return paths, errs, (exe, scope, main, loss), tol, rec
+
+
+def phase_save_load(flash, trained):
+    """Phase 26b: save_params / save_persistables / save_inference_model
+    from phase 26's trained scope, and the Fluid 1.5 formats
+    (save_fluid_inference_model). Each reloads in a fresh Scope and a
+    fresh Executor: the reloaded encoder's pooled output and MLM logits
+    must be bitwise the trained program's clone(for_test=True) on the
+    same feed, each reloaded forward launching the f32 flash forward 12
+    times and no backward; the persistables reload bitwise. Returns the
+    launches by path and the record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    exe, scope, main, _loss = trained
+    n = bert_config().num_hidden_layers
+    pooled, logits = _ernie_fetch_vars(main)
+    feed_names = ["src_ids", "sent_ids", "input_mask", "mask_pos"]
+    feed = {k: v for k, v in guard_feeds(1, seed=SEED + 300)[0].items()
+            if k in feed_names}
+    want = exe.run(main.clone(for_test=True), feed=feed,
+                   fetch_list=[pooled, logits], scope=scope)
+    root = tempfile.mkdtemp(prefix="saveload-")
+    rec, paths = {}, {}
+    try:
+        t0 = time.perf_counter()
+        io.save_params(exe, os.path.join(root, "params"), main, scope=scope)
+        io.save_persistables(exe, os.path.join(root, "persist"), main,
+                             scope=scope)
+        rec["save_params_and_persistables_ms"] = \
+            (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            io.save_inference_model(os.path.join(root, "inference"),
+                                    feed_names, [pooled, logits], exe,
+                                    main_program=main)
+            io.save_fluid_inference_model(os.path.join(root, "fluid"),
+                                          feed_names, [pooled, logits],
+                                          exe, main_program=main)
+        rec["save_inference_models_ms"] = (time.perf_counter() - t0) * 1e3
+        s2 = fluid.Scope()
+        io.load_persistables(fluid.Executor(), os.path.join(root,
+                                                            "persist"),
+                             main, scope=s2)
+        bad = [v.name for v in main.list_vars() if v.persistable
+               and scope.get(v.name) is not None
+               and not torch.equal(s2.get(v.name), scope.get(v.name))]
+        if bad:
+            _fail(f"save/load: persistables not bitwise after reload: "
+                  f"{bad[:5]}")
+        for tag, loader in (("inference", io.load_inference_model),
+                            ("fluid", io.load_fluid_inference_model)):
+            exe2, s3 = fluid.Executor(), fluid.Scope()
+            t0 = time.perf_counter()
+            with fluid.scope_guard(s3):
+                prog, feeds, fetches = loader(os.path.join(root, tag), exe2)
+            rec[f"load_{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+            _zero_counts(flash)
+            got = exe2.run(prog, feed={k: feed[k] for k in feeds},
+                           fetch_list=fetches, scope=s3)
+            c = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+            paths[f"26b reloaded {tag} model forward"] = c
+            if c != (n, 0, 0, 0):
+                _fail(f"save/load {tag}: flash launches {c}, want "
+                      f"({n}, 0, 0, 0)")
+            for name, a, b in zip(("pooled", "mlm_logits"), got, want):
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    _fail(f"save/load {tag}: reloaded {name} not bitwise "
+                          f"the trained program's (max abs "
+                          f"{np.max(np.abs(a - b))})")
+        rec["bytes"] = {sub: sum(os.path.getsize(os.path.join(dp, f))
+                                 for dp, _, fs in os.walk(
+                                     os.path.join(root, sub)) for f in fs)
+                        for sub in ("params", "persist", "inference",
+                                    "fluid")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["pooled_shape"] = list(want[0].shape)
+    rec["mlm_logits_shape"] = list(want[1].shape)
+    rec["flash_launches_by_path"] = {k: list(v) for k, v in paths.items()}
+    print("save_load " + json.dumps(rec))
+    return paths, rec
+
+
+def phase_pipelined(flash, tol):
+    """Phase 26c: run_pipelined over PIPE_BATCHES ERNIE batches (the last
+    PIPE_TAIL rows, padded to the batch by a FeedBucketer) from phase
+    26's startup, against run() over the same bucketed feeds from the
+    same startup: losses in feed order within phase 26's tolerance.
+    Prints the prefetch depth and the share of each host-to-device copy
+    (its own copy stream, pinned memory) that ran under earlier steps.
+    Returns the launches by path and the record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.bucketing import FeedBucketer
+    cfg = bert_config()
+    n = cfg.num_hidden_layers
+    main, startup, loss = build_bert(cfg)
+    feeds = guard_feeds(PIPE_BATCHES - 1, seed=SEED + 200) + \
+        guard_feeds(1, batch=PIPE_TAIL, seed=SEED + 250)
+    bucketer = FeedBucketer(mask_name=None)
+    exe, scope = _fresh_bert(main, startup, guard=False)
+    ref = [float(np.asarray(exe.run(main, feed=bucketer.bucket(f),
+                                    fetch_list=[loss], scope=scope)[0])
+                 .reshape(-1)[0]) for f in feeds]
+    exe, scope = _fresh_bert(main, startup, guard=False)
+    copies, steps = [], []
+    real = exe.run_async
+
+    def marked(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        h = real(*a, **kw)
+        end.record()
+        steps.append((start, end))
+        return h
+
+    exe.run_async = marked
+    e0 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    _zero_counts(flash)
+    t0 = time.perf_counter()
+    outs = [float(np.asarray(o[0]).reshape(-1)[0])
+            for o in exe.run_pipelined(main, feeds, fetch_list=[loss],
+                                       scope=scope, bucketer=bucketer,
+                                       copy_events=copies)]
+    wall = time.perf_counter() - t0
+    del exe.run_async
+    counts = _bwd_counts(flash)
+    if counts != (len(feeds) * n,) * 3:
+        _fail(f"pipelined: flash launches {counts}, want "
+              f"{len(feeds) * n} each")
+    dist = _rel(outs, ref)
+    if len(outs) != len(ref) or dist > tol:
+        _fail(f"pipelined: losses {dist:.3g} from run()'s (tol {tol:.3g}): "
+              f"{outs} vs {ref}")
+
+    torch.cuda.synchronize()
+
+    def at(e):
+        return e0.elapsed_time(e)
+
+    spans = [(at(s), at(e)) for s, e in steps]
+    hidden = []
+    for k, (cs, ce) in enumerate(copies):
+        a, b = at(cs), at(ce)
+        over = sum(max(0.0, min(b, se) - max(a, ss))
+                   for ss, se in spans[:k])
+        hidden.append(over / (b - a) if b > a else 1.0)
+    rec = {"batches": len(feeds), "tail_rows": PIPE_TAIL,
+           "bucketed_to": BERT_BATCH, "prefetch_depth": 2,
+           "window": GUARD_WINDOW, "wall_s": wall,
+           "max_rel_distance_from_run": dist, "loss_tol": tol,
+           "copy_ms": [at(e) - at(s) for s, e in copies],
+           "copy_hidden_share": hidden,
+           "copy_hidden_share_after_first": float(np.mean(hidden[1:])),
+           "flash_launches": list(counts)}
+    print("pipelined " + json.dumps(rec))
+    return {f"26c run_pipelined ({len(feeds)} batches)":
+            counts + (flash.TC_LAUNCHES,)}, rec
+
+
+def _slot_lines(ids, vals, labels):
+    """MultiSlot text lines of DeepFM's three slots."""
+    f = ids.shape[1]
+    head = str(f)
+    return [" ".join([head] + [str(x) for x in ids[i]] + [head]
+                     + [f"{x:.4f}" for x in vals[i]]
+                     + ["1", str(labels[i])])
+            for i in range(len(labels))]
+
+
+def phase_dataset(flash, paged):
+    """Phase 26d: DeepFM (phase 25's cell, batch DEEPFM_BATCH) through
+    Executor.train_from_dataset over DATASET_FILES generated MultiSlot
+    files (seeded numpy, written to a temporary directory),
+    DATASET_BATCHES batches, InMemoryDataset with DATASET_THREADS parse
+    threads: the native parser (csrc/dataset_feed.cc) must have run, and
+    the losses must match run() over the same batches from the same
+    startup within DEEPFM_DP_SPREAD x two such runs' distance (or
+    DATASET_LOSS_FLOOR). Prints examples/s of both and the parse time.
+    Launches none of the attention kernels."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import dataset as ds
+    rng = np.random.default_rng(SEED + 26)
+    n = DATASET_BATCHES * DEEPFM_BATCH
+    ids = rng.integers(0, DEEPFM_FEATURES, (n, DEEPFM_FIELDS))
+    vals = rng.random((n, DEEPFM_FIELDS)).round(4)
+    labels = rng.integers(0, 2, n)
+    lines = _slot_lines(ids, vals, labels)
+    root = tempfile.mkdtemp(prefix="dataset-")
+    try:
+        files = []
+        per = n // DATASET_FILES
+        for i in range(DATASET_FILES):
+            p = os.path.join(root, f"part-{i:05d}")
+            with open(p, "w") as f:
+                f.write("\n".join(lines[i * per:(i + 1) * per]) + "\n")
+            files.append(p)
+        main, startup, loss = build_deepfm()
+        gb = main.global_block()
+        d = ds.DatasetFactory().create_dataset("InMemoryDataset")
+        d.set_batch_size(DEEPFM_BATCH)
+        d.set_use_var([gb.var("feat_ids"), gb.var("feat_vals"),
+                       gb.var("label")])
+        d.set_filelist(files)
+        d.set_thread(DATASET_THREADS)
+        t0 = time.perf_counter()
+        d.load_into_memory()
+        parse_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if d.parser != "native":
+        _fail(f"dataset: the {d.parser} parser ran, want the native one "
+              f"({ds.NATIVE_BUILD_ERROR})")
+    t0 = time.perf_counter()
+    batches = list(d._iter_batches())
+    assemble_s = time.perf_counter() - t0
+    c0 = _bwd_counts(flash) + (flash.TC_LAUNCHES, paged.LAUNCHES)
+
+    def fresh():
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        return exe, scope
+
+    exe, scope = fresh()
+    got = []
+    real = exe.run
+
+    def spied(*a, **kw):
+        out = real(*a, **kw)
+        got.append(float(np.asarray(out[0]).reshape(-1)[0]))
+        return out
+
+    exe.run = spied
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.train_from_dataset(program=main, dataset=d, scope=scope,
+                           thread=DATASET_THREADS, fetch_list=[loss],
+                           print_period=10 ** 9)
+    torch.cuda.synchronize()
+    dataset_s = time.perf_counter() - t0
+    refs, run_s = [], None
+    for _ in range(2):
+        exe, scope = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs.append([float(np.asarray(exe.run(
+            main, feed=b, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0])
+            for b in batches])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    if _bwd_counts(flash) + (flash.TC_LAUNCHES, paged.LAUNCHES) != c0:
+        _fail("dataset: DeepFM launched attention kernels")
+    spread = _rel(refs[1], refs[0])
+    tol = max(DEEPFM_DP_SPREAD * spread, DATASET_LOSS_FLOOR)
+    dist = _rel(got, refs[0])
+    if len(got) != DATASET_BATCHES or dist > tol:
+        _fail(f"dataset: train_from_dataset losses {dist:.3g} from run()'s "
+              f"(tol {tol:.3g}): {got} vs {refs[0]}")
+    rec = {"examples": n, "batch": DEEPFM_BATCH, "files": DATASET_FILES,
+           "threads": DATASET_THREADS, "parser": d.parser,
+           "parse_s": parse_s, "batch_assembly_s": assemble_s,
+           "train_from_dataset_examples_per_s": n / dataset_s,
+           "run_examples_per_s": n / run_s,
+           "losses": got, "max_rel_distance_from_run": dist,
+           "run_spread": spread, "loss_tol": tol}
+    print("dataset " + json.dumps(rec))
+    return rec
+
+
+def phase_guarded_all(flash, paged):
+    """Phases 26-26d. Returns (flash launches by path, {path: (fwd, bwd)
+    max abs errors})."""
+    paths, errs, trained, tol, _ = _phase(
+        "26 ERNIE-base under GuardedTrainer", phase_guarded, flash)
+    more, _ = _phase("26b save and load", phase_save_load, flash, trained)
+    paths.update(more)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    more, _ = _phase("26c run_pipelined", phase_pipelined, flash, tol)
+    paths.update(more)
+    _phase("26d DeepFM train_from_dataset", phase_dataset, flash, paged)
+    return paths, {"26 ERNIE GuardedTrainer layer 0": errs}
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -6924,6 +7717,7 @@ def main():
     tfa_launches, tfa_errs = _phase("24b Transformer agree",
                                     phase_transformer_agree, flash)
     phase_ctr_all(flash, paged)
+    guard_paths, guard_errs = phase_guarded_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -7021,7 +7815,8 @@ def main():
         f"24 Transformer-base train ({TF_WARM + TF_STEPS} steps)":
             tf_launches,
         "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":
-            tfa_launches}
+            tfa_launches,
+        **guard_paths}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,
@@ -7037,14 +7832,18 @@ def main():
     kernels[3]["max_abs_err"] = max(
         [kernels[3]["max_abs_err"], tpp_errs["f32"]]
         + [e[0] for e in ring_errs.values()]
-        + [e[0] for e in tf_errs.values()])
+        + [e[0] for e in tf_errs.values()]
+        + [e[0] for e in guard_errs.values()])
     kernels[4]["max_abs_err"] = max(
         [kernels[4]["max_abs_err"]] + [e[1] for e in ring_errs.values()]
-        + [e[1] for e in tf_errs.values()])
+        + [e[1] for e in tf_errs.values()]
+        + [e[1] for e in guard_errs.values()])
     agree = {"16b BERT agree": bagree_errs,
              **{f"24 Transformer-base {call} (out, grads: max abs)": list(e)
                 for call, e in tf_errs.items()},
              "24b Transformer agree (card vs CPU)": tfa_errs,
+             **{f"{call} (out, grads: max abs)": list(e)
+                for call, e in guard_errs.items()},
              "16c packed agree": pagree_errs,
              "20d recipe agree (bf16 products)": recipe_errs,
              **dp_errs,

@@ -27,8 +27,12 @@ with the global batch's loss and gradients; convolutional nets
 (``models/resnet.py``, ``models/mnist.py``), Transformer-base translation
 (``models/transformer.py``) and the CTR models DeepFM, Wide&Deep and DIN
 (``models/deepfm.py``, ``models/ctr_models.py``) through the same entry
-points. The top level is the
-``fluid`` namespace of that recipe::
+points; guarded asynchronous training (``Executor.run_async``,
+``FetchHandle``, the NaN/Inf guard, ``robustness.GuardedTrainer``), the
+Fluid file formats and inference models (``io/``), and the input
+pipeline (``reader/``, ``core/bucketing.py``, ``io/dataset.py`` under
+``Executor.train_from_dataset``). The top level is the ``fluid``
+namespace of that recipe::
 
     import paddle_tpu_torch as fluid
     main, startup = fluid.Program(), fluid.Program()
@@ -44,15 +48,25 @@ from . import amp, initializer, layers, optimizer
 from .optimizer import clip, regularizer
 from .core import unique_name
 from .core.backward import append_backward, gradients
+from .core.bucketing import FeedBucketer
 from .core.compiler import (BuildStrategy, CompiledProgram,
                             ExecutionStrategy, ParallelExecutor)
-from .core.executor import (Executor, Scope, global_scope, scope_from_numpy,
-                            scope_guard)
+from .core.data_feeder import DataFeeder
+from .core.executor import (Executor, FetchHandle, Scope, global_scope,
+                            scope_from_numpy, scope_guard)
+from .core.lod import (LoDTensor, create_lod_tensor,
+                       create_random_int_lodtensor)
 from .core.framework import (Program, Variable, Parameter, program_guard,
                              default_main_program, default_startup_program)
 from .core.param_attr import ParamAttr
 from .core.place import CPUPlace, CUDAPlace
 from .device import resolve_device
+from . import dataset, incubate, io, reader, robustness
+from .io.state import (save_params, save_persistables, save_vars,
+                       load_params, load_persistables, load_vars)
+from .io.inference_io import save_inference_model, load_inference_model
+from .io.dataset import (DatasetFactory, InMemoryDataset, QueueDataset,
+                         FileInstantDataset, BoxPSDataset, DataFeedDesc)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "scope_from_numpy", "Program", "Variable", "Parameter",
@@ -61,4 +75,10 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "gradients", "layers", "optimizer", "initializer", "unique_name",
            "resolve_device", "amp", "clip", "regularizer",
            "CompiledProgram", "ParallelExecutor", "BuildStrategy",
-           "ExecutionStrategy"]
+           "ExecutionStrategy", "FetchHandle", "FeedBucketer", "DataFeeder",
+           "LoDTensor", "create_lod_tensor", "create_random_int_lodtensor",
+           "dataset", "incubate", "io", "reader", "robustness", "save_params", "save_persistables",
+           "save_vars", "load_params", "load_persistables", "load_vars",
+           "save_inference_model", "load_inference_model",
+           "DatasetFactory", "InMemoryDataset", "QueueDataset",
+           "FileInstantDataset", "BoxPSDataset", "DataFeedDesc"]

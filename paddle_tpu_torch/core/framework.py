@@ -8,9 +8,11 @@ A copy of ``paddle_tpu/core/framework.py`` (pure Python, no JAX), kept
 in the port so that it imports nothing of the JAX package. The Program is a
 lightweight, JSON-serializable recipe; the port's Executor runs its ops
 eagerly with torch, the forward section under autograd (see
-core/executor.py). Dropped from the copy, for want of the modules that use
-them: ``Variable.astype`` and byte sizes, ``Program._prune`` and its
-JSON form, name scopes and the dygraph flag.
+core/executor.py). ``Program.to_json`` / ``from_json`` write and read the
+JAX package's JSON form (io/inference_io.py's ``__model__.json``), and
+``_prune`` is its backward slice. Dropped from the copy, for want of the
+modules that use them: ``Variable.astype`` and byte sizes, name scopes
+and the dygraph flag.
 """
 
 import contextlib
@@ -419,6 +421,67 @@ class Program:
                 nb.ops[-1].inputs = copy.deepcopy(op.inputs)
                 nb.ops[-1].outputs = copy.deepcopy(op.outputs)
             p.blocks.append(nb)
+        return p
+
+    def _prune(self, targets):
+        """Backward-slice the global block to the ops needed for `targets`
+        (parity: Program._prune used by save_inference_model). Ops that
+        write persistable vars (optimizer/stat updates) are preserved."""
+        names = set()
+        for t in targets:
+            names.add(t.name if isinstance(t, Variable) else t)
+        gb = self.global_block()
+        keep = []
+        for op in reversed(gb.ops):
+            out_names = set(op.output_names)
+            writes_persistable = any(
+                (n in gb.vars and gb.vars[n].persistable) for n in out_names)
+            if op.type == BACKWARD_MARKER or writes_persistable or \
+                    (out_names & names):
+                keep.append(op)
+                names |= set(op.input_names)
+                if op.type == BACKWARD_MARKER:
+                    names |= set(op.attr("params", []))
+                    names.add(op.attr("loss"))
+        gb.ops = list(reversed(keep))
+        self._bump_version()
+        return self
+
+    # -- serialization ------------------------------------------------------
+    def to_json(self):
+        return json.dumps({"random_seed": self.random_seed,
+                           "is_test": self._is_test,
+                           "blocks": [b.to_desc() for b in self.blocks]},
+                          indent=1)
+
+    @classmethod
+    def from_json(cls, text):
+        desc = json.loads(text)
+        p = cls()
+        p.random_seed = desc.get("random_seed", 0)
+        p._is_test = desc.get("is_test", False)
+        p.blocks = []
+        for bdesc in desc["blocks"]:
+            blk = Block(p, bdesc["idx"], bdesc["parent_idx"])
+            for vdesc in bdesc["vars"]:
+                kind = vdesc.pop("kind", "Variable")
+                if kind == "Parameter":
+                    v = Parameter(blk, vdesc["name"], vdesc["shape"], vdesc["dtype"])
+                else:
+                    v = Variable(blk, name=vdesc["name"], shape=vdesc["shape"],
+                                 dtype=vdesc["dtype"], lod_level=vdesc.get("lod_level", 0),
+                                 persistable=vdesc.get("persistable", False),
+                                 stop_gradient=vdesc.get("stop_gradient", False),
+                                 is_data=vdesc.get("is_data", False))
+                blk.vars[v.name] = v
+            for odesc in bdesc["ops"]:
+                op = Operator(blk, odesc["type"], None, None, odesc.get("attrs", {}))
+                op.inputs = odesc.get("inputs", {})
+                op.outputs = odesc.get("outputs", {})
+                blk.ops.append(op)
+            p.blocks.append(blk)
+        if not p.blocks:
+            p.blocks = [Block(p, 0)]
         return p
 
     def __repr__(self):

@@ -18,12 +18,20 @@ never a loadable-looking torn one. Load validates each array's CRC32
 and raises CheckpointCorruptError instead of resuming from silently
 corrupt state.
 
-The async writers and the sharded layout are not ported yet.
+``save_checkpoint_async`` takes the host snapshot on the calling thread
+(the device-to-host copy happens before it returns, after whatever the
+caller drained) and writes the files in a non-daemon thread; its
+``CheckpointHandle`` re-raises a write error at ``wait()``, and writers
+never waited on are joined at interpreter exit. The sharded layout
+(``save_checkpoint_sharded``) is ROADMAP item 10d, with the sharded state
+it saves.
 """
 
+import atexit
 import glob
 import json
 import os
+import threading
 import time
 import warnings
 import zlib
@@ -34,9 +42,11 @@ import torch
 from ..core.executor import global_scope
 from ..core.framework import default_main_program
 from ..observability import ComponentStats
+from .state import _atomic_save, host_array
 
 __all__ = ["CHECKPOINT_FORMAT", "CheckpointCorruptError",
-           "save_checkpoint", "load_checkpoint", "set_write_fault_hook"]
+           "CheckpointHandle", "save_checkpoint", "save_checkpoint_async",
+           "load_checkpoint", "set_write_fault_hook"]
 
 _stats = ComponentStats()
 
@@ -72,40 +82,15 @@ def _fault(kind, path):
 
 
 # ---------------------------------------------------------------------------
-# atomic write primitive
+# atomic write primitive: the temp+fsync+os.replace sequence lives in
+# io/state.py (one copy); checkpoint writes add the fault hook
 # ---------------------------------------------------------------------------
-
-def _fsync_dir(dirname):
-    try:
-        fd = os.open(dirname, os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
-
 
 def _atomic_write(path, writer, kind):
     """temp file + fsync + os.replace: `path` either keeps its old
     content or atomically becomes the complete new content."""
     _fault(kind, path)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            writer(f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-    _fsync_dir(os.path.dirname(path) or ".")
+    _atomic_save(path, writer)
 
 
 def _crc32(arr):
@@ -117,20 +102,12 @@ def _manifest_entry(arr):
             "dtype": str(arr.dtype)}
 
 
-def _host_array(value):
-    """A scope value (a tensor on any device, or array-like) as a host
-    numpy array."""
-    if isinstance(value, torch.Tensor):
-        return value.detach().to("cpu").numpy()
-    return np.asarray(value)
-
-
 def _snapshot(scope, program):
     """Persistables as host numpy: the device-to-host copy happens
     here, on the caller's thread (the next step updates the tensors in
     place), never inside a writer."""
     names = [v.name for v in program.list_vars() if v.persistable]
-    return {n: _host_array(scope.get(n)) for n in sorted(set(names))
+    return {n: host_array(scope.get(n)) for n in sorted(set(names))
             if scope.get(n) is not None}
 
 
@@ -251,3 +228,94 @@ def load_checkpoint(executor, dirname, main_program=None, scope=None,
     _stats.observe("checkpoint.restore_ms",
                    (time.perf_counter() - t0) * 1e3)
     return meta
+
+
+# ---------------------------------------------------------------------------
+# async writers: non-daemon + error box + join-at-exit
+# ---------------------------------------------------------------------------
+
+_LIVE_WRITERS = []          # CheckpointHandles with a running thread
+_writers_lock = threading.Lock()
+
+
+def _track(handle):
+    with _writers_lock:
+        _LIVE_WRITERS.append(handle)
+
+
+def _untrack(handle):
+    with _writers_lock:
+        try:
+            _LIVE_WRITERS.remove(handle)
+        except ValueError:
+            pass
+
+
+@atexit.register
+def _join_writers_at_exit():
+    """A daemon writer dying mid-write at interpreter exit is exactly
+    the torn-checkpoint bug; join every outstanding writer instead and
+    surface swallowed errors as a warning (raising is useless here)."""
+    with _writers_lock:
+        pending = list(_LIVE_WRITERS)
+    for h in pending:
+        try:
+            h.wait()
+        except BaseException as e:          # noqa: BLE001 — exit path
+            warnings.warn(f"async checkpoint write failed: {e!r}")
+
+
+class CheckpointHandle:
+    """Completion barrier for an (async) checkpoint save. `wait()` joins
+    the writer and RE-RAISES anything the write path threw — an async
+    save error is never silently swallowed."""
+
+    def __init__(self, thread=None, error_box=None):
+        self._thread = thread
+        # `error_box or []` would DROP the writer's box while it is
+        # still empty — the exact silently-swallowed-error bug this
+        # handle exists to fix
+        self._error_box = error_box if error_box is not None else []
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+        _untrack(self)
+        if self._error_box:
+            raise self._error_box[0]
+        return True
+
+    result = wait
+    join = wait         # Thread-API compat (save_checkpoint_async < fmt 2)
+
+    def done(self):
+        return self._thread is None or not self._thread.is_alive()
+
+
+def save_checkpoint_async(executor, dirname, main_program=None, step=0,
+                          extra=None, scope=None):
+    """Async save: snapshot to host on the CALLING thread (the next step
+    updates the scope's tensors in place, so the writer must never read
+    them), file I/O in a non-daemon background thread. Returns a
+    CheckpointHandle — `wait()` is the completion barrier and re-raises
+    any write error; un-waited handles are joined at interpreter exit."""
+    scope = scope or global_scope()
+    program = main_program or default_main_program()
+    snapshot = _snapshot(scope, program)
+    meta = {"step": int(step), "extra": extra or {}}
+    err_box = []
+    handle = CheckpointHandle(None, err_box)
+
+    def _write():
+        try:
+            _write_state(dirname, snapshot, meta)
+        except BaseException as e:      # surfaced at .wait()/atexit
+            _stats.count("checkpoint.write_failures")
+            err_box.append(e)
+
+    t = threading.Thread(target=_write, daemon=False,
+                         name=f"ckpt-writer-{os.path.basename(dirname)}")
+    handle._thread = t
+    _track(handle)
+    t.start()
+    return handle

@@ -33,7 +33,7 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  softmax)
 from .tensor import (create_parameter, fill_constant, zeros_like, ones_like,
                      sums)
-from .ops import sigmoid, exp, ceil, floor, cos
+from .ops import sigmoid, exp, ceil, floor, cos, log
 from .control_flow import (equal, greater_than, less_than,
                            autoincreased_step_counter)
 from .loss import (cross_entropy, softmax_with_cross_entropy,

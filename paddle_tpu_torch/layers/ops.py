@@ -3,14 +3,14 @@
 Parity: python/paddle/fluid/layers/ops.py (layer_function_generator-
 produced wrappers around activation_op.cc kernels); the counterpart of
 ``paddle_tpu/layers/ops.py`` with the unary layers the ported slices
-use: ``sigmoid`` (SE-ResNeXt's excitation) and, for the learning-rate
-schedules, ``exp``, ``ceil``, ``floor`` and ``cos``. (``relu`` is in
+use: ``sigmoid`` (SE-ResNeXt's excitation), for the learning-rate
+schedules ``exp``, ``ceil``, ``floor`` and ``cos``, and ``log``. (``relu`` is in
 ``nn.py``, as in the JAX package.)
 """
 
 from ..core.layer_helper import LayerHelper
 
-_UNARY = ["sigmoid", "exp", "ceil", "floor", "cos"]
+_UNARY = ["sigmoid", "exp", "ceil", "floor", "cos", "log"]
 
 __all__ = list(_UNARY)
 

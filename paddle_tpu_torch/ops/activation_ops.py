@@ -45,7 +45,7 @@ def _unary(fn):
 
 
 for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
-                   ("exp", torch.exp),
+                   ("exp", torch.exp), ("log", torch.log),
                    ("sqrt", torch.sqrt), ("ceil", torch.ceil),
                    ("floor", torch.floor), ("cos", torch.cos),
                    ("square", torch.square), ("sign", torch.sign)):

@@ -30,7 +30,9 @@ def accuracy(ctx):
         label = label.reshape(-1)
     correct = (pred_idx.long() == label.long()[:, None]).any(dim=1)
     num_correct = correct.sum().float()
-    total = torch.tensor(float(label.shape[0]), device=label.device)
+    # a fill on the device: torch.tensor(..., device=cuda) copies from
+    # pageable memory, a host sync in the middle of the step
+    total = torch.full((), float(label.shape[0]), device=label.device)
     return {"Accuracy": (num_correct / total).reshape(1),
             "Correct": num_correct.to(torch.int32).reshape(1),
             "Total": total.to(torch.int32).reshape(1)}

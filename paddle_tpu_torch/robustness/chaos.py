@@ -12,25 +12,44 @@ groups, starved guided masks, forced content-hash collisions, and a
 standing poison keyed to a prompt's bytes. The fleet's hooks fire at an
 exact router iteration (a replica killed, hung or slowed; a worker
 process SIGKILLed) or RPC ordinal (a dropped or timed-out connection).
-The trainer's and checkpoint writer's faults have no counterpart here
-yet.
+The trainer's faults fire at an exact step: a grad poisoned at step k (by
+NaN-ing a float feed entry before dispatch, so the real sentinel trips on
+real arithmetic), a SIGTERM delivered at step k (the same flag a
+PreemptionHandler's signal sets), and the Nth physical checkpoint write
+failing (through io/checkpoint.py's write-fault hook, so the torn-file
+handling runs on the real write path).
 """
 
 import numpy as np
 
-__all__ = ["ChaosInjector"]
+__all__ = ["ChaosInjector", "CheckpointWriteFault"]
+
+
+class CheckpointWriteFault(OSError):
+    """The injected checkpoint I/O failure (an OSError subclass, so the
+    retry/backoff path treats it exactly like a real disk error)."""
 
 
 class ChaosInjector:
     """One injector instance = one fault plan, consumed by a
+    GuardedTrainer (`chaos=`) and/or installed into io.checkpoint
+    (`install_io_faults()` / `with injector:`), by a
     GenerationServer (`chaos=`): its scheduler's plan() and its engine's
     step() pop the entries keyed to their iteration; a FleetRouter
     (`chaos=`) pops the fleet entries keyed to its own iteration, and an
     RpcClient built with it the connection faults keyed to its calls. `fired` counts the
     faults actually applied."""
 
-    def __init__(self):
-        self.fired = {"cancel": 0, "clock_advance": 0,
+    def __init__(self, seed=0):
+        self._rng = np.random.default_rng(seed)
+        # trainer plan (robustness/trainer.py hooks)
+        self._poison_steps = {}      # step -> var name or None (any)
+        self._sigterm_steps = set()
+        self._fail_writes = set()    # 1-based physical-write ordinals
+        self._write_count = 0
+        self._installed = False
+        self.fired = {"poison": 0, "sigterm": 0, "write_fault": 0,
+                      "cancel": 0, "clock_advance": 0,
                       "serving_poison": 0, "evict": 0,
                       "hash_collision": 0, "prompt_poison": 0,
                       "spill": 0, "preempt": 0, "fork_storm": 0,
@@ -62,6 +81,94 @@ class ChaosInjector:
         # fork-group plan (serving/scheduler.py + engine.py)
         self._fork_storms = {}       # iteration -> lanes to force-COW
         self._mask_starves = set()   # iterations to starve guided masks
+
+    # -- trainer plan --------------------------------------------------
+    def poison_grad_at(self, step, var=None):
+        """NaN a float feed entry of dispatch `step` (0-based trainer
+        step): the forward then produces a NaN loss and every grad goes
+        NaN — the sentinel path from real arithmetic, not a mock. `var`
+        pins which feed entry; default: the first float feed (stable
+        iteration order)."""
+        self._poison_steps[int(step)] = var
+        return self
+
+    def sigterm_at(self, step):
+        """Request preemption just before dispatching `step`, through
+        the same flag the installed signal handler sets."""
+        self._sigterm_steps.add(int(step))
+        return self
+
+    def fail_checkpoint_write(self, nth=1, times=1):
+        """Fail physical checkpoint writes nth..nth+times-1 (1-based,
+        counted across every file the io.checkpoint writers touch while
+        this injector is installed)."""
+        for i in range(int(nth), int(nth) + int(times)):
+            self._fail_writes.add(i)
+        return self
+
+    # -- io fault hook (io.checkpoint._WRITE_FAULT_HOOK) ---------------
+    def install_io_faults(self):
+        from ..io import checkpoint as ckpt_mod
+        ckpt_mod.set_write_fault_hook(self._on_checkpoint_write)
+        self._installed = True
+        return self
+
+    def uninstall_io_faults(self):
+        from ..io import checkpoint as ckpt_mod
+        ckpt_mod.set_write_fault_hook(None)
+        self._installed = False
+
+    def __enter__(self):
+        return self.install_io_faults()
+
+    def __exit__(self, *exc):
+        self.uninstall_io_faults()
+        return False
+
+    def _on_checkpoint_write(self, kind, path):
+        self._write_count += 1
+        if self._write_count in self._fail_writes:
+            self.fired["write_fault"] += 1
+            raise CheckpointWriteFault(
+                f"chaos: injected failure on checkpoint write "
+                f"#{self._write_count} ({kind}: {path})")
+
+    @property
+    def write_count(self):
+        return self._write_count
+
+    # -- trainer hooks (robustness/trainer.py) -------------------------
+    def should_preempt(self, step):
+        if int(step) in self._sigterm_steps:
+            self._sigterm_steps.discard(int(step))
+            self.fired["sigterm"] += 1
+            return True
+        return False
+
+    def on_dispatch(self, step, feed):
+        """Return the (possibly poisoned) feed for dispatch `step`.
+        Fires at most once per planned step — a replay after rollback
+        gets the clean original."""
+        var = self._poison_steps.pop(int(step), "*absent*")
+        if var == "*absent*":
+            return feed
+        target = var
+        if target is None:
+            for k in sorted(feed):
+                v = np.asarray(feed[k])
+                if np.issubdtype(v.dtype, np.floating):
+                    target = k
+                    break
+        if target is None or target not in feed:
+            raise ValueError(
+                f"chaos: no float feed entry to poison at step {step} "
+                f"(feed keys: {sorted(feed)})")
+        bad = np.array(np.asarray(feed[target]), copy=True)
+        bad.ravel()[0] = np.nan
+        self.fired["poison"] += 1
+        out = dict(feed)
+        out[target] = bad
+        return out
 
     # -- serving hooks (serving/scheduler.py) --------------------------
     def cancel_request_at(self, iteration, index=0):
