@@ -103,6 +103,18 @@ backward kernels are printed):
    T 512, D 64, causal, f32 and bf16, q/k/v/do as transposed views; the
    pair run twice must give bitwise-equal dq, dk, dv) and T 16384 (B 1,
    H 12, f32; the plain version head by head);
+1fn. the flash kernels' NaN semantics (ROADMAP C11): the f32 and bf16
+   forward, causal and not, D 64 and 128, (2, 3, 128, 128), with one
+   visible key's bias NaN, one NaN element of q, one of k (in f32 the
+   card's own NaN, 0x7fffffff), a NaN bias at a causally hidden key and
+   at a key of another segment: every non-finite out row, out element
+   and lse entry exactly the plain version's, the finite rows within
+   1f's tolerances, a hidden NaN changing nothing (bitwise the output
+   with that element 0); then the dQ / dK / dV kernels on those inputs
+   against the plain backward the same way (under causal the dK of a
+   NaN in q and the dQ of a NaN in k lie between the rows a visible pair
+   reaches and the plain version's, whose products give 0 x NaN where
+   the kernels prune the pair);
 9. full-width training through the Fluid entry points:
    ``gpt.build_lm_net(GPTConfig(max_position=1024, dropout=0.0),
    seq_len=512)`` + ``AdamOptimizer(1e-4).minimize(loss)``, the startup on
@@ -278,9 +290,10 @@ backward kernels are printed):
    scale and good-step count at the end, and a profile of 3 more steps
    beside phase 16's (wall and device ms, busy share, device operations
    a step);
-20b. the recipe under ``RecomputeOptimizer(policy="dots")`` and
-   ``"nothing"`` beside two runs without recompute, from copies of one
-   startup scope, 3 steps each: the first loss equal, the first step's
+20b. the recipe under ``RecomputeOptimizer(policy="dots")``,
+   ``"nothing"`` and ``"offload"`` (the saved products in pinned host
+   memory, their bytes a step printed) beside two runs without
+   recompute, from copies of one startup scope, 3 steps each: the first loss equal, the first step's
    @GRADs within a few f32 roundings (what the two runs without
    recompute differ by), the later losses within bf16's 1e-3, 24 + 12 +
    12 flash launches a step under recompute (the checkpoint re-runs the
@@ -419,7 +432,9 @@ backward kernels are printed):
    4x the clean runs' distance (or 1e-5) of the clean run's; 12 + 12 +
    12 flash launches a step in every run, flash_dbias 0, the first
    layer's attention against the plain version; checkpoint bytes, sync
-   and async save and restore ms, peak memory;
+   and async save and restore ms, peak memory; then one NaN in a fresh
+   step's ``input_mask`` (the attention's padding bias) must raise
+   ``NonFiniteError`` when the step's handle resolves;
 26b. save_params / save_persistables / save_inference_model and the
    Fluid 1.5 formats (save_fluid_inference_model) from 26's trained
    scope, each reloaded in a fresh Scope and Executor: the pooled output
@@ -433,6 +448,33 @@ backward kernels are printed):
    MultiSlot files (16,384 examples, 4 native parse threads, 8 batches
    of 2048): the native parser ran, the losses match run() over the same
    batches; examples/s of both. No attention kernel.
+27. ERNIE-base (phase 16's cell, dropout 0) under
+   ``GradientMergeOptimizer(AdamOptimizer(1e-4), k_steps=4, avg=True)``
+   over 8 sub-batches of 8, against plain Adam on the same sub-batches
+   concatenated to batch 32, run twice: the merged gradient and the
+   parameters after each apply step within 4x the two big-batch runs'
+   distance (or a floor), off-steps bitwise, the off-step's and apply
+   step's device ms;
+27b. LARK's shape: ``contrib.extend_with_decoupled_weight_decay(
+   AdamOptimizer)(1e-6, learning_rate=1e-4)`` inside
+   ``LookaheadOptimizer(alpha=0.5, k=5)`` with an EMA (0.999,
+   thres_steps) and a ModelAverage, 10 steps: fast == slow bitwise and
+   slow as the formula at steps 5 and 10, EMA and ModelAverage apply()
+   against numpy on the word embedding, layer 0's Q projection and the
+   MLM bias, restore() bitwise, a nested apply unwinding one level, 12
+   forward launches under apply();
+27c. ``DGCMomentumOptimizer(1e-3, 0.9, rampup_begin_step=2,
+   sparsity=(0.999,))`` at dp 2 on this card, 6 steps: the dense steps
+   equal Momentum's, each sparse step changes at most 0.1 % (+1) of a
+   tensor's entries and leaves the masked-out velocity in V exactly, dp 2
+   within 4x two dp 1 runs' distance;
+27d. "offload" (in 20b), ``Optimizer.set_lr`` (the next step's update
+   scales with it, the step before does not, the LR var filled in
+   place), ``train_from_dataset`` under ``with_data_parallel()`` at dp 2
+   against run() at dp 2, and ``parallel.data_parallel_step`` over a
+   two-process gloo world (2 layers) against the local mesh. Every 27
+   run launches 12 + 12 + 12 flash kernels a step (24 each at dp 2) and
+   prints step p50, device ms and operations a step and peak memory.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -466,7 +508,7 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d, 22, 24-24b and 26-26c, with 16b/16c/17/19b/19c/20d/21b/
+20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, with 16b/16c/17/19b/19c/20d/21b/
 21c/24/24b/26's errors in ``path_errs``); the
 line before
 it the card's name and power limit; the last line is ``{"ok": true,
@@ -624,7 +666,7 @@ RECIPE_LR_RTOL = 1e-6
 # both signs averaged over the hidden width, carried through 12 layers
 # into a mean over 8 x 20 masked tokens and 8 NSP rows
 AMP_FIRST_LOSS_RTOL = 1e-2
-RECOMPUTE_POLICIES = ("dots", "nothing")
+RECOMPUTE_POLICIES = ("dots", "nothing", "offload")
 RECOMPUTE_STEPS = 3
 # 20b: recompute re-runs the same kernels on the same inputs, so the
 # first step's loss is expected equal. Its @GRADs are not bitwise even
@@ -2113,6 +2155,162 @@ def check_flash_bwd(flash):
         flash, "long_f32", (q, k, v, None, None, None, True), gen, True,
         by_head=True)
     return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 1fn: the flash kernels' NaN semantics (ROADMAP C11)
+# ---------------------------------------------------------------------------
+
+NAN_FLASH_SHAPE = (2, 3, 128, 128)     # B, H, Tq = Tk: several tiles
+NAN_FLASH_CASES = ("bias_visible", "q", "k", "bias_hidden", "bias_segment")
+NAN_FLASH_AT = {"bias_visible": (0, 1, 70, 20),
+                "bias_hidden": (0, 1, 20, 70),
+                "bias_segment": (0, 1, 90, 20), "q": (1, 2, 70, 5),
+                "k": (0, 1, 50, 7)}
+DEVICE_NAN = 0x7fffffff                # what the card's arithmetic gives
+
+
+def nan_flash_case(name, dtype, d, causal, gen):
+    """(q, k, v, bias, segq, segk, causal, clean bias) of one NaN case: a
+    NaN bias at a key the row sees, in q, in k (f32: the card's own NaN,
+    0x7fffffff, whose TF32 rounding carries into the sign), at a key
+    hidden by the causal mask, or at a key of another segment. The clean
+    bias is the same bias with that element 0 (None where the NaN is not
+    in the bias)."""
+    b, h, t, _ = NAN_FLASH_SHAPE
+    q, k, v = (_rand((b, h, t, d), gen, dtype) for _ in range(3))
+    bias = segq = segk = clean = None
+    at = NAN_FLASH_AT[name]
+    if name.startswith("bias"):
+        bias = 0.5 * _rand((b, h, t, t), gen)
+        bias[at] = 0.0
+        clean = bias.clone()
+        bias[at] = float("nan")
+    if name == "bias_segment":
+        segq = torch.ones((b, t), dtype=torch.int32, device=q.device)
+        segq[:, 60:] = 2
+        segk = segq
+    if name in ("q", "k"):
+        x = q if name == "q" else k
+        if dtype == torch.float32:
+            x.view(torch.int32)[at] = DEVICE_NAN
+        else:
+            x[at] = float("nan")
+    return q, k, v, bias, segq, segk, causal, clean
+
+
+def _bad_rows(x):
+    """(B, H, T) bool: rows (the last dimension) with a non-finite entry;
+    an lse (B, H, T) as it is."""
+    return ~torch.isfinite(x) if x.dim() == 3 else \
+        ~torch.isfinite(x).all(dim=-1)
+
+
+def _rows_seen_by(bad_q, causal, segq, segk, tk):
+    """(B, H, Tk) bool: keys that some row of `bad_q` (B, H, Tq) sees
+    (the plain version's visibility mask)."""
+    from paddle_tpu_torch.ops.cuda.flash import _visible_mask
+    vis = _visible_mask(bad_q.shape[2], tk, causal, segq, segk,
+                        device=bad_q.device)
+    return (bad_q[..., None] & vis).any(dim=2)
+
+
+def _nan_compare(key, tag, got, ref, tol, exact=True, floor=None):
+    """Hold got's non-finite rows to ref's: equal, or (exact False)
+    floor <= got <= ref as sets; the rows finite in both within tol.
+    Returns (bad rows of got, err)."""
+    g, r = _bad_rows(got), _bad_rows(ref)
+    if exact:
+        if not torch.equal(g, r) or not torch.equal(
+                torch.isnan(got), torch.isnan(ref)):
+            _fail(f"flash NaN {key}: {tag} non-finite rows "
+                  f"{int(g.sum())} / elements {int(torch.isnan(got).sum())}"
+                  f", plain {int(r.sum())} / {int(torch.isnan(ref).sum())}")
+    elif bool((g & ~r).any()) or bool((floor & ~g).any()):
+        _fail(f"flash NaN {key}: {tag} non-finite rows {int(g.sum())} not "
+              f"between the rows a visible pair reaches ({int(floor.sum())})"
+              f" and the plain version's ({int(r.sum())})")
+    fine = ~(g | r)
+    err = _flash_err(got[fine], ref[fine]) if bool(fine.any()) else 0.0
+    if not err <= tol:
+        _fail(f"flash NaN {key}: {tag} finite rows err {err} > {tol}")
+    return g, err
+
+
+def check_flash_nan(flash):
+    """Phase 1fn: the f32 and bf16 forward kernels, causal and not, D 64
+    and 128, on NAN_FLASH_CASES, against the plain version: every
+    non-finite out row, out element and lse entry exactly the plain
+    version's, the finite rows within TOLERANCE; a NaN bias at a hidden
+    key changes nothing (bitwise the output with that element 0). Then
+    the dQ / dK / dV kernels on the forward kernel's out and lse:
+    non-finite rows exactly the plain backward's, finite rows within
+    BWD_TOLERANCE. The one exception is the plain version's 0 x NaN: its
+    products give dK (a NaN in q) or dQ (a NaN in k) a NaN row also where
+    the NaN operand meets only hidden pairs, which the kernels' causal
+    pruning never visits; under causal those rows lie between the rows a
+    visible pair reaches and the plain version's. Returns {case: rows}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    out_rows = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tol, btol = flash.TOLERANCE[dtype], flash.BWD_TOLERANCE[dtype]
+        for d in (64, 128):
+            for causal in (False, True):
+                for name in NAN_FLASH_CASES:
+                    if name == "bias_hidden" and not causal:
+                        continue
+                    key = (f"{name}_d{d}_{'causal' if causal else 'full'}"
+                           f"_{tag}")
+                    q, k, v, bias, segq, segk, _, clean = nan_flash_case(
+                        name, dtype, d, causal, gen)
+                    out, lse = flash.flash_attention_cuda(
+                        q, k, v, bias, segq, segk, None, causal)
+                    ref, rlse = flash.flash_attention_reference(
+                        q, k, v, bias, segq, segk, None, causal)
+                    rows, ferr = _nan_compare(key, "out", out, ref, tol)
+                    _nan_compare(key, "lse", lse, rlse, tol)
+                    hidden = name in ("bias_hidden", "bias_segment")
+                    if hidden:
+                        if bool(rows.any()):
+                            _fail(f"flash NaN {key}: a NaN bias at a hidden "
+                                  f"key made {int(rows.sum())} rows NaN")
+                        c_out, c_lse = flash.flash_attention_cuda(
+                            q, k, v, clean, segq, segk, None, causal)
+                        if not (torch.equal(c_out, out)
+                                and torch.equal(c_lse, lse)):
+                            _fail(f"flash NaN {key}: the hidden NaN changed "
+                                  f"the output")
+                    elif not bool(rows.any()):
+                        _fail(f"flash NaN {key}: no row came out NaN")
+                    do = _rand(q.shape, gen, dtype)
+                    got = flash.flash_attention_bwd_cuda(
+                        q, k, v, bias, segq, segk, out, lse, do, None, None,
+                        causal)
+                    bref = flash.flash_attention_bwd_reference(
+                        q, k, v, bias, segq, segk, out, lse, do, None, None,
+                        causal)
+                    torch.cuda.synchronize()
+                    bad_lse = _bad_rows(lse)
+                    seen = _rows_seen_by(bad_lse, causal, segq, segk,
+                                         k.shape[2])
+                    counts, berr = [], 0.0
+                    for tag2, x, r, floor in (("dq", got[0], bref[0],
+                                               bad_lse),
+                                              ("dk", got[1], bref[1], seen),
+                                              ("dv", got[2], bref[2], seen)):
+                        exact = not (causal and (tag2, name) in (
+                            ("dk", "q"), ("dq", "k")))
+                        g, e = _nan_compare(key, tag2, x, r, btol, exact,
+                                            floor)
+                        counts.append(int(g.sum()))
+                        berr = max(berr, e)
+                    out_rows[key] = {"out_rows": int(rows.sum()),
+                                     "dq_dk_dv_rows": counts,
+                                     "err": ferr, "bwd_err": berr}
+                    print(f"flash NaN {key}: out rows {int(rows.sum())}, "
+                          f"dq/dk/dv rows {counts}, finite rows err "
+                          f"{ferr:.3e} / bwd {berr:.3e}")
+    return out_rows
 
 
 # ---------------------------------------------------------------------------
@@ -5175,8 +5373,11 @@ def phase_recipe_recompute(flash):
     step of each run is probed (_BackwardProbe): as the backward starts,
     "dots" holds at least RECOMPUTE_DOTS_HELD_SHARE of the forward's 2-D
     products' bytes more than "nothing", and less than the run without
-    recompute. Returns (launches by run, record)."""
+    recompute. "offload" copies its saved products to pinned host memory
+    (its bytes a step are printed; only it copies any). Returns (launches
+    by run, record)."""
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.optimizer import recompute
     cfg = bert_config()
     n = cfg.num_hidden_layers
     feed = bert_feed()
@@ -5196,6 +5397,7 @@ def phase_recipe_recompute(flash):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts(flash)
+        pinned0 = recompute.OFFLOADED_BYTES
         losses, grads, step_ms, per_step = [], None, [], set()
         for i in range(RECOMPUTE_STEPS):
             before = _bwd_counts(flash)
@@ -5219,7 +5421,9 @@ def phase_recipe_recompute(flash):
                      "first_backward_peak": probe.peak,
                      "forward_mm_bytes": probe.mm_bytes,
                      "step_ms": step_ms, "per_step": sorted(per_step),
-                     "tc": flash.TC_LAUNCHES}
+                     "tc": flash.TC_LAUNCHES,
+                     "pinned": (recompute.OFFLOADED_BYTES - pinned0)
+                     / RECOMPUTE_STEPS}
         launches[tag] = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
         del scope
     plain = runs["none"]
@@ -5246,7 +5450,11 @@ def phase_recipe_recompute(flash):
                            nm for nm, a, b in zip(names, run["grads"],
                                                   plain["grads"])
                            if not np.array_equal(a, b)],
-                       "launches_a_step": run["per_step"]}
+                       "launches_a_step": run["per_step"],
+                       "pinned_host_bytes_a_step": run["pinned"]}
+        if (tag == "offload") != (run["pinned"] > 0):
+            _fail(f"recompute {tag}: {run['pinned']} B a step copied to "
+                  f"pinned host memory")
         if tag.startswith("none"):
             continue
         if run["per_step"] != [(2 * n, n, n)] or run["tc"]:
@@ -6935,27 +7143,32 @@ def _host_profile(step, steps=2):
         for (f, ln, fn), (_cc, nc, tt, _ct, _callers) in rows]}
 
 
-def _nan_bias_report(flash):
-    """Reported, not gated (ROADMAP C11): one key's additive bias NaN in
-    a (2, 2, 64, 64) f32 call. Whether the f32 flash forward's rows of
-    that batch and the plain version's are finite, and the kernel's
-    largest distance from the plain version with that key masked."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 27)
-    q, k, v = (torch.randn(2, 2, 64, 64, generator=gen, device="cuda")
-               for _ in range(3))
-    bias = torch.zeros(2, 1, 1, 64, device="cuda")
-    bias[0, 0, 0, 0] = float("nan")
-    b4 = bias.expand(2, 2, 64, 64)
-    out, _lse = flash.flash_attention_cuda(q, k, v, b4, None, None, None,
-                                           False)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / 8.0
-    plain = torch.softmax(s + b4, -1) @ v
-    masked = torch.softmax(s + torch.nan_to_num(b4, nan=float("-inf")),
-                           -1) @ v
-    return {"kernel_rows_finite": bool(torch.isfinite(out[0]).all()),
-            "plain_rows_finite": bool(torch.isfinite(plain[0]).all()),
-            "kernel_max_abs_from_masked": float((out - masked).abs().max())}
+def _nan_mask_trips_guard(flash, main, startup, loss, feed):
+    """Phase 26's gated NaN case: one NaN in ERNIE's input_mask reaches
+    the attention only as the additive padding bias, which the flash
+    forward must turn into NaN rows (ROADMAP C11): the loss goes NaN and
+    the guard raises NonFiniteError when the step's handle resolves. The
+    step launches its 12 + 12 + 12 flash kernels. Returns what it saw."""
+    from paddle_tpu_torch.robustness import NonFiniteError
+    exe, scope = _fresh_bert(main, startup)
+    feed = {k: np.array(v, copy=True) for k, v in feed.items()}
+    feed["input_mask"] = feed["input_mask"].astype(np.float32)
+    feed["input_mask"][0, 7] = np.nan
+    _zero_counts(flash)
+    handle = exe.run_async(main, feed=feed, fetch_list=[loss], scope=scope)
+    try:
+        handle.result()
+    except NonFiniteError as e:
+        err = str(e)
+    else:
+        _fail("guarded: a NaN in input_mask did not trip the guard (the "
+              "flash forward turned the NaN bias into finite rows)")
+    n = bert_config().num_hidden_layers
+    if _bwd_counts(flash) != (n, n, n):
+        _fail(f"guarded: the NaN-mask step launched {_bwd_counts(flash)}, "
+              f"want {n} each")
+    exe.close()
+    return {"input_mask_nan_trips_guard": True, "error": err[:200]}
 
 
 def _rel(a, b):
@@ -7140,7 +7353,8 @@ def phase_guarded(flash):
 
         exe, scope = _fresh_bert(main, startup)
         # the NaN goes into the MLM weights, a factor of the loss (a NaN
-        # in input_mask reaches the attention only as its padding bias)
+        # in input_mask, which reaches the attention only as its padding
+        # bias, is phase 26's own gated case: _nan_mask_trips_guard)
         chaos = ChaosInjector().poison_grad_at(GUARD_POISON_AT,
                                                 var="mask_weight") \
             .fail_checkpoint_write(nth=GUARD_WRITE_FAULT) \
@@ -7236,7 +7450,8 @@ def phase_guarded(flash):
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "flash_launches_by_path": {k: list(v) for k, v in paths.items()},
         "attention_vs_plain_max_abs_err_fwd_bwd": list(errs),
-        "nan_bias_report": _nan_bias_report(flash)})
+        "nan_mask": _nan_mask_trips_guard(flash, main, startup, loss,
+                                          feeds[0])})
     print("guarded " + json.dumps(rec))
     print("profile guarded " + json.dumps(guard_prof))
     print("profile unguarded " + json.dumps(plain_prof))
@@ -7412,19 +7627,13 @@ def _slot_lines(ids, vals, labels):
             for i in range(len(labels))]
 
 
-def phase_dataset(flash, paged):
-    """Phase 26d: DeepFM (phase 25's cell, batch DEEPFM_BATCH) through
-    Executor.train_from_dataset over DATASET_FILES generated MultiSlot
-    files (seeded numpy, written to a temporary directory),
-    DATASET_BATCHES batches, InMemoryDataset with DATASET_THREADS parse
-    threads: the native parser (csrc/dataset_feed.cc) must have run, and
-    the losses must match run() over the same batches from the same
-    startup within DEEPFM_DP_SPREAD x two such runs' distance (or
-    DATASET_LOSS_FLOOR). Prints examples/s of both and the parse time.
-    Launches none of the attention kernels."""
-    import paddle_tpu_torch as fluid
+def deepfm_dataset(seed):
+    """(main, startup, loss, dataset, parse s): phase 25's DeepFM and an
+    InMemoryDataset loaded from DATASET_FILES MultiSlot files of
+    DATASET_BATCHES x DEEPFM_BATCH seeded examples (written to a
+    temporary directory, parsed by DATASET_THREADS threads)."""
     from paddle_tpu_torch.io import dataset as ds
-    rng = np.random.default_rng(SEED + 26)
+    rng = np.random.default_rng(seed)
     n = DATASET_BATCHES * DEEPFM_BATCH
     ids = rng.integers(0, DEEPFM_FEATURES, (n, DEEPFM_FIELDS))
     vals = rng.random((n, DEEPFM_FIELDS)).round(4)
@@ -7452,6 +7661,23 @@ def phase_dataset(flash, paged):
         parse_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return main, startup, loss, d, parse_s
+
+
+def phase_dataset(flash, paged):
+    """Phase 26d: DeepFM (phase 25's cell, batch DEEPFM_BATCH) through
+    Executor.train_from_dataset over DATASET_FILES generated MultiSlot
+    files (seeded numpy, written to a temporary directory),
+    DATASET_BATCHES batches, InMemoryDataset with DATASET_THREADS parse
+    threads: the native parser (csrc/dataset_feed.cc) must have run, and
+    the losses must match run() over the same batches from the same
+    startup within DEEPFM_DP_SPREAD x two such runs' distance (or
+    DATASET_LOSS_FLOOR). Prints examples/s of both and the parse time.
+    Launches none of the attention kernels."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import dataset as ds
+    n = DATASET_BATCHES * DEEPFM_BATCH
+    main, startup, loss, d, parse_s = deepfm_dataset(SEED + 26)
     if d.parser != "native":
         _fail(f"dataset: the {d.parser} parser ran, want the native one "
               f"({ds.NATIVE_BUILD_ERROR})")
@@ -7526,6 +7752,845 @@ def phase_guarded_all(flash, paged):
     paths.update(more)
     _phase("26d DeepFM train_from_dataset", phase_dataset, flash, paged)
     return paths, {"26 ERNIE GuardedTrainer layer 0": errs}
+
+
+# ---------------------------------------------------------------------------
+# phases 27-27d: the other optimizers on ERNIE-base
+# ---------------------------------------------------------------------------
+
+WRAP_LR = 1e-4                      # Adam's rate in 27 and 27b
+GM_K = 4                            # 27: sub-batches a merged step
+GM_SUBS = 8                         # 27: sub-batches of BERT_BATCH (2 applies)
+GM_MLM_WEIGHT = 100.0               # 27: a sub-batch's MLM weights' sum
+WRAP_SPREAD = 4.0                   # x the distance of two plain runs
+WRAP_FLOOR = 1e-5                   # or this share of a tensor's scale
+# 27's merged gradient against the big batch's, all gradients as one
+# vector: at the first apply step both come from the same weights (the
+# sums' order differs); at the second the weights differ by the first
+# step's distance, which Adam's per-entry normalization magnifies
+GM_GRAD_FLOORS = (1e-5, 1e-4)
+# ... and tensor by tensor (_grad_rel_err), at 9b's TRAIN_GRAD_TOL: batch
+# 8 and batch 32 sum their rows in GEMMs of other shapes (other cuBLAS
+# algorithms and splits), so a tensor whose gradient cancels, such as the
+# last layer's Q projection, differs by 5.25e-5 of its scale at the first
+# apply step (measured on one H100), where two identical runs differ by
+# 8.1e-7: the spread cannot see it
+GM_TENSOR_TOL = TRAIN_GRAD_TOL
+LA_ALPHA, LA_K = 0.5, 5             # 27b: Lookahead
+DECAY_COEFF = 1e-6                  # 27b: lr 1e-4 x LARK's decay 0.01
+EMA_DECAY = 0.999
+WRAP_STEPS = 10                     # 27b: steps (ModelAverage's window)
+WRAP_WATCH = ("word_embedding", "enc0_attn_q", "mlm_out_b")
+WRAP_EMA_RTOL = 1e-6                # 27b: apply() vs numpy, f32 rounding
+DGC_LR, DGC_MU = 1e-3, 0.9          # 27c
+DGC_BEGIN = 2                       # 27c: dense steps before the ramp
+DGC_SPARSITY = 0.999
+DGC_STEPS = 6
+SETLR_FACTOR = 2.0                  # 27d: set_lr(factor x lr)
+SETLR_RTOL = 1e-3                   # 27d: Adam's update is linear in lr
+DPS_WORLD_STEPS = 2                 # 27d: data_parallel_step over a world
+
+
+def wrap_config(**kw):
+    """ERNIE-base, dropout 0 (27-27d compare runs)."""
+    return bert_config(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0, **kw)
+
+
+def build_bert_with(cfg, minimize):
+    """(main, startup, loss, extra): phase 16's net at seq BERT_SEQ whose
+    optimizer `minimize(fluid, main, loss, startup)` appends (and whose
+    return value is `extra`)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 16
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _f, loss, _mlm, _acc = bert.build_pretrain_net(cfg, seq_len=BERT_SEQ)
+        extra = minimize(fluid, main, loss, startup)
+    return main, startup, loss, extra
+
+
+def _adam(fluid, main, loss, startup):
+    fluid.optimizer.AdamOptimizer(WRAP_LR).minimize(loss, startup)
+
+
+def _start_scope(startup, like=None):
+    """A scope after `startup`, its parameters replaced by copies of
+    `like`'s (so that programs with different optimizer state start from
+    the same weights)."""
+    import paddle_tpu_torch as fluid
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    if like is not None:
+        for n in like.names():
+            if n in scope.names():
+                scope.set(n, like.get(n).clone())
+    return scope
+
+
+def _concat_feeds(feeds):
+    """Sub-batch feeds -> one feed, mask_pos moved to the rows' new
+    place in the flattened (B T) grid."""
+    out, rows = {}, 0
+    for f in feeds:
+        f = dict(f)
+        f["mask_pos"] = f["mask_pos"] + rows * f["src_ids"].shape[1]
+        rows += f["src_ids"].shape[0]
+        for k, v in f.items():
+            out.setdefault(k, []).append(v)
+    return {k: np.concatenate(v, axis=0) for k, v in out.items()}
+
+
+def _state_names(scope, params):
+    """The parameters and the optimizer state an update writes (moments,
+    velocities, beta pows, DGC's U and V)."""
+    keys = ("moment", "beta", "velocity", "dgc_u", "dgc_v")
+    return list(params) + sorted(n for n in scope.names()
+                                 if any(k in n for k in keys))
+
+
+def _step_record(flash, tag, n, per_step, step_ms, prof):
+    """The gates every 27-27d run shares (12 + 12 + 12 flash launches a
+    step, none on the tensor cores) and its printed numbers: step p50,
+    device ms and operations a step, peak memory."""
+    if per_step != {(n, n, n)} or flash.TC_LAUNCHES:
+        _fail(f"{tag}: flash launches a step {per_step}, "
+              f"{flash.TC_LAUNCHES} tensor-core, want ({n}, {n}, {n})")
+    rec = {"step_ms_p50": float(np.percentile(step_ms, 50)),
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "device_ops_per_step": prof["device_ops_per_step"],
+           "device_busy_share": prof["device_busy_share"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches_a_step": [n, n, n]}
+    print(f"{tag}: " + json.dumps(rec))
+    return rec
+
+
+def phase_grad_merge(flash):
+    """Phase 27: GradientMergeOptimizer(AdamOptimizer(WRAP_LR), k_steps=
+    GM_K, avg=True) over GM_SUBS ERNIE sub-batches of BERT_BATCH (2 apply
+    steps), against 2 steps of plain Adam on the same sub-batches
+    concatenated to batch GM_K x BERT_BATCH, run twice (their distance is
+    the card's own), all from one startup's weights. Each sub-batch's
+    MLM weights are scaled to sum to GM_MLM_WEIGHT (a sub-batch's loss is
+    the same at any scale of its weights), so the big batch's loss is the
+    mean of its sub-batches' and its gradient the merged one. Gates: the
+    merged gradient (the @GRAD the apply step hands Adam) against the big
+    batch's as one vector (within WRAP_SPREAD x the two plain runs'
+    distance or GM_GRAD_FLOORS) and tensor by tensor (GM_TENSOR_TOL), and
+    the parameters after each apply step as one vector (_global_rel_err:
+    Adam's first step is lr g / (|g| + eps), so an entry whose gradient
+    sits at the rounding noise, such as a key bias's, lands anywhere in
+    [-lr, lr]) within WRAP_SPREAD x the two plain runs' distance or
+    WRAP_FLOOR;
+    off-steps leave the parameters and Adam's state bitwise as they were;
+    12 + 12 + 12 flash launches a step. Reports the off-step's and the
+    apply step's device ms and the entries more than lr / 2 from the big
+    batch's. Returns (launches by run, record)."""
+    import paddle_tpu_torch as fluid
+    cfg = wrap_config()
+    n = cfg.num_hidden_layers
+    feeds = guard_feeds(GM_SUBS, seed=SEED + 270)
+    for f in feeds:
+        f["mask_weight"] = (f["mask_weight"] * (GM_MLM_WEIGHT / f[
+            "mask_weight"].sum())).astype(np.float32)
+    big = [_concat_feeds(feeds[j * GM_K:(j + 1) * GM_K])
+           for j in range(GM_SUBS // GM_K)]
+
+    def merged(fluid, main, loss, startup):
+        fluid.optimizer.GradientMergeOptimizer(
+            fluid.optimizer.AdamOptimizer(WRAP_LR), k_steps=GM_K,
+            avg=True).minimize(loss, startup)
+
+    gmain, gstart, gloss, _ = build_bert_with(cfg, merged)
+    pmain, pstart, ploss, _ = build_bert_with(cfg, _adam)
+    params = [p.name for p in gmain.all_parameters()]
+    gnames = [p + "@GRAD" for p in params]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _start_scope(gstart)
+    launches, rec = {}, {"k_steps": GM_K, "sub_batches": GM_SUBS,
+                         "sub_batch": BERT_BATCH, "lr": WRAP_LR}
+
+    # the big batch, twice: the @GRADs and parameters of each step
+    plain = []
+    for r in range(2):
+        scope = _start_scope(pstart, base)
+        exe = fluid.Executor()
+        _zero_counts(flash)
+        run = {"losses": [], "grads": [], "params": [], "ms": []}
+        per = set()
+        for f in big:
+            b0 = _bwd_counts(flash)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(pmain, feed=f, fetch_list=[ploss] + gnames,
+                          scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            run["losses"].append(out[0].double().item())
+            run["grads"].append(out[1:])
+            run["params"].append({p: scope.get(p).clone() for p in params})
+            per.add(tuple(a - b for a, b in zip(_bwd_counts(flash), b0)))
+        plain.append(run)
+        if r == 0:
+            launches[f"27 big batch {GM_K * BERT_BATCH} Adam ({len(big)} "
+                     f"steps)"] = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+            rec["big_batch"] = _step_record(
+                flash, "27 big batch", n, per, run["ms"], _profile_train(
+                    lambda: exe.run(pmain, feed=big[0], fetch_list=[ploss],
+                                    scope=scope), 1))
+        del scope, exe
+
+    # the merged run
+    torch.cuda.reset_peak_memory_stats()
+    scope = _start_scope(gstart, base)
+    exe = fluid.Executor()
+    state = _state_names(scope, params)
+    snap, off_ok, merged_grads, merged_params = {}, [], [], []
+
+    def before(i):
+        if i % GM_K != GM_K - 1:
+            snap.clear()
+            snap.update({s: scope.get(s).clone() for s in state})
+
+    _zero_counts(flash)
+    per_step, step_ms, losses = set(), [], []
+    for i, f in enumerate(feeds):
+        before(i)
+        b0 = _bwd_counts(flash)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply = i % GM_K == GM_K - 1
+        out = exe.run(gmain, feed=f, fetch_list=[gloss] + (
+            gnames if apply else []), scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out[0].double().item())
+        per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash), b0)))
+        if apply:
+            merged_grads.append(out[1:])
+            merged_params.append({p: scope.get(p).clone() for p in params})
+        else:
+            changed = [s for s in state if not torch.equal(scope.get(s),
+                                                           snap[s])]
+            off_ok.append(not changed)
+            if changed:
+                _fail(f"27 gradient merge: off-step {i} changed "
+                      f"{changed[:5]} ({len(changed)} of {len(state)})")
+    launches[f"27 gradient merge k {GM_K} ({GM_SUBS} steps)"] = \
+        _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+    off_prof = _profile_train(lambda: exe.run(
+        gmain, feed=feeds[0], fetch_list=[gloss], scope=scope), GM_K - 1)
+    on_prof = _profile_train(lambda: exe.run(
+        gmain, feed=feeds[0], fetch_list=[gloss], scope=scope), 1)
+    rec["run"] = _step_record(flash, "27 gradient merge", n, per_step,
+                              step_ms, on_prof)
+    rec["off_step_device_ms"] = off_prof["device_ms_per_step"]
+    rec["apply_step_device_ms"] = on_prof["device_ms_per_step"]
+    rec["off_step_device_ops"] = off_prof["device_ops_per_step"]
+    rec["apply_step_device_ops"] = on_prof["device_ops_per_step"]
+    rec["off_steps_bitwise"] = off_ok
+    rec["losses"] = losses
+    rec["big_batch_losses"] = [plain[0]["losses"], plain[1]["losses"]]
+    for j in range(len(big)):
+        gerr, gname = _grad_rel_err(merged_grads[j], plain[0]["grads"][j],
+                                    gnames)
+        gdist = _global_rel_err(merged_grads[j], plain[0]["grads"][j])
+        gspread = _global_rel_err(plain[1]["grads"][j],
+                                  plain[0]["grads"][j])
+        gtol = max(WRAP_SPREAD * gspread, GM_GRAD_FLOORS[j])
+        want = [plain[0]["params"][j][p] for p in params]
+        got = [merged_params[j][p] for p in params]
+        pspread = _global_rel_err([plain[1]["params"][j][p]
+                                   for p in params], want)
+        pdist = _global_rel_err(got, want)
+        ptol = max(WRAP_SPREAD * pspread, WRAP_FLOOR)
+        worst = max(((a - b).abs().max().item(), p)
+                    for p, a, b in zip(params, got, want))
+        far = sum(int(((a - b).abs() > WRAP_LR / 2).sum())
+                  for a, b in zip(got, want))
+        rec[f"apply{j}"] = {"grad_dist": gdist, "grad_spread": gspread,
+                            "grad_tol": gtol, "grad_tensor_err": gerr,
+                            "grad_worst": gname,
+                            "param_dist": pdist, "param_spread": pspread,
+                            "param_tol": ptol, "param_worst_abs": worst,
+                            "entries_beyond_half_lr": far}
+        print(f"27 apply step {j}: merged gradient {gdist:.3e} (tol "
+              f"{gtol:.3e}, two big-batch runs {gspread:.3e}), by tensor "
+              f"{gerr:.3e} at {gname} (tol {GM_TENSOR_TOL})"
+              f", parameters {pdist:.3e} (tol {ptol:.3e}, two big-batch "
+              f"runs {pspread:.3e}; worst entry {worst[0]:.3e} in "
+              f"{worst[1]}), {far} entries beyond lr/2")
+        if gdist > gtol or gerr > GM_TENSOR_TOL or pdist > ptol:
+            _fail(f"27 gradient merge: apply step {j} disagrees with the "
+                  f"big batch: {rec[f'apply{j}']}")
+    print("grad_merge " + json.dumps(rec))
+    del scope, exe, plain, merged_params, merged_grads, snap
+    return launches, rec
+
+
+def _host(scope, name):
+    return scope.get(name).detach().to("cpu", copy=True).numpy()
+
+
+def _diff_var(main, param):
+    """The Lookahead temporaries of `param`: (the name of fast - slow, the
+    slow var's name), from the elementwise_sub that reads both."""
+    for op in main.global_block().ops:
+        if op.type == "elementwise_sub" and op.input("X") == [param] and \
+                ".slow" in op.input("Y")[0]:
+            return op.output("Out")[0], op.input("Y")[0]
+    _fail(f"27b: no Lookahead difference op for {param}")
+
+
+def phase_wrappers(flash):
+    """Phase 27b, LARK's shape: extend_with_decoupled_weight_decay(
+    AdamOptimizer)(DECAY_COEFF, learning_rate=WRAP_LR) inside
+    LookaheadOptimizer(alpha=LA_ALPHA, k=LA_K), with an
+    ExponentialMovingAverage(EMA_DECAY, thres_steps=a step counter) and a
+    ModelAverage, WRAP_STEPS steps. Gates on WRAP_WATCH (the word
+    embedding, layer 0's Q projection, the MLM bias), read to the host
+    after every step: at the sync steps fast equals slow bitwise and slow
+    equals slow_prev + alpha (fast - slow_prev) in f32 (the difference
+    fetched); EMA apply() equals a numpy f32 recomputation of the
+    bias-corrected EMA within WRAP_EMA_RTOL, ModelAverage's the mean of
+    the steps' values; restore() brings the training weights back
+    bitwise and a nested apply unwinds one level; a forward of the
+    clone(for_test=True) under apply() launches 12 flash forwards, and
+    every step 12 + 12 + 12. Returns (launches by run, record)."""
+    import paddle_tpu_torch as fluid
+    cfg = wrap_config()
+    n = cfg.num_hidden_layers
+
+    def lark(fluid, main, loss, startup):
+        test = main.clone(for_test=True)
+        cls = fluid.contrib.extend_with_decoupled_weight_decay(
+            fluid.optimizer.AdamOptimizer)
+        fluid.optimizer.LookaheadOptimizer(
+            cls(DECAY_COEFF, learning_rate=WRAP_LR), alpha=LA_ALPHA,
+            k=LA_K).minimize(loss, startup)
+        thres = fluid.layers.autoincreased_step_counter(begin=0, step=1)
+        ema = fluid.optimizer.ExponentialMovingAverage(EMA_DECAY,
+                                                       thres_steps=thres)
+        ema.update()
+        ma = fluid.optimizer.ModelAverage(
+            0.15, min_average_window=WRAP_STEPS,
+            max_average_window=WRAP_STEPS)
+        return test, ema, ma
+
+    main, startup, loss, (test, ema, ma) = build_bert_with(cfg, lark)
+    types = [op.type for op in main.global_block().ops]
+    if types.count("decoupled_weight_decay") != len(main.all_parameters()):
+        _fail("27b: not one decoupled_weight_decay op a parameter")
+    diffs = {p: _diff_var(main, p) for p in WRAP_WATCH}
+    feeds = guard_feeds(WRAP_STEPS, seed=SEED + 271)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    slow = {p: _host(scope, diffs[p][1]) for p in WRAP_WATCH}
+    ema_ref = {p: np.zeros_like(slow[p]) for p in WRAP_WATCH}
+    ma_ref = {p: np.zeros_like(slow[p]) for p in WRAP_WATCH}
+    syncs = []
+    _zero_counts(flash)
+    per_step, step_ms = set(), []
+    with fluid.scope_guard(scope):
+        for i, f in enumerate(feeds):
+            b0 = _bwd_counts(flash)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=f, fetch_list=[loss] + [
+                diffs[p][0] for p in WRAP_WATCH], return_numpy=False)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
+                                                     b0)))
+            d = float(np.asarray(_host(scope, ema._decay_name)).reshape(-1)[0])
+            want = min(EMA_DECAY, (i + 1.0) / (i + 10.0))
+            if abs(d - want) > 1e-6 * want:
+                _fail(f"27b: EMA decay {d} at step {i}, want {want}")
+            d32 = np.float32(d)
+            omd = np.float32(d32 * np.float32(-1.0) + np.float32(1.0))
+            for k, p in enumerate(WRAP_WATCH):
+                fast = _host(scope, p)
+                ema_ref[p] = ema_ref[p] * d32 + fast * omd
+                ma_ref[p] = ma_ref[p] + fast
+                if (i + 1) % LA_K:
+                    continue
+                diff = out[1 + k].detach().cpu().numpy()
+                want_slow = slow[p] + np.float32(LA_ALPHA) * diff
+                got_slow = _host(scope, diffs[p][1])
+                if not (np.array_equal(got_slow, fast)
+                        and np.array_equal(got_slow, want_slow)):
+                    _fail(f"27b: step {i} {p}: fast == slow "
+                          f"{np.array_equal(got_slow, fast)}, slow == "
+                          f"formula {np.array_equal(got_slow, want_slow)}")
+                slow[p] = got_slow
+                syncs.append((i, p))
+        launches = {f"27b LARK decay + Lookahead + EMA + ModelAverage "
+                    f"({WRAP_STEPS} steps)": _bwd_counts(flash)
+                    + (flash.TC_LAUNCHES,)}
+        rec = {"sync_checks": len(syncs), "watch": list(WRAP_WATCH)}
+        # apply() against the host references of the WRAP_STEPS steps
+        train = {p.name: scope.get(p.name) for p in main.all_parameters()}
+        t = float(np.asarray(_host(scope, ema._count_name)).reshape(-1)[0])
+        corr = np.float32(1.0 - float(d32) ** t)
+        _zero_counts(flash)
+        with ema.apply(exe):
+            applied = {p: _host(scope, p) for p in WRAP_WATCH}
+            with ema.apply(exe):
+                pass
+            if any(not np.array_equal(_host(scope, p), applied[p])
+                   for p in WRAP_WATCH):
+                _fail("27b: a nested EMA apply did not unwind one level")
+            exe.run(test, feed=feeds[0], fetch_list=[loss])
+            if _bwd_counts(flash) != (n, 0, 0):
+                _fail(f"27b: a forward under apply() launched "
+                      f"{_bwd_counts(flash)}, want ({n}, 0, 0)")
+        if any(scope.get(p) is not v for p, v in train.items()):
+            _fail("27b: restore() did not bring back the training tensors")
+        with ma.apply(exe):
+            averaged = {p: _host(scope, p) for p in WRAP_WATCH}
+        if any(scope.get(p) is not v for p, v in train.items()):
+            _fail("27b: ModelAverage's restore lost the training tensors")
+        errs = {}
+        for p in WRAP_WATCH:
+            e = float(np.max(np.abs(applied[p] - ema_ref[p] / corr)
+                             / np.maximum(np.abs(ema_ref[p] / corr), 1e-30)))
+            m = float(np.max(np.abs(averaged[p] - ma_ref[p] / np.float32(
+                WRAP_STEPS)) / np.maximum(np.abs(ma_ref[p]) / WRAP_STEPS,
+                                          1e-30)))
+            errs[p] = {"ema_apply_rel_err": e, "model_average_rel_err": m}
+            if not (e <= WRAP_EMA_RTOL and m <= WRAP_EMA_RTOL):
+                _fail(f"27b: {p}: EMA apply {e:.3e}, ModelAverage {m:.3e} "
+                      f"from numpy (tol {WRAP_EMA_RTOL})")
+        rec.update(ema_steps=t, apply_errs=errs)
+        prof = _profile_train(lambda: exe.run(
+            main, feed=feeds[0], fetch_list=[loss]), 2)
+        rec["run"] = _step_record(flash, "27b wrappers", n, per_step,
+                                  step_ms, prof)
+    if t != WRAP_STEPS or len(syncs) != len(WRAP_WATCH) * (
+            WRAP_STEPS // LA_K):
+        _fail(f"27b: EMA steps {t}, sync checks {len(syncs)}")
+    print("wrappers " + json.dumps(rec))
+    return launches, rec
+
+
+def _dgc(fluid, main, loss, startup):
+    fluid.optimizer.DGCMomentumOptimizer(
+        DGC_LR, DGC_MU, rampup_begin_step=DGC_BEGIN,
+        sparsity=(DGC_SPARSITY,)).minimize(loss, startup)
+
+
+def _momentum(fluid, main, loss, startup):
+    fluid.optimizer.MomentumOptimizer(DGC_LR, DGC_MU).minimize(loss, startup)
+
+
+def phase_dgc(flash):
+    """Phase 27c: DGCMomentumOptimizer(DGC_LR, DGC_MU, rampup_begin_step=
+    DGC_BEGIN, sparsity=(DGC_SPARSITY,)) on a local dp DP mesh on this
+    card (phase 21's form), DGC_STEPS steps of phase 16's feed, from one
+    startup's weights. Gates: the dense steps equal MomentumOptimizer at
+    dp DP (losses within DP_FIRST_LOSS_TOL, the parameters after them
+    within DP_GRAD_TOL of each tensor's scale); in each sparse step each
+    parameter changes in at most DGC_SPARSITY's share of its entries (+1
+    for a tie) and the residual V is exactly the masked-out velocity
+    (V' = V + U' where the entry was not sent, U' = V' = 0 where it was);
+    the run at dp DP within WRAP_SPREAD x the distance of two dp 1 runs
+    (losses; the parameters as one vector), or WRAP_FLOOR; 12 + 12 + 12
+    flash launches a rank and step (24 + 24 + 24 at dp 2). The word
+    embedding's 23.4 M-entry threshold is taken every step. Returns
+    (launches by run, record)."""
+    import paddle_tpu_torch as fluid
+    cfg = wrap_config()
+    n = cfg.num_hidden_layers
+    feed = bert_feed()
+    dmain, dstart, dloss, _ = build_bert_with(cfg, _dgc)
+    mmain, mstart, mloss, _ = build_bert_with(cfg, _momentum)
+    params = [p.name for p in dmain.all_parameters()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _start_scope(dstart)
+    places = [fluid.CUDAPlace(0)] * DP
+    launches, rec = {}, {"steps": DGC_STEPS, "dp": DP,
+                         "sparsity": DGC_SPARSITY, "begin": DGC_BEGIN}
+
+    def run(main, startup, loss, places_, steps, check=None):
+        scope = _start_scope(startup, base)
+        prog = _dp_program(main, loss, places_) if places_ else main
+        exe = fluid.Executor()
+        _zero_counts(flash)
+        losses, per_step, step_ms = [], set(), []
+        for i in range(steps):
+            prev = ({s: scope.get(s).clone()
+                     for s in _state_names(scope, params)}
+                    if check else None)
+            b0 = _bwd_counts(flash)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(out[0].double().item())
+            per_step.add(tuple(a - b for a, b in zip(_bwd_counts(flash),
+                                                     b0)))
+            if check:
+                check(i, scope, prev)
+        return scope, exe, prog, losses, per_step, step_ms
+
+    fractions = []
+
+    def sparse_check(i, scope, prev):
+        if i < DGC_BEGIN:
+            return
+        row = {}
+        for p in params:
+            u_name = [s for s in prev if s.startswith(p + "_dgc_u")][0]
+            v_name = [s for s in prev if s.startswith(p + "_dgc_v")][0]
+            changed = scope.get(p) != prev[p]
+            u, v = scope.get(u_name), scope.get(v_name)
+            cnt, numel = int(changed.sum()), changed.numel()
+            bound = int(np.floor((1 - DGC_SPARSITY) * numel)) + 1
+            row[p] = cnt / numel
+            sent = (u == 0) & (v == 0)
+            kept_ok = torch.equal(v[~sent], (prev[v_name] + u)[~sent])
+            if cnt > bound or bool((changed & ~sent).any()) or not kept_ok:
+                _fail(f"27c: step {i} {p}: {cnt} of {numel} entries "
+                      f"changed (bound {bound}), changed but not sent "
+                      f"{int((changed & ~sent).sum())}, V = V + U' where "
+                      f"not sent {kept_ok}")
+        fractions.append(row)
+
+    torch.cuda.reset_peak_memory_stats()
+    scope2, exe2, prog2, l2, per2, ms2 = run(dmain, dstart, dloss, places,
+                                             DGC_STEPS, sparse_check)
+    launches[f"27c DGC dp {DP} ({DGC_STEPS} steps)"] = _bwd_counts(flash) \
+        + (flash.TC_LAUNCHES,)
+    p2 = [scope2.get(p).clone() for p in params]
+    prof = _profile_train(lambda: exe2.run(prog2, feed=feed,
+                                           fetch_list=[dloss],
+                                           scope=scope2), 1)
+    rec["run"] = _step_record(flash, f"27c DGC dp {DP}", DP * n, per2, ms2,
+                              prof)
+    del scope2, exe2, prog2
+    # the dense steps against Momentum at dp DP
+    mscope, _e, _p, ml, _per, _ms = run(mmain, mstart, mloss, places,
+                                        DGC_BEGIN)
+    dscope, _e, _p, dl, _per, _ms = run(dmain, dstart, dloss, places,
+                                        DGC_BEGIN)
+    worst = max((((dscope.get(p) - mscope.get(p)).abs().max()
+                  / mscope.get(p).abs().max().clamp_min(1e-30)).item(), p)
+                for p in params)
+    first = abs(dl[0] - ml[0]) / abs(ml[0])
+    later = max(abs(a - b) / abs(b) for a, b in zip(dl[1:], ml[1:]))
+    rec["dense"] = {"losses": dl, "momentum_losses": ml,
+                    "first_loss_rel_err": first, "later_loss_rel_err": later,
+                    "param_rel_err": worst[0], "param_worst": worst[1]}
+    del mscope, dscope
+    if first > DP_FIRST_LOSS_TOL or later > DP_LATER_LOSS_TOL or \
+            worst[0] > DP_GRAD_TOL:
+        _fail(f"27c: the dense steps differ from Momentum: {rec['dense']}")
+    # dp DP against two dp 1 runs
+    one = []
+    for _ in range(2):
+        s1, _e, _p, l1, per1, _ms = run(dmain, dstart, dloss, None,
+                                        DGC_STEPS)
+        if per1 != {(n, n, n)}:
+            _fail(f"27c: dp 1 launches a step {per1}")
+        one.append((l1, [s1.get(p).clone() for p in params]))
+        del s1
+    spread_l = _rel(one[1][0], one[0][0])
+    spread_p = _global_rel_err(one[1][1], one[0][1])
+    dist_l, dist_p = _rel(l2, one[0][0]), _global_rel_err(p2, one[0][1])
+    tol_l = max(WRAP_SPREAD * spread_l, WRAP_FLOOR)
+    tol_p = max(WRAP_SPREAD * spread_p, WRAP_FLOOR)
+    rec.update(losses_dp=l2, losses_dp1=one[0][0],
+               loss_dist=dist_l, loss_spread=spread_l, loss_tol=tol_l,
+               param_dist=dist_p, param_spread=spread_p, param_tol=tol_p,
+               changed_fraction_max_by_step=[max(r.values())
+                                             for r in fractions],
+               changed_fraction_word_embedding=[
+                   r["word_embedding"] for r in fractions])
+    print("dgc " + json.dumps(rec))
+    if dist_l > tol_l or dist_p > tol_p:
+        _fail(f"27c: dp {DP} {dist_l:.3e} / {dist_p:.3e} from dp 1 (tol "
+              f"{tol_l:.3e} / {tol_p:.3e})")
+    return launches, rec
+
+
+def phase_set_lr(flash):
+    """27d set_lr: two runs of 2 ERNIE steps from one startup's weights,
+    Adam(WRAP_LR); before the second step of run B, set_lr(SETLR_FACTOR x
+    WRAP_LR). The LR var stays the same tensor on the card and holds the
+    new rate; on every WRAP_WATCH tensor run B's step 1 update is
+    SETLR_FACTOR x run A's and its step 0 update run A's, each within
+    SETLR_RTOL as one vector (the runs differ only by the card's own
+    embedding backward; Adam's update is linear in the rate). Returns
+    (launches, record)."""
+    import paddle_tpu_torch as fluid
+    cfg = wrap_config()
+    n = cfg.num_hidden_layers
+    feeds = guard_feeds(2, seed=SEED + 272)
+    holder = {}
+
+    def adam(fluid, main, loss, startup):
+        holder["opt"] = fluid.optimizer.AdamOptimizer(WRAP_LR)
+        holder["opt"].minimize(loss, startup)
+
+    main, startup, loss, _ = build_bert_with(cfg, adam)
+    opt = holder["opt"]
+    base = _start_scope(startup)
+    deltas = []
+    _zero_counts(flash)
+    for factor in (None, SETLR_FACTOR):
+        scope = _start_scope(startup, base)
+        exe = fluid.Executor()
+        lr_t = scope.get(opt._lr_var.name)
+        w = [{p: _host(scope, p) for p in WRAP_WATCH}]
+        with fluid.scope_guard(scope):
+            for i, f in enumerate(feeds):
+                if i == 1 and factor:
+                    opt.set_lr(factor * WRAP_LR)
+                exe.run(main, feed=f, fetch_list=[loss])
+                w.append({p: _host(scope, p) for p in WRAP_WATCH})
+        if scope.get(opt._lr_var.name) is not lr_t or \
+                lr_t.device != scope.get("word_embedding").device:
+            _fail("27d set_lr: the LR var was replaced or left the "
+                  "parameters' device")
+        want = WRAP_LR * (factor or 1.0)
+        if abs(lr_t.item() - want) > 1e-6 * want:
+            _fail(f"27d set_lr: the LR var holds {lr_t.item()}, want {want}")
+        deltas.append([{p: w[i + 1][p] - w[i][p] for p in WRAP_WATCH}
+                       for i in range(2)])
+        del scope, exe
+    rec = {}
+    for p in WRAP_WATCH:
+        a0, b0 = deltas[0][0][p], deltas[1][0][p]
+        a1, b1 = deltas[0][1][p], deltas[1][1][p]
+        step1 = float(np.linalg.norm(b1 - SETLR_FACTOR * a1)
+                      / np.linalg.norm(SETLR_FACTOR * a1))
+        step0 = float(np.linalg.norm(b0 - a0) / np.linalg.norm(a0))
+        rec[p] = {"step1_rel_err_vs_factor": step1,
+                  "step0_rel_diff": step0}
+        if step1 > SETLR_RTOL or step0 > SETLR_RTOL:
+            _fail(f"27d set_lr: {p}: {rec[p]}")
+    counts = _bwd_counts(flash)
+    if counts != (4 * n,) * 3:
+        _fail(f"27d set_lr: flash launches {counts}, want {4 * n} each")
+    print("set_lr " + json.dumps(rec))
+    return {f"27d set_lr (2 runs x 2 steps)": counts
+            + (flash.TC_LAUNCHES,)}, rec
+
+
+def phase_dataset_dp(flash, paged):
+    """27d train_from_dataset at dp DP: phase 26d's DeepFM over generated
+    MultiSlot files through CompiledProgram(...).with_data_parallel() on
+    a local dp DP mesh (each batch split over the ranks as run()'s walk
+    splits a feed), against run() of that CompiledProgram over the same
+    batches, twice (their distance is the card's own): losses within
+    DEEPFM_DP_SPREAD x that distance or DATASET_LOSS_FLOOR; the dp
+    reductions counted; no attention kernel. Returns the record."""
+    import paddle_tpu_torch as fluid
+    nex = DATASET_BATCHES * DEEPFM_BATCH
+    main, startup, loss, d, _parse_s = deepfm_dataset(SEED + 273)
+    if d.parser != "native":
+        _fail(f"27d dataset dp: the {d.parser} parser ran")
+    batches = list(d._iter_batches())
+    c0 = _bwd_counts(flash) + (flash.TC_LAUNCHES, paged.LAUNCHES)
+    places = [fluid.CUDAPlace(0)] * DP
+
+    def fresh():
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        return exe, scope, _dp_program(main, loss, places)
+
+    exe, scope, comp = fresh()
+    got, real = [], exe.run
+
+    def spied(*a, **kw):
+        out = real(*a, **kw)
+        got.append(float(np.asarray(out[0]).reshape(-1)[0]))
+        return out
+
+    exe.run = spied
+    red0 = comp.mesh.reductions
+    t0 = time.perf_counter()
+    exe.train_from_dataset(program=comp, dataset=d, scope=scope,
+                           thread=DATASET_THREADS, fetch_list=[loss],
+                           print_period=10 ** 9)
+    torch.cuda.synchronize()
+    dataset_s = time.perf_counter() - t0
+    reductions = comp.mesh.reductions - red0
+    refs = []
+    for _ in range(2):
+        exe, scope, comp = fresh()
+        refs.append([float(np.asarray(exe.run(
+            comp, feed=b, fetch_list=[loss], scope=scope)[0]).reshape(-1)[0])
+            for b in batches])
+    if _bwd_counts(flash) + (flash.TC_LAUNCHES, paged.LAUNCHES) != c0:
+        _fail("27d dataset dp: DeepFM launched attention kernels")
+    spread = _rel(refs[1], refs[0])
+    tol = max(DEEPFM_DP_SPREAD * spread, DATASET_LOSS_FLOOR)
+    dist = _rel(got, refs[0])
+    rec = {"dp": DP, "batches": len(got), "losses": got,
+           "max_rel_distance_from_run": dist, "run_spread": spread,
+           "loss_tol": tol, "dp_reductions": reductions,
+           "examples_per_s": nex / dataset_s}
+    print("dataset dp " + json.dumps(rec))
+    if len(got) != DATASET_BATCHES or dist > tol or reductions <= 0:
+        _fail(f"27d dataset dp: {rec}")
+    return rec
+
+
+def _world_step_program():
+    """The 2-layer, dropout-0 ERNIE of 21b/21d as a functional step for
+    data_parallel_step: step(scope, feed) -> (scope, loss)."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss = dp_agree_program()
+    exe = fluid.Executor()
+
+    def step(scope, feed):
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+        return scope, out[0].detach()
+
+    return main, startup, step
+
+
+def dps_world_rank(rank, init, out):
+    """One rank of 27d's world (`--dps-world-rank`): joins the gloo group
+    and runs data_parallel_step over it (the global batch on this rank,
+    cuda:0) for DPS_WORLD_STEPS steps; writes its losses and the MLM bias
+    to <out>/rank<rank>.pt."""
+    import datetime
+    import torch.distributed as dist
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.cuda import flash
+    from paddle_tpu_torch.parallel import data_parallel_step
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=DP,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        flash.build()
+        flash.build_bwd()
+        mesh = make_mesh(dp=DP)
+        if not mesh.world or mesh.held("dp") != [rank]:
+            raise RuntimeError(f"not a world dp mesh: {mesh}")
+        main, startup, step = _world_step_program()
+        run = data_parallel_step(step, mesh)
+        scope = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope)
+        losses = []
+        for _ in range(DPS_WORLD_STEPS):
+            scope, loss = run(scope, dp_agree_feed())
+            losses.append(loss.double().item())
+        torch.save({"losses": losses, "launches": list(_bwd_counts(flash)),
+                    "mlm_out_b": scope.get("mlm_out_b").cpu()},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dps_world(flash):
+    """27d data_parallel_step over a world: two processes on cuda:0 joined
+    by gloo (as 21d), each passing the global batch, against
+    data_parallel_step on the local dp DP mesh, twice (the card's own
+    distance): losses and the MLM bias within WRAP_SPREAD x that distance
+    or WRAP_FLOOR; each rank launches 2 + 2 + 2 flash kernels a step (2
+    layers). Returns the record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import data_parallel_step
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    base = tempfile.mkdtemp(prefix="dps_world_")
+    init = "file://" + os.path.join(base, "rendezvous")
+    procs, recs = [], []
+    try:
+        for r in range(DP):
+            log = open(os.path.join(base, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--dps-world-rank", str(r), init, base],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        # the local mesh's runs while the ranks start
+        local = []
+        for _ in range(2):
+            _main, startup, step = _world_step_program()
+            run = data_parallel_step(step, make_mesh(
+                dp=DP, devices=["cuda:0"] * DP))
+            scope = fluid.Scope()
+            fluid.Executor().run(startup, scope=scope)
+            losses = []
+            for _s in range(DPS_WORLD_STEPS):
+                scope, loss = run(scope, dp_agree_feed())
+                losses.append(loss.double().item())
+            local.append((losses, scope.get("mlm_out_b").cpu()))
+        deadline = time.monotonic() + DP_WORLD_TIMEOUT_S
+        codes = []
+        for p, _log in procs:
+            try:
+                codes.append(p.wait(max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+        if codes != [0] * DP:
+            for r in range(DP):
+                with open(os.path.join(base, f"rank{r}.log")) as f:
+                    print(f"27d rank {r} log tail:\n" + f.read()[-3000:])
+            _fail(f"27d world: rank exit codes {codes}")
+        for r in range(DP):
+            recs.append(torch.load(os.path.join(base, f"rank{r}.pt")))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(base, ignore_errors=True)
+    layers = BERT_AGREE_LAYERS
+    spread_l = _rel(local[1][0], local[0][0])
+    spread_b = _global_rel_err([local[1][1]], [local[0][1]])
+    rec = {"steps": DPS_WORLD_STEPS, "layers": layers,
+           "local_losses": local[0][0], "spread": [spread_l, spread_b]}
+    for r, got in enumerate(recs):
+        dl = _rel(got["losses"], local[0][0])
+        db = _global_rel_err([got["mlm_out_b"]], [local[0][1]])
+        rec[f"rank{r}"] = {"losses": got["losses"], "loss_dist": dl,
+                           "bias_dist": db, "launches": got["launches"]}
+        want = [layers * DPS_WORLD_STEPS] * 3
+        if dl > max(WRAP_SPREAD * spread_l, WRAP_FLOOR) or \
+                db > max(WRAP_SPREAD * spread_b, WRAP_FLOOR) or \
+                got["launches"] != want:
+            _fail(f"27d world rank {r}: {rec[f'rank{r}']} (launches want "
+                  f"{want})")
+    print("dps world " + json.dumps(rec))
+    return rec
+
+
+def phase_optimizers_all(flash, paged):
+    """Phases 27-27d. Returns (flash launches by path, records)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths, recs = {}, {}
+    p, recs["27"] = _phase("27 gradient merge", phase_grad_merge, flash)
+    paths.update(p)
+    p, recs["27b"] = _phase("27b EMA, ModelAverage, Lookahead, decoupled "
+                            "decay", phase_wrappers, flash)
+    paths.update(p)
+    p, recs["27c"] = _phase("27c DGC at dp 2", phase_dgc, flash)
+    paths.update(p)
+    p, recs["27d set_lr"] = _phase("27d set_lr", phase_set_lr, flash)
+    paths.update(p)
+    recs["27d dataset dp"] = _phase("27d train_from_dataset at dp 2",
+                                    phase_dataset_dp, flash, paged)
+    recs["27d world"] = _phase("27d data_parallel_step over a world",
+                               phase_dps_world, flash)
+    return paths, recs
 
 
 def times_of(flag, root):
@@ -7634,6 +8699,9 @@ def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--dp-world-rank":
         dp_world_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return
+    if len(sys.argv) == 5 and sys.argv[1] == "--dps-world-rank":
+        dps_world_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     if len(sys.argv) > 1:
         _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of, "
               f"--fwd-times-of or --paged-of <checkout>")
@@ -7656,6 +8724,7 @@ def main():
     ferrs = _phase("1f flash kernel vs plain", check_flash, flash)
     berrs = _phase("1g flash backward kernels vs plain", check_flash_bwd,
                    flash)
+    _phase("1fn flash kernel NaN cases", check_flash_nan, flash)
     launches, requests, _ = _phase("2 serve", phase_serve, paged, cfg, tree)
     launches8, requests8, _ = _phase("2b serve int8", phase_serve, paged,
                                      gcfg, gtree, int8=True)
@@ -7718,6 +8787,7 @@ def main():
                                     phase_transformer_agree, flash)
     phase_ctr_all(flash, paged)
     guard_paths, guard_errs = phase_guarded_all(flash, paged)
+    opt_paths, _ = phase_optimizers_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -7816,7 +8886,7 @@ def main():
             tf_launches,
         "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":
             tfa_launches,
-        **guard_paths}
+        **guard_paths, **opt_paths}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -31,8 +31,10 @@ points; guarded asynchronous training (``Executor.run_async``,
 ``FetchHandle``, the NaN/Inf guard, ``robustness.GuardedTrainer``), the
 Fluid file formats and inference models (``io/``), and the input
 pipeline (``reader/``, ``core/bucketing.py``, ``io/dataset.py`` under
-``Executor.train_from_dataset``). The top level is the ``fluid``
-namespace of that recipe::
+``Executor.train_from_dataset``); the optimizer wrappers (EMA,
+ModelAverage, Lookahead, gradient merge: ``optimizer/wrappers.py``), DGC
+(``optimizer/dgc.py``) and decoupled weight decay (``contrib/``). The top
+level is the ``fluid`` namespace of that recipe::
 
     import paddle_tpu_torch as fluid
     main, startup = fluid.Program(), fluid.Program()
@@ -61,7 +63,7 @@ from .core.framework import (Program, Variable, Parameter, program_guard,
 from .core.param_attr import ParamAttr
 from .core.place import CPUPlace, CUDAPlace
 from .device import resolve_device
-from . import dataset, incubate, io, reader, robustness
+from . import contrib, dataset, incubate, io, reader, robustness
 from .io.state import (save_params, save_persistables, save_vars,
                        load_params, load_persistables, load_vars)
 from .io.inference_io import save_inference_model, load_inference_model
@@ -77,7 +79,8 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "CompiledProgram", "ParallelExecutor", "BuildStrategy",
            "ExecutionStrategy", "FetchHandle", "FeedBucketer", "DataFeeder",
            "LoDTensor", "create_lod_tensor", "create_random_int_lodtensor",
-           "dataset", "incubate", "io", "reader", "robustness", "save_params", "save_persistables",
+           "contrib", "dataset", "incubate", "io", "reader", "robustness",
+           "save_params", "save_persistables",
            "save_vars", "load_params", "load_persistables", "load_vars",
            "save_inference_model", "load_inference_model",
            "DatasetFactory", "InMemoryDataset", "QueueDataset",

@@ -1,0 +1,13 @@
+"""contrib: API-compatible extras (parity: python/paddle/fluid/contrib).
+
+The counterpart of ``paddle_tpu/contrib/``, so far its
+``extend_optimizer`` (decoupled weight decay). The rest of the JAX
+package's ``contrib/`` (decoder, layers, reader, quantize, slim, the
+memory calculator, mixed precision's shim, op frequencies, the
+inferencer and trainer) is not ported yet.
+"""
+
+from . import extend_optimizer  # noqa: F401
+from .extend_optimizer import extend_with_decoupled_weight_decay  # noqa: F401
+
+__all__ = ["extend_optimizer", "extend_with_decoupled_weight_decay"]

@@ -84,10 +84,10 @@
 // zero-filled by the copy, so that the next tile's copy runs under this
 // tile's products. Both products are m16n8k8 TF32 -> f32 in three passes,
 // big.big' + big.small' + small.big', split in registers by integer
-// rounding (flash_common.cuh): S = Q K^T, with Q's big and small fragments
-// split once and held in registers through the key loop at D 32 and 64 (at
-// D 128 they would take 128 registers a thread, so they are read and split
-// from shared memory at every tile), and O += P V with P split too (one
+// rounding and truncation (flash_common.cuh): S = Q K^T, with Q's big and
+// small fragments split once and held in registers through the key loop at
+// D 32 and 64 (at D 128 they would take 128 registers a thread, so they
+// are read and split from shared memory at every tile), and O += P V with P split too (one
 // TF32 pass would cost ~2^-11 of a term, 70 times the f32 tolerance). The
 // softmax runs on the accumulator fragments: a row lives in a quad of 4
 // threads, so its max is two shuffles (lanes xor 1 and 2); the scale and
@@ -123,6 +123,14 @@
 //     = 0 exactly and lse = m + log(1e-30), as the pruned JAX loop gives.
 //   * q rows >= Tq are computed on zeros and never written; keys >= Tk are
 //     masked.
+//   * NaN: a NaN among a row's visible scores (from the bias, q or k) makes
+//     the row's out and lse NaN, as the plain version's max and sum do. The
+//     row max (fmaxf) skips it, but exp2(NaN - m) makes the row sum l NaN,
+//     the recurrence l alpha + sum keeps it, and the epilogue's floor lets
+//     it through (max(l, 1e-30) as a NaN-propagating clamp). A hidden
+//     element's score is replaced before the max, so a NaN bias at a hidden
+//     key changes nothing. The f32 products' `split` keeps a NaN of q, k or
+//     v in the product.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -453,7 +461,7 @@ __global__ void __launch_bounds__(kFwdThreads)
     li += __shfl_xor_sync(kFull, li, 2);
     const int tq = wq + g + 8 * hh;
     if (tq >= p.Tq) continue;
-    const float lf = fmaxf(li, kLFloor);
+    const float lf = isnan(li) ? li : fmaxf(li, kLFloor);
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j)
       *reinterpret_cast<float2*>(og + (int64_t)tq * kD + 8 * j + 2 * t) =
@@ -1132,7 +1140,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       li += __shfl_xor_sync(kFull, li, 2);
       const int tq = row_a + 8 * i;
       if (tq >= p.Tq) continue;
-      const float lf = fmaxf(li, kLFloor);
+      const float lf = isnan(li) ? li : fmaxf(li, kLFloor);
       const float inv = 1.f / lf;
 #pragma unroll
       for (int j = 0; j < kD / 8; ++j)

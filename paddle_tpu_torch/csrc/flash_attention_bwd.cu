@@ -68,11 +68,12 @@
 //   - f32: m16n8k8 TF32 -> f32 in three passes, big.big' + big.small' +
 //     small.big', big = x rounded to TF32 (to nearest, ties away: what
 //     cvt.rna.tf32.f32 gives, here by two integer operations, which issue
-//     at several times a conversion's rate), small = x - big rounded the
-//     same way, split in registers as each fragment is loaded, so shared
-//     memory holds one f32 copy of each tile. Each partial product is
-//     exact in f32; the dropped small.small' and the rounding of small are
-//     ~2^-22 of a term. All five operand kinds go through it, P and dS
+//     at several times a conversion's rate), small = x - big truncated to
+//     TF32 (one operation; it keeps a NaN operand NaN), split in registers
+//     as each fragment is loaded, so shared memory holds one f32 copy of
+//     each tile. Each partial product is exact in f32; the dropped
+//     small.small' and the truncation of small are ~2^-21 of a term, of
+//     either sign. All five operand kinds go through it, P and dS
 //     included (one TF32 pass would cost ~2^-11 a term).
 //   - bf16: m16n8k16 bf16 -> f32; the score products read their bf16
 //     operands as they are, P and dS enter the second products as bf16 hi
@@ -123,6 +124,11 @@
 //     lse = -1e30 + log(1e-30), so exp(s - lse) of a masked entry would be
 //     1: probabilities come from visible ? exp(s - lse) : 0, never the bare
 //     exp. Such rows give dQ = 0 exactly and add nothing to dK, dV.
+//   * NaN: a row whose forward came out NaN has a NaN lse and delta, so its
+//     visible P and dS are NaN; a hidden pair's P and dS are 0 exactly,
+//     also where delta is NaN, as the plain version's masks give. The f32
+//     products keep a NaN operand (`split`), so the row's dQ and the dK, dV
+//     of every key it sees come out NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -367,7 +373,8 @@ __device__ __forceinline__ void probs(float (&s)[kNT][4], float (&dp)[kNT][4],
       if (ok && bg != nullptr) x += bg[tq * p.bs[2] + tk * p.bs[3]];
       const float pr = ok ? exp2f((x - lse[qr]) * kLog2e) : 0.f;
       s[j][e] = pr;
-      dp[j][e] = pr * (dp[j][e] - dlt[qr]);
+      // a hidden pair's dS is 0 even where delta is NaN
+      dp[j][e] = ok ? pr * (dp[j][e] - dlt[qr]) : 0.f;
     }
 }
 

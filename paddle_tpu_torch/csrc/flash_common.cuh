@@ -124,11 +124,16 @@ __device__ __forceinline__ bool seg_overlap(const int* sq, int q0, int nq,
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
-// x = big + small (+ ~2^-22 x), both TF32
+// x = big + small (+ ~2^-21 x), both TF32: big rounded, small = x - big
+// truncated (one operation). The truncation keeps a NaN: rounding's carry
+// turns a NaN whose top mantissa bits are all ones (the device's own NaN,
+// 0x7fffffff) into -0 in big, and x - big is NaN again, whose truncation
+// stays NaN, so a NaN operand reaches the product as in f32. The small
+// part's sign follows big's rounding, so the truncation adds no bias
 __device__ __forceinline__ void split(float x, uint32_t& big,
                                       uint32_t& small) {
   big = tf32_bits(x);
-  small = tf32_bits(x - __uint_as_float(big));
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
 }
 
 // c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)

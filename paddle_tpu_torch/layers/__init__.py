@@ -3,8 +3,8 @@
 Parity: python/paddle/fluid/layers/__init__.py; the counterpart of
 ``paddle_tpu/layers/`` with, in files of the same names, ``io.data``,
 ``tensor``'s ``create_parameter``, ``fill_constant``, ``zeros_like``,
-``ones_like`` and ``sums``, ``nn``'s ``fc``, ``conv2d``, ``pool2d``,
-``adaptive_pool2d``, ``batch_norm``, ``relu``, ``embedding``,
+``ones_like``, ``sums`` and ``assign``, ``nn``'s ``fc``, ``conv2d``,
+``pool2d``, ``adaptive_pool2d``, ``batch_norm``, ``relu``, ``embedding``,
 ``one_hot``, ``matmul``, ``layer_norm``, ``dropout``, ``label_smooth``,
 ``mean``, ``reduce_sum``, ``elementwise_add``/``sub``/``mul``/``div``/
 ``max``/``min``/``pow``, ``logical_and``, ``scale``, ``reshape``,
@@ -32,7 +32,7 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  unsqueeze, concat, slice, gather, expand, topk, cast,
                  softmax)
 from .tensor import (create_parameter, fill_constant, zeros_like, ones_like,
-                     sums)
+                     sums, assign)
 from .ops import sigmoid, exp, ceil, floor, cos, log
 from .control_flow import (equal, greater_than, less_than,
                            autoincreased_step_counter)

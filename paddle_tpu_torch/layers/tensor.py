@@ -2,7 +2,7 @@
 
 Parity: python/paddle/fluid/layers/tensor.py; the counterpart of
 ``paddle_tpu/layers/tensor.py``'s ``create_parameter``, ``fill_constant``,
-``zeros_like``, ``ones_like`` and ``sums``.
+``zeros_like``, ``ones_like``, ``sums`` and ``assign`` (of a Variable).
 """
 
 from ..core.layer_helper import LayerHelper
@@ -59,3 +59,20 @@ def sums(input, out=None):
                                                         xs[0].shape)
     helper.append_op("sum", {"X": xs}, {"Out": out})
     return out
+
+
+def assign(input, output=None):
+    """Parity: fluid.layers.assign of a Variable: a copy of `input`, into
+    `output` when given. (The JAX package also assigns numpy values, by
+    ``assign_value``, which the port does not register.)"""
+    from ..core.framework import Variable
+    if not isinstance(input, Variable):
+        raise NotImplementedError(
+            "layers.assign of a numpy value (assign_value) is not ported; "
+            "assign a Variable")
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype,
+                                                           input.shape)
+    helper.append_op("assign", {"X": input}, {"Out": output})
+    return output

@@ -212,6 +212,14 @@ def flash_attention_reference(q, k, v, bias=None, segq=None, segk=None,
     return out.to(q.dtype), lse
 
 
+def _dscores(p, vis, dp, delta):
+    """dS = visible ? P (dP - delta) : 0. The mask matters only for a row
+    whose forward came out NaN (delta NaN): its hidden pairs add nothing
+    to dK, as the kernels, which never visit most of them, give."""
+    return torch.where(vis, p * (dp - delta[..., None]),
+                       torch.zeros((), dtype=p.dtype, device=p.device))
+
+
 def _delta(out, do, dlse, ct=torch.float32):
     """delta = sum(do * out, -1) - dlse, (B, H, Tq) in `ct`: the lse
     cotangent enters every kernel as dS = P (dP - (delta - dlse))."""
@@ -233,8 +241,8 @@ def flash_attention_bwd_reference(q, k, v, bias, segq, segk, out, lse, do,
     s, vis = _scores(q, k, bias, segq, segk, scale, causal)
     p = _probs(s, vis, lse)
     dof = do.to(ct)
-    ds = p * (torch.matmul(dof, v.to(ct).transpose(-1, -2))
-              - delta[..., None])
+    ds = _dscores(p, vis, torch.matmul(dof, v.to(ct).transpose(-1, -2)),
+                  delta)
     dq = torch.matmul(ds, k.to(ct)) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.to(ct)) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -254,7 +262,7 @@ def flash_dbias(q, k, v, bias, lse, do, delta, scale=None, causal=False,
     s, vis = _scores(q, k, bias, segq, segk, scale, causal)
     p = _probs(s, vis, lse)
     dp = torch.matmul(do.to(s.dtype), v.to(s.dtype).transpose(-1, -2))
-    ds = p * (dp - delta.to(s.dtype)[..., None])
+    ds = _dscores(p, vis, dp, delta.to(s.dtype))
     dims = [i for i in range(4) if bias.shape[i] == 1 and ds.shape[i] > 1]
     db = ds.sum(dim=dims, keepdim=True) if dims else ds
     return db.to(bias.dtype)

@@ -54,6 +54,9 @@ register("elementwise_div", dp=rows)(_ew(torch.div))
 register("elementwise_max", dp=rows)(_ew(torch.maximum))
 register("elementwise_min", dp=rows)(_ew(torch.minimum))
 register("elementwise_pow", dp=rows)(_ew(torch.pow))
+# floor modulo, the sign of the divisor's (jnp.mod): the wrappers' bounded
+# step counters
+register("elementwise_mod", dp=rows)(_ew(torch.remainder))
 
 
 @register("scale", dp=rows)

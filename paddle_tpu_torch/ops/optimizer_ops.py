@@ -3,8 +3,9 @@
 Parity: paddle/fluid/operators/optimizers/*_op.*; the counterpart of
 ``paddle_tpu/ops/optimizer_ops.py`` with ``sgd``, ``momentum`` (Nesterov
 too), ``lars_momentum``, ``adam``, ``adamax``, ``adagrad``,
-``decayed_adagrad``, ``adadelta``, ``rmsprop`` (centered too), ``ftrl``
-and ``lamb``. Each op
+``decayed_adagrad``, ``adadelta``, ``rmsprop`` (centered too), ``ftrl``,
+``lamb``, ``adamw``, ``dpsgd``, ``proximal_gd``, ``proximal_adagrad`` and
+``decoupled_weight_decay`` (DGC's ops live in ``optimizer/dgc.py``). Each op
 consumes Param, Grad (the ``param@GRAD`` env entry the Executor's autograd
 pass produced) and its accumulators, and writes the new values back under
 the *same* names. Where JAX returns new arrays, the port updates the
@@ -212,3 +213,70 @@ def lamb(ctx):
     b2p.mul_(b2)
     return {"ParamOut": p, "Moment1Out": m, "Moment2Out": v,
             "Beta1PowOut": b1p, "Beta2PowOut": b2p}
+
+
+@register("adamw", dp=replicated)
+def adamw(ctx):
+    """Adam, then p -= lr wd p_old: the decay of the parameter as it was
+    before the step (taken before adam updates it in place)."""
+    p = ctx.in_("Param")
+    decay = _lr(ctx) * ctx.attr("weight_decay", 0.01) * p
+    outs = adam(ctx)
+    p.sub_(decay.to(p.dtype))
+    return outs
+
+
+@register("dpsgd", dp=replicated)
+def dpsgd(ctx):
+    """Differentially private SGD: g clipped to norm `clip`, plus Gaussian
+    noise of `sigma` from the op's generator (``OpContext.rng``), then
+    p -= lr g. The noise is torch's, not JAX's (the streams cannot match);
+    under data parallelism the op runs once on the reduced gradient, so
+    every rank draws rank 0's noise and the replicas stay equal."""
+    p, g = ctx.in_("Param"), ctx.in_("Grad")
+    clip = ctx.attr("clip", 10.0)
+    sigma = ctx.attr("sigma", 1.0)
+    gn = (g * g).sum().sqrt()
+    g = g * torch.clamp(clip / gn.clamp_min(1e-12), max=1.0)
+    noise = torch.randn(g.shape, generator=ctx.rng(), dtype=g.dtype,
+                        device=g.device)
+    g = g + sigma * noise
+    p.sub_((_lr(ctx) * g).to(p.dtype))
+    return {"ParamOut": p}
+
+
+def _prox(z, lr, l1, l2):
+    """sign(z) max(|z| - lr l1, 0) / (1 + lr l2)."""
+    return torch.sign(z) * (z.abs() - lr * l1).clamp_min(0.0) \
+        / (1.0 + lr * l2)
+
+
+@register("proximal_gd", dp=replicated)
+def proximal_gd(ctx):
+    """The proximal step on z = p - lr g (proximal_gd_op)."""
+    p, g = ctx.in_("Param"), ctx.in_("Grad")
+    lr = _lr(ctx)
+    z = p - lr * g
+    p.copy_(_prox(z, lr, ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)))
+    return {"ParamOut": p}
+
+
+@register("proximal_adagrad", dp=replicated)
+def proximal_adagrad(ctx):
+    """m += g^2; the proximal step at the rate lr / sqrt(m + 1e-10)
+    (proximal_adagrad_op)."""
+    p, g, m = ctx.in_("Param"), ctx.in_("Grad"), ctx.in_("Moment")
+    m.add_(g * g)
+    eff = _lr(ctx) / (m + 1e-10).sqrt()
+    z = p - eff * g
+    p.copy_(_prox(z, eff, ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)))
+    return {"ParamOut": p, "MomentOut": m}
+
+
+@register("decoupled_weight_decay", dp=replicated)
+def decoupled_weight_decay(ctx):
+    """After the base optimizer's ops: p -= coeff PrevParam, the snapshot
+    an ``assign`` took before them (contrib's decoupled weight decay)."""
+    p, pre = ctx.in_("Param"), ctx.in_("PrevParam")
+    p.sub_((ctx.attr("coeff", 0.0) * pre).to(p.dtype))
+    return {"ParamOut": p}

@@ -43,6 +43,14 @@ def zeros_like(ctx):
     return {"Out": torch.zeros_like(ctx.in_("X"))}
 
 
+@register("assign", dp=rows)
+def assign(ctx):
+    """A copy of X. JAX returns the array itself, which nothing can change
+    later; here the optimizers update their tensors in place, so a
+    snapshot taken before an update must own its memory."""
+    return {"Out": ctx.in_("X").clone()}
+
+
 @register("fill_constant", dp=replicated)
 def fill_constant(ctx):
     shape = ctx.attr("shape", [1])

@@ -2,10 +2,11 @@
 
 Parity: python/paddle/fluid/optimizer.py + regularizer.py + clip.py; the
 counterpart of ``paddle_tpu/optimizer/`` with the static-graph
-optimizers, the gradient clips, the weight-decay regularizers and
-RecomputeOptimizer. Not ported yet: ``DGCMomentumOptimizer`` and the
-wrappers (ExponentialMovingAverage, ModelAverage, Lookahead, GradientMerge,
-PipelineOptimizer).
+optimizers, the gradient clips, the weight-decay regularizers,
+RecomputeOptimizer, ``DGCMomentumOptimizer`` and the wrappers
+(ExponentialMovingAverage, ModelAverage, LookaheadOptimizer,
+GradientMergeOptimizer). Not ported yet: ``PipelineOptimizer`` (it lives
+with the pipeline machinery, ``parallel/pipeline.py``).
 """
 
 from .optimizers import (Optimizer, SGDOptimizer, MomentumOptimizer,
@@ -15,11 +16,14 @@ from .optimizers import (Optimizer, SGDOptimizer, MomentumOptimizer,
                          FtrlOptimizer, LambOptimizer,
                          SGD, Momentum, Adagrad, Adam, Adamax, RMSProp,
                          Ftrl, Lamb)
+from .dgc import DGCMomentumOptimizer
 
 # short aliases the reference's optimizer.py __all__ also exports
 DecayedAdagrad = DecayedAdagradOptimizer
 Adadelta = AdadeltaOptimizer
 LarsMomentum = LarsMomentumOptimizer
+from .wrappers import (ExponentialMovingAverage, ModelAverage,  # noqa: E402
+                       LookaheadOptimizer, GradientMergeOptimizer)
 from .recompute import RecomputeOptimizer  # noqa: E402
 from .regularizer import (L1Decay, L2Decay, L1DecayRegularizer,  # noqa: E402
                           L2DecayRegularizer, WeightDecayRegularizer)

@@ -44,6 +44,26 @@ class Optimizer:
         self._lr_var.stop_gradient = True
         init_mod.ConstantInitializer(float(self._learning_rate))(self._lr_var)
 
+    def _global_learning_rate(self):
+        return self._lr_var
+
+    current_step_lr = _global_learning_rate
+
+    def set_lr(self, value):
+        """Set the rate the next step uses: the learning-rate scope var is
+        filled in place on its device (one fill, no host tensor for a
+        later step to upload). Run the startup program first; a schedule's
+        var is recomputed by its ops each step."""
+        from ..core.executor import global_scope
+        if self._lr_var is None:
+            return
+        t = global_scope().get(self._lr_var.name)
+        if t is None:
+            raise RuntimeError(
+                f"set_lr: '{self._lr_var.name}' is not in the scope; run "
+                f"the startup program first")
+        t.fill_(float(value))
+
     # -- accumulators -------------------------------------------------------
     def _add_accumulator(self, name, param, fill_value=0.0, shape=None,
                          dtype="float32"):

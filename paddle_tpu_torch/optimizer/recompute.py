@@ -22,11 +22,17 @@ checkpointing). Each JAX policy maps to a torch mechanism:
                 everything else
     nothing     a plain checkpoint: only the inputs are saved
     everything  no recompute: the Executor runs the plain forward
-    offload     not ported: JAX saves the dot outputs to pinned host
-                memory and streams them back in the backward; torch's
-                selective checkpoint keeps what it saves on the device,
-                so this policy raises NotImplementedError rather than
-                stand in for another
+    offload     "dots" with the saved products in host memory (JAX's
+                ``offload_dot_with_no_batch_dims``): a plain checkpoint
+                whose forward, under a dispatch mode, copies each
+                ``aten.mm`` / ``aten.addmm`` output into pinned host
+                memory (non-blocking, on the producing stream), and whose
+                recompute, under a second mode, returns those copies
+                brought back to the device (non-blocking, in order)
+                instead of running the products again. Only CUDA
+                tensors are pinned and copied; on the CPU the mode keeps
+                the outputs as they are. ``OFFLOADED_BYTES`` counts the
+                bytes copied to the host.
 
 The recomputed forward re-runs every op, kernels included: the flash
 forward is launched again (a fresh output buffer a launch), and dropout
@@ -42,25 +48,78 @@ import functools
 import math
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 _POLICIES = ("dots", "nothing", "everything", "offload")
 
 
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+# bytes of product outputs copied to pinned host memory by "offload"
+# segments (cumulative, like the kernels' launch counters)
+OFFLOADED_BYTES = 0
+
+
 def resolve_policy(name):
-    """Validate a policy name: ValueError for an unknown one,
-    NotImplementedError for "offload"."""
+    """Validate a policy name: ValueError for an unknown one."""
     if name not in _POLICIES:
         raise ValueError(f"unknown remat policy {name!r}; "
                          f"one of {sorted(_POLICIES)}")
-    if name == "offload":
-        raise NotImplementedError(
-            "recompute policy 'offload' (dot outputs to pinned host memory, "
-            "streamed back in the backward) is not ported")
+
+
+class _OffloadSave(TorchDispatchMode):
+    """The forward of an "offload" segment: every product's output, a
+    host copy appended to `store` (pinned, non-blocking) for a CUDA
+    tensor, the tensor itself on the CPU."""
+
+    def __init__(self, store):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        global OFFLOADED_BYTES
+        out = func(*args, **(kwargs or {}))
+        if func in _PRODUCTS:
+            if out.is_cuda:
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                OFFLOADED_BYTES += host.numel() * host.element_size()
+                self.store.append((host, out.device))
+            else:
+                self.store.append((out.detach(), None))
+        return out
+
+
+class _OffloadLoad(TorchDispatchMode):
+    """The recompute of an "offload" segment: each product, in the
+    forward's order, returns its saved output (brought back to the device
+    non-blocking on the current stream, which ordered the copy out
+    before it) instead of running."""
+
+    def __init__(self, store):
+        super().__init__()
+        self.store = store
+        self.i = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _PRODUCTS:
+            return func(*args, **(kwargs or {}))
+        saved, device = self.store[self.i]
+        self.i += 1
+        if device is None:
+            return saved
+        return saved.to(device, non_blocking=True)
+
+
+def _offload_contexts():
+    store = []
+    return _OffloadSave(store), _OffloadLoad(store)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
     from torch.utils.checkpoint import CheckpointPolicy
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+    if op in _PRODUCTS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -68,8 +127,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 def run_checkpointed(ops, env, run, keep, policy):
     """run(segment, env) for about sqrt(len(ops)) segments of consecutive
     `ops`, on a snapshot of `env` as the segment starts, each under
-    torch's non-reentrant checkpoint with `policy` ("dots" or
-    "nothing"). A segment's results go back into `env` only where
+    torch's non-reentrant checkpoint with `policy` ("dots", "nothing"
+    or "offload"). A segment's results go back into `env` only where
     something after it reads them: a later op, or a name in `keep`."""
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
@@ -77,6 +136,8 @@ def run_checkpointed(ops, env, run, keep, policy):
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
+    elif policy == "offload":
+        kw["context_fn"] = _offload_contexts
     size = max(1, math.ceil(math.sqrt(len(ops))))
     segments = [ops[i:i + size] for i in range(0, len(ops), size)]
     reads, after = set(keep), []

@@ -2,15 +2,22 @@
 
 The counterpart of ``paddle_tpu/parallel/data_parallel.py``: JAX jits
 ``step_fn(state, batch)`` with the batch laid out over the mesh's batch
-axis and the state replicated, so GSPMD computes the whole batch's step.
-On a local mesh the port runs ``step_fn`` on the whole batch on the
-mesh's device, which is those numerics; a world mesh (one rank a
-process) raises. Eager torch donates nothing: ``donate_state`` is kept
-for the signature.
+axis and the state replicated, so GSPMD computes the whole batch's step;
+every process passes the global batch. The port runs ``step_fn`` once on
+the whole batch, which is those numerics: on a local mesh on the mesh's
+device, over a ``torch.distributed`` world (gloo or NCCL, one rank a
+process) on each rank's own device, every rank computing the same step
+from the same global batch, so the replicas stay equal. The compute is
+not split: an arbitrary torch ``step_fn`` gives the port no place to put
+the batch's reductions (a Program does: ``CompiledProgram.
+with_data_parallel`` splits the rows and reduces over the world). Eager
+torch donates nothing: ``donate_state`` is kept for the signature.
 """
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 __all__ = ["data_parallel_step"]
 
@@ -27,21 +34,20 @@ def _to_device(x, device):
     return x
 
 
-def data_parallel_step(step_fn, mesh, batch_axis="dp", donate_state=True):
+def data_parallel_step(step_fn, mesh, batch_axis="dp", donate_state=True,
+                       device=None):
     """Wrap step_fn(state, batch) -> (state', metrics) for `mesh`: the
     returned run(state, batch) moves the batch (tensors or numpy arrays,
-    nested in dicts, lists or tuples) to the mesh's device and runs
-    step_fn once on the whole batch."""
-    if mesh.world:
-        raise NotImplementedError(
-            "data_parallel_step over a torch.distributed world is not "
-            "ported (ROADMAP queue A item 10c); use a local mesh, or "
-            "CompiledProgram.with_data_parallel for a Program")
+    nested in dicts, lists or tuples; in a world every rank passes the
+    global batch, as JAX's processes do) to the device and runs step_fn
+    once on the whole batch. The device is the local mesh's, or in a
+    world `device` (None: the card; "cpu" for a gloo world on the
+    CPU)."""
     if batch_axis not in mesh.shape:
         raise ValueError(f"{mesh} has no axis '{batch_axis}'")
-    device = mesh.devices.flat[0]
+    dev = resolve_device(device) if mesh.world else mesh.devices.flat[0]
 
     def run(state, batch):
-        return step_fn(state, _to_device(batch, device))
+        return step_fn(state, _to_device(batch, dev))
 
     return run

@@ -28,7 +28,6 @@ import importlib
 import os
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -961,7 +960,8 @@ def test_with_data_parallel_without_places_needs_cuda():
 def test_data_parallel_step_matches_jax():
     """data_parallel_step on a local dp 2 mesh runs step_fn on the whole
     batch: two SGD steps of a linear least-squares model equal JAX's
-    data_parallel_step on its dp 2 mesh; a world mesh raises."""
+    data_parallel_step on its dp 2 mesh; an axis the mesh lacks raises
+    (the world form: tests/test_torch_dp_extras.py)."""
     rs = np.random.RandomState(3)
     x = rs.randn(8, 5).astype(np.float32)
     y = rs.randn(8, 1).astype(np.float32)
@@ -991,5 +991,5 @@ def test_data_parallel_step_matches_jax():
         np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
     np.testing.assert_allclose(tstate["w"].numpy(), np.asarray(jstate["w"]),
                                rtol=GRAD_RTOL, atol=GRAD_ATOL)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        data_parallel_step(tstep, types.SimpleNamespace(world=True))
+    with pytest.raises(ValueError, match="no axis"):
+        data_parallel_step(tstep, _local(dp=2), batch_axis="batch")

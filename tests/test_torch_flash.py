@@ -444,3 +444,130 @@ def test_f32_forward_operands_copy_only_views_that_break_the_16_byte_rule():
     for t in cflash._fwd_operands(odd, odd, odd, None)[:3]:
         assert t.is_contiguous() and cflash.tma_aligned(t)
         assert torch.equal(t, view)
+
+
+# ---------------------------------------------------------------------------
+# NaN semantics (ROADMAP C11): the cases of chip_smoke.py's phase 1fn
+# ---------------------------------------------------------------------------
+#
+# A NaN among a row's visible scores (a bias at a key the row sees, an
+# element of q, an element of k) makes that row's out and lse NaN in the
+# port's plain version exactly where it does in JAX's kernels; a NaN bias
+# at a key the row cannot see (causally hidden, another segment) changes
+# nothing. The backward: without causal pruning the non-finite rows of dq,
+# dk, dv are JAX's exactly. Under causal, JAX's kernels make P NaN at the
+# masked entries of a NaN row too (exp(NEG_INF - NaN)), so their NaN dk /
+# dv rows run to the end of the key block the row's block visits, and the
+# plain version's products give 0 x NaN where a NaN q or k meets a hidden
+# pair; both hold every row a visible pair reaches (the keys a NaN row
+# sees, the NaN rows' dq), and the port's plain version masks P and dS to
+# exactly those rows where no 0 x NaN product is involved (ROADMAP C).
+
+NAN_CASES = ("bias_visible", "q", "k", "bias_hidden", "bias_segment")
+# (case, causal): a causally hidden key needs the causal mask
+NAN_PAIRS = [(n, c) for n in NAN_CASES for c in (False, True)
+             if c or n != "bias_hidden"]
+NAN_T, NAN_D, NAN_BLOCK = 64, 32, 16
+
+
+def _nan_case(name, causal):
+    q, k, v = _qkv(1, 2, NAN_T, NAN_T, NAN_D, 120)
+    bias = seg = clean = None
+    if name.startswith("bias"):
+        bias = 0.5 * _rand((1, 2, NAN_T, NAN_T), 124)
+        at = {"bias_visible": (0, 1, 40, 10), "bias_hidden": (0, 1, 10, 40),
+              "bias_segment": (0, 1, 40, 10)}[name]
+        bias[at] = 0.0
+        clean = bias.copy()
+        bias[at] = np.nan
+    if name == "bias_segment":
+        seg = np.ones((1, NAN_T), np.int32)
+        seg[:, 32:] = 2
+    if name == "q":
+        q[0, 0, 40, 3] = np.nan
+    if name == "k":
+        k[0, 1, 20, 5] = np.nan
+    return q, k, v, bias, seg, clean
+
+
+def _bad(x):
+    x = np.asarray(x)
+    return ~np.isfinite(x) if x.ndim == 3 else ~np.isfinite(x).all(axis=-1)
+
+
+def _seen(bad_q, causal, seg):
+    """(B, H, Tk) bool: keys some row of bad_q (B, H, Tq) sees."""
+    vis = cflash._visible_mask(
+        NAN_T, NAN_T, causal,
+        None if seg is None else torch.from_numpy(seg),
+        None if seg is None else torch.from_numpy(seg)).numpy()
+    return (bad_q[..., None] & vis).any(axis=2)
+
+
+def _finite_close(a, b, tol):
+    fine = ~(_bad(a) | _bad(b))
+    np.testing.assert_allclose(np.asarray(a)[fine], np.asarray(b)[fine],
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kgrid", ["0", "1"])
+@pytest.mark.parametrize("name,causal", NAN_PAIRS)
+def test_nan_rows_forward_match_jax(name, causal, kgrid, monkeypatch):
+    q, k, v, bias, seg, clean = _nan_case(name, causal)
+    jo, jl, to, tl = _both(q, k, v, NAN_BLOCK, kgrid, monkeypatch, bias=bias,
+                           causal=causal, segment_ids=seg)
+    np.testing.assert_array_equal(_bad(to), _bad(jo))
+    np.testing.assert_array_equal(np.isnan(to), np.isnan(jo))
+    np.testing.assert_array_equal(_bad(tl), _bad(jl))
+    _finite_close(jo, to, ATOL)
+    _finite_close(jl, tl, ATOL)
+    if name in ("bias_hidden", "bias_segment"):
+        assert not _bad(to).any() and not _bad(jo).any()
+        co, cl = tflash.flash_attention_with_lse(
+            *(torch.from_numpy(a) for a in (q, k, v)),
+            bias=torch.from_numpy(clean), causal=causal,
+            segment_ids=None if seg is None else torch.from_numpy(seg))
+        assert torch.equal(co, torch.from_numpy(to))
+        assert torch.equal(cl, torch.from_numpy(tl))
+    else:
+        assert _bad(to).any()
+
+
+@pytest.mark.parametrize("name,causal", NAN_PAIRS)
+def test_nan_rows_backward_match_jax(name, causal, monkeypatch):
+    monkeypatch.setenv("PT_FLASH_KGRID", "0")
+    q, k, v, bias, seg, _clean = _nan_case(name, causal)
+    scale = 1.0 / math.sqrt(NAN_D)
+    wo = _rand(q.shape, 125)
+    jbias = None if bias is None else jnp.asarray(bias)
+    jseg = None if seg is None else jnp.asarray(seg)
+
+    def jloss(q_, k_, v_):
+        o = jflash.flash_attention_with_lse(
+            q_, k_, v_, bias=jbias, scale=scale, causal=causal,
+            block_q=NAN_BLOCK, block_k=NAN_BLOCK, segment_ids=jseg)[0]
+        return jnp.sum(o * wo)
+
+    jg = [np.asarray(g) for g in jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))]
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o, lse = tflash.flash_attention_with_lse(
+        *ts, bias=None if bias is None else torch.from_numpy(bias),
+        scale=scale, causal=causal,
+        segment_ids=None if seg is None else torch.from_numpy(seg))
+    (o * torch.from_numpy(wo)).sum().backward()
+    tg = [t.grad.numpy() for t in ts]
+    bad_lse = _bad(lse.detach().numpy())
+    floors = (bad_lse, _seen(bad_lse, causal, seg), _seen(bad_lse, causal,
+                                                          seg))
+    for tag, j, t, floor in zip(("dq", "dk", "dv"), jg, tg, floors):
+        bj, bt = _bad(j), _bad(t)
+        if not causal:
+            np.testing.assert_array_equal(bt, bj, err_msg=tag)
+        else:
+            assert not (floor & ~bt).any() and not (floor & ~bj).any(), tag
+            if (tag, name) not in (("dk", "q"), ("dq", "k")):
+                np.testing.assert_array_equal(bt, floor, err_msg=tag)
+        fine = ~(bj | bt)
+        np.testing.assert_allclose(t[fine], j[fine], atol=1e-4, rtol=1e-4,
+                                   err_msg=tag)

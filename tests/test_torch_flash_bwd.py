@@ -268,7 +268,8 @@ def test_function_backward_equals_plain_backward():
 # On the card the f32 kernels compute every product on the tensor cores as
 # three TF32 passes, big.big' + big.small' + small.big', with big the
 # operand rounded to TF32 (round to nearest, ties away: cvt.rna.tf32.f32)
-# and small the remainder rounded the same way; the bf16 kernels carry P
+# and small the remainder truncated to TF32 (which keeps a NaN operand
+# NaN: flash_common.cuh); the bf16 kernels carry P
 # and dS into their second products as bf16 hi + lo. These tests push the
 # plain backward's products through the same roundings (each partial of
 # two TF32 values is exact in f32, so an f32 matmul on the CPU computes it
@@ -283,13 +284,19 @@ def tf32_round(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def tf32_trunc(x):
+    """x (f32) truncated to TF32's 10-bit mantissa (toward zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
 def mm3(a, b, passes=3):
     """a @ b as the kernels' tensor-core products: three TF32 passes (or
     one, big.big', for comparison)."""
     ab, bb = tf32_round(a), tf32_round(b)
     if passes == 1:
         return torch.matmul(ab, bb)
-    a_s, b_s = tf32_round(a - ab), tf32_round(b - bb)
+    a_s, b_s = tf32_trunc(a - ab), tf32_trunc(b - bb)
     return (torch.matmul(a_s, bb) + torch.matmul(ab, b_s)) \
         + torch.matmul(ab, bb)
 

@@ -18,8 +18,8 @@ width 256):
 
 "dots" is shown to save the 2-D products: the backward of a "dots" step
 dispatches as many ``aten.mm`` / ``aten.addmm`` as the plain step's (none
-recomputed), a "nothing" step's more. "offload" is not ported and raises
-NotImplementedError naming it.
+recomputed), a "nothing" step's more. "offload" has its own file,
+``tests/test_torch_offload.py``.
 """
 
 import collections
@@ -242,12 +242,3 @@ def test_unknown_policy_rejected_when_built():
     with pytest.raises(ValueError):
         fluid.optimizer.RecomputeOptimizer(
             fluid.optimizer.SGDOptimizer(learning_rate=0.1), policy="bogus")
-
-
-def test_offload_policy_raises_by_name():
-    """'offload' (dot outputs to pinned host memory) is not ported: the
-    optimizer refuses it rather than stand in another policy."""
-    with pytest.raises(NotImplementedError, match="offload"):
-        fluid.optimizer.RecomputeOptimizer(
-            fluid.optimizer.SGDOptimizer(learning_rate=0.1),
-            policy="offload")
