@@ -475,6 +475,41 @@ backward kernels are printed):
    two-process gloo world (2 layers) against the local mesh. Every 27
    run launches 12 + 12 + 12 flash kernels a step (24 each at dp 2) and
    prints step p50, device ms and operations a step and peak memory.
+28. semantic role labeling at the book's widths: ``label_semantic_roles.
+   db_lstm(word_dim=32, mark_dim=5, hidden_dim=512, depth=8)`` over the
+   conll05 dictionaries (44068 words, 3162 predicates, 59 labels) with
+   ``linear_chain_crf`` and ``crf_decoding``, 32 conll05 sentences
+   padded to 32, Adam(1e-3), 30 steps: the loss finite and falling (the
+   last 5 steps' mean below the first 5's), every row's NLL >= -1e-4 x
+   its gold score's magnitude, the Viterbi path's score (recomputed in
+   float64 on the host) >= the gold path's and within 1e-4 of the
+   float64 maximum; ``chunk_eval`` (IOB, 29 types) printed; the forward
+   recurrence's share of a step's device ms and operations;
+28b. phase 28's net at depth 2, T 16, batch 4, one startup on the card
+   and on the CPU (TF32 off): each row's NLL within 1e-5, each @GRAD
+   within 1e-4 of its largest entry, the Viterbi paths equal apart from
+   rows with a float64 near tie;
+28c. phase 28's cell at dp 2 (``with_data_parallel(places=[CUDAPlace(0)]
+   * 2)``) against dp 1, 3 steps: losses and first-step @GRADs within
+   4x two plain runs' distance or 1e-5 of their scale; ``chunk_eval``'s
+   counts equal dp 1's; a ragged ``sequence_expand`` refuses;
+28d. CRNN-CTC OCR: ``ocr_recognition.crnn_ctc_net`` on (1, 48, 384)
+   images (48 columns of 384 features), 95 classes, a bidirectional GRU
+   stack of hidden 200, ``warpctc`` over labels of 4-16 ids, batch 32,
+   Adam(1e-3), 40 steps on one batch: the last loss below 0.5x the
+   first; the greedy transcription (-1-padded, counts equal to the non
+   -1 entries) and its ``edit_distance``; the port's CTC recursion
+   against ``F.ctc_loss`` within 1e-4 (both timed); the port's GRU
+   against a cuDNN ``torch.nn.GRU`` (timed only);
+28e. stacked-LSTM sentiment (``lstm_text.stacked_lstm_net(emb_dim=128,
+   hid_dim=512, stacked_num=3)``, imdb's 5147-word dictionary, T 128,
+   batch 128, 20 steps: every loss finite; one lstm op against a cuDNN
+   ``torch.nn.LSTM``, timed only) and the recommender
+   (``recommender.build_train_net()``, 6041 users, 3953 movies, batch
+   256, 20 steps: the loss falls). Every 28 phase prints step p50, device
+   ms and operations a step, the busy share and peak memory beside the
+   card's name and power limit, and launches no attention kernel (the
+   flash and paged counts gated at 0).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -508,9 +543,9 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, with 16b/16c/17/19b/19c/20d/21b/
-21c/24/24b/26's errors in ``path_errs``); the
-line before
+20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's gated 0s,
+with 16b/16c/17/19b/19c/20d/21b/21c/24/24b/26's errors in
+``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.
@@ -802,6 +837,50 @@ DEEPFM_DP_SPREAD = 4.0
 CTR_AGREE_STEPS = 3
 CTR_LOSS_TOL = 1e-5
 CTR_GRAD_TOL = 1e-4
+# phases 28-28e: the sequence, recurrent, CRF and CTC family at the
+# book's widths. 28: SRL (db_lstm over conll05's dictionaries, one batch
+# of conll05 sentences, Adam)
+SRL_WORD_DIM, SRL_MARK_DIM = 32, 5
+SRL_HIDDEN, SRL_DEPTH = 512, 8
+SRL_BATCH, SRL_LEN = 32, 32         # sentences, their padded length
+SRL_LR = 1e-3
+SRL_STEPS = 30
+SRL_PROFILE_STEPS = 1                # a profiled step holds ~15,000 ops
+SRL_CHUNK_TYPES = 29                # IOB over conll05's 59 labels
+SRL_NLL_FLOOR = 1e-4                # a row's NLL >= -this x |gold score|
+SRL_VITERBI_RTOL = 1e-4             # the path's score vs the float64 max
+# 28b: the card against the CPU at a cut depth, TF32 off
+SRL_AGREE = {"depth": 2, "hidden": 512, "length": 16, "batch": 4}
+SRL_AGREE_NLL_TOL = 1e-5            # each row's NLL, relative
+SRL_AGREE_GRAD_TOL = 1e-4           # of each @GRAD's largest entry
+SRL_TIE_TOL = 1e-5                  # a near tie: two scores this close
+# 28c: phase 28's cell at dp 2 against dp 1 (phase 26's rule)
+SRL_DP_STEPS = 3
+SRL_DP_SPREAD = 4.0                 # x the distance of two plain runs
+SRL_DP_FLOOR = 1e-5                 # or this share of the value's scale
+# 28d: CRNN-CTC OCR
+OCR_IMG = (1, 48, 384)
+OCR_LABEL_LEN = 16
+OCR_CLASSES = 95
+OCR_HIDDEN = 200
+OCR_FILTERS = 16
+OCR_BATCH = 32
+OCR_LR = 1e-3
+OCR_STEPS = 40
+OCR_PROFILE_STEPS = 1
+OCR_MARGIN = 0.5                    # the last loss below this x the first
+OCR_CTC_RTOL = 1e-4                 # warpctc against F.ctc_loss
+# 28e: stacked-LSTM sentiment and the recommender
+SENT_EMB, SENT_HID, SENT_STACK = 128, 512, 3
+SENT_LEN, SENT_BATCH = 128, 128
+SENT_LR = 1e-3
+SENT_STEPS = 20
+SENT_PROFILE_STEPS = 1
+REC_BATCH = 256
+REC_LR = 1e-3
+REC_STEPS = 20
+REC_PROFILE_STEPS = 3
+SEQ_TIME_REPS = 10                  # 28d/28e's op timings: calls a median
 # phases 26-26c: ERNIE-base (phase 16's program) under guarded
 # asynchronous training: GUARD_STEPS steps of distinct ERNIE feeds, the
 # async window GUARD_WINDOW, a checkpoint every GUARD_CKPT_EVERY steps, a
@@ -6817,15 +6896,20 @@ def _profile_ops(step, steps):
     if busy <= 0:
         _fail("the profiler saw no device time")
     # an op's device time: the kernels launched inside its host range
-    by_op, emb = {}, 0.0
+    by_op, ops_by, emb = {}, {}, 0.0
     for e in prof.events():
         if e.device_type.name != "CPU":
             continue
         if e.name.startswith("op:"):
             by_op[e.name[3:]] = by_op.get(e.name[3:], 0.0) + _device_total(e)
+            ops_by[e.name[3:]] = ops_by.get(e.name[3:], 0) + \
+                _kernels_under(e)
         elif e.name == "aten::embedding_dense_backward":
             emb += _device_total(e)
     by_op = {k: v / steps / 1e3 for k, v in by_op.items() if v > 0}
+    # kernels counted under each op's range (None: the trace attached no
+    # kernel to a host event, so the count was not measured)
+    ops_by = {k: v / steps for k, v in ops_by.items() if v > 0} or None
     emb /= steps * 1e3
     emb_kernels = sum(v for k, v in dev.items() if any(
         m in k for m in EMBEDDING_BWD_KERNELS))
@@ -6836,6 +6920,7 @@ def _profile_ops(step, steps):
             "embedding_backward_kernels_by_name_ms_per_step": emb_kernels,
             "device_ms_per_step_by_op": dict(sorted(
                 by_op.items(), key=lambda kv: -kv[1])),
+            "device_ops_per_step_by_op": ops_by,
             "adam_ms_per_step": by_op.get("adam", 0.0),
             "adam_share_of_device": by_op.get("adam", 0.0) / busy,
             "embedding_backward_ms_per_step": emb,
@@ -8593,6 +8678,763 @@ def phase_optimizers_all(flash, paged):
     return paths, recs
 
 
+# ---------------------------------------------------------------------------
+# phases 28-28e: the sequence, recurrent, CRF and CTC family
+# ---------------------------------------------------------------------------
+
+def _seq_phase(name, fn, flash, paged, *args):
+    """One of phases 28-28e with the attention kernels' counts zeroed
+    before it and gated at 0 after it: the sequence family launches no
+    attention kernel. Returns (fn's result, the counts)."""
+    _zero_counts(flash)
+    paged.LAUNCHES = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = _phase(name, fn, *args)
+    counts = _bwd_counts(flash) + (flash.TC_LAUNCHES, paged.LAUNCHES)
+    if any(counts):
+        _fail(f"phase {name} launched attention kernels: {counts}")
+    return out, counts
+
+
+def _timed_steps(exe, program, feed, fetch, scope, steps):
+    """`steps` runs of program, each fetch to numpy (the copy ends the
+    step): (the fetches of every run, each run's ms)."""
+    outs, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        outs.append(exe.run(program, feed=feed, fetch_list=fetch,
+                            scope=scope))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def _seq_record(tag, config, batch, step_ms, peak, prof, **extra):
+    """Print phase `tag`'s record (step p50 / p99, examples/s, peak
+    memory, the profile's device ms, operations and busy share, the
+    card) and its profile; return the record."""
+    p50 = float(np.percentile(step_ms, 50))
+    out = {"config": config, "batch": batch, "steps_timed": len(step_ms),
+           "step_ms_p50": p50,
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "examples_per_s": batch / (p50 / 1e3),
+           "max_memory_allocated": peak,
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "device_ops_per_step": prof["device_ops_per_step"],
+           "device_busy_share": prof["device_busy_share"],
+           "card": _card_line(), **extra}
+    print(f"{tag} " + json.dumps(out))
+    print(f"profile {tag} " + json.dumps(prof))
+    return out
+
+
+class _OpArgs:
+    """The inputs and attrs of one direct op call (an op's context
+    outside a Program), for the timing comparisons of 28d and 28e."""
+
+    def __init__(self, ins, attrs):
+        self.ins, self.attrs = ins, attrs
+
+    def in_(self, slot, default=None):
+        return self.ins.get(slot, default)
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def wants(self, slot):
+        return True
+
+
+def _event_ms(fn, reps=SEQ_TIME_REPS, warmup=2):
+    """The median ms of fn() between CUDA events around each call, after
+    `warmup` calls. For the host-bound eager recurrences this is the span
+    the card spends on a call, launch gaps included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    return float(np.median(ms))
+
+
+def _fwd_bwd(fn, params):
+    """fn() and its backward into `params` (a sum of the outputs)."""
+    def run():
+        outs = fn()
+        loss = sum(o.float().sum() for o in outs)
+        torch.autograd.grad(loss, params)
+    return run
+
+
+def build_srl(depth=SRL_DEPTH, hidden=SRL_HIDDEN, batch=SRL_BATCH,
+              length=SRL_LEN):
+    """(main, startup, vars): label_semantic_roles.db_lstm at the book's
+    widths (word_dim SRL_WORD_DIM, mark_dim SRL_MARK_DIM, `hidden`,
+    `depth`) over the conll05 dictionaries, with linear_chain_crf and
+    crf_decoding sharing one transition as build_train_net wires them,
+    chunk_eval (IOB, SRL_CHUNK_TYPES types) on the decoded path, and
+    AdamOptimizer(SRL_LR). The model module's dictionary sizes are set to
+    conll05's for the build and restored after it."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.dataset import conll05
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    L = fluid.layers
+    saved = srl.WORD_DICT_LEN, srl.PRED_DICT_LEN, srl.LABEL_DICT_LEN
+    srl.WORD_DICT_LEN, srl.PRED_DICT_LEN, srl.LABEL_DICT_LEN = (
+        conll05.WORD_DICT_LEN, conll05.PRED_DICT_LEN, conll05.LABEL_DICT_LEN)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 28
+    try:
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            def data(name, shape):
+                return L.data(name, shape=shape, dtype="int64",
+                              append_batch_size=False)
+            feats = {n: data(n, [batch, length]) for n in srl.FEATURE_NAMES}
+            target = data("target", [batch, length])
+            lens = data("length", [batch])
+            emission = srl.db_lstm(feats, word_dim=SRL_WORD_DIM,
+                                   mark_dim=SRL_MARK_DIM, hidden_dim=hidden,
+                                   depth=depth, length=lens)
+            crf = fluid.ParamAttr(name="srl_crf")
+            nll = L.linear_chain_crf(emission, target, param_attr=crf,
+                                     length=lens)
+            loss = L.mean(nll)
+            decode = L.crf_decoding(emission, param_attr=crf, length=lens)
+            chunks = L.chunk_eval(decode, target, "IOB", SRL_CHUNK_TYPES,
+                                  seq_length=lens)
+            fluid.optimizer.AdamOptimizer(SRL_LR).minimize(loss)
+    finally:
+        srl.WORD_DICT_LEN, srl.PRED_DICT_LEN, srl.LABEL_DICT_LEN = saved
+    return main, startup, {"loss": loss, "nll": nll, "emission": emission,
+                           "decode": decode, "chunks": list(chunks)}
+
+
+def srl_feed(batch=SRL_BATCH, length=SRL_LEN, device="cuda"):
+    """The first `batch` sentences of the conll05 test reader (8-31 words
+    each), padded (or cut) to `length`, with their lengths: the eight
+    features, "target" and "length" as int64 tensors on `device`."""
+    from paddle_tpu_torch.dataset import conll05
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    names = srl.FEATURE_NAMES + ("target",)
+    feed = {n: np.zeros((batch, length), np.int64) for n in names}
+    lens = np.zeros(batch, np.int64)
+    for i, sample in zip(range(batch), conll05.test()()):
+        n = min(len(sample[0]), length)
+        lens[i] = n
+        for name, col in zip(names, sample):
+            feed[name][i, :n] = col[:n]
+    feed["length"] = lens
+    return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+
+
+def _viterbi64(em, w, lens):
+    """Each row's best path score and path, in float64 on the host."""
+    start, end, trans = w[0], w[1], w[2:]
+    scores, paths = [], []
+    for r in range(em.shape[0]):
+        delta, back = start + em[r, 0], []
+        for s in range(1, int(lens[r])):
+            cand = delta[:, None] + trans
+            back.append(cand.argmax(0))
+            delta = cand.max(0) + em[r, s]
+        delta = delta + end
+        tag = int(delta.argmax())
+        path = [tag]
+        for bp in reversed(back):
+            tag = int(bp[tag])
+            path.append(tag)
+        scores.append(float(delta.max()))
+        paths.append(path[::-1])
+    return np.array(scores), paths
+
+
+def _path_score64(em, w, tags):
+    """The score of the tag path `tags` (a row's valid steps) in
+    float64."""
+    start, end, trans = w[0], w[1], w[2:]
+    tags = np.asarray(tags)
+    return float(start[tags[0]] + end[tags[-1]]
+                 + em[np.arange(len(tags)), tags].sum()
+                 + trans[tags[:-1], tags[1:]].sum())
+
+
+def _near_tie_rows(em, w, lens, tol):
+    """The rows whose Viterbi recursion (float64) meets two candidates
+    within `tol` x (1 + |score|) of each other at some step: a tie that
+    may break either way once the sums run in another order."""
+    start, end, trans = w[0], w[1], w[2:]
+    rows = []
+    for r in range(em.shape[0]):
+        delta = start + em[r, 0]
+        near = False
+        for s in range(1, int(lens[r])):
+            cand = delta[:, None] + trans
+            top = np.sort(cand, axis=0)[-2:]
+            near |= bool(((top[1] - top[0]) <= tol * (1 + np.abs(top[1])))
+                         .any())
+            delta = cand.max(0) + em[r, s]
+        last = np.sort(delta + end)[-2:]
+        near |= bool(last[1] - last[0] <= tol * (1 + abs(last[1])))
+        if near:
+            rows.append(r)
+    return rows
+
+
+def _kernels_under(e):
+    """The device kernels launched by a profiler event and its
+    children."""
+    return len(getattr(e, "kernels", ()) or ()) + sum(
+        _kernels_under(c) for c in getattr(e, "cpu_children", ()) or ())
+
+
+def phase_srl():
+    """Phase 28: SRL at the book's widths (build_srl: hidden SRL_HIDDEN,
+    depth SRL_DEPTH, the conll05 dictionaries), one batch of SRL_BATCH
+    conll05 sentences padded to SRL_LEN, SRL_STEPS Adam steps on the
+    card. Gates: every loss finite, the last 5 steps' mean below the
+    first 5's; on the trained weights (the clone(for_test=True) Program)
+    every row's NLL >= -SRL_NLL_FLOOR x its gold score's magnitude, and
+    the Viterbi path's score, recomputed in float64 on the host from the
+    fetched emissions and transition, >= the gold path's and within
+    SRL_VITERBI_RTOL of the float64 Viterbi maximum; chunk_eval's
+    precision, recall and F1 printed. Reports step p50 / p99, examples/s,
+    peak memory and a profile of SRL_PROFILE_STEPS steps by op (device
+    ms, operations, busy share; the forward recurrence's share)."""
+    import paddle_tpu_torch as fluid
+    main, startup, v = build_srl()
+    feed = srl_feed()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = sum(scope.get(p.name).numel() for p in main.all_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = _timed_steps(exe, main, feed, [v["loss"]], scope, SRL_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+    test = main.clone(for_test=True)
+    nll, em, path, *chunks = exe.run(
+        test, feed=feed, scope=scope,
+        fetch_list=[v["nll"], v["emission"], v["decode"]] + v["chunks"])
+    w = scope.get("srl_crf").double().cpu().numpy()
+    em = em.astype(np.float64)
+    lens = feed["length"].cpu().numpy()
+    target = feed["target"].cpu().numpy()
+    best, _paths = _viterbi64(em, w, lens)
+    got = np.array([_path_score64(em[r], w, path[r, :lens[r]])
+                    for r in range(len(lens))])
+    gold = np.array([_path_score64(em[r], w, target[r, :lens[r]])
+                     for r in range(len(lens))])
+    viterbi_err = float(np.max(np.abs(got - best)
+                               / np.maximum(np.abs(best), 1)))
+    nll_worst = float(np.min(nll.reshape(-1) / np.maximum(np.abs(gold), 1)))
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[
+        v["loss"]], scope=scope), SRL_PROFILE_STEPS)
+    rec_ms = prof["device_ms_per_step_by_op"].get("lstm", 0.0)
+    rec_ops = (prof.get("device_ops_per_step_by_op") or {}).get("lstm")
+    out = _seq_record(
+        "srl", f"db_lstm(word_dim={SRL_WORD_DIM}, mark_dim={SRL_MARK_DIM}, "
+        f"hidden_dim={SRL_HIDDEN}, depth={SRL_DEPTH}) + linear_chain_crf "
+        f"over conll05's dictionaries, Adam({SRL_LR}), f32", SRL_BATCH,
+        ms[2:], peak, prof, seq_len=SRL_LEN, params=int(params),
+        tokens=int(lens.sum()), loss_first=losses[0], loss_last=losses[-1],
+        losses=losses, nll_over_gold_magnitude_min=nll_worst,
+        viterbi_vs_float64_max_rel_err=viterbi_err,
+        viterbi_minus_gold_min=float(np.min(got - gold)),
+        chunk_precision_recall_f1=[float(c.reshape(-1)[0])
+                                   for c in chunks[:3]],
+        chunk_counts_infer_label_correct=[int(c.reshape(-1)[0])
+                                          for c in chunks[3:]],
+        recurrence_fwd_ms_per_step=rec_ms,
+        recurrence_fwd_share_of_device=rec_ms / prof["device_ms_per_step"],
+        recurrence_fwd_ops_per_step=rec_ops,
+        recurrence_fwd_share_of_ops=(
+            None if rec_ops is None
+            else rec_ops / prof["device_ops_per_step"]))
+    if not np.isfinite(losses).all() or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        _fail(f"srl: losses not finite or not falling: {losses}")
+    if nll_worst < -SRL_NLL_FLOOR:
+        _fail(f"srl: a row's NLL is below -{SRL_NLL_FLOOR} x its gold "
+              f"score's magnitude: {nll_worst}")
+    if not (np.all(got >= gold - SRL_VITERBI_RTOL * np.abs(gold))
+            and viterbi_err <= SRL_VITERBI_RTOL):
+        _fail(f"srl: the Viterbi path is not optimal in float64: its "
+              f"scores {got}, the maximum {best}, the gold {gold}")
+    return out
+
+
+def phase_srl_agree():
+    """Phase 28b: build_srl cut in depth (SRL_AGREE: depth, hidden, T,
+    batch), one startup scope (run on the CPU) copied to the card and to
+    the CPU, TF32 off, one step on each: every row's NLL within
+    SRL_AGREE_NLL_TOL relative, each @GRAD within SRL_AGREE_GRAD_TOL of
+    that gradient's largest entry, the Viterbi paths (the clone(
+    for_test=True) Program, before the step) equal apart from the rows
+    with a float64 near tie (listed)."""
+    import paddle_tpu_torch as fluid
+    a = SRL_AGREE
+    main, startup, v = build_srl(a["depth"], a["hidden"], a["batch"],
+                                 a["length"])
+    feed = {k: t.numpy() for k, t in srl_feed(a["batch"], a["length"],
+                                              "cpu").items()}
+    test = main.clone(for_test=True)
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    runs = {}
+    for where, place in (("card", fluid.CUDAPlace(0)),
+                         ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).to(exe.device, copy=True))
+        em, path = exe.run(test, feed=feed, scope=scope,
+                           fetch_list=[v["emission"], v["decode"]])
+        out = exe.run(main, feed=feed, scope=scope, fetch_list=[v["nll"]]
+                      + [nm + "@GRAD" for nm in names])
+        runs[where] = (em, path, out[0], out[1:])
+    card, cpu = runs["card"], runs["cpu"]
+    nll_err = float(np.max(np.abs(card[2] - cpu[2]) / np.abs(cpu[2])))
+    grad_errs = {nm: float(np.abs(g - h).max() / np.abs(h).max())
+                 for nm, g, h in zip(names, card[3], cpu[3])}
+    worst = max(grad_errs, key=grad_errs.get)
+    w = base.get("srl_crf").double().numpy()
+    ties = _near_tie_rows(cpu[0].astype(np.float64), w, feed["length"],
+                          SRL_TIE_TOL)
+    differ = sorted(set(np.nonzero((card[1] != cpu[1]).any(1))[0].tolist()))
+    out = {"config": a, "nll_rel_err": nll_err,
+           "grad_worst": [worst, grad_errs[worst]],
+           "emission_max_abs_diff": float(np.abs(card[0] - cpu[0]).max()),
+           "paths_differ_rows": differ, "near_tie_rows": ties,
+           "card": _card_line()}
+    print("srl agree " + json.dumps(out))
+    if nll_err > SRL_AGREE_NLL_TOL or grad_errs[worst] > SRL_AGREE_GRAD_TOL \
+            or set(differ) - set(ties):
+        _fail(f"srl agree: the card against the CPU: {out}")
+    return out
+
+
+def phase_srl_dp():
+    """Phase 28c: phase 28's cell through with_data_parallel(places=
+    [CUDAPlace(0)] * DP) against places=[CUDAPlace(0)] (dp 1), and two
+    plain Executor runs beside them, from one startup scope, SRL_DP_STEPS
+    steps: each loss and each first-step @GRAD of dp DP within
+    SRL_DP_SPREAD x the two plain runs' distance or SRL_DP_FLOOR of its
+    scale, whichever is larger; chunk_eval's counts at dp DP equal dp
+    1's, on the cell's decoded paths and on one path fed to both; a
+    ragged sequence_expand under dp DP refuses."""
+    import paddle_tpu_torch as fluid
+    main, startup, v = build_srl()
+    feed = srl_feed()
+    exe = fluid.Executor()
+    base = fluid.Scope()
+    exe.run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    test = main.clone(for_test=True)
+    one, many = [fluid.CUDAPlace(0)], [fluid.CUDAPlace(0)] * DP
+    runs = {}
+    for tag, prog, places in (("dp1", _dp_program(main, v["loss"], one), one),
+                              (f"dp{DP}", _dp_program(main, v["loss"], many),
+                               many),
+                              ("plain", main, None), ("plain2", main, None)):
+        scope = _copy_scope(base)
+        evalp = test if places is None else fluid.CompiledProgram(
+            test).with_data_parallel(places=places)
+        path, *counts = exe.run(evalp, feed=feed, scope=scope,
+                                fetch_list=[v["decode"]] + v["chunks"][3:])
+        losses, ms = [], []
+        for i in range(SRL_DP_STEPS):
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[v["loss"]] + ([nm + "@GRAD" for nm in
+                                                     names] if i == 0
+                                                    else []))
+            losses.append(out[0].double().item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                grads = [g.double() for g in out[1:]]
+        runs[tag] = {"losses": losses, "grads": grads, "ms": ms,
+                     "path": path, "counts": [int(c.reshape(-1)[0])
+                                              for c in counts]}
+        del scope
+    a, b = runs[f"dp{DP}"], runs["dp1"]
+    p, q = runs["plain"], runs["plain2"]
+    loss_bad, grad_bad, worst = [], [], (0.0, "")
+    for i, (x, y) in enumerate(zip(a["losses"], b["losses"])):
+        bound = max(SRL_DP_SPREAD * abs(p["losses"][i] - q["losses"][i]),
+                    SRL_DP_FLOOR * abs(y))
+        if abs(x - y) > bound:
+            loss_bad.append((i, x, y, bound))
+    for nm, x, y, g, h in zip(names, a["grads"], b["grads"], p["grads"],
+                              q["grads"]):
+        err = (x - y).abs().max().item()
+        bound = max(SRL_DP_SPREAD * (g - h).abs().max().item(),
+                    SRL_DP_FLOOR * y.abs().max().item())
+        worst = max(worst, (err / max(bound, 1e-30), nm))
+        if err > bound:
+            grad_bad.append((nm, err, bound))
+    # chunk_eval's dp rule alone, on one decoded path fed at dp 1 and DP
+    fed = {"path": b["path"], "target": feed["target"].cpu().numpy(),
+           "length": feed["length"].cpu().numpy()}
+    fed_counts = {}
+    for tag, places in (("dp1", one), (f"dp{DP}", many)):
+        prog = fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(
+                prog, fluid.Program()):
+            L = fluid.layers
+            pv, tv = (L.data(n, shape=[SRL_BATCH, SRL_LEN], dtype="int64",
+                             append_batch_size=False)
+                      for n in ("path", "target"))
+            lv = L.data("length", shape=[SRL_BATCH], dtype="int64",
+                        append_batch_size=False)
+            res = L.chunk_eval(pv, tv, "IOB", SRL_CHUNK_TYPES,
+                               seq_length=lv)
+        fed_counts[tag] = [float(np.asarray(r).reshape(-1)[0]) for r in
+                           exe.run(fluid.CompiledProgram(prog)
+                                   .with_data_parallel(places=places),
+                                   feed=fed, fetch_list=list(res))]
+    # the ragged sequence_expand refuses under dp
+    prog = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog,
+                                                        fluid.Program()):
+        L = fluid.layers
+        xv = L.data("x", shape=[4, 3], dtype="float32",
+                    append_batch_size=False)
+        yv = L.data("y", shape=[6, 3], dtype="float32",
+                    append_batch_size=False)
+        ylv = L.data("ylen", shape=[4], dtype="int64",
+                     append_batch_size=False)
+        ex = L.sequence_expand(xv, yv, y_length=ylv)
+    refused = None
+    try:
+        exe.run(fluid.CompiledProgram(prog).with_data_parallel(places=many),
+                feed={"x": np.ones((4, 3), np.float32),
+                      "y": np.zeros((6, 3), np.float32),
+                      "ylen": np.array([1, 2, 2, 1], np.int64)},
+                fetch_list=[ex])
+    except NotImplementedError as err:
+        refused = str(err)
+    out = {"losses": {t: r["losses"] for t, r in runs.items()},
+           "step_ms": {t: r["ms"] for t, r in runs.items()},
+           "grad_worst_over_bound": list(worst),
+           "chunk_counts": {t: r["counts"] for t, r in runs.items()},
+           "paths_equal_dp": bool((a["path"] == b["path"]).all()),
+           "fed_path_chunk_outputs": fed_counts,
+           "ragged_expand_refused": refused, "card": _card_line()}
+    print("srl dp " + json.dumps(out))
+    if loss_bad or grad_bad:
+        _fail(f"srl dp: dp {DP} against dp 1 beyond the bounds: losses "
+              f"{loss_bad}, @GRADs {grad_bad[:5]}")
+    if a["counts"] != b["counts"] or fed_counts["dp1"] != fed_counts[
+            f"dp{DP}"]:
+        _fail(f"srl dp: chunk_eval's counts differ: {out['chunk_counts']}, "
+              f"{fed_counts} (paths equal: {out['paths_equal_dp']})")
+    if refused is None:
+        _fail("srl dp: a ragged sequence_expand ran at dp > 1")
+    return out
+
+
+def build_ocr():
+    """(main, startup, vars): ocr_recognition.crnn_ctc_net at OCR_IMG,
+    OCR_CLASSES classes, hidden OCR_HIDDEN, base_filters OCR_FILTERS, its
+    warpctc loss over labels of their own lengths (build_train_net gives
+    every label the full label_len, so the phase feeds the lengths), the
+    greedy transcription and its edit distance to the labels, and
+    AdamOptimizer(OCR_LR)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ocr_recognition as ocr
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 28
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        images = L.data("pixels", shape=list(OCR_IMG), dtype="float32")
+        label = L.data("label", shape=[OCR_LABEL_LEN], dtype="int64")
+        lab_len = L.data("label_len", shape=[1], dtype="int64")
+        logits = ocr.crnn_ctc_net(images, OCR_CLASSES, OCR_HIDDEN,
+                                  OCR_FILTERS)
+        loss = L.mean(L.warpctc(logits, label, blank=0,
+                                label_length=lab_len))
+        decoded, dec_len = ocr.greedy_transcribe(logits)
+        dist, _num = L.edit_distance(decoded, label, normalized=False,
+                                     input_length=dec_len,
+                                     label_length=lab_len)
+        fluid.optimizer.AdamOptimizer(OCR_LR).minimize(loss)
+    return main, startup, {"loss": loss, "logits": logits,
+                           "decoded": decoded, "dec_len": dec_len,
+                           "dist": dist}
+
+
+def ocr_feed(device="cuda"):
+    """OCR_BATCH random images and labels of 4-OCR_LABEL_LEN ids in
+    1..OCR_CLASSES (0 past each length), from the seed."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 28)
+    lens = torch.randint(4, OCR_LABEL_LEN + 1, (OCR_BATCH, 1),
+                         generator=gen, device=device)
+    label = torch.randint(1, OCR_CLASSES + 1, (OCR_BATCH, OCR_LABEL_LEN),
+                          generator=gen, device=device)
+    label = label * (torch.arange(OCR_LABEL_LEN, device=device)[None]
+                     < lens)
+    return {"pixels": torch.rand((OCR_BATCH,) + OCR_IMG, generator=gen,
+                                 device=device),
+            "label": label, "label_len": lens}
+
+
+def phase_ocr():
+    """Phase 28d: CRNN-CTC (build_ocr; the conv tower gives 48 columns of
+    384 features), OCR_STEPS Adam steps on one batch of OCR_BATCH: the
+    last loss below OCR_MARGIN x the first; then on the clone(for_test=
+    True) Program the greedy transcription (-1-padded: each row's count
+    equals its non -1 entries) and its edit distance to the labels.
+    The port's warpctc recursion against F.ctc_loss (reduction none) on
+    the trained log-probs, feasible rows within OCR_CTC_RTOL, and both
+    ops' ms; the bidirectional GRU's two gru ops against a cuDNN
+    torch.nn.GRU of the same width, forward and forward + backward (both
+    library calls timed only, used nowhere on the path)."""
+    import paddle_tpu_torch as fluid
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import ctc_ops
+    main, startup, v = build_ocr()
+    feed = ocr_feed()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = _timed_steps(exe, main, feed, [v["loss"]], scope, OCR_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+    test = main.clone(for_test=True)
+    logits, dec, dlen, dist = exe.run(
+        test, feed=feed, scope=scope, return_numpy=False,
+        fetch_list=[v["logits"], v["decoded"], v["dec_len"], v["dist"]])
+    counts_ok = bool(((dec != -1).sum(1) == dlen.reshape(-1)).all())
+    # the CTC recursion against the library's on the same log-probs
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    b, t = lp.shape[:2]
+    in_len = torch.full((b,), t, dtype=torch.int64, device=lp.device)
+    lab_len = feed["label_len"].reshape(-1)
+    mine = ctc_ops.ctc_loss(lp, feed["label"], in_len, lab_len)
+    lib = F.ctc_loss(lp.transpose(0, 1), feed["label"], in_len, lab_len,
+                     blank=0, reduction="none", zero_infinity=False)
+    feasible = torch.isfinite(lib)
+    ctc_err = float(((mine - lib).abs() / lib.abs())[feasible].max())
+    ctc_ms = _event_ms(lambda: ctc_ops.ctc_loss(lp, feed["label"], in_len,
+                                                lab_len))
+    lib_ms = _event_ms(lambda: F.ctc_loss(
+        lp.transpose(0, 1), feed["label"], in_len, lab_len, blank=0,
+        reduction="none"))
+    gru = _gru_times(b, t, 3 * OCR_HIDDEN, OCR_HIDDEN)
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[
+        v["loss"]], scope=scope), OCR_PROFILE_STEPS)
+    out = _seq_record(
+        "ocr", f"ocr_recognition.crnn_ctc_net(img {OCR_IMG}, "
+        f"num_classes={OCR_CLASSES}, hidden={OCR_HIDDEN}, base_filters="
+        f"{OCR_FILTERS}) + warpctc (labels 4-{OCR_LABEL_LEN}), "
+        f"Adam({OCR_LR}), f32", OCR_BATCH, ms[2:], peak, prof,
+        columns=t, loss_first=losses[0], loss_last=losses[-1],
+        loss_ratio=losses[-1] / losses[0], losses=losses,
+        decoded_counts_match_non_pad=counts_ok,
+        decoded_len_mean=float(dlen.float().mean()),
+        edit_distance_mean=float(dist.float().mean()),
+        warpctc_vs_f_ctc_loss_max_rel_err=ctc_err,
+        feasible_rows=int(feasible.sum()),
+        warpctc_fwd_ms=ctc_ms, f_ctc_loss_fwd_ms=lib_ms, gru=gru)
+    if not losses[-1] < OCR_MARGIN * losses[0]:
+        _fail(f"ocr: the last loss {losses[-1]} is not below {OCR_MARGIN} "
+              f"x the first {losses[0]}")
+    if not counts_ok or not feasible.all() or ctc_err > OCR_CTC_RTOL:
+        _fail(f"ocr: decoded counts {counts_ok}, warpctc against "
+              f"F.ctc_loss {ctc_err} over {int(feasible.sum())} feasible "
+              f"rows (tolerance {OCR_CTC_RTOL})")
+    return out
+
+
+def _gru_times(b, t, d, h):
+    """ms of the port's two gru ops (forward and reverse, the
+    bidirectional layer of bigru_stack) on (b, t, d) against a cuDNN
+    torch.nn.GRU(d, h, bidirectional=True): forward, and forward +
+    backward into the weights."""
+    from paddle_tpu_torch.ops import rnn_ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 281)
+    x = _rand((b, t, d), gen)
+    ws = [(_rand((d, 3 * h), gen) * 0.05).requires_grad_(),
+          (_rand((h, 3 * h), gen) * 0.05).requires_grad_(),
+          _rand((3 * h,), gen).requires_grad_()]
+
+    def port():
+        return [rnn_ops.gru(_OpArgs({"Input": x, "WeightX": ws[0],
+                                     "WeightH": ws[1], "Bias": ws[2]},
+                                    {"is_reverse": rev}))["Hidden"]
+                for rev in (False, True)]
+
+    cudnn = torch.nn.GRU(d, h, batch_first=True, bidirectional=True).cuda()
+
+    def lib():
+        return [cudnn(x)[0]]
+
+    return {"shape_b_t_d_h": [b, t, d, h],
+            "port_fwd_ms": _event_ms(port),
+            "cudnn_fwd_ms": _event_ms(lib),
+            "port_fwd_bwd_ms": _event_ms(_fwd_bwd(port, ws)),
+            "cudnn_fwd_bwd_ms": _event_ms(_fwd_bwd(
+                lib, list(cudnn.parameters())))}
+
+
+def _lstm_times(b, t, d, h):
+    """ms of the port's lstm op on (b, t, d) with ragged lengths against
+    a cuDNN torch.nn.LSTM(d, h) on the same input (no lengths): forward,
+    and forward + backward into the weights."""
+    from paddle_tpu_torch.ops import rnn_ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 282)
+    x = _rand((b, t, d), gen)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    ws = [(_rand((d, 4 * h), gen) * 0.05).requires_grad_(),
+          (_rand((h, 4 * h), gen) * 0.05).requires_grad_(),
+          _rand((4 * h,), gen).requires_grad_()]
+
+    def port():
+        return [rnn_ops.lstm(_OpArgs({"Input": x, "WeightX": ws[0],
+                                      "WeightH": ws[1], "Bias": ws[2],
+                                      "Length": lens}, {}))["Hidden"]]
+
+    cudnn = torch.nn.LSTM(d, h, batch_first=True).cuda()
+
+    def lib():
+        return [cudnn(x)[0]]
+
+    return {"shape_b_t_d_h": [b, t, d, h],
+            "port_fwd_ms": _event_ms(port),
+            "cudnn_fwd_ms": _event_ms(lib),
+            "port_fwd_bwd_ms": _event_ms(_fwd_bwd(port, ws)),
+            "cudnn_fwd_bwd_ms": _event_ms(_fwd_bwd(
+                lib, list(cudnn.parameters())))}
+
+
+def phase_sentiment():
+    """Phase 28e: lstm_text.stacked_lstm_net at the book's widths (emb
+    SENT_EMB, hid SENT_HID: each LSTM's hidden is SENT_HID / 4, stacked
+    SENT_STACK, alternating direction) on imdb.train()'s 5147-word
+    dictionary, SENT_BATCH reviews cut to SENT_LEN, cross entropy,
+    Adam(SENT_LR), SENT_STEPS steps on one batch: every loss finite;
+    examples/s; one lstm op against a cuDNN torch.nn.LSTM of the same
+    width (timed only)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.dataset import imdb
+    from paddle_tpu_torch.models import lstm_text
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 28
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = L.data("words", shape=[SENT_LEN], dtype="int64")
+        seq_len = L.data("seq_len", shape=[1], dtype="int64")
+        label = L.data("label", shape=[1], dtype="int64")
+        pred = lstm_text.stacked_lstm_net(
+            words, seq_len, input_dim=imdb.WORD_DICT_SIZE, class_dim=2,
+            emb_dim=SENT_EMB, hid_dim=SENT_HID, stacked_num=SENT_STACK)
+        loss = L.mean(L.cross_entropy(pred, label))
+        fluid.optimizer.AdamOptimizer(SENT_LR).minimize(loss)
+    ids = np.zeros((SENT_BATCH, SENT_LEN), np.int64)
+    lens = np.zeros((SENT_BATCH, 1), np.int64)
+    labels = np.zeros((SENT_BATCH, 1), np.int64)
+    for i, (doc, lab) in zip(range(SENT_BATCH), imdb.train()()):
+        n = max(1, min(len(doc), SENT_LEN))
+        ids[i, :n], lens[i, 0], labels[i, 0] = doc[:n], n, lab
+    feed = {k: torch.from_numpy(a).cuda() for k, a in
+            (("words", ids), ("seq_len", lens), ("label", labels))}
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = _timed_steps(exe, main, feed, [loss], scope, SENT_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), SENT_PROFILE_STEPS)
+    out = _seq_record(
+        "sentiment", f"lstm_text.stacked_lstm_net(emb_dim={SENT_EMB}, "
+        f"hid_dim={SENT_HID}, stacked_num={SENT_STACK}) over imdb's "
+        f"{imdb.WORD_DICT_SIZE} words, Adam({SENT_LR}), f32", SENT_BATCH,
+        ms[2:], peak, prof, seq_len=SENT_LEN, tokens=int(lens.sum()),
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        lstm=_lstm_times(SENT_BATCH, SENT_LEN, SENT_HID, SENT_HID // 4))
+    if not np.isfinite(losses).all():
+        _fail(f"sentiment: a loss is not finite: {losses}")
+    return out
+
+
+def phase_recommender():
+    """Phase 28e: recommender.build_train_net() at its module widths
+    (6041 users, 3953 movies, towers of 200, sequence_conv + sum pools of
+    the title and categories, cos_sim), REC_BATCH synthetic ratings from
+    the seed, Adam(REC_LR), REC_STEPS steps on one batch: the last loss
+    below the first."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import recommender as rec
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 28
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _vars, _infer, loss = rec.build_train_net()
+        fluid.optimizer.AdamOptimizer(REC_LR).minimize(loss)
+    rng = np.random.default_rng(SEED + 28)
+    b = REC_BATCH
+
+    def ids(high, width=1):
+        return rng.integers(0, high, (b, width))
+
+    feed = {"user_id": ids(6041), "gender_id": ids(2), "age_id": ids(7),
+            "job_id": ids(21), "movie_id": ids(3953),
+            "category_ids": ids(19, rec.MAX_CAT_LEN),
+            "category_len": rng.integers(1, rec.MAX_CAT_LEN + 1, (b, 1)),
+            "title_ids": ids(5175, rec.MAX_TITLE_LEN),
+            "title_len": rng.integers(1, rec.MAX_TITLE_LEN + 1, (b, 1))}
+    feed = {k: torch.from_numpy(a.astype(np.int64)).cuda()
+            for k, a in feed.items()}
+    feed["score"] = torch.from_numpy(rng.uniform(1, 5, (b, 1)).astype(
+        np.float32)).cuda()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = _timed_steps(exe, main, feed, [loss], scope, REC_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), REC_PROFILE_STEPS)
+    out = _seq_record(
+        "recommender", f"recommender.build_train_net() (6041 users, 3953 "
+        f"movies), Adam({REC_LR}), f32", REC_BATCH, ms[2:], peak, prof,
+        loss_first=losses[0], loss_last=losses[-1], losses=losses)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        _fail(f"recommender: the loss did not fall: {losses}")
+    return out
+
+
+def phase_seq_all(flash, paged):
+    """Phases 28-28e. None launches an attention kernel: each is gated
+    at 0 flash and paged launches (_seq_phase). Returns (the counts over
+    the phases, records)."""
+    recs, total = {}, (0, 0, 0, 0, 0)
+    for key, name, fn in (
+            ("28", "28 SRL train", phase_srl),
+            ("28b", "28b SRL card vs CPU", phase_srl_agree),
+            ("28c", "28c SRL dp 2", phase_srl_dp),
+            ("28d", "28d CRNN-CTC OCR", phase_ocr),
+            ("28e sentiment", "28e stacked-LSTM sentiment", phase_sentiment),
+            ("28e recommender", "28e recommender", phase_recommender)):
+        recs[key], counts = _seq_phase(name, fn, flash, paged)
+        total = tuple(x + y for x, y in zip(total, counts))
+    return total, recs
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -8788,6 +9630,7 @@ def main():
     phase_ctr_all(flash, paged)
     guard_paths, guard_errs = phase_guarded_all(flash, paged)
     opt_paths, _ = phase_optimizers_all(flash, paged)
+    seq_counts, _ = phase_seq_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -8796,6 +9639,7 @@ def main():
             spec["small_draft_f32"]["target_launches"],
         "12 spec draft D 32 (f32)":
             spec["small_draft_f32"]["draft_launches"],
+        "28-28e sequence family (gated at 0)": seq_counts[4],
         **dlaunches, **tlaunches, **plaunches,
         **fleet["18"]["launches"], **fleet["18b"]["launches"],
         "18c self-healing f32 (3 replicas + resurrections)":
@@ -8886,7 +9730,8 @@ def main():
             tf_launches,
         "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":
             tfa_launches,
-        **guard_paths, **opt_paths}
+        **guard_paths, **opt_paths,
+        "28-28e sequence family (gated at 0)": seq_counts[:4]}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -9,17 +9,22 @@ Parity: python/paddle/fluid/layers/__init__.py; the counterpart of
 ``mean``, ``reduce_sum``, ``elementwise_add``/``sub``/``mul``/``div``/
 ``max``/``min``/``pow``, ``logical_and``, ``scale``, ``reshape``,
 ``transpose`` (for the attention layer), ``squeeze``, ``unsqueeze``,
-``concat``, ``slice``, ``gather``, ``expand``, ``topk``, ``cast`` and
-``softmax``, ``ops``' ``sigmoid``, ``exp``, ``ceil``, ``floor`` and
-``cos``, ``control_flow``'s ``equal``, ``greater_than``, ``less_than``
-and ``autoincreased_step_counter``,
-``learning_rate_scheduler``'s eight schedules,
-``loss``'s ``cross_entropy``, ``softmax_with_cross_entropy``,
-``square_error_cost`` and ``sigmoid_cross_entropy_with_logits``,
-``metric_op.accuracy``, ``attention``'s ``multi_head_attention``,
+``concat``, ``slice``, ``gather``, ``expand``, ``topk``, ``cast``,
+``softmax``, ``row_conv``, ``im2sequence``, ``linear_chain_crf``,
+``crf_decoding``, ``warpctc`` and ``ctc_greedy_decoder``, ``ops``'
+``sigmoid``, ``exp``, ``ceil``, ``floor`` and ``cos``, ``control_flow``'s
+``equal``, ``greater_than``, ``less_than`` and
+``autoincreased_step_counter``, ``learning_rate_scheduler``'s eight
+schedules, ``loss``'s ``cross_entropy``, ``softmax_with_cross_entropy``,
+``square_error_cost``, ``sigmoid_cross_entropy_with_logits`` and
+``cos_sim``, ``metric_op``'s ``accuracy``, ``edit_distance`` and
+``chunk_eval``, ``attention``'s ``multi_head_attention``,
 ``scaled_dot_product_attention`` and ``add_position_encoding``,
-``sequence.sequence_mask`` and ``beam_search``'s ``beam_search`` and
-``beam_search_decode``.
+``sequence``'s fifteen sequence layers (all of the JAX module's but
+``sequence_scatter`` and ``sequence_topk_avg_pooling``), ``rnn``'s
+``dynamic_lstm``, ``dynamic_lstmp``, ``dynamic_gru``, ``lstm``, ``gru``,
+``lstm_unit`` and ``gru_unit``, and ``beam_search``'s ``beam_search``
+and ``beam_search_decode``.
 """
 
 from .io import data
@@ -30,19 +35,31 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  elementwise_max, elementwise_min, elementwise_pow,
                  logical_and, scale, reshape, transpose, squeeze,
                  unsqueeze, concat, slice, gather, expand, topk, cast,
-                 softmax)
-from .tensor import (create_parameter, fill_constant, zeros_like, ones_like,
+                 softmax, row_conv, im2sequence, linear_chain_crf,
+                 crf_decoding, warpctc, ctc_greedy_decoder)
+from .tensor import (create_parameter, fill_constant,
+                     fill_constant_batch_size_like, zeros_like, ones_like,
                      sums, assign)
 from .ops import sigmoid, exp, ceil, floor, cos, log
 from .control_flow import (equal, greater_than, less_than,
                            autoincreased_step_counter)
 from .loss import (cross_entropy, softmax_with_cross_entropy,
-                   square_error_cost, sigmoid_cross_entropy_with_logits)
-from .metric_op import accuracy
+                   square_error_cost, sigmoid_cross_entropy_with_logits,
+                   cos_sim)
+from .metric_op import accuracy, edit_distance, chunk_eval
 from . import attention
 from .attention import (scaled_dot_product_attention, multi_head_attention,
                         add_position_encoding)
-from .sequence import sequence_mask
+from . import sequence
+from .sequence import (sequence_mask, sequence_pad, sequence_unpad,
+                       sequence_pool, sequence_first_step,
+                       sequence_last_step, sequence_softmax,
+                       sequence_expand, sequence_expand_as,
+                       sequence_reverse, sequence_conv, sequence_concat,
+                       sequence_slice, sequence_enumerate, sequence_reshape)
+from . import rnn
+from .rnn import (dynamic_lstm, dynamic_lstmp, dynamic_gru, lstm, gru,
+                  lstm_unit, gru_unit)
 from . import beam_search as beam_search_mod
 from .beam_search import beam_search, beam_search_decode
 from . import learning_rate_scheduler

@@ -2,8 +2,8 @@
 
 Parity: the loss functions of python/paddle/fluid/layers/nn.py; the
 counterpart of ``paddle_tpu/layers/loss.py``'s ``cross_entropy``,
-``softmax_with_cross_entropy``, ``square_error_cost`` and
-``sigmoid_cross_entropy_with_logits``.
+``softmax_with_cross_entropy``, ``square_error_cost``,
+``sigmoid_cross_entropy_with_logits`` and ``cos_sim``.
 """
 
 from ..core.layer_helper import LayerHelper
@@ -52,4 +52,16 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
     helper.append_op("sigmoid_cross_entropy_with_logits",
                      {"X": x, "Label": label}, {"Out": out},
                      {"ignore_index": ignore_index, "normalize": normalize})
+    return out
+
+
+def cos_sim(X, Y):
+    """Parity: fluid.layers.cos_sim: the cosine similarity of X's and Y's
+    rows, (B, 1)."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype, (X.shape[0], 1))
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("cos_sim", {"X": X, "Y": Y},
+                     {"Out": out, "XNorm": xn, "YNorm": yn})
     return out

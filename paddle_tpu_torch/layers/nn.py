@@ -26,25 +26,33 @@ def _pair(v, n=2):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Parity: fluid.layers.fc: mul, then the bias and the activation.
-    One input (the reference's list of inputs needs the sum op, not
-    ported)."""
-    if isinstance(input, (list, tuple)):
-        if len(input) != 1:
-            raise NotImplementedError("fc over several inputs needs the sum "
-                                      "op, which is not ported")
-        input = input[0]
+    """Parity: fluid.layers.fc: a mul for each input (each with its own
+    weight), their ``sum`` where there are several, then the bias and the
+    activation."""
     helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr,
                          act=act, name=name)
-    dtype = input.dtype
-    in_features = _prod(input.shape[num_flatten_dims:])
-    w = helper.create_parameter(attr=helper.param_attr,
-                                shape=[in_features, size], dtype=dtype)
-    out_shape = tuple(input.shape[:num_flatten_dims]) + (size,)
-    pre_bias = helper.create_variable_for_type_inference(dtype, out_shape)
-    helper.append_op("mul", {"X": input, "Y": w}, {"Out": pre_bias},
-                     {"x_num_col_dims": num_flatten_dims,
-                      "y_num_col_dims": 1})
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    dtype = inputs[0].dtype
+    p_attrs = helper.param_attr
+    if not isinstance(p_attrs, list):
+        p_attrs = [p_attrs] * len(inputs)
+    mul_results = []
+    for inp, p_attr in zip(inputs, p_attrs):
+        in_features = _prod(inp.shape[num_flatten_dims:])
+        w = helper.create_parameter(attr=p_attr, shape=[in_features, size],
+                                    dtype=dtype)
+        out_shape = tuple(inp.shape[:num_flatten_dims]) + (size,)
+        tmp = helper.create_variable_for_type_inference(dtype, out_shape)
+        helper.append_op("mul", {"X": inp, "Y": w}, {"Out": tmp},
+                         {"x_num_col_dims": num_flatten_dims,
+                          "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(
+            dtype, mul_results[0].shape)
+        helper.append_op("sum", {"X": mul_results}, {"Out": pre_bias})
     pre_act = _append_bias(helper, pre_bias, size, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
@@ -505,3 +513,121 @@ def relu(x, name=None):
     out = helper.create_variable_for_type_inference(x.dtype, x.shape)
     helper.append_op("relu", {"X": x}, {"Out": out})
     return out
+
+
+# ---- the sequence, CRF and CTC family ---------------------------------------
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Parity: fluid.layers.row_conv (the lookahead convolution of
+    DeepSpeech2): Filter (future_context_size + 1, D)."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    d = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[future_context_size + 1, d],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("row_conv", {"X": input, "Filter": w}, {"Out": out}, {})
+    return helper.append_activation(out)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """Parity: fluid.layers.im2sequence: the image's windows as rows
+    (N * oh * ow, C * kh * kw); the uniform per-image step count is the
+    op's Length output (int64)."""
+    helper = LayerHelper("im2sequence", name=name)
+    ins = {"X": input}
+    if input_image_size is not None:
+        ins["Y"] = input_image_size        # the op raises: dynamic windows
+    out = helper.create_variable_for_type_inference(input.dtype)
+    length = helper.create_variable_for_type_inference("int64")
+    helper.append_op("im2sequence", ins, {"Out": out, "Length": length},
+                     {"kernels": _pair(filter_size),
+                      "strides": _pair(stride),
+                      "paddings": _pair(padding, 4),
+                      "out_stride": _pair(out_stride)})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """Parity: fluid.layers.linear_chain_crf. Padded form: input (B, T,
+    num_tags), label (B, T[, 1]), length (B,). Returns each sequence's
+    negative log-likelihood (B, 1). The transition parameter is
+    [num_tags + 2, num_tags]: rows 0 and 1 are the start and end
+    scores."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_tags + 2, num_tags],
+        dtype="float32")
+    b = input.shape[0]
+    ll = helper.create_variable_for_type_inference("float32", (b, 1))
+    alpha = helper.create_variable_for_type_inference("float32", input.shape)
+    em_exps = helper.create_variable_for_type_inference("float32",
+                                                        input.shape)
+    tr_exps = helper.create_variable_for_type_inference(
+        "float32", (num_tags + 2, num_tags))
+    inputs = {"Emission": input, "Transition": transition, "Label": label}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("linear_chain_crf", inputs,
+                     {"LogLikelihood": ll, "Alpha": alpha,
+                      "EmissionExps": em_exps, "TransitionExps": tr_exps},
+                     {})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Parity: fluid.layers.crf_decoding: the Viterbi path (B, T) int64
+    (or the per-position mismatch flags where label is given). Pass the
+    param_attr name linear_chain_crf was given, so that decoding reads
+    the trained transition."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_tags + 2, num_tags],
+        dtype="float32")
+    out = helper.create_variable_for_type_inference(
+        "int64", tuple(input.shape[:2]))
+    inputs = {"Emission": input, "Transition": transition}
+    if label is not None:
+        inputs["Label"] = label
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("crf_decoding", inputs, {"ViterbiPath": out}, {})
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """Parity: fluid.layers.warpctc. Padded form: input (B, T, C) raw
+    logits, label (B, L) padded, the lengths in place of the LoD.
+    Returns each sequence's CTC loss (B, 1)."""
+    helper = LayerHelper("warpctc")
+    b = input.shape[0]
+    loss = helper.create_variable_for_type_inference("float32", (b, 1))
+    inputs = {"Logits": input, "Label": label}
+    if input_length is not None:
+        inputs["LogitsLength"] = input_length
+    if label_length is not None:
+        inputs["LabelLength"] = label_length
+    helper.append_op("warpctc", inputs, {"Loss": loss},
+                     {"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """Parity: fluid.layers.ctc_greedy_decoder: argmax, merge repeats,
+    drop blanks. Returns (decoded (B, T) int64 padded with -1, lengths
+    (B, 1) int64), the padded form of the LoD output."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    b, t = input.shape[0], input.shape[1]
+    out = helper.create_variable_for_type_inference("int64", (b, t))
+    out_len = helper.create_variable_for_type_inference("int64", (b, 1))
+    inputs = {"Input": input}
+    if input_length is not None:
+        inputs["InputLength"] = input_length
+    helper.append_op("ctc_greedy_decoder", inputs,
+                     {"Output": out, "OutputLength": out_len},
+                     {"blank": blank})
+    return out, out_len

@@ -2,7 +2,7 @@
 
 Parity: python/paddle/fluid/layers/tensor.py; the counterpart of
 ``paddle_tpu/layers/tensor.py``'s ``create_parameter``, ``fill_constant``,
-``zeros_like``, ``ones_like``, ``sums`` and ``assign`` (of a Variable).
+``fill_constant_batch_size_like``, ``zeros_like``, ``ones_like``, ``sums`` and ``assign`` (of a Variable).
 """
 
 from ..core.layer_helper import LayerHelper
@@ -29,6 +29,20 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper.append_op("fill_constant", {}, {"Out": out},
                      {"shape": list(shape), "dtype": dtype,
                       "value": float(value)})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """A constant of `shape` whose dim output_dim_idx is input's dim
+    input_dim_idx at run time (the batch, where the batch is -1)."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype, tuple(shape))
+    helper.append_op("fill_constant_batch_size_like", {"Input": input},
+                     {"Out": out},
+                     {"shape": list(shape), "dtype": dtype,
+                      "value": float(value), "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx})
     return out
 
 

@@ -273,3 +273,6 @@ from . import attention_ops   # noqa: E402,F401
 from . import metric_ops      # noqa: E402,F401
 from . import sequence_ops    # noqa: E402,F401
 from . import beam_search_ops  # noqa: E402,F401
+from . import rnn_ops         # noqa: E402,F401
+from . import crf_ops         # noqa: E402,F401
+from . import ctc_ops         # noqa: E402,F401

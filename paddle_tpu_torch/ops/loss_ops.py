@@ -103,3 +103,15 @@ def sigmoid_cross_entropy_with_logits(ctx):
     if ctx.attr("normalize", False):
         loss = loss / torch.clamp_min(mask.sum(), 1.0)
     return {"Out": loss}
+
+
+@register("cos_sim", dp=rows)
+def cos_sim(ctx):
+    """The cosine similarity of X and Y's rows (Y may be one row that
+    broadcasts), over max(|x| |y|, 1e-12); XNorm and YNorm beside it."""
+    x, y = ctx.in_("X"), ctx.in_("Y")
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / torch.clamp_min(
+        xn * yn, 1e-12)
+    return {"Out": out, "XNorm": xn, "YNorm": yn}

@@ -277,3 +277,32 @@ def dropout(ctx):
     if ctx.wants("Mask"):
         out["Mask"] = mask.to(x.dtype)
     return out
+
+
+@register("im2sequence", dp=rows)
+def im2sequence(ctx):
+    """Scan the image with a filter and emit one sequence step per window
+    position, each step the (C, kh, kw)-flattened patch: Out (N * oh *
+    ow, C * kh * kw), batch-major then row-major windows, and Length
+    (N,) int64, every image's oh * ow (one static size a batch makes the
+    LoD uniform). paddings are (up, left, down, right). The reference's
+    input_image_size mode needs per-sample window counts, which static
+    shapes cannot give; it raises, as in the JAX package."""
+    if ctx.in_("Y") is not None:
+        raise NotImplementedError(
+            "im2sequence(input_image_size=...) needs per-sample dynamic "
+            "window counts; pad images to one static size instead")
+    x = ctx.in_("X")
+    n, c = x.shape[:2]
+    k = _pair(ctx.attr("kernels"))
+    s = _pair(ctx.attr("strides", [1, 1]))
+    p = ctx.attr("paddings", [0, 0, 0, 0])
+    ph = (p[0], p[2] if len(p) > 2 else p[0])
+    pw = (p[1], p[3] if len(p) > 3 else p[1])
+    xp = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    patches = F.unfold(xp, k, stride=s)            # (N, C*kh*kw, L)
+    steps = patches.shape[2]
+    out = patches.transpose(1, 2).reshape(n * steps, c * k[0] * k[1])
+    return {"Out": out,
+            "Length": torch.full((n,), steps, dtype=torch.int64,
+                                 device=x.device)}

@@ -60,6 +60,19 @@ def fill_constant(ctx):
                               device=ctx.device)}
 
 
+@register("fill_constant_batch_size_like", dp=rows)
+def fill_constant_batch_size_like(ctx):
+    """A constant of `shape` whose dim output_dim_idx is Input's dim
+    input_dim_idx (a rank's rows under dp: Input's sharded dim 0)."""
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ctx.in_("Input").shape[ctx.attr("input_dim_idx", 0)]
+    return {"Out": torch.full(tuple(shape), ctx.attr("value", 0.0),
+                              dtype=torch_dtype(ctx.attr("dtype",
+                                                         "float32")),
+                              device=ctx.device)}
+
+
 def _reshape(x, shape):
     # fluid: 0 means copy input dim; -1 inferred.
     shape = [x.shape[i] if s == 0 else s
