@@ -509,6 +509,44 @@ backward kernels are printed):
    256, 20 steps: the loss falls). Every 28 phase prints step p50, device
    ms and operations a step, the busy share and peak memory beside the
    card's name and power limit, and launches no attention kernel (the
+   flash and paged counts gated at 0);
+29. contrib.decoder's seq2seq at WMT14's widths, built from public
+   layers here: a source embedding (30000 x 512), an ``fc`` to 3 x 512,
+   a ``dynamic_gru`` of 512 over the padded source with lengths,
+   ``sequence_last_step`` and an ``fc`` with tanh to the decoder's
+   ``InitState``; a ``StateCell`` whose updater is ``fc(concat([x, h]),
+   512, tanh)``, a ``TrainingDecoder`` over the time-major teacher-forced
+   ids with a target embedding (30000 x 512), a softmax ``fc`` of 30000,
+   ``cross_entropy`` and ``mean``, Adam(1e-3); 64 ``wmt14.train()``
+   pairs padded to 32, 30 steps on the fixed batch: every loss finite,
+   the last 5 steps' mean below the first 5's; the host syncs of a
+   training dispatch printed, and the recurrences' share of a step's
+   operations;
+29b. ``BeamSearchDecoder(beam_size=4, max_len=32, end_id=1,
+   length_penalty=0)`` on phase 29's trained parameters (by name) for
+   the 64 sources: the ids (64, 4, 32) in [0, 30000), the scores sorted
+   best first, and each row's top beam (and its other three beams)
+   replayed teacher-forced through phase 29's Program
+   (``clone(for_test=True)``), whose float64 sum of
+   ``log_softmax(log(p + 1e-9))`` of its ids up to and including the
+   first end id equals the beam's score within 1e-4 relative; the
+   decode's ms and its dispatch's host syncs printed;
+29c. phase 29's Program and 29b's decoder at batch 4, T 8 and the same
+   widths, one startup on the card and on the CPU (TF32 off): the loss
+   within 1e-5, each @GRAD within 1e-4 of its largest entry, the beam
+   ids equal apart from listed near ties (the differing beams' scores
+   within 1e-5); then each construct of the JAX package's control-flow
+   tests on the card against its closed-form answer (While's 45 / 10,
+   cond both ways, switch_case 20, StaticRNN's cumsum, a Switch
+   schedule on ``autoincreased_step_counter`` over 12 steps, IfElse's
+   row merge, DynamicRNN's frozen accumulator, the arrays through
+   ``tensor_array_to_tensor``, while_loop's 5 / 10, py_func's sort,
+   Print's text), the host syncs of one dispatch of each (StaticRNN,
+   DynamicRNN, Switch and IfElse gated at 0; While, cond, switch_case,
+   while_loop and py_func printed beside their iteration counts) and the
+   host µs a While iteration costs. Every 29 phase prints step p50,
+   device ms and operations, the busy share and peak memory beside the
+   card's name and power limit, and launches no attention kernel (the
    flash and paged counts gated at 0).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
@@ -543,7 +581,8 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's gated 0s,
+20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's and
+29-29c's gated 0s,
 with 16b/16c/17/19b/19c/20d/21b/21c/24/24b/26's errors in
 ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
@@ -881,6 +920,26 @@ REC_LR = 1e-3
 REC_STEPS = 20
 REC_PROFILE_STEPS = 3
 SEQ_TIME_REPS = 10                  # 28d/28e's op timings: calls a median
+# phases 29-29c: control flow through the Fluid entry points, and
+# contrib.decoder's seq2seq at WMT14's widths (the readers' 30000-word
+# dictionaries, 512-wide embeddings and state, beam 4)
+S2S_VOCAB, S2S_WIDTH = 30000, 512
+S2S_BATCH, S2S_LEN = 64, 32         # wmt14.train() pairs, the longest
+S2S_BOS, S2S_END = 0, 1             # the dictionaries' <s> and <e>
+S2S_LR = 1e-3
+S2S_STEPS = 30
+S2S_PROFILE_STEPS = 1
+S2S_BEAM = 4
+S2S_DECODES = 3                     # 29b: timed decodes (after one warm)
+S2S_REPLAY_RTOL = 1e-4              # a beam's score vs its replay
+# 29c: phase 29's Program cut to batch 4 and T 8 at the same widths, one
+# startup on the card and on the CPU, TF32 off
+S2S_AGREE = {"batch": 4, "length": 8}
+S2S_AGREE_LOSS_TOL = 1e-5           # relative
+S2S_AGREE_GRAD_TOL = 1e-4           # of each @GRAD's largest entry
+S2S_TIE_TOL = 1e-5                  # differing beams' scores this close
+CF_SWITCH_STEPS = 12                # the Switch schedule's steps
+CF_WHILE_LONG = 1000                # iterations of the host-µs While
 # phases 26-26c: ERNIE-base (phase 16's program) under guarded
 # asynchronous training: GUARD_STEPS steps of distinct ERNIE feeds, the
 # async window GUARD_WINDOW, a checkpoint every GUARD_CKPT_EVERY steps, a
@@ -8683,9 +8742,10 @@ def phase_optimizers_all(flash, paged):
 # ---------------------------------------------------------------------------
 
 def _seq_phase(name, fn, flash, paged, *args):
-    """One of phases 28-28e with the attention kernels' counts zeroed
-    before it and gated at 0 after it: the sequence family launches no
-    attention kernel. Returns (fn's result, the counts)."""
+    """One of phases 28-28e or 29-29c with the attention kernels' counts
+    zeroed before it and gated at 0 after it: the sequence family and the
+    control-flow constructs launch no attention kernel. Returns (fn's
+    result, the counts)."""
     _zero_counts(flash)
     paged.LAUNCHES = 0
     gc.collect()
@@ -9435,6 +9495,622 @@ def phase_seq_all(flash, paged):
     return total, recs
 
 
+# ---------------------------------------------------------------------------
+# phases 29-29c: control flow through the Fluid entry points, and
+# contrib.decoder's seq2seq at WMT14's widths
+# ---------------------------------------------------------------------------
+
+S2S_SRC_EMB, S2S_TRG_EMB = "s2s_src_emb", "s2s_trg_emb"
+S2S_OUT_W, S2S_OUT_B = "s2s_out.w", "s2s_out.b"
+
+
+def _s2s_encoder(fluid, L, batch, length, vocab, width):
+    """The source side: an embedding, an fc to 3 x width, a dynamic_gru
+    of width over the padded source with its lengths, and its last step
+    through an fc with tanh (the decoder's initial state)."""
+    src = fluid.data("src", [batch, length], "int64")
+    src_len = fluid.data("src_len", [batch], "int64")
+    emb = L.embedding(src, size=[vocab, width],
+                      param_attr=fluid.ParamAttr(name=S2S_SRC_EMB))
+    proj = L.fc(emb, size=3 * width, num_flatten_dims=2,
+                param_attr=fluid.ParamAttr(name="s2s_enc_proj.w"),
+                bias_attr=fluid.ParamAttr(name="s2s_enc_proj.b"))
+    hid = L.dynamic_gru(proj, width, length=src_len,
+                        param_attr=fluid.ParamAttr(name="s2s_enc_gru"),
+                        bias_attr=fluid.ParamAttr(name="s2s_enc_gru.b"))
+    return L.fc(L.sequence_last_step(hid, length=src_len), size=width,
+                act="tanh", param_attr=fluid.ParamAttr(name="s2s_enc_out.w"),
+                bias_attr=fluid.ParamAttr(name="s2s_enc_out.b"))
+
+
+def _s2s_cell(fluid, L, dec, encoded, width):
+    """The decoder's StateCell: h' = fc(concat([x, h]), width, tanh)."""
+    cell = dec.StateCell(inputs={"x": None},
+                         states={"h": dec.InitState(init=encoded)},
+                         out_state="h")
+
+    @cell.state_updater
+    def updater(state_cell):
+        nh = L.fc(L.concat([state_cell.get_input("x"),
+                            state_cell.get_state("h")], axis=-1),
+                  size=width, act="tanh",
+                  param_attr=fluid.ParamAttr(name="s2s_dec_step.w"),
+                  bias_attr=fluid.ParamAttr(name="s2s_dec_step.b"))
+        state_cell.set_state("h", nh)
+
+    return cell
+
+
+def build_s2s(batch=S2S_BATCH, length=S2S_LEN, vocab=S2S_VOCAB,
+              width=S2S_WIDTH):
+    """(main, startup, test, vars): the seq2seq of phase 29, trained
+    teacher-forced: _s2s_encoder, a TrainingDecoder over the time-major
+    ids (T, B) with a target embedding (vocab x width) into _s2s_cell
+    and a softmax fc of vocab on each step's state, cross_entropy and
+    mean, Adam(S2S_LR). `test` is main before the optimizer (for the
+    replay); vars: loss, probs (T, B, vocab)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.contrib import decoder as dec
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        encoded = _s2s_encoder(fluid, L, batch, length, vocab, width)
+        tf_ids = fluid.data("tf_ids", [length, batch], "int64")
+        labels = fluid.data("labels", [length, batch], "int64")
+        cell = _s2s_cell(fluid, L, dec, encoded, width)
+        decoder = dec.TrainingDecoder(cell)
+        with decoder.block():
+            cur = decoder.step_input(tf_ids)
+            emb = L.embedding(cur, size=[vocab, width],
+                              param_attr=fluid.ParamAttr(name=S2S_TRG_EMB))
+            cell.compute_state(inputs={"x": emb})
+            decoder.output(L.fc(
+                cell.get_state("h"), size=vocab, act="softmax",
+                param_attr=fluid.ParamAttr(name=S2S_OUT_W),
+                bias_attr=fluid.ParamAttr(name=S2S_OUT_B)))
+        probs = decoder()
+        loss = L.mean(L.cross_entropy(L.reshape(probs, shape=[-1, vocab]),
+                                      L.reshape(labels, shape=[-1, 1])))
+        test = main.clone(for_test=True)
+        fluid.optimizer.AdamOptimizer(S2S_LR).minimize(loss)
+    return main, startup, test, {"loss": loss, "probs": probs}
+
+
+def build_s2s_beam(batch=S2S_BATCH, length=S2S_LEN, vocab=S2S_VOCAB,
+                   width=S2S_WIDTH):
+    """(main, ids, scores): BeamSearchDecoder(beam_size=S2S_BEAM,
+    max_len=length, end_id=S2S_END, length_penalty=0) from the same
+    encoder and cell, the embedding and score head named as phase 29's,
+    so that it reads phase 29's parameters by name."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.contrib import decoder as dec
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        encoded = _s2s_encoder(fluid, L, batch, length, vocab, width)
+        init_ids = fluid.data("init_ids", [batch], "int64")
+        init_scores = fluid.data("init_scores", [batch, 1], "float32")
+        bsd = dec.BeamSearchDecoder(
+            _s2s_cell(fluid, L, dec, encoded, width), init_ids, init_scores,
+            target_dict_dim=vocab, word_dim=width, max_len=length,
+            beam_size=S2S_BEAM, end_id=S2S_END, length_penalty=0.0,
+            emb_param_attr=fluid.ParamAttr(name=S2S_TRG_EMB),
+            score_param_attr=fluid.ParamAttr(name=S2S_OUT_W),
+            score_bias_attr=fluid.ParamAttr(name=S2S_OUT_B))
+        bsd.decode()
+        ids, scores = bsd()
+    return main, ids, scores
+
+
+def s2s_feed(batch=S2S_BATCH, length=S2S_LEN, device="cuda"):
+    """The first `batch` pairs of wmt14.train() (16-32 words each, ids of
+    its 30000-word dictionaries): the source padded to `length` with its
+    lengths; the target time-major, teacher-forced (<s>, then the target)
+    and as labels (the target, then <e>), cut to `length` and padded with
+    <e>; the beam's start ids (<s>) and scores. int64 / f32 tensors on
+    `device`."""
+    from paddle_tpu_torch.dataset import wmt14
+    src = np.zeros((batch, length), np.int64)
+    lens = np.zeros(batch, np.int64)
+    tf = np.full((length, batch), S2S_END, np.int64)
+    lab = np.full((length, batch), S2S_END, np.int64)
+    for i, (s, t, _) in zip(range(batch), wmt14.train(S2S_VOCAB)()):
+        n = min(len(s), length)
+        src[i, :n], lens[i] = s[:n], n
+        seq = np.concatenate([[S2S_BOS], t])[:length]
+        tf[:len(seq), i] = seq
+        out = np.concatenate([t, [S2S_END]])[:length]
+        lab[:len(out), i] = out
+    feed = {"src": src, "src_len": lens, "tf_ids": tf, "labels": lab,
+            "init_ids": np.full(batch, S2S_BOS, np.int64),
+            "init_scores": np.zeros((batch, 1), np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+
+
+def _pick(feed, *names):
+    return {n: feed[n] for n in names}
+
+
+def _dispatch_syncs(exe, program, feed, fetch, scope):
+    """The file:line of each host sync torch reported in one dispatch of
+    `program` (run_async's half of a step: the ops walked, the launches
+    queued, feeds through pinned memory); the step is then finished."""
+    _, where = _count_syncs(lambda: exe._dispatch(
+        program, feed, fetch, scope, in_flight=True))
+    torch.cuda.synchronize()
+    return where
+
+
+def phase_s2s():
+    """Phase 29: contrib.decoder's seq2seq at WMT14's widths (build_s2s:
+    vocab S2S_VOCAB, width S2S_WIDTH), S2S_BATCH wmt14.train() pairs
+    padded to S2S_LEN, S2S_STEPS Adam steps on a fixed batch. Gates: every
+    loss finite, the last 5 steps' mean below the first 5's. Prints the
+    host syncs of one training dispatch (not gated), step p50 / p99,
+    peak memory and a profile of one step by op (the recurrences' share
+    of the operations). Returns (the record, the trained state)."""
+    import paddle_tpu_torch as fluid
+    main, startup, test, v = build_s2s()
+    feed = s2s_feed()
+    train_feed = _pick(feed, "src", "src_len", "tf_ids", "labels")
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = sum(scope.get(p.name).numel() for p in main.all_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = _timed_steps(exe, main, train_feed, [v["loss"]], scope,
+                            S2S_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+    syncs = _dispatch_syncs(exe, main, train_feed, [v["loss"]], scope)
+    prof = _profile_ops(lambda: exe.run(main, feed=train_feed, fetch_list=[
+        v["loss"]], scope=scope), S2S_PROFILE_STEPS)
+    ops_by = prof.get("device_ops_per_step_by_op") or {}
+    ms_by = prof["device_ms_per_step_by_op"]
+    rec = _seq_record(
+        "s2s", f"seq2seq: embedding {S2S_VOCAB} x {S2S_WIDTH}, fc 3 x "
+        f"{S2S_WIDTH}, dynamic_gru {S2S_WIDTH}, TrainingDecoder over "
+        f"StateCell fc(concat([x, h]), {S2S_WIDTH}, tanh), softmax fc "
+        f"{S2S_VOCAB}, Adam({S2S_LR}), f32", S2S_BATCH, ms[2:], peak, prof,
+        seq_len=S2S_LEN, params=int(params),
+        tokens=int(feed["src_len"].sum()), loss_first=losses[0],
+        loss_last=losses[-1], losses=losses,
+        syncs_in_a_training_dispatch=len(syncs),
+        sync_sites=sorted(set(syncs)),
+        decoder_fwd_ms_per_step=ms_by.get("static_rnn", 0.0),
+        decoder_fwd_share_of_ops=(ops_by.get("static_rnn", 0)
+                                  / prof["device_ops_per_step"]),
+        encoder_gru_fwd_share_of_ops=(ops_by.get("gru", 0)
+                                      / prof["device_ops_per_step"]))
+    if not np.isfinite(losses).all() or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        _fail(f"s2s: losses not finite or not falling: {losses}")
+    return rec, (exe, scope, test, v, feed)
+
+
+def _log_softmax64(p):
+    """log_softmax(log(p + 1e-9)) over the last axis, in float64: the
+    beam's per-step log-probabilities of a softmax head."""
+    lp = np.log(p.astype(np.float64) + 1e-9)
+    m = lp.max(-1, keepdims=True)
+    return lp - (m + np.log(np.exp(lp - m).sum(-1, keepdims=True)))
+
+
+def _replay_scores(exe, test, v, feed, scope, ids):
+    """Each beam of each row (ids: (B, K, T)) replayed teacher-forced
+    through phase 29's Program, one beam rank a run: <s> then its ids,
+    the softmax fetched, the float64 sum of the log-probabilities of its
+    ids up to and including the first <e>. Returns (B, K) sums and the
+    replayed steps."""
+    want = np.zeros(ids.shape[:2])
+    steps = np.zeros(ids.shape[:2], np.int64)
+    for k in range(ids.shape[1]):
+        beam = ids[:, k, :].T                       # (T, B)
+        rfeed = dict(_pick(feed, "src", "src_len"))
+        tf = np.concatenate([np.full((1, beam.shape[1]), S2S_BOS),
+                             beam[:-1]])
+        rfeed["tf_ids"] = torch.from_numpy(tf).to(feed["src"].device)
+        rfeed["labels"] = torch.from_numpy(
+            np.ascontiguousarray(beam)).to(feed["src"].device)
+        probs = exe.run(test, feed=rfeed, fetch_list=[v["probs"]],
+                        scope=scope)[0]
+        for b in range(beam.shape[1]):
+            row = beam[:, b]
+            n = int(np.argmax(row == S2S_END)) + 1 \
+                if (row == S2S_END).any() else len(row)
+            lp = _log_softmax64(probs[:n, b])
+            want[b, k] = lp[np.arange(n), row[:n]].sum()
+            steps[b, k] = n
+    return want, steps
+
+
+def phase_s2s_beam(trained):
+    """Phase 29b: BeamSearchDecoder(beam_size=S2S_BEAM, max_len=S2S_LEN,
+    end_id=S2S_END, length_penalty=0) reading phase 29's trained
+    parameters by name, for its S2S_BATCH sources. Gates: the ids are
+    (S2S_BATCH, S2S_BEAM, S2S_LEN) in [0, S2S_VOCAB); the scores sorted
+    best first; each row's beams (the top one, and the others, whose
+    paths run longer on the briefly trained weights) replayed
+    teacher-forced through phase 29's Program score (in float64,
+    log_softmax(log(p + 1e-9)) of their ids up to and including the
+    first end id) within S2S_REPLAY_RTOL of the beam's score. Prints the decode's ms for the batch (p50 of
+    S2S_DECODES after one warm), the host syncs of one decode's dispatch
+    and a profile of one decode."""
+    exe, scope, test, v, feed = trained
+    bmain, ids_v, scores_v = build_s2s_beam()
+    bfeed = _pick(feed, "src", "src_len", "init_ids", "init_scores")
+    fetch = [ids_v, scores_v]
+    exe.run(bmain, feed=bfeed, fetch_list=fetch, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = _timed_steps(exe, bmain, bfeed, fetch, scope, S2S_DECODES)
+    peak = torch.cuda.max_memory_allocated()
+    ids, scores = outs[-1]
+    syncs = _dispatch_syncs(exe, bmain, bfeed, fetch, scope)
+    prof = _profile_ops(lambda: exe.run(bmain, feed=bfeed, fetch_list=fetch,
+                                        scope=scope), 1)
+    want_shape = (S2S_BATCH, S2S_BEAM, S2S_LEN)
+    if ids.shape != want_shape or ids.min() < 0 or ids.max() >= S2S_VOCAB:
+        _fail(f"s2s beam: ids {ids.shape} in [{ids.min()}, {ids.max()}], "
+              f"want {want_shape} in [0, {S2S_VOCAB})")
+    if (np.diff(scores, axis=1) > 0).any():
+        _fail(f"s2s beam: scores not sorted best first: {scores}")
+    want, steps = _replay_scores(exe, test, v, feed, scope, ids)
+    rel = np.abs(scores - want) / np.maximum(np.abs(want), 1e-30)
+    top = ids[:, 0, :]
+    rec = _seq_record(
+        "s2s beam", f"BeamSearchDecoder(beam_size={S2S_BEAM}, max_len="
+        f"{S2S_LEN}, end_id={S2S_END}, length_penalty=0) on phase 29's "
+        f"parameters", S2S_BATCH, ms, peak, prof,
+        decode_ms_p50=float(np.median(ms)),
+        syncs_in_a_decode_dispatch=len(syncs),
+        sync_sites=sorted(set(syncs)),
+        replay_max_rel_err=float(rel.max()),
+        replay_top_beam_max_rel_err=float(rel[:, 0].max()),
+        replayed_steps_by_beam_mean=steps.mean(0).tolist(),
+        replayed_steps_max=int(steps.max()),
+        top_beam_rows_ending_in_end_id=int((top == S2S_END).any(1).sum()),
+        top_beam_distinct_ids=int(len(np.unique(top))),
+        top_score_mean=float(scores[:, 0].mean()))
+    if rel.max() > S2S_REPLAY_RTOL:
+        _fail(f"s2s beam: beams' scores against their float64 replay "
+              f"{rel.max()} > {S2S_REPLAY_RTOL}: {scores} vs {want}")
+    return rec
+
+
+def _beam_ties(card, cpu, tol):
+    """The rows whose beams differ between the card's and the CPU's
+    (ids, scores): a row is a near tie when every beam whose ids differ
+    has the same score on both within `tol` relative (the two searches
+    found equally good beams). Returns (differing rows, near ties)."""
+    differ, ties = [], []
+    for b in range(card[0].shape[0]):
+        beams = np.nonzero((card[0][b] != cpu[0][b]).any(-1))[0]
+        if not len(beams):
+            continue
+        differ.append(b)
+        s, t = card[1][b, beams], cpu[1][b, beams]
+        if (np.abs(s - t) <= tol * np.abs(t)).all():
+            ties.append(b)
+    return differ, ties
+
+
+def phase_s2s_agree():
+    """Phase 29c, first half: phase 29's Program and 29b's decoder cut to
+    S2S_AGREE (batch, T) at the same widths, one startup scope (run on
+    the CPU) copied to the card and to the CPU, TF32 off: the loss within
+    S2S_AGREE_LOSS_TOL relative, each @GRAD within S2S_AGREE_GRAD_TOL of
+    that gradient's largest entry, the beam ids equal apart from listed
+    near ties (_beam_ties with S2S_TIE_TOL). Then the card's step p50,
+    peak memory and a profile of one step at that size."""
+    import paddle_tpu_torch as fluid
+    a = S2S_AGREE
+    main, startup, _, v = build_s2s(a["batch"], a["length"])
+    bmain, ids_v, scores_v = build_s2s_beam(a["batch"], a["length"])
+    feed = s2s_feed(a["batch"], a["length"], "cpu")
+    train_feed = _pick(feed, "src", "src_len", "tf_ids", "labels")
+    bfeed = _pick(feed, "src", "src_len", "init_ids", "init_scores")
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    runs, card = {}, None
+    for where, place in (("card", fluid.CUDAPlace(0)),
+                         ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).to(exe.device, copy=True))
+        beams = exe.run(bmain, feed=bfeed, fetch_list=[ids_v, scores_v],
+                        scope=scope)
+        out = exe.run(main, feed=train_feed, fetch_list=[v["loss"]]
+                      + [nm + "@GRAD" for nm in names], scope=scope)
+        runs[where] = (beams, out[0], out[1:])
+        if where == "card":
+            card = (exe, scope)
+    loss_err = float(np.abs(runs["card"][1] - runs["cpu"][1]).max()
+                     / np.abs(runs["cpu"][1]).max())
+    grad_errs = {nm: float(np.abs(g - h).max() / np.abs(h).max())
+                 for nm, g, h in zip(names, runs["card"][2], runs["cpu"][2])}
+    worst = max(grad_errs, key=grad_errs.get)
+    differ, ties = _beam_ties(runs["card"][0], runs["cpu"][0], S2S_TIE_TOL)
+    exe, scope = card
+    cfeed = {k: t.cuda() for k, t in train_feed.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _, ms = _timed_steps(exe, main, cfeed, [v["loss"]], scope, 5)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_ops(lambda: exe.run(main, feed=cfeed, fetch_list=[
+        v["loss"]], scope=scope), 1)
+    rec = _seq_record(
+        "s2s agree", dict(a, vocab=S2S_VOCAB, width=S2S_WIDTH), a["batch"],
+        ms[2:], peak, prof, loss_rel_err=loss_err,
+        grad_worst=[worst, grad_errs[worst]],
+        beam_score_max_rel_diff=float(np.max(
+            np.abs(runs["card"][0][1] - runs["cpu"][0][1])
+            / np.abs(runs["cpu"][0][1]))),
+        beam_rows_differ=differ, beam_near_tie_rows=ties)
+    if loss_err > S2S_AGREE_LOSS_TOL or \
+            grad_errs[worst] > S2S_AGREE_GRAD_TOL or set(differ) - set(ties):
+        _fail(f"s2s agree: the card against the CPU: {rec}")
+    return rec
+
+
+def _cf_program(build):
+    """build(fluid, layers) in a Program of its own: (main, startup,
+    fetch vars)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        res = build(fluid, L)
+    return main, startup, list(res) if isinstance(res, (list, tuple)) \
+        else [res]
+
+
+def _cf_case(exe, build, feed=None, steps=1):
+    """One construct's Program on the card: (each of `steps` runs'
+    fetches as numpy, the host syncs of one more dispatch)."""
+    import paddle_tpu_torch as fluid
+    main, startup, res = _cf_program(build)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = feed or {}
+    outs = [exe.run(main, feed=feed, fetch_list=res, scope=scope)
+            for _ in range(steps)]
+    return outs, _dispatch_syncs(exe, main, feed, res, scope)
+
+
+def _cf_while(limit):
+    def build(fluid, L):
+        i = L.fill_constant((1,), "int64", 0)
+        n = L.fill_constant((1,), "int64", limit)
+        acc = L.fill_constant((1,), "float32", 0.0)
+        c = L.less_than(i, n)
+        w = L.While(c)
+        with w.block():
+            L.assign(acc + L.cast(i, "float32"), acc)
+            L.increment(i, 1)
+            L.less_than(i, n, cond=c)
+        return acc, i
+    return build
+
+
+def _cf_cond(a_val):
+    def build(fluid, L):
+        a = L.fill_constant((1,), "float32", a_val)
+        five = L.fill_constant((1,), "float32", 5.0)
+        return L.cond(L.less_than(a, five), lambda: a * 2,
+                      lambda: five * 2)
+    return build
+
+
+def _cf_switch_case(fluid, L):
+    idx = L.fill_constant((), "int64", 1)
+    return L.switch_case(idx, {
+        k: (lambda v=v: L.fill_constant((1,), "float32", v))
+        for k, v in enumerate((10.0, 20.0, 30.0))})
+
+
+def _cf_static_rnn(fluid, L):
+    x = L.data("x", [4, 2, 3], append_batch_size=False)
+    rnn = L.StaticRNN()
+    with rnn.step():
+        x_t = rnn.step_input(x)
+        mem = rnn.memory(shape=[2, 3], value=0.0)
+        new = mem + x_t
+        rnn.update_memory(mem, new)
+        rnn.step_output(new)
+    return rnn()
+
+
+# the Switch schedule: 1.0 while the step counter is below 4, 0.5 below
+# 8, else 0.1
+CF_SCHEDULE = ((4, 1.0), (8, 0.5), (None, 0.1))
+
+
+def _cf_schedule(fluid, L):
+    step = L.autoincreased_step_counter(begin=1)
+    lr = L.create_global_var((1,), 0.0, "float32", persistable=True,
+                             name="cf_lr")
+    sw = L.Switch()
+    with sw.block():
+        for bound, value in CF_SCHEDULE:
+            case = sw.default() if bound is None else sw.case(
+                L.less_than(step, L.fill_constant((1,), "int64", bound)))
+            with case:
+                L.assign(L.fill_constant((1,), "float32", value), lr)
+    return lr, step
+
+
+def _cf_ifelse(fluid, L):
+    x = L.data("x", [4, 1], append_batch_size=False)
+    ie = L.IfElse(L.greater_than(x, L.fill_constant((1,), "float32", 0.0)))
+    with ie.true_block():
+        ie.output(L.scale(ie.input(x), 2.0))
+    with ie.false_block():
+        ie.output(L.scale(ie.input(x), 1.0, bias=-1.0))
+    return ie()[0]
+
+
+def _cf_dynamic_rnn(fluid, L):
+    x = fluid.data("x", [3, 5, 2], "float32")
+    lens = fluid.data("len", [3], "int64")
+    drnn = L.DynamicRNN()
+    with drnn.block():
+        cur = drnn.step_input(x, length=lens)
+        mem = drnn.memory(shape=[3, 2], value=0.0)
+        acc = L.elementwise_add(mem, cur)
+        drnn.update_memory(mem, acc)
+        drnn.output(acc)
+    return drnn()
+
+
+def _cf_arrays(fluid, L):
+    arr = L.array_write(L.fill_constant([2, 3], "float32", 1.0), 0)
+    L.array_write(L.fill_constant([2, 3], "float32", 2.0), 1, array=arr)
+    out, index = L.tensor_array_to_tensor(arr, axis=1)
+    stacked, _ = L.tensor_array_to_tensor(arr, axis=0, use_stack=True)
+    return out, index, stacked, L.array_length(arr)
+
+
+def _cf_while_loop(fluid, L):
+    i = L.fill_constant(shape=[1], dtype="float32", value=0.0)
+    s = L.fill_constant(shape=[1], dtype="float32", value=0.0)
+    return L.while_loop(cond=lambda i, s: (i < 5.0).reshape(()),
+                        body=lambda i, s: [i + 1.0, s + i],
+                        loop_vars=[i, s])
+
+
+def _cf_py_func(fluid, L):
+    x = L.data("x", [2, 4], append_batch_size=False)
+    out = L.create_global_var([2, 4], 0.0, "float32", name="cf_pyout")
+    return L.py_func(lambda a: np.sort(a, axis=-1), x, out)
+
+
+def _cf_print(fluid, L):
+    x = L.fill_constant([2], "float32", 5.0)
+    return L.Print(x, message="dbg:"), x
+
+
+def _check(name, got, want, recs, syncs, iterations=None):
+    """One construct's closed-form check and its record."""
+    for g, w in zip(got, want):
+        if np.asarray(g).shape != np.asarray(w).shape or \
+                not np.allclose(g, w, rtol=1e-6, atol=1e-6):
+            _fail(f"control flow {name}: got {got}, want {want}")
+    recs[name] = {"syncs_a_dispatch": len(syncs),
+                  "sync_sites": sorted(set(syncs))}
+    if iterations is not None:
+        recs[name]["iterations"] = iterations
+
+
+def _while_host_us(exe):
+    """The host µs a While iteration costs: a dispatch of CF_WHILE_LONG
+    iterations against one of 10, each the median of three, over the
+    iterations between."""
+    import paddle_tpu_torch as fluid
+    ms = {}
+    for limit in (10, CF_WHILE_LONG):
+        main, startup, res = _cf_program(_cf_while(limit))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        _, t = _timed_steps(exe, main, {}, res, scope, 4)
+        ms[limit] = float(np.median(t[1:]))
+    return (ms[CF_WHILE_LONG] - ms[10]) / (CF_WHILE_LONG - 10) * 1e3, ms
+
+
+def phase_cf_constructs():
+    """Phase 29c, second half: each construct of the JAX package's
+    control-flow tests on the card, against its closed-form answer:
+    While's 45 / 10, cond both ways, switch_case 20, StaticRNN's cumsum,
+    a Switch piecewise schedule on autoincreased_step_counter over
+    CF_SWITCH_STEPS steps (each step's LR its boundary value), IfElse's
+    row merge, DynamicRNN's frozen accumulator, the arrays through
+    tensor_array_to_tensor, while_loop's 5 / 10, py_func's sort and
+    Print's text. The host syncs of one dispatch of each: StaticRNN,
+    DynamicRNN, Switch and IfElse (select) gated at 0; While, cond,
+    switch_case, while_loop and py_func printed beside their iteration
+    counts. Prints the host µs a While iteration costs."""
+    import contextlib
+    import io as _io
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor()
+    recs = {}
+    outs, syncs = _cf_case(exe, _cf_while(10))
+    _check("While", outs[0], [[45.0], [10]], recs, syncs, 10)
+    for a_val, want in ((3.0, 6.0), (7.0, 10.0)):
+        outs, syncs = _cf_case(exe, _cf_cond(a_val))
+        _check(f"cond({a_val} < 5)", outs[0], [[want]], recs, syncs, 1)
+    outs, syncs = _cf_case(exe, _cf_switch_case)
+    _check("switch_case", outs[0], [[20.0]], recs, syncs)
+    x = np.arange(24).reshape(4, 2, 3).astype("float32")
+    outs, syncs = _cf_case(exe, _cf_static_rnn, {"x": x})
+    _check("StaticRNN", outs[0], [np.cumsum(x, 0)], recs, syncs, 4)
+    outs, syncs = _cf_case(exe, _cf_schedule, steps=CF_SWITCH_STEPS)
+    for k, out in enumerate(outs):
+        step = k + 1
+        want = next(v for b, v in CF_SCHEDULE if b is None or step < b)
+        _check("Switch schedule", out, [[want], [step]], recs, syncs)
+    x = np.array([[-2.0], [3.0], [0.5], [-0.1]], np.float32)
+    outs, syncs = _cf_case(exe, _cf_ifelse, {"x": x})
+    _check("IfElse (select)", outs[0], [np.where(x > 0, 2 * x, x - 1)],
+           recs, syncs)
+    xd = np.random.default_rng(0).standard_normal((3, 5, 2)).astype(
+        np.float32)
+    lens = np.array([5, 2, 4], np.int64)
+    want = np.cumsum(xd, 1) * (np.arange(5)[None, :, None]
+                               < lens[:, None, None])
+    outs, syncs = _cf_case(exe, _cf_dynamic_rnn, {"x": xd, "len": lens})
+    _check("DynamicRNN", outs[0], [want], recs, syncs, 5)
+    ones, twos = np.ones((2, 3)), np.full((2, 3), 2.0)
+    outs, syncs = _cf_case(exe, _cf_arrays)
+    _check("arrays", outs[0], [np.concatenate([ones, twos], 1), [3, 3],
+                               np.stack([ones, twos]), 2], recs, syncs)
+    outs, syncs = _cf_case(exe, _cf_while_loop)
+    _check("while_loop", outs[0], [[5.0], [10.0]], recs, syncs, 5)
+    xp = np.array([[3, 1, 2, 0], [9, 7, 8, 6]], np.float32)
+    outs, syncs = _cf_case(exe, _cf_py_func, {"x": xp})
+    _check("py_func", outs[0], [np.sort(xp, -1)], recs, syncs)
+    main, startup, (out, x_var) = _cf_program(_cf_print)
+    text = _io.StringIO()
+    with contextlib.redirect_stdout(text):
+        got = exe.run(main, fetch_list=[out])
+    want_text = f"dbg:{x_var.name} shape=(2,) value= [5. 5.]\n"
+    if text.getvalue() != want_text:
+        _fail(f"control flow Print: printed {text.getvalue()!r}, want "
+              f"{want_text!r}")
+    _check("Print", got, [[5.0, 5.0]], recs, [])
+    recs["Print"]["text"] = text.getvalue()
+    us, ms = _while_host_us(exe)
+    recs["While"]["host_us_per_iteration"] = us
+    recs["While"]["dispatch_ms_by_iterations"] = ms
+    out = {"constructs": recs, "card": _card_line()}
+    print("control flow " + json.dumps(out))
+    synced = [n for n in ("StaticRNN", "Switch schedule", "IfElse (select)",
+                          "DynamicRNN") if recs[n]["syncs_a_dispatch"]]
+    if synced:
+        _fail(f"control flow: host syncs in {synced}: "
+              f"{ {n: recs[n] for n in synced} }")
+    return out
+
+
+def phase_cf_all(flash, paged):
+    """Phases 29-29c. None launches an attention kernel: each is gated at
+    0 flash and paged launches (_seq_phase). Returns (the counts over the
+    phases, records)."""
+    recs, total = {}, (0, 0, 0, 0, 0)
+    (recs["29"], trained), counts = _seq_phase(
+        "29 seq2seq train", phase_s2s, flash, paged)
+    total = tuple(x + y for x, y in zip(total, counts))
+    for key, name, fn, args in (
+            ("29b", "29b seq2seq beam search", phase_s2s_beam, (trained,)),
+            ("29c agree", "29c seq2seq card vs CPU", phase_s2s_agree, ()),
+            ("29c constructs", "29c control-flow constructs",
+             phase_cf_constructs, ())):
+        recs[key], counts = _seq_phase(name, fn, flash, paged, *args)
+        total = tuple(x + y for x, y in zip(total, counts))
+    del trained
+    return total, recs
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -9631,6 +10307,7 @@ def main():
     guard_paths, guard_errs = phase_guarded_all(flash, paged)
     opt_paths, _ = phase_optimizers_all(flash, paged)
     seq_counts, _ = phase_seq_all(flash, paged)
+    cf_counts, _ = phase_cf_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -9640,6 +10317,7 @@ def main():
         "12 spec draft D 32 (f32)":
             spec["small_draft_f32"]["draft_launches"],
         "28-28e sequence family (gated at 0)": seq_counts[4],
+        "29-29c control flow (gated at 0)": cf_counts[4],
         **dlaunches, **tlaunches, **plaunches,
         **fleet["18"]["launches"], **fleet["18b"]["launches"],
         "18c self-healing f32 (3 replicas + resurrections)":
@@ -9731,7 +10409,8 @@ def main():
         "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":
             tfa_launches,
         **guard_paths, **opt_paths,
-        "28-28e sequence family (gated at 0)": seq_counts[:4]}
+        "28-28e sequence family (gated at 0)": seq_counts[:4],
+        "29-29c control flow (gated at 0)": cf_counts[:4]}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -64,6 +64,7 @@ from .core.param_attr import ParamAttr
 from .core.place import CPUPlace, CUDAPlace
 from .device import resolve_device
 from . import contrib, dataset, incubate, io, reader, robustness
+from .layers.io import fluid_data as data
 from .io.state import (save_params, save_persistables, save_vars,
                        load_params, load_persistables, load_vars)
 from .io.inference_io import save_inference_model, load_inference_model
@@ -73,7 +74,7 @@ from .io.dataset import (DatasetFactory, InMemoryDataset, QueueDataset,
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "scope_from_numpy", "Program", "Variable", "Parameter",
            "program_guard", "default_main_program", "default_startup_program",
-           "ParamAttr", "CPUPlace", "CUDAPlace", "append_backward",
+           "ParamAttr", "CPUPlace", "CUDAPlace", "data", "append_backward",
            "gradients", "layers", "optimizer", "initializer", "unique_name",
            "resolve_device", "amp", "clip", "regularizer",
            "CompiledProgram", "ParallelExecutor", "BuildStrategy",

@@ -76,6 +76,13 @@ compile and recompile statistics (ROADMAP item 11, with
 ``observability/report.py``: the port compiles no step), and the
 pipeline-parallel schedule (item 11).
 
+A structured control-flow op (``ops/control_flow_ops.py``: ``while``,
+``cond_pair``, ``switch``, ``static_rnn``, the beam-search decoder) runs
+its sub-blocks' ops through the same ``run_op``, with the run's device,
+dp walk and ``live`` set, which holds what the sub-blocks read; a
+``print`` op runs even when nothing reads its output
+(``SIDE_EFFECT_OPS``).
+
 Random ops draw from a ``torch.Generator`` per op, seeded from
 (``program.random_seed``, the executor's step counter, the op's
 ``op_seed``) as the JAX Executor folds them into its key
@@ -97,6 +104,7 @@ from .framework import (BACKWARD_MARKER, Variable, default_main_program,
 from .place import CUDAPlace
 from .. import ops as ops_registry
 from ..observability import ComponentStats
+from ..ops.control_flow_ops import sub_block_reads
 
 
 class Scope:
@@ -160,9 +168,15 @@ def _as_fetch_name(f):
     return str(f)
 
 
+# ops kept for their host-visible side effects even when nothing reads
+# their outputs (fluid's Print)
+SIDE_EFFECT_OPS = {"print"}
+
+
 def _slice_ops(block, fetch_names):
-    """Backward slice of a block's op list: ops needed for fetches and ops
-    that write persistable vars (stat/counter updates keep running)."""
+    """Backward slice of a block's op list: ops needed for fetches, ops
+    that write persistable vars (stat/counter updates keep running), and
+    side-effect roots (print)."""
     needed = set(fetch_names)
     keep = []
     for op in reversed(block.ops):
@@ -170,7 +184,8 @@ def _slice_ops(block, fetch_names):
         writes_persistable = any(
             (n in block.vars and block.vars[n].persistable)
             for n in out_names)
-        if writes_persistable or (out_names & needed):
+        if writes_persistable or (out_names & needed) \
+                or op.type in SIDE_EFFECT_OPS:
             keep.append(op)
             needed |= set(op.input_names)
     return list(reversed(keep))
@@ -729,6 +744,9 @@ class Executor:
         live = set(fetch_names) | set(persist_names) | set(guard_names)
         for op in run_ops:
             live.update(op.input_names)
+            # what a structured op's sub-blocks read, their own ops' and
+            # the op's out of them (its attributes name those)
+            live.update(sub_block_reads(program, op))
         is_test = program._is_test
 
         def run(ops, env=env):

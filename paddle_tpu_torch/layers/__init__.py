@@ -2,20 +2,26 @@
 
 Parity: python/paddle/fluid/layers/__init__.py; the counterpart of
 ``paddle_tpu/layers/`` with, in files of the same names, ``io.data``,
-``tensor``'s ``create_parameter``, ``fill_constant``, ``zeros_like``,
-``ones_like``, ``sums`` and ``assign``, ``nn``'s ``fc``, ``conv2d``,
+``tensor``'s ``create_parameter``, ``create_global_var``,
+``fill_constant``, ``zeros_like``, ``ones_like``, ``sums``, ``assign``
+and ``tensor_array_to_tensor``, ``nn``'s ``fc``, ``conv2d``,
 ``pool2d``, ``adaptive_pool2d``, ``batch_norm``, ``relu``, ``embedding``,
 ``one_hot``, ``matmul``, ``layer_norm``, ``dropout``, ``label_smooth``,
-``mean``, ``reduce_sum``, ``elementwise_add``/``sub``/``mul``/``div``/
-``max``/``min``/``pow``, ``logical_and``, ``scale``, ``reshape``,
-``transpose`` (for the attention layer), ``squeeze``, ``unsqueeze``,
-``concat``, ``slice``, ``gather``, ``expand``, ``topk``, ``cast``,
-``softmax``, ``row_conv``, ``im2sequence``, ``linear_chain_crf``,
-``crf_decoding``, ``warpctc`` and ``ctc_greedy_decoder``, ``ops``'
-``sigmoid``, ``exp``, ``ceil``, ``floor`` and ``cos``, ``control_flow``'s
-``equal``, ``greater_than``, ``less_than`` and
-``autoincreased_step_counter``, ``learning_rate_scheduler``'s eight
-schedules, ``loss``'s ``cross_entropy``, ``softmax_with_cross_entropy``,
+``mean``, ``reduce_sum``/``mean``/``max``/``min``/``prod``/``all``/
+``any``, ``elementwise_add``/``sub``/``mul``/``div``/``max``/``min``/
+``pow``/``mod``/``floordiv``, ``logical_and``/``or``/``xor``/``not``,
+``scale``, ``reshape``, ``transpose`` (for the attention layer),
+``squeeze``, ``unsqueeze``, ``concat``, ``slice``, ``gather``,
+``expand``, ``topk``, ``cast``, ``softmax``, ``row_conv``,
+``im2sequence``, ``linear_chain_crf``, ``crf_decoding``, ``warpctc``,
+``ctc_greedy_decoder`` and ``py_func``, ``ops``' ``sigmoid``, ``exp``,
+``ceil``, ``floor`` and ``cos``, ``control_flow``'s every name (``While``,
+``cond``, ``case``, ``switch_case``, ``Switch``, ``IfElse``,
+``StaticRNN``, ``DynamicRNN``, ``while_loop``, ``Print``, the tensor
+arrays, ``increment``, the comparisons, ``is_empty``,
+``reorder_lod_tensor_by_rank`` and ``autoincreased_step_counter``),
+``learning_rate_scheduler``'s eight schedules, ``loss``'s
+``cross_entropy``, ``softmax_with_cross_entropy``,
 ``square_error_cost``, ``sigmoid_cross_entropy_with_logits`` and
 ``cos_sim``, ``metric_op``'s ``accuracy``, ``edit_distance`` and
 ``chunk_eval``, ``attention``'s ``multi_head_attention``,
@@ -24,25 +30,35 @@ schedules, ``loss``'s ``cross_entropy``, ``softmax_with_cross_entropy``,
 ``sequence_scatter`` and ``sequence_topk_avg_pooling``), ``rnn``'s
 ``dynamic_lstm``, ``dynamic_lstmp``, ``dynamic_gru``, ``lstm``, ``gru``,
 ``lstm_unit`` and ``gru_unit``, and ``beam_search``'s ``beam_search``
-and ``beam_search_decode``.
+and ``beam_search_decode``. ``math_op_patch`` gives ``Variable`` the JAX
+package's arithmetic and comparison operators.
 """
 
 from .io import data
 from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  embedding, one_hot, matmul, layer_norm, dropout,
-                 label_smooth, mean, reduce_sum, elementwise_add,
-                 elementwise_sub, elementwise_mul, elementwise_div,
-                 elementwise_max, elementwise_min, elementwise_pow,
-                 logical_and, scale, reshape, transpose, squeeze,
-                 unsqueeze, concat, slice, gather, expand, topk, cast,
-                 softmax, row_conv, im2sequence, linear_chain_crf,
-                 crf_decoding, warpctc, ctc_greedy_decoder)
-from .tensor import (create_parameter, fill_constant,
+                 label_smooth, mean, reduce_sum, reduce_mean, reduce_max,
+                 reduce_min, reduce_prod, reduce_all, reduce_any,
+                 elementwise_add, elementwise_sub, elementwise_mul,
+                 elementwise_div, elementwise_max, elementwise_min,
+                 elementwise_pow, elementwise_mod, elementwise_floordiv,
+                 logical_and, logical_or, logical_xor, logical_not, scale,
+                 reshape, transpose, squeeze, unsqueeze, concat, slice,
+                 gather, expand, topk, cast, softmax, row_conv, im2sequence,
+                 linear_chain_crf, crf_decoding, warpctc, ctc_greedy_decoder,
+                 py_func)
+from .tensor import (create_parameter, create_global_var, fill_constant,
                      fill_constant_batch_size_like, zeros_like, ones_like,
-                     sums, assign)
+                     sums, assign, tensor_array_to_tensor)
 from .ops import sigmoid, exp, ceil, floor, cos, log
-from .control_flow import (equal, greater_than, less_than,
-                           autoincreased_step_counter)
+from . import control_flow
+from .control_flow import (Print, DynamicRNN,
+                           reorder_lod_tensor_by_rank,
+                           While, Switch, IfElse, StaticRNN, cond, case,
+                           switch_case, increment, array_write, array_read,
+                           array_length, create_array, less_than, less_equal,
+                           greater_than, greater_equal, equal, not_equal,
+                           is_empty, autoincreased_step_counter, while_loop)
 from .loss import (cross_entropy, softmax_with_cross_entropy,
                    square_error_cost, sigmoid_cross_entropy_with_logits,
                    cos_sim)
@@ -67,3 +83,6 @@ from .learning_rate_scheduler import (noam_decay, exponential_decay,
                                       natural_exp_decay, inverse_time_decay,
                                       polynomial_decay, piecewise_decay,
                                       cosine_decay, linear_lr_warmup)
+from .math_op_patch import monkey_patch_variable
+
+monkey_patch_variable()

@@ -18,3 +18,8 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
     return block.create_var(name=name, shape=shape, dtype=dtype,
                             lod_level=lod_level, stop_gradient=stop_gradient,
                             is_data=True)
+
+
+def fluid_data(name, shape, dtype="float32", lod_level=0):
+    """Parity: fluid.data (2.x-style, no implicit batch dim)."""
+    return data(name, shape, dtype, lod_level, append_batch_size=False)

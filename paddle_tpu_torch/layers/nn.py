@@ -335,18 +335,30 @@ def _reduce_shape(shape, dim, keep_dim):
     return tuple(s for i, s in enumerate(shape) if i not in dims)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(
-        input.dtype, _reduce_shape(input.shape, dim, keep_dim))
-    attrs = {"keep_dim": keep_dim}
-    if dim is None:
-        attrs["reduce_all"] = True
-        attrs["dim"] = [0]
-    else:
-        attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
-    helper.append_op("reduce_sum", {"X": input}, {"Out": out}, attrs)
-    return out
+def _make_reduce(op_type):
+    def fn(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(
+            input.dtype, _reduce_shape(input.shape, dim, keep_dim))
+        attrs = {"keep_dim": keep_dim}
+        if dim is None:
+            attrs["reduce_all"] = True
+            attrs["dim"] = [0]
+        else:
+            attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
+        helper.append_op(op_type, {"X": input}, {"Out": out}, attrs)
+        return out
+    fn.__name__ = op_type
+    return fn
+
+
+reduce_sum = _make_reduce("reduce_sum")
+reduce_mean = _make_reduce("reduce_mean")
+reduce_max = _make_reduce("reduce_max")
+reduce_min = _make_reduce("reduce_min")
+reduce_prod = _make_reduce("reduce_prod")
+reduce_all = _make_reduce("reduce_all")
+reduce_any = _make_reduce("reduce_any")
 
 
 # ---- elementwise -----------------------------------------------------------
@@ -370,12 +382,49 @@ elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
 elementwise_min = _make_elementwise("elementwise_min")
 elementwise_pow = _make_elementwise("elementwise_pow")
+elementwise_mod = _make_elementwise("elementwise_mod")
+elementwise_floordiv = _make_elementwise("elementwise_floordiv")
 
 
-def logical_and(x, y, out=None, name=None):
-    helper = LayerHelper("logical_and", name=name)
-    out = out or helper.create_variable_for_type_inference("bool", x.shape)
-    helper.append_op("logical_and", {"X": x, "Y": y}, {"Out": out})
+def _make_logical(op_type, binary=True):
+    if binary:
+        def fn(x, y, out=None, name=None):
+            helper = LayerHelper(op_type, name=name)
+            out = out or helper.create_variable_for_type_inference(
+                "bool", x.shape)
+            helper.append_op(op_type, {"X": x, "Y": y}, {"Out": out})
+            return out
+    else:
+        def fn(x, out=None, name=None):
+            helper = LayerHelper(op_type, name=name)
+            out = out or helper.create_variable_for_type_inference(
+                "bool", x.shape)
+            helper.append_op(op_type, {"X": x}, {"Out": out})
+            return out
+    fn.__name__ = op_type
+    return fn
+
+
+logical_and = _make_logical("logical_and")
+logical_or = _make_logical("logical_or")
+logical_xor = _make_logical("logical_xor")
+logical_not = _make_logical("logical_not", binary=False)
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """Parity: fluid.layers.py_func: `func` called on numpy copies of `x`
+    when the op runs, its result written into `out` (whose shape and
+    dtype it must have). The callable is kept in Operator.CALLABLE_TABLE
+    under the table's length, as in the JAX package; no gradient flows
+    through it."""
+    from ..core.framework import Operator
+    helper = LayerHelper("py_func")
+    func_id = len(Operator.CALLABLE_TABLE)
+    Operator.CALLABLE_TABLE[func_id] = func
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    helper.append_op("py_func", {"X": xs}, {"Out": out},
+                     {"func_id": func_id})
     return out
 
 

@@ -1,8 +1,10 @@
 """Tensor creation layers.
 
 Parity: python/paddle/fluid/layers/tensor.py; the counterpart of
-``paddle_tpu/layers/tensor.py``'s ``create_parameter``, ``fill_constant``,
-``fill_constant_batch_size_like``, ``zeros_like``, ``ones_like``, ``sums`` and ``assign`` (of a Variable).
+``paddle_tpu/layers/tensor.py``'s ``create_parameter``,
+``create_global_var``, ``fill_constant``,
+``fill_constant_batch_size_like``, ``zeros_like``, ``ones_like``,
+``sums``, ``assign`` (of a Variable) and ``tensor_array_to_tensor``.
 """
 
 from ..core.layer_helper import LayerHelper
@@ -20,6 +22,17 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
                                else init_mod.XavierInitializer())
     return helper.create_parameter(helper.param_attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global-block variable filled with `value` by the startup
+    program."""
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(
+        persistable=persistable, name=name, shape=shape, dtype=dtype)
+    init_mod.ConstantInitializer(value)(var)
+    return var
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
@@ -90,3 +103,18 @@ def assign(input, output=None):
                                                            input.shape)
     helper.append_op("assign", {"X": input}, {"Out": output})
     return output
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """Parity: fluid.layers.tensor_array_to_tensor: concat (or stack) a
+    TensorArray along `axis`. Returns (out, index) like the reference,
+    index holding each entry's size along `axis` (int64, the port's
+    integer policy, where the JAX package's is int32)."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    index = helper.create_variable_for_type_inference("int64")
+    helper.append_op("tensor_array_to_tensor", {"X": input},
+                     {"Out": out}, {"axis": axis, "use_stack": use_stack})
+    helper.append_op("tensor_array_sizes", {"X": input}, {"Out": index},
+                     {"axis": axis})
+    return out, index

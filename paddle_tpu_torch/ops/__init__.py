@@ -15,8 +15,11 @@ which the dp walk (``core/compiler.py``) consults when an input of the
 op is dp-sharded (a ``Sharded`` value: one tensor a held rank, each the
 rank's rows along dim 0): ``rows`` runs the op once a held rank on its
 rows, ``rows_if(check)`` does so behind a check, ``replicated`` refuses
-a sharded input, and an op's own rule finishes a global reduction with
-the mesh's dp collective into a replicated value. An op without a rule
+a sharded input, ``whole`` runs the op once over the whole env (the
+tensor arrays' bookkeeping, the structured control-flow ops, whose
+sub-blocks' ops meet their own rules through the walk the context
+carries), and an op's own rule finishes a global reduction with the
+mesh's dp collective into a replicated value. An op without a rule
 refuses a sharded input too: the walk never computes a silently local
 answer.
 
@@ -40,6 +43,13 @@ _TORCH_DTYPES = {
     "float16": torch.float16, "bfloat16": torch.bfloat16,
     "int64": torch.int64, "int32": torch.int32, "int16": torch.int16,
     "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool}
+
+
+class TensorArray(list):
+    """The value of a LoDTensorArray variable while the Executor walks a
+    Program: a Python list of tensors of static length. A type of its
+    own so that run_op stores an array whole under its one output name,
+    where it zips a list of several outputs across the names."""
 
 
 def torch_dtype(dtype):
@@ -91,7 +101,10 @@ def generator_seed(seed, step, op_seed):
 class OpContext:
     """Execution context handed to an op impl while the Executor runs a
     Program: the op, the env of live values, the device the Executor runs
-    on, and `live`, the names something downstream reads (None: all).
+    on, `live`, the names something downstream reads (None: all), and
+    `walk`, the run's dp walk (None outside one), which a structured
+    control-flow op hands to the ops of its sub-blocks so that each meets
+    its own dp rule.
 
     A white-listed op that ``amp.cast_model_to_bf16`` tagged with
     ``__amp_dtype__`` gets its f32/f64 tensor inputs cast to that dtype
@@ -101,10 +114,10 @@ class OpContext:
     stay f32 outside the op (master weights)."""
 
     __slots__ = ("op", "env", "program", "is_test", "device", "live",
-                 "dp_rank", "_amp")
+                 "dp_rank", "walk", "_amp")
 
     def __init__(self, op, env, program, is_test=False, device=None,
-                 live=None, dp_rank=None):
+                 live=None, dp_rank=None, walk=None):
         self.op = op
         self.env = env
         self.program = program
@@ -114,6 +127,7 @@ class OpContext:
         # the held dp rank whose rows this context reads (None: the op
         # runs once, on replicated inputs)
         self.dp_rank = dp_rank
+        self.walk = walk
         amp = op.attrs.get("__amp_dtype__")
         self._amp = torch_dtype(amp) if amp else None
 
@@ -131,6 +145,9 @@ class OpContext:
         names = self.op.input(slot)
         return self._maybe_amp(self.env[names[0]]) if names else default
 
+    def has_in(self, slot):
+        return bool(self.op.input(slot))
+
     def attr(self, name, default=None):
         return self.op.attrs.get(name, default)
 
@@ -144,6 +161,10 @@ class OpContext:
     def out_name(self, slot):
         names = self.op.output(slot)
         return names[0] if names else None
+
+    def out_var(self, slot):
+        name = self.out_name(slot)
+        return self.op.block._find_var_recursive(name) if name else None
 
     def wants(self, slot):
         """Does anything read this output (a later op, a fetch, the
@@ -182,8 +203,16 @@ class Sharded:
         self.parts = list(parts)
 
 
+def is_sharded_value(v):
+    """A dp-sharded value, or a tensor array holding one."""
+    return isinstance(v, Sharded) or (
+        isinstance(v, TensorArray) and any(isinstance(e, Sharded)
+                                           for e in v))
+
+
 class _RankView:
-    """The env as one held rank's op reads it: a sharded value's part."""
+    """The env as one held rank's op reads it: a sharded value's part (in
+    a tensor array, each sharded entry's part)."""
 
     __slots__ = ("env", "j")
 
@@ -192,13 +221,21 @@ class _RankView:
 
     def __getitem__(self, name):
         v = self.env[name]
+        if isinstance(v, TensorArray):
+            return TensorArray(e.parts[self.j] if isinstance(e, Sharded)
+                               else e for e in v)
         return v.parts[self.j] if isinstance(v, Sharded) else v
+
+    def keys(self):
+        # dict(view): the rank's whole env (a structured op's copy)
+        return self.env.keys()
 
 
 def _sharded_slot(vals):
     """One output slot's per-rank values -> Sharded (a list of Sharded
     where the slot holds several names)."""
-    if isinstance(vals[0], (list, tuple)):
+    if isinstance(vals[0], (list, tuple)) and \
+            not isinstance(vals[0], TensorArray):
         return [Sharded(col) for col in zip(*vals)]
     return Sharded(vals)
 
@@ -233,14 +270,30 @@ def replicated(impl, ctxs, walk):
         f"data parallelism it got a dp-sharded input")
 
 
+def whole(impl, ctxs, walk):
+    """The rule of ops that run once over the whole env, sharded values
+    and all (the tensor arrays' bookkeeping, which stores or hands back
+    a sharded entry as it is, and the structured control-flow ops, whose
+    sub-blocks' ops meet their own rules)."""
+    return impl(whole_context(ctxs[0], walk))
+
+
+def whole_context(ctx, walk):
+    """A rank view's context -> the op's context over the whole env."""
+    return OpContext(ctx.op, ctx.env.env, ctx.program, ctx.is_test,
+                     ctx.device, ctx.live, walk=walk)
+
+
 def run_op(op, env, program, is_test=False, device=None, live=None,
            walk=None):
     """Execute one op into env. Under the dp walk (`walk`) an op with a
-    dp-sharded input goes through its dp rule, one context a held rank;
-    an op whose inputs are all replicated runs once."""
+    dp-sharded input (or a tensor array holding one) goes through its dp
+    rule, one context a held rank; an op whose inputs are all replicated
+    runs once, with the walk in its context. A TensorArray output is
+    stored whole under its one name."""
     impl = get(op.type)
     sharded = walk is not None and any(
-        isinstance(env.get(n), Sharded) for n in op.input_names)
+        is_sharded_value(env.get(n)) for n in op.input_names)
     if sharded:
         rule = _DP_RULES.get(op.type)
         if rule is None:
@@ -248,14 +301,17 @@ def run_op(op, env, program, is_test=False, device=None, live=None,
                 f"op '{op.type}' has no data-parallel rule; it cannot run "
                 f"on a dp-sharded input")
         outs = rule(impl, [OpContext(op, _RankView(env, j), program,
-                                     is_test, device, live, dp_rank=r)
+                                     is_test, device, live, dp_rank=r,
+                                     walk=walk)
                            for j, r in enumerate(walk.ranks)], walk)
     else:
-        outs = impl(OpContext(op, env, program, is_test, device, live))
+        outs = impl(OpContext(op, env, program, is_test, device, live,
+                              walk=walk))
     if outs:
         for slot, vals in outs.items():
             names = op.output(slot)
-            if not isinstance(vals, (list, tuple)):
+            if not isinstance(vals, (list, tuple)) or \
+                    isinstance(vals, TensorArray):
                 vals = [vals]
             for name, val in zip(names, vals):
                 env[name] = val
@@ -276,3 +332,4 @@ from . import beam_search_ops  # noqa: E402,F401
 from . import rnn_ops         # noqa: E402,F401
 from . import crf_ops         # noqa: E402,F401
 from . import ctc_ops         # noqa: E402,F401
+from . import control_flow_ops  # noqa: E402,F401

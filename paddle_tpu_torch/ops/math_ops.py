@@ -4,20 +4,24 @@ Parity: paddle/fluid/operators/elementwise/*, matmul_op.cc, mul_op.cc,
 mean_op.cc, reduce_ops/*, scale_op.cc, sum_op.cc, clip_op.cc,
 compare_op.cc, isfinite_op.cc, increment_op.cc; the counterpart of
 ``paddle_tpu/ops/math_ops.py`` with the ops the ported slices run:
-``elementwise_add``/``sub``/``mul``/``div``/``max``/``min``/``pow``,
-``scale``, ``mul``, ``matmul``, ``sum``, ``reduce_sum``, ``mean``,
-``clip``, ``clip_by_norm``, ``isfinite``, ``increment``, and the
-comparisons ``equal``, ``greater_than``, ``greater_equal``, ``less_than``
-and ``logical_and``.
+``elementwise_add``/``sub``/``mul``/``div``/``max``/``min``/``pow``/
+``mod``/``floordiv``, ``scale``, ``mul``, ``matmul``, ``sum``,
+``reduce_sum``/``mean``/``max``/``min``/``prod``/``all``/``any``,
+``mean``, ``clip``, ``clip_by_norm``, ``isfinite``, ``increment``, the
+comparisons ``equal``, ``not_equal``, ``greater_than``,
+``greater_equal``, ``less_than`` and ``less_equal``, and
+``logical_and``/``or``/``xor``/``not``.
 
 Under data parallelism (``ops/__init__.py``'s rules) the elementwise
-ops, ``scale``, ``sum``, ``clip``, ``select_finite`` and the comparisons
-run a rank's rows; ``mul`` and ``matmul`` do so against a replicated
-weight (``matmul`` also between two sharded batches of matrices);
-``mean`` and ``reduce_sum`` over dim 0 finish each rank's partial sum
-with the mesh's dp sum (``mean`` divides by the global count);
-``clip_by_norm``, ``isfinite`` and ``increment`` take replicated inputs
-only.
+ops, ``scale``, ``sum``, ``clip``, ``select_finite``, the comparisons
+and the logical ops run a rank's rows; ``mul`` and ``matmul`` do so
+against a replicated weight (``matmul`` also between two sharded
+batches of matrices); ``mean`` and the reductions over dim 0 finish each
+rank's partial with the mesh's dp collective (``mean`` and
+``reduce_mean`` divide the dp sum by the global count; ``reduce_max``,
+``_min``, ``_prod``, ``_all`` and ``_any`` reduce the ranks' partials
+once more); ``clip_by_norm``, ``isfinite`` and ``increment`` take
+replicated inputs only.
 
 ``select_finite`` is the port's own: the loss scaler's overflow step
 (amp/decorator.py) zeroes the gradients with it, where the JAX package
@@ -57,6 +61,9 @@ register("elementwise_pow", dp=rows)(_ew(torch.pow))
 # floor modulo, the sign of the divisor's (jnp.mod): the wrappers' bounded
 # step counters
 register("elementwise_mod", dp=rows)(_ew(torch.remainder))
+# rounded toward minus infinity, as jnp.floor_divide
+register("elementwise_floordiv", dp=rows)(_ew(
+    lambda x, y: torch.div(x, y, rounding_mode="floor")))
 
 
 @register("scale", dp=rows)
@@ -151,25 +158,90 @@ def _reduces_rows(ctx):
     return 0 in {d % ctx.in_("X").dim() for d in dims}
 
 
-def _dp_reduce_sum(impl, ctxs, walk):
-    """A sum that collapses dim 0 (or everything) is each rank's partial
-    finished by the dp sum; one over other dims runs a rank's rows."""
-    if not _reduces_rows(ctxs[0]):
-        return rows(impl, ctxs, walk)
-    return {"Out": walk.sum([impl(c)["Out"] for c in ctxs])}
-
-
-@register("reduce_sum", dp=_dp_reduce_sum)
-def reduce_sum(ctx):
-    x = ctx.in_("X")
+def _axes(ctx, x):
+    """The dims a reduce op collapses, as a sorted tuple."""
     dims = ctx.attr("dim", [0])
-    keep = ctx.attr("keep_dim", False)
     if ctx.attr("reduce_all", False) or dims is None:
-        out = x.sum()
-        return {"Out": out.reshape([1] * x.dim()) if keep else out}
+        return tuple(range(x.dim()))
     dims = dims if isinstance(dims, (list, tuple)) else [dims]
-    return {"Out": x.sum(dim=tuple(d % x.dim() for d in dims),
-                         keepdim=keep)}
+    return tuple(sorted({d % x.dim() for d in dims}))
+
+
+def _kept(out, shape, axes):
+    """A reduction's result with the collapsed dims kept as 1s."""
+    return out.reshape([1 if i in axes else s for i, s in enumerate(shape)])
+
+
+def _one_dim_at_a_time(fn):
+    """fn(x, dim) -> a reduction over a tuple of dims, the last first
+    (torch's prod, all and any take one dim)."""
+    def run(x, axes):
+        for d in reversed(axes):
+            x = fn(x, d)
+        return x
+    return run
+
+
+def _float(x):
+    # jnp.mean of an integer tensor is a float32 one
+    return x if x.is_floating_point() else x.float()
+
+
+_REDUCERS = {
+    "reduce_sum": lambda x, axes: x.sum(dim=axes),
+    "reduce_mean": lambda x, axes: _float(x).mean(dim=axes),
+    "reduce_max": lambda x, axes: x.amax(dim=axes),
+    "reduce_min": lambda x, axes: x.amin(dim=axes),
+    "reduce_prod": _one_dim_at_a_time(torch.prod),
+    "reduce_all": _one_dim_at_a_time(torch.all),
+    "reduce_any": _one_dim_at_a_time(torch.any)}
+
+
+def _reduce(fn):
+    """A reduce op of fn(x, axes), with dim (default [0]), keep_dim and
+    reduce_all as jnp's axis and keepdims."""
+    def impl(ctx):
+        x = ctx.in_("X")
+        axes = _axes(ctx, x)
+        out = fn(x, axes) if axes else x
+        if ctx.attr("keep_dim", False):
+            out = _kept(out, x.shape, axes)
+        return {"Out": out}
+    return impl
+
+
+def _dp_reduce(impl, ctxs, walk):
+    """A reduction that collapses dim 0 under dp: each rank's partial
+    over its rows (its sum, for the sum and the mean), finished over the
+    ranks into a replicated value (the dp sum, over the global count for
+    the mean; the others reduce the ranks' partials, concatenated along
+    dim 0, once more); one over other dims runs a rank's rows."""
+    c = ctxs[0]
+    if not _reduces_rows(c):
+        return rows(impl, ctxs, walk)
+    shape = c.in_("X").shape
+    axes = _axes(c, c.in_("X"))
+    if c.op.type in ("reduce_sum", "reduce_mean"):
+        mean = c.op.type == "reduce_mean"
+        out = walk.sum([_kept((_float(cc.in_("X")) if mean else cc.in_("X"))
+                              .sum(dim=axes), shape, axes) for cc in ctxs])
+        if mean:
+            count = walk.size
+            for d in axes:
+                count *= shape[d]
+            out = out / count
+    else:
+        fn = _REDUCERS[c.op.type]
+        out = walk.cat([_kept(fn(cc.in_("X"), axes), shape, axes)
+                        for cc in ctxs])
+        out = _kept(fn(out, axes), shape, axes)
+    if not c.attr("keep_dim", False):
+        out = out.reshape([s for i, s in enumerate(shape) if i not in axes])
+    return {"Out": out}
+
+
+for _name, _fn in _REDUCERS.items():
+    register(_name, dp=_dp_reduce)(_reduce(_fn))
 
 
 @register("clip", dp=rows)
@@ -222,4 +294,13 @@ register("equal", dp=rows)(_cmp(torch.eq))
 register("greater_than", dp=rows)(_cmp(torch.gt))
 register("greater_equal", dp=rows)(_cmp(torch.ge))
 register("less_than", dp=rows)(_cmp(torch.lt))
+register("less_equal", dp=rows)(_cmp(torch.le))
+register("not_equal", dp=rows)(_cmp(torch.ne))
 register("logical_and", dp=rows)(_cmp(torch.logical_and))
+register("logical_or", dp=rows)(_cmp(torch.logical_or))
+register("logical_xor", dp=rows)(_cmp(torch.logical_xor))
+
+
+@register("logical_not", dp=rows)
+def logical_not(ctx):
+    return {"Out": torch.logical_not(ctx.in_("X"))}
