@@ -548,6 +548,31 @@ backward kernels are printed):
    device ms and operations, the busy share and peak memory beside the
    card's name and power limit, and launches no attention kernel (the
    flash and paged counts gated at 0).
+30. detection through the Fluid entry points: SSD training at SSD300's
+   width (``detection_demo.build_ssd_net(num_classes=21, image_size=300,
+   max_boxes=16)``: 38^2 and 19^2 maps, 7,942 priors), batch 32 of seeded
+   images and 16 gt boxes each, Adam, 10 steps on the batch: the loss
+   finite and falling, 0 host syncs in a training dispatch;
+30b. SSD inference through ``detection_output`` (``build_infer_net`` at
+   the same width on phase 30's weights, ``clone(for_test=True)``;
+   nms_top_k 400, keep_top_k 200): 0 host syncs in a dispatch; the card's
+   decoded boxes and class scores within 1e-5 of the CPU's on the same
+   feed and weights; the multiclass_nms op on the CPU on the card's boxes
+   and scores gives the card's (32, 200, 6) rows (classes and survivor
+   sets equal, rows within 1e-5); ``inference.postprocess.
+   multiclass_nms_host`` over ``csrc/nms.cc`` (built there) keeps each
+   image's survivor set; the NMS sweep's device operations and host ms;
+30c. Faster R-CNN training at PaddleCV's Fluid 1.5 COCO width
+   (``build_faster_rcnn_train(batch=2, num_classes=81, image_size=800,
+   max_gt=32, rpn_samples=256, rcnn_samples=512, post_nms=64)``: 30,000
+   anchors an image), 10 Adam steps on a seeded batch, the loss finite and
+   falling (the syncs of a dispatch printed); then the deterministic
+   configuration of tests/test_torch_detection_models.py (image 64, every
+   anchor and roi sampled) from one CPU startup on the card and on the
+   CPU: the first step's loss within 1e-5 relative, each @GRAD within 1e-4
+   of its largest entry, the inputs' IoUs 1e-4 or more from the
+   thresholds. Every 30 phase prints step p50, device ms and operations,
+   the busy share and peak memory, and launches no attention kernel.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -581,8 +606,8 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's and
-29-29c's gated 0s,
+20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's,
+29-29c's and 30-30c's gated 0s,
 with 16b/16c/17/19b/19c/20d/21b/21c/24/24b/26's errors in
 ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
@@ -940,6 +965,30 @@ S2S_AGREE_GRAD_TOL = 1e-4           # of each @GRAD's largest entry
 S2S_TIE_TOL = 1e-5                  # differing beams' scores this close
 CF_SWITCH_STEPS = 12                # the Switch schedule's steps
 CF_WHILE_LONG = 1000                # iterations of the host-µs While
+# phases 30-30c: detection. 30: SSD300's width (Liu et al., "SSD", 2016;
+# PaddleCV's Fluid 1.5 SSD recipe: 21 VOC classes, 300 x 300 images) on
+# detection_demo's backbone, 16 gt boxes an image, batch 32, Adam, f32
+SSD_CLASSES, SSD_IMAGE, SSD_BOXES = 21, 300, 16
+SSD_BATCH, SSD_LR, SSD_STEPS = 32, 1e-3, 10
+SSD_PROFILE_STEPS = 3
+SSD_INFER_RUNS = 5                  # 30b: timed inference batches
+# 30b: the card's decoded boxes and class scores against the CPU's on
+# the same feed and weights (f32 convolutions on both, TF32 off, summed
+# in other orders), over each tensor's largest magnitude; the NMS rows
+# on the same inputs
+SSD_AGREE_TOL = 1e-5
+# 30c: PaddleCV's Fluid 1.5 R-CNN config at COCO width (81 classes, scale
+# 800, rpn_batch_size_per_im 256, batch_size_per_im 512); the demo fixes
+# pre_nms_top_n at 64, so post_nms is 64
+FRCNN = {"batch": 2, "num_classes": 81, "image_size": 800, "max_gt": 32,
+         "rpn_samples": 256, "rcnn_samples": 512, "post_nms": 64}
+FRCNN_LR, FRCNN_STEPS, FRCNN_PROFILE_STEPS = 1e-3, 10, 3
+# 30c's card vs CPU: the test twin's deterministic configuration (every
+# anchor and roi sampled), one step; the loss relative, each @GRAD over
+# its largest entry (the sampled rows sum in another order); the inputs'
+# IoUs at least FRCNN_MARGIN from the thresholds
+FRCNN_AGREE = {"rpn_samples": 384, "rcnn_samples": 112}
+FRCNN_LOSS_TOL, FRCNN_GRAD_TOL, FRCNN_MARGIN = 1e-5, 1e-4, 1e-4
 # phases 26-26c: ERNIE-base (phase 16's program) under guarded
 # asynchronous training: GUARD_STEPS steps of distinct ERNIE feeds, the
 # async window GUARD_WINDOW, a checkpoint every GUARD_CKPT_EVERY steps, a
@@ -10111,6 +10160,358 @@ def phase_cf_all(flash, paged):
     return total, recs
 
 
+# ---------------------------------------------------------------------------
+# phases 30-30c: detection through the Fluid entry points
+# ---------------------------------------------------------------------------
+
+def _det_program(build, lr=None, loss_at=-1):
+    """build() (a detection_demo function) in a fresh Program under a fresh
+    unique_name guard, so that two builds name their parameters alike;
+    with `lr`, Adam minimizes what build returns at `loss_at`."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        out = build()
+        if lr is not None:
+            fluid.optimizer.AdamOptimizer(learning_rate=lr).minimize(
+                out[loss_at])
+    return main, startup, out
+
+
+def _op_io(program, op_type, slot, output=False):
+    op = next(o for o in program.global_block().ops if o.type == op_type)
+    return (op.output if output else op.input)(slot)[0]
+
+
+def ssd_feed(batch=SSD_BATCH, image=SSD_IMAGE, boxes=SSD_BOXES,
+             classes=SSD_CLASSES, device="cuda"):
+    """Seeded images and `boxes` normalized gt boxes an image (centers
+    uniform, sides 0.05-0.5 of the image, clipped to it), labels 1 to
+    classes - 1."""
+    rng = np.random.RandomState(SEED + 30)
+    c = rng.uniform(0.1, 0.9, (batch, boxes, 2))
+    half = rng.uniform(0.025, 0.25, (batch, boxes, 2))
+    gt = np.clip(np.concatenate([c - half, c + half], -1), 0.0, 1.0)
+    feed = {"img": rng.randn(batch, 3, image, image).astype(np.float32),
+            "gt_box": gt.astype(np.float32),
+            "gt_label": rng.randint(1, classes, (batch, boxes, 1))
+            .astype(np.int64)}
+    return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+
+
+def phase_ssd():
+    """Phase 30: build_ssd_net at SSD300's width, SSD_STEPS Adam steps on
+    one seeded batch. Gates: every loss finite, the last 3 steps' mean
+    below the first 3's, 0 host syncs in a training dispatch. Prints step
+    p50 / p99, images/s, device ms and operations, busy share, peak
+    memory and the top ops. Returns (the record, the scope and feed)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import detection_demo
+    main, startup, out = _det_program(
+        lambda: detection_demo.build_ssd_net(
+            num_classes=SSD_CLASSES, image_size=SSD_IMAGE,
+            max_boxes=SSD_BOXES), lr=SSD_LR, loss_at=3)
+    loss = out[3]
+    feed = ssd_feed()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    first, box = exe.run(main, feed=feed, scope=scope, fetch_list=[
+        loss, _op_io(main, "ssd_loss", "PriorBox")])
+    outs, ms = _timed_steps(exe, main, feed, [loss], scope, SSD_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0])
+              for o in [[first]] + outs]
+    syncs = _dispatch_syncs(exe, main, feed, [loss], scope)
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), SSD_PROFILE_STEPS)
+    rec = _seq_record(
+        "ssd", f"build_ssd_net(num_classes={SSD_CLASSES}, image_size="
+        f"{SSD_IMAGE}, max_boxes={SSD_BOXES}), Adam({SSD_LR}), f32",
+        SSD_BATCH, ms[1:], peak, prof, priors=int(box.shape[0]),
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        syncs_in_a_training_dispatch=len(syncs),
+        sync_sites=sorted(set(syncs)))
+    if box.shape[0] != 7942:
+        _fail(f"ssd: {box.shape[0]} priors, want 7942")
+    if not np.isfinite(losses).all() or \
+            not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        _fail(f"ssd: losses not finite or not falling: {losses}")
+    if syncs:
+        _fail(f"ssd: host syncs in a training dispatch: {syncs}")
+    return rec, (scope, feed)
+
+
+def _rows_set(rows):
+    """An image's valid NMS rows (class >= 0), sorted: its survivor set."""
+    rows = np.asarray(rows)
+    rows = rows[rows[:, 0] >= 0]
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def phase_ssd_infer(trained):
+    """Phase 30b: build_infer_net at phase 30's width, clone(for_test=True),
+    on phase 30's weights and images. Gates: 0 host syncs in a dispatch;
+    the card's decoded boxes and class scores (detection_output's NMS
+    inputs) within SSD_AGREE_TOL of the CPU run's (the scope copied);
+    the NMS op run on the CPU on the card's boxes and scores gives the
+    card's (32, 200, 6) rows (classes and survivor sets equal, rows within
+    SSD_AGREE_TOL); multiclass_nms_host over csrc/nms.cc keeps each
+    image's survivor set and takes the native path. Prints ms a batch,
+    device ms, the NMS op's device ms and operations, its host enqueue
+    ms, and how many end-to-end rows of the CPU run differ (near ties of
+    the top-400 and top-200 cuts, not gated)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import postprocess
+    from paddle_tpu_torch.models import detection_demo
+    from paddle_tpu_torch.ops import _REGISTRY
+    scope, train_feed = trained
+    main, _startup, (img, nmsed) = _det_program(
+        lambda: detection_demo.build_infer_net(num_classes=SSD_CLASSES,
+                                               image_size=SSD_IMAGE))
+    test = main.clone(for_test=True)
+    missing = [p.name for p in main.all_parameters() if p.name not in scope]
+    if missing:
+        _fail(f"ssd infer: phase 30's scope lacks {missing}")
+    nms_op = next(o for o in test.global_block().ops
+                  if o.type == "multiclass_nms")
+    bname, sname = nms_op.input("BBoxes")[0], nms_op.input("Scores")[0]
+    attrs = dict(nms_op.attrs)
+    feed = {"img": train_feed["img"]}
+    exe = fluid.Executor()
+    fetch = [nmsed, bname, sname]
+    out = exe.run(test, feed=feed, fetch_list=fetch, scope=scope)
+    syncs = _dispatch_syncs(exe, test, feed, [nmsed], scope)
+    torch.cuda.reset_peak_memory_stats()
+    _, ms = _timed_steps(exe, test, feed, [nmsed], scope,
+                         SSD_INFER_RUNS + 1)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_ops(lambda: exe.run(test, feed=feed, fetch_list=[nmsed],
+                                        scope=scope), 2)
+    card_out, boxes, probs = out
+    # the NMS op alone on the card: the host's enqueue ms and the card's
+    nms = _REGISTRY["multiclass_nms"]
+    args = _OpArgs({"BBoxes": torch.from_numpy(boxes).cuda(),
+                    "Scores": torch.from_numpy(probs).cuda()}, attrs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = nms(args)["Out"]
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    nms_ms = _event_ms(lambda: nms(args), reps=3, warmup=1)
+    if not np.array_equal(again.cpu().numpy(), card_out):
+        _fail("ssd infer: the NMS op alone differs from the program's")
+    # the CPU: the whole program on the copied scope, and the op alone on
+    # the card's boxes and scores
+    cpu_scope = fluid.Scope()
+    for nm in scope.names():
+        v = scope.get(nm)
+        if isinstance(v, torch.Tensor):
+            cpu_scope.set(nm, v.detach().to("cpu", copy=True))
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed={"img": feed["img"].cpu().numpy()}, fetch_list=fetch,
+        scope=cpu_scope)
+    net_err = {k: float(np.abs(a - b).max() / np.abs(b).max())
+               for k, a, b in (("boxes", boxes, cpu[1]),
+                               ("scores", probs, cpu[2]))}
+    cpu_nms = nms(_OpArgs({"BBoxes": torch.from_numpy(boxes),
+                           "Scores": torch.from_numpy(probs)}, attrs))["Out"]
+    cpu_nms = cpu_nms.numpy()
+    nms_err = float(np.abs(cpu_nms - card_out).max())
+    sets_equal = all(np.array_equal(_rows_set(a)[:, 0], _rows_set(b)[:, 0])
+                     and _rows_set(a).shape == _rows_set(b).shape
+                     for a, b in zip(card_out, cpu_nms))
+    e2e_differ = int(sum(
+        _rows_set(a).shape != _rows_set(b).shape or
+        bool(np.abs(_rows_set(a) - _rows_set(b)).max() > SSD_AGREE_TOL)
+        for a, b in zip(card_out, cpu[0])))
+    before = dict(postprocess.PATHS)
+    t0 = time.perf_counter()
+    host, lod = postprocess.multiclass_nms_host(
+        boxes, probs, score_threshold=attrs["score_threshold"],
+        nms_threshold=attrs["nms_threshold"], nms_top_k=attrs["nms_top_k"],
+        keep_top_k=attrs["keep_top_k"],
+        background_label=attrs["background_label"])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    host_same = all(np.array_equal(_rows_set(card_out[i]),
+                                   _rows_set(host[lod[i]:lod[i + 1]]))
+                    for i in range(card_out.shape[0]))
+    ops_by = prof.get("device_ops_per_step_by_op") or {}
+    rec = _seq_record(
+        "ssd infer", f"build_infer_net(num_classes={SSD_CLASSES}, "
+        f"image_size={SSD_IMAGE}), clone(for_test=True); detection_output "
+        f"nms_top_k {attrs['nms_top_k']}, keep_top_k {attrs['keep_top_k']}",
+        SSD_BATCH, ms[1:], peak, prof, out_shape=list(card_out.shape),
+        detections=int((card_out[..., 0] >= 0).sum()),
+        syncs_in_a_dispatch=len(syncs), sync_sites=sorted(set(syncs)),
+        card_vs_cpu_net_rel_err=net_err, nms_card_vs_cpu_max_abs=nms_err,
+        nms_survivor_sets_equal=sets_equal,
+        end_to_end_images_differ_vs_cpu=e2e_differ,
+        host_nms_sets_equal=host_same, host_nms_ms=host_ms,
+        host_nms_paths={k: postprocess.PATHS[k] - before[k]
+                        for k in before},
+        nms_device_ms=prof["device_ms_per_step_by_op"].get(
+            "multiclass_nms", 0.0),
+        nms_device_ops=ops_by.get("multiclass_nms"),
+        nms_alone_event_ms=nms_ms, nms_alone_enqueue_ms=enqueue_ms)
+    if syncs:
+        _fail(f"ssd infer: host syncs in a dispatch: {syncs}")
+    if max(net_err.values()) > SSD_AGREE_TOL:
+        _fail(f"ssd infer: the card's boxes / scores vs the CPU's: {net_err}")
+    if not sets_equal or nms_err > SSD_AGREE_TOL:
+        _fail(f"ssd infer: the NMS op on the CPU vs the card: {nms_err}, "
+              f"sets equal {sets_equal}")
+    if not host_same or postprocess.PATHS["native"] != before["native"] + 1:
+        _fail("ssd infer: the host NMS's survivor sets or path differ")
+    return rec
+
+
+def frcnn_feed(batch, image, max_gt, classes, device="cuda", seed=None):
+    """Seeded images, max_gt gt boxes an image (corners uniform, sides
+    image/25 to image/4, inside the image), labels 1 to classes - 1,
+    im_info (image, image, 1)."""
+    rng = np.random.RandomState(SEED + 31 if seed is None else seed)
+    side = rng.uniform(image / 25, image / 4, (batch, max_gt, 2))
+    x0 = rng.uniform(0, 1, (batch, max_gt, 2)) * (image - 1 - side)
+    feed = {"img": rng.randn(batch, 3, image, image).astype(np.float32),
+            "gt_box": np.concatenate([x0, x0 + side], -1).astype(np.float32),
+            "gt_label": rng.randint(1, classes, (batch, max_gt))
+            .astype(np.int64),
+            "im_info": np.tile(np.array([image, image, 1.0], np.float32),
+                               (batch, 1))}
+    return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+
+
+def phase_frcnn():
+    """Phase 30c, first half: build_faster_rcnn_train at FRCNN,
+    FRCNN_STEPS Adam steps on one seeded batch. Gates: every loss finite,
+    the last 3 steps' mean below the first 3's. Prints the step record
+    and the host syncs of one training dispatch (where from)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import detection_demo
+    main, startup, out = _det_program(
+        lambda: detection_demo.build_faster_rcnn_train(**FRCNN), lr=FRCNN_LR)
+    loss = out[-1]
+    feed = frcnn_feed(FRCNN["batch"], FRCNN["image_size"], FRCNN["max_gt"],
+                      FRCNN["num_classes"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    first, anchors = exe.run(main, feed=feed, scope=scope, fetch_list=[
+        loss, _op_io(main, "anchor_generator", "Anchors", output=True)])
+    outs, ms = _timed_steps(exe, main, feed, [loss], scope, FRCNN_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0])
+              for o in [[first]] + outs]
+    syncs = _dispatch_syncs(exe, main, feed, [loss], scope)
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), FRCNN_PROFILE_STEPS)
+    rec = _seq_record(
+        "frcnn", f"build_faster_rcnn_train({FRCNN}), Adam({FRCNN_LR}), f32",
+        FRCNN["batch"], ms[1:], peak, prof,
+        anchors_an_image=int(np.prod(anchors.shape[:3])),
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        syncs_in_a_training_dispatch=len(syncs),
+        sync_sites=sorted(set(syncs)))
+    if not np.isfinite(losses).all() or \
+            not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        _fail(f"frcnn: losses not finite or not falling: {losses}")
+    return rec
+
+
+def _iou_np(a, b):
+    """(..., M, 4) x (..., G, 4) -> (..., M, G), as the ops compute it."""
+    ix1 = np.maximum(a[..., :, None, 0], b[..., None, :, 0])
+    iy1 = np.maximum(a[..., :, None, 1], b[..., None, :, 1])
+    ix2 = np.minimum(a[..., :, None, 2], b[..., None, :, 2])
+    iy2 = np.minimum(a[..., :, None, 3], b[..., None, :, 3])
+    inter = np.maximum(ix2 - ix1, 0) * np.maximum(iy2 - iy1, 0)
+
+    def area(x):
+        return np.maximum(x[..., 2] - x[..., 0], 0) * \
+            np.maximum(x[..., 3] - x[..., 1], 0)
+
+    return inter / np.maximum(area(a)[..., :, None] + area(b)[..., None, :]
+                              - inter, 1e-10)
+
+
+def phase_frcnn_agree():
+    """Phase 30c, second half: build_faster_rcnn_train at its demo sizes
+    with FRCNN_AGREE (every anchor and roi sampled, so the draws are
+    sets), one CPU startup copied to the card and the CPU, one step each.
+    Gates: the inputs' IoUs (anchors against 0.3 / 0.7, the CPU's
+    proposals and the gt against 0.5) at least FRCNN_MARGIN away; the
+    loss within FRCNN_LOSS_TOL relative; each @GRAD within FRCNN_GRAD_TOL
+    of its largest entry."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import detection_demo
+    main, startup, out = _det_program(
+        lambda: detection_demo.build_faster_rcnn_train(**FRCNN_AGREE),
+        lr=FRCNN_LR)
+    loss = out[-1]
+    feed = {k: v.numpy() for k, v in frcnn_feed(2, 64, 4, 5, "cpu").items()}
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    names = [p.name for p in main.all_parameters()]
+    rois = _op_io(main, "generate_proposals", "RpnRois", output=True)
+    anchors = _op_io(main, "anchor_generator", "Anchors", output=True)
+    runs = {}
+    for where, place in (("card", fluid.CUDAPlace(0)),
+                         ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).to(exe.device, copy=True))
+        runs[where] = exe.run(main, feed=feed, scope=scope, fetch_list=[
+            loss, rois, anchors] + [nm + "@GRAD" for nm in names])
+    card, cpu = runs["card"], runs["cpu"]
+    gt = feed["gt_box"]
+    cand = np.concatenate([cpu[1], gt], 1)
+    ok = (cand[..., 2] > cand[..., 0]) & (cand[..., 3] > cand[..., 1])
+    margin = min(
+        float(np.abs(_iou_np(cpu[2].reshape(-1, 4), gt)[..., None]
+                     - np.array([0.3, 0.7])).min()),
+        float(np.abs(_iou_np(cand, gt)[ok] - 0.5).min()))
+    loss_err = float(abs(card[0].reshape(-1)[0] - cpu[0].reshape(-1)[0])
+                     / abs(cpu[0].reshape(-1)[0]))
+    grad_errs = {nm: float(np.abs(g - h).max() / max(np.abs(h).max(),
+                                                       1e-12))
+                 for nm, g, h in zip(names, card[3:], cpu[3:])}
+    worst = max(grad_errs, key=grad_errs.get)
+    out = {"config": FRCNN_AGREE, "iou_margin": margin,
+           "loss": float(cpu[0].reshape(-1)[0]), "loss_rel_err": loss_err,
+           "grad_worst": [worst, grad_errs[worst]], "card": _card_line()}
+    print("frcnn agree " + json.dumps(out))
+    if margin < FRCNN_MARGIN:
+        _fail(f"frcnn agree: an IoU within {margin} of its threshold")
+    if loss_err > FRCNN_LOSS_TOL or grad_errs[worst] > FRCNN_GRAD_TOL:
+        _fail(f"frcnn agree: the card against the CPU: {out}")
+    return out
+
+
+def phase_det_all(flash, paged):
+    """Phases 30-30c. None launches an attention kernel: each is gated at
+    0 flash and paged launches (_seq_phase). Returns (the counts over the
+    phases, records)."""
+    recs, total = {}, (0, 0, 0, 0, 0)
+    (recs["30"], trained), counts = _seq_phase(
+        "30 SSD train", phase_ssd, flash, paged)
+    total = tuple(x + y for x, y in zip(total, counts))
+    for key, name, fn, args in (
+            ("30b", "30b SSD detection_output", phase_ssd_infer, (trained,)),
+            ("30c", "30c Faster R-CNN train", phase_frcnn, ()),
+            ("30c agree", "30c Faster R-CNN card vs CPU", phase_frcnn_agree,
+             ())):
+        recs[key], counts = _seq_phase(name, fn, flash, paged, *args)
+        total = tuple(x + y for x, y in zip(total, counts))
+    del trained
+    return total, recs
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -10308,6 +10709,7 @@ def main():
     opt_paths, _ = phase_optimizers_all(flash, paged)
     seq_counts, _ = phase_seq_all(flash, paged)
     cf_counts, _ = phase_cf_all(flash, paged)
+    det_counts, _ = phase_det_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -10318,6 +10720,7 @@ def main():
             spec["small_draft_f32"]["draft_launches"],
         "28-28e sequence family (gated at 0)": seq_counts[4],
         "29-29c control flow (gated at 0)": cf_counts[4],
+        "30-30c detection (gated at 0)": det_counts[4],
         **dlaunches, **tlaunches, **plaunches,
         **fleet["18"]["launches"], **fleet["18b"]["launches"],
         "18c self-healing f32 (3 replicas + resurrections)":
@@ -10410,7 +10813,8 @@ def main():
             tfa_launches,
         **guard_paths, **opt_paths,
         "28-28e sequence family (gated at 0)": seq_counts[:4],
-        "29-29c control flow (gated at 0)": cf_counts[:4]}
+        "29-29c control flow (gated at 0)": cf_counts[:4],
+        "30-30c detection (gated at 0)": det_counts[:4]}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -1,2 +1,2 @@
-"""Inference helpers of the port (the dense-cache decode loops of
-paddle_tpu/inference/)."""
+"""Inference helpers of the port (the dense-cache decode loops and the
+host detection postprocess of paddle_tpu/inference/)."""

@@ -14,7 +14,8 @@ and ``tensor_array_to_tensor``, ``nn``'s ``fc``, ``conv2d``,
 ``squeeze``, ``unsqueeze``, ``concat``, ``slice``, ``gather``,
 ``expand``, ``topk``, ``cast``, ``softmax``, ``row_conv``,
 ``im2sequence``, ``linear_chain_crf``, ``crf_decoding``, ``warpctc``,
-``ctc_greedy_decoder`` and ``py_func``, ``ops``' ``sigmoid``, ``exp``,
+``ctc_greedy_decoder``, ``smooth_l1`` and ``py_func``, ``tensor``'s
+``range``, ``ops``' ``sigmoid``, ``exp``,
 ``ceil``, ``floor`` and ``cos``, ``control_flow``'s every name (``While``,
 ``cond``, ``case``, ``switch_case``, ``Switch``, ``IfElse``,
 ``StaticRNN``, ``DynamicRNN``, ``while_loop``, ``Print``, the tensor
@@ -22,8 +23,13 @@ arrays, ``increment``, the comparisons, ``is_empty``,
 ``reorder_lod_tensor_by_rank`` and ``autoincreased_step_counter``),
 ``learning_rate_scheduler``'s eight schedules, ``loss``'s
 ``cross_entropy``, ``softmax_with_cross_entropy``,
-``square_error_cost``, ``sigmoid_cross_entropy_with_logits`` and
-``cos_sim``, ``metric_op``'s ``accuracy``, ``edit_distance`` and
+``square_error_cost``, ``sigmoid_cross_entropy_with_logits``,
+``log_loss`` and ``cos_sim``, ``detection``'s every name (the JAX
+module's ``__all__`` and the others it exports: ``yolov3_loss``,
+``anchor_generator``, ``bipartite_match``, ``target_assign``,
+``box_clip``, ``polygon_box_transform``, ``retinanet_detection_output``,
+``sigmoid_focal_loss``, ``distribute_fpn_proposals`` and
+``collect_fpn_proposals``), ``metric_op``'s ``accuracy``, ``edit_distance`` and
 ``chunk_eval``, ``attention``'s ``multi_head_attention``,
 ``scaled_dot_product_attention`` and ``add_position_encoding``,
 ``sequence``'s fifteen sequence layers (all of the JAX module's but
@@ -46,10 +52,10 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  reshape, transpose, squeeze, unsqueeze, concat, slice,
                  gather, expand, topk, cast, softmax, row_conv, im2sequence,
                  linear_chain_crf, crf_decoding, warpctc, ctc_greedy_decoder,
-                 py_func)
+                 smooth_l1, py_func)
 from .tensor import (create_parameter, create_global_var, fill_constant,
                      fill_constant_batch_size_like, zeros_like, ones_like,
-                     sums, assign, tensor_array_to_tensor)
+                     sums, assign, tensor_array_to_tensor, range)
 from .ops import sigmoid, exp, ceil, floor, cos, log
 from . import control_flow
 from .control_flow import (Print, DynamicRNN,
@@ -61,7 +67,7 @@ from .control_flow import (Print, DynamicRNN,
                            is_empty, autoincreased_step_counter, while_loop)
 from .loss import (cross_entropy, softmax_with_cross_entropy,
                    square_error_cost, sigmoid_cross_entropy_with_logits,
-                   cos_sim)
+                   log_loss, cos_sim)
 from .metric_op import accuracy, edit_distance, chunk_eval
 from . import attention
 from .attention import (scaled_dot_product_attention, multi_head_attention,
@@ -79,6 +85,19 @@ from .rnn import (dynamic_lstm, dynamic_lstmp, dynamic_gru, lstm, gru,
 from . import beam_search as beam_search_mod
 from .beam_search import beam_search, beam_search_decode
 from . import learning_rate_scheduler
+from . import detection
+from .detection import (prior_box, density_prior_box, box_coder,
+                        iou_similarity, multiclass_nms, yolo_box, roi_pool,
+                        roi_align, psroi_pool, ssd_loss, multi_box_head,
+                        detection_output, yolov3_loss, anchor_generator,
+                        bipartite_match, target_assign, box_clip,
+                        polygon_box_transform, retinanet_detection_output,
+                        sigmoid_focal_loss, distribute_fpn_proposals,
+                        collect_fpn_proposals, generate_proposals,
+                        rpn_target_assign, retinanet_target_assign,
+                        generate_proposal_labels, box_decoder_and_assign,
+                        multiclass_nms2, roi_perspective_transform,
+                        generate_mask_labels, detection_map)
 from .learning_rate_scheduler import (noam_decay, exponential_decay,
                                       natural_exp_decay, inverse_time_decay,
                                       polynomial_decay, piecewise_decay,

@@ -3,7 +3,8 @@
 Parity: the loss functions of python/paddle/fluid/layers/nn.py; the
 counterpart of ``paddle_tpu/layers/loss.py``'s ``cross_entropy``,
 ``softmax_with_cross_entropy``, ``square_error_cost``,
-``sigmoid_cross_entropy_with_logits`` and ``cos_sim``.
+``sigmoid_cross_entropy_with_logits``, ``log_loss`` and ``cos_sim``
+(``smooth_l1`` is ``nn``'s).
 """
 
 from ..core.layer_helper import LayerHelper
@@ -53,6 +54,15 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
                      {"X": x, "Label": label}, {"Out": out},
                      {"ignore_index": ignore_index, "normalize": normalize})
     return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("log_loss", {"Predicted": input, "Labels": label},
+                     {"Loss": out}, {"epsilon": epsilon})
+    return out
+
 
 
 def cos_sim(X, Y):

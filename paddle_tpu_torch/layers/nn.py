@@ -411,6 +411,22 @@ logical_xor = _make_logical("logical_xor")
 logical_not = _make_logical("logical_not", binary=False)
 
 
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    """Parity: fluid.layers.smooth_l1: (N, 1) row sums of the smooth-L1
+    of (x - y) x inside_weight, times outside_weight."""
+    helper = LayerHelper("smooth_l1")
+    inputs = {"X": x, "Y": y}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = inside_weight
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = outside_weight
+    out = helper.create_variable_for_type_inference(x.dtype, (x.shape[0], 1))
+    diff = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("smooth_l1_loss", inputs, {"Out": out, "Diff": diff},
+                     {"sigma": sigma or 1.0})
+    return out
+
+
 def py_func(func, x, out, backward_func=None,
             skip_vars_in_backward_input=None):
     """Parity: fluid.layers.py_func: `func` called on numpy copies of `x`

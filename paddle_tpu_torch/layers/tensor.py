@@ -4,7 +4,8 @@ Parity: python/paddle/fluid/layers/tensor.py; the counterpart of
 ``paddle_tpu/layers/tensor.py``'s ``create_parameter``,
 ``create_global_var``, ``fill_constant``,
 ``fill_constant_batch_size_like``, ``zeros_like``, ``ones_like``,
-``sums``, ``assign`` (of a Variable) and ``tensor_array_to_tensor``.
+``sums``, ``assign`` (of a Variable), ``range`` and
+``tensor_array_to_tensor``.
 """
 
 from ..core.layer_helper import LayerHelper
@@ -118,3 +119,15 @@ def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
     helper.append_op("tensor_array_sizes", {"X": input}, {"Out": index},
                      {"axis": axis})
     return out, index
+
+
+def range(start, end, step, dtype="float32"):
+    """arange(start, end, step): a (ceil((end - start) / step),) tensor."""
+    import math
+    helper = LayerHelper("range")
+    n = int(max(0, math.ceil((end - start) / step)))
+    out = helper.create_variable_for_type_inference(dtype, (n,))
+    helper.append_op("range", {}, {"Out": out},
+                     {"start": start, "end": end, "step": step,
+                      "dtype": dtype})
+    return out

@@ -15,11 +15,11 @@ which the dp walk (``core/compiler.py``) consults when an input of the
 op is dp-sharded (a ``Sharded`` value: one tensor a held rank, each the
 rank's rows along dim 0): ``rows`` runs the op once a held rank on its
 rows, ``rows_if(check)`` does so behind a check, ``replicated`` refuses
-a sharded input, ``whole`` runs the op once over the whole env (the
-tensor arrays' bookkeeping, the structured control-flow ops, whose
-sub-blocks' ops meet their own rules through the walk the context
-carries), and an op's own rule finishes a global reduction with the
-mesh's dp collective into a replicated value. An op without a rule
+a sharded input, ``refuses(why)`` does so at dp > 1, ``whole`` runs the
+op once over the whole env (the tensor arrays' bookkeeping, the
+structured control-flow ops, whose sub-blocks' ops meet their own rules
+through the walk the context carries), and an op's own rule finishes a
+global reduction with the mesh's dp collective into a replicated value. An op without a rule
 refuses a sharded input too: the walk never computes a silently local
 answer.
 
@@ -270,6 +270,17 @@ def replicated(impl, ctxs, walk):
         f"data parallelism it got a dp-sharded input")
 
 
+def refuses(why):
+    """The dp rule of an op that cannot take an input sharded over more
+    than one rank, and why (at dp 1 a rank's rows are the whole)."""
+    def rule(impl, ctxs, walk):
+        if walk.size == 1:
+            return rows(impl, ctxs, walk)
+        raise NotImplementedError(
+            f"op '{ctxs[0].op.type}' under data parallelism: {why}")
+    return rule
+
+
 def whole(impl, ctxs, walk):
     """The rule of ops that run once over the whole env, sharded values
     and all (the tensor arrays' bookkeeping, which stores or hands back
@@ -333,3 +344,5 @@ from . import rnn_ops         # noqa: E402,F401
 from . import crf_ops         # noqa: E402,F401
 from . import ctc_ops         # noqa: E402,F401
 from . import control_flow_ops  # noqa: E402,F401
+from . import detection_ops   # noqa: E402,F401
+from . import rcnn_ops        # noqa: E402,F401

@@ -59,19 +59,8 @@ dim 1) and of the beam-search decoder.
 import numpy as np
 import torch
 
-from . import (Sharded, TensorArray, register, replicated, rows, rows_if,
-               run_op, whole, whole_context)
-
-
-def _refuses(why):
-    """The dp rule of an op that cannot take an input sharded over more
-    than one rank, and why (at dp 1 a rank's rows are the whole)."""
-    def rule(impl, ctxs, walk):
-        if walk.size == 1:
-            return rows(impl, ctxs, walk)
-        raise NotImplementedError(
-            f"op '{ctxs[0].op.type}' under data parallelism: {why}")
-    return rule
+from . import (Sharded, TensorArray, refuses, register, replicated, rows,
+               rows_if, run_op, whole, whole_context)
 
 
 def _unsharded(ctx, value, what):
@@ -367,7 +356,7 @@ def switch_op(ctx):
     return {"Out": [current[n] for n in targets]}
 
 
-@register("static_rnn", dp=_refuses(
+@register("static_rnn", dp=refuses(
         "a dp-sharded input of a static RNN has no rows to split: axis 0 "
         "of its step inputs is time (split over dp it would split T), and "
         "its stacked outputs' batch is dim 1; feed it replicated"))
@@ -415,7 +404,7 @@ def while_loop_op(ctx):
     return {"Out": vals}
 
 
-@register("contrib_beam_search_decoder", dp=_refuses(
+@register("contrib_beam_search_decoder", dp=refuses(
         "the beam search reorders its lanes by parent beam across the "
         "whole batch; feed the decoder replicated"))
 def contrib_beam_search_decoder(ctx):

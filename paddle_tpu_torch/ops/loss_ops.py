@@ -2,11 +2,13 @@
 
 Parity: paddle/fluid/operators/{cross_entropy,
 softmax_with_cross_entropy,sigmoid_cross_entropy_with_logits}_op.*,
-square_error_cost (the reference's squared_l2_distance); the counterpart
-of ``paddle_tpu/ops/loss_ops.py`` with the losses the ported slices run.
+square_error_cost (the reference's squared_l2_distance), log_loss,
+smooth_l1_loss and sigmoid_focal_loss; the counterpart of
+``paddle_tpu/ops/loss_ops.py`` with the losses the ported slices run.
 Under data parallelism each gives a rank's rows their loss rows; where
 ``sigmoid_cross_entropy_with_logits`` normalizes, it divides by the
 global batch's count of unmasked labels (a dp sum), not each rank's.
+``sigmoid_focal_loss``'s FgNum must be replicated (the global count).
 """
 
 import torch
@@ -115,3 +117,58 @@ def cos_sim(ctx):
     out = torch.sum(x * y, dim=-1, keepdim=True) / torch.clamp_min(
         xn * yn, 1e-12)
     return {"Out": out, "XNorm": xn, "YNorm": yn}
+
+
+@register("log_loss", dp=rows)
+def log_loss(ctx):
+    """-label log(p + eps) - (1 - label) log(1 - p + eps), element-wise."""
+    p, label = ctx.in_("Predicted"), ctx.in_("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    return {"Loss": -label * torch.log(p + eps)
+            - (1 - label) * torch.log(1 - p + eps)}
+
+
+@register("smooth_l1_loss", "smooth_l1", dp=rows)
+def smooth_l1(ctx):
+    """d = (X - Y) x InsideWeight; 0.5 sigma^2 d^2 where |d| < 1/sigma^2,
+    else |d| - 0.5/sigma^2; times OutsideWeight, summed over each row:
+    Out (N, 1), Diff d."""
+    x, y = ctx.in_("X"), ctx.in_("Y")
+    s2 = ctx.attr("sigma", 1.0) ** 2
+    d = x - y
+    if ctx.has_in("InsideWeight"):
+        d = d * ctx.in_("InsideWeight")
+    ad = torch.abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * d * d, ad - 0.5 / s2)
+    if ctx.has_in("OutsideWeight"):
+        loss = loss * ctx.in_("OutsideWeight")
+    return {"Out": loss.reshape(loss.shape[0], -1).sum(1, keepdim=True),
+            "Diff": d}
+
+
+def _fg_num_replicated(ctx, walk):
+    if ctx.is_sharded("FgNum"):
+        return "its FgNum is dp-sharded; each rank's rows need the count"
+    return None
+
+
+@register("sigmoid_focal_loss", dp=rows_if(_fg_num_replicated))
+def sigmoid_focal_loss(ctx):
+    """RetinaNet's focal loss on logits X (N, C): label 0 is background,
+    label l > 0 is channel l - 1; alpha_t (1 - p_t)^gamma x the BCE, over
+    max(FgNum, 1) where given."""
+    x = ctx.in_("X")
+    label = ctx.in_("Label").reshape(-1).long()
+    c = x.shape[1]
+    t = ((label - 1)[:, None] == torch.arange(c, device=x.device)) \
+        .to(x.dtype)
+    p = torch.sigmoid(x)
+    pt = torch.where(t > 0, p, 1 - p)
+    at = torch.where(t > 0, ctx.attr("alpha", 0.25),
+                     1 - ctx.attr("alpha", 0.25))
+    bce = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-torch.abs(x)))
+    loss = at * (1 - pt) ** ctx.attr("gamma", 2.0) * bce
+    if ctx.has_in("FgNum"):
+        fg = ctx.in_("FgNum").to(x.dtype).reshape(())
+        loss = loss / torch.clamp(fg, min=1.0)
+    return {"Out": loss}

@@ -7,6 +7,7 @@ lookup_table,gather,top_k}_op.cc; the counterpart of
 splits heads with it; ``gather`` picks BERT's masked rows (its gradient
 is torch's scatter-add, ``index_add``), ``top_k`` feeds ``accuracy``;
 ``one_hot`` and ``label_smooth`` build the Transformer's soft labels,
+``range`` the Faster R-CNN head's batch indices,
 ``concat``, ``squeeze``/``unsqueeze``, ``expand`` and ``ones_like`` DIN's
 attention unit.
 
@@ -19,11 +20,12 @@ from a sharded source with sharded global indices gathers from the
 whole source, the ranks' rows concatenated in rank order (in a world,
 all-gathered): exact for any in-range global index, as BERT's
 ``mask_pos`` indexes the global (B*T) token grid. ``fill_constant``
-takes no sharded input. ``one_hot``, ``label_smooth`` and ``ones_like``
-run a rank's rows; ``concat``, ``squeeze``, ``unsqueeze`` and ``expand``
-do so where they leave dim 0 the batch: a rank-local ``concat`` on axis
-0 or an ``expand`` that tiles dim 0 would interleave the ranks' rows, so
-those refuse (at dp 2 and more; one rank's rows are the batch).
+and ``range`` take no sharded input. ``one_hot``, ``label_smooth`` and
+``ones_like`` run a rank's rows; ``concat``, ``squeeze``, ``unsqueeze``
+and ``expand`` do so where they leave dim 0 the batch: a rank-local
+``concat`` on axis 0 or an ``expand`` that tiles dim 0 would interleave
+the ranks' rows, so those refuse (at dp 2 and more; one rank's rows
+are the batch).
 """
 
 import torch
@@ -58,6 +60,15 @@ def fill_constant(ctx):
     dtype = torch_dtype(ctx.attr("dtype", "float32"))
     return {"Out": torch.full(tuple(shape), value, dtype=dtype,
                               device=ctx.device)}
+
+
+@register("range", dp=replicated)
+def range_op(ctx):
+    """arange(start, end, step) in `dtype` on the op's device."""
+    return {"Out": torch.arange(ctx.attr("start"), ctx.attr("end"),
+                                ctx.attr("step"), device=ctx.device,
+                                dtype=torch_dtype(ctx.attr("dtype",
+                                                           "float32")))}
 
 
 @register("fill_constant_batch_size_like", dp=rows)

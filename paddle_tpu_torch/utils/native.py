@@ -1,8 +1,8 @@
 """Build the repo's host C++ libraries (``csrc/*.cc``) at first use.
 
 The port's own build step for the sources the JAX package also builds: the
-prefetch ring (``prefetch.cc``), the loader pool (``loader_pool.cc``) and
-the dataset parser (``dataset_feed.cc``). Each source is compiled with
+prefetch ring (``prefetch.cc``), the loader pool (``loader_pool.cc``), the
+dataset parser (``dataset_feed.cc``) and the host NMS (``nms.cc``). Each source is compiled with
 ``g++`` into ``paddle_tpu_torch/csrc/build/`` under a name that carries
 the hash of its content, so an edited source rebuilds and an unchanged one
 loads as it is. Builds of one source in several processes at once (test
