@@ -989,6 +989,49 @@ FRCNN_LR, FRCNN_STEPS, FRCNN_PROFILE_STEPS = 1e-3, 10, 3
 # IoUs at least FRCNN_MARGIN from the thresholds
 FRCNN_AGREE = {"rpn_samples": 384, "rcnn_samples": 112}
 FRCNN_LOSS_TOL, FRCNN_GRAD_TOL, FRCNN_MARGIN = 1e-5, 1e-4, 1e-4
+# phases 31-31g: the vision nets and the activation family. 31:
+# MobileNet-v2 at ImageNet width (Sandler et al., "MobileNetV2", 2018;
+# PaddleCV's Fluid 1.5 image_classification recipe: 3 x 224², 1000
+# classes, width 1.0, Momentum 0.9, lr 0.1, L2 4e-5), batch 64 a card,
+# f32, on one seeded batch
+MNV2_IMAGE, MNV2_CLASSES, MNV2_BATCH = (3, 224, 224), 1000, 64
+MN_LR, MN_MOMENTUM, MN_DECAY = 0.1, 0.9, 4e-5
+MNV2_WARM, MNV2_STEPS, MN_PROFILE_STEPS = 2, 20, 2
+MNV1_STEPS = 8                      # 31b: v1 at the same width
+# 31b's card vs CPU: v2 at width 0.25, 64², batch 8, one step from one
+# CPU startup
+MN_AGREE = {"width_mult": 0.25, "image": (3, 64, 64), "batch": 8}
+# 31c: DeepLabv3+ at PASCAL VOC's crop (Chen et al., "DeepLabv3+", 2018:
+# 513², 21 classes; the model's base_filters 64), batch 8, Adam 1e-3;
+# its card vs CPU at 65², base 8, batch 2
+DL_IMAGE, DL_CLASSES, DL_FILTERS, DL_BATCH = 513, 21, 64, 8
+DL_LR, DL_STEPS = 1e-3, 8
+DL_AGREE = {"image": 65, "filters": 8, "batch": 2}
+# 31d: TSM at Kinetics width (Lin et al., "TSM", 2019; PaddleVideo's TSM:
+# 8 segments of 224², 400 classes, ResNet-50's (3, 4, 6, 3) blocks at
+# base 64, Momentum(0.01, 0.9)), 4 videos; its card vs CPU at 4
+# segments of 32², base 16, blocks (1, 1), 2 videos
+TSM_SEG, TSM_IMAGE, TSM_CLASSES, TSM_BASE = 8, 224, 400, 64
+TSM_BLOCKS, TSM_BATCH, TSM_LR, TSM_STEPS = (3, 4, 6, 3), 4, 0.01, 10
+TSM_AGREE = {"seg": 4, "image": 32, "base": 16, "blocks": (1, 1),
+             "batch": 2}
+# 31e: DCGAN at its width (MNIST's 1 x 28², NOISE_DIM 100, ngf / ndf
+# 64), batch 32, Adam 2e-4, alternating D and G steps
+GAN_BATCH, GAN_LR, GAN_STEPS = 32, 2e-4, 10
+# 31f: the book nets at the JAX tests' sizes, each this many steps on
+# one batch; VGG-16's dropout (0.3-0.5 after most layers) holds its loss
+# flat for ~18 Adam steps before it falls (a CPU rehearsal: 2.52 -> 2.51
+# at step 17, 1.72 at 30, 1.21 at 80)
+BOOK_STEPS, VGG_STEPS = 15, 40
+# 31b-31e card vs CPU from one CPU startup: the loss relative, each
+# @GRAD's largest difference over the step's largest @GRAD (f32
+# convolutions and batch norms over a few samples on both, summed in
+# other orders)
+VISION_LOSS_TOL, VISION_GRAD_TOL = 1e-5, 1e-4
+# 31g: each op of the slice on the card against the same op on the CPU
+# from one seeded input: the largest difference over the output's (the
+# gradient's) largest magnitude; integer outputs equal
+OPS_FWD_TOL, OPS_GRAD_TOL = 1e-5, 1e-4
 # phases 26-26c: ERNIE-base (phase 16's program) under guarded
 # asynchronous training: GUARD_STEPS steps of distinct ERNIE feeds, the
 # async window GUARD_WINDOW, a checkpoint every GUARD_CKPT_EVERY steps, a
@@ -10512,6 +10555,771 @@ def phase_det_all(flash, paged):
     return total, recs
 
 
+# ---------------------------------------------------------------------------
+# phases 31-31g: the vision nets and the activation family
+# ---------------------------------------------------------------------------
+
+def _vision_program(build, opt=None, seed=SEED + 31):
+    """build() in a fresh Program under a fresh unique_name guard; with
+    `opt` (a function of fluid returning an optimizer) it minimizes what
+    build returns (the loss). Returns (main, startup, loss)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss = build()
+        if opt is not None:
+            opt(fluid).minimize(loss)
+    return main, startup, loss
+
+
+def _vision_momentum(lr, decay=None):
+    def make(fluid):
+        reg = fluid.regularizer.L2Decay(decay) if decay else None
+        return fluid.optimizer.MomentumOptimizer(lr, MN_MOMENTUM,
+                                                 regularization=reg)
+    return make
+
+
+def _vision_adam(lr):
+    return lambda fluid: fluid.optimizer.AdamOptimizer(learning_rate=lr)
+
+
+def _mobilenet(version, image, classes, width_mult=1.0):
+    from paddle_tpu_torch.models import mobilenet
+    return lambda: mobilenet.build_train_net(
+        version=version, class_dim=classes, image_shape=image,
+        width_mult=width_mult)[3]
+
+
+def _images_feed(batch, image, classes, device="cuda", seed=SEED + 31):
+    """Standard normal images and labels from `seed`, made on `device`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {"img": torch.randn((batch,) + tuple(image), generator=gen,
+                               device=device),
+            "label": torch.randint(0, classes, (batch, 1), generator=gen,
+                                   device=device)}
+
+
+def _falls(losses):
+    return bool(np.isfinite(losses).all()
+                and np.mean(losses[-3:]) < np.mean(losses[:3]))
+
+
+def _train_phase(tag, config, batch, main, startup, loss, feed, warm,
+                 steps, profile_steps=0):
+    """warm + steps runs of main on one feed from startup: every loss
+    finite and the last 3 losses' mean below the first 3's, 0 host syncs
+    in a training dispatch. Prints the step record (with a profile by
+    op when profile_steps). Returns the record."""
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, ms = _timed_steps(exe, main, feed, [loss], scope, warm + steps)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+    syncs = _dispatch_syncs(exe, main, feed, [loss], scope)
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    if profile_steps:
+        prof = _profile_ops(step, profile_steps)
+    else:
+        prof = _profile_train(step, 1, flash=False)
+    rec = _seq_record(tag, config, batch, ms[warm:], peak, prof,
+                      ops=len(main.global_block().ops),
+                      loss_first=losses[0], loss_last=losses[-1],
+                      losses=losses, syncs_in_a_training_dispatch=len(syncs),
+                      sync_sites=sorted(set(syncs)))
+    if not _falls(losses):
+        _fail(f"{tag}: losses not finite or not falling: {losses}")
+    if syncs:
+        _fail(f"{tag}: host syncs in a training dispatch: {syncs}")
+    return rec
+
+
+def phase_mobilenet_v2():
+    """Phase 31: MobileNet-v2 at ImageNet width (MNV2_*), Momentum(0.1,
+    0.9) with L2 4e-5, MNV2_WARM + MNV2_STEPS steps on one seeded batch
+    of 64. Gates: every loss finite, the last 3 losses' mean below the
+    first 3's, 0 host syncs in a training dispatch. Prints step p50 /
+    p99, images/s, device ms, operations, busy share, peak memory and
+    the device ms by op type (_profile_ops)."""
+    main, startup, loss = _vision_program(
+        _mobilenet(2, MNV2_IMAGE, MNV2_CLASSES),
+        _vision_momentum(MN_LR, MN_DECAY))
+    return _train_phase(
+        "mobilenet_v2", f"mobilenet.build_train_net(version=2, class_dim="
+        f"{MNV2_CLASSES}, image_shape={MNV2_IMAGE}, width_mult=1.0), "
+        f"Momentum({MN_LR}, {MN_MOMENTUM}), L2Decay({MN_DECAY}), f32",
+        MNV2_BATCH, main, startup, loss,
+        _images_feed(MNV2_BATCH, MNV2_IMAGE, MNV2_CLASSES), MNV2_WARM,
+        MNV2_STEPS, MN_PROFILE_STEPS)
+
+
+def _card_vs_cpu(tag, main, startup, fetch, feed, params, config):
+    """One run of main on the card and on the CPU from one CPU startup
+    (copied to each): the first fetch (a loss) relative, each of
+    `params`' @GRADs' largest difference over the run's largest @GRAD.
+    Fails past VISION_LOSS_TOL / VISION_GRAD_TOL. Returns (the record,
+    each side's scope)."""
+    import paddle_tpu_torch as fluid
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    grads = [p + "@GRAD" for p in params]
+    runs, scopes = {}, {}
+    for where, place in (("card", fluid.CUDAPlace(0)),
+                         ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).to(exe.device, copy=True))
+        runs[where] = exe.run(main, feed=feed, scope=scope,
+                              fetch_list=list(fetch) + grads)
+        scopes[where] = scope
+    card, cpu = runs["card"], runs["cpu"]
+    n = len(fetch)
+    ref = float(np.asarray(cpu[0]).reshape(-1)[0])
+    loss_err = abs(float(np.asarray(card[0]).reshape(-1)[0]) - ref) / abs(ref)
+    gmax = max(float(np.abs(h).max()) for h in cpu[n:])
+    errs = {g: float(np.abs(a - h).max()) / gmax
+            for g, a, h in zip(grads, card[n:], cpu[n:])}
+    own = {g: float(np.abs(a - h).max()) / max(float(np.abs(h).max()),
+                                                1e-30)
+           for g, a, h in zip(grads, card[n:], cpu[n:])}
+    worst = max(errs, key=errs.get)
+    worst_own = max(own, key=own.get)
+    rec = {"config": config, "loss": ref, "loss_rel_err": loss_err,
+           "grads": len(grads), "grad_worst_of_step_scale":
+               [worst, errs[worst]],
+           "grad_worst_of_own_scale": [worst_own, own[worst_own]],
+           "card": _card_line()}
+    print(f"{tag} agree " + json.dumps(rec))
+    if not loss_err <= VISION_LOSS_TOL or not errs[worst] <= VISION_GRAD_TOL:
+        _fail(f"{tag} agree: the card against the CPU: {rec}")
+    return rec, scopes
+
+
+def _np_feed(feed):
+    return {k: v.cpu().numpy() for k, v in feed.items()}
+
+
+def phase_mobilenet_v1_agree():
+    """Phase 31b: MobileNet v1 at phase 31's width and recipe,
+    MNV1_STEPS steps with phase 31's gates; then v2 at MN_AGREE, one
+    step on the card and on the CPU from one CPU startup: the loss
+    within VISION_LOSS_TOL, every @GRAD within VISION_GRAD_TOL of the
+    step's largest."""
+    main, startup, loss = _vision_program(
+        _mobilenet(1, MNV2_IMAGE, MNV2_CLASSES),
+        _vision_momentum(MN_LR, MN_DECAY))
+    rec = _train_phase(
+        "mobilenet_v1", f"mobilenet.build_train_net(version=1, class_dim="
+        f"{MNV2_CLASSES}, image_shape={MNV2_IMAGE}), Momentum({MN_LR}, "
+        f"{MN_MOMENTUM}), L2Decay({MN_DECAY}), f32", MNV2_BATCH, main,
+        startup, loss, _images_feed(MNV2_BATCH, MNV2_IMAGE, MNV2_CLASSES),
+        0, MNV1_STEPS)
+    a = MN_AGREE
+    main, startup, loss = _vision_program(
+        _mobilenet(2, a["image"], 10, a["width_mult"]),
+        _vision_momentum(MN_LR, MN_DECAY))
+    agree, _ = _card_vs_cpu(
+        "mobilenet_v2", main, startup, [loss],
+        _np_feed(_images_feed(a["batch"], a["image"], 10, "cpu")),
+        [p.name for p in main.all_parameters()], f"v2 at {a}")
+    return {"v1": rec, "v2_agree": agree}
+
+
+def _deeplab(image, classes, filters):
+    from paddle_tpu_torch.models import deeplab
+    return lambda: deeplab.build_train_net(
+        img_shape=(3, image, image), num_classes=classes,
+        base_filters=filters)[2]
+
+
+def deeplab_feed(batch, image, classes, device="cuda", seed=SEED + 32):
+    """Seeded images and labels constant over 32 x 32 blocks (a pattern
+    the net can fit)."""
+    rng = np.random.RandomState(seed)
+    blocks = -(-image // 32)
+    lab = np.kron(rng.randint(0, classes, (batch, blocks, blocks)),
+                  np.ones((32, 32), np.int64))[:, :image, :image]
+    feed = {"pixels": rng.rand(batch, 3, image, image).astype(np.float32),
+            "label": np.ascontiguousarray(lab).astype(np.int64)}
+    return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+
+
+def phase_deeplab():
+    """Phase 31c: DeepLabv3+ at PASCAL VOC's crop (DL_*), Adam(1e-3),
+    DL_STEPS steps on one seeded batch of 8: phase 31's gates; then at
+    DL_AGREE one step on the card and on the CPU from one startup."""
+    main, startup, loss = _vision_program(
+        _deeplab(DL_IMAGE, DL_CLASSES, DL_FILTERS), _vision_adam(DL_LR))
+    rec = _train_phase(
+        "deeplab", f"deeplab.build_train_net(img_shape=(3, {DL_IMAGE}, "
+        f"{DL_IMAGE}), num_classes={DL_CLASSES}, base_filters="
+        f"{DL_FILTERS}), Adam({DL_LR}), f32", DL_BATCH, main, startup, loss,
+        deeplab_feed(DL_BATCH, DL_IMAGE, DL_CLASSES), 0, DL_STEPS)
+    a = DL_AGREE
+    main, startup, loss = _vision_program(
+        _deeplab(a["image"], DL_CLASSES, a["filters"]), _vision_adam(DL_LR))
+    agree, _ = _card_vs_cpu(
+        "deeplab", main, startup, [loss],
+        _np_feed(deeplab_feed(a["batch"], a["image"], DL_CLASSES, "cpu")),
+        [p.name for p in main.all_parameters()], f"deeplab at {a}")
+    return {"train": rec, "agree": agree}
+
+
+def _tsm(seg, image, classes, base, blocks):
+    def build():
+        from paddle_tpu_torch import layers
+        from paddle_tpu_torch.models import tsm
+        video = layers.data("video", shape=[seg, 3, image, image],
+                            dtype="float32")
+        label = layers.data("label", shape=[1], dtype="int64")
+        logits = tsm.tsm_net(video, seg, classes, base_ch=base,
+                             num_blocks=blocks)
+        return layers.mean(layers.softmax_with_cross_entropy(logits,
+                                                             label))
+    return build
+
+
+def tsm_feed(batch, seg, image, classes, device="cuda", seed=SEED + 33):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {"video": torch.randn((batch, seg, 3, image, image),
+                                 generator=gen, device=device),
+            "label": torch.randint(0, classes, (batch, 1), generator=gen,
+                                   device=device)}
+
+
+def phase_tsm():
+    """Phase 31d: TSM at Kinetics width (TSM_*), Momentum(0.01, 0.9),
+    TSM_STEPS steps on 4 seeded videos: phase 31's gates; then at
+    TSM_AGREE one step on the card and on the CPU from one startup."""
+    main, startup, loss = _vision_program(
+        _tsm(TSM_SEG, TSM_IMAGE, TSM_CLASSES, TSM_BASE, TSM_BLOCKS),
+        _vision_momentum(TSM_LR))
+    ops = main.global_block().ops
+    shifts = sum(op.type == "temporal_shift" for op in ops)
+    if shifts != sum(TSM_BLOCKS):
+        _fail(f"tsm: {shifts} temporal_shift ops, want {sum(TSM_BLOCKS)}")
+    rec = _train_phase(
+        "tsm", f"tsm.tsm_net(seg_num={TSM_SEG}, {TSM_IMAGE}², class_dim="
+        f"{TSM_CLASSES}, base_ch={TSM_BASE}, num_blocks={TSM_BLOCKS}), "
+        f"Momentum({TSM_LR}, {MN_MOMENTUM}), f32", TSM_BATCH, main,
+        startup, loss, tsm_feed(TSM_BATCH, TSM_SEG, TSM_IMAGE, TSM_CLASSES),
+        0, TSM_STEPS)
+    a = TSM_AGREE
+    main, startup, loss = _vision_program(
+        _tsm(a["seg"], a["image"], 10, a["base"], a["blocks"]),
+        _vision_momentum(TSM_LR))
+    agree, _ = _card_vs_cpu(
+        "tsm", main, startup, [loss],
+        _np_feed(tsm_feed(a["batch"], a["seg"], a["image"], 10, "cpu")),
+        [p.name for p in main.all_parameters()], f"tsm at {a}")
+    return {"train": rec, "agree": agree, "temporal_shifts": shifts}
+
+
+def _gan_programs():
+    """build_gan's D and G Programs under one fresh startup, each with
+    Adam(GAN_LR) over its own tower's parameters."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import gan
+    startup = fluid.Program()
+    startup.random_seed = SEED + 34
+    with unique_name.guard(), fluid.program_guard(fluid.Program(),
+                                                  startup):
+        nets = gan.build_gan(batch_size=GAN_BATCH)
+        for prog, loss, params in (("d_program", "d_loss", "d_params"),
+                                   ("g_program", "g_loss", "g_params")):
+            nets[prog].random_seed = SEED + 34
+            with fluid.program_guard(nets[prog]):
+                fluid.optimizer.AdamOptimizer(learning_rate=GAN_LR).minimize(
+                    nets[loss], parameter_list=nets[params])
+    return nets, startup
+
+
+def gan_feeds(step, device="cuda"):
+    """Step `step`'s seeded real images (in [-1, 1]) and D / G noise."""
+    rng = np.random.RandomState(SEED + 340 + step)
+    feeds = {"d": {"img": rng.uniform(-1, 1, (GAN_BATCH, 1, 28, 28)),
+                   "noise": rng.randn(GAN_BATCH, 100)},
+             "g": {"noise": rng.randn(GAN_BATCH, 100)}}
+    return {k: {n: torch.from_numpy(v.astype(np.float32)).to(device)
+                for n, v in f.items()} for k, f in feeds.items()}
+
+
+def phase_gan():
+    """Phase 31e: DCGAN at its width, GAN_STEPS alternating D and G Adam
+    steps on seeded batches of 32: both losses finite at every step, 0
+    host syncs in a D and in a G dispatch; then the first D step and the
+    first G step after it on the card and on the CPU from one startup:
+    each loss within VISION_LOSS_TOL, its tower's @GRADs within
+    VISION_GRAD_TOL of the step's largest."""
+    import paddle_tpu_torch as fluid
+    nets, startup = _gan_programs()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    d_losses, g_losses, ms = [], [], []
+    for i in range(GAN_STEPS):
+        f = gan_feeds(i)
+        t0 = time.perf_counter()
+        d, = exe.run(nets["d_program"], feed=f["d"],
+                     fetch_list=[nets["d_loss"]], scope=scope)
+        g, = exe.run(nets["g_program"], feed=f["g"],
+                     fetch_list=[nets["g_loss"]], scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        d_losses.append(float(np.asarray(d).reshape(-1)[0]))
+        g_losses.append(float(np.asarray(g).reshape(-1)[0]))
+    f = gan_feeds(GAN_STEPS)
+    syncs = _dispatch_syncs(exe, nets["d_program"], f["d"],
+                            [nets["d_loss"]], scope) + _dispatch_syncs(
+        exe, nets["g_program"], f["g"], [nets["g_loss"]], scope)
+    # the first D then G step on each side from one CPU startup
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    f0 = {k: _np_feed(v) for k, v in gan_feeds(0, "cpu").items()}
+    runs = {}
+    for where, place in (("card", fluid.CUDAPlace(0)),
+                         ("cpu", fluid.CPUPlace())):
+        e = fluid.Executor(place)
+        sc = fluid.Scope()
+        for nm in base.names():
+            sc.set(nm, base.get(nm).to(e.device, copy=True))
+        runs[where] = [e.run(nets[prog], feed=f0[key], scope=sc,
+                             fetch_list=[nets[loss]] + [
+                                 p + "@GRAD" for p in nets[params]])
+                       for prog, key, loss, params in (
+                           ("d_program", "d", "d_loss", "d_params"),
+                           ("g_program", "g", "g_loss", "g_params"))]
+    errs = {}
+    for i, tower in enumerate(("d", "g")):
+        card, cpu = runs["card"][i], runs["cpu"][i]
+        ref = float(np.asarray(cpu[0]).reshape(-1)[0])
+        gmax = max(float(np.abs(h).max()) for h in cpu[1:])
+        errs[tower] = [abs(float(np.asarray(card[0]).reshape(-1)[0]) - ref)
+                       / abs(ref),
+                       max(float(np.abs(a - h).max()) / gmax
+                           for a, h in zip(card[1:], cpu[1:]))]
+    rec = {"config": f"gan.build_gan(), ngf / ndf 64, NOISE_DIM 100, "
+                     f"batch {GAN_BATCH}, Adam({GAN_LR}) each tower, f32",
+           "steps": GAN_STEPS, "d_losses": d_losses, "g_losses": g_losses,
+           "d_plus_g_ms_p50": float(np.percentile(ms[1:], 50)),
+           "syncs_in_d_and_g_dispatches": len(syncs),
+           "first_steps_card_vs_cpu_loss_grad": errs, "card": _card_line()}
+    print("gan " + json.dumps(rec))
+    if not (np.isfinite(d_losses).all() and np.isfinite(g_losses).all()):
+        _fail(f"gan: losses not finite: {rec}")
+    if syncs:
+        _fail(f"gan: host syncs in a dispatch: {syncs}")
+    if any(e[0] > VISION_LOSS_TOL or e[1] > VISION_GRAD_TOL
+           for e in errs.values()):
+        _fail(f"gan: the card against the CPU: {errs}")
+    return rec
+
+
+def _book_nets():
+    """(name, build, optimizer, feed, steps) of each book net at the JAX
+    tests' sizes: VGG-16-bn on CIFAR-10's shapes (batch 128, dropout on),
+    fit_a_line
+    (uci_housing's 13 features, 64 rows), word2vec (a 100-word
+    dictionary, batch 16), SimNet bow and cnn (vocabulary 200, 12
+    tokens, 32 triples)."""
+    from paddle_tpu_torch.models import fit_a_line, simnet, vgg, word2vec
+    rng = np.random.RandomState(SEED + 35)
+    q = rng.randint(1, 200, (32, 12))
+    pos = rng.randint(1, 200, (32, 12))
+    pos[:, :6] = q[:, :6]
+    lens = np.full((32, 1), 12)
+    triples = {"q_ids": q, "q_len": lens, "p_ids": pos, "p_len": lens,
+               "n_ids": rng.randint(1, 200, (32, 12)), "n_len": lens}
+    w_true = rng.randn(13, 1)
+    xs = rng.randn(64, 13)
+    # CIFAR-sized images that carry their class: a fixed pattern a class
+    # under noise
+    labels = rng.randint(0, 10, (128, 1))
+    images = rng.randn(10, 3, 32, 32)[labels[:, 0]] \
+        + 0.5 * rng.randn(128, 3, 32, 32)
+    nets = [
+        ("vgg16_bn_cifar10", lambda: vgg.build_train_net(class_dim=10)[3],
+         _vision_adam(1e-3), {"img": images.astype(np.float32), "label": labels},
+         VGG_STEPS),
+        ("fit_a_line", lambda: fit_a_line.build_train_net()[3],
+         lambda fluid: fluid.optimizer.SGDOptimizer(0.05),
+         {"x": xs.astype(np.float32),
+          "y": (xs @ w_true + 0.01 * rng.randn(64, 1)).astype(np.float32)},
+         BOOK_STEPS),
+        ("word2vec", lambda: word2vec.build_train_net(100)[3], _vision_adam(1e-3),
+         dict({f"word_{i}": rng.randint(0, 100, (16, 1)) for i in range(4)},
+              next_word=rng.randint(0, 100, (16, 1))), BOOK_STEPS)]
+    for tower in ("bow", "cnn"):
+        nets.append((f"simnet_{tower}", lambda t=tower: simnet.
+                     build_pairwise_net(vocab_size=200, max_len=12,
+                                        tower=t)[1], _vision_adam(5e-3), triples,
+                     BOOK_STEPS))
+    return nets
+
+
+def phase_book():
+    """Phase 31f: each book net its steps (BOOK_STEPS, VGG_STEPS) on one
+    batch on the card: every loss finite, the last 3 losses' mean below
+    the first 3's."""
+    import paddle_tpu_torch as fluid
+    recs = {}
+    for name, build, opt, feed, steps in _book_nets():
+        main, startup, loss = _vision_program(build, opt)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        dev = {k: torch.from_numpy(np.asarray(v)).to("cuda")
+               for k, v in feed.items()}
+        outs, ms = _timed_steps(exe, main, dev, [loss], scope, steps)
+        losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+        recs[name] = {"ops": len(main.global_block().ops),
+                      "step_ms_p50": float(np.percentile(ms[1:], 50)),
+                      "loss_first": losses[0], "loss_last": losses[-1]}
+        if not _falls(losses):
+            _fail(f"book {name}: losses not finite or not falling: "
+                  f"{losses}")
+    recs["card"] = _card_line()
+    print("book " + json.dumps(recs))
+    return recs
+
+
+# the 70 ops this slice registers
+SLICE_OPS = (
+    "abs acos asin atan brelu elu erf hard_shrink hard_sigmoid hard_swish "
+    "leaky_relu log_softmax logsigmoid maxout mish pow prelu reciprocal "
+    "relu6 round rsqrt selu sin soft_relu softplus softshrink softsign "
+    "stanh swish tanh_shrink thresholded_relu "
+    "conv2d_transpose depthwise_conv2d_transpose conv3d conv3d_transpose "
+    "pool3d adaptive_pool3d max_pool2d_with_index max_pool3d_with_index "
+    "unpool spp bilinear_interp nearest_interp trilinear_interp group_norm "
+    "instance_norm data_norm spectral_norm lrn affine_channel "
+    "temporal_shift grid_sampler affine_grid unfold deformable_conv "
+    "deformable_conv_v1 fsp similarity_focus bilinear_tensor_product "
+    "l2_normalize norm cumsum "
+    "uniform_random_batch_size_like gaussian_random_batch_size_like "
+    "truncated_gaussian_random randint sampling_id random_crop multinomial "
+    "bernoulli").split()
+RANDOM_OPS = SLICE_OPS[-8:]
+
+
+class _CardCtx(_OpArgs):
+    """One direct op call's context on `device`; rng() seeds a generator
+    there with `seed`."""
+
+    dp_rank = None
+    is_test = False
+
+    def __init__(self, ins, attrs, device, seed=0):
+        super().__init__(ins, attrs)
+        self.device = device
+        self.seed = seed
+
+    def has_in(self, slot):
+        return slot in self.ins
+
+    def is_sharded(self, slot):
+        return False
+
+    def rng(self):
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed)
+        return gen
+
+
+def _slice_op_cases():
+    """{op: (inputs as numpy, attrs, output slot, grad slots)} for every
+    deterministic op of SLICE_OPS, at small seeded shapes with each
+    op's edge: the pools' index ties, padding past the window's half,
+    every interpolation mode, grid points off the image, offsets off the
+    image."""
+    rng = np.random.RandomState(SEED + 36)
+
+    def r(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def away(x, *pts):
+        for p in pts:
+            x[np.abs(x - p) < 0.05] = p + 0.1
+        return x
+
+    x = away(r(4, 6, 5, 5, lo=-3, hi=3), 0.0)
+    ties = rng.randint(0, 4, (2, 3, 9, 8)).astype(np.float32)
+    cases = {name: ({"X": away(r(4, 6, 5, 5, lo=-3, hi=3), *pts)}, attrs,
+                    "Out", ("X",))
+             for name, attrs, pts in (
+                 ("abs", {}, (0,)), ("atan", {}, ()), ("erf", {}, ()),
+                 ("brelu", {"t_min": -1.0, "t_max": 1.0}, (-1, 1)),
+                 ("elu", {"alpha": 0.7}, (0,)),
+                 ("hard_shrink", {"threshold": 0.4}, (-0.4, 0.4)),
+                 ("hard_sigmoid", {}, (-2.5, 2.5)),
+                 ("hard_swish", {}, (-3, 3)),
+                 ("leaky_relu", {"alpha": 0.1}, (0,)),
+                 ("log_softmax", {"axis": 1}, ()), ("logsigmoid", {}, ()),
+                 ("mish", {}, ()), ("relu6", {"threshold": 2.0}, (0, 2)),
+                 ("round", {}, ()), ("selu", {}, (0,)), ("sin", {}, ()),
+                 ("soft_relu", {"threshold": 2.0}, (-2, 2)),
+                 ("softplus", {}, ()), ("softshrink", {"lambda": 0.5},
+                                        (-0.5, 0.5)),
+                 ("softsign", {}, ()), ("stanh", {}, ()),
+                 ("swish", {"beta": 1.3}, ()), ("tanh_shrink", {}, ()),
+                 ("thresholded_relu", {"threshold": 0.8}, (0.8,)))}
+    cases.update({
+        "acos": ({"X": r(4, 9, lo=-0.9, hi=0.9)}, {}, "Out", ("X",)),
+        "asin": ({"X": r(4, 9, lo=-0.9, hi=0.9)}, {}, "Out", ("X",)),
+        "pow": ({"X": r(4, 9, lo=0.2, hi=3)}, {"factor": 2.5}, "Out",
+                ("X",)),
+        "reciprocal": ({"X": r(4, 9, lo=0.3, hi=3)}, {}, "Out", ("X",)),
+        "rsqrt": ({"X": r(4, 9, lo=0.3, hi=3)}, {}, "Out", ("X",)),
+        "maxout": ({"X": x}, {"groups": 3}, "Out", ("X",)),
+        "prelu": ({"X": x, "Alpha": r(6, lo=0, hi=0.5)},
+                  {"mode": "channel"}, "Out", ("X", "Alpha")),
+        "conv2d_transpose": ({"Input": r(2, 4, 7, 6), "Filter": r(4, 3, 3, 4),
+                              "Bias": r(6)},
+                             {"strides": [2, 2], "paddings": [1, 1],
+                              "groups": 2}, "Output",
+                             ("Input", "Filter", "Bias")),
+        "depthwise_conv2d_transpose": (
+            {"Input": r(2, 4, 5, 5), "Filter": r(4, 1, 3, 3)},
+            {"strides": [2, 2], "paddings": [1, 1], "groups": 4}, "Output",
+            ("Input", "Filter")),
+        "conv3d": ({"Input": r(2, 3, 5, 6, 6), "Filter": r(4, 3, 3, 3, 2)},
+                   {"strides": [1, 2, 1], "paddings": [1, 0, 1],
+                    "dilations": [1, 1, 2]}, "Output", ("Input", "Filter")),
+        "conv3d_transpose": ({"Input": r(1, 4, 3, 4, 3),
+                              "Filter": r(4, 2, 2, 3, 3), "Bias": r(2)},
+                             {"strides": [2, 1, 2], "paddings": [0, 1, 1]},
+                             "Output", ("Input", "Filter", "Bias")),
+        "pool3d": ({"X": r(2, 3, 5, 6, 4)},
+                   {"pooling_type": "avg", "ksize": [3, 3, 3],
+                    "strides": [2, 2, 1], "paddings": [1, 2, 1]}, "Out",
+                   ("X",)),
+        "adaptive_pool3d": ({"X": rng.randint(0, 4, (2, 3, 5, 7, 6))
+                             .astype(np.float32)},
+                            {"pool_size": [2, 3, 4], "pooling_type": "max",
+                             "require_index": True}, "Mask", ()),
+        "max_pool2d_with_index": ({"X": ties},
+                                  {"ksize": [3, 3], "strides": [2, 2],
+                                   "paddings": [1, 1]}, "Mask", ()),
+        "max_pool3d_with_index": ({"X": rng.randint(0, 4, (2, 2, 5, 4, 5))
+                                   .astype(np.float32)},
+                                  {"ksize": [2, 2, 2], "strides": [2, 2, 2],
+                                   "paddings": [1, 0, 1]}, "Mask", ()),
+        "unpool": ({"X": r(2, 3, 3, 4),
+                    "Indices": (np.arange(4)[None, :] * 2 + np.arange(
+                        3)[:, None] * 16)[None, None].repeat(2, 0).repeat(
+                            3, 1).astype(np.int64)},
+                   {"ksize": [2, 2], "strides": [2, 2]}, "Out", ("X",)),
+        "spp": ({"X": r(2, 3, 7, 9)}, {"pyramid_height": 3}, "Out", ("X",)),
+        "bilinear_interp": ({"X": r(2, 3, 5, 6)},
+                            {"out_h": 9, "out_w": 13, "align_corners": False,
+                             "align_mode": 1}, "Out", ("X",)),
+        "nearest_interp": ({"X": r(2, 3, 5, 6)},
+                           {"out_h": 9, "out_w": 4}, "Out", ("X",)),
+        "trilinear_interp": ({"X": r(1, 2, 3, 4, 5)},
+                             {"out_d": 5, "out_h": 3, "out_w": 7,
+                              "align_corners": False, "align_mode": 0},
+                             "Out", ("X",)),
+        "group_norm": ({"X": r(2, 6, 4, 5), "Scale": r(6), "Bias": r(6)},
+                       {"groups": 3}, "Y", ("X", "Scale", "Bias")),
+        "instance_norm": ({"X": r(2, 3, 4, 5), "Scale": r(3), "Bias": r(3)},
+                          {}, "Y", ("X", "Scale", "Bias")),
+        "data_norm": ({"X": r(8, 5),
+                       "BatchSize": r(5, lo=50, hi=100),
+                       "BatchSum": r(5) * 10,
+                       "BatchSquareSum": r(5, lo=50, hi=100)},
+                      {"summary_decay_rate": 0.9}, "Y", ("X",)),
+        "spectral_norm": ({"Weight": r(4, 3, 2, 2), "U": r(4), "V": r(12)},
+                          {"power_iters": 3}, "Out", ("Weight",)),
+        "lrn": ({"X": r(2, 7, 3, 3)}, {"n": 5, "k": 2.0, "alpha": 1e-2},
+                "Out", ("X",)),
+        "affine_channel": ({"X": r(2, 3, 4, 5), "Scale": r(3), "Bias": r(3)},
+                           {}, "Out", ("X", "Scale", "Bias")),
+        "temporal_shift": ({"X": r(8, 16, 3, 3)}, {"seg_num": 4}, "Out",
+                           ("X",)),
+        "grid_sampler": ({"X": r(2, 3, 5, 6),
+                          "Grid": r(2, 3, 4, 2, lo=-1.6, hi=1.6)}, {},
+                         "Output", ("X", "Grid")),
+        "affine_grid": ({"Theta": r(2, 2, 3)},
+                        {"output_shape": [2, 3, 4, 5]}, "Output",
+                        ("Theta",)),
+        "unfold": ({"X": r(2, 3, 6, 7)},
+                   {"kernel_sizes": [2, 3], "strides": [2, 1],
+                    "paddings": [1, 2, 0, 1], "dilations": [1, 2]}, "Y",
+                   ("X",)),
+        "deformable_conv": ({"Input": r(2, 3, 6, 6),
+                             "Offset": r(2, 18, 4, 4, lo=-2, hi=2),
+                             "Filter": r(4, 3, 3, 3),
+                             "Mask": r(2, 9, 4, 4, lo=0, hi=1)}, {},
+                            "Output", ("Input", "Offset", "Filter", "Mask")),
+        "deformable_conv_v1": ({"Input": r(2, 3, 6, 6),
+                                "Offset": r(2, 18, 4, 4, lo=-2, hi=2),
+                                "Filter": r(4, 3, 3, 3)}, {}, "Output",
+                               ("Input", "Offset", "Filter")),
+        "fsp": ({"X": r(2, 3, 4, 5), "Y": r(2, 6, 4, 5)}, {}, "Out",
+                ("X", "Y")),
+        "similarity_focus": ({"X": r(2, 3, 4, 5)},
+                             {"axis": 1, "indexes": [0, 2]}, "Out", ()),
+        "bilinear_tensor_product": ({"X": r(4, 3), "Y": r(4, 5),
+                                     "Weight": r(6, 3, 5), "Bias": r(6)},
+                                    {}, "Out", ("X", "Y", "Weight", "Bias")),
+        "l2_normalize": ({"X": r(4, 5, 3)}, {"axis": 1}, "Out", ("X",)),
+        "norm": ({"X": r(4, 5, 3)}, {"axis": -1}, "Norm", ("X",)),
+        "cumsum": ({"X": r(3, 4, 50)}, {"axis": -1, "exclusive": True,
+                                        "reverse": True}, "Out", ("X",)),
+    })
+    return cases
+
+
+def _op_call(op, ins, attrs, slot, grad, device, cot=None):
+    """The op's `slot` on `device` (numpy) and, with `cot`, the gradients
+    of sum(out x cot) with respect to the `grad` inputs."""
+    from paddle_tpu_torch.ops import _REGISTRY
+    t = {k: torch.tensor(v, device=device,
+                         requires_grad=k in grad and cot is not None)
+         for k, v in ins.items()}
+    out = _REGISTRY[op](_CardCtx(t, attrs, device))[slot]
+    grads = []
+    if cot is not None and grad:
+        grads = torch.autograd.grad(
+            (out * torch.from_numpy(cot).to(device)).sum(),
+            [t[k] for k in grad])
+    return (out.detach().cpu().numpy(),
+            [g.detach().cpu().numpy() for g in grads])
+
+
+def _op_rel_err(a, b):
+    scale = float(np.abs(b).max()) if b.size else 0.0
+    return float(np.abs(a - b).max()) / scale if scale else \
+        float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def _random_op_checks(device):
+    """Each random op on `device`: the same draws from one seed twice,
+    others from another seed, and its bounds. Returns {op: note}."""
+    probs = np.tile(np.array([[0.1, 0.2, 0.3, 0.4], [0.7, 0.0, 0.2, 0.1]],
+                             np.float32), (512, 1))
+    img = np.arange(2 * 3 * 6 * 7, dtype=np.float32).reshape(2, 3, 6, 7)
+    cases = {
+        "uniform_random_batch_size_like": (
+            {"Input": np.zeros((512, 3), np.float32)},
+            {"shape": [-1, 64], "min": -2.0, "max": 3.0},
+            lambda o: o.shape == (512, 64) and o.min() >= -2 and o.max() < 3),
+        "gaussian_random_batch_size_like": (
+            {"Input": np.zeros((512, 3), np.float32)},
+            {"shape": [-1, 64], "mean": 1.0, "std": 2.0},
+            lambda o: o.shape == (512, 64) and abs(o.mean() - 1) < 0.05),
+        "truncated_gaussian_random": (
+            {}, {"shape": [512, 64], "mean": 0.5, "std": 2.0},
+            lambda o: np.abs(o - 0.5).max() <= 4.0 + 1e-5),
+        "randint": ({}, {"shape": [512, 64], "low": -3, "high": 4},
+                    lambda o: o.dtype == np.int64 and o.min() == -3
+                    and o.max() == 3),
+        "sampling_id": ({"X": probs}, {},
+                        lambda o: o.shape == (1024,) and o.min() >= 0
+                        and o.max() <= 3 and not (o[1::2] == 1).any()),
+        "random_crop": ({"X": img}, {"shape": [4, 5]},
+                        lambda o: np.array_equal(
+                            o, img[:, :, int(o[0, 0, 0, 0]) // 7 % 6:
+                                   int(o[0, 0, 0, 0]) // 7 % 6 + 4,
+                                   int(o[0, 0, 0, 0]) % 7:
+                                   int(o[0, 0, 0, 0]) % 7 + 5])),
+        "multinomial": ({"X": probs}, {"num_samples": 3},
+                        lambda o: o.shape == (1024, 3)
+                        and not (o[1::2] == 1).any()),
+        "bernoulli": ({"X": np.full((512, 64), 0.3, np.float32)}, {},
+                      lambda o: set(np.unique(o)) <= {0.0, 1.0}
+                      and abs(o.mean() - 0.3) < 0.02),
+    }
+    from paddle_tpu_torch.ops import _REGISTRY
+    notes = {}
+    for op, (ins, attrs, ok) in cases.items():
+        t = {k: torch.from_numpy(v).to(device) for k, v in ins.items()}
+        draws = [_REGISTRY[op](_CardCtx(t, attrs, device, seed))["Out"]
+                 .cpu().numpy() for seed in (7, 7, 8)]
+        if not np.array_equal(draws[0], draws[1]):
+            _fail(f"31g {op}: two draws from one seed differ")
+        if np.array_equal(draws[0], draws[2]) and op != "random_crop":
+            _fail(f"31g {op}: two seeds give the same draws")
+        if not ok(draws[0]):
+            _fail(f"31g {op}: a draw out of its bounds")
+        notes[op] = f"{draws[0].shape} {draws[0].dtype}"
+    return notes
+
+
+def phase_slice_ops():
+    """Phase 31g: every op of SLICE_OPS on the card. The deterministic
+    ones against the same op on the CPU from one seeded input, forward
+    and the gradient of one seeded cotangent (OPS_FWD_TOL / OPS_GRAD_TOL
+    of the output's / the gradient's largest magnitude; integer outputs,
+    the pools' indices on ties, equal); the random ones from one seed
+    twice (equal), from another (different), within their bounds."""
+    cases = _slice_op_cases()
+    if sorted(list(cases) + list(RANDOM_OPS)) != sorted(SLICE_OPS):
+        _fail("31g: the op table does not cover the slice's ops")
+    errs = {}
+    for op, (ins, attrs, slot, grad) in cases.items():
+        cpu, _ = _op_call(op, ins, attrs, slot, grad, "cpu")
+        cot = np.random.RandomState(SEED + 37).randn(*cpu.shape).astype(
+            np.float32) if np.issubdtype(cpu.dtype, np.floating) else None
+        cpu, cpu_g = _op_call(op, ins, attrs, slot, grad, "cpu", cot)
+        card, card_g = _op_call(op, ins, attrs, slot, grad, "cuda", cot)
+        if card.shape != cpu.shape or card.dtype != cpu.dtype:
+            _fail(f"31g {op}: {card.shape} {card.dtype} on the card, "
+                  f"{cpu.shape} {cpu.dtype} on the CPU")
+        if not np.issubdtype(cpu.dtype, np.floating):
+            if not np.array_equal(card, cpu):
+                _fail(f"31g {op}: integer {slot} differs on the card")
+            errs[op] = [0.0, 0.0]
+            continue
+        errs[op] = [_op_rel_err(card, cpu), max([_op_rel_err(a, b) for a, b in
+                                          zip(card_g, cpu_g)] or [0.0])]
+        if errs[op][0] > OPS_FWD_TOL or errs[op][1] > OPS_GRAD_TOL:
+            _fail(f"31g {op}: card vs CPU (forward, gradient) {errs[op]}")
+    notes = _random_op_checks("cuda")
+    worst_f = max(errs, key=lambda k: errs[k][0])
+    worst_g = max(errs, key=lambda k: errs[k][1])
+    rec = {"ops": len(SLICE_OPS), "deterministic": len(errs),
+           "random": notes, "worst_forward": [worst_f, errs[worst_f][0]],
+           "worst_gradient": [worst_g, errs[worst_g][1]],
+           "errs": {k: [float(f"{v[0]:.3g}"), float(f"{v[1]:.3g}")]
+                    for k, v in errs.items()},
+           "card": _card_line()}
+    print("slice ops " + json.dumps(rec))
+    return rec
+
+
+def phase_vision_all(flash, paged):
+    """Phases 31-31g. None launches an attention kernel: each is gated at
+    0 flash and paged launches (_seq_phase). Returns (the counts over the
+    phases, records)."""
+    recs, total = {}, (0, 0, 0, 0, 0)
+    for key, name, fn in (
+            ("31", "31 MobileNet-v2 train", phase_mobilenet_v2),
+            ("31b", "31b MobileNet v1, v2 card vs CPU",
+             phase_mobilenet_v1_agree),
+            ("31c", "31c DeepLabv3+", phase_deeplab),
+            ("31d", "31d TSM", phase_tsm),
+            ("31e", "31e DCGAN", phase_gan),
+            ("31f", "31f book nets", phase_book),
+            ("31g", "31g the slice's ops card vs CPU", phase_slice_ops)):
+        recs[key], counts = _seq_phase(name, fn, flash, paged)
+        total = tuple(x + y for x, y in zip(total, counts))
+    return total, recs
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -10710,6 +11518,7 @@ def main():
     seq_counts, _ = phase_seq_all(flash, paged)
     cf_counts, _ = phase_cf_all(flash, paged)
     det_counts, _ = phase_det_all(flash, paged)
+    vis_counts, _ = phase_vision_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -10721,6 +11530,7 @@ def main():
         "28-28e sequence family (gated at 0)": seq_counts[4],
         "29-29c control flow (gated at 0)": cf_counts[4],
         "30-30c detection (gated at 0)": det_counts[4],
+        "31-31g vision nets (gated at 0)": vis_counts[4],
         **dlaunches, **tlaunches, **plaunches,
         **fleet["18"]["launches"], **fleet["18b"]["launches"],
         "18c self-healing f32 (3 replicas + resurrections)":
@@ -10814,7 +11624,8 @@ def main():
         **guard_paths, **opt_paths,
         "28-28e sequence family (gated at 0)": seq_counts[:4],
         "29-29c control flow (gated at 0)": cf_counts[:4],
-        "30-30c detection (gated at 0)": det_counts[:4]}
+        "30-30c detection (gated at 0)": det_counts[:4],
+        "31-31g vision nets (gated at 0)": vis_counts[:4]}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -14,9 +14,18 @@ and ``tensor_array_to_tensor``, ``nn``'s ``fc``, ``conv2d``,
 ``squeeze``, ``unsqueeze``, ``concat``, ``slice``, ``gather``,
 ``expand``, ``topk``, ``cast``, ``softmax``, ``row_conv``,
 ``im2sequence``, ``linear_chain_crf``, ``crf_decoding``, ``warpctc``,
-``ctc_greedy_decoder``, ``smooth_l1`` and ``py_func``, ``tensor``'s
-``range``, ``ops``' ``sigmoid``, ``exp``,
-``ceil``, ``floor`` and ``cos``, ``control_flow``'s every name (``While``,
+``ctc_greedy_decoder``, ``smooth_l1`` and ``py_func``, and the vision
+and activation layers (``conv3d``, ``conv2d_transpose``,
+``conv3d_transpose``, ``pool3d``, ``adaptive_pool3d``, ``group_norm``,
+``instance_norm``, ``data_norm``, ``spectral_norm``, ``l2_normalize``,
+``cumsum``, ``leaky_relu``, ``prelu``, ``maxout``, ``lrn``, the resizes
+``resize_bilinear`` / ``resize_nearest`` / ``resize_trilinear`` /
+``image_resize`` / ``image_resize_short``, ``grid_sampler``,
+``affine_grid``, ``temporal_shift``, ``affine_channel``,
+``similarity_focus``, ``fsp_matrix``, ``deformable_conv``, ``unfold``
+and ``bilinear_tensor_product``), ``tensor``'s ``range``, every layer
+of ``ops`` (the activations, the random layers and ``cumsum``),
+``layer_function_generator``'s five helpers, ``control_flow``'s every name (``While``,
 ``cond``, ``case``, ``switch_case``, ``Switch``, ``IfElse``,
 ``StaticRNN``, ``DynamicRNN``, ``while_loop``, ``Print``, the tensor
 arrays, ``increment``, the comparisons, ``is_empty``,
@@ -52,11 +61,22 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  reshape, transpose, squeeze, unsqueeze, concat, slice,
                  gather, expand, topk, cast, softmax, row_conv, im2sequence,
                  linear_chain_crf, crf_decoding, warpctc, ctc_greedy_decoder,
-                 smooth_l1, py_func)
+                 smooth_l1, py_func, conv3d, conv2d_transpose, pool3d,
+                 group_norm, instance_norm, spectral_norm, l2_normalize,
+                 cumsum, leaky_relu, prelu, maxout, lrn, resize_bilinear,
+                 resize_nearest, image_resize, conv3d_transpose, data_norm,
+                 grid_sampler, affine_grid, temporal_shift, affine_channel,
+                 similarity_focus, fsp_matrix, deformable_conv,
+                 adaptive_pool3d, resize_trilinear, image_resize_short,
+                 unfold, bilinear_tensor_product)
 from .tensor import (create_parameter, create_global_var, fill_constant,
                      fill_constant_batch_size_like, zeros_like, ones_like,
                      sums, assign, tensor_array_to_tensor, range)
-from .ops import sigmoid, exp, ceil, floor, cos, log
+from .ops import *         # noqa: F401,F403
+from . import layer_function_generator
+from .layer_function_generator import (deprecated, generate_layer_fn,
+                                       generate_activation_fn, autodoc,
+                                       templatedoc)
 from . import control_flow
 from .control_flow import (Print, DynamicRNN,
                            reorder_lod_tensor_by_rank,

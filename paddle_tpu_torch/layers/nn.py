@@ -214,26 +214,8 @@ def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
     """Parity: fluid.layers.adaptive_pool2d: floor/ceil windows;
     require_index also returns the argmax Mask (a flat index into the
     input plane) and is invalid for avg pooling."""
-    if pool_type not in ("max", "avg"):
-        raise ValueError(
-            "Unknown pool_type: '%s'. It can only be 'max' or 'avg'."
-            % str(pool_type))
-    if pool_type == "avg" and require_index:
-        raise ValueError(
-            "invalid setting 'require_index' true when 'pool_type' is "
-            "'avg'.")
-    psize = _pair(pool_size)
-    helper = LayerHelper("adaptive_pool2d", name=name)
-    shape = tuple(input.shape[:2]) + tuple(psize)
-    out = helper.create_variable_for_type_inference(input.dtype, shape)
-    outs = {"Out": out}
-    if require_index:
-        outs["Mask"] = helper.create_variable_for_type_inference("int32",
-                                                                 shape)
-    helper.append_op("adaptive_pool2d", {"X": input}, outs,
-                     {"pool_size": list(psize), "pooling_type": pool_type,
-                      "require_index": require_index})
-    return (out, outs["Mask"]) if require_index else out
+    return _adaptive_pool("adaptive_pool2d", input, _pair(pool_size),
+                          pool_type, require_index, name)
 
 
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
@@ -696,3 +678,554 @@ def ctc_greedy_decoder(input, blank, input_length=None, name=None):
                      {"Output": out, "OutputLength": out_len},
                      {"blank": blank})
     return out, out_len
+
+
+# -- the vision layers and the activation family ------------------------------
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    helper = LayerHelper("conv3d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    groups = groups or 1
+    fsize = _pair(filter_size, 3)
+    stride = _pair(stride, 3)
+    padding = _pair(padding, 3)
+    dilation = _pair(dilation, 3)
+    num_channels = input.shape[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_filters, num_channels // groups] + fsize, dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(
+            0.0, (2.0 / ((num_channels // groups) * _prod(fsize))) ** 0.5))
+    dims = [_conv_out_size(input.shape[2 + i], fsize[i], padding[i], stride[i],
+                           dilation[i]) for i in range(3)]
+    out_shape = (input.shape[0], num_filters) + tuple(dims)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype,
+                                                         out_shape)
+    helper.append_op("conv3d", {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": stride, "paddings": padding,
+                      "dilations": dilation, "groups": groups})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(input.dtype,
+                                                            out_shape)
+        helper.append_op("elementwise_add", {"X": pre_bias, "Y": b},
+                         {"Out": pre_act}, {"axis": 1})
+    else:
+        pre_act = pre_bias
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    groups = groups or 1
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    num_channels = input.shape[1]
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        output_size = _pair(output_size)
+        filter_size = [output_size[i] - (input.shape[2 + i] - 1) * stride[i] +
+                       2 * padding[i] for i in range(2)]
+    fsize = _pair(filter_size)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_channels, num_filters // groups] + fsize, dtype=input.dtype,
+        default_initializer=init_mod.XavierInitializer())
+    oh = (input.shape[2] - 1) * stride[0] - 2 * padding[0] \
+        + dilation[0] * (fsize[0] - 1) + 1
+    ow = (input.shape[3] - 1) * stride[1] - 2 * padding[1] \
+        + dilation[1] * (fsize[1] - 1) + 1
+    out_shape = (input.shape[0], num_filters, oh, ow)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype,
+                                                         out_shape)
+    helper.append_op("conv2d_transpose", {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": stride, "paddings": padding,
+                      "dilations": dilation, "groups": groups})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(input.dtype,
+                                                            out_shape)
+        helper.append_op("elementwise_add", {"X": pre_bias, "Y": b},
+                         {"Out": pre_act}, {"axis": 1})
+    else:
+        pre_act = pre_bias
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    ksize = _pair(pool_size, 3)
+    stride = _pair(pool_stride, 3)
+    padding = _pair(pool_padding, 3)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool3d", {"X": input}, {"Out": out},
+                     {"pooling_type": pool_type, "ksize": ksize,
+                      "strides": stride, "paddings": padding,
+                      "global_pooling": global_pooling,
+                      "exclusive": exclusive})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1]
+    inputs = {"X": input}
+    if helper.param_attr is not False:
+        inputs["Scale"] = helper.create_parameter(
+            attr=helper.param_attr, shape=[c], dtype="float32",
+            default_initializer=init_mod.ConstantInitializer(1.0))
+    if helper.bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(
+            attr=helper.bias_attr, shape=[c], dtype="float32", is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    mean = helper.create_variable_for_type_inference("float32")
+    var = helper.create_variable_for_type_inference("float32")
+    helper.append_op("group_norm", inputs,
+                     {"Y": out, "Mean": mean, "Variance": var},
+                     {"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    c = input.shape[1]
+    inputs = {"X": input}
+    if helper.param_attr is not False:
+        inputs["Scale"] = helper.create_parameter(
+            attr=helper.param_attr, shape=[c], dtype="float32",
+            default_initializer=init_mod.ConstantInitializer(1.0))
+    if helper.bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(
+            attr=helper.bias_attr, shape=[c], dtype="float32", is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("instance_norm", inputs, {"Y": out}, {"epsilon": epsilon})
+    return out
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    helper = LayerHelper("spectral_norm", name=name)
+    h = weight.shape[dim]
+    w = _prod(weight.shape) // h
+    u = helper.create_parameter(attr=None, shape=[h], dtype="float32",
+                                default_initializer=init_mod
+                                .NormalInitializer(0, 1))
+    v = helper.create_parameter(attr=None, shape=[w], dtype="float32",
+                                default_initializer=init_mod
+                                .NormalInitializer(0, 1))
+    u.trainable = False
+    v.trainable = False
+    out = helper.create_variable_for_type_inference(weight.dtype, weight.shape)
+    # U/V update in place each step (the reference kernel mutates its
+    # U/V inputs), so the power iteration converges across steps
+    helper.append_op("spectral_norm", {"Weight": weight, "U": u, "V": v},
+                     {"Out": out, "UOut": u, "VOut": v},
+                     {"dim": dim, "power_iters": power_iters, "eps": eps})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("l2_normalize", {"X": x}, {"Out": out, "Norm": norm},
+                     {"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def cumsum(x, axis=None, exclusive=None, reverse=None, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    attrs = {"exclusive": exclusive, "reverse": reverse}
+    if axis is None:
+        attrs["flatten"] = True
+        attrs["axis"] = 0
+    else:
+        attrs["axis"] = axis
+    helper.append_op("cumsum", {"X": x}, {"Out": out}, attrs)
+    return out
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper("leaky_relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("leaky_relu", {"X": x}, {"Out": out}, {"alpha": alpha})
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype="float32",
+        default_initializer=init_mod.ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("prelu", {"X": x, "Alpha": alpha}, {"Out": out},
+                     {"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    shape = (x.shape[0], x.shape[1] // groups) + tuple(x.shape[2:])
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op("maxout", {"X": x}, {"Out": out}, {"groups": groups})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    mid = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("lrn", {"X": input}, {"Out": out, "MidOut": mid},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    align_corners=True, align_mode=1):
+    return _resize(input, out_shape, scale, "bilinear_interp", name,
+                   align_corners=align_corners, align_mode=align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   align_corners=True):
+    return _resize(input, out_shape, scale, "nearest_interp", name,
+                   align_corners=align_corners)
+
+
+def _resize(input, out_shape, scale, op_type, name, align_corners=True,
+            align_mode=1):
+    helper = LayerHelper(op_type, name=name)
+    # the reference DEFAULTS to align_corners=True (nn.py:7861)
+    attrs = {"align_corners": align_corners, "align_mode": align_mode}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+        shape = tuple(input.shape[:2]) + (attrs["out_h"], attrs["out_w"])
+    else:
+        attrs["scale"] = float(scale)
+        shape = tuple(input.shape[:2]) + tuple(
+            int(s * scale) if s and s > 0 else -1 for s in input.shape[2:])
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(op_type, {"X": input}, {"Out": out}, attrs)
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None,
+                 align_corners=True, align_mode=1):
+    """Parity: fluid.layers.image_resize (ref nn.py:7852): dispatch on
+    resample; actual_shape (a runtime shape tensor) is unsupported, as in
+    the JAX package: pass out_shape."""
+    if actual_shape is not None:
+        raise NotImplementedError(
+            "image_resize(actual_shape=...) needs runtime output shapes; "
+            "pass a static out_shape")
+    resample = resample.upper()
+    if resample == "BILINEAR":
+        return resize_bilinear(input, out_shape, scale, name,
+                               align_corners, align_mode)
+    if resample == "NEAREST":
+        return resize_nearest(input, out_shape, scale, name, align_corners)
+    if resample == "TRILINEAR":
+        return resize_trilinear(input, out_shape, scale, name,
+                                align_corners, align_mode)
+    raise ValueError(
+        "The 'resample' of image_resize can only be 'BILINEAR', "
+        "'TRILINEAR' or 'NEAREST' currently.")
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """Parity: fluid.layers.conv3d_transpose (conv_transpose_op.cc 3-D)."""
+    helper = LayerHelper("conv3d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    stride = _pair(stride, 3)
+    padding = _pair(padding, 3)
+    dilation = _pair(dilation, 3)
+    num_channels = input.shape[1]
+    fsize = _pair(filter_size, 3)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_channels, num_filters // (groups or 1)] + list(fsize),
+        dtype=input.dtype,
+        default_initializer=init_mod.XavierInitializer())
+    spatial = [(input.shape[2 + i] - 1) * stride[i] - 2 * padding[i] +
+               dilation[i] * (fsize[i] - 1) + 1 for i in range(3)]
+    out_shape = (input.shape[0], num_filters) + tuple(spatial)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype,
+                                                         out_shape)
+    helper.append_op("conv3d_transpose", {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": stride, "paddings": padding,
+                      "dilations": dilation, "groups": groups or 1})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr,
+                                    shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(input.dtype,
+                                                            out_shape)
+        helper.append_op("elementwise_add", {"X": pre_bias, "Y": b},
+                         {"Out": pre_act}, {"axis": 1})
+    else:
+        pre_act = pre_bias
+    return helper.append_activation(pre_act)
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=False, slot_dim=-1,
+              summary_decay_rate=0.9999999):
+    """Parity: fluid.layers.data_norm (data_norm_op: CTR normalization by
+    accumulated batch statistics, no learned scale)."""
+    helper = LayerHelper("data_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    from ..core import unique_name as un
+    size_name = un.generate(helper.name + ".batch_size")
+    sum_name = un.generate(helper.name + ".batch_sum")
+    sqs_name = un.generate(helper.name + ".batch_square_sum")
+    bsize = helper.create_or_get_global_variable(size_name, shape=(c,),
+                                                 dtype="float32",
+                                                 persistable=True)
+    bsum = helper.create_or_get_global_variable(sum_name, shape=(c,),
+                                                dtype="float32",
+                                                persistable=True)
+    bsqs = helper.create_or_get_global_variable(sqs_name, shape=(c,),
+                                                dtype="float32",
+                                                persistable=True)
+    init_mod.ConstantInitializer(1e4)(bsize)
+    init_mod.ConstantInitializer(0.0)(bsum)
+    init_mod.ConstantInitializer(1e4)(bsqs)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op(
+        "data_norm",
+        {"X": input, "BatchSize": bsize, "BatchSum": bsum,
+         "BatchSquareSum": bsqs},
+        {"Y": out, "BatchSizeOut": bsize, "BatchSumOut": bsum,
+         "BatchSquareSumOut": bsqs},
+        {"epsilon": epsilon, "summary_decay_rate": summary_decay_rate})
+    return helper.append_activation(out) if act else out
+
+
+def _simple_layer(op_type, ins, attrs, helper_name=None, out_slot="Out",
+                  dtype=None, shape=None):
+    helper = LayerHelper(helper_name or op_type)
+    ref = next(iter(ins.values()))
+    ref = ref[0] if isinstance(ref, (list, tuple)) else ref
+    out = helper.create_variable_for_type_inference(
+        dtype or ref.dtype, shape or getattr(ref, "shape", None))
+    helper.append_op(op_type, ins, {out_slot: out}, attrs)
+    return out
+
+
+def grid_sampler(x, grid, name=None):
+    """Parity: fluid.layers.grid_sampler (bilinear spatial sampling)."""
+    return _simple_layer("grid_sampler", {"X": x, "Grid": grid}, {},
+                         out_slot="Output")
+
+
+def affine_grid(theta, out_shape, name=None):
+    """Parity: fluid.layers.affine_grid."""
+    helper = LayerHelper("affine_grid")
+    if isinstance(out_shape, (list, tuple)):
+        attrs = {"output_shape": [int(s) for s in out_shape]}
+        ins = {"Theta": theta}
+        shape = (out_shape[0], out_shape[2], out_shape[3], 2)
+    else:
+        attrs = {}
+        ins = {"Theta": theta, "OutputShape": out_shape}
+        shape = None
+    out = helper.create_variable_for_type_inference(theta.dtype, shape)
+    helper.append_op("affine_grid", ins, {"Output": out}, attrs)
+    return out
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    """Parity: fluid.layers.temporal_shift (TSM video models)."""
+    return _simple_layer("temporal_shift", {"X": x},
+                         {"seg_num": seg_num, "shift_ratio": shift_ratio})
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None,
+                   act=None):
+    helper = LayerHelper("affine_channel", act=act)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("affine_channel",
+                     {"X": x, "Scale": scale, "Bias": bias},
+                     {"Out": out}, {"data_layout": data_layout})
+    return helper.append_activation(out)
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    return _simple_layer("similarity_focus", {"X": input},
+                         {"axis": axis, "indexes": list(indexes)})
+
+
+def fsp_matrix(x, y):
+    """Parity: fluid.layers.fsp_matrix (distillation FSP Gram matrix)."""
+    helper = LayerHelper("fsp")
+    out = helper.create_variable_for_type_inference(
+        x.dtype, (x.shape[0], x.shape[1], y.shape[1]))
+    helper.append_op("fsp", {"X": x, "Y": y}, {"Out": out}, {})
+    return out
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1,
+                    padding=0, dilation=1, groups=None, deformable_groups=None,
+                    im2col_step=None, param_attr=None, bias_attr=None,
+                    modulated=True, name=None):
+    """Parity: fluid.layers.deformable_conv (v1/v2)."""
+    helper = LayerHelper("deformable_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    c = input.shape[1]
+    fsize = _pair(filter_size)
+    w = helper.create_parameter(
+        helper.param_attr, shape=[num_filters, c] + list(fsize),
+        dtype=input.dtype, default_initializer=init_mod.XavierInitializer())
+    ins = {"Input": input, "Offset": offset, "Filter": w}
+    if modulated and mask is not None:
+        ins["Mask"] = mask
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("deformable_conv", ins, {"Output": out},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation),
+                      "deformable_groups": deformable_groups})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        out2 = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", {"X": out, "Y": b},
+                         {"Out": out2}, {"axis": 1})
+        return out2
+    return out
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """Parity: fluid.layers.adaptive_pool3d (NCDHW); require_index as in
+    adaptive_pool2d (invalid with avg, returns (out, mask))."""
+    ps = list(pool_size) if isinstance(pool_size, (list, tuple)) \
+        else [pool_size] * 3
+    return _adaptive_pool("adaptive_pool3d", input, ps, pool_type,
+                          require_index, name)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     align_corners=True, align_mode=1):
+    """Parity: fluid.layers.resize_trilinear (NCDHW)."""
+    helper = LayerHelper("trilinear_interp", name=name)
+    if out_shape is not None:
+        od, oh, ow = (int(s) for s in out_shape)
+    else:
+        od, oh, ow = (int(s * scale) for s in input.shape[2:])
+    out = helper.create_variable_for_type_inference(
+        input.dtype, tuple(input.shape[:2]) + (od, oh, ow))
+    helper.append_op("trilinear_interp", {"X": input}, {"Out": out},
+                     {"out_d": od, "out_h": oh, "out_w": ow,
+                      "align_corners": align_corners,
+                      "align_mode": align_mode})
+    return out
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Parity: fluid.layers.image_resize_short: resize so the SHORT side
+    equals out_short_len, keeping aspect ratio."""
+    h, w = input.shape[2], input.shape[3]
+    short = min(h, w)
+    oh = int(round(h * out_short_len / float(short)))
+    ow = int(round(w * out_short_len / float(short)))
+    if resample.upper() == "NEAREST":
+        return resize_nearest(input, out_shape=[oh, ow])
+    return resize_bilinear(input, out_shape=[oh, ow])
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """Parity: fluid.layers.unfold (im2col): (N,C,H,W) -> (N, C*kh*kw, L).
+    paddings may be 1, 2, or 4 ints ([top, left, bottom, right])."""
+    helper = LayerHelper("unfold", name=name)
+    ks = _pair(kernel_sizes)
+    st = _pair(strides)
+    pd = list(paddings) if isinstance(paddings, (list, tuple)) \
+        else [paddings, paddings]
+    if len(pd) == 2:
+        pd = [pd[0], pd[1], pd[0], pd[1]]
+    dl = _pair(dilations)
+    n, c, h, w = x.shape
+    oh = (h + pd[0] + pd[2] - dl[0] * (ks[0] - 1) - 1) // st[0] + 1
+    ow = (w + pd[1] + pd[3] - dl[1] * (ks[1] - 1) - 1) // st[1] + 1
+    out = helper.create_variable_for_type_inference(
+        x.dtype, (n, c * ks[0] * ks[1], oh * ow))
+    helper.append_op("unfold", {"X": x}, {"Y": out},
+                     {"kernel_sizes": ks, "strides": st, "paddings": pd,
+                      "dilations": dl})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """Parity: fluid.layers.bilinear_tensor_product:
+    out[:, i] = x . W_i . y^T + b (one einsum)."""
+    helper = LayerHelper("bilinear_tensor_product", name=name,
+                         param_attr=param_attr, bias_attr=bias_attr, act=act)
+    dx, dy = x.shape[-1], y.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[size, dx, dy], dtype=x.dtype)
+    inputs = {"X": x, "Y": y, "Weight": w}
+    b = helper.create_parameter(attr=helper.bias_attr, shape=[size],
+                                dtype=x.dtype, is_bias=True)
+    if b is not None:
+        inputs["Bias"] = b
+    out = helper.create_variable_for_type_inference(
+        x.dtype, (x.shape[0], size))
+    helper.append_op("bilinear_tensor_product", inputs, {"Out": out}, {})
+    return helper.append_activation(out)
+
+
+def _adaptive_pool(op_type, input, psize, pool_type, require_index, name):
+    """Shared adaptive_pool2d/3d body: validation per the reference
+    contract (ref nn.py:3140-3148) + optional argmax Mask output."""
+    if pool_type not in ("max", "avg"):
+        raise ValueError(
+            "Unknown pool_type: '%s'. It can only be 'max' or 'avg'."
+            % str(pool_type))
+    if pool_type == "avg" and require_index:
+        raise ValueError(
+            "invalid setting 'require_index' true when 'pool_type' is "
+            "'avg'.")
+    helper = LayerHelper(op_type, name=name)
+    shape = tuple(input.shape[:2]) + tuple(psize)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    outs = {"Out": out}
+    if require_index:
+        mask = helper.create_variable_for_type_inference("int32", shape)
+        outs["Mask"] = mask
+    helper.append_op(op_type, {"X": input}, outs,
+                     {"pool_size": list(psize), "pooling_type": pool_type,
+                      "require_index": require_index})
+    return (out, outs["Mask"]) if require_index else out

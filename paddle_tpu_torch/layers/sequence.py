@@ -8,7 +8,7 @@ APIs; the counterpart of ``paddle_tpu/layers/sequence.py``:
 ``_enumerate`` and ``_reshape``. The convention is the JAX package's:
 data ``(batch, max_len, ...)`` padded, raggedness as an explicit lengths
 tensor. ``sequence_scatter`` and ``sequence_topk_avg_pooling`` run the
-JAX package's ``match_ops``, which wait for ROADMAP queue A item 10c.6d.
+JAX package's ``match_ops``, which wait for ROADMAP queue A item 10c.6f.
 """
 
 from ..core.layer_helper import LayerHelper

@@ -10,7 +10,8 @@ compare_op.cc, isfinite_op.cc, increment_op.cc; the counterpart of
 ``mean``, ``clip``, ``clip_by_norm``, ``isfinite``, ``increment``, the
 comparisons ``equal``, ``not_equal``, ``greater_than``,
 ``greater_equal``, ``less_than`` and ``less_equal``, and
-``logical_and``/``or``/``xor``/``not``.
+``logical_and``/``or``/``xor``/``not``, ``l2_normalize`` / ``norm``
+and ``cumsum``.
 
 Under data parallelism (``ops/__init__.py``'s rules) the elementwise
 ops, ``scale``, ``sum``, ``clip``, ``select_finite``, the comparisons
@@ -20,8 +21,9 @@ batches of matrices); ``mean`` and the reductions over dim 0 finish each
 rank's partial with the mesh's dp collective (``mean`` and
 ``reduce_mean`` divide the dp sum by the global count; ``reduce_max``,
 ``_min``, ``_prod``, ``_all`` and ``_any`` reduce the ranks' partials
-once more); ``clip_by_norm``, ``isfinite`` and ``increment`` take
-replicated inputs only.
+once more); ``l2_normalize`` and ``cumsum`` run a rank's rows where
+their axis is not dim 0 (``cumsum`` unflattened); ``clip_by_norm``,
+``isfinite`` and ``increment`` take replicated inputs only.
 
 ``select_finite`` is the port's own: the loss scaler's overflow step
 (amp/decorator.py) zeroes the gradients with it, where the JAX package
@@ -304,3 +306,39 @@ register("logical_xor", dp=rows)(_cmp(torch.logical_xor))
 @register("logical_not", dp=rows)
 def logical_not(ctx):
     return {"Out": torch.logical_not(ctx.in_("X"))}
+
+
+def _axis_not_rows(ctx, walk):
+    if ctx.attr("flatten", False):
+        return "it flattens the batch"
+    if ctx.attr("axis", -1) % ctx.in_("X").dim() == 0:
+        return "its axis is dim 0"
+    return None
+
+
+@register("l2_normalize", "norm", dp=rows_if(_axis_not_rows))
+def l2_normalize(ctx):
+    """norm_op.h:65-71: epsilon inside the square root, norm =
+    sqrt(sum(x^2) + eps), Out = x / norm; Norm keeps the reduced axis."""
+    x = ctx.in_("X")
+    norm = torch.sqrt((x * x).sum(ctx.attr("axis", -1), keepdim=True)
+                      + ctx.attr("epsilon", 1e-10))
+    return {"Out": x / norm, "Norm": norm}
+
+
+@register("cumsum", dp=rows_if(_axis_not_rows))
+def cumsum(ctx):
+    """The running sum along `axis` (of the flattened x with `flatten`);
+    `reverse` sums from the end; `exclusive` subtracts x from the
+    inclusive sum, as the JAX package does."""
+    x = ctx.in_("X")
+    axis = ctx.attr("axis", -1)
+    if ctx.attr("flatten", False):
+        x, axis = x.reshape(-1), 0
+    if ctx.attr("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), axis), (axis,))
+    else:
+        out = torch.cumsum(x, axis)
+    if ctx.attr("exclusive", False):
+        out = out - x
+    return {"Out": out}

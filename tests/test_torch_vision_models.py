@@ -1,0 +1,639 @@
+"""The vision nets and the book nets through the port's Fluid entry
+points (``paddle_tpu_torch.models``: ``fit_a_line``, ``word2vec``,
+``vgg``, ``mobilenet``, ``gan``, ``simnet``, ``deeplab``, ``tsm``),
+against the JAX package, on the CPU.
+
+Each model builds the JAX graph: the same op types and parameters (names
+and shapes). Two Momentum steps from JAX's startup values, carried over
+by ``fluid.scope_from_numpy``, give JAX's losses and @GRADs (VGG with
+its dropout probabilities set to 0 in both Programs: the masks are
+drawn by different generators, C16); DCGAN's first D and G steps under
+Adam give JAX's. The twins of ``tests/models/test_model_zoo.py:76, 89,
+230, 273, 363, 381`` (VGG-16 steps, word2vec trains and shares one
+table, DCGAN alternates, fit_a_line converges, MobileNet v1 learns a
+batch, v2 steps), ``tests/models/test_deeplab.py`` (overfits; mean IoU
+from the fetched logits, as ``layers.mean_iou`` is not ported yet),
+``test_tsm.py`` and ``test_simnet.py`` run the port alone. The dp twins:
+MobileNet-v2 (its batch norms take the global batch's statistics) and
+TSM at dp 2 against dp 1 on a local CPU mesh, and TSM's refusal where a
+rank would hold part of a video.
+
+Tolerances are stated beside each constant, with what this file's runs
+measured.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jfluid
+from paddle_tpu.core import unique_name as jun
+from paddle_tpu.core.executor import Scope as JScope, scope_guard as jguard
+
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import layers as tlayers
+from paddle_tpu_torch.core import unique_name as tun
+from paddle_tpu_torch.models import (deeplab, fit_a_line, gan, mobilenet,
+                                     simnet, tsm, vgg, word2vec)
+
+CPU = fluid.CPUPlace()
+# Two Momentum(1e-4, 0.9) steps from JAX's startup, the @GRADs held as
+# one vector (distance over norm). These nets at random weights over
+# batches of 4 to 8 are sensitive: relu / relu6 gates and batch norms
+# over a few samples turn a difference in the last bits of an activation
+# into percents of a deep layer's gradient once the weights have moved.
+# First step: losses within 1e-5 relative (measured at most 3.9e-6,
+# MobileNet v1), @GRADs within 1e-3 (measured at most 2.5e-4,
+# MobileNet-v2; VGG 9.4e-5, 2.1e-5 with the port's batch norm written as
+# the JAX op's f32 two-pass formula). Second step: losses within 1e-4
+# (measured at most 1.2e-5, MobileNet-v2), @GRADs within 5e-2 (measured
+# 1.0e-2 for MobileNet v1, 1.4e-3 for VGG, 3.6e-4 for MobileNet-v2;
+# below 1e-5 for the other nets). The MobileNets' second step ranges over
+# a few percent between draws of the batch (2.1e-2 for v2 on another).
+LOSS_RTOL = (1e-5, 1e-4)
+GRAD_TOL = (1e-3, 5e-2)
+LR = 1e-4
+# dp 2 against dp 1 (each rank's summation order in the statistics and
+# the products): each step's loss within max(1e-5 relative, SPREAD x
+# dp 1's distance from itself on the feed scaled by 1 + SELF_EPS), the
+# @GRADs within max(1e-3, SPREAD x that distance) in norm (measured below
+# the floors for TSM, within the spread for MobileNet-v2)
+DP_LOSS_RTOL, DP_GRAD_FLOOR = 1e-5, 1e-3
+SPREAD = 4.0
+SELF_EPS = 1e-6
+
+RS = np.random.RandomState(41)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread for this module (see
+    tests/test_torch_bert.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _mod(pkg, name):
+    root = "paddle_tpu" if pkg is jfluid else "paddle_tpu_torch"
+    return importlib.import_module(f"{root}.models.{name}")
+
+
+def _build(pkg, un, net, seed=None):
+    main, startup = pkg.Program(), pkg.Program()
+    if seed is not None:
+        main.random_seed = startup.random_seed = seed
+    with un.guard(), pkg.program_guard(main, startup):
+        out = net(pkg)
+    return main, startup, out
+
+
+def _no_dropout(main):
+    for op in main.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+
+
+def _images(b, shape, classes):
+    return {"img": RS.randn(b, *shape).astype(np.float32),
+            "label": RS.randint(0, classes, (b, 1)).astype(np.int64)}
+
+
+def _triples(rng, b, t, vocab, overlap=0.5):
+    """tests/models/test_simnet.py's triples: positives share `overlap`
+    of the query's tokens, negatives are fresh."""
+    q = rng.randint(1, vocab, (b, t)).astype(np.int64)
+    k = int(t * overlap)
+    p = rng.randint(1, vocab, (b, t)).astype(np.int64)
+    p[:, :k] = q[:, :k]
+    n = rng.randint(1, vocab, (b, t)).astype(np.int64)
+    lens = np.full((b, 1), t, np.int64)
+    return {"q_ids": q, "q_len": lens, "p_ids": p, "p_len": lens,
+            "n_ids": n, "n_len": lens}
+
+
+# name -> (build(models module, pkg) -> loss, feed); each at the sizes
+# of the JAX package's tests
+NETS = {
+    "fit_a_line": (lambda m, pkg: m.build_train_net()[3],
+                   {"x": RS.randn(8, 13).astype(np.float32),
+                    "y": RS.randn(8, 1).astype(np.float32)}),
+    "word2vec": (lambda m, pkg: m.build_train_net(100)[3], dict(
+        {f"word_{i}": RS.randint(0, 100, (16, 1)).astype(np.int64)
+         for i in range(4)},
+        next_word=RS.randint(0, 100, (16, 1)).astype(np.int64))),
+    "vgg": (lambda m, pkg: m.build_train_net(class_dim=10)[3],
+            _images(8, (3, 32, 32), 10)),
+    "mobilenet_v1": (lambda m, pkg: m.build_train_net(
+        1, class_dim=10, image_shape=(3, 64, 64), width_mult=0.25)[3],
+        _images(4, (3, 64, 64), 10)),
+    "mobilenet_v2": (lambda m, pkg: m.build_train_net(
+        2, class_dim=10, image_shape=(3, 64, 64), width_mult=0.25)[3],
+        _images(4, (3, 64, 64), 10)),
+    "simnet_bow": (lambda m, pkg: m.build_pairwise_net(
+        vocab_size=200, max_len=12, tower="bow")[1],
+        _triples(RS, 8, 12, 200)),
+    "simnet_cnn": (lambda m, pkg: m.build_pairwise_net(
+        vocab_size=200, max_len=12, tower="cnn")[1],
+        dict(_triples(RS, 8, 12, 200),
+             q_len=np.array([[12], [5], [9], [1], [12], [7], [3], [10]]))),
+    "deeplab": (lambda m, pkg: m.build_train_net(
+        img_shape=(3, 16, 16), num_classes=4, base_filters=8)[2],
+        {"pixels": RS.rand(2, 3, 16, 16).astype(np.float32),
+         "label": RS.randint(0, 4, (2, 16, 16)).astype(np.int64)}),
+    "tsm": (lambda m, pkg: m.build_train_net(
+        seg_num=4, class_dim=4, image_size=16)[2],
+        {"video": RS.randn(4, 4, 3, 16, 16).astype(np.float32),
+         "label": RS.randint(0, 4, (4, 1)).astype(np.int64)}),
+}
+
+
+def _module_of(name):
+    return name.split("_v")[0].split("_bow")[0].split("_cnn")[0]
+
+
+def _momentum_net(name):
+    build, _feed = NETS[name]
+
+    def net(pkg):
+        loss = build(_mod(pkg, _module_of(name)), pkg)
+        pkg.optimizer.MomentumOptimizer(LR, 0.9).minimize(loss)
+        return loss
+    return net
+
+
+def _jax_start(jstart):
+    scope = JScope()
+    with jguard(scope):
+        jfluid.Executor().run(jstart)
+    return {n: np.array(scope.get(n)) for n in scope.names()}
+
+
+def _global_err(got, want):
+    """The @GRADs' distance as one vector, over the norm of `want`'s."""
+    num = sum(float(((np.asarray(g, np.float64) - w) ** 2).sum())
+              for g, w in zip(got, want))
+    return (num / sum(float((np.asarray(w, np.float64) ** 2).sum())
+                      for w in want)) ** 0.5
+
+
+def _loss_err(got, want):
+    return abs(float(np.ravel(got)[0]) / float(np.ravel(want)[0]) - 1)
+
+
+def _scaled(feed):
+    return {k: (v * (1 + SELF_EPS)).astype(v.dtype)
+            if v.dtype == np.float32 else v for k, v in feed.items()}
+
+
+def _assert_within_spread(got, want, again, step):
+    """got / want / again: [loss, @GRADs...] of the port, the reference
+    and the port on the scaled feed."""
+    bound = max(DP_LOSS_RTOL, SPREAD * _loss_err(again[0], got[0]))
+    assert _loss_err(got[0], want[0]) <= bound, (step, "loss")
+    err = _global_err(got[1:], want[1:])
+    bound = max(DP_GRAD_FLOOR, SPREAD * _global_err(again[1:], got[1:]))
+    assert err <= bound, (step, err, bound)
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_model_builds_the_jax_graph(name):
+    """The same op types in order and the same parameters (names and
+    shapes) as the JAX model's Program."""
+    jmain, _js, _jl = _build(jfluid, jun, _momentum_net(name))
+    tmain, _ts, _tl = _build(fluid, tun, _momentum_net(name))
+    assert [op.type for op in tmain.global_block().ops] == \
+        [op.type for op in jmain.global_block().ops]
+    assert [(p.name, tuple(p.shape)) for p in tmain.all_parameters()] == \
+        [(p.name, tuple(p.shape)) for p in jmain.all_parameters()]
+
+
+@pytest.mark.parametrize("name", sorted(NETS))
+def test_two_momentum_steps_match_jax(name):
+    """Two Momentum(1e-4, 0.9) steps on one batch from JAX's startup:
+    each step's loss and @GRADs against the JAX Executor's."""
+    _build_fn, feed = NETS[name]
+    jmain, jstart, jloss = _build(jfluid, jun, _momentum_net(name))
+    tmain, _ts, tloss = _build(fluid, tun, _momentum_net(name))
+    for main in (jmain, tmain):
+        _no_dropout(main)
+    init = _jax_start(jstart)
+    names = [p.name + "@GRAD" for p in tmain.all_parameters()]
+    jscope = JScope()
+    for n, v in init.items():
+        jscope.set(n, np.array(v))
+    jexe = jfluid.Executor()
+    with jguard(jscope):
+        want = [[np.asarray(v) for v in jexe.run(
+            jmain, feed=feed, fetch_list=[jloss] + names)]
+            for _ in range(2)]
+    tscope = fluid.scope_from_numpy(init, "cpu")
+    texe = fluid.Executor(CPU)
+    got = [texe.run(tmain, feed=feed, fetch_list=[tloss] + names,
+                    scope=tscope) for _ in range(2)]
+    for step, (g, w) in enumerate(zip(got, want)):
+        assert _loss_err(g[0], w[0]) <= LOSS_RTOL[step], step
+        err = _global_err(g[1:], w[1:])
+        assert err <= GRAD_TOL[step], (step, err)
+
+
+def _gan_programs(pkg, un):
+    """build_gan's two Programs under one fresh startup, each with its
+    Adam(2e-4) over its own tower (test_model_zoo.py:230)."""
+    startup = pkg.Program()
+    with un.guard(), pkg.program_guard(pkg.Program(), startup):
+        nets = _mod(pkg, "gan").build_gan()
+        for prog, loss, params in (("d_program", "d_loss", "d_params"),
+                                   ("g_program", "g_loss", "g_params")):
+            with pkg.program_guard(nets[prog]):
+                pkg.optimizer.AdamOptimizer(learning_rate=2e-4).minimize(
+                    nets[loss], parameter_list=nets[params])
+    return nets, startup
+
+
+def test_gan_first_d_and_g_steps_match_jax():
+    """DCGAN at its width (ngf / ndf 64, NOISE_DIM 100) on a batch of 4:
+    the D program's loss and its D @GRADs, then the G program's loss and
+    G @GRADs after the D step, against JAX's from one startup; the D
+    step moves D parameters only."""
+    jnets, jstart = _gan_programs(jfluid, jun)
+    tnets, _ts = _gan_programs(fluid, tun)
+    assert tnets["d_params"] == jnets["d_params"]
+    assert tnets["g_params"] == jnets["g_params"]
+    for prog in ("d_program", "g_program"):
+        assert [op.type for op in tnets[prog].global_block().ops] == \
+            [op.type for op in jnets[prog].global_block().ops]
+    init = _jax_start(jstart)
+    feeds = {"d_program": {"img": RS.randn(4, 1, 28, 28).astype(np.float32),
+                           "noise": RS.randn(4, 100).astype(np.float32)},
+             "g_program": {"noise": RS.randn(4, 100).astype(np.float32)}}
+    jscope = JScope()
+    for n, v in init.items():
+        jscope.set(n, np.array(v))
+    tscope = fluid.scope_from_numpy(init, "cpu")
+    jexe, texe = jfluid.Executor(), fluid.Executor(CPU)
+    for prog, loss, params in (("d_program", "d_loss", "d_params"),
+                               ("g_program", "g_loss", "g_params")):
+        fetch = [n + "@GRAD" for n in tnets[params]]
+        with jguard(jscope):
+            want = [np.asarray(v) for v in jexe.run(
+                jnets[prog], feed=feeds[prog],
+                fetch_list=[jnets[loss]] + fetch)]
+        before = {n: tscope.get(n).clone() for n in tnets["g_params"]}
+        got = texe.run(tnets[prog], feed=feeds[prog],
+                       fetch_list=[tnets[loss]] + fetch, scope=tscope)
+        assert _loss_err(got[0], want[0]) <= LOSS_RTOL[0], prog
+        assert _global_err(got[1:], want[1:]) <= GRAD_TOL[0], prog
+        if prog == "d_program":
+            for n, v in before.items():
+                assert torch.equal(tscope.get(n), v), n
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's twins, the port alone
+# ---------------------------------------------------------------------------
+
+def _train(main, startup, feeds, loss, steps, opt):
+    with fluid.program_guard(main, startup):
+        opt.minimize(loss)
+    scope, exe = fluid.Scope(), fluid.Executor(CPU)
+    exe.run(startup, scope=scope)
+    return [float(np.ravel(exe.run(main, feed=feeds(i), fetch_list=[loss],
+                                   scope=scope)[0])[0])
+            for i in range(steps)], scope, exe
+
+
+def _fresh(build):
+    main, startup = fluid.Program(), fluid.Program()
+    with tun.guard(), fluid.program_guard(main, startup):
+        out = build()
+    return main, startup, out
+
+
+def test_vgg16_builds_and_steps():
+    """test_model_zoo.py:76: VGG-16-bn (dropout on) takes three
+    Momentum(1e-4) steps on random CIFAR-sized batches of 4; every loss
+    finite."""
+    rng = np.random.RandomState(0)
+    main, startup, out = _fresh(lambda: vgg.build_train_net(class_dim=10))
+    losses, _s, _e = _train(main, startup, lambda i: _images(4, (3, 32, 32),
+                                                             10),
+                            out[3], 3, fluid.optimizer.MomentumOptimizer(
+                                1e-4, 0.9))
+    del rng
+    assert np.isfinite(losses).all()
+
+
+def test_word2vec_trains_with_one_shared_table():
+    """test_model_zoo.py:89: five Momentum steps finite; the four context
+    embeddings share the one 'shared_w' parameter."""
+    rng = np.random.RandomState(0)
+
+    def feeds(i):
+        d = {f"word_{j}": rng.randint(0, 100, (16, 1)).astype(np.int64)
+             for j in range(4)}
+        d["next_word"] = rng.randint(0, 100, (16, 1)).astype(np.int64)
+        return d
+
+    main, startup, out = _fresh(lambda: word2vec.build_train_net(100))
+    losses, _s, _e = _train(main, startup, feeds, out[3], 5,
+                            fluid.optimizer.MomentumOptimizer(1e-3, 0.9))
+    assert np.isfinite(losses).all()
+    names = [p.name for p in main.all_parameters()]
+    assert names.count("shared_w") == 1
+    lookups = [op for op in main.global_block().ops
+               if op.type == "lookup_table"]
+    assert len(lookups) == 4 and all(op.input("W") == ["shared_w"]
+                                     for op in lookups)
+
+
+def test_gan_alternating_steps():
+    """test_model_zoo.py:230: two alternating D and G Adam steps on
+    batches of 4; both losses finite."""
+    rng = np.random.RandomState(0)
+    nets, startup = _gan_programs(fluid, tun)
+    scope, exe = fluid.Scope(), fluid.Executor(CPU)
+    exe.run(startup, scope=scope)
+    for _ in range(2):
+        d_loss, = exe.run(nets["d_program"], feed={
+            "img": rng.randn(4, 1, 28, 28).astype(np.float32),
+            "noise": rng.randn(4, gan.NOISE_DIM).astype(np.float32)},
+            fetch_list=[nets["d_loss"]], scope=scope)
+        g_loss, = exe.run(nets["g_program"], feed={
+            "noise": rng.randn(4, gan.NOISE_DIM).astype(np.float32)},
+            fetch_list=[nets["g_loss"]], scope=scope)
+    assert np.isfinite(d_loss).all() and np.isfinite(g_loss).all()
+
+
+def test_fit_a_line_converges():
+    """test_model_zoo.py:273: 60 SGD(0.05) steps on a noisy linear batch
+    of 64 bring the loss below 0.05."""
+    rng = np.random.RandomState(7)
+    w_true = rng.randn(13, 1).astype(np.float32)
+    xs = rng.randn(64, 13).astype(np.float32)
+    ys = xs @ w_true + 0.01 * rng.randn(64, 1).astype(np.float32)
+    main, startup, out = _fresh(fit_a_line.build_train_net)
+    losses, _s, _e = _train(main, startup, lambda i: {"x": xs, "y": ys},
+                            out[3], 60, fluid.optimizer.SGDOptimizer(0.05))
+    assert losses[-1] < 0.05, losses[-1]
+
+
+def test_mobilenet_v1_learns_a_batch():
+    """test_model_zoo.py:363: MobileNet v1 (width 0.25, 32 x 32, 10
+    classes) memorizes a batch of 16 in 40 Adam(3e-3) steps: the last
+    loss below a tenth of the first."""
+    rng = np.random.RandomState(1)
+    xs = rng.randn(16, 3, 32, 32).astype(np.float32)
+    ys = rng.randint(0, 10, (16, 1)).astype(np.int64)
+    main, startup, out = _fresh(lambda: mobilenet.build_train_net(
+        version=1, class_dim=10, image_shape=(3, 32, 32), width_mult=0.25))
+    types = {op.type for op in main.global_block().ops}
+    assert "depthwise_conv2d" in types
+    losses, _s, _e = _train(main, startup,
+                            lambda i: {"img": xs, "label": ys}, out[3], 40,
+                            fluid.optimizer.AdamOptimizer(3e-3))
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0] * 0.1, (losses[0], losses[-1])
+
+
+def test_mobilenet_v2_builds_and_steps():
+    """test_model_zoo.py:381: MobileNet-v2 (width 0.35) takes three
+    Adam(1e-3) steps on random batches of 4; every loss finite; relu6
+    after every expansion and depthwise convolution."""
+    rng = np.random.RandomState(2)
+    main, startup, out = _fresh(lambda: mobilenet.build_train_net(
+        version=2, class_dim=10, image_shape=(3, 32, 32), width_mult=0.35))
+    assert sum(op.type == "relu6" for op in main.global_block().ops) == 35
+    losses, _s, _e = _train(main, startup, lambda i: {
+        "img": rng.randn(4, 3, 32, 32).astype(np.float32),
+        "label": rng.randint(0, 10, (4, 1)).astype(np.int64)},
+        out[3], 3, fluid.optimizer.AdamOptimizer(1e-3))
+    assert np.isfinite(losses).all()
+    with pytest.raises(ValueError):
+        _fresh(lambda: mobilenet.build_train_net(version=3))
+
+
+def test_deeplab_overfits_fixed_batch():
+    """tests/models/test_deeplab.py: quadrant masks on a batch of 2 at
+    16 x 16, 4 classes, base_filters 8, 80 Adam(3e-3) steps: the last
+    loss below 0.05x the first and the mean IoU of the fetched logits'
+    argmax above 0.95."""
+    rng = np.random.RandomState(1)
+    b, nc, h, w = 2, 4, 16, 16
+    imgs = rng.rand(b, 3, h, w).astype(np.float32)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    base = (yy // (h // 2)) * 2 + (xx // (w // 2))
+    masks = np.stack([base % nc, (base + 1) % nc]).astype(np.int64)
+    main, startup, out = _fresh(lambda: deeplab.build_train_net(
+        img_shape=(3, h, w), num_classes=nc, base_filters=8))
+    _images_, _label, loss, logits = out
+    losses, scope, exe = _train(main, startup, lambda i: {
+        "pixels": imgs, "label": masks}, loss, 80,
+        fluid.optimizer.AdamOptimizer(3e-3))
+    assert losses[-1] < 0.05 * losses[0], (losses[0], losses[-1])
+    lg, = exe.run(main.clone(for_test=True), feed={"pixels": imgs,
+                                                   "label": masks},
+                  fetch_list=[logits], scope=scope)
+    pred = lg.argmax(1)
+    ious = [((pred == c) & (masks == c)).sum()
+            / max(((pred == c) | (masks == c)).sum(), 1) for c in range(nc)]
+    assert np.mean(ious) > 0.95, ious
+
+
+def _shift_ref(x, seg_num, ratio):
+    nt, c, h, w = x.shape
+    c1 = int(c * ratio)
+    x5 = x.reshape(nt // seg_num, seg_num, c, h, w)
+    out = np.zeros_like(x5)
+    out[:, 1:, :c1] = x5[:, :-1, :c1]
+    out[:, :-1, c1:2 * c1] = x5[:, 1:, c1:2 * c1]
+    out[:, :, 2 * c1:] = x5[:, :, 2 * c1:]
+    return out.reshape(nt, c, h, w)
+
+
+@pytest.mark.parametrize("ratio", [0.25, 0.125])
+def test_temporal_shift_matches_reference_semantics(ratio):
+    """tests/models/test_tsm.py:30 through the port's Executor."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 16, 3, 3).astype(np.float32)
+    main, startup, y = _fresh(lambda: tlayers.temporal_shift(
+        tlayers.data("x", shape=[16, 3, 3], dtype="float32"), seg_num=4,
+        shift_ratio=ratio))
+    got, = fluid.Executor(CPU).run(main, feed={"x": x}, fetch_list=[y],
+                                   scope=fluid.Scope())
+    np.testing.assert_array_equal(got, _shift_ref(x, 4, ratio))
+
+
+def test_tsm_overfits_fixed_batch():
+    """tests/models/test_tsm.py:46: 8 videos of 4 frames at 16 x 16, 4
+    classes, 60 Adam(3e-3) steps: the last loss below a tenth of the
+    first."""
+    rng = np.random.RandomState(1)
+    feed = {"video": rng.randn(8, 4, 3, 16, 16).astype(np.float32),
+            "label": rng.randint(0, 4, (8, 1)).astype(np.int64)}
+    main, startup, out = _fresh(lambda: tsm.build_train_net(
+        seg_num=4, class_dim=4, image_size=16))
+    losses, _s, _e = _train(main, startup, lambda i: feed, out[2], 60,
+                            fluid.optimizer.AdamOptimizer(3e-3))
+    assert losses[-1] < losses[0] * 0.1, (losses[0], losses[-1])
+
+
+@pytest.mark.parametrize("tower", ["bow", "cnn"])
+def test_simnet_overfits_fixed_triples(tower):
+    """tests/models/test_simnet.py:28: 120 Adam(5e-3) steps on 32
+    triples; the hinge falls below a tenth of the first."""
+    rng = np.random.RandomState(0)
+    feed = _triples(rng, 32, 12, 200)
+    main, startup, out = _fresh(lambda: simnet.build_pairwise_net(
+        vocab_size=200, max_len=12, tower=tower))
+    losses, _s, _e = _train(main, startup, lambda i: feed, out[1], 120,
+                            fluid.optimizer.AdamOptimizer(5e-3))
+    assert losses[-1] < losses[0] * 0.1, (losses[0], losses[-1])
+
+
+def test_simnet_ranks_positive_above_negative_after_training():
+    """test_simnet.py:48: after 100 steps the half-overlap positives
+    score above 0.5 on the for_test clone (over 90 % of them)."""
+    rng = np.random.RandomState(1)
+    feed = _triples(rng, 32, 12, 200)
+    main, startup, out = _fresh(lambda: simnet.build_pairwise_net(
+        vocab_size=200, max_len=12, tower="bow"))
+    _l, scope, exe = _train(main, startup, lambda i: feed, out[1], 100,
+                            fluid.optimizer.AdamOptimizer(5e-3))
+    pv, = exe.run(main.clone(for_test=True), feed=feed, fetch_list=[out[2]],
+                  scope=scope)
+    assert np.mean(pv > 0.5) > 0.9, pv.min()
+
+
+def test_simnet_padding_does_not_leak():
+    """test_simnet.py:68: tokens past a query's length do not change the
+    CNN tower's score (rtol 1e-5, atol 1e-6 as there)."""
+    rng = np.random.RandomState(2)
+    b, t = 8, 12
+    main, startup, out = _fresh(lambda: simnet.build_pairwise_net(
+        vocab_size=100, max_len=t, tower="cnn"))
+    feed = _triples(rng, b, t, 100)
+    feed["q_len"] = np.full((b, 1), 5, np.int64)
+    scope, exe = fluid.Scope(), fluid.Executor(CPU)
+    exe.run(startup, scope=scope)
+    a, = exe.run(main, feed=feed, fetch_list=[out[2]], scope=scope)
+    feed2 = {k: v.copy() for k, v in feed.items()}
+    feed2["q_ids"][:, 5:] = rng.randint(1, 100, (b, t - 5))
+    c, = exe.run(main, feed=feed2, fetch_list=[out[2]], scope=scope)
+    np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,feed", [
+    ("mobilenet_v2", _images(8, (3, 64, 64), 10)),
+    ("tsm", {"video": RS.randn(4, 4, 3, 16, 16).astype(np.float32),
+             "label": RS.randint(0, 4, (4, 1)).astype(np.int64)})])
+def test_dp2_matches_dp1(name, feed):
+    """Two Momentum steps through with_data_parallel on [CPUPlace()] * 2
+    against the plain Executor from one startup: the batch norms take
+    the global batch's statistics, TSM's shift runs on whole videos a
+    rank; losses and @GRADs within the floors or SPREAD x dp 1's
+    distance from itself on the scaled feed."""
+    main, startup, loss = _build(fluid, tun, _momentum_net(name), seed=3)
+    scope = fluid.Scope()
+    fluid.Executor(CPU).run(startup, scope=scope)
+    init = {n: scope.get(n).numpy().copy() for n in scope.names()}
+    names = [p.name + "@GRAD" for p in main.all_parameters()]
+    runs = []
+    for prog, f in ((main, feed), (fluid.CompiledProgram(
+            main).with_data_parallel(loss_name=loss.name, places=[CPU] * 2),
+            feed), (main, _scaled(feed))):
+        sc = fluid.scope_from_numpy(init, "cpu")
+        exe = fluid.Executor(CPU)
+        runs.append([exe.run(prog, feed=f, fetch_list=[loss] + names,
+                             scope=sc) for _ in range(2)])
+    for step in range(2):
+        _assert_within_spread(runs[1][step], runs[0][step], runs[2][step],
+                              step)
+
+
+def test_tsm_refuses_where_a_rank_would_split_a_video():
+    """TSM's shifted block over a feed of frames: 8 frames of seg_num 4
+    at dp 4 leave each rank 2 frames (half a video), so temporal_shift
+    refuses; at dp 2 each rank holds one whole video and it runs."""
+    def build():
+        x = tlayers.data("frames", shape=[8, 6, 6], dtype="float32")
+        y = tsm._shift_block(x, 4, 4)
+        return tlayers.mean(y)
+
+    main, startup, loss = _fresh(build)
+    feed = {"frames": RS.randn(8, 8, 6, 6).astype(np.float32)}
+    scope, exe = fluid.Scope(), fluid.Executor(CPU)
+    exe.run(startup, scope=scope)
+    with pytest.raises(NotImplementedError, match="whole videos"):
+        exe.run(fluid.CompiledProgram(main).with_data_parallel(
+            places=[CPU] * 4), feed=feed, fetch_list=[loss], scope=scope)
+    out, = exe.run(fluid.CompiledProgram(main).with_data_parallel(
+        places=[CPU] * 2), feed=feed, fetch_list=[loss], scope=scope)
+    assert np.isfinite(out).all()
+
+
+SLICE_MODULES = ("paddle_tpu_torch.ops.activation_ops",
+                 "paddle_tpu_torch.ops.nn_ops",
+                 "paddle_tpu_torch.ops.random_ops",
+                 "paddle_tpu_torch.ops.math_ops",
+                 "paddle_tpu_torch.layers.layer_function_generator",
+                 "paddle_tpu_torch.layers.ops", "paddle_tpu_torch.layers.nn",
+                 "paddle_tpu_torch.models.fit_a_line",
+                 "paddle_tpu_torch.models.word2vec",
+                 "paddle_tpu_torch.models.vgg",
+                 "paddle_tpu_torch.models.mobilenet",
+                 "paddle_tpu_torch.models.gan",
+                 "paddle_tpu_torch.models.simnet",
+                 "paddle_tpu_torch.models.deeplab",
+                 "paddle_tpu_torch.models.tsm", "chip_smoke")
+
+
+def test_slice_modules_import_neither_jax_nor_paddle_tpu():
+    """A fresh interpreter imports this slice's modules and chip_smoke.py
+    (which builds nothing at import): no jax module and no module of the
+    JAX package is loaded afterwards."""
+    import os
+    import subprocess
+    import sys
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m == 'paddle_tpu' "
+            "or m.startswith('paddle_tpu.'))\n"
+            "print(bad)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_defines_each_name_once():
+    """chip_smoke.py is one module of many phases: a helper defined twice
+    at top level (a later phase's `_rel` or `_adam`) silently replaces
+    the earlier phases' one. Every top-level function, class and
+    constant is defined once."""
+    import ast
+    import collections
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    seen = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            seen[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                for e in getattr(target, "elts", [target]):
+                    if isinstance(e, ast.Name):
+                        seen[e.id] += 1
+    assert [n for n, k in seen.items() if k > 1] == []
