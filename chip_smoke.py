@@ -573,6 +573,34 @@ backward kernels are printed):
    of its largest entry, the inputs' IoUs 1e-4 or more from the
    thresholds. Every 30 phase prints step p50, device ms and operations,
    the busy share and peak memory, and launches no attention kernel.
+31. the vision nets and the activation family (31-31g: MobileNet v2 and
+   v1 at ImageNet width, DeepLabv3+ at VOC's crop, TSM, DCGAN, the book
+   nets, and the slice's ops on the card against the CPU; the constants'
+   comments say what each gates).
+32. DeepFM at phase 25's width with the streaming ``layers.auc(prob,
+   label, 4095)`` in the training Program, 10 Adam steps over a new
+   batch each: after every step the persistable statistics equal numpy's
+   histograms of the card's own fetched probabilities and labels with
+   the op's buckets, exactly, and the AUC is within 1e-5 of numpy's
+   float64 AUC over them; the loss falls; 0 host syncs in a dispatch;
+   step p50 with and without the metric, the auc op's device ms and
+   operations;
+32b. the same Program at dp 2 on one card against dp 1 over 4 batches:
+   the statistics count the global batch once, the AUCs within 1e-5;
+32c. DeepLabv3+ at VOC's 513² crop (phase 31c's) with ``layers.argmax``
+   of the transposed logits and ``layers.mean_iou`` in the Program, 5
+   steps: OutCorrect and OutWrong equal numpy's confusion matrix of the
+   fetched argmax, the mIoU within 1e-6, 0 host syncs in a dispatch; then
+   a mean_iou call on the card with 5 % of its labels 255 (VOC's ignore
+   label): no device assert, those pixels left out, the CPU's outputs;
+32d. every one of the slice's 71 tensor, math, loss and metric ops on
+   the card against the CPU (forward and gradient; integers equal), the
+   host syncs of each op's call (``where``, ``unique``,
+   ``unique_with_counts``, ``has_inf``, ``has_nan`` gated at 0); the four
+   distributions on the card against the CPU and their draws' moments;
+   the MSRA, TruncatedNormal, Bilinear and NumpyArray initializers at a
+   ResNet-50 conv weight's shape (Bilinear and NumpyArray exact). Phases
+   31-32d launch no attention kernel (gated at 0).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -607,7 +635,7 @@ of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
 20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's,
-29-29c's and 30-30c's gated 0s,
+29-29c's, 30-30c's, 31-31g's and 32-32d's gated 0s,
 with 16b/16c/17/19b/19c/20d/21b/21c/24/24b/26's errors in
 ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
@@ -1032,6 +1060,28 @@ VISION_LOSS_TOL, VISION_GRAD_TOL = 1e-5, 1e-4
 # from one seeded input: the largest difference over the output's (the
 # gradient's) largest magnitude; integer outputs equal
 OPS_FWD_TOL, OPS_GRAD_TOL = 1e-5, 1e-4
+# phases 32-32d: the tensor, math, loss and metric ops. 32: phase 25's
+# DeepFM with layers.auc(prob, label, num_thresholds=AUC_THRESHOLDS) in
+# the training Program (Fluid 1.5's CTR recipe), METRIC_STEPS Adam steps
+# over a new seeded batch each, a METRIC_POS_RATE share of them positive
+# (the base rate is what the net can learn from ids it has not seen, so
+# the loss falls); then METRIC_TIMED steps with and without the metric.
+# 32b: the same at dp DP on one card over AUC_DP_STEPS batches
+AUC_THRESHOLDS = 4095
+METRIC_STEPS, METRIC_TIMED, AUC_DP_STEPS = 10, 10, 4
+METRIC_POS_RATE = 0.1
+AUC_TOL = 1e-5                      # the AUC against numpy's float64
+# 32c: phase 31c's DeepLabv3+ with layers.argmax of the transposed logits
+# and layers.mean_iou in the Program, MIOU_STEPS steps; mIoU within
+# MIOU_TOL of numpy's; one more mean_iou call with a MIOU_IGNORE share of
+# its labels set to VOC's ignore label 255
+MIOU_STEPS, MIOU_TIMED, MIOU_TOL = 5, 3, 1e-6
+MIOU_IGNORE = 0.05
+# 32d: the distributions' draws and the initializers at a ResNet-50 conv
+# weight's shape; a draw's mean within MEAN_SE standard errors and its
+# standard deviation within DRAW_STD_RTOL
+INIT_SHAPE = (512, 512, 3, 3)
+MEAN_SE, DRAW_STD_RTOL = 5.0, 1e-2
 # phases 26-26c: ERNIE-base (phase 16's program) under guarded
 # asynchronous training: GUARD_STEPS steps of distinct ERNIE feeds, the
 # async window GUARD_WINDOW, a checkpoint every GUARD_CKPT_EVERY steps, a
@@ -11030,6 +11080,10 @@ class _CardCtx(_OpArgs):
     def has_in(self, slot):
         return slot in self.ins
 
+    def in_list(self, slot):
+        v = self.ins.get(slot, [])
+        return v if isinstance(v, list) else [v]
+
     def is_sharded(self, slot):
         return False
 
@@ -11183,21 +11237,50 @@ def _slice_op_cases():
     return cases
 
 
+def _op_inputs(ins, grad, device, with_grad):
+    """{slot: tensor or list of tensors} on `device`; the `grad` slots
+    require gradients where with_grad."""
+    def one(k, v):
+        return torch.tensor(v, device=device,
+                            requires_grad=with_grad and k in grad)
+    return {k: [one(k, e) for e in v] if isinstance(v, list) else one(k, v)
+            for k, v in ins.items()}
+
+
+def _op_out(out):
+    """An output slot as one tensor (a list of outputs, such as split's,
+    flattened and joined)."""
+    if isinstance(out, list):
+        return torch.cat([o.reshape(-1) for o in out])
+    return out
+
+
 def _op_call(op, ins, attrs, slot, grad, device, cot=None):
     """The op's `slot` on `device` (numpy) and, with `cot`, the gradients
     of sum(out x cot) with respect to the `grad` inputs."""
     from paddle_tpu_torch.ops import _REGISTRY
-    t = {k: torch.tensor(v, device=device,
-                         requires_grad=k in grad and cot is not None)
-         for k, v in ins.items()}
-    out = _REGISTRY[op](_CardCtx(t, attrs, device))[slot]
+    t = _op_inputs(ins, grad, device, cot is not None)
+    out = _op_out(_REGISTRY[op](_CardCtx(t, attrs, device))[slot])
     grads = []
     if cot is not None and grad:
+        leaves = [e for k in grad for e in (t[k] if isinstance(t[k], list)
+                                            else [t[k]])]
         grads = torch.autograd.grad(
-            (out * torch.from_numpy(cot).to(device)).sum(),
-            [t[k] for k in grad])
+            (out * torch.from_numpy(cot).to(device)).sum(), leaves)
     return (out.detach().cpu().numpy(),
             [g.detach().cpu().numpy() for g in grads])
+
+
+def _op_syncs(op, ins, attrs, device="cuda"):
+    """The host syncs torch reported in one call of the op on the card,
+    its inputs made there first."""
+    from paddle_tpu_torch.ops import _REGISTRY
+    t = _op_inputs(ins, (), device, False)
+    torch.cuda.synchronize()
+    _, where = _count_syncs(lambda: _REGISTRY[op](_CardCtx(t, attrs,
+                                                           device)))
+    torch.cuda.synchronize()
+    return where
 
 
 def _op_rel_err(a, b):
@@ -11259,44 +11342,56 @@ def _random_op_checks(device):
     return notes
 
 
-def phase_slice_ops():
-    """Phase 31g: every op of SLICE_OPS on the card. The deterministic
-    ones against the same op on the CPU from one seeded input, forward
-    and the gradient of one seeded cotangent (OPS_FWD_TOL / OPS_GRAD_TOL
-    of the output's / the gradient's largest magnitude; integer outputs,
-    the pools' indices on ties, equal); the random ones from one seed
-    twice (equal), from another (different), within their bounds."""
-    cases = _slice_op_cases()
-    if sorted(list(cases) + list(RANDOM_OPS)) != sorted(SLICE_OPS):
-        _fail("31g: the op table does not cover the slice's ops")
+def _ops_card_vs_cpu(tag, cases):
+    """Each op of `cases` ({op: (inputs, attrs, slot, grad slots)}) on
+    the card against the same op on the CPU from one seeded input,
+    forward and the gradient of one seeded cotangent (OPS_FWD_TOL /
+    OPS_GRAD_TOL of the output's / the gradient's largest magnitude;
+    integer and bool outputs equal). Returns {op: [forward, gradient]}."""
     errs = {}
     for op, (ins, attrs, slot, grad) in cases.items():
         cpu, _ = _op_call(op, ins, attrs, slot, grad, "cpu")
-        cot = np.random.RandomState(SEED + 37).randn(*cpu.shape).astype(
-            np.float32) if np.issubdtype(cpu.dtype, np.floating) else None
+        floating = np.issubdtype(cpu.dtype, np.floating)
+        cot = np.asarray(np.random.RandomState(SEED + 37).randn(
+            *cpu.shape), np.float32) if floating else None
         cpu, cpu_g = _op_call(op, ins, attrs, slot, grad, "cpu", cot)
         card, card_g = _op_call(op, ins, attrs, slot, grad, "cuda", cot)
         if card.shape != cpu.shape or card.dtype != cpu.dtype:
-            _fail(f"31g {op}: {card.shape} {card.dtype} on the card, "
+            _fail(f"{tag} {op}: {card.shape} {card.dtype} on the card, "
                   f"{cpu.shape} {cpu.dtype} on the CPU")
-        if not np.issubdtype(cpu.dtype, np.floating):
+        if not floating:
             if not np.array_equal(card, cpu):
-                _fail(f"31g {op}: integer {slot} differs on the card")
+                _fail(f"{tag} {op}: integer {slot} differs on the card")
             errs[op] = [0.0, 0.0]
             continue
         errs[op] = [_op_rel_err(card, cpu), max([_op_rel_err(a, b) for a, b in
                                           zip(card_g, cpu_g)] or [0.0])]
         if errs[op][0] > OPS_FWD_TOL or errs[op][1] > OPS_GRAD_TOL:
-            _fail(f"31g {op}: card vs CPU (forward, gradient) {errs[op]}")
-    notes = _random_op_checks("cuda")
+            _fail(f"{tag} {op}: card vs CPU (forward, gradient) {errs[op]}")
+    return errs
+
+
+def _ops_record(ops, errs, **extra):
     worst_f = max(errs, key=lambda k: errs[k][0])
     worst_g = max(errs, key=lambda k: errs[k][1])
-    rec = {"ops": len(SLICE_OPS), "deterministic": len(errs),
-           "random": notes, "worst_forward": [worst_f, errs[worst_f][0]],
-           "worst_gradient": [worst_g, errs[worst_g][1]],
-           "errs": {k: [float(f"{v[0]:.3g}"), float(f"{v[1]:.3g}")]
-                    for k, v in errs.items()},
-           "card": _card_line()}
+    return {"ops": len(ops), "deterministic": len(errs), **extra,
+            "worst_forward": [worst_f, errs[worst_f][0]],
+            "worst_gradient": [worst_g, errs[worst_g][1]],
+            "errs": {k: [float(f"{v[0]:.3g}"), float(f"{v[1]:.3g}")]
+                     for k, v in errs.items()},
+            "card": _card_line()}
+
+
+def phase_slice_ops():
+    """Phase 31g: every op of SLICE_OPS on the card. The deterministic
+    ones against the same op on the CPU (_ops_card_vs_cpu: pools'
+    indices on ties equal); the random ones from one seed twice (equal),
+    from another (different), within their bounds."""
+    cases = _slice_op_cases()
+    if sorted(list(cases) + list(RANDOM_OPS)) != sorted(SLICE_OPS):
+        _fail("31g: the op table does not cover the slice's ops")
+    errs = _ops_card_vs_cpu("31g", cases)
+    rec = _ops_record(SLICE_OPS, errs, random=_random_op_checks("cuda"))
     print("slice ops " + json.dumps(rec))
     return rec
 
@@ -11315,6 +11410,667 @@ def phase_vision_all(flash, paged):
             ("31e", "31e DCGAN", phase_gan),
             ("31f", "31f book nets", phase_book),
             ("31g", "31g the slice's ops card vs CPU", phase_slice_ops)):
+        recs[key], counts = _seq_phase(name, fn, flash, paged)
+        total = tuple(x + y for x, y in zip(total, counts))
+    return total, recs
+
+
+# ---------------------------------------------------------------------------
+# phases 32-32d: the tensor, math, loss and metric ops
+# ---------------------------------------------------------------------------
+
+def _auc_program(with_auc=True):
+    """Phase 25's DeepFM (its width, Adam(DEEPFM_LR), f32), with
+    layers.auc(prob, label, AUC_THRESHOLDS) in the Program where
+    with_auc: (main, startup, loss, prob, [auc, stat_pos, stat_neg])."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import deepfm
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 25
+    metric = []
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _i, _v, label, loss, prob = deepfm.build_train_net(
+            num_features=DEEPFM_FEATURES, num_fields=DEEPFM_FIELDS,
+            embed_dim=DEEPFM_EMBED)
+        if with_auc:
+            auc, _batch, stats = fluid.layers.auc(
+                prob, label, num_thresholds=AUC_THRESHOLDS)
+            metric = [auc] + stats
+        fluid.optimizer.AdamOptimizer(DEEPFM_LR).minimize(loss)
+    return main, startup, loss, prob, metric
+
+
+def ctr_batches(n, seed, device="cuda"):
+    """`n` synthetic DeepFM batches made on `device` from `seed`: ids
+    uniform over the features, values in [0, 1), labels 1 with
+    probability METRIC_POS_RATE."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shape = (DEEPFM_BATCH, DEEPFM_FIELDS)
+    return [{"feat_ids": torch.randint(0, DEEPFM_FEATURES, shape,
+                                       generator=gen, device=device),
+             "feat_vals": torch.rand(shape, generator=gen, device=device),
+             "label": (torch.rand((DEEPFM_BATCH, 1), generator=gen,
+                                  device=device) < METRIC_POS_RATE).float()}
+            for _ in range(n)]
+
+
+def _auc_hists_np(prob, label):
+    """numpy's (positive, negative) histograms of one batch with the
+    auc op's buckets: int(p (buckets - 1)) of the f32 product, clipped."""
+    p = np.asarray(prob, np.float32).reshape(len(prob), -1)[:, -1]
+    bucket = np.clip(p * np.float32(AUC_THRESHOLDS), 0,
+                     AUC_THRESHOLDS).astype(np.int64)
+    lab = np.asarray(label, np.float64).reshape(-1)
+    n = AUC_THRESHOLDS + 1
+    return (np.bincount(bucket, weights=lab, minlength=n),
+            np.bincount(bucket, weights=1.0 - lab, minlength=n))
+
+
+def _auc_np(pos, neg):
+    """The op's trapezoid area over the histograms, in float64."""
+    pos, neg = np.asarray(pos, np.float64), np.asarray(neg, np.float64)
+    above = np.cumsum(pos[::-1])[::-1]
+    return float((neg * (above - pos / 2)).sum()
+                 / max(pos.sum() * neg.sum(), 1.0))
+
+
+def _auc_steps(tag, exe, program, fetch, batches, scope):
+    """One step a batch, fetching [loss, auc, prob, stat_pos, stat_neg]:
+    after each, the statistics must equal numpy's histograms of every
+    fetched probability and label so far, exactly, and the AUC be within
+    AUC_TOL of numpy's over the statistics. Returns (losses, AUCs, the
+    AUCs' distances, step ms)."""
+    pos = np.zeros(AUC_THRESHOLDS + 1)
+    neg = np.zeros(AUC_THRESHOLDS + 1)
+    losses, aucs, dists, ms = [], [], [], []
+    for i, feed in enumerate(batches):
+        t0 = time.perf_counter()
+        loss, auc, prob, s_pos, s_neg = exe.run(
+            program, feed=feed, fetch_list=fetch, scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hp, hn = _auc_hists_np(prob, feed["label"].cpu().numpy())
+        pos, neg = pos + hp, neg + hn
+        if not (np.array_equal(s_pos.astype(np.float64), pos)
+                and np.array_equal(s_neg.astype(np.float64), neg)):
+            _fail(f"{tag}: step {i}'s statistics are not numpy's "
+                  f"histograms of the fetched probabilities (positives "
+                  f"{s_pos.sum()} vs {pos.sum()}, negatives {s_neg.sum()} "
+                  f"vs {neg.sum()})")
+        losses.append(float(np.ravel(loss)[0]))
+        aucs.append(float(np.ravel(auc)[0]))
+        dists.append(abs(aucs[-1] - _auc_np(s_pos, s_neg)))
+    if max(dists) > AUC_TOL:
+        _fail(f"{tag}: AUC off numpy's by {max(dists)}")
+    if pos.sum() + neg.sum() != len(batches) * DEEPFM_BATCH:
+        _fail(f"{tag}: the statistics count {pos.sum() + neg.sum()} "
+              f"examples, want {len(batches) * DEEPFM_BATCH}")
+    return losses, aucs, dists, ms
+
+
+def phase_deepfm_auc():
+    """Phase 32: DeepFM at bench.py's width (phase 25's) with the
+    streaming layers.auc(prob, label, 4095) in the training Program,
+    METRIC_STEPS steps over a new batch each (_auc_steps' gates: the
+    statistics numpy's histograms of the card's own probabilities,
+    exactly; the AUC within AUC_TOL of numpy's); the losses' last three
+    below their first three; 0 host syncs in a dispatch. Then step p50
+    over METRIC_TIMED steps with the metric and without it (phase 25's
+    Program), and the auc op's device ms and operations a step
+    (_profile_ops)."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss, prob, metric = _auc_program()
+    batches = ctr_batches(METRIC_STEPS, SEED + 40)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses, aucs, dists, _ms = _auc_steps(
+        "32", exe, main, [loss, metric[0], prob] + metric[1:], batches, scope)
+    syncs = _dispatch_syncs(exe, main, batches[0], [loss, metric[0]], scope)
+    if not _falls(losses):
+        _fail(f"32: losses not finite or not falling: {losses}")
+    if syncs:
+        _fail(f"32: host syncs in a training dispatch: {syncs}")
+    feed = batches[-1]
+    _, with_ms = _timed_steps(exe, main, feed, [loss], scope, METRIC_TIMED)
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), DEEPFM_PROFILE_STEPS)
+    plain, pstart, ploss, _p, _m = _auc_program(with_auc=False)
+    pscope = fluid.Scope()
+    exe.run(pstart, scope=pscope)
+    _, without_ms = _timed_steps(exe, plain, feed, [ploss], pscope,
+                                 METRIC_TIMED)
+    by_op = prof["device_ms_per_step_by_op"]
+    ops_by = prof["device_ops_per_step_by_op"] or {}
+    rec = {"config": f"deepfm.build_train_net(num_features="
+                     f"{DEEPFM_FEATURES}, num_fields={DEEPFM_FIELDS}, "
+                     f"embed_dim={DEEPFM_EMBED}) + layers.auc(prob, label, "
+                     f"num_thresholds={AUC_THRESHOLDS}), Adam({DEEPFM_LR}), "
+                     f"f32",
+           "batch": DEEPFM_BATCH, "steps": METRIC_STEPS, "losses": losses,
+           "aucs": aucs, "auc_vs_numpy_max": max(dists),
+           "syncs_in_a_training_dispatch": len(syncs),
+           "step_ms_p50_with_auc": float(np.percentile(with_ms, 50)),
+           "step_ms_p50_without_auc": float(np.percentile(without_ms, 50)),
+           "auc_op_device_ms_per_step": by_op.get("auc", 0.0),
+           "auc_op_device_ops_per_step": ops_by.get("auc"),
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "device_ops_per_step": prof["device_ops_per_step"],
+           "device_busy_share": prof["device_busy_share"],
+           "card": _card_line()}
+    print("deepfm auc " + json.dumps(rec))
+    print("profile deepfm auc " + json.dumps(prof))
+    return rec
+
+
+def phase_deepfm_auc_dp():
+    """Phase 32b: phase 32's Program through with_data_parallel at dp DP
+    on one card and at dp 1, from one startup, AUC_DP_STEPS new batches
+    each: at each dp the statistics numpy's histograms of the fetched
+    global-batch probabilities (the global batch counted once: they sum
+    to steps x the batch, not half or twice that); each step's AUC at dp
+    DP within AUC_TOL of dp 1's."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss, prob, metric = _auc_program()
+    batches = ctr_batches(AUC_DP_STEPS, SEED + 41)
+    exe = fluid.Executor()
+    base = fluid.Scope()
+    exe.run(startup, scope=base)
+    runs = {}
+    for dp in (1, DP):
+        prog = _dp_program(main, loss, [fluid.CUDAPlace(0)] * dp)
+        runs[dp] = _auc_steps(f"32b dp {dp}", exe, prog,
+                              [loss, metric[0], prob] + metric[1:], batches,
+                              _copy_scope(base))
+    gap = max(abs(a - b) for a, b in zip(runs[1][1], runs[DP][1]))
+    rec = {"dp": DP, "steps": AUC_DP_STEPS, "aucs_dp1": runs[1][1],
+           f"aucs_dp{DP}": runs[DP][1], "losses_dp1": runs[1][0],
+           f"losses_dp{DP}": runs[DP][0], "auc_gap_max": gap,
+           "examples_counted": AUC_DP_STEPS * DEEPFM_BATCH,
+           "step_ms": {f"dp{d}": r[3] for d, r in runs.items()},
+           "card": _card_line()}
+    print("deepfm auc dp " + json.dumps(rec))
+    if gap > AUC_TOL:
+        _fail(f"32b: dp {DP}'s AUC off dp 1's by {gap}")
+    return rec
+
+
+def _confusion_np(pred, label, n):
+    """numpy's (n, n) confusion matrix, rows the labels; pixels labelled
+    outside [0, n) left out (the ignore label)."""
+    pred, label = np.asarray(pred).reshape(-1), np.asarray(label).reshape(-1)
+    keep = (label >= 0) & (label < n)
+    return np.bincount(label[keep] * n + pred[keep],
+                       minlength=n * n).reshape(n, n).astype(np.float64)
+
+
+def _miou_np(cm):
+    inter = np.diag(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    return float((inter / np.maximum(union, 1))[union > 0].mean())
+
+
+def phase_deeplab_miou():
+    """Phase 32c: phase 31c's DeepLabv3+ (PASCAL VOC's 513² crop, 21
+    classes, base 64, batch 8, Adam 1e-3) with layers.argmax of the
+    transposed logits and layers.mean_iou(pred, label, 21) in the
+    Program (tests/models/test_deeplab.py:26-28), MIOU_STEPS steps:
+    OutWrong and OutCorrect equal to numpy's confusion matrix of the
+    fetched argmax and the labels, exactly (8 x 513² pixels < 2^24 are
+    exact in f32), the mIoU within MIOU_TOL of numpy's, 0 host syncs in
+    a dispatch. Then one mean_iou call on the card with a MIOU_IGNORE
+    share of the labels set to 255 (_miou_ignore_call)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.models import deeplab
+    box = {}
+
+    def build():
+        _img, label, loss, logits = deeplab.build_train_net(
+            img_shape=(3, DL_IMAGE, DL_IMAGE), num_classes=DL_CLASSES,
+            base_filters=DL_FILTERS)
+        pred = L.reshape(L.argmax(L.transpose(logits, [0, 2, 3, 1]),
+                                  axis=-1), [-1, DL_IMAGE, DL_IMAGE])
+        box["pred"] = pred
+        box["metric"] = list(L.mean_iou(pred, label, DL_CLASSES))
+        return loss
+
+    main, startup, loss = _vision_program(build, _vision_adam(DL_LR))
+    feed = deeplab_feed(DL_BATCH, DL_IMAGE, DL_CLASSES)
+    labels = feed["label"].cpu().numpy()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fetch = [loss] + box["metric"] + [box["pred"]]
+    losses, dists = [], []
+    for i in range(MIOU_STEPS):
+        lv, miou, wrong, correct, pred = exe.run(main, feed=feed,
+                                                 fetch_list=fetch,
+                                                 scope=scope)
+        cm = _confusion_np(pred, labels, DL_CLASSES)
+        inter = np.diag(cm)
+        if not (np.array_equal(correct.astype(np.float64), inter) and
+                np.array_equal(wrong.astype(np.float64), cm.sum(1) - inter)):
+            _fail(f"32c: step {i}'s OutCorrect / OutWrong are not numpy's "
+                  f"confusion matrix of the fetched argmax")
+        dists.append(abs(float(miou[0]) - _miou_np(cm)))
+        losses.append(float(np.ravel(lv)[0]))
+    syncs = _dispatch_syncs(exe, main, feed, [loss, box["metric"][0]], scope)
+    _, ms = _timed_steps(exe, main, feed, [loss, box["metric"][0]], scope,
+                         MIOU_TIMED)
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[
+        loss, box["metric"][0]], scope=scope), 1)
+    ignore = _miou_ignore_call(pred, labels)
+    by_op = prof["device_ms_per_step_by_op"]
+    ops_by = prof["device_ops_per_step_by_op"] or {}
+    rec = {"config": f"deeplab.build_train_net(img_shape=(3, {DL_IMAGE}, "
+                     f"{DL_IMAGE}), num_classes={DL_CLASSES}, base_filters="
+                     f"{DL_FILTERS}) + argmax + mean_iou, Adam({DL_LR}), f32",
+           "batch": DL_BATCH, "steps": MIOU_STEPS, "losses": losses,
+           "miou_vs_numpy_max": max(dists),
+           "syncs_in_a_training_dispatch": len(syncs),
+           "step_ms_p50": float(np.percentile(ms, 50)),
+           "mean_iou_op_device_ms_per_step": by_op.get("mean_iou", 0.0),
+           "arg_max_op_device_ms_per_step": by_op.get("arg_max", 0.0),
+           "mean_iou_op_device_ops_per_step": ops_by.get("mean_iou"),
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "device_ops_per_step": prof["device_ops_per_step"],
+           "device_busy_share": prof["device_busy_share"],
+           "ignore_label_call": ignore, "card": _card_line()}
+    print("deeplab miou " + json.dumps(rec))
+    if max(dists) > MIOU_TOL:
+        _fail(f"32c: mIoU off numpy's by {max(dists)}")
+    if syncs:
+        _fail(f"32c: host syncs in a training dispatch: {syncs}")
+    return rec
+
+
+def _miou_ignore_call(pred, labels):
+    """One mean_iou op call on the card and on the CPU with a MIOU_IGNORE
+    share of the labels (seeded) set to 255: the card must not assert,
+    its outputs must equal the CPU's, and the pixels it counts numpy's
+    with those left out."""
+    from paddle_tpu_torch.ops import _REGISTRY
+    labels = labels.copy()
+    hit = np.random.RandomState(SEED + 42).rand(*labels.shape) < MIOU_IGNORE
+    labels[hit] = 255
+    ins = {"Predictions": np.asarray(pred), "Labels": labels}
+    attrs = {"num_classes": DL_CLASSES}
+    outs = {}
+    for device in ("cpu", "cuda"):
+        o = _REGISTRY["mean_iou"](_CardCtx(_op_inputs(ins, (), device,
+                                                      False), attrs, device))
+        outs[device] = {k: v.cpu().numpy() for k, v in o.items()}
+    torch.cuda.synchronize()
+    for k in outs["cpu"]:
+        if not np.array_equal(outs["cuda"][k], outs["cpu"][k]):
+            _fail(f"32c: the 255-labelled mean_iou's {k} differs on the "
+                  f"card")
+    counted = float(outs["cuda"]["OutWrong"].sum()
+                    + outs["cuda"]["OutCorrect"].sum())
+    want = _confusion_np(pred, labels, DL_CLASSES).sum()
+    if counted != want or want != labels.size - hit.sum():
+        _fail(f"32c: the 255-labelled mean_iou counted {counted} pixels, "
+              f"want {labels.size - hit.sum()}")
+    return {"ignored_pixels": int(hit.sum()), "counted_pixels": counted,
+            "miou": float(outs["cuda"]["OutMeanIou"][0])}
+
+
+# the 71 ops this slice registers
+METRIC_SLICE_OPS = (
+    "arg_max arg_min argsort assign_value crop crop_tensor diag embedding "
+    "expand_as eye flatten flatten2 gather_nd get_tensor_from_selected_rows "
+    "hash linspace lod_append lod_reset lookup_table_v2 merge_selected_rows "
+    "multiplex pad pad2d pad_constant_like pixel_shuffle rank reverse "
+    "scatter scatter_nd scatter_nd_add shape shard_index shuffle_channel "
+    "size space_to_depth split stack strided_slice tile transpose unique "
+    "unique_with_counts unstack where where_index_select "
+    "conv_shift dot fill has_inf has_nan l1_norm minus squared_l2_norm "
+    "bpr_loss center_loss dice_loss hinge_loss huber_loss kldiv_loss "
+    "margin_rank_loss modified_huber_loss mse_loss npair_loss rank_loss "
+    "squared_l2_distance teacher_student_sigmoid_loss "
+    "auc continuous_value_model filter_by_instag mean_iou "
+    "positive_negative_pair").split()
+# the ops whose host syncs phase 32d gates at 0: the fixed-size scans
+# and the flags
+NO_SYNC_OPS = ("where", "unique", "unique_with_counts", "has_inf",
+               "has_nan")
+
+
+def _metric_op_cases():
+    """{op: (inputs as numpy, attrs, output slot, grad slots)} for every
+    op of METRIC_SLICE_OPS at seeded shapes with each op's edge:
+    out-of-range and negative indices, ties, signed zeros and NaN in the
+    sorts, reflect padding, ids past 2^31 in hash, VOC's ignore label
+    255 in mean_iou."""
+    rng = np.random.RandomState(SEED + 43)
+
+    def r(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def ints(hi, *shape):
+        return rng.randint(0, hi, shape).astype(np.int64)
+
+    x = r(4, 6, 5)
+    ties = rng.randint(0, 5, (64, 257)).astype(np.float32)
+    ties[0, :4] = [0.0, -0.0, np.nan, 0.0]
+    seg = ints(21, 8, 65, 65)
+    seg[:, :3] = 255
+    p = rng.rand(4096).astype(np.float32)
+    return {
+        "arg_max": ({"X": ties}, {"axis": 1}, "Out", ()),
+        "arg_min": ({"X": ties}, {"axis": 0}, "Out", ()),
+        "argsort": ({"X": ties}, {"axis": -1, "descending": True},
+                    "Indices", ()),
+        "assign_value": ({}, {"shape": [3, 4], "dtype": "float32",
+                              "values": r(12).tolist()}, "Out", ()),
+        "crop": ({"X": x, "Offsets": np.array([-1, 4, 1], np.int32)},
+                 {"shape": [2, 3, 3]}, "Out", ("X",)),
+        "crop_tensor": ({"X": x}, {"shape": [-1, 3, 4],
+                                   "offsets": [1, 2, 1]}, "Out", ("X",)),
+        "diag": ({"Diagonal": r(64)}, {}, "Out", ("Diagonal",)),
+        "embedding": ({"W": r(1000, 16), "Ids": ints(1000, 256, 1)}, {},
+                      "Out", ("W",)),
+        "expand_as": ({"X": r(4, 1, 6), "target_tensor": r(8, 5, 6)}, {},
+                      "Out", ("X",)),
+        "eye": ({}, {"num_rows": 5, "num_columns": 7}, "Out", ()),
+        "flatten": ({"X": x}, {"axis": 2}, "Out", ("X",)),
+        "flatten2": ({"X": x}, {"axis": 1}, "Out", ("X",)),
+        "gather_nd": ({"X": r(6, 5, 4), "Index": np.array(
+            [[1, 2], [7, -1], [-8, 3], [5, 4]], np.int64)}, {}, "Out",
+            ("X",)),
+        "get_tensor_from_selected_rows": ({"X": x}, {}, "Out", ("X",)),
+        "hash": ({"X": np.array([[3], [-5], [2 ** 31 + 7], [2 ** 40]],
+                                np.int64)},
+                 {"num_hash": 4, "mod_by": 100000007}, "Out", ()),
+        "linspace": ({}, {"start": -2.0, "stop": 3.0, "num": 1001}, "Out",
+                     ()),
+        "lod_append": ({"X": x}, {}, "Out", ("X",)),
+        "lod_reset": ({"X": x}, {}, "Out", ("X",)),
+        "lookup_table_v2": ({"W": r(50, 8), "Ids": ints(50, 9, 3)},
+                            {"padding_idx": 0}, "Out", ("W",)),
+        "merge_selected_rows": ({"X": x}, {}, "Out", ("X",)),
+        "multiplex": ({"X": [r(6, 4), r(6, 4), r(6, 4)],
+                       "Ids": np.array([[0], [2], [-1], [1], [0], [2]],
+                                       np.int64)}, {}, "Out", ("X",)),
+        "pad": ({"X": x}, {"paddings": [1, 0, 2, 3, 0, 1],
+                           "pad_value": 0.5}, "Out", ("X",)),
+        "pad2d": ({"X": r(2, 3, 9, 8)}, {"paddings": [2, 1, 3, 0],
+                                         "mode": "reflect"}, "Out", ("X",)),
+        "pad_constant_like": ({"X": r(6, 7, 5), "Y": x},
+                              {"pad_value": -1.0}, "Out", ("Y",)),
+        "pixel_shuffle": ({"X": r(2, 12, 5, 4)}, {"upscale_factor": 2},
+                          "Out", ("X",)),
+        "rank": ({"Input": x}, {}, "Out", ()),
+        "reverse": ({"X": x}, {"axis": [0, 2]}, "Out", ("X",)),
+        "scatter": ({"X": r(8, 3), "Ids": np.array([6, 0, -3, 9, 3],
+                                                   np.int64),
+                     "Updates": r(5, 3)}, {"overwrite": True}, "Out",
+                    ("X", "Updates")),
+        "scatter_nd": ({"Index": np.array([[0, 1], [0, 1], [3, 2], [9, 0]],
+                                          np.int64), "Updates": r(4, 6)},
+                       {"shape": [4, 3, 6]}, "Out", ("Updates",)),
+        "scatter_nd_add": ({"X": r(4, 3, 6), "Index": np.array(
+            [[0, 1], [0, 1], [-1, 2], [2, 7]], np.int64),
+            "Updates": r(4, 6)}, {}, "Out", ("X", "Updates")),
+        "shape": ({"Input": x}, {}, "Out", ()),
+        "shard_index": ({"X": ints(1000, 64, 1)},
+                        {"index_num": 1000, "nshards": 3, "shard_id": 1},
+                        "Out", ()),
+        "shuffle_channel": ({"X": r(2, 12, 4, 4)}, {"group": 3}, "Out",
+                            ("X",)),
+        "size": ({"Input": x}, {}, "Out", ()),
+        "space_to_depth": ({"X": r(2, 3, 8, 6)}, {"blocksize": 2}, "Out",
+                           ("X",)),
+        "split": ({"X": x}, {"axis": 1, "sections": [1, 3, 2]}, "Out",
+                  ("X",)),
+        "stack": ({"X": [r(3, 5), r(3, 5), r(3, 5)]}, {"axis": 1}, "Y",
+                  ("X",)),
+        "strided_slice": ({"Input": x}, {"axes": [0, 2], "starts": [3, -1],
+                                         "ends": [-100, 0],
+                                         "strides": [-2, -1]}, "Out",
+                          ("Input",)),
+        "tile": ({"X": r(3, 4)}, {"repeat_times": [2, 1, 3]}, "Out",
+                 ("X",)),
+        "transpose": ({"X": x}, {"axis": [2, 0, 1]}, "Out", ("X",)),
+        "unique": ({"X": ints(500, 100000)}, {}, "Index", ()),
+        "unique_with_counts": ({"X": ints(500, 100000)}, {}, "Count", ()),
+        "unstack": ({"X": x}, {"axis": 1}, "Y", ("X",)),
+        "where": ({"Condition": rng.rand(512, 1024) < 0.3}, {}, "Out", ()),
+        "where_index_select": ({"Condition": rng.rand(4, 6) < 0.5,
+                                "X": r(4, 6), "Y": r(4, 6)}, {}, "Out",
+                               ("X", "Y")),
+        "conv_shift": ({"X": r(8, 13), "Y": r(8, 5)}, {}, "Out",
+                       ("X", "Y")),
+        "dot": ({"X": r(16, 32), "Y": r(16, 32)}, {}, "Out", ("X", "Y")),
+        "fill": ({}, {"shape": [2, 3], "value": r(6).tolist(),
+                      "dtype": "float32"}, "Out", ()),
+        "has_inf": ({"X": np.append(r(4095), np.inf).astype(np.float32)},
+                    {}, "Out", ()),
+        "has_nan": ({"X": r(4096)}, {}, "Out", ()),
+        "l1_norm": ({"X": x}, {}, "Out", ("X",)),
+        "minus": ({"X": x, "Y": r(4, 6, 5)}, {}, "Out", ("X", "Y")),
+        "squared_l2_norm": ({"X": x}, {}, "Out", ("X",)),
+        "bpr_loss": ({"X": r(16, 7), "Label": ints(7, 16, 1)}, {}, "Y",
+                     ("X",)),
+        "center_loss": ({"X": r(16, 6), "Label": np.append(
+            ints(5, 14), [7, -1]).reshape(16, 1), "Centers": r(5, 6),
+            "CenterUpdateRate": np.array([0.3], np.float32)},
+            {"need_update": True}, "CentersOut", ()),
+        "dice_loss": ({"X": r(4, 8, 5, lo=0, hi=1),
+                       "Label": ints(6, 4, 8, 1)}, {}, "Out", ("X",)),
+        "hinge_loss": ({"Logits": r(32, 1, lo=-2, hi=2),
+                        "Labels": ints(2, 32, 1).astype(np.float32)}, {},
+                       "Loss", ("Logits",)),
+        "huber_loss": ({"X": r(32, 1, lo=-2, hi=2),
+                        "Y": r(32, 1, lo=-2, hi=2)}, {"delta": 0.5},
+                       "Out", ("X", "Y")),
+        "kldiv_loss": ({"X": r(8, 10, lo=-3, hi=0),
+                        "Target": r(8, 10, lo=0, hi=1)},
+                       {"reduction": "batchmean"}, "Loss", ("X",)),
+        "margin_rank_loss": ({"Label": np.sign(r(32, 1)), "X1": r(32, 1),
+                              "X2": r(32, 1)}, {"margin": 0.1}, "Out",
+                             ("X1", "X2")),
+        "modified_huber_loss": ({"X": r(32, 1, lo=-3, hi=3),
+                                 "Y": ints(2, 32, 1).astype(np.float32)},
+                                {}, "Out", ("X",)),
+        "mse_loss": ({"X": x, "Y": r(4, 6, 5)}, {}, "Out", ("X", "Y")),
+        "npair_loss": ({"Anchor": r(12, 8), "Positive": r(12, 8),
+                        "Labels": ints(4, 12)}, {"l2_reg": 0.01}, "Out",
+                       ("Anchor", "Positive")),
+        "rank_loss": ({"Label": ints(2, 32, 1).astype(np.float32),
+                       "Left": r(32, 1), "Right": r(32, 1)}, {}, "Out",
+                      ("Left", "Right")),
+        "squared_l2_distance": ({"X": x, "Y": r(4, 6, 5)}, {}, "Out",
+                                ("X", "Y")),
+        "teacher_student_sigmoid_loss": (
+            {"X": r(8, 1, lo=-4, hi=4), "Label": np.array(
+                [[-2], [-1], [0], [0.4], [1], [1.7], [-2], [0.9]],
+                np.float32)}, {}, "Y", ("X",)),
+        "auc": ({"Predict": np.stack([1 - p, p], 1),
+                 "Label": ints(2, 4096, 1),
+                 "StatPos": np.zeros(AUC_THRESHOLDS + 1, np.float32),
+                 "StatNeg": np.zeros(AUC_THRESHOLDS + 1, np.float32)}, {},
+                "StatPosOut", ()),
+        "continuous_value_model": ({"X": r(16, 8, lo=0, hi=5),
+                                    "CVM": r(16, 2)}, {"use_cvm": True},
+                                   "Y", ("X",)),
+        "filter_by_instag": ({"Ins": r(16, 4), "Ins_tag": ints(6, 16, 3),
+                              "Filter_tag": np.array([1, 4], np.int64)},
+                             {}, "IndexMap", ()),
+        "mean_iou": ({"Predictions": ints(21, 8, 65, 65), "Labels": seg},
+                     {"num_classes": 21}, "OutCorrect", ()),
+        "positive_negative_pair": (
+            {"Score": r(64, 1), "Label": ints(3, 64, 1).astype(np.float32),
+             "QueryID": ints(4, 64, 1)}, {}, "PositivePair", ()),
+    }
+
+
+def _draw_ok(tag, draw, mean, std, lo=None, hi=None):
+    """A draw's mean within MEAN_SE standard errors, its spread within
+    DRAW_STD_RTOL, its values within [lo, hi]."""
+    d = np.asarray(draw, np.float64)
+    bad = []
+    if abs(d.mean() - mean) > MEAN_SE * std / np.sqrt(d.size):
+        bad.append(f"mean {d.mean()} vs {mean}")
+    if abs(d.std() / std - 1) > DRAW_STD_RTOL:
+        bad.append(f"std {d.std()} vs {std}")
+    if lo is not None and (d.min() < lo or d.max() > hi):
+        bad.append(f"range [{d.min()}, {d.max()}] vs [{lo}, {hi}]")
+    if bad:
+        _fail(f"32d {tag}: {bad}")
+    return {"mean": float(d.mean()), "std": float(d.std()),
+            "min": float(d.min()), "max": float(d.max())}
+
+
+def _distributions_on_card():
+    """The four distributions' entropy, log_prob and kl_divergence run
+    by the Executor on the card and on the CPU (OPS_FWD_TOL); Normal,
+    Uniform and Categorical draws of INIT_SHAPE's size on the card,
+    their moments and bounds. Returns the record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 44
+    n = int(np.prod(INIT_SHAPE))
+    logits = np.log(np.array([[0.1, 0.6, 0.3]], np.float32))
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        nrm = L.Normal(np.array([0.3, -1.2], np.float32),
+                       np.array([0.7, 2.1], np.float32))
+        uni = L.Uniform(np.array([0.0, -2.0], np.float32),
+                        np.array([1.5, 3.0], np.float32))
+        cat = L.Categorical(np.array([[0.2, 1.3, -0.5]], np.float32))
+        mvn = L.MultivariateNormalDiag(
+            np.array([0.3, 0.5], np.float32),
+            np.array([[0.4, 0], [0, 0.5]], np.float32))
+        mvn2 = L.MultivariateNormalDiag(
+            np.array([0.2, 0.4], np.float32),
+            np.array([[0.3, 0], [0, 0.4]], np.float32))
+        value = L.assign(np.array([0.9, 0.1], np.float32))
+        exact = [nrm.entropy(), nrm.log_prob(value),
+                 nrm.kl_divergence(L.Normal(-0.4, 1.3)), uni.entropy(),
+                 uni.log_prob(value), cat.entropy(),
+                 cat.kl_divergence(L.Categorical(logits)),
+                 cat.log_prob(L.assign(np.array([[2]], np.int64))),
+                 mvn.entropy(), mvn.kl_divergence(mvn2)]
+        draws = [L.Normal(1.0, 2.0).sample(list(INIT_SHAPE)),
+                 L.Uniform(-1.0, 3.0).sample(list(INIT_SHAPE)),
+                 L.Categorical(logits).sample([n])]
+    runs = {}
+    for where, place in (("card", fluid.CUDAPlace(0)),
+                         ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        fetch = exact + (draws if where == "card" else [])
+        runs[where] = exe.run(main, fetch_list=fetch, scope=scope)
+    errs = [_op_rel_err(np.asarray(a, np.float32), np.asarray(b, np.float32))
+            for a, b in zip(runs["card"][:len(exact)], runs["cpu"])]
+    if max(errs) > OPS_FWD_TOL:
+        _fail(f"32d distributions: card vs CPU {errs}")
+    normal, uniform, cats = runs["card"][len(exact):]
+    freq = np.bincount(cats.reshape(-1), minlength=3) / cats.size
+    want = np.array([0.1, 0.6, 0.3])
+    if not (np.abs(freq - want) < MEAN_SE * np.sqrt(
+            want * (1 - want) / cats.size)).all():
+        _fail(f"32d Categorical.sample: frequencies {freq} vs {want}")
+    return {"exact_card_vs_cpu": [float(f"{e:.3g}") for e in errs],
+            "normal": _draw_ok("Normal.sample", normal, 1.0, 2.0),
+            "uniform": _draw_ok("Uniform.sample", uniform, 1.0,
+                                4 / np.sqrt(12), -1.0, 3.0),
+            "categorical_freq": freq.tolist(), "draws": n}
+
+
+def _initializers_on_card():
+    """MSRA (uniform and normal), TruncatedNormal, Bilinear and
+    NumpyArrayInitializer at INIT_SHAPE through a startup Program on the
+    card: the random ones' moments and bounds, Bilinear equal to the
+    bilinear kernel computed here in numpy, NumpyArray equal to its
+    value. Returns the record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import initializer as I
+    from paddle_tpu_torch import layers as L
+    value = np.random.RandomState(SEED + 45).rand(*INIT_SHAPE).astype(
+        np.float32)
+    inits = {"msra_uniform": I.MSRA(uniform=True),
+             "msra_normal": I.MSRA(uniform=False),
+             "truncated_normal": I.TruncatedNormal(0.5, 2.0),
+             "bilinear": I.Bilinear(),
+             "numpy_array": I.NumpyArrayInitializer(value)}
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 46
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        for name, init in inits.items():
+            L.create_parameter(list(INIT_SHAPE), "float32", name=name,
+                               default_initializer=init)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    got = {name: scope.get(name) for name in inits}
+    if any(t.device.type != "cuda" for t in got.values()):
+        _fail("32d: an initializer's value is not on the card")
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    fan_in = INIT_SHAPE[1] * INIT_SHAPE[2] * INIT_SHAPE[3]
+    limit = np.sqrt(6.0 / fan_in)
+    f = np.ceil(INIT_SHAPE[3] / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    taps = [(1 - abs(i / f - c)) for i in range(INIT_SHAPE[2])]
+    kernel = np.broadcast_to(np.outer(taps, taps).astype(np.float32),
+                             INIT_SHAPE)
+    # the standard normal truncated to [-2, 2]: variance 1 - 4 phi(2) /
+    # (Phi(2) - Phi(-2))
+    trunc_std = 2.0 * np.sqrt(1 - 4 * np.exp(-2) / np.sqrt(2 * np.pi)
+                              / 0.9544997361036416)
+    rec = {"shape": list(INIT_SHAPE),
+           "msra_uniform": _draw_ok("MSRA uniform", got["msra_uniform"],
+                                    0.0, limit / np.sqrt(3), -limit, limit),
+           "msra_normal": _draw_ok("MSRA normal", got["msra_normal"], 0.0,
+                                   np.sqrt(2.0 / fan_in)),
+           "truncated_normal": _draw_ok("TruncatedNormal",
+                                        got["truncated_normal"], 0.5,
+                                        trunc_std, -3.5, 4.5)}
+    if not np.array_equal(got["bilinear"], kernel):
+        _fail("32d: the Bilinear initializer's kernel is not the bilinear "
+              "kernel")
+    if not np.array_equal(got["numpy_array"], value):
+        _fail("32d: the NumpyArrayInitializer's value differs on the card")
+    rec["bilinear_exact"] = rec["numpy_array_exact"] = True
+    return rec
+
+
+def phase_metric_ops():
+    """Phase 32d: every op of METRIC_SLICE_OPS on the card against the
+    same op on the CPU (_ops_card_vs_cpu), the host syncs of each op's
+    call on the card (those of NO_SYNC_OPS gated at 0); the four
+    distributions and the MSRA, TruncatedNormal, Bilinear and NumpyArray
+    initializers on the card."""
+    cases = _metric_op_cases()
+    if sorted(cases) != sorted(METRIC_SLICE_OPS) or \
+            len(METRIC_SLICE_OPS) != 71:
+        _fail("32d: the op table does not cover the slice's 71 ops")
+    errs = _ops_card_vs_cpu("32d", cases)
+    syncs = {op: len(_op_syncs(op, ins, attrs))
+             for op, (ins, attrs, _s, _g) in cases.items()}
+    rec = _ops_record(METRIC_SLICE_OPS, errs,
+                      syncs={k: v for k, v in syncs.items() if v},
+                      no_sync_ops={op: syncs[op] for op in NO_SYNC_OPS},
+                      distributions=_distributions_on_card(),
+                      initializers=_initializers_on_card())
+    print("metric slice ops " + json.dumps(rec))
+    if any(syncs[op] for op in NO_SYNC_OPS):
+        _fail(f"32d: host syncs in {rec['no_sync_ops']}")
+    return rec
+
+
+def phase_metric_all(flash, paged):
+    """Phases 32-32d. None launches an attention kernel: each is gated at
+    0 flash and paged launches (_seq_phase). Returns (the counts over the
+    phases, records)."""
+    recs, total = {}, (0, 0, 0, 0, 0)
+    for key, name, fn in (
+            ("32", "32 DeepFM with the streaming AUC", phase_deepfm_auc),
+            ("32b", "32b DeepFM AUC at dp 2", phase_deepfm_auc_dp),
+            ("32c", "32c DeepLabv3+ with mean_iou", phase_deeplab_miou),
+            ("32d", "32d the slice's ops card vs CPU", phase_metric_ops)):
         recs[key], counts = _seq_phase(name, fn, flash, paged)
         total = tuple(x + y for x, y in zip(total, counts))
     return total, recs
@@ -11519,6 +12275,7 @@ def main():
     cf_counts, _ = phase_cf_all(flash, paged)
     det_counts, _ = phase_det_all(flash, paged)
     vis_counts, _ = phase_vision_all(flash, paged)
+    met_counts, _ = phase_metric_all(flash, paged)
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -11531,6 +12288,7 @@ def main():
         "29-29c control flow (gated at 0)": cf_counts[4],
         "30-30c detection (gated at 0)": det_counts[4],
         "31-31g vision nets (gated at 0)": vis_counts[4],
+        "32-32d tensor, loss and metric ops (gated at 0)": met_counts[4],
         **dlaunches, **tlaunches, **plaunches,
         **fleet["18"]["launches"], **fleet["18b"]["launches"],
         "18c self-healing f32 (3 replicas + resurrections)":
@@ -11625,7 +12383,8 @@ def main():
         "28-28e sequence family (gated at 0)": seq_counts[:4],
         "29-29c control flow (gated at 0)": cf_counts[:4],
         "30-30c detection (gated at 0)": det_counts[:4],
-        "31-31g vision nets (gated at 0)": vis_counts[:4]}
+        "31-31g vision nets (gated at 0)": vis_counts[:4],
+        "32-32d tensor, loss and metric ops (gated at 0)": met_counts[:4]}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -67,6 +67,9 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, shape=shape or ())
 
+    def create_variable(self, **kwargs):
+        return self.block.create_var(**kwargs)
+
     def create_global_variable(self, persistable=False, **kwargs):
         return self.main_program.global_block().create_var(
             persistable=persistable, **kwargs)

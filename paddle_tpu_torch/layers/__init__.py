@@ -1,10 +1,19 @@
 """fluid.layers-compatible API surface: the layers the ported slices use.
 
 Parity: python/paddle/fluid/layers/__init__.py; the counterpart of
-``paddle_tpu/layers/`` with, in files of the same names, ``io.data``,
-``tensor``'s ``create_parameter``, ``create_global_var``,
-``fill_constant``, ``zeros_like``, ``ones_like``, ``sums``, ``assign``
-and ``tensor_array_to_tensor``, ``nn``'s ``fc``, ``conv2d``,
+``paddle_tpu/layers/`` with, in files of the same names, ``io.data``
+and ``fluid_data``, every name of ``tensor``, ``loss``, ``metric_op``
+and ``distributions`` (``Uniform``, ``Normal``, ``Categorical``,
+``MultivariateNormalDiag``), ``tile`` and ``top_k``, ``nn``'s tensor,
+math and CTR layers (``mul``, ``clip``, ``clip_by_norm``, ``sum``,
+``flatten``, ``stack``, ``unstack``, ``split``, ``gather_nd``,
+``scatter``, ``scatter_nd_add``, ``pad``, ``pad2d``, ``argmax``,
+``argmin``, ``argsort``, ``where``, ``sign``, ``shape``, ``rank``,
+``size``, ``pixel_shuffle``, ``multiplex``, ``crop`` / ``crop_tensor``,
+``space_to_depth``, ``deformable_roi_pooling``, ``hash``,
+``continuous_value_model``, ``filter_by_instag``, ``shuffle_channel``,
+``merge_selected_rows``, ``get_tensor_from_selected_rows``,
+``lod_reset``, ``lod_append``), ``nn``'s ``fc``, ``conv2d``,
 ``pool2d``, ``adaptive_pool2d``, ``batch_norm``, ``relu``, ``embedding``,
 ``one_hot``, ``matmul``, ``layer_norm``, ``dropout``, ``label_smooth``,
 ``mean``, ``reduce_sum``/``mean``/``max``/``min``/``prod``/``all``/
@@ -49,7 +58,7 @@ and ``beam_search_decode``. ``math_op_patch`` gives ``Variable`` the JAX
 package's arithmetic and comparison operators.
 """
 
-from .io import data
+from .io import data, fluid_data
 from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  embedding, one_hot, matmul, layer_norm, dropout,
                  label_smooth, mean, reduce_sum, reduce_mean, reduce_max,
@@ -68,10 +77,21 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  grid_sampler, affine_grid, temporal_shift, affine_channel,
                  similarity_focus, fsp_matrix, deformable_conv,
                  adaptive_pool3d, resize_trilinear, image_resize_short,
-                 unfold, bilinear_tensor_product)
-from .tensor import (create_parameter, create_global_var, fill_constant,
-                     fill_constant_batch_size_like, zeros_like, ones_like,
-                     sums, assign, tensor_array_to_tensor, range)
+                 unfold, bilinear_tensor_product, mul, clip, clip_by_norm,
+                 sum, flatten, stack, unstack, split, gather_nd, scatter,
+                 scatter_nd_add, pad, pad2d, argmax, argmin, argsort, where,
+                 sign, shape, rank, size, pixel_shuffle, multiplex, crop,
+                 crop_tensor, space_to_depth, deformable_roi_pooling, hash,
+                 continuous_value_model, filter_by_instag, shuffle_channel,
+                 merge_selected_rows, get_tensor_from_selected_rows,
+                 lod_reset, lod_append)
+from .tensor import (create_tensor, create_parameter, create_global_var,
+                     fill_constant, fill_constant_batch_size_like, zeros,
+                     ones, zeros_like, ones_like, sums, assign, linspace,
+                     eye, diag, reverse, has_inf, has_nan, isfinite,
+                     scatter_nd, strided_slice, unique, unique_with_counts,
+                     shard_index, pad_constant_like, tensor_array_to_tensor,
+                     range)
 from .ops import *         # noqa: F401,F403
 from . import layer_function_generator
 from .layer_function_generator import (deprecated, generate_layer_fn,
@@ -87,8 +107,13 @@ from .control_flow import (Print, DynamicRNN,
                            is_empty, autoincreased_step_counter, while_loop)
 from .loss import (cross_entropy, softmax_with_cross_entropy,
                    square_error_cost, sigmoid_cross_entropy_with_logits,
-                   log_loss, cos_sim)
-from .metric_op import accuracy, edit_distance, chunk_eval
+                   huber_loss, log_loss, bpr_loss, kldiv_loss, rank_loss,
+                   margin_rank_loss, dice_loss, npair_loss, mse_loss,
+                   teacher_student_sigmoid_loss, cos_sim, center_loss)
+from .metric_op import accuracy, auc, mean_iou, edit_distance, chunk_eval
+from . import distributions
+from .distributions import (Uniform, Normal, Categorical,
+                            MultivariateNormalDiag)
 from . import attention
 from .attention import (scaled_dot_product_attention, multi_head_attention,
                         add_position_encoding)
@@ -122,6 +147,18 @@ from .learning_rate_scheduler import (noam_decay, exponential_decay,
                                       natural_exp_decay, inverse_time_decay,
                                       polynomial_decay, piecewise_decay,
                                       cosine_decay, linear_lr_warmup)
+from .nn import topk as top_k  # fluid exposes both spellings
 from .math_op_patch import monkey_patch_variable
 
 monkey_patch_variable()
+
+
+def tile(x, repeat_times, name=None):
+    """Parity: paddle.tile: x repeated repeat_times[i] times along dim
+    i (np.tile)."""
+    from ..core.layer_helper import LayerHelper
+    helper = LayerHelper("tile", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("tile", {"X": x}, {"Out": out},
+                     {"repeat_times": list(repeat_times)})
+    return out

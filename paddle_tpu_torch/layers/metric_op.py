@@ -1,14 +1,16 @@
 """Metric layers.
 
 Parity: python/paddle/fluid/layers/metric_op.py; the counterpart of
-``paddle_tpu/layers/metric_op.py``'s ``accuracy``, ``edit_distance`` and
-``chunk_eval`` (``auc`` and ``mean_iou`` are not ported). The stateful
+``paddle_tpu/layers/metric_op.py``, every name of it: ``accuracy``,
+``auc`` (the streaming ROC AUC over persistable bucket statistics),
+``mean_iou``, ``edit_distance`` and ``chunk_eval``. The stateful
 evaluators that accumulate these over batches, ``ChunkEvaluator`` and
 ``EditDistance`` (the JAX package's ``evaluator.py`` and ``metrics.py``),
 are ROADMAP item 11, not here.
 """
 
 from ..core.layer_helper import LayerHelper
+from .. import initializer as init_mod
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -25,6 +27,54 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      {"Out": topk_out, "Indices": topk_idx, "Label": label},
                      {"Accuracy": acc, "Correct": correct, "Total": total})
     return acc
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Parity: fluid.layers.auc: the streaming ROC AUC of input's last
+    column (P(positive)) against 0/1 labels, over persistable stat_pos /
+    stat_neg histograms of num_thresholds + 1 buckets, zeros from the
+    startup program, that each run adds its batch to. Returns (auc,
+    batch_auc, [stat_pos, stat_neg]); batch_auc is auc, as in the JAX
+    package."""
+    if str(curve).upper() != "ROC":
+        raise NotImplementedError(
+            "auc: only curve='ROC' is implemented (the exact rank-"
+            "statistic form); the reference's 'PR' curve is not ported")
+    helper = LayerHelper("auc")
+    n = num_thresholds + 1
+    stats = []
+    for kind in ("stat_pos", "stat_neg"):
+        var = helper.create_or_get_global_variable(
+            helper.name + "." + kind, shape=(n,), dtype="float32",
+            persistable=True)
+        var.stop_gradient = True
+        init_mod.ConstantInitializer(0.0)(var)
+        stats.append(var)
+    auc_out = helper.create_variable_for_type_inference("float32", (1,))
+    helper.append_op("auc",
+                     {"Predict": input, "Label": label, "StatPos": stats[0],
+                      "StatNeg": stats[1]},
+                     {"AUC": auc_out, "StatPosOut": stats[0],
+                      "StatNegOut": stats[1]},
+                     {"curve": curve, "num_thresholds": num_thresholds})
+    return auc_out, auc_out, stats
+
+
+def mean_iou(input, label, num_classes):
+    """Parity: fluid.layers.mean_iou: (the mean IoU, each class's wrong
+    and correct pixel counts), f32."""
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32", (1,))
+    wrong = helper.create_variable_for_type_inference("float32",
+                                                      (num_classes,))
+    correct = helper.create_variable_for_type_inference("float32",
+                                                        (num_classes,))
+    helper.append_op("mean_iou", {"Predictions": input, "Labels": label},
+                     {"OutMeanIou": miou, "OutWrong": wrong,
+                      "OutCorrect": correct},
+                     {"num_classes": num_classes})
+    return miou, wrong, correct
 
 
 def edit_distance(input, label, normalized=True, ignored_tokens=None,

@@ -6,6 +6,8 @@ function appends ops to the default main program; their implementations
 live in paddle_tpu_torch/ops/.
 """
 
+import builtins
+
 from ..core.layer_helper import LayerHelper
 from .. import initializer as init_mod
 
@@ -490,7 +492,7 @@ def concat(input, axis=0, name=None):
     shape = list(xs[0].shape)
     if shape:
         a = axis % len(shape)
-        shape[a] = sum(x.shape[a] for x in xs)
+        shape[a] = builtins.sum(x.shape[a] for x in xs)
     out = helper.create_variable_for_type_inference(xs[0].dtype, tuple(shape))
     helper.append_op("concat", {"X": xs}, {"Out": out}, {"axis": axis})
     return out
@@ -1229,3 +1231,362 @@ def _adaptive_pool(op_type, input, psize, pool_type, require_index, name):
                      {"pool_size": list(psize), "pooling_type": pool_type,
                       "require_index": require_index})
     return (out, outs["Mask"]) if require_index else out
+
+
+# ---------------------------------------------------------------------------
+# the tensor, math and metric layers over ops/tensor_ops.py, math_ops.py
+# and metric_ops.py (the JAX module's names)
+# ---------------------------------------------------------------------------
+
+from .attention import add_position_encoding  # noqa: E402,F401
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    """Parity: fluid.layers.mul: x flattened to 2-D at x_num_col_dims
+    times y flattened at y_num_col_dims."""
+    helper = LayerHelper("mul", name=name)
+    out_shape = tuple(x.shape[:x_num_col_dims]) + tuple(
+        y.shape[y_num_col_dims:])
+    out = helper.create_variable_for_type_inference(x.dtype, out_shape)
+    helper.append_op("mul", {"X": x, "Y": y}, {"Out": out},
+                     {"x_num_col_dims": x_num_col_dims,
+                      "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("clip", {"X": x}, {"Out": out},
+                     {"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("clip_by_norm", {"X": x}, {"Out": out},
+                     {"max_norm": float(max_norm)})
+    return out
+
+
+def sum(x, name=None):
+    """Parity: fluid.layers.sum: the elementwise sum of the inputs."""
+    helper = LayerHelper("sum", name=name)
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype, xs[0].shape)
+    helper.append_op("sum", {"X": xs}, {"Out": out})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    """(prod(shape[:axis]), prod(shape[axis:])); -1 where a dim is
+    unknown at build time."""
+    helper = LayerHelper("flatten", name=name)
+
+    def known(dims):
+        return _prod(dims) if all(s >= 0 for s in dims) else -1
+
+    out = helper.create_variable_for_type_inference(
+        x.dtype, (known(x.shape[:axis]), known(x.shape[axis:])))
+    xshape = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("flatten2", {"X": x}, {"Out": out, "XShape": xshape},
+                     {"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    shape = list(xs[0].shape)
+    shape.insert(axis % (len(shape) + 1), len(xs))
+    out = helper.create_variable_for_type_inference(xs[0].dtype, tuple(shape))
+    helper.append_op("stack", {"X": xs}, {"Y": out}, {"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    n = num or x.shape[axis]
+    shape = tuple(s for i, s in enumerate(x.shape) if i != axis % len(x.shape))
+    outs = [helper.create_variable_for_type_inference(x.dtype, shape)
+            for _ in range(n)]
+    helper.append_op("unstack", {"X": x}, {"Y": outs}, {"axis": axis})
+    return outs
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """num_or_sections equal parts (an int) or parts of the given sizes
+    along `dim`."""
+    helper = LayerHelper("split", name=name)
+    dim = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        sizes = [input.shape[dim] // num_or_sections] * num_or_sections
+        attrs = {"axis": dim, "num": num_or_sections}
+    else:
+        sizes = list(num_or_sections)
+        attrs = {"axis": dim, "sections": sizes}
+    outs = []
+    for s in sizes:
+        shape = list(input.shape)
+        shape[dim] = s
+        outs.append(helper.create_variable_for_type_inference(input.dtype,
+                                                              tuple(shape)))
+    helper.append_op("split", {"X": input}, {"Out": outs}, attrs)
+    return outs
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather_nd", {"X": input, "Index": index}, {"Out": out})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("scatter", {"X": input, "Ids": index,
+                                 "Updates": updates},
+                     {"Out": out}, {"overwrite": overwrite})
+    return out
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    helper = LayerHelper("scatter_nd_add", name=name)
+    out = helper.create_variable_for_type_inference(ref.dtype, ref.shape)
+    helper.append_op("scatter_nd_add",
+                     {"X": ref, "Index": index, "Updates": updates},
+                     {"Out": out})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    shape = tuple(s + paddings[2 * i] + paddings[2 * i + 1] if s >= 0 else -1
+                  for i, s in enumerate(x.shape))
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op("pad", {"X": x}, {"Out": out},
+                     {"paddings": list(paddings),
+                      "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pad2d", {"X": input}, {"Out": out},
+                     {"paddings": list(paddings), "mode": mode,
+                      "pad_value": float(pad_value),
+                      "data_format": data_format})
+    return out
+
+
+def _arg_layer(op_type, x, axis, name):
+    helper = LayerHelper(op_type, name=name)
+    shape = tuple(s for i, s in enumerate(x.shape) if i != axis % len(x.shape))
+    out = helper.create_variable_for_type_inference("int64", shape)
+    helper.append_op(op_type, {"X": x}, {"Out": out}, {"axis": axis})
+    return out
+
+
+def argmax(x, axis=0, name=None):
+    return _arg_layer("arg_max", x, axis, name)
+
+
+def argmin(x, axis=0, name=None):
+    return _arg_layer("arg_min", x, axis, name)
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    """(the sorted values, their indices, int64): a stable sort."""
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    idx = helper.create_variable_for_type_inference("int64", input.shape)
+    helper.append_op("argsort", {"X": input}, {"Out": out, "Indices": idx},
+                     {"axis": axis, "descending": descending})
+    return out, idx
+
+
+def where(condition):
+    """The flat positions of the true entries, padded with -1: (n, 1)
+    int64 for n entries (a fixed shape)."""
+    helper = LayerHelper("where")
+    n = _prod(condition.shape) if all(s >= 0 for s in condition.shape) \
+        else -1
+    out = helper.create_variable_for_type_inference("int64", (n, 1))
+    helper.append_op("where", {"Condition": condition}, {"Out": out})
+    return out
+
+
+def sign(x):
+    return _simple_layer("sign", {"X": x}, {})
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32",
+                                                    (len(input.shape),))
+    helper.append_op("shape", {"Input": input}, {"Out": out})
+    return out
+
+
+def rank(input):
+    helper = LayerHelper("rank")
+    out = helper.create_variable_for_type_inference("int32", ())
+    helper.append_op("rank", {"Input": input}, {"Out": out})
+    return out
+
+
+def size(input):
+    helper = LayerHelper("size")
+    out = helper.create_variable_for_type_inference("int64", ())
+    helper.append_op("size", {"Input": input}, {"Out": out})
+    return out
+
+
+def pixel_shuffle(x, upscale_factor):
+    r = upscale_factor
+    n, c, h, w = x.shape
+    return _simple_layer("pixel_shuffle", {"X": x}, {"upscale_factor": r},
+                         shape=(n, c // (r * r), h * r, w * r))
+
+
+def multiplex(inputs, index):
+    """Row b of inputs[index[b]]."""
+    return _simple_layer("multiplex", {"X": list(inputs), "Ids": index}, {})
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """Parity: fluid.layers.crop / crop_tensor: a window of the static
+    `shape` (-1 or 0: the rest of the dim from the offset) at `offsets`,
+    a list or a Variable (read on the device)."""
+    from ..core.framework import Variable
+    if isinstance(shape, Variable) or any(isinstance(s, Variable)
+                                          for s in (shape or [])):
+        raise TypeError(
+            "crop_tensor: tensor-valued `shape` (or shape element) is "
+            "dynamic-shape; pass a python list of ints (use -1 to keep "
+            "a dim)")
+    ins = {"X": x}
+    attrs = {"shape": list(shape), "offsets": offsets}
+    dynamic = isinstance(offsets, Variable)
+    if dynamic:
+        ins["Offsets"] = offsets
+        attrs["offsets"] = None
+        if any(int(s) <= 0 for s in shape):
+            raise NotImplementedError(
+                "crop_tensor: -1/0 shape entries need static offsets "
+                "(runtime offsets can't give a static slice size); pass "
+                "explicit sizes in `shape`, or make `offsets` a python list")
+    off = [0] * len(shape) if dynamic or offsets is None else list(offsets)
+    out_shape = tuple(
+        int(s) if int(s) > 0 else (int(x.shape[i]) - int(off[i])
+                                   if int(x.shape[i]) >= 0 else -1)
+        for i, s in enumerate(shape))
+    return _simple_layer("crop_tensor", ins, attrs, helper_name="crop",
+                         shape=out_shape)
+
+
+crop_tensor = crop
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _simple_layer("space_to_depth", {"X": x}, {"blocksize": blocksize})
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=(1, 1),
+                           pooled_height=1, pooled_width=1, part_size=None,
+                           sample_per_part=1, trans_std=0.1,
+                           position_sensitive=False, name=None):
+    """Parity: fluid.layers.deformable_roi_pooling over the
+    deformable_psroi_pooling op; in position-sensitive mode the output
+    has C / (pooled_height x pooled_width) channels (nn.py:13400)."""
+    helper = LayerHelper("deformable_roi_pooling", name=name)
+    ins = {"Input": input, "ROIs": rois}
+    if not no_trans and trans is not None:
+        ins["Trans"] = trans
+    channels = input.shape[1]
+    output_dim = channels // (pooled_height * pooled_width) \
+        if position_sensitive else channels
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("deformable_psroi_pooling", ins, {"Output": out},
+                     {"no_trans": no_trans, "spatial_scale": spatial_scale,
+                      "output_dim": output_dim,
+                      "group_size": list(group_size),
+                      "pooled_height": pooled_height,
+                      "pooled_width": pooled_width,
+                      "part_size": list(part_size or [pooled_height,
+                                                      pooled_width]),
+                      "sample_per_part": sample_per_part,
+                      "trans_std": trans_std})
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """Parity: fluid.layers.hash: num_hash buckets in [0, hash_size) an
+    id (the JAX package's multiplicative hash), int64."""
+    return _simple_layer("hash", {"X": input},
+                         {"num_hash": num_hash, "mod_by": hash_size},
+                         dtype="int64")
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _simple_layer("continuous_value_model", {"X": input, "CVM": cvm},
+                         {"use_cvm": use_cvm}, helper_name="cvm",
+                         out_slot="Y")
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod=True,
+                     out_val_if_empty=0):
+    """(rows kept or zeroed, their 1 / 0 loss weights, the index map)."""
+    helper = LayerHelper("filter_by_instag")
+    out = helper.create_variable_for_type_inference(ins.dtype, ins.shape)
+    loss_weight = helper.create_variable_for_type_inference("float32")
+    index_map = helper.create_variable_for_type_inference("int64")
+    helper.append_op("filter_by_instag",
+                     {"Ins": ins, "Ins_tag": ins_tag,
+                      "Filter_tag": filter_tag},
+                     {"Out": out, "LossWeight": loss_weight,
+                      "IndexMap": index_map}, {})
+    return out, loss_weight, index_map
+
+
+def shuffle_channel(x, group, name=None):
+    return _simple_layer("shuffle_channel", {"X": x}, {"group": group})
+
+
+def _identity_layer(op_type, x, ins=None, attrs=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(op_type, dict({"X": x}, **(ins or {})), {"Out": out},
+                     attrs or {})
+    return out
+
+
+def merge_selected_rows(x, name=None):
+    """The identity: gradients are dense here (no SelectedRows)."""
+    return _identity_layer("merge_selected_rows", x, name=name)
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    return _identity_layer("get_tensor_from_selected_rows", x, name=name)
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """The identity on the device: the LoD is host-side (padded tensors
+    and lengths); the new LoD rides the output as metadata."""
+    out = _identity_layer("lod_reset", x,
+                          {"Y": y} if y is not None else None,
+                          {"target_lod": list(target_lod) if target_lod
+                           else []})
+    out._lod_source = y if y is not None else target_lod
+    return out
+
+
+def lod_append(x, level):
+    return _identity_layer("lod_append", x,
+                           None if isinstance(level, (list, tuple))
+                           else {"Y": level})

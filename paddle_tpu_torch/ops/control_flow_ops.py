@@ -3,7 +3,7 @@
 Parity: paddle/fluid/operators/controlflow/* (while_op, conditional_block,
 select, tensor_array_read_write, print_op) and py_func_op; the
 counterpart of ``paddle_tpu/ops/control_flow_ops.py``, all 21 of its
-names: ``select`` / ``where_op``, ``conditional_select``, ``is_empty``,
+names: ``select`` / ``where_op`` / ``where_index_select``, ``conditional_select``, ``is_empty``,
 the tensor arrays (``create_array``, ``array_write`` /
 ``write_to_array``, ``array_read`` / ``read_from_array``,
 ``array_length`` / ``lod_array_length``, ``tensor_array_to_tensor``,
@@ -61,6 +61,7 @@ import torch
 
 from . import (Sharded, TensorArray, refuses, register, replicated, rows,
                rows_if, run_op, whole, whole_context)
+from .tensor_ops import host_tensor as _host_tensor
 
 
 def _unsharded(ctx, value, what):
@@ -76,15 +77,6 @@ def _unsharded(ctx, value, what):
         f"replicated, or reduce it first)")
 
 
-def _host_tensor(values, dtype, device):
-    """A small tensor of host values on `device`; bound for CUDA, staged
-    in pinned memory and copied without waiting for the stream."""
-    t = torch.as_tensor(np.asarray(values), dtype=dtype)
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def _truth(c):
     return c if c.dtype == torch.bool else c != 0
 
@@ -93,7 +85,7 @@ def _truth(c):
 # selects
 # ---------------------------------------------------------------------------
 
-@register("select", "where_op", dp=rows)
+@register("select", "where_op", "where_index_select", dp=rows)
 def select(ctx):
     return {"Out": torch.where(_truth(ctx.in_("Condition")), ctx.in_("X"),
                                ctx.in_("Y"))}

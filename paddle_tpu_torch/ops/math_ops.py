@@ -10,8 +10,10 @@ compare_op.cc, isfinite_op.cc, increment_op.cc; the counterpart of
 ``mean``, ``clip``, ``clip_by_norm``, ``isfinite``, ``increment``, the
 comparisons ``equal``, ``not_equal``, ``greater_than``,
 ``greater_equal``, ``less_than`` and ``less_equal``, and
-``logical_and``/``or``/``xor``/``not``, ``l2_normalize`` / ``norm``
-and ``cumsum``.
+``logical_and``/``or``/``xor``/``not``, ``l2_normalize`` / ``norm``,
+``cumsum``, ``has_inf`` / ``has_nan`` (one device bool, no host read),
+``dot``, ``minus``, ``l1_norm``, ``squared_l2_norm``, ``fill`` and
+``conv_shift``: every op of the JAX module.
 
 Under data parallelism (``ops/__init__.py``'s rules) the elementwise
 ops, ``scale``, ``sum``, ``clip``, ``select_finite``, the comparisons
@@ -23,7 +25,10 @@ rank's partial with the mesh's dp collective (``mean`` and
 ``_min``, ``_prod``, ``_all`` and ``_any`` reduce the ranks' partials
 once more); ``l2_normalize`` and ``cumsum`` run a rank's rows where
 their axis is not dim 0 (``cumsum`` unflattened); ``clip_by_norm``,
-``isfinite`` and ``increment`` take replicated inputs only.
+``isfinite`` and ``increment`` take replicated inputs only;
+``has_inf`` / ``has_nan``, ``l1_norm`` and ``squared_l2_norm`` finish
+each rank's partial with one dp sum (the global tensor's); ``dot``,
+``minus`` and ``conv_shift`` run a rank's rows.
 
 ``select_finite`` is the port's own: the loss scaler's overflow step
 (amp/decorator.py) zeroes the gradients with it, where the JAX package
@@ -32,7 +37,8 @@ multiplies them by the finite flag (ROADMAP C8).
 
 import torch
 
-from . import register, replicated, rows, rows_if
+from . import register, replicated, rows, rows_if, torch_dtype
+from .tensor_ops import host_tensor
 
 
 def _bcast_y(x, y, axis):
@@ -342,3 +348,68 @@ def cumsum(ctx):
     if ctx.attr("exclusive", False):
         out = out - x
     return {"Out": out}
+
+
+def _dp_any(impl, ctxs, walk):
+    """A flag over the global tensor: each rank's, summed over dp."""
+    flags = walk.sum([impl(c)["Out"].float().reshape(1) for c in ctxs])
+    return {"Out": (flags > 0).reshape(())}
+
+
+@register("has_inf", dp=_dp_any)
+def has_inf(ctx):
+    """One device bool, shape (): any entry infinite (no host read)."""
+    return {"Out": torch.isinf(ctx.in_("X")).any()}
+
+
+@register("has_nan", dp=_dp_any)
+def has_nan(ctx):
+    return {"Out": torch.isnan(ctx.in_("X")).any()}
+
+
+@register("dot", dp=rows)
+def dot(ctx):
+    """Row-wise dot products over the last dim, kept as (..., 1)."""
+    return {"Out": (ctx.in_("X") * ctx.in_("Y")).sum(-1, keepdim=True)}
+
+
+@register("minus", dp=rows)
+def minus(ctx):
+    return {"Out": ctx.in_("X") - ctx.in_("Y")}
+
+
+def _dp_total(impl, ctxs, walk):
+    """A sum over the global tensor: each rank's, summed over dp."""
+    return {"Out": walk.sum([impl(c)["Out"] for c in ctxs])}
+
+
+@register("l1_norm", dp=_dp_total)
+def l1_norm(ctx):
+    """sum(|X|), a scalar."""
+    return {"Out": ctx.in_("X").abs().sum()}
+
+
+@register("squared_l2_norm", dp=_dp_total)
+def squared_l2_norm(ctx):
+    """sum(X^2), a scalar."""
+    x = ctx.in_("X")
+    return {"Out": (x * x).sum()}
+
+
+@register("fill", dp=replicated)
+def fill(ctx):
+    """The attr `value` (a flat list) of `shape` in `dtype`."""
+    return {"Out": host_tensor(
+        ctx.attr("value", [0.0]), torch_dtype(ctx.attr("dtype", "float32")),
+        ctx.device).reshape(tuple(ctx.attr("shape")))}
+
+
+@register("conv_shift", dp=rows)
+def conv_shift(ctx):
+    """conv_shift_op (NTM's circular correlation): out[b, i] = sum_j
+    x[b, (i + j - N // 2) mod M] y[b, j]."""
+    x, y = ctx.in_("X"), ctx.in_("Y")
+    n = y.shape[1]
+    rolled = torch.stack([torch.roll(x, -(j - n // 2), 1) for j in range(n)],
+                         1)
+    return {"Out": torch.einsum("bnm,bn->bm", rolled, y)}

@@ -1,19 +1,28 @@
 """Metric ops.
 
-Parity: paddle/fluid/operators/metrics/accuracy_op.*, edit_distance_op.*
-and chunk_eval_op.*; the counterpart of ``paddle_tpu/ops/metric_ops.py``'s
-``accuracy`` (the share of rows whose label is among the top-k indices),
-``edit_distance`` (the Levenshtein distance over padded lengths) and
-``chunk_eval`` (IOB chunk precision, recall and F1). Under data
-parallelism each is the global batch's: ``accuracy``'s correct and total
-counts and ``chunk_eval``'s three chunk counts are each rank's, summed
-over dp; ``edit_distance`` gives a rank's rows their distances and its
-``SequenceNum`` is the global batch's count.
+Parity: paddle/fluid/operators/metrics/{accuracy,auc}_op.*,
+mean_iou_op.*, edit_distance_op.*, chunk_eval_op.*, cvm_op.*,
+filter_by_instag_op.* and positive_negative_pair_op.*; the counterpart
+of ``paddle_tpu/ops/metric_ops.py``, every op of it: ``accuracy`` (the
+share of rows whose label is among the top-k indices), ``auc`` (the
+streaming ROC AUC over persistable bucket histograms), ``mean_iou``,
+``edit_distance`` (the Levenshtein distance over padded lengths),
+``chunk_eval`` (IOB chunk precision, recall and F1),
+``continuous_value_model``, ``filter_by_instag`` and
+``positive_negative_pair``. Under data parallelism each is the global
+batch's: ``accuracy``'s correct and total counts, ``chunk_eval``'s
+three chunk counts, ``auc``'s histograms and ``mean_iou``'s confusion
+matrix are each rank's, summed over dp once; ``edit_distance`` gives a
+rank's rows their distances and its ``SequenceNum`` is the global
+batch's count; ``filter_by_instag`` numbers its kept rows in the global
+batch; ``positive_negative_pair`` pairs the whole batch and refuses a
+sharded input at dp 2 and more.
 """
 
 import torch
 
-from . import register
+from . import Sharded, refuses, register, rows
+from .tensor_ops import dropped
 from .sequence_ops import lengths_or_full, rows_with, unaligned
 
 
@@ -150,3 +159,163 @@ def chunk_eval(ctx):
     """Chunk precision, recall and F1 of Inference against Label (IOB),
     with the counts (int64)."""
     return _chunk_outputs(*_chunk_counts(ctx))
+
+
+def _auc_hists(ctx, num_buckets):
+    """This batch's (positive, negative) histograms over the buckets:
+    bucket = int(p (num_buckets - 1)) clipped into range, f32 counts
+    (exact below 2^24) by index_add, a fixed shape with no host read."""
+    probs = ctx.in_("Predict")[:, -1]
+    label = ctx.in_("Label").reshape(-1).to(torch.float32)
+    scaled = torch.nan_to_num(probs.float() * (num_buckets - 1), nan=0.0)
+    bucket = scaled.clamp(0, num_buckets - 1).to(torch.int64)
+    zeros = torch.zeros(num_buckets, dtype=torch.float32, device=probs.device)
+    return (zeros.index_add(0, bucket, label),
+            zeros.index_add(0, bucket, 1.0 - label))
+
+
+def _auc_outputs(ctx, pos_hist, neg_hist):
+    """The streaming statistics plus this batch's histograms, and the
+    area under their ROC curve: the trapezoids sum(neg (positives at or
+    above the bucket - pos / 2)) over (positives x negatives)."""
+    stat_pos, stat_neg = ctx.in_("StatPos"), ctx.in_("StatNeg")
+    new_pos = stat_pos.reshape(-1) + pos_hist.to(stat_pos.dtype)
+    new_neg = stat_neg.reshape(-1) + neg_hist.to(stat_neg.dtype)
+    tot_pos = torch.flip(torch.cumsum(torch.flip(new_pos, (0,)), 0), (0,))
+    area = (new_neg * (tot_pos - new_pos / 2.0)).sum()
+    denom = torch.clamp_min(new_pos.sum() * new_neg.sum(), 1.0)
+    return {"AUC": (area / denom).reshape(1),
+            "StatPosOut": new_pos.reshape(stat_pos.shape),
+            "StatNegOut": new_neg.reshape(stat_neg.shape)}
+
+
+def _dp_auc(impl, ctxs, walk):
+    """The global batch counted once: each rank's histograms, one dp sum
+    (of both, stacked), added to the replicated statistics."""
+    n = ctxs[0].in_("StatPos").numel()
+    hists = walk.sum([torch.stack(_auc_hists(c, n)) for c in ctxs])
+    return _auc_outputs(ctxs[0], hists[0], hists[1])
+
+
+@register("auc", dp=_dp_auc)
+def auc(ctx):
+    """Streaming ROC AUC over num_thresholds + 1 buckets (the JAX
+    package's scheme): Predict's last column is P(positive); StatPos /
+    StatNeg accumulate the histograms across runs (persistable, written
+    back as StatPosOut / StatNegOut)."""
+    return _auc_outputs(ctx, *_auc_hists(ctx, ctx.in_("StatPos").numel()))
+
+
+def _confusion(ctx):
+    """The (num_classes, num_classes) f32 confusion matrix, rows the
+    labels: each pixel at label n + pred, read as XLA's scatter reads it
+    (a negative index wraps by n^2, one still out of range is dropped:
+    VOC's ignore label 255 leaves its pixels out). A dump slot past the
+    end takes the dropped ones, so a CUDA scatter never sees them."""
+    pred = ctx.in_("Predictions").reshape(-1).long()
+    label = ctx.in_("Labels").reshape(-1).long()
+    n = ctx.attr("num_classes")
+    slot = dropped(label * n + pred, n * n)
+    cm = torch.zeros(n * n + 1, dtype=torch.float32, device=pred.device)
+    cm.index_add_(0, slot, torch.ones(slot.shape, dtype=torch.float32,
+                                      device=pred.device))
+    return cm[:n * n].reshape(n, n)
+
+
+def _iou_outputs(cm):
+    """The per-class IoU in f32 as JAX's; their mean summed in float64
+    and rounded once to f32. Each nonzero IoU is at least 1 / union, so
+    its last bit is at least 2^-24 / union: while classes x the largest
+    union stay below 2^29 (VOC at 513², batch 8: 4.4e7), the float64 sum
+    is exact in any order, and the card and the CPU give the same bits
+    (an f32 sum moves by an ulp with the reduction's order)."""
+    inter = torch.diagonal(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    valid = union > 0
+    iou = torch.where(valid, inter / torch.clamp_min(union, 1.0),
+                      torch.zeros_like(inter))
+    miou = iou.double().sum() / torch.clamp_min(valid.sum(), 1)
+    return {"OutMeanIou": miou.float().reshape(1),
+            "OutWrong": cm.sum(1) - inter, "OutCorrect": inter}
+
+
+def _dp_mean_iou(impl, ctxs, walk):
+    """The global batch's confusion matrix: the ranks' summed over dp."""
+    return _iou_outputs(walk.sum([_confusion(c) for c in ctxs]))
+
+
+@register("mean_iou", dp=_dp_mean_iou)
+def mean_iou(ctx):
+    """The mean IoU over the classes present in labels or predictions,
+    and per class the correct pixels (OutCorrect) and the label's pixels
+    predicted otherwise (OutWrong), f32."""
+    return _iou_outputs(_confusion(ctx))
+
+
+@register("continuous_value_model", dp=rows)
+def continuous_value_model(ctx):
+    """cvm_op: X's leading show and click columns as log(show + 1) and
+    log(click + 1) - log(show + 1) (use_cvm), or dropped."""
+    x = ctx.in_("X")
+    show = torch.log(torch.clamp_min(x[:, 0:1], 0.0) + 1.0)
+    ctr = torch.log(torch.clamp_min(x[:, 1:2], 0.0) + 1.0) - show
+    if ctx.attr("use_cvm", True):
+        return {"Y": torch.cat([show, ctr, x[:, 2:]], -1)}
+    return {"Y": x[:, 2:]}
+
+
+def _dp_instag(impl, ctxs, walk):
+    """A rank's rows, with IndexMap's kept rows numbered in the global
+    batch (the rank's offset added; the shards are equal)."""
+    outs = []
+    for c in ctxs:
+        o = impl(c)
+        off = c.dp_rank * c.in_("Ins").shape[0]
+        idx = o["IndexMap"]
+        o["IndexMap"] = torch.where(idx >= 0, idx + off, idx)
+        outs.append(o)
+    return {k: Sharded([o[k] for o in outs]) for k in outs[0]}
+
+
+@register("filter_by_instag", dp=_dp_instag)
+def filter_by_instag(ctx):
+    """Rows whose tags meet Filter_tag kept, the others zeroed (a fixed
+    shape); LossWeight 1 / 0 a row; IndexMap (B, 2) each kept row's index,
+    -1 for the others (int64)."""
+    ins, tags = ctx.in_("Ins"), ctx.in_("Ins_tag")
+    filt = ctx.in_("Filter_tag").reshape(-1)
+    hit = (tags[:, :, None] == filt[None, None, :]).any(2).any(1)
+    idx = torch.where(hit, torch.arange(ins.shape[0], device=ins.device),
+                      torch.full_like(hit, -1, dtype=torch.int64))
+    return {"Out": torch.where(hit[:, None], ins, torch.zeros_like(ins)),
+            "LossWeight": hit.to(torch.float32)[:, None],
+            "IndexMap": torch.stack([idx, idx], -1)}
+
+
+@register("positive_negative_pair", dp=refuses(
+    "it pairs the items of a query across the whole batch"))
+def positive_negative_pair(ctx):
+    """Among the item pairs of one QueryID with different labels, those
+    whose score order agrees with the label order (PositivePair),
+    disagrees (NegativePair) or ties in score (NeutralPair), f32 (1,),
+    added to the Accumulate* inputs where given."""
+    score = ctx.in_("Score").reshape(-1)
+    label = ctx.in_("Label").reshape(-1).to(score.dtype)
+    qid = ctx.in_("QueryID").reshape(-1)
+    n = score.shape[0]
+    upper = torch.ones((n, n), dtype=torch.bool,
+                       device=score.device).triu(1)
+    pair = (qid[:, None] == qid[None, :]) & upper & \
+        (label[:, None] != label[None, :])
+    s_diff = score[:, None] - score[None, :]
+    agree = torch.sign(s_diff) == torch.sign(label[:, None] - label[None, :])
+    tie = s_diff == 0.0
+    pos = (pair & agree & ~tie).sum().float()
+    neu = (pair & tie).sum().float()
+    neg = (pair & ~agree & ~tie).sum().float()
+    if ctx.has_in("AccumulatePositivePair"):
+        pos = pos + ctx.in_("AccumulatePositivePair").reshape(())
+        neg = neg + ctx.in_("AccumulateNegativePair").reshape(())
+        neu = neu + ctx.in_("AccumulateNeutralPair").reshape(())
+    return {"PositivePair": pos.reshape(1), "NegativePair": neg.reshape(1),
+            "NeutralPair": neu.reshape(1)}

@@ -126,8 +126,8 @@ def op_twin(op, ins, attrs, slot, grad=(), seed=0):
     tout = TREG[op](_TCtx(tins, attrs))[slot]
     grads = {}
     if grad:
-        cot = np.random.RandomState(seed).randn(
-            *np.shape(jout)).astype(np.float32)
+        cot = np.asarray(np.random.RandomState(seed).randn(
+            *np.shape(jout)), np.float32)
 
         def f(*xs):
             j2 = dict(jins, **dict(zip(grad, xs)))

@@ -11,8 +11,8 @@ drawn by different generators, C16); DCGAN's first D and G steps under
 Adam give JAX's. The twins of ``tests/models/test_model_zoo.py:76, 89,
 230, 273, 363, 381`` (VGG-16 steps, word2vec trains and shares one
 table, DCGAN alternates, fit_a_line converges, MobileNet v1 learns a
-batch, v2 steps), ``tests/models/test_deeplab.py`` (overfits; mean IoU
-from the fetched logits, as ``layers.mean_iou`` is not ported yet),
+batch, v2 steps), ``tests/models/test_deeplab.py`` (overfits; the mean IoU
+of ``layers.argmax`` + ``layers.mean_iou`` in the Program),
 ``test_tsm.py`` and ``test_simnet.py`` run the port alone. The dp twins:
 MobileNet-v2 (its batch norms take the global batch's statistics) and
 TSM at dp 2 against dp 1 on a local CPU mesh, and TSM's refusal where a
@@ -419,28 +419,38 @@ def test_mobilenet_v2_builds_and_steps():
 def test_deeplab_overfits_fixed_batch():
     """tests/models/test_deeplab.py: quadrant masks on a batch of 2 at
     16 x 16, 4 classes, base_filters 8, 80 Adam(3e-3) steps: the last
-    loss below 0.05x the first and the mean IoU of the fetched logits'
-    argmax above 0.95."""
+    loss below 0.05x the first and the mean IoU that layers.argmax of the
+    transposed logits and layers.mean_iou give in the Program above 0.95,
+    equal to a numpy mean IoU of the same logits' argmax."""
     rng = np.random.RandomState(1)
     b, nc, h, w = 2, 4, 16, 16
     imgs = rng.rand(b, 3, h, w).astype(np.float32)
     yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     base = (yy // (h // 2)) * 2 + (xx // (w // 2))
     masks = np.stack([base % nc, (base + 1) % nc]).astype(np.int64)
-    main, startup, out = _fresh(lambda: deeplab.build_train_net(
-        img_shape=(3, h, w), num_classes=nc, base_filters=8))
-    _images_, _label, loss, logits = out
-    losses, scope, exe = _train(main, startup, lambda i: {
-        "pixels": imgs, "label": masks}, loss, 80,
-        fluid.optimizer.AdamOptimizer(3e-3))
+
+    def build():
+        images, label, loss, logits = deeplab.build_train_net(
+            img_shape=(3, h, w), num_classes=nc, base_filters=8)
+        pred = tlayers.transpose(logits, [0, 2, 3, 1])
+        miou, _, _ = tlayers.mean_iou(
+            tlayers.reshape(tlayers.argmax(pred, axis=-1), [-1, h, w]),
+            label, nc)
+        return loss, logits, miou
+
+    main, startup, (loss, logits, miou) = _fresh(build)
+    feed = {"pixels": imgs, "label": masks}
+    losses, scope, exe = _train(main, startup, lambda i: feed, loss, 80,
+                                fluid.optimizer.AdamOptimizer(3e-3))
     assert losses[-1] < 0.05 * losses[0], (losses[0], losses[-1])
-    lg, = exe.run(main.clone(for_test=True), feed={"pixels": imgs,
-                                                   "label": masks},
-                  fetch_list=[logits], scope=scope)
+    lg, mv = exe.run(main.clone(for_test=True), feed=feed,
+                     fetch_list=[logits, miou], scope=scope)
     pred = lg.argmax(1)
     ious = [((pred == c) & (masks == c)).sum()
             / max(((pred == c) | (masks == c)).sum(), 1) for c in range(nc)]
-    assert np.mean(ious) > 0.95, ious
+    assert float(np.ravel(mv)[0]) > 0.95, mv
+    np.testing.assert_allclose(float(np.ravel(mv)[0]), np.mean(ious),
+                               rtol=1e-6)
 
 
 def _shift_ref(x, seg_num, ratio):
