@@ -601,6 +601,40 @@ backward kernels are printed):
    the MSRA, TruncatedNormal, Bilinear and NumpyArray initializers at a
    ResNet-50 conv weight's shape (Bilinear and NumpyArray exact). Phases
    31-32d launch no attention kernel (gated at 0).
+33. QAT MobileNet-v1 at phase 31b's ImageNet recipe (224², 1000 classes,
+   batch 64, Momentum(0.1, 0.9), L2 4e-5): ``quant.QuantizationTransform``
+   before minimize, 8 steps: the loss falls, 0 host syncs in a dispatch,
+   the image's moving-average scale numpy's recurrence after each step;
+   then ``QuantizationFreezePass`` and ``ConvertToInt8Pass``: the frozen
+   output bitwise the test-mode QAT clone's, every int8 weight numpy's;
+   step p50, device ms, operations and the fake-quant share beside 31b's
+   float v1;
+33b. one QAT step at MN_AGREE on the card and on the CPU from one
+   startup: each rounding flip between the devices shown to be one and
+   the CPU step rerun on the card's codes there, then held to 31b's
+   tolerances;
+33c. PTQ ResNet-50 at 224²: ``calibrate_program`` over 4 batches of 16
+   (each scale numpy's max|act|, exactly; the card's scales the CPU's
+   within 1e-4), ``apply_ptq`` at both weight granularities, the card's
+   logits within 4 units of the last layer's quantization step of the
+   CPU's; float and PTQ forward ms, the PTQ logits' error and top-1
+   agreement against float;
+33d. the word2vec N-gram trunk at the One Billion Word Benchmark's
+   793,471 words under four heads (the model's full softmax, ``layers.
+   nce`` with 64 log-uniform negatives, ``layers.hsigmoid``'s depth-20
+   tree, ``layers.sampled_softmax_with_cross_entropy`` with 8192
+   samples), batch 512, Adam, 6 steps each: the loss falls (NCE's cost
+   on the first step's draws), 0 syncs, the first step's cost within 1e-5
+   of float64 numpy's on the op's own draws; 2^20 log-uniform draws on
+   the card within a KS distance of 4e-3 of the Zipf CDF;
+33e. every op of the slice (the 11 quant ops, the samplers through their
+   score halves on given draws, hsigmoid, the 5 match ops at
+   MatchPyramid's and TBCNN's sizes) on the card against the CPU, 0 host
+   syncs each; ``slim.Pruner`` at 50 % on MobileNet-v1 (pruned entries
+   exactly 0 through 3 Momentum steps), and a ResNet-50 teacher merged
+   into a MobileNet-v1 student by ``slim.merge_programs`` (3 steps of
+   soft-label distillation at T 4: the teacher's persistables bitwise
+   unchanged). Phases 33-33e launch no attention kernel (gated at 0).
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -635,7 +669,7 @@ of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
 20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's,
-29-29c's, 30-30c's, 31-31g's and 32-32d's gated 0s,
+29-29c's, 30-30c's, 31-31g's, 32-32d's and 33-33e's gated 0s,
 with 16b/16c/17/19b/19c/20d/21b/21c/24/24b/26's errors in
 ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
@@ -936,7 +970,7 @@ SRL_WORD_DIM, SRL_MARK_DIM = 32, 5
 SRL_HIDDEN, SRL_DEPTH = 512, 8
 SRL_BATCH, SRL_LEN = 32, 32         # sentences, their padded length
 SRL_LR = 1e-3
-SRL_STEPS = 30
+SRL_STEPS = 15
 SRL_PROFILE_STEPS = 1                # a profiled step holds ~15,000 ops
 SRL_CHUNK_TYPES = 29                # IOB over conll05's 59 labels
 SRL_NLL_FLOOR = 1e-4                # a row's NLL >= -this x |gold score|
@@ -958,7 +992,7 @@ OCR_HIDDEN = 200
 OCR_FILTERS = 16
 OCR_BATCH = 32
 OCR_LR = 1e-3
-OCR_STEPS = 40
+OCR_STEPS = 20
 OCR_PROFILE_STEPS = 1
 OCR_MARGIN = 0.5                    # the last loss below this x the first
 OCR_CTC_RTOL = 1e-4                 # warpctc against F.ctc_loss
@@ -966,7 +1000,7 @@ OCR_CTC_RTOL = 1e-4                 # warpctc against F.ctc_loss
 SENT_EMB, SENT_HID, SENT_STACK = 128, 512, 3
 SENT_LEN, SENT_BATCH = 128, 128
 SENT_LR = 1e-3
-SENT_STEPS = 20
+SENT_STEPS = 8
 SENT_PROFILE_STEPS = 1
 REC_BATCH = 256
 REC_LR = 1e-3
@@ -1082,6 +1116,80 @@ MIOU_IGNORE = 0.05
 # standard deviation within DRAW_STD_RTOL
 INIT_SHAPE = (512, 512, 3, 3)
 MEAN_SE, DRAW_STD_RTOL = 5.0, 1e-2
+# phases 33-33e: the quant, sampling and match ops with quant/ and slim/.
+# 33: QAT MobileNet-v1 at phase 31b's recipe (ImageNet width: 224², 1000
+# classes, batch 64, Momentum(0.1, 0.9), L2 4e-5, f32; PaddleSlim's
+# ImageNet quantization demos train it), QAT_STEPS steps on one seeded
+# batch: quant.QuantizationTransform() before minimize (channel-wise
+# abs-max on the conv and depthwise filters, per tensor on the fc,
+# moving-average abs-max at rate 0.9 on the activations, 8/8 bits)
+QAT_STEPS, QAT_PROFILE_STEPS = 8, 2
+# the image's moving-average scale against numpy's f32 recurrence
+# s <- 0.9 s + 0.1 max|img| (the op's three f32 operations, unfused)
+QAT_SCALE_RTOL = 1e-6
+# the frozen program's output against the test-mode QAT clone's on one
+# batch: bitwise (0). The freeze hands each activation's quantize-
+# dequantize the moving average's own f32 value as its static scale (a
+# Python float holds it exactly) and re-installs the same weight ops
+# (channel-wise on the filters, per tensor on the fc) at the same attrs,
+# so every op of the frozen program computes the same f32 function of
+# the same inputs as the clone's; cuDNN's and cuBLAS's forward kernels
+# give the same bits for the same shapes and inputs
+QAT_FREEZE_TOL = 0.0
+# 33b: where the two devices' codes differ, each differing value's
+# distance from its code's half-way point: the inputs agree within
+# OPS_FWD_TOL of their largest (at most the scale), so a value v = 127
+# |x| / s moves by at most 127 x 2 x OPS_FWD_TOL between them
+QAT_FLIP_EPS = 127 * 2 * OPS_FWD_TOL
+# 33c: PTQ ResNet-50 inference at 224², 1000 classes: calibration over
+# PTQ_CALIB seeded batches of PTQ_CALIB_BATCH, the card's PTQ logits at
+# batch PTQ_BATCH against the CPU's in units of the last layer's
+# quantization step. A logit j moves by (s / 127) sum_i W_ij k_i where
+# the two devices' quantized fc inputs differ by k_i steps (s the fc
+# input's static scale, rounding flips cascading from earlier layers);
+# with every input one step off at random sign its standard deviation is
+# u_j = (s / 127) ||W_:j||_2, so |delta logit_j| within PTQ_UNITS u_j
+# (a wrong scale or rewrite moves the logits by their own size, ~100
+# units; a CPU rehearsal with 1e-6 relative noise on the image moved
+# them 1.47 units)
+PTQ_CALIB, PTQ_CALIB_BATCH, PTQ_BATCH = 4, 16, 4
+PTQ_UNITS = 4.0
+# 33c: the scales calibrate_program takes on the card against those it
+# takes on the CPU over the same batch of PTQ_BATCH, relative. The two
+# float forwards differ by summation order only: on the CPU, ResNet-50
+# (at 64², batch 2) calibrated at 1 thread against 4 moved its 50 scales
+# by 7.3e-7 at most, with 1e-6 relative noise on the image by 1.7e-6;
+# cuDNN's f32 algorithms (Winograd, FFT) may round up to ten times worse
+# a layer. A wrong calibration (a missed batch, a mean for a max, the
+# wrong activation) moves a scale by percents
+PTQ_SCALE_RTOL = 1e-4
+PTQ_TIMED = 10
+# 33d: the large-vocabulary heads at the One Billion Word Benchmark's
+# vocabulary (Chelba et al., 2013: 793,471 words) on models/word2vec.py's
+# N-gram trunk at its widths (4 context words, a shared embedding of 32,
+# hidden 256, sigmoid), batch 512, Adam 1e-3, f32, HEAD_STEPS steps a
+# head on one seeded batch of log-uniform (Zipfian) ids: the model's
+# full softmax, NCE with 64 log-uniform negatives, hsigmoid's default
+# tree (depth 20), the sampled softmax with 8192 samples (Jozefowicz et
+# al., 2016)
+LM_VOCAB, LM_BATCH, LM_LR = 793_471, 512, 1e-3
+HEAD_STEPS = 6
+NCE_NEG, SSM_SAMPLES = 64, 8192
+HEAD_COST_RTOL = 1e-5               # the first step's cost vs float64
+# the log-uniform sampler's draws on the card: a KS distance of about 4
+# / sqrt(n) at n = 2^20, which a correct sampler passes with near
+# certainty
+KS_DRAWS, KS_TOL = 1 << 20, 4e-3
+# 33e: MatchPyramid's pair (query 32 x title 128 tokens, embed 128,
+# channel_num 4; var_conv_2d 4 -> 8 at 3 x 3, stride 1 and 2; topks (1,
+# 3, 5, 10)), TBCNN (4 trees of 256 nodes, feature 64, output 64,
+# max_depth 2 and 3); slim.Pruner at 50 % on MobileNet-v1's conv filters
+# over 3 Momentum steps; a ResNet-50 teacher distilled into a
+# MobileNet-v1 student at 224², batch 32, soft_label_loss at T 4, 3 steps
+MP_QUERY, MP_TITLE, MP_EMBED, MP_CHANNELS = 32, 128, 128, 4
+TB_TREES, TB_NODES, TB_FEATURE, TB_OUT = 4, 256, 64, 64
+PRUNE_RATIO, PRUNE_STEPS = 0.5, 3
+DISTILL_BATCH, DISTILL_STEPS, DISTILL_T = 32, 3, 4.0
 # phases 26-26c: ERNIE-base (phase 16's program) under guarded
 # asynchronous training: GUARD_STEPS steps of distinct ERNIE feeds, the
 # async window GUARD_WINDOW, a checkpoint every GUARD_CKPT_EVERY steps, a
@@ -11087,7 +11195,7 @@ class _CardCtx(_OpArgs):
     def is_sharded(self, slot):
         return False
 
-    def rng(self):
+    def rng(self, shared=False):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
         return gen
@@ -11255,12 +11363,20 @@ def _op_out(out):
     return out
 
 
-def _op_call(op, ins, attrs, slot, grad, device, cot=None):
-    """The op's `slot` on `device` (numpy) and, with `cot`, the gradients
-    of sum(out x cot) with respect to the `grad` inputs."""
+def _registry_op(name):
+    """The registry's op a case names: its name's first word (a case such
+    as "var_conv_2d stride 2" is one of several of one op)."""
     from paddle_tpu_torch.ops import _REGISTRY
+    return _REGISTRY[name.split()[0]]
+
+
+def _op_call(op, ins, attrs, slot, grad, device, cot=None, call=None):
+    """The op's `slot` on `device` (numpy) and, with `cot`, the gradients
+    of sum(out x cot) with respect to the `grad` inputs. `call` (a
+    function of the op's context) runs in place of the registry's op."""
     t = _op_inputs(ins, grad, device, cot is not None)
-    out = _op_out(_REGISTRY[op](_CardCtx(t, attrs, device))[slot])
+    out = _op_out((call or _registry_op(op))(_CardCtx(t, attrs,
+                                                      device))[slot])
     grads = []
     if cot is not None and grad:
         leaves = [e for k in grad for e in (t[k] if isinstance(t[k], list)
@@ -11274,11 +11390,10 @@ def _op_call(op, ins, attrs, slot, grad, device, cot=None):
 def _op_syncs(op, ins, attrs, device="cuda"):
     """The host syncs torch reported in one call of the op on the card,
     its inputs made there first."""
-    from paddle_tpu_torch.ops import _REGISTRY
     t = _op_inputs(ins, (), device, False)
     torch.cuda.synchronize()
-    _, where = _count_syncs(lambda: _REGISTRY[op](_CardCtx(t, attrs,
-                                                           device)))
+    _, where = _count_syncs(lambda: _registry_op(op)(_CardCtx(t, attrs,
+                                                              device)))
     torch.cuda.synchronize()
     return where
 
@@ -11342,20 +11457,24 @@ def _random_op_checks(device):
     return notes
 
 
-def _ops_card_vs_cpu(tag, cases):
+def _ops_card_vs_cpu(tag, cases, calls=None):
     """Each op of `cases` ({op: (inputs, attrs, slot, grad slots)}) on
     the card against the same op on the CPU from one seeded input,
     forward and the gradient of one seeded cotangent (OPS_FWD_TOL /
     OPS_GRAD_TOL of the output's / the gradient's largest magnitude;
-    integer and bool outputs equal). Returns {op: [forward, gradient]}."""
+    integer and bool outputs equal). `calls` ({op: function of the op's
+    context}) runs a case through its function in place of the
+    registry's op. Returns {op: [forward, gradient]}."""
     errs = {}
     for op, (ins, attrs, slot, grad) in cases.items():
-        cpu, _ = _op_call(op, ins, attrs, slot, grad, "cpu")
+        call = (calls or {}).get(op)
+        cpu, _ = _op_call(op, ins, attrs, slot, grad, "cpu", call=call)
         floating = np.issubdtype(cpu.dtype, np.floating)
         cot = np.asarray(np.random.RandomState(SEED + 37).randn(
             *cpu.shape), np.float32) if floating else None
-        cpu, cpu_g = _op_call(op, ins, attrs, slot, grad, "cpu", cot)
-        card, card_g = _op_call(op, ins, attrs, slot, grad, "cuda", cot)
+        cpu, cpu_g = _op_call(op, ins, attrs, slot, grad, "cpu", cot, call)
+        card, card_g = _op_call(op, ins, attrs, slot, grad, "cuda", cot,
+                                call)
         if card.shape != cpu.shape or card.dtype != cpu.dtype:
             _fail(f"{tag} {op}: {card.shape} {card.dtype} on the card, "
                   f"{cpu.shape} {cpu.dtype} on the CPU")
@@ -12076,6 +12195,879 @@ def phase_metric_all(flash, paged):
     return total, recs
 
 
+# ---------------------------------------------------------------------------
+# phases 33-33e: the quant, sampling and match ops with quant/ and slim/
+# ---------------------------------------------------------------------------
+
+def _qat_mobilenet(image, classes, width_mult=1.0):
+    """MobileNet-v1 (phase 31b's recipe) with quant.QuantizationTransform
+    applied before minimize (channel-wise abs-max on the conv and
+    depthwise filters, per tensor on the fc, moving-average abs-max on
+    the activations, 8/8 bits): (main, startup, loss, the test-mode clone
+    of the QAT forward, the prediction)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.models import mobilenet
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 33
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _img, _lab, pred, loss, _a1, _a5 = mobilenet.build_train_net(
+            version=1, class_dim=classes, image_shape=image,
+            width_mult=width_mult)
+        quant.QuantizationTransform().apply(main, startup)
+        test = main.clone(for_test=True)
+        _vision_momentum(MN_LR, MN_DECAY)(fluid).minimize(loss)
+    return main, startup, loss, test, pred
+
+
+def _int8_exact(scope, names):
+    """Each `{name}.int8` in the scope against numpy's clip(round_half_
+    even(w / max|w| x 127), -128, 127) of the fetched float weight:
+    (how many, how many differ)."""
+    checked = bad = 0
+    for n in names:
+        q = scope.get(n + ".int8")
+        if q is None:
+            continue
+        w = scope.get(n).cpu().numpy()
+        want = np.clip(np.round(w / np.abs(w).max() * np.float32(127.0)),
+                       -128, 127)
+        checked += 1
+        bad += int(q.dtype != torch.int8 or
+                   not np.array_equal(q.cpu().numpy(), want))
+    return checked, bad
+
+
+def phase_qat_mobilenet(v1_rec=None):
+    """Phase 33: QAT MobileNet-v1 at ImageNet width (_qat_mobilenet at
+    phase 31b's 224², 1000 classes, batch 64), QAT_STEPS Momentum steps
+    on one seeded batch. Gates: every loss finite and the last 3 below
+    the first 3; after each step the image's moving-average scale within
+    QAT_SCALE_RTOL of numpy's f32 recurrence s <- 0.9 s + 0.1 max|img|
+    from 1; 0 host syncs in a dispatch. Then QuantizationFreezePass and
+    ConvertToInt8Pass on a copy of the test-mode clone: the frozen
+    program's output within QAT_FREEZE_TOL of the clone's on one batch,
+    every conv and fc weight's int8 exactly numpy's. Records step p50,
+    device ms and operations, the fake-quant ops' share of the forward's
+    device time, beside phase 31b's float v1 step (`v1_rec`)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import slim
+    main, startup, loss, test, pred = _qat_mobilenet(MNV2_IMAGE,
+                                                     MNV2_CLASSES)
+    feed = _images_feed(MNV2_BATCH, MNV2_IMAGE, MNV2_CLASSES)
+    img_max = np.float32(np.abs(feed["img"].cpu().numpy()).max())
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = np.float32(1.0)
+    losses, ms, scale_errs = [], [], []
+    for _ in range(QAT_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, "img.quant_scale"],
+                      scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        s = np.float32(0.9) * s + np.float32(0.1) * img_max
+        losses.append(float(np.ravel(out[0])[0]))
+        scale_errs.append(abs(float(np.ravel(out[1])[0]) - float(s))
+                          / float(s))
+    peak = torch.cuda.max_memory_allocated()
+    syncs = _dispatch_syncs(exe, main, feed, [loss], scope)
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), QAT_PROFILE_STEPS)
+    by_op = prof["device_ms_per_step_by_op"]
+    fq_ms = sum(v for k, v in by_op.items() if "quantize" in k)
+    frozen = test.clone()
+    slim.QuantizationFreezePass(scope).apply(frozen)
+    batch = {"img": feed["img"]}
+    qat_out = exe.run(test, feed=batch, fetch_list=[pred], scope=scope)[0]
+    frz_out = exe.run(frozen, feed=batch, fetch_list=[pred], scope=scope)[0]
+    freeze_err = float(np.abs(frz_out - qat_out).max())
+    slim.ConvertToInt8Pass(scope).apply(frozen)
+    weights = [p.name for p in test.all_parameters()
+               if len(p.shape) in (2, 4)]
+    checked, bad = _int8_exact(scope, weights)
+    rec = _seq_record(
+        "qat_mobilenet_v1", f"QuantizationTransform() on mobilenet."
+        f"build_train_net(version=1, class_dim={MNV2_CLASSES}, image_shape="
+        f"{MNV2_IMAGE}), Momentum({MN_LR}, {MN_MOMENTUM}), L2Decay("
+        f"{MN_DECAY}), f32", MNV2_BATCH, ms, peak, prof,
+        ops=len(main.global_block().ops), losses=losses,
+        img_scale_rel_err_max=max(scale_errs), img_max=float(img_max),
+        syncs_in_a_training_dispatch=len(syncs),
+        fake_quant_ops=sum(op.type.startswith("fake_")
+                           for op in main.global_block().ops),
+        fake_quant_device_ms_per_step_forward=fq_ms,
+        fake_quant_share_of_device=fq_ms / prof["device_ms_per_step"],
+        freeze_max_abs_diff=freeze_err, int8_weights=checked,
+        int8_mismatches=bad, float_v1_31b={
+            k: (v1_rec or {}).get(k) for k in (
+                "step_ms_p50", "device_ms_per_step", "device_ops_per_step",
+                "ops")})
+    if not _falls(losses):
+        _fail(f"33: losses not finite or not falling: {losses}")
+    if max(scale_errs) > QAT_SCALE_RTOL:
+        _fail(f"33: the image's EMA scale off numpy's recurrence by "
+              f"{max(scale_errs)}")
+    if syncs:
+        _fail(f"33: host syncs in a training dispatch: {syncs}")
+    if freeze_err > QAT_FREEZE_TOL:
+        _fail(f"33: the frozen output off the QAT clone's by {freeze_err}")
+    if bad or checked != len(weights):
+        _fail(f"33: int8 weights: {checked} of {len(weights)} converted, "
+              f"{bad} not numpy's")
+    return rec
+
+
+def _quant_codes(out, scale):
+    """A fake quant-dequant output's integer codes: round(out x 127 /
+    scale)."""
+    return np.round(np.asarray(out, np.float64) * 127.0
+                    / float(np.ravel(scale)[0])).astype(np.int64)
+
+
+QAT_ACT_OP = "fake_quantize_dequantize_moving_average_abs_max"
+
+
+def _pin_outs(pins):
+    """Make the registry's QAT_ACT_OP give each op whose Out is a key of
+    `pins` that value forward (its own Out plus the detached difference,
+    so its gradient stays its own). Returns a function that undoes it."""
+    from paddle_tpu_torch.ops import _REGISTRY
+    impl = _REGISTRY[QAT_ACT_OP]
+
+    def pinned(ctx):
+        outs = impl(ctx)
+        want = pins.get(ctx.op.output("Out")[0])
+        if want is None:
+            return outs
+        out = outs["Out"]
+        return dict(outs, Out=out + (want.to(out.device) - out).detach())
+
+    _REGISTRY[QAT_ACT_OP] = pinned
+    return lambda: _REGISTRY.__setitem__(QAT_ACT_OP, impl)
+
+
+def _first_flip(qops, card, cpu):
+    """The first quantize op whose codes differ between the card's and the
+    CPU's fetched (X, Out, OutScale) triples: (its index, a record of the
+    flip), or (None, None)."""
+    for i in range(len(qops)):
+        xc, oc, sc = card[3 * i: 3 * i + 3]
+        xp, op_, sp = cpu[3 * i: 3 * i + 3]
+        kc, kp = _quant_codes(oc, sc), _quant_codes(op_, sp)
+        if np.array_equal(kc, kp):
+            continue
+        diff = kc != kp
+        s = float(np.ravel(sp)[0])
+        v = np.clip(np.abs(xp.astype(np.float64)), 0, s) * 127.0 / s
+        half = np.abs(v - np.floor(v) - 0.5)[diff]
+        return i, {"op": i, "input": qops[i].input("X")[0],
+                   "codes_differing": int(diff.sum()), "of": int(kc.size),
+                   "code_diff_max": int(np.abs(kc - kp).max()),
+                   "input_err_of_max": _op_rel_err(xc, xp),
+                   "half_way_distance_max": float(half.max())}
+    return None, None
+
+
+def phase_qat_agree():
+    """Phase 33b: one QAT step of MobileNet-v1 at MN_AGREE on the card
+    and on the CPU from one CPU startup: the loss within VISION_LOSS_TOL
+    and every trainable parameter's @GRAD within VISION_GRAD_TOL of the
+    step's largest. A rounding flip (a value on a code's half-way point
+    that the two devices' summation orders put on either side) moves the
+    next layers' inputs by a whole quantization step, far past these
+    tolerances. So the CPU step runs again, with the first quantize op
+    whose codes differ given the card's Out (_pin_outs), until no codes
+    differ; each such op must have inputs within OPS_FWD_TOL of the
+    card's, every differing code off by one, and each such value within
+    QAT_FLIP_EPS of a half-way point (a genuine flip). The last CPU run,
+    on the card's codes throughout, is held to the tolerances."""
+    import paddle_tpu_torch as fluid
+    a = MN_AGREE
+    main, startup, loss, _test, _pred = _qat_mobilenet(
+        a["image"], 10, a["width_mult"])
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    qops = [op for op in main.global_block().ops if op.type == QAT_ACT_OP]
+    watch = [n for op in qops for n in (
+        op.input("X")[0], op.output("Out")[0], op.output("OutScale")[0])]
+    grads = [p + "@GRAD" for p in params]
+    feed = _np_feed(_images_feed(a["batch"], a["image"], 10, "cpu"))
+    base = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=base)
+    n = 1 + len(grads)
+
+    def step(place, pins):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for nm in base.names():
+            scope.set(nm, base.get(nm).to(exe.device, copy=True))
+        undo = _pin_outs(pins)
+        try:
+            return exe.run(main, feed=feed, scope=scope,
+                           fetch_list=[loss] + grads + watch)
+        finally:
+            undo()
+
+    def errs(card, cpu):
+        ref = float(np.ravel(cpu[0])[0])
+        gmax = max(float(np.abs(h).max()) for h in cpu[1:n])
+        return (abs(float(np.ravel(card[0])[0]) - ref) / abs(ref),
+                max(float(np.abs(g - h).max()) for g, h in
+                    zip(card[1:n], cpu[1:n])) / gmax)
+
+    card = step(fluid.CUDAPlace(0), {})
+    pins, flips, genuine = {}, [], True
+    cpu = step(fluid.CPUPlace(), pins)
+    unpinned = errs(card, cpu)
+    while genuine:
+        i, flip = _first_flip(qops, card[n:], cpu[n:])
+        if i is None:
+            break
+        flips.append(flip)
+        name = qops[i].output("Out")[0]
+        genuine = (name not in pins
+                   and flip["input_err_of_max"] <= OPS_FWD_TOL
+                   and flip["code_diff_max"] == 1
+                   and flip["half_way_distance_max"] <= QAT_FLIP_EPS)
+        pins[name] = torch.from_numpy(card[n + 3 * i + 1])
+        if genuine:
+            cpu = step(fluid.CPUPlace(), pins)
+    loss_err, gerr = errs(card, cpu)
+    rec = {"config": f"QAT v1 at {a}", "loss": float(np.ravel(cpu[0])[0]),
+           "loss_rel_err": loss_err, "grads": len(grads),
+           "grad_worst_of_step_scale": gerr, "quantize_ops": len(qops),
+           "rounding_flips": flips, "cpu_runs": 1 + len(flips),
+           "before_the_card_codes": {"loss_rel_err": unpinned[0],
+                                     "grad_worst_of_step_scale":
+                                         unpinned[1]},
+           "card": _card_line()}
+    print("qat_mobilenet_v1 agree " + json.dumps(rec))
+    if not genuine:
+        _fail(f"33b: codes differ but not by a rounding flip: {flips[-1]}")
+    if not (loss_err <= VISION_LOSS_TOL and gerr <= VISION_GRAD_TOL):
+        _fail(f"33b: the card against the CPU on the card's codes: {rec}")
+    return rec
+
+
+def _fc_of_softmax(program):
+    """The logits (the last softmax's input) and the fc feeding it: (the
+    logits' name, the mul's input and weight names)."""
+    ops = program.global_block().ops
+    sm = [op for op in ops if op.type == "softmax"][-1]
+    mul = [op for op in ops if op.type == "mul"][-1]
+    return sm.input("X")[0], mul.input("X")[0], mul.input("Y")[0]
+
+
+def _cpu_scope(scope):
+    import paddle_tpu_torch as fluid
+    out = fluid.Scope()
+    for n in scope.names():
+        out.set(n, scope.get(n).to("cpu", copy=True))
+    return out
+
+
+def phase_ptq_resnet():
+    """Phase 33c: PTQ ResNet-50 inference at 224², 1000 classes (the
+    test-mode clone of resnet.resnet from a seeded startup):
+    calibrate_program over PTQ_CALIB seeded batches of PTQ_CALIB_BATCH,
+    then apply_ptq at each weight granularity. Gates: every scale equals
+    numpy's max|act| over the activations fetched again, exactly; the
+    scales calibrated on the card over the batch of PTQ_BATCH within
+    PTQ_SCALE_RTOL of those calibrated on the CPU from a copy of the
+    scope; the card's PTQ logits at batch PTQ_BATCH within PTQ_UNITS of
+    the CPU's (both from the card's scales),
+    in units of the last layer's quantization step (u_j = s / 127
+    ||W_:j||). Records the float and PTQ forward ms (p50 over PTQ_TIMED
+    batches of PTQ_CALIB_BATCH), the PTQ logits' relative error and top-1
+    agreement against the float ones."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 34
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=list(RESNET_IMAGE),
+                                dtype="float32")
+        resnet.resnet(img, class_dim=RESNET_CLASSES, depth=RESNET_DEPTH)
+    infer = main.clone(for_test=True)
+    logits, fc_in, fc_w = _fc_of_softmax(infer)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [{"img": _images_feed(PTQ_CALIB_BATCH, RESNET_IMAGE,
+                                  RESNET_CLASSES, seed=SEED + 34 + k)["img"]}
+             for k in range(PTQ_CALIB)]
+    with fluid.scope_guard(scope):
+        scales = quant.calibrate_program(exe, infer, feeds)
+    names = quant.ptq.collect_activation_names(infer)
+    want = {n: 0.0 for n in names}
+    for f in feeds:
+        for n, v in zip(names, exe.run(infer, feed=f, fetch_list=names,
+                                       scope=scope)):
+            want[n] = max(want[n], float(np.max(np.abs(v))))
+    scale_bad = [n for n in names if scales[n] != want[n]]
+    batch = {"img": feeds[0]["img"][:PTQ_BATCH]}
+    cpu_batch = {"img": batch["img"].cpu()}
+    fp32 = exe.run(infer, feed=batch, fetch_list=[logits], scope=scope)[0]
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), _cpu_scope(scope)
+    with fluid.scope_guard(scope):
+        card_sc = quant.calibrate_program(exe, infer, [batch])
+    with fluid.scope_guard(cpu_scope):
+        cpu_sc = quant.calibrate_program(cpu_exe, infer, [cpu_batch])
+    scale_err = {n: abs(card_sc[n] - cpu_sc[n]) / cpu_sc[n] for n in names}
+    worst = max(scale_err, key=scale_err.get)
+    w = scope.get(fc_w).double().cpu().numpy()
+    units = scales[fc_in] / 127.0 * np.sqrt((w * w).sum(0))
+    recs = {}
+    for gran in ("tensor", "channel"):
+        prog = infer.clone()
+        quant.apply_ptq(prog, scales, weight_granularity=gran)
+        card = exe.run(prog, feed=batch, fetch_list=[logits], scope=scope)[0]
+        cpu = cpu_exe.run(prog, feed=cpu_batch, fetch_list=[logits],
+                          scope=cpu_scope)[0]
+        in_units = float((np.abs(card.astype(np.float64) - cpu)
+                          / units[None]).max())
+        full = {"img": feeds[0]["img"]}
+        _, f_ms = _timed_steps(exe, infer, full, [logits], scope, PTQ_TIMED)
+        _, q_ms = _timed_steps(exe, prog, full, [logits], scope, PTQ_TIMED)
+        recs[gran] = {
+            "ops": len(prog.global_block().ops),
+            "card_vs_cpu_in_units_max": in_units,
+            "ptq_vs_fp32_rel_err": float(np.linalg.norm(card - fp32)
+                                         / np.linalg.norm(fp32)),
+            "top1_agreement_vs_fp32": float(
+                (card.argmax(1) == fp32.argmax(1)).mean()),
+            "fp32_forward_ms_p50": float(np.percentile(f_ms, 50)),
+            "ptq_forward_ms_p50": float(np.percentile(q_ms, 50))}
+        if not in_units <= PTQ_UNITS:
+            _fail(f"33c {gran}: the card's PTQ logits off the CPU's by "
+                  f"{in_units} units of the last layer's step")
+    rec = {"config": f"resnet.resnet(depth={RESNET_DEPTH}, class_dim="
+                     f"{RESNET_CLASSES}) at {RESNET_IMAGE}, test mode, "
+                     f"calibrate_program over {PTQ_CALIB} x "
+                     f"{PTQ_CALIB_BATCH}, apply_ptq",
+           "calibrated": len(names), "scale_mismatches": len(scale_bad),
+           "scales_card_vs_cpu_worst": [worst, scale_err[worst]],
+           "fc_input_scale": scales[fc_in], "batch": PTQ_BATCH,
+           "timed_batch": PTQ_CALIB_BATCH, "by_granularity": recs,
+           "card": _card_line()}
+    print("ptq resnet50 " + json.dumps(rec))
+    if scale_bad:
+        _fail(f"33c: scales not numpy's max|act|: {scale_bad[:5]}")
+    if not scale_err[worst] <= PTQ_SCALE_RTOL:
+        _fail(f"33c: the card's scales off the CPU's: {worst} "
+              f"{scale_err[worst]}")
+    return rec
+
+
+def _zipf_ids(rng, shape, r):
+    """Log-uniform (Zipfian) ids in [0, r): word frequencies' shape."""
+    u = rng.random_sample(shape)
+    return np.clip((np.exp(u * np.log(r + 1.0)) - 1.0).astype(np.int64), 0,
+                   r - 1)
+
+
+def lm_feed(device="cuda", seed=SEED + 35):
+    """One seeded N-gram batch of LM_BATCH: word_0..3 and next_word (B,
+    1) int64, log-uniform over LM_VOCAB."""
+    rng = np.random.RandomState(seed)
+    return {name: torch.from_numpy(_zipf_ids(rng, (LM_BATCH, 1), LM_VOCAB))
+            .to(device) for name in ["word_0", "word_1", "word_2", "word_3",
+                                     "next_word"]}
+
+
+def _lm_program(head):
+    """models/word2vec.py's N-gram trunk (build_trunk) at LM_VOCAB with
+    `head` ("softmax": the model's own, build_train_net; "nce",
+    "hsigmoid", "sampled_softmax") under Adam(LM_LR): (main, startup,
+    loss, hidden, the head's op)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import word2vec
+    L = fluid.layers
+    vocab = LM_VOCAB
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 35
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if head == "softmax":
+            _w, _n, _pred, loss = word2vec.build_train_net(vocab)
+            hidden = main.global_block().var(next(
+                op for op in main.global_block().ops
+                if op.type == "sigmoid").output("Out")[0])
+        else:
+            _w, nxt, hidden = word2vec.build_trunk(vocab)
+            if head == "nce":
+                loss = L.mean(L.nce(hidden, nxt, vocab,
+                                    num_neg_samples=NCE_NEG,
+                                    sampler="log_uniform"))
+            elif head == "hsigmoid":
+                loss = L.mean(L.hsigmoid(hidden, nxt, vocab))
+            else:
+                loss = L.mean(L.sampled_softmax_with_cross_entropy(
+                    L.fc(hidden, vocab), nxt, SSM_SAMPLES))
+        fluid.optimizer.AdamOptimizer(LM_LR).minimize(loss)
+    op_type = {"softmax": "softmax", "nce": "nce",
+               "hsigmoid": "hierarchical_sigmoid",
+               "sampled_softmax": "sample_logits"}[head]
+    op = [o for o in main.global_block().ops if o.type == op_type][-1]
+    return main, startup, loss, hidden, op
+
+
+def _softplus64(x):
+    return np.logaddexp(0.0, x)
+
+
+def _log_uniform_q64(c, r):
+    c = np.asarray(c, np.float64)
+    return np.log1p(1.0 / (c + 1.0)) / np.log(r + 1.0)
+
+
+def _head_cost64(head, w, b, h, label, draws, vocab):
+    """The step's mean cost in float64 numpy from the head's weight and
+    bias as they were before the step (`w`, `b`: the card's copies, whose
+    needed rows or columns come to the host), the fetched hidden rows
+    `h`, the labels and the op's own draws."""
+    h = h.astype(np.float64)
+    lab = label.reshape(-1)
+
+    def rows(t, idx):
+        return t[torch.from_numpy(np.ascontiguousarray(idx)).to(
+            t.device)].double().cpu().numpy()
+
+    if head == "softmax":
+        logits = h @ w.double().cpu().numpy() + b.double().cpu().numpy()
+        mx = logits.max(1, keepdims=True)
+        lse = np.log(np.exp(logits - mx).sum(1)) + mx[:, 0]
+        return float((lse - logits[np.arange(len(lab)), lab]).mean())
+    if head == "nce":
+        neg = draws[0, 1:]
+        k = float(len(neg))
+        pos = (h * rows(w, lab)).sum(1) + rows(b, lab) - \
+            np.log(k * _log_uniform_q64(lab, vocab))
+        ng = h @ rows(w, neg).T + rows(b, neg)[None] - \
+            np.log(k * _log_uniform_q64(neg, vocab))[None]
+        return float((_softplus64(-pos) + _softplus64(ng).sum(1)).mean())
+    if head == "hsigmoid":
+        depth = max(int(vocab - 1).bit_length(), 1)
+        code = lab[:, None] + vocab
+        bits = np.arange(depth)[None]
+        node = (code >> (bits + 1)) - 1
+        bit = (code >> bits) & 1
+        nd = np.maximum(node, 0)
+        s = np.einsum("bd,bld->bl", h, rows(w, nd)) + rows(b, nd)
+        return float(np.where(node >= 0, _softplus64(s) - bit * s, 0.0)
+                     .sum(1).mean())
+    samples = draws[0, 1:]
+    idx = np.concatenate([lab[:, None], np.broadcast_to(
+        samples[None], (len(lab), len(samples)))], 1)
+    cols, inv = np.unique(idx, return_inverse=True)
+    sub = h @ rows(w.t(), cols).T + rows(b, cols)
+    picked = sub[np.arange(len(lab))[:, None], inv.reshape(idx.shape)]
+    picked = picked - np.log(_log_uniform_q64(idx, vocab) * len(samples)
+                             + 1e-20)
+    picked[:, 1:] += np.where(samples[None] == lab[:, None], -1e20, 0.0)
+    mx = picked.max(1, keepdims=True)
+    lse = np.log(np.exp(picked - mx).sum(1)) + mx[:, 0]
+    return float((lse - picked[:, 0]).mean())
+
+
+def _head_weights(head, op):
+    """The names of the head's weight and bias."""
+    if head in ("nce",):
+        return op.input("Weight")[0], op.input("Bias")[0]
+    if head == "hsigmoid":
+        return op.input("W")[0], op.input("Bias")[0]
+    return None
+
+
+def _fc_weights_before(program, logits_name):
+    """The fc producing `logits_name` (mul + elementwise_add): its weight
+    and bias names."""
+    ops = program.global_block().ops
+    add = next(o for o in ops if o.type == "elementwise_add"
+               and o.output("Out")[0] == logits_name)
+    mul = next(o for o in ops if o.type == "mul"
+               and o.output("Out")[0] == add.input("X")[0])
+    return mul.input("Y")[0], add.input("Y")[0]
+
+
+def phase_lm_head(head):
+    """One large-vocabulary head of phase 33d (_lm_program): HEAD_STEPS
+    Adam steps on one seeded batch of LM_BATCH. Gates: every loss finite
+    and the last 3 below the first 3 (NCE's: its cost on the first step's
+    draws, in float64 from the weights before each step); 0 host syncs
+    in a dispatch; the
+    first step's cost within HEAD_COST_RTOL of float64 numpy's from the
+    weights before that step, the fetched hidden rows and the op's own
+    draws (SampleLabels / Samples). Records step p50, device ms and
+    operations, peak memory."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss, hidden, op = _lm_program(head)
+    feed = lm_feed()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = _head_weights(head, op) or _fc_weights_before(
+        main, op.input("X" if head == "softmax" else "Logits")[0])
+    before = [scope.get(n).detach().clone() for n in names]
+    draws_var = {"nce": "SampleLabels", "sampled_softmax": "Samples"}.get(
+        head)
+    fetch = [loss, hidden] + ([op.output(draws_var)[0]] if draws_var
+                              else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    ms = [(time.perf_counter() - t0) * 1e3]
+    labels = feed["next_word"].cpu().numpy()
+    draws = first[2] if draws_var else None
+    want = _head_cost64(head, before[0], before[1], first[1], labels, draws,
+                        LM_VOCAB)
+    losses, falling = [float(np.ravel(first[0])[0])], [want]
+    for _ in range(HEAD_STEPS - 1):
+        if head == "nce":
+            before = [scope.get(n).detach().clone() for n in names]
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, hidden],
+                      scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.ravel(out[0])[0]))
+        if head == "nce":
+            # NCE's cost over each step's new draws spreads far past what
+            # 6 steps learn: its fall is read on the first step's draws,
+            # in float64 from the weights before each step
+            falling.append(_head_cost64(head, before[0], before[1], out[1],
+                                        labels, draws, LM_VOCAB))
+    del before
+    if head != "nce":
+        falling = losses
+    peak = torch.cuda.max_memory_allocated()
+    cost_err = abs(losses[0] - want) / abs(want)
+    syncs = _dispatch_syncs(exe, main, feed, [loss], scope)
+    prof = _profile_ops(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope), 1)
+    head_ms = prof["device_ms_per_step_by_op"].get(op.type, 0.0)
+    rec = _seq_record(
+        f"lm_{head}", f"word2vec trunk (embed 32, hidden 256, sigmoid) at "
+        f"vocab {LM_VOCAB}, head {head}, Adam({LM_LR}), f32", LM_BATCH, ms,
+        peak, prof, ops=len(main.global_block().ops), losses=losses,
+        cost_vs_float64_rel=cost_err, cost_float64=want,
+        **({"costs_on_the_first_draws": falling} if head == "nce"
+           else {}),
+        head_op_device_ms_per_step_forward=head_ms,
+        syncs_in_a_training_dispatch=len(syncs),
+        sync_sites=sorted(set(syncs)))
+    if not (np.isfinite(losses).all() and _falls(falling)):
+        _fail(f"33d {head}: losses not finite or not falling: {losses} "
+              f"{falling}")
+    if syncs:
+        _fail(f"33d {head}: host syncs in a training dispatch: {syncs}")
+    if not cost_err <= HEAD_COST_RTOL:
+        _fail(f"33d {head}: the cost off float64 numpy's by {cost_err}")
+    return rec
+
+
+def phase_lm_heads():
+    """Phase 33d: the four heads (phase_lm_head: the model's full softmax
+    as the yardstick, NCE, hsigmoid, the sampled softmax) at LM_VOCAB;
+    then KS_DRAWS draws of the log-uniform sampler on the card at
+    LM_VOCAB (sampling_ops.draw_classes, the op's draw half): their
+    empirical CDF within KS_TOL of log(c + 2) / log(R + 1) at every
+    drawn id."""
+    from paddle_tpu_torch.ops import sampling_ops
+    recs = {}
+    for head in ("softmax", "nce", "hsigmoid", "sampled_softmax"):
+        recs[head] = phase_lm_head(head)
+        gc.collect()
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 36)
+    d = sampling_ops.draw_classes(gen, "log_uniform", KS_DRAWS, LM_VOCAB,
+                                  None, "cuda")
+    if d.dtype != torch.int64:
+        _fail(f"33d: draws are {d.dtype}, want int64")
+    ids, counts = np.unique(d.cpu().numpy(), return_counts=True)
+    ks = float(np.abs(np.cumsum(counts) / KS_DRAWS
+                      - np.log(ids + 2.0) / np.log(LM_VOCAB + 1.0)).max())
+    recs["log_uniform_ks"] = {"draws": KS_DRAWS, "range": LM_VOCAB,
+                              "distinct": int(len(ids)), "ks": ks,
+                              "card": _card_line()}
+    print("lm log-uniform sampler " + json.dumps(recs["log_uniform_ks"]))
+    if not (ids.min() >= 0 and ids.max() < LM_VOCAB and ks <= KS_TOL):
+        _fail(f"33d: log-uniform draws off the Zipf CDF: KS {ks}")
+    return recs
+
+
+# the slice's 19 ops (10c.6f)
+QUANT_SLICE_OPS = (
+    "fake_quantize_abs_max fake_quantize_dequantize_abs_max "
+    "fake_channel_wise_quantize_abs_max "
+    "fake_channel_wise_quantize_dequantize_abs_max "
+    "quantize_dequantize_static_scale fake_quantize_moving_average_abs_max "
+    "fake_quantize_dequantize_moving_average_abs_max "
+    "fake_dequantize_max_abs fake_channel_wise_dequantize_max_abs "
+    "fake_quantize_range_abs_max moving_average_abs_max_scale "
+    "nce hierarchical_sigmoid sample_logits "
+    "match_matrix_tensor var_conv_2d sequence_scatter "
+    "sequence_topk_avg_pooling tree_conv").split()
+
+
+def _tbcnn_edges(rng, trees, nodes):
+    """`trees` random trees of `nodes` nodes as TBCNN's (B, E, 2) edges,
+    1-based (parent, child) in BFS order, one tree cut short by a (0, 0)
+    pair."""
+    edges = np.zeros((trees, nodes, 2), np.int64)
+    for t in range(trees):
+        for c in range(2, nodes + 1):
+            edges[t, c - 2] = (rng.randint(1, c), c)
+    edges[-1, nodes // 2] = 0
+    return edges
+
+
+def _quant_op_cases():
+    """{case: (inputs, attrs, slot, grad slots)} for every op of
+    QUANT_SLICE_OPS at 33e's sizes (MatchPyramid's pair, TBCNN's trees, a
+    MobileNet activation and filter); a case's op is its name's first
+    word. The samplers' cases hold the full op's inputs and, under
+    "Draws", seeded draws that their score halves read
+    (SAMPLER_SCORE_HALVES) and the full op does not."""
+    rng = np.random.RandomState(SEED + 37)
+
+    def r(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    act = r(16, 64, 28, 28, lo=-4, hi=4)
+    filt = r(128, 64, 3, 3)
+    ema = {"X": act, "InScale": np.array([2.5], np.float32)}
+    qx, ty = r(8, MP_QUERY, MP_EMBED), r(8, MP_TITLE, MP_EMBED)
+    mm = r(8, MP_CHANNELS, MP_QUERY, MP_TITLE)
+    ql = rng.randint(1, MP_QUERY + 1, 8).astype(np.int64)
+    tl = rng.randint(1, MP_TITLE + 1, 8).astype(np.int64)
+    vocab, b, d = 50_000, 512, 256
+    label = _zipf_ids(rng, (b, 1), vocab)
+    ids = rng.randint(-2, MP_TITLE + 2, (8, 64)).astype(np.int64)
+    q = "fake_quantize_"
+    cases = {
+        q + "abs_max": ({"X": act}, {}, "Out", ("X",)),
+        q + "dequantize_abs_max": ({"X": act}, {}, "Out", ("X",)),
+        "fake_channel_wise_quantize_abs_max": (
+            {"X": filt}, {"quant_axis": 0}, "Out", ("X",)),
+        "fake_channel_wise_quantize_dequantize_abs_max": (
+            {"X": filt}, {"quant_axis": 0}, "OutScale", ("X",)),
+        "quantize_dequantize_static_scale": (
+            {"X": act}, {"scale": 3.0}, "Out", ("X",)),
+        q + "moving_average_abs_max": (
+            ema, {"moving_rate": 0.9}, "Out", ("X", "InScale")),
+        q + "dequantize_moving_average_abs_max": (
+            ema, {"moving_rate": 0.9}, "OutScale", ("X", "InScale")),
+        "fake_dequantize_max_abs": (
+            {"X": np.round(act * 30), "Scale": np.array([4.0], np.float32)},
+            {"max_range": 127.0}, "Out", ()),
+        "fake_channel_wise_dequantize_max_abs": (
+            {"X": np.round(filt * 127),
+             "Scales": [np.abs(r(128)) + 0.1, np.float32(3.0)]},
+            {"quant_bits": [8, 8], "quant_axis": 0}, "Out", ()),
+        q + "range_abs_max": (
+            {"X": act, "InScale": np.array([0.0], np.float32)},
+            {"moving_rate": 0.9}, "Out", ("X",)),
+        "moving_average_abs_max_scale": (
+            ema, {"moving_rate": 0.9}, "OutScale", ("X", "InScale")),
+        "nce": ({"Input": r(b, d), "Weight": r(vocab, d), "Bias": r(vocab),
+                 "Label": label,
+                 "Draws": _zipf_ids(rng, (NCE_NEG,), vocab)},
+                {"num_total_classes": vocab, "num_neg_samples": NCE_NEG,
+                 "sampler": "log_uniform"}, "Cost",
+                ("Input", "Weight", "Bias")),
+        "hierarchical_sigmoid": (
+            {"X": r(b, d), "W": r(vocab - 1, d), "Bias": r(vocab - 1),
+             "Label": label}, {"num_classes": vocab}, "Out",
+            ("X", "W", "Bias")),
+        "sample_logits": ({"Logits": r(b, vocab, lo=-3, hi=3),
+                           "Labels": label,
+                           "Draws": _zipf_ids(rng, (SSM_SAMPLES,), vocab)},
+                          {"num_samples": SSM_SAMPLES}, "Loss", ("Logits",)),
+        "match_matrix_tensor": (
+            {"X": qx, "Y": ty, "W": r(MP_EMBED, MP_CHANNELS, MP_EMBED),
+             "XLength": ql, "YLength": tl}, {}, "Out", ("X", "Y", "W")),
+        "var_conv_2d": ({"X": mm, "W": r(8, MP_CHANNELS, 3, 3), "Row": ql,
+                         "Col": tl}, {"strides": [1, 1]}, "Out", ("X", "W")),
+        "var_conv_2d stride 2": ({"X": mm, "W": r(8, MP_CHANNELS, 3, 3),
+                                  "Row": ql, "Col": tl},
+                                 {"strides": [2, 2]}, "Out", ("X", "W")),
+        "sequence_scatter": ({"X": r(8, MP_TITLE), "Ids": ids,
+                              "Updates": r(8, 64),
+                              "Length": rng.randint(1, 65, 8)}, {}, "Out",
+                             ("X", "Updates")),
+        "sequence_topk_avg_pooling": (
+            {"X": r(8, 8, MP_QUERY, MP_TITLE), "Row": ql, "Col": tl},
+            {"topks": [1, 3, 5, 10]}, "Out", ("X",))}
+    for k in (2, 3):
+        cases[f"tree_conv max_depth {k}"] = (
+            {"NodesVector": r(TB_TREES, TB_NODES, TB_FEATURE),
+             "EdgeSet": _tbcnn_edges(rng, TB_TREES, TB_NODES),
+             "Filter": r(TB_FEATURE, 3, TB_OUT, 1), "Bias": r(TB_OUT, 1)},
+            {"max_depth": k}, "Out", ("NodesVector", "Filter", "Bias"))
+    return cases
+
+
+def _nce_on_draws(ctx):
+    """nce's score half over the case's "Draws"."""
+    from paddle_tpu_torch.ops import sampling_ops
+    return sampling_ops.nce_score(
+        ctx.in_("Input"), ctx.in_("Weight"), ctx.in_("Bias"),
+        ctx.in_("Label"), ctx.in_("Draws"), ctx.attr("num_total_classes"),
+        ctx.attr("sampler"))
+
+
+def _sample_logits_on_draws(ctx):
+    """sample_logits' score half over the case's "Draws"."""
+    from paddle_tpu_torch.ops import sampling_ops
+    return sampling_ops.sample_logits_score(
+        ctx.in_("Logits"), ctx.in_("Labels"), ctx.in_("Draws"))
+
+
+# the samplers, held card against CPU through their score halves on
+# given draws (a draw of the card's generator is not the CPU's)
+SAMPLER_SCORE_HALVES = {"nce": _nce_on_draws,
+                        "sample_logits": _sample_logits_on_draws}
+
+
+def phase_prune_distill():
+    """33e's slim on the card. Pruning: slim.Pruner at PRUNE_RATIO on
+    every conv filter of MobileNet-v1 at phase 33's width, after minimize,
+    PRUNE_STEPS Momentum steps with L2 decay: every pruned entry exactly
+    0 after each step. Distillation: a ResNet-50 teacher (its test-mode
+    clone) merged into a MobileNet-v1 student at 224², batch
+    DISTILL_BATCH, by slim.merge_programs; the student's task loss plus
+    soft_label_loss at temperature DISTILL_T over the two nets' logits,
+    DISTILL_STEPS Momentum steps: the teacher's persistables bitwise
+    unchanged, the loss finite."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.models import mobilenet, resnet
+    main, startup, loss = _vision_program(
+        _mobilenet(1, MNV2_IMAGE, MNV2_CLASSES),
+        _vision_momentum(MN_LR, MN_DECAY))
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in main.all_parameters() if len(p.shape) == 4]
+    pruner = slim.Pruner()
+    pruner.prune(main, scope, {n: PRUNE_RATIO for n in names},
+                 startup_program=startup)
+    masks = {n: torch.from_numpy(pruner.masks[n]).cuda() for n in names}
+    feed = _images_feed(MNV2_BATCH, MNV2_IMAGE, MNV2_CLASSES)
+    p_losses, nonzero = [], []
+    for _ in range(PRUNE_STEPS):
+        p_losses.append(float(np.ravel(exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope)[0])[0]))
+        nonzero.append(int(sum(int((scope.get(n)[masks[n] == 0] != 0).sum())
+                               for n in names)))
+    sparsity = min(pruner.sparsity(scope).values())
+    # distillation: the teacher first, then the student, in one name
+    # space (their startups fill one scope)
+    t_main, t_start = fluid.Program(), fluid.Program()
+    s_main, s_start = fluid.Program(), fluid.Program()
+    t_main.random_seed = t_start.random_seed = SEED + 38
+    s_main.random_seed = s_start.random_seed = SEED + 39
+    with fluid.unique_name.guard():
+        with fluid.program_guard(t_main, t_start):
+            img = fluid.layers.data("img", shape=list(MNV2_IMAGE),
+                                    dtype="float32")
+            resnet.resnet(img, class_dim=MNV2_CLASSES, depth=RESNET_DEPTH)
+        with fluid.program_guard(s_main, s_start):
+            s_loss = mobilenet.build_train_net(
+                version=1, class_dim=MNV2_CLASSES, image_shape=MNV2_IMAGE)[3]
+    teacher = t_main.clone(for_test=True)
+    t_logits = _fc_of_softmax(teacher)[0]
+    s_logits = _fc_of_softmax(s_main)[0]
+    d_scope = fluid.Scope()
+    exe.run(t_start, scope=d_scope)
+    exe.run(s_start, scope=d_scope)
+    slim.merge_programs(s_main, teacher, prefix="teacher_", share=("img",),
+                        scope=d_scope)
+    t_names = ["teacher_" + n for n in teacher.global_block().vars
+               if teacher.global_block().vars[n].persistable]
+    t_before = {n: d_scope.get(n).clone() for n in t_names
+                if d_scope.get(n) is not None}
+    opt_start = fluid.Program()
+    with fluid.unique_name.guard("distill_"), \
+            fluid.program_guard(s_main, opt_start):
+        blk = s_main.global_block()
+        kd = slim.soft_label_loss(blk.var(s_logits),
+                                  blk.var("teacher_" + t_logits),
+                                  temperature=DISTILL_T)
+        total = fluid.layers.elementwise_add(blk.var(s_loss.name), kd)
+        _vision_momentum(MN_LR, MN_DECAY)(fluid).minimize(total)
+    exe.run(opt_start, scope=d_scope)
+    d_feed = _images_feed(DISTILL_BATCH, MNV2_IMAGE, MNV2_CLASSES,
+                          seed=SEED + 39)
+    d_losses = [float(np.ravel(exe.run(s_main, feed=d_feed,
+                                       fetch_list=[total],
+                                       scope=d_scope)[0])[0])
+                for _ in range(DISTILL_STEPS)]
+    changed = [n for n, v in t_before.items()
+               if not torch.equal(d_scope.get(n), v)]
+    rec = {"prune": {"weights": len(names), "ratio": PRUNE_RATIO,
+                     "steps": PRUNE_STEPS, "losses": p_losses,
+                     "pruned_entries_nonzero_after_each_step": nonzero,
+                     "min_sparsity": sparsity},
+           "distill": {"teacher": f"resnet{RESNET_DEPTH} (test mode)",
+                       "student": "mobilenet v1", "batch": DISTILL_BATCH,
+                       "temperature": DISTILL_T, "losses": d_losses,
+                       "teacher_persistables": len(t_before),
+                       "teacher_changed": len(changed)},
+           "card": _card_line()}
+    print("slim prune distill " + json.dumps(rec))
+    if any(nonzero) or sparsity < PRUNE_RATIO:
+        _fail(f"33e: pruned weights off zero or sparsity {sparsity}: "
+              f"{nonzero}")
+    if changed or not t_before or not np.isfinite(d_losses).all():
+        _fail(f"33e: distillation changed the teacher ({changed[:3]}) or "
+              f"lost a finite loss {d_losses}")
+    return rec
+
+
+def phase_quant_ops():
+    """Phase 33e: every op of QUANT_SLICE_OPS on the card against the
+    same op on the CPU from one seeded input (_quant_op_cases through
+    _ops_card_vs_cpu; the samplers through their score halves on given
+    draws), the host syncs of each op's call on the card (the samplers'
+    with their draw) gated at 0; then pruning and distillation (phase_prune_distill)."""
+    cases = _quant_op_cases()
+    if {c.split()[0] for c in cases} != set(QUANT_SLICE_OPS) or \
+            len(QUANT_SLICE_OPS) != 19:
+        _fail("33e: the op table does not cover the slice's 19 ops")
+    errs = _ops_card_vs_cpu("33e", cases, SAMPLER_SCORE_HALVES)
+    # the full ops, the samplers with their draws
+    syncs = {c: len(_op_syncs(c, ins, attrs))
+             for c, (ins, attrs, _s, _g) in cases.items()}
+    rec = _ops_record(QUANT_SLICE_OPS, errs, syncs=syncs)
+    print("quant slice ops " + json.dumps(rec))
+    if any(syncs.values()):
+        _fail(f"33e: host syncs in {syncs}")
+    rec["slim"] = phase_prune_distill()
+    return rec
+
+
+def phase_quant_all(flash, paged, v1_rec=None):
+    """Phases 33-33e. None launches an attention kernel: each is gated at
+    0 flash and paged launches (_seq_phase). Returns (the counts over the
+    phases, records)."""
+    recs, total = {}, (0, 0, 0, 0, 0)
+    for key, name, fn, args in (
+            ("33", "33 QAT MobileNet-v1", phase_qat_mobilenet, (v1_rec,)),
+            ("33b", "33b QAT card vs CPU", phase_qat_agree, ()),
+            ("33c", "33c PTQ ResNet-50", phase_ptq_resnet, ()),
+            ("33d", "33d the heads at 793,471 words", phase_lm_heads, ()),
+            ("33e", "33e the slice's ops card vs CPU, slim",
+             phase_quant_ops, ())):
+        recs[key], counts = _seq_phase(name, fn, flash, paged, *args)
+        total = tuple(x + y for x, y in zip(total, counts))
+    return total, recs
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -12274,8 +13266,9 @@ def main():
     seq_counts, _ = phase_seq_all(flash, paged)
     cf_counts, _ = phase_cf_all(flash, paged)
     det_counts, _ = phase_det_all(flash, paged)
-    vis_counts, _ = phase_vision_all(flash, paged)
+    vis_counts, vis_recs = phase_vision_all(flash, paged)
     met_counts, _ = phase_metric_all(flash, paged)
+    quant_counts, _ = phase_quant_all(flash, paged, vis_recs["31b"]["v1"])
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -12289,6 +13282,8 @@ def main():
         "30-30c detection (gated at 0)": det_counts[4],
         "31-31g vision nets (gated at 0)": vis_counts[4],
         "32-32d tensor, loss and metric ops (gated at 0)": met_counts[4],
+        "33-33e quant, sampling and match ops (gated at 0)":
+            quant_counts[4],
         **dlaunches, **tlaunches, **plaunches,
         **fleet["18"]["launches"], **fleet["18b"]["launches"],
         "18c self-healing f32 (3 replicas + resurrections)":
@@ -12384,7 +13379,9 @@ def main():
         "29-29c control flow (gated at 0)": cf_counts[:4],
         "30-30c detection (gated at 0)": det_counts[:4],
         "31-31g vision nets (gated at 0)": vis_counts[:4],
-        "32-32d tensor, loss and metric ops (gated at 0)": met_counts[:4]}
+        "32-32d tensor, loss and metric ops (gated at 0)": met_counts[:4],
+        "33-33e quant, sampling and match ops (gated at 0)":
+            quant_counts[:4]}
     tpp_name = f"19c tp {TP} prompt decode"
     kernels[2]["launches_by_path"] = {
         "6 prompt decode": flaunches,

@@ -33,11 +33,15 @@ Fluid file formats and inference models (``io/``), and the input
 pipeline (``reader/``, ``core/bucketing.py``, ``io/dataset.py`` under
 ``Executor.train_from_dataset``); the optimizer wrappers (EMA,
 ModelAverage, Lookahead, gradient merge: ``optimizer/wrappers.py``), DGC
-(``optimizer/dgc.py``) and decoupled weight decay (``contrib/``); and
-every op of the JAX registry but the quant, sampling, match and
-collective ones, with the layers over them (``layers.tensor``,
-``layers.loss``, the streaming ``layers.auc`` and ``layers.mean_iou``,
-``layers.distributions``) and every initializer. The top
+(``optimizer/dgc.py``) and decoupled weight decay (``contrib/``);
+every op of the JAX registry but the collectives, with the layers over
+them (``layers.tensor``, ``layers.loss``, the streaming ``layers.auc``
+and ``layers.mean_iou``, ``layers.distributions``, the large-vocabulary
+heads ``layers.nce`` / ``hsigmoid`` /
+``sampled_softmax_with_cross_entropy``, the matching layers) and every
+initializer; and quantization-aware training and post-training
+quantization (``quant/``), pruning and distillation (``slim/``, but its
+NAS search), also under ``contrib.quantize`` / ``contrib.slim``. The top
 level is the ``fluid`` namespace of that recipe::
 
     import paddle_tpu_torch as fluid

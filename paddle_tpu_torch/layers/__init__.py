@@ -50,8 +50,10 @@ module's ``__all__`` and the others it exports: ``yolov3_loss``,
 ``collect_fpn_proposals``), ``metric_op``'s ``accuracy``, ``edit_distance`` and
 ``chunk_eval``, ``attention``'s ``multi_head_attention``,
 ``scaled_dot_product_attention`` and ``add_position_encoding``,
-``sequence``'s fifteen sequence layers (all of the JAX module's but
-``sequence_scatter`` and ``sequence_topk_avg_pooling``), ``rnn``'s
+``sequence``'s seventeen sequence layers (all of the JAX module's),
+the large-vocabulary heads ``nce``, ``hsigmoid`` and
+``sampled_softmax_with_cross_entropy`` and the matching layers
+``match_matrix_tensor``, ``var_conv_2d`` and ``tree_conv``, ``rnn``'s
 ``dynamic_lstm``, ``dynamic_lstmp``, ``dynamic_gru``, ``lstm``, ``gru``,
 ``lstm_unit`` and ``gru_unit``, and ``beam_search``'s ``beam_search``
 and ``beam_search_decode``. ``math_op_patch`` gives ``Variable`` the JAX
@@ -84,7 +86,9 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  crop_tensor, space_to_depth, deformable_roi_pooling, hash,
                  continuous_value_model, filter_by_instag, shuffle_channel,
                  merge_selected_rows, get_tensor_from_selected_rows,
-                 lod_reset, lod_append)
+                 lod_reset, lod_append, nce, hsigmoid,
+                 sampled_softmax_with_cross_entropy, match_matrix_tensor,
+                 var_conv_2d, tree_conv)
 from .tensor import (create_tensor, create_parameter, create_global_var,
                      fill_constant, fill_constant_batch_size_like, zeros,
                      ones, zeros_like, ones_like, sums, assign, linspace,
@@ -123,7 +127,8 @@ from .sequence import (sequence_mask, sequence_pad, sequence_unpad,
                        sequence_last_step, sequence_softmax,
                        sequence_expand, sequence_expand_as,
                        sequence_reverse, sequence_conv, sequence_concat,
-                       sequence_slice, sequence_enumerate, sequence_reshape)
+                       sequence_slice, sequence_enumerate, sequence_reshape,
+                       sequence_scatter, sequence_topk_avg_pooling)
 from . import rnn
 from .rnn import (dynamic_lstm, dynamic_lstmp, dynamic_gru, lstm, gru,
                   lstm_unit, gru_unit)

@@ -1590,3 +1590,200 @@ def lod_append(x, level):
     return _identity_layer("lod_append", x,
                            None if isinstance(level, (list, tuple))
                            else {"Y": level})
+
+
+# -- the large-vocabulary heads and the matching layers -----------------------
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """Parity: fluid.layers.nce. The per-row NCE cost (B, 1);
+    num_neg_samples classes drawn once for the batch from `sampler`
+    ("uniform", "log_uniform", or `custom_dist`'s probabilities, set
+    through ``assign``). is_sparse is accepted: the gradient into the
+    weight is a dense scatter-add."""
+    import numpy as np
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[num_total_classes], dtype=input.dtype,
+                                is_bias=True)
+    batch = input.shape[0]
+    num_true = label.shape[1] if len(label.shape) > 1 else 1
+    cost = helper.create_variable_for_type_inference("float32", (batch, 1))
+    s_logits = helper.create_variable_for_type_inference(
+        "float32", (batch, num_true + num_neg_samples))
+    s_labels = helper.create_variable_for_type_inference(
+        "int64", (batch, num_true + num_neg_samples))
+    inputs = {"Input": input, "Label": label, "Weight": w}
+    if b is not None:
+        inputs["Bias"] = b
+    if custom_dist is not None:
+        from . import tensor as tensor_layers
+        inputs["CustomDistProbs"] = tensor_layers.assign(
+            np.asarray(custom_dist, np.float32))
+        sampler = "custom_dist"
+    helper.append_op("nce", inputs,
+                     {"Cost": cost, "SampleLogits": s_logits,
+                      "SampleLabels": s_labels},
+                     {"num_total_classes": num_total_classes,
+                      "num_neg_samples": num_neg_samples,
+                      "sampler": sampler, "op_seed": seed})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """Parity: fluid.layers.hsigmoid: the default complete binary tree
+    (W [num_classes - 1, dim]) or a custom tree through path_table /
+    path_code with is_custom (W [num_classes, dim]). Out (B, 1)."""
+    if is_custom and (path_table is None or path_code is None
+                      or num_classes is None):
+        raise ValueError(
+            "hsigmoid custom tree needs path_table, path_code and "
+            "num_classes (ref layers/nn.py hsigmoid checks)")
+    if not is_custom and (path_table is not None or path_code is not None):
+        raise ValueError(
+            "hsigmoid: path_table/path_code given without is_custom=True; "
+            "pass is_custom=True to use the custom tree (W becomes "
+            "[num_classes, dim])")
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    rows = num_classes if is_custom else num_classes - 1
+    w = helper.create_parameter(attr=helper.param_attr, shape=[rows, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(attr=helper.bias_attr, shape=[rows],
+                                dtype=input.dtype, is_bias=True)
+    batch = input.shape[0]
+    depth = path_table.shape[-1] if is_custom \
+        else max(int(num_classes - 1).bit_length(), 1)
+    out = helper.create_variable_for_type_inference("float32", (batch, 1))
+    pre = helper.create_variable_for_type_inference("float32",
+                                                    (batch, depth))
+    inputs = {"X": input, "W": w, "Label": label}
+    if is_custom:
+        inputs["PathTable"] = path_table
+        inputs["PathCode"] = path_code
+    if b is not None:
+        inputs["Bias"] = b
+    helper.append_op("hierarchical_sigmoid", inputs,
+                     {"Out": out, "PreOut": pre},
+                     {"num_classes": num_classes})
+    return out
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1,
+                                       remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    """Parity: fluid.layers.sampled_softmax_with_cross_entropy: a
+    softmax cross entropy over the true labels and num_samples
+    log-uniform classes with the logQ correction. Loss (B, 1)."""
+    if use_customized_samples:
+        raise NotImplementedError(
+            "sampled_softmax_with_cross_entropy: customized samples are "
+            "not supported; the op draws its own log-uniform samples")
+    helper = LayerHelper("sampled_softmax_with_cross_entropy")
+    batch = logits.shape[0]
+    loss = helper.create_variable_for_type_inference("float32", (batch, 1))
+    samples = helper.create_variable_for_type_inference(
+        "int64", (batch, num_true + num_samples))
+    s_logits = helper.create_variable_for_type_inference(
+        "float32", (batch, num_true + num_samples))
+    helper.append_op("sample_logits", {"Logits": logits, "Labels": label},
+                     {"Loss": loss, "Samples": samples,
+                      "SampledLogits": s_logits},
+                     {"num_samples": num_samples,
+                      "remove_accidental_hits": remove_accidental_hits,
+                      "use_customized_samples": use_customized_samples,
+                      "op_seed": seed})
+    return loss
+
+
+def match_matrix_tensor(x, y, channel_num, act=None, param_attr=None,
+                        dtype="float32", name=None, x_length=None,
+                        y_length=None):
+    """Parity: fluid.layers.match_matrix_tensor: out[b, c, i, j] = x_bi
+    . W_c . y_bj over x (B, Lx, D), y (B, Ly, Dy) and optional lengths.
+    Returns (out (B, C, Lx, Ly), tmp (B, Lx, C, Dy))."""
+    helper = LayerHelper("match_matrix_tensor", param_attr=param_attr,
+                         act=act, name=name)
+    d, dy = x.shape[-1], y.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[d, channel_num, dy], dtype=dtype)
+    b, lx, ly = x.shape[0], x.shape[1], y.shape[1]
+    out = helper.create_variable_for_type_inference(
+        dtype, (b, channel_num, lx, ly))
+    tmp = helper.create_variable_for_type_inference(
+        dtype, (b, lx, channel_num, dy))
+    inputs = {"X": x, "Y": y, "W": w}
+    if x_length is not None:
+        inputs["XLength"] = x_length
+    if y_length is not None:
+        inputs["YLength"] = y_length
+    helper.append_op("match_matrix_tensor", inputs,
+                     {"Out": out, "Tmp": tmp}, {})
+    return helper.append_activation(out), tmp
+
+
+def var_conv_2d(input, row, col, input_channel, output_channel, filter_size,
+                stride=1, param_attr=None, act=None, dtype="float32",
+                name=None):
+    """Parity: fluid.layers.var_conv_2d: a "SAME" convolution over the
+    padded batch, the outputs past each row's (row, col) extent
+    zeroed."""
+    helper = LayerHelper("var_conv_2d", param_attr=param_attr, act=act,
+                         name=name)
+    ks, st = _pair(filter_size), _pair(stride)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[output_channel, input_channel, ks[0], ks[1]], dtype=dtype)
+    b, _, h, wd = input.shape
+    out = helper.create_variable_for_type_inference(
+        dtype, (b, output_channel, (h + st[0] - 1) // st[0],
+                (wd + st[1] - 1) // st[1]))
+    inputs = {"X": input, "W": w}
+    if row is not None:
+        inputs["Row"] = row
+    if col is not None:
+        inputs["Col"] = col
+    helper.append_op("var_conv_2d", inputs, {"Out": out},
+                     {"strides": list(st)})
+    return helper.append_activation(out)
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """Parity: fluid.layers.tree_conv (TBCNN, any max_depth):
+    nodes_vector (B, N, D), node ids 1-based; edge_set (B, E, 2)
+    (parent, child) pairs padded with 0. Returns (B, N, output_size,
+    num_filters)."""
+    helper = LayerHelper("tree_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    d = nodes_vector.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[d, 3, output_size, num_filters],
+                                dtype=nodes_vector.dtype)
+    bias = helper.create_parameter(attr=helper.bias_attr,
+                                   shape=[output_size, num_filters],
+                                   dtype=nodes_vector.dtype, is_bias=True)
+    b, n = nodes_vector.shape[0], nodes_vector.shape[1]
+    out = helper.create_variable_for_type_inference(
+        nodes_vector.dtype, (b, n, output_size, num_filters))
+    inputs = {"NodesVector": nodes_vector, "EdgeSet": edge_set,
+              "Filter": w}
+    if bias is not None:
+        inputs["Bias"] = bias
+    helper.append_op("tree_conv", inputs, {"Out": out},
+                     {"max_depth": max_depth})
+    return helper.append_activation(out)

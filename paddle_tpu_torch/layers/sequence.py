@@ -5,10 +5,10 @@ APIs; the counterpart of ``paddle_tpu/layers/sequence.py``:
 ``sequence_mask``, ``sequence_pad``, ``_unpad``, ``_pool``,
 ``_first_step``, ``_last_step``, ``_softmax``, ``_expand``,
 ``_expand_as``, ``_reverse``, ``_conv``, ``_concat``, ``_slice``,
-``_enumerate`` and ``_reshape``. The convention is the JAX package's:
-data ``(batch, max_len, ...)`` padded, raggedness as an explicit lengths
-tensor. ``sequence_scatter`` and ``sequence_topk_avg_pooling`` run the
-JAX package's ``match_ops``, which wait for ROADMAP queue A item 10c.6f.
+``_enumerate``, ``_reshape``, ``_scatter`` and ``_topk_avg_pooling``
+(over ``ops/match_ops.py``). The convention is the JAX package's: data
+``(batch, max_len, ...)`` padded, raggedness as an explicit lengths
+tensor.
 """
 
 from ..core.layer_helper import LayerHelper
@@ -18,7 +18,8 @@ __all__ = [
     "sequence_first_step", "sequence_last_step", "sequence_softmax",
     "sequence_expand", "sequence_expand_as", "sequence_reverse",
     "sequence_conv", "sequence_concat", "sequence_slice",
-    "sequence_enumerate", "sequence_reshape",
+    "sequence_enumerate", "sequence_reshape", "sequence_scatter",
+    "sequence_topk_avg_pooling",
 ]
 
 
@@ -210,4 +211,36 @@ def sequence_reshape(input, new_dim, name=None):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("sequence_reshape", {"X": input}, {"Out": out},
                      {"new_dim": new_dim})
+    return out
+
+
+def sequence_scatter(input, index, updates, length=None, name=None):
+    """Parity: fluid.layers.sequence_scatter. Padded form: input (B, D),
+    index (B, L) (or (B, L, 1)), updates (B, L), an optional length a
+    row."""
+    helper = LayerHelper("sequence_scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    inputs = {"X": input, "Ids": index, "Updates": updates}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("sequence_scatter", inputs, {"Out": out}, {})
+    return out
+
+
+def sequence_topk_avg_pooling(input, row=None, col=None, topks=(1,),
+                              channel_num=1, name=None):
+    """Parity: fluid.layers.sequence_topk_avg_pooling. Padded form:
+    input (B, C, L1, L2), optional row / col valid lengths. Returns (B,
+    L1, C x len(topks))."""
+    helper = LayerHelper("sequence_topk_avg_pooling", name=name)
+    b, c, l1, _ = input.shape
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (b, l1, c * len(topks)))
+    inputs = {"X": input}
+    if row is not None:
+        inputs["Row"] = row
+    if col is not None:
+        inputs["Col"] = col
+    helper.append_op("sequence_topk_avg_pooling", inputs, {"Out": out},
+                     {"topks": list(topks), "channel_num": channel_num})
     return out

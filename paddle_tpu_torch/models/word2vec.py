@@ -15,9 +15,8 @@ HIDDEN_SIZE = 256
 N_GRAM = 4
 
 
-def build_train_net(dict_size, embed_size=EMBED_SIZE,
-                    hidden_size=HIDDEN_SIZE):
-    """Returns (word_vars, next_word, prediction, avg_loss).
+def build_trunk(dict_size, embed_size=EMBED_SIZE, hidden_size=HIDDEN_SIZE):
+    """Returns (word_vars, next_word, hidden): the net up to its head.
 
     All four context words share one 'shared_w' embedding table, exactly the
     weight-tying scheme the book test uses (param_attr name sharing).
@@ -33,6 +32,15 @@ def build_train_net(dict_size, embed_size=EMBED_SIZE,
     concat = layers.concat(input=embeds, axis=-1)
     concat = layers.reshape(concat, shape=[-1, N_GRAM * embed_size])
     hidden = layers.fc(concat, size=hidden_size, act="sigmoid")
+    return words, next_word, hidden
+
+
+def build_train_net(dict_size, embed_size=EMBED_SIZE,
+                    hidden_size=HIDDEN_SIZE):
+    """Returns (word_vars, next_word, prediction, avg_loss): build_trunk
+    under a full softmax over the vocabulary."""
+    words, next_word, hidden = build_trunk(dict_size, embed_size,
+                                           hidden_size)
     prediction = layers.fc(hidden, size=dict_size, act="softmax")
     loss = layers.cross_entropy(input=prediction, label=next_word)
     avg_loss = layers.mean(loss)

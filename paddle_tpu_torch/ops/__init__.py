@@ -175,16 +175,18 @@ class OpContext:
         return name is not None and (self.live is None or name in self.live)
 
     # -- rng ----------------------------------------------------------------
-    def rng(self):
+    def rng(self, shared=False):
         """A torch.Generator on the op's device, seeded from (program
         seed, step counter, this op's op_seed): deterministic per op and
         step, as JAX's fold_in keys are. A dp rank r > 0 folds r into
         the seed, so ranks draw different masks for their rows (JAX draws
         one mask over the global shape); rank 0 keeps the single-device
-        stream."""
+        stream. With `shared` every rank draws rank 0's stream (an op
+        whose one draw serves the whole batch, as the samplers' class
+        sets do)."""
         seed, step = self.env[RNG_KEY]
         x = generator_seed(seed, step, self.op.attrs.get("op_seed", 0))
-        if self.dp_rank:
+        if self.dp_rank and not shared:
             x = _mix64(x ^ int(self.dp_rank))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(x)
@@ -346,3 +348,6 @@ from . import ctc_ops         # noqa: E402,F401
 from . import control_flow_ops  # noqa: E402,F401
 from . import detection_ops   # noqa: E402,F401
 from . import rcnn_ops        # noqa: E402,F401
+from . import quant_ops       # noqa: E402,F401
+from . import sampling_ops    # noqa: E402,F401
+from . import match_ops       # noqa: E402,F401

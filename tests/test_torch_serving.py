@@ -454,7 +454,13 @@ def test_port_imports_neither_jax_nor_reference_package():
         "        'paddle_tpu_torch.ops.sequence_ops',\n"
         "        'paddle_tpu_torch.ops.beam_search_ops',\n"
         "        'paddle_tpu_torch.layers.sequence',\n"
-        "        'paddle_tpu_torch.layers.beam_search']\n"
+        "        'paddle_tpu_torch.layers.beam_search',\n"
+        "        'paddle_tpu_torch.ops.quant_ops',\n"
+        "        'paddle_tpu_torch.ops.sampling_ops',\n"
+        "        'paddle_tpu_torch.ops.match_ops',\n"
+        "        'paddle_tpu_torch.quant.passes',\n"
+        "        'paddle_tpu_torch.slim.core',\n"
+        "        'paddle_tpu_torch.slim.distill']\n"
         "assert set(need) <= set(mods), need\n"
         "for name in mods + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"

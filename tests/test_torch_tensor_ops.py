@@ -57,33 +57,21 @@ DP_TOL = 1e-6
 
 RS = np.random.RandomState(24)
 
-# the JAX op names the port does not register: 10c.6f's quant (11),
-# sampling (3) and match (5) ops, and item 11's collectives (14)
+# the JAX op names the port does not register: item 11's collectives
+# (14); 10c.6f's quant (11), sampling (3) and match (5) ops are ported
 NOT_PORTED = {
-    "10c.6f": [
-        "fake_channel_wise_dequantize_max_abs",
-        "fake_channel_wise_quantize_abs_max",
-        "fake_channel_wise_quantize_dequantize_abs_max",
-        "fake_dequantize_max_abs", "fake_quantize_abs_max",
-        "fake_quantize_dequantize_abs_max",
-        "fake_quantize_dequantize_moving_average_abs_max",
-        "fake_quantize_moving_average_abs_max", "fake_quantize_range_abs_max",
-        "moving_average_abs_max_scale", "quantize_dequantize_static_scale",
-        "hierarchical_sigmoid", "nce", "sample_logits",
-        "match_matrix_tensor", "sequence_scatter",
-        "sequence_topk_avg_pooling", "tree_conv", "var_conv_2d"],
+    "10c.6f": [],
     "11": [
         "allreduce", "alltoall", "broadcast", "c_allgather", "c_allreduce",
         "c_allreduce_max", "c_allreduce_min", "c_allreduce_prod",
         "c_allreduce_sum", "c_broadcast", "c_reducescatter",
         "c_sync_calc_stream", "c_sync_comm_stream", "moe"]}
 
-# the fluid.layers names the port does not have: 10c.6f's and item 11's
-# layers, layers.io's readers (item 11), and the JAX modules' own imports
+# the fluid.layers names the port does not have: item 11's layers,
+# layers.io's readers (item 11), and the JAX modules' own imports;
+# 10c.6f's eight layers are ported
 LAYERS_NOT_PORTED = {
-    "10c.6f": ["hsigmoid", "nce", "sampled_softmax_with_cross_entropy",
-               "match_matrix_tensor", "tree_conv", "var_conv_2d",
-               "sequence_scatter", "sequence_topk_avg_pooling"],
+    "10c.6f": [],
     "11": ["moe", "py_reader", "PyReader", "double_buffer", "read_file",
            "load", "create_py_reader_by_data"],
     "imports": ["np", "Variable", "LayerHelper", "builtins_sum",
@@ -171,16 +159,19 @@ def same(op, ins, attrs, slots):
 # ---------------------------------------------------------------------------
 
 def test_the_registry_lacks_only_10c6f_and_item_11():
-    """The port registers every JAX op name but the 33 that ROADMAP
-    assigns to 10c.6f (quant 11, sampling 3, match 5) and item 11 (the
-    14 collectives), listed here by name so that the next slice shrinks
-    the list; besides them it has its own select_finite (C8): 341."""
+    """The port registers every JAX op name but the 14 that ROADMAP
+    assigns to item 11 (the collectives), listed here by name so that the
+    next slice shrinks the list; 10c.6f lacks none (quant 11, sampling 3,
+    match 5 ported); besides them it has its own select_finite (C8):
+    360 of the JAX package's 373."""
     missing = sorted(set(JREG) - set(TREG))
-    want = sorted(NOT_PORTED["10c.6f"] + NOT_PORTED["11"])
-    assert len(want) == 33
+    assert NOT_PORTED["10c.6f"] == []
+    want = sorted(NOT_PORTED["11"])
+    assert len(want) == 14
     assert missing == want
     assert sorted(set(TREG) - set(JREG)) == ["select_finite"]
-    assert len(TREG) == 341
+    assert len(JREG) == 373
+    assert len(TREG) == 360
 
 
 def test_the_slice_registers_every_op_with_a_dp_rule():
@@ -191,12 +182,14 @@ def test_the_slice_registers_every_op_with_a_dp_rule():
 
 def test_the_layer_surface_lacks_only_named_names():
     """sorted(set(dir(paddle_tpu.layers)) - set(dir(the port's))) holds
-    only 10c.6f's and item 11's layers, layers.io's readers and the JAX
-    modules' own imports, by name; layers.tensor, layers.loss and
-    layers.metric_op lack none of the JAX modules' public names."""
+    only item 11's layers, layers.io's readers and the JAX modules' own
+    imports, by name (none of 10c.6f's); layers.tensor, layers.loss,
+    layers.metric_op and layers.sequence lack none of the JAX modules'
+    public names."""
     missing = sorted(set(dir(jfluid.layers)) - set(dir(tlayers)))
+    assert LAYERS_NOT_PORTED["10c.6f"] == []
     assert missing == sorted(sum(LAYERS_NOT_PORTED.values(), []))
-    for mod in ("tensor", "loss", "metric_op"):
+    for mod in ("tensor", "loss", "metric_op", "sequence"):
         lack = {n for n in set(dir(getattr(jfluid.layers, mod)))
                 - set(dir(getattr(tlayers, mod))) if not n.startswith("_")}
         assert lack <= {"Variable", "np"}, (mod, lack)
