@@ -185,7 +185,7 @@ backward kernels are printed):
    seq_len=512)`` (vocab 30522, hidden 768, 12 layers, 12 heads, FFN
    3072, dropout 0.1) + ``AdamOptimizer(1e-4)``, f32 with TF32 off, on
    ``ernie.make_pretrain_feed(cfg, 512, 8, dtype=np.int32)`` (bench.py's
-   ERNIE cell, synthetic): 30 steps on one batch; every step must launch
+   ERNIE cell, synthetic): 23 steps on one batch; every step must launch
    the f32 flash forward, dQ and dK/dV kernels 12 times each, the first
    step's padding bias must reach the kernels as a (B, H, T, T) view with
    stride 0 over heads and queries, and the last loss must be below
@@ -281,7 +281,7 @@ backward kernels are printed):
    use_dynamic_loss_scaling=True)`` under ``set_gradient_clip(
    GradientClipByGlobalNorm(1.0))``: the products in bf16 (cuBLAS; in
    phases 20-20d split-K partials are summed in f32, as XLA accumulates
-   a bf16 dot), the attention in f32 through the flash kernels. 30 steps
+   a bf16 dot), the attention in f32 through the flash kernels. 23 steps
    on one batch: every loss finite, the last below 0.95 x the first, the
    first within 1e-2 of phase 16's f32 first loss (the same weights, feed
    and dropout masks), 12 + 12 + 12 flash launches a step and none of the
@@ -311,7 +311,7 @@ backward kernels are printed):
    tolerances (the same bf16 products on both sides);
 21. data parallelism on phase 16's cell: ``CompiledProgram(main).
    with_data_parallel(places=[CUDAPlace(0)] * 2)``, a local dp 2 mesh
-   whose two ranks run in turn on the card, 30 steps on phase 16's feed
+   whose two ranks run in turn on the card, 23 steps on phase 16's feed
    (BertConfig(), seq 512 x batch 8, 4 rows a rank, dropout 0.1, Adam
    1e-4, f32): every feed split into (4, ...) shards (printed), the loss
    below 0.95 x the first, 2 x 12 flash forward, dQ and dK/dV launches a
@@ -347,7 +347,7 @@ backward kernels are printed):
    all-reduce a step, 2 + 2 + 2 flash launches a step a rank; two more
    steps time the all-reduces (ms a step);
 22. the recipe under data parallelism: phase 20's cell (nothing cut)
-   through ``with_data_parallel(places=[CUDAPlace(0)] * 2)``, 30 steps:
+   through ``with_data_parallel(places=[CUDAPlace(0)] * 2)``, 23 steps:
    the loss below 0.95 x the first and finite, 24 + 24 + 24 flash
    launches a step, 5 dp reductions a step; a profile of 3 more steps;
    then 3 steps under ``RecomputeOptimizer("dots")`` at dp 2 from the
@@ -360,7 +360,7 @@ backward kernels are printed):
    depth: ``resnet.build_train_net(depth=50, class_dim=1000,
    image_shape=(3, 224, 224))``, f32, ``MomentumOptimizer(0.1, 0.9)``),
    batch 32 of synthetic images and labels made on the card from the
-   seed, one batch for 30 steps, under torch's default cuDNN setting
+   seed, one batch for 23 steps, under torch's default cuDNN setting
    (TF32 allowed: the port's convolution sets f32 itself): every loss
    finite and the last below the first; the first batch norm's running
    mean and variance after step 1 against a plain f64 convolution of the
@@ -383,7 +383,7 @@ backward kernels are printed):
    2048, 8 heads, 6 + 6 layers, label smoothing 0.1, f32,
    ``AdamOptimizer(1e-4)``), batch 16 (4096 target tokens a card), the
    source and target lengths drawn from the seed in 128-256 (the cell
-   feeds full lengths): 30 steps on one batch; every step launches the
+   feeds full lengths): 23 steps on one batch; every step launches the
    f32 flash forward, dQ and dK/dV kernels 18 times each (6 encoder
    self-attentions, 6 causal decoder self-attentions and 6
    cross-attentions, each under a (B, 1, 1, T) padding bias that
@@ -401,7 +401,7 @@ backward kernels are printed):
 25. DeepFM training (``bench.py:388-416``'s cell: ``deepfm.
    build_train_net(num_features=1000000, num_fields=39, embed_dim=10)``,
    ``AdamOptimizer(1e-3)``, f32), batch 2048 synthetic examples made on
-   the card from the seed, 30 steps on one batch: every loss finite and
+   the card from the seed, 23 steps on one batch: every loss finite and
    the last below the first; prints examples/s, step ms p50/p99, the
    peak memory and a profile of 3 more steps by op (device ms, busy
    share, operations, the embedding backward's and Adam's share);
@@ -757,9 +757,9 @@ BERT_CFG = dict(max_position_embeddings=512)
 BERT_SEQ = 512
 BERT_BATCH = 8
 BERT_WARM = 3
-BERT_STEPS = 27
+BERT_STEPS = 20
 BERT_PROFILE_STEPS = 3
-# phase 16's gate: the last of the 30 steps' losses below this share of
+# phase 16's gate: the last of the 23 steps' losses below this share of
 # the first (one fixed batch, dropout 0.1)
 BERT_LOSS_MARGIN = 0.95
 BERT_AGREE_LAYERS = 2               # phases 16b, 16c: kernel vs plain
@@ -870,6 +870,18 @@ DP_SP_GRAD_TOL = 1e-4
 DP_REDUCTIONS = 5                   # BERT's dp reductions a step
 DP_WORLD_TIMEOUT_S = 300.0          # 21d: both ranks, boot included
 DP_WORLD_TIMED = 2                  # 21d: steps timing the all-reduces
+# phases 34-34d: sharded state under CompiledProgram. 34: tp 2 on one card
+# (both ranks on cuda:0); its 2-layer agreement with tp 1 and the world's
+# with the local runs use 21's staged tolerances (the tp partial sums add
+# in rank order: another f32 summation order than tp 1's one product)
+TP_TRAIN_STEPS = 10                 # 34: timed steps after BERT_WARM
+SHARD_STEPS = 10                    # 34b: timed FSDP + ZeRO-1 steps
+FSDP_MIN_SIZE = 1024                # shard_params_fsdp's default
+CKPT_DIVERGE = 2                    # 34d: steps between save and restore
+CKPT_CONTINUE = 3                   # 34d: steps after each restore
+CKPT_ELASTIC_DP = 4                 # 34d: the mesh it reshards onto
+SHARD_FORMS = ("plain", "zero1", "fsdp", "both")
+SHARD_WORLD_TIMED = 1               # 34c: steps timing the gathers
 # phases 23-23c: bench.py's ResNet cell (bench.py:285-313), on the port
 RESNET_DEPTH = 50
 RESNET_CLASSES = 1000
@@ -877,7 +889,7 @@ RESNET_IMAGE = (3, 224, 224)
 RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
 RESNET_BATCH = 32                   # a card (PaddleCV: 256 over 8 cards)
 RESNET_WARM = 3
-RESNET_STEPS = 27
+RESNET_STEPS = 20
 RESNET_PROFILE_STEPS = 3
 RESNET_DP_STEPS = 3                 # 23b
 # 23: the first batch norm's running statistics against momentum x
@@ -921,7 +933,7 @@ TF_BATCH = 16
 TF_LENS = (128, 256)
 TF_LR = 1e-4
 TF_WARM = 3
-TF_STEPS = 27
+TF_STEPS = 20
 TF_PROFILE_STEPS = 3
 TF_LOSS_MARGIN = 0.95
 # 24b: test_model_zoo.py:147's tiny Transformer (vocab 64, d_model 32,
@@ -946,7 +958,7 @@ DEEPFM_EMBED = 10
 DEEPFM_LR = 1e-3
 DEEPFM_BATCH = 2048
 DEEPFM_WARM = 3
-DEEPFM_STEPS = 27
+DEEPFM_STEPS = 20
 DEEPFM_PROFILE_STEPS = 3
 # 25b: dp 2 against dp 1 on the same weights. torch's CUDA embedding
 # backward sums each row's contributions in no fixed order (ROADMAP C),
@@ -1202,14 +1214,14 @@ GUARD_CKPT_EVERY = 5
 GUARD_POISON_AT = 12
 GUARD_WRITE_FAULT = 3
 GUARD_PREEMPT_AT = 20
-GUARD_COST_STEPS = 10               # the unguarded run's timed steps
+GUARD_COST_STEPS = 6                # the unguarded run's timed steps
 # 26's upload probe: step k ends with this much device sleep, so it is
 # still on the card when step k+1's feeds are uploaded; GUARD_PROBES times
 GUARD_PROBE_SLEEP_MS = 50.0
 GUARD_PROBES = 3
 GUARD_SYNC_STEPS = 5                # warm dispatches with syncs counted
 GUARD_TIMING_BLOCKS = 4             # run / run_async blocks, alternating
-GUARD_TIMING_STEPS = 8
+GUARD_TIMING_STEPS = 5
 # 26: a replayed or resumed run on the card matches the clean run within
 # GUARD_SPREAD x the distance between two clean runs (torch's CUDA
 # embedding backward sums in no fixed order, as 21b's and 25b's) or the
@@ -6236,6 +6248,8 @@ def dp_world_rank(rank, init, out):
         rec = {"losses": [], "reductions": [], "launches": [],
                "step_ms": []}
         gnames = [p.name + "@GRAD" for p in main.all_parameters()]
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
         with fluid.scope_guard(fluid.Scope()):
             exe.run(startup)
             for i in range(BERT_AGREE_STEPS):
@@ -6277,16 +6291,125 @@ def dp_world_rank(rank, init, out):
             finally:
                 dist.all_reduce = real_ar
                 del mesh.all_reduce_grads
+            gc.collect()
+            rec["replicated_state_bytes"] = torch.cuda.memory_allocated() \
+                - mem0
         rec.update(backend=dist.get_backend(),
                    all_reduce_ms_per_step=spent["all_reduce"]
                    / DP_WORLD_TIMED * 1e3,
                    gradient_all_reduce_ms_per_step=spent["gradients"]
                    / DP_WORLD_TIMED * 1e3,
                    gradient_bytes=spent["bytes"])
+        t_shard = time.perf_counter()
+        rec["shard"] = {form: shard_world_form(flash, feed, form, rank, out)
+                        for form in ("both", "zero1")}
+        rec["shard_s"] = time.perf_counter() - t_shard
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
         dist.destroy_process_group()
+
+
+def shard_world_form(flash, feed, form, rank, out):
+    """Phase 34c in one rank of 21d's world: 21b's program under `form`'s
+    annotations ("both": FSDP + ZeRO-1, the fleet's use_fsdp; "zero1"
+    alone) through with_data_parallel() over the world, BERT_AGREE_STEPS
+    steps, then DP_WORLD_TIMED steps timing the gathers and all-reduces.
+    Rank 0 writes its first step's @GRADs to <out>/shard_<form>_grads.pt;
+    every rank records their digest, its losses, reductions and launches
+    a step, the memory its state holds, and the elements of every sharded
+    variable it holds. "both" then saves a sharded checkpoint to
+    <out>/ckpt from both ranks and records the global state's digests."""
+    import hashlib
+    import torch.distributed as dist
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io.state import host_array
+    from paddle_tpu_torch.parallel import ShardedTensor
+    main, startup, loss = dp_agree_program()
+    _annotate(main, form)
+    comp = _dp_program(main, loss, None)
+    mesh = comp.mesh
+    gnames = [p.name + "@GRAD" for p in main.all_parameters()]
+    # a new Executor: the startup's draws fold in its step counter, so
+    # this one starts from 34b's state
+    exe = fluid.Executor()
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    rec = {"losses": [], "reductions": [], "launches": []}
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for i in range(BERT_AGREE_STEPS):
+            before, red0 = _bwd_counts(flash), mesh.reductions
+            got = exe.run(comp, feed=feed, fetch_list=[loss] + (
+                gnames if i == 0 else []), return_numpy=False)
+            if i == 0:
+                grads = [g.cpu() for g in got[1:]]
+                rec["grad_digest"] = hashlib.sha1(b"".join(
+                    g.numpy().tobytes() for g in grads)).hexdigest()
+                if rank == 0:
+                    torch.save(grads, os.path.join(
+                        out, f"shard_{form}_grads.pt"))
+                del grads
+            rec["losses"].append(got[0].double().item())
+            rec["reductions"].append(mesh.reductions - red0)
+            rec["launches"].append([a - b for a, b in zip(
+                _bwd_counts(flash), before)])
+            del got
+        laid = _laid_out(scope)
+        rec["sharded_values"] = len(laid)
+        rec["held_half"] = all(len(v.parts) == 1 and
+                               2 * v.numel() == v.global_numel()
+                               for v in laid.values())
+        rec["scope_elements"], rec["share_elements"], \
+            rec["whole_copies"] = _scope_shares(main, scope, mesh)
+        rec["held_elements"] = sum(v.numel() for v in laid.values())
+        rec["global_elements"] = sum(v.global_numel() for v in laid.values())
+        rec["gathers_per_step"] = sum(p.name in laid
+                                      for p in main.all_parameters())
+        rec["whole_params_cut"] = sum(
+            op.input("Param")[0] not in laid and
+            op.input("Moment1")[0] in laid
+            for op in main.global_block().ops if op.type == "adam")
+        spent = {"gather": 0.0, "all_reduce": 0.0}
+        real_gather, real_ar = mesh._concat, dist.all_reduce
+
+        def timed(fn, key):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                spent[key] += time.perf_counter() - t
+                return r
+            return call
+
+        mesh._concat = timed(real_gather, "gather")
+        dist.all_reduce = timed(real_ar, "all_reduce")
+        try:
+            for _ in range(SHARD_WORLD_TIMED):
+                exe.run(comp, feed=feed, fetch_list=[loss])
+        finally:
+            del mesh._concat
+            dist.all_reduce = real_ar
+        rec["gather_ms_per_step"] = spent["gather"] / SHARD_WORLD_TIMED \
+            * 1e3
+        rec["all_reduce_ms_per_step"] = spent["all_reduce"] \
+            / SHARD_WORLD_TIMED * 1e3
+        gc.collect()
+        rec["state_bytes"] = torch.cuda.memory_allocated() - mem0
+        if form == "both":
+            fluid.io.save_checkpoint_sharded(
+                exe, os.path.join(out, "ckpt"), main_program=main,
+                step=BERT_AGREE_STEPS + SHARD_WORLD_TIMED).wait()
+            # full() on every rank: a host copy of a world-sharded value
+            # raises (host_array), as np.asarray of a JAX array does
+            rec["state_digests"] = {
+                n: hashlib.sha1(host_array(
+                    v.full() if isinstance(v, ShardedTensor) else v)
+                    .tobytes()).hexdigest()
+                for n, v in ((n, scope.get(n)) for n in scope.names())}
+    return rec
 
 
 def phase_dp_world(ref):
@@ -6326,6 +6449,7 @@ def phase_dp_world(ref):
             recs[-1]["grads"] = torch.load(
                 os.path.join(base, f"rank{r}_grads.pt"),
                 map_location=ref[1][0].device)
+        world = _world_shard_record(base, recs)
     finally:
         for p, log in procs:
             if p.poll() is None:
@@ -6377,7 +6501,102 @@ def phase_dp_world(ref):
     print(f"21d: both ranks' losses and @GRADs equal the local dp {DP} "
           f"run's, {DP_REDUCTIONS} + 1 reductions a step")
     print("dp world " + json.dumps(out))
-    return launches, out
+    world["replicated_state_bytes"] = [r["replicated_state_bytes"]
+                                       for r in recs]
+    return launches, out, world
+
+
+def _world_shard_record(base, recs):
+    """34c's world-only gates, on the ranks' records and files before
+    21d's directory goes: each rank holds half of every sharded variable
+    and no whole copy of one; the per-step launches, reductions and the
+    ranks' agreement; one index.json, and the world's checkpoint restores
+    into a local dp DP mesh bitwise (the global state's digests). Returns
+    {"forms": {form: (rank 0's losses, its first-step @GRADs, ...)},
+    "launches": ..., the record}."""
+    import hashlib
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io.state import host_array
+    from paddle_tpu_torch.parallel import ShardedTensor, make_mesh
+    layers = BERT_AGREE_LAYERS
+    forms, launches, rec = {}, {}, {}
+    for form in ("both", "zero1"):
+        by_rank = [r["shard"][form] for r in recs]
+        for r, fr in enumerate(by_rank):
+            want = DP_REDUCTIONS + fr["gathers_per_step"] + 1 + \
+                fr["whole_params_cut"]
+            if not fr["held_half"] or fr["whole_copies"] or \
+                    2 * fr["held_elements"] != fr["global_elements"] or \
+                    fr["scope_elements"] != fr["share_elements"]:
+                _fail(f"34c {form} rank {r}: holds {fr['held_elements']} of "
+                      f"{fr['global_elements']} sharded elements, "
+                      f"{fr['scope_elements']} elements in its scope for "
+                      f"{fr['share_elements']} in its shares, whole "
+                      f"copies {fr['whole_copies']}")
+            if set(fr["reductions"]) != {want}:
+                _fail(f"34c {form} rank {r}: reductions a step "
+                      f"{fr['reductions']}, want {want}")
+            if any(c != [layers] * 3 for c in fr["launches"]):
+                _fail(f"34c {form} rank {r}: flash launches a step "
+                      f"{fr['launches']}, want {layers} each")
+            if fr["losses"] != by_rank[0]["losses"] or \
+                    fr["grad_digest"] != by_rank[0]["grad_digest"]:
+                _fail(f"34c {form}: rank {r}'s losses or @GRADs differ from "
+                      f"rank 0's")
+            n = BERT_AGREE_STEPS * layers
+            launches[f"34c world {form} rank {r} ({layers} layers x "
+                     f"{BERT_AGREE_STEPS} steps)"] = (n, n, n, 0)
+        # on the host: the card's memory stays phase 34's and 34b's
+        forms[form] = (by_rank[0]["losses"], torch.load(
+            os.path.join(base, f"shard_{form}_grads.pt"),
+            map_location="cpu"))
+        rec[form] = {k: [fr[k] for fr in by_rank] for k in (
+            "losses", "state_bytes", "gather_ms_per_step",
+            "all_reduce_ms_per_step", "held_elements", "global_elements",
+            "reductions", "gathers_per_step", "whole_params_cut",
+            "scope_elements", "share_elements")}
+    ck = os.path.join(base, "ckpt")
+    if os.listdir(ck).count("index.json") != 1:
+        _fail(f"34c: the world's checkpoint holds {os.listdir(ck)}")
+    main, _startup, _loss = dp_agree_program()
+    _annotate(main, "both")
+    mesh = make_mesh(dp=DP, devices=["cuda:0"] * DP)
+    scope = fluid.Scope()
+    fluid.io.load_checkpoint_sharded(fluid.Executor(), ck, main_program=main,
+                                     mesh=mesh, scope=scope)
+    want = recs[0]["shard"]["both"]["state_digests"]
+    got = {n: hashlib.sha1(host_array(scope.get(n)).tobytes()).hexdigest()
+           for n in scope.names()}
+    laid = sum(isinstance(scope.get(n), ShardedTensor) for n in got)
+    if got != want or recs[1]["shard"]["both"]["state_digests"] != want \
+            or not laid:
+        _fail("34c: the world's checkpoint does not restore bitwise into "
+              f"a local dp {DP} mesh ({laid} values laid out)")
+    rec["restored_into_local_dp"] = {"values": len(got), "laid_out": laid,
+                                     "bitwise": True}
+    # 34c's share of 21d's wall time: the slower rank's two forms
+    rec["seconds_in_21d"] = max(r["shard_s"] for r in recs)
+    print("34c: each rank holds half of every sharded variable; the "
+          "world's checkpoint restores bitwise into a local dp "
+          f"{DP} mesh")
+    return {"forms": forms, "launches": launches, "record": rec}
+
+
+def check_shard_world(world, runs):
+    """Phase 34c's agreement: each world form's losses and first-step
+    @GRADs (rank 0's; rank 1's equal them bitwise) against 34b's local
+    run of the same form, at 21d's tolerances. Returns the record."""
+    rec = dict(world["record"], card=_card_line())
+    for form, (losses, grads) in world["forms"].items():
+        local = (runs[form][0], [g.cpu() for g in runs[form][1]])
+        names = [f"{i}" for i in range(len(grads))]
+        err = _staged(f"34c world {form} vs 34b local dp {DP}",
+                      (losses, grads), local, names, DP_FIRST_LOSS_TOL,
+                      DP_GRAD_TOL)
+        rec[form]["vs_local"] = err
+    rec["replicated_state_bytes_21d"] = world["replicated_state_bytes"]
+    print("shard world " + json.dumps(rec))
+    return rec
 
 
 def phase_dp_all(flash, bert16, prof16):
@@ -6388,8 +6607,8 @@ def phase_dp_all(flash, bert16, prof16):
     alaunches, aerrs, dp_ref = _phase("21b dp agree", phase_dp_agree,
                                       flash)
     slaunches, serrs = _phase("21c dp x sp GPT", phase_dp_sp, flash)
-    wlaunches, _ = _phase("21d dp world, two processes", phase_dp_world,
-                          dp_ref)
+    wlaunches, _, world = _phase("21d dp world, two processes (and 34c)",
+                                 phase_dp_world, dp_ref)
     steps = BERT_WARM + BERT_STEPS
     paths = {f"21 dp {DP} BERT-base pretrain ({steps} steps)": dlaunches,
              f"21b dp {DP} agree (kernel run, {BERT_AGREE_LAYERS} layers x "
@@ -6399,7 +6618,7 @@ def phase_dp_all(flash, bert16, prof16):
     errs = {f"21b dp {DP} vs dp 1": aerrs["dp2_vs_dp1"],
             f"21b dp {DP} kernel vs plain": aerrs["kernel_vs_plain"],
             f"21c dp {DP} x sp 2 vs dp 1": serrs}
-    return paths, errs, (rec, prof)
+    return paths, errs, (rec, prof), world
 
 
 # ---------------------------------------------------------------------------
@@ -13068,6 +13287,474 @@ def phase_quant_all(flash, paged, v1_rec=None):
     return total, recs
 
 
+# ---------------------------------------------------------------------------
+# phases 34-34d: sharded state under CompiledProgram
+# ---------------------------------------------------------------------------
+
+def _annotate(main, form):
+    """The transpiler's annotations of `form`: ZeRO-1
+    (shard_optimizer_state), FSDP (shard_params_fsdp) or both (the
+    fleet's use_fsdp); "plain" none."""
+    from paddle_tpu_torch.parallel import (shard_optimizer_state,
+                                           shard_params_fsdp)
+    if form in ("zero1", "both"):
+        shard_optimizer_state(main)
+    if form in ("fsdp", "both"):
+        shard_params_fsdp(main, min_size=FSDP_MIN_SIZE)
+    return main
+
+
+def _laid_out(scope):
+    from paddle_tpu_torch.parallel import ShardedTensor
+    return {n: scope.get(n) for n in scope.names()
+            if isinstance(scope.get(n), ShardedTensor)}
+
+
+def _scope_shares(main, scope, mesh):
+    """(the elements `scope` holds, summed over every value: a sharded
+    value's parts, any other tensor whole; the elements it holds when each
+    persistable holds its share by its dist_attr's placement over `mesh`
+    and the rest whole; the persistables a dist_attr lays out that the
+    scope holds whole). A whole copy of a sharded variable makes the
+    first exceed the second."""
+    from paddle_tpu_torch.parallel import ShardedTensor
+    from paddle_tpu_torch.parallel.sharded import placement_spec
+    attrs = {v.name: getattr(v, "dist_attr", None) for v in main.list_vars()}
+    held = share = 0
+    whole = []
+    for n in scope.names():
+        v = scope.get(n)
+        if not isinstance(v, (torch.Tensor, ShardedTensor)):
+            continue
+        held += v.numel()
+        spec = placement_spec(attrs.get(n), tuple(v.shape), mesh)
+        ways = int(np.prod([mesh.shape[a] for e in spec if e is not None
+                            for a in (e if isinstance(e, tuple)
+                                      else (e,))]))
+        share += int(np.prod(v.shape)) // ways
+        if ways > 1 and not isinstance(v, ShardedTensor):
+            whole.append(n)
+    return held, share, whole
+
+
+def _shard_shapes_want(main, mesh):
+    """{name: [part shape] * parts} of every parameter a dist_attr lays
+    out over `mesh`, by the placement rule (JAX's _var_sharding)."""
+    from paddle_tpu_torch.parallel.sharded import (is_replicated,
+                                                   placement_spec)
+    out = {}
+    for p in main.all_parameters():
+        spec = placement_spec(p.dist_attr, tuple(p.shape), mesh)
+        if is_replicated(spec):
+            continue
+        n = 1
+        shape = list(p.shape)
+        for d, e in enumerate(spec):
+            if e is not None:
+                k = mesh.shape[e]
+                shape[d] //= k
+                n *= k
+        out[p.name] = [shape] * n
+    return out
+
+
+def _tp_reductions(layers):
+    """The tp rules' reductions a BERT step: the vocab-split lookup, each
+    layer's attention and FFN sums, and the gather of the vocab-split
+    MLM logits that softmax_with_cross_entropy reads whole."""
+    return 2 * layers + 2
+
+
+def phase_tp_train(flash, bert16, prof16):
+    """Phase 34: phase 16's cell with apply_shard_rules under
+    CompiledProgram(main).with_mesh(make_mesh(tp=2, devices=["cuda:0"] *
+    2)): BERT_WARM + TP_TRAIN_STEPS steps and a profile, 24 + 24 + 24
+    flash launches a step (12 layers x 2 ranks, 6 heads each), the tp
+    rules' reductions, the parts' shapes; then the 2-layer net at tp 2
+    against tp 1. Returns ((fwd, dQ, dK/dV, bf16 fwd) launches of the
+    run, its record)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import apply_shard_rules, make_mesh
+    cfg = bert_config()
+    main, startup, loss = build_bert(cfg)
+    apply_shard_rules(main)
+    mesh = make_mesh(tp=TP, devices=["cuda:0"] * TP)
+    comp = fluid.CompiledProgram(main).with_mesh(mesh)
+    feed = bert_feed()
+    exe = fluid.Executor()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = cfg.num_hidden_layers
+    steps = BERT_WARM + TP_TRAIN_STEPS
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        _zero_counts(flash)
+        red0 = mesh.reductions
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, comp, feed, loss, steps, BERT_WARM)
+        counts = _bwd_counts(flash)
+        reductions = mesh.reductions - red0
+        peak = torch.cuda.max_memory_allocated()
+        shapes = {k: [list(p.shape) for p in v.parts]
+                  for k, v in _laid_out(scope).items()}
+        prof = _profile_train(lambda: exe.run(comp, feed=feed,
+                                              fetch_list=[loss]),
+                              BERT_PROFILE_STEPS)
+    want_shapes = _shard_shapes_want(main, mesh)
+    if per_step != {(TP * n,) * 3} or tc or counts != (steps * TP * n,) * 3:
+        _fail(f"tp: flash launches fwd/dq/dkv per step {per_step} (run "
+              f"{counts}), want {TP} x {n} each; {tc} tensor-core")
+    if reductions != steps * _tp_reductions(n):
+        _fail(f"tp: {reductions} reductions in {steps} steps, want "
+              f"{_tp_reductions(n)} a step")
+    h, v = cfg.hidden_size, cfg.vocab_size       # 768 and 30522
+    if {k: x for k, x in shapes.items() if k in want_shapes} != \
+            want_shapes or shapes["enc0_attn_q"] != [[h, h // TP]] * TP \
+            or shapes["word_embedding"] != [[v // TP, h]] * TP:
+        _fail(f"tp: parts {shapes}, want {want_shapes}")
+    first, last = losses[0], losses[-1]
+    if not np.isfinite(losses).all() or not last < BERT_LOSS_MARGIN * first:
+        _fail(f"tp: loss not finite or not below {BERT_LOSS_MARGIN} x the "
+              f"first: {losses}")
+    agree = _tp_agree(flash)
+    mean_ms = float(np.mean(step_ms))
+    out = {"config": "BertConfig(max_position_embeddings=512)",
+           "mesh": f"local tp {TP} on cuda:0", "card": _card_line(),
+           "seq_len": BERT_SEQ, "batch": BERT_BATCH,
+           "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "step_ms_mean": mean_ms,
+           "tokens_per_s": BERT_BATCH * BERT_SEQ / (mean_ms / 1e3),
+           "max_memory_allocated": peak, "loss_first": first,
+           "loss_last": last, "loss_ratio": last / first,
+           "reductions_per_step": reductions / steps,
+           "flash_launches_fwd_dq_dkv": list(counts),
+           "flash_launches_per_step": list(next(iter(per_step))),
+           "parts": {k: shapes[k] for k in ("enc0_attn_q", "enc0_attn_o",
+                                            "enc0_ffn0_w", "enc0_ffn1_w",
+                                            "word_embedding")},
+           "tp2_vs_tp1": agree[1]}
+    print("tp train " + json.dumps(out))
+    print("profile tp train " + json.dumps(prof))
+    keys = ("step_ms_p50", "step_ms_p99", "tokens_per_s",
+            "max_memory_allocated", "loss_first", "loss_last")
+    pkeys = ("wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+             "device_ops_per_step", "flash_share_of_device")
+    print(f"tp {TP} vs 16 (f32): " + json.dumps(
+        {**{k: [out[k], bert16[k]] for k in keys},
+         **{k: [prof[k], prof16[k]] for k in pkeys}}))
+    return counts + (tc,), out, agree[0]
+
+
+def _tp_agree(flash):
+    """34's agreement: the 2-layer net (dropout 0) at tp 2 against tp 1
+    through the kernels, BERT_AGREE_STEPS steps: the first loss within
+    DP_FIRST_LOSS_TOL, the first step's gathered @GRADs within DP_GRAD_TOL
+    of their scale. Returns (the tp 2 run's launches, errors)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import apply_shard_rules, make_mesh
+    main, startup, loss = dp_agree_program()
+    apply_shard_rules(main)
+    feed = dp_agree_feed()
+    exe = fluid.Executor()
+    base = fluid.Scope()
+    with fluid.scope_guard(base):
+        exe.run(startup)
+    names = [p.name for p in main.all_parameters()]
+    runs = {}
+    for tp in (1, TP):
+        comp = fluid.CompiledProgram(main).with_mesh(
+            make_mesh(tp=tp, devices=["cuda:0"] * tp))
+        runs[tp] = _dp_steps(flash, _runner(exe, comp, feed), base, loss,
+                             names, BERT_AGREE_STEPS)
+    layers, steps = BERT_AGREE_LAYERS, BERT_AGREE_STEPS
+    want = {1: (layers * steps,) * 3 + (0,),
+            TP: (TP * layers * steps,) * 3 + (0,)}
+    if runs[1][2] != want[1] or runs[TP][2] != want[TP]:
+        _fail(f"tp agree: launches tp 1 {runs[1][2]}, tp {TP} "
+              f"{runs[TP][2]}, want {want}")
+    return runs[TP][2], _staged(f"tp agree: tp {TP} vs tp 1", runs[TP],
+                                runs[1], names, DP_FIRST_LOSS_TOL,
+                                DP_GRAD_TOL)
+
+
+def _same_bits(a, b):
+    return a[0] == b[0] and all(torch.equal(x, y)
+                                for x, y in zip(a[1], b[1]))
+
+
+def phase_shard_dp(flash, rec21, prof21):
+    """Phase 34b: ZeRO-1 and FSDP at a local dp DP on cuda:0. The 12-layer
+    net under both for BERT_WARM + SHARD_STEPS steps and a profile (first:
+    its peak memory then holds nothing else, as phase 21's); then the
+    2-layer net four ways (plain, ZeRO-1, FSDP, both) for BERT_AGREE_STEPS
+    steps, gated bitwise (the CPU twin's result: a gather concatenates the
+    same values and the optimizer ops are elementwise). Returns
+    ((fwd, dQ, dK/dV, bf16 fwd) launches of the 12-layer run, the
+    2-layer runs by form, the both-form scope after BERT_AGREE_STEPS, its
+    program and loss, the record)."""
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor()
+    cfg = bert_config()
+    main, startup, loss = build_bert(cfg)
+    _annotate(main, "both")
+    comp = _dp_program(main, loss, [fluid.CUDAPlace(0)] * DP)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = cfg.num_hidden_layers
+    steps = BERT_WARM + SHARD_STEPS
+    big = fluid.Scope()
+    with fluid.scope_guard(big):
+        exe.run(startup)
+        _zero_counts(flash)
+        red0 = comp.mesh.reductions
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, comp, bert_feed(), loss, steps, BERT_WARM)
+        counts = _bwd_counts(flash)
+        reductions = comp.mesh.reductions - red0
+        peak = torch.cuda.max_memory_allocated()
+        laid = _laid_out(big)
+        params = sum(p.name in laid for p in main.all_parameters())
+        prof = _profile_train(lambda: exe.run(comp, feed=bert_feed(),
+                                              fetch_list=[loss]),
+                              BERT_PROFILE_STEPS)
+    del big
+    feed = dp_agree_feed()
+    # a new Executor: the startup's draws fold in its step counter, so the
+    # forms start from the state 34c's world ranks start from
+    exe = fluid.Executor()
+    runs, agree = {}, {}
+    base = None
+    for form in SHARD_FORMS:
+        main, startup, loss = dp_agree_program()
+        _annotate(main, form)
+        if base is None:
+            base = fluid.Scope()
+            with fluid.scope_guard(base):
+                exe.run(startup)
+            names = [p.name for p in main.all_parameters()]
+        comp = _dp_program(main, loss, [fluid.CUDAPlace(0)] * DP)
+        red0 = comp.mesh.reductions
+        runs[form] = _dp_steps(flash, _runner(exe, comp, feed), base, loss,
+                               names, BERT_AGREE_STEPS)
+        agree[form] = {"losses": runs[form][0],
+                       "reductions_per_step": (comp.mesh.reductions - red0)
+                       / BERT_AGREE_STEPS}
+        if form == "both":
+            both = (main, loss, comp)
+        if not _same_bits(runs[form], runs["plain"]):
+            _fail(f"34b: {form} at dp {DP} is not plain dp {DP}'s bits: "
+                  f"losses {runs[form][0]} vs {runs['plain'][0]}")
+    want = (DP * BERT_AGREE_LAYERS * BERT_AGREE_STEPS,) * 3 + (0,)
+    if any(r[2] != want for r in runs.values()):
+        _fail(f"34b: launches {[r[2] for r in runs.values()]}, want {want}")
+    # the both-form scope after BERT_AGREE_STEPS, for 34d
+    scope = _copy_scope(base)
+    with fluid.scope_guard(scope):
+        for _ in range(BERT_AGREE_STEPS):
+            exe.run(both[2], feed=feed, fetch_list=[both[1]])
+    if per_step != {(DP * n,) * 3} or tc or counts != (steps * DP * n,) * 3:
+        _fail(f"34b: flash launches fwd/dq/dkv per step {per_step} (run "
+              f"{counts}), want {DP} x {n} each; {tc} tensor-core")
+    if reductions != steps * (DP_REDUCTIONS + params):
+        _fail(f"34b: {reductions} reductions in {steps} steps, want "
+              f"{DP_REDUCTIONS} + {params} gathers a step")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        _fail(f"34b: loss not finite or not falling: {losses}")
+    mean_ms = float(np.mean(step_ms))
+    out = {"config": "BertConfig(max_position_embeddings=512)",
+           "mesh": f"local dp {DP} on cuda:0, FSDP + ZeRO-1",
+           "card": _card_line(), "forms_2_layers": agree,
+           "bitwise_across_forms": True, "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_mean": mean_ms,
+           "max_memory_allocated": peak, "loss_first": losses[0],
+           "loss_last": losses[-1], "sharded_params": params,
+           "sharded_values": len(laid),
+           "reductions_per_step": reductions / steps,
+           "flash_launches_fwd_dq_dkv": list(counts)}
+    print("shard dp " + json.dumps(out))
+    print("profile shard dp " + json.dumps(prof))
+    print(f"34b FSDP + ZeRO-1 vs 21 plain dp {DP}: " + json.dumps(
+        {"step_ms_p50": [out["step_ms_p50"], rec21["step_ms_p50"]],
+         "max_memory_allocated": [peak, rec21["max_memory_allocated"]],
+         **{k: [prof[k], prof21[k]] for k in ("device_ms_per_step",
+                                              "device_ops_per_step")}}))
+    paths = {f"34b FSDP + ZeRO-1 dp {DP} BERT-base ({steps} steps)":
+             counts + (tc,),
+             f"34b dp {DP} forms (kernel runs, {len(SHARD_FORMS)} x "
+             f"{BERT_AGREE_LAYERS} layers x {BERT_AGREE_STEPS} steps)":
+             tuple(sum(r[2][i] for r in runs.values()) for i in range(4))}
+    return paths, runs, (both[0], both[1], scope), out
+
+
+def _state_bits(scope):
+    """{name: the global value on the host} of every persistable."""
+    from paddle_tpu_torch.io.state import host_array
+    return {n: host_array(scope.get(n)) for n in scope.names()}
+
+
+def phase_shard_ckpt(flash, state):
+    """Phase 34d: 34b's 2-layer FSDP + ZeRO-1 scope at dp DP after
+    BERT_AGREE_STEPS steps: an async sharded save, CKPT_DIVERGE diverging
+    steps, a restore onto the dp DP mesh (bitwise, with its specs), onto
+    a dp CKPT_ELASTIC_DP mesh (loaded whole and laid out by the walk:
+    word_embedding's 30522 rows stay replicated there; a load with that
+    mesh raises as jax.device_put would) and onto no mesh; CKPT_CONTINUE
+    steps on each within DP_LATER_LOSS_TOL of the dp DP continuation."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.compiler import DataParallelWalk
+    from paddle_tpu_torch.io.checkpoint import _safe_name
+    from paddle_tpu_torch.parallel import ShardedTensor, make_mesh
+    main, loss, scope = state
+    feed = dp_agree_feed()
+    other = dict(feed)
+    other["mask_label"] = np.roll(feed["mask_label"], 1)
+    exe = fluid.Executor()
+    mesh = make_mesh(dp=DP, devices=["cuda:0"] * DP)
+    comp = fluid.CompiledProgram(main).with_mesh(mesh)
+    _zero_counts(flash)
+    with fluid.scope_guard(scope):
+        exe.run(comp, feed=feed, fetch_list=[loss])   # lays it out on mesh
+    laid = _laid_out(scope)
+    root = tempfile.mkdtemp(prefix="shard_ckpt_")
+    try:
+        ck = os.path.join(root, "ckpt")
+        saved = _state_bits(scope)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            handle = fluid.io.save_checkpoint_sharded(
+                exe, ck, main_program=main, step=BERT_AGREE_STEPS + 1,
+                async_save=True)
+        handle.wait()
+        save_s = time.perf_counter() - t0
+        files = os.listdir(os.path.join(ck, "shards"))
+        written = sum(os.path.getsize(os.path.join(ck, "shards", f))
+                      for f in files)
+        for name, v in laid.items():
+            # a file's array, not its size: the .npy header outweighs a
+            # 2-element moment's half
+            mine = [np.load(os.path.join(ck, "shards", f), mmap_mode="r")
+                    for f in files
+                    if f.rsplit("--", 1)[0] == _safe_name(name)]
+            if len(mine) != DP or any(a.nbytes >= saved[name].nbytes
+                                      for a in mine):
+                _fail(f"34d: {name} has {len(mine)} shard files of "
+                      f"{[a.nbytes for a in mine]} B, want {DP} each "
+                      f"smaller than the {saved[name].nbytes} B array")
+        with fluid.scope_guard(scope):
+            for _ in range(CKPT_DIVERGE):
+                exe.run(comp, feed=other, fetch_list=[loss])
+        if all(np.array_equal(_state_bits(scope)[n], saved[n])
+               for n in laid):
+            _fail("34d: the diverging steps changed nothing")
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            meta = fluid.io.load_checkpoint_sharded(exe, ck,
+                                                    main_program=main,
+                                                    mesh=mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if meta["step"] != BERT_AGREE_STEPS + 1:
+            _fail(f"34d: restored step {meta['step']}")
+        got = _state_bits(scope)
+        bad = [n for n in saved if not np.array_equal(got[n], saved[n])]
+        specs = [n for n, v in laid.items()
+                 if not isinstance(scope.get(n), ShardedTensor)
+                 or scope.get(n).spec != v.spec]
+        if bad or specs:
+            _fail(f"34d: dp {DP} restore not bitwise for {bad[:5]}, "
+                  f"specs lost for {specs[:5]}")
+        ref = _continue(exe, comp, feed, loss, scope)
+        mesh4 = make_mesh(dp=CKPT_ELASTIC_DP,
+                          devices=["cuda:0"] * CKPT_ELASTIC_DP)
+        try:
+            fluid.io.load_checkpoint_sharded(exe, ck, main_program=main,
+                                             mesh=mesh4, scope=fluid.Scope())
+            _fail(f"34d: a load onto dp {CKPT_ELASTIC_DP} laid "
+                  f"word_embedding's 30522 rows out")
+        except ValueError:
+            pass
+        out = {"card": _card_line(), "bytes_written": written,
+               "files": len(files), "save_s": save_s,
+               "restore_s": restore_s,
+               "save_gb_per_s": written / save_s / 1e9,
+               "restore_gb_per_s": written / restore_s / 1e9,
+               "sharded_values": len(laid),
+               f"continuation_dp{DP}": ref}
+        for tag, mesh_n in ((f"dp{CKPT_ELASTIC_DP}", mesh4),
+                            ("no_mesh", None)):
+            new = fluid.Scope()
+            with fluid.scope_guard(new):
+                fluid.io.load_checkpoint_sharded(exe, ck, main_program=main)
+            if mesh_n is not None:
+                DataParallelWalk(mesh_n, exe.device).place_state(main, new)
+                if isinstance(new.get("word_embedding"), ShardedTensor):
+                    _fail(f"34d: word_embedding laid out at dp "
+                          f"{CKPT_ELASTIC_DP}")
+                prog = fluid.CompiledProgram(main).with_mesh(mesh_n)
+            else:
+                prog = main
+            got = _state_bits(new)
+            bad = [n for n in saved if not np.array_equal(got[n], saved[n])]
+            if bad:
+                _fail(f"34d: {tag} restore not bitwise for {bad[:5]}")
+            losses = _continue(exe, prog, feed, loss, new)
+            err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            if err > DP_LATER_LOSS_TOL:
+                _fail(f"34d: {tag} continuation {losses} vs dp {DP}'s {ref}")
+            out[f"continuation_{tag}"] = losses
+            out[f"continuation_{tag}_rel_err"] = err
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+    # dp 2: 1 + CKPT_DIVERGE + CKPT_CONTINUE steps; dp 4: CKPT_CONTINUE;
+    # the plain Program: CKPT_CONTINUE steps of one rank
+    layers = BERT_AGREE_LAYERS
+    n = layers * (DP * (1 + CKPT_DIVERGE + CKPT_CONTINUE)
+                  + CKPT_ELASTIC_DP * CKPT_CONTINUE + CKPT_CONTINUE)
+    if launches != (n, n, n, 0):
+        _fail(f"34d: flash launches {launches}, want {n} each")
+    print("shard ckpt " + json.dumps(out))
+    return {f"34d sharded checkpoint ({layers} layers, dp {DP}, dp "
+            f"{CKPT_ELASTIC_DP} and plain steps)": launches}, out
+
+
+def _continue(exe, program, feed, loss, scope):
+    import paddle_tpu_torch as fluid
+    with fluid.scope_guard(scope):
+        return [float(np.asarray(exe.run(program, feed=feed,
+                                         fetch_list=[loss])[0])
+                      .reshape(-1)[0]) for _ in range(CKPT_CONTINUE)]
+
+
+def phase_shard_all(flash, bert16, prof16, rec21, world):
+    """Phases 34-34d (34c ran inside 21d's two processes: `world` is its
+    record, checked here against 34b's local runs). Returns (flash
+    launches by path, records)."""
+    tlaunches, trec, tagree = _phase("34 tp 2 BERT-base", phase_tp_train,
+                                     flash, bert16, prof16)
+    spaths, runs, state, srec = _phase("34b ZeRO-1 / FSDP dp 2",
+                                       phase_shard_dp, flash, *rec21)
+    wrec = _phase("34c world FSDP / ZeRO-1 (checked)", check_shard_world,
+                  world, runs)
+    cpaths, crec = _phase("34d sharded checkpoint", phase_shard_ckpt,
+                          flash, state)
+    paths = {f"34 tp {TP} BERT-base ({BERT_WARM + TP_TRAIN_STEPS} steps)":
+             tlaunches,
+             f"34 tp {TP} agree (kernel run, {BERT_AGREE_LAYERS} layers x "
+             f"{BERT_AGREE_STEPS} steps)": tagree,
+             **spaths, **world["launches"], **cpaths}
+    return paths, {"34": trec, "34b": srec, "34c": wrec, "34d": crec}
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -13252,7 +13939,7 @@ def main():
                              paged, cfg, tree)
     recipe_paths, recipe_errs, rec20 = phase_recipe_all(flash, bert16,
                                                         prof16)
-    dp_paths, dp_errs, rec21 = phase_dp_all(flash, bert16, prof16)
+    dp_paths, dp_errs, rec21, world34c = phase_dp_all(flash, bert16, prof16)
     recipe_dp_paths, _ = _phase("22 recipe dp", phase_recipe_dp, flash,
                                 rec20, rec21)
     phase_conv_all(flash, paged)
@@ -13269,6 +13956,12 @@ def main():
     vis_counts, vis_recs = phase_vision_all(flash, paged)
     met_counts, _ = phase_metric_all(flash, paged)
     quant_counts, _ = phase_quant_all(flash, paged, vis_recs["31b"]["v1"])
+    t34 = time.perf_counter()
+    c34 = world34c["record"]["seconds_in_21d"]
+    shard_paths, _ = phase_shard_all(flash, bert16, prof16, rec21, world34c)
+    del world34c
+    print(f"phases 34-34d: {time.perf_counter() - t34 + c34:.1f} s (34c's "
+          f"{c34:.1f} s inside 21d's processes)")
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -13363,13 +14056,14 @@ def main():
     # the flash kernels' paths: (fwd, dQ, dK/dV, bf16 fwd) launches of
     # each run, counted from 0 just before it
     flash_paths = {
-        "16 BERT-base pretrain (30 steps)": bert_launches,
+        f"16 BERT-base pretrain ({BERT_WARM + BERT_STEPS} steps)":
+            bert_launches,
         "16b BERT agree (kernel run, 2 layers x 3 steps)": bagree_launches,
         "16c packed pretrain (10 steps)": packed_launches,
         "16c packed agree (kernel run, 2 layers x 1 step)": pagree_launches,
         **{f"17 ring sp {RING_SP} {case} (one call)": c
            for case, c in ring_launches.items()},
-        **recipe_paths, **dp_paths, **recipe_dp_paths,
+        **recipe_paths, **dp_paths, **recipe_dp_paths, **shard_paths,
         f"24 Transformer-base train ({TF_WARM + TF_STEPS} steps)":
             tf_launches,
         "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":

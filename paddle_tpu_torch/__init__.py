@@ -41,7 +41,11 @@ heads ``layers.nce`` / ``hsigmoid`` /
 ``sampled_softmax_with_cross_entropy``, the matching layers) and every
 initializer; and quantization-aware training and post-training
 quantization (``quant/``), pruning and distillation (``slim/``, but its
-NAS search), also under ``contrib.quantize`` / ``contrib.slim``. The top
+NAS search), also under ``contrib.quantize`` / ``contrib.slim``; and
+sharded state under ``CompiledProgram``: tensor-parallel Programs
+(``parallel.apply_shard_rules``), ZeRO-1 and FSDP (the transpiler's
+``shard_optimizer_state`` / ``shard_params_fsdp``, ``DistributeTranspiler``)
+and the sharded checkpoint (``io.save_checkpoint_sharded``). The top
 level is the ``fluid`` namespace of that recipe::
 
     import paddle_tpu_torch as fluid
@@ -78,6 +82,11 @@ from .io.state import (save_params, save_persistables, save_vars,
 from .io.inference_io import save_inference_model, load_inference_model
 from .io.dataset import (DatasetFactory, InMemoryDataset, QueueDataset,
                          FileInstantDataset, BoxPSDataset, DataFeedDesc)
+from . import parallel, transpiler
+# fluid exposes the transpiler surface at the top level (the reference's
+# fluid/__init__.py pulls in transpiler.__all__), as the JAX package does
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         memory_optimize, release_memory)
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "scope_from_numpy", "Program", "Variable", "Parameter",
@@ -93,4 +102,7 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "save_vars", "load_params", "load_persistables", "load_vars",
            "save_inference_model", "load_inference_model",
            "DatasetFactory", "InMemoryDataset", "QueueDataset",
-           "FileInstantDataset", "BoxPSDataset", "DataFeedDesc"]
+           "FileInstantDataset", "BoxPSDataset", "DataFeedDesc",
+           "parallel", "transpiler", "DistributeTranspiler",
+           "DistributeTranspilerConfig", "memory_optimize",
+           "release_memory"]

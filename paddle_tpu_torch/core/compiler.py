@@ -33,14 +33,31 @@ whenever ranks hold different numbers of masked tokens):
 - a sharded fetch is the rank-order concatenation along dim 0 (in a
   world all-gathered), as the JAX fetch of the global value.
 
-``with_mesh(mesh)`` takes a mesh with "dp" and "sp" axes: under sp the
-walk activates the sp axis alone, so each rank's attention takes the ring
-over its own rows. Refused with ``NotImplementedError``: a mesh whose
-tp, pp or ep is larger than 1, a persistable whose ``dist_attr`` shards
-over an axis larger than 1 (tensor-parallel Program training, ZeRO-1 and
-FSDP are ROADMAP queue A item 10d), a world mesh with any axis but dp,
-and a local mesh over several devices. A ``RecomputeOptimizer`` program
-runs under the walk (``Executor.run``).
+Sharded state (JAX's ``_run_data_parallel`` with ``_var_sharding``): a
+persistable whose ``dist_attr`` (``apply_shard_rules``, the transpiler's
+``shard_optimizer_state`` / ``shard_params_fsdp``) lays it out over the
+mesh is cut at the walk's first run into a ``parallel.sharded.
+ShardedTensor`` (each held position keeps only its block; the spec's
+axes the mesh lacks are dropped, a dimension they do not divide stays
+replicated), and stays sharded; a value laid out otherwise (left whole
+by a plain ``Executor.run``, or by another mesh) is cut again. An op
+reads a sharded value through its shard rule (``ops/__init__.py``: the
+Megatron rules over "tp", the optimizers' blockwise update), else
+through its global value (``ShardedTensor.gather``, counted in
+``reductions``; in a world an all-gather whose backward is a
+reduce-scatter, so a sharded gradient comes back whole for its rows and
+skips the fused all-reduce). The walk's autograd leaves are the parts,
+so ``name@GRAD`` comes out sharded like its parameter. The numbers are
+the unsharded run's (a tp mesh's partial sums add in rank order).
+
+``with_mesh(mesh)`` takes a mesh with "dp", "sp" and "tp" axes: under sp
+the walk activates the sp axis alone, so each rank's attention takes the
+ring over its own rows; under tp (a local mesh at dp 1) the feeds stay
+whole and the tp rules split the heads and the products. Refused with
+``NotImplementedError``: a mesh whose pp or ep is larger than 1 (ROADMAP
+item 11); tp or sp in a world, and tp beside dp or sp larger than 1
+(item 10d.2); a local mesh over several devices. A ``RecomputeOptimizer``
+program runs under the walk (``Executor.run``).
 """
 
 import os
@@ -48,11 +65,13 @@ import os
 import torch
 
 from ..ops import Sharded
+from ..parallel.sharded import ShardedTensor, is_replicated, placement_spec
 from .executor import Executor
 from .framework import default_main_program
 
-# the ROADMAP item of the sharded-state forms the walk refuses
-SHARDED_STATE_ITEM = "ROADMAP queue A item 10d"
+# the ROADMAP items of the mesh forms the walk refuses
+PIPELINE_ITEM = "ROADMAP item 11"
+MIXED_MESH_ITEM = "ROADMAP queue A item 10d.2"
 
 
 class BuildStrategy:
@@ -145,7 +164,9 @@ class CompiledProgram:
 
     def with_mesh(self, mesh):
         """Run over a named mesh (``parallel.make_mesh``): feeds split
-        over its 'dp' axis, attention rings over its 'sp' axis."""
+        over its 'dp' axis, attention rings over its 'sp' axis, the
+        tp rules split heads and products over its 'tp' axis, and each
+        persistable is laid out by its ``dist_attr``."""
         self._data_parallel = True
         self._mesh = mesh
         return self
@@ -202,23 +223,29 @@ def _same_device(a, b):
 
 
 class DataParallelWalk:
-    """One run's data-parallel state: the mesh, its dp size, the dp ranks
-    this process holds (every rank of a local mesh, its own in a world)
-    and the collectives the ops' dp rules call (``sum``, ``cat``)."""
+    """One run's state over a mesh: the mesh, its dp size, the dp ranks
+    this process holds (every rank of a local mesh, its own in a world),
+    the collectives the ops' dp rules call (``sum``, ``cat``), the
+    placement of the sharded state and the run's gathers of it."""
 
     def __init__(self, mesh, device, fuse=True):
         if "dp" not in mesh.shape:
             raise ValueError(f"{mesh} has no 'dp' axis")
-        for axis, size in mesh.shape.items():
-            if axis == "sp" and size > 1 and mesh.world:
+        for axis in ("pp", "ep"):
+            if mesh.shape.get(axis, 1) > 1:
                 raise NotImplementedError(
-                    "sequence parallelism under a data-parallel world mesh "
-                    "is not ported: the world form takes dp-only meshes")
-            if axis not in ("dp", "sp") and size > 1:
-                raise NotImplementedError(
-                    f"a mesh with {axis}={size} under CompiledProgram is not "
-                    f"ported ({SHARDED_STATE_ITEM} for tp, item 11 for pp "
-                    f"and ep); only dp and sp run")
+                    f"a mesh with {axis}={mesh.shape[axis]} under "
+                    f"CompiledProgram is not ported ({PIPELINE_ITEM})")
+        dp, tp, sp = (mesh.shape.get(a, 1) for a in ("dp", "tp", "sp"))
+        if mesh.world and (tp > 1 or sp > 1):
+            raise NotImplementedError(
+                f"tensor or sequence parallelism (tp={tp}, sp={sp}) over a "
+                f"torch.distributed world mesh is {MIXED_MESH_ITEM}: the "
+                f"world form takes dp-only meshes")
+        if tp > 1 and (dp > 1 or sp > 1):
+            raise NotImplementedError(
+                f"tp={tp} beside dp={dp} or sp={sp} on one mesh is "
+                f"{MIXED_MESH_ITEM}: a tp mesh runs at dp 1")
         if not mesh.world and not all(
                 _same_device(d, device) for d in mesh.devices.flat):
             raise NotImplementedError(
@@ -226,11 +253,15 @@ class DataParallelWalk:
                 f"{device}; got {list(mesh.devices.flat)} (start one "
                 f"process a card, a torch.distributed world, for several)")
         self.mesh = mesh
-        self.size = mesh.shape["dp"]
+        self.size = dp
+        self.tp = tp
         self.ranks = mesh.held("dp")
         self.world = mesh.world
         self.fuse = fuse
         self.device = device
+        # id(ShardedTensor) -> (the value, its parts' versions, the
+        # gathered global tensor): one gather a value and version a run
+        self._gathered = {}
 
     # -- the ops' collectives ------------------------------------------------
     def sum(self, parts):
@@ -239,27 +270,47 @@ class DataParallelWalk:
     def cat(self, parts):
         return self.mesh.all_concat(parts, "dp")
 
+    def gather(self, value):
+        """A sharded value's global tensor as an op reads it
+        (``ShardedTensor.gather``: differentiable, counted), gathered once
+        a run while its parts are unchanged."""
+        versions = tuple(p._version for p in value.parts)
+        hit = self._gathered.get(id(value))
+        if hit is not None and hit[0] is value and hit[1] == versions:
+            return hit[2]
+        full = value.gather()
+        self._gathered[id(value)] = (value, versions, full)
+        return full
+
     # -- the run -------------------------------------------------------------
-    def check_state(self, program):
-        """Refuse a persistable laid out over a mesh axis larger than 1:
-        the walk keeps the state replicated and never drops a layout
-        silently."""
+    def place_state(self, program, scope):
+        """Lay each persistable out as JAX's ``_run_data_parallel``
+        places it: by its ``dist_attr`` through ``placement_spec``
+        (``_var_sharding``), replicated without one. A value already laid
+        out so stays; any other is cut again from its global value."""
         for v in program.list_vars():
-            spec = getattr(v, "dist_attr", None) if v.persistable else None
-            for entry in (spec or ()):
-                for axis in (entry if isinstance(entry, tuple)
-                             else (entry,)):
-                    if axis is not None and self.mesh.shape.get(axis, 1) > 1:
-                        raise NotImplementedError(
-                            f"persistable '{v.name}' has dist_attr {spec}, "
-                            f"sharded over {axis}={self.mesh.shape[axis]}: "
-                            f"sharded state under CompiledProgram "
-                            f"(tensor-parallel Program training, ZeRO-1, "
-                            f"FSDP) is {SHARDED_STATE_ITEM}")
+            if not v.persistable:
+                continue
+            val = scope.get(v.name)
+            if not isinstance(val, (torch.Tensor, ShardedTensor)):
+                continue
+            spec = placement_spec(getattr(v, "dist_attr", None),
+                                  tuple(val.shape), self.mesh)
+            if isinstance(val, ShardedTensor):
+                if val.same_layout(spec, self.mesh):
+                    continue
+                val = val.full()
+            if is_replicated(spec):
+                scope.set(v.name, val)
+            else:
+                scope.set(v.name, ShardedTensor.cut(val, spec, self.mesh))
 
     def split_feeds(self, feeds):
         """Each feed's rows over dp where dp divides dim 0 (JAX's
-        ``_shard_feeds_spec``'s batch rule), else replicated."""
+        ``_shard_feeds_spec``'s batch rule), else replicated. A tp mesh
+        (dp 1) keeps every feed whole."""
+        if self.tp > 1:
+            return dict(feeds)
         out = {}
         for name, t in feeds.items():
             if t.dim() == 0 or t.shape[0] % self.size:
@@ -291,14 +342,22 @@ class DataParallelWalk:
 
     def reduce_grads(self, grads):
         """The global gradients: on a local mesh autograd already summed
-        the ranks; a world sums the ranks' partials over dp."""
+        the ranks; a world sums the ranks' partials over dp. A sharded
+        gradient is whole for its block already (its gather's backward
+        reduced it), so only the replicated ones are all-reduced."""
         if not self.world:
             return grads
-        return self.mesh.all_reduce_grads(grads, "dp", fuse=self.fuse)
+        self.mesh.all_reduce_grads(
+            [g for g in grads if not isinstance(g, ShardedTensor)], "dp",
+            fuse=self.fuse)
+        return grads
 
     def fetch(self, value):
-        """A sharded value -> the global one (rank-order concatenation
-        along dim 0; a world all-gathers); a replicated one as is."""
+        """A dp-sharded value -> the global one (rank-order concatenation
+        along dim 0; a world all-gathers), a sharded persistable its
+        global value; a replicated one as is."""
+        if isinstance(value, ShardedTensor):
+            return value.full()
         if not isinstance(value, Sharded):
             return value
         if self.world:

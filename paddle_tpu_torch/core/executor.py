@@ -32,6 +32,15 @@ checkpointed segment runs its ops through the walk, every held rank's,
 and re-runs them (their dp collectives included, in the same order on
 every rank) when the backward reaches it.
 
+Sharded state: the walk lays out the persistables a ``dist_attr``
+shards (``parallel.sharded.ShardedTensor``), and the scope keeps them
+so. Under the walk a sharded parameter's autograd leaves are its parts
+(``name@GRAD`` comes out sharded like it), a sharded persistable is
+written back as its sharded value, and its fetch is its global value.
+A plain run (a Program, or a CompiledProgram without a mesh) reads the
+global values of a sharded scope; what it writes goes back whole, and
+the next walk cuts it again.
+
 Two dispatch surfaces, as in the JAX package:
 
 - ``run()``: synchronous fluid semantics; fetches come back as numpy
@@ -105,6 +114,7 @@ from .place import CUDAPlace
 from .. import ops as ops_registry
 from ..observability import ComponentStats
 from ..ops.control_flow_ops import sub_block_reads
+from ..parallel.sharded import ShardedTensor
 
 
 class Scope:
@@ -238,12 +248,14 @@ def _guard_vector(env, names):
     ``_foreach_norm`` pass with ord inf over the monitored float tensors
     (a NaN or an Inf anywhere makes a tensor's largest magnitude non-
     finite; an overflow cannot) and ``isfinite`` of the stacked norms: a
-    few launches a step, not two reductions a tensor. A dp-sharded value
-    contributes each of its rows' parts under its name."""
+    few launches a step, not two reductions a tensor. A dp-sharded value,
+    or a sharded persistable or gradient, contributes each part it holds
+    under its name (``_dispatch`` ANDs a world's flags over its ranks)."""
     tensors, owners = [], []
     for n in names:
         v = env.get(n)
-        parts = v.parts if isinstance(v, ops_registry.Sharded) else (v,)
+        parts = v.parts if isinstance(v, (ops_registry.Sharded,
+                                          ShardedTensor)) else (v,)
         for t in parts:
             if isinstance(t, torch.Tensor) and t.is_floating_point():
                 tensors.append(t.detach())
@@ -720,13 +732,20 @@ class Executor:
         feeds = _canon_feeds(feed or {}, self.device, pinned=in_flight)
         self._validate(program, run_ops, feeds, fetch_names)
         if walk is not None:
-            walk.check_state(program)
+            walk.place_state(program, scope)
             feeds = walk.split_feeds(feeds)
 
         persist_names = sorted(v.name for v in program.list_vars()
                                if v.persistable)
         env = {n: scope.get(n) for n in persist_names
                if scope.get(n) is not None}
+        # a plain run reads a sharded scope's global values; what it
+        # leaves unchanged keeps its layout in the scope
+        whole = {} if walk is not None else {
+            n: v.full() for n, v in env.items()
+            if isinstance(v, ShardedTensor)}
+        versions = {n: t._version for n, t in whole.items()}
+        env.update(whole)
         env.update(feeds)
         seed = program.random_seed or framework.default_seed()
         step_id = self._step_counter    # what the RNG folds in; what a
@@ -780,15 +799,23 @@ class Executor:
 
         for n in persist_names:
             if n in env:
-                if isinstance(env[n], ops_registry.Sharded):
+                v = env[n]
+                if isinstance(v, ops_registry.Sharded):
                     raise NotImplementedError(
                         f"persistable '{n}' came out dp-sharded: the dp "
-                        f"walk keeps the state replicated")
-                scope.set(n, env[n])
+                        f"walk lays state out by its dist_attr, never by "
+                        f"the batch's rows")
+                if v is whole.get(n) and v._version == versions[n]:
+                    continue
+                scope.set(n, v)
         self._stats.count("executor.steps")
         guard = None
         if self._guard is not None:
             flags, owners = _guard_vector(env, guard_names)
+            if owners and walk is not None:
+                # a world rank reads only its blocks: every rank trips
+                # when any rank's block is non-finite
+                flags = walk.mesh.all_min(flags, "dp")
             if owners:      # a step with nothing to watch is unguarded
                 guard = (flags, owners, step_id)
         fetches = [env[f] for f in fetch_names]
@@ -812,10 +839,11 @@ class Executor:
         scope's tensors, for the optimizer's in-place updates. With a
         recompute `policy` the forward runs through
         ``run_checkpointed``; under the dp walk the loss may be sharded
-        and a world sums the gradients over dp."""
+        and a world sums the gradients over dp. A sharded parameter's
+        leaves are its parts, and its gradient a ShardedTensor of theirs."""
         names = [n for n in marker.attr("params") if n in env]
         loss_name = marker.attr("loss")
-        leaves = [env[n].detach().requires_grad_(True) for n in names]
+        leaves = [_leaf(env[n]) for n in names]
         fwd = dict(env)
         fwd.update(zip(names, leaves))
         with torch.enable_grad():
@@ -831,9 +859,13 @@ class Executor:
             # what nothing reads goes before the backward, which then
             # frees the activations as it consumes them
             del fwd
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(leaf) if g is None else g
-                 for leaf, g in zip(leaves, grads)]
+            flat = [t for leaf in leaves for t in _parts(leaf)]
+            flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        flat_grads = iter([torch.zeros_like(t) if g is None else g
+                           for t, g in zip(flat, flat_grads)])
+        grads = [leaf.like([next(flat_grads) for _ in leaf.parts])
+                 if isinstance(leaf, ShardedTensor) else next(flat_grads)
+                 for leaf in leaves]
         if walk is not None:
             grads = walk.reduce_grads(grads)
         for n, g in zip(names, grads):
@@ -856,6 +888,19 @@ class Executor:
                 raise ValueError(
                     f"feed variable '{v.name}' is required by the program "
                     f"but missing from feed={{...}}")
+
+
+def _leaf(value):
+    """An autograd leaf of a parameter's value: a tensor, or a sharded
+    value over leaf parts."""
+    if isinstance(value, ShardedTensor):
+        return value.like([p.detach().requires_grad_(True)
+                           for p in value.parts])
+    return value.detach().requires_grad_(True)
+
+
+def _parts(value):
+    return value.parts if isinstance(value, ShardedTensor) else (value,)
 
 
 # Convenience mirroring fluid.executor._run helpers -------------------------

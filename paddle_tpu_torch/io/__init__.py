@@ -4,8 +4,10 @@ parameters and persistables (``state.py``), inference models
 protobuf (``fluid_format.py``, ``fluid_proto.py``), checkpoints with their
 async writer (``checkpoint.py``: format 2, atomic writes, a CRC32
 manifest), and the dataset plane (``dataset.py``). Every file format is
-the JAX package's, so what one package writes the other reads. The
-sharded checkpoints are ROADMAP item 10d."""
+the JAX package's, so what one package writes the other reads; the
+sharded checkpoint (``save_checkpoint_sharded`` / ``load_checkpoint_
+sharded``: one file a distinct shard of a sharded value, ``index.json``
+the commit marker, a restore onto any mesh or none)."""
 
 from .state import (save_vars, save_params, save_persistables, load_vars,
                     load_params, load_persistables, is_parameter,
@@ -13,8 +15,10 @@ from .state import (save_vars, save_params, save_persistables, load_vars,
                     get_parameter_value_by_name)
 from .inference_io import save_inference_model, load_inference_model
 from .checkpoint import (CHECKPOINT_FORMAT, CheckpointCorruptError,
-                         CheckpointHandle, load_checkpoint, save_checkpoint,
-                         save_checkpoint_async, set_write_fault_hook)
+                         CheckpointHandle, load_checkpoint,
+                         load_checkpoint_sharded, save_checkpoint,
+                         save_checkpoint_async, save_checkpoint_sharded,
+                         set_write_fault_hook)
 from .fluid_format import (load_fluid_vars, save_fluid_vars,
                            load_fluid_persistables)
 from .fluid_proto import (parse_program_desc, encode_program_desc,
@@ -28,6 +32,7 @@ __all__ = ["save_vars", "save_params", "save_persistables", "load_vars",
            "load_inference_model", "CHECKPOINT_FORMAT",
            "CheckpointCorruptError", "CheckpointHandle", "save_checkpoint",
            "load_checkpoint", "save_checkpoint_async",
+           "save_checkpoint_sharded", "load_checkpoint_sharded",
            "set_write_fault_hook", "load_fluid_vars", "save_fluid_vars",
            "load_fluid_persistables", "parse_program_desc",
            "encode_program_desc", "load_fluid_inference_model",

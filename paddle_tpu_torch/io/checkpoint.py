@@ -22,15 +22,31 @@ corrupt state.
 (the device-to-host copy happens before it returns, after whatever the
 caller drained) and writes the files in a non-daemon thread; its
 ``CheckpointHandle`` re-raises a write error at ``wait()``, and writers
-never waited on are joined at interpreter exit. The sharded layout
-(``save_checkpoint_sharded``) is ROADMAP item 10d, with the sharded state
-it saves.
+never waited on are joined at interpreter exit.
+
+The sharded layout (``save_checkpoint_sharded``, the JAX package's
+orbax-style format: ``index.json`` + ``shards/*.npy``) writes one file a
+distinct shard of a sharded value (``parallel.sharded.ShardedTensor``),
+with its global start, and one ``--full`` file a replicated value, each
+with its CRC32; ``index.json`` is written last and atomically, the
+commit marker. So no file holds a sharded value whole, and
+``load_checkpoint_sharded`` restores bitwise onto any mesh (laid out by
+the recorded spec, as ``jax.device_put`` lays it: an axis the mesh lacks
+or a dimension it does not divide raises) or onto none (whole tensors,
+which the next data-parallel walk lays out by ``dist_attr``), the whole
+state or the variables named. In a ``torch.distributed`` world each rank
+writes the files of its own shards (rank 0 the replicated ones), rank 0
+gathers every rank's index entries and writes ``index.json`` after a
+barrier, and a load on any rank reads every rank's files; the barrier
+is a collective, so a world's save runs on the calling thread even with
+``async_save`` (ROADMAP C20).
 """
 
 import atexit
 import glob
 import json
 import os
+import re
 import threading
 import time
 import warnings
@@ -46,7 +62,8 @@ from .state import _atomic_save, host_array
 
 __all__ = ["CHECKPOINT_FORMAT", "CheckpointCorruptError",
            "CheckpointHandle", "save_checkpoint", "save_checkpoint_async",
-           "load_checkpoint", "set_write_fault_hook"]
+           "load_checkpoint", "set_write_fault_hook",
+           "save_checkpoint_sharded", "load_checkpoint_sharded"]
 
 _stats = ComponentStats()
 
@@ -70,7 +87,8 @@ _WRITE_FAULT_HOOK = None
 
 def set_write_fault_hook(hook):
     """Install `hook(kind, path)` to run before each physical checkpoint
-    write (kinds: 'state', 'meta'). Raising from the hook makes that
+    write (kinds: 'state', 'meta', 'shard', 'index'). Raising from the
+    hook makes that
     write fail. Pass None to uninstall. Test-only."""
     global _WRITE_FAULT_HOOK
     _WRITE_FAULT_HOOK = hook
@@ -319,3 +337,235 @@ def save_checkpoint_async(executor, dirname, main_program=None, step=0,
     _track(handle)
     t.start()
     return handle
+
+
+# ---------------------------------------------------------------------------
+# Sharded checkpoint (one file a distinct shard, keyed by the layout)
+# ---------------------------------------------------------------------------
+
+def _safe_name(name):
+    return re.sub(r"[^A-Za-z0-9_.-]", "_", name)
+
+
+def _spec_to_json(spec):
+    out = []
+    for e in tuple(spec):
+        if e is None or isinstance(e, str):
+            out.append(e)
+        else:
+            out.append(list(e))
+    return out
+
+
+def _spec_from_json(entries):
+    from ..parallel.tensor_parallel import PartitionSpec
+    return PartitionSpec(*[tuple(e) if isinstance(e, list) else e
+                           for e in entries])
+
+
+def _shard_payloads(n, val, rank0):
+    """(index entry, [(relative path, host array)]) of one value: a
+    sharded value's held parts, each with its global start and its file
+    numbered by its block's place among all the value's blocks (row-major
+    over the sharded dimensions); a replicated value's one --full file
+    (from rank 0 only in a world)."""
+    from ..parallel.sharded import ShardedTensor, is_replicated
+    entry = {"shape": [int(x) for x in val.shape], "shards": []}
+    payloads = []
+    if isinstance(val, ShardedTensor) and not is_replicated(val.spec):
+        entry["spec"] = _spec_to_json(val.spec)
+        for part, ix in zip(val.parts, val.blocks()):
+            k = 0
+            for size, sl in zip(val.shape, ix):
+                step = max(1, sl.stop - sl.start)
+                k = k * max(1, size // step) + sl.start // step
+            rel = f"shards/{_safe_name(n)}--{k}.npy"
+            data = host_array(part)
+            entry["shards"].append({"file": rel,
+                                    "start": [sl.start for sl in ix],
+                                    "shape": list(data.shape),
+                                    "crc32": _crc32(data)})
+            entry["dtype"] = str(data.dtype)
+            payloads.append((rel, data))
+        return entry, payloads
+    if not rank0:           # rank 0's entry lists the file
+        return entry, payloads
+    data = host_array(val)
+    entry["dtype"] = str(data.dtype)
+    rel = f"shards/{_safe_name(n)}--full.npy"
+    entry["shards"].append({"file": rel, "start": [0] * data.ndim,
+                            "shape": list(data.shape),
+                            "crc32": _crc32(data)})
+    payloads.append((rel, data))
+    return entry, payloads
+
+
+def _world():
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
+
+
+def save_checkpoint_sharded(executor, dirname, main_program=None, step=0,
+                            extra=None, async_save=False, scope=None):
+    """Write every persistable as shard files (see the module's
+    docstring). The host snapshot is taken on the calling thread (the
+    next step updates the tensors in place); the files are written in a
+    non-daemon thread with `async_save`. Returns a CheckpointHandle:
+    ``.wait()`` is the completion barrier and re-raises a write error.
+    Each file lands atomically with its CRC32 in ``index.json``, written
+    last and atomically, the commit marker."""
+    scope = scope or global_scope()
+    program = main_program or default_main_program()
+    names = [v.name for v in program.list_vars() if v.persistable]
+    world = _world()
+    rank0 = True
+    if world:
+        import torch.distributed as dist
+        rank0 = dist.get_rank() == 0
+    index, payloads = {}, []
+    for n in sorted(set(names)):
+        val = scope.get(n)
+        if val is None:
+            continue
+        entry, files = _shard_payloads(n, val, rank0)
+        index[n] = entry
+        payloads += files
+    meta = {"step": int(step), "extra": extra or {},
+            "format": CHECKPOINT_FORMAT}
+    err_box = []
+    handle = CheckpointHandle(None, err_box)
+
+    def write_shards():
+        os.makedirs(os.path.join(dirname, "shards"), exist_ok=True)
+        for rel, data in payloads:
+            _atomic_write(os.path.join(dirname, rel),
+                          lambda f, d=data: np.save(f, d), "shard")
+
+    def write_index(entries):
+        _atomic_write(os.path.join(dirname, "index.json"),
+                      lambda f: f.write(json.dumps(
+                          {"meta": meta, "vars": entries}).encode()),
+                      "index")
+
+    def _write():
+        try:
+            t0 = time.perf_counter()
+            write_shards()
+            write_index(index)
+            _stats.count("checkpoint.saves")
+            _stats.observe("checkpoint.save_ms",
+                           (time.perf_counter() - t0) * 1e3)
+        except BaseException as e:  # surfaced at .wait()
+            _stats.count("checkpoint.write_failures")
+            err_box.append(e)
+
+    if world:
+        _save_world(write_shards, write_index, index)
+        return handle
+    if async_save:
+        t = threading.Thread(target=_write, daemon=False,
+                             name="ckpt-shard-writer")
+        handle._thread = t
+        _track(handle)
+        t.start()
+        return handle
+    _write()
+    if err_box:
+        raise err_box[0]
+    return handle
+
+
+def _save_world(write_shards, write_index, index):
+    """A world's save: every rank writes its files, the ranks' entries
+    meet on rank 0, and rank 0 writes index.json after a barrier (so the
+    marker comes after every rank's files). A rank's write error fails
+    every rank's save."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    error = None
+    try:
+        write_shards()
+    except Exception as e:          # reported to every rank below
+        _stats.count("checkpoint.write_failures")
+        error = e
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, (index, error is None))
+    dist.barrier()
+    if error is not None:
+        raise error
+    if not all(ok for _i, ok in gathered):
+        raise OSError("a rank of the world failed to write its shard "
+                      "files: the checkpoint has no index.json")
+    if dist.get_rank() == 0:
+        merged = {}
+        for part, _ok in gathered:
+            for n, entry in part.items():
+                have = merged.setdefault(n, dict(entry, shards=[]))
+                files = {sh["file"] for sh in have["shards"]}
+                have["shards"] += [sh for sh in entry["shards"]
+                                   if sh["file"] not in files]
+        for entry in merged.values():
+            entry["shards"].sort(key=lambda sh: sh["start"])
+        write_index(merged)
+        _stats.count("checkpoint.saves")
+        _stats.observe("checkpoint.save_ms",
+                       (time.perf_counter() - t0) * 1e3)
+    dist.barrier()
+
+
+def load_checkpoint_sharded(executor, dirname, main_program=None, mesh=None,
+                            var_names=None, scope=None, validate=True):
+    """Restore from a sharded checkpoint: each variable assembled from its
+    shard files (bitwise) and placed on the executor's device. With
+    `mesh`, a variable saved sharded is laid out by its recorded spec on
+    that mesh, as ``jax.device_put`` would (``parallel.sharded.
+    device_put_spec``: raises ValueError where the mesh cannot); without,
+    every variable lands whole. `var_names` restores a subset. The shard
+    CRCs are checked before anything lands in the scope (`validate=False`
+    skips them). Returns the meta dict ({step, extra})."""
+    from ..parallel.sharded import ShardedTensor, device_put_spec, \
+        is_replicated
+    from .state import device_tensor, target_device
+    scope = scope or global_scope()
+    t0 = time.perf_counter()
+    index_path = os.path.join(dirname, "index.json")
+    if not os.path.exists(index_path):
+        raise FileNotFoundError(
+            f"{index_path} not found: an incomplete or missing checkpoint")
+    with open(index_path) as f:
+        blob = json.load(f)
+    wanted = set(var_names) if var_names is not None else None
+    staged = []
+    for n, entry in blob["vars"].items():
+        if wanted is not None and n not in wanted:
+            continue
+        full = np.empty(entry["shape"], dtype=np.dtype(entry["dtype"]))
+        for sh in entry["shards"]:
+            data = np.load(os.path.join(dirname, sh["file"]))
+            if validate and "crc32" in sh and _crc32(data) != sh["crc32"]:
+                _stats.count("checkpoint.crc_failures")
+                raise CheckpointCorruptError(
+                    f"{dirname}: CRC mismatch in shard {sh['file']} of "
+                    f"'{n}': a torn or corrupt checkpoint")
+            full[tuple(slice(st, st + ln) for st, ln in
+                       zip(sh["start"], data.shape))] = data
+        spec = None
+        if mesh is not None and "spec" in entry:
+            spec = device_put_spec(_spec_from_json(entry["spec"]),
+                                   full.shape, mesh, name=n)
+        staged.append((n, full, spec))
+    # every file was read and checked above, before any scope write: a
+    # corrupt checkpoint leaves the scope as it was
+    dev = target_device(executor)
+    for n, full, spec in staged:
+        value = device_tensor(full, dev)
+        if spec is not None and not is_replicated(spec) and any(
+                mesh.shape[a] > 1 for e in spec if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))):
+            value = ShardedTensor.cut(value, spec, mesh)
+        scope.set(n, value)
+    _stats.count("checkpoint.restores")
+    _stats.observe("checkpoint.restore_ms",
+                   (time.perf_counter() - t0) * 1e3)
+    return blob["meta"]

@@ -28,10 +28,27 @@ from ..core.executor import global_scope
 
 
 def host_array(value):
-    """A scope value (a tensor on any device, or array-like) as a host
-    numpy array of its own (a copy even for a CPU tensor, whose
-    ``.numpy()`` would share memory the optimizers update in place);
-    the device-to-host copy happens here, on the caller's thread."""
+    """A scope value (a tensor on any device, a sharded value, or
+    array-like) as a host numpy array of its own (a copy even for a CPU
+    tensor, whose ``.numpy()`` would share memory the optimizers update
+    in place); the device-to-host copy happens here, on the caller's
+    thread. A sharded value on a local mesh gives its global array, as
+    ``np.asarray`` of a JAX array does. In a ``torch.distributed`` world
+    its other blocks live in other processes, and, as ``np.asarray`` of a
+    JAX array that spans other processes' devices, this raises
+    RuntimeError at once: a gather here would wait for ranks that may
+    never call (Fluid's ``if trainer_id == 0: save_persistables(...)``).
+    Every rank calls ``save_checkpoint_sharded``, or ``full()``."""
+    from ..parallel.sharded import ShardedTensor, is_replicated
+    if isinstance(value, ShardedTensor):
+        if value.mesh.world and not is_replicated(value.spec):
+            raise RuntimeError(
+                f"a value sharded as {value.spec} over a torch.distributed "
+                f"world spans other processes: this process holds only "
+                f"its block. Save it with io.save_checkpoint_sharded from "
+                f"every rank, or gather it with ShardedTensor.full() on "
+                f"every rank")
+        value = value.full()
     if isinstance(value, torch.Tensor):
         return value.detach().to("cpu", copy=True).numpy()
     return np.array(value)

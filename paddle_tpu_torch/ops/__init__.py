@@ -23,6 +23,20 @@ global reduction with the mesh's dp collective into a replicated value. An op wi
 refuses a sharded input too: the walk never computes a silently local
 answer.
 
+Sharded state (``parallel.sharded.ShardedTensor``: a persistable a
+``dist_attr`` lays out over the mesh, its gradient, or an activation a
+tp rule leaves split over "tp") meets an op before its dp rule does. An
+op with a shard rule (``shard_rule``) may take it as it is: the Megatron
+rules over "tp" (``multihead_attention``, ``mul``, ``matmul``,
+``lookup_table``, the elementwise ops and the activations, each on the
+blocks a rank holds, a row-parallel product finished by the mesh's
+``reduce_fn``), and the optimizers' blockwise update. A rule that does
+not apply returns None, and so does an op without one: it then reads the
+value's global tensor (``walk.gather``: a concatenation of the parts on
+a local mesh, an all-gather in a world, counted in the mesh's
+``reductions``), and an in-place update of that tensor goes back into
+the parts.
+
 Kernels live in subpackages by route (``ops/cuda/``); the modules here
 are plain torch around them.
 """
@@ -30,9 +44,11 @@ are plain torch around them.
 import torch
 
 from ..core.framework import convert_dtype
+from ..parallel.sharded import ShardedTensor
 
 _REGISTRY = {}
 _DP_RULES = {}
+_SHARD_RULES = {}
 
 # the env key of the step's (program seed, step counter) pair, from which
 # OpContext.rng() seeds each random op's generator
@@ -67,6 +83,18 @@ def register(*names, dp):
             _REGISTRY[n] = fn
             _DP_RULES[n] = dp
         return fn
+    return deco
+
+
+def shard_rule(*names):
+    """Register `rule(impl, ctx, walk) -> outputs or None` as the shard
+    rule of the ops `names`: it runs when an input is a ShardedTensor,
+    with `ctx` over the whole env, and returns None where it does not
+    apply (the op then reads the global values)."""
+    def deco(rule):
+        for n in names:
+            _SHARD_RULES[n] = rule
+        return rule
     return deco
 
 
@@ -114,10 +142,10 @@ class OpContext:
     stay f32 outside the op (master weights)."""
 
     __slots__ = ("op", "env", "program", "is_test", "device", "live",
-                 "dp_rank", "walk", "_amp")
+                 "dp_rank", "walk", "block", "_amp")
 
     def __init__(self, op, env, program, is_test=False, device=None,
-                 live=None, dp_rank=None, walk=None):
+                 live=None, dp_rank=None, walk=None, block=None):
         self.op = op
         self.env = env
         self.program = program
@@ -128,6 +156,9 @@ class OpContext:
         # runs once, on replicated inputs)
         self.dp_rank = dp_rank
         self.walk = walk
+        # (global shape, index) of the block a shard rule hands this
+        # context (None: the op sees whole values)
+        self.block = block
         amp = op.attrs.get("__amp_dtype__")
         self._amp = torch_dtype(amp) if amp else None
 
@@ -233,6 +264,53 @@ class _RankView:
         return self.env.keys()
 
 
+class PartView:
+    """The env as one block's op reads it under a shard rule: the names
+    in `picks` read their block, every other name the env's value."""
+
+    __slots__ = ("env", "picks")
+
+    def __init__(self, env, picks):
+        self.env, self.picks = env, picks
+
+    def __getitem__(self, name):
+        if name in self.picks:
+            return self.picks[name]
+        return self.env[name]
+
+    def keys(self):
+        return self.env.keys()
+
+
+def part_context(ctx, picks, block=None):
+    """`ctx`'s op over a PartView of its env."""
+    return OpContext(ctx.op, PartView(ctx.env, picks), ctx.program,
+                     ctx.is_test, ctx.device, ctx.live, walk=ctx.walk,
+                     block=block)
+
+
+def tp_split(value, dims):
+    """Is `value` a ShardedTensor laid out over "tp" alone, on exactly the
+    dimensions `dims` (negative counts from the end)?"""
+    if not isinstance(value, ShardedTensor) or value.axes != ["tp"]:
+        return False
+    n = len(value.shape)
+    want = {d % n for d in dims}
+    return {d for d, e in enumerate(value.spec) if e is not None} == want \
+        and all(value.spec[d] == "tp" for d in want)
+
+
+def blockwise(impl, ctx, walk):
+    """The shard rule of an op of one input X and one output Out that
+    acts elementwise: once a part, its output laid out as X."""
+    name = ctx.op.input("X")[0]
+    x = ctx.env[name]
+    if not isinstance(x, ShardedTensor):
+        return None
+    outs = [impl(part_context(ctx, {name: p}))["Out"] for p in x.parts]
+    return {"Out": x.like(outs)}
+
+
 def _sharded_slot(vals):
     """One output slot's per-rank values -> Sharded (a list of Sharded
     where the slot holds several names)."""
@@ -300,11 +378,50 @@ def whole_context(ctx, walk):
 def run_op(op, env, program, is_test=False, device=None, live=None,
            walk=None):
     """Execute one op into env. Under the dp walk (`walk`) an op with a
-    dp-sharded input (or a tensor array holding one) goes through its dp
-    rule, one context a held rank; an op whose inputs are all replicated
-    runs once, with the walk in its context. A TensorArray output is
-    stored whole under its one name."""
+    sharded persistable or activation (a ShardedTensor) goes through its
+    shard rule, or reads the global values; then an op with a dp-sharded
+    input (or a tensor array holding one) goes through its dp rule, one
+    context a held rank; an op whose inputs are all replicated runs
+    once, with the walk in its context. A TensorArray output is stored
+    whole under its one name."""
     impl = get(op.type)
+    if walk is not None:
+        laid = [n for n in dict.fromkeys(op.input_names)
+                if isinstance(env.get(n), ShardedTensor)]
+        if laid:
+            rule = _SHARD_RULES.get(op.type)
+            outs = rule(impl, OpContext(op, env, program, is_test, device,
+                                        live, walk=walk), walk) \
+                if rule is not None else None
+            if outs is not None:
+                _store(op, env, outs)
+                return
+            _run_gathered(op, env, laid, impl, program, is_test, device,
+                          live, walk)
+            return
+    _run(op, env, impl, program, is_test, device, live, walk)
+
+
+def _run_gathered(op, env, laid, impl, program, is_test, device, live,
+                  walk):
+    """The op on the global values of its sharded inputs `laid`; a
+    global value it updated in place goes back into the parts, and the
+    names keep their sharded values unless the op wrote new ones."""
+    held = {n: env[n] for n in laid}
+    full = {n: walk.gather(v) for n, v in held.items()}
+    versions = {n: t._version for n, t in full.items()}
+    env.update(full)
+    try:
+        _run(op, env, impl, program, is_test, device, live, walk)
+    finally:
+        for n, value in held.items():
+            if env.get(n) is full[n]:
+                if full[n]._version != versions[n]:
+                    value.write(full[n])
+                env[n] = value
+
+
+def _run(op, env, impl, program, is_test, device, live, walk):
     sharded = walk is not None and any(
         is_sharded_value(env.get(n)) for n in op.input_names)
     if sharded:
@@ -320,6 +437,10 @@ def run_op(op, env, program, is_test=False, device=None, live=None,
     else:
         outs = impl(OpContext(op, env, program, is_test, device, live,
                               walk=walk))
+    _store(op, env, outs)
+
+
+def _store(op, env, outs):
     if outs:
         for slot, vals in outs.items():
             names = op.output(slot)

@@ -11,13 +11,15 @@ reference's gelu op; torch's default, as
 [c g, (c + 1) g) (a reshape and a max: torch has no maxout). Under data
 parallelism each runs a rank's rows (``softmax`` and ``log_softmax``
 where their axis is not dim 0; ``prelu`` with its Alpha replicated in
-every mode).
+every mode). On a tp-sharded activation (a ``ShardedTensor``: the
+column-parallel product's output) the elementwise ones run once a part
+(``blockwise``); the normalizing ones read its global value.
 """
 
 import torch
 import torch.nn.functional as F
 
-from . import register, rows, rows_if
+from . import blockwise, register, rows, rows_if, shard_rule
 
 
 @register("gelu", dp=rows)
@@ -185,3 +187,13 @@ def maxout(ctx):
     g = ctx.attr("groups")
     n, c = x.shape[:2]
     return {"Out": x.reshape((n, c // g, g) + tuple(x.shape[2:])).amax(2)}
+
+
+# the elementwise activations take a sharded X part by part
+shard_rule(
+    "gelu", "tanh", "relu", "sigmoid", "exp", "log", "sqrt", "ceil", "floor",
+    "cos", "square", "sign", "logsigmoid", "tanh_shrink", "rsqrt", "abs",
+    "round", "sin", "acos", "asin", "atan", "reciprocal", "softplus",
+    "softsign", "erf", "selu", "mish", "pow", "leaky_relu", "elu", "relu6",
+    "brelu", "soft_relu", "swish", "hard_swish", "hard_sigmoid",
+    "hard_shrink", "softshrink", "thresholded_relu", "stanh")(blockwise)

@@ -18,7 +18,12 @@ embeddings (plain torch, as XLA computes it in the JAX package).
 Under data parallelism the three ops run a rank's rows (the dp walk hands
 them one rank's batch; under a dp x sp mesh the walk activates the sp
 axis alone, so each rank's attention takes the ring over its own
-rows).
+rows). Under tensor parallelism ``multihead_attention``'s shard rule is
+Megatron's: WQ / WK / WV column-parallel (``P(None, "tp")``) and WO
+row-parallel (``P("tp", None)``), so each rank projects and attends its
+H / tp heads (the flash kernels on the card) and multiplies by its rows
+of WO; ``reduce_fn("tp")`` sums the ranks' partials, and BO is added
+once, after the sum.
 
 Not ported: the JAX dispatcher's switches ``PADDLE_TPU_FORCE_FLASH``,
 ``PADDLE_TPU_DISABLE_FLASH``, ``PADDLE_TPU_STRICT_FLASH`` and
@@ -30,7 +35,7 @@ import warnings
 
 import torch
 
-from . import register, rows
+from . import register, rows, shard_rule, tp_split
 from .flash import flash_attention, segment_mask_bias
 
 
@@ -125,19 +130,14 @@ def scaled_dot_product_attention_op(ctx):
     return {"Out": out}
 
 
-@register("multihead_attention", dp=rows)
-def multihead_attention_op(ctx):
-    """Fused projections + attention. Inputs: Query (B, Tq, M),
-    Key/Value (B, Tk, M), packed weights WQ/WK/WV (M, M), WO (M, M),
-    optional biases and attention Bias. num_heads attr splits M; the heads
-    reach the attention as (B, H, T, D) views of the projections, whose
-    strides the flash kernels take."""
+def _attend(ctx, n_heads, wq, wk, wv, wo, bq, bk, bv, bias):
+    """The projections, the attention over `n_heads` heads and the
+    output product (without its bias) of multihead_attention."""
     q_in = ctx.in_("Query")
     k_in = ctx.in_("Key")
     v_in = ctx.in_("Value")
     k_in = q_in if k_in is None else k_in
     v_in = k_in if v_in is None else v_in
-    n_heads = ctx.attr("num_heads")
 
     def proj(x, w, b):
         y = x @ w
@@ -147,15 +147,65 @@ def multihead_attention_op(ctx):
         b_, t, m = x.shape
         return x.reshape(b_, t, n_heads, m // n_heads).transpose(1, 2)
 
-    q = split_heads(proj(q_in, ctx.in_("WQ"), ctx.in_("BQ")))
-    k = split_heads(proj(k_in, ctx.in_("WK"), ctx.in_("BK")))
-    v = split_heads(proj(v_in, ctx.in_("WV"), ctx.in_("BV")))
-    o = dot_product_attention(q, k, v, bias=ctx.in_("Bias"),
+    q = split_heads(proj(q_in, wq, bq))
+    k = split_heads(proj(k_in, wk, bk))
+    v = split_heads(proj(v_in, wv, bv))
+    o = dot_product_attention(q, k, v, bias=bias,
                               causal=bool(ctx.attr("causal", False)),
                               segment_ids=ctx.in_("SegmentIds"))
     b_, h, t, d = o.shape
-    o = o.transpose(1, 2).reshape(b_, t, h * d)
-    return {"Out": proj(o, ctx.in_("WO"), ctx.in_("BO"))}
+    return o.transpose(1, 2).reshape(b_, t, h * d) @ wo
+
+
+@register("multihead_attention", dp=rows)
+def multihead_attention_op(ctx):
+    """Fused projections + attention. Inputs: Query (B, Tq, M),
+    Key/Value (B, Tk, M), packed weights WQ/WK/WV (M, M), WO (M, M),
+    optional biases and attention Bias. num_heads attr splits M; the heads
+    reach the attention as (B, H, T, D) views of the projections, whose
+    strides the flash kernels take."""
+    out = _attend(ctx, ctx.attr("num_heads"), ctx.in_("WQ"), ctx.in_("WK"),
+                  ctx.in_("WV"), ctx.in_("WO"), ctx.in_("BQ"),
+                  ctx.in_("BK"), ctx.in_("BV"), ctx.in_("Bias"))
+    bo = ctx.in_("BO")
+    return {"Out": out if bo is None else out + bo}
+
+
+@shard_rule("multihead_attention")
+def _tp_multihead_attention(impl, ctx, walk):
+    """Megatron's attention block over "tp": rank j projects with its
+    columns of WQ / WK / WV (its H / tp heads, their slices of BQ / BK /
+    BV and of a per-head Bias), attends, and multiplies by its rows of
+    WO; the ranks' partials are summed by ``reduce_fn("tp")`` and BO is
+    added once."""
+    env, op = ctx.env, ctx.op
+    ws = [env[op.input(s)[0]] for s in ("WQ", "WK", "WV", "WO")]
+    if not (all(tp_split(w, [1]) for w in ws[:3]) and tp_split(ws[3], [0])
+            and all(isinstance(env[n], torch.Tensor) for n in op.input_names
+                    if n not in {op.input(s)[0] for s in
+                                 ("WQ", "WK", "WV", "WO")})):
+        return None
+    n = len(ws[3].parts)
+    heads = ctx.attr("num_heads")
+    if heads % n:
+        return None
+    bias = ctx.in_("Bias")
+    partials = []
+    for j in range(n):
+        cols = ws[0].blocks()[j][1]
+
+        def cut(b):
+            return None if b is None else b[..., cols]
+
+        b_j = bias
+        if bias is not None and bias.dim() == 4 and bias.shape[1] == heads:
+            b_j = bias[:, j * heads // n:(j + 1) * heads // n]
+        partials.append(_attend(
+            ctx, heads // n, *(ctx._maybe_amp(w.parts[j]) for w in ws),
+            cut(ctx.in_("BQ")), cut(ctx.in_("BK")), cut(ctx.in_("BV")), b_j))
+    out = walk.mesh.reduce_fn("tp")(partials)
+    bo = ctx.in_("BO")
+    return {"Out": out if bo is None else out + bo}
 
 
 @register("add_position_encoding", dp=rows)

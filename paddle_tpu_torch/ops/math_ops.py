@@ -33,11 +33,25 @@ each rank's partial with one dp sum (the global tensor's); ``dot``,
 ``select_finite`` is the port's own: the loss scaler's overflow step
 (amp/decorator.py) zeroes the gradients with it, where the JAX package
 multiplies them by the finite flag (ROADMAP C8).
+
+Shard rules (tensor parallelism, ``ops/__init__.py``): ``mul`` against a
+column-parallel Y (``P(None, "tp")``) gives an activation split over tp
+along its last dimension, one product a rank; against a row-parallel Y
+(``P("tp", None)``) with X split so it gives the ranks' partials, which
+the mesh's ``reduce_fn("tp")`` finishes.
+``matmul`` against a vocab-sharded table with ``transpose_Y`` (or a
+column-parallel Y) splits its output's last dimension. The elementwise
+ops take a sharded X with Y replicated (sliced to each block where it
+spans a sharded dimension, whole where it broadcasts) or laid out as X,
+and ``scale`` runs a part at a time; any other case reads the global
+values.
 """
 
 import torch
 
-from . import register, replicated, rows, rows_if, torch_dtype
+from . import (blockwise, part_context, register, replicated, rows, rows_if,
+               shard_rule, tp_split, torch_dtype)
+from ..parallel.sharded import ShardedTensor
 from .tensor_ops import host_tensor
 
 
@@ -59,6 +73,45 @@ def _ew(fn):
     return impl
 
 
+def _aligned(x_ndim, y, axis):
+    """`y` with its dims aligned to an x of `x_ndim` dims, as _bcast_y
+    aligns them."""
+    if x_ndim == y.dim() or y.dim() == 0:
+        return y
+    if axis is None or axis == -1:
+        axis = x_ndim - y.dim()
+    return y.reshape([1] * axis + list(y.shape)
+                     + [1] * (x_ndim - axis - y.dim()))
+
+
+def _ew_blocks(impl, ctx, walk):
+    """An elementwise op on a sharded X: once a part, Y laid out as X,
+    or replicated and cut to each part's block where it spans a sharded
+    dimension (where it broadcasts, whole)."""
+    xn, yn = ctx.op.input("X")[0], ctx.op.input("Y")[0]
+    x, y = ctx.env[xn], ctx.env[yn]
+    if not isinstance(x, ShardedTensor):
+        return None
+    if isinstance(y, ShardedTensor):
+        if y.shape != x.shape or not y.same_layout(x.spec, x.mesh):
+            return None
+        ys = y.parts
+    elif not isinstance(y, torch.Tensor):
+        return None
+    else:
+        y = _aligned(len(x.shape), y, ctx.attr("axis", -1))
+        if y.dim() and (y.dim() != len(x.shape) or any(
+                y.shape[d] not in (1, x.shape[d])
+                for d, e in enumerate(x.spec) if e is not None)):
+            return None
+        ys = [y[tuple(ix[d] if y.dim() and y.shape[d] != 1 and
+                      x.spec[d] is not None else slice(None)
+                      for d in range(y.dim()))] for ix in x.blocks()]
+    outs = [impl(part_context(ctx, {xn: xp, yn: yp}))["Out"]
+            for xp, yp in zip(x.parts, ys)]
+    return {"Out": x.like(outs)}
+
+
 register("elementwise_add", dp=rows)(_ew(torch.add))
 register("elementwise_sub", dp=rows)(_ew(torch.sub))
 register("elementwise_mul", dp=rows)(_ew(torch.mul))
@@ -72,6 +125,14 @@ register("elementwise_mod", dp=rows)(_ew(torch.remainder))
 # rounded toward minus infinity, as jnp.floor_divide
 register("elementwise_floordiv", dp=rows)(_ew(
     lambda x, y: torch.div(x, y, rounding_mode="floor")))
+
+
+shard_rule("elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_max", "elementwise_min",
+           "elementwise_pow")(_ew_blocks)
+
+
+shard_rule("scale")(blockwise)
 
 
 @register("scale", dp=rows)
@@ -108,6 +169,49 @@ def mul(ctx):
     y2 = y.reshape((_prod(ys[:ync]), -1))
     out = x2 @ y2
     return {"Out": out.reshape(tuple(xs[:xnc]) + tuple(ys[ync:]))}
+
+
+@shard_rule("mul")
+def _tp_mul(impl, ctx, walk):
+    """Megatron's products: X against a column-parallel Y
+    (``P(None, "tp")``) gives Out split over tp along its last dimension;
+    X split so against a row-parallel Y (``P("tp", None)``) gives
+    partials that ``reduce_fn("tp")`` sums."""
+    xn, yn = ctx.op.input("X")[0], ctx.op.input("Y")[0]
+    x, y = ctx.env[xn], ctx.env[yn]
+    xnc = ctx.attr("x_num_col_dims", 1)
+    if len(y.shape) != 2 or ctx.attr("y_num_col_dims", 1) != 1:
+        return None
+    if tp_split(y, [1]) and isinstance(x, torch.Tensor):
+        outs = [impl(part_context(ctx, {yn: p}))["Out"] for p in y.parts]
+        return {"Out": ShardedTensor(
+            outs, (None,) * xnc + ("tp",), y.mesh,
+            tuple(x.shape[:xnc]) + (y.shape[1],))}
+    if not (tp_split(y, [0]) and tp_split(x, [-1])
+            and xnc == len(x.shape) - 1 and x.same_layout(x.spec, y.mesh)):
+        return None
+    partials = [impl(part_context(ctx, {xn: xp, yn: yp}))["Out"]
+                for xp, yp in zip(x.parts, y.parts)]
+    return {"Out": walk.mesh.reduce_fn("tp")(partials)}
+
+
+@shard_rule("matmul")
+def _tp_matmul(impl, ctx, walk):
+    """X against a table split over tp along its output dimension (a
+    vocab-sharded ``P("tp", None)`` with ``transpose_Y``, or a
+    column-parallel Y): Out split over tp along its last dimension."""
+    xn, yn = ctx.op.input("X")[0], ctx.op.input("Y")[0]
+    x, y = ctx.env[xn], ctx.env[yn]
+    if not isinstance(x, torch.Tensor) or x.dim() < 2 or \
+            len(y.shape) != 2:
+        return None
+    ty = bool(ctx.attr("transpose_Y", False))
+    if not tp_split(y, [0] if ty else [1]):
+        return None
+    outs = [impl(part_context(ctx, {yn: p}))["Out"] for p in y.parts]
+    shape = tuple(outs[0].shape[:-1]) + (y.shape[0] if ty else y.shape[1],)
+    return {"Out": ShardedTensor(outs, (None,) * (len(shape) - 1) + ("tp",),
+                                 y.mesh, shape)}
 
 
 def _matmul_rows(ctx, walk):

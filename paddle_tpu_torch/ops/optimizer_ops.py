@@ -15,15 +15,55 @@ updated. The arithmetic follows the JAX ops term by term (f32 moments,
 beta-pow accumulators multiplied once a step), so the two agree to
 rounding. Under data parallelism they take replicated inputs only: the
 dp walk reduces the gradients before the ops after the marker run.
+
+On sharded state (ZeRO-1's accumulators, FSDP's parameters and
+gradients, the tp rules' parameters: ``ShardedTensor``s) every op has
+one shard rule, ``blockwise_update``: the op runs once a held block of
+the first sharded input's layout. A slot laid out so gives its part; a
+replicated slot of the same global shape is cut to the same block (a
+view, updated in place); any other (a ``[1]`` beta power, the learning
+rate) is read whole, and the blocks after the first update copies of
+it. Each output goes back in its own variable's layout: a sharded one
+keeps its parts, a replicated one of the layout's shape is whole again
+(in a world each rank's block all-gathered), a whole one is the first
+block's. ``lars_momentum``, ``lamb`` and ``dpsgd`` take whole-parameter
+norms: their steps yield the squares they sum, and the rule sums them
+over the blocks (one reduction) before the square root; ``dpsgd``'s noise
+is the global draw, sliced to the block.
 """
 
 import torch
 
-from . import register, replicated
+from . import part_context, register, replicated, shard_rule
+from ..parallel.sharded import ShardedTensor
 
 
 def _lr(ctx):
     return ctx.in_("LearningRate").reshape(())
+
+
+# op type -> its steps: a generator function of the op's context that
+# yields the sums of squares its norms need (one tuple) and is sent
+# their sums over the whole parameter, then returns the outputs
+_NORM_STEPS = {}
+
+
+def _norm_op(name):
+    """Register steps(ctx) as `name`: on a whole parameter its own sums
+    answer the yield."""
+    def deco(steps):
+        _NORM_STEPS[name] = steps
+
+        def impl(ctx):
+            gen = steps(ctx)
+            try:
+                gen.send(next(gen))
+            except StopIteration as done:
+                return done.value
+            raise RuntimeError(f"{name}'s steps yielded twice")
+        register(name, dp=replicated)(impl)
+        return steps
+    return deco
 
 
 @register("sgd", dp=replicated)
@@ -69,7 +109,7 @@ def momentum(ctx):
     return {"ParamOut": p, "VelocityOut": v}
 
 
-@register("lars_momentum", dp=replicated)
+@_norm_op("lars_momentum")
 def lars_momentum(ctx):
     """Layer-wise rate lr coeff |p| / (|g| + wd |p| + 1e-12);
     v = mu v + local_lr (g + wd p); p -= v."""
@@ -77,8 +117,9 @@ def lars_momentum(ctx):
     mu = ctx.attr("mu")
     coeff = ctx.attr("lars_coeff", 0.001)
     wd = ctx.attr("lars_weight_decay", 0.0005)
-    pn = (p * p).sum().sqrt()
-    gn = (g * g).sum().sqrt()
+    p_sq, g_sq = yield (p * p).sum(), (g * g).sum()
+    pn = p_sq.sqrt()
+    gn = g_sq.sqrt()
     local_lr = _lr(ctx) * coeff * pn / (gn + wd * pn + 1e-12)
     v.mul_(mu).add_(local_lr * (g + wd * p))
     p.sub_(v.to(p.dtype))
@@ -185,7 +226,7 @@ def ftrl(ctx):
     return {"ParamOut": p, "SquaredAccumOut": sq, "LinearAccumOut": lin}
 
 
-@register("lamb", dp=replicated)
+@_norm_op("lamb")
 def lamb(ctx):
     """Adam's moments with bias correction, r = m^ / (sqrt(v^) + eps) +
     wd p, and the trust ratio |p| / |r| (1 where either norm is 0):
@@ -204,8 +245,9 @@ def lamb(ctx):
     m_hat = m / (1 - b1p.reshape(()))
     v_hat = v / (1 - b2p.reshape(()))
     r = m_hat / (v_hat.sqrt() + eps) + wd * pf
-    p_norm = (pf * pf).sum().sqrt()
-    r_norm = (r * r).sum().sqrt()
+    p_sq, r_sq = yield (pf * pf).sum(), (r * r).sum()
+    p_norm = p_sq.sqrt()
+    r_norm = r_sq.sqrt()
     trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
                         torch.ones((), dtype=r.dtype, device=r.device))
     p.sub_((_lr(ctx) * trust * r).to(p.dtype))
@@ -226,20 +268,24 @@ def adamw(ctx):
     return outs
 
 
-@register("dpsgd", dp=replicated)
+@_norm_op("dpsgd")
 def dpsgd(ctx):
     """Differentially private SGD: g clipped to norm `clip`, plus Gaussian
     noise of `sigma` from the op's generator (``OpContext.rng``), then
     p -= lr g. The noise is torch's, not JAX's (the streams cannot match);
     under data parallelism the op runs once on the reduced gradient, so
-    every rank draws rank 0's noise and the replicas stay equal."""
+    every rank draws rank 0's noise and the replicas stay equal. On a
+    block of a sharded parameter the noise is the global draw's block."""
     p, g = ctx.in_("Param"), ctx.in_("Grad")
     clip = ctx.attr("clip", 10.0)
     sigma = ctx.attr("sigma", 1.0)
-    gn = (g * g).sum().sqrt()
+    (g_sq,) = yield ((g * g).sum(),)
+    gn = g_sq.sqrt()
     g = g * torch.clamp(clip / gn.clamp_min(1e-12), max=1.0)
-    noise = torch.randn(g.shape, generator=ctx.rng(), dtype=g.dtype,
-                        device=g.device)
+    block = getattr(ctx, "block", None)   # None: the whole parameter
+    shape, index = block if block is not None else (g.shape, ...)
+    noise = torch.randn(shape, generator=ctx.rng(), dtype=g.dtype,
+                        device=g.device)[index]
     g = g + sigma * noise
     p.sub_((_lr(ctx) * g).to(p.dtype))
     return {"ParamOut": p}
@@ -280,3 +326,84 @@ def decoupled_weight_decay(ctx):
     p, pre = ctx.in_("Param"), ctx.in_("PrevParam")
     p.sub_((ctx.attr("coeff", 0.0) * pre).to(p.dtype))
     return {"ParamOut": p}
+
+
+def blockwise_update(impl, ctx, walk):
+    """The shard rule of every optimizer op (see the module's docstring).
+    Inputs laid out over another layout than the first sharded one's
+    leave the op to the global values (None)."""
+    op, env = ctx.op, ctx.env
+    names = list(dict.fromkeys(op.input_names))
+    laid = [env[n] for n in names if isinstance(env[n], ShardedTensor)]
+    lay = laid[0]
+    if any(v.shape != lay.shape or not v.same_layout(lay.spec, lay.mesh)
+           for v in laid[1:]):
+        return None
+    blocks = lay.blocks()
+    outputs = set(op.output_names)
+    picks = [{} for _ in blocks]
+    # what each input name holds: its part of the layout ("part"), a
+    # replicated tensor of the layout's shape ("cut" to each block, a
+    # view) or a whole value, which the blocks after the first read as
+    # copies where the op updates it in place
+    kinds = {}
+    for n in names:
+        v = env[n]
+        if isinstance(v, ShardedTensor):
+            kinds[n] = "part"
+            for j, part in enumerate(v.parts):
+                picks[j][n] = part
+        elif isinstance(v, torch.Tensor) and tuple(v.shape) == lay.shape:
+            kinds[n] = "cut"
+            for j, ix in enumerate(blocks):
+                picks[j][n] = v[ix]
+        else:
+            for j in range(len(blocks)):
+                picks[j][n] = v.clone() if j and n in outputs and \
+                    isinstance(v, torch.Tensor) else v
+    ctxs = [part_context(ctx, pick, (lay.shape, ix))
+            for pick, ix in zip(picks, blocks)]
+    steps = _NORM_STEPS.get(op.type)
+    if steps is None:
+        outs = [impl(c) for c in ctxs]
+    else:
+        gens = [steps(c) for c in ctxs]
+        sums = [torch.stack(next(gen)) for gen in gens]
+        total = torch.stack(sums).sum(0) if not walk.world else \
+            walk.mesh.all_sum(sums, lay.axes[0])
+        outs = []
+        for gen in gens:
+            try:
+                gen.send(tuple(total))
+            except StopIteration as done:
+                outs.append(done.value)
+    result = {}
+    for slot, first in outs[0].items():
+        name = op.output(slot)[0]
+        vals = [o[slot] for o in outs]
+        if kinds.get(name) == "part":
+            result[slot] = lay.like(vals)
+        elif kinds.get(name) == "cut":
+            full = env[name]
+            with torch.no_grad():
+                for val, ix in zip(vals, blocks):
+                    if val.data_ptr() != full[ix].data_ptr():
+                        full[ix].copy_(val)
+                if walk.world:      # the other ranks' blocks
+                    full.copy_(walk.mesh.all_concat(
+                        [full[blocks[0]]], lay.axes[0], _sharded_dim(lay)))
+            result[slot] = full
+        else:
+            result[slot] = first
+    return result
+
+
+def _sharded_dim(lay):
+    (dim,) = [d for d, e in enumerate(lay.spec) if e is not None]
+    return dim
+
+
+shard_rule("sgd", "adam", "momentum", "lars_momentum", "adamax", "adagrad",
+           "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "lamb", "adamw",
+           "dpsgd", "proximal_gd", "proximal_adagrad",
+           "decoupled_weight_decay")(blockwise_update)

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import (Sharded, refuses, register, replicated, rows, rows_if,
+               shard_rule, tp_split,
                torch_dtype)
 
 
@@ -176,6 +177,34 @@ def lookup_table(ctx):
         ids = ids.reshape(ids.shape[:-1])
     padding_idx = ctx.attr("padding_idx", -1)
     out = F.embedding(ids.long().clamp(0, w.shape[0] - 1), w)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out * (ids != padding_idx)[..., None].to(out.dtype)
+    return {"Out": out}
+
+
+@shard_rule("lookup_table", "lookup_table_v2", "embedding")
+def _tp_lookup(impl, ctx, walk):
+    """A vocab-sharded table (``P("tp", None)``, rows split over tp): each
+    rank looks up the ids in its rows' range (the others at its first
+    row, zeroed), and ``reduce_fn("tp")`` sums the ranks' outputs. The
+    ids are clamped into the vocabulary first, as the op clamps them."""
+    w = ctx.env[ctx.op.input("W")[0]]
+    ids = ctx.env[ctx.op.input("Ids")[0]]
+    if not tp_split(w, [0]) or len(w.shape) != 2 or \
+            not isinstance(ids, torch.Tensor):
+        return None
+    if ids.dim() and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    clamped = ids.long().clamp(0, w.shape[0] - 1)
+    partials = []
+    for part, index in zip(w.parts, w.blocks()):
+        lo, hi = index[0].start, index[0].stop
+        mine = (clamped >= lo) & (clamped < hi)
+        rows_ = F.embedding(torch.where(mine, clamped - lo, 0),
+                            ctx._maybe_amp(part))
+        partials.append(torch.where(mine[..., None], rows_, 0))
+    out = walk.mesh.reduce_fn("tp")(partials)
+    padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)
     return {"Out": out}

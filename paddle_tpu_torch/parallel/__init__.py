@@ -1,21 +1,34 @@
 """Distributed / parallel execution: the counterpart of
 ``paddle_tpu/parallel/`` with the device mesh (``mesh.py``: a
-``torch.distributed`` world or a local mesh), ring attention over its
-sequence-parallel axis (``ring_attention.py``), the functional
-data-parallel step (``data_parallel.py``; Programs take
-``CompiledProgram.with_data_parallel``) and the tensor-parallel shard
-rules (``tensor_parallel.py``). Pipeline and expert parallelism, the
-collectives, the transpiler and fleet are not ported yet."""
+``torch.distributed`` world or a local mesh, the hybrid DCN mesh,
+``multihost_initialize``), ring attention over its sequence-parallel
+axis (``ring_attention.py``), the functional data-parallel step
+(``data_parallel.py``; Programs take ``CompiledProgram.
+with_data_parallel``), the tensor-parallel shard rules
+(``tensor_parallel.py``), sharded state (``sharded.py``:
+``ShardedTensor``, which ``CompiledProgram`` lays persistables out as by
+their ``dist_attr``) and the transpiler's ZeRO-1 / FSDP annotations
+(``transpiler.py``). Pipeline and expert parallelism, the collectives
+and fleet are not ported yet."""
 
-from .mesh import MeshConfig, get_mesh, set_mesh, make_mesh, mesh_axes
+from .mesh import (MeshConfig, get_mesh, set_mesh, make_mesh, mesh_axes,
+                   make_hybrid_mesh, host_domains, multihost_initialize,
+                   named_sharding, replicated)
 from .ring_attention import ring_attention, blockwise_attention
 from .data_parallel import data_parallel_step
 from .tensor_parallel import (PartitionSpec, ShardRules, apply_shard_rules,
                               column_parallel_spec, row_parallel_spec,
                               shard_params_spec, shard_state)
+from .sharded import ShardedTensor
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         shard_optimizer_state, shard_params_fsdp)
 
 __all__ = ["MeshConfig", "get_mesh", "set_mesh", "make_mesh", "mesh_axes",
+           "make_hybrid_mesh", "host_domains", "multihost_initialize",
+           "named_sharding", "replicated",
            "ring_attention", "blockwise_attention", "data_parallel_step",
            "PartitionSpec", "ShardRules", "apply_shard_rules",
            "column_parallel_spec", "row_parallel_spec", "shard_params_spec",
-           "shard_state"]
+           "shard_state", "ShardedTensor", "DistributeTranspiler",
+           "DistributeTranspilerConfig", "shard_optimizer_state",
+           "shard_params_fsdp"]

@@ -25,8 +25,14 @@ A mesh has one of two forms:
 
 ``with mesh:`` activates the mesh for the ops of a Program, as JAX's
 ``with mesh:`` sets the physical mesh that ``ops/attention_ops.py`` reads
-(``active_mesh``). The hybrid DCN mesh, ``host_domains``,
-``multihost_initialize`` and the sharding helpers are not ported.
+(``active_mesh``). ``make_hybrid_mesh`` lays the slow axes across hosts
+and the fast ones inside each host's devices (hosts from a world rank's
+process, the world's ranks divided into hosts of ``devices_per_host``, or
+emulated by chunking with ``hosts=N`` on a local mesh), ``host_domains``
+maps each position to its host, ``multihost_initialize`` wraps
+``torch.distributed.init_process_group`` for Fluid's endpoint lists, and
+``named_sharding`` / ``replicated`` give the port's layout of a value,
+a (spec, mesh) pair (``sharded.py``'s ``ShardedTensor`` holds one).
 
 ``make_named_mesh`` builds a mesh over axes of the caller's naming, as
 ``jax.sharding.Mesh(devices, axis_names)`` does: tensor-parallel serving
@@ -40,12 +46,13 @@ reductions made, the port's stand-in for the psums JAX compiles.
 
 The data-parallel walk (``core/compiler.py``) finishes its global
 reductions with ``all_sum`` (``reduce_fn``'s sum, differentiable),
-gathers a sharded source with ``all_concat`` (rank-order concatenation;
-in a world an ``all_gather`` whose backward is a reduce-scatter) and, in
-a world, sums the gradients over dp with ``all_reduce_grads`` (one
-all-reduce of the flattened gradients, or one a gradient). Each counts
-in ``reductions``. In a world a replicated value's gradient is held as
-every rank's partial (the walk seeds 1/dp of the loss's), so the
+gathers a sharded source, or a sharded persistable's global value, with
+``all_concat`` (rank-order concatenation along any dimension; in a world
+an ``all_gather`` whose backward is a reduce-scatter) and, in a world,
+sums the gradients over dp with ``all_reduce_grads`` (one all-reduce of
+the flattened gradients, or one a gradient). Each counts in
+``reductions``. In a world a replicated value's gradient
+is held as every rank's partial (the walk seeds 1/dp of the loss's), so the
 backward of both collectives all-reduces what it is handed.
 """
 
@@ -58,7 +65,9 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 __all__ = ["MeshConfig", "Mesh", "make_mesh", "make_named_mesh", "set_mesh",
-           "get_mesh", "mesh_axes", "active_mesh"]
+           "get_mesh", "mesh_axes", "active_mesh", "make_hybrid_mesh",
+           "host_domains", "multihost_initialize", "named_sharding",
+           "replicated"]
 
 # the layout's order: slower-varying outermost, tp innermost
 ORDER = ("dp", "pp", "ep", "sp", "tp")
@@ -166,22 +175,27 @@ class Mesh:
         group = self._group(axis)
         return part if group is None else _AllReduce.apply(group, part)
 
-    def all_concat(self, parts, axis):
-        """The held ranks' rows concatenated along dim 0 in rank order
+    def all_concat(self, parts, axis, dim=0):
+        """The held ranks' parts concatenated along `dim` in rank order
         over `axis`, differentiable: a local mesh concatenates them; a
         world all-gathers its one part, and the backward sums every
-        rank's gradient of the whole and keeps this rank's rows (a
+        rank's gradient of the whole and keeps this rank's block (a
         reduce-scatter). Counts one in ``reductions``."""
         self.reductions += 1
+        return self._concat(parts, axis, dim)
+
+    def _concat(self, parts, axis, dim):
+        """``all_concat`` uncounted: for a caller that counts one around
+        several (``ShardedTensor.gather``, one a value)."""
         if not self.world:
-            return torch.cat(parts) if len(parts) > 1 else parts[0]
+            return torch.cat(parts, dim) if len(parts) > 1 else parts[0]
         (part,) = parts
         group = self._group(axis)
         if group is None:
             return part
         ranks = self.line(axis)[0]
         return _AllGather.apply(group, len(ranks), ranks.index(self.rank),
-                                part)
+                                part, dim)
 
     def gather_rows(self, part, axis):
         """A world rank's rows -> the whole, concatenated in rank order
@@ -190,6 +204,20 @@ class Mesh:
         if group is None:
             return part
         return _all_gather(group, len(self.line(axis)[0]), part)
+
+    def all_min(self, x, axis):
+        """The elementwise minimum of the ranks' `x` over `axis`, outside
+        autograd: a world all-reduces it (MIN) over the axis's sub-group,
+        as int32 (not every backend reduces bool); a local mesh, whose
+        process holds every rank's value, returns `x`. Counts one in
+        ``reductions`` in a world."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        out = x.to(torch.int32)
+        dist.all_reduce(out, op=dist.ReduceOp.MIN, group=group)
+        self.reductions += 1
+        return out.to(x.dtype)
 
     def all_reduce_grads(self, grads, axis, fuse=True):
         """A world's gradients summed over `axis`, in place: with `fuse`
@@ -249,29 +277,32 @@ class _AllReduce(torch.autograd.Function):
         return None, g
 
 
-def _all_gather(group, n, x):
-    """The n ranks' `x` concatenated along dim 0 in rank order."""
+def _all_gather(group, n, x, dim=0):
+    """The n ranks' `x` concatenated along `dim` in rank order."""
+    x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
 
 
 class _AllGather(torch.autograd.Function):
-    """Every rank's rows concatenated in rank order; backward: every
-    rank's gradient of the whole summed, this rank's rows kept (a
-    reduce-scatter, as an all-reduce: gloo has no reduce-scatter)."""
+    """Every rank's block concatenated along `dim` in rank order;
+    backward: every rank's gradient of the whole summed, this rank's
+    block kept (a reduce-scatter, as an all-reduce: gloo has no
+    reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx, group, n, index, x):
-        ctx.group, ctx.index, ctx.rows = group, index, x.shape[0]
-        return _all_gather(group, n, x)
+    def forward(ctx, group, n, index, x, dim=0):
+        ctx.group, ctx.index, ctx.dim = group, index, dim
+        ctx.rows = x.shape[dim]
+        return _all_gather(group, n, x, dim)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
         lo = ctx.index * ctx.rows
-        return None, None, None, g[lo:lo + ctx.rows]
+        return None, None, None, g.narrow(ctx.dim, lo, ctx.rows), None
 
 
 def active_mesh():
@@ -347,3 +378,113 @@ def get_mesh():
 
 def mesh_axes(mesh=None):
     return tuple((mesh or get_mesh()).axis_names)
+
+
+def make_hybrid_mesh(dp_dcn=None, *, dp=1, tp=1, pp=1, sp=1, ep=1,
+                     pp_dcn=1, devices=None, hosts=None,
+                     devices_per_host=None):
+    """A DCN-aware mesh, as the JAX package's: dp_dcn x pp_dcn span hosts,
+    dp/pp/ep/sp/tp span each host's own devices, so the model axes (sp,
+    tp) stay inside one host. The same five-axis Mesh as ``make_mesh``:
+    dp is dp_dcn * dp with host-major order, pp is pp_dcn * pp.
+
+    Hosts: in a ``torch.distributed`` world (no `devices`) a rank's host is
+    its rank // `devices_per_host` (default: the whole world one host); on
+    a local mesh (`devices`, or the card when there is no world) one host
+    unless `hosts=N` emulates N host domains by chunking the positions,
+    so host-locality layouts are testable in one process."""
+    world = devices is None and dist.is_available() and dist.is_initialized()
+    if world:
+        ranks = list(range(dist.get_world_size()))
+        per = devices_per_host or len(ranks)
+        groups = [ranks[i:i + per] for i in range(0, len(ranks), per)]
+    else:
+        n = None if devices is not None else \
+            (dp_dcn or hosts or 1) * pp_dcn * dp * pp * ep * sp * tp
+        flat, _ = _mesh_devices(devices, n)
+        if hosts and hosts > 1:
+            if len(flat) % hosts:
+                raise ValueError(f"{len(flat)} devices not divisible into "
+                                 f"{hosts} emulated hosts")
+            per = len(flat) // hosts
+            groups = [flat[i * per:(i + 1) * per] for i in range(hosts)]
+        else:
+            groups = [flat]
+    n_hosts, per_host = len(groups), len(groups[0])
+    if any(len(g) != per_host for g in groups):
+        raise ValueError("hosts hold unequal device counts")
+    if dp_dcn is None:
+        if n_hosts % pp_dcn:
+            raise ValueError(f"{n_hosts} hosts not divisible by "
+                             f"pp_dcn={pp_dcn}")
+        dp_dcn = n_hosts // pp_dcn
+    if dp_dcn * pp_dcn != n_hosts:
+        raise ValueError(f"dp_dcn*pp_dcn={dp_dcn * pp_dcn} != {n_hosts} "
+                         f"hosts")
+    if dp * pp * ep * sp * tp != per_host:
+        raise ValueError(f"ici mesh {dp}x{pp}x{ep}x{sp}x{tp} != "
+                         f"{per_host} devices/host")
+    index = np.arange(n_hosts * per_host).reshape(
+        dp_dcn, pp_dcn, dp, pp, ep, sp, tp).transpose(
+        0, 2, 1, 3, 4, 5, 6).reshape(dp_dcn * dp, pp_dcn * pp, ep, sp, tp)
+    flat = [d for g in groups for d in g]
+    mesh = Mesh(index.shape, [flat[i] for i in index.flat], world=world)
+    mesh.host_index = index
+    return mesh
+
+
+def host_domains(mesh, per_host):
+    """Each mesh position's host index, assuming `per_host` positions a
+    host domain (emulated or real): a world rank's rank // per_host, a
+    local position's index among the devices it was built from //
+    per_host (``make_hybrid_mesh`` keeps that index in ``host_index``)."""
+    if mesh.world:
+        return np.vectorize(lambda r: int(r) // per_host)(mesh.devices)
+    index = getattr(mesh, "host_index", None)
+    if index is None:
+        index = np.arange(mesh.size).reshape(mesh.devices.shape)
+    return index // per_host
+
+
+def multihost_initialize(coordinator_address=None, num_processes=None,
+                         process_id=None, endpoints=None,
+                         current_endpoint=None, backend=None):
+    """Parity: transpiler endpoints / fleet.init on several hosts. Wraps
+    ``torch.distributed.init_process_group(init_method=f"tcp://{addr}")``;
+    returns False for one process (nothing to join) and True once the
+    world is up (re-entrant: a second call does not join again).
+
+    Takes the JAX package's forms: (coordinator_address, num_processes,
+    process_id), or Fluid's endpoint list and current_endpoint, whose
+    first endpoint is the coordinator and whose index is the rank.
+    `backend` defaults to NCCL with CUDA, gloo without."""
+    if endpoints:
+        if current_endpoint is None:
+            raise ValueError("current_endpoint required with endpoints")
+        coordinator_address = coordinator_address or endpoints[0]
+        num_processes = len(endpoints)
+        process_id = endpoints.index(current_endpoint)
+    if num_processes in (None, 1):
+        return False
+    if dist.is_initialized():
+        return True
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes),
+                            rank=int(process_id))
+    return True
+
+
+def named_sharding(spec, mesh=None):
+    """The layout of a value laid out by `spec` over `mesh` (the current
+    mesh by default): the (spec, mesh) pair a ``ShardedTensor`` holds,
+    the counterpart of ``NamedSharding(mesh, spec)``."""
+    from .tensor_parallel import PartitionSpec
+    return PartitionSpec(*spec), mesh or get_mesh()
+
+
+def replicated(mesh=None):
+    """The replicated layout over `mesh`: ``named_sharding(P(), mesh)``."""
+    return named_sharding((), mesh)

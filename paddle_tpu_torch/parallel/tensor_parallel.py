@@ -8,9 +8,11 @@ annotates ``Parameter.dist_attr``. Where JAX ``device_put``s a state dict
 by the rules, ``shard_state`` cuts each held mesh position its slice, in
 the layout of ``models/gpt.py``'s ``shard_params``: a sharded leaf a
 contiguous copy of its own, a replicated leaf the one object in every
-position's dict. The Program path does not consume ``dist_attr`` yet:
-the dp walk refuses a persistable sharded over an axis larger than 1
-(``core/compiler.py``).
+position's dict. The Program path consumes ``dist_attr``:
+``CompiledProgram(main).with_mesh(make_mesh(tp=2, ...))`` lays each
+annotated parameter out over the mesh (``sharded.ShardedTensor``, cut by
+``_cut``) and the ops' tp rules split the heads and products
+(``core/compiler.py``, ``ops/__init__.py``).
 
     embedding        (vocab, d)    -> P('tp', None)
     attn qkv proj    (d, 3d)       -> P(None, 'tp')   column-parallel

@@ -908,32 +908,54 @@ def test_shard_state_slices_equal_jax_addressable_shards():
 
 
 def test_sharded_state_and_tp_meshes_are_refused(bert_twin):
-    """A tp mesh under CompiledProgram, and a persistable whose dist_attr
-    shards over dp 2, raise NotImplementedError naming the ROADMAP item;
-    apply_shard_rules' 'tp' annotations under a dp-only mesh (tp 1) lay
-    nothing out and run; recompute under dp, no longer refused, runs and
-    gives the plain dp run's losses, accuracy, gathered rows and first
-    step @GRADs bitwise (tests/test_torch_dp_recipe.py holds the recipe
-    and both policies against dp 1 and JAX)."""
+    """What the walk still refuses raises NotImplementedError naming its
+    ROADMAP item: a pp or ep mesh (item 11), tp or sp over a world mesh
+    and tp beside dp or sp (10d.2; the world's refusal comes before any
+    collective, so a local mesh marked as a world shows it). The former
+    refusals now run: a tp 2 mesh gives the plain run's loss (the tp
+    partial sums add in rank order: within 1e-5 relative), a persistable
+    whose dist_attr lays it out over dp 2 gives plain dp 2's losses and
+    @GRADs bitwise, and apply_shard_rules' 'tp' annotations under a
+    dp-only mesh lay nothing out. Recompute under dp, no longer refused,
+    runs and gives the plain dp run's losses, accuracy, gathered rows
+    and first step @GRADs bitwise (tests/test_torch_dp_recipe.py holds
+    the recipe and both policies against dp 1 and JAX)."""
     tw = bert_twin
     feed = _unequal_feed(tw.cfg)
     exe = fluid.Executor(CPU)
-    tp = fluid.CompiledProgram(tw.tmain).with_mesh(_local(tp=2))
-    with fluid.scope_guard(fluid.scope_from_numpy(tw.init, "cpu")):
-        with pytest.raises(NotImplementedError, match="tp=2.*item 10d"):
-            exe.run(tp, feed=feed, fetch_list=[tw.tloss])
+    refused = {"item 11": [dict(pp=2), dict(ep=2)],
+               "10d.2": [dict(dp=2, tp=2), dict(sp=2, tp=2)]}
+    for item, meshes in refused.items():
+        for kw in meshes:
+            mesh = make_mesh(**kw, devices=["cpu"] * int(np.prod(
+                list(kw.values()))))
+            with fluid.scope_guard(fluid.scope_from_numpy(tw.init, "cpu")):
+                with pytest.raises(NotImplementedError, match=item):
+                    exe.run(fluid.CompiledProgram(tw.tmain).with_mesh(mesh),
+                            feed=feed, fetch_list=[tw.tloss])
+    for kw in (dict(dp=1, tp=2), dict(dp=1, sp=2)):
+        mesh = _local(**kw)
+        mesh.world = True
+        with pytest.raises(NotImplementedError, match="world.*10d.2"):
+            DataParallelWalk(mesh, torch.device("cpu"))
+    want, _ = tw.port(feed, 1, tw.tmain)
     apply_shard_rules(tw.tmain)
     try:
+        got, _ = tw.port(feed, 1, fluid.CompiledProgram(tw.tmain)
+                         .with_mesh(_local(tp=2)))
+        assert _scalar(got[0][0]) == pytest.approx(_scalar(want[0][0]),
+                                                   rel=LOSS_RTOL)
         got, _ = tw.port(feed, 1, tw.compiled())
-        want, _ = tw.port(feed, 1, tw.tmain)
+        plain_dp, _ = tw.port(feed, 2, tw.compiled())
         assert _scalar(got[0][0]) == pytest.approx(_scalar(want[0][0]),
                                                    rel=LOSS_RTOL)
         tw.tmain.global_block().var("enc0_attn_q").dist_attr = \
             PartitionSpec("dp", None)
-        with fluid.scope_guard(fluid.scope_from_numpy(tw.init, "cpu")):
-            with pytest.raises(NotImplementedError,
-                               match="enc0_attn_q.*dp=2.*item 10d"):
-                exe.run(tw.compiled(), feed=feed, fetch_list=[tw.tloss])
+        laid, scope = tw.port(feed, 2, tw.compiled())
+        assert scope.get("enc0_attn_q").spec == PartitionSpec("dp", None)
+        for g, p in zip(laid, plain_dp):
+            for a, b in zip(g, p):
+                np.testing.assert_array_equal(a, b)
     finally:
         for p in tw.tmain.all_parameters():
             p.dist_attr = None
