@@ -416,7 +416,7 @@ backward kernels are printed):
    within 1e-4 of their scale. Phases 25-25c launch none of the
    attention kernels;
 26. ERNIE-base (phase 16's program and cell, Adam 1e-4, dropout 0.1)
-   under guarded asynchronous training, 30 distinct ERNIE feeds: two
+   under guarded asynchronous training, 25 distinct ERNIE feeds: two
    clean runs from one startup on ``Executor(guard=True,
    async_window=2)``, one through ``run()``, one through ``run_async()``
    (their distance is the card's own); the host syncs inside 5 warm
@@ -425,10 +425,10 @@ backward kernels are printed):
    it on the card, a pageable copy must wait for it); run against
    run_async in alternating blocks; the guard's cost (an unguarded run:
    p50, device ms and operations); then ``GuardedTrainer``
-   (checkpoint_every 5) with a NaN poisoned into step 12's MLM weights,
+   (checkpoint_every 10) with a NaN poisoned into step 12's MLM weights,
    the 3rd physical checkpoint write failing and a SIGTERM before step
    20, and a fresh Executor, scope and ``GuardedTrainer.resume()`` to
-   step 30: one rollback, the write retried, every step's loss within
+   step 25: one rollback, the write retried, every step's loss within
    4x the clean runs' distance (or 1e-5) of the clean run's; 12 + 12 +
    12 flash launches a step in every run, flash_dbias 0, the first
    layer's attention against the plain version; checkpoint bytes, sync
@@ -635,6 +635,30 @@ backward kernels are printed):
    into a MobileNet-v1 student by ``slim.merge_programs`` (3 steps of
    soft-label distillation at T 4: the teacher's persistables bitwise
    unchanged). Phases 33-33e launch no attention kernel (gated at 0).
+35. fleet collective training through the port's launcher: two ranks
+   of this script (``--fleet-world-rank``) started by ``python -m
+   paddle_tpu_torch.distributed.launch --selected_gpus=0,0``, gloo chosen
+   by that layout; phase 16/34's BERT-base under
+   ``DistributedStrategy(tp_degree=2)`` through
+   ``fleet.distributed_optimizer(Adam).minimize`` and
+   ``CompiledProgram(main).with_mesh(fleet.mesh())``, FLEET_STEPS steps:
+   the first loss phase 34's within 1e-6, the first step's @GRADs a
+   local tp 2 step's within FLEET_GRAD_TOL of their scale (the 12-layer
+   reordering), 12 + 12 + 12 flash launches a step a rank (the rank's
+   own counts, none of the bf16 kernel),
+   each scope holding the tp shares; reductions and gloo ms a step. In
+   the same processes: the 2-layer net at sp 2 over the world (the
+   ring's K/V rotating between them) against a local sp 2 run, the
+   collective ops on CUDA tensors against numpy, barrier_worker and
+   ``global_shuffle(fleet=)`` (the union the whole set);
+35b. fleet in this process, ``DistributedStrategy(tp_degree=2,
+   zero_stage=1, local_devices=["cuda:0"] * 4)``: dp 2 x tp 2, BERT-base
+   for BERT_WARM + FLEET_B_STEPS steps, the first loss phase 21's and
+   the first @GRADs a dp 2 step's, 48 + 48 + 48 launches a step (four
+   positions), step p50, device ms and peak memory;
+35c. four ranks through the launcher: 35b's form at 2 layers over a
+   world of four (dp 2 x tp 2), against its local form; each scope's
+   elements the dist_attrs' shares.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -668,7 +692,8 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d, 22, 24-24b, 26-26c and 27-27d, and 28-28e's,
+20-20d, 21-21d, 22, 24-24b, 26-26c, 27-27d, 34-34d and 35-35c (the
+world ranks' own counts), and 28-28e's,
 29-29c's, 30-30c's, 31-31g's, 32-32d's and 33-33e's gated 0s,
 with 16b/16c/17/19b/19c/20d/21b/21c/24/24b/26's errors in
 ``path_errs``); the line before
@@ -882,6 +907,24 @@ CKPT_CONTINUE = 3                   # 34d: steps after each restore
 CKPT_ELASTIC_DP = 4                 # 34d: the mesh it reshards onto
 SHARD_FORMS = ("plain", "zero1", "fsdp", "both")
 SHARD_WORLD_TIMED = 1               # 34c: steps timing the gathers
+# phases 35-35c: fleet collective training through the port's launcher;
+# every world's ranks share cuda:0 (gloo by the layout), and each form is
+# held to its local form with 21's staged tolerances
+FLEET_STEPS = 2                     # 35: BERT-base steps, tp 2 world
+FLEET_B_STEPS = 5                   # 35b: timed steps after BERT_WARM
+FLEET_WORLD_TIMEOUT_S = 300.0       # 35, 35c: the launcher, boot included
+# the 12-layer forms' @GRAD gate (35's tp 2 world against a local tp 2
+# step, 35b's dp 2 x tp 2 against a dp 2 step), of each tensor's scale.
+# Each form sums the same f32 terms in another order than its reference
+# (a world rank runs a replicated layer's backward on its partial and the
+# partials are summed after it; 35b adds the tp partials of each dp
+# rank), and the reordering grows with depth: on an H100 a query weight's
+# @GRAD moves 1.77e-5 (35) and a key bias's 2.22e-5 (35b), the same
+# digits in every call and 6.4e-7 between two runs, where the local tp 2
+# step itself lies 3.25e-5 from the plain one at 12 layers and 5.5e-6
+# from tp 1 at 2 (phase 34's agreement). The 2-layer forms (35's sp 2,
+# 35c) keep DP_GRAD_TOL
+FLEET_GRAD_TOL = 3e-5
 # phases 23-23c: bench.py's ResNet cell (bench.py:285-313), on the port
 RESNET_DEPTH = 50
 RESNET_CLASSES = 1000
@@ -1208,9 +1251,9 @@ DISTILL_BATCH, DISTILL_STEPS, DISTILL_T = 32, 3, 4.0
 # NaN poisoned into step GUARD_POISON_AT, the GUARD_WRITE_FAULT-th
 # physical checkpoint write failing, a SIGTERM before step
 # GUARD_PREEMPT_AT
-GUARD_STEPS = 30
+GUARD_STEPS = 25
 GUARD_WINDOW = 2
-GUARD_CKPT_EVERY = 5
+GUARD_CKPT_EVERY = 10
 GUARD_POISON_AT = 12
 GUARD_WRITE_FAULT = 3
 GUARD_PREEMPT_AT = 20
@@ -13755,6 +13798,684 @@ def phase_shard_all(flash, bert16, prof16, rec21, world):
     return paths, {"34": trec, "34b": srec, "34c": wrec, "34d": crec}
 
 
+# ---------------------------------------------------------------------------
+# phases 35-35c: fleet collective training (launcher, fleet, strategy)
+# ---------------------------------------------------------------------------
+
+def build_bert_fleet(cfg, flt):
+    """build_bert's net with its Adam through fleet:
+    flt.distributed_optimizer(AdamOptimizer(1e-4)).minimize(loss), which
+    applies the strategy (tp's shard rules, ZeRO-1)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 16
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _f, loss, _mlm, _acc = bert.build_pretrain_net(cfg, seq_len=BERT_SEQ)
+        flt.distributed_optimizer(
+            fluid.optimizer.AdamOptimizer(1e-4)).minimize(loss)
+    return main, startup, loss
+
+
+def _fleet(tp=TP, zero=0, devices=None):
+    """A Fleet initialized with DistributedStrategy(tp_degree=`tp`,
+    zero_stage=`zero`): over the launcher's world, or a one-process mesh
+    of `devices`."""
+    from paddle_tpu_torch.parallel import fleet as fleet_mod
+    s = fleet_mod.DistributedStrategy()
+    s.tp_degree, s.zero_stage, s.local_devices = tp, zero, devices
+    return fleet_mod.Fleet().init(strategy=s)
+
+
+def _first_steps(flash, main, startup, loss, program, feed, steps):
+    """`steps` steps of `program` after a fresh Executor's run of
+    `startup` (the draws every run of this program starts from, a world
+    rank's too): (losses, the first step's @GRADs on the card, their
+    names, (fwd, dQ, dK/dV) launches a step)."""
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor()
+    names = [p.name for p in main.all_parameters()]
+    losses, per_step = [], []
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        for i in range(steps):
+            before = _bwd_counts(flash)
+            out = exe.run(program, feed=feed, fetch_list=[loss] + (
+                [n + "@GRAD" for n in names] if i == 0 else []),
+                return_numpy=False)
+            per_step.append([a - b for a, b in zip(_bwd_counts(flash),
+                                                   before)])
+            losses.append(out[0].double().item())
+            if i == 0:
+                grads = out[1:]
+    return losses, grads, names, per_step
+
+
+def _grad_gate(got, want, names, want_names, tol):
+    """(the worst @GRAD error over its tensor's scale plus 1e-3 of the
+    largest gradient (_grad_rel_err's), its name, and whether every
+    tensor is within `tol` of its scale); the two runs' parameter names
+    must be equal, or the tensors would be paired wrongly."""
+    if list(names) != list(want_names):
+        raise RuntimeError("the reference's parameters differ")
+    floor = 1e-3 * max(g.abs().max().item() for g in want)
+    worst, name = 0.0, None
+    for nm, a, b in zip(names, got, want):
+        err = (a - b).abs().max().item() / (b.abs().max().item() + floor)
+        if err > worst:
+            worst, name = err, nm
+    return worst, name, worst <= tol
+
+
+def _save_ref(path, ref):
+    losses, grads, names, _per_step = ref
+    torch.save({"losses": losses, "grads": [g.cpu() for g in grads],
+                "names": names}, path)
+
+
+def _against(path, losses, grads, names, tol):
+    """A world rank's run against the parent's reference at `path`: the
+    errors of 21's staged comparison (first loss within
+    DP_FIRST_LOSS_TOL, later losses, @GRADs within `tol` of their scale
+    by _grad_gate), computed on the card."""
+    ref = torch.load(path, map_location="cuda:0")
+    first = abs(losses[0] - ref["losses"][0]) / abs(ref["losses"][0])
+    later = max([abs(a - b) / abs(b) for a, b in
+                 zip(losses[1:], ref["losses"][1:])] or [0.0])
+    grad, worst, ok = _grad_gate(grads, ref["grads"], names, ref["names"],
+                                 tol)
+    return {"first_loss_rel_err": first, "later_loss_rel_err": later,
+            "grad_rel_err": grad, "worst": worst, "grad_tol": tol,
+            "ok": ok and first <= DP_FIRST_LOSS_TOL
+            and later <= DP_LATER_LOSS_TOL}
+
+
+def _world_tp(flash, flt, out):
+    """Phase 35's main form in one rank: phase 34's cell through fleet
+    (tp 2 over the world), FLEET_STEPS steps: losses, launches and
+    reductions a step, the first step's @GRADs against the parent's local
+    tp 2 run, one step's step ms and (a later one's) gloo ms, the scope's
+    shares."""
+    import torch.distributed as dist
+    import paddle_tpu_torch as fluid
+    main, startup, loss = build_bert_fleet(bert_config(), flt)
+    mesh = flt.mesh()
+    comp = fluid.CompiledProgram(main).with_mesh(mesh)
+    feed = bert_feed()
+    exe = fluid.Executor()
+    names = [p.name for p in main.all_parameters()]
+    rec = {"losses": [], "launches": [], "reductions": [], "step_ms": []}
+    gloo = {"ms": 0.0, "calls": 0}
+    tc0 = flash.TC_LAUNCHES
+    real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather",
+                                          "batch_isend_irecv")}
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            gloo["ms"] += (time.perf_counter() - t) * 1e3
+            gloo["calls"] += 1
+            return r
+        return call
+
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        _wait_go(out)
+        for i in range(FLEET_STEPS):
+            if i == FLEET_STEPS - 1:
+                for k, fn in real.items():
+                    setattr(dist, k, timed(fn))
+            before, red0 = _bwd_counts(flash), mesh.reductions
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                got = exe.run(comp, feed=feed, fetch_list=[loss] + (
+                    [n + "@GRAD" for n in names] if i == 0 else []),
+                    return_numpy=False)
+                rec["losses"].append(got[0].double().item())
+            finally:
+                for k, fn in real.items():
+                    setattr(dist, k, fn)
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["reductions"].append(mesh.reductions - red0)
+            rec["launches"].append([a - b for a, b in zip(
+                _bwd_counts(flash), before)])
+            if i == 0:
+                grads = got[1:]
+        rec["shares"] = list(_scope_shares(main, scope, mesh))
+    rec["tc"] = flash.TC_LAUNCHES - tc0
+    rec["gloo_ms_last_step"] = gloo["ms"]
+    rec["gloo_calls_last_step"] = gloo["calls"]
+    rec["vs_local"] = _against(os.path.join(out, "ref_tp.pt"),
+                               rec["losses"][:1], grads, names,
+                               FLEET_GRAD_TOL)
+    rec["peak_memory"] = torch.cuda.max_memory_allocated()
+    return rec
+
+
+def _wait_go(out):
+    """Block until the parent writes <out>/go: 35's ranks boot, build and
+    start up while 35c's world runs, and take their timed steps alone."""
+    deadline = time.monotonic() + FLEET_WORLD_TIMEOUT_S
+    while not os.path.exists(os.path.join(out, "go")):
+        if time.monotonic() > deadline:
+            raise RuntimeError("no go from the parent")
+        time.sleep(0.05)
+
+
+def _world_sp(flash, out):
+    """Phase 35's second form in the same processes: the 2-layer net over
+    the world's sp 2 line (dp 1), BERT_AGREE_STEPS steps, against the
+    parent's local sp 2 run; the ring's K/V rotate between the two
+    processes."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import make_mesh
+    main, startup, loss = dp_agree_program()
+    mesh = make_mesh(sp=2)
+    comp = fluid.CompiledProgram(main).with_mesh(mesh)
+    tc0 = flash.TC_LAUNCHES
+    losses, grads, names, per_step = _first_steps(
+        flash, main, startup, loss, comp, dp_agree_feed(), BERT_AGREE_STEPS)
+    return {"losses": losses, "launches": per_step,
+            "tc": flash.TC_LAUNCHES - tc0,
+            "vs_local": _against(os.path.join(out, "ref_sp.pt"), losses,
+                                 grads, names, DP_GRAD_TOL)}
+
+
+def _world_ops(rank, n):
+    """The collective ops on CUDA tensors over the world's dp line inside
+    ``collective.mapped``, against numpy: {op: (max relative error, exact
+    required)}. prod runs over mixed signs and a zero."""
+    from paddle_tpu_torch.ops import _REGISTRY
+    from paddle_tpu_torch.parallel import collective, make_mesh
+    mesh = make_mesh(dp=n)
+    mixed = np.arange(n * 6, dtype=np.float32).reshape(n, 6) - 4.0
+    mixed[0, 1] = 0.0
+    rows = np.stack([np.arange(n * 4, dtype=np.float32) + 10 * r
+                     for r in range(n)])
+    mine = torch.from_numpy(mixed[rank].copy()).cuda()
+    row = torch.from_numpy(rows[rank].copy()).cuda()
+    cases = [
+        ("c_allreduce_sum", mine, mixed.sum(0), False),
+        ("c_allreduce_max", mine, mixed.max(0), True),
+        ("c_allreduce_min", mine, mixed.min(0), True),
+        ("c_allreduce_prod", mine, mixed.prod(0), False),
+        ("c_broadcast", mine, mixed[1], True),
+        ("c_allgather", mine[None], mixed, True),
+        ("c_reducescatter", row, rows.sum(0).reshape(n, -1)[rank], False),
+        ("alltoall", row, np.concatenate([rows[s].reshape(n, -1)[rank]
+                                          for s in range(n)]), True)]
+    errs = {}
+    with collective.mapped(mesh):
+        for op, x, want, exact in cases:
+            class Ctx:
+                def in_(self, slot, default=None):
+                    return x
+
+                def attr(self, name, default=None):
+                    return {"axis_name": "dp", "root": 1}.get(name,
+                                                              default)
+            got = _REGISTRY[op](Ctx())["Out"]
+            if got.device != x.device:
+                raise RuntimeError(f"{op} left the card")
+            diff = np.abs(got.cpu().numpy() - want)
+            errs[op] = [float((diff / np.maximum(np.abs(want), 1.0)).max()),
+                        exact]
+    return errs
+
+
+def _world_shuffle(flt, rank, n, out):
+    """InMemoryDataset.global_shuffle(fleet=) over the processes, each
+    having loaded its own file of 4 records: the union of the shards."""
+    import torch.distributed as dist
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import dataset as ds
+    with fluid.program_guard(fluid.Program(), fluid.Program()):
+        xvar = fluid.layers.data("x", shape=[1], dtype="int64")
+    path = os.path.join(out, f"shuffle{rank}.txt")
+    with open(path, "w") as f:
+        for v in range(rank * 4, rank * 4 + 4):
+            f.write(f"1 {v}\n")
+    d = ds.InMemoryDataset()
+    d.set_batch_size(2)
+    d.set_use_var([xvar])
+    d.set_filelist([path])
+    d.set_shuffle_seed(11)
+    d.load_into_memory()
+    d.global_shuffle(fleet=flt)
+    mine = sorted(int(b["x"][r, 0]) for b in d._iter_batches()
+                  for r in range(b["x"].shape[0]))
+    every = [None] * n
+    dist.all_gather_object(every, mine)
+    return sorted(v for m in every for v in m)
+
+
+def fleet_world_rank(form, out):
+    """One rank of phase 35's or 35c's world (`--fleet-world-rank`),
+    started by ``python -m paddle_tpu_torch.distributed.launch``:
+    fleet.init joins the world (gloo: the launcher's layout puts every
+    rank on cuda:0), then 35 runs the tp 2 form, the sp 2 form, the
+    collective ops, the barrier and the shuffle; 35c the dp 2 x tp 2 +
+    ZeRO-1 form at 2 layers. Writes <out>/rank<r>.json."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.ops.cuda import flash
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    flt = _fleet(zero=1 if form == "35c" else 0)
+    rank, n = flt.worker_index(), flt.worker_num()
+    try:
+        flash.build()
+        flash.build_bwd()
+        rec = {"backend": flt.backend, "rank": rank,
+               "mesh": dict(flt.mesh().shape),
+               "boot_s": time.perf_counter() - t0}
+        if form == "35":
+            rec["tp"] = _world_tp(flash, flt, out)
+            rec["sp"] = _world_sp(flash, out)
+            rec["ops"] = _world_ops(rank, n)
+            t = time.perf_counter()
+            flt.barrier_worker()
+            rec["barrier_ms"] = (time.perf_counter() - t) * 1e3
+            rec["shuffle_union"] = _world_shuffle(flt, rank, n, out)
+        else:
+            import paddle_tpu_torch as fluid
+            main, startup, loss = _fleet_agree_program(flt)
+            mesh = flt.mesh()
+            comp = fluid.CompiledProgram(main).with_mesh(mesh)
+            exe = fluid.Executor()
+            names = [p.name for p in main.all_parameters()]
+            scope = fluid.Scope()
+            losses, per_step = [], []
+            tc0 = flash.TC_LAUNCHES
+            with fluid.scope_guard(scope):
+                exe.run(startup)
+                for i in range(BERT_AGREE_STEPS):
+                    before = _bwd_counts(flash)
+                    got = exe.run(comp, feed=dp_agree_feed(),
+                                  fetch_list=[loss] + ([
+                                      p + "@GRAD" for p in names]
+                                      if i == 0 else []),
+                                  return_numpy=False)
+                    per_step.append([a - b for a, b in zip(
+                        _bwd_counts(flash), before)])
+                    losses.append(got[0].double().item())
+                    if i == 0:
+                        grads = got[1:]
+                rec["shares"] = list(_scope_shares(main, scope, mesh))
+            rec.update(losses=losses, launches=per_step,
+                       tc=flash.TC_LAUNCHES - tc0, coords=mesh.coords(),
+                       vs_local=_against(os.path.join(out, "ref_mixed.pt"),
+                                         losses, grads, names, DP_GRAD_TOL))
+        flt.barrier_worker()
+        rec["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _fleet_agree_program(flt):
+    """dp_agree_program's net (2 layers, dropout 0) through fleet's
+    distributed optimizer."""
+    return build_bert_fleet(bert_config(
+        num_hidden_layers=BERT_AGREE_LAYERS, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0), flt)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_world(form, nproc, base):
+    """`nproc` ranks of this script (`--fleet-world-rank form <dir>`)
+    through the port's launcher with ``--selected_gpus=0,...,0`` (every
+    rank on cuda:0: gloo by the layout), in its own session. The
+    launcher's file runs as a script, as ``python -m
+    paddle_tpu_torch.distributed.launch`` runs the same code, without
+    importing the package into the launcher's process. Returns (form,
+    nproc, its directory, the launcher)."""
+    import paddle_tpu_torch.distributed as pdist
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(base, form)
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable,
+           os.path.join(os.path.dirname(pdist.__file__), "launch.py"),
+           f"--nproc_per_node={nproc}",
+           f"--selected_gpus={','.join(['0'] * nproc)}",
+           f"--started_port={_free_port()}",
+           f"--log_dir={os.path.join(out, 'log')}",
+           os.path.abspath(__file__), "--fleet-world-rank", form, out]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([root, env.get("PYTHONPATH", "")])
+    with open(os.path.join(out, "launcher.log"), "w") as log:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return form, nproc, out, proc
+
+
+def _finish_world(world, started):
+    """Wait for a started world (at most FLEET_WORLD_TIMEOUT_S after
+    `started`, then its group is killed): the ranks' records; a rank's
+    failure fails the phase."""
+    form, nproc, out, proc = world
+    try:
+        rc = proc.wait(max(1.0, started + FLEET_WORLD_TIMEOUT_S
+                           - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        rc = None
+    if rc != 0:
+        for r in range(nproc):
+            path = os.path.join(out, "log", f"workerlog.{r}")
+            if os.path.exists(path):
+                with open(path) as f:
+                    print(f"{form} rank {r} log tail:\n" + f.read()[-3000:])
+        _fail(f"{form}: the launcher exited {rc}")
+    recs = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _gate(tag, cmp, bad):
+    print(f"{tag}: first loss rel err {cmp['first_loss_rel_err']:.3e} "
+          f"(tolerance {DP_FIRST_LOSS_TOL}), later "
+          f"{cmp['later_loss_rel_err']:.3e}, @GRADs worst "
+          f"{cmp['grad_rel_err']:.3e} at {cmp['worst']} (tolerance "
+          f"{cmp['grad_tol']})")
+    if not cmp["ok"]:
+        bad.append(f"{tag}: the runs disagree")
+
+
+def fleet_references(flash, rec34, base):
+    """35's references in this process, into <base>/35: a local tp 2
+    first step of phase 34's cell (its loss phase 34's) and a local sp 2
+    run of the 2-layer net (_first_steps from a fresh startup)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import apply_shard_rules, make_mesh
+    out = os.path.join(base, "35")
+    os.makedirs(out, exist_ok=True)
+    main, startup, loss = build_bert(bert_config())
+    apply_shard_rules(main)
+    comp = fluid.CompiledProgram(main).with_mesh(
+        make_mesh(tp=TP, devices=["cuda:0"] * TP))
+    ref = _first_steps(flash, main, startup, loss, comp, bert_feed(), 1)
+    if abs(ref[0][0] - rec34["loss_first"]) > DP_FIRST_LOSS_TOL * abs(
+            rec34["loss_first"]):
+        _fail(f"35: the local tp 2 reference {ref[0][0]} is not phase "
+              f"34's first loss {rec34['loss_first']}")
+    _save_ref(os.path.join(out, "ref_tp.pt"), ref)
+    del ref
+    smain, sstart, sloss = dp_agree_program()
+    scomp = fluid.CompiledProgram(smain).with_mesh(
+        make_mesh(sp=2, devices=["cuda:0"] * 2))
+    _save_ref(os.path.join(out, "ref_sp.pt"), _first_steps(
+        flash, smain, sstart, sloss, scomp, dp_agree_feed(),
+        BERT_AGREE_STEPS))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rank_launches(rec):
+    """A world rank's (fwd, dQ, dK/dV, bf16 fwd) flash launches over its
+    run, summed from the counts it read around each step."""
+    return tuple(int(sum(c[k] for c in rec["launches"]))
+                 for k in range(3)) + (int(rec["tc"]),)
+
+
+def phase_fleet_world(rec34, world, started):
+    """Phase 35: two processes on cuda:0 through the port's launcher,
+    fleet.init choosing gloo by the layout. BERT-base (phase 16/34's
+    cell) under DistributedStrategy(tp_degree=2) through fleet's
+    distributed Adam and CompiledProgram(main).with_mesh(fleet.mesh()),
+    FLEET_STEPS steps; then the 2-layer net at sp 2 over the world, the
+    collective ops on CUDA tensors, barrier_worker and global_shuffle;
+    against fleet_references'. `world` was started at `started` and its
+    ranks wait, started up, for the go written here. Returns (launches
+    by path, record)."""
+    t0 = time.perf_counter()
+    with open(os.path.join(world[2], "go"), "w"):
+        pass
+    recs = _finish_world(world, started)
+    world_s = time.perf_counter() - t0
+    n = bert_config().num_hidden_layers
+    layers = BERT_AGREE_LAYERS
+    launches, out = {}, {"world_s": world_s, "card": _card_line()}
+    bad = []
+    for r, rec in enumerate(recs):
+        tp = rec["tp"]
+        if rec["backend"] != "gloo" or rec["mesh"]["tp"] != TP:
+            bad.append(f"35 rank {r}: backend {rec['backend']}, mesh "
+                  f"{rec['mesh']}")
+        if any(c != [n] * 3 for c in tp["launches"]) or tp["tc"]:
+            bad.append(f"35 rank {r}: flash launches a step {tp['launches']}"
+                       f" ({tp['tc']} bf16), want {n} each (6 heads a "
+                       f"rank), 0 bf16")
+        if abs(tp["losses"][0] - rec34["loss_first"]) > DP_FIRST_LOSS_TOL \
+                * abs(rec34["loss_first"]):
+            bad.append(f"35 rank {r}: first loss {tp['losses'][0]} vs phase "
+                  f"34's {rec34['loss_first']}")
+        _gate(f"35 rank {r} tp {TP} world vs local tp {TP}", tp["vs_local"],
+              bad)
+        held, share, whole = tp["shares"]
+        if held != share or whole:
+            bad.append(f"35 rank {r}: the scope holds {held} elements, the "
+                  f"shares {share}; whole: {whole}")
+        sp = rec["sp"]
+        if any(c != [2 * layers] * 3 for c in sp["launches"]) or sp["tc"]:
+            bad.append(f"35 rank {r}: sp flash launches a step "
+                       f"{sp['launches']} ({sp['tc']} bf16), want "
+                       f"{2 * layers} each, 0 bf16")
+        _gate(f"35 rank {r} sp 2 world vs local sp 2", sp["vs_local"],
+              bad)
+        for op, (err, exact) in rec["ops"].items():
+            if (exact and err != 0.0) or err > 1e-6:
+                bad.append(f"35 rank {r}: {op} off numpy by {err}")
+        if rec["shuffle_union"] != list(range(4 * TP)):
+            bad.append(f"35 rank {r}: global_shuffle's union "
+                  f"{rec['shuffle_union']}")
+        launches[f"35 fleet tp {TP} world rank {r} ({FLEET_STEPS} "
+                 f"steps)"] = _rank_launches(tp)
+        launches[f"35 fleet sp 2 world rank {r} ({layers} layers x "
+                 f"{BERT_AGREE_STEPS} steps)"] = _rank_launches(sp)
+        out[f"rank{r}"] = {
+            "losses": tp["losses"], "step_ms": tp["step_ms"],
+            "reductions_per_step": tp["reductions"],
+            "gloo_ms_last_step": tp["gloo_ms_last_step"],
+            "gloo_calls_last_step": tp["gloo_calls_last_step"],
+            "vs_local_tp": tp["vs_local"], "elements_held": held,
+            "peak_memory": tp["peak_memory"], "sp_losses": sp["losses"],
+            "vs_local_sp": sp["vs_local"], "ops": rec["ops"],
+            "barrier_ms": rec["barrier_ms"], "boot_s": rec["boot_s"],
+            "seconds": rec["seconds"]}
+    print("fleet world " + json.dumps(out))
+    if bad:
+        _fail("; ".join(bad))
+    return launches, out
+
+
+def phase_fleet_local(flash, rec21):
+    """Phase 35b: fleet on one process, DistributedStrategy(tp_degree=2,
+    zero_stage=1) over local_devices ["cuda:0"] * 4: dp 2 x tp 2 on one
+    mesh. BERT-base for BERT_WARM + FLEET_B_STEPS steps and a profile;
+    its first loss against phase 21's dp 2, its first step's @GRADs
+    against a local dp 2 first step, each within FLEET_GRAD_TOL of its
+    scale (the 12-layer reordering). Returns ((fwd, dQ, dK/dV, bf16 fwd)
+    launches, record)."""
+    import paddle_tpu_torch as fluid
+    flt = _fleet(zero=1, devices=["cuda:0"] * 4)
+    mesh = flt.mesh()
+    if dict(mesh.shape) != {"dp": 2, "pp": 1, "ep": 1, "sp": 1, "tp": 2}:
+        _fail(f"35b: fleet's mesh {mesh}")
+    cfg = bert_config()
+    main, startup, loss = build_bert_fleet(cfg, flt)
+    comp = fluid.CompiledProgram(main).with_mesh(mesh)
+    feed = bert_feed()
+    dmain, dstart, dloss = build_bert(cfg)
+    dref = _first_steps(flash, dmain, dstart, dloss, _dp_program(
+        dmain, dloss, [fluid.CUDAPlace(0)] * DP), feed, 1)
+    got = _first_steps(flash, main, startup, loss, comp, feed, 1)
+    first = abs(got[0][0] - rec21["loss_first"]) / abs(rec21["loss_first"])
+    grad, worst, ok = _grad_gate(got[1], dref[1], got[2], dref[2],
+                                 FLEET_GRAD_TOL)
+    print(f"35b: dp 2 x tp 2 first loss {got[0][0]} vs phase 21's "
+          f"{rec21['loss_first']} (rel err {first:.3e}, tolerance "
+          f"{DP_FIRST_LOSS_TOL}); @GRADs vs a dp 2 first step worst "
+          f"{grad:.3e} at {worst} (tolerance {FLEET_GRAD_TOL})")
+    if first > DP_FIRST_LOSS_TOL or not ok:
+        _fail("35b: dp 2 x tp 2 disagrees with dp 2")
+    del dref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    exe = fluid.Executor()
+    n = cfg.num_hidden_layers
+    steps = BERT_WARM + FLEET_B_STEPS
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        _zero_counts(flash)
+        red0 = mesh.reductions
+        losses, step_ms, per_step, tc = _train_run(
+            flash, exe, comp, feed, loss, steps, BERT_WARM)
+        counts = _bwd_counts(flash)
+        reductions = mesh.reductions - red0
+        peak = torch.cuda.max_memory_allocated()
+        shares = _scope_shares(main, scope, mesh)
+        prof = _profile_train(lambda: exe.run(comp, feed=feed,
+                                              fetch_list=[loss]),
+                              BERT_PROFILE_STEPS)
+    per = DP * TP * n
+    if per_step != {(per,) * 3} or tc or counts != (steps * per,) * 3:
+        _fail(f"35b: flash launches a step {per_step} (run {counts}), want "
+              f"{per} each (dp 2 x tp 2 positions x {n} layers)")
+    if shares[2]:
+        _fail(f"35b: laid-out persistables held whole: {shares[2]}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        _fail(f"35b: loss not finite or not falling: {losses}")
+    del scope
+    out = {"config": "BertConfig(max_position_embeddings=512)",
+           "strategy": "tp_degree=2, zero_stage=1, local_devices="
+                       "['cuda:0'] * 4", "mesh": "local dp 2 x tp 2",
+           "card": _card_line(), "steps_timed": len(step_ms),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "tokens_per_s": BERT_BATCH * BERT_SEQ / (
+               float(np.mean(step_ms)) / 1e3),
+           "max_memory_allocated": peak, "loss_first": losses[0],
+           "loss_last": losses[-1], "first_loss_rel_err_vs_21": first,
+           "grad_rel_err_vs_dp2": grad, "grad_tol": FLEET_GRAD_TOL,
+           "reductions_per_step": reductions / steps,
+           "flash_launches_per_step": list(next(iter(per_step))),
+           "elements_held": shares[0],
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "device_busy_share": prof["device_busy_share"],
+           "flash_share_of_device": prof["flash_share_of_device"]}
+    print("fleet local " + json.dumps(out))
+    return counts + (tc,), out
+
+
+def fleet_world4_reference(flash, base):
+    """35c's reference in this process, into <base>/35c: 35b's form (the
+    fleet strategy tp_degree=2, zero_stage=1 over four positions of
+    cuda:0) on the 2-layer net, BERT_AGREE_STEPS steps. Returns its
+    launches a step."""
+    import paddle_tpu_torch as fluid
+    out = os.path.join(base, "35c")
+    os.makedirs(out, exist_ok=True)
+    flt = _fleet(zero=1, devices=["cuda:0"] * 4)
+    main, startup, loss = _fleet_agree_program(flt)
+    ref = _first_steps(flash, main, startup, loss,
+                       fluid.CompiledProgram(main).with_mesh(flt.mesh()),
+                       dp_agree_feed(), BERT_AGREE_STEPS)
+    _save_ref(os.path.join(out, "ref_mixed.pt"), ref)
+    return ref[3]
+
+
+def phase_fleet_world4(world, started, per_step_local):
+    """Phase 35c: four processes on cuda:0 through the launcher (`world`,
+    started at `started` while this process computed 35's references),
+    fleet's tp 2 + ZeRO-1 over a world of 4 (dp 2 x tp 2), the 2-layer
+    net for BERT_AGREE_STEPS steps against its local form; each rank's
+    scope holds the dist_attrs' shares. Returns (launches by path,
+    record)."""
+    recs = _finish_world(world, started)
+    layers = BERT_AGREE_LAYERS
+    launches, out, bad = {}, {}, []
+    for r, rec in enumerate(recs):
+        if rec["backend"] != "gloo" or rec["mesh"]["dp"] != DP:
+            bad.append(f"35c rank {r}: backend {rec['backend']}, mesh "
+                  f"{rec['mesh']}")
+        if any(c != [layers] * 3 for c in rec["launches"]) or rec["tc"]:
+            bad.append(f"35c rank {r}: flash launches a step "
+                       f"{rec['launches']} ({rec['tc']} bf16), want "
+                       f"{layers} each, 0 bf16")
+        _gate(f"35c rank {r} dp 2 x tp 2 world vs local", rec["vs_local"],
+              bad)
+        held, share, whole = rec["shares"]
+        if held != share or whole:
+            bad.append(f"35c rank {r}: the scope holds {held} elements, the "
+                  f"shares {share}; whole: {whole}")
+        launches[f"35c fleet dp 2 x tp 2 world rank {r} ({layers} layers "
+                 f"x {BERT_AGREE_STEPS} steps)"] = _rank_launches(rec)
+        out[f"rank{r}"] = {"coords": rec["coords"], "losses": rec["losses"],
+                           "vs_local": rec["vs_local"],
+                           "elements_held": held, "boot_s": rec["boot_s"],
+                           "seconds": rec["seconds"]}
+    print(f"35c: the local form's launches a step {per_step_local[0]} over "
+          f"4 positions")
+    print("fleet world4 " + json.dumps(out))
+    if bad:
+        _fail("; ".join(bad))
+    return launches, out
+
+
+def phase_fleet_train_all(flash, rec34, rec21):
+    """Phases 35-35c. 35c's four ranks boot and run, and 35's two boot
+    and start up, while this process computes 35's references (35c's
+    own reference is made first); 35's timed steps (after its go) and
+    35b, whose times are reported, run alone. Returns (flash launches by
+    path, records)."""
+    base = tempfile.mkdtemp(prefix="fleet_")
+    worlds = []
+    try:
+        lper = _phase("35c reference (local, 2 layers)",
+                      fleet_world4_reference, flash, base)
+        started = time.perf_counter()
+        world4 = _start_world("35c", DP * TP, base)
+        worlds.append(world4)
+        world2 = _start_world("35", TP, base)
+        worlds.append(world2)
+        _phase("35 references (local tp 2, sp 2), beside 35c's world",
+               fleet_references, flash, rec34, base)
+        cl, crec = _phase("35c fleet dp 2 x tp 2 world, four processes",
+                          phase_fleet_world4, world4, started, lper)
+        wl, wrec = _phase("35 fleet tp 2 world, two processes (after its "
+                          "go)", phase_fleet_world, rec34, world2, started)
+        ll, lrec = _phase("35b fleet dp 2 x tp 2 + ZeRO-1, local",
+                          phase_fleet_local, flash, rec21)
+    finally:
+        for world in worlds:
+            if world[3].poll() is None:
+                os.killpg(world[3].pid, 9)
+                world[3].wait()
+        shutil.rmtree(base, ignore_errors=True)
+    steps = BERT_WARM + FLEET_B_STEPS
+    paths = {**wl, f"35b fleet dp 2 x tp 2 local ({steps} steps)": ll,
+             **cl}
+    return paths, {"35": wrec, "35b": lrec, "35c": crec}
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -13864,6 +14585,9 @@ def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--dps-world-rank":
         dps_world_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return
+    if len(sys.argv) == 4 and sys.argv[1] == "--fleet-world-rank":
+        fleet_world_rank(sys.argv[2], sys.argv[3])
+        return
     if len(sys.argv) > 1:
         _fail(f"arguments {sys.argv[1:]}: want none, or --bwd-times-of, "
               f"--fwd-times-of or --paged-of <checkout>")
@@ -13958,10 +14682,15 @@ def main():
     quant_counts, _ = phase_quant_all(flash, paged, vis_recs["31b"]["v1"])
     t34 = time.perf_counter()
     c34 = world34c["record"]["seconds_in_21d"]
-    shard_paths, _ = phase_shard_all(flash, bert16, prof16, rec21, world34c)
+    shard_paths, shard_recs = phase_shard_all(flash, bert16, prof16, rec21,
+                                              world34c)
     del world34c
     print(f"phases 34-34d: {time.perf_counter() - t34 + c34:.1f} s (34c's "
           f"{c34:.1f} s inside 21d's processes)")
+    t35 = time.perf_counter()
+    fleet_paths, _ = phase_fleet_train_all(flash, shard_recs["34"],
+                                           rec21[0])
+    print(f"phases 35-35c: {time.perf_counter() - t35:.1f} s")
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -14064,6 +14793,7 @@ def main():
         **{f"17 ring sp {RING_SP} {case} (one call)": c
            for case, c in ring_launches.items()},
         **recipe_paths, **dp_paths, **recipe_dp_paths, **shard_paths,
+        **fleet_paths,
         f"24 Transformer-base train ({TF_WARM + TF_STEPS} steps)":
             tf_launches,
         "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":

@@ -45,7 +45,11 @@ NAS search), also under ``contrib.quantize`` / ``contrib.slim``; and
 sharded state under ``CompiledProgram``: tensor-parallel Programs
 (``parallel.apply_shard_rules``), ZeRO-1 and FSDP (the transpiler's
 ``shard_optimizer_state`` / ``shard_params_fsdp``, ``DistributeTranspiler``)
-and the sharded checkpoint (``io.save_checkpoint_sharded``). The top
+and the sharded checkpoint (``io.save_checkpoint_sharded``); and Fluid's
+collective training: ``python -m paddle_tpu_torch.distributed.launch``,
+``fleet.init`` / ``fleet.distributed_optimizer`` (``parallel/fleet.py``,
+``incubate.fleet``) and the collective ops, with tp, sp and dp in any mix
+over one mesh, local or a ``torch.distributed`` world. The top
 level is the ``fluid`` namespace of that recipe::
 
     import paddle_tpu_torch as fluid
@@ -76,6 +80,8 @@ from .core.param_attr import ParamAttr
 from .core.place import CPUPlace, CUDAPlace
 from .device import resolve_device
 from . import contrib, dataset, incubate, io, reader, robustness
+from . import communicator
+from .communicator import Communicator
 from .layers.io import fluid_data as data
 from .io.state import (save_params, save_persistables, save_vars,
                        load_params, load_persistables, load_vars)
@@ -105,4 +111,4 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "FileInstantDataset", "BoxPSDataset", "DataFeedDesc",
            "parallel", "transpiler", "DistributeTranspiler",
            "DistributeTranspilerConfig", "memory_optimize",
-           "release_memory"]
+           "release_memory", "communicator", "Communicator"]

@@ -50,14 +50,31 @@ skips the fused all-reduce). The walk's autograd leaves are the parts,
 so ``name@GRAD`` comes out sharded like its parameter. The numbers are
 the unsharded run's (a tp mesh's partial sums add in rank order).
 
-``with_mesh(mesh)`` takes a mesh with "dp", "sp" and "tp" axes: under sp
-the walk activates the sp axis alone, so each rank's attention takes the
-ring over its own rows; under tp (a local mesh at dp 1) the feeds stay
-whole and the tp rules split the heads and the products. Refused with
-``NotImplementedError``: a mesh whose pp or ep is larger than 1 (ROADMAP
-item 11); tp or sp in a world, and tp beside dp or sp larger than 1
-(item 10d.2); a local mesh over several devices. A ``RecomputeOptimizer``
-program runs under the walk (``Executor.run``).
+``with_mesh(mesh)`` takes a mesh with "dp", "sp" and "tp" axes, in any
+mix, local or over a ``torch.distributed`` world. Feeds split their rows
+over dp (a tp mesh at dp 1 keeps them whole); the shard rules run once a
+held dp rank on its rows, so a tp rank's heads and products sit inside
+its dp rank's batch; under sp the walk activates the sp line (``active``:
+on a local mesh a mesh of the sp axis alone on the Executor's device, in
+a world ``Mesh.line_mesh("sp")``, this process's sp line), and each
+rank's attention takes the ring over it: a world's K/V rotate between
+processes. Every sp rank holds its dp rank's whole sequence; the ring
+takes its own time block at the attention and gathers the outputs
+(``ring_attention_sharded``), where JAX lays the feeds' dim 1 out over
+sp and GSPMD keeps the same global step (ROADMAP C).
+
+A world's gradient bookkeeping keeps one rule: a gradient is a partial
+over every axis along which its value is replicated, and whole along the
+axes where it is laid out. Each rank seeds 1 / (dp sp tp) of the
+replicated loss's gradient; a row-parallel sum's backward all-reduces the
+tp partials it is handed (as the dp sum's does over dp); then
+``reduce_grads`` all-reduces each gradient over the axes its parameter is
+replicated along (a replicated parameter's over dp, sp and tp, a
+tp-sharded one's over dp and sp, an FSDP one's over sp and tp), one fused
+all-reduce a line. Refused with ``NotImplementedError``: a mesh whose pp
+or ep is larger than 1 (pipeline and expert parallelism, the next
+ROADMAP items); a local mesh over several devices. A
+``RecomputeOptimizer`` program runs under the walk (``Executor.run``).
 """
 
 import os
@@ -70,8 +87,11 @@ from .executor import Executor
 from .framework import default_main_program
 
 # the ROADMAP items of the mesh forms the walk refuses
-PIPELINE_ITEM = "ROADMAP item 11"
-MIXED_MESH_ITEM = "ROADMAP queue A item 10d.2"
+NEXT_ITEMS = {"pp": "ROADMAP queue A item 11: pipeline parallelism "
+                    "(parallel/pipeline.py, PipelineOptimizer), the next "
+                    "item",
+              "ep": "ROADMAP queue A item 11: expert parallelism "
+                    "(parallel/moe.py, the moe op), after the pipeline"}
 
 
 class BuildStrategy:
@@ -235,17 +255,8 @@ class DataParallelWalk:
             if mesh.shape.get(axis, 1) > 1:
                 raise NotImplementedError(
                     f"a mesh with {axis}={mesh.shape[axis]} under "
-                    f"CompiledProgram is not ported ({PIPELINE_ITEM})")
+                    f"CompiledProgram is not ported ({NEXT_ITEMS[axis]})")
         dp, tp, sp = (mesh.shape.get(a, 1) for a in ("dp", "tp", "sp"))
-        if mesh.world and (tp > 1 or sp > 1):
-            raise NotImplementedError(
-                f"tensor or sequence parallelism (tp={tp}, sp={sp}) over a "
-                f"torch.distributed world mesh is {MIXED_MESH_ITEM}: the "
-                f"world form takes dp-only meshes")
-        if tp > 1 and (dp > 1 or sp > 1):
-            raise NotImplementedError(
-                f"tp={tp} beside dp={dp} or sp={sp} on one mesh is "
-                f"{MIXED_MESH_ITEM}: a tp mesh runs at dp 1")
         if not mesh.world and not all(
                 _same_device(d, device) for d in mesh.devices.flat):
             raise NotImplementedError(
@@ -255,6 +266,10 @@ class DataParallelWalk:
         self.mesh = mesh
         self.size = dp
         self.tp = tp
+        self.sp = sp
+        # the axes a replicated value is replicated along
+        self.axes = tuple(a for a in ("dp", "sp", "tp")
+                          if mesh.shape.get(a, 1) > 1)
         self.ranks = mesh.held("dp")
         self.world = mesh.world
         self.fuse = fuse
@@ -308,8 +323,9 @@ class DataParallelWalk:
     def split_feeds(self, feeds):
         """Each feed's rows over dp where dp divides dim 0 (JAX's
         ``_shard_feeds_spec``'s batch rule), else replicated. A tp mesh
-        (dp 1) keeps every feed whole."""
-        if self.tp > 1:
+        at dp 1 keeps every feed whole. The time axis stays whole on
+        every sp rank (the ring takes its block at the attention)."""
+        if self.tp > 1 and self.size == 1:
             return dict(feeds)
         out = {}
         for name, t in feeds.items():
@@ -321,35 +337,49 @@ class DataParallelWalk:
         return out
 
     def active(self):
-        """The context the ops run in: under sp > 1, a local mesh of the
-        sp axis alone (each rank's attention rings over its own rows)."""
+        """The context the ops run in: under sp > 1 the sp line each
+        rank's attention rings over, its own rows: on a local mesh a mesh
+        of the sp axis alone on the Executor's device, in a world this
+        process's sp line (``Mesh.line_mesh``), whose K/V rotate between
+        processes."""
         import contextlib
         from ..parallel.mesh import make_named_mesh
-        sp = self.mesh.shape.get("sp", 1)
-        if sp <= 1:
+        if self.sp <= 1:
             return contextlib.nullcontext()
-        return make_named_mesh(("sp",), (sp,), [self.device] * sp)
+        if self.world:
+            return self.mesh.line_mesh("sp")
+        return make_named_mesh(("sp",), (self.sp,), [self.device] * self.sp)
 
     def loss(self, value):
         """The scalar the backward differentiates: a replicated loss's
-        sum, or the dp sum of a sharded loss's row sums; in a world 1/dp
-        of it, this rank's share of the seed (each replicated value's
-        gradient is then this rank's partial of the whole)."""
+        sum, or the dp sum of a sharded loss's row sums; in a world
+        1 / (dp sp tp) of it, this rank's share of the seed (each
+        replicated value's gradient is then this rank's partial of the
+        whole)."""
         if isinstance(value, Sharded):
             value = self.sum([p.sum() for p in value.parts])
         total = value.sum()
-        return total / self.size if self.world else total
+        if not self.world:
+            return total
+        return total / (self.size * self.sp * self.tp)
 
     def reduce_grads(self, grads):
         """The global gradients: on a local mesh autograd already summed
-        the ranks; a world sums the ranks' partials over dp. A sharded
-        gradient is whole for its block already (its gather's backward
-        reduced it), so only the replicated ones are all-reduced."""
+        the ranks; a world all-reduces each gradient over the axes its
+        value is replicated along (whole along those it is laid out over:
+        a gather's backward or a tp rule reduced it there), one fused
+        all-reduce a line and a set of such axes."""
         if not self.world:
             return grads
-        self.mesh.all_reduce_grads(
-            [g for g in grads if not isinstance(g, ShardedTensor)], "dp",
-            fuse=self.fuse)
+        by_axes = {}
+        for g in grads:
+            laid = set(g.axes) if isinstance(g, ShardedTensor) else set()
+            axes = tuple(a for a in self.axes if a not in laid)
+            if axes:
+                by_axes.setdefault(axes, []).extend(
+                    g.parts if isinstance(g, ShardedTensor) else [g])
+        for axes, group in by_axes.items():
+            self.mesh.all_reduce_grads(group, axes, fuse=self.fuse)
         return grads
 
     def fetch(self, value):
@@ -360,6 +390,8 @@ class DataParallelWalk:
             return value.full()
         if not isinstance(value, Sharded):
             return value
+        parts = [p.full() if isinstance(p, ShardedTensor) else p.detach()
+                 for p in value.parts]
         if self.world:
-            return self.mesh.gather_rows(value.parts[0].detach(), "dp")
-        return torch.cat([p.detach() for p in value.parts])
+            return self.mesh.gather_rows(parts[0], "dp")
+        return torch.cat(parts)

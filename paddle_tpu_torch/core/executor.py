@@ -815,7 +815,7 @@ class Executor:
             if owners and walk is not None:
                 # a world rank reads only its blocks: every rank trips
                 # when any rank's block is non-finite
-                flags = walk.mesh.all_min(flags, "dp")
+                flags = walk.mesh.all_min(flags, walk.axes)
             if owners:      # a step with nothing to watch is unguarded
                 guard = (flags, owners, step_id)
         fetches = [env[f] for f in fetch_names]

@@ -35,7 +35,10 @@ not apply returns None, and so does an op without one: it then reads the
 value's global tensor (``walk.gather``: a concatenation of the parts on
 a local mesh, an all-gather in a world, counted in the mesh's
 ``reductions``), and an in-place update of that tensor goes back into
-the parts.
+the parts. Under a mesh with dp beside tp the rows are dp-sharded too: a
+shard rule then runs once a held dp rank on its rows (its outputs
+dp-sharded, a tp-split activation a ``Sharded`` of ``ShardedTensor``
+rows), and an op without one reads each rank's gathered rows.
 
 Kernels live in subpackages by route (``ops/cuda/``); the modules here
 are plain torch around them.
@@ -290,14 +293,27 @@ def part_context(ctx, picks, block=None):
 
 
 def tp_split(value, dims):
-    """Is `value` a ShardedTensor laid out over "tp" alone, on exactly the
-    dimensions `dims` (negative counts from the end)?"""
-    if not isinstance(value, ShardedTensor) or value.axes != ["tp"]:
-        return False
+    """`value` laid out over "tp" on exactly the dimensions `dims`
+    (negative counts from the end), as a ShardedTensor over "tp" alone,
+    or None. A value laid out over "tp" there and over other axes (dp,
+    sp) on other dimensions is first gathered along those
+    (``ShardedTensor.over``, counted once)."""
+    if not isinstance(value, ShardedTensor) or "tp" not in value.axes:
+        return None
     n = len(value.shape)
     want = {d % n for d in dims}
-    return {d for d, e in enumerate(value.spec) if e is not None} == want \
-        and all(value.spec[d] == "tp" for d in want)
+    tp_dims = {d for d, e in enumerate(value.spec) if e == "tp"}
+    if tp_dims != want or any(
+            "tp" in _axes_of(e) for d, e in enumerate(value.spec)
+            if d not in want):
+        return None
+    return value.over(["tp"])
+
+
+def _axes_of(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
 def blockwise(impl, ctx, walk):
@@ -386,13 +402,18 @@ def run_op(op, env, program, is_test=False, device=None, live=None,
     whole under its one name."""
     impl = get(op.type)
     if walk is not None:
-        laid = [n for n in dict.fromkeys(op.input_names)
-                if isinstance(env.get(n), ShardedTensor)]
+        names = list(dict.fromkeys(op.input_names))
+        laid = [n for n in names if _is_laid(env.get(n))]
         if laid:
             rule = _SHARD_RULES.get(op.type)
-            outs = rule(impl, OpContext(op, env, program, is_test, device,
-                                        live, walk=walk), walk) \
-                if rule is not None else None
+            if rule is None:
+                outs = None
+            elif any(isinstance(env.get(n), Sharded) for n in names):
+                outs = _rule_by_rank(rule, op, env, impl, program,
+                                     is_test, device, live, walk)
+            else:
+                outs = rule(impl, OpContext(op, env, program, is_test,
+                                            device, live, walk=walk), walk)
             if outs is not None:
                 _store(op, env, outs)
                 return
@@ -402,21 +423,54 @@ def run_op(op, env, program, is_test=False, device=None, live=None,
     _run(op, env, impl, program, is_test, device, live, walk)
 
 
+def _is_laid(v):
+    """A ShardedTensor, or a dp-sharded value whose rows are one (an
+    activation a tp rule left split over "tp", on each dp rank)."""
+    return isinstance(v, ShardedTensor) or (
+        isinstance(v, Sharded) and any(isinstance(p, ShardedTensor)
+                                       for p in v.parts))
+
+
+def _rule_by_rank(rule, op, env, impl, program, is_test, device, live,
+                  walk):
+    """A shard rule under a dp x tp (or sp) mesh: the rule once a held dp
+    rank, on that rank's rows (the ops with a shard rule treat dim 0 as
+    rows), its outputs dp-sharded; None where the rule does not apply."""
+    outs = []
+    for j, r in enumerate(walk.ranks):
+        out = rule(impl, OpContext(op, _RankView(env, j), program, is_test,
+                                   device, live, dp_rank=r, walk=walk),
+                   walk)
+        if out is None:
+            return None
+        outs.append(out)
+    return {slot: _sharded_slot([o[slot] for o in outs]) for slot in outs[0]}
+
+
+def _gather_laid(walk, value):
+    if isinstance(value, Sharded):
+        return Sharded([walk.gather(p) if isinstance(p, ShardedTensor)
+                        else p for p in value.parts])
+    return walk.gather(value)
+
+
 def _run_gathered(op, env, laid, impl, program, is_test, device, live,
                   walk):
-    """The op on the global values of its sharded inputs `laid`; a
-    global value it updated in place goes back into the parts, and the
-    names keep their sharded values unless the op wrote new ones."""
+    """The op on the global values of its sharded inputs `laid` (a
+    dp-sharded value's rows each gathered); a global value it updated in
+    place goes back into the parts, and the names keep their sharded
+    values unless the op wrote new ones."""
     held = {n: env[n] for n in laid}
-    full = {n: walk.gather(v) for n, v in held.items()}
-    versions = {n: t._version for n, t in full.items()}
+    full = {n: _gather_laid(walk, v) for n, v in held.items()}
+    versions = {n: t._version for n, t in full.items()
+                if isinstance(t, torch.Tensor)}
     env.update(full)
     try:
         _run(op, env, impl, program, is_test, device, live, walk)
     finally:
         for n, value in held.items():
             if env.get(n) is full[n]:
-                if full[n]._version != versions[n]:
+                if n in versions and full[n]._version != versions[n]:
                     value.write(full[n])
                 env[n] = value
 
@@ -472,3 +526,4 @@ from . import rcnn_ops        # noqa: E402,F401
 from . import quant_ops       # noqa: E402,F401
 from . import sampling_ops    # noqa: E402,F401
 from . import match_ops       # noqa: E402,F401
+from . import collective_ops  # noqa: E402,F401

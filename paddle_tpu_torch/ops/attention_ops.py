@@ -179,29 +179,34 @@ def _tp_multihead_attention(impl, ctx, walk):
     WO; the ranks' partials are summed by ``reduce_fn("tp")`` and BO is
     added once."""
     env, op = ctx.env, ctx.op
-    ws = [env[op.input(s)[0]] for s in ("WQ", "WK", "WV", "WO")]
-    if not (all(tp_split(w, [1]) for w in ws[:3]) and tp_split(ws[3], [0])
-            and all(isinstance(env[n], torch.Tensor) for n in op.input_names
-                    if n not in {op.input(s)[0] for s in
-                                 ("WQ", "WK", "WV", "WO")})):
+    slots = ("WQ", "WK", "WV", "WO")
+    ws = [tp_split(env[op.input(s)[0]], [0] if s == "WO" else [1])
+          for s in slots]
+    if any(w is None for w in ws) or not all(
+            isinstance(env[n], torch.Tensor) for n in op.input_names
+            if n not in {op.input(s)[0] for s in slots}):
         return None
-    n = len(ws[3].parts)
+    tp = ws[3].mesh.shape["tp"]
     heads = ctx.attr("num_heads")
-    if heads % n:
+    if heads % tp:
         return None
+    per = heads // tp
     bias = ctx.in_("Bias")
     partials = []
-    for j in range(n):
+    # each held tp rank (every one on a local mesh, this process's in a
+    # world): its columns of WQ / WK / WV, its heads
+    for j, pos in enumerate(ws[0].positions()):
         cols = ws[0].blocks()[j][1]
+        c = pos["tp"]
 
         def cut(b):
             return None if b is None else b[..., cols]
 
         b_j = bias
         if bias is not None and bias.dim() == 4 and bias.shape[1] == heads:
-            b_j = bias[:, j * heads // n:(j + 1) * heads // n]
+            b_j = bias[:, c * per:(c + 1) * per]
         partials.append(_attend(
-            ctx, heads // n, *(ctx._maybe_amp(w.parts[j]) for w in ws),
+            ctx, per, *(ctx._maybe_amp(w.parts[j]) for w in ws),
             cut(ctx.in_("BQ")), cut(ctx.in_("BK")), cut(ctx.in_("BV")), b_j))
     out = walk.mesh.reduce_fn("tp")(partials)
     bo = ctx.in_("BO")

@@ -51,7 +51,7 @@ import torch
 
 from . import (blockwise, part_context, register, replicated, rows, rows_if,
                shard_rule, tp_split, torch_dtype)
-from ..parallel.sharded import ShardedTensor
+from ..parallel.sharded import ShardedTensor, same_mesh
 from .tensor_ops import host_tensor
 
 
@@ -182,16 +182,18 @@ def _tp_mul(impl, ctx, walk):
     xnc = ctx.attr("x_num_col_dims", 1)
     if len(y.shape) != 2 or ctx.attr("y_num_col_dims", 1) != 1:
         return None
-    if tp_split(y, [1]) and isinstance(x, torch.Tensor):
-        outs = [impl(part_context(ctx, {yn: p}))["Out"] for p in y.parts]
+    cols = tp_split(y, [1])
+    if cols is not None and isinstance(x, torch.Tensor):
+        outs = [impl(part_context(ctx, {yn: p}))["Out"] for p in cols.parts]
         return {"Out": ShardedTensor(
             outs, (None,) * xnc + ("tp",), y.mesh,
             tuple(x.shape[:xnc]) + (y.shape[1],))}
-    if not (tp_split(y, [0]) and tp_split(x, [-1])
-            and xnc == len(x.shape) - 1 and x.same_layout(x.spec, y.mesh)):
+    rows_, xs = tp_split(y, [0]), tp_split(x, [-1])
+    if rows_ is None or xs is None or xnc != len(x.shape) - 1 or \
+            not same_mesh(xs.mesh, rows_.mesh):
         return None
     partials = [impl(part_context(ctx, {xn: xp, yn: yp}))["Out"]
-                for xp, yp in zip(x.parts, y.parts)]
+                for xp, yp in zip(xs.parts, rows_.parts)]
     return {"Out": walk.mesh.reduce_fn("tp")(partials)}
 
 
@@ -206,9 +208,10 @@ def _tp_matmul(impl, ctx, walk):
             len(y.shape) != 2:
         return None
     ty = bool(ctx.attr("transpose_Y", False))
-    if not tp_split(y, [0] if ty else [1]):
+    split = tp_split(y, [0] if ty else [1])
+    if split is None:
         return None
-    outs = [impl(part_context(ctx, {yn: p}))["Out"] for p in y.parts]
+    outs = [impl(part_context(ctx, {yn: p}))["Out"] for p in split.parts]
     shape = tuple(outs[0].shape[:-1]) + (y.shape[0] if ty else y.shape[1],)
     return {"Out": ShardedTensor(outs, (None,) * (len(shape) - 1) + ("tp",),
                                  y.mesh, shape)}

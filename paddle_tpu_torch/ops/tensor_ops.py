@@ -188,10 +188,9 @@ def _tp_lookup(impl, ctx, walk):
     rank looks up the ids in its rows' range (the others at its first
     row, zeroed), and ``reduce_fn("tp")`` sums the ranks' outputs. The
     ids are clamped into the vocabulary first, as the op clamps them."""
-    w = ctx.env[ctx.op.input("W")[0]]
+    w = tp_split(ctx.env[ctx.op.input("W")[0]], [0])
     ids = ctx.env[ctx.op.input("Ids")[0]]
-    if not tp_split(w, [0]) or len(w.shape) != 2 or \
-            not isinstance(ids, torch.Tensor):
+    if w is None or len(w.shape) != 2 or not isinstance(ids, torch.Tensor):
         return None
     if ids.dim() and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])

@@ -8,12 +8,16 @@ with_data_parallel``), the tensor-parallel shard rules
 (``tensor_parallel.py``), sharded state (``sharded.py``:
 ``ShardedTensor``, which ``CompiledProgram`` lays persistables out as by
 their ``dist_attr``) and the transpiler's ZeRO-1 / FSDP annotations
-(``transpiler.py``). Pipeline and expert parallelism, the collectives
-and fleet are not ported yet."""
+(``transpiler.py``), the collectives over a named axis
+(``collective.py``) and fleet (``fleet.py``: the role makers,
+``DistributedStrategy``, ``fleet.init`` over a ``torch.distributed``
+world). Pipeline and expert parallelism are not ported yet."""
 
 from .mesh import (MeshConfig, get_mesh, set_mesh, make_mesh, mesh_axes,
                    make_hybrid_mesh, host_domains, multihost_initialize,
                    named_sharding, replicated)
+from .collective import (allreduce, broadcast, allgather, reducescatter,
+                         alltoall, barrier, send_recv)
 from .ring_attention import ring_attention, blockwise_attention
 from .data_parallel import data_parallel_step
 from .tensor_parallel import (PartitionSpec, ShardRules, apply_shard_rules,
@@ -22,13 +26,15 @@ from .tensor_parallel import (PartitionSpec, ShardRules, apply_shard_rules,
 from .sharded import ShardedTensor
 from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
                          shard_optimizer_state, shard_params_fsdp)
+from . import fleet
 
 __all__ = ["MeshConfig", "get_mesh", "set_mesh", "make_mesh", "mesh_axes",
            "make_hybrid_mesh", "host_domains", "multihost_initialize",
-           "named_sharding", "replicated",
+           "named_sharding", "replicated", "allreduce", "broadcast",
+           "allgather", "reducescatter", "alltoall", "barrier", "send_recv",
            "ring_attention", "blockwise_attention", "data_parallel_step",
            "PartitionSpec", "ShardRules", "apply_shard_rules",
            "column_parallel_spec", "row_parallel_spec", "shard_params_spec",
            "shard_state", "ShardedTensor", "DistributeTranspiler",
            "DistributeTranspilerConfig", "shard_optimizer_state",
-           "shard_params_fsdp"]
+           "shard_params_fsdp", "fleet"]

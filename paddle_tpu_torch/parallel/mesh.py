@@ -50,10 +50,22 @@ gathers a sharded source, or a sharded persistable's global value, with
 ``all_concat`` (rank-order concatenation along any dimension; in a world
 an ``all_gather`` whose backward is a reduce-scatter) and, in a world,
 sums the gradients over dp with ``all_reduce_grads`` (one all-reduce of
-the flattened gradients, or one a gradient). Each counts in
-``reductions``. In a world a replicated value's gradient
-is held as every rank's partial (the walk seeds 1/dp of the loss's), so the
-backward of both collectives all-reduces what it is handed.
+the flattened gradients, or one a gradient, over one axis or, one line
+after another, over several). Each counts in ``reductions``. In a world
+a value's gradient is held as every rank's partial along each axis the
+value is replicated over (the walk seeds 1/(dp sp tp) of the loss's), so
+the backward of both collectives all-reduces what it is handed.
+
+A walk over several axes holds every position (dp, sp, tp) of a local
+mesh in turn, and a world rank its own: ``coords`` gives a rank's
+coordinate on every axis and ``line(axis)`` its line's process group.
+``line_mesh(axis)`` is the one-axis mesh of this process's line (a
+world's line keeps its group), which the sequence ring takes inside a
+walk that has already split the batch and the heads.
+``reduce_scatter`` and ``all_to_all`` are composed from all-reduce and
+all-gather where the line's backend is gloo (which lacks both for CUDA
+tensors), on the same tensors and device, and are the backend's own
+collectives otherwise: the choice follows the backend, never a failure.
 """
 
 import threading
@@ -95,7 +107,8 @@ class Mesh:
     torch devices for a local mesh, process ranks for a world mesh.
     ``rank`` is this process's rank (None when local)."""
 
-    def __init__(self, sizes, devices, world=False, axis_names=ORDER):
+    def __init__(self, sizes, devices, world=False, axis_names=ORDER,
+                 lines=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, sizes))
         self.devices = np.empty(len(devices), dtype=object)
@@ -106,8 +119,14 @@ class Mesh:
         self.reductions = 0
         # every axis line's process group (new_group is collective over
         # the world: every process makes every group, in one order)
-        self._lines = ({a: self._make_line(a) for a in self.axis_names}
-                       if self.world else {})
+        if lines is not None:
+            self._lines = dict(lines)
+        else:
+            self._lines = ({a: self._make_line(a) for a in self.axis_names}
+                           if self.world else {})
+        # the group the whole mesh spans (None: the default world group)
+        self.group = None
+        self._line_meshes = {}
 
     @property
     def size(self):
@@ -148,6 +167,25 @@ class Mesh:
         if self.world:
             return [self.coords()[axis]]
         return list(range(self.shape[axis]))
+
+    def line_mesh(self, axis):
+        """The one-axis mesh of this process's line along `axis`: in a
+        world over the line's ranks and with its process group (no new
+        group is made), on a local mesh over the line's devices."""
+        if axis not in self._line_meshes:
+            n = self.shape[axis]
+            if self.world:
+                ranks, group = self.line(axis)
+                sub = Mesh((n,), ranks, world=True, axis_names=(axis,),
+                           lines={axis: (ranks, group)})
+                sub.group = group
+            else:
+                index = [0] * len(self.axis_names)
+                index[self.axis_names.index(axis)] = slice(None)
+                sub = Mesh((n,), list(self.devices[tuple(index)]),
+                           axis_names=(axis,))
+            self._line_meshes[axis] = sub
+        return self._line_meshes[axis]
 
     def reduce_fn(self, axis):
         """The finishing reduction of a row-parallel product over `axis`:
@@ -206,23 +244,62 @@ class Mesh:
         return _all_gather(group, len(self.line(axis)[0]), part)
 
     def all_min(self, x, axis):
-        """The elementwise minimum of the ranks' `x` over `axis`, outside
-        autograd: a world all-reduces it (MIN) over the axis's sub-group,
-        as int32 (not every backend reduces bool); a local mesh, whose
-        process holds every rank's value, returns `x`. Counts one in
-        ``reductions`` in a world."""
-        group = self._group(axis)
-        if group is None:
-            return x
-        out = x.to(torch.int32)
-        dist.all_reduce(out, op=dist.ReduceOp.MIN, group=group)
+        """The elementwise minimum of the ranks' `x` over `axis` (a name,
+        or several, one line after another), outside autograd: a world
+        all-reduces it (MIN) over the axis's sub-group, as int32 (not
+        every backend reduces bool); a local mesh, whose process holds
+        every rank's value, returns `x`. Counts one in ``reductions`` for
+        each all-reduce in a world."""
+        out = None
+        for a in ((axis,) if isinstance(axis, str) else axis):
+            group = self._group(a)
+            if group is None:
+                continue
+            out = x.to(torch.int32) if out is None else out
+            dist.all_reduce(out, op=dist.ReduceOp.MIN, group=group)
+            self.reductions += 1
+        return x if out is None else out.to(x.dtype)
+
+    def reduce_scatter(self, part, axis, dim=0):
+        """A world rank's `part` summed over the `axis` line and cut along
+        `dim` into the line's blocks, this rank's kept (outside autograd):
+        an all-reduce, then the block, which every backend runs (gloo has
+        no reduce-scatter). Counts one in ``reductions``."""
+        ranks, group = self.line(axis)
+        n, i = len(ranks), ranks.index(self.rank)
+        rows = part.shape[dim] // n
         self.reductions += 1
-        return out.to(x.dtype)
+        total = part.clone(memory_format=torch.contiguous_format)
+        if group is not None:
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        return total.narrow(dim, i * rows, rows).contiguous()
+
+    def all_to_all(self, part, axis, split_dim=0, concat_dim=0):
+        """A world rank's `part` cut along `split_dim` into one block a
+        rank of the `axis` line; rank j receives every rank's j-th block,
+        concatenated in rank order along `concat_dim` (outside autograd):
+        an all-gather, then this rank's blocks, which every backend runs
+        (gloo has no all-to-all of CUDA tensors). Counts one in
+        ``reductions``."""
+        ranks, group = self.line(axis)
+        n, i = len(ranks), ranks.index(self.rank)
+        self.reductions += 1
+        every = [part.contiguous()]
+        if group is not None:
+            every = [torch.empty_like(every[0]) for _ in range(n)]
+            dist.all_gather(every, part.contiguous(), group=group)
+        return torch.cat([p.chunk(n, split_dim)[i] for p in every],
+                         concat_dim)
 
     def all_reduce_grads(self, grads, axis, fuse=True):
-        """A world's gradients summed over `axis`, in place: with `fuse`
-        one all-reduce of the flattened gradients (one a dtype), else one
-        a gradient. Counts one in ``reductions`` for each all-reduce."""
+        """A world's gradients summed over `axis` (a name, or several:
+        one line after another), in place: with `fuse` one all-reduce of
+        the flattened gradients (one a dtype) a line, else one a
+        gradient. Counts one in ``reductions`` for each all-reduce."""
+        if not isinstance(axis, str):
+            for a in axis:
+                self.all_reduce_grads(grads, a, fuse)
+            return grads
         group = self._group(axis)
         if group is None or not grads:
             return grads
@@ -256,6 +333,26 @@ class Mesh:
     def __repr__(self):
         form = "world" if self.world else "local"
         return f"Mesh({form}, {self.shape})"
+
+
+def batch_p2p(ops, group):
+    """Run point-to-point sends and receives together: `ops` is a list of
+    (``dist.isend`` or ``dist.irecv``, tensor, peer world rank, tag). A
+    gloo group moves CUDA tensors through host copies (gloo sends host
+    memory), a received one copied back into its tensor; any other
+    backend sends the tensors as they are."""
+    staged = dist.get_backend(group) == "gloo" and any(
+        t.is_cuda for _, t, _, _ in ops)
+    bufs = [t.cpu() if staged else t for _, t, _, _ in ops]
+    works = dist.batch_isend_irecv([
+        dist.P2POp(fn, buf, peer, group, tag)
+        for (fn, _, peer, tag), buf in zip(ops, bufs)])
+    for work in works:
+        work.wait()
+    if staged:
+        for (fn, t, _, _), buf in zip(ops, bufs):
+            if fn is dist.irecv:
+                t.copy_(buf)
 
 
 class _AllReduce(torch.autograd.Function):

@@ -21,14 +21,17 @@ JAX's ``ppermute`` becomes one differentiable rotation, ``_Rotate`` (a
 bias) to rank + 1 and receives rank - 1's, its backward is the inverse
 rotation, as JAX transposes ``ppermute``. Over a ``torch.distributed``
 world mesh the rotation is ``dist.batch_isend_irecv`` within the sp
-group; over a local mesh, whose ranks all live in this process, it is a
+group (``mesh.batch_p2p``: a gloo group moves CUDA tensors through host
+copies); over a local mesh, whose ranks all live in this process, it is a
 rotation of the list of the ranks' shards. Both forms run the same body,
 and autograd gives the ring's gradients as ``jax.grad`` does.
 
 ``ring_attention_sharded`` is JAX's ``shard_map`` wrapper: it takes the
 global (B, H, T, D) tensors and returns the global output. Over a world
 mesh every process passes the same global tensors, takes its block (batch
-over dp, heads over tp, time over sp) and gathers the output blocks, both
+over dp, heads over tp, time over sp: the axes the mesh has; a walk's sp
+line, ``Mesh.line_mesh("sp")``, has sp alone, since the walk has split
+the batch and the heads already) and gathers the output blocks, both
 differentiable (``_Scatter`` / ``_Gather``: each one's backward is the
 other's forward). A local mesh splits time only: attention is independent
 over batch and heads, so ranks that differ only in dp or tp would compute
@@ -39,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.flash import flash_attention_with_lse
-from .mesh import active_mesh, get_mesh
+from .mesh import active_mesh, batch_p2p, get_mesh
 
 __all__ = ["blockwise_attention", "ring_attention",
            "ring_attention_sharded"]
@@ -137,11 +140,9 @@ class _Ring:
         outs = [torch.empty_like(t) for t in ts]
         ops = []
         for tag, (t, buf) in enumerate(zip(ts, outs)):
-            ops.append(dist.P2POp(dist.isend, t.contiguous(), dst,
-                                  self.group, tag))
-            ops.append(dist.P2POp(dist.irecv, buf, src, self.group, tag))
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            ops.append((dist.isend, t.contiguous(), dst, tag))
+            ops.append((dist.irecv, buf, src, tag))
+        batch_p2p(ops, self.group)
         return outs
 
 
@@ -241,22 +242,26 @@ def ring_attention(q, k, v, axis_name="sp", causal=False, scale=None,
 
 def _block_index(mesh, rank, shape, dims):
     """The index of world rank `rank`'s block of a global tensor of
-    `shape` whose dimensions `dims` ({axis: dim}) are sharded."""
+    `shape` whose dimensions `dims` ({axis: dim}) are sharded (an axis
+    the mesh lacks leaves its dimension whole)."""
     c = mesh.coords(rank)
     idx = [slice(None)] * len(shape)
     for axis, dim in dims.items():
+        if axis not in mesh.shape:
+            continue
         size = shape[dim] // mesh.shape[axis]
         idx[dim] = slice(c[axis] * size, (c[axis] + 1) * size)
     return tuple(idx)
 
 
 def _assemble(mesh, local, shape, dims):
-    """Every rank's block, gathered over the world, in a global tensor."""
+    """Every rank's block, gathered over the mesh's ranks (the world, or
+    the line a ``Mesh.line_mesh`` spans), in a global tensor."""
     parts = [torch.empty_like(local) for _ in range(mesh.size)]
-    dist.all_gather(parts, local)
+    dist.all_gather(parts, local, group=mesh.group)
     out = local.new_empty(shape)
-    for rank, part in enumerate(parts):
-        out[_block_index(mesh, rank, shape, dims)] = part
+    for rank, part in zip(mesh.devices.flat, parts):
+        out[_block_index(mesh, int(rank), shape, dims)] = part
     return out
 
 

@@ -171,19 +171,21 @@ class ShardedTensor:
         """The global value from `parts` (this value's or their
         detached aliases): ``Mesh.all_concat`` of the blocks along one
         sharded dimension at a time (on a local mesh a concatenation, in
-        a world an all-gather), uncounted."""
+        a world an all-gather over each of the dimension's axes, a value
+        laid out over several axes gathering one line after another),
+        uncounted."""
         concat = self.mesh._concat
         if self.mesh.world:
-            dims = [(d, _entry_axes(e)) for d, e in enumerate(self.spec)
-                    if e is not None]
-            if not dims:
-                return parts[0]
-            if len(dims) != 1 or len(dims[0][1]) != 1:
-                raise NotImplementedError(
-                    f"a world value sharded as {self.spec}: one sharded "
-                    f"axis a value is ported (ROADMAP item 10d.2)")
-            (dim, (axis,)), = dims
-            return concat(parts, axis, dim)
+            # this rank's block grows one axis at a time, the innermost
+            # axis of each dimension's entry first (a dimension laid out
+            # over ("dp", "tp") orders its blocks dp-major): each gather
+            # runs over this process's line of that axis, whose ranks
+            # hold the same blocks along the axes gathered before
+            (value,) = parts
+            for dim, entry in enumerate(self.spec):
+                for axis in reversed(_entry_axes(entry)):
+                    value = concat([value], axis, dim)
+            return value
         blocks = {tuple(ix[d].start for d in range(len(self.shape))): p
                   for ix, p in zip(self.blocks(), parts)}
         # one sharded dimension at a time, the last first
@@ -204,6 +206,30 @@ class ShardedTensor:
         once in the mesh's ``reductions``."""
         self.mesh.reductions += 1
         return self._assemble(self.parts)
+
+    def over(self, axes):
+        """This value laid out over `axes` alone: gathered along every
+        dimension whose entry names another axis (differentiable, counted
+        once in the mesh's ``reductions``); the value itself when it is
+        laid out so already."""
+        spec = PartitionSpec(*(e if all(a in axes for a in _entry_axes(e))
+                               else None for e in self.spec))
+        if spec == self.spec:
+            return self
+        self.mesh.reductions += 1
+        out = ShardedTensor([], spec, self.mesh, self.shape)
+        if self.mesh.world:
+            (value,) = self.parts
+            for dim, (old, new) in enumerate(zip(self.spec, spec)):
+                if old is not None and new is None:
+                    for axis in reversed(_entry_axes(old)):
+                        value = self.mesh._concat([value], axis, dim)
+            out.parts = [value]
+            return out
+        whole = self._assemble(self.parts)
+        out.parts = [_cut(whole, spec, self.mesh, c)
+                     for c in out.positions()]
+        return out
 
     def full(self):
         """The global value outside autograd, a tensor of its own (a

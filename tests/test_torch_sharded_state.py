@@ -897,7 +897,16 @@ SLICE_MODULES = ("paddle_tpu_torch.parallel.sharded",
                  "paddle_tpu_torch.parallel.mesh",
                  "paddle_tpu_torch.transpiler",
                  "paddle_tpu_torch.io.checkpoint",
-                 "paddle_tpu_torch.core.compiler")
+                 "paddle_tpu_torch.core.compiler",
+                 "paddle_tpu_torch.parallel.collective",
+                 "paddle_tpu_torch.parallel.fleet",
+                 "paddle_tpu_torch.ops.collective_ops",
+                 "paddle_tpu_torch.distributed.launch",
+                 "paddle_tpu_torch.distributed.launch_ps",
+                 "paddle_tpu_torch.distributed.downpour",
+                 "paddle_tpu_torch.incubate.fleet",
+                 "paddle_tpu_torch.incubate.fleet.utils.fleet_util",
+                 "paddle_tpu_torch.communicator")
 
 
 def test_slice_modules_import_neither_jax_nor_paddle_tpu():

@@ -57,15 +57,12 @@ DP_TOL = 1e-6
 
 RS = np.random.RandomState(24)
 
-# the JAX op names the port does not register: item 11's collectives
-# (14); 10c.6f's quant (11), sampling (3) and match (5) ops are ported
+# the JAX op names the port does not register: item 11's moe (expert
+# parallelism); its 13 collectives and 10c.6f's quant (11), sampling (3)
+# and match (5) ops are ported
 NOT_PORTED = {
     "10c.6f": [],
-    "11": [
-        "allreduce", "alltoall", "broadcast", "c_allgather", "c_allreduce",
-        "c_allreduce_max", "c_allreduce_min", "c_allreduce_prod",
-        "c_allreduce_sum", "c_broadcast", "c_reducescatter",
-        "c_sync_calc_stream", "c_sync_comm_stream", "moe"]}
+    "11": ["moe"]}
 
 # the fluid.layers names the port does not have: item 11's layers,
 # layers.io's readers (item 11), and the JAX modules' own imports;
@@ -159,19 +156,19 @@ def same(op, ins, attrs, slots):
 # ---------------------------------------------------------------------------
 
 def test_the_registry_lacks_only_10c6f_and_item_11():
-    """The port registers every JAX op name but the 14 that ROADMAP
-    assigns to item 11 (the collectives), listed here by name so that the
-    next slice shrinks the list; 10c.6f lacks none (quant 11, sampling 3,
-    match 5 ported); besides them it has its own select_finite (C8):
-    360 of the JAX package's 373."""
+    """The port registers every JAX op name but item 11's moe (expert
+    parallelism, the next slice but one), listed here by name so that the
+    slice shrinks the list; the 13 collective ops are ported, and 10c.6f
+    lacks none (quant 11, sampling 3, match 5 ported); besides them it
+    has its own select_finite (C8): 373, the JAX package's count."""
     missing = sorted(set(JREG) - set(TREG))
     assert NOT_PORTED["10c.6f"] == []
     want = sorted(NOT_PORTED["11"])
-    assert len(want) == 14
+    assert len(want) == 1
     assert missing == want
     assert sorted(set(TREG) - set(JREG)) == ["select_finite"]
     assert len(JREG) == 373
-    assert len(TREG) == 360
+    assert len(TREG) == 373
 
 
 def test_the_slice_registers_every_op_with_a_dp_rule():
