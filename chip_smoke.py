@@ -165,8 +165,9 @@ backward kernels are printed):
    server whose chains chaos spilled serves the next hit from the host
    tier (swap-ins) with the same ids; the kernel agrees with its plain
    version on a step whose tables hold a resumed lane's swapped-in
-   blocks. bf16: the 32 requests with and without the tier (peak and
-   mean lanes, steps, tokens/s, preemptions, spills, swap-ins), and the
+   blocks. bf16: the first 16 requests with and without the tier, in
+   two pairs (peak and mean lanes, steps, tokens/s, preemptions, spills,
+   swap-ins), and the
    µs and GB/s of a block spilled and swapped in beside the host link's
    64 GB/s;
 15. telemetry, chaos and the HBM ledger: a chaos NaN poison through
@@ -211,7 +212,8 @@ backward kernels are printed):
    the ring call's ms beside one flash call over the whole T (for
    information).
 18. the in-process fleet: bench.py's fleet traffic at full-width lengths
-   (18 tenant system prompts of 128 tokens, 85 % of 96 requests one of
+   (18 tenant system prompts of 128 tokens, 85 % of its first 48
+   requests (of 96) one of
    them plus a 1-64 token suffix, the rest private prompts of 32-256
    tokens, one arriving a router step, 32 new tokens, greedy) through 3
    GenerationServer replicas behind a FleetRouter (affinity routing),
@@ -241,8 +243,10 @@ backward kernels are printed):
    make_subprocess_spawn from that checkpoint, each on the card. f32: a
    SIGKILL of worker 0 mid-stream (kill_process_at) fails over with
    ids equal to one in-process server's and the slot comes back as a
-   new process; bf16: the fleet traffic through two workers against one
-   in-process server, in turns, and a 512-token prompt's chain handed
+   new process; bf16: the fleet traffic's first 48 requests through two
+   workers against one in-process server, in turns (the four workers
+   boot, and the bf16 ones serve a first request, beside 18c), and a
+   512-token prompt's chain handed
    over the RPC from one worker to the other (µs a block each way; the
    receiver's blocks are bitwise the donor's bf16 bytes); each worker's
    paged-kernel launches are read over the RPC just before and just
@@ -415,8 +419,8 @@ backward kernels are printed):
    the card and in the port on the CPU: losses within 1e-5, @GRADs
    within 1e-4 of their scale. Phases 25-25c launch none of the
    attention kernels;
-26. ERNIE-base (phase 16's program and cell, Adam 1e-4, dropout 0.1)
-   under guarded asynchronous training, 25 distinct ERNIE feeds: two
+26. ERNIE (phase 16's program and cell at 4 layers, Adam 1e-4, dropout
+   0.1) under guarded asynchronous training, 25 distinct ERNIE feeds: two
    clean runs from one startup on ``Executor(guard=True,
    async_window=2)``, one through ``run()``, one through ``run_async()``
    (their distance is the card's own); the host syncs inside 5 warm
@@ -429,8 +433,8 @@ backward kernels are printed):
    the 3rd physical checkpoint write failing and a SIGTERM before step
    20, and a fresh Executor, scope and ``GuardedTrainer.resume()`` to
    step 25: one rollback, the write retried, every step's loss within
-   4x the clean runs' distance (or 1e-5) of the clean run's; 12 + 12 +
-   12 flash launches a step in every run, flash_dbias 0, the first
+   4x the clean runs' distance (or 1e-5) of the clean run's; 4 + 4 + 4
+   flash launches a step in every run, flash_dbias 0, the first
    layer's attention against the plain version; checkpoint bytes, sync
    and async save and restore ms, peak memory; then one NaN in a fresh
    step's ``input_mask`` (the attention's padding bias) must raise
@@ -439,11 +443,11 @@ backward kernels are printed):
    Fluid 1.5 formats (save_fluid_inference_model) from 26's trained
    scope, each reloaded in a fresh Scope and Executor: the pooled output
    and the MLM logits bitwise the trained program's clone(for_test=True),
-   12 forward launches a reloaded forward, the persistables bitwise;
-26c. ``run_pipelined`` over 20 ERNIE batches (the last 5 rows, padded to
-   8 by a FeedBucketer) against run() over the same feeds from the same
-   startup: losses in feed order within 26's tolerance; the prefetch
-   depth and each copy's share hidden under earlier steps;
+   4 forward launches a reloaded forward, the persistables bitwise;
+26c. ``run_pipelined`` over 20 batches of 26's ERNIE (the last 5 rows,
+   padded to 8 by a FeedBucketer) against run() over the same feeds
+   from the same startup: losses in feed order within 26's tolerance;
+   the prefetch depth and each copy's share hidden under earlier steps;
 26d. phase 25's DeepFM through ``train_from_dataset`` over 4 generated
    MultiSlot files (16,384 examples, 4 native parse threads, 8 batches
    of 2048): the native parser ran, the losses match run() over the same
@@ -658,7 +662,32 @@ backward kernels are printed):
    positions), step p50, device ms and peak memory;
 35c. four ranks through the launcher: 35b's form at 2 layers over a
    world of four (dp 2 x tp 2), against its local form; each scope's
-   elements the dist_attrs' shares.
+   elements the dist_attrs' shares;
+36. pipeline parallelism: phase 9's GPT-base (12 layers, seq 512, batch
+   8, its startup weights) through ``PipelineOptimizer(Adam,
+   cut_list=`` the last residual add of blocks 2, 5, 8 ``,
+   num_microbatches=4)`` on four positions of cuda:0
+   (``make_mesh(pp=4)``), 4 steps against the plain step: first loss
+   within 1e-6, later 1e-5, @GRADs (the tied word embedding's too)
+   within FLEET_GRAD_TOL, 48 + 48 + 48 f32 flash launches a step, a
+   falling loss, one profiled step; then ``pipeline_1f1b`` with one
+   pre-norm GPT-2 block a stage at width 768 (mb 2 x 512) at M 8 and 16
+   against a sequential autograd run: 2M + M + M launches a stage, the
+   in-flight peak at M 16 within 5 % of M 8's, ``schedule_stats`` =
+   ``bubble_fraction``;
+36b. four ranks through the launcher (gloo on cuda:0), booted beside 36
+   and 36c: ``DistributedStrategy(pp_degree=4)`` on the GPT at 4 layers,
+   one block a rank, against 36's local form at 4 layers (first loss
+   1e-6, @GRADs 1e-5 of scale, 4 + 4 + 4 launches a step a rank, the
+   step and its gloo ms); then ``DistributedStrategy(ep_degree=4)`` on
+   36c's Program against 36c's local ep 4;
+36c. ``layers.moe`` at Switch-Base-8's FFN width (768, 3072, 8 experts,
+   top-1, capacity factor 1.25) over 8 x 512 tokens, SGD: dense on the
+   card, ep 4 on four positions of cuda:0, ep 4 on the CPU from the
+   card's weights: experts equal card vs CPU (near-ties counted),
+   outputs within 1e-5 of their scale, ep 4 = dense within 1e-5 at
+   capacity factor 8, the dropped share at 1.25 printed, no flash
+   launch.
 
 Phases 11-13 serve through the paged kernel (launches = iterations x
 layers in every run, and a draft's iterations x k x its layers) and hold
@@ -692,9 +721,9 @@ the flash-attention backward; the paged entry also counts the launches
 of phases 11-15, 18-18d (the workers' own counts among them) and 19-19d
 (19d's ranks' own) in ``launches_by_path``, the int8 entry those of
 phases 2b, 18b and 19b, the flash entries those of phases 16-17, 19c,
-20-20d, 21-21d, 22, 24-24b, 26-26c, 27-27d, 34-34d and 35-35c (the
-world ranks' own counts), and 28-28e's,
-29-29c's, 30-30c's, 31-31g's, 32-32d's and 33-33e's gated 0s,
+20-20d, 21-21d, 22, 24-24b, 26-26c, 27-27d, 34-34d, 35-35c and 36-36b
+(the world ranks' own counts), and 28-28e's, 29-29c's, 30-30c's,
+31-31g's, 32-32d's, 33-33e's and 36c's gated 0s,
 with 16b/16c/17/19b/19c/20d/21b/21c/24/24b/26's errors in
 ``path_errs``); the line before
 it the card's name and power limit; the last line is ``{"ok": true,
@@ -754,6 +783,7 @@ TIER_GATE = 16                      # phase 14's f32 gate: the first 16
 POISON_AT = 6                       # phase 15: the chaos poison's iteration
 TELEMETRY_PAIRS = 3                 # phase 15: off/on server pairs timed
 TIER_TURNS = 2                      # phase 14: bf16 no-tier/tier pairs
+TIER_TURN_REQUESTS = 16             # phase 14: each bf16 turn's requests
 # the host link of an H100 SXM: PCIe Gen5 x16, 64 GB/s a direction
 # (nominal), the yardstick of the tier's spill and swap-in rates
 HOST_LINK_BYTES_PER_S = 64e9
@@ -803,6 +833,7 @@ FLEET_TENANTS = 18
 FLEET_TENANT_LEN = 128
 FLEET_SHARED = 0.85                 # share of requests behind a tenant
 FLEET_REQUESTS = 96
+FLEET_PHASE_REQUESTS = 48           # 18: the fleet traffic's first requests
 FLEET_NEW = 32
 FLEET_REPLICAS = 3
 FLEET_GATE = 24                     # the f32 gates' first requests
@@ -819,6 +850,7 @@ WIRE_PROMPT = 512                   # 18d: the chain handed over the RPC
 # one replica cannot cache every tenant
 FLEET_PRESSURE_BLOCKS = 1 + 16 * 6 + 2 * 8
 WORKER_SPAWN_S = 180.0
+WORKER_TURN_REQUESTS = 48           # 18d: each bf16 turn's requests
 TP = 2                              # phases 19, 19c, 19d: tp 2
 TP_GQA = (2, 4)                     # 19b: H 6 over 2, H 3 over 1 KV heads
 TP_AGREE = 16                       # 19, 19b: the f32 gates' prompts
@@ -1252,6 +1284,9 @@ DISTILL_BATCH, DISTILL_STEPS, DISTILL_T = 32, 3, 4.0
 # physical checkpoint write failing, a SIGTERM before step
 # GUARD_PREEMPT_AT
 GUARD_STEPS = 25
+# 26-26c run ERNIE at this depth (phase 16's widths): the checkpoints,
+# mostly the Adam state, shrink with the layers (1.32 GB at 12)
+GUARD_LAYERS = 4
 GUARD_WINDOW = 2
 GUARD_CKPT_EVERY = 10
 GUARD_POISON_AT = 12
@@ -3841,9 +3876,10 @@ def phase_tier(paged, cfg, tree):
     preemption of a named request gives the same ids; a prefix server
     whose chain chaos spilled serves the next hit from the host tier
     (swap-ins) with the same ids; the kernel agrees with its plain
-    version on a step whose tables hold swapped-in blocks. bf16: the 32
-    requests with and without the tier at TIER_BLOCKS (lanes, steps,
-    tokens/s, tier traffic) and the copy times of spill and swap-in.
+    version on a step whose tables hold swapped-in blocks. bf16: the
+    first TIER_TURN_REQUESTS requests with and without the tier at
+    TIER_BLOCKS, in TIER_TURNS pairs (lanes, steps, tokens/s, tier
+    traffic) and the copy times of spill and swap-in.
     Returns (numbers, {path: launches}, {path: max_abs_err})."""
     from paddle_tpu_torch.robustness import ChaosInjector
     prompts = [p for p, _s in make_requests(cfg.vocab_size)]
@@ -3915,15 +3951,17 @@ def phase_tier(paged, cfg, tree):
         "swap_ins": pst["kv_tier"]["swap_ins"],
         "reprefills_avoided": pst["prefix"]["reprefills_avoided"]}
     del model32, srv, tiered
-    # bf16: the 32 requests without and with the tier, in turns (the
+    # bf16: the turns' requests without and with the tier, in pairs (the
     # host-bound step's wall moves between runs)
     model16 = make_model(cfg, tree, torch.bfloat16)
+    turn_prompts = prompts[:TIER_TURN_REQUESTS]
     for turn in range(TIER_TURNS):
         _, out[f"bf16_no_tier_{turn}"] = _tier_pass(
-            paged, tier_server(model16, TIER_BLOCKS), prompts, TIER_NEW)
+            paged, tier_server(model16, TIER_BLOCKS), turn_prompts,
+            TIER_NEW)
         srv16 = tier_server(model16, TIER_BLOCKS, TIER_HOST_BLOCKS)
-        _, out[f"bf16_tier_{turn}"] = _tier_pass(paged, srv16, prompts,
-                                                 TIER_NEW)
+        _, out[f"bf16_tier_{turn}"] = _tier_pass(paged, srv16,
+                                                 turn_prompts, TIER_NEW)
         if out[f"bf16_tier_{turn}"]["preempts"] < 1:
             _fail(f"phase 14: bf16 tier run never preempted: "
                   f"{out[f'bf16_tier_{turn}']}")
@@ -4579,8 +4617,9 @@ def _random_pass(paged, model, prompts, **kw):
 
 def phase_fleet(paged, cfg, tree):
     """Phase 18: FLEET_REPLICAS in-process replicas under affinity
-    routing over the fleet traffic (FLEET_REQUESTS requests, one
-    arriving a router step, FLEET_NEW greedy tokens), bf16: tokens/s
+    routing over the fleet traffic (its first FLEET_PHASE_REQUESTS
+    requests, one arriving a router step, FLEET_NEW greedy tokens),
+    bf16: tokens/s
     against one server on the same arrivals, in turns (server, fleet,
     fleet, server), and the fleet's prefix hit rate and blocks a request
     against a seeded random scatter over the same replicas (bench.py's
@@ -4592,7 +4631,7 @@ def phase_fleet(paged, cfg, tree):
     flight) give one f32 server's ids, with a failover."""
     from paddle_tpu_torch.robustness import ChaosInjector
     from paddle_tpu_torch.serving import FleetRouter
-    prompts = fleet_requests(cfg.vocab_size)
+    prompts = fleet_requests(cfg.vocab_size, FLEET_PHASE_REQUESTS)
     gen = len(prompts) * FLEET_NEW
     out = {"launches": {}}
     model = make_model(cfg, tree, torch.bfloat16)
@@ -4883,7 +4922,38 @@ def _worker_run(before, after, layers):
             "ok": launches > 0 and launches == iters * layers}
 
 
-def phase_workers(paged, root, flight, cfg, main):
+def _worker_spawns(root, flight, cfg):
+    """Phase 18d's spawn functions over phase 18c's checkpoint: (the
+    chaos injector of the f32 workers, the f32 spawn, the bf16 spawn)."""
+    from paddle_tpu_torch.robustness import ChaosInjector
+    from paddle_tpu_torch.serving.remote import make_subprocess_spawn
+    kw = dict(num_slots=16, block_size=16, max_context=1024, chunk=CHUNK,
+              start=False, prefix_cache=True)
+    common = dict(seq_len=FLEET_CKPT_SEQ, program_seed=FLEET_PROGRAM_SEED,
+                  flight_dir=flight, spawn_timeout_s=WORKER_SPAWN_S,
+                  **kw)
+    chaos = ChaosInjector()
+    return (chaos, make_subprocess_spawn(root, cfg, chaos=chaos, **common),
+            make_subprocess_spawn(root, cfg, dtype="bfloat16", **common))
+
+
+def _boot_workers(spawns):
+    """The four workers of phase 18d (two f32, two bf16), booted side by
+    side, then each bf16 worker's first request served (a worker's first
+    run pays one-time costs that 18d's first timed turn would carry): ->
+    (proxies, seconds of the boot)."""
+    _chaos, spawn32, spawn16 = spawns
+    ws, boot_s = _spawn_workers(
+        lambda i: (spawn32 if i < 2 else spawn16)(i), 4)
+    warm = np.arange(3, 3 + FLEET_TENANT_LEN, dtype=np.int32)
+    for w in ws[2:]:
+        f = w.submit(warm, max_new_tokens=FLEET_NEW)
+        w.run_until_idle()
+        f.result(timeout=60)
+    return ws, boot_s
+
+
+def phase_workers(paged, root, flight, cfg, main, spawns, booting):
     """Phase 18d: two worker processes a fleet (make_subprocess_spawn,
     each on the card, restoring phase 18c's checkpoint). f32: a SIGKILL
     of worker 0 mid-stream (kill_process_at, planned as in phase 18)
@@ -4898,13 +4968,14 @@ def phase_workers(paged, root, flight, cfg, main):
     RPC just before and just after each run it serves (f32 worker 0 up
     to its SIGKILL, its successor from its spawn, worker 1; each bf16
     turn; the wire prefill): every run's must be > 0 and equal its
-    iterations x layers. Flight dumps go under `flight`."""
-    from paddle_tpu_torch.robustness import (ChaosInjector,
-                                             CheckpointManager,
+    iterations x layers. The bf16 turns serve the first
+    WORKER_TURN_REQUESTS requests. The four workers were booted from
+    `spawns` (``_worker_spawns``) beside phase 18c: `booting` is that
+    boot's future. Flight dumps go under `flight`."""
+    from paddle_tpu_torch.robustness import (CheckpointManager,
                                              SupervisorConfig,
                                              make_checkpoint_spawn)
     from paddle_tpu_torch.serving import FleetRouter, prompt_chain_keys
-    from paddle_tpu_torch.serving.remote import make_subprocess_spawn
     kw = dict(num_slots=16, block_size=16, max_context=1024, chunk=CHUNK,
               start=False, prefix_cache=True)
     manager = CheckpointManager(root, program=main)
@@ -4913,14 +4984,8 @@ def phase_workers(paged, root, flight, cfg, main):
     out = {"launches": {}}
     runs = {}
     layers = cfg.num_layers
-    common = dict(seq_len=FLEET_CKPT_SEQ, program_seed=FLEET_PROGRAM_SEED,
-                  flight_dir=flight, spawn_timeout_s=WORKER_SPAWN_S,
-                  **kw)
-    chaos = ChaosInjector()
-    spawn32 = make_subprocess_spawn(root, cfg, chaos=chaos, **common)
-    spawn16 = make_subprocess_spawn(root, cfg, dtype="bfloat16", **common)
-    ws, boot_s = _spawn_workers(
-        lambda i: (spawn32 if i < 2 else spawn16)(i), 4)
+    chaos, spawn32, _spawn16 = spawns
+    ws, boot_s = booting.result()
     w32, w16 = ws[:2], ws[2:]
     out["boot_4_workers_s"] = boot_s
     out["worker_devices"] = [w.get_stats()["device"] for w in ws]
@@ -4982,16 +5047,18 @@ def phase_workers(paged, root, flight, cfg, main):
               f"({same}/{len(want)} equal)")
     # bf16: two workers against one in-process server, in turns
     model = _checkpoint_model(manager, cfg, torch.bfloat16)
-    gen = len(prompts) * FLEET_NEW
+    turn_prompts = prompts[:WORKER_TURN_REQUESTS]
+    gen = len(turn_prompts) * FLEET_NEW
     turns = {"single": [], "workers": []}
     router = FleetRouter(w16, start=False)
     for turn in ("single", "workers", "workers", "single"):
         if turn == "single":
-            _ids1, wall, _l = _single_pass(paged, model, prompts, FLEET_NEW)
+            _ids1, wall, _l = _single_pass(paged, model, turn_prompts,
+                                           FLEET_NEW)
             turns["single"].append(gen / wall)
         else:
             before = [_worker_counts(w) for w in w16]
-            _ids2, wall, _l = _router_pass(paged, router, prompts,
+            _ids2, wall, _l = _router_pass(paged, router, turn_prompts,
                                            FLEET_NEW, gate_launches=False)
             turns["workers"].append(gen / wall)
             for i, w in enumerate(w16):
@@ -5103,10 +5170,23 @@ def phase_fleet_all(paged, cfg, tree, gcfg, gtree):
         os.makedirs(flight)
         ccfg, main, save_s = fleet_checkpoint(root)
         print(f"fleet checkpoint: GPTConfig() f32 saved in {save_s:.2f} s")
-        res["18c"] = _phase("18c self-healing", phase_self_healing, paged,
-                            root, flight, ccfg, main)
-        res["18d"] = _phase("18d out-of-process fleet", phase_workers,
-                            paged, root, flight, ccfg, main)
+        # 18d's four workers boot beside 18c
+        spawns = _worker_spawns(root, flight, ccfg)
+        pool = ThreadPoolExecutor(1)
+        booting = pool.submit(_boot_workers, spawns)
+        try:
+            res["18c"] = _phase("18c self-healing", phase_self_healing,
+                                paged, root, flight, ccfg, main)
+            res["18d"] = _phase("18d out-of-process fleet", phase_workers,
+                                paged, root, flight, ccfg, main, spawns,
+                                booting)
+        finally:
+            pool.shutdown(wait=True)
+            # nothing outlives 18d: workers a failed phase left behind
+            from paddle_tpu_torch.serving.remote import live_workers
+            for proc in live_workers():
+                proc.kill()
+                proc.wait()
     finally:
         shutil.rmtree(base, ignore_errors=True)
     return res
@@ -7683,6 +7763,11 @@ def guard_feeds(n, batch=BERT_BATCH, seed=SEED + 100):
                                      dtype=np.int32) for i in range(n)]
 
 
+def guard_config():
+    """Phases 26-26c's ERNIE: phase 16's widths at GUARD_LAYERS layers."""
+    return bert_config(num_hidden_layers=GUARD_LAYERS)
+
+
 def _fresh_bert(main, startup, guard=True):
     """(exe, scope): a fresh Executor on the card and a scope holding
     the startup's weights (the same for every fresh pair: the startup's
@@ -7804,7 +7889,8 @@ def _nan_mask_trips_guard(flash, main, startup, loss, feed):
     the attention only as the additive padding bias, which the flash
     forward must turn into NaN rows (ROADMAP C11): the loss goes NaN and
     the guard raises NonFiniteError when the step's handle resolves. The
-    step launches its 12 + 12 + 12 flash kernels. Returns what it saw."""
+    step launches its flash kernels once a layer each. Returns what it
+    saw."""
     from paddle_tpu_torch.robustness import NonFiniteError
     exe, scope = _fresh_bert(main, startup)
     feed = {k: np.array(v, copy=True) for k, v in feed.items()}
@@ -7819,7 +7905,7 @@ def _nan_mask_trips_guard(flash, main, startup, loss, feed):
     else:
         _fail("guarded: a NaN in input_mask did not trip the guard (the "
               "flash forward turned the NaN bias into finite rows)")
-    n = bert_config().num_hidden_layers
+    n = guard_config().num_hidden_layers
     if _bwd_counts(flash) != (n, n, n):
         _fail(f"guarded: the NaN-mask step launched {_bwd_counts(flash)}, "
               f"want {n} each")
@@ -7845,9 +7931,10 @@ def _ernie_fetch_vars(main):
 
 
 def phase_guarded(flash):
-    """Phase 26: ERNIE-base (phase 16's program, Adam 1e-4, dropout 0.1)
-    under guarded asynchronous training. Two clean GUARD_STEPS-step runs
-    from one startup, one through run(), one through run_async() with
+    """Phase 26: ERNIE (phase 16's program at GUARD_LAYERS layers, Adam
+    1e-4, dropout 0.1) under guarded asynchronous training. Two clean
+    GUARD_STEPS-step runs from one startup, one through run(), one
+    through run_async() with
     window GUARD_WINDOW, both on Executor(guard=True): their distance is
     the card's own (torch's CUDA embedding backward sums in no fixed
     order). Then GuardedTrainer over the same feeds, checkpoint_every
@@ -7857,8 +7944,9 @@ def phase_guarded(flash):
     GuardedTrainer resume() from the emergency checkpoint and finish.
     Gates: one rollback and one recovered write fault, preempted at
     GUARD_PREEMPT_AT, every step's loss within GUARD_SPREAD x the clean
-    runs' distance (or GUARD_LOSS_FLOOR) of the clean run's; 12 + 12 +
-    12 flash launches a step in every run, none of flash_dbias; 0 host
+    runs' distance (or GUARD_LOSS_FLOOR) of the clean run's; one launch
+    of each flash kernel a layer a step in every run, none of
+    flash_dbias; 0 host
     syncs in every timed dispatch, and step k still on the card when
     step k+1's dispatch starts; the first layer's attention call against
     the plain version. Prints run against run_async step p50/p99, host
@@ -7872,14 +7960,15 @@ def phase_guarded(flash):
     from paddle_tpu_torch.robustness import (ChaosInjector,
                                              CheckpointManager,
                                              GuardedTrainer)
-    cfg = bert_config()
+    cfg = guard_config()
     n = cfg.num_hidden_layers
     main, startup, loss = build_bert(cfg)
     feeds = guard_feeds(GUARD_STEPS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    paths, rec = {}, {"config": "BertConfig(max_position_embeddings=512), "
+    paths, rec = {}, {"config": f"BertConfig(max_position_embeddings=512, "
+                                f"num_hidden_layers={GUARD_LAYERS}), "
                                 "Adam(1e-4), dropout 0.1, f32",
                       "seq_len": BERT_SEQ, "batch": BERT_BATCH,
                       "steps": GUARD_STEPS}
@@ -8120,13 +8209,13 @@ def phase_save_load(flash, trained):
     (save_fluid_inference_model). Each reloads in a fresh Scope and a
     fresh Executor: the reloaded encoder's pooled output and MLM logits
     must be bitwise the trained program's clone(for_test=True) on the
-    same feed, each reloaded forward launching the f32 flash forward 12
-    times and no backward; the persistables reload bitwise. Returns the
+    same feed, each reloaded forward launching the f32 flash forward once
+    a layer and no backward; the persistables reload bitwise. Returns the
     launches by path and the record."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import io
     exe, scope, main, _loss = trained
-    n = bert_config().num_hidden_layers
+    n = guard_config().num_hidden_layers
     pooled, logits = _ernie_fetch_vars(main)
     feed_names = ["src_ids", "sent_ids", "input_mask", "mask_pos"]
     feed = {k: v for k, v in guard_feeds(1, seed=SEED + 300)[0].items()
@@ -8205,7 +8294,7 @@ def phase_pipelined(flash, tol):
     Returns the launches by path and the record."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.core.bucketing import FeedBucketer
-    cfg = bert_config()
+    cfg = guard_config()
     n = cfg.num_hidden_layers
     main, startup, loss = build_bert(cfg)
     feeds = guard_feeds(PIPE_BATCHES - 1, seed=SEED + 200) + \
@@ -8398,7 +8487,8 @@ def phase_guarded_all(flash, paged):
     """Phases 26-26d. Returns (flash launches by path, {path: (fwd, bwd)
     max abs errors})."""
     paths, errs, trained, tol, _ = _phase(
-        "26 ERNIE-base under GuardedTrainer", phase_guarded, flash)
+        f"26 ERNIE ({GUARD_LAYERS} layers) under GuardedTrainer",
+        phase_guarded, flash)
     more, _ = _phase("26b save and load", phase_save_load, flash, trained)
     paths.update(more)
     del trained
@@ -13890,13 +13980,62 @@ def _against(path, losses, grads, names, tol):
             and later <= DP_LATER_LOSS_TOL}
 
 
+class _timed_gloo:
+    """Time every torch.distributed call of the step whose index (from 0,
+    counted by the Executor's runs inside) is `at`: the calls are wrapped
+    for that step only."""
+
+    def __init__(self, acc, at):
+        import torch.distributed as dist
+        self.acc, self.at, self.dist = acc, at, dist
+        self.real = {k: getattr(dist, k) for k in (
+            "all_reduce", "all_gather", "batch_isend_irecv")}
+
+    def __enter__(self):
+        import paddle_tpu_torch as fluid
+        self.step = 0
+        self.run = fluid.Executor.run
+        acc, real, dist, me = self.acc, self.real, self.dist, self
+
+        def timed(fn):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                acc["ms"] += (time.perf_counter() - t) * 1e3
+                acc["calls"] += 1
+                return r
+            return call
+
+        def run(exe, *a, **k):
+            if me.step == me.at:
+                for name, fn in real.items():
+                    setattr(dist, name, timed(fn))
+            try:
+                return me.run(exe, *a, **k)
+            finally:
+                for name, fn in real.items():
+                    setattr(dist, name, fn)
+                me.step += 1
+
+        fluid.Executor.run = run
+        return self
+
+    def __exit__(self, *exc):
+        import paddle_tpu_torch as fluid
+        fluid.Executor.run = self.run
+        for name, fn in self.real.items():
+            setattr(self.dist, name, fn)
+        return False
+
+
 def _world_tp(flash, flt, out):
     """Phase 35's main form in one rank: phase 34's cell through fleet
     (tp 2 over the world), FLEET_STEPS steps: losses, launches and
     reductions a step, the first step's @GRADs against the parent's local
     tp 2 run, one step's step ms and (a later one's) gloo ms, the scope's
     shares."""
-    import torch.distributed as dist
     import paddle_tpu_torch as fluid
     main, startup, loss = build_bert_fleet(bert_config(), flt)
     mesh = flt.mesh()
@@ -13907,45 +14046,25 @@ def _world_tp(flash, flt, out):
     rec = {"losses": [], "launches": [], "reductions": [], "step_ms": []}
     gloo = {"ms": 0.0, "calls": 0}
     tc0 = flash.TC_LAUNCHES
-    real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather",
-                                          "batch_isend_irecv")}
-
-    def timed(fn):
-        def call(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = fn(*a, **k)
-            torch.cuda.synchronize()
-            gloo["ms"] += (time.perf_counter() - t) * 1e3
-            gloo["calls"] += 1
-            return r
-        return call
-
     scope = fluid.Scope()
     with fluid.scope_guard(scope):
         exe.run(startup)
         _wait_go(out)
-        for i in range(FLEET_STEPS):
-            if i == FLEET_STEPS - 1:
-                for k, fn in real.items():
-                    setattr(dist, k, timed(fn))
-            before, red0 = _bwd_counts(flash), mesh.reductions
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
+        with _timed_gloo(gloo, FLEET_STEPS - 1):
+            for i in range(FLEET_STEPS):
+                before, red0 = _bwd_counts(flash), mesh.reductions
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 got = exe.run(comp, feed=feed, fetch_list=[loss] + (
                     [n + "@GRAD" for n in names] if i == 0 else []),
                     return_numpy=False)
                 rec["losses"].append(got[0].double().item())
-            finally:
-                for k, fn in real.items():
-                    setattr(dist, k, fn)
-            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            rec["reductions"].append(mesh.reductions - red0)
-            rec["launches"].append([a - b for a, b in zip(
-                _bwd_counts(flash), before)])
-            if i == 0:
-                grads = got[1:]
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["reductions"].append(mesh.reductions - red0)
+                rec["launches"].append([a - b for a, b in zip(
+                    _bwd_counts(flash), before)])
+                if i == 0:
+                    grads = got[1:]
         rec["shares"] = list(_scope_shares(main, scope, mesh))
     rec["tc"] = flash.TC_LAUNCHES - tc0
     rec["gloo_ms_last_step"] = gloo["ms"]
@@ -14055,14 +14174,17 @@ def _world_shuffle(flt, rank, n, out):
 
 
 def fleet_world_rank(form, out):
-    """One rank of phase 35's or 35c's world (`--fleet-world-rank`),
-    started by ``python -m paddle_tpu_torch.distributed.launch``:
+    """One rank of phase 35's, 35c's or 36b's world (`--fleet-world-rank`;
+    36b's is pp_world_rank), started by ``python -m
+    paddle_tpu_torch.distributed.launch``:
     fleet.init joins the world (gloo: the launcher's layout puts every
     rank on cuda:0), then 35 runs the tp 2 form, the sp 2 form, the
     collective ops, the barrier and the shuffle; 35c the dp 2 x tp 2 +
     ZeRO-1 form at 2 layers. Writes <out>/rank<r>.json."""
     import torch.distributed as dist
     from paddle_tpu_torch.ops.cuda import flash
+    if form == "36b":
+        return pp_world_rank(out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -14476,6 +14598,630 @@ def phase_fleet_train_all(flash, rec34, rec21):
              **cl}
     return paths, {"35": wrec, "35b": lrec, "35c": crec}
 
+# ---------------------------------------------------------------------------
+# phases 36-36c: pipeline and expert parallelism (item 11a)
+# ---------------------------------------------------------------------------
+
+PP = 4                              # 36, 36b: pp 4
+PP_MICRO = 4                        # 36, 36b: microbatches a step (2 rows)
+PP_CUT_BLOCKS = (2, 5, 8)           # 36: the stages end after these blocks
+PP_STEPS = 4                        # 36: Adam steps, pipelined and plain
+PP_FIRST_LOSS_TOL = 1e-6            # 36 vs the plain step, relative
+PP_LATER_LOSS_TOL = 1e-5
+PP_WORLD_LAYERS = 4                 # 36b: one block a stage
+PP_WORLD_STEPS = 2
+F1B_MICRO = (8, 16)                 # 36: 1F1B's microbatch counts
+F1B_ROWS = 2                        # 36: 1F1B's rows a microbatch (of 512)
+F1B_WIDTH, F1B_HEADS = 768, 12      # 36: 1F1B's block (GPT-base's)
+F1B_LOSS_TOL = 1e-6                 # 1F1B vs the sequential autograd run
+F1B_GRAD_TOL = 1e-5                 # of each stacked gradient's scale
+F1B_PEAK_TOL = 0.05                 # M 16's in-flight peak vs M 8's
+# 36c: Switch-Base-8's FFN (Fedus et al., Switch Transformers, and the
+# published switch-base-8 config): d_model 768, d_ff 3072, 8 experts,
+# top-1, capacity factor 1.25, over 8 x 512 tokens
+MOE_D, MOE_FF, MOE_EXPERTS, MOE_CF = 768, 3072, 8, 1.25
+MOE_ROWS, MOE_LEN = 8, 512
+MOE_EP = 4
+MOE_STEPS = 3
+MOE_LR = 1e-3
+MOE_TIE_TOL = 1e-6                  # a token's top-two gate probabilities
+MOE_OUT_TOL = 1e-5                  # card vs CPU, ep vs dense, of the scale
+MOE_NODROP_CF = 8.0                 # a capacity nothing overflows
+MOE_GRADS = ("moe_gate_w", "moe_w_up", "moe_w_down")
+
+
+def block_outputs(program, layers):
+    """The residual sum that ends each GPT block: the add reading the
+    biased output of the block's second FFN product."""
+    ops = program.global_block().ops
+    outs = []
+    for i in range(layers):
+        bias = next(op for op in ops if op.type == "elementwise_add"
+                    and f"gpt{i}_ffn1_b" in op.input_names)
+        res = next(op for op in ops if op.type == "elementwise_add"
+                   and bias.output_names[0] in op.input_names)
+        outs.append(res.output_names[0])
+    return outs
+
+
+def build_gpt_pp(layers=None, cuts=None, flt=None):
+    """Phase 9's net (build_train: its seed, so its startup weights, its
+    batch), at `layers` blocks if given; with `cuts` its Adam runs
+    through PipelineOptimizer(cut_list= the last residual add of those
+    blocks, num_microbatches=PP_MICRO), through fleet's distributed
+    optimizer with `flt`."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    kw = {} if layers is None else {"num_layers": layers}
+    cfg = gpt.GPTConfig(max_position=max(TRAIN_SEQ, 1024), dropout=0.0,
+                        **kw)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 7
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _tokens, loss, _logits = gpt.build_lm_net(cfg, seq_len=TRAIN_SEQ)
+        opt = fluid.optimizer.AdamOptimizer(1e-4)
+        if cuts is not None:
+            names = block_outputs(main, cfg.num_layers)
+            opt = fluid.optimizer.PipelineOptimizer(
+                opt, cut_list=[[names[i]] for i in cuts],
+                num_microbatches=PP_MICRO)
+        if flt is not None:
+            opt = flt.distributed_optimizer(opt)
+        opt.minimize(loss)
+    rng = np.random.default_rng(SEED + 8)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    return cfg, main, startup, loss, toks.astype(np.int64)
+
+
+def _pp_mesh():
+    from paddle_tpu_torch.parallel import make_mesh
+    return make_mesh(pp=PP, devices=["cuda:0"] * PP)
+
+
+def _pp_steps(flash, exe, program, loss, names, feed, scope, steps):
+    """`steps` steps: (losses, step ms, the first step's @GRADs on the
+    card, (fwd, dQ, dK/dV) launches a step, bf16 forward launches)."""
+    losses, ms, per_step = [], [], []
+    tc0 = flash.TC_LAUNCHES
+    grads = None
+    for i in range(steps):
+        before = _bwd_counts(flash)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(program, feed=feed, fetch_list=[loss] + (
+            [n + "@GRAD" for n in names] if i == 0 else []), scope=scope,
+            return_numpy=False)
+        losses.append(out[0].double().item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(_bwd_counts(flash),
+                                                    before)))
+        if i == 0:
+            grads = out[1:]
+    return losses, ms, grads, per_step, flash.TC_LAUNCHES - tc0
+
+
+def _gpt_block(p, x):
+    """One pre-norm GPT-2 block (f32, causal) over ops/flash.py: 1F1B's
+    stage at full width."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.flash import flash_attention
+    b, t, d = x.shape
+    h = F1B_HEADS
+    y = F.layer_norm(x, (d,), p["ln1_s"], p["ln1_b"], 1e-5)
+    q, k, v = (y @ p["w_qkv"] + p["b_qkv"]).view(b, t, 3, h, d // h) \
+        .permute(2, 0, 3, 1, 4)
+    a = flash_attention(q, k, v, causal=True).transpose(1, 2).reshape(
+        b, t, d)
+    x = x + a @ p["w_o"] + p["b_o"]
+    y = F.layer_norm(x, (d,), p["ln2_s"], p["ln2_b"], 1e-5)
+    return x + F.gelu(y @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def _mse(y, a):
+    return torch.mean((y - a) ** 2)
+
+
+def _block_params(stages, d, gen):
+    """Stacked (S, ...) GPT-2 block weights on the card, N(0, 0.02)."""
+    def w(*shape):
+        return torch.randn((stages,) + shape, generator=gen,
+                           device="cuda") * 0.02
+    ones = torch.ones(stages, d, device="cuda")
+    zeros = torch.zeros(stages, d, device="cuda")
+    return {"ln1_s": ones, "ln1_b": zeros, "w_qkv": w(d, 3 * d),
+            "b_qkv": w(3 * d), "w_o": w(d, d), "b_o": w(d),
+            "ln2_s": ones.clone(), "ln2_b": zeros.clone(),
+            "w1": w(d, 4 * d), "b1": w(4 * d), "w2": w(4 * d, d),
+            "b2": w(d)}
+
+
+def _sequential_1f1b_ref(params, xm, aux):
+    """The stages in sequence, microbatch by microbatch, one autograd
+    graph: (loss, {name: stacked gradient})."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    stages = next(iter(params.values())).shape[0]
+    total = 0.0
+    for k in range(xm.shape[0]):
+        h = xm[k]
+        for s in range(stages):
+            h = _gpt_block({n: v[s] for n, v in leaves.items()}, h)
+        total = total + _mse(h, aux[k])
+    loss = total / xm.shape[0]
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def phase_1f1b(flash):
+    """36's 1F1B part: pipeline_1f1b over four positions of cuda:0, one
+    pre-norm GPT-2 block a stage (f32, causal, over ops/flash.py) at
+    width 768, F1B_ROWS x 512 a microbatch, at each M of F1B_MICRO:
+    loss and stacked gradients against the sequential autograd run; 2M
+    forward launches and M dQ + M dK/dV a stage; the schedule's
+    in-flight peak (the memory the call adds) at the largest M within
+    F1B_PEAK_TOL of the smallest's; schedule_stats' bubble equal to
+    bubble_fraction. Returns (launches by path, record)."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel import pipeline as pp_mod
+    mesh = make_mesh(pp=PP, devices=["cuda:0"] * PP)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 360)
+    d = F1B_WIDTH
+    params = _block_params(PP, d, gen)
+    paths, rec, bad = {}, {}, []
+    for m in F1B_MICRO:
+        xm = torch.randn(m, F1B_ROWS, TRAIN_SEQ, d, generator=gen,
+                         device="cuda")
+        aux = torch.randn(m, F1B_ROWS, TRAIN_SEQ, d, generator=gen,
+                          device="cuda")
+        ref_loss, ref_grads = _sequential_1f1b_ref(params, xm, aux)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(flash)
+        t0 = time.perf_counter()
+        loss, grads = pp_mod.pipeline_1f1b(_gpt_block, _mse, params, xm,
+                                           aux, mesh)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = _bwd_counts(flash) + (flash.TC_LAUNCHES,)
+        names = sorted(grads)
+        worst, at, ok = _grad_gate([grads[n] for n in names],
+                                   [ref_grads[n] for n in names], names,
+                                   names, F1B_GRAD_TOL)
+        loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        st = pp_mod.schedule_stats(_gpt_block, _mse, params, xm, aux, mesh)
+        want = (2 * m * PP, m * PP, m * PP, 0)
+        if counts != want:
+            bad.append(f"1F1B M {m}: launches {counts}, want {want}")
+        if loss_err > F1B_LOSS_TOL or not ok:
+            bad.append(f"1F1B M {m}: loss rel err {loss_err:.3e}, @GRADs "
+                       f"{worst:.3e} at {at}")
+        if st["bubble_fraction"] != pp_mod.bubble_fraction(m, PP) or \
+                st["ticks"] != 2 * m + 2 * PP - 2:
+            bad.append(f"1F1B M {m}: schedule_stats {st}")
+        paths[f"36 1F1B GPT-2 block x {PP} stages, M {m} (one call)"] = \
+            counts
+        rec[f"M{m}"] = {"loss": loss.item(), "loss_rel_err": loss_err,
+                        "grad_rel_err": worst, "worst": at,
+                        "run_ms": run_ms, "inflight_peak_bytes": peak,
+                        "schedule_stats": st, "launches": counts}
+        del xm, aux, ref_grads, grads
+    lo, hi = (rec[f"M{m}"]["inflight_peak_bytes"] for m in
+              (min(F1B_MICRO), max(F1B_MICRO)))
+    rec["peak_ratio"] = hi / lo
+    if abs(hi - lo) > F1B_PEAK_TOL * lo:
+        bad.append(f"1F1B: in-flight peak {hi} B at M {max(F1B_MICRO)} vs "
+                   f"{lo} B at M {min(F1B_MICRO)}")
+    print("1f1b " + json.dumps(rec))
+    if bad:
+        _fail("; ".join(bad))
+    return paths, rec
+
+
+def phase_pp(flash, base):
+    """Phase 36: phase 9's GPT-base (12 layers, width 768, seq 512, batch
+    8) through PipelineOptimizer(Adam, cut_list= the last residual add
+    of blocks 2, 5 and 8, num_microbatches=4) and CompiledProgram
+    .with_mesh(make_mesh(pp=4)) on four positions of cuda:0, PP_STEPS
+    steps from phase 9's startup weights, against the plain step from
+    the same weights: first loss within PP_FIRST_LOSS_TOL, later ones
+    PP_LATER_LOSS_TOL, the first step's @GRADs (the tied gpt_word_emb's
+    included) within FLEET_GRAD_TOL of their scale, 48 + 48 + 48 f32
+    flash launches a step (12 layers x M 4), none bf16, a falling loss;
+    step ms, one profiled step, peak memory. Then 1F1B (phase_1f1b) and
+    36b's reference: the local pp 4 form at PP_WORLD_LAYERS layers,
+    saved under <base>/36b. Returns (launches by path, record)."""
+    import paddle_tpu_torch as fluid
+    cfg, main, startup, loss, toks = build_gpt_pp()
+    _c, pmain, _ps, ploss, _t = build_gpt_pp(cuts=PP_CUT_BLOCKS)
+    feed = {"tokens": toks}
+    names = [p.name for p in main.all_parameters()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    plain, plain_ms, grads, _ps, _tc = _pp_steps(
+        flash, exe, main, loss, names, feed, scope, PP_STEPS)
+    del exe, scope
+    pscope = fluid.Scope()
+    for n, v in init.items():
+        pscope.set(n, v)
+    del init
+    torch.cuda.reset_peak_memory_stats()
+    comp = fluid.CompiledProgram(pmain).with_mesh(_pp_mesh())
+    exe = fluid.Executor()
+    _zero_counts(flash)
+    losses, ms, pgrads, per_step, tc = _pp_steps(
+        flash, exe, comp, ploss, names, feed, pscope, PP_STEPS)
+    counts = _bwd_counts(flash) + (tc,)
+    peak = torch.cuda.max_memory_allocated()
+    first = abs(losses[0] - plain[0]) / abs(plain[0])
+    later = max(abs(a - b) / abs(b) for a, b in zip(losses[1:], plain[1:]))
+    worst, at, ok = _grad_gate(pgrads, grads, names, names, FLEET_GRAD_TOL)
+    tied = _grad_gate([pgrads[names.index("gpt_word_emb")]],
+                      [grads[names.index("gpt_word_emb")]],
+                      ["gpt_word_emb"], ["gpt_word_emb"], FLEET_GRAD_TOL)
+    del grads, pgrads
+    prof = _profile_train(lambda: exe.run(comp, feed=feed,
+                                          fetch_list=[ploss], scope=pscope),
+                          1)
+    del exe, pscope
+    n = cfg.num_layers * PP_MICRO
+    bad = []
+    if set(per_step) != {(n, n, n)} or tc:
+        bad.append(f"36: flash launches a step {per_step} ({tc} bf16), "
+                   f"want {n} each, 0 bf16")
+    if first > PP_FIRST_LOSS_TOL or later > PP_LATER_LOSS_TOL or not ok:
+        bad.append(f"36: pipelined vs plain: first loss {first:.3e}, later "
+                   f"{later:.3e}, @GRADs {worst:.3e} at {at}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        bad.append(f"36: losses not finite and falling: {losses}")
+    rec = {"config": "GPTConfig(max_position=1024, dropout=0.0) x 12 "
+                     f"layers, pp {PP}, M {PP_MICRO}, cuts after blocks "
+                     f"{list(PP_CUT_BLOCKS)}",
+           "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "losses": losses, "plain_losses": plain,
+           "first_loss_rel_err": first, "later_loss_rel_err": later,
+           "grad_rel_err": worst, "worst": at,
+           "word_emb_grad_rel_err": tied[0],
+           "step_ms": ms, "plain_step_ms": plain_ms,
+           "step_ms_p50_after_first": float(np.percentile(ms[1:], 50)),
+           "plain_step_ms_p50_after_first":
+               float(np.percentile(plain_ms[1:], 50)),
+           "max_memory_allocated": peak, "launches": counts,
+           "profile": prof}
+    print("pp " + json.dumps(rec))
+    if bad:
+        _fail("; ".join(bad))
+    paths = {f"36 GPT-base pp {PP} local ({PP_STEPS} steps)":
+             counts}
+    more, rec["1f1b"] = phase_1f1b(flash)
+    paths.update(more)
+    # 36b's reference: the local pp 4 form at PP_WORLD_LAYERS layers
+    out = os.path.join(base, "36b")
+    os.makedirs(out, exist_ok=True)
+    wmain, wstart, wloss = build_gpt_pp(
+        PP_WORLD_LAYERS, range(PP_WORLD_LAYERS - 1))[1:4]
+    _save_ref(os.path.join(out, "ref_pp.pt"), _first_steps(
+        flash, wmain, wstart, wloss, fluid.CompiledProgram(wmain)
+        .with_mesh(_pp_mesh()), feed, PP_WORLD_STEPS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, rec
+
+
+def build_moe(cf=MOE_CF, flt=None):
+    """36c's Program: layers.moe at Switch-Base-8's FFN width over (8,
+    512, 768) inputs, tests/parallel/test_moe_framework.py's loss
+    (mean of the outputs' squared norms + 0.01 x the aux loss), SGD
+    (through fleet's distributed optimizer with `flt`)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 36
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data("x", shape=[MOE_LEN, MOE_D], dtype="float32")
+        out, aux = layers.moe(x, d_ff=MOE_FF, num_experts=MOE_EXPERTS,
+                              capacity_factor=cf,
+                              param_attr=fluid.ParamAttr(name="moe"))
+        loss = layers.mean(layers.reduce_sum(layers.square(out), dim=-1)) \
+            + layers.reduce_sum(aux) * 0.01
+        opt = fluid.optimizer.SGDOptimizer(learning_rate=MOE_LR)
+        if flt is not None:
+            opt = flt.distributed_optimizer(opt)
+        opt.minimize(loss)
+    return main, startup, out, aux, loss
+
+
+def moe_feed():
+    x = np.random.default_rng(SEED + 37).standard_normal(
+        (MOE_ROWS, MOE_LEN, MOE_D))
+    return {"x": x.astype(np.float32)}
+
+
+def _moe_run(exe, program, scope, out, aux, loss, steps):
+    """(losses, the first step's Out, the first step's @GRADs, step ms)."""
+    losses, ms = [], []
+    for i in range(steps):
+        if exe.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe.run(program, feed=moe_feed(), fetch_list=[loss, aux] + (
+            [out] + [n + "@GRAD" for n in MOE_GRADS] if i == 0 else []),
+            scope=scope, return_numpy=False)
+        losses.append(got[0].double().item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first_out, grads = got[2], got[3:]
+    return losses, first_out, grads, ms
+
+
+def _moe_gating(x, gate_w, shards, capacity):
+    """Each ep shard's gating as moe_apply computes it: (experts, the
+    top-two gate probabilities' gap, kept)."""
+    from paddle_tpu_torch.parallel import moe
+    experts, gaps, kept = [], [], []
+    for block in x.reshape(-1, x.shape[-1]).chunk(shards, 0):
+        logits = block @ gate_w
+        e, _g, _a = moe.top1_gating(logits, capacity)
+        top2 = torch.softmax(logits, -1).topk(2, -1).values
+        _slot, ok = moe._slots(e, gate_w.shape[1], capacity)
+        experts.append(e)
+        gaps.append(top2[:, 0] - top2[:, 1])
+        kept.append(ok)
+    return torch.cat(experts), torch.cat(gaps), torch.cat(kept)
+
+
+def phase_moe(flash, base):
+    """Phase 36c: layers.moe at Switch-Base-8's FFN width (d_model 768,
+    d_ff 3072, 8 experts, top-1, capacity factor 1.25) in a Program over
+    8 x 512 tokens, MOE_STEPS SGD steps: dense on the card, ep 4 on four
+    positions of cuda:0 (two experts a position, the tokens split over
+    ep, the all-to-all a regrouping), and ep 4 on the CPU from the
+    card's startup weights. Gates: each token's expert equal card vs CPU
+    (a token whose top-two gate probabilities lie within MOE_TIE_TOL may
+    differ: counted), the first step's outputs within MOE_OUT_TOL of
+    their scale over the tokens both sides route alike; at capacity
+    factor MOE_NODROP_CF ep 4 equals dense within MOE_OUT_TOL; no flash
+    launch. Prints the dropped share at 1.25. The local ep 4 run is 36b's
+    ep reference, saved under <base>/36b. Returns (launches by path,
+    record)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import make_mesh, moe
+    main, startup, out, aux, loss = build_moe()
+    _zero_counts(flash)
+    tc0 = flash.TC_LAUNCHES
+    rec = {"config": "Switch-Base-8's FFN: d_model 768, d_ff 3072, 8 "
+                     "experts, top-1, capacity factor 1.25 (Fedus et al., "
+                     "switch-base-8)", "tokens": MOE_ROWS * MOE_LEN}
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    dense, _o, _g, dense_ms = _moe_run(exe, main, scope, out, aux, loss,
+                                       MOE_STEPS)
+    # ep 4 on the card, from a fresh startup (36b's ranks start so)
+    names = [p.name for p in main.all_parameters()]
+    comp = fluid.CompiledProgram(main).with_mesh(
+        make_mesh(ep=MOE_EP, devices=["cuda:0"] * MOE_EP))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    ep, ep_out, ep_grads, ep_ms = _moe_run(exe, comp, scope, out, aux, loss,
+                                           MOE_STEPS)
+    laid = scope.get("moe_w_up")
+    parts = [tuple(p.shape) for p in getattr(laid, "parts", [])]
+    out_dir = os.path.join(base, "36b")
+    os.makedirs(out_dir, exist_ok=True)
+    _save_ref(os.path.join(out_dir, "ref_ep.pt"),
+              (ep, list(ep_grads), names, None))
+    # ep 4 on the CPU, from the card's startup weights
+    cpu_scope = fluid.Scope()
+    for n, v in init.items():
+        cpu_scope.set(n, v.cpu())
+    cpu = fluid.Executor(fluid.CPUPlace())
+    ccomp = fluid.CompiledProgram(main).with_mesh(
+        make_mesh(ep=MOE_EP, devices=["cpu"] * MOE_EP))
+    cpu_loss, cpu_out, _g, cpu_ms = _moe_run(cpu, ccomp, cpu_scope, out, aux,
+                                             loss, 1)
+    x = torch.from_numpy(moe_feed()["x"])
+    tokens = MOE_ROWS * MOE_LEN
+    cap = int(MOE_CF * (tokens // MOE_EP) / MOE_EXPERTS) + 1
+    e_card, gap, ok_card = _moe_gating(x.cuda(), init["moe_gate_w"],
+                                       MOE_EP, cap)
+    e_cpu, _gap, ok_cpu = _moe_gating(x, init["moe_gate_w"].cpu(), MOE_EP,
+                                      cap)
+    e_card, gap, ok_card = e_card.cpu(), gap.cpu(), ok_card.cpu()
+    flips = e_card != e_cpu
+    ties = int((gap <= MOE_TIE_TOL).sum())
+    same = ~flips & (ok_card == ok_cpu)
+    a = ep_out.reshape(tokens, MOE_D).cpu()[same]
+    b = cpu_out.reshape(tokens, MOE_D)[same]
+    out_err = (a - b).abs().max().item() / b.abs().max().item()
+    # capacity factor MOE_NODROP_CF: nothing drops, ep 4 is dense
+    w = {k: init[f"moe_{k}"] for k in ("gate_w", "w_up", "w_down")}
+    xc = x.cuda()
+    nd_ep, _a = moe.moe_apply(xc, w["gate_w"], w["w_up"], w["w_down"],
+                              MOE_NODROP_CF, mesh=make_mesh(
+                                  ep=MOE_EP, devices=["cuda:0"] * MOE_EP))
+    nd_dense, _a = moe.moe_apply(xc, w["gate_w"], w["w_up"], w["w_down"],
+                                 MOE_NODROP_CF)
+    nodrop_err = ((nd_ep - nd_dense).abs().max()
+                  / nd_dense.abs().max()).item()
+    counts = _bwd_counts(flash) + (flash.TC_LAUNCHES - tc0,)
+    rec.update({
+        "dense_losses": dense, "ep_losses": ep, "cpu_ep_first_loss":
+        cpu_loss[0], "dense_step_ms": dense_ms, "ep_step_ms": ep_ms,
+        "cpu_ep_step_ms": cpu_ms, "ep_parts": parts,
+        "capacity_per_shard": cap,
+        "dropped_share": 1.0 - ok_card.float().mean().item(),
+        "expert_flips_card_vs_cpu": int(flips.sum()),
+        "near_ties": ties, "tokens_compared": int(same.sum()),
+        "out_rel_err_card_vs_cpu": out_err,
+        "first_loss_rel_err_card_vs_cpu":
+            abs(ep[0] - cpu_loss[0]) / abs(cpu_loss[0]),
+        "nodrop_ep_vs_dense_rel_err": nodrop_err, "launches": counts})
+    print("moe " + json.dumps(rec))
+    bad = []
+    if flips.any() and (gap[flips] > MOE_TIE_TOL).any():
+        bad.append(f"36c: {int(flips.sum())} tokens' experts differ card "
+                   f"vs CPU, not all near-ties")
+    if out_err > MOE_OUT_TOL or nodrop_err > MOE_OUT_TOL:
+        bad.append(f"36c: outputs card vs CPU {out_err:.3e}, ep vs dense "
+                   f"at cf {MOE_NODROP_CF} {nodrop_err:.3e}")
+    if parts != [(MOE_EXPERTS // MOE_EP, MOE_D, MOE_FF)] * MOE_EP:
+        bad.append(f"36c: the expert weights' parts {parts}")
+    if counts != (0, 0, 0, 0) or not np.isfinite(dense + ep).all():
+        bad.append(f"36c: flash launches {counts}, losses {dense} {ep}")
+    if bad:
+        _fail("; ".join(bad))
+    return {"36c layers.moe dense, ep 4, CPU ep 4 (gated at 0)": counts}, rec
+
+
+def pp_world_rank(out):
+    """One rank of phase 36b's world (`--fleet-world-rank 36b <dir>`):
+    fleet.init with DistributedStrategy(pp_degree=4) joins the world
+    (gloo: every rank on cuda:0), the GPT at PP_WORLD_LAYERS layers runs
+    one block a rank through fleet's distributed PipelineOptimizer,
+    PP_WORLD_STEPS steps after the parent's go; then the same world runs
+    36c's MoE Program under DistributedStrategy(ep_degree=4). Each
+    against the parent's local form. Writes <out>/rank<r>.json."""
+    import torch.distributed as dist
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.cuda import flash
+    from paddle_tpu_torch.parallel import fleet as fleet_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    s = fleet_mod.DistributedStrategy()
+    s.pp_degree = PP
+    flt = fleet_mod.Fleet().init(strategy=s)
+    rank = flt.worker_index()
+    try:
+        flash.build()
+        flash.build_bwd()
+        mesh = flt.mesh()
+        rec = {"backend": flt.backend, "rank": rank,
+               "mesh": dict(mesh.shape), "coords": mesh.coords(),
+               "boot_s": time.perf_counter() - t0}
+        _c, main, startup, loss, toks = build_gpt_pp(
+            PP_WORLD_LAYERS, range(PP_WORLD_LAYERS - 1), flt)
+        comp = fluid.CompiledProgram(main).with_mesh(mesh)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        names = [p.name for p in main.all_parameters()]
+        exe.run(startup, scope=scope)
+        _wait_go(out)
+        gloo = {"ms": 0.0, "calls": 0}
+        with _timed_gloo(gloo, PP_WORLD_STEPS - 1):
+            losses, ms, grads, per_step, tc = _pp_steps(
+                flash, exe, comp, loss, names, {"tokens": toks}, scope,
+                PP_WORLD_STEPS)
+        rec["pp"] = {"losses": losses, "step_ms": ms,
+                     "launches": per_step, "tc": tc,
+                     "gloo_ms_last_step": gloo["ms"],
+                     "gloo_calls_last_step": gloo["calls"],
+                     "peak_memory": torch.cuda.max_memory_allocated(),
+                     "vs_local": _against(os.path.join(out, "ref_pp.pt"),
+                                          losses, grads, names,
+                                          DP_GRAD_TOL)}
+        del exe, scope, grads
+        s = fleet_mod.DistributedStrategy()
+        s.ep_degree = MOE_EP
+        flt = fleet_mod.Fleet().init(strategy=s)
+        main, startup, _o, _a, loss = build_moe(flt=flt)
+        comp = fluid.CompiledProgram(main).with_mesh(flt.mesh())
+        tc0 = flash.TC_LAUNCHES
+        losses, grads, names, per_step = _first_steps(
+            flash, main, startup, loss, comp, moe_feed(), MOE_STEPS)
+        rec["ep"] = {"losses": losses, "launches": per_step,
+                     "tc": flash.TC_LAUNCHES - tc0,
+                     "mesh": dict(flt.mesh().shape),
+                     "vs_local": _against(os.path.join(out, "ref_ep.pt"),
+                                          losses, grads, names,
+                                          DP_GRAD_TOL)}
+        flt.barrier_worker()
+        rec["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_pp_world(world, started):
+    """Phase 36b: four processes on cuda:0 through the port's launcher
+    (gloo by the layout): DistributedStrategy(pp_degree=4) on phase 9's
+    GPT at PP_WORLD_LAYERS layers, full width, one block a rank, the cut
+    sent down the pp line and its cotangent back up, every gradient
+    all-reduced over pp: the first loss within DP_FIRST_LOSS_TOL of 36's
+    local form at PP_WORLD_LAYERS layers, the @GRADs within DP_GRAD_TOL
+    of their scale, M 4 launches of each f32 flash kernel a step a rank;
+    then DistributedStrategy(ep_degree=4) in the same world on 36c's
+    Program against 36c's local ep 4. `world` was started at
+    `started`; its ranks wait, started up, for the go written here.
+    Returns (launches by path, record)."""
+    t0 = time.perf_counter()
+    with open(os.path.join(world[2], "go"), "w"):
+        pass
+    recs = _finish_world(world, started)
+    out = {"world_s": time.perf_counter() - t0, "card": _card_line()}
+    launches, bad = {}, []
+    for r, rec in enumerate(recs):
+        pp, ep = rec["pp"], rec["ep"]
+        if rec["backend"] != "gloo" or rec["mesh"]["pp"] != PP \
+                or rec["coords"]["pp"] != r:
+            bad.append(f"36b rank {r}: backend {rec['backend']}, mesh "
+                       f"{rec['mesh']}, coords {rec['coords']}")
+        if any(tuple(c) != (PP_MICRO,) * 3 for c in pp["launches"]) \
+                or pp["tc"]:
+            bad.append(f"36b rank {r}: flash launches a step "
+                       f"{pp['launches']} ({pp['tc']} bf16), want "
+                       f"{PP_MICRO} each (one block x M {PP_MICRO}), 0 bf16")
+        _gate(f"36b rank {r} pp {PP} world vs local pp {PP} at "
+              f"{PP_WORLD_LAYERS} layers", pp["vs_local"], bad)
+        if any(c != [0, 0, 0] for c in ep["launches"]) or ep["tc"] \
+                or ep["mesh"]["ep"] != MOE_EP:
+            bad.append(f"36b rank {r}: ep mesh {ep['mesh']}, flash "
+                       f"launches {ep['launches']}")
+        _gate(f"36b rank {r} ep {MOE_EP} world vs local ep {MOE_EP}",
+              ep["vs_local"], bad)
+        launches[f"36b pp {PP} world rank {r} ({PP_WORLD_STEPS} steps)"] = \
+            _rank_launches(pp)
+        out[f"rank{r}"] = {k: rec[k] for k in ("boot_s", "seconds")}
+        out[f"rank{r}"]["pp"] = pp
+        out[f"rank{r}"]["ep"] = ep
+    print("pp world " + json.dumps(out))
+    if bad:
+        _fail("; ".join(bad))
+    return launches, out
+
+
+def phase_pp_all(flash):
+    """Phases 36-36c. 36b's four ranks boot and start up while this
+    process runs 36 and 36c, which write 36b's references; 36b's steps
+    run after its go. Returns (flash launches by path, records)."""
+    base = tempfile.mkdtemp(prefix="pp_")
+    world = None
+    try:
+        started = time.perf_counter()
+        world = _start_world("36b", PP, base)
+        paths, rec36 = _phase("36 GPT-base pp 4 local, 1F1B", phase_pp,
+                              flash, base)
+        more, rec36c = _phase("36c layers.moe at Switch-Base-8's width",
+                              phase_moe, flash, base)
+        paths.update(more)
+        more, rec36b = _phase("36b pp 4 and ep 4 world, four processes "
+                              "(after its go)", phase_pp_world, world,
+                              started)
+        paths.update(more)
+    finally:
+        if world is not None and world[3].poll() is None:
+            os.killpg(world[3].pid, 9)
+            world[3].wait()
+        shutil.rmtree(base, ignore_errors=True)
+    return paths, {"36": rec36, "36b": rec36b, "36c": rec36c}
+
+
 def times_of(flag, root):
     """Phase 10 (`--bwd-times-of`) or phase 8 (`--fwd-times-of`) alone on
     the flash kernels of the package under `root` (a checkout of another
@@ -14691,6 +15437,9 @@ def main():
     fleet_paths, _ = phase_fleet_train_all(flash, shard_recs["34"],
                                            rec21[0])
     print(f"phases 35-35c: {time.perf_counter() - t35:.1f} s")
+    t36 = time.perf_counter()
+    pp_paths, _ = phase_pp_all(flash)
+    print(f"phases 36-36c: {time.perf_counter() - t36:.1f} s")
     path_errs = {**perrs, **serrs, **derrs, **terrs, **tp_errs}
     by_path = {
         "2 serve": launches,
@@ -14793,7 +15542,7 @@ def main():
         **{f"17 ring sp {RING_SP} {case} (one call)": c
            for case, c in ring_launches.items()},
         **recipe_paths, **dp_paths, **recipe_dp_paths, **shard_paths,
-        **fleet_paths,
+        **fleet_paths, **pp_paths,
         f"24 Transformer-base train ({TF_WARM + TF_STEPS} steps)":
             tf_launches,
         "24b Transformer agree (card run, 2 + 2 layers x 3 steps)":

@@ -71,9 +71,25 @@ tp partials it is handed (as the dp sum's does over dp); then
 ``reduce_grads`` all-reduces each gradient over the axes its parameter is
 replicated along (a replicated parameter's over dp, sp and tp, a
 tp-sharded one's over dp and sp, an FSDP one's over sp and tp), one fused
-all-reduce a line. Refused with ``NotImplementedError``: a mesh whose pp
-or ep is larger than 1 (pipeline and expert parallelism, the next
-ROADMAP items); a local mesh over several devices. A
+all-reduce a line. A world seeds and sums over pp and ep too: a value
+replicated over them is held as partials there as well.
+
+Pipeline and expert parallelism (item 11a). A Program that
+``PipelineOptimizer`` tagged runs its forward over a mesh with pp > 1
+through ``parallel/pipeline.py``'s ``build_pipelined_forward`` (GPipe
+over microbatches: on a local mesh every stage in this process, tick by
+tick; in a world one stage a rank, the cut tensor sent down the pp line
+and its cotangent back up); every parameter reaches its stages whole,
+so under pp x tp the tp axis only places the state, as JAX's
+``in_specs=(P(), P(), P())``. In a world each rank seeds its stage's part
+of the loss and every gradient is all-reduced over pp. A Program without
+the tag runs its whole step on every pp position. Under ep the expert
+weights (``layers.moe``'s ``dist_attr ("ep", None, None)``) are laid out
+over ep, E / ep experts a position, the ``moe`` op splits its tokens
+over ep (its shard rule, ``ops/collective_ops.py``) and the other ops run
+replicated. Refused with ``NotImplementedError``: a local mesh over
+several devices; a pipelined Program beside dp, sp or ep, under
+recompute or under amp (queued: no JAX test holds them). A
 ``RecomputeOptimizer`` program runs under the walk (``Executor.run``).
 """
 
@@ -85,14 +101,6 @@ from ..ops import Sharded
 from ..parallel.sharded import ShardedTensor, is_replicated, placement_spec
 from .executor import Executor
 from .framework import default_main_program
-
-# the ROADMAP items of the mesh forms the walk refuses
-NEXT_ITEMS = {"pp": "ROADMAP queue A item 11: pipeline parallelism "
-                    "(parallel/pipeline.py, PipelineOptimizer), the next "
-                    "item",
-              "ep": "ROADMAP queue A item 11: expert parallelism "
-                    "(parallel/moe.py, the moe op), after the pipeline"}
-
 
 class BuildStrategy:
     """Parity: fluid.BuildStrategy. The knobs are kept for API
@@ -203,7 +211,8 @@ class CompiledProgram:
         if not self._data_parallel:
             return None
         return DataParallelWalk(self.mesh, device,
-                                self.build_strategy.fuse_all_reduce_ops)
+                                self.build_strategy.fuse_all_reduce_ops,
+                                self.program)
 
 
 class ParallelExecutor:
@@ -246,17 +255,14 @@ class DataParallelWalk:
     """One run's state over a mesh: the mesh, its dp size, the dp ranks
     this process holds (every rank of a local mesh, its own in a world),
     the collectives the ops' dp rules call (``sum``, ``cat``), the
-    placement of the sharded state and the run's gathers of it."""
+    placement of the sharded state and the run's gathers of it, and
+    whether `program`'s forward runs pipelined (``pipelined``)."""
 
-    def __init__(self, mesh, device, fuse=True):
+    def __init__(self, mesh, device, fuse=True, program=None):
         if "dp" not in mesh.shape:
             raise ValueError(f"{mesh} has no 'dp' axis")
-        for axis in ("pp", "ep"):
-            if mesh.shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"a mesh with {axis}={mesh.shape[axis]} under "
-                    f"CompiledProgram is not ported ({NEXT_ITEMS[axis]})")
         dp, tp, sp = (mesh.shape.get(a, 1) for a in ("dp", "tp", "sp"))
+        pp, ep = mesh.shape.get("pp", 1), mesh.shape.get("ep", 1)
         if not mesh.world and not all(
                 _same_device(d, device) for d in mesh.devices.flat):
             raise NotImplementedError(
@@ -267,8 +273,12 @@ class DataParallelWalk:
         self.size = dp
         self.tp = tp
         self.sp = sp
+        self.pp = pp
+        self.ep = ep
+        self.pipelined = pp > 1 and \
+            getattr(program, "_pipeline", None) is not None
         # the axes a replicated value is replicated along
-        self.axes = tuple(a for a in ("dp", "sp", "tp")
+        self.axes = tuple(a for a in ("dp", "pp", "ep", "sp", "tp")
                           if mesh.shape.get(a, 1) > 1)
         self.ranks = mesh.held("dp")
         self.world = mesh.world
@@ -322,10 +332,11 @@ class DataParallelWalk:
 
     def split_feeds(self, feeds):
         """Each feed's rows over dp where dp divides dim 0 (JAX's
-        ``_shard_feeds_spec``'s batch rule), else replicated. A tp mesh
-        at dp 1 keeps every feed whole. The time axis stays whole on
-        every sp rank (the ring takes its block at the attention)."""
-        if self.tp > 1 and self.size == 1:
+        ``_shard_feeds_spec``'s batch rule), else replicated. A tp, pp
+        or ep mesh at dp 1 keeps every feed whole. The time axis stays
+        whole on every sp rank (the ring takes its block at the
+        attention)."""
+        if self.size == 1 and max(self.tp, self.pp, self.ep) > 1:
             return dict(feeds)
         out = {}
         for name, t in feeds.items():
@@ -352,16 +363,24 @@ class DataParallelWalk:
 
     def loss(self, value):
         """The scalar the backward differentiates: a replicated loss's
-        sum, or the dp sum of a sharded loss's row sums; in a world
-        1 / (dp sp tp) of it, this rank's share of the seed (each
-        replicated value's gradient is then this rank's partial of the
-        whole)."""
+        sum, or the dp sum of a sharded loss's row sums; in a world 1 /
+        the product of ``axes``' sizes of it, this rank's share of the
+        seed (each replicated value's gradient is then this rank's
+        partial of the whole)."""
         if isinstance(value, Sharded):
             value = self.sum([p.sum() for p in value.parts])
         total = value.sum()
         if not self.world:
             return total
-        return total / (self.size * self.sp * self.tp)
+        return total / self.replicas()
+
+    def replicas(self, skip=()):
+        """The product of the sizes of ``axes`` but `skip`."""
+        n = 1
+        for a in self.axes:
+            if a not in skip:
+                n *= self.mesh.shape[a]
+        return n
 
     def reduce_grads(self, grads):
         """The global gradients: on a local mesh autograd already summed

@@ -81,9 +81,15 @@ arithmetic is bitwise the unguarded one's (the sentinel only reads).
 One CUDA graph over this fixed-shape step, in place of the host's per-op
 launches, is later performance work; it needs the same pinned,
 fixed-shape feeds. Not ported: ``explain`` and cost analysis and the
-compile and recompile statistics (ROADMAP item 11, with
-``observability/report.py``: the port compiles no step), and the
-pipeline-parallel schedule (item 11).
+compile and recompile statistics (the port compiles no step).
+
+A Program that ``PipelineOptimizer`` tagged, run through a
+``CompiledProgram`` over a mesh with pp > 1, takes the pipelined branch
+(the JAX Executor's ``build_pipelined_forward`` branch): the forward runs
+as ``parallel/pipeline.py``'s GPipe schedule over microbatches, the loss
+is the mean of the microbatches' losses, and the gradients come from
+autograd through the schedule. Only the loss, persistables, feeds and
+gradients can be fetched there (``ValueError`` otherwise).
 
 A structured control-flow op (``ops/control_flow_ops.py``: ``while``,
 ``cond_pair``, ``switch``, ``static_rnn``, the beam-search decoder) runs
@@ -767,6 +773,11 @@ class Executor:
             # the op's out of them (its attributes name those)
             live.update(sub_block_reads(program, op))
         is_test = program._is_test
+        pipe = None
+        if walk is not None and walk.pipelined and marker_idx is not None:
+            pipe = self._pipelined(program, marker_idx, fetch_names,
+                                   persist_names, feeds, walk, live,
+                                   is_test)
 
         def run(ops, env=env):
             for op in ops:
@@ -793,7 +804,7 @@ class Executor:
                 if policy == "everything":  # saves everything: no recompute
                     policy = None
                 self._backward(marker, env, run, gb.ops[:marker_idx], keep,
-                               policy, walk)
+                               policy, walk, pipe)
                 with torch.no_grad():
                     run(post)
 
@@ -830,30 +841,51 @@ class Executor:
                        else f.detach() for f in fetches]
         return fetches, guard
 
+    def _pipelined(self, program, marker_idx, fetch_names, persist_names,
+                   feeds, walk, live, is_test):
+        """The pipelined forward of `program` over the walk's pp axis:
+        fn(env) -> (objective, mean loss) (``parallel/pipeline.py``)."""
+        from ..parallel.pipeline import (build_pipelined_forward,
+                                         check_fetches)
+        gb = program.global_block()
+        loss_name = gb.ops[marker_idx].attr("loss")
+        check_fetches(program, fetch_names, loss_name, persist_names)
+        fwd = build_pipelined_forward(
+            program, marker_idx, program._pipeline, walk.mesh, loss_name,
+            is_test=is_test, device=self.device, live=live, walk=walk)
+        names = list(feeds)
+        return lambda env: fwd(env, {n: env[n] for n in names})
+
     @staticmethod
-    def _backward(marker, env, run, ops, keep, policy=None, walk=None):
+    def _backward(marker, env, run, ops, keep, policy=None, walk=None,
+                  pipe=None):
         """The forward `ops` under autograd with the marker's parameters
         as leaves, in a copy of `env`. Of its results, those named in
         `keep` land in `env`, and the gradients as name@GRAD (zeros for a
         parameter the loss does not reach); the parameters stay the
         scope's tensors, for the optimizer's in-place updates. With a
         recompute `policy` the forward runs through
-        ``run_checkpointed``; under the dp walk the loss may be sharded
-        and a world sums the gradients over dp. A sharded parameter's
-        leaves are its parts, and its gradient a ShardedTensor of theirs."""
+        ``run_checkpointed``, with `pipe` through the pipelined schedule
+        (``Executor._pipelined``); under the dp walk the loss may be
+        sharded and a world sums the gradients over dp. A sharded
+        parameter's leaves are its parts, and its gradient a
+        ShardedTensor of theirs."""
         names = [n for n in marker.attr("params") if n in env]
         loss_name = marker.attr("loss")
         leaves = [_leaf(env[n]) for n in names]
         fwd = dict(env)
         fwd.update(zip(names, leaves))
         with torch.enable_grad():
-            if policy is None:
+            if pipe is not None:
+                loss, fwd[loss_name] = pipe(fwd)
+            elif policy is None:
                 run(ops, fwd)
             else:
                 from ..optimizer.recompute import run_checkpointed
                 run_checkpointed(ops, fwd, run, keep | {loss_name}, policy)
-            loss = (fwd[loss_name].sum() if walk is None
-                    else walk.loss(fwd[loss_name]))
+            if pipe is None:
+                loss = (fwd[loss_name].sum() if walk is None
+                        else walk.loss(fwd[loss_name]))
             env.update((k, v) for k, v in fwd.items()
                        if k in keep and k not in names)
             # what nothing reads goes before the backward, which then

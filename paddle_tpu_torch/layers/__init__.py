@@ -88,7 +88,7 @@ from .nn import (fc, conv2d, pool2d, adaptive_pool2d, batch_norm, relu,
                  merge_selected_rows, get_tensor_from_selected_rows,
                  lod_reset, lod_append, nce, hsigmoid,
                  sampled_softmax_with_cross_entropy, match_matrix_tensor,
-                 var_conv_2d, tree_conv)
+                 var_conv_2d, tree_conv, moe)
 from .tensor import (create_tensor, create_parameter, create_global_var,
                      fill_constant, fill_constant_batch_size_like, zeros,
                      ones, zeros_like, ones_like, sums, assign, linspace,

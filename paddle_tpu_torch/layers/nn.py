@@ -1046,6 +1046,59 @@ def _simple_layer(op_type, ins, attrs, helper_name=None, out_slot="Out",
     return out
 
 
+def moe(input, d_ff, num_experts, capacity_factor=1.25, param_attr=None,
+        name=None):
+    """Mixture-of-Experts FFN layer (expert parallelism over the mesh's
+    'ep' axis), as the JAX package's ``layers.moe``: top-1 (Switch)
+    gated expert FFN over the last dim of `input`. Three parameters, the
+    ParamAttr's name suffixed ``_gate_w`` / ``_w_up`` / ``_w_down``; the
+    expert weights carry ``dist_attr ("ep", None, None)``, so a
+    ``CompiledProgram`` over an ep mesh lays them out E / ep a position
+    and the op dispatches its tokens over ep (``parallel/moe.py``).
+    Returns (out, aux_loss): add `aux_loss` (the load-balance term) into
+    the training loss."""
+    import copy as _copy
+
+    from ..core.param_attr import ParamAttr as _PA
+
+    def _sub_attr(suffix):
+        # one ParamAttr names three parameters: suffix the name
+        a = _PA._to_attr(param_attr)
+        if a is None or a is False:
+            return a
+        a = _copy.copy(a)
+        if a.name:
+            a.name = a.name + suffix
+        return a
+
+    helper = LayerHelper("moe", name=name)
+    d = int(input.shape[-1])
+    gate_w = helper.create_parameter(
+        attr=_sub_attr("_gate_w"), shape=[d, num_experts],
+        dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(0.0, 0.02))
+    w_up = helper.create_parameter(
+        attr=_sub_attr("_w_up"), shape=[num_experts, d, d_ff],
+        dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(
+            0.0, (2.0 / d) ** 0.5))
+    w_down = helper.create_parameter(
+        attr=_sub_attr("_w_down"), shape=[num_experts, d_ff, d],
+        dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(
+            0.0, (2.0 / d_ff) ** 0.5))
+    w_up.dist_attr = ("ep", None, None)
+    w_down.dist_attr = ("ep", None, None)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    input.shape)
+    aux = helper.create_variable_for_type_inference(input.dtype, (1,))
+    helper.append_op("moe", {"X": input, "GateW": gate_w, "WUp": w_up,
+                             "WDown": w_down},
+                     {"Out": out, "AuxLoss": aux},
+                     {"capacity_factor": capacity_factor})
+    return out, aux
+
+
 def grid_sampler(x, grid, name=None):
     """Parity: fluid.layers.grid_sampler (bilinear spatial sampling)."""
     return _simple_layer("grid_sampler", {"X": x, "Grid": grid}, {},

@@ -2,8 +2,8 @@
 
 Parity: paddle/fluid/operators/collective/{c_allreduce,c_broadcast,
 c_allgather,c_reducescatter,c_sync_*}_op.*, the NCCL ring collectives;
-the counterpart of ``paddle_tpu/ops/collective_ops.py`` (all of it but
-``moe``, which comes with expert parallelism).
+the counterpart of ``paddle_tpu/ops/collective_ops.py``, the ``moe`` op
+(expert parallelism) included.
 
 Inside a mapped context (``parallel.collective.mapped(mesh)``, the port's
 stand-in for ``shard_map``) an op is its collective over the axis its
@@ -20,8 +20,9 @@ are the identity everywhere: the port issues its collectives on the
 compute stream.
 """
 
-from . import register, rows
+from . import refuses, register, rows, shard_rule
 from ..parallel import collective
+from ..parallel.sharded import ShardedTensor
 
 
 def _axis(ctx):
@@ -83,3 +84,45 @@ def alltoall(ctx):
 @register("c_sync_calc_stream", "c_sync_comm_stream", dp=rows)
 def c_sync(ctx):
     return {"Out": ctx.in_("X")}
+
+
+# the moe op's capacity counts its tokens: dp's rows would each count
+# their own, where JAX's dp step counts the global batch's
+_MOE_DP = ("its capacity counts the global batch's tokens, a dp rank's "
+           "rows count their own (ROADMAP queue A: MoE under dp)")
+
+
+@register("moe", dp=refuses(_MOE_DP))
+def moe(ctx):
+    """Framework-level Mixture-of-Experts FFN (``parallel/moe.py``
+    ``moe_apply``): expert-parallel over the walk's mesh (or the active
+    one) where its ep axis divides the tokens and the experts, dense
+    otherwise."""
+    from ..parallel.moe import moe_apply
+    mesh = ctx.walk.mesh if ctx.walk is not None else None
+    out, aux = moe_apply(
+        ctx.in_("X"), ctx.in_("GateW"), ctx.in_("WUp"), ctx.in_("WDown"),
+        capacity_factor=ctx.attr("capacity_factor", 1.25), mesh=mesh)
+    return {"Out": out, "AuxLoss": aux.reshape(1)}
+
+
+@shard_rule("moe")
+def _moe_ep(impl, ctx, walk):
+    """The expert weights laid out over "ep" alone (E / ep experts a
+    position): the op on their parts, its tokens split over ep. None
+    (the op on the gathered weights, dense) where ep does not divide the
+    tokens, or another input is laid out."""
+    from ..parallel.moe import _active_ep_mesh
+    env, op = ctx.env, ctx.op
+    up, down = env[op.input("WUp")[0]], env[op.input("WDown")[0]]
+    if not all(isinstance(w, ShardedTensor) and w.axes == ["ep"]
+               and w.spec[0] == "ep" for w in (up, down)):
+        return None
+    if any(isinstance(env[op.input(s)[0]], ShardedTensor)
+           for s in ("X", "GateW")):
+        return None
+    x = env[op.input("X")[0]]
+    if _active_ep_mesh(x.numel() // x.shape[-1], up.shape[0],
+                       walk.mesh) is None:
+        return None
+    return impl(ctx)

@@ -5,8 +5,8 @@ counterpart of ``paddle_tpu/optimizer/`` with the static-graph
 optimizers, the gradient clips, the weight-decay regularizers,
 RecomputeOptimizer, ``DGCMomentumOptimizer`` and the wrappers
 (ExponentialMovingAverage, ModelAverage, LookaheadOptimizer,
-GradientMergeOptimizer). Not ported yet: ``PipelineOptimizer`` (it lives
-with the pipeline machinery, ``parallel/pipeline.py``).
+GradientMergeOptimizer) and ``PipelineOptimizer``, which lives with the
+pipeline machinery (``parallel/pipeline.py``).
 """
 
 from .optimizers import (Optimizer, SGDOptimizer, MomentumOptimizer,
@@ -31,3 +31,7 @@ from . import clip  # noqa: E402
 from .clip import (GradientClipByValue, GradientClipByNorm,  # noqa: E402
                    GradientClipByGlobalNorm, ErrorClipByValue,
                    set_gradient_clip)
+
+# PipelineOptimizer lives with the pipeline machinery but is an optimizer
+# in the reference's namespace (ref optimizer.py:2683)
+from ..parallel.pipeline import PipelineOptimizer  # noqa: E402,F401

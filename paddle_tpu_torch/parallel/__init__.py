@@ -11,7 +11,9 @@ their ``dist_attr``) and the transpiler's ZeRO-1 / FSDP annotations
 (``transpiler.py``), the collectives over a named axis
 (``collective.py``) and fleet (``fleet.py``: the role makers,
 ``DistributedStrategy``, ``fleet.init`` over a ``torch.distributed``
-world). Pipeline and expert parallelism are not ported yet."""
+world), pipeline parallelism (``pipeline.py``: GPipe, 1F1B,
+``PipelineOptimizer``) and expert parallelism (``moe.py``: top-1 gating,
+the all-to-all dispatch over the mesh's "ep" axis, ``MoELayer``)."""
 
 from .mesh import (MeshConfig, get_mesh, set_mesh, make_mesh, mesh_axes,
                    make_hybrid_mesh, host_domains, multihost_initialize,
@@ -26,6 +28,10 @@ from .tensor_parallel import (PartitionSpec, ShardRules, apply_shard_rules,
 from .sharded import ShardedTensor
 from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
                          shard_optimizer_state, shard_params_fsdp)
+from .pipeline import (pipeline_step, pipeline_apply, pipeline_1f1b,
+                       bubble_fraction, schedule_stats, PipelineOptimizer)
+from .moe import (top1_gating, expert_parallel_dispatch,
+                  expert_parallel_combine, moe_apply, MoELayer)
 from . import fleet
 
 __all__ = ["MeshConfig", "get_mesh", "set_mesh", "make_mesh", "mesh_axes",
@@ -37,4 +43,7 @@ __all__ = ["MeshConfig", "get_mesh", "set_mesh", "make_mesh", "mesh_axes",
            "column_parallel_spec", "row_parallel_spec", "shard_params_spec",
            "shard_state", "ShardedTensor", "DistributeTranspiler",
            "DistributeTranspilerConfig", "shard_optimizer_state",
-           "shard_params_fsdp", "fleet"]
+           "shard_params_fsdp", "pipeline_step", "pipeline_apply",
+           "pipeline_1f1b", "bubble_fraction", "schedule_stats",
+           "PipelineOptimizer", "top1_gating", "expert_parallel_dispatch",
+           "expert_parallel_combine", "moe_apply", "MoELayer", "fleet"]

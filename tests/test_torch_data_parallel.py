@@ -908,37 +908,38 @@ def test_shard_state_slices_equal_jax_addressable_shards():
 
 
 def test_sharded_state_and_tp_meshes_are_refused(bert_twin):
-    """What the walk still refuses raises NotImplementedError naming its
-    ROADMAP item: a pp or ep mesh (item 11, pipeline and expert
-    parallelism). tp beside dp or sp (10d.2), once refused, now runs: dp 2
-    x tp 2 and sp 2 x tp 2 give the plain run's loss within 1e-5 relative
-    (tests/test_torch_mixed_mesh.py holds them against JAX and dp 1, and
-    tests/test_torch_fleet_world.py the world forms), and a walk names
-    the axes a replicated value is replicated along. The former refusals
-    now run: a tp 2 mesh gives the plain run's loss (the tp partial sums
+    """The meshes the walk once refused now run. A pp 2 or ep 2 mesh
+    (item 11a, pipeline and expert parallelism) gives the plain run's
+    loss within 1e-5 relative: BERT carries no pipeline tag and no moe
+    op, so every pp and ep position runs the whole step
+    (tests/test_torch_pipeline.py and tests/test_torch_moe.py hold the
+    pipelined and expert-parallel forms against JAX). tp beside dp or sp
+    (10d.2) runs: dp 2 x tp 2 and sp 2 x tp 2 give the plain run's loss
+    within 1e-5 relative (tests/test_torch_mixed_mesh.py holds them
+    against JAX and dp 1, and tests/test_torch_fleet_world.py the world
+    forms), and a walk names the axes a replicated value is replicated
+    along. A tp 2 mesh gives the plain run's loss (the tp partial sums
     add in rank order: within 1e-5 relative), a persistable
     whose dist_attr lays it out over dp 2 gives plain dp 2's losses and
     @GRADs bitwise, and apply_shard_rules' 'tp' annotations under a
-    dp-only mesh lay nothing out. Recompute under dp, no longer refused,
-    runs and gives the plain dp run's losses, accuracy, gathered rows
-    and first step @GRADs bitwise (tests/test_torch_dp_recipe.py holds
-    the recipe and both policies against dp 1 and JAX)."""
+    dp-only mesh lay nothing out. Recompute under dp runs and gives the
+    plain dp run's losses, accuracy, gathered rows and first step @GRADs
+    bitwise (tests/test_torch_dp_recipe.py holds the recipe and both
+    policies against dp 1 and JAX)."""
     tw = bert_twin
     feed = _unequal_feed(tw.cfg)
-    exe = fluid.Executor(CPU)
-    refused = {"item 11": [dict(pp=2), dict(ep=2)]}
-    for item, meshes in refused.items():
-        for kw in meshes:
-            mesh = make_mesh(**kw, devices=["cpu"] * int(np.prod(
-                list(kw.values()))))
-            with fluid.scope_guard(fluid.scope_from_numpy(tw.init, "cpu")):
-                with pytest.raises(NotImplementedError, match=item):
-                    exe.run(fluid.CompiledProgram(tw.tmain).with_mesh(mesh),
-                            feed=feed, fetch_list=[tw.tloss])
+    want, _ = tw.port(feed, 1, tw.tmain)
+    for kw in (dict(pp=2), dict(ep=2)):
+        mesh = make_mesh(**kw, devices=["cpu"] * 2)
+        walk = DataParallelWalk(mesh, torch.device("cpu"), program=tw.tmain)
+        assert walk.axes == tuple(kw) and not walk.pipelined
+        got, _ = tw.port(feed, 1, fluid.CompiledProgram(tw.tmain)
+                         .with_mesh(mesh))
+        assert _scalar(got[0][0]) == pytest.approx(_scalar(want[0][0]),
+                                                   rel=LOSS_RTOL)
     for kw in (dict(dp=1, tp=2), dict(dp=1, sp=2)):
         walk = DataParallelWalk(_local(**kw), torch.device("cpu"))
         assert walk.axes == tuple(kw)[1:]
-    want, _ = tw.port(feed, 1, tw.tmain)
     apply_shard_rules(tw.tmain)
     try:
         for kw in (dict(dp=2, tp=2), dict(sp=2, tp=2)):

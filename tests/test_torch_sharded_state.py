@@ -893,6 +893,10 @@ def _scalar(v):
 
 
 SLICE_MODULES = ("paddle_tpu_torch.parallel.sharded",
+                 "paddle_tpu_torch.parallel.pipeline",
+                 "paddle_tpu_torch.parallel.moe",
+                 "paddle_tpu_torch.optimizer",
+                 "paddle_tpu_torch.layers.nn",
                  "paddle_tpu_torch.parallel.transpiler",
                  "paddle_tpu_torch.parallel.mesh",
                  "paddle_tpu_torch.transpiler",

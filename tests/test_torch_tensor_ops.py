@@ -57,19 +57,19 @@ DP_TOL = 1e-6
 
 RS = np.random.RandomState(24)
 
-# the JAX op names the port does not register: item 11's moe (expert
-# parallelism); its 13 collectives and 10c.6f's quant (11), sampling (3)
-# and match (5) ops are ported
+# the JAX op names the port does not register: none. Item 11's moe
+# (expert parallelism) and 13 collectives and 10c.6f's quant (11),
+# sampling (3) and match (5) ops are ported
 NOT_PORTED = {
     "10c.6f": [],
-    "11": ["moe"]}
+    "11": []}
 
-# the fluid.layers names the port does not have: item 11's layers,
-# layers.io's readers (item 11), and the JAX modules' own imports;
+# the fluid.layers names the port does not have: layers.io's six readers
+# (item 11c) and the JAX modules' own imports; item 11a's layers.moe and
 # 10c.6f's eight layers are ported
 LAYERS_NOT_PORTED = {
     "10c.6f": [],
-    "11": ["moe", "py_reader", "PyReader", "double_buffer", "read_file",
+    "11": ["py_reader", "PyReader", "double_buffer", "read_file",
            "load", "create_py_reader_by_data"],
     "imports": ["np", "Variable", "LayerHelper", "builtins_sum",
                 "init_mod"]}
@@ -156,19 +156,18 @@ def same(op, ins, attrs, slots):
 # ---------------------------------------------------------------------------
 
 def test_the_registry_lacks_only_10c6f_and_item_11():
-    """The port registers every JAX op name but item 11's moe (expert
-    parallelism, the next slice but one), listed here by name so that the
-    slice shrinks the list; the 13 collective ops are ported, and 10c.6f
-    lacks none (quant 11, sampling 3, match 5 ported); besides them it
-    has its own select_finite (C8): 373, the JAX package's count."""
+    """The port registers every JAX op name: item 11's moe (expert
+    parallelism) and 13 collective ops are ported, and 10c.6f lacks none
+    (quant 11, sampling 3, match 5 ported); besides them it has its own
+    select_finite (C8): 374, the JAX package's 373 and that one."""
     missing = sorted(set(JREG) - set(TREG))
     assert NOT_PORTED["10c.6f"] == []
     want = sorted(NOT_PORTED["11"])
-    assert len(want) == 1
+    assert len(want) == 0
     assert missing == want
     assert sorted(set(TREG) - set(JREG)) == ["select_finite"]
     assert len(JREG) == 373
-    assert len(TREG) == 373
+    assert len(TREG) == 374
 
 
 def test_the_slice_registers_every_op_with_a_dp_rule():
@@ -179,10 +178,10 @@ def test_the_slice_registers_every_op_with_a_dp_rule():
 
 def test_the_layer_surface_lacks_only_named_names():
     """sorted(set(dir(paddle_tpu.layers)) - set(dir(the port's))) holds
-    only item 11's layers, layers.io's readers and the JAX modules' own
-    imports, by name (none of 10c.6f's); layers.tensor, layers.loss,
-    layers.metric_op and layers.sequence lack none of the JAX modules'
-    public names."""
+    only layers.io's six readers (item 11c) and the JAX modules' own
+    imports, by name (none of 10c.6f's, no layers.moe); layers.tensor,
+    layers.loss, layers.metric_op and layers.sequence lack none of the
+    JAX modules' public names."""
     missing = sorted(set(dir(jfluid.layers)) - set(dir(tlayers)))
     assert LAYERS_NOT_PORTED["10c.6f"] == []
     assert missing == sorted(sum(LAYERS_NOT_PORTED.values(), []))

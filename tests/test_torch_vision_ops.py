@@ -91,14 +91,14 @@ def check(op, ins, attrs, slot, grad=(), rtol=RTOL):
 
 def test_the_slice_registers_every_op_with_a_dp_rule():
     """Every name of the JAX nn_ops this slice ports, and l2_normalize,
-    norm and cumsum, is registered with a dp rule; 373 ops in all, now
-    that the tensor, math, loss, metric, quant, sampling, match and
-    collective ops are registered too (test_torch_tensor_ops.py lists
-    the one still missing)."""
+    norm and cumsum, is registered with a dp rule; 374 ops in all, now
+    that the tensor, math, loss, metric, quant, sampling, match,
+    collective and moe ops are registered too (test_torch_tensor_ops.py
+    lists none missing)."""
     assert len(THE_SLICE) == 31
     for name in THE_SLICE:
         assert name in TREG and _DP_RULES[name] is not None, name
-    assert len(TREG) == 373
+    assert len(TREG) == 374
 
 
 # ---------------------------------------------------------------------------
