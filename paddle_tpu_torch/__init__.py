@@ -49,7 +49,13 @@ and the sharded checkpoint (``io.save_checkpoint_sharded``); and Fluid's
 collective training: ``python -m paddle_tpu_torch.distributed.launch``,
 ``fleet.init`` / ``fleet.distributed_optimizer`` (``parallel/fleet.py``,
 ``incubate.fleet``) and the collective ops, with tp, sp and dp in any mix
-over one mesh, local or a ``torch.distributed`` world. The top
+over one mesh, local or a ``torch.distributed`` world; and Fluid's
+inference entry point (``inference/``): ``create_predictor`` over a
+saved model with batch buckets, bf16, int8, tensor parallelism and
+``generation_server``, the ``torch.export`` artifact
+(``save_aot_model`` / ``load_aot_model``), the batching server and the
+paged decode adapter, with ``Executor.explain``'s static cost report.
+The top
 level is the ``fluid`` namespace of that recipe::
 
     import paddle_tpu_torch as fluid
@@ -80,6 +86,8 @@ from .core.param_attr import ParamAttr
 from .core.place import CPUPlace, CUDAPlace
 from .device import resolve_device
 from . import contrib, dataset, incubate, io, reader, robustness
+# the inference entry point (paddle_tpu/__init__.py:68 imports it too)
+from . import inference
 from . import communicator
 from .communicator import Communicator
 from .layers.io import fluid_data as data
@@ -104,6 +112,7 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "ExecutionStrategy", "FetchHandle", "FeedBucketer", "DataFeeder",
            "LoDTensor", "create_lod_tensor", "create_random_int_lodtensor",
            "contrib", "dataset", "incubate", "io", "reader", "robustness",
+           "inference",
            "save_params", "save_persistables",
            "save_vars", "load_params", "load_persistables", "load_vars",
            "save_inference_model", "load_inference_model",

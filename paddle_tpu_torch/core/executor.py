@@ -80,8 +80,10 @@ arithmetic is bitwise the unguarded one's (the sentinel only reads).
 
 One CUDA graph over this fixed-shape step, in place of the host's per-op
 launches, is later performance work; it needs the same pinned,
-fixed-shape feeds. Not ported: ``explain`` and cost analysis and the
-compile and recompile statistics (the port compiles no step).
+fixed-shape feeds. ``explain()`` and ``static_cost_analysis()`` walk a
+step on meta tensors (``observability/compile_insight.py``): nothing
+runs, nothing is read or written. Not ported: the compile and recompile
+statistics (the port compiles no step).
 
 A Program that ``PipelineOptimizer`` tagged, run through a
 ``CompiledProgram`` over a mesh with pp > 1, takes the pipelined branch
@@ -109,6 +111,7 @@ import contextlib
 import itertools
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -178,6 +181,16 @@ def scope_from_numpy(arrays, device, scope=None):
     return scope
 
 
+def host_array(t):
+    """A fetched tensor as a numpy copy on the host. numpy has no bf16:
+    a bf16 tensor comes back widened to f32, exactly (the JAX package
+    returns an ml_dtypes bf16 array)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return np.array(t.cpu())
+
+
 def _as_fetch_name(f):
     if isinstance(f, Variable):
         return f.name
@@ -205,6 +218,108 @@ def _slice_ops(block, fetch_names):
             keep.append(op)
             needed |= set(op.input_names)
     return list(reversed(keep))
+
+
+def _live_names(program, ops, names):
+    """What something reads: `names` (the fetches, the scope's
+    persistables, the guard's tensors) and every input of `ops`, with
+    what a structured op's sub-blocks read (their own ops' and the op's
+    out of them: its attributes name those)."""
+    live = set(names)
+    for op in ops:
+        live.update(op.input_names)
+        live.update(sub_block_reads(program, op))
+    return live
+
+
+def _run_ops(program, ops, env, device, is_test, live, walk=None):
+    for op in ops:
+        ops_registry.run_op(op, env, program, is_test, device, live, walk)
+
+
+def forward_walk(program, ops, env, device, is_test, live, walk=None):
+    """Run `ops` of `program` one by one through ``run_op`` over `env`
+    (name -> tensor) without autograd: the step of a Program with no
+    backward (``Executor.run``) and the inference walk
+    (``inference_walk``)."""
+    with torch.no_grad():
+        _run_ops(program, ops, env, device, is_test, live, walk)
+
+
+def inference_walk(program, env, fetch_names, device, is_test=True,
+                   rng=(0, 0)):
+    """The inference forward of `program`: the ops ``_slice_ops`` keeps
+    for `fetch_names`, in test mode, over `env` (the persistables and the
+    feeds by name), random ops seeded from `rng` (the (seed, step) pair
+    the Executor folds in; (0, 0) as the JAX exporter's ``PRNGKey(0)``).
+    Returns the fetch tensors. ``inference/aot.py`` exports it."""
+    ops = _slice_ops(program.global_block(), fetch_names)
+    env[ops_registry.RNG_KEY] = rng
+    live = _live_names(program, ops, list(fetch_names) + [
+        v.name for v in program.list_vars() if v.persistable])
+    forward_walk(program, ops, env, device, is_test, live)
+    return [env[n] for n in fetch_names]
+
+
+class _Step:
+    """What a step of `program` for `fetch_names` walks: the backward
+    marker's index (None without one); the ops (all of them with a
+    marker, else the forward slice for the fetches); the persistables'
+    names; the names the guard watches; and what something reads (a later
+    op, a fetch, the scope, the guard; the loss with a marker)."""
+
+    def __init__(self, program, fetch_names, guard=None):
+        self.program = program
+        self.fetch_names = list(fetch_names)
+        gb = program.global_block()
+        self.marker_idx = next((i for i, op in enumerate(gb.ops)
+                                if op.type == BACKWARD_MARKER), None)
+        marker = gb.ops[self.marker_idx] \
+            if self.marker_idx is not None else None
+        self.ops = gb.ops if marker is not None \
+            else _slice_ops(gb, fetch_names)
+        self.persist_names = sorted(v.name for v in program.list_vars()
+                                    if v.persistable)
+        self.guard_names = () if guard is None else guard.candidates(
+            marker.attr("loss") if marker is not None else None,
+            [grad_var_name(n) for n in marker.attr("params")]
+            if marker is not None else [], fetch_names)
+        self.live = _live_names(program, self.ops, set(fetch_names)
+                                | set(self.persist_names)
+                                | set(self.guard_names))
+        if marker is not None:
+            self.live.add(marker.attr("loss"))
+
+
+def _walk_step(step, env, device, walk=None, pipe=None):
+    """Run `step` (a ``_Step``) over `env` (name -> tensor) on `device`:
+    the forward slice under no_grad; or the forward under autograd (through
+    the Program's recompute policy, or the pipelined schedule `pipe`), the
+    backward and the ops after the marker. ``Executor._dispatch``'s step
+    on the card and ``Executor.explain``'s on meta tensors."""
+    program = step.program
+    is_test = program._is_test
+    if step.marker_idx is None:
+        forward_walk(program, step.ops, env, device, is_test, step.live,
+                     walk)
+        return
+    gb = program.global_block()
+
+    def run(ops, env=env):
+        _run_ops(program, ops, env, device, is_test, step.live, walk)
+
+    post = gb.ops[step.marker_idx + 1:]
+    keep = set(step.fetch_names) | set(step.persist_names) \
+        | set(step.guard_names)
+    for op in post:
+        keep.update(op.input_names)
+    policy = (getattr(program, "_recompute", None) or {}).get("policy")
+    if policy == "everything":      # saves everything: no recompute
+        policy = None
+    Executor._backward(gb.ops[step.marker_idx], env, run,
+                       gb.ops[:step.marker_idx], keep, policy, walk, pipe)
+    with torch.no_grad():
+        run(post)
 
 
 def _canon_host(value):
@@ -351,7 +466,7 @@ class FetchHandle:
         with self._exe._stats.span("executor.fetch",
                                    "executor.span.fetch_ms"):
             if return_numpy:
-                return [np.array(f.cpu()) for f in self._fetches]
+                return [host_array(f) for f in self._fetches]
             return list(self._fetches)
 
 
@@ -379,6 +494,9 @@ class Executor:
         self._exe_id = f"exe{next(_EXECUTOR_SEQ)}"
         self._stats = ComponentStats(gauge_labels={"executor": self._exe_id})
         self._telemetry_server = None   # serve_metrics() mount
+        # (program, feed shapes and dtypes, fetch names, a weak reference
+        # to the scope) of the latest step, for static_cost_analysis()
+        self._last_step = None
 
     # -- the synchronous and asynchronous surfaces -----------------------
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
@@ -392,7 +510,7 @@ class Executor:
         self._check_guard(guard)
         with self._stats.span("executor.fetch", "executor.span.fetch_ms"):
             if return_numpy:
-                out = [np.array(f.detach().cpu()) for f in fetches]
+                out = [host_array(f) for f in fetches]
             else:
                 out = [f.detach() for f in fetches]
         self._stats.observe("executor.step_ms",
@@ -638,6 +756,116 @@ class Executor:
         wide registry keeps its cumulative totals)."""
         self._stats.reset()
 
+    # -- the static cost report (compile_insight) -------------------------
+    def _meta_step(self, step):
+        """fn(state, feeds) -> fetches: `step` (a ``_Step`` of a plain
+        Program) walked by ``_walk_step``, as ``_dispatch`` walks it without
+        a mesh, over the meta tensors ``compile_insight.analyze_step``
+        passes. The step counter does not move."""
+        program, fetch_names = step.program, step.fetch_names
+        rng = (program.random_seed or framework.default_seed(),
+               self._step_counter)
+
+        def fn(state, feeds):
+            env = dict(state)
+            env.update(feeds)
+            env[ops_registry.RNG_KEY] = rng
+            _walk_step(step, env, torch.device("meta"))
+            return [env[f] for f in fetch_names]
+
+        return fn
+
+    def _explain_args(self, program, feed, scope):
+        """(state, feeds) of a step: the scope's persistables (read for
+        their shapes and dtypes only) and the feeds as meta tensors under
+        the port's feed policy (nothing goes to the device)."""
+        from ..observability.compile_insight import to_meta
+        state = {}
+        for v in program.list_vars():
+            t = scope.get(v.name) if v.persistable else None
+            if isinstance(t, ShardedTensor):
+                raise NotImplementedError(
+                    f"explain() reads a plain scope: '{v.name}' is "
+                    f"sharded (run the CompiledProgram's walk instead)")
+            if t is not None:
+                state[v.name] = t
+        feeds = {}
+        for k, v in (feed or {}).items():
+            if isinstance(v, torch.Tensor):
+                t = v.float() if v.dtype == torch.float64 else v
+                feeds[k] = to_meta(t)
+            else:
+                feeds[k] = torch.from_numpy(
+                    np.ascontiguousarray(_canon_host(v))).to("meta")
+        return state, feeds
+
+    def static_cost_analysis(self):
+        """Backend-independent cost of the most recent step, walked on
+        meta tensors (``compile_insight.analyze_step``): {'flops',
+        'per_primitive', 'intermediate_bytes', 'out_bytes', 'eqns'}. The
+        JAX Executor's cross-check column beside XLA's cost model; the
+        port has only this column."""
+        if self._last_step is None:
+            raise RuntimeError("no program has been run yet")
+        from ..observability.compile_insight import analyze_step
+        program, feed, fetch_names, scope = self._last_step
+        scope = scope()
+        if scope is None:
+            raise RuntimeError("the scope of the last step is gone")
+        state, feeds = self._explain_args(program, {
+            k: torch.empty(shape, dtype=dtype, device="meta")
+            for k, (shape, dtype) in feed.items()}, scope)
+        return analyze_step(
+            self._meta_step(_Step(program, fetch_names, self._guard)),
+            state, feeds)
+
+    def explain(self, program=None, feed=None, fetch_list=None,
+                scope=None, backend=None):
+        """The compile-plane report for (program, feed): FLOPs, bytes
+        accessed, peak device memory, per-aten-op and per-op-type
+        attribution, parameter vs optimizer-state bytes
+        (``compile_insight.explain_entry``).
+
+        Read-free: the step is walked on meta tensors, so no step runs,
+        the step counter does not move and no scope tensor is read or
+        written. `backend=None` and `backend=False` give the static
+        report; `backend=True` raises (the port compiles nothing, so no
+        backend reports a cost). ``compile_ms`` is None and
+        ``recompiles`` empty for the same reason. The report's peak
+        estimate is upserted into the process-wide HBM ledger (kind
+        ``peak_hbm``), as the JAX Executor does."""
+        from ..observability import compile_insight as _ci
+        program = program if program is not None else default_main_program()
+        if getattr(program, "_data_parallel", False):
+            raise NotImplementedError(
+                "explain() takes a plain Program — the data-parallel "
+                "CompiledProgram path places state per-mesh at run time")
+        program = getattr(program, "program", program)  # CompiledProgram
+        scope = scope if scope is not None else global_scope()
+        fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
+        state, feeds = self._explain_args(program, feed, scope)
+        step = _Step(program, fetch_names, self._guard)
+        self._validate(program, step.ops, feeds, fetch_names)
+        labels = {"program": f"program_{id(program):x}",
+                  "shapes": ";".join(
+                      f"{k}:{'x'.join(map(str, v.shape)) or 'scalar'}:"
+                      f"{str(v.dtype).replace('torch.', '')}"
+                      for k, v in sorted(feeds.items()))[:160]
+                  or "nofeeds"}
+        report = _ci.explain_entry(
+            self._meta_step(step), (state, feeds),
+            program=program, state=state, feeds=feeds, labels=labels,
+            backend=backend, device=self.device)
+        report["executor"] = self._exe_id
+        report["fetches"] = list(fetch_names)
+        report["compile_ms"] = None
+        report["recompiles"] = []
+        _ci.hbm_ledger().register(
+            self._exe_id, f"{labels['program']}/{labels['shapes']}/peak",
+            "peak_hbm", report["peak_hbm_bytes"],
+            detail={"source": report["source"]["peak_hbm"]})
+        return report
+
     # -- the dataset plane -------------------------------------------------
     def train_from_dataset(self, program=None, dataset=None, scope=None,
                            thread=0, debug=False, fetch_list=None,
@@ -730,19 +958,19 @@ class Executor:
                 program = program.program
         scope = scope if scope is not None else global_scope()
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
-        gb = program.global_block()
-        marker_idx = next((i for i, op in enumerate(gb.ops)
-                           if op.type == BACKWARD_MARKER), None)
-        run_ops = gb.ops if marker_idx is not None \
-            else _slice_ops(gb, fetch_names)
+        step = _Step(program, fetch_names, self._guard)
         feeds = _canon_feeds(feed or {}, self.device, pinned=in_flight)
-        self._validate(program, run_ops, feeds, fetch_names)
+        self._validate(program, step.ops, feeds, fetch_names)
+        # the step's feeds as (shape, dtype) and a weak reference to its
+        # scope: static_cost_analysis() reads no more than their metadata
+        self._last_step = (program, {k: (tuple(v.shape), v.dtype)
+                                     for k, v in feeds.items()},
+                           fetch_names, weakref.ref(scope))
         if walk is not None:
             walk.place_state(program, scope)
             feeds = walk.split_feeds(feeds)
 
-        persist_names = sorted(v.name for v in program.list_vars()
-                               if v.persistable)
+        persist_names = step.persist_names
         env = {n: scope.get(n) for n in persist_names
                if scope.get(n) is not None}
         # a plain run reads a sharded scope's global values; what it
@@ -758,55 +986,17 @@ class Executor:
         #                                 NonFiniteError reports
         env[ops_registry.RNG_KEY] = (seed, step_id)
         self._step_counter += 1
-        guard_names = ()
-        if self._guard is not None:
-            marker = gb.ops[marker_idx] if marker_idx is not None else None
-            guard_names = self._guard.candidates(
-                marker.attr("loss") if marker is not None else None,
-                [grad_var_name(n) for n in marker.attr("params")]
-                if marker is not None else [], fetch_names)
-        # what something reads: a later op, a fetch, or the scope
-        live = set(fetch_names) | set(persist_names) | set(guard_names)
-        for op in run_ops:
-            live.update(op.input_names)
-            # what a structured op's sub-blocks read, their own ops' and
-            # the op's out of them (its attributes name those)
-            live.update(sub_block_reads(program, op))
-        is_test = program._is_test
         pipe = None
-        if walk is not None and walk.pipelined and marker_idx is not None:
-            pipe = self._pipelined(program, marker_idx, fetch_names,
-                                   persist_names, feeds, walk, live,
-                                   is_test)
-
-        def run(ops, env=env):
-            for op in ops:
-                ops_registry.run_op(op, env, program, is_test, self.device,
-                                    live, walk)
-
+        if walk is not None and walk.pipelined \
+                and step.marker_idx is not None:
+            pipe = self._pipelined(program, step.marker_idx, fetch_names,
+                                   persist_names, feeds, walk, step.live,
+                                   program._is_test)
         with self._stats.span("executor.execute",
                               "executor.span.execute_ms"), \
                 (walk.active() if walk is not None
                  else contextlib.nullcontext()):
-            if marker_idx is None:
-                with torch.no_grad():
-                    run(run_ops)
-            else:
-                marker = gb.ops[marker_idx]
-                live.add(marker.attr("loss"))
-                post = gb.ops[marker_idx + 1:]
-                keep = set(fetch_names) | set(persist_names) \
-                    | set(guard_names)
-                for op in post:
-                    keep.update(op.input_names)
-                policy = (getattr(program, "_recompute", None) or {}).get(
-                    "policy")
-                if policy == "everything":  # saves everything: no recompute
-                    policy = None
-                self._backward(marker, env, run, gb.ops[:marker_idx], keep,
-                               policy, walk, pipe)
-                with torch.no_grad():
-                    run(post)
+            _walk_step(step, env, self.device, walk, pipe)
 
         for n in persist_names:
             if n in env:
@@ -822,7 +1012,7 @@ class Executor:
         self._stats.count("executor.steps")
         guard = None
         if self._guard is not None:
-            flags, owners = _guard_vector(env, guard_names)
+            flags, owners = _guard_vector(env, step.guard_names)
             if owners and walk is not None:
                 # a world rank reads only its blocks: every rank trips
                 # when any rank's block is non-finite

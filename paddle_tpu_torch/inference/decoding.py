@@ -15,9 +15,10 @@ decode's device), never from global state. They cannot match JAX's
 threefry bits: what is shared with the JAX package is the filter, the
 support and the scores of the chosen ids.
 
-Not ported: the ``paged_update`` branch of ``update_kv_cache`` (the
-serving package's ``PagedDecodeLayer`` adapter), which waits for that
-adapter.
+A layer cache with ``paged_update`` (the serving package's
+``PagedDecodeLayer``, from ``build_paged_decode_cache``) takes the paged
+branch of ``update_kv_cache``: the same step_fn then decodes against a
+block-pooled paged cache, dense or int8, unchanged.
 """
 
 import torch
@@ -50,7 +51,14 @@ def update_kv_cache(layer_cache, k_t, v_t, t):
     the decode loop's own; JAX returns a new one) and return the layer
     cache, whose full (B, H, T_max, D) views the attention masks beyond t.
     The cache dtype wins: K/V computed on an f32 path are cast to a bf16
-    cache."""
+    cache.
+
+    A layer cache exposing ``paged_update`` (serving.kv_cache's
+    PagedDecodeLayer) routes through it: it writes the step's K/V into
+    its block pools and presents the gathered dense view through the same
+    {'k', 'v'} mapping."""
+    if hasattr(layer_cache, "paged_update"):
+        return layer_cache.paged_update(k_t, v_t, t)
     layer_cache["k"][:, :, t:t + 1] = k_t.to(layer_cache["k"].dtype)
     layer_cache["v"][:, :, t:t + 1] = v_t.to(layer_cache["v"].dtype)
     return layer_cache

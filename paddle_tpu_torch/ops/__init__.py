@@ -222,7 +222,10 @@ class OpContext:
         x = generator_seed(seed, step, self.op.attrs.get("op_seed", 0))
         if self.dp_rank and not shared:
             x = _mix64(x ^ int(self.dp_rank))
-        gen = torch.Generator(device=self.device)
+        # a walk on meta tensors (Executor.explain) draws nothing: its
+        # ops take a host generator, which meta tensors accept
+        gen = torch.Generator(device=self.device
+                              if self.device.type != "meta" else "cpu")
         gen.manual_seed(x)
         return gen
 

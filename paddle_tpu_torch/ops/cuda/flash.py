@@ -85,7 +85,13 @@ computed in f32.
 The shared libraries are built at first use, from the repository's
 sources, into ``paddle_tpu_torch/csrc/build/`` with ``nvcc`` for
 ``sm_90a`` and loaded with ctypes. Nothing here builds anything at import
-time.
+time. The forward's launch is the registered op
+``paddle_tpu_torch::flash_attention_fwd`` (a ``torch.library`` schema
+with a CUDA kernel and a fake kernel that gives (out, lse)'s shapes):
+``flash_attention_cuda`` checks the operands and calls it, so that
+``torch.export`` records one node where a ctypes call on a fake tensor
+would fail (``inference/aot.py``). Registering it at import builds
+nothing.
 """
 
 import ctypes
@@ -275,6 +281,9 @@ def flash_dbias(q, k, v, bias, lse, do, delta, scale=None, causal=False,
 def _build_lib(source, name, argtypes):
     """Build and load csrc/<source> once per process and declare the
     argument types of its entry point `name`."""
+    lib = _libs.get(source)
+    if lib is not None:         # every launch asks: no lock once built
+        return lib
     with _lib_lock:
         lib = _libs.get(source)
         if lib is None:
@@ -408,23 +417,46 @@ def flash_attention_cuda(q, k, v, bias=None, segq=None, segk=None,
     made what the kernels take by ``_fwd_operands``.
     out is (B, H, Tq, D) contiguous in q's dtype, lse (B, H, Tq) f32.
     Raises on operands it does not take and on a refused launch; never
-    falls back."""
-    global LAUNCHES, TC_LAUNCHES
+    falls back. The launch goes through the registered op
+    ``paddle_tpu_torch::flash_attention_fwd`` (``flash_attention_fwd_op``),
+    so that ``torch.export`` records it as one node of the graph."""
     bias = _check(q, k, v, bias, segq, segk)
+    return _FWD_OP(q, k, v, bias, segq, segk, _scale(q, scale),
+                   bool(causal))
+
+
+# the op's schema, its CUDA kernel and its fake (tracing) kernel, through
+# torch.library's low-level registration: the C++ dispatcher calls the
+# Python kernel directly, where torch.library.custom_op's wrapper checks
+# aliasing and autograd on every call. Called through its resolved
+# overload, which skips the packet's overload lookup.
+_OPS = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_OPS.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, "
+            "Tensor? segq, Tensor? segk, float scale, bool causal) -> "
+            "(Tensor, Tensor)")
+_FWD_OP = torch.ops.paddle_tpu_torch.flash_attention_fwd.default
+
+
+def flash_attention_fwd_op(q, k, v, bias, segq, segk, scale, causal):
+    """The forward kernel's one launch, on operands ``_check`` accepted
+    (the bias already an f32 (B, H, Tq, Tk) view); counts it. The CUDA
+    kernel of ``paddle_tpu_torch::flash_attention_fwd``. Registering the
+    op builds nothing: the library is built at the first launch."""
+    global LAUNCHES, TC_LAUNCHES
     tc = q.dtype == torch.bfloat16
     q, k, v, bias = _fwd_operands(q, k, v, bias)
     lib = build()
     b, h, tq, d = q.shape
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the raw handle, without the Stream object current_stream() builds
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(segq),
             _ptr(segk), out.data_ptr(), lse.data_ptr(),
             _strides((q, k, v), bias), b, h, tq, k.shape[2], d,
-            _scale(q, scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
-            stream)
+            scale, int(causal), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: error "
                            f"{rc} (a cudaError_t; 9000: no "
@@ -434,6 +466,18 @@ def flash_attention_cuda(q, k, v, bias=None, segq=None, segk=None,
         LAUNCHES += 1
         TC_LAUNCHES += tc
     return out, lse
+
+
+_OPS.impl("flash_attention_fwd", flash_attention_fwd_op, "CUDA")
+
+
+@torch.library.register_fake("paddle_tpu_torch::flash_attention_fwd",
+                             lib=_OPS)
+def _flash_attention_fwd_fake(q, k, v, bias, segq, segk, scale, causal):
+    """(out, lse)'s shapes and dtypes, for tracing (``torch.export``)."""
+    b, h, tq, d = q.shape
+    return (q.new_empty((b, h, tq, d)),
+            q.new_empty((b, h, tq), dtype=torch.float32))
 
 
 def flash_attention_bwd_cuda(q, k, v, bias, segq, segk, out, lse, do,

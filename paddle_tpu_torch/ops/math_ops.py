@@ -152,6 +152,16 @@ def _prod(t):
     return r
 
 
+def _promoted(x, y):
+    """x and y in their common dtype where they differ, as ``jnp``
+    promotes mixed operands of a product (f32 x bf16 gives f32: a bf16
+    Predictor's weights under f32 feeds); torch's products refuse them."""
+    if x.dtype == y.dtype:
+        return x, y
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
 def _weight_replicated(ctx, walk):
     if ctx.is_sharded("Y"):
         return "the weight Y is dp-sharded"
@@ -161,7 +171,7 @@ def _weight_replicated(ctx, walk):
 @register("mul", dp=rows_if(_weight_replicated))
 def mul(ctx):
     """fluid mul: flatten x to 2-D at x_num_col_dims, matmul."""
-    x, y = ctx.in_("X"), ctx.in_("Y")
+    x, y = _promoted(ctx.in_("X"), ctx.in_("Y"))
     xnc = ctx.attr("x_num_col_dims", 1)
     ync = ctx.attr("y_num_col_dims", 1)
     xs, ys = x.shape, y.shape
@@ -228,7 +238,7 @@ def _matmul_rows(ctx, walk):
 
 @register("matmul", dp=rows_if(_matmul_rows))
 def matmul(ctx):
-    x, y = ctx.in_("X"), ctx.in_("Y")
+    x, y = _promoted(ctx.in_("X"), ctx.in_("Y"))
     if ctx.attr("transpose_X", False) and x.dim() > 1:
         x = x.transpose(-1, -2)
     if ctx.attr("transpose_Y", False) and y.dim() > 1:

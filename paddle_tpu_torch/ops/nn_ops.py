@@ -266,7 +266,8 @@ def _norms_rows(ctx, walk):
 def layer_norm(ctx):
     """Normalize over the axes from begin_norm_axis on, in f32 with the
     biased variance; Y in x's dtype, Mean/Variance (f32, x's leading
-    shape) only where something reads them."""
+    shape) only where something reads them. Scale and bias apply in f32
+    whatever their dtype, as JAX's f32 y promotes a bf16 scale."""
     x = ctx.in_("X")
     begin = ctx.attr("begin_norm_axis", 1)
     eps = ctx.attr("epsilon", 1e-5)
@@ -274,8 +275,10 @@ def layer_norm(ctx):
     scale = ctx.in_("Scale")
     bias = ctx.in_("Bias")
     y = F.layer_norm(x.float(), norm_shape,
-                     None if scale is None else scale.reshape(norm_shape),
-                     None if bias is None else bias.reshape(norm_shape),
+                     None if scale is None
+                     else scale.reshape(norm_shape).float(),
+                     None if bias is None
+                     else bias.reshape(norm_shape).float(),
                      eps)
     out = {"Y": y.to(x.dtype)}
     if ctx.wants("Mean") or ctx.wants("Variance"):

@@ -15,7 +15,8 @@ from .engine import (GenerationFuture, GenerationServer, GPTServingModel,
                      NonFiniteError)
 from .guided import (CharConstraint, ChoiceConstraint, Constraint,
                      JsonConstraint, RegexConstraint, TokenChoiceConstraint)
-from .kv_cache import (KV_QMAX, NULL_BLOCK, HostKVTier, PagedKVCache,
+from .kv_cache import (KV_QMAX, NULL_BLOCK, HostKVTier, PagedDecodeLayer,
+                       PagedKVCache, build_paged_decode_cache,
                        gather_block_kv, paged_attention,
                        paged_attention_reference)
 from .prefix_cache import PrefixCacheIndex, chain_hash, prompt_chain_keys
@@ -34,6 +35,7 @@ __all__ = ["GenerationServer", "GenerationFuture", "GPTServingModel",
            "BeamHypothesis", "GroupFuture", "GroupResult", "PagedKVCache",
            "HostKVTier", "paged_attention", "paged_attention_reference",
            "gather_block_kv", "NULL_BLOCK", "KV_QMAX",
+           "PagedDecodeLayer", "build_paged_decode_cache",
            "ContinuousBatchingScheduler", "DeadlineExceeded",
            "GenerationResult", "RequestCancelled", "PrefixCacheIndex",
            "chain_hash", "prompt_chain_keys", "SpecDecodeConfig",

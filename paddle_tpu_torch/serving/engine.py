@@ -68,7 +68,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models.gpt import (_cast_params, _check_tp, _ln, _one_rank,
-                          _to_device, gpt_tp_shardings, shard_params)
+                          _to_device, gpt_tp_shardings, load_params,
+                          shard_params)
 from ..observability import _help
 from ..observability.compile_insight import array_nbytes, hbm_ledger
 from ..observability.metrics import global_registry
@@ -288,6 +289,14 @@ class GPTServingModel:
         self._int8_weights = 0
         self.mesh = self.mesh_axis = self.tp_params = None
         self.tp = 1
+
+    @classmethod
+    def from_scope(cls, scope, cfg, device=None, dtype=None,
+                   attention=None):
+        """The model over a scope's gpt_* parameters (``gpt.load_params``:
+        a trained or loaded Program's scope, a Predictor's)."""
+        return cls(load_params(scope, cfg), cfg, device=device, dtype=dtype,
+                   attention=attention)
 
     # the matmul weights a quantize_int8'd layer dict carries as int8
     # codes + scales in place of each (the fused step dequantizes inline)
@@ -575,6 +584,10 @@ class GenerationServer:
         self._draft = None
         self._draft_cache = None
         self._draft_launches = 0
+        # the (shape, dtype) signatures the fused step was called with:
+        # the scheduler's static plan shapes keep it at one
+        self._signatures = set()
+        self._last_signature = None
         if spec is not None:
             # the draft pools mirror the target's block ids (same
             # num_blocks and block_size, the draft's head geometry): one
@@ -956,8 +969,15 @@ class GenerationServer:
                 if self._draft is not None:
                     draft_logps = self._run_draft(plan)
                 per_column = self._spec is not None
-                feed = [self._tensor(a) for a in (
-                    plan.tokens, plan.positions, plan.valid, plan.tables)]
+                host = (plan.tokens, plan.positions, plan.valid,
+                        plan.tables)
+                # recorded only when the plan's shapes change
+                sig = tuple((a.shape, a.dtype) for a in host)
+                if sig != self._last_signature:
+                    self._last_signature = sig
+                    self._signatures.add(tuple((shape, dtype.str)
+                                               for shape, dtype in sig))
+                feed = [self._tensor(a) for a in host]
                 if self.mesh is None:
                     do_sample, temperature, top_k, top_p, keys = \
                         plan.sample_ctl
@@ -1345,7 +1365,12 @@ class GenerationServer:
         st["block_size"] = self.block_size
         st["max_context"] = self.max_context
         st["device"] = str(self.device)
-        st["kernel"] = {"launches": _paged.LAUNCHES}
+        # engaged: this server's attention is the paged kernel (the card,
+        # no plain attention put in through the model's hook)
+        st["kernel"] = {"launches": _paged.LAUNCHES,
+                        "engaged": self.device.type == "cuda"
+                        and self.model.attention is paged_attention}
+        st["fused_step_signatures"] = len(self._signatures)
         st["pool_bytes"] = self.cache.pool_bytes()
         st["kv_quant"] = None
         if self.cache.quantized:

@@ -60,6 +60,7 @@ __all__ = ["PagedKVCache", "HostKVTier", "paged_attention",
            "paged_attention_reference",
            "gather_block_kv", "gather_block_kv_pair", "gather_block_scales",
            "write_block_kv", "write_block_kv_quant", "quantize_kv_rows",
+           "PagedDecodeLayer", "build_paged_decode_cache",
            "NULL_BLOCK", "NEG_INF", "KV_QMAX"]
 
 KV_QMAX = 127.0         # symmetric int8 range; -128 is never produced,
@@ -750,3 +751,98 @@ class PagedKVCache:
         t = np.full((max_blocks,), NULL_BLOCK, np.int32)
         t[:len(blocks)] = blocks
         return t
+
+
+# ---------------------------------------------------------------------------
+# dense-interface adapter for inference/decoding.py step_fns
+# ---------------------------------------------------------------------------
+
+class PagedDecodeLayer:
+    """One layer's paged cache behind the dense {"k", "v"} mapping of
+    inference/decoding.py's step_fns: ``layer["k"]`` gathers the table's
+    blocks into a dense (B, H, M*bs, D) view (positions past t are NULL-
+    block rows, masked by the step_fn's own cache_attention_bias), and
+    ``decoding.update_kv_cache`` routes to ``paged_update``, which writes
+    this step's K/V into its (block, row) slot of the pools IN PLACE, as
+    the port's dense update does. A plain class: the JAX adapter is a
+    pytree because it rides ``lax.scan`` carries; the port's decode loops
+    are Python loops.
+
+    int8 pools compose: with the k/v scale pools attached, ``layer["k"]``
+    dequantizes its gathered view to `compute_dtype` (so the step_fn's
+    dense math never sees int8) and ``paged_update`` quantizes at write
+    (``write_block_kv_quant``)."""
+
+    def __init__(self, k_pool, v_pool, block_table, k_scale=None,
+                 v_scale=None, compute_dtype=None):
+        self.k_pool = k_pool
+        self.v_pool = v_pool
+        self.block_table = block_table          # (B, M) int32
+        self.k_scale = k_scale                  # (N, H, bs) f32 or None
+        self.v_scale = v_scale
+        # what a dequantized read yields
+        self.compute_dtype = compute_dtype
+
+    def __getitem__(self, key):
+        if key not in ("k", "v"):
+            raise KeyError(key)
+        pool = self.k_pool if key == "k" else self.v_pool
+        g = gather_block_kv(pool, self.block_table)
+        scale = self.k_scale if key == "k" else self.v_scale
+        if scale is None:
+            return g
+        gs = gather_block_scales(scale, self.block_table)
+        cdt = self.compute_dtype or torch.float32
+        return (g.float() * gs[..., None]).to(cdt)
+
+    def paged_update(self, k_t, v_t, t):
+        """Write this step's K/V (B, H, 1, D) at logical position t (the
+        same t for every lane, the decode loops' contract) into the pools
+        and return this adapter. The pool dtype wins, as on the dense
+        path; int8 pools quantize at write."""
+        bs = self.k_pool.shape[2]
+        block_idx = self.block_table[:, t // bs].long()      # (B,)
+        off = t % bs
+        if self.k_scale is not None:
+            # (B, H, 1, D) -> the (B, C=1, H, D) rows the shared quantized
+            # write takes, at (B, 1) addresses
+            bi = block_idx[:, None]
+            offs = torch.full_like(bi, off)
+            write_block_kv_quant(self.k_pool, self.k_scale,
+                                 k_t.transpose(1, 2), bi, offs)
+            write_block_kv_quant(self.v_pool, self.v_scale,
+                                 v_t.transpose(1, 2), bi, offs)
+            return self
+        self.k_pool[block_idx, :, off, :] = k_t[:, :, 0, :].to(
+            self.k_pool.dtype)
+        self.v_pool[block_idx, :, off, :] = v_t[:, :, 0, :].to(
+            self.v_pool.dtype)
+        return self
+
+
+def build_paged_decode_cache(cache, batch, max_len):
+    """Allocate `batch` rows of `max_len` logical positions out of a
+    PagedKVCache (one without a local mesh) and return (layers, tables,
+    blocks): `layers` is a list of PagedDecodeLayer, one a layer, a drop-
+    in for ``decoding.init_kv_cache``'s under greedy_decode /
+    sample_decode step_fns; `tables` the (batch, M) int32 block tables on
+    the cache's device; `blocks` the flat allocation to hand back to
+    ``cache.free`` afterwards. Raises MemoryError, allocating nothing,
+    when the pool cannot hold them."""
+    m = cache.blocks_for_tokens(max_len)
+    rows, flat = [], []
+    for _ in range(batch):
+        blocks = cache.allocate(m)
+        if blocks is None:
+            cache.free(flat)
+            raise MemoryError(
+                f"paged pool exhausted: {batch} x {m} blocks requested, "
+                f"{cache.num_free} free")
+        rows.append(cache.make_table(blocks, m))
+        flat.extend(blocks)
+    tables = torch.from_numpy(np.stack(rows)).to(cache.device)
+    layers = [PagedDecodeLayer(p["k"], p["v"], tables, p.get("k_scale"),
+                               p.get("v_scale"),
+                               compute_dtype=cache.compute_dtype)
+              for p in cache.pools]
+    return layers, tables, flat

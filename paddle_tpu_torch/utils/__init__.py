@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (building the native libraries)."""
+"""Host-side helpers of the port: building the native libraries
+(``native.py``) and the model statistics (``model_stat.py``)."""

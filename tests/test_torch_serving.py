@@ -387,6 +387,11 @@ def test_port_imports_neither_jax_nor_reference_package():
         "need = ['paddle_tpu_torch.ops.flash',\n"
         "        'paddle_tpu_torch.ops.cuda.flash',\n"
         "        'paddle_tpu_torch.inference.decoding',\n"
+        "        'paddle_tpu_torch.inference.predictor',\n"
+        "        'paddle_tpu_torch.inference.aot',\n"
+        "        'paddle_tpu_torch.inference.serving',\n"
+        "        'paddle_tpu_torch.utils.model_stat',\n"
+        "        'paddle_tpu_torch.observability.compile_insight',\n"
         "        'paddle_tpu_torch.core.framework',\n"
         "        'paddle_tpu_torch.core.executor',\n"
         "        'paddle_tpu_torch.core.backward',\n"
@@ -475,12 +480,9 @@ def test_port_imports_neither_jax_nor_reference_package():
 
 
 # names of the reference's serving __all__ the port does not export yet,
-# each with the ROADMAP item it waits for
-SERVING_NAMES_LEFT = {
-    # queue A item 11 (tensor-parallel serving does not need them)
-    "PagedDecodeLayer": "A, left for later",
-    "build_paged_decode_cache": "A, left for later",
-}
+# each with the ROADMAP item it waits for (none: item 11b brought the
+# paged decode adapter)
+SERVING_NAMES_LEFT = {}
 
 
 def test_serving_exports_the_reference_names():
@@ -524,3 +526,33 @@ def test_entry_points_default_to_the_card(tiny):
         GenerationServer(cpu_model, start=False)
     with pytest.raises(ValueError, match="lives on"):
         GenerationServer(cpu_model, start=False, device="meta")
+
+
+def test_predictor_defaults_to_the_card(tmp_path):
+    """The Predictor serves on the card unless AnalysisConfig.disable_gpu()
+    was called (Fluid 1.5's switch, the only one): without CUDA it raises
+    naming CUDA, and never drops to the CPU on its own."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference, layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data(name="x", shape=[-1, 4], dtype="float32")
+        pred = layers.fc(x, size=2)
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path / "m"), ["x"], [pred],
+                                      exe, main_program=main)
+    cfg = inference.AnalysisConfig(str(tmp_path / "m"))
+    assert cfg.use_gpu()
+    if torch.cuda.is_available():
+        assert inference.create_predictor(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            inference.create_predictor(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            inference.create_predictor(str(tmp_path / "m"))
+    cpu = inference.create_predictor(cfg.disable_gpu())
+    assert not cfg.use_gpu() and cpu.device.type == "cpu"
+    out = cpu.run({"x": np.ones((2, 4), np.float32)})[0]
+    assert out.shape == (2, 2) and np.isfinite(out).all()
